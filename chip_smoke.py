@@ -35,6 +35,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    not equivalents), beside the least time the card needs for the same
    work.
 
+5. Encoder kernels at whisper-tiny width (D=384, 6 heads, F=1536,
+   T=1500, 80 mels), 64 clips: the conv stem, LN+QKV, the attention core
+   (also launched as the composed route's flash attention), the
+   out-projection, the whole attention block and the MLP block in all
+   four output modes, each against its plain version on the same card
+   inputs at the one-block bar (max|d| <= 2**-6 max|ref|, mean|d| <=
+   2**-9 mean|ref|).
+6. Extraction through the CLI (``--extract-only --random-whisper``,
+   tiny_default.yaml's widths and layers, the synthetic dataset, 128
+   clips, bf16): every encoder kernel's launch count is zeroed before
+   and checked after (stem once a batch, the attention launches and the
+   MLP block once a layer and batch), the plain versions are called no
+   time, and the 8 caches hold 128*1500 (encoder) or 128 (decoder) finite
+   rows of 384.  The first 2 clips of each cache are held against the
+   same extraction on the CPU (plain versions) at the stack bar (2**-4,
+   2**-7 per layer); the f32 mode on the card against the CPU at rtol
+   1e-3; one bf16 ``encoder_forward(use_fused=False)`` on 2 clips must
+   launch the attention core on the flash route once a layer.  Then the
+   CLI trains one epoch from the extracted ``encoder:3`` cache (loss
+   finite and falling) and the caches are deleted.
+7. Times of the extraction slice: ``extract_activations`` at batch 64
+   (bf16, all layers captured, decoder on), the CLI extraction end to
+   end, the device's busy share under ``torch.profiler``, and each
+   encoder kernel beside its plain version, its bound and a library
+   yardstick (``torch.matmul`` for the projections, the conv1d pair for
+   the stem, ``scaled_dot_product_attention`` for the core -- yardsticks,
+   not ports).
+
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Scratch files go under ``build/``.
 """
@@ -64,6 +92,21 @@ RANK = 64
 PEAK_BF16, PEAK_ALU, PEAK_BYTES = 989e12, 67e12, 3.35e12
 SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/sae_kernels.cu"
 NAMES = ("w_enc", "b_enc", "b_pre", "w_dec", "b_dec")
+# extraction slice: whisper-tiny width, 64 clips a batch
+ENC_B, ENC_T, ENC_D, ENC_HEADS, ENC_F, N_MELS = 64, 1500, 384, 6, 1536, 80
+EXTRACT_CLIPS = 128
+ENC_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/encoder_kernels.cu"
+# exp per second on the special-function units: 132 SMs x 16 a clock x 1.98 GHz
+PEAK_SFU = 132 * 16 * 1.98e9
+BLOCK_BAR, STACK_BAR = (2.0**-6, 2.0**-9), (2.0**-4, 2.0**-7)
+ENC_REPLACES = {
+    "conv_stem": "src/whisper_sae_tpu/ops/pallas_encoder.py:604",
+    "ln_qkv": "src/whisper_sae_tpu/ops/pallas_encoder.py:340",
+    "self_attention": "src/whisper_sae_tpu/ops/pallas_encoder.py:340",
+    "out_proj": "src/whisper_sae_tpu/ops/pallas_encoder.py:340",
+    "mlp_block": "src/whisper_sae_tpu/ops/pallas_encoder.py:500",
+    "flash_self_attention": "src/whisper_sae_tpu/models/whisper.py:141",
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -97,6 +140,27 @@ def bound(nbytes: float, tc_flops: float, alu_ops: float) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES
     t_ops = max(tc_flops / PEAK_BF16, alu_ops / PEAK_ALU)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def enc_bound(nbytes: float, tc_flops: float, exps: float = 0.0) -> tuple[float, str]:
+    """Least time (ms) of an encoder kernel: bytes vs bf16 tensor-core
+    operations and, for the attention core, exps on the SFUs."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(tc_flops / PEAK_BF16, exps / PEAK_SFU)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bar_check(got: torch.Tensor, want: torch.Tensor, bar: tuple[float, float], what: str) -> float:
+    """max|d| <= bar[0] * max|ref| and mean|d| <= bar[1] * mean|ref|;
+    returns max|d|."""
+    g, w = got.float(), want.float().to(got.device)
+    check(tuple(g.shape) == tuple(w.shape), f"{what}: shape {tuple(g.shape)} != {tuple(w.shape)}")
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite values")
+    d = (g - w).abs()
+    mx, mn = float(d.max() / w.abs().max()), float(d.mean() / w.abs().mean())
+    check(mx <= bar[0] and mn <= bar[1],
+          f"{what}: max rel {mx:.3g}, mean rel {mn:.3g} above the bar {bar}")
+    return float(d.max())
 
 
 def params(seed: int, dev) -> dict[str, torch.Tensor]:
@@ -396,6 +460,360 @@ def times(dev, cuda_sae, cuda_topk, topk) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 5-7: the extraction slice
+# ---------------------------------------------------------------------------
+
+
+def encoder_inputs(dev, W) -> dict:
+    """A bf16 whisper-tiny encoder (weights, biases and LN parameters all
+    randomised) and a batch of 64 random mels on the card, with the
+    inputs of every encoder kernel."""
+    g = torch.Generator().manual_seed(11)
+    p = W.init_whisper(g, W.arch_for("openai/whisper-tiny"))["encoder"]
+    p = W._tree_map(lambda a: a + 0.02 * torch.randn(a.shape, generator=g), p)
+    enc = W.params_to(W.cast_params(p, torch.bfloat16), dev)
+    lp = W._layer(enc["layers"], 0)
+    mel = (torch.randn(ENC_B, N_MELS, 2 * ENC_T, generator=g) * 0.5).to(dev).bfloat16()
+    return {"enc": enc, "lp": lp, "mel": mel,
+            "stem": (mel, enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"],
+                     enc["pos"]),
+            "final_ln": (enc["ln_f_g"].float(), enc["ln_f_b"].float())}
+
+
+def encoder_kernel_phase(dev, W, E, CE) -> tuple[dict, dict]:
+    """Phase 5; returns (max abs errors by kernel, the inputs for phase 7)."""
+    inp = encoder_inputs(dev, W)
+    lp, errs = inp["lp"], {}
+    x = E.conv_stem_plain(*inp["stem"])
+    errs["conv_stem"] = bar_check(CE.conv_stem_fwd(*inp["stem"]), x, BLOCK_BAR, "conv_stem")
+    rows = x.view(-1, ENC_D)
+    qkv = E.ln_qkv_plain(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS)
+    got = CE.ln_qkv_fwd(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS)
+    errs["ln_qkv"] = max(bar_check(a, b, BLOCK_BAR, f"ln_qkv {n}")
+                         for n, a, b in zip("qkv", got, qkv))
+    q, k, v = (a.view(ENC_B, ENC_T, ENC_D) for a in qkv)
+    attn = E.self_attention_plain(q, k, v, ENC_HEADS)
+    errs["self_attention"] = bar_check(CE.self_attention_fwd(q, k, v, ENC_HEADS), attn,
+                                       BLOCK_BAR, "self_attention")
+    errs["flash_self_attention"] = bar_check(CE.flash_self_attention_fwd(q, k, v, ENC_HEADS),
+                                             attn, BLOCK_BAR, "flash_self_attention")
+    arows = attn.view(-1, ENC_D)
+    errs["out_proj"] = bar_check(CE.out_proj_fwd(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
+                                 E.out_proj_plain(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
+                                 BLOCK_BAR, "out_proj")
+    block = E.attention_block_plain(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS)
+    block_err = bar_check(CE.attention_block_fwd(x, lp["ln1_g"], lp["ln1_b"], lp["attn"],
+                                                 ENC_HEADS), block, BLOCK_BAR, "attention block")
+    brows = block.view(-1, ENC_D)
+    errs["mlp_block"] = 0.0
+    for capture, fl, cap_dt in ((False, None, torch.bfloat16), (True, None, torch.bfloat16),
+                                (False, inp["final_ln"], torch.bfloat16),
+                                (True, inp["final_ln"], torch.float32)):
+        got = CE.mlp_block_fwd(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
+        want = E.mlp_block_plain(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
+        got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+        check(len(got) == len(want) and all(a.dtype == b.dtype for a, b in zip(got, want)),
+              f"mlp_block capture={capture} final_ln={fl is not None}: outputs differ in kind")
+        for a, b in zip(got, want):
+            errs["mlp_block"] = max(errs["mlp_block"], bar_check(
+                a, b, BLOCK_BAR, f"mlp_block capture={capture} final_ln={fl is not None}"))
+    torch.cuda.synchronize()
+    log("  " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f", attention block {block_err:.3g} (max abs err, each within the one-block bar)")
+    inp.update(x=x, rows=rows, q=q, k=k, v=v, arows=arows, brows=brows)
+    return errs, inp
+
+
+def extraction_config(work: Path) -> Path:
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    check(cfg["whisper"]["model_name"] == "openai/whisper-tiny" and cfg["training"]["use_amp"]
+          and cfg["encoder_layers"] == [0, 1, 2, 3] and cfg["decoder_layers"] == [0, 1, 2, 3],
+          "tiny_default.yaml's model, layers or AMP changed")
+    cfg["data"].update(dataset_name="synthetic", max_samples=EXTRACT_CLIPS,
+                       cache_dir=str(work / "xcache"))
+    cfg["training"].update(epochs=1, warmup_steps=100)
+    cfg["output_dir"] = str(work / "xout")
+    cfg["experiment_name"] = "extract_smoke"
+    path = work / "extract_smoke.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+ENC_WRAPPERS = ("conv_stem", "ln_qkv", "self_attention", "out_proj", "mlp_block",
+                "flash_self_attention")
+
+
+def enc_wrappers(CE) -> dict:
+    return {name: getattr(CE, f"{name}_fwd") for name in ENC_WRAPPERS}
+
+
+def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E, CE) -> dict:
+    """Phase 6; returns launches by kernel and the CLI's end-to-end clips/s."""
+    path = extraction_config(work)
+    cfg = cfg_mod.ExperimentConfig.from_yaml(path)
+    wrappers = enc_wrappers(CE)
+    for w in wrappers.values():
+        w.launches = 0
+    E.plain_calls.clear()
+    t0 = time.perf_counter()
+    out = train_mod.main(["--config", str(path), "--extract-only", "--random-whisper",
+                          "--no-wandb"])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    log(f"  CLI extracted {EXTRACT_CLIPS} clips in {extract_s:.2f} s "
+        f"({EXTRACT_CLIPS / extract_s:,.1f} clips/s end to end: mel, forward, transfer, disk); "
+        f"launches {launches}, plain-version calls {dict(E.plain_calls)}")
+    check(out == {}, "--extract-only trained something")
+    batches = -(-EXTRACT_CLIPS // 64)
+    layers = len(cfg.encoder_layers)
+    want = {"conv_stem": batches, "ln_qkv": layers * batches, "self_attention": layers * batches,
+            "out_proj": layers * batches, "mlp_block": layers * batches,
+            "flash_self_attention": 0}
+    check(launches == want, f"extraction launches {launches} != {want}")
+    check(sum(E.plain_calls.values()) == 0, f"plain versions ran on the card: {E.plain_calls}")
+
+    # the 8 caches, then the first 2 clips against the CPU
+    cache = cache_mod.FeatureCache(work / "xcache" / "features", cfg.whisper, cfg.data)
+    arch = W.arch_for(cfg.whisper.model_name)
+    params = W.init_whisper(torch.Generator().manual_seed(cfg.training.seed), arch)
+    ds = ds_mod.SyntheticSpeechDataset(EXTRACT_CLIPS, seed=cfg.training.seed, n_mels=arch.n_mels)
+    mel2 = torch.from_numpy(np.stack([ds[i]["input_features"] for i in range(2)]))
+    ref = W.extract_activations(params, mel2, arch, compute_dtype=torch.bfloat16,
+                                capture_dtype=torch.bfloat16)
+    worst = {}
+    for comp, n_layers, tokens in (("encoder", arch.encoder_layers, ENC_T),
+                                   ("decoder", arch.decoder_layers, 1)):
+        for layer in range(n_layers):
+            meta = cache.load_metadata(comp, layer)
+            check((meta.num_tokens, meta.hidden_dim, meta.num_samples, meta.dtype)
+                  == (EXTRACT_CLIPS * tokens, ENC_D, EXTRACT_CLIPS, "float32"),
+                  f"{comp}:{layer} metadata {meta}")
+            rows, _ = cache.load(comp, layer)
+            check(bool(torch.isfinite(rows).all()), f"{comp}:{layer}: non-finite rows")
+            bar_check(rows[:2 * tokens], ref[comp][layer].reshape(-1, ENC_D), STACK_BAR,
+                      f"{comp}:{layer} first 2 clips, card vs CPU")
+            d = (rows[:2 * tokens] - ref[comp][layer].reshape(-1, ENC_D).float()).abs()
+            worst[f"{comp}:{layer}"] = float(d.mean() / ref[comp][layer].float().abs().mean())
+            del rows
+    log(f"  8 caches of 128 clips; first 2 clips vs the CPU, mean rel err by layer: "
+        + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()) + " (stack bar 2**-7)")
+
+    # the f32 mode on the card against the CPU
+    p_dev = W.params_to(params, dev)
+    f32_card = W.extract_activations(p_dev, mel2.to(dev), arch)
+    f32_cpu = W.extract_activations(params, mel2, arch)
+    for key, want_t in f32_cpu.items():
+        try:
+            torch.testing.assert_close(f32_card[key].cpu(), want_t, rtol=1e-3, atol=1e-4)
+        except AssertionError as e:
+            raise SmokeFailure(f"f32 extraction {key}: card vs CPU: {e}") from None
+    log("  f32 extraction on 2 clips: card equals the CPU at rtol 1e-3")
+
+    # the composed route sends its attention core to the kernel (row 11)
+    wrappers["flash_self_attention"].launches = 0
+    with torch.no_grad():
+        last, outs = W.encoder_forward(W.cast_params(p_dev, torch.bfloat16),
+                                       mel2.to(dev).bfloat16(), arch, use_fused=False)
+    torch.cuda.synchronize()
+    launches["flash_self_attention"] = wrappers["flash_self_attention"].launches
+    check(launches["flash_self_attention"] == arch.encoder_layers,
+          f"flash route: {launches['flash_self_attention']} launches")
+    check(bool(torch.isfinite(outs.float()).all()), "flash route: non-finite")
+    fused = W.extract_activations(p_dev, mel2.to(dev), arch, compute_dtype=torch.bfloat16,
+                                  apply_layer_norm=False, with_decoder=False)
+    for layer in range(arch.encoder_layers):
+        bar_check(outs[layer], fused["encoder"][layer], STACK_BAR,
+                  f"composed bf16 route layer {layer} vs fused")
+    log(f"  composed bf16 route on 2 clips: {launches['flash_self_attention']} flash-route "
+        "launches, layers within the stack bar of the fused route")
+
+    # the two slices meet: train one epoch from the extracted encoder:3 cache
+    t0 = time.perf_counter()
+    (trainer,) = train_mod.main(["--config", str(path), "--layer", "encoder:3",
+                                 "--no-wandb"]).values()
+    train_s = time.perf_counter() - t0
+    rows = json.loads((trainer.run_dir / "metrics.json").read_text())
+    losses = np.array([r["loss"] for r in rows])
+    check(len(rows) == -(-EXTRACT_CLIPS * ENC_T // 128), f"metrics.json has {len(rows)} rows")
+    check(bool(np.isfinite(losses).all()), "training on the extracted cache: non-finite loss")
+    tenth = max(1, len(losses) // 10)
+    first, last_l = float(losses[:tenth].mean()), float(losses[-tenth:].mean())
+    check(last_l < first, f"training on the extracted cache: loss did not fall "
+                          f"({first:.5f} -> {last_l:.5f})")
+    log(f"  trained encoder:3 from the extracted cache, {len(rows)} steps in {train_s:.1f} s: "
+        f"loss {first:.5f} -> {last_l:.5f}")
+    shutil.rmtree(work / "xcache", ignore_errors=True)
+    return {"launches": launches, "cli_clips_per_s": EXTRACT_CLIPS / extract_s}
+
+
+def extraction_times(dev, W) -> dict:
+    """Phase 7a: the bench definition (random weights and mel, batch 64,
+    bf16, all layers captured in bf16, decoder on), 8 batches timed on the
+    host clock; then the device's busy share under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    arch = W.arch_for("openai/whisper-tiny")
+    p = W.params_to(W.cast_params(W.init_whisper(torch.Generator().manual_seed(0), arch),
+                                  torch.bfloat16), dev)
+    mels = torch.randn(8, ENC_B, N_MELS, 2 * ENC_T, generator=torch.Generator().manual_seed(1),
+                       device="cpu").to(dev)
+
+    def run(n):
+        for i in range(n):
+            W.extract_activations(p, mels[i], arch, compute_dtype=torch.bfloat16,
+                                  capture_dtype=torch.bfloat16)
+
+    run(2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(8)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    clips_s = 8 * ENC_B / dt
+    res = {"clips_per_s": clips_s, "tokens_per_s_per_layer": clips_s * ENC_T,
+           "batch_ms": 1e3 * dt / 8}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(3)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
+    res["busy_ms"] = busy
+    log(f"  extract_activations, batch 64 bf16: {res['batch_ms']:.3f} ms a batch, "
+        f"{clips_s:,.1f} clips/s, {res['tokens_per_s_per_layer']:,.0f} activation tokens/s "
+        "per layer")
+    if busy <= 0:
+        log("  device busy time: not measured (the profiler saw no device time)")
+        return res
+    log(f"  device busy {busy:.3f} ms a batch (profiled run), idle share "
+        f"{max(0.0, 1 - busy / res['batch_ms']):.1%} of the unprofiled batch")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"    {e.self_device_time_total / 1e3 / 3:8.4f} ms/batch  {e.count // 3:3d}x  "
+            f"{e.key[:90]}")
+    return res
+
+
+def extraction_breakdown(work: Path, dev, W, cfg_mod, cache_mod, ds_mod) -> dict:
+    """Phase 7c: where one 64-clip batch of the CLI's extraction spends
+    its time, each stage timed alone on the host clock (ending in a
+    synchronise): waveforms, log-mel, upload, the encoder's stem and
+    layers (CUDA events), the decoder, the device->host copy of the 8
+    captured layers, and the f32 widening plus ``.npy`` writes."""
+    arch = W.arch_for("openai/whisper-tiny")
+    params = W.init_whisper(torch.Generator().manual_seed(0), arch)
+    t0 = time.perf_counter()
+    p = W.cast_params(W.params_to(params, dev), torch.bfloat16)
+    torch.cuda.synchronize()
+    res = {"weights_to_card_ms": 1e3 * (time.perf_counter() - t0)}
+    ds = ds_mod.SyntheticSpeechDataset(ENC_B, seed=0, device=dev)
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res[name] = 1e3 * (time.perf_counter() - t)
+        return out
+
+    stage("warm_mel_ms", lambda: ds_mod.SyntheticSpeechDataset(2, seed=9, device=dev)[0])
+    waves = stage("waveforms_ms", lambda: np.stack([ds.waveform(i) for i in range(ENC_B)]))
+    mel_np = stage("log_mel_ms", lambda: ds_mod.log_mel_spectrogram(waves, device=dev).cpu().numpy())
+    mel = stage("upload_ms", lambda: torch.from_numpy(mel_np).bfloat16().to(dev))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    with torch.no_grad(), W.f32_matmuls():
+        W.encoder_forward(p, mel, arch, capture_final_ln=True)  # warm
+        torch.cuda.synchronize()
+        ev[0].record()
+        x = W.encoder_ops.conv_stem(mel, p["encoder"])
+        ev[1].record()
+        fl = (p["encoder"]["ln_f_g"].float(), p["encoder"]["ln_f_b"].float())
+        _, caps, _ = W._fused_encoder_layers(x, p["encoder"], arch, False, fl, torch.bfloat16)
+        ev[2].record()
+        bos = torch.full((ENC_B, 1), arch.decoder_start_token_id, device=dev)
+        _, dec, _ = W.decoder_forward(p, bos, caps[-1], arch, with_mlp=True)
+        ev[3].record()
+        torch.cuda.synchronize()
+    res["stem_ms"] = ev[0].elapsed_time(ev[1])
+    res["encoder_layers_ms"] = ev[1].elapsed_time(ev[2])
+    res["decoder_ms"] = ev[2].elapsed_time(ev[3])
+    copy_stream = torch.cuda.Stream(dev)  # the extraction loop's pinned side-stream copy
+    host = stage("to_host_ms", lambda: tuple(cache_mod._start_pull(a.bfloat16(), copy_stream)()
+                                             for a in (caps, dec)))
+    cache = cache_mod.FeatureCache(work / "bcache", cfg_mod.WhisperConfig(), cfg_mod.DataConfig())
+
+    def write():
+        for comp, stack in zip(("encoder", "decoder"), host):
+            wide = stack.float()
+            for layer in range(stack.shape[0]):
+                w = cache.writer(comp, layer)
+                w.append(wide[layer].reshape(-1, ENC_D))
+                w.finalize(ENC_B)
+
+    stage("widen_and_write_ms", write)
+    shutil.rmtree(work / "bcache", ignore_errors=True)
+    log("  one 64-clip batch of the CLI's extraction, stage by stage (ms): "
+        + ", ".join(f"{k[:-3]} {v:.2f}" for k, v in res.items()))
+    return res
+
+
+def encoder_kernel_times(inp: dict, E, CE) -> dict:
+    """Phase 7b: each encoder kernel at 64 clips, its plain version, its
+    bound and a library yardstick, on phase 5's inputs."""
+    import torch.nn.functional as F
+
+    lp, mel, enc = inp["lp"], inp["mel"], inp["enc"]
+    rows, arows, brows, q, k, v = (inp[n] for n in ("rows", "arows", "brows", "q", "k", "v"))
+    n, d, f, t, b = rows.shape[0], ENC_D, ENC_F, ENC_T, ENC_B
+    bf = 2  # bytes of a bf16 value
+    wq = torch.cat([lp["attn"]["wq"], lp["attn"]["wk"], lp["attn"]["wv"]], dim=1)
+    fl = inp["final_ln"]
+    hq, hk, hv = (a.view(b, t, ENC_HEADS, 64).transpose(1, 2) for a in (q, k, v))
+    w1, w2 = enc["conv1_w"], enc["conv2_w"]
+    res = {}
+    res["conv_stem"] = (
+        time_ms(lambda: CE.conv_stem_fwd(*inp["stem"])),
+        time_ms(lambda: E.conv_stem_plain(*inp["stem"]), iters=5, warmup=1),
+        *enc_bound(b * N_MELS * 2 * t * bf + (3 * N_MELS * d + 3 * d * d + t * d) * bf
+                   + b * t * d * bf, 2 * b * t * d * (3 * N_MELS + 3 * d)),
+        time_ms(lambda: F.conv1d(F.conv1d(mel, w1, enc["conv1_b"], padding=1), w2,
+                                 enc["conv2_b"], stride=2, padding=1)),
+    )
+    res["ln_qkv"] = (
+        time_ms(lambda: CE.ln_qkv_fwd(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS)),
+        time_ms(lambda: E.ln_qkv_plain(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS),
+                iters=5, warmup=1),
+        *enc_bound(4 * n * d * bf + 3 * d * d * bf, 2 * n * d * 3 * d),
+        time_ms(lambda: torch.matmul(rows, wq)),
+    )
+    core = (time_ms(lambda: CE.self_attention_fwd(q, k, v, ENC_HEADS)),
+            time_ms(lambda: E.self_attention_plain(q, k, v, ENC_HEADS), iters=3, warmup=1),
+            *enc_bound(4 * n * d * bf, 4 * b * t * t * d, b * ENC_HEADS * t * t),
+            time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=1.0)))
+    res["self_attention"] = core
+    res["flash_self_attention"] = (time_ms(lambda: CE.flash_self_attention_fwd(q, k, v, ENC_HEADS)),
+                                   *core[1:])
+    res["out_proj"] = (
+        time_ms(lambda: CE.out_proj_fwd(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"])),
+        time_ms(lambda: E.out_proj_plain(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
+                iters=5, warmup=1),
+        *enc_bound(3 * n * d * bf + d * d * bf, 2 * n * d * d),
+        time_ms(lambda: torch.matmul(arows, lp["attn"]["wo"])),
+    )
+    # the main path's mode: final-LN capture in bf16, no MLP pair
+    res["mlp_block"] = (
+        time_ms(lambda: CE.mlp_block_fwd(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], False, fl)),
+        time_ms(lambda: E.mlp_block_plain(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], False, fl),
+                iters=5, warmup=1),
+        *enc_bound(3 * n * d * bf + 2 * d * f * bf, 4 * n * d * f),
+        time_ms(lambda: torch.matmul(torch.matmul(brows, lp["mlp"]["w1"]), lp["mlp"]["w2"])),
+    )
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -408,6 +826,10 @@ def main() -> int:
         from whisper_sae_tpu_torch.data import feature_cache as cache_mod
         from whisper_sae_tpu_torch.models import sae as sae_mod
         from whisper_sae_tpu_torch.ops import _build, cuda_sae, cuda_topk, topk
+        from whisper_sae_tpu_torch.data import librispeech as ds_mod
+        from whisper_sae_tpu_torch.models import whisper as W
+        from whisper_sae_tpu_torch.ops import cuda_encoder as CE
+        from whisper_sae_tpu_torch.ops import encoder as E
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the repository root",
               file=sys.stderr)
@@ -458,6 +880,12 @@ def main() -> int:
         "for A and B, torch.topk for C -- not equivalents)")
     step_profile(trainer, dev, mix)
     res = times(dev, cuda_sae, cuda_topk, topk)
+
+    log("phase 5: encoder kernels at whisper-tiny width, 64 clips, against their plain versions")
+    enc_errs, enc_inp = encoder_kernel_phase(dev, W, E, CE)
+
+    log("phase 6: extraction through the CLI, then agreement and training from its cache")
+    extraction = extraction_path(work, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E, CE)
     replaces = {
         "fused_sae_loss": "src/whisper_sae_tpu/ops/pallas_sae.py:249",
         "fused_sae_loss_indexed": "src/whisper_sae_tpu/ops/pallas_sae.py:424",
@@ -480,6 +908,24 @@ def main() -> int:
             "at_batch_128": {"ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
                              "bound_by": s_by, "library_ms": s_lib},
         })
+    log("phase 7: times of the extraction slice (library_ms: torch.matmul for the "
+        "projections, the conv1d pair for the stem, scaled_dot_product_attention for the core "
+        "-- yardsticks, not equivalents)")
+    ext_times = extraction_times(dev, W)
+    log(f"  CLI extraction end to end: {extraction['cli_clips_per_s']:,.1f} clips/s")
+    ext_times["breakdown_ms"] = extraction_breakdown(work, dev, W, cfg_mod, cache_mod, ds_mod)
+    enc_res = encoder_kernel_times(enc_inp, E, CE)
+    for name in ENC_WRAPPERS:
+        ms, plain, bound_ms, by, lib_ms = enc_res[name]
+        log(f"  {name:24s} B={ENC_B:5d}: {ms:.4f} ms, plain {plain:.4f}, bound {bound_ms:.4f} "
+            f"({by}), library {lib_ms:.4f}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": ENC_SOURCE, "replaces": ENC_REPLACES[name],
+            "launches": extraction["launches"][name], "max_abs_err": enc_errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "batch": ENC_B,
+        })
+    log(f"  extraction: {json.dumps({**ext_times, 'cli_clips_per_s': extraction['cli_clips_per_s']})}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

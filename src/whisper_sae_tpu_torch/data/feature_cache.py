@@ -1,5 +1,5 @@
-"""Per-layer activation cache (counterpart of
-``whisper_sae_tpu/data/feature_cache.py:46-336``), read and write side.
+"""Per-layer activation cache and the extraction loop (counterpart of
+``whisper_sae_tpu/data/feature_cache.py``).
 
 The on-disk format is the JAX package's: ``.npy`` shards named
 ``{model_short}_{component}_layer{N}_shard{i:04d}.npy`` and a
@@ -11,11 +11,16 @@ third-party dtype package.
 
 A cache loads into memory whole, multi-shard caches included (there is
 no out-of-core reader yet).
+
+``extract_and_cache_features`` runs Whisper over an audio loader on one
+device and streams the requested layers into such caches; the mesh
+(multi-device) form of the JAX package is not ported.
 """
 
 from __future__ import annotations
 
 import json
+from collections.abc import Callable
 from dataclasses import asdict, dataclass
 from datetime import datetime
 from pathlib import Path
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import DataConfig, WhisperConfig
+from ..models.whisper import WhisperArch, cast_params, extract_activations, params_to
 from .loader import ActivationLoader
 
 DEFAULT_SHARD_TOKENS = 1 << 21
@@ -128,6 +134,20 @@ class CacheWriter:
         self._shards.append(path.name)
         self._buf, self._buf_tokens = [], 0
 
+    def state(self) -> dict:
+        """Resumable-extraction cut: flush the buffer to a (possibly short)
+        shard and return what a restarted run needs to append after it."""
+        self._flush()
+        return {"shards": list(self._shards), "num_tokens": self.num_tokens,
+                "hidden_dim": self.hidden_dim}
+
+    def restore(self, state: dict) -> None:
+        """Continue from a :meth:`state` snapshot (its shards are on disk)."""
+        self._shards = list(state["shards"])
+        self.num_tokens = int(state["num_tokens"])
+        self.hidden_dim = state["hidden_dim"]
+        self._buf, self._buf_tokens = [], 0
+
     def finalize(self, num_samples: int) -> CacheMetadata:
         self._flush()
         meta = CacheMetadata(
@@ -192,3 +212,201 @@ class FeatureCache:
                        shuffle: bool = True, seed: int = 0) -> ActivationLoader:
         features, _ = self.load(component, layer_idx)
         return ActivationLoader(features, batch_size=batch_size, shuffle=shuffle, seed=seed)
+
+
+def _start_pull(stack: torch.Tensor, copy_stream) -> Callable[[], torch.Tensor]:
+    """Start the device->host copy of ``stack`` on ``copy_stream`` (into
+    pinned memory, so it overlaps the next batch's forward); returns a
+    function that waits for it and gives the host tensor."""
+    if stack.device.type != "cuda":
+        return lambda: stack
+    host = torch.empty(stack.shape, dtype=stack.dtype, pin_memory=True)
+    copy_stream.wait_stream(torch.cuda.current_stream(stack.device))
+    with torch.cuda.stream(copy_stream):
+        host.copy_(stack, non_blocking=True)
+    stack.record_stream(copy_stream)
+    done = torch.cuda.Event()
+    done.record(copy_stream)
+
+    def wait() -> torch.Tensor:
+        done.synchronize()
+        return host
+
+    return wait
+
+
+def extract_and_cache_features(
+    whisper_params: dict,
+    arch: WhisperArch,
+    audio_dataloader,
+    cache: FeatureCache,
+    encoder_layers: list[int],
+    decoder_layers: list[int],
+    max_samples: int | None = None,
+    apply_layer_norm: bool = True,
+    progress: bool = True,
+    compute_dtype: torch.dtype | None = None,
+    mesh=None,
+    capture_mlp: bool = False,
+    checkpoint_every: int | None = None,
+    resume: bool = False,
+    cache_dtype: str | None = None,
+    device: str | torch.device | None = None,
+) -> None:
+    """Extraction loop: one ``extract_activations`` per batch, the
+    requested layers flattened to ``[B*T, D]`` and streamed to shards
+    (the JAX ``extract_and_cache_features``, same files and metadata).
+
+    - Only the requested layers leave the device.  With
+      ``compute_dtype=torch.bfloat16`` the transfer is bf16 and is widened
+      to f32 on the host, unless ``cache_dtype="bfloat16"`` stores it as
+      bf16 shards; the mels are uploaded in bf16 too.
+    - The host copy of batch i runs on a side stream while batch i+1's
+      forward runs, and is written after that forward is launched.
+    - ``checkpoint_every`` (samples) writes the writers' progress to
+      ``extraction_progress.json`` at shard-consistent cuts; ``resume``
+      restores them and skips the samples already written, giving a
+      cache identical to an uninterrupted run (same loader, same batch).
+    - ``device``: where the forward runs (default: where the parameters
+      are).  ``mesh`` (multi-device extraction) is not ported and raises.
+    """
+    if mesh is not None:
+        raise NotImplementedError("multi-GPU extraction is not ported yet")
+    transfer_bf16 = compute_dtype == torch.bfloat16
+    cache_dtype = cache_dtype or "float32"
+    if cache_dtype not in ("float32", _BF16):
+        raise ValueError(f"unsupported cache_dtype {cache_dtype!r}")
+    if cache_dtype == _BF16 and not transfer_bf16:
+        raise ValueError("cache_dtype='bfloat16' requires bf16 compute "
+                         "(compute_dtype=torch.bfloat16)")
+    store_bf16 = cache_dtype == _BF16
+    if device is None:
+        device = next(iter(whisper_params["encoder"].values())).device
+    device = torch.device(device)
+    params = params_to(whisper_params, device)
+    if compute_dtype is not None:
+        params = cast_params(params, compute_dtype)  # once, not per batch
+
+    writers_e = {l: cache.writer("encoder", l, dtype=cache_dtype) for l in encoder_layers}
+    writers_d = {l: cache.writer("decoder", l, dtype=cache_dtype) for l in decoder_layers}
+    writers_mlp: dict[str, dict[int, CacheWriter]] = {}
+    if capture_mlp:
+        for comp, layers in (("encoder", encoder_layers), ("decoder", decoder_layers)):
+            for kind in ("mlp_in", "mlp_out"):
+                writers_mlp[f"{comp}_{kind}"] = {
+                    l: cache.writer(f"{comp}_{kind}", l, dtype=cache_dtype) for l in layers
+                }
+
+    def flat_writers() -> dict[str, CacheWriter]:
+        flat = {f"encoder:{l}": w for l, w in writers_e.items()}
+        flat.update({f"decoder:{l}": w for l, w in writers_d.items()})
+        for comp_kind, ws in writers_mlp.items():
+            flat.update({f"{comp_kind}:{l}": w for l, w in ws.items()})
+        return flat
+
+    progress_path = cache.cache_dir / "extraction_progress.json"
+
+    def write_progress(samples_done: int) -> None:
+        snap = {
+            "model_name": cache.whisper_config.model_name,
+            "cache_dtype": cache_dtype,
+            "num_samples": samples_done,
+            "writers": {k: w.state() for k, w in flat_writers().items()},
+        }
+        tmp = progress_path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(snap))
+        tmp.rename(progress_path)
+
+    skip_samples = 0
+    if resume and progress_path.exists():
+        snap = json.loads(progress_path.read_text())
+        flat = flat_writers()
+        compatible = (
+            snap.get("model_name") == cache.whisper_config.model_name
+            and snap.get("cache_dtype", "float32") == cache_dtype
+            and set(snap.get("writers", {})) == set(flat)
+            and all((cache.cache_dir / s).exists()
+                    for st in snap["writers"].values() for s in st["shards"])
+        )
+        if compatible:
+            for k, w in flat.items():
+                w.restore(snap["writers"][k])
+            skip_samples = int(snap["num_samples"])
+            if progress:
+                print(f"resuming extraction at sample {skip_samples}", flush=True)
+        elif progress:
+            print("extraction progress file incompatible; starting fresh", flush=True)
+
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+
+    def select(stack: torch.Tensor, layers: list[int]) -> torch.Tensor:
+        if len(layers) < stack.shape[0]:
+            stack = stack[torch.tensor(sorted(layers), device=stack.device)]
+        return stack.to(torch.bfloat16) if transfer_bf16 else stack
+
+    def drain(pulled) -> None:
+        for fetch, layers, writers in pulled:
+            host = fetch()  # one device->host copy per component per batch
+            if host.dtype != torch.float32 and not store_bf16:
+                host = host.float()
+            for j, l in enumerate(sorted(layers)):
+                writers[l].append(host[j].reshape(-1, host.shape[-1]))
+
+    num_samples = 0
+    target = max_samples if max_samples is not None else float("inf")
+    pending = None
+    pending_upto = 0  # samples covered once `pending` drains
+    last_ckpt = skip_samples
+    for batch in audio_dataloader:
+        if num_samples >= target:
+            break
+        if isinstance(batch, (tuple, list)):
+            batch = batch[0]
+        rows = int(np.asarray(batch).shape[0])
+        if skip_samples > 0:
+            if rows > skip_samples:
+                raise ValueError(
+                    f"resume cut ({skip_samples} samples left to skip) falls inside a "
+                    f"{rows}-row batch; rerun with the original batch size so checkpoint "
+                    "cuts align with batches")
+            skip_samples -= rows
+            num_samples += rows
+            continue
+        mel = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
+        if transfer_bf16:
+            mel = mel.to(torch.bfloat16)  # the forward's first cast, done before the upload
+        mel = mel.to(device)
+        acts = extract_activations(
+            params, mel, arch, apply_layer_norm=apply_layer_norm,
+            with_decoder=bool(decoder_layers), compute_dtype=compute_dtype,
+            with_mlp=capture_mlp, capture_dtype=torch.bfloat16 if transfer_bf16 else None,
+        )
+        pulled = []
+        if encoder_layers:
+            pulled.append((_start_pull(select(acts["encoder"], encoder_layers), copy_stream),
+                           encoder_layers, writers_e))
+        if decoder_layers:
+            pulled.append((_start_pull(select(acts["decoder"], decoder_layers), copy_stream),
+                           decoder_layers, writers_d))
+        for comp_kind, writers in writers_mlp.items():
+            layers = encoder_layers if comp_kind.startswith("encoder") else decoder_layers
+            if layers:
+                pulled.append((_start_pull(select(acts[comp_kind], layers), copy_stream),
+                               layers, writers))
+        del acts
+        if pending is not None:
+            drain(pending)
+            if checkpoint_every and pending_upto - last_ckpt >= checkpoint_every:
+                write_progress(pending_upto)
+                last_ckpt = pending_upto
+        pending = pulled
+        num_samples += rows
+        pending_upto = num_samples
+        if progress and num_samples % (rows * 8) == 0:
+            print(f"extracted {num_samples} samples", flush=True)
+    if pending is not None:
+        drain(pending)
+
+    for w in flat_writers().values():
+        w.finalize(num_samples)
+    progress_path.unlink(missing_ok=True)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``ops/csrc/`` are compiled by ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface, named by a hash of the
+The sources under ``ops/csrc/`` are compiled by ``nvcc`` for ``sm_90a``,
+one ``nvcc`` per source, all started together, and linked into a shared
+library with a plain C interface, named by a hash of the
 sources and flags, under ``build/`` at the repository root, and loaded
 with ``ctypes``.  The build happens at the first kernel launch (or an
 explicit :func:`load_library` call); a changed source gets a new hash
@@ -19,16 +20,17 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sae_kernels.cu",)
+_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu")
 _HEADERS = ("topk_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "wst_max_row_width": ([], _I),
     "wst_max_d": ([], _I),
@@ -43,6 +45,21 @@ _SIGNATURES = {
         [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I,
     ),
     "wst_topk_mask_fwd": ([_P, _P, _I, _I, _I, _P], _I),
+    "wst_enc_head_dim": ([], _I),
+    "wst_enc_mlp_chunk": ([], _I),
+    "wst_ln_qkv_fwd": (
+        [_P, _L, _I, _P, _P, _P, _P, ctypes.c_float,  # x, n, d, g, b, wt, bias, q_scale
+         _P, _P, _P, _P],                            # q, k, v, stream
+        _I,
+    ),
+    "wst_attention_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
+    "wst_out_proj_fwd": ([_P, _P, _L, _I, _P, _P, _P, _P], _I),
+    "wst_mlp_block_fwd": (
+        [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P,    # x, n, d, f, g, b, w1t, b1, w2t, b2
+         _P, _P, _I, _P, _P, _P, _P, _P],           # fg, fb, cap_mode, out, cap, in, out, stream
+        _I,
+    ),
+    "wst_conv_stem_fwd": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
 }
 
 _lock = threading.Lock()
@@ -82,14 +99,26 @@ def build(force: bool = False) -> Path:
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, f"-I{_CSRC}", "-o", str(tmp),
-           *[str(_CSRC / s) for s in _SOURCES]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in _SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, f"-I{_CSRC}", "-c", "-o", str(obj), str(_CSRC / src)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    tmp = out.with_name(f"{tag}.tmp.so")
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+    last_build_log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
+        raise RuntimeError(f"nvcc failed:\n{last_build_log}")
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,829 @@
+// Hand-written Hopper kernels of the Whisper-encoder extraction path.
+//
+// conv_stem_kernel     ("conv_stem_fwd")
+//   replaces whisper_sae_tpu/ops/pallas_encoder.py:_conv_stem_kernel
+//   (fused_conv_stem, pallas_call at :604).
+// ln_qkv_kernel, attention_kernel, out_proj_kernel   (the attention block)
+//   replace _attention_block_kernel and _attention_block_kernel_tiled
+//   (fused_attention_block, pallas_call at :340) as three launches:
+//   LN1 + the q/k/v product, the attention core, the out-projection with
+//   the residual.  attention_kernel alone also replaces the library flash
+//   attention of models/whisper.py:_flash_self_attention (:141) on the
+//   composed route.
+// mlp_block_kernel     ("mlp_block_fwd")
+//   replaces _mlp_block_kernel (fused_mlp_block, pallas_call at :500), all
+//   four output modes.
+//
+// Numerics are the Pallas kernels': bf16 operands with f32 sums
+// (mma.sync.m16n8k16), every bias added in f32 before the single
+// rounding to bf16, LN (eps 1e-5, population variance) and softmax in
+// f32, pad key columns at -1e30, the softmax numerator bf16(p) @ v over
+// the f32 sum of p, exact erff GELU (the TPU kernels' erf polynomial,
+// 3.4e-5, is a Mosaic workaround), the residual add rounded once to
+// bf16, and the final-LN capture taken from the bf16-rounded layer
+// output.  The attention core keeps an online softmax over 64-key tiles
+// (running max, f32 running sum, rescaled f32 accumulators) instead of
+// the TPU kernel's whole [T, T] score row; the two agree to bf16
+// rounding.
+//
+// Bounds on the H100 at whisper-tiny, 64 clips (T=1500, D=384, F=1536;
+// 989 TFLOP/s bf16): all four are bound by operations, not bytes.
+//   attention block  64*(8*T*D^2 + 4*T^2*D) = 334 GFLOP   0.34 ms
+//   MLP block        4*(64*T)*D*F           = 226 GFLOP   0.23 ms
+//   conv stem        2*64*T*D*(3*80+3*D)    = 103 GFLOP   0.10 ms
+// What the design does about it: every product runs on the tensor cores
+// from a tile of rows staged once in shared memory; the weights stream
+// from L2 as 32-bit B fragments in the [N, K] layout.  Nothing of the
+// TPU kernels' VMEM residency is lost that matters here: the [T, T]
+// scores, the MLP's [rows, F] hidden and the stem's [T_mel, D] hidden
+// never reach device memory.  Between the three attention launches q, k,
+// v and the attention output make one round trip each (4 * B*T*D bf16).
+//
+// Not yet fast: no wgmma, TMA or persistent grid.  The attention core and
+// the MLP block pipeline their loads (cp.async, two stages, ldmatrix
+// fragments); the other products read their weights as 32-bit B fragments
+// straight from L2 (warp_gemm).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace wst_enc {
+
+typedef unsigned short bf16_t;
+
+constexpr int kWarp = 32;
+constexpr float kLnEps = 1e-5f;
+constexpr float kMaskedScore = -1e30f;
+
+// row-tile GEMM kernels (LN+QKV, out-projection, MLP): 64 rows, 8 warps
+constexpr int kRows = 64;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * kWarp;
+constexpr int kColTile = 32;  // columns per warp step: four n8 MMA tiles
+constexpr int kMlpChunk = 32;  // F columns per step of the MLP's hidden loop
+
+// attention core: 64 queries (4 warps x 16) per CTA, 64-key tiles
+constexpr int kHeadDim = 64;
+constexpr int kAttnQ = 64;
+constexpr int kAttnK = 64;
+constexpr int kAttnThreads = 128;
+
+// conv stem: 64 output frames per CTA, h rows t0-1 .. t0+78, mel rows t0-2 .. t0+79
+constexpr int kStemT = 64;
+constexpr int kStemH = 80;
+constexpr int kStemIn = kStemH + 2;
+
+__device__ __forceinline__ float bf2f(bf16_t u) { return __uint_as_float((uint32_t)u << 16); }
+__device__ __forceinline__ bf16_t f2bf(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
+__device__ __forceinline__ float round_bf(float v) { return bf2f(f2bf(v)); }
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return (uint32_t)f2bf(lo) | ((uint32_t)f2bf(hi) << 16);
+}
+__device__ __forceinline__ uint32_t ld32(const bf16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t ldg32(const bf16_t* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+__device__ __forceinline__ void st32(bf16_t* p, uint32_t v) { *reinterpret_cast<uint32_t*>(p) = v; }
+__device__ __forceinline__ float gelu(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752440f));
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// acc[m][t] += A[m*16 .. +16, 0 .. 16*ksteps) . Bt[t*8 .. +8, same k]^T
+//   a:  shared memory, row-major with stride lda, at the warp tile's (row 0, k 0)
+//   bt: global, [N, K] row-major with stride ldb, at (the warp's n0, k 0)
+// The next k-step's B fragments load while this step's MMAs run.
+template <int MT, int NT>
+__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const bf16_t* a, int lda,
+                                          const bf16_t* bt, int ldb, int ksteps, int lane) {
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  const bf16_t* ap = a + fr * lda + fc;
+  const bf16_t* bp = bt + (size_t)fr * ldb + fc;
+  uint32_t b[NT][2];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    b[t][0] = ldg32(bp + (size_t)t * 8 * ldb);
+    b[t][1] = ldg32(bp + (size_t)t * 8 * ldb + 8);
+  }
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int k0 = ks * 16;
+    const int kn = ks + 1 < ksteps ? k0 + 16 : k0;
+    uint32_t bn[NT][2];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      bn[t][0] = ldg32(bp + (size_t)t * 8 * ldb + kn);
+      bn[t][1] = ldg32(bp + (size_t)t * 8 * ldb + kn + 8);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const bf16_t* am = ap + m * 16 * lda + k0;
+      const uint32_t a0 = ld32(am), a1 = ld32(am + 8 * lda);
+      const uint32_t a2 = ld32(am + 8), a3 = ld32(am + 8 * lda + 8);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) mma16816(acc[m][t], a0, a1, a2, a3, b[t][0], b[t][1]);
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      b[t][0] = bn[t][0];
+      b[t][1] = bn[t][1];
+    }
+  }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int t = 0; t < NT; ++t) acc[m][t][0] = acc[m][t][1] = acc[m][t][2] = acc[m][t][3] = 0.0f;
+}
+
+// LN in f32 of the row src[0..d) into dst as bf16, by one warp (two-pass
+// mean and population variance, as jnp.mean / jnp.var).
+__device__ __forceinline__ void ln_row(const bf16_t* src, int d, const float* g, const float* b,
+                                       bf16_t* dst_bf, float* dst_f32, int lane) {
+  float s = 0.0f;
+  for (int c = lane; c < d; c += kWarp) s += bf2f(src[c]);
+  const float mean = warp_sum(s) / (float)d;
+  float v = 0.0f;
+  for (int c = lane; c < d; c += kWarp) {
+    const float dv = bf2f(src[c]) - mean;
+    v = fmaf(dv, dv, v);
+  }
+  const float rs = rsqrtf(warp_sum(v) / (float)d + kLnEps);
+  for (int c = lane; c < d; c += kWarp) {
+    const float y = (bf2f(src[c]) - mean) * rs * g[c] + b[c];
+    if (dst_f32) dst_f32[c] = y;
+    else dst_bf[c] = f2bf(y);
+  }
+}
+
+// LN1/LN2 prologue: rows row0 .. row0+kRows of x into xs (bf16, stride
+// lds); rows past n are zeros.
+__device__ __forceinline__ void ln_tile(const bf16_t* x, long long n, long long row0, int d,
+                                        const float* g, const float* b, bf16_t* xs, int lds,
+                                        int warp, int lane) {
+  for (int r = warp; r < kRows; r += kWarps) {
+    const long long gr = row0 + r;
+    if (gr < n) {
+      ln_row(x + gr * d, d, g, b, xs + r * lds, nullptr, lane);
+    } else {
+      for (int c = lane; c < d; c += kWarp) xs[r * lds + c] = 0;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// attention block, launch (a): q, k, v = LN1(x) @ [Wq | Wk | Wv] (+ biases)
+// ---------------------------------------------------------------------------
+
+// wt: [3d, d] bf16, the q, k and v weights transposed and stacked;
+// bias: [3d] f32 = (bq, 0, bv).  q = bf16((acc + bq) * q_scale),
+// k = bf16(acc), v = bf16(acc + bv), each written [n, d].
+__global__ void __launch_bounds__(kThreads) ln_qkv_kernel(
+    const bf16_t* x, long long n, int d, const float* g, const float* bln, const bf16_t* wt,
+    const float* bias, float q_scale, bf16_t* q, bf16_t* k, bf16_t* v) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16_t* xs = reinterpret_cast<bf16_t*>(smem);
+  const int lds = d + 8;
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  const long long row0 = (long long)blockIdx.x * kRows;
+  ln_tile(x, n, row0, d, g, bln, xs, lds, warp, lane);
+  __syncthreads();
+  for (int n0 = warp * kColTile; n0 < 3 * d; n0 += kWarps * kColTile) {
+    float acc[4][4][4];
+    zero(acc);
+    warp_gemm<4, 4>(acc, xs, lds, wt + (size_t)n0 * d, d, d / 16, lane);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int col = n0 + t * 8 + fc;
+      const int part = col / d, c = col - part * d;
+      bf16_t* dst = part == 0 ? q : (part == 1 ? k : v);
+      const float sc = part == 0 ? q_scale : 1.0f;
+      const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long gr = row0 + m * 16 + fr + h * 8;
+          if (gr < n)
+            st32(dst + gr * d + c,
+                 pack2((acc[m][t][2 * h] + b0) * sc, (acc[m][t][2 * h + 1] + b1) * sc));
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// attention block, launch (b): the attention core, softmax(q k^T) v
+// ---------------------------------------------------------------------------
+
+// 16-byte global->shared copy that bypasses the registers (zero-filled
+// when !valid), its group fences, and the ldmatrix fragment loads.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16_t* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16_t* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// q, k, v, out: [B, t, d] bf16 with head h in columns h*64 .. h*64+63
+// (q already scaled).  One CTA per (64-query tile, head, clip); each warp
+// owns 16 query rows.  Key columns >= t_real are masked (-1e30); query
+// rows t_real .. t-1 are computed like any other row.  K and V tiles of
+// 64 keys stream through two shared-memory stages (cp.async: the next
+// tile loads while this one is used); their MMA B fragments come from
+// ldmatrix (V transposed on the fly), the A fragment of the PV product
+// straight from the score accumulators.
+__global__ void __launch_bounds__(kAttnThreads) attention_kernel(
+    const bf16_t* q, const bf16_t* k, const bf16_t* v, int t, int t_real, int d, bf16_t* out) {
+  constexpr int kStride = kHeadDim + 8;  // 144-byte rows: ldmatrix reads hit 32 banks
+  __shared__ __align__(128) bf16_t ks[2][kAttnK][kStride];
+  __shared__ __align__(128) bf16_t vs[2][kAttnK][kStride];
+  const int tid = threadIdx.x;
+  const int lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix: which 8x8 matrix, which row
+  const size_t base = (size_t)blockIdx.z * t * d + (size_t)blockIdx.y * kHeadDim;
+  const int r0 = blockIdx.x * kAttnQ + warp * 16 + fr, r1 = r0 + 8;
+
+  // keys past t_real are masked to exp(-1e30 - m) = 0 exactly, so tiles
+  // that hold only such keys are skipped; pad keys load as zeros
+  auto load_tile = [&](int stage, int kt) {
+    for (int i = tid; i < kAttnK * (kHeadDim / 8); i += kAttnThreads) {
+      const int key = i / (kHeadDim / 8), c = (i % (kHeadDim / 8)) * 8;
+      const bool ok = kt + key < t_real;
+      const size_t off = base + (size_t)(ok ? kt + key : 0) * d + c;
+      cp_async16(&ks[stage][key][c], k + off, ok);
+      cp_async16(&vs[stage][key][c], v + off, ok);
+    }
+    cp_async_commit();
+  };
+  const int tiles = (t_real + kAttnK - 1) / kAttnK;
+  load_tile(0, 0);
+
+  uint32_t qa[kHeadDim / 16][4];
+#pragma unroll
+  for (int s = 0; s < kHeadDim / 16; ++s) {
+    const int c = s * 16 + fc;
+    qa[s][0] = r0 < t ? ldg32(q + base + (size_t)r0 * d + c) : 0u;
+    qa[s][1] = r1 < t ? ldg32(q + base + (size_t)r1 * d + c) : 0u;
+    qa[s][2] = r0 < t ? ldg32(q + base + (size_t)r0 * d + c + 8) : 0u;
+    qa[s][3] = r1 < t ? ldg32(q + base + (size_t)r1 * d + c + 8) : 0u;
+  }
+  float o[kHeadDim / 8][4];
+#pragma unroll
+  for (int j = 0; j < kHeadDim / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int st = it & 1, kt = it * kAttnK;
+    if (it + 1 < tiles) {
+      load_tile(st ^ 1, kt + kAttnK);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = Q K^T: ldmatrix matrices (keys j, hd lo), (keys j, hd hi),
+    // (keys j+1, hd lo), (keys j+1, hd hi) are the B fragments of tiles j, j+1
+    float s[kAttnK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kAttnK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kAttnK / 8; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, &ks[st][(j + (lm >> 1)) * 8 + lr][kk * 16 + (lm & 1) * 8]);
+        mma16816(s[j], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[0], b[1]);
+        mma16816(s[j + 1], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[2], b[3]);
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kAttnK / 8; ++j) {
+      const int key = kt + j * 8 + fc;
+      if (key >= t_real) s[j][0] = s[j][2] = kMaskedScore;
+      if (key + 1 >= t_real) s[j][1] = s[j][3] = kMaskedScore;
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kAttnK / 8; ++j) {
+      s[j][0] = expf(s[j][0] - mn0);
+      s[j][1] = expf(s[j][1] - mn0);
+      s[j][2] = expf(s[j][2] - mn1);
+      s[j][3] = expf(s[j][3] - mn1);
+      ps0 += s[j][0] + s[j][1];
+      ps1 += s[j][2] + s[j][3];
+    }
+    // each lane keeps its part of the row sums; the four lanes of a row
+    // share the same rescale factors, so one reduction at the end suffices
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+#pragma unroll
+    for (int j = 0; j < kHeadDim / 8; ++j) {
+      o[j][0] *= al0;
+      o[j][1] *= al0;
+      o[j][2] *= al1;
+      o[j][3] *= al1;
+    }
+    // o += bf16(p) @ v: the score accumulators of key tiles 2u and 2u+1
+    // are exactly the A fragment of k-step u; ldmatrix.trans matrices
+    // (keys lo, hd j), (keys hi, hd j), (keys lo, hd j+1), (keys hi, hd j+1)
+    // are the B fragments of hd tiles j, j+1
+#pragma unroll
+    for (int u = 0; u < kAttnK / 16; ++u) {
+      const uint32_t a0 = pack2(s[2 * u][0], s[2 * u][1]);
+      const uint32_t a1 = pack2(s[2 * u][2], s[2 * u][3]);
+      const uint32_t a2 = pack2(s[2 * u + 1][0], s[2 * u + 1][1]);
+      const uint32_t a3 = pack2(s[2 * u + 1][2], s[2 * u + 1][3]);
+#pragma unroll
+      for (int j = 0; j < kHeadDim / 8; j += 2) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, &vs[st][u * 16 + (lm & 1) * 8 + lr][(j + (lm >> 1)) * 8]);
+        mma16816(o[j], a0, a1, a2, a3, b[0], b[1]);
+        mma16816(o[j + 1], a0, a1, a2, a3, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is reloaded by the next iteration's prefetch
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int j = 0; j < kHeadDim / 8; ++j) {
+    const int c = j * 8 + fc;
+    if (r0 < t) st32(out + base + (size_t)r0 * d + c, pack2(o[j][0] / l0, o[j][1] / l0));
+    if (r1 < t) st32(out + base + (size_t)r1 * d + c, pack2(o[j][2] / l1, o[j][3] / l1));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// attention block, launch (c): out = x + bf16(attn @ Wo + bo)
+// ---------------------------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads) out_proj_kernel(
+    const bf16_t* attn, const bf16_t* x, long long n, int d, const bf16_t* wt, const float* bias,
+    bf16_t* out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16_t* as = reinterpret_cast<bf16_t*>(smem);
+  const int lds = d + 8;
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const int vec = d / 8;  // 16-byte chunks per row
+  for (int i = threadIdx.x; i < kRows * vec; i += kThreads) {
+    const int r = i / vec, c = (i - r * vec) * 8;
+    const long long gr = row0 + r;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (gr < n) val = __ldg(reinterpret_cast<const uint4*>(attn + gr * d + c));
+    *reinterpret_cast<uint4*>(as + r * lds + c) = val;
+  }
+  __syncthreads();
+  for (int n0 = warp * kColTile; n0 < d; n0 += kWarps * kColTile) {
+    float acc[4][4][4];
+    zero(acc);
+    warp_gemm<4, 4>(acc, as, lds, wt + (size_t)n0 * d, d, d / 16, lane);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int col = n0 + t * 8 + fc;
+      const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long gr = row0 + m * 16 + fr + h * 8;
+          if (gr < n) {
+            const uint32_t xv = ldg32(x + gr * d + col);
+            const float y0 = round_bf(acc[m][t][2 * h] + b0);
+            const float y1 = round_bf(acc[m][t][2 * h + 1] + b1);
+            st32(out + gr * d + col,
+                 pack2(bf2f((bf16_t)(xv & 0xffffu)) + y0, bf2f((bf16_t)(xv >> 16)) + y1));
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// MLP block: out = x + bf16(GELU(LN2(x) @ W1 + b1) @ W2 + b2)
+// ---------------------------------------------------------------------------
+
+// NY = d / 64: each warp owns d/8 output columns (NY n8 tiles) of all 64
+// rows, accumulated in f32 registers across the whole F loop.  F runs in
+// chunks of kMlpChunk hidden columns; each chunk's W1 rows and W2 columns
+// stream into one of two shared-memory stages by cp.async while the
+// previous chunk is used, and every MMA fragment comes from ldmatrix.
+// w1t: [f, d] (W1 transposed), w2t: [d, f] (W2 transposed).
+// cap_mode: 0 none, 1 bf16, 2 f32 -- ln_f(out) of the bf16-rounded out.
+template <int NY>
+__global__ void __launch_bounds__(kThreads, 1) mlp_block_kernel(
+    const bf16_t* x, long long n, int d, int f, const float* g, const float* bln,
+    const bf16_t* w1t, const float* b1, const bf16_t* w2t, const float* b2, const float* fg,
+    const float* fb, int cap_mode, bf16_t* out, void* cap, bf16_t* mlp_in, bf16_t* mlp_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int ldh = kMlpChunk + 8;  // 80-byte rows: ldmatrix reads hit 32 banks
+  const int lds = d + 8;
+  bf16_t* xs = reinterpret_cast<bf16_t*>(smem);  // LN2(x), later the rounded out rows
+  bf16_t* hs = xs + kRows * lds;                 // one chunk of the GELU hidden
+  bf16_t* w1s = hs + kRows * ldh;                // 2 stages of [kMlpChunk, d + 8]
+  bf16_t* w2s = w1s + 2 * kMlpChunk * lds;       // 2 stages of [d, kMlpChunk + 8]
+  const int tid = threadIdx.x;
+  const int lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix: which 8x8 matrix, which row
+  const long long row0 = (long long)blockIdx.x * kRows;
+
+  auto load_chunk = [&](int stage, int c0) {
+    bf16_t* w1 = w1s + stage * kMlpChunk * lds;
+    bf16_t* w2 = w2s + stage * d * ldh;
+    const int v1 = d / 8;  // 16-byte pieces of a W1 row
+    for (int i = tid; i < kMlpChunk * v1; i += kThreads) {
+      const int r = i / v1, c = (i - r * v1) * 8;
+      cp_async16(w1 + r * lds + c, w1t + (size_t)(c0 + r) * d + c, true);
+    }
+    constexpr int v2 = kMlpChunk / 8;  // 16-byte pieces of a W2 chunk row
+    for (int i = tid; i < d * v2; i += kThreads) {
+      const int r = i / v2, c = (i - r * v2) * 8;
+      cp_async16(w2 + r * ldh + c, w2t + (size_t)r * f + c0 + c, true);
+    }
+    cp_async_commit();
+  };
+  load_chunk(0, 0);
+
+  ln_tile(x, n, row0, d, g, bln, xs, lds, warp, lane);
+  __syncthreads();
+  if (mlp_in) {
+    for (int i = tid; i < kRows * (d / 2); i += kThreads) {
+      const int r = i / (d / 2), c = (i - r * (d / 2)) * 2;
+      if (row0 + r < n) st32(mlp_in + (row0 + r) * d + c, ld32(xs + r * lds + c));
+    }
+  }
+
+  float y[4][NY][4];
+  zero(y);
+  const int ycol0 = warp * NY * 8;
+  const int hm = warp & 3, hn = (warp >> 2) * 16;  // this warp's h tile: rows 16*hm, 16 columns
+  const int chunks = f / kMlpChunk;
+  for (int ci = 0; ci < chunks; ++ci) {
+    const int st = ci & 1, c0 = ci * kMlpChunk;
+    if (ci + 1 < chunks) {
+      load_chunk(st ^ 1, c0 + kMlpChunk);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16_t* w1 = w1s + st * kMlpChunk * lds;
+    const bf16_t* w2 = w2s + st * d * ldh;
+    {
+      // h[16 rows, 16 columns] = xln . W1[:, c0 + hn ..] over all of d
+      float h[2][4] = {};
+      for (int k0 = 0; k0 < d; k0 += 16) {
+        uint32_t a[4], b[4];
+        ldsm_x4(a, xs + (hm * 16 + (lm & 1) * 8 + lr) * lds + k0 + (lm >> 1) * 8);
+        ldsm_x4(b, w1 + (hn + (lm >> 1) * 8 + lr) * lds + k0 + (lm & 1) * 8);
+        mma16816(h[0], a[0], a[1], a[2], a[3], b[0], b[1]);
+        mma16816(h[1], a[0], a[1], a[2], a[3], b[2], b[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = hn + j * 8 + fc;
+        const float bb0 = b1[c0 + col], bb1 = b1[c0 + col + 1];
+        st32(hs + (hm * 16 + fr) * ldh + col, pack2(gelu(h[j][0] + bb0), gelu(h[j][1] + bb1)));
+        st32(hs + (hm * 16 + fr + 8) * ldh + col,
+             pack2(gelu(h[j][2] + bb0), gelu(h[j][3] + bb1)));
+      }
+    }
+    __syncthreads();
+    // y[64 rows, this warp's d/8 columns] += h . W2[c0 .., columns]
+#pragma unroll
+    for (int k0 = 0; k0 < kMlpChunk; k0 += 16) {
+      uint32_t a[4][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        ldsm_x4(a[m], hs + (m * 16 + (lm & 1) * 8 + lr) * ldh + k0 + (lm >> 1) * 8);
+#pragma unroll
+      for (int t = 0; t < NY; t += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, w2 + (ycol0 + (t + (lm >> 1)) * 8 + lr) * ldh + k0 + (lm & 1) * 8);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          mma16816(y[m][t], a[m][0], a[m][1], a[m][2], a[m][3], b[0], b[1]);
+          mma16816(y[m][t + 1], a[m][0], a[m][1], a[m][2], a[m][3], b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // hs and this stage are rewritten by the next chunk
+  }
+
+#pragma unroll
+  for (int t = 0; t < NY; ++t) {
+    const int col = ycol0 + t * 8 + fc;
+    const float bb0 = b2[col], bb1 = b2[col + 1];
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = m * 16 + fr + hh * 8;
+        const long long gr = row0 + r;
+        if (gr >= n) continue;
+        const uint32_t yv = pack2(y[m][t][2 * hh] + bb0, y[m][t][2 * hh + 1] + bb1);
+        const uint32_t xv = ldg32(x + gr * d + col);
+        const uint32_t ov = pack2(bf2f((bf16_t)(xv & 0xffffu)) + bf2f((bf16_t)(yv & 0xffffu)),
+                                  bf2f((bf16_t)(xv >> 16)) + bf2f((bf16_t)(yv >> 16)));
+        st32(out + gr * d + col, ov);
+        if (mlp_out) st32(mlp_out + gr * d + col, yv);
+        if (cap_mode) st32(xs + r * lds + col, ov);
+      }
+    }
+  }
+  if (cap_mode) {
+    __syncthreads();
+    for (int r = warp; r < kRows; r += kWarps) {
+      const long long gr = row0 + r;
+      if (gr >= n) continue;
+      if (cap_mode == 2)
+        ln_row(xs + r * lds, d, fg, fb, nullptr, static_cast<float*>(cap) + gr * d, lane);
+      else
+        ln_row(xs + r * lds, d, fg, fb, static_cast<bf16_t*>(cap) + gr * d, nullptr, lane);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// conv stem: GELU(conv2(GELU(conv1(mel)))) + pos
+// ---------------------------------------------------------------------------
+
+// even/odd: [B, t, n_mels] bf16, the mel's even and odd time columns.
+// w1t: [d, 3*n_mels] (tap j in columns j*n_mels ..), w2t: [d, 3*d].
+// h row r of a CTA is time t0-1+r; rows outside [0, t) are zero, which is
+// conv2's zero padding on h.  conv1's padding is the zero mel rows staged
+// outside [0, t).
+__global__ void __launch_bounds__(kThreads, 1) conv_stem_kernel(
+    const bf16_t* even, const bf16_t* odd, int t, int n_mels, int d, const bf16_t* w1t,
+    const float* b1, const bf16_t* w2t, const float* b2, const bf16_t* pos, bf16_t* out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lm = n_mels + 8, lh = d + 8;
+  bf16_t* ev = reinterpret_cast<bf16_t*>(smem);
+  bf16_t* od = ev + kStemIn * lm;
+  bf16_t* he = od + kStemIn * lm;
+  bf16_t* ho = he + kStemH * lh;
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  const int t0 = blockIdx.x * kStemT;
+  const size_t clip = (size_t)blockIdx.y * t;
+
+  for (int i = threadIdx.x; i < kStemIn * (n_mels / 2); i += kThreads) {
+    const int u = i / (n_mels / 2), c = (i - u * (n_mels / 2)) * 2;
+    const int tt = t0 - 2 + u;
+    uint32_t e = 0u, o = 0u;
+    if (tt >= 0 && tt < t) {
+      e = ldg32(even + (clip + tt) * n_mels + c);
+      o = ldg32(odd + (clip + tt) * n_mels + c);
+    }
+    st32(ev + u * lm + c, e);
+    st32(od + u * lm + c, o);
+  }
+  __syncthreads();
+
+  // conv1, even then odd h rows:
+  //   h_even[tau] = odd[tau-1] W0 + even[tau] W1 + odd[tau] W2
+  //   h_odd[tau]  = even[tau]  W0 + odd[tau]  W1 + even[tau+1] W2
+  const int k1 = n_mels / 16, ld1 = 3 * n_mels;
+  for (int n0 = warp * kColTile; n0 < d; n0 += kWarps * kColTile) {
+    const bf16_t* w = w1t + (size_t)n0 * ld1;
+#pragma unroll 1
+    for (int par = 0; par < 2; ++par) {
+      float acc[kStemH / 16][4][4];
+      zero(acc);
+      warp_gemm<kStemH / 16, 4>(acc, par ? ev + lm : od, lm, w, ld1, k1, lane);
+      warp_gemm<kStemH / 16, 4>(acc, par ? od + lm : ev + lm, lm, w + n_mels, ld1, k1, lane);
+      warp_gemm<kStemH / 16, 4>(acc, par ? ev + 2 * lm : od + lm, lm, w + 2 * n_mels, ld1, k1,
+                                lane);
+      bf16_t* dst = par ? ho : he;
+#pragma unroll
+      for (int tl = 0; tl < 4; ++tl) {
+        const int col = n0 + tl * 8 + fc;
+        const float bb0 = b1[col], bb1 = b1[col + 1];
+#pragma unroll
+        for (int m = 0; m < kStemH / 16; ++m) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = m * 16 + fr + hh * 8;
+            const int tau = t0 - 1 + r;
+            const uint32_t val = (tau >= 0 && tau < t)
+                                     ? pack2(gelu(acc[m][tl][2 * hh] + bb0),
+                                             gelu(acc[m][tl][2 * hh + 1] + bb1))
+                                     : 0u;
+            st32(dst + r * lh + col, val);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+
+  // conv2 (stride 2): out[t0+j] = h_odd[t0+j-1] V0 + h_even[t0+j] V1 + h_odd[t0+j] V2,
+  // i.e. h rows j, j+1, j+1 of the tile
+  const int k2 = d / 16, ld2 = 3 * d;
+  for (int n0 = warp * kColTile; n0 < d; n0 += kWarps * kColTile) {
+    const bf16_t* w = w2t + (size_t)n0 * ld2;
+    float acc[kStemT / 16][4][4];
+    zero(acc);
+    warp_gemm<kStemT / 16, 4>(acc, ho, lh, w, ld2, k2, lane);
+    warp_gemm<kStemT / 16, 4>(acc, he + lh, lh, w + d, ld2, k2, lane);
+    warp_gemm<kStemT / 16, 4>(acc, ho + lh, lh, w + 2 * d, ld2, k2, lane);
+#pragma unroll
+    for (int tl = 0; tl < 4; ++tl) {
+      const int col = n0 + tl * 8 + fc;
+      const float bb0 = b2[col], bb1 = b2[col + 1];
+#pragma unroll
+      for (int m = 0; m < kStemT / 16; ++m) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int tt = t0 + m * 16 + fr + hh * 8;
+          if (tt >= t) continue;
+          const uint32_t pv = ldg32(pos + (size_t)tt * d + col);
+          const float o0 = round_bf(gelu(acc[m][tl][2 * hh] + bb0));
+          const float o1 = round_bf(gelu(acc[m][tl][2 * hh + 1] + bb1));
+          st32(out + (clip + tt) * d + col,
+               pack2(o0 + bf2f((bf16_t)(pv & 0xffffu)), o1 + bf2f((bf16_t)(pv >> 16))));
+        }
+      }
+    }
+  }
+}
+
+size_t gemm_smem(int d) { return (size_t)kRows * (d + 8) * sizeof(bf16_t); }
+size_t mlp_smem(int d) {
+  return gemm_smem(d) + (size_t)kRows * (kMlpChunk + 8) * sizeof(bf16_t) +
+         (size_t)2 * kMlpChunk * (d + 8) * sizeof(bf16_t) +
+         (size_t)2 * d * (kMlpChunk + 8) * sizeof(bf16_t);
+}
+size_t stem_smem(int n_mels, int d) {
+  return ((size_t)2 * kStemIn * (n_mels + 8) + (size_t)2 * kStemH * (d + 8)) * sizeof(bf16_t);
+}
+
+template <typename K>
+int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int NY>
+int launch_mlp(const bf16_t* x, long long n, int d, int f, const float* g, const float* bln,
+               const bf16_t* w1t, const float* b1, const bf16_t* w2t, const float* b2,
+               const float* fg, const float* fb, int cap_mode, bf16_t* out, void* cap,
+               bf16_t* mlp_in, bf16_t* mlp_out, cudaStream_t s) {
+  const size_t smem = mlp_smem(d);
+  int err = set_smem(mlp_block_kernel<NY>, smem);
+  if (err) return err;
+  const unsigned blocks = (unsigned)((n + kRows - 1) / kRows);
+  mlp_block_kernel<NY><<<blocks, kThreads, smem, s>>>(x, n, d, f, g, bln, w1t, b1, w2t, b2, fg,
+                                                      fb, cap_mode, out, cap, mlp_in, mlp_out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace wst_enc
+
+extern "C" {
+
+// Geometry the kernels take (checked again in Python before each launch).
+int wst_enc_head_dim() { return wst_enc::kHeadDim; }
+int wst_enc_mlp_chunk() { return wst_enc::kMlpChunk; }
+
+int wst_ln_qkv_fwd(const void* x, long long n, int d, const void* g, const void* bln,
+                   const void* wt, const void* bias, float q_scale, void* q, void* k, void* v,
+                   void* stream) {
+  using namespace wst_enc;
+  if (n <= 0) return 0;
+  const size_t smem = gemm_smem(d);
+  int err = set_smem(ln_qkv_kernel, smem);
+  if (err) return err;
+  const unsigned blocks = (unsigned)((n + kRows - 1) / kRows);
+  ln_qkv_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16_t*>(x), n, d, static_cast<const float*>(g),
+      static_cast<const float*>(bln), static_cast<const bf16_t*>(wt),
+      static_cast<const float*>(bias), q_scale, static_cast<bf16_t*>(q),
+      static_cast<bf16_t*>(k), static_cast<bf16_t*>(v));
+  return (int)cudaGetLastError();
+}
+
+int wst_attention_fwd(const void* q, const void* k, const void* v, int b, int t, int t_real,
+                      int d, int n_heads, void* out, void* stream) {
+  using namespace wst_enc;
+  if (b <= 0 || t <= 0) return 0;
+  const dim3 grid((t + kAttnQ - 1) / kAttnQ, n_heads, b);
+  attention_kernel<<<grid, kAttnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
+      static_cast<const bf16_t*>(v), t, t_real, d, static_cast<bf16_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+int wst_out_proj_fwd(const void* attn, const void* x, long long n, int d, const void* wt,
+                     const void* bias, void* out, void* stream) {
+  using namespace wst_enc;
+  if (n <= 0) return 0;
+  const size_t smem = gemm_smem(d);
+  int err = set_smem(out_proj_kernel, smem);
+  if (err) return err;
+  const unsigned blocks = (unsigned)((n + kRows - 1) / kRows);
+  out_proj_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16_t*>(attn), static_cast<const bf16_t*>(x), n, d,
+      static_cast<const bf16_t*>(wt), static_cast<const float*>(bias),
+      static_cast<bf16_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+int wst_mlp_block_fwd(const void* x, long long n, int d, int f, const void* g, const void* bln,
+                      const void* w1t, const void* b1, const void* w2t, const void* b2,
+                      const void* fg, const void* fb, int cap_mode, void* out, void* cap,
+                      void* mlp_in, void* mlp_out, void* stream) {
+  using namespace wst_enc;
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16_t* xx = static_cast<const bf16_t*>(x);
+  const float *gg = static_cast<const float*>(g), *bb = static_cast<const float*>(bln);
+  const bf16_t *w1 = static_cast<const bf16_t*>(w1t), *w2 = static_cast<const bf16_t*>(w2t);
+  const float *bb1 = static_cast<const float*>(b1), *bb2 = static_cast<const float*>(b2);
+  const float *ffg = static_cast<const float*>(fg), *ffb = static_cast<const float*>(fb);
+  bf16_t* o = static_cast<bf16_t*>(out);
+  bf16_t *mi = static_cast<bf16_t*>(mlp_in), *mo = static_cast<bf16_t*>(mlp_out);
+  switch (d) {
+    case 128: return launch_mlp<2>(xx, n, d, f, gg, bb, w1, bb1, w2, bb2, ffg, ffb, cap_mode, o, cap, mi, mo, s);
+    case 256: return launch_mlp<4>(xx, n, d, f, gg, bb, w1, bb1, w2, bb2, ffg, ffb, cap_mode, o, cap, mi, mo, s);
+    case 384: return launch_mlp<6>(xx, n, d, f, gg, bb, w1, bb1, w2, bb2, ffg, ffb, cap_mode, o, cap, mi, mo, s);
+    case 512: return launch_mlp<8>(xx, n, d, f, gg, bb, w1, bb1, w2, bb2, ffg, ffb, cap_mode, o, cap, mi, mo, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int wst_conv_stem_fwd(const void* even, const void* odd, int b, int t, int n_mels, int d,
+                      const void* w1t, const void* b1, const void* w2t, const void* b2,
+                      const void* pos, void* out, void* stream) {
+  using namespace wst_enc;
+  if (b <= 0 || t <= 0) return 0;
+  const size_t smem = stem_smem(n_mels, d);
+  int err = set_smem(conv_stem_kernel, smem);
+  if (err) return err;
+  const dim3 grid((t + kStemT - 1) / kStemT, b);
+  conv_stem_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16_t*>(even), static_cast<const bf16_t*>(odd), t, n_mels, d,
+      static_cast<const bf16_t*>(w1t), static_cast<const float*>(b1),
+      static_cast<const bf16_t*>(w2t), static_cast<const float*>(b2),
+      static_cast<const bf16_t*>(pos), static_cast<bf16_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

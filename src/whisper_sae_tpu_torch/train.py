@@ -1,15 +1,21 @@
-"""Train TopK SAEs from a cached Whisper layer, on the card.
+"""Extract Whisper activations and train TopK SAEs on them, on the card.
 
-The port's counterpart of ``scripts/train.py`` (same flags, same
-``train_layer`` flow: cache -> ``create_sae`` -> ``SAETrainer.train`` ->
-``sae_final.*`` and ``metrics.json``)::
+The port's counterpart of ``scripts/train.py`` (same flags, same flow):
+a layer without a cache (or ``--extract-only``) first runs extraction --
+the port's log-mel, the Whisper encoder through the fused kernels in bf16
+under ``use_amp``, the decoder on one BOS token, batch 64 -- into the
+JAX package's cache format; then each layer trains from its cache
+(``create_sae`` -> ``SAETrainer.train`` -> ``sae_final.*`` and
+``metrics.json``)::
 
-    python -m whisper_sae_tpu_torch.train --config configs/tiny_default.yaml \\
+    python -m whisper_sae_tpu_torch.train --config configs/tiny_default.yaml \
         --layer encoder:0 --no-wandb
+    python -m whisper_sae_tpu_torch.train --config ... --extract-only --random-whisper
     python -m whisper_sae_tpu_torch.train --device cpu ...   # plain versions
 
-Feature extraction is not ported yet: a missing cache, ``--extract-only``
-or ``--random-whisper`` exits non-zero.
+Without ``--random-whisper`` the pretrained weights are loaded from the
+local HF cache, with a fallback to random weights.  Only
+``dataset_name: synthetic`` is ported (LibriSpeech streaming is not).
 """
 
 from __future__ import annotations
@@ -17,7 +23,6 @@ from __future__ import annotations
 import argparse
 import json
 import random
-import sys
 from datetime import datetime
 from pathlib import Path
 
@@ -25,12 +30,14 @@ import numpy as np
 import torch
 
 from .config import ExperimentConfig
-from .data.feature_cache import FeatureCache
+from .data.feature_cache import FeatureCache, extract_and_cache_features
+from .data.librispeech import AudioBatchLoader, LibriSpeechFeaturesOnly, SyntheticSpeechDataset
 from .models.sae import create_sae
+from .models.whisper import arch_for, init_whisper, load_pretrained
 from .training.trainer import SAETrainer
 from .utils.device import resolve_device
 
-_NOT_PORTED = "extraction is not ported yet"
+EXTRACT_BATCH = 64
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -45,14 +52,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Train single layer (format: encoder:0 or decoder:2)")
     parser.add_argument("--no-wandb", action="store_true", help="Disable W&B logging")
     parser.add_argument("--extract-only", action="store_true",
-                        help="Extract features only (not ported yet)")
+                        help="Extract features only, don't train SAEs")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (default) or cpu")
     parser.add_argument("--seed", type=int, default=None, help="Random seed (overrides config)")
     parser.add_argument("--resume", type=Path, default=None,
                         help="Resume training from a checkpoint file")
     parser.add_argument("--random-whisper", action="store_true",
-                        help="Random Whisper weights for extraction (not ported yet)")
+                        help="Use randomly initialised Whisper weights (offline mode)")
     return parser.parse_args(argv)
 
 
@@ -96,10 +103,11 @@ def main(argv=None) -> dict[str, SAETrainer]:
         decoder_layers = [layer_idx] if component == "decoder" else []
     layers = [("encoder", i) for i in encoder_layers] + [("decoder", i) for i in decoder_layers]
 
-    missing = [f"{c}:{i}" for c, i in layers if not feature_cache.has_cache(c, i)]
-    if args.extract_only or args.random_whisper or missing:
-        why = f"no cached features for {', '.join(missing)}" if missing else "extraction requested"
-        sys.exit(f"{_NOT_PORTED} ({why}); extract with scripts/train.py first")
+    if args.extract_only or any(not feature_cache.has_cache(c, i) for c, i in layers):
+        extract(config, feature_cache, encoder_layers, decoder_layers, device, args.random_whisper)
+    if args.extract_only:
+        print("Extract-only mode, skipping training")
+        return {}
 
     trainers = {}
     for component, layer_idx in layers:
@@ -108,6 +116,38 @@ def main(argv=None) -> dict[str, SAETrainer]:
                                          device, args.resume)
     print("Training complete!")
     return trainers
+
+
+def extract(config: ExperimentConfig, feature_cache: FeatureCache, encoder_layers: list[int],
+            decoder_layers: list[int], device: torch.device, random_whisper: bool) -> None:
+    """Write the caches of the given layers (``scripts/train.py:155-196``)."""
+    if config.data.dataset_name != "synthetic":
+        raise ValueError(
+            f"dataset_name {config.data.dataset_name!r} is not ported: the port extracts from "
+            "dataset_name: synthetic only (LibriSpeech streaming needs data that is not here)")
+    arch = arch_for(config.whisper.model_name)
+    gen = torch.Generator().manual_seed(config.training.seed)
+    if random_whisper:
+        params = init_whisper(gen, arch)
+        print("Using RANDOM Whisper weights (--random-whisper)")
+    else:
+        try:
+            params, arch = load_pretrained(config.whisper.model_name)
+            print(f"Loaded {config.whisper.model_name}")
+        except Exception as e:  # offline without a local snapshot
+            print(f"Pretrained load failed ({type(e).__name__}); falling back to random "
+                  "weights. Pass --random-whisper to silence this warning.")
+            params = init_whisper(gen, arch)
+    print("Extracting features...")
+    dataset = SyntheticSpeechDataset(num_samples=config.data.max_samples,
+                                     seed=config.training.seed, n_mels=arch.n_mels, device=device)
+    loader = AudioBatchLoader(LibriSpeechFeaturesOnly(dataset), batch_size=EXTRACT_BATCH)
+    extract_and_cache_features(
+        params, arch, loader, feature_cache, encoder_layers=encoder_layers,
+        decoder_layers=decoder_layers, max_samples=config.data.max_samples,
+        compute_dtype=torch.bfloat16 if config.training.use_amp else None, device=device,
+    )
+    print("Feature extraction complete")
 
 
 def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component: str,

@@ -1,5 +1,6 @@
-"""The port's training CLI (``python -m whisper_sae_tpu_torch.train``) on the
-CPU, from a small synthetic cache in the JAX package's format."""
+"""The port's CLI (``python -m whisper_sae_tpu_torch.train``) on the CPU:
+training from a small synthetic cache in the JAX package's format, and
+extraction into such a cache."""
 
 from __future__ import annotations
 
@@ -20,6 +21,16 @@ from whisper_sae_tpu_torch import train as cli
 
 REPO = Path(__file__).resolve().parent.parent
 D, N = 128, 1000
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The suite runs one worker process per core: keep torch's intra-op
+    pool to one thread here, or the workers' pools oversubscribe the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 def _config(tmp_path: Path, epochs: int = 3) -> Path:
@@ -51,7 +62,7 @@ def _cache(tmp_path: Path, dtype: str = "float32") -> None:
 def test_cli_trains_from_cache(tmp_path, dtype):
     cfg = _config(tmp_path)
     _cache(tmp_path, dtype)
-    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run(
         [sys.executable, "-m", "whisper_sae_tpu_torch.train", "--config", str(cfg),
          "--device", "cpu", "--no-wandb", "--layer", "encoder:0"],
@@ -86,15 +97,51 @@ def test_cli_returns_trainers_and_resumes(tmp_path):
     assert resumed.global_step == 16  # the one epoch was already done
 
 
+def _synthetic(cfg_path: Path, samples: int = 2) -> Path:
+    """The config switched to the synthetic dataset, ``samples`` clips."""
+    cfg = yaml.safe_load(cfg_path.read_text())
+    cfg["data"].update(dataset_name="synthetic", max_samples=samples)
+    cfg["training"].update(epochs=1, batch_size=256)
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    return cfg_path
+
+
 @pytest.mark.parametrize("extra", [[], ["--extract-only"], ["--random-whisper"]])
-def test_cli_extraction_not_ported(tmp_path, extra):
-    cfg = _config(tmp_path)
-    if extra:
-        _cache(tmp_path)  # even with a cache, extraction is refused
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["--config", str(cfg), "--device", "cpu", "--no-wandb", "--layer", "encoder:0",
-                  *extra])
-    assert "extraction is not ported yet" in str(exc.value.code)
+def test_cli_extraction_not_ported(tmp_path, monkeypatch, extra):
+    """Extraction in the CLI (whisper-tiny, random weights, 2 synthetic
+    clips on the CPU): a missing cache is extracted, then trained;
+    ``--extract-only`` writes the cache and trains nothing;
+    ``--random-whisper`` with the cache present uses it and extracts nothing."""
+    cfg = _synthetic(_config(tmp_path))
+    args = ["--config", str(cfg), "--device", "cpu", "--no-wandb", "--layer", "encoder:0"]
+    features = tmp_path / "cache" / "features"
+    if extra == ["--random-whisper"]:
+        _cache(tmp_path)
+        monkeypatch.setattr(cli, "extract_and_cache_features",
+                            lambda *a, **k: pytest.fail("extraction ran despite the cache"))
+    trainers = cli.main(args + extra)
+    meta = json.loads((features / "whisper-tiny_encoder_layer0_meta.json").read_text())
+    if extra == ["--random-whisper"]:
+        assert meta["num_tokens"] == N and meta["hidden_dim"] == D
+    else:
+        assert meta["num_tokens"] == 2 * 1500 and meta["hidden_dim"] == 384
+        assert meta["num_samples"] == 2 and meta["dtype"] == "float32"
+        assert meta["data_config"]["dataset_name"] == "synthetic"
+        assert not (features / "extraction_progress.json").exists()
+    if extra == ["--extract-only"]:
+        assert trainers == {} and not (tmp_path / "out").exists()
+        return
+    (trainer,) = trainers.values()
+    rows = json.loads((trainer.run_dir / "metrics.json").read_text())
+    assert len(rows) == -(-meta["num_tokens"] // 256)  # one epoch
+    assert np.isfinite([r["loss"] for r in rows]).all()
+
+
+def test_cli_extraction_takes_only_the_synthetic_dataset(tmp_path):
+    cfg = _config(tmp_path)  # dataset_name librispeech_asr
+    with pytest.raises(ValueError, match="synthetic"):
+        cli.main(["--config", str(cfg), "--device", "cpu", "--no-wandb", "--extract-only",
+                  "--random-whisper"])
 
 
 def test_parse_layer_arg():

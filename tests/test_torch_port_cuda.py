@@ -182,3 +182,139 @@ def test_unsupported_shapes_raise(dev):
     with pytest.raises(ValueError, match="b_pre must be"):
         cuda_sae.fused_sae_loss(x, q["w_enc"], q["b_enc"], q["b_pre"][:-1], q["w_dec"],
                                 q["b_dec"][:-1], K)
+
+
+# ---------------------------------------------------------------------------
+# the encoder kernels (csrc/encoder_kernels.cu) against their plain versions
+# (pinned to the JAX Pallas kernels by test_torch_port_encoder_ops.py).
+# Bar for one bf16 block: max|d| <= 2**-6 max|ref|, mean|d| <= 2**-9 mean|ref|;
+# a whole bf16 stack per layer: 2**-4 and 2**-7.
+# ---------------------------------------------------------------------------
+
+from whisper_sae_tpu_torch.models import whisper as W  # noqa: E402
+from whisper_sae_tpu_torch.ops import cuda_encoder as CE  # noqa: E402
+from whisper_sae_tpu_torch.ops import encoder as E  # noqa: E402
+
+
+def _close(got, want, max_rel=2.0**-6, mean_rel=2.0**-9):
+    torch.cuda.synchronize()
+    g, w = got.float(), want.float()
+    assert g.shape == w.shape and bool(torch.isfinite(g).all())
+    d = (g - w).abs()
+    assert float(d.max()) <= max_rel * float(w.abs().max())
+    assert float(d.mean()) <= mean_rel * float(w.abs().mean())
+
+
+def _encoder(d, heads, f, n_mels, t, seed=0):
+    arch = W.WhisperArch(d_model=d, encoder_layers=1, decoder_layers=1, num_heads=heads,
+                         ffn_dim=f, n_mels=n_mels, max_source_positions=t)
+    g = torch.Generator().manual_seed(seed)
+    p = W.init_whisper(g, arch)
+    p = W._tree_map(lambda a: a + 0.05 * torch.randn(a.shape, generator=g), p)
+    enc = W.params_to(W.cast_params(p, torch.bfloat16), "cuda")["encoder"]
+    return enc, W._layer(enc["layers"], 0), g
+
+
+GEOMS = [(128, 2, 256, 80, 100), (384, 6, 1536, 80, 1500), (384, 6, 1536, 128, 1500)]
+
+
+@pytest.mark.parametrize("d,heads,f,n_mels,t", GEOMS)
+def test_encoder_kernels_match_plain(dev, d, heads, f, n_mels, t):
+    enc, lp, g = _encoder(d, heads, f, n_mels, t)
+    mel = (torch.randn(2, n_mels, 2 * t, generator=g) * 0.5).to(dev).bfloat16()
+    stem = (enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"], enc["pos"])
+    x = E.conv_stem_plain(mel, *stem)
+    _close(CE.conv_stem_fwd(mel, *stem), x)
+    rows = x.reshape(-1, d)
+    q, k, v = E.ln_qkv_plain(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
+    for got, want in zip(CE.ln_qkv_fwd(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads),
+                         (q, k, v)):
+        _close(got, want)
+    q, k, v = (a.view(2, t, d) for a in (q, k, v))
+    for t_real in (t, t - 37):
+        _close(CE.self_attention_fwd(q, k, v, heads, t_real),
+               E.self_attention_plain(q, k, v, heads, t_real))
+    _close(CE.flash_self_attention_fwd(q, k, v, heads), E.self_attention_plain(q, k, v, heads))
+    attn = E.self_attention_plain(q, k, v, heads).reshape(-1, d)
+    _close(CE.out_proj_fwd(attn, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
+           E.out_proj_plain(attn, rows, lp["attn"]["wo"], lp["attn"]["bo"]))
+    block = E.attention_block_plain(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
+    _close(CE.attention_block_fwd(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads), block)
+    fl = (enc["ln_f_g"].float(), enc["ln_f_b"].float())
+    brows = block.reshape(-1, d)
+    for got, want in zip(CE.mlp_block_fwd(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], True, fl),
+                         E.mlp_block_plain(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], True, fl)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("capture,final_ln,cap_dt", [
+    (False, False, torch.bfloat16), (True, False, torch.bfloat16),
+    (False, True, torch.bfloat16), (True, True, torch.float32),
+])
+def test_mlp_kernel_all_modes(dev, capture, final_ln, cap_dt):
+    enc, lp, g = _encoder(384, 6, 1536, 80, 1500, seed=1)
+    x = torch.randn(3000, 384, generator=g).to(dev).bfloat16()
+    fl = (enc["ln_f_g"].float(), enc["ln_f_b"].float()) if final_ln else None
+    got = CE.mlp_block_fwd(x, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
+    want = E.mlp_block_plain(x, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
+    got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+    assert len(got) == len(want) == 1 + final_ln + 2 * capture
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        _close(a, b)
+
+
+def test_extraction_on_the_card_uses_only_kernels(dev):
+    """bf16 extract_activations at whisper-tiny launches the kernels (no
+    plain version) and agrees with the plain versions on the card at the
+    stack bar; the f32 mode agrees with the CPU at rtol 1e-3."""
+    arch = W.arch_for("openai/whisper-tiny")
+    p = W.init_whisper(torch.Generator().manual_seed(2), arch)
+    mel = torch.randn(2, 80, 3000, generator=torch.Generator().manual_seed(3)) * 0.5
+    pc = W.params_to(p, dev)
+    E.plain_calls.clear()
+    before = [fn.launches for fn in (CE.conv_stem_fwd, CE.ln_qkv_fwd, CE.self_attention_fwd,
+                                     CE.out_proj_fwd, CE.mlp_block_fwd)]
+    got = W.extract_activations(pc, mel.to(dev), arch, compute_dtype=torch.bfloat16,
+                                capture_dtype=torch.bfloat16, with_mlp=True)
+    after = [fn.launches for fn in (CE.conv_stem_fwd, CE.ln_qkv_fwd, CE.self_attention_fwd,
+                                    CE.out_proj_fwd, CE.mlp_block_fwd)]
+    assert sum(E.plain_calls.values()) == 0
+    assert [a - b for a, b in zip(after, before)] == [1, 4, 4, 4, 4]
+    want = W.extract_activations(p, mel, arch, compute_dtype=torch.bfloat16,
+                                 capture_dtype=torch.bfloat16, with_mlp=True)
+    for key in ("encoder", "encoder_mlp_in", "encoder_mlp_out"):
+        for i in range(arch.encoder_layers):
+            _close(got[key][i].cpu(), want[key][i], 2.0**-4, 2.0**-7)
+    f32 = W.extract_activations(pc, mel.to(dev), arch)
+    ref = W.extract_activations(p, mel, arch)
+    for key in ref:
+        torch.testing.assert_close(f32[key].cpu(), ref[key], rtol=1e-3, atol=1e-3)
+
+
+def test_flash_route_launches_the_attention_kernel(dev):
+    arch = W.arch_for("openai/whisper-tiny")
+    p = W.params_to(W.cast_params(W.init_whisper(torch.Generator().manual_seed(4), arch),
+                                  torch.bfloat16), dev)
+    mel = (torch.randn(2, 80, 3000, generator=torch.Generator().manual_seed(5)) * 0.5)
+    before = CE.flash_self_attention_fwd.launches
+    with torch.no_grad():
+        last, layers = W.encoder_forward(p, mel.to(dev).bfloat16(), arch, use_fused=False)
+    assert CE.flash_self_attention_fwd.launches - before == arch.encoder_layers
+    assert bool(torch.isfinite(layers.float()).all()) and last.shape == (2, 1500, 384)
+
+
+def test_encoder_kernels_refuse_shapes(dev):
+    x = torch.zeros(2, 64, 256, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        CE.self_attention_fwd(x, x, x, 8)  # head dim 32
+    with pytest.raises(ValueError, match="bfloat16"):
+        CE.self_attention_fwd(x.float(), x.float(), x.float(), 4)
+    enc, lp, _ = _encoder(128, 2, 256, 80, 100)
+    with pytest.raises(ValueError, match="F a multiple"):
+        CE.mlp_block_fwd(torch.zeros(8, 128, device=dev, dtype=torch.bfloat16), lp["ln2_g"],
+                         lp["ln2_b"], {**lp["mlp"], "w1": lp["mlp"]["w1"][:, :200]})
+    with pytest.raises(ValueError, match="even T_mel"):
+        CE.conv_stem_fwd(torch.zeros(1, 80, 199, device=dev, dtype=torch.bfloat16),
+                         enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"],
+                         enc["pos"])

@@ -37,6 +37,16 @@ D, H, K, B = 128, 512, 8, 64
 N = 6 * B + 16
 EPOCHS, TOTAL, EVERY = 4, 28, 20
 
+@pytest.fixture(autouse=True, scope="module")
+def _few_threads():
+    """The suite runs one worker process per core: keep torch's intra-op
+    pool to one thread here, or the workers' pools oversubscribe the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 
 def _setup(seed=1):
     rng = np.random.default_rng(seed)
