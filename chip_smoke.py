@@ -62,6 +62,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
    yardstick (``torch.matmul`` for the projections, the conv1d pair for
    the stem, ``scaled_dot_product_attention`` for the core -- yardsticks,
    not ports).
+8. The coder kernel (``ops/csrc/coder_kernels.cu``) at whisper-tiny width,
+   B=4096, in its five modes (Skip and TopK transcoder, ReLU SAE: D=384,
+   H=3072, k=32; TopK and ReLU crosscoder: L*D=1536, S=3072), sliced, at
+   a row offset into a larger buffer and on a ragged 1,792-row remainder,
+   against its plain version: TopK modes at kernel A's bars; ReLU modes
+   with the latent within bf16 rounding (atol 1e-2 * max), sum(resid^2),
+   the L1 and the hidden sums at rtol 1e-4 and ``active`` equal on >=
+   99.9% of features.  Gradients through each autograd.Function (sliced
+   and windowed, 1024 rows) against the same Function on the CPU at rtol
+   2e-2 (ReLU modes: >= 99.99% of each gradient's elements, as a pre
+   within rounding of 0 moves one feature's column); outputs
+   bit-identical run to run.
+9. The coder slice through its entry points, every coder launch counter
+   and the plain-call counters zeroed first: a ReLU SAE through the CLI
+   on phase 2's cache (tiny_default.yaml with ``activation: relu``, one
+   epoch); ``launch extract --capture-mlp`` of 64 synthetic clips (4
+   layer caches and 4 (mlp_in, mlp_out) pairs of 96,000 rows);
+   ``launch train-transcoder`` (Skip, then ``--no-skip``) and
+   ``launch train-crosscoder`` (TopK, then ``--relu``), 2 epochs at
+   batch 4096 and learning rate 1e-2 (the launcher's 1000-step warmup
+   would leave 48 steps at a rate too small to see the loss move).
+   Windowed launches must equal the windowed steps, sliced launches be
+   at least one an epoch (the remainder), the plain versions run no
+   time, the losses be finite and fall, the run files exist; each
+   trained family's forward on 512 rows on the card is held against the
+   same model on the CPU (loss rtol 1e-3, >= 99% of rows selecting the
+   same features).  The caches are deleted.
+10. Times of the coder slice: each mode at B=4096 and 32768, sliced and
+    at a row offset, beside its plain version, its bound and a library
+    yardstick (the bf16 encode product, plus the dense decode product in
+    ReLU modes); one training step of the Skip transcoder and of the
+    ReLU crosscoder at batch 4096 and 32768, wall and device busy time.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Scratch files go under ``build/``.
@@ -99,6 +131,18 @@ ENC_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/encoder_kernels.cu"
 # exp per second on the special-function units: 132 SMs x 16 a clock x 1.98 GHz
 PEAK_SFU = 132 * 16 * 1.98e9
 BLOCK_BAR, STACK_BAR = (2.0**-6, 2.0**-9), (2.0**-4, 2.0**-7)
+# coder slice: whisper-tiny width, the launcher's batch and bench.py's
+CODER_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/coder_kernels.cu"
+CODER_BATCHES = (4096, 32768)
+CODER_B = CODER_BATCHES[0]
+CODER_MODES = {  # mode: (D, dout, k or None for ReLU, skip, y is x)
+    "skip_transcoder": (D, D, K, True, False),
+    "topk_transcoder": (D, D, K, False, False),
+    "relu_sae": (D, D, None, False, True),
+    "topk_crosscoder": (4 * D, 4 * D, K, False, True),
+    "relu_crosscoder": (4 * D, 4 * D, None, False, True),
+}
+LAUNCH_CLIPS = 64
 ENC_REPLACES = {
     "conv_stem": "src/whisper_sae_tpu/ops/pallas_encoder.py:604",
     "ln_qkv": "src/whisper_sae_tpu/ops/pallas_encoder.py:340",
@@ -386,15 +430,16 @@ def eval_against_cpu(sae, x: torch.Tensor, sae_mod) -> None:
 # ---------------------------------------------------------------------------
 
 
-def step_profile(trainer, dev, mix: torch.Tensor, steps: int = 200) -> None:
-    """Where a training step's time goes: ``steps`` fused-epoch steps of the
-    trained trainer at batch 128, timed on the host clock without the
-    profiler, then once under ``torch.profiler`` for the device's busy
-    time per step and its heaviest operations."""
+def step_profile(trainer, rows, steps: int) -> dict:
+    """Where a training step's time goes: ``steps`` fused-epoch steps of
+    ``trainer`` over ``rows`` (a tensor or an (x, y) pair on the card),
+    timed on the host clock without the profiler, then once under
+    ``torch.profiler`` for the device's busy time per step and its
+    heaviest operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    rows = gaussian_rows(steps * trainer.config.batch_size, torch.Generator(device=dev).manual_seed(5), mix)
+    b = trainer.config.batch_size
     trainer.train_epoch_fused(rows, shuffle=False)  # warm
     t0 = time.perf_counter()
     trainer.train_epoch_fused(rows, shuffle=False)  # ends with its one metrics fetch
@@ -403,16 +448,18 @@ def step_profile(trainer, dev, mix: torch.Tensor, steps: int = 200) -> None:
         trainer.train_epoch_fused(rows, shuffle=False)
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    log(f"  step at batch {trainer.config.batch_size}: {wall_ms:.3f} ms wall "
-        f"({trainer.config.batch_size / wall_ms * 1e3:,.0f} act/s)")
+    log(f"  step at batch {b}: {wall_ms:.3f} ms wall ({b / wall_ms * 1e3:,.0f} act/s)")
+    res = {"batch": b, "wall_ms": wall_ms, "busy_ms": busy_ms if busy_ms > 0 else None}
     if busy_ms <= 0:
         log("  device busy time: not measured (the profiler saw no device time)")
-        return
+        return res
+    res["idle_share"] = max(0.0, 1 - busy_ms / wall_ms)
     log(f"  device busy {busy_ms:.3f} ms per step (profiled run), idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.1%} of the unprofiled step")
+        f"{res['idle_share']:.1%} of the unprofiled step")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3 / steps:8.4f} ms/step  {e.count // steps:3d}x  "
             f"{e.key[:90]}")
+    return res
 
 
 def times(dev, cuda_sae, cuda_topk, topk) -> dict:
@@ -814,6 +861,355 @@ def encoder_kernel_times(inp: dict, E, CE) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 8-10: the coder slice (ReLU SAE, transcoders, crosscoders)
+# ---------------------------------------------------------------------------
+
+
+def coder_inputs(mode: str, n: int, seed: int, dev) -> tuple:
+    """Rows, targets (None when the rows are their own target) and weights
+    of ``mode`` at whisper-tiny width, drawn on the card from ``seed``."""
+    d, dout, k, skip, y_is_x = CODER_MODES[mode]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    x = randn(n, d)
+    y = None if y_is_x else randn(n, dout)
+    p = {"w_enc": randn(d, H, scale=d ** -0.5), "b_enc": randn(H, scale=0.05),
+         "w_dec": randn(H, dout, scale=0.05), "b_dec": randn(dout, scale=0.05)}
+    if skip:
+        p.update(w_skip=randn(d, dout, scale=0.02), b_skip=randn(dout, scale=0.05))
+    return x, y, p, k
+
+
+def coder_ops(CC, p: dict):
+    b_out = p["b_dec"] + p["b_skip"] if "w_skip" in p else p["b_dec"]
+    return CC.operands(p["w_enc"], p["b_enc"], p["w_dec"], b_out, p.get("w_skip"))
+
+
+def check_coder(got, want, k, what: str) -> float:
+    """Phase 8's bars; returns the max abs residual error on agreeing rows."""
+    torch.cuda.synchronize()
+    check(torch.equal(got.xc, want.xc), f"{what}: bf16 rows differ")
+    rel = abs(float(got.sq) - float(want.sq)) / float(want.sq)
+    check(rel <= 1e-4, f"{what}: sum of squares rel err {rel:.3g} > 1e-4")
+    hmax = float(want.hid.float().abs().max())
+    if k is not None:
+        ok = agree(got.hid, want.hid)
+        share = float(ok.float().mean())
+        check(share >= 0.999, f"{what}: selection agrees on {share:.4%} of rows")
+        hk, hp = got.hid[ok] > 0, want.hid[ok] > 0
+        check(int(hk.sum()) == int(hp.sum()) and torch.equal(hk.any(0), hp.any(0)),
+              f"{what}: l0/active differ on agreeing rows")
+        if bool(ok.all()):
+            check(int(got.l0) == int(want.l0) and torch.equal(got.active, want.active),
+                  f"{what}: l0/active differ")
+    else:
+        ok = torch.ones(got.hid.shape[0], dtype=torch.bool, device=got.hid.device)
+        for name, a, b in (("l1", got.l1, want.l1), ("hsum", got.hsum, want.hsum)):
+            err = float((a - b).abs().max() / b.abs().max())
+            check(err <= 1e-4, f"{what}: {name} rel err {err:.3g} > 1e-4")
+        share = float((got.active == want.active).float().mean())
+        check(share >= 0.999, f"{what}: active equal on {share:.4%} of features")
+    herr = float((got.hid[ok].float() - want.hid[ok].float()).abs().max())
+    check(herr <= 1e-2 * hmax, f"{what}: latent off by {herr:.3g} (max {hmax:.3g})")
+    return float((got.resid[ok] - want.resid[ok]).abs().max())
+
+
+def coder_loss(CC, mode: str, p: dict, x, y, step=None, batch=None):
+    """The training loss of ``mode`` through its autograd.Function: the
+    sliced entry, or the windowed one when ``step`` is given."""
+    k = CODER_MODES[mode][2]
+    base = (p["w_enc"], p["b_enc"], p["w_dec"], p["b_dec"])
+    if mode == "relu_sae":
+        if step is None:
+            return CC.fused_relu_sae_loss(x, *base, 0.01)[0]
+        return CC.fused_relu_sae_loss_indexed(x, step, *base, 0.01, batch)[0]
+    if mode == "relu_crosscoder":
+        norms = torch.linalg.vector_norm(p["w_dec"], dim=1)
+        if step is None:
+            return CC.fused_relu_crosscoder_loss(x, *base, norms, 0.01, 4)[0]
+        return CC.fused_relu_crosscoder_loss_indexed(x, step, *base, norms, 0.01, 4, batch)[0]
+    skip = (p.get("w_skip"), p.get("b_skip"))
+    y_is_x = mode == "topk_crosscoder"
+    if step is None:
+        return CC.fused_transcoder_loss(x, y, *base, *skip, k, "w_skip" in p, y_is_x)[0]
+    return CC.fused_transcoder_loss_indexed(x, y, step, *base, *skip, k, batch, "w_skip" in p,
+                                            y_is_x)[0]
+
+
+def coder_grads_close(CC, mode: str, p: dict, x, y, step, batch, what: str) -> None:
+    """Gradients through the Function on the card against the same Function
+    on the CPU (plain forward), rtol 2e-2.  ReLU modes: >= 99.99% of each
+    gradient's elements (a pre within rounding of 0 takes the other sign
+    on one side and moves that feature's column)."""
+    out = {}
+    for key, src, xs, ys in (("card", p, x, y),
+                             ("cpu", {n: v.cpu() for n, v in p.items()}, x.cpu(),
+                              None if y is None else y.cpu())):
+        q = {n: v.clone().requires_grad_(True) for n, v in src.items()}
+        coder_loss(CC, mode, q, xs, ys, step, batch).backward()
+        out[key] = {n: q[n].grad for n in q}
+    for n, want in out["cpu"].items():
+        got = out["card"][n].cpu()
+        close = torch.isclose(got, want, rtol=2e-2, atol=2e-2 * float(want.abs().max()))
+        share = float(close.float().mean())
+        need = 0.9999 if CODER_MODES[mode][2] is None else 1.0
+        check(share >= need, f"{what}: d{n} agrees with the CPU on {share:.5%} of elements")
+
+
+def coder_kernel_phase(dev, CC) -> dict:
+    """Phase 8: each mode at B=4096, sliced, at a row offset into a larger
+    buffer and on a ragged 1,792-row remainder, against its plain version;
+    gradients; bit-identical losses run to run."""
+    b, tail = CODER_BATCHES[0], 1792
+    errs = {}
+    for i, mode in enumerate(CODER_MODES):
+        xbuf, ybuf, p, k = coder_inputs(mode, 2 * b + tail, 30 + i, dev)
+        ops = coder_ops(CC, p)
+        err = 0.0
+        for what, x, y, off, rows in (
+                ("sliced", xbuf[:b].contiguous(), None if ybuf is None else ybuf[:b].contiguous(),
+                 0, b),
+                ("offset", xbuf, ybuf, b, b), ("remainder", xbuf, ybuf, 2 * b, tail)):
+            got = CC._coder_launch(x, y, off, rows, ops, k)
+            win = slice(off, off + rows)
+            want = CC.coder_forward_plain(x[win], None if y is None else y[win], ops, k)
+            err = max(err, check_coder(got, want, k, f"{mode} {what} [{off}, {off + rows})"))
+        a = CC._coder_launch(xbuf, ybuf, b, b, ops, k)
+        a2 = CC._coder_launch(xbuf, ybuf, b, b, ops, k)
+        torch.cuda.synchronize()
+        check(all(u is None or torch.equal(u, v) for u, v in zip(a, a2)),
+              f"{mode}: outputs not bit-identical run to run")
+        gb = 1024
+        gx, gy = xbuf[:2 * gb].contiguous(), None if ybuf is None else ybuf[:2 * gb].contiguous()
+        coder_grads_close(CC, mode, p, gx[:gb], None if gy is None else gy[:gb], None, None,
+                          f"{mode} sliced")
+        coder_grads_close(CC, mode, p, gx, gy, 1, gb, f"{mode} windowed")
+        errs[mode] = err
+        log(f"  {mode:16s}: agrees sliced, at offset {b} and on the {tail}-row remainder "
+            f"(resid max abs err {err:.3g}); loss bit-identical; gradients agree")
+    return errs
+
+
+def coder_config(work: Path) -> Path:
+    """tiny_default.yaml with ``activation: relu``, one epoch, on phase 2's
+    cache."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    cfg["sae"]["activation"] = "relu"
+    cfg["training"].update(epochs=1, warmup_steps=200)
+    cfg["data"]["cache_dir"] = str(work / "cache")
+    cfg["output_dir"] = str(work / "rout")
+    cfg["experiment_name"] = "relu_smoke"
+    path = work / "relu_smoke.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def check_run(run_dir: Path, final: str, want_rows: int, what: str) -> list[float]:
+    """A training run's files, its metric rows and a falling loss."""
+    for name in (final, "metrics.json", "training_config.json"):
+        check((run_dir / name).exists(), f"{what}: {name} missing")
+    rows = json.loads((run_dir / "metrics.json").read_text())
+    check(len(rows) == want_rows, f"{what}: metrics.json has {len(rows)} rows, not {want_rows}")
+    losses = np.array([r["loss"] for r in rows])
+    check(bool(np.isfinite(losses).all()), f"{what}: non-finite loss")
+    n = max(1, min(100, len(losses) // 10))
+    first, last = float(losses[:n].mean()), float(losses[-n:].mean())
+    check(last < first, f"{what}: loss did not fall ({first:.5f} -> {last:.5f})")
+    log(f"  {what}: {len(rows)} steps, loss {first:.5f} -> {last:.5f} (means of {n} steps)")
+    return [first, last]
+
+
+def coder_path(work: Path, dev, mix, train_mod, launch_mod, cfg_mod, cache_mod, sae_mod, TC, XC,
+               CC, E) -> dict:
+    """Phase 9: the ReLU SAE through the CLI, then extraction with the MLP
+    pairs, the Skip and TopK transcoders and the TopK and ReLU crosscoders
+    through ``whisper_sae_tpu_torch.launch``; launch counts, files, falling
+    losses, and each trained family on the card against the CPU."""
+    for e in CC.ENTRIES:
+        e.launches = 0
+    CC.mode_launches.clear()
+    CC.plain_calls.clear()
+    E.plain_calls.clear()
+    res = {"losses": {}}
+
+    t0 = time.perf_counter()
+    (trainer,) = train_mod.main(["--config", str(coder_config(work)), "--layer", "encoder:0",
+                                 "--no-wandb"]).values()
+    res["relu_sae_train_s"] = time.perf_counter() - t0
+    relu_dir = trainer.run_dir
+    relu_steps = N_ROWS // 128
+    res["losses"]["relu_sae"] = check_run(relu_dir, "sae_final.npz", relu_steps + 1,
+                                          "ReLU SAE through the CLI")
+    rows = json.loads((relu_dir / "metrics.json").read_text())
+    check(all(r["sparsity_loss"] > 0 and r["reconstruction_loss"] < r["loss"] for r in rows),
+          "ReLU SAE: metrics rows lack the L1 term")
+
+    lcache, lout = work / "lcache", work / "lout"
+    t0 = time.perf_counter()
+    launch_mod.main(["extract", "--capture-mlp", "--random-whisper", "--dataset", "synthetic",
+                     "--max-samples", str(LAUNCH_CLIPS), "--layers-encoder", "0,1,2,3",
+                     "--layers-decoder", "", "--cache-dir", str(lcache)])
+    res["extract_s"] = time.perf_counter() - t0
+    cfg = cfg_mod.ExperimentConfig()
+    cache = cache_mod.FeatureCache(lcache / "features", cfg.whisper, cfg.data)
+    n_rows = LAUNCH_CLIPS * ENC_T
+    for comp in ("encoder", "encoder_mlp_in", "encoder_mlp_out"):
+        for layer in range(4):
+            meta = cache.load_metadata(comp, layer)
+            check((meta.num_tokens, meta.hidden_dim) == (n_rows, D), f"{comp}:{layer}: {meta}")
+    check(not cache.has_cache("decoder", 0), "extract wrote a decoder cache")
+    log(f"  launch extract --capture-mlp: {LAUNCH_CLIPS} clips in {res['extract_s']:.1f} s, "
+        f"4 layer caches and 4 (mlp_in, mlp_out) pairs of {n_rows} rows x {D}")
+
+    epochs, lr = 2, "1e-2"
+    steps = n_rows // CODER_B
+    common = ["--epochs", str(epochs), "--learning-rate", lr, "--cache-dir", str(lcache),
+              "--output-dir", str(lout)]
+    jobs = (("skip_transcoder", ["train-transcoder", "--layer-idx", "0"],
+             "launch_encoder_transcoder_layer0", "transcoder_final.npz"),
+            ("topk_transcoder", ["train-transcoder", "--layer-idx", "0", "--no-skip",
+                                 "--experiment-name", "topk"],
+             "topk_encoder_transcoder_layer0", "transcoder_final.npz"),
+            ("topk_crosscoder", ["train-crosscoder", "--layers", "0,1,2,3"],
+             "launch_encoder_crosscoder_l0-1-2-3", "crosscoder_final.npz"),
+            ("relu_crosscoder", ["train-crosscoder", "--layers", "0,1,2,3", "--relu",
+                                 "--experiment-name", "relu"],
+             "relu_encoder_crosscoder_l0-1-2-3", "crosscoder_final.npz"))
+    res["job_s"] = {}
+    for mode, args, run, final in jobs:
+        t0 = time.perf_counter()
+        out = launch_mod.main(args + common)
+        torch.cuda.synchronize()
+        res["job_s"][mode] = time.perf_counter() - t0
+        check(out["run_dir"] == str(lout / run) and out["resumed_from"] is None,
+              f"{mode}: run {out}")
+        res["losses"][mode] = check_run(lout / run, final, epochs * (steps + 1),
+                                        f"launch {' '.join(args[:1] + args[3:])}")
+
+    launches = {e.__name__: e.launches for e in CC.ENTRIES}
+    by_mode = {f"{entry}[{mode}]": n for (entry, mode), n in sorted(CC.mode_launches.items())}
+    log(f"  coder launches: {by_mode}; plain-version calls {dict(CC.plain_calls)}, "
+        f"encoder plain calls {dict(E.plain_calls)}")
+    windowed = {"relu_sae": relu_steps, "skip_transcoder": epochs * steps,
+                "topk_transcoder": epochs * steps, "topk_crosscoder": epochs * steps,
+                "relu_crosscoder": epochs * steps}
+    for mode, want in windowed.items():
+        entry = ("fused_relu_sae_loss" if mode == "relu_sae" else "fused_relu_crosscoder_loss"
+                 if mode == "relu_crosscoder" else "fused_transcoder_loss")
+        got = CC.mode_launches[(entry + "_indexed", mode)]
+        check(got == want, f"{mode}: {got} windowed launches != {want} windowed steps")
+        epochs_run = 1 if mode == "relu_sae" else epochs
+        check(CC.mode_launches[(entry, mode)] >= epochs_run,
+              f"{mode}: {CC.mode_launches[(entry, mode)]} sliced launches, under one an epoch")
+    check(sum(CC.plain_calls.values()) == 0 and sum(E.plain_calls.values()) == 0,
+          f"plain versions ran on the card: {dict(CC.plain_calls)} {dict(E.plain_calls)}")
+
+    # each trained family on 512 rows: the card against the same model on the CPU
+    x_in, _ = cache.load("encoder_mlp_in", 0)
+    y_out, _ = cache.load("encoder_mlp_out", 0)
+    stack = torch.stack([cache.load("encoder", layer)[0][:512] for layer in range(4)], dim=1)
+    rows = gaussian_rows(512, torch.Generator(device=dev).manual_seed(98), mix)
+    models = (("relu_sae", lambda d: sae_mod.load_trained_sae(relu_dir, device=d), (rows,)),
+              ("skip_transcoder", lambda d: TC.load_trained_transcoder(
+                  lout / jobs[0][2], device=d), (x_in[:512], y_out[:512])),
+              ("topk_crosscoder", lambda d: XC.load_trained_crosscoder(
+                  lout / jobs[2][2], device=d), (stack,)),
+              ("relu_crosscoder", lambda d: XC.load_trained_crosscoder(
+                  lout / jobs[3][2], device=d), (stack,)))
+    for name, load, inputs in models:
+        with torch.no_grad():
+            card = load(None)(*(a.to(dev) for a in inputs))
+            cpu = load("cpu")(*(a.cpu() for a in inputs))
+        rel = abs(float(card.loss) - float(cpu.loss)) / float(cpu.loss)
+        share = float(agree(card.hidden.cpu(), cpu.hidden).float().mean())
+        check(bool(torch.isfinite(card.loss)) and rel < 1e-3 and share >= 0.99,
+              f"{name}: card vs CPU on 512 rows: loss rel err {rel:.3g}, {share:.2%} rows agree")
+        log(f"  trained {name} on 512 rows, card vs CPU: loss rel err {rel:.2g}, "
+            f"{share:.2%} rows select the same features")
+    shutil.rmtree(lcache, ignore_errors=True)
+    shutil.rmtree(work / "cache", ignore_errors=True)
+    res.update(launches=launches, by_mode=dict(CC.mode_launches))
+    return res
+
+
+def coder_bound(mode: str, b: int, x, nnz: int) -> tuple[float, str]:
+    """Least time of one coder launch: x (and y) read, the bf16 weights and
+    biases read, latent, residual and bf16 rows written; encode, the
+    decode of this run's nonzero latents and the skip product on the
+    tensor cores; the bisection's 32 compares per pre in TopK modes."""
+    d, dout, k, skip, y_is_x = CODER_MODES[mode]
+    nbytes = (b * d * x.element_size() + (0 if y_is_x else b * dout * 4)
+              + (d * H + H * dout + (d * dout if skip else 0)) * 2 + (H + dout) * 4
+              + b * H * 2 + b * dout * 4 + b * d * 2 + (H + 1) * 4 + (0 if k else H * 4))
+    flops = 2 * b * d * H + 2 * nnz * dout + (2 * b * d * dout if skip else 0)
+    return bound(nbytes, flops, (32 if k else 1) * b * H)
+
+
+def coder_times(dev, CC) -> dict:
+    """Phase 10a: each mode at B=4096 and 32768, sliced and at a row offset,
+    beside its plain version, its bound and a library yardstick (the bf16
+    encode product, plus the dense decode product in ReLU modes)."""
+    res = {}
+    for b in CODER_BATCHES:
+        for i, mode in enumerate(CODER_MODES):
+            xbuf, ybuf, p, k = coder_inputs(mode, 2 * b, 50 + i, dev)
+            ops = coder_ops(CC, p)
+            x, y = xbuf[:b].contiguous(), None if ybuf is None else ybuf[:b].contiguous()
+            out = CC._coder_launch(x, y, 0, b, ops, k)
+            nnz = int((out.hid > 0).sum())
+            xc, we, wd = x.bfloat16(), p["w_enc"].bfloat16(), p["w_dec"].bfloat16()
+            lib = (lambda: torch.matmul(torch.matmul(xc, we), wd)) if k is None else (
+                lambda: torch.matmul(xc, we))
+            iters = 5 if b > CODER_BATCHES[0] else 20
+            res[(mode, b)] = {
+                "ms": time_ms(lambda: CC._coder_launch(x, y, 0, b, ops, k), iters=iters),
+                "indexed_ms": time_ms(lambda: CC._coder_launch(xbuf, ybuf, b, b, ops, k),
+                                      iters=iters),
+                "plain_ms": time_ms(lambda: CC.coder_forward_plain(x, y, ops, k), iters=3,
+                                    warmup=1),
+                **dict(zip(("bound_ms", "bound_by"), coder_bound(mode, b, x, nnz))),
+                "library_ms": time_ms(lib, iters=iters),
+                "nnz_per_row": nnz / b,
+            }
+            r = res[(mode, b)]
+            log(f"  {mode:16s} B={b:5d}: {r['ms']:.4f} ms (at an offset {r['indexed_ms']:.4f}), "
+                f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
+                f"library {r['library_ms']:.4f}, {r['nnz_per_row']:.1f} nonzero latents a row")
+            del xbuf, ybuf, x, y, out
+    return res
+
+
+def coder_step_times(work: Path, dev, TC, XC, CT, cfg_mod) -> dict:
+    """Phase 10b: one training step of the Skip transcoder and of the ReLU
+    crosscoder under AMP (windowed kernel) at the launcher's batch 4096 and
+    bench.py's 32768, wall and device busy time, on random rows on the
+    card."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    res = {}
+    for b, steps in ((CODER_B, 20), (CODER_BATCHES[-1], 6)):
+        n = steps * b
+        cfg = cfg_mod.TrainingConfig(batch_size=b, warmup_steps=10, use_amp=True)
+        log(f"  Skip transcoder (D=384, H=3072, k=32), batch {b}:")
+        tc = CT.TranscoderTrainer(TC.create_transcoder(D, D, H, k=K, use_skip=True, device=dev),
+                                  cfg, run_dir=work / "tstep")
+        res[f"skip_transcoder_{b}"] = step_profile(
+            tc, (torch.randn(n, D, generator=g, device=dev),
+                 torch.randn(n, D, generator=g, device=dev)), steps)
+        log(f"  ReLU crosscoder (L=4, D=384, S=3072), batch {b}:")
+        xc = CT.CrosscoderTrainer(XC.create_crosscoder(D, 4, H, use_topk=False, device=dev), cfg,
+                                  run_dir=work / "xstep")
+        res[f"relu_crosscoder_{b}"] = step_profile(
+            xc, torch.randn(n, 4, D, generator=g, device=dev), steps)
+        del tc, xc
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -830,6 +1226,11 @@ def main() -> int:
         from whisper_sae_tpu_torch.models import whisper as W
         from whisper_sae_tpu_torch.ops import cuda_encoder as CE
         from whisper_sae_tpu_torch.ops import encoder as E
+        from whisper_sae_tpu_torch import launch as launch_mod
+        from whisper_sae_tpu_torch.models import crosscoder as XC
+        from whisper_sae_tpu_torch.models import transcoder as TC
+        from whisper_sae_tpu_torch.ops import cuda_coder as CC
+        from whisper_sae_tpu_torch.training import coder_trainers as CT
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the repository root",
               file=sys.stderr)
@@ -874,11 +1275,11 @@ def main() -> int:
         check(n > 0, f"{name}: no launch on the main path")
     check(launches["fused_sae_loss_indexed"] == EPOCHS * (N_ROWS // 128),
           "windowed kernel A launches != fused steps")
-    shutil.rmtree(work / "cache", ignore_errors=True)
 
     log("phase 4: times (ms per call; library_ms is a yardstick: the bf16 encode product "
         "for A and B, torch.topk for C -- not equivalents)")
-    step_profile(trainer, dev, mix)
+    step_profile(trainer, gaussian_rows(200 * trainer.config.batch_size,
+                                        torch.Generator(device=dev).manual_seed(5), mix), 200)
     res = times(dev, cuda_sae, cuda_topk, topk)
 
     log("phase 5: encoder kernels at whisper-tiny width, 64 clips, against their plain versions")
@@ -926,6 +1327,38 @@ def main() -> int:
             "library_ms": lib_ms, "batch": ENC_B,
         })
     log(f"  extraction: {json.dumps({**ext_times, 'cli_clips_per_s': extraction['cli_clips_per_s']})}")
+
+    log("phase 8: the coder kernel at whisper-tiny width, B=4096, against its plain version")
+    coder_errs = coder_kernel_phase(dev, CC)
+    log("phase 9: ReLU SAE through the CLI; extract, transcoders and crosscoders through "
+        "whisper_sae_tpu_torch.launch")
+    path9 = coder_path(work, dev, mix, train_mod, launch_mod, cfg_mod, cache_mod, sae_mod, TC, XC,
+                       CC, E)
+    log("phase 10: times of the coder slice (library_ms: the bf16 encode product, plus the "
+        "dense decode product in ReLU modes -- yardsticks, not equivalents)")
+    ctimes = coder_times(dev, CC)
+    steps10 = coder_step_times(work, dev, TC, XC, CT, cfg_mod)
+    for mode in CODER_MODES:
+        big = ctimes[(mode, CODER_BATCHES[-1])]
+        for entry, replaces, key in (
+                ("fused", "src/whisper_sae_tpu/ops/pallas_sae.py:679", "ms"),
+                ("fused_indexed", "src/whisper_sae_tpu/ops/pallas_sae.py:1057", "indexed_ms")):
+            r = ctimes[(mode, CODER_B)]
+            name = {"relu_sae": "fused_relu_sae_loss", "relu_crosscoder": "fused_relu_crosscoder_loss"
+                    }.get(mode, "fused_transcoder_loss") + ("_indexed" if "indexed" in entry else "")
+            kernels.append({
+                "name": f"coder_{entry}[{mode}]", "route": "cuda", "source": CODER_SOURCE,
+                "replaces": replaces, "launches": path9["by_mode"].get((name, mode), 0),
+                "max_abs_err": coder_errs[mode], "ms": r[key], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"], "batch": CODER_B,
+                f"at_batch_{CODER_BATCHES[-1]}": {
+                    "ms": big[key], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+                    "bound_by": big["bound_by"], "library_ms": big["library_ms"]},
+            })
+    for k_ in [k_ for k_ in kernels if k_["name"].startswith("coder_")]:
+        check(k_["launches"] > 0, f"{k_['name']}: no launch on the coder path")
+    log(f"  coder slice: {json.dumps({'steps': steps10, 'losses': path9['losses'], 'job_s': path9['job_s'], 'relu_sae_train_s': path9['relu_sae_train_s'], 'extract_s': path9['extract_s']})}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

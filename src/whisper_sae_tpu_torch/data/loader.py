@@ -1,8 +1,10 @@
-"""Shuffling batch iterator over cached activations (counterpart of
-``whisper_sae_tpu/data/loader.py:27-72``): the same
+"""Shuffling batch iterators over cached activations (counterpart of
+``whisper_sae_tpu/data/loader.py:27-105``): the same
 ``np.random.default_rng(seed)`` permutation stream, a new order each
 epoch, and the final partial batch kept unless ``drop_last``.  ``data``
-is a numpy array or a CPU tensor (a bf16 cache stays bf16)."""
+is a numpy array or a CPU tensor (a bf16 cache stays bf16).
+:class:`PairedActivationLoader` yields row-aligned ``(x, y)`` pairs, the
+transcoder's (mlp_in, mlp_out) layout."""
 
 from __future__ import annotations
 
@@ -43,3 +45,30 @@ class ActivationLoader:
         tensor = isinstance(self.data, torch.Tensor)
         for idx in self._batch_indices():
             yield self.data[torch.from_numpy(idx)] if tensor else self.data[idx]
+
+
+class PairedActivationLoader(ActivationLoader):
+    """Mini-batches of row-aligned ``(x, y)`` pairs; ``.data = (x, y)`` so
+    the trainer's fused epoch takes both buffers."""
+
+    def __init__(self, x, y, batch_size: int, shuffle: bool = True, seed: int = 0,
+                 drop_last: bool = False):
+        super().__init__(x, batch_size, shuffle, seed, drop_last)
+        y = y if isinstance(y, torch.Tensor) else np.asarray(y)
+        if self.data.shape[0] != y.shape[0]:
+            raise ValueError(
+                f"paired arrays must be row-aligned (got {self.data.shape[0]} vs {y.shape[0]})")
+        self.data = (self.data, y)
+
+    @property
+    def num_tokens(self) -> int:
+        return int(self.data[0].shape[0])
+
+    def __iter__(self):
+        x, y = self.data
+        tensor = isinstance(x, torch.Tensor)
+        for idx in self._batch_indices():
+            idx = np.sort(idx)
+            if tensor:
+                idx = torch.from_numpy(idx)
+            yield x[idx], y[idx]

@@ -1,4 +1,5 @@
-"""TopK sparse autoencoder (counterpart of ``whisper_sae_tpu/models/sae.py``).
+"""TopK and ReLU sparse autoencoders (counterpart of
+``whisper_sae_tpu/models/sae.py``).
 
 The functional core takes a parameter dict in the JAX package's layout,
 so the two packages compare like with like:
@@ -11,10 +12,14 @@ Dispatch on the card: a bf16 ``topk_sae_loss`` is kernel A
 (``ops.cuda_sae.fused_sae_loss``), a bf16 ``topk_hidden_dense`` is
 kernel B (``fused_topk_encode``), an f32 ``topk_hidden_dense`` is an f32
 product (TF32 off) followed by kernel C (``ops.topk.topk_mask_dense``).
-On the CPU each kernel's plain version runs instead.
+A bf16 ``relu_sae_loss`` is the coder kernel in ReLU mode
+(``ops.cuda_coder.fused_relu_sae_loss``).  On the CPU each kernel's plain
+version runs instead.
 
 :class:`TopKSAE` is the ``nn.Module`` facade with the reference's object
-API (encode/decode/forward/dead features/resampling).
+API (encode/decode/forward/dead features/resampling); :class:`ReLUSAE`
+the ReLU + L1 one (``w_enc, b_enc, w_dec, b_dec``: no pre-encoder bias,
+no dead-feature state of its own).
 """
 
 from __future__ import annotations
@@ -28,12 +33,14 @@ import torch
 from torch import nn
 
 from ..config import SAEConfig
+from ..ops.cuda_coder import fused_relu_sae_loss
 from ..ops.cuda_sae import fused_sae_loss, fused_topk_encode
 from ..ops.topk import topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
 
 PARAM_NAMES = ("w_enc", "b_enc", "w_dec", "b_dec", "b_pre")
+RELU_PARAM_NAMES = ("w_enc", "b_enc", "w_dec", "b_dec")
 
 
 class SAEOutput(NamedTuple):
@@ -79,6 +86,23 @@ def init_topk_sae(gen: torch.Generator, input_dim: int, hidden_dim: int) -> dict
         "w_dec": w_dec,
         "b_dec": torch.zeros(input_dim),
         "b_pre": torch.zeros(input_dim),
+    }
+
+
+def init_relu_sae(gen: torch.Generator, input_dim: int, hidden_dim: int,
+                  normalize_decoder: bool = True) -> dict[str, torch.Tensor]:
+    """ReLU-SAE init with the JAX package's distributions: torch-default
+    (``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``) encoder and decoder, decoder
+    rows unit norm when ``normalize_decoder``."""
+    enc_bound, dec_bound = float(1.0 / np.sqrt(input_dim)), float(1.0 / np.sqrt(hidden_dim))
+    w_dec = _uniform(gen, (hidden_dim, input_dim), dec_bound)
+    if normalize_decoder:
+        w_dec = w_dec / torch.linalg.vector_norm(w_dec, dim=1, keepdim=True)
+    return {
+        "w_enc": _uniform(gen, (input_dim, hidden_dim), enc_bound),
+        "b_enc": _uniform(gen, (hidden_dim,), enc_bound),
+        "w_dec": w_dec,
+        "b_dec": _uniform(gen, (input_dim,), dec_bound),
     }
 
 
@@ -143,6 +167,49 @@ def topk_sae_loss(params, x: torch.Tensor, k: int, compute_dtype=torch.float32
     return out.loss, {"l0": out.l0, "active": active}
 
 
+def relu_sae_apply(params, x: torch.Tensor, sparsity_weight: float, compute_dtype=torch.float32
+                   ) -> tuple[SAEOutput, torch.Tensor]:
+    """Pure ReLU-SAE forward -> (output, active [H] bool): loss = mean
+    squared error + ``sparsity_weight`` * mean |hidden|."""
+    if compute_dtype == torch.bfloat16:
+        pre = mm_f32(x.bfloat16(), params["w_enc"].bfloat16()) + params["b_enc"]
+        hidden = torch.relu(pre)
+        recon = mm_f32(hidden.bfloat16(), params["w_dec"].bfloat16()) + params["b_dec"]
+    else:
+        with f32_matmuls():
+            hidden = torch.relu(torch.matmul(x.float(), params["w_enc"]) + params["b_enc"])
+            recon = torch.matmul(hidden, params["w_dec"]) + params["b_dec"]
+    reconstruction_loss = torch.mean(torch.square(recon - x))
+    sparsity_loss = torch.mean(torch.abs(hidden))
+    pos = hidden > 0
+    out = SAEOutput(
+        reconstructed=recon,
+        hidden=hidden,
+        loss=reconstruction_loss + sparsity_weight * sparsity_loss,
+        reconstruction_loss=reconstruction_loss,
+        sparsity_loss=sparsity_loss,
+        l0=pos.sum(dim=-1).float().mean(),
+    )
+    return out, pos.any(dim=0)
+
+
+def relu_sae_loss(params, x: torch.Tensor, sparsity_weight: float, compute_dtype=torch.float32
+                  ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Training loss -> (loss, {reconstruction_loss, sparsity_loss, l0,
+    active}).  bf16 is the coder kernel in ReLU mode; f32 the composed
+    path."""
+    if compute_dtype == torch.bfloat16:
+        loss, recon, sparsity, l0, active = fused_relu_sae_loss(
+            x, params["w_enc"], params["b_enc"], params["w_dec"], params["b_dec"],
+            float(sparsity_weight),
+        )
+        return loss, {"reconstruction_loss": recon, "sparsity_loss": sparsity, "l0": l0,
+                      "active": active}
+    out, active = relu_sae_apply(params, x, sparsity_weight, compute_dtype)
+    return out.loss, {"reconstruction_loss": out.reconstruction_loss,
+                      "sparsity_loss": out.sparsity_loss, "l0": out.l0, "active": active}
+
+
 def update_dead_state(state: DeadFeatureState, active: torch.Tensor) -> DeadFeatureState:
     """step_count += 1; features active this step get last_activated = step."""
     step = state.step_count + 1
@@ -159,11 +226,72 @@ def dead_feature_mask(state: DeadFeatureState, threshold: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-class TopKSAE(nn.Module):
+class ParamModule(nn.Module):
+    """Parameters named as in the JAX package's dicts, held as
+    ``nn.Parameter`` attributes on one device (the card unless the caller
+    asks for the CPU), with the dead-feature counters as buffers when the
+    family keeps them.  Shared by every SAE, transcoder and crosscoder
+    facade."""
+
+    param_names: tuple[str, ...] = ()
+
+    def _set_params(self, params: dict, dev: torch.device, hidden_dim: int | None) -> None:
+        for name in self.param_names:
+            t = torch.as_tensor(params[name], dtype=torch.float32)
+            setattr(self, name, nn.Parameter(t.detach().clone().to(dev)))
+        if hidden_dim is not None:
+            self.register_buffer("feature_last_activated",
+                                 torch.zeros(hidden_dim, dtype=torch.int32, device=dev))
+            self.register_buffer("step_count", torch.zeros((), dtype=torch.int32, device=dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.w_enc.device
+
+    @property
+    def params(self) -> dict[str, nn.Parameter]:
+        return {name: getattr(self, name) for name in self.param_names}
+
+    @torch.no_grad()
+    def load_params(self, params: dict) -> None:
+        """Copy values (tensors or arrays, JAX layout) into the parameters."""
+        for name in self.param_names:
+            value = params[name]
+            if not isinstance(value, torch.Tensor):
+                value = torch.from_numpy(np.asarray(value))
+            getattr(self, name).copy_(value.to(torch.float32))
+
+    def _rows(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+
+
+class DeadFeatureMixin:
+    """Dead-feature counters kept in the ``feature_last_activated`` and
+    ``step_count`` buffers (needs ``dead_feature_threshold``)."""
+
+    @property
+    def state(self) -> DeadFeatureState:
+        return DeadFeatureState(self.feature_last_activated, self.step_count)
+
+    @state.setter
+    def state(self, value: DeadFeatureState) -> None:
+        self.feature_last_activated.copy_(value.feature_last_activated)
+        self.step_count.copy_(value.step_count)
+
+    def get_dead_features(self) -> torch.Tensor:
+        return dead_feature_mask(self.state, self.dead_feature_threshold)
+
+    def get_dead_feature_ratio(self) -> float:
+        return float(self.get_dead_features().float().mean())
+
+
+class TopKSAE(DeadFeatureMixin, ParamModule):
     """TopK sparse autoencoder with the reference object API.
 
     ``device=None`` means the card (raises without one); pass
     ``device="cpu"`` to run the plain versions on the CPU."""
+
+    param_names = PARAM_NAMES
 
     def __init__(
         self,
@@ -186,37 +314,7 @@ class TopKSAE(nn.Module):
         self.dead_feature_threshold = dead_feature_threshold
         if params is None:
             params = init_topk_sae(torch.Generator().manual_seed(seed), input_dim, hidden_dim)
-        for name in PARAM_NAMES:
-            t = torch.as_tensor(params[name], dtype=torch.float32)
-            setattr(self, name, nn.Parameter(t.detach().clone().to(dev)))
-        self.register_buffer("feature_last_activated", torch.zeros(hidden_dim, dtype=torch.int32, device=dev))
-        self.register_buffer("step_count", torch.zeros((), dtype=torch.int32, device=dev))
-
-    @property
-    def device(self) -> torch.device:
-        return self.w_enc.device
-
-    @property
-    def params(self) -> dict[str, nn.Parameter]:
-        return {name: getattr(self, name) for name in PARAM_NAMES}
-
-    @torch.no_grad()
-    def load_params(self, params: dict) -> None:
-        """Copy values (tensors or arrays, JAX layout) into the parameters."""
-        for name in PARAM_NAMES:
-            value = params[name]
-            if not isinstance(value, torch.Tensor):
-                value = torch.from_numpy(np.asarray(value))
-            getattr(self, name).copy_(value.to(torch.float32))
-
-    @property
-    def state(self) -> DeadFeatureState:
-        return DeadFeatureState(self.feature_last_activated, self.step_count)
-
-    @state.setter
-    def state(self, value: DeadFeatureState) -> None:
-        self.feature_last_activated.copy_(value.feature_last_activated)
-        self.step_count.copy_(value.step_count)
+        self._set_params(params, dev, hidden_dim)
 
     # -- forward API --
     def encode(self, x: torch.Tensor) -> torch.Tensor:
@@ -236,21 +334,12 @@ class TopKSAE(nn.Module):
                 self.state = update_dead_state(self.state, active)
         return out
 
-    def _rows(self, x) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=torch.float32).to(self.device)
-
     # -- decoder norm invariant --
     @torch.no_grad()
     def normalize_decoder_weights(self) -> None:
         self.w_dec.copy_(normalize_decoder(self.params)["w_dec"])
 
     # -- dead features --
-    def get_dead_features(self) -> torch.Tensor:
-        return dead_feature_mask(self.state, self.dead_feature_threshold)
-
-    def get_dead_feature_ratio(self) -> float:
-        return float(self.get_dead_features().float().mean())
-
     @torch.no_grad()
     def resample_dead_features(self, inputs, num_resample: int | None = None) -> int:
         """Re-initialise dead features toward the highest-error inputs: the
@@ -282,13 +371,63 @@ class TopKSAE(nn.Module):
         return num_dead
 
 
-def create_sae(config: SAEConfig, input_dim: int, *, seed: int = 0, device=None) -> TopKSAE:
-    """Factory: ``activation == "topk"`` -> :class:`TopKSAE`."""
+class ReLUSAE(ParamModule):
+    """ReLU + L1 sparse autoencoder (the JAX package's ``ReLUSAE``): no
+    pre-encoder bias and no dead-feature state or resampling."""
+
+    param_names = RELU_PARAM_NAMES
+
+    def __init__(
+        self,
+        input_dim: int,
+        hidden_dim: int,
+        sparsity_weight: float = 0.01,
+        normalize_decoder: bool = True,
+        *,
+        seed: int = 0,
+        params: dict[str, torch.Tensor] | None = None,
+        device: str | torch.device | None = None,
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.input_dim = input_dim
+        self.hidden_dim = hidden_dim
+        self.sparsity_weight = sparsity_weight
+        self.normalize_decoder = normalize_decoder
+        if params is None:
+            params = init_relu_sae(torch.Generator().manual_seed(seed), input_dim, hidden_dim,
+                                   normalize_decoder)
+        self._set_params(params, dev, None)
+
+    def encode(self, x) -> torch.Tensor:
+        with f32_matmuls():
+            return torch.relu(torch.matmul(self._rows(x), self.w_enc) + self.b_enc)
+
+    def decode(self, hidden: torch.Tensor) -> torch.Tensor:
+        with f32_matmuls():
+            return torch.matmul(hidden.float(), self.w_dec) + self.b_dec
+
+    def forward(self, x) -> SAEOutput:
+        return relu_sae_apply(self.params, self._rows(x), self.sparsity_weight)[0]
+
+    @torch.no_grad()
+    def normalize_decoder_weights(self) -> None:
+        if self.normalize_decoder:
+            self.w_dec.copy_(normalize_decoder(self.params)["w_dec"])
+
+
+def create_sae(config: SAEConfig, input_dim: int, *, seed: int = 0, device=None
+               ) -> TopKSAE | ReLUSAE:
+    """Factory: ``activation == "topk"`` -> :class:`TopKSAE`; any other
+    activation (``relu``, ``gelu``) -> :class:`ReLUSAE` with its default
+    sparsity weight, as in the JAX package."""
+    hidden_dim = config.get_hidden_dim(input_dim)
     if config.activation != "topk":
-        raise NotImplementedError("ReLU SAE is not ported yet")
+        return ReLUSAE(input_dim=input_dim, hidden_dim=hidden_dim,
+                       normalize_decoder=config.normalize_decoder, seed=seed, device=device)
     return TopKSAE(
         input_dim=input_dim,
-        hidden_dim=config.get_hidden_dim(input_dim),
+        hidden_dim=hidden_dim,
         k=config.k,
         normalize_decoder=config.normalize_decoder,
         dead_feature_threshold=config.dead_feature_threshold,
@@ -297,7 +436,7 @@ def create_sae(config: SAEConfig, input_dim: int, *, seed: int = 0, device=None)
     )
 
 
-def load_trained_sae(run_dir, filename_stem: str = "sae_final", device=None) -> TopKSAE:
+def load_trained_sae(run_dir, filename_stem: str = "sae_final", device=None) -> TopKSAE | ReLUSAE:
     """Rebuild a trained SAE from a run directory: the ``SAEConfig`` in
     ``training_config.json`` and the parameters in ``{filename_stem}.npz``
     (written by either package)."""

@@ -20,7 +20,7 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu")
+_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "coder_kernels.cu")
 _HEADERS = ("topk_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = (
@@ -60,6 +60,13 @@ _SIGNATURES = {
         _I,
     ),
     "wst_conv_stem_fwd": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
+    "wst_coder_rows_per_cta": ([], _I),
+    "wst_coder_fwd": (
+        [_P, _I, _P, _I, _L, _I, _I, _I, _I, _I,   # x, x_bf16, y, y_bf16, off, rows, d, h, dout, k
+         _I, _I, _P, _P, _P, _P, _P,               # use_skip, y_is_x, w_enc_t, b_enc, w_dec_t, b_out, w_skip_t
+         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],  # hid, resid, xc, sq/l1/hsum partials, counts, sums, hsum, stream
+        _I,
+    ),
 }
 
 _lock = threading.Lock()

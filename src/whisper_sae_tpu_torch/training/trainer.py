@@ -1,4 +1,4 @@
-"""TopK-SAE trainer (counterpart of ``whisper_sae_tpu/training/trainer.py``).
+"""SAE trainer (counterpart of ``whisper_sae_tpu/training/trainer.py``).
 
 Each step, as in the JAX package (``trainer.py:267-288``): forward,
 backward, global-norm clip 1.0 with optax's rule (``g * max/|g|`` when
@@ -7,11 +7,20 @@ decay, update ``t`` at ``lr(t)`` with ``t`` counted from 0), decoder
 renorm, dead-feature update, metrics.  The step's products run with TF32
 off, set around the step rather than for the whole process.
 
-The fused epoch (``train_epoch_fused``) keeps the epoch buffer on the
-device, gathered once by the permutation; under AMP each step runs
-kernel A at a row offset into that buffer (the port of
-``fused_sae_loss_indexed``).  Metrics stay on the device and are fetched
-once per epoch; the remainder batch goes through ``train_step``.
+The family lives in hooks, as in the JAX package: ``_loss_fn`` (loss and
+an aux with reconstruction_loss, sparsity_loss, l0 and active),
+``_prepare_batch``, ``_renorm_params``/``_should_renorm``,
+``_indexed_prepare`` and ``_indexed_loss_fn``.  This class trains the
+TopK SAE (kernel A) and the ReLU SAE (the coder kernel in ReLU mode);
+``coder_trainers.py`` overrides the hooks for transcoders and
+crosscoders.
+
+The fused epoch (``train_epoch_fused``) keeps the epoch buffer (or the
+``(x, y)`` pair of buffers) on the device, gathered once by the
+permutation; under AMP each step runs the family's kernel at a row
+offset into that buffer (the port of ``fused_sae_loss_indexed`` and the
+``*_indexed`` coder entries).  Metrics stay on the device and are
+fetched once per epoch; the remainder batch goes through ``train_step``.
 """
 
 from __future__ import annotations
@@ -28,11 +37,13 @@ import torch
 from ..config import TrainingConfig
 from ..models.sae import (
     DeadFeatureState,
-    TopKSAE,
+    ReLUSAE,
     dead_feature_mask,
+    relu_sae_loss,
     topk_sae_loss,
     update_dead_state,
 )
+from ..ops.cuda_coder import fused_relu_sae_loss_indexed
 from ..ops.cuda_sae import fused_sae_loss_indexed
 from ..utils.checkpoint import export_torch_state_dict, load_pytree, save_pytree
 from ..utils.device import f32_matmuls
@@ -94,19 +105,28 @@ def adamw_update_(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor
     return AdamWState(state.mu, state.nu, count)
 
 
+def _tree(fn, data):
+    """``fn`` on a tensor or on each tensor of a tuple of them."""
+    return tuple(fn(a) for a in data) if isinstance(data, tuple) else fn(data)
+
+
+def _zero_aux(loss: torch.Tensor, aux: dict) -> dict:
+    """The aux of a family without a sparsity term."""
+    return {"reconstruction_loss": loss, "sparsity_loss": torch.zeros_like(loss), **aux}
+
+
 class SAETrainer:
-    """Trainer for a :class:`TopKSAE` on the model's device."""
+    """Trainer for a :class:`TopKSAE` or :class:`ReLUSAE` on the model's
+    device; the base of the coder trainers."""
 
     def __init__(
         self,
-        model: TopKSAE,
+        model,
         config: TrainingConfig,
         run_dir: Path | None = None,
         resample_dead_every: int = 5000,
         resample_batch_size: int = 8192,
     ):
-        if not isinstance(model, TopKSAE):
-            raise NotImplementedError("ReLU SAE is not ported yet")
         self.model = model
         self.config = config
         self.device = model.device
@@ -126,6 +146,11 @@ class SAETrainer:
         self._resample_dataset = None
         self._resample_rng = np.random.default_rng(config.seed)
         self.throughput = ThroughputMeter(num_chips=1)
+        self.threshold = getattr(model, "dead_feature_threshold", 10_000)
+        # dead-feature counters of a model that keeps none of its own
+        self._own_dead = None if hasattr(model, "state") else DeadFeatureState(
+            torch.zeros(model.hidden_dim, dtype=torch.int32, device=self.device),
+            torch.zeros((), dtype=torch.int32, device=self.device))
 
     # ------------------------------------------------------------------
     # schedule
@@ -146,24 +171,74 @@ class SAETrainer:
         return np.asarray(self._schedule(np.arange(start, start + count)))
 
     # ------------------------------------------------------------------
-    # the step
+    # family hooks
     # ------------------------------------------------------------------
 
-    def _rows(self, batch) -> torch.Tensor:
+    def _to_device(self, a) -> torch.Tensor:
+        if not isinstance(a, torch.Tensor):
+            a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.to(self.device).contiguous()
+
+    def _prepare_batch(self, batch):
+        """A batch as the loss takes it: the rows, on the device (a
+        1-tuple, as a TensorDataset yields, is unwrapped)."""
         if isinstance(batch, (tuple, list)):
             batch = batch[0]
-        if not isinstance(batch, torch.Tensor):
-            batch = torch.from_numpy(np.ascontiguousarray(batch))
-        return batch.to(self.device).contiguous()
+        return self._to_device(batch)
 
-    def _loss(self, params, x):
-        return topk_sae_loss(params, x, self.model.k, self.compute_dtype)
+    def _loss_fn(self, params, batch):
+        """(loss, aux with reconstruction_loss, sparsity_loss, l0, active)."""
+        if isinstance(self.model, ReLUSAE):
+            return relu_sae_loss(params, batch, self.model.sparsity_weight, self.compute_dtype)
+        loss, aux = topk_sae_loss(params, batch, self.model.k, self.compute_dtype)
+        return loss, _zero_aux(loss, aux)
+
+    def _should_renorm(self) -> bool:
+        return getattr(self.model, "normalize_decoder", True)
+
+    def _renorm_params(self) -> None:
+        """The family's decoder-norm invariant, in place."""
+        self.model.normalize_decoder_weights()
+
+    def _indexed_prepare(self, sel):
+        """The gathered epoch buffer(s) in the kernel's layout (the
+        crosscoder flattens [N, L, D])."""
+        return sel
+
+    def _indexed_loss_fn(self, params, sel, step: int):
+        """``_loss_fn`` over rows ``[step*B, (step+1)*B)`` of the epoch
+        buffer, read by the family's kernel at a row offset."""
+        b = self.config.batch_size
+        p = params
+        if isinstance(self.model, ReLUSAE):
+            loss, recon, sparsity, l0, active = fused_relu_sae_loss_indexed(
+                sel, step, p["w_enc"], p["b_enc"], p["w_dec"], p["b_dec"],
+                float(self.model.sparsity_weight), b)
+            return loss, {"reconstruction_loss": recon, "sparsity_loss": sparsity, "l0": l0,
+                          "active": active}
+        loss, l0, active = fused_sae_loss_indexed(
+            sel, step, p["w_enc"], p["b_enc"], p["b_pre"], p["w_dec"], p["b_dec"], self.model.k, b)
+        return loss, _zero_aux(loss, {"l0": l0, "active": active})
+
+    @property
+    def _dead_state(self) -> DeadFeatureState:
+        return self.model.state if self._own_dead is None else self._own_dead
+
+    @_dead_state.setter
+    def _dead_state(self, value: DeadFeatureState) -> None:
+        if self._own_dead is None:
+            self.model.state = value
+        else:
+            self._own_dead = value
+
+    # ------------------------------------------------------------------
+    # the step
+    # ------------------------------------------------------------------
 
     def _step(self, loss_call) -> torch.Tensor:
         """One optimizer step, all on the device.  Returns the step's
         ``_METRIC_KEYS`` as one [5] tensor (no host synchronisation)."""
-        model = self.model
-        params = model.params
+        params = self.model.params
         with f32_matmuls():
             loss, aux = loss_call(params)
             grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
@@ -171,35 +246,27 @@ class SAETrainer:
             grads = clip_by_global_norm(grads, self.config.gradient_clip)
             lr = float(np.asarray(self._schedule(self.opt_state.count)))
             self.opt_state = adamw_update_(params, grads, self.opt_state, lr, self.config.weight_decay)
-            if model.normalize_decoder:
-                model.normalize_decoder_weights()
-            model.state = update_dead_state(model.state, aux["active"])
-            dead = dead_feature_mask(model.state, model.dead_feature_threshold).float().mean()
-            loss = loss.detach()
-            return torch.stack([loss, loss, torch.zeros_like(loss), aux["l0"].float(), dead])
+            if self._should_renorm():
+                self._renorm_params()
+            self._dead_state = update_dead_state(self._dead_state, aux["active"])
+            dead = dead_feature_mask(self._dead_state, self.threshold).float().mean()
+            return torch.stack([loss.detach(), aux["reconstruction_loss"].detach(),
+                                aux["sparsity_loss"].detach(), aux["l0"].float(), dead])
 
-    def _window_loss(self, sel: torch.Tensor, step: int):
+    def _window_loss(self, sel, step: int):
         """Loss over rows ``[step*B, (step+1)*B)`` of the epoch buffer:
-        kernel A at a row offset under AMP, a slice view in f32."""
-        b = self.config.batch_size
+        the family's kernel at a row offset under AMP, a slice view in f32."""
         if self.compute_dtype == torch.bfloat16:
-            k = self.model.k
-
-            def indexed(p):
-                loss, l0, active = fused_sae_loss_indexed(
-                    sel, step, p["w_enc"], p["b_enc"], p["b_pre"], p["w_dec"], p["b_dec"], k, b
-                )
-                return loss, {"l0": l0, "active": active}
-
-            return indexed
-        rows = sel[step * b:(step + 1) * b]
-        return lambda p: self._loss(p, rows)
+            return lambda p: self._indexed_loss_fn(p, sel, step)
+        b = self.config.batch_size
+        rows = _tree(lambda a: a[step * b:(step + 1) * b], sel)
+        return lambda p: self._loss_fn(p, rows)
 
     def train_step(self, batch) -> TrainingMetrics:
         """One optimizer step on one batch."""
-        x = self._rows(batch)
+        x = self._prepare_batch(batch)
         lr = self.learning_rate_at(self.global_step)
-        row = self._step(lambda p: self._loss(p, x))
+        row = self._step(lambda p: self._loss_fn(p, x))
         self.global_step += 1
         self._maybe_resample_dead_features()
         values = dict(zip(_METRIC_KEYS, row.tolist()))
@@ -222,7 +289,7 @@ class SAETrainer:
         return self.model.resample_dead_features(self._resample_dataset[idx])
 
     def _maybe_resample_dead_features(self) -> int:
-        if self._resample_dataset is None:
+        if self._resample_dataset is None or not hasattr(self.model, "resample_dead_features"):
             return 0
         if self.global_step == 0 or self.global_step % self.resample_dead_every != 0:
             return 0
@@ -277,8 +344,8 @@ class SAETrainer:
         epoch boundary if the step count crossed a multiple of
         ``resample_dead_every``."""
         b = self.config.batch_size
-        data = self._rows(data)
-        n = data.shape[0]
+        data = _tree(self._to_device, data)
+        n = (data[0] if isinstance(data, tuple) else data).shape[0]
         steps = n // b
         if perm is not None:
             if not isinstance(perm, torch.Tensor):
@@ -289,7 +356,9 @@ class SAETrainer:
         epoch_metrics: list[TrainingMetrics] = []
 
         if steps > 0:
-            sel = data[perm[:steps * b]] if perm is not None else data[:steps * b]
+            sel = _tree(lambda a: a[perm[:steps * b]] if perm is not None else a[:steps * b], data)
+            if self.compute_dtype == torch.bfloat16:  # the windowed kernel's layout
+                sel = self._indexed_prepare(sel)
             start_step = self.global_step
             rows = [self._step(self._window_loss(sel, s)) for s in range(steps)]
             self.global_step += steps
@@ -303,7 +372,7 @@ class SAETrainer:
                 self._force_resample()
 
         if n % b:
-            tail = data[perm[steps * b:]] if perm is not None else data[steps * b:]
+            tail = _tree(lambda a: a[perm[steps * b:]] if perm is not None else a[steps * b:], data)
             epoch_metrics.append(self.train_step(tail))
 
         self.metrics_history.extend(epoch_metrics)
@@ -336,7 +405,7 @@ class SAETrainer:
         self.setup_scheduler(len(dataloader) * epochs)
         if fused is None:
             fused = hasattr(dataloader, "data")
-        data = self._rows(dataloader.data) if fused else None
+        data = _tree(self._to_device, dataloader.data) if fused else None
         for ep in range(self.epoch, epochs):
             self.throughput.start()
             if fused:
@@ -372,7 +441,7 @@ class SAETrainer:
                 "nu": self.opt_state.nu,
                 "count": np.int64(self.opt_state.count),
             },
-            "dead_state": self.model.state,
+            "dead_state": self._dead_state,
         }
 
     def _log_wandb(self, m: TrainingMetrics) -> None:
@@ -413,7 +482,7 @@ class SAETrainer:
             int(opt["count"]),
         )
         ds = tree["dead_state"]
-        self.model.state = DeadFeatureState(
+        self._dead_state = DeadFeatureState(
             torch.from_numpy(ds["feature_last_activated"]).to(dev),
             torch.from_numpy(np.asarray(ds["step_count"])).to(dev),
         )
@@ -447,7 +516,8 @@ class SAETrainer:
         (the reference torch ``state_dict``)."""
         save_pytree(self.run_dir / f"{filename_stem}.npz", self.model.params)
         export_torch_state_dict(
-            self.model.params, state=self.model.state, path=self.run_dir / f"{filename_stem}.pt"
+            self.model.params, state=getattr(self.model, "state", None),
+            path=self.run_dir / f"{filename_stem}.pt",
         )
 
     def save_metrics(self, filename: str = "metrics.json") -> Path:

@@ -4,8 +4,10 @@ A checkpoint is one ``.npz`` whose keys are the paths of a nested dict
 joined by ``::`` (``params::w_enc``), with optional JSON metadata under
 ``__meta__`` -- the JAX package's format, so either package reads the
 other's parameter files.  ``sae_final.pt`` is the reference torch
-``state_dict`` layout.  ``params_from_jax``/``params_to_jax`` carry
-parameters across the two packages (same ``[D, H]`` layout).
+``state_dict`` layout.  ``params_from_jax``/``params_to_jax`` carry any
+family's parameters across the two packages in the same layout: the
+SAEs' ``[D, H]`` matrices, the Skip transcoder's ``w_skip``/``b_skip``,
+the crosscoder's 3-D ``w_enc [L, D, S]`` and ``w_dec [S, L, D]``.
 """
 
 from __future__ import annotations

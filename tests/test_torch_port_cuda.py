@@ -318,3 +318,157 @@ def test_encoder_kernels_refuse_shapes(dev):
         CE.conv_stem_fwd(torch.zeros(1, 80, 199, device=dev, dtype=torch.bfloat16),
                          enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"],
                          enc["pos"])
+
+
+# ---------------------------------------------------------------------------
+# the coder kernel (csrc/coder_kernels.cu) against its plain version (pinned
+# to the JAX Pallas coder kernels by test_torch_port_coder_ops.py), in each
+# of its five modes.  TopK modes take kernel A's bars above; ReLU modes: the
+# latent within bf16 rounding (atol 1e-2 * max), the loss, L1 and the
+# hidden sums at rtol 1e-4, the active vector equal on >= 99.9% of
+# features (a pre within rounding of 0 may take the other sign).
+# ---------------------------------------------------------------------------
+
+from whisper_sae_tpu_torch.ops import cuda_coder as CC  # noqa: E402
+
+CODER_MODES = {  # mode: (D, dout, H, k, skip, y_is_x)
+    "skip_transcoder": (384, 384, 3072, 32, True, False),
+    "topk_transcoder": (384, 384, 3072, 32, False, False),
+    "relu_sae": (384, 384, 3072, None, False, True),
+    "topk_crosscoder": (1536, 1536, 3072, 32, False, True),
+    "relu_crosscoder": (1536, 1536, 3072, None, False, True),
+}
+
+
+def _coder_inputs(mode, n, seed, x_dtype=torch.float32, device="cuda"):
+    d, dout, h, k, skip, y_is_x = CODER_MODES[mode]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, d, generator=g).to(x_dtype)
+    y = None if y_is_x else torch.randn(n, dout, generator=g).to(x_dtype)
+    w_enc = torch.randn(d, h, generator=g) / d ** 0.5
+    w_dec = torch.randn(h, dout, generator=g) * 0.05
+    w_skip = torch.randn(d, dout, generator=g) * 0.02 if skip else None
+    b_enc = torch.randn(h, generator=g) * 0.05
+    b_out = torch.randn(dout, generator=g) * 0.05
+    ops = CC.operands(w_enc.to(device), b_enc.to(device), w_dec.to(device), b_out.to(device),
+                      None if w_skip is None else w_skip.to(device))
+    return x.to(device), None if y is None else y.to(device), ops, k
+
+
+def _check_coder(got, want, k, what):
+    torch.cuda.synchronize()
+    assert torch.equal(got.xc, want.xc), what
+    torch.testing.assert_close(got.sq, want.sq, rtol=1e-4, atol=0)
+    if k is not None:
+        assert _row_agreement(got.hid, want.hid) >= 0.999, what
+        ok = ((got.hid > 0) == (want.hid > 0)).all(dim=1)
+        if bool(ok.all()):
+            assert int(got.l0) == int(want.l0) and torch.equal(got.active, want.active), what
+        torch.testing.assert_close(got.resid[ok], want.resid[ok], rtol=0, atol=1e-2)
+        torch.testing.assert_close(got.hid[ok].float(), want.hid[ok].float(), rtol=0,
+                                   atol=1e-2 * float(want.hid.float().abs().max()))
+        return
+    torch.testing.assert_close(got.hid.float(), want.hid.float(), rtol=0,
+                               atol=1e-2 * float(want.hid.float().abs().max()))
+    torch.testing.assert_close(got.resid, want.resid, rtol=0, atol=1e-2)
+    torch.testing.assert_close(got.l1, want.l1, rtol=1e-4, atol=0)
+    torch.testing.assert_close(got.hsum, want.hsum, rtol=1e-4,
+                               atol=1e-4 * float(want.hsum.abs().max()))
+    assert float((got.active == want.active).float().mean()) >= 0.999, what
+    assert abs(int(got.l0) - int(want.l0)) <= 1e-4 * int(want.l0), what
+
+
+@pytest.mark.parametrize("mode", list(CODER_MODES))
+@pytest.mark.parametrize("offset,rows,n,x_dtype", [(0, 4096, 4096, torch.float32),
+                                                   (4096, 1792, 8192, torch.float32),
+                                                   (16, 100, 200, torch.bfloat16)])
+def test_coder_kernel_matches_plain(dev, mode, offset, rows, n, x_dtype):
+    x, y, ops, k = _coder_inputs(mode, n, 21, x_dtype)
+    got = CC._coder_launch(x, y, offset, rows, ops, k)
+    win = slice(offset, offset + rows)
+    want = CC.coder_forward_plain(x[win], None if y is None else y[win], ops, k)
+    _check_coder(got, want, k, f"{mode} [{offset}, {offset + rows})")
+
+
+@pytest.mark.parametrize("mode", list(CODER_MODES))
+def test_coder_kernel_deterministic(dev, mode):
+    x, y, ops, k = _coder_inputs(mode, 4096, 22)
+    a = CC._coder_launch(x, y, 0, 4096, ops, k)
+    b = CC._coder_launch(x, y, 0, 4096, ops, k)
+    for u, v in zip(a, b):
+        assert u is None or torch.equal(u, v)
+
+
+def _coder_loss(mode, q, x, y):
+    if mode.startswith("relu"):
+        norms = torch.linalg.vector_norm(q["w_dec"], dim=1) if mode == "relu_crosscoder" else None
+        if norms is None:
+            return CC.fused_relu_sae_loss(x, q["w_enc"], q["b_enc"], q["w_dec"], q["b_dec"], 0.01)[0]
+        return CC.fused_relu_crosscoder_loss(x, q["w_enc"], q["b_enc"], q["w_dec"], q["b_dec"],
+                                             norms, 0.01, 4)[0]
+    return CC.fused_transcoder_loss(x, y, q["w_enc"], q["b_enc"], q["w_dec"], q["b_dec"],
+                                    q.get("w_skip"), q.get("b_skip"), 32, "w_skip" in q,
+                                    mode == "topk_crosscoder")[0]
+
+
+@pytest.mark.parametrize("mode", list(CODER_MODES))
+def test_coder_grads_match_plain_on_cpu(dev, mode):
+    d, dout, h, k, skip, y_is_x = CODER_MODES[mode]
+    g = torch.Generator().manual_seed(23)
+    p = {"w_enc": torch.randn(d, h, generator=g) / d ** 0.5,
+         "b_enc": torch.randn(h, generator=g) * 0.05,
+         "w_dec": torch.randn(h, dout, generator=g) * 0.05,
+         "b_dec": torch.randn(dout, generator=g) * 0.05}
+    if skip:
+        p.update(w_skip=torch.randn(d, dout, generator=g) * 0.02,
+                 b_skip=torch.randn(dout, generator=g) * 0.05)
+    x = torch.randn(512, d, generator=g)
+    y = None if y_is_x else torch.randn(512, dout, generator=g)
+    card = _grads_all(lambda q: _coder_loss(mode, q, x.to(dev), None if y is None else y.to(dev)),
+                      {k_: v.to(dev) for k_, v in p.items()})
+    cpu = _grads_all(lambda q: _coder_loss(mode, q, x, y), p)
+    for name, want in cpu.items():
+        got = card[name].cpu()
+        close = torch.isclose(got, want, rtol=2e-2, atol=2e-2 * float(want.abs().max()))
+        if k is None:
+            # a pre within rounding of 0 takes the other sign on one side and
+            # moves that feature's whole gradient column: a few elements
+            assert float(close.float().mean()) >= 0.9999, name
+        else:
+            assert bool(close.all()), name
+
+
+def _grads_all(fn, p):
+    q = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    fn(q).backward()
+    return {k: v.grad for k, v in q.items()}
+
+
+def test_coder_kernel_counts_launches(dev):
+    x, y, ops, k = _coder_inputs("skip_transcoder", 256, 24)
+    w = {"w_enc": torch.randn(384, 3072, device=dev) * 0.05,
+         "b_enc": torch.zeros(3072, device=dev), "w_dec": torch.randn(3072, 384, device=dev),
+         "b_dec": torch.zeros(384, device=dev)}
+    before = [e.launches for e in CC.ENTRIES]
+    plain = sum(CC.plain_calls.values())
+    CC.fused_transcoder_loss(x, y, *w.values(), None, None, 32, False)
+    CC.fused_transcoder_loss_indexed(x, y, 1, *w.values(), None, None, 32, 128, False)
+    CC.fused_relu_sae_loss(x, *w.values(), 0.01)
+    CC.fused_relu_sae_loss_indexed(x, 1, *w.values(), 0.01, 128)
+    norms = torch.ones(3072, device=dev)
+    CC.fused_relu_crosscoder_loss(x, *w.values(), norms, 0.01, 1)
+    CC.fused_relu_crosscoder_loss_indexed(x, 1, *w.values(), norms, 0.01, 1, 128)
+    assert [e.launches - b for e, b in zip(CC.ENTRIES, before)] == [1] * 6
+    assert sum(CC.plain_calls.values()) == plain
+
+
+def test_coder_kernel_refuses_shapes(dev):
+    x, y, ops, k = _coder_inputs("topk_transcoder", 64, 25)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        CC._coder_launch(x[:, :100].contiguous(), y, 0, 64,
+                         CC.operands(torch.zeros(100, 3072, device=dev), ops.b_enc,
+                                     torch.zeros(3072, 384, device=dev), ops.b_out), k)
+    with pytest.raises(ValueError, match="window"):
+        CC._coder_launch(x, y, 32, 64, ops, k)
+    with pytest.raises(ValueError, match="b_enc must be"):
+        CC._coder_launch(x, y, 0, 64, ops._replace(b_enc=ops.b_enc.double()), k)

@@ -24,8 +24,11 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "whisper_sae_tpu"))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 15 else 0)
+need = {"launch", "models.transcoder", "models.crosscoder", "training.coder_trainers",
+        "ops.cuda_coder"}
+missing = sorted(n for n in need if pkg.__name__ + "." + n not in names)
+print(len(names), bad, missing)
+sys.exit(1 if bad or missing or len(names) < 29 else 0)
 """
 
 

@@ -187,8 +187,11 @@ def test_init_distributions():
 def test_create_sae():
     sae = tsae.create_sae(SAEConfig(k=K, expansion_factor=4), input_dim=D, device="cpu")
     assert (sae.input_dim, sae.hidden_dim, sae.k) == (D, 4 * D, K)
-    with pytest.raises(NotImplementedError, match="ReLU SAE is not ported yet"):
-        tsae.create_sae(SAEConfig(activation="relu"), input_dim=D, device="cpu")
+    for activation in ("relu", "gelu"):  # any activation but topk builds a ReLU SAE
+        relu = tsae.create_sae(SAEConfig(activation=activation, expansion_factor=4), input_dim=D,
+                               device="cpu")
+        assert isinstance(relu, tsae.ReLUSAE)
+        assert (relu.input_dim, relu.hidden_dim, relu.sparsity_weight) == (D, 4 * D, 0.01)
 
 
 @pytest.mark.parametrize("total,warmup", [(100, 10), (57, 1000), (40, 0), (1, 0)])
