@@ -94,6 +94,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
     yardstick (the bf16 encode product, plus the dense decode product in
     ReLU modes); one training step of the Skip transcoder and of the
     ReLU crosscoder at batch 4096 and 32768, wall and device busy time.
+11. Whisper-large 32x (D=1280, H=40960, k=32; bench.py:83-112): the
+    blocked encode (``ops/csrc/blocked_encode.cu``) against its plain
+    version at 8192 rows and a ragged 1,000, for f32 and bf16 rows and
+    both latent dtypes, at kernel B's bars (>= 99.9% of rows select the
+    same features, values on those rows within 1e-2 * max|ref|); its
+    gradients against the CPU on 256 rows (rtol 2e-2, on the rows whose
+    selection the two agree on); two launches bit-identical; kernel C's
+    CTA-per-row form on [1024, 40960] with tie rows, exact.
+12. The whisper-large 32x path through the CLI: a synthetic gaussian
+    cache of 6 x 8192 rows x 1280 under ``build/chip_smoke/``, a config
+    naming ``openai/whisper-large-v3`` with expansion 32, k 32, batch
+    8192, AMP, 2 epochs and ``dead_feature_threshold`` 2, trained by
+    ``whisper_sae_tpu_torch.train.main`` with the resample set to fire at
+    the last epoch's end (the CLI fixes ``resample_dead_every`` at 5000).
+    Every counter is zeroed first; the blocked launches must equal the
+    12 steps, kernels A and B and the plain versions run no time, the
+    resample runs through kernel C's wide form; the loss falls, decoder
+    rows are unit norm, parameters finite; the trained SAE's f32 forward
+    on 64 rows on the card agrees with the CPU at phase 11's bars.
+13. Times at whisper-large 32x: the blocked encode at 8192 rows beside
+    its plain version, its bound and the bf16 ``torch.mm`` of the same
+    shape; kernel C's wide form on [8192, 40960] beside ``torch.topk``;
+    one training step at batch 8192 under ``torch.profiler``.
 
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Scratch files go under ``build/``.
@@ -143,6 +166,10 @@ CODER_MODES = {  # mode: (D, dout, k or None for ReLU, skip, y is x)
     "relu_crosscoder": (4 * D, 4 * D, None, False, True),
 }
 LAUNCH_CLIPS = 64
+# whisper-large 32x (bench.py:83-112): the blocked encode's geometry
+DL, HL, BL = 1280, 40960, 8192
+LARGE_STEPS, LARGE_EPOCHS = 6, 2
+BLOCKED_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/blocked_encode.cu"
 ENC_REPLACES = {
     "conv_stem": "src/whisper_sae_tpu/ops/pallas_encoder.py:604",
     "ln_qkv": "src/whisper_sae_tpu/ops/pallas_encoder.py:340",
@@ -207,14 +234,14 @@ def bar_check(got: torch.Tensor, want: torch.Tensor, bar: tuple[float, float], w
     return float(d.max())
 
 
-def params(seed: int, dev) -> dict[str, torch.Tensor]:
+def params(seed: int, dev, d: int = D, h: int = H) -> dict[str, torch.Tensor]:
     g = torch.Generator().manual_seed(seed)
     p = {
-        "w_enc": torch.randn(D, H, generator=g) * 0.05,
-        "b_enc": torch.randn(H, generator=g) * 0.05,
-        "b_pre": torch.randn(D, generator=g) * 0.05,
-        "w_dec": torch.randn(H, D, generator=g) * 0.05,
-        "b_dec": torch.randn(D, generator=g) * 0.05,
+        "w_enc": torch.randn(d, h, generator=g) * 0.05,
+        "b_enc": torch.randn(h, generator=g) * 0.05,
+        "b_pre": torch.randn(d, generator=g) * 0.05,
+        "w_dec": torch.randn(h, d, generator=g) * 0.05,
+        "b_dec": torch.randn(d, generator=g) * 0.05,
     }
     return {k: v.to(dev) for k, v in p.items()}
 
@@ -331,7 +358,7 @@ def gaussian_rows(n: int, gen: torch.Generator, mix: torch.Tensor) -> torch.Tens
     """Gaussian rows whose covariance is mostly of rank ``RANK`` (plus
     isotropic noise), so a k=32 SAE has structure to find."""
     z = torch.randn(n, RANK, generator=gen, device=mix.device)
-    return z @ mix + 0.1 * torch.randn(n, D, generator=gen, device=mix.device)
+    return z @ mix + 0.1 * torch.randn(n, mix.shape[1], generator=gen, device=mix.device)
 
 
 def write_cache(work: Path, dev, cfg_mod, cache_mod) -> torch.Tensor:
@@ -1210,6 +1237,210 @@ def coder_step_times(work: Path, dev, TC, XC, CT, cfg_mod) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 11-13: whisper-large 32x (the blocked encode, kernel C's wide form)
+# ---------------------------------------------------------------------------
+
+
+def large_kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
+    """Phase 11; returns the max abs error by kernel."""
+    errs = {"fused_topk_encode_blocked": 0.0, "topk_mask_wide": 0.0}
+    p = params(40, dev, DL, HL)
+    we_t = cuda_sae._bf16_t(p["w_enc"])
+    g = torch.Generator(device=dev).manual_seed(41)
+    args = (we_t, p["b_enc"], p["b_pre"], K)
+    for rows in (BL, 1000):
+        x32 = torch.randn(rows, DL, generator=g, device=dev)
+        for x in (x32, x32.bfloat16()):
+            for out_dtype in (torch.bfloat16, torch.float32):
+                what = f"blocked encode rows={rows} x {x.dtype} -> {out_dtype}"
+                got = cuda_sae._blocked_encode_launch(x, *args, out_dtype)
+                want = cuda_sae.topk_encode_plain(x, *args, out_dtype)
+                torch.cuda.synchronize()
+                check(got.dtype == out_dtype and got.shape == (rows, HL), f"{what}: output")
+                ok = agree(got, want)
+                share = float(ok.float().mean())
+                check(share >= 0.999, f"{what}: selection agrees on {share:.4%} of rows")
+                err = float((got[ok].float() - want[ok].float()).abs().max())
+                check(err <= 1e-2 * float(want.float().abs().max()), f"{what}: values off by {err:.3g}")
+                errs["fused_topk_encode_blocked"] = max(errs["fused_topk_encode_blocked"], err)
+                log(f"  {what}: rows agreeing {share:.4%}, max abs err {err:.3g}")
+                del got, want
+    a = cuda_sae._blocked_encode_launch(x32, *args, torch.bfloat16)
+    check(torch.equal(a, cuda_sae._blocked_encode_launch(x32, *args, torch.bfloat16)),
+          "blocked encode: two launches differ")
+    del a
+
+    # gradients through _TopKEncode against the CPU, on the rows whose
+    # selection the card and the CPU agree on
+    x = torch.randn(256, DL, generator=g, device=dev)
+    card = cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
+    cpu = cuda_sae.topk_encode_plain(x.cpu(), we_t.cpu(), p["b_enc"].cpu(), p["b_pre"].cpu(), K,
+                                     torch.bfloat16)
+    ok = agree(card.cpu(), cpu)
+    check(float(ok.float().mean()) >= 0.99, f"blocked encode on 256 rows: {int(ok.sum())} agree")
+    x = x[ok.to(dev)].contiguous()
+    gy = torch.randn(x.shape[0], HL, generator=torch.Generator().manual_seed(42))
+    enc = ("w_enc", "b_enc", "b_pre")
+    grads_close(lambda q: (cuda_sae.fused_topk_encode(x, q["w_enc"], q["b_enc"], q["b_pre"], K,
+                                                      torch.float32) * gy.to(dev)).sum(),
+                {n: p[n] for n in enc},
+                lambda q: (cuda_sae.fused_topk_encode(x.cpu(), q["w_enc"], q["b_enc"], q["b_pre"], K,
+                                                      torch.float32) * gy).sum(),
+                enc, "blocked encode")
+    log(f"  blocked encode: two launches bit-identical; gradients on {x.shape[0]} agreeing rows "
+        "of 256 agree with the CPU (rtol 2e-2)")
+
+    # kernel C's wide form, exact
+    pre = torch.randn(1024, HL, generator=g, device=dev)
+    pre[:8] = torch.round(pre[:8] * 2) / 2  # exact ties at the threshold
+    got = cuda_topk.topk_mask_fwd(pre, K)
+    check(torch.equal(got, topk.topk_mask_plain(pre, K)), "topk_mask wide: differs from the plain version")
+    check(int((got[8:] > 0).sum(1).min()) == K, "topk_mask wide: not k per row")
+    log("  topk_mask wide [1024, 40960] with tie rows: equal to the plain version")
+    return errs
+
+
+def large_config(work: Path) -> Path:
+    """tiny_default.yaml at whisper-large-v3's width, expansion 32, k 32,
+    batch 8192, AMP, 2 epochs, a dead-feature threshold of 2 steps."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    cfg["whisper"]["model_name"] = "openai/whisper-large-v3"
+    cfg["sae"].update(expansion_factor=HL // DL, k=K, dead_feature_threshold=2)
+    cfg["training"].update(batch_size=BL, use_amp=True, epochs=LARGE_EPOCHS, warmup_steps=2,
+                           learning_rate=1e-3)
+    cfg["data"]["cache_dir"] = str(work / "lgcache")
+    cfg["output_dir"] = str(work / "lgout")
+    cfg["experiment_name"] = "large_smoke"
+    path = work / "large_smoke.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def large_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, cuda_topk,
+               topk) -> dict:
+    """Phase 12; returns the trainer, launches by kernel and the losses."""
+    path = large_config(work)
+    cfg = cfg_mod.ExperimentConfig.from_yaml(path)
+    check(cfg.whisper.hidden_dim == DL and cfg.sae.get_hidden_dim(DL) == HL, "large config widths")
+    cache = cache_mod.FeatureCache(work / "lgcache" / "features", cfg.whisper, cfg.data)
+    writer = cache.writer("encoder", 0)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    mix = torch.randn(RANK, DL, generator=gen, device=dev) / RANK ** 0.5
+    for _ in range(LARGE_STEPS):
+        writer.append(gaussian_rows(BL, gen, mix).cpu().numpy())
+    writer.finalize(num_samples=LARGE_STEPS * BL // 1500)
+    steps = LARGE_EPOCHS * LARGE_STEPS
+
+    class Trainer(train_mod.SAETrainer):
+        """The CLI's trainer with the resample due at the last step."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, resample_dead_every=steps, **kw)
+
+    kernels = (cuda_sae.fused_sae_loss, cuda_sae.fused_sae_loss_indexed, cuda_sae.fused_topk_encode)
+    for w in kernels:
+        w.launches = 0
+    cuda_sae.fused_topk_encode.blocked_launches = 0
+    cuda_topk.topk_mask_fwd.launches = cuda_topk.topk_mask_fwd.wide_launches = 0
+    topk.plain_calls.clear()
+    cli_trainer, train_mod.SAETrainer = train_mod.SAETrainer, Trainer
+    try:
+        t0 = time.perf_counter()
+        (trainer,) = train_mod.main(["--config", str(path), "--layer", "encoder:0",
+                                     "--no-wandb"]).values()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        train_mod.SAETrainer = cli_trainer
+    launches = {w.__name__: w.launches for w in kernels}
+    launches.update(fused_topk_encode_blocked=cuda_sae.fused_topk_encode.blocked_launches,
+                    topk_mask=cuda_topk.topk_mask_fwd.launches,
+                    topk_mask_wide=cuda_topk.topk_mask_fwd.wide_launches)
+    log(f"  CLI trained {steps} steps at batch {BL} in {train_s:.1f} s (cache load and setup "
+        f"included); launches {launches}, plain-version calls {dict(topk.plain_calls)}")
+    check(launches["fused_topk_encode_blocked"] == steps,
+          f"{launches['fused_topk_encode_blocked']} blocked launches != {steps} steps")
+    check(launches["fused_sae_loss"] == launches["fused_sae_loss_indexed"] == 0
+          and launches["fused_topk_encode"] == 0, "kernels A or B launched at whisper-large width")
+    check(sum(topk.plain_calls.values()) == 0, f"plain versions ran: {dict(topk.plain_calls)}")
+    check(trainer.num_resampled_total > 0 and launches["topk_mask_wide"] > 0,
+          "the resample did not run through kernel C's wide form")
+    rows = json.loads((trainer.run_dir / "metrics.json").read_text())
+    losses = np.array([r["loss"] for r in rows])
+    check(len(rows) == steps and bool(np.isfinite(losses).all()), f"metrics: {losses}")
+    first, last = float(losses[:3].mean()), float(losses[-3:].mean())
+    check(last < first, f"loss did not fall ({first:.5f} -> {last:.5f})")
+    with np.load(trainer.run_dir / "sae_final.npz") as z:
+        check(z["w_enc"].shape == (DL, HL), "sae_final.npz shapes")
+        check(all(bool(np.isfinite(z[n]).all()) for n in z.files), "non-finite parameters")
+        check(bool(np.allclose(np.linalg.norm(z["w_dec"], axis=1), 1.0, rtol=1e-5)),
+              "decoder rows are not unit norm")
+    log(f"  loss {first:.5f} -> {last:.5f} (means of 3 steps), resampled "
+        f"{trainer.num_resampled_total} features, decoder rows unit norm")
+
+    # the trained SAE's f32 forward on the card against the CPU
+    x = gaussian_rows(64, torch.Generator(device=dev).manual_seed(44), mix)
+    with torch.no_grad():
+        card = sae_mod.load_trained_sae(trainer.run_dir).eval()(x)
+        cpu = sae_mod.load_trained_sae(trainer.run_dir, device="cpu").eval()(x.cpu())
+    ok = agree(card.hidden.cpu(), cpu.hidden)
+    err = float((card.hidden.cpu()[ok] - cpu.hidden[ok]).abs().max())
+    check(float(ok.float().mean()) >= 0.999 and err <= 1e-2 * float(cpu.hidden.abs().max()),
+          f"trained SAE, card vs CPU on 64 rows: {int(ok.sum())} rows agree, err {err:.3g}")
+    rel = abs(float(card.loss) - float(cpu.loss)) / float(cpu.loss)
+    log(f"  trained SAE's f32 forward on 64 rows, card vs CPU: {int(ok.sum())}/64 rows select "
+        f"the same features, latent max abs err {err:.3g}, loss rel err {rel:.2g}")
+    shutil.rmtree(work / "lgcache", ignore_errors=True)
+    return {"trainer": trainer, "launches": launches, "losses": [first, last], "train_s": train_s}
+
+
+def large_times(work: Path, dev, trainer, cuda_sae, cuda_topk, topk) -> dict:
+    """Phase 13: the blocked encode and kernel C's wide form at 8192 rows
+    beside their plain versions, bounds and library yardsticks; one
+    training step at batch 8192."""
+    p = params(50, dev, DL, HL)
+    we_t = cuda_sae._bf16_t(p["w_enc"])
+    x = torch.randn(BL, DL, generator=torch.Generator(device=dev).manual_seed(51), device=dev)
+    args = (x, we_t, p["b_enc"], p["b_pre"], K, torch.bfloat16)
+    xc, w_bf = (x - p["b_pre"]).bfloat16(), p["w_enc"].bfloat16()
+    res = {}
+    # x, W_enc^T and the biases in, the bf16 latent out; the product and
+    # 33 integer operations a pre (32 passes and the mask)
+    b_bound = bound(BL * DL * 4 + DL * HL * 2 + (HL + DL) * 4 + BL * HL * 2, 2 * BL * DL * HL,
+                    33 * BL * HL)
+    res["fused_topk_encode_blocked"] = {
+        "ms": time_ms(lambda: cuda_sae._blocked_encode_launch(*args), iters=10, warmup=2),
+        "plain_ms": time_ms(lambda: cuda_sae.topk_encode_plain(*args), iters=2, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"), b_bound)),
+        "library_ms": time_ms(lambda: torch.mm(xc, w_bf), iters=10, warmup=2),
+        # the int32 workspace written and read back, beyond the bound
+        "workspace_bytes_ms": 1e3 * 2 * 4 * BL * HL / PEAK_BYTES,
+    }
+    pre = (torch.matmul(xc.float(), w_bf.float()) + p["b_enc"]).contiguous()
+    res["topk_mask_wide"] = {
+        "ms": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K), iters=10, warmup=2),
+        "plain_ms": time_ms(lambda: topk.topk_mask_plain(pre, K), iters=2, warmup=1),
+        **dict(zip(("bound_ms", "bound_by"), bound(2 * BL * HL * 4, 0, 32 * BL * HL))),
+        "library_ms": time_ms(lambda: torch.topk(pre, K), iters=10, warmup=2),
+    }
+    for name, r in res.items():
+        log(f"  {name:26s} B={BL}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}), library {r['library_ms']:.4f}")
+    log(f"  (the blocked encode's workspace adds {res['fused_topk_encode_blocked']['workspace_bytes_ms']:.4f}"
+        " ms of HBM traffic beyond its bound)")
+    del pre, xc, w_bf, x
+    log(f"  one training step at batch {BL} (D={DL}, H={HL}, k={K}, AMP):")
+    stepper = type(trainer)(trainer.model, trainer.config, run_dir=work / "lgstep")
+    rows = gaussian_rows(3 * BL, torch.Generator(device=dev).manual_seed(52),
+                         torch.randn(RANK, DL, generator=torch.Generator(device=dev).manual_seed(53),
+                                     device=dev) / RANK ** 0.5)
+    res["step"] = step_profile(stepper, rows, 3)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1359,6 +1590,27 @@ def main() -> int:
     for k_ in [k_ for k_ in kernels if k_["name"].startswith("coder_")]:
         check(k_["launches"] > 0, f"{k_['name']}: no launch on the coder path")
     log(f"  coder slice: {json.dumps({'steps': steps10, 'losses': path9['losses'], 'job_s': path9['job_s'], 'relu_sae_train_s': path9['relu_sae_train_s'], 'extract_s': path9['extract_s']})}")
+
+    log("phase 11: whisper-large 32x kernels (D=1280, H=40960) against their plain versions")
+    large_errs = large_kernel_phase(dev, cuda_sae, cuda_topk, topk)
+    log("phase 12: the whisper-large 32x TopK SAE through the CLI")
+    path12 = large_path(work, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, cuda_topk, topk)
+    log("phase 13: times at whisper-large 32x (library_ms: the bf16 torch.mm of the encode "
+        "product, torch.topk -- yardsticks, not equivalents)")
+    ltimes = large_times(work, dev, path12["trainer"], cuda_sae, cuda_topk, topk)
+    for name, replaces in (("fused_topk_encode_blocked", "src/whisper_sae_tpu/ops/pallas_sae.py:1392"),
+                           ("topk_mask_wide", "src/whisper_sae_tpu/ops/pallas_topk.py:51")):
+        r = ltimes[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": BLOCKED_SOURCE if name.endswith("blocked") else SOURCE, "replaces": replaces,
+            "launches": path12["launches"][name], "max_abs_err": large_errs[name],
+            **{k_: r[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "batch": BL,
+        })
+        check(kernels[-1]["launches"] > 0, f"{name}: no launch on the whisper-large path")
+    kernels[-2]["workspace_bytes_ms"] = ltimes["fused_topk_encode_blocked"]["workspace_bytes_ms"]
+    log(f"  whisper-large slice: {json.dumps({'step': ltimes['step'], 'losses': path12['losses'], 'train_s': path12['train_s']})}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,13 +8,18 @@ so the two packages compare like with like:
     w_dec [H, D]   decoder rows are feature directions (unit norm)
     b_enc [H], b_dec [D], b_pre [D]
 
-Dispatch on the card: a bf16 ``topk_sae_loss`` is kernel A
-(``ops.cuda_sae.fused_sae_loss``), a bf16 ``topk_hidden_dense`` is
-kernel B (``fused_topk_encode``), an f32 ``topk_hidden_dense`` is an f32
-product (TF32 off) followed by kernel C (``ops.topk.topk_mask_dense``).
-A bf16 ``relu_sae_loss`` is the coder kernel in ReLU mode
-(``ops.cuda_coder.fused_relu_sae_loss``).  On the CPU each kernel's plain
-version runs instead.
+Dispatch follows the geometry, as in the JAX package (``models/sae.py:
+229-246``), with the port's kernel limits as gates: a bf16
+``topk_sae_loss`` is kernel A (``ops.cuda_sae.fused_sae_loss``) where
+``fused_loss_supported`` holds (D <= 384, H <= 3072), else the composed
+``topk_sae_apply``; a bf16 ``topk_hidden_dense`` is ``fused_topk_encode``
+(kernel B, or the blocked encode at larger geometries such as
+whisper-large 32x); an f32 ``topk_hidden_dense`` is an f32 product (TF32
+off) followed by kernel C (``ops.topk.topk_mask_dense``, its CTA-per-row
+form above H = 3072).  A bf16 ``relu_sae_loss`` is the coder kernel in
+ReLU mode (``ops.cuda_coder.fused_relu_sae_loss``) where it holds the
+geometry, else the composed ``relu_sae_apply``.  On the CPU each
+kernel's plain version runs instead, on the same route.
 
 :class:`TopKSAE` is the ``nn.Module`` facade with the reference's object
 API (encode/decode/forward/dead features/resampling); :class:`ReLUSAE`
@@ -33,8 +38,8 @@ import torch
 from torch import nn
 
 from ..config import SAEConfig
-from ..ops.cuda_coder import fused_relu_sae_loss
-from ..ops.cuda_sae import fused_sae_loss, fused_topk_encode
+from ..ops.cuda_coder import coder_supported, fused_relu_sae_loss
+from ..ops.cuda_sae import fused_loss_supported, fused_sae_loss, fused_topk_encode
 from ..ops.topk import topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
@@ -119,8 +124,8 @@ def normalize_decoder(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor
 
 
 def topk_hidden_dense(params, x: torch.Tensor, k: int, compute_dtype=torch.float32) -> torch.Tensor:
-    """Dense [B, H] top-k latent.  bf16: kernel B (bf16 encode and latent);
-    f32: an f32 product (TF32 off) and kernel C."""
+    """Dense [B, H] top-k latent.  bf16: kernel B or the blocked encode
+    (bf16 encode and latent); f32: an f32 product (TF32 off) and kernel C."""
     if compute_dtype == torch.bfloat16:
         return fused_topk_encode(x, params["w_enc"], params["b_enc"], params["b_pre"], k)
     xc = x - params["b_pre"]
@@ -156,8 +161,9 @@ def topk_sae_apply(params, x: torch.Tensor, k: int, compute_dtype=torch.float32
 def topk_sae_loss(params, x: torch.Tensor, k: int, compute_dtype=torch.float32
                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training loss -> (loss, {l0, active}).  bf16 is kernel A, the whole
-    forward in one launch; f32 is the composed path."""
-    if compute_dtype == torch.bfloat16:
+    forward in one launch, where it holds the geometry; otherwise (and in
+    f32) the composed path."""
+    if compute_dtype == torch.bfloat16 and fused_loss_supported(*params["w_enc"].shape):
         loss, l0, active = fused_sae_loss(
             x, params["w_enc"], params["b_enc"], params["b_pre"], params["w_dec"],
             params["b_dec"], k,
@@ -196,9 +202,10 @@ def relu_sae_apply(params, x: torch.Tensor, sparsity_weight: float, compute_dtyp
 def relu_sae_loss(params, x: torch.Tensor, sparsity_weight: float, compute_dtype=torch.float32
                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training loss -> (loss, {reconstruction_loss, sparsity_loss, l0,
-    active}).  bf16 is the coder kernel in ReLU mode; f32 the composed
-    path."""
-    if compute_dtype == torch.bfloat16:
+    active}).  bf16 is the coder kernel in ReLU mode where it holds the
+    geometry; otherwise (and in f32) the composed path."""
+    d, h = params["w_enc"].shape
+    if compute_dtype == torch.bfloat16 and coder_supported(d, d, h):
         loss, recon, sparsity, l0, active = fused_relu_sae_loss(
             x, params["w_enc"], params["b_enc"], params["w_dec"], params["b_dec"],
             float(sparsity_weight),
@@ -353,7 +360,10 @@ class TopKSAE(DeadFeatureMixin, ParamModule):
         if num_resample is not None:
             num_dead = min(num_dead, num_resample)
             dead_indices = dead_indices[:num_dead]
-        x = self._rows(inputs)
+        rows = torch.as_tensor(inputs).to(self.device)
+        if rows.dtype != torch.bfloat16:  # a bf16 cache's rows stay bf16, as in JAX
+            rows = rows.float()
+        x = rows.float()  # exact: the forward sees the same values
         was_training = self.training
         self.train(False)
         out = self(x)
@@ -361,8 +371,12 @@ class TopKSAE(DeadFeatureMixin, ParamModule):
         errors = torch.sum(torch.square(x - out.reconstructed), dim=-1)
         n_take = min(num_dead, errors.shape[0])
         top_idx = torch.topk(errors, n_take).indices
-        high_err = x[top_idx]
-        high_err = high_err / torch.clamp(torch.linalg.vector_norm(high_err, dim=-1, keepdim=True), min=1e-12)
+        high_err = rows[top_idx]
+        # jnp.linalg.norm of bf16 rows as XLA computes it: the squares and
+        # their sum in f32, the sum and its root rounded to the rows' dtype
+        wide = high_err.float()
+        norm = torch.sqrt(torch.sum(wide * wide, dim=-1, keepdim=True).to(high_err.dtype))
+        high_err = (high_err / torch.clamp(norm, min=1e-12)).float()
         sel = dead_indices[: high_err.shape[0]]
         self.w_enc[:, sel] = high_err.t()
         self.b_enc[sel] = 0.0

@@ -11,9 +11,13 @@ decoder row at the normalised residual.
 
 Dispatch: a bf16 ``transcoder_loss`` is the coder kernel
 (``ops.cuda_coder.fused_transcoder_loss``), which also exposes
-``predicted = resid + y`` and the latent; f32 is the composed path (f32
-products, kernel C for the mask).  On the CPU each kernel's plain
-version runs instead.
+``predicted = resid + y`` and the latent, where the kernel holds the
+geometry; a wider one (H > 3072) is the blocked encode
+(``ops.cuda_sae.fused_topk_encode`` with b_pre = 0) followed by f32
+products of bf16 operands for the decode and the skip path, as in JAX
+``models/transcoder.py:114-128``; f32 is the composed path (f32 products,
+kernel C for the mask).  On the CPU each kernel's plain version runs
+instead, on the same route.
 """
 
 from __future__ import annotations
@@ -25,10 +29,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.cuda_coder import fused_transcoder_loss
+from ..ops.cuda_coder import coder_supported, fused_transcoder_loss
+from ..ops.cuda_sae import fused_topk_encode
 from ..ops.topk import topk_mask_dense
 from ..utils.checkpoint import load_pytree
-from ..utils.device import f32_matmuls, resolve_device
+from ..utils.device import f32_matmuls, mm_f32, resolve_device
 from .sae import DeadFeatureMixin, ParamModule, _uniform, update_dead_state
 
 TOPK_NAMES = ("w_enc", "b_enc", "w_dec", "b_dec")
@@ -75,23 +80,31 @@ def transcoder_loss(params, x: torch.Tensor, y: torch.Tensor, k: int,
     b_skip] - y)^2) -> (loss, {l0, active, predicted, hidden})."""
     if use_skip is None:
         use_skip = "w_skip" in params
-    if compute_dtype == torch.bfloat16:
+    d, h = params["w_enc"].shape
+    if compute_dtype == torch.bfloat16 and coder_supported(d, y.shape[1], h):
         loss, l0, active, resid, hid = fused_transcoder_loss(
             x, y, params["w_enc"], params["b_enc"], params["w_dec"], params["b_dec"],
             params.get("w_skip"), params.get("b_skip"), k, use_skip,
         )
         return loss, {"l0": l0, "active": active, "predicted": resid + y.float(),
                       "hidden": hid.float()}
-    x = x.float()
-    with f32_matmuls():
-        hidden = topk_mask_dense(torch.matmul(x, params["w_enc"]) + params["b_enc"], k)
-        pred = torch.matmul(hidden, params["w_dec"]) + params["b_dec"]
+    if compute_dtype == torch.bfloat16:  # wider than the coder kernel holds
+        hidden = fused_topk_encode(x, params["w_enc"], params["b_enc"],
+                                   torch.zeros(d, device=x.device), k)
+        pred = mm_f32(hidden, params["w_dec"].bfloat16()) + params["b_dec"]
         if use_skip:
-            pred = pred + (torch.matmul(x, params["w_skip"]) + params["b_skip"])
+            pred = pred + (mm_f32(x.bfloat16(), params["w_skip"].bfloat16()) + params["b_skip"])
+    else:
+        x = x.float()
+        with f32_matmuls():
+            hidden = topk_mask_dense(torch.matmul(x, params["w_enc"]) + params["b_enc"], k)
+            pred = torch.matmul(hidden, params["w_dec"]) + params["b_dec"]
+            if use_skip:
+                pred = pred + (torch.matmul(x, params["w_skip"]) + params["b_skip"])
     pos = hidden > 0
     return torch.mean(torch.square(pred - y)), {
         "l0": pos.sum(dim=-1).float().mean(), "active": pos.any(dim=0),
-        "predicted": pred, "hidden": hidden,
+        "predicted": pred, "hidden": hidden.float(),
     }
 
 

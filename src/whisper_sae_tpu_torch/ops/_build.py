@@ -20,9 +20,16 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "coder_kernels.cu")
+_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "coder_kernels.cu", "blocked_encode.cu")
 _HEADERS = ("topk_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+# The kernels' compile-time limits, kept here as Python constants because
+# the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
+# pins them to wst_max_d(), wst_max_row_width() and
+# wst_max_wide_row_width()).
+MAX_D = 384  # kernel A's decode keeps D/32 f32 sums a lane
+MAX_ROW = 3072  # one warp holds a row in registers: kernels A, B, C and the coder kernel
+MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, wide kernel C
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
@@ -45,6 +52,14 @@ _SIGNATURES = {
         [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I,
     ),
     "wst_topk_mask_fwd": ([_P, _P, _I, _I, _I, _P], _I),
+    "wst_max_wide_row_width": ([], _I),
+    "wst_topk_mask_wide_fwd": ([_P, _P, _I, _I, _I, _P], _I),
+    "wst_blocked_chunk_rows": ([], _I),
+    "wst_blocked_encode_fwd": (
+        [_P, _I, _I, _I, _I, _I,          # x, x_bf16, rows, d, h, k
+         _P, _P, _P, _P, _I, _P, _P],     # w_enc_t, b_enc, b_pre, out, out_f32, ws, stream
+        _I,
+    ),
     "wst_enc_head_dim": ([], _I),
     "wst_enc_mlp_chunk": ([], _I),
     "wst_ln_qkv_fwd": (

@@ -7,7 +7,9 @@
 // sae_rows_kernel<kEncodeBf16|kEncodeF32>   (kernel B, "sae_topk_encode_fwd")
 //   replaces ops/pallas_sae.py:_encode_kernel (fused_topk_encode, :77).
 // topk_mask_kernel   (kernel C, "topk_mask_fwd")
-//   replaces ops/pallas_topk.py:_mask_kernel (topk_mask_pallas, :51).
+//   replaces ops/pallas_topk.py:_mask_kernel (topk_mask_pallas, :51);
+//   topk_mask_wide_kernel<N> ("topk_mask_wide_fwd") is its form for rows
+//   wider than a warp's registers (the TPU kernel's H = 40960).
 //
 // What A computes for each row (B shares the first three lines):
 //   xc     = bf16(x - b_pre)
@@ -299,6 +301,26 @@ __global__ void __launch_bounds__(kThreads) topk_mask_kernel(const float* pre, f
   }
 }
 
+// Kernel C's wide form, for rows wider than one warp's registers
+// (kMaxRow < h <= kMaxWideRow): one CTA per row (topk_common.cuh:
+// cta_kth_largest), the row read once into registers.  Same bound as
+// the warp form: bytes, 8*B*H (1.34 GB at B=8192, H=40960: 0.40 ms).
+template <int N>
+__global__ void __launch_bounds__(kWideThreads, 1) topk_mask_wide_kernel(const float* pre,
+                                                                         float* out, int h,
+                                                                         int k) {
+  __shared__ int warp_cnt[2][kWideWarps];
+  const size_t base = (size_t)blockIdx.x * h;
+  int xi[N];
+  load_wide_monotone(pre + base, h, xi);
+  const int th = cta_kth_largest(xi, k, warp_cnt);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = j * kWideThreads + threadIdx.x;
+    if (c < h) out[base + c] = masked_relu(xi[j], th);
+  }
+}
+
 size_t rows_smem_bytes(int d, int h) {
   return (size_t)kRows * (h + 4) * sizeof(float) + (size_t)kRows * (d + 8) * sizeof(unsigned short);
 }
@@ -375,6 +397,20 @@ int wst_topk_mask_fwd(const void* pre, void* out, int rows, int h, int k, void* 
   const int blocks = (rows + wst::kWarps - 1) / wst::kWarps;
   wst::topk_mask_kernel<<<blocks, wst::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(pre), static_cast<float*>(out), rows, h, k);
+  return (int)cudaGetLastError();
+}
+
+// Widest row the CTA-per-row kernels take.
+int wst_max_wide_row_width() { return wst::kMaxWideRow; }
+
+// Kernel C's wide form: one CTA per row.
+int wst_topk_mask_wide_fwd(const void* pre, void* out, int rows, int h, int k, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define WST_LAUNCH_MASK_WIDE(N)                                                        \
+  wst::topk_mask_wide_kernel<N><<<rows, wst::kWideThreads, 0, s>>>(                    \
+      static_cast<const float*>(pre), static_cast<float*>(out), h, k)
+  WST_WIDE_DISPATCH(h, WST_LAUNCH_MASK_WIDE)
+#undef WST_LAUNCH_MASK_WIDE
   return (int)cudaGetLastError();
 }
 

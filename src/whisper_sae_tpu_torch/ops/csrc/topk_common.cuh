@@ -12,6 +12,14 @@
 // the 32 counting passes reads registers, not shared or device memory.
 // Each pass counts with __ballot_sync/__popc; the count is the same in
 // every lane, so the branch on it never diverges.
+//
+// Rows wider than a warp's registers (whisper-large 32x: H = 40960, 160
+// KB of f32) go to one CTA of kWideThreads threads instead
+// (cta_kth_largest): thread t holds elements j*kWideThreads + t, each
+// pass counts per thread, sums within the warp (__reduce_add_sync) and
+// across the CTA's warps through shared memory, all in int32.  Integer
+// sums are exact in any order, so the threshold, and with it the mask, is
+// the one the warp form and ops/topk.py:topk_threshold find.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,6 +80,84 @@ __device__ __forceinline__ int warp_kth_largest(const int (&xi)[N], int k) {
 // reference encode orders it).
 __device__ __forceinline__ float masked_relu(int x, int th) {
   return x >= th ? fmaxf(monotone_float(x), 0.0f) : 0.0f;
+}
+
+// -- the CTA-per-row form -------------------------------------------------
+
+constexpr int kWideThreads = 512;
+constexpr int kWideWarps = kWideThreads / kWarp;
+// 80 values a thread (of at most 128 registers at 512 threads): 40960.
+constexpr int kMaxPerThread = 80;
+constexpr int kMaxWideRow = kWideThreads * kMaxPerThread;
+
+// Per-thread register counts the wide kernels are instantiated for; a row
+// of h values takes the smallest that holds it (wide_per_thread).
+__host__ __device__ __forceinline__ int wide_per_thread(int h) {
+  return h <= 8 * kWideThreads ? 8 : h <= 16 * kWideThreads ? 16 : h <= 32 * kWideThreads ? 32
+                                                                                      : kMaxPerThread;
+}
+
+// Launches kernel-template instance KERNEL<N, ...> for the row width h
+// (a macro, since a kernel template cannot be passed as an argument).
+#define WST_WIDE_DISPATCH(h, LAUNCH)   \
+  switch (::wst::wide_per_thread(h)) { \
+    case 8: LAUNCH(8); break;          \
+    case 16: LAUNCH(16); break;        \
+    case 32: LAUNCH(32); break;        \
+    default: LAUNCH(80); break;        \
+  }
+
+// Element j of thread t is row[j*kWideThreads + t]: loads coalesce.
+template <int N>
+__device__ __forceinline__ void load_wide_monotone(const float* row, int h, int (&xi)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = j * kWideThreads + threadIdx.x;
+    xi[j] = c < h ? monotone_int(row[c]) : kIntMin;
+  }
+}
+
+// The same, for a row already held as monotone ints.
+template <int N>
+__device__ __forceinline__ void load_wide_ints(const int* row, int h, int (&xi)[N]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = j * kWideThreads + threadIdx.x;
+    xi[j] = c < h ? row[c] : kIntMin;
+  }
+}
+
+// warp_kth_largest over a row spread across the whole CTA (kWideThreads
+// threads, every one of which must call it).  warp_cnt is __shared__
+// scratch; its two halves alternate between passes, so one
+// __syncthreads a pass suffices: a thread can write a half again only
+// after every thread has passed the next pass's barrier, that is, after
+// every thread has read the half.
+template <int N>
+__device__ __forceinline__ int cta_kth_largest(const int (&xi)[N], int k,
+                                               int (&warp_cnt)[2][kWideWarps]) {
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  int lo = -2147483647, hi = 2147483647;
+#pragma unroll 1
+  for (int pass = 0; pass < 32; ++pass) {
+    const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
+    int cnt = 0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) cnt += xi[j] >= mid ? 1 : 0;
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    int* buf = warp_cnt[pass & 1];
+    if (lane == 0) buf[warp] = cnt;
+    __syncthreads();
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWideWarps; ++w) total += buf[w];
+    if (total >= k) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
 }
 
 }  // namespace wst

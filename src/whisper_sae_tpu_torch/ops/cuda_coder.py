@@ -22,8 +22,12 @@ The entry points keep the JAX names and the JAX parameter layout
 ``*_indexed`` forms.  Each counts its launches in ``.launches``, and
 ``mode_launches`` counts them by (entry, mode).  A CUDA tensor goes to the
 kernel (or the wrapper raises); a CPU tensor to the plain version beside
-it, counted in ``plain_calls``.  The TPU's gates (``fused_coder_supported``,
-``pick_block_rows``, ``WST_*``) have no counterpart.
+it, counted in ``plain_calls``.  The kernel holds a row of pre in one
+warp's registers, so it takes H <= 3072 (:func:`coder_supported`, the
+port's counterpart of ``fused_coder_supported``); wider geometries are
+composed around the blocked encode by the models, as the JAX package
+composes them.  The TPU's other gates (``pick_block_rows``, ``WST_*``)
+have no counterpart.
 
 Each backward transcribes its JAX custom VJP (``_fused_coder_vjp_bwd``
 :758-799, ``_fused_relu_vjp_bwd`` :845-875, ``_fused_relu_cc_vjp_bwd``
@@ -44,6 +48,12 @@ from .topk import topk_mask_plain
 
 mode_launches: Counter = Counter()
 plain_calls: Counter = Counter()
+
+
+def coder_supported(d: int, dout: int, h: int) -> bool:
+    """The coder kernel holds the geometry: D, dout and H multiples of 32,
+    H <= 3072."""
+    return d % 32 == 0 and dout % 32 == 0 and h % 32 == 0 and h <= _build.MAX_ROW
 
 
 def _bf16_t(w: torch.Tensor) -> torch.Tensor:

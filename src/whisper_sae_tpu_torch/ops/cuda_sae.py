@@ -1,4 +1,5 @@
-"""Kernels A and B: the fused TopK-SAE forward and the fused top-k encode.
+"""Kernels A and B and the blocked encode: the fused TopK-SAE forward and
+the fused top-k encode.
 
 Kernel A, ``sae_fused_loss_fwd`` (``csrc/sae_kernels.cu``,
 ``sae_rows_kernel<kFusedLoss>``), replaces two Pallas entry points of
@@ -16,15 +17,28 @@ Kernel B, ``sae_topk_encode_fwd`` (``sae_rows_kernel<kEncodeBf16|F32>``),
 replaces ``fused_topk_encode`` (``_encode_forward``, :77): the encode and
 bisection stages of A alone, writing the hidden in bf16 or f32.
 
-Bound on the H100 at whisper-tiny (D=384, H=3072): both are bound by the
-bytes they must move (see the note in ``csrc/sae_kernels.cu``).
+The blocked encode, ``blocked_encode_fwd`` (``csrc/blocked_encode.cu``),
+replaces ``_encode_forward_blocked`` (:1392), the branch of
+``fused_topk_encode`` for geometries whose weights do not fit on chip:
+a tiled encode product into an int32 workspace, then one CTA per row for
+the bisection.  Kernels A and B hold a row of pre in one warp's
+registers and kernel A's decode keeps D/32 sums a lane, so they take
+D % 32 == 0, D <= 384 and H <= 3072 (:func:`fused_loss_supported`);
+every other geometry takes the blocked encode (:func:`uses_blocked`),
+and the SAE loss is then composed around it (``models/sae.py``), as the
+JAX package composes it (``models/sae.py:229-246``).  These gates are the
+port's kernel limits, not the TPU's VMEM budgets.
+
+Bounds on the H100: A and B at whisper-tiny (D=384, H=3072) by the bytes
+they must move (see the note in ``csrc/sae_kernels.cu``); the blocked
+encode at whisper-large 32x by operations (``csrc/blocked_encode.cu``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
-the plain PyTorch version beside it only for CPU tensors.  Each backward
-transcribes the JAX custom VJP (``_fused_loss_vjp_bwd`` :321-353,
-``_fused_loss_indexed_vjp_bwd`` :490-517, ``_bwd`` :123-143) as f32
-products of bf16 operands (``mm_f32``), the counterpart of
-``preferred_element_type=f32``.
+the plain PyTorch version beside it only for CPU tensors, counted in
+``ops.topk.plain_calls``.  Each backward transcribes the JAX custom VJP
+(``_fused_loss_vjp_bwd`` :321-353, ``_fused_loss_indexed_vjp_bwd``
+:490-517, ``_bwd`` :123-143) as f32 products of bf16 operands
+(``mm_f32``), the counterpart of ``preferred_element_type=f32``.
 """
 
 from __future__ import annotations
@@ -35,7 +49,18 @@ import torch
 
 from ..utils.device import mm_f32
 from . import _build
-from .topk import topk_mask_plain
+from .topk import plain_calls, topk_mask_plain
+
+
+def fused_loss_supported(d: int, h: int) -> bool:
+    """Kernels A and B hold the geometry: D a multiple of 32 up to 384,
+    H a multiple of 32 up to 3072."""
+    return d % 32 == 0 and h % 32 == 0 and d <= _build.MAX_D and h <= _build.MAX_ROW
+
+
+def uses_blocked(d: int, h: int) -> bool:
+    """The top-k encode takes the blocked kernel (``pallas_sae.py:69-75``)."""
+    return not fused_loss_supported(d, h)
 
 
 def _bf16_t(w_enc: torch.Tensor) -> torch.Tensor:
@@ -44,20 +69,24 @@ def _bf16_t(w_enc: torch.Tensor) -> torch.Tensor:
     return w_enc.detach().t().to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
-def _check_geometry(x: torch.Tensor, d: int, h: int, k: int) -> ctypes.CDLL:
-    lib = _build.load_library()
+def _check_rows(x: torch.Tensor, d: int, h: int, k: int) -> None:
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("rows must be a contiguous 2-D float32 or bfloat16 tensor")
     if x.shape[1] != d:
         raise ValueError(f"rows have width {x.shape[1]}, weights expect D={d}")
+    if not 1 <= k <= h:
+        raise ValueError(f"need 1 <= k <= H (got k={k}, H={h})")
+
+
+def _check_geometry(x: torch.Tensor, d: int, h: int, k: int) -> ctypes.CDLL:
+    lib = _build.load_library()
+    _check_rows(x, d, h, k)
     if d % 32 or d > lib.wst_max_d():
         raise ValueError(f"the SAE kernels take D a multiple of 32 and <= {lib.wst_max_d()} (got {d})")
     if h % 32 or h > lib.wst_max_row_width():
         raise ValueError(
             f"the SAE kernels take H a multiple of 32 and <= {lib.wst_max_row_width()} (got {h})"
         )
-    if not 1 <= k <= h:
-        raise ValueError(f"need 1 <= k <= H (got k={k}, H={h})")
     return lib
 
 
@@ -136,6 +165,7 @@ class _FusedLoss(torch.autograd.Function):
             )
             entry.launches += 1
         elif data.device.type == "cpu":
+            plain_calls[entry.__name__] += 1
             loss, l0, active, hid, resid, xc = fused_sae_loss_plain(
                 data[row_offset:row_offset + rows], we_t, b_enc, b_pre, wd_bf, b_out, k
             )
@@ -200,12 +230,12 @@ fused_sae_loss_indexed.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# kernel B: fused top-k encode
+# kernel B and the blocked encode: the fused top-k encode
 # ---------------------------------------------------------------------------
 
 
 def topk_encode_plain(x, we_t, b_enc, b_pre, k, out_dtype):
-    """Plain PyTorch version of kernel B."""
+    """Plain PyTorch version of kernel B and of the blocked encode."""
     xc = (x.float() - b_pre).bfloat16()
     pre = mm_f32(xc, we_t.t()) + b_enc
     return topk_mask_plain(pre, k).to(out_dtype)
@@ -232,13 +262,47 @@ def _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
     return hidden
 
 
+def _blocked_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
+    """The blocked encode (CUDA only): a workspace of at most
+    ``wst_blocked_chunk_rows()`` rows of int32 pre, reused chunk by chunk."""
+    h, d = we_t.shape
+    lib = _build.load_library()
+    _check_rows(x, d, h, k)
+    if d % 32 or h % 32 or h > lib.wst_max_wide_row_width():
+        raise ValueError(f"the blocked encode takes D and H multiples of 32 and H <= "
+                         f"{lib.wst_max_wide_row_width()} (got D={d}, H={h})")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"blocked_encode_fwd writes bf16 or f32 (got {out_dtype})")
+    dev = x.device
+    _check_operands(dev, w_enc_t=(we_t, torch.bfloat16, (h, d)),
+                    b_enc=(b_enc, torch.float32, (h,)), b_pre=(b_pre, torch.float32, (d,)))
+    for name, t in (("rows", x), ("b_pre", b_pre)):  # read as 16-byte vectors
+        if t.data_ptr() % 16:
+            raise ValueError(f"blocked_encode_fwd: {name} must be 16-byte aligned")
+    rows = x.shape[0]
+    hidden = torch.empty((rows, h), dtype=out_dtype, device=dev)
+    if rows:
+        ws = torch.empty((min(rows, lib.wst_blocked_chunk_rows()), h), dtype=torch.int32, device=dev)
+        err = lib.wst_blocked_encode_fwd(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d, h, k,
+            we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(), hidden.data_ptr(),
+            int(out_dtype == torch.float32), ws.data_ptr(), _stream(dev),
+        )
+        _build.check(err, "blocked_encode_fwd")
+        fused_topk_encode.blocked_launches += 1
+    return hidden
+
+
 class _TopKEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_enc, b_enc, b_pre, k, out_dtype):
         we_t = _bf16_t(w_enc)
+        blocked = uses_blocked(*w_enc.shape)
         if x.device.type == "cuda":
-            hidden = _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype)
+            launch = _blocked_encode_launch if blocked else _topk_encode_launch
+            hidden = launch(x, we_t, b_enc, b_pre, k, out_dtype)
         elif x.device.type == "cpu":
+            plain_calls["fused_topk_encode_blocked" if blocked else "fused_topk_encode"] += 1
             hidden = topk_encode_plain(x, we_t, b_enc, b_pre, k, out_dtype)
         else:
             raise ValueError(f"fused top-k encode: unsupported device {x.device}")
@@ -261,8 +325,11 @@ class _TopKEncode(torch.autograd.Function):
 
 def fused_topk_encode(x, w_enc, b_enc, b_pre, k, out_dtype=torch.bfloat16):
     """hidden = topk_mask(relu(bf16(x - b_pre) @ W_enc + b_enc), k) in
-    ``out_dtype``.  Launches are counted in ``fused_topk_encode.launches``."""
+    ``out_dtype``: kernel B where it holds the geometry, else the blocked
+    encode.  Launches are counted in ``fused_topk_encode.launches`` (kernel
+    B) and ``fused_topk_encode.blocked_launches``."""
     return _TopKEncode.apply(x, w_enc, b_enc, b_pre, k, out_dtype)
 
 
 fused_topk_encode.launches = 0
+fused_topk_encode.blocked_launches = 0

@@ -5,8 +5,13 @@ Replaces ``whisper_sae_tpu/ops/pallas_topk.py:topk_mask_pallas``
 is among the row's k largest, else 0, over a precomputed f32 ``[B, H]``
 pre-activation.  The kernel (``csrc/sae_kernels.cu:topk_mask_kernel``)
 gives each row to one warp, which holds it in registers for the 32
-bisection passes, so ``pre`` is read from device memory once.  Bound on
-the H100: bytes, 8*B*H (one f32 read, one f32 write).
+bisection passes, so ``pre`` is read from device memory once.  Rows
+wider than a warp's registers (H > 3072; the TPU kernel takes H = 40960
+in 32-row blocks, ``pallas_topk.py:89-113``) go to its wide form,
+``topk_mask_wide_kernel``: one CTA of 512 threads per row, up to H =
+40960 in registers, the same 32 passes with the counts summed across
+the CTA in int32, so the mask is bit-identical to the plain version.
+Bound on the H100: bytes, 8*B*H (one f32 read, one f32 write).
 
 The backward is ``g * [hidden > 0]`` (``pallas_topk.py:81-83``).
 """
@@ -16,41 +21,44 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .topk import topk_mask_plain
-
-
-def _check_rows_width(h: int, k: int) -> None:
-    if not 1 <= k <= h:
-        raise ValueError(f"need 1 <= k <= H (got k={k}, H={h})")
-    width = _build.load_library().wst_max_row_width()
-    if h > width:
-        raise ValueError(f"topk_mask_fwd holds a row in one warp's registers: H <= {width} (got {h})")
+from .topk import plain_calls, topk_mask_plain
 
 
 def topk_mask_fwd(pre: torch.Tensor, k: int) -> torch.Tensor:
-    """Forward only: kernel C for a CUDA tensor, the plain version for a
-    CPU tensor.  Counts its launches in ``topk_mask_fwd.launches``."""
+    """Forward only: kernel C for a CUDA tensor (the warp form up to H =
+    3072, the wide form above), the plain version for a CPU tensor.
+    Counts launches in ``topk_mask_fwd.launches`` (warp form) and
+    ``topk_mask_fwd.wide_launches``."""
+    wide = pre.dim() == 2 and pre.shape[1] > _build.MAX_ROW
     if pre.device.type == "cpu":
+        plain_calls["topk_mask_wide" if wide else "topk_mask"] += 1
         return topk_mask_plain(pre, k)
     if pre.device.type != "cuda":
         raise ValueError(f"topk_mask_fwd: unsupported device {pre.device}")
     if pre.dtype != torch.float32 or pre.dim() != 2 or not pre.is_contiguous():
         raise ValueError("topk_mask_fwd takes a contiguous 2-D float32 tensor")
     rows, h = pre.shape
-    _check_rows_width(h, k)
+    if not 1 <= k <= h:
+        raise ValueError(f"need 1 <= k <= H (got k={k}, H={h})")
+    lib = _build.load_library()
+    if h > lib.wst_max_wide_row_width():
+        raise ValueError(f"topk_mask_fwd holds a row in one CTA's registers: "
+                         f"H <= {lib.wst_max_wide_row_width()} (got {h})")
     out = torch.empty_like(pre)
     if rows:
-        lib = _build.load_library()
-        err = lib.wst_topk_mask_fwd(
-            pre.data_ptr(), out.data_ptr(), rows, h, k,
-            torch.cuda.current_stream(pre.device).cuda_stream,
-        )
-        _build.check(err, "topk_mask_fwd")
-        topk_mask_fwd.launches += 1
+        launch = lib.wst_topk_mask_wide_fwd if wide else lib.wst_topk_mask_fwd
+        err = launch(pre.data_ptr(), out.data_ptr(), rows, h, k,
+                     torch.cuda.current_stream(pre.device).cuda_stream)
+        _build.check(err, "topk_mask_wide_fwd" if wide else "topk_mask_fwd")
+        if wide:
+            topk_mask_fwd.wide_launches += 1
+        else:
+            topk_mask_fwd.launches += 1
     return out
 
 
 topk_mask_fwd.launches = 0
+topk_mask_fwd.wide_launches = 0
 
 
 class TopKMask(torch.autograd.Function):

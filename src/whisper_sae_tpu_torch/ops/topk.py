@@ -13,7 +13,14 @@ dispatch sends a CUDA tensor to the kernel and a CPU tensor here.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
+
+# Calls of the SAE kernels' plain versions (kernels A, B, C, their wide and
+# blocked forms) by route, counted where a wrapper takes one for a CPU
+# tensor: a run on the card whose count moved did not go through its kernels.
+plain_calls: Counter = Counter()
 
 
 def _monotone_int(pre: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,11 @@
 
 Both reuse :class:`SAETrainer` whole (step, fused epochs, schedule,
 checkpoints, metrics, resampling) and override its family hooks.  Under
-AMP the fused epoch reads each batch at a row offset into the epoch
-buffers through the coder kernel's windowed entries.
+AMP, where the coder kernel holds the geometry, the fused epoch reads
+each batch at a row offset into the epoch buffers through the kernel's
+windowed entries; otherwise each step takes a slice view of the buffers
+(a transcoder wider than the kernel: the blocked encode, then the
+composed decode; ``coder_trainers.py:72-85`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ import torch
 
 from ..models.crosscoder import crosscoder_loss, decoder_norms
 from ..models.transcoder import transcoder_loss
-from ..ops.cuda_coder import fused_relu_crosscoder_loss_indexed, fused_transcoder_loss_indexed
+from ..ops.cuda_coder import (coder_supported, fused_relu_crosscoder_loss_indexed,
+                              fused_transcoder_loss_indexed)
 from .trainer import SAETrainer, _zero_aux
 
 
@@ -40,6 +44,11 @@ class TranscoderTrainer(SAETrainer):
         loss, aux = transcoder_loss(params, x, y, self.model.k, self.compute_dtype,
                                     use_skip=self._use_skip)
         return loss, _zero_aux(loss, {"l0": aux["l0"], "active": aux["active"]})
+
+    def _use_indexed_epoch(self) -> bool:
+        m = self.model
+        return (self.compute_dtype == torch.bfloat16
+                and coder_supported(m.input_dim, m.output_dim, m.hidden_dim))
 
     def _indexed_loss_fn(self, params, sel, step: int):
         x, y = sel
@@ -79,6 +88,11 @@ class CrosscoderTrainer(SAETrainer):
         return crosscoder_loss(params, acts, k=self.model._k,
                                sparsity_weight=self.model.sparsity_weight,
                                compute_dtype=self.compute_dtype)
+
+    def _use_indexed_epoch(self) -> bool:
+        width = self.model.n_layers * self.model.d_model
+        return (self.compute_dtype == torch.bfloat16
+                and coder_supported(width, width, self.model.d_sae))
 
     def _indexed_prepare(self, sel):
         # [N, L, D] -> the kernel's flattened [N, L*D] view (no copy)

@@ -10,16 +10,20 @@ off, set around the step rather than for the whole process.
 The family lives in hooks, as in the JAX package: ``_loss_fn`` (loss and
 an aux with reconstruction_loss, sparsity_loss, l0 and active),
 ``_prepare_batch``, ``_renorm_params``/``_should_renorm``,
-``_indexed_prepare`` and ``_indexed_loss_fn``.  This class trains the
-TopK SAE (kernel A) and the ReLU SAE (the coder kernel in ReLU mode);
+``_use_indexed_epoch``, ``_indexed_prepare`` and ``_indexed_loss_fn``.
+This class trains the TopK SAE (kernel A, or the composed loss around the
+blocked encode) and the ReLU SAE (the coder kernel in ReLU mode);
 ``coder_trainers.py`` overrides the hooks for transcoders and
 crosscoders.
 
 The fused epoch (``train_epoch_fused``) keeps the epoch buffer (or the
 ``(x, y)`` pair of buffers) on the device, gathered once by the
-permutation; under AMP each step runs the family's kernel at a row
-offset into that buffer (the port of ``fused_sae_loss_indexed`` and the
-``*_indexed`` coder entries).  Metrics stay on the device and are
+permutation; under AMP, where the family's kernel holds the geometry
+(``_use_indexed_epoch``), each step runs that kernel at a row offset into
+the buffer (the port of ``fused_sae_loss_indexed`` and the ``*_indexed``
+coder entries); otherwise each step hands ``_loss_fn`` a slice view of
+the buffer (whisper-large 32x: the composed loss around the blocked
+encode).  Metrics stay on the device and are
 fetched once per epoch; the remainder batch goes through ``train_step``.
 """
 
@@ -43,8 +47,8 @@ from ..models.sae import (
     topk_sae_loss,
     update_dead_state,
 )
-from ..ops.cuda_coder import fused_relu_sae_loss_indexed
-from ..ops.cuda_sae import fused_sae_loss_indexed
+from ..ops.cuda_coder import coder_supported, fused_relu_sae_loss_indexed
+from ..ops.cuda_sae import fused_loss_supported, fused_sae_loss_indexed
 from ..utils.checkpoint import export_torch_state_dict, load_pytree, save_pytree
 from ..utils.device import f32_matmuls
 from ..utils.profiling import ThroughputMeter
@@ -200,6 +204,16 @@ class SAETrainer:
         """The family's decoder-norm invariant, in place."""
         self.model.normalize_decoder_weights()
 
+    def _use_indexed_epoch(self) -> bool:
+        """The windowed epoch (``trainer.py:613-635`` of the JAX package):
+        under AMP, where the family's kernel holds the geometry."""
+        if self.compute_dtype != torch.bfloat16:
+            return False
+        d, h = self.model.input_dim, self.model.hidden_dim
+        if isinstance(self.model, ReLUSAE):
+            return coder_supported(d, d, h)
+        return fused_loss_supported(d, h)
+
     def _indexed_prepare(self, sel):
         """The gathered epoch buffer(s) in the kernel's layout (the
         crosscoder flattens [N, L, D])."""
@@ -253,10 +267,11 @@ class SAETrainer:
             return torch.stack([loss.detach(), aux["reconstruction_loss"].detach(),
                                 aux["sparsity_loss"].detach(), aux["l0"].float(), dead])
 
-    def _window_loss(self, sel, step: int):
-        """Loss over rows ``[step*B, (step+1)*B)`` of the epoch buffer:
-        the family's kernel at a row offset under AMP, a slice view in f32."""
-        if self.compute_dtype == torch.bfloat16:
+    def _window_loss(self, sel, step: int, indexed: bool):
+        """Loss over rows ``[step*B, (step+1)*B)`` of the epoch buffer: the
+        family's kernel at a row offset when ``indexed``, else ``_loss_fn``
+        on a slice view (no copy)."""
+        if indexed:
             return lambda p: self._indexed_loss_fn(p, sel, step)
         b = self.config.batch_size
         rows = _tree(lambda a: a[step * b:(step + 1) * b], sel)
@@ -357,10 +372,11 @@ class SAETrainer:
 
         if steps > 0:
             sel = _tree(lambda a: a[perm[:steps * b]] if perm is not None else a[:steps * b], data)
-            if self.compute_dtype == torch.bfloat16:  # the windowed kernel's layout
+            indexed = self._use_indexed_epoch()
+            if indexed:  # the windowed kernel's layout
                 sel = self._indexed_prepare(sel)
             start_step = self.global_step
-            rows = [self._step(self._window_loss(sel, s)) for s in range(steps)]
+            rows = [self._step(self._window_loss(sel, s, indexed)) for s in range(steps)]
             self.global_step += steps
             host = torch.stack(rows).cpu().numpy()  # the epoch's one fetch
             epoch_metrics.extend(self._convert_metrics(start_step, host))

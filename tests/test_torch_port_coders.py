@@ -241,6 +241,28 @@ def test_transcoder_resample_matches_jax():
                                   np.asarray(jm.state.feature_last_activated))
 
 
+def test_transcoder_resample_bf16_rows_match_jax():
+    """bf16 (mlp_in, mlp_out) rows: the JAX package normalises the drawn
+    inputs in numpy, which widens a bf16 array to float64, and the port
+    in f32 from the same (exactly widened) values, so the directions agree
+    to f32 rounding."""
+    params = _params("topk_transcoder", 8)
+    x, y = (jnp.asarray(a).astype(jnp.bfloat16) for a in _data("topk_transcoder", 9))
+    tx, ty = (torch.from_numpy(np.asarray(a.astype(jnp.float32))).bfloat16() for a in (x, y))
+    jm, tm = _models("topk_transcoder", params, threshold=0)
+    jm(x[:B], y[:B])
+    tm(tx[:B], ty[:B])
+    for _ in range(2):
+        jm.state = jsae.update_dead_state(jm.state, jnp.zeros(H, bool))
+        tm.state = tsae.update_dead_state(tm.state, torch.zeros(H, dtype=torch.bool))
+    nj = jm.resample_dead_features(x[B:3 * B], y[B:3 * B], num_resample=40)
+    nt = tm.resample_dead_features(tx[B:3 * B], ty[B:3 * B], num_resample=40)
+    assert nt == nj == 40
+    for k in params:
+        np.testing.assert_allclose(tm.params[k].detach().numpy(), np.asarray(jm.params[k]),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+
+
 def test_crosscoder_layer_norms_match_jax():
     params = _params("relu_crosscoder", 8)
     params["w_dec"][:, 1, :] *= np.where(np.arange(H) % 3 == 0, 0.01, 1.0)[:, None]

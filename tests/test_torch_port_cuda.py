@@ -168,12 +168,12 @@ def test_kernels_count_launches(dev):
 
 
 def test_unsupported_shapes_raise(dev):
-    p = _params(14, d=384, h=4096)
+    p = _params(14, d=384, h=40992)  # wider than the blocked encode holds
     x = _rows(15, 16)
-    with pytest.raises(ValueError, match="H a multiple of 32"):
+    with pytest.raises(ValueError, match="H multiples of 32 and H <= 40960"):
         cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
     with pytest.raises(ValueError, match="registers"):
-        topk_mask_fwd(torch.randn(4, 4096, device=dev), K)
+        topk_mask_fwd(torch.randn(4, 40992, device=dev), K)
     q = _params(16)
     with pytest.raises(ValueError, match="window"):
         cuda_sae.fused_sae_loss_indexed(x, 1, *(q[n] for n in NAMES), K, 16)
@@ -182,6 +182,94 @@ def test_unsupported_shapes_raise(dev):
     with pytest.raises(ValueError, match="b_pre must be"):
         cuda_sae.fused_sae_loss(x, q["w_enc"], q["b_enc"], q["b_pre"][:-1], q["w_dec"],
                                 q["b_dec"][:-1], K)
+
+
+# ---------------------------------------------------------------------------
+# whisper-large 32x geometry: the blocked encode (csrc/blocked_encode.cu)
+# and kernel C's CTA-per-row form, at kernel B's and kernel C's bars
+# ---------------------------------------------------------------------------
+
+DL, HL = 1280, 40960
+
+
+def test_gate_constants_match_the_library(dev):
+    lib = _build.load_library()
+    assert (_build.MAX_D, _build.MAX_ROW, _build.MAX_WIDE_ROW) == (
+        lib.wst_max_d(), lib.wst_max_row_width(), lib.wst_max_wide_row_width())
+
+
+@pytest.mark.parametrize("h", [3104, 4096, 10000, HL])
+def test_topk_mask_wide_kernel_exact(dev, h):
+    pre = torch.randn(64, h, generator=torch.Generator().manual_seed(h)).to(dev)
+    pre[:4] = torch.round(pre[:4] * 2) / 2  # exact ties
+    before = topk_mask_fwd.wide_launches
+    got = topk_mask_fwd(pre, K)
+    torch.cuda.synchronize()
+    assert topk_mask_fwd.wide_launches == before + 1
+    assert torch.equal(got, topk_mask_plain(pre, K))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h,rows", [(128, 4096, 300), (96, 4160, 129), (256, 8192, 4200),
+                                      (DL, HL, 1000)])
+def test_blocked_encode_matches_plain(dev, d, h, rows, x_dtype, out_dtype):
+    p, x = _params(21, d=d, h=h), _rows(22, rows, d=d).to(x_dtype)
+    before = (cuda_sae.fused_topk_encode.blocked_launches, cuda_sae.fused_topk_encode.launches)
+    got = cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
+    want = cuda_sae.topk_encode_plain(x, cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K,
+                                      out_dtype)
+    torch.cuda.synchronize()
+    assert (cuda_sae.fused_topk_encode.blocked_launches, cuda_sae.fused_topk_encode.launches) == (
+        before[0] + 1, before[1])
+    assert got.dtype == out_dtype and got.shape == (rows, h)
+    assert _row_agreement(got, want) >= 0.999
+    ok = ((got > 0) == (want > 0)).all(dim=1)
+    torch.testing.assert_close(got[ok].float(), want[ok].float(), rtol=0,
+                               atol=1e-2 * float(want.float().abs().max()))
+
+
+def test_blocked_encode_deterministic(dev):
+    p, x = _params(23, d=DL, h=HL), _rows(24, 2500, d=DL)
+    a = cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
+    b = cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
+    assert torch.equal(a, b)
+
+
+def test_blocked_encode_grads_match_plain_on_cpu(dev):
+    """On rows whose selection the card and the CPU agree on (a row whose
+    k-th and (k+1)-th pre lie within the sum-order noise may select the
+    other feature, which moves whole gradient entries)."""
+    p, x = _params(25, d=DL, h=HL), _rows(26, 256, d=DL)
+    we_t = cuda_sae._bf16_t(p["w_enc"])
+    ok = ((cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K) > 0).cpu() == (
+        cuda_sae.topk_encode_plain(x.cpu(), we_t.cpu(), p["b_enc"].cpu(), p["b_pre"].cpu(), K,
+                                   torch.bfloat16) > 0)).all(dim=1)
+    assert float(ok.float().mean()) >= 0.99
+    x = x[ok.to(dev)].contiguous()
+    g = torch.randn(x.shape[0], HL, generator=torch.Generator().manual_seed(27))
+
+    def run(q, xx, gg):
+        return (cuda_sae.fused_topk_encode(xx, q["w_enc"], q["b_enc"], q["b_pre"], K,
+                                           torch.float32) * gg).sum()
+
+    card = _grads(lambda q: run(q, x, g.to(dev)), p)
+    cpu = _grads(lambda q: run(q, x.cpu(), g), {k: v.cpu() for k, v in p.items()})
+    for name in ("w_enc", "b_enc", "b_pre"):
+        want = cpu[name]
+        torch.testing.assert_close(card[name].cpu(), want, rtol=2e-2,
+                                   atol=2e-2 * float(want.abs().max()))
+
+
+def test_large_loss_takes_the_blocked_route(dev):
+    from whisper_sae_tpu_torch.models.sae import topk_sae_loss
+
+    p, x = _params(28, d=DL, h=HL), _rows(29, 512, d=DL)
+    before = (cuda_sae.fused_topk_encode.blocked_launches, cuda_sae.fused_sae_loss.launches)
+    loss, aux = topk_sae_loss(p, x, K, torch.bfloat16)
+    assert (cuda_sae.fused_topk_encode.blocked_launches, cuda_sae.fused_sae_loss.launches) == (
+        before[0] + 1, before[1])
+    assert bool(torch.isfinite(loss)) and float(aux["l0"]) == K
 
 
 # ---------------------------------------------------------------------------

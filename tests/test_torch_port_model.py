@@ -172,6 +172,28 @@ def test_resample_matches_jax(num_resample):
                                   np.asarray(j.state.feature_last_activated))
 
 
+def test_resample_bf16_rows_match_jax():
+    """Rows drawn from a bf16 cache are normalised in bf16 by both packages
+    (``jnp.linalg.norm`` keeps bf16), so the new directions agree to f32
+    rounding of the same bf16 values."""
+    j, t = _facades(_np_params(14), threshold=1)
+    for i in range(4):
+        x = _x(50 + i, n=8)
+        j(x)
+        t(x)
+    inputs = _x(60, n=128)
+    nj = j.resample_dead_features(jnp.asarray(inputs).astype(jnp.bfloat16))
+    nt = t.resample_dead_features(torch.from_numpy(inputs).bfloat16())
+    assert nt == nj > 0
+    dead = np.flatnonzero(np.asarray(j.params["b_enc"]) == 0)
+    assert dead.size == min(nj, len(inputs))  # one direction per drawn row
+    for k in tsae.PARAM_NAMES:
+        np.testing.assert_allclose(t.params[k].detach().numpy(), np.asarray(j.params[k]),
+                                   rtol=1e-6, atol=1e-7)
+    w = t.w_dec.detach()[torch.from_numpy(dead)]
+    assert torch.equal(w, w.bfloat16().float())  # the directions are bf16 values
+
+
 def test_init_distributions():
     p = tsae.init_topk_sae(torch.Generator().manual_seed(0), D, H)
     np.testing.assert_allclose(torch.linalg.vector_norm(p["w_dec"], dim=1).numpy(), 0.1, rtol=1e-5)

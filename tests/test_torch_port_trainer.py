@@ -97,16 +97,13 @@ def _run_port(data, perms, params, amp, run_dir, resample_rows):
                          ids=["f32", "amp", "amp_bf16_rows"])
 def test_trajectory_matches_jax(amp, rows, tmp_path, monkeypatch):
     data, perms, params = _setup()
-    if rows == "bf16":  # a bf16 cache: rows staged in bf16 in both packages
+    if rows == "bf16":  # a bf16 cache: rows staged, and resampled from, in bf16
         jdata = jnp.asarray(data).astype(jnp.bfloat16)
         tdata = torch.from_numpy(data).bfloat16()
-        # resample from the same rows in f32 (the JAX package would
-        # normalise bf16 draws in bf16, the port in f32)
-        data = np.asarray(jdata.astype(jnp.float32))
     else:
         jdata, tdata = data, data
-    jt, jl = _run_jax(jdata, perms, params, amp, tmp_path / "jax", monkeypatch, data)
-    tt, tl = _run_port(tdata, perms, params, amp, tmp_path / "port", data)
+    jt, jl = _run_jax(jdata, perms, params, amp, tmp_path / "jax", monkeypatch, jdata)
+    tt, tl = _run_port(tdata, perms, params, amp, tmp_path / "port", tdata)
     assert len(tl) == len(jl) == TOTAL
     assert tt.global_step == jt.global_step == TOTAL
     assert tt.num_resampled_total == jt.num_resampled_total > 0
