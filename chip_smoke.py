@@ -118,6 +118,44 @@ Phases, each of which fails the run (non-zero exit, no result line):
     shape; kernel C's wide form on [8192, 40960] beside ``torch.topk``;
     one training step at batch 8192 under ``torch.profiler``.
 
+14. Encoder kernels at whisper-large-v3 width (D=1280, 20 heads, F=5120,
+    T=1500, 128 mels), 8 clips (bench.py:388-400): the conv stem's and
+    the MLP block's wide forms (all four output modes), LN+QKV, the
+    attention core (T unpadded, and with keys from 1437 masked; also as
+    the flash route), the out-projection and the whole attention block,
+    each against its plain version at the one-block bar; the attention
+    core bit-identical run to run at both widths.
+15. Whisper-large-v3 extraction through the CLI (``--extract-only
+    --random-whisper``, weights made on the card from the config's seed,
+    the synthetic dataset, 16 clips, bf16, the full 32+32-layer forward,
+    encoder layers 0 and 31 and decoder layer 31 captured): every
+    encoder wrapper's count is zeroed before and read after (the wide
+    stem once a batch, the attention launches and the wide MLP block
+    once a layer and batch, the narrow forms and the plain versions no
+    time); the caches hold 16*1500 (16) finite rows of 1280 and agree
+    with ``extract_activations`` on 2 clips at the stack bar.  Then, on
+    those 2 clips, every layer of the fused route is held against the
+    card's composed route (torch products, the attention core on its
+    flash route) from the same input, at the stack bar.
+16. Times at whisper-large-v3: one 8-clip batch of ``extract_activations``
+    (bf16, every layer captured, decoder on) on the host clock and under
+    ``torch.profiler``, beside its operation bound; each encoder kernel
+    beside its plain version, its bound and a library yardstick.
+17. Out of core through the CLI: a cache of 2 shards (65,536 + 32,768
+    rows x 384) trained for one epoch at tiny_default.yaml's widths; the
+    CLI streams it batch by batch through the prefetching shard loader,
+    as the JAX CLI does: every batch trains (one sliced kernel-A launch
+    a step, no windowed launch), the resample set is the bounded
+    8 x 8192-row subsample, the loss falls.
+18. The launcher's coder jobs past the earlier limits, on synthetic
+    caches: ``train-crosscoder --expansion-factor 16`` (L=2, D=384,
+    S=6144 > 3072; TopK, then ``--relu``) composes as the JAX package
+    does -- no coder-kernel launch, kernel C's wide form for the TopK
+    mask; learning rate 1e-2, for ReLU 1e-3 and 4 epochs -- and ``train-transcoder``
+    above ``--max-resident-gb`` streams
+    chunked epochs through the paired reader (windowed coder launches
+    equal to the steps).  Losses finite and falling, run files written.
+
 The last two lines are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Scratch files go under ``build/``.
 """
@@ -170,6 +208,13 @@ LAUNCH_CLIPS = 64
 DL, HL, BL = 1280, 40960, 8192
 LARGE_STEPS, LARGE_EPOCHS = 6, 2
 BLOCKED_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/blocked_encode.cu"
+ATTN_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/attention_kernel.cu"
+# whisper-large-v3 extraction: bench.py:388-400 times batches of LG_B = 8
+# clips; the CLI extracts LG_CLIPS = 16 in one batch (EXTRACT_BATCH is 64),
+# and phase 14 holds the kernels against their plain versions at that batch
+LV3 = "openai/whisper-large-v3"
+LG_B, LG_CLIPS = 8, 16
+LG_ENC_LAYERS, LG_DEC_LAYERS = [0, 31], [31]
 ENC_REPLACES = {
     "conv_stem": "src/whisper_sae_tpu/ops/pallas_encoder.py:604",
     "ln_qkv": "src/whisper_sae_tpu/ops/pallas_encoder.py:340",
@@ -538,47 +583,56 @@ def times(dev, cuda_sae, cuda_topk, topk) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def encoder_inputs(dev, W) -> dict:
-    """A bf16 whisper-tiny encoder (weights, biases and LN parameters all
-    randomised) and a batch of 64 random mels on the card, with the
-    inputs of every encoder kernel."""
+def encoder_inputs(dev, W, CE, arch=None, b: int = ENC_B) -> dict:
+    """A bf16 encoder (weights, biases and LN parameters all randomised;
+    whisper-tiny unless ``arch`` is given) and a batch of ``b`` random mels
+    on the card, with the inputs of every encoder kernel."""
+    arch = arch or W.arch_for("openai/whisper-tiny")
     g = torch.Generator().manual_seed(11)
-    p = W.init_whisper(g, W.arch_for("openai/whisper-tiny"))["encoder"]
+    p = W.init_whisper(g, arch)["encoder"]
     p = W._tree_map(lambda a: a + 0.02 * torch.randn(a.shape, generator=g), p)
     enc = W.params_to(W.cast_params(p, torch.bfloat16), dev)
     lp = W._layer(enc["layers"], 0)
-    mel = (torch.randn(ENC_B, N_MELS, 2 * ENC_T, generator=g) * 0.5).to(dev).bfloat16()
-    return {"enc": enc, "lp": lp, "mel": mel,
+    mel = (torch.randn(b, arch.n_mels, 2 * ENC_T, generator=g) * 0.5).to(dev).bfloat16()
+    return {"enc": enc, "lp": lp, "mel": mel, "b": b, "d": arch.d_model, "f": arch.ffn_dim,
+            "heads": arch.num_heads, "n_mels": arch.n_mels,
             "stem": (mel, enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"],
                      enc["pos"]),
             "final_ln": (enc["ln_f_g"].float(), enc["ln_f_b"].float())}
 
 
-def encoder_kernel_phase(dev, W, E, CE) -> tuple[dict, dict]:
-    """Phase 5; returns (max abs errors by kernel, the inputs for phase 7)."""
-    inp = encoder_inputs(dev, W)
-    lp, errs = inp["lp"], {}
+def encoder_kernel_phase(dev, W, E, CE, arch=None, b: int = ENC_B) -> tuple[dict, dict]:
+    """Phases 5 and 14; returns (max abs errors by kernel, the inputs for
+    the times)."""
+    inp = encoder_inputs(dev, W, CE, arch, b)
+    lp, errs, d, heads = inp["lp"], {}, inp["d"], inp["heads"]
+    before = enc_launches(CE)
     x = E.conv_stem_plain(*inp["stem"])
     errs["conv_stem"] = bar_check(CE.conv_stem_fwd(*inp["stem"]), x, BLOCK_BAR, "conv_stem")
-    rows = x.view(-1, ENC_D)
-    qkv = E.ln_qkv_plain(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS)
-    got = CE.ln_qkv_fwd(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS)
-    errs["ln_qkv"] = max(bar_check(a, b, BLOCK_BAR, f"ln_qkv {n}")
-                         for n, a, b in zip("qkv", got, qkv))
-    q, k, v = (a.view(ENC_B, ENC_T, ENC_D) for a in qkv)
-    attn = E.self_attention_plain(q, k, v, ENC_HEADS)
-    errs["self_attention"] = bar_check(CE.self_attention_fwd(q, k, v, ENC_HEADS), attn,
-                                       BLOCK_BAR, "self_attention")
-    errs["flash_self_attention"] = bar_check(CE.flash_self_attention_fwd(q, k, v, ENC_HEADS),
+    rows = x.view(-1, d)
+    qkv = E.ln_qkv_plain(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
+    got = CE.ln_qkv_fwd(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
+    errs["ln_qkv"] = max(bar_check(a, w, BLOCK_BAR, f"ln_qkv {n}")
+                         for n, a, w in zip("qkv", got, qkv))
+    q, k, v = (a.view(b, ENC_T, d) for a in qkv)
+    attn = E.self_attention_plain(q, k, v, heads)
+    core = CE.self_attention_fwd(q, k, v, heads)
+    errs["self_attention"] = bar_check(core, attn, BLOCK_BAR, "self_attention")
+    check(torch.equal(core, CE.self_attention_fwd(q, k, v, heads)),
+          "self_attention: two launches differ")
+    errs["self_attention"] = max(errs["self_attention"], bar_check(
+        CE.self_attention_fwd(q, k, v, heads, 1437), E.self_attention_plain(q, k, v, heads, 1437),
+        BLOCK_BAR, "self_attention, keys from 1437 masked"))
+    errs["flash_self_attention"] = bar_check(CE.flash_self_attention_fwd(q, k, v, heads),
                                              attn, BLOCK_BAR, "flash_self_attention")
-    arows = attn.view(-1, ENC_D)
+    arows = attn.view(-1, d)
     errs["out_proj"] = bar_check(CE.out_proj_fwd(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
                                  E.out_proj_plain(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
                                  BLOCK_BAR, "out_proj")
-    block = E.attention_block_plain(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS)
-    block_err = bar_check(CE.attention_block_fwd(x, lp["ln1_g"], lp["ln1_b"], lp["attn"],
-                                                 ENC_HEADS), block, BLOCK_BAR, "attention block")
-    brows = block.view(-1, ENC_D)
+    block = E.attention_block_plain(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
+    block_err = bar_check(CE.attention_block_fwd(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads),
+                          block, BLOCK_BAR, "attention block")
+    brows = block.view(-1, d)
     errs["mlp_block"] = 0.0
     for capture, fl, cap_dt in ((False, None, torch.bfloat16), (True, None, torch.bfloat16),
                                 (False, inp["final_ln"], torch.bfloat16),
@@ -586,14 +640,18 @@ def encoder_kernel_phase(dev, W, E, CE) -> tuple[dict, dict]:
         got = CE.mlp_block_fwd(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
         want = E.mlp_block_plain(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
         got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
-        check(len(got) == len(want) and all(a.dtype == b.dtype for a, b in zip(got, want)),
+        check(len(got) == len(want) and all(a.dtype == w.dtype for a, w in zip(got, want)),
               f"mlp_block capture={capture} final_ln={fl is not None}: outputs differ in kind")
-        for a, b in zip(got, want):
+        for a, w in zip(got, want):
             errs["mlp_block"] = max(errs["mlp_block"], bar_check(
-                a, b, BLOCK_BAR, f"mlp_block capture={capture} final_ln={fl is not None}"))
+                a, w, BLOCK_BAR, f"mlp_block capture={capture} final_ln={fl is not None}"))
     torch.cuda.synchronize()
+    forms = {k: n - before[k] for k, n in enc_launches(CE).items()
+             if k.startswith(("conv_stem", "mlp_block")) and n > before[k]}
     log("  " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-        + f", attention block {block_err:.3g} (max abs err, each within the one-block bar)")
+        + f", attention block {block_err:.3g} (max abs err, each within the one-block bar; "
+        f"B={b}; stem and MLP forms launched {forms}; the attention core bit-identical run "
+        "to run)")
     inp.update(x=x, rows=rows, q=q, k=k, v=v, arows=arows, brows=brows)
     return errs, inp
 
@@ -617,26 +675,36 @@ def extraction_config(work: Path) -> Path:
 
 ENC_WRAPPERS = ("conv_stem", "ln_qkv", "self_attention", "out_proj", "mlp_block",
                 "flash_self_attention")
+WIDE_FORMS = {"conv_stem_wide": "conv_stem", "mlp_block_wide": "mlp_block"}  # D > 512
 
 
-def enc_wrappers(CE) -> dict:
-    return {name: getattr(CE, f"{name}_fwd") for name in ENC_WRAPPERS}
+def enc_launches(CE) -> dict:
+    """Launches by kernel, the stem's and the MLP block's wide forms apart."""
+    counts = {name: getattr(CE, f"{name}_fwd").launches for name in ENC_WRAPPERS}
+    counts.update({wide: getattr(CE, f"{name}_fwd").wide_launches
+                   for wide, name in WIDE_FORMS.items()})
+    return counts
+
+
+def reset_enc_launches(CE) -> None:
+    for name in ENC_WRAPPERS:
+        getattr(CE, f"{name}_fwd").launches = 0
+    for name in WIDE_FORMS.values():
+        getattr(CE, f"{name}_fwd").wide_launches = 0
 
 
 def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E, CE) -> dict:
     """Phase 6; returns launches by kernel and the CLI's end-to-end clips/s."""
     path = extraction_config(work)
     cfg = cfg_mod.ExperimentConfig.from_yaml(path)
-    wrappers = enc_wrappers(CE)
-    for w in wrappers.values():
-        w.launches = 0
+    reset_enc_launches(CE)
     E.plain_calls.clear()
     t0 = time.perf_counter()
     out = train_mod.main(["--config", str(path), "--extract-only", "--random-whisper",
                           "--no-wandb"])
     torch.cuda.synchronize()
     extract_s = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
+    launches = enc_launches(CE)
     log(f"  CLI extracted {EXTRACT_CLIPS} clips in {extract_s:.2f} s "
         f"({EXTRACT_CLIPS / extract_s:,.1f} clips/s end to end: mel, forward, transfer, disk); "
         f"launches {launches}, plain-version calls {dict(E.plain_calls)}")
@@ -645,14 +713,16 @@ def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E
     layers = len(cfg.encoder_layers)
     want = {"conv_stem": batches, "ln_qkv": layers * batches, "self_attention": layers * batches,
             "out_proj": layers * batches, "mlp_block": layers * batches,
-            "flash_self_attention": 0}
+            "flash_self_attention": 0, "conv_stem_wide": 0, "mlp_block_wide": 0}
     check(launches == want, f"extraction launches {launches} != {want}")
     check(sum(E.plain_calls.values()) == 0, f"plain versions ran on the card: {E.plain_calls}")
 
     # the 8 caches, then the first 2 clips against the CPU
     cache = cache_mod.FeatureCache(work / "xcache" / "features", cfg.whisper, cfg.data)
     arch = W.arch_for(cfg.whisper.model_name)
-    params = W.init_whisper(torch.Generator().manual_seed(cfg.training.seed), arch)
+    # the CLI makes the weights on the card from the config's seed
+    params = W.params_to(W.init_whisper(torch.Generator(device=dev).manual_seed(cfg.training.seed),
+                                        arch), "cpu")
     ds = ds_mod.SyntheticSpeechDataset(EXTRACT_CLIPS, seed=cfg.training.seed, n_mels=arch.n_mels)
     mel2 = torch.from_numpy(np.stack([ds[i]["input_features"] for i in range(2)]))
     ref = W.extract_activations(params, mel2, arch, compute_dtype=torch.bfloat16,
@@ -687,12 +757,12 @@ def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E
     log("  f32 extraction on 2 clips: card equals the CPU at rtol 1e-3")
 
     # the composed route sends its attention core to the kernel (row 11)
-    wrappers["flash_self_attention"].launches = 0
+    CE.flash_self_attention_fwd.launches = 0
     with torch.no_grad():
         last, outs = W.encoder_forward(W.cast_params(p_dev, torch.bfloat16),
                                        mel2.to(dev).bfloat16(), arch, use_fused=False)
     torch.cuda.synchronize()
-    launches["flash_self_attention"] = wrappers["flash_self_attention"].launches
+    launches["flash_self_attention"] = CE.flash_self_attention_fwd.launches
     check(launches["flash_self_attention"] == arch.encoder_layers,
           f"flash route: {launches['flash_self_attention']} launches")
     check(bool(torch.isfinite(outs.float()).all()), "flash route: non-finite")
@@ -834,40 +904,42 @@ def extraction_breakdown(work: Path, dev, W, cfg_mod, cache_mod, ds_mod) -> dict
 
 
 def encoder_kernel_times(inp: dict, E, CE) -> dict:
-    """Phase 7b: each encoder kernel at 64 clips, its plain version, its
-    bound and a library yardstick, on phase 5's inputs."""
+    """Phases 7b and 16b: each encoder kernel on phase 5's (14's) inputs,
+    its plain version, its bound and a library yardstick."""
     import torch.nn.functional as F
 
     lp, mel, enc = inp["lp"], inp["mel"], inp["enc"]
     rows, arows, brows, q, k, v = (inp[n] for n in ("rows", "arows", "brows", "q", "k", "v"))
-    n, d, f, t, b = rows.shape[0], ENC_D, ENC_F, ENC_T, ENC_B
+    n, t = rows.shape[0], ENC_T
+    d, f, b, heads, n_mels = (inp[n_] for n_ in ("d", "f", "b", "heads", "n_mels"))
     bf = 2  # bytes of a bf16 value
     wq = torch.cat([lp["attn"]["wq"], lp["attn"]["wk"], lp["attn"]["wv"]], dim=1)
     fl = inp["final_ln"]
-    hq, hk, hv = (a.view(b, t, ENC_HEADS, 64).transpose(1, 2) for a in (q, k, v))
+    hq, hk, hv = (a.view(b, t, heads, 64).transpose(1, 2) for a in (q, k, v))
     w1, w2 = enc["conv1_w"], enc["conv2_w"]
     res = {}
     res["conv_stem"] = (
         time_ms(lambda: CE.conv_stem_fwd(*inp["stem"])),
         time_ms(lambda: E.conv_stem_plain(*inp["stem"]), iters=5, warmup=1),
-        *enc_bound(b * N_MELS * 2 * t * bf + (3 * N_MELS * d + 3 * d * d + t * d) * bf
-                   + b * t * d * bf, 2 * b * t * d * (3 * N_MELS + 3 * d)),
+        # conv1 at all 2T mel frames, conv2 at the T output frames
+        *enc_bound(b * n_mels * 2 * t * bf + (3 * n_mels * d + 3 * d * d + t * d) * bf
+                   + b * t * d * bf, 2 * b * t * d * (6 * n_mels + 3 * d)),
         time_ms(lambda: F.conv1d(F.conv1d(mel, w1, enc["conv1_b"], padding=1), w2,
                                  enc["conv2_b"], stride=2, padding=1)),
     )
     res["ln_qkv"] = (
-        time_ms(lambda: CE.ln_qkv_fwd(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS)),
-        time_ms(lambda: E.ln_qkv_plain(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], ENC_HEADS),
+        time_ms(lambda: CE.ln_qkv_fwd(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)),
+        time_ms(lambda: E.ln_qkv_plain(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads),
                 iters=5, warmup=1),
         *enc_bound(4 * n * d * bf + 3 * d * d * bf, 2 * n * d * 3 * d),
         time_ms(lambda: torch.matmul(rows, wq)),
     )
-    core = (time_ms(lambda: CE.self_attention_fwd(q, k, v, ENC_HEADS)),
-            time_ms(lambda: E.self_attention_plain(q, k, v, ENC_HEADS), iters=3, warmup=1),
-            *enc_bound(4 * n * d * bf, 4 * b * t * t * d, b * ENC_HEADS * t * t),
+    core = (time_ms(lambda: CE.self_attention_fwd(q, k, v, heads)),
+            time_ms(lambda: E.self_attention_plain(q, k, v, heads), iters=3, warmup=1),
+            *enc_bound(4 * n * d * bf, 4 * b * t * t * d, b * heads * t * t),
             time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=1.0)))
     res["self_attention"] = core
-    res["flash_self_attention"] = (time_ms(lambda: CE.flash_self_attention_fwd(q, k, v, ENC_HEADS)),
+    res["flash_self_attention"] = (time_ms(lambda: CE.flash_self_attention_fwd(q, k, v, heads)),
                                    *core[1:])
     res["out_proj"] = (
         time_ms(lambda: CE.out_proj_fwd(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"])),
@@ -1441,6 +1513,328 @@ def large_times(work: Path, dev, trainer, cuda_sae, cuda_topk, topk) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phases 14-18: whisper-large-v3 extraction, out of core, wide crosscoders
+# ---------------------------------------------------------------------------
+
+
+def large_extraction_config(work: Path) -> Path:
+    """tiny_default.yaml naming whisper-large-v3, 16 synthetic clips, AMP,
+    encoder layers 0 and 31 and decoder layer 31 captured."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    cfg["whisper"]["model_name"] = LV3
+    cfg["encoder_layers"], cfg["decoder_layers"] = LG_ENC_LAYERS, LG_DEC_LAYERS
+    cfg["data"].update(dataset_name="synthetic", max_samples=LG_CLIPS,
+                       cache_dir=str(work / "lxcache"))
+    cfg["training"]["use_amp"] = True
+    cfg["output_dir"] = str(work / "lxout")
+    cfg["experiment_name"] = "large_extract_smoke"
+    path = work / "large_extract_smoke.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def composed_stem(mel: torch.Tensor, enc: dict) -> torch.Tensor:
+    """The composed route's conv stem (``encoder_forward``'s torch ops)."""
+    import torch.nn.functional as F
+
+    h = F.gelu(F.conv1d(mel, enc["conv1_w"], padding=1) + enc["conv1_b"][None, :, None])
+    x = F.gelu(F.conv1d(h, enc["conv2_w"], stride=2, padding=1) + enc["conv2_b"][None, :, None])
+    x = x.transpose(1, 2)
+    return x + enc["pos"][: x.shape[1]]
+
+
+def large_extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E,
+                          CE) -> dict:
+    """Phase 15; returns launches by kernel, the CLI's clips/s and the
+    bf16 weights (kept on the card for phase 16)."""
+    path = large_extraction_config(work)
+    cfg = cfg_mod.ExperimentConfig.from_yaml(path)
+    arch = W.arch_for(LV3)
+    d = arch.d_model
+    reset_enc_launches(CE)
+    E.plain_calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_mod.main(["--config", str(path), "--extract-only", "--random-whisper",
+                          "--no-wandb"])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches = enc_launches(CE)
+    log(f"  CLI extracted {LG_CLIPS} whisper-large-v3 clips in {extract_s:.2f} s "
+        f"({LG_CLIPS / extract_s:,.2f} clips/s end to end: weights made on the card, mel, the "
+        f"32+32-layer forward, transfer, disk); launches {launches}, plain-version calls "
+        f"{dict(E.plain_calls)}")
+    check(out == {}, "--extract-only trained something")
+    batches = -(-LG_CLIPS // train_mod.EXTRACT_BATCH)
+    per_layer = arch.encoder_layers * batches
+    want = {"conv_stem": 0, "conv_stem_wide": batches, "ln_qkv": per_layer,
+            "self_attention": per_layer, "out_proj": per_layer, "mlp_block": 0,
+            "mlp_block_wide": per_layer, "flash_self_attention": 0}
+    check(launches == want, f"large extraction launches {launches} != {want}")
+    check(sum(E.plain_calls.values()) == 0, f"plain versions ran on the card: {E.plain_calls}")
+
+    # the caches against extract_activations on the first 2 clips, on the
+    # weights the CLI made (the same generator, on the card)
+    cache = cache_mod.FeatureCache(work / "lxcache" / "features", cfg.whisper, cfg.data)
+    params = W.init_whisper(torch.Generator(device=dev).manual_seed(cfg.training.seed), arch)
+    pb = W.cast_params(params, torch.bfloat16)
+    del params
+    ds = ds_mod.SyntheticSpeechDataset(LG_CLIPS, seed=cfg.training.seed, n_mels=arch.n_mels,
+                                       device=dev)
+    mel2 = torch.from_numpy(np.stack([ds[i]["input_features"] for i in range(2)])).to(dev)
+    ref = W.extract_activations(pb, mel2, arch, compute_dtype=torch.bfloat16,
+                                capture_dtype=torch.bfloat16)
+    for comp, layers, tokens in (("encoder", LG_ENC_LAYERS, ENC_T), ("decoder", LG_DEC_LAYERS, 1)):
+        check(not cache.has_cache(comp, 1), f"{comp}:1 was not asked for")
+        for layer in layers:
+            meta = cache.load_metadata(comp, layer)
+            check((meta.num_tokens, meta.hidden_dim, meta.num_samples, meta.dtype)
+                  == (LG_CLIPS * tokens, d, LG_CLIPS, "float32"), f"{comp}:{layer} metadata {meta}")
+            rows, _ = cache.load(comp, layer)
+            check(bool(torch.isfinite(rows).all()), f"{comp}:{layer}: non-finite rows")
+            bar_check(rows[:2 * tokens], ref[comp][layer].reshape(-1, d), STACK_BAR,
+                      f"{comp}:{layer} first 2 clips vs extract_activations")
+            del rows
+    log(f"  caches encoder:{LG_ENC_LAYERS} and decoder:{LG_DEC_LAYERS} of {LG_CLIPS} clips x "
+        f"{d}: finite, first 2 clips within the stack bar of extract_activations")
+    del ref
+    shutil.rmtree(work / "lxcache", ignore_errors=True)
+
+    # every layer of the fused route against the card's composed route,
+    # from the same input
+    enc = pb["encoder"]
+    worst = {}
+    with torch.no_grad(), W.f32_matmuls():
+        mel = mel2.bfloat16()
+        x = W.encoder_ops.conv_stem(mel, enc)
+        bar_check(x, composed_stem(mel, enc), STACK_BAR, "stem: fused vs composed")
+        for i in range(arch.encoder_layers):
+            lp = W._layer(enc["layers"], i)
+            y = W.encoder_ops.attention_block(x, lp["ln1_g"], lp["ln1_b"], lp["attn"],
+                                              arch.num_heads)
+            y = W.encoder_ops.mlp_block(y.reshape(-1, d), lp["ln2_g"], lp["ln2_b"],
+                                        lp["mlp"]).reshape(x.shape)
+            want_l = W._encoder_layer(x, lp, arch.num_heads)[0]
+            bar_check(y, want_l, STACK_BAR, f"layer {i}: fused vs composed")
+            dd = (y.float() - want_l.float()).abs()
+            worst[i] = float(dd.mean() / want_l.float().abs().mean())
+            x = y
+    torch.cuda.synchronize()
+    log(f"  2 clips, every layer fused vs composed from the same input: mean rel err max "
+        f"{max(worst.values()):.3g} (layer {max(worst, key=worst.get)}), stack bar 2**-7")
+    return {"launches": launches, "cli_clips_per_s": LG_CLIPS / extract_s,
+            "extract_s": extract_s, "params": pb}
+
+
+def large_batch_times(dev, W, pb: dict) -> dict:
+    """Phase 16a: bench.py's whisper-large-v3 definition (batch 8, bf16,
+    every layer captured in bf16, decoder on), 3 batches on the host clock
+    after one warm batch, then 2 under ``torch.profiler``; the bound
+    counts the encoder's products and the stem (the one-token decoder is
+    under 0.1% of it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    arch = W.arch_for(LV3)
+    d, t, n_mels = arch.d_model, ENC_T, arch.n_mels
+    mels = torch.randn(3, LG_B, n_mels, 2 * t, generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev)
+
+    def run(n):
+        for i in range(n):
+            W.extract_activations(pb, mels[i], arch, compute_dtype=torch.bfloat16,
+                                  capture_dtype=torch.bfloat16)
+
+    run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(3)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    flops = LG_B * (arch.encoder_layers * (24 * t * d * d + 4 * t * t * d)
+                    + 2 * t * d * (6 * n_mels + 3 * d))
+    res = {"batch_ms": 1e3 * dt / 3, "clips_per_s": 3 * LG_B / dt,
+           "bound_ms": 1e3 * flops / PEAK_BF16, "gflop": flops / 1e9}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(2)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
+    res["busy_ms"] = busy if busy > 0 else None
+    log(f"  extract_activations, whisper-large-v3, batch {LG_B} bf16: {res['batch_ms']:.3f} ms a "
+        f"batch, {res['clips_per_s']:,.2f} clips/s; operation bound {res['bound_ms']:.3f} ms "
+        f"({res['gflop']:,.0f} GFLOP)")
+    if busy <= 0:
+        log("  device busy time: not measured (the profiler saw no device time)")
+        return res
+    res["idle_share"] = max(0.0, 1 - busy / res["batch_ms"])
+    log(f"  device busy {busy:.3f} ms a batch (profiled run), idle share "
+        f"{res['idle_share']:.1%} of the unprofiled batch")
+    res["top"] = []
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        ms = e.self_device_time_total / 1e3 / 2
+        res["top"].append([e.key[:60], ms, e.count // 2])
+        log(f"    {ms:8.4f} ms/batch  {e.count // 2:3d}x  {e.key[:90]}")
+    return res
+
+
+def out_of_core_config(work: Path) -> Path:
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    cfg["training"].update(epochs=1, warmup_steps=100)
+    cfg["data"]["cache_dir"] = str(work / "ocache")
+    cfg["output_dir"] = str(work / "oout")
+    cfg["experiment_name"] = "ooc_smoke"
+    path = work / "ooc_smoke.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def out_of_core_path(work: Path, dev, train_mod, cfg_mod, cache_mod, cuda_sae, topk) -> dict:
+    """Phase 17: a 2-shard cache trained through the CLI, streamed."""
+    path = out_of_core_config(work)
+    cfg = cfg_mod.ExperimentConfig.from_yaml(path)
+    cache = cache_mod.FeatureCache(work / "ocache" / "features", cfg.whisper, cfg.data)
+    writer = cache.writer("encoder", 0, shard_tokens=1 << 16)
+    gen = torch.Generator(device=dev).manual_seed(81)
+    mix = torch.randn(RANK, D, generator=gen, device=dev) / RANK ** 0.5
+    for rows in (1 << 16, 1 << 15):  # the writer rolls a shard at an append
+        writer.append(gaussian_rows(rows, gen, mix).cpu().numpy())
+    meta = writer.finalize(num_samples=3 * (1 << 15) // 1500)
+    check(len(meta.shards) == 2, f"the cache has {len(meta.shards)} shards, not 2")
+    n = meta.num_tokens
+    loaders = []
+    real = cache_mod.FeatureCache.get_dataloader
+
+    def spy(self, *a, **kw):
+        loaders.append(real(self, *a, **kw))
+        return loaders[-1]
+
+    for w in (cuda_sae.fused_sae_loss, cuda_sae.fused_sae_loss_indexed):
+        w.launches = 0
+    topk.plain_calls.clear()
+    cache_mod.FeatureCache.get_dataloader = spy
+    try:
+        t0 = time.perf_counter()
+        (trainer,) = train_mod.main(["--config", str(path), "--layer", "encoder:0",
+                                     "--no-wandb"]).values()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        cache_mod.FeatureCache.get_dataloader = real
+    steps = -(-n // cfg.training.batch_size)
+    launches = {"fused_sae_loss": cuda_sae.fused_sae_loss.launches,
+                "fused_sae_loss_indexed": cuda_sae.fused_sae_loss_indexed.launches}
+    (loader,) = loaders
+    check(isinstance(loader, cache_mod.PrefetchLoader) and loader.reader.num_rows == n,
+          f"the CLI loaded the 2-shard cache as {type(loader).__name__}")
+    check(launches == {"fused_sae_loss": steps, "fused_sae_loss_indexed": 0},
+          f"streamed launches {launches}, not one sliced launch for each of {steps} steps")
+    check(sum(topk.plain_calls.values()) == 0, f"plain versions ran: {dict(topk.plain_calls)}")
+    check(len(trainer._resample_dataset) == 8 * trainer.resample_batch_size,
+          f"resample set of {len(trainer._resample_dataset)} rows")
+    losses = check_run(trainer.run_dir, "sae_final.npz", steps, "2-shard cache through the CLI")
+    log(f"  {n} rows in 2 shards streamed batch by batch: {steps} steps in {train_s:.1f} s "
+        f"({n / train_s:,.0f} act/s end to end), launches {launches}, resample set "
+        f"{len(trainer._resample_dataset)} rows")
+    shutil.rmtree(work / "ocache", ignore_errors=True)
+    return {"launches": launches, "steps": steps, "train_s": train_s, "losses": losses}
+
+
+def wide_coder_path(work: Path, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_topk,
+                    topk) -> dict:
+    """Phase 18: the crosscoder at S=6144 and the transcoder above
+    ``--max-resident-gb``, through the launcher, on synthetic caches."""
+    cfg = cfg_mod.ExperimentConfig()
+    wcache, wout = work / "wcache", work / "wout"
+    cache = cache_mod.FeatureCache(wcache / "features", cfg.whisper, cfg.data)
+    n, b, epochs = 8 * CODER_B, CODER_B, 2
+    gen = torch.Generator(device=dev).manual_seed(91)
+    mix = torch.randn(RANK, D, generator=gen, device=dev) / RANK ** 0.5
+    x0 = gaussian_rows(n, gen, mix)
+    x1 = 0.8 * x0 + 0.2 * gaussian_rows(n, gen, mix)
+    for layer, rows in ((0, x0), (1, x1)):
+        w = cache.writer("encoder", layer)
+        w.append(rows.cpu().numpy())
+        w.finalize(num_samples=n // 1500)
+    wt = torch.randn(D, D, generator=gen, device=dev) / D ** 0.5
+    for comp, rows in (("encoder_mlp_in", x0), ("encoder_mlp_out", torch.tanh(x0 @ wt))):
+        w = cache.writer(comp, 0, shard_tokens=n // 2)
+        for half in rows.split(n // 2):
+            w.append(half.cpu().numpy())
+        w.finalize(num_samples=n // 1500)
+    for e in CC.ENTRIES:
+        e.launches = 0
+    CC.mode_launches.clear()
+    CC.plain_calls.clear()
+    cuda_topk.topk_mask_fwd.launches = cuda_topk.topk_mask_fwd.wide_launches = 0
+    topk.plain_calls.clear()
+    common = ["--batch-size", str(b), "--cache-dir", str(wcache), "--output-dir", str(wout)]
+    res = {"losses": {}, "job_s": {}}
+    s_wide = 16 * D
+    # the ReLU crosscoder's loss rises after its first update in the JAX
+    # package as in the port (the decoder starts at norm 0.1 a feature and
+    # is renormalised to 1), and at 1e-2 overshoots to ~93 and ends 16
+    # steps above its first; so it runs 4 epochs at 1e-3 and compares means
+    # of 3 steps (both trajectories: tests/test_torch_port_crosscoder_wide.py
+    # run as a script)
+    for name, extra, eps in (("topk_crosscoder_s6144", ["--learning-rate", "1e-2"], epochs),
+                             ("relu_crosscoder_s6144", ["--relu", "--learning-rate", "1e-3"], 4)):
+        t0 = time.perf_counter()
+        out = launch_mod.main(["train-crosscoder", "--layers", "0,1", "--expansion-factor", "16",
+                               "--experiment-name", name, "--epochs", str(eps), *extra, *common])
+        torch.cuda.synchronize()
+        res["job_s"][name] = time.perf_counter() - t0
+        with np.load(Path(out["run_dir"]) / "crosscoder_final.npz") as z:
+            check(z["w_enc"].shape == (2, D, s_wide), f"{name}: w_enc {z['w_enc'].shape}")
+        res["losses"][name] = check_run(Path(out["run_dir"]), "crosscoder_final.npz",
+                                        eps * (n // b), f"launch train-crosscoder S={s_wide}"
+                                        + (" --relu" if "--relu" in extra else ""))
+    coder = sum(e.launches for e in CC.ENTRIES)
+    res["topk_mask_wide_launches"] = cuda_topk.topk_mask_fwd.wide_launches
+    check(coder == 0, f"the coder kernel launched {coder} times at S={s_wide}")
+    check(res["topk_mask_wide_launches"] >= epochs * (n // b),
+          f"kernel C's wide form launched {res['topk_mask_wide_launches']} times for "
+          f"{epochs * (n // b)} TopK steps")
+    check(sum(CC.plain_calls.values()) == 0 and sum(topk.plain_calls.values()) == 0,
+          f"plain versions ran: {dict(CC.plain_calls)} {dict(topk.plain_calls)}")
+
+    chunks = []
+    cls = launch_mod.TranscoderTrainer
+    real = cls.train_epoch_out_of_core
+
+    def spy(self, reader, *a, **kw):
+        chunks.append(reader.num_rows)
+        return real(self, reader, *a, **kw)
+
+    cls.train_epoch_out_of_core = spy
+    try:
+        t0 = time.perf_counter()
+        out = launch_mod.main(["train-transcoder", "--layer-idx", "0", "--max-resident-gb",
+                               "0.01", "--experiment-name", "ooc", "--learning-rate", "1e-2",
+                               "--epochs", str(epochs), *common])
+        torch.cuda.synchronize()
+        res["job_s"]["skip_transcoder_out_of_core"] = time.perf_counter() - t0
+    finally:
+        del cls.train_epoch_out_of_core
+    windowed = CC.mode_launches[("fused_transcoder_loss_indexed", "skip_transcoder")]
+    check(chunks == [n] * epochs, f"out-of-core epochs over {chunks} rows")
+    check(windowed == epochs * (n // b), f"{windowed} windowed launches for {epochs * (n // b)} "
+                                         "steps")
+    res["losses"]["skip_transcoder_out_of_core"] = check_run(
+        Path(out["run_dir"]), "transcoder_final.npz", epochs * (n // b),
+        "launch train-transcoder above --max-resident-gb")
+    log(f"  crosscoders at S={s_wide}: no coder-kernel launch, kernel C's wide form "
+        f"{res['topk_mask_wide_launches']} times; the transcoder streamed {len(chunks)} chunked "
+        f"epochs through the paired reader, {windowed} windowed launches")
+    shutil.rmtree(wcache, ignore_errors=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1552,7 +1946,9 @@ def main() -> int:
         log(f"  {name:24s} B={ENC_B:5d}: {ms:.4f} ms, plain {plain:.4f}, bound {bound_ms:.4f} "
             f"({by}), library {lib_ms:.4f}")
         kernels.append({
-            "name": name, "route": "cuda", "source": ENC_SOURCE, "replaces": ENC_REPLACES[name],
+            "name": name, "route": "cuda",
+            "source": ATTN_SOURCE if "attention" in name else ENC_SOURCE,
+            "replaces": ENC_REPLACES[name],
             "launches": extraction["launches"][name], "max_abs_err": enc_errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": lib_ms, "batch": ENC_B,
@@ -1611,6 +2007,50 @@ def main() -> int:
         check(kernels[-1]["launches"] > 0, f"{name}: no launch on the whisper-large path")
     kernels[-2]["workspace_bytes_ms"] = ltimes["fused_topk_encode_blocked"]["workspace_bytes_ms"]
     log(f"  whisper-large slice: {json.dumps({'step': ltimes['step'], 'losses': path12['losses'], 'train_s': path12['train_s']})}")
+
+    lg_cli_b = min(LG_CLIPS, train_mod.EXTRACT_BATCH)
+    log(f"phase 14: encoder kernels at whisper-large-v3 width against their plain versions, "
+        f"{lg_cli_b} clips: the batch every launch of phase 15's CLI run takes")
+    lv3 = W.arch_for(LV3)
+    one_layer = W.WhisperArch(lv3.d_model, 1, 1, lv3.num_heads, lv3.ffn_dim, n_mels=lv3.n_mels,
+                              vocab_size=lv3.vocab_size)
+    lg_errs, lg_inp = encoder_kernel_phase(dev, W, E, CE, one_layer, lg_cli_b)
+    log("phase 15: whisper-large-v3 extraction through the CLI, then every layer against the "
+        "composed route")
+    path15 = large_extraction_path(work, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E, CE)
+    log("phase 16: times at whisper-large-v3 (library_ms as in phase 7)")
+    lg_batch = large_batch_times(dev, W, path15.pop("params"))
+    lg_res = encoder_kernel_times(lg_inp, E, CE)
+    del lg_inp
+    for name in ENC_WRAPPERS:
+        ms, plain, bound_ms, by, lib_ms = lg_res[name]
+        log(f"  {name:24s} B={lg_cli_b:5d} (large-v3): {ms:.4f} ms, plain {plain:.4f}, bound "
+            f"{bound_ms:.4f} ({by}), library {lib_ms:.4f}")
+    for entry in kernels:
+        name = entry["name"]
+        if name in ENC_WRAPPERS and name not in WIDE_FORMS.values():
+            ms, plain, bound_ms, by, lib_ms = lg_res[name]
+            entry["at_whisper_large_v3"] = {
+                "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
+                "library_ms": lib_ms, "batch": lg_cli_b, "launches": path15["launches"][name],
+                "max_abs_err": lg_errs[name]}
+    for wide, name in WIDE_FORMS.items():
+        ms, plain, bound_ms, by, lib_ms = lg_res[name]
+        kernels.append({
+            "name": wide, "route": "cuda", "source": ENC_SOURCE, "replaces": ENC_REPLACES[name],
+            "launches": path15["launches"][wide], "max_abs_err": lg_errs[name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "batch": lg_cli_b,
+        })
+        check(kernels[-1]["launches"] > 0, f"{wide}: no launch on the whisper-large-v3 path")
+    log(f"  whisper-large-v3 extraction: {json.dumps({**lg_batch, 'cli_clips_per_s': path15['cli_clips_per_s'], 'cli_s': path15['extract_s']})}")
+
+    log("phase 17: a 2-shard cache trained through the CLI, out of core")
+    ooc = out_of_core_path(work, dev, train_mod, cfg_mod, cache_mod, cuda_sae, topk)
+    log("phase 18: train-crosscoder at S=6144 and train-transcoder above --max-resident-gb "
+        "through the launcher")
+    wide18 = wide_coder_path(work, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_topk, topk)
+    log(f"  out of core and wide coders: {json.dumps({'ooc': ooc, 'wide': wide18})}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -9,8 +9,12 @@ void-2 (numpy has no bf16), so the metadata's dtype decides how its bytes
 are read; here bf16 rows become a ``torch.bfloat16`` tensor without any
 third-party dtype package.
 
-A cache loads into memory whole, multi-shard caches included (there is
-no out-of-core reader yet).
+A single-shard cache loads into memory whole; a cache of more than one
+shard streams from disk (``get_dataloader(out_of_core=None)``: a
+:class:`~.shard_reader.PrefetchLoader`, batch by batch, or chunked epochs
+from its reader when the trainer is asked for them), and ``load_rows``
+gives row access over its shards without reading them whole (the
+launcher's coder jobs).
 
 ``extract_and_cache_features`` runs Whisper over an audio loader on one
 device and streams the requested layers into such caches; the mesh
@@ -31,6 +35,7 @@ import torch
 from ..config import DataConfig, WhisperConfig
 from ..models.whisper import WhisperArch, cast_params, extract_activations, params_to
 from .loader import ActivationLoader
+from .shard_reader import PrefetchLoader, ShardReader
 
 DEFAULT_SHARD_TOKENS = 1 << 21
 
@@ -166,6 +171,48 @@ class CacheWriter:
         return meta
 
 
+class _LazyShardRows:
+    """Row access over several ``.npy`` shards (a memmap each), never
+    concatenated: a gather reads only the shards that hold its rows
+    (``feature_cache.py:167-230`` of the JAX package).  Rows come back as
+    a CPU tensor of the cache's dtype."""
+
+    def __init__(self, paths: list[Path], dtype: str | None = None):
+        self._reader = ShardReader(paths, dtype)
+        self.dtype_name = self._reader.dtype_name
+        self.shape = (self._reader.num_rows, self._reader.dim)
+
+    @property
+    def nbytes(self) -> int:
+        return self._reader.num_rows * self._reader.row_bytes
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, idx) -> torch.Tensor:
+        n = self.shape[0]
+        if isinstance(idx, slice):
+            idx = np.arange(*idx.indices(n))
+        if isinstance(idx, torch.Tensor):
+            idx = idx.numpy()
+        scalar = isinstance(idx, (int, np.integer))
+        idx = np.atleast_1d(np.asarray(idx))
+        if idx.dtype == bool:
+            idx = np.nonzero(idx)[0]
+        idx = np.where(idx < 0, idx + n, idx)
+        if idx.size and (idx.min() < 0 or idx.max() >= n):
+            raise IndexError(f"row indices out of range for {n} rows")
+        rows = self._reader.gather(idx)
+        return rows[0] if scalar else rows
+
+    def mean0(self, chunk_rows: int = 1 << 20) -> torch.Tensor:
+        """Mean over the rows, one chunk at a time, summed in f64."""
+        total = torch.zeros(self.shape[1], dtype=torch.float64)
+        for lo in range(0, self.shape[0], chunk_rows):
+            total += self[lo:min(lo + chunk_rows, self.shape[0])].double().sum(dim=0)
+        return (total / self.shape[0]).float()
+
+
 class FeatureCache:
     """Per-layer activation cache."""
 
@@ -205,11 +252,33 @@ class FeatureCache:
         parts = [_view_stored_dtype(np.load(self.cache_dir / s), meta.dtype) for s in meta.shards or []]
         return (parts[0] if len(parts) == 1 else torch.cat(parts)), meta
 
+    def load_rows(self, component: str, layer_idx: int
+                  ) -> tuple[torch.Tensor | _LazyShardRows, CacheMetadata]:
+        """Like :meth:`load`, but a multi-shard cache is never read whole:
+        it comes back as :class:`_LazyShardRows` (``:286-301`` of the JAX
+        package; there a single shard is a memmap, here it loads)."""
+        meta = self.load_metadata(component, layer_idx)
+        shards = meta.shards or []
+        if len(shards) == 1:
+            return self.load(component, layer_idx)[0], meta
+        return _LazyShardRows([self.cache_dir / s for s in shards], meta.dtype), meta
+
     def writer(self, component: str, layer_idx: int, **kw) -> CacheWriter:
         return CacheWriter(self, component, layer_idx, **kw)
 
     def get_dataloader(self, component: str, layer_idx: int, batch_size: int,
-                       shuffle: bool = True, seed: int = 0) -> ActivationLoader:
+                       shuffle: bool = True, seed: int = 0, out_of_core: bool | None = None):
+        """Batch loader over a cached layer.  ``out_of_core=None`` streams a
+        cache of more than one shard from disk (a :class:`PrefetchLoader`
+        over a :class:`ShardReader`; the trainer then runs chunked epochs)
+        and loads a single-shard cache whole (``:313-336`` of the JAX
+        package)."""
+        meta = self.load_metadata(component, layer_idx)
+        if out_of_core is None:
+            out_of_core = len(meta.shards or []) > 1
+        if out_of_core:
+            reader = ShardReader([self.cache_dir / s for s in meta.shards], dtype=meta.dtype)
+            return PrefetchLoader(reader, batch_size=batch_size, shuffle=shuffle, seed=seed)
         features, _ = self.load(component, layer_idx)
         return ActivationLoader(features, batch_size=batch_size, shuffle=shuffle, seed=seed)
 

@@ -10,8 +10,11 @@ JAX launcher's flags, defaults, run directories and output files::
 Every job runs on the card unless ``--device cpu`` is given (then the
 kernels' plain versions run).  Only ``--dataset synthetic`` is ported.
 Training jobs resume from the newest ``checkpoint_epoch*.npz`` of their
-run directory unless ``--no-resume``, and load their caches whole: a
-cache larger than ``--max-resident-gb`` raises.
+run directory unless ``--no-resume``.  They load their caches whole up to
+``--max-resident-gb``; above it they stream from the shards, as the JAX
+launcher's do (``launcher/launch.py:420-485``, ``:572-627``): the
+transcoder as chunked epochs through a paired reader, the crosscoder
+batch by batch through a multi-layer loader.
 """
 
 from __future__ import annotations
@@ -24,12 +27,13 @@ import time
 from datetime import datetime
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .config import DataConfig, TrainingConfig, WhisperConfig
 from .data.feature_cache import FeatureCache, extract_and_cache_features
 from .data.librispeech import AudioBatchLoader, LibriSpeechFeaturesOnly, SyntheticSpeechDataset
-from .data.loader import ActivationLoader, PairedActivationLoader
+from .data.loader import ActivationLoader, MultiLayerLoader, PairedActivationLoader
 from .models.crosscoder import create_crosscoder
 from .models.transcoder import create_transcoder
 from .models.whisper import arch_for, init_whisper, load_pretrained
@@ -84,7 +88,7 @@ def extract_features(
     whisper_cfg = WhisperConfig(model_name=model_name)
     data_cfg = DataConfig(dataset_name=dataset, max_samples=max_samples, cache_dir=Path(cache_dir))
     arch = arch_for(model_name)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)  # weights made where they run
     if random_whisper:
         params = init_whisper(gen, arch)
     else:
@@ -136,18 +140,22 @@ def extract_features(
     return log
 
 
-def _load_whole(cache: FeatureCache, component: str, layer_idx: int, max_resident_bytes: int,
-                used: int) -> tuple[torch.Tensor, object]:
-    """One cache as a CPU tensor, refusing to exceed ``max_resident_bytes``
-    with what is already loaded (``used`` bytes)."""
-    meta = cache.load_metadata(component, layer_idx)
-    nbytes = meta.num_tokens * meta.hidden_dim * (2 if meta.dtype == "bfloat16" else 4)
-    if used + nbytes > max_resident_bytes:
-        raise ValueError(
-            f"the caches need {(used + nbytes) / 2**30:.2f} GB resident, above --max-resident-gb "
-            f"{max_resident_bytes / 2**30:.2f}: the port loads caches whole (out-of-core "
-            "training is not ported yet)")
-    return cache.load(component, layer_idx)
+def _stored_bytes(meta) -> int:
+    """A cached layer's bytes as stored (the resident budget counts these)."""
+    return meta.num_tokens * meta.hidden_dim * (2 if meta.dtype == "bfloat16" else 4)
+
+
+class _PairReader:
+    """(mlp_in, mlp_out) rows gathered together from two lazy sources; row
+    bytes count both, in f32 (the JAX launcher's budget)."""
+
+    def __init__(self, x, y, hidden_dim: int):
+        self.x, self.y = x, y
+        self.num_rows = int(x.shape[0])
+        self.row_bytes = 2 * hidden_dim * 4
+
+    def gather(self, idx):
+        return self.x[idx], self.y[idx]
 
 
 def _run(trainer, loader, epochs: int, checkpoint_every: int | None, run_dir: Path,
@@ -197,9 +205,11 @@ def train_transcoder(
         if not cache.has_cache(f"{component}_{kind}", layer_idx):
             raise FileNotFoundError(f"no cached {component}_{kind} for layer {layer_idx}; "
                                     "run extract with --capture-mlp first")
-    x, meta = _load_whole(cache, f"{component}_mlp_in", layer_idx, max_resident_bytes, 0)
-    y, _ = _load_whole(cache, f"{component}_mlp_out", layer_idx, max_resident_bytes,
-                       x.numel() * x.element_size())
+    kinds = (f"{component}_mlp_in", f"{component}_mlp_out")
+    stored = sum(_stored_bytes(cache.load_metadata(c, layer_idx)) for c in kinds)
+    resident = stored <= max_resident_bytes
+    load = cache.load if resident else cache.load_rows
+    (x, meta), (y, _) = (load(c, layer_idx) for c in kinds)
     train_cfg = TrainingConfig(batch_size=batch_size, learning_rate=learning_rate, epochs=epochs,
                               warmup_steps=warmup_steps, use_amp=use_amp, seed=seed,
                               matmul_precision=matmul_precision)
@@ -207,12 +217,23 @@ def train_transcoder(
     model = create_transcoder(meta.hidden_dim, meta.hidden_dim, hidden_dim, k=k,
                               use_skip=use_skip, seed=seed, device=dev)
     if use_skip:
-        model.set_output_bias(y.float().mean(dim=0))
+        # a multi-shard cache's mean in chunks; a single shard's at once
+        model.set_output_bias(y.mean0() if hasattr(y, "mean0") else y.float().mean(dim=0))
     run_dir = Path(output_dir) / f"{experiment_name}_{component}_transcoder_layer{layer_idx}"
     run_dir.mkdir(parents=True, exist_ok=True)
     trainer = TranscoderTrainer(model, train_cfg, run_dir=run_dir)
     loader = PairedActivationLoader(x, y, batch_size=batch_size, seed=seed)
-    trainer.set_resample_dataset(loader.data)
+    if resident:
+        trainer.set_resample_dataset(loader.data)
+    else:
+        # out of core: chunked epochs gathered from the lazy sources, half
+        # the SAE's chunk (x and y are staged); resampling from a sorted
+        # subsample of 8 resample batches
+        loader.reader = _PairReader(x, y, meta.hidden_dim)
+        loader.chunk_tokens = max(batch_size, (3 << 30) // loader.reader.row_bytes)
+        idx = np.sort(np.random.default_rng(seed).permutation(x.shape[0])[
+            :8 * trainer.resample_batch_size])
+        trainer.set_resample_dataset((x[idx], y[idx]))
     resumed_from = _run(trainer, loader, epochs, checkpoint_every, run_dir, auto_resume)
     save_pytree(run_dir / "transcoder_final.npz", trainer.model.params)
     trainer.save_metrics()
@@ -267,14 +288,12 @@ def train_crosscoder(
     layer_list = _parse_layers(layers)
     whisper_cfg = WhisperConfig(model_name=model_name)
     cache = FeatureCache(Path(cache_dir) / "features", whisper_cfg, DataConfig())
-    feats, meta, used = [], None, 0
     for layer in layer_list:
         if not cache.has_cache(component, layer):
             raise FileNotFoundError(
                 f"no cached features for {component} layer {layer}; run extract first")
-        f, meta = _load_whole(cache, component, layer, max_resident_bytes, used)
-        used += f.numel() * f.element_size()
-        feats.append(f)
+    metas = [cache.load_metadata(component, layer) for layer in layer_list]
+    meta = metas[-1]
     train_cfg = TrainingConfig(batch_size=batch_size, learning_rate=learning_rate, epochs=epochs,
                               warmup_steps=warmup_steps, use_amp=use_amp, seed=seed,
                               matmul_precision=matmul_precision)
@@ -285,15 +304,22 @@ def train_crosscoder(
         f"{experiment_name}_{component}_crosscoder_l{'-'.join(map(str, layer_list))}")
     run_dir.mkdir(parents=True, exist_ok=True)
     trainer = CrosscoderTrainer(model, train_cfg, run_dir=run_dir)
-    loader = ActivationLoader(torch.stack(feats, dim=1), batch_size=batch_size, seed=seed)
-    del feats
+    if sum(_stored_bytes(m) for m in metas) <= max_resident_bytes:
+        stacked = torch.stack([cache.load(component, layer)[0] for layer in layer_list], dim=1)
+        loader = ActivationLoader(stacked, batch_size=batch_size, seed=seed)
+    else:
+        # out of core: batch by batch through the multi-layer loader.  The
+        # JAX launcher also hangs a stacked reader on it, which its
+        # ``train()`` never reads (the loader has no ``.data``)
+        feats = [cache.load_rows(component, layer)[0] for layer in layer_list]
+        loader = MultiLayerLoader(feats, batch_size=batch_size, seed=seed)
     resumed_from = _run(trainer, loader, epochs, checkpoint_every, run_dir, auto_resume)
     save_pytree(run_dir / "crosscoder_final.npz", trainer.model.params)
     trainer.save_metrics()
     result = {
         "component": component,
         "layers": layer_list,
-        "num_tokens": int(loader.num_tokens),
+        "num_tokens": metas[0].num_tokens,
         "final_loss": trainer.metrics_history[-1].loss if trainer.metrics_history else None,
         "elapsed_s": round(time.time() - t0, 1),
         "run_dir": str(run_dir),
@@ -328,7 +354,8 @@ def _train_flags(sp: argparse.ArgumentParser) -> None:
                     help="kept for the JAX launcher's schema; the port's f32 products are "
                          "true f32 whatever it says")
     sp.add_argument("--max-resident-gb", type=float, default=8.0,
-                    help="load the caches whole up to this many GB; larger caches raise")
+                    help="load the caches whole up to this many GB; above it, stream them "
+                         "from the shards")
     sp.add_argument("--device", default=None, help="cuda (default) or cpu")
 
 

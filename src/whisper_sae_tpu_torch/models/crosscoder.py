@@ -11,7 +11,10 @@ plus, in the ReLU variant, the decoder-norm-weighted L1.
 Dispatch: a bf16 ``crosscoder_loss`` is the coder kernel on the
 flattened ``[B, L*D]`` view -- TopK through ``fused_transcoder_loss``
 with ``y = x``, ReLU through ``fused_relu_crosscoder_loss`` with the
-flat decoder norms as a differentiable input; f32 is the composed path.
+flat decoder norms as a differentiable input -- where the kernel holds
+the geometry (``coder_supported``, S <= 3072); wider ones and f32 are
+the composed path (f32 products of bf16 operands, kernel C for the
+mask, its wide form above 3072).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.cuda_coder import fused_relu_crosscoder_loss, fused_transcoder_loss
+from ..ops.cuda_coder import coder_supported, fused_relu_crosscoder_loss, fused_transcoder_loss
 from ..ops.topk import topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
@@ -126,9 +129,12 @@ def crosscoder_loss(params, acts: torch.Tensor, *, k: int | None = None,
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training loss -> (loss, {reconstruction_loss, sparsity_loss, l0,
     active}).  bf16 runs the coder kernel on the flattened view, where the
-    sum of per-layer means is L x the flat mean."""
-    if compute_dtype == torch.bfloat16:
-        n_layers = acts.shape[0]
+    sum of per-layer means is L x the flat mean, where the kernel holds
+    the geometry; a wider one (S > 3072) is ``crosscoder_apply``, as the
+    JAX package composes it beyond ``fused_coder_supported``."""
+    n_layers, _, d_model = acts.shape
+    width = n_layers * d_model
+    if compute_dtype == torch.bfloat16 and coder_supported(width, width, params["b_enc"].shape[0]):
         x = _rows_of(acts)
         w_enc, w_dec, b_dec = _flat(params)
         if k is not None:

@@ -12,10 +12,12 @@ learned positions, causal self-attention and cross-attention.
 
 Routes, as in the JAX package:
 
-- bf16 with ``use_fused`` (the extraction path): the conv stem, the
-  attention block and the MLP block with the final-LN capture go through
-  ``ops/encoder.py``, i.e. the hand-written kernels on the card and their
-  plain versions on the CPU.
+- bf16 with ``use_fused`` (the extraction path), where
+  ``ops.encoder.fused_encoder_supported`` holds (every Whisper from tiny
+  to large-v3; the JAX package's ``_use_fused_encoder`` gate, :86-93):
+  the conv stem, the attention block and the MLP block with the final-LN
+  capture go through ``ops/encoder.py``, i.e. the hand-written kernels on
+  the card and their plain versions on the CPU.
 - everything else is the composed path in torch ops; bf16 non-causal
   self-attention with ``tq == tk >= 256`` sends its core to the same
   attention kernel, where JAX calls the library flash attention.  The
@@ -112,41 +114,49 @@ def _sinusoids(length: int, channels: int) -> np.ndarray:
 
 def init_whisper(generator: torch.Generator, arch: WhisperArch) -> dict:
     """Random parameters (normal * 0.02 weights, zero biases, unit LN
-    gains) on the CPU, in the tree of the JAX ``init_whisper``."""
+    gains) on the generator's device, in the tree of the JAX
+    ``init_whisper``.  A CUDA generator makes whisper-large's 1.55 B
+    parameters on the card; its draws differ from a CPU generator's."""
     d, f = arch.d_model, arch.ffn_dim
+    dev = generator.device
 
     def randn(*shape):
-        return torch.randn(*shape, generator=generator) * 0.02
+        return torch.randn(*shape, generator=generator, device=dev) * 0.02
+
+    def zeros(n):
+        return torch.zeros(n, device=dev)
+
+    def ones(n):
+        return torch.ones(n, device=dev)
 
     def attn_p():
-        return {"wq": randn(d, d), "bq": torch.zeros(d), "wk": randn(d, d),
-                "wv": randn(d, d), "bv": torch.zeros(d), "wo": randn(d, d), "bo": torch.zeros(d)}
+        return {"wq": randn(d, d), "bq": zeros(d), "wk": randn(d, d),
+                "wv": randn(d, d), "bv": zeros(d), "wo": randn(d, d), "bo": zeros(d)}
 
     def enc_layer():
         return {
-            "attn": attn_p(), "ln1_g": torch.ones(d), "ln1_b": torch.zeros(d),
-            "mlp": {"w1": randn(d, f), "b1": torch.zeros(f), "w2": randn(f, d),
-                    "b2": torch.zeros(d)},
-            "ln2_g": torch.ones(d), "ln2_b": torch.zeros(d),
+            "attn": attn_p(), "ln1_g": ones(d), "ln1_b": zeros(d),
+            "mlp": {"w1": randn(d, f), "b1": zeros(f), "w2": randn(f, d), "b2": zeros(d)},
+            "ln2_g": ones(d), "ln2_b": zeros(d),
         }
 
     def dec_layer():
         lp = enc_layer()
-        lp.update(xattn=attn_p(), ln_x_g=torch.ones(d), ln_x_b=torch.zeros(d))
+        lp.update(xattn=attn_p(), ln_x_g=ones(d), ln_x_b=zeros(d))
         return lp
 
     return {
         "encoder": {
-            "conv1_w": randn(d, arch.n_mels, 3), "conv1_b": torch.zeros(d),
-            "conv2_w": randn(d, d, 3), "conv2_b": torch.zeros(d),
-            "pos": torch.from_numpy(_sinusoids(arch.max_source_positions, d)),
+            "conv1_w": randn(d, arch.n_mels, 3), "conv1_b": zeros(d),
+            "conv2_w": randn(d, d, 3), "conv2_b": zeros(d),
+            "pos": torch.from_numpy(_sinusoids(arch.max_source_positions, d)).to(dev),
             "layers": _stack([enc_layer() for _ in range(arch.encoder_layers)]),
-            "ln_f_g": torch.ones(d), "ln_f_b": torch.zeros(d),
+            "ln_f_g": ones(d), "ln_f_b": zeros(d),
         },
         "decoder": {
             "tok": randn(arch.vocab_size, d), "pos": randn(arch.max_target_positions, d),
             "layers": _stack([dec_layer() for _ in range(arch.decoder_layers)]),
-            "ln_f_g": torch.ones(d), "ln_f_b": torch.zeros(d),
+            "ln_f_g": ones(d), "ln_f_b": zeros(d),
         },
     }
 
@@ -379,9 +389,12 @@ def encoder_forward(params: dict, mel: torch.Tensor, arch: WhisperArch, with_mlp
     outputs ``[L, B, T, D]`` -- raw, or final-LN'd at ``capture_dtype``
     when ``capture_final_ln`` [, (mlp_ins, mlp_outs) when ``with_mlp``]),
     as the JAX ``encoder_forward``.  bf16 mel with ``use_fused`` takes
-    the fused blocks; anything else the composed path."""
+    the fused blocks where their gate holds; anything else the composed
+    path."""
     enc = params["encoder"]
-    if use_fused and mel.dtype == torch.bfloat16:
+    t_out = mel.shape[2] // 2
+    if (use_fused and mel.dtype == torch.bfloat16
+            and encoder_ops.fused_encoder_supported(t_out, arch.d_model, arch.num_heads)):
         x = encoder_ops.conv_stem(mel, enc)
         cap_dt = capture_dtype if capture_dtype is not None else x.dtype
         final_ln = (enc["ln_f_g"].float(), enc["ln_f_b"].float()) if capture_final_ln else None

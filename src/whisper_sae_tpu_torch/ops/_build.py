@@ -20,7 +20,8 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "coder_kernels.cu", "blocked_encode.cu")
+_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "attention_kernel.cu", "coder_kernels.cu",
+            "blocked_encode.cu")
 _HEADERS = ("topk_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # The kernels' compile-time limits, kept here as Python constants because
@@ -62,6 +63,8 @@ _SIGNATURES = {
     ),
     "wst_enc_head_dim": ([], _I),
     "wst_enc_mlp_chunk": ([], _I),
+    "wst_enc_narrow_max": ([], _I),
+    "wst_enc_wide_max": ([], _I),
     "wst_ln_qkv_fwd": (
         [_P, _L, _I, _P, _P, _P, _P, ctypes.c_float,  # x, n, d, g, b, wt, bias, q_scale
          _P, _P, _P, _P],                            # q, k, v, stream
@@ -72,6 +75,11 @@ _SIGNATURES = {
     "wst_mlp_block_fwd": (
         [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P,    # x, n, d, f, g, b, w1t, b1, w2t, b2
          _P, _P, _I, _P, _P, _P, _P, _P],           # fg, fb, cap_mode, out, cap, in, out, stream
+        _I,
+    ),
+    "wst_mlp_block_wide_fwd": (
+        [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P,    # x, n, d, f, g, b, w1t, b1, w2t, b2
+         _P, _P, _I, _P, _P, _P, _P, _P, _P],       # fg, fb, cap_mode, out, cap, xln, hid, mlp_out, stream
         _I,
     ),
     "wst_conv_stem_fwd": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),

@@ -1,48 +1,61 @@
 // Hand-written Hopper kernels of the Whisper-encoder extraction path.
 //
-// conv_stem_kernel     ("conv_stem_fwd")
-//   replaces whisper_sae_tpu/ops/pallas_encoder.py:_conv_stem_kernel
+// conv_stem_kernel<64, 80> ("conv_stem_fwd", D <= 512) and its wide form
+// conv_stem_kernel<32, 33> (512 < D <= 1536)
+//   replace whisper_sae_tpu/ops/pallas_encoder.py:_conv_stem_kernel
 //   (fused_conv_stem, pallas_call at :604).
-// ln_qkv_kernel, attention_kernel, out_proj_kernel   (the attention block)
-//   replace _attention_block_kernel and _attention_block_kernel_tiled
+// ln_qkv_kernel, out_proj_kernel   (the attention block)
+//   with attention_kernel (ops/csrc/attention_kernel.cu) replace
+//   _attention_block_kernel and _attention_block_kernel_tiled
 //   (fused_attention_block, pallas_call at :340) as three launches:
 //   LN1 + the q/k/v product, the attention core, the out-projection with
-//   the residual.  attention_kernel alone also replaces the library flash
-//   attention of models/whisper.py:_flash_self_attention (:141) on the
-//   composed route.
-// mlp_block_kernel     ("mlp_block_fwd")
-//   replaces _mlp_block_kernel (fused_mlp_block, pallas_call at :500), all
+//   the residual.
+// mlp_block_kernel     ("mlp_block_fwd", D <= 512) and the wide form
+//   ln_rows_kernel + gemm_tn_kernel<kGelu> + gemm_tn_kernel<kResidual>
+//   (+ ln_rows_kernel) ("mlp_block_wide_fwd", D = 768 .. 1536)
+//   replace _mlp_block_kernel (fused_mlp_block, pallas_call at :500), all
 //   four output modes.
 //
 // Numerics are the Pallas kernels': bf16 operands with f32 sums
 // (mma.sync.m16n8k16), every bias added in f32 before the single
 // rounding to bf16, LN (eps 1e-5, population variance) and softmax in
-// f32, pad key columns at -1e30, the softmax numerator bf16(p) @ v over
-// the f32 sum of p, exact erff GELU (the TPU kernels' erf polynomial,
-// 3.4e-5, is a Mosaic workaround), the residual add rounded once to
-// bf16, and the final-LN capture taken from the bf16-rounded layer
-// output.  The attention core keeps an online softmax over 64-key tiles
-// (running max, f32 running sum, rescaled f32 accumulators) instead of
-// the TPU kernel's whole [T, T] score row; the two agree to bf16
-// rounding.
+// f32, exact erff GELU (the TPU kernels' erf polynomial, 3.4e-5, is a
+// Mosaic workaround), the residual add rounded once to bf16, and the
+// final-LN capture taken from the bf16-rounded layer output.
 //
 // Bounds on the H100 at whisper-tiny, 64 clips (T=1500, D=384, F=1536;
-// 989 TFLOP/s bf16): all four are bound by operations, not bytes.
+// 989 TFLOP/s bf16): all are bound by operations, not bytes.
 //   attention block  64*(8*T*D^2 + 4*T^2*D) = 334 GFLOP   0.34 ms
 //   MLP block        4*(64*T)*D*F           = 226 GFLOP   0.23 ms
 //   conv stem        2*64*T*D*(3*80+3*D)    = 103 GFLOP   0.10 ms
+// At whisper-large-v3, 8 clips (D=1280, F=5120, 128 mels) a layer's MLP
+// block is 315 GFLOP (0.32 ms) and the stem 130 GFLOP (0.13 ms).
 // What the design does about it: every product runs on the tensor cores
 // from a tile of rows staged once in shared memory; the weights stream
-// from L2 as 32-bit B fragments in the [N, K] layout.  Nothing of the
-// TPU kernels' VMEM residency is lost that matters here: the [T, T]
-// scores, the MLP's [rows, F] hidden and the stem's [T_mel, D] hidden
-// never reach device memory.  Between the three attention launches q, k,
-// v and the attention output make one round trip each (4 * B*T*D bf16).
+// from L2 as 32-bit B fragments in the [N, K] layout.  Up to D = 512 the
+// MLP's [rows, F] hidden and the stem's [T_mel, D] hidden never reach
+// device memory.  Between the three attention launches q, k, v and the
+// attention output make one round trip each (4 * B*T*D bf16).
 //
-// Not yet fast: no wgmma, TMA or persistent grid.  The attention core and
-// the MLP block pipeline their loads (cp.async, two stages, ldmatrix
-// fragments); the other products read their weights as 32-bit B fragments
-// straight from L2 (warp_gemm).
+// The wide forms.  The stem's 64-frame tile needs 2 x 80 rows of h in
+// shared memory (412 KB at D=1280); its wide form takes 32 output frames
+// a CTA and keeps the 33 h rows of each parity conv2 reads (231,008 B at
+// D=1536 and 128 mels, under the 232,448 B a block may have).  The
+// narrow MLP kernel keeps a 64-row tile's whole [64, D] output in
+// registers (D/4 floats a thread, 320 at D=1280 against 255) and both
+// weight chunks in shared memory (539 KB at D=1280).  Its wide form is
+// four launches: LN2 of the rows (which is also the mlp_in capture), the
+// fc1 product with GELU into a [rows, F] bf16 hidden in device memory,
+// the fc2 product with the bias and the residual, and, when asked, the
+// final-LN capture.  The hidden's round trip is 2 x rows x F x 2 bytes
+// (246 MB a layer at 8 large clips, ~0.07 ms at 3.35 TB/s) against 0.32
+// ms of products.  The products are one 128 x 128-tile GEMM
+// (gemm_tn_kernel, 4-stage cp.async ring, ldmatrix fragments, mma.sync).
+//
+// Not yet fast: no wgmma, TMA or persistent grid outside the attention
+// core.  The MLP block pipelines its loads (cp.async, ldmatrix
+// fragments); the other products read their weights as 32-bit B
+// fragments straight from L2 (warp_gemm).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,7 +68,6 @@ typedef unsigned short bf16_t;
 
 constexpr int kWarp = 32;
 constexpr float kLnEps = 1e-5f;
-constexpr float kMaskedScore = -1e30f;
 
 // row-tile GEMM kernels (LN+QKV, out-projection, MLP): 64 rows, 8 warps
 constexpr int kRows = 64;
@@ -63,17 +75,14 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * kWarp;
 constexpr int kColTile = 32;  // columns per warp step: four n8 MMA tiles
 constexpr int kMlpChunk = 32;  // F columns per step of the MLP's hidden loop
+constexpr int kMlpNarrowMax = 512;  // widest D of mlp_block_kernel and the 64-frame stem
+constexpr int kWideMax = 1536;      // widest D of the wide forms
 
-// attention core: 64 queries (4 warps x 16) per CTA, 64-key tiles
+// the attention core's head dim (ops/csrc/attention_kernel.cu)
 constexpr int kHeadDim = 64;
-constexpr int kAttnQ = 64;
-constexpr int kAttnK = 64;
-constexpr int kAttnThreads = 128;
 
-// conv stem: 64 output frames per CTA, h rows t0-1 .. t0+78, mel rows t0-2 .. t0+79
-constexpr int kStemT = 64;
-constexpr int kStemH = 80;
-constexpr int kStemIn = kStemH + 2;
+// the wide MLP's GEMM: 128 x 128 output tiles, 32-deep K steps, 4 stages
+constexpr int kGM = 128, kGN = 128, kGK = 32, kGStages = 4, kGLd = kGK + 8;  // 80-byte rows
 
 __device__ __forceinline__ float bf2f(bf16_t u) { return __uint_as_float((uint32_t)u << 16); }
 __device__ __forceinline__ bf16_t f2bf(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
@@ -234,7 +243,7 @@ __global__ void __launch_bounds__(kThreads) ln_qkv_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// attention block, launch (b): the attention core, softmax(q k^T) v
+// shared helpers of the pipelined kernels
 // ---------------------------------------------------------------------------
 
 // 16-byte global->shared copy that bypasses the registers (zero-filled
@@ -255,159 +264,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16_t* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
 }
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16_t* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// q, k, v, out: [B, t, d] bf16 with head h in columns h*64 .. h*64+63
-// (q already scaled).  One CTA per (64-query tile, head, clip); each warp
-// owns 16 query rows.  Key columns >= t_real are masked (-1e30); query
-// rows t_real .. t-1 are computed like any other row.  K and V tiles of
-// 64 keys stream through two shared-memory stages (cp.async: the next
-// tile loads while this one is used); their MMA B fragments come from
-// ldmatrix (V transposed on the fly), the A fragment of the PV product
-// straight from the score accumulators.
-__global__ void __launch_bounds__(kAttnThreads) attention_kernel(
-    const bf16_t* q, const bf16_t* k, const bf16_t* v, int t, int t_real, int d, bf16_t* out) {
-  constexpr int kStride = kHeadDim + 8;  // 144-byte rows: ldmatrix reads hit 32 banks
-  __shared__ __align__(128) bf16_t ks[2][kAttnK][kStride];
-  __shared__ __align__(128) bf16_t vs[2][kAttnK][kStride];
-  const int tid = threadIdx.x;
-  const int lane = tid & (kWarp - 1), warp = tid / kWarp;
-  const int fr = lane >> 2, fc = (lane & 3) * 2;
-  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix: which 8x8 matrix, which row
-  const size_t base = (size_t)blockIdx.z * t * d + (size_t)blockIdx.y * kHeadDim;
-  const int r0 = blockIdx.x * kAttnQ + warp * 16 + fr, r1 = r0 + 8;
-
-  // keys past t_real are masked to exp(-1e30 - m) = 0 exactly, so tiles
-  // that hold only such keys are skipped; pad keys load as zeros
-  auto load_tile = [&](int stage, int kt) {
-    for (int i = tid; i < kAttnK * (kHeadDim / 8); i += kAttnThreads) {
-      const int key = i / (kHeadDim / 8), c = (i % (kHeadDim / 8)) * 8;
-      const bool ok = kt + key < t_real;
-      const size_t off = base + (size_t)(ok ? kt + key : 0) * d + c;
-      cp_async16(&ks[stage][key][c], k + off, ok);
-      cp_async16(&vs[stage][key][c], v + off, ok);
-    }
-    cp_async_commit();
-  };
-  const int tiles = (t_real + kAttnK - 1) / kAttnK;
-  load_tile(0, 0);
-
-  uint32_t qa[kHeadDim / 16][4];
-#pragma unroll
-  for (int s = 0; s < kHeadDim / 16; ++s) {
-    const int c = s * 16 + fc;
-    qa[s][0] = r0 < t ? ldg32(q + base + (size_t)r0 * d + c) : 0u;
-    qa[s][1] = r1 < t ? ldg32(q + base + (size_t)r1 * d + c) : 0u;
-    qa[s][2] = r0 < t ? ldg32(q + base + (size_t)r0 * d + c + 8) : 0u;
-    qa[s][3] = r1 < t ? ldg32(q + base + (size_t)r1 * d + c + 8) : 0u;
-  }
-  float o[kHeadDim / 8][4];
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-
-  for (int it = 0; it < tiles; ++it) {
-    const int st = it & 1, kt = it * kAttnK;
-    if (it + 1 < tiles) {
-      load_tile(st ^ 1, kt + kAttnK);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S = Q K^T: ldmatrix matrices (keys j, hd lo), (keys j, hd hi),
-    // (keys j+1, hd lo), (keys j+1, hd hi) are the B fragments of tiles j, j+1
-    float s[kAttnK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kAttnK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kAttnK / 8; j += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, &ks[st][(j + (lm >> 1)) * 8 + lr][kk * 16 + (lm & 1) * 8]);
-        mma16816(s[j], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[0], b[1]);
-        mma16816(s[j + 1], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], b[2], b[3]);
-      }
-    }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kAttnK / 8; ++j) {
-      const int key = kt + j * 8 + fc;
-      if (key >= t_real) s[j][0] = s[j][2] = kMaskedScore;
-      if (key + 1 >= t_real) s[j][1] = s[j][3] = kMaskedScore;
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.0f, ps1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kAttnK / 8; ++j) {
-      s[j][0] = expf(s[j][0] - mn0);
-      s[j][1] = expf(s[j][1] - mn0);
-      s[j][2] = expf(s[j][2] - mn1);
-      s[j][3] = expf(s[j][3] - mn1);
-      ps0 += s[j][0] + s[j][1];
-      ps1 += s[j][2] + s[j][3];
-    }
-    // each lane keeps its part of the row sums; the four lanes of a row
-    // share the same rescale factors, so one reduction at the end suffices
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
-#pragma unroll
-    for (int j = 0; j < kHeadDim / 8; ++j) {
-      o[j][0] *= al0;
-      o[j][1] *= al0;
-      o[j][2] *= al1;
-      o[j][3] *= al1;
-    }
-    // o += bf16(p) @ v: the score accumulators of key tiles 2u and 2u+1
-    // are exactly the A fragment of k-step u; ldmatrix.trans matrices
-    // (keys lo, hd j), (keys hi, hd j), (keys lo, hd j+1), (keys hi, hd j+1)
-    // are the B fragments of hd tiles j, j+1
-#pragma unroll
-    for (int u = 0; u < kAttnK / 16; ++u) {
-      const uint32_t a0 = pack2(s[2 * u][0], s[2 * u][1]);
-      const uint32_t a1 = pack2(s[2 * u][2], s[2 * u][3]);
-      const uint32_t a2 = pack2(s[2 * u + 1][0], s[2 * u + 1][1]);
-      const uint32_t a3 = pack2(s[2 * u + 1][2], s[2 * u + 1][3]);
-#pragma unroll
-      for (int j = 0; j < kHeadDim / 8; j += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, &vs[st][u * 16 + (lm & 1) * 8 + lr][(j + (lm >> 1)) * 8]);
-        mma16816(o[j], a0, a1, a2, a3, b[0], b[1]);
-        mma16816(o[j + 1], a0, a1, a2, a3, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // this stage is reloaded by the next iteration's prefetch
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) {
-    const int c = j * 8 + fc;
-    if (r0 < t) st32(out + base + (size_t)r0 * d + c, pack2(o[j][0] / l0, o[j][1] / l0));
-    if (r1 < t) st32(out + base + (size_t)r1 * d + c, pack2(o[j][2] / l1, o[j][3] / l1));
-  }
-}
-
 // ---------------------------------------------------------------------------
 // attention block, launch (c): out = x + bf16(attn @ Wo + bo)
 // ---------------------------------------------------------------------------
@@ -603,29 +459,148 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_block_kernel(
 }
 
 // ---------------------------------------------------------------------------
+// MLP block, wide form: LN rows, then two 128 x 128-tile GEMMs
+// ---------------------------------------------------------------------------
+
+// One warp a row: dst = LN(x row) in f32, stored bf16 (out_bf) or f32.
+__global__ void __launch_bounds__(kThreads) ln_rows_kernel(const bf16_t* x, long long n, int d,
+                                                           const float* g, const float* b,
+                                                           bf16_t* out_bf, float* out_f32) {
+  const int lane = threadIdx.x & (kWarp - 1);
+  const long long r = (long long)blockIdx.x * kWarps + threadIdx.x / kWarp;
+  if (r >= n) return;
+  ln_row(x + r * d, d, g, b, out_bf ? out_bf + r * d : nullptr, out_f32 ? out_f32 + r * d : nullptr,
+         lane);
+}
+
+constexpr int kGelu = 0;      // out = bf16(GELU(acc + bias))
+constexpr int kResidual = 1;  // y = bf16(acc + bias); out = bf16(res + y); aux = y
+
+// C[m, n] = A[m, k] . B[n, k]^T with A and B bf16 and contiguous along k
+// (the [N, K] weight layout), f32 sums, the epilogue EPI.  One CTA a
+// 128 x 128 tile of C, 8 warps as 2 x 4 of 64 x 32; A and B tiles of 32
+// columns stream through a 4-stage cp.async ring, fragments by ldmatrix.
+// Rows of A past m load as zeros and are not stored.  n % 128 == 0,
+// k % 32 == 0.
+template <int EPI>
+__global__ void __launch_bounds__(kThreads) gemm_tn_kernel(const bf16_t* a, const bf16_t* b,
+                                                           long long m, int n, int k,
+                                                           const float* bias, const bf16_t* res,
+                                                           bf16_t* out, bf16_t* aux) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16_t* as = reinterpret_cast<bf16_t*>(smem);  // [stages][128][40]
+  bf16_t* bs = as + kGStages * kGM * kGLd;       // [stages][128][40]
+  const int tid = threadIdx.x;
+  const int lane = tid & (kWarp - 1), warp = tid / kWarp;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int fr = lane >> 2, fc = (lane & 3) * 2;
+  const int lm = lane >> 3, lr = lane & 7;  // ldmatrix: which 8x8 matrix, which row
+  const long long row0 = (long long)blockIdx.y * kGM;
+  const int col0 = blockIdx.x * kGN;
+  const int ksteps = k / kGK;
+
+  auto load = [&](int stage, int k0) {
+    bf16_t* ad = as + stage * kGM * kGLd;
+    bf16_t* bd = bs + stage * kGN * kGLd;
+    for (int i = tid; i < kGM * (kGK / 8); i += kThreads) {
+      const int r = i / (kGK / 8), c = (i % (kGK / 8)) * 8;
+      const long long gr = row0 + r;
+      const bool ok = gr < m;
+      cp_async16(ad + r * kGLd + c, a + (ok ? gr : 0) * k + k0 + c, ok);
+      cp_async16(bd + r * kGLd + c, b + (size_t)(col0 + r) * k + k0 + c, true);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int st = 0; st < kGStages - 1; ++st) {
+    if (st < ksteps) load(st, st * kGK);
+    else cp_async_commit();
+  }
+
+  float acc[4][4][4];
+  zero(acc);
+  for (int ks = 0; ks < ksteps; ++ks) {
+    cp_async_wait<kGStages - 2>();
+    __syncthreads();  // step ks has landed; every warp is done with step ks-1's stage
+    const int nk = ks + kGStages - 1;
+    if (nk < ksteps) load(nk % kGStages, nk * kGK);
+    else cp_async_commit();
+    const bf16_t* at = as + (ks % kGStages) * kGM * kGLd + (wm * 64) * kGLd;
+    const bf16_t* bt = bs + (ks % kGStages) * kGN * kGLd + (wn * 32) * kGLd;
+#pragma unroll
+    for (int kk = 0; kk < kGK; kk += 16) {
+      uint32_t af[4][4], bf[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+        ldsm_x4(af[mi], at + (mi * 16 + (lm & 1) * 8 + lr) * kGLd + kk + (lm >> 1) * 8);
+#pragma unroll
+      for (int t2 = 0; t2 < 2; ++t2)
+        ldsm_x4(bf[t2], bt + (t2 * 16 + (lm >> 1) * 8 + lr) * kGLd + kk + (lm & 1) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          mma16816(acc[mi][t], af[mi][0], af[mi][1], af[mi][2], af[mi][3], bf[t >> 1][(t & 1) * 2],
+                   bf[t >> 1][(t & 1) * 2 + 1]);
+    }
+  }
+
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int col = col0 + wn * 32 + t * 8 + fc;
+    const float bb0 = bias[col], bb1 = bias[col + 1];
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long long gr = row0 + wm * 64 + mi * 16 + fr + hh * 8;
+        if (gr >= m) continue;
+        const float v0 = acc[mi][t][2 * hh] + bb0, v1 = acc[mi][t][2 * hh + 1] + bb1;
+        if (EPI == kGelu) {
+          st32(out + gr * n + col, pack2(gelu(v0), gelu(v1)));
+        } else {
+          const uint32_t yv = pack2(v0, v1);
+          const uint32_t xv = ldg32(res + gr * n + col);
+          st32(out + gr * n + col,
+               pack2(bf2f((bf16_t)(xv & 0xffffu)) + bf2f((bf16_t)(yv & 0xffffu)),
+                     bf2f((bf16_t)(xv >> 16)) + bf2f((bf16_t)(yv >> 16))));
+          if (aux) st32(aux + gr * n + col, yv);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // conv stem: GELU(conv2(GELU(conv1(mel)))) + pos
 // ---------------------------------------------------------------------------
 
 // even/odd: [B, t, n_mels] bf16, the mel's even and odd time columns.
 // w1t: [d, 3*n_mels] (tap j in columns j*n_mels ..), w2t: [d, 3*d].
-// h row r of a CTA is time t0-1+r; rows outside [0, t) are zero, which is
-// conv2's zero padding on h.  conv1's padding is the zero mel rows staged
-// outside [0, t).
+// T_OUT output frames a CTA (t0 ..); conv1 computes T_OUT + 16 h rows of
+// each parity (row r is time t0-1+r) from the T_OUT + 18 mel rows t0-2 ..,
+// and keeps the first H_KEEP of them, of which conv2 reads rows 0 .. T_OUT.
+// h rows outside [0, t) are zero, which is conv2's zero padding on h;
+// conv1's padding is the zero mel rows staged outside [0, t).
+//   <64, 80>: the narrow form (D <= 512); <32, 33>: the wide form.
+template <int T_OUT, int H_KEEP>
 __global__ void __launch_bounds__(kThreads, 1) conv_stem_kernel(
     const bf16_t* even, const bf16_t* odd, int t, int n_mels, int d, const bf16_t* w1t,
     const float* b1, const bf16_t* w2t, const float* b2, const bf16_t* pos, bf16_t* out) {
+  constexpr int kH = T_OUT + 16, kIn = kH + 2;
+  static_assert(H_KEEP > T_OUT && H_KEEP <= kH, "conv2 reads h rows 0 .. T_OUT");
   extern __shared__ __align__(16) unsigned char smem[];
   const int lm = n_mels + 8, lh = d + 8;
   bf16_t* ev = reinterpret_cast<bf16_t*>(smem);
-  bf16_t* od = ev + kStemIn * lm;
-  bf16_t* he = od + kStemIn * lm;
-  bf16_t* ho = he + kStemH * lh;
+  bf16_t* od = ev + kIn * lm;
+  bf16_t* he = od + kIn * lm;
+  bf16_t* ho = he + H_KEEP * lh;
   const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
   const int fr = lane >> 2, fc = (lane & 3) * 2;
-  const int t0 = blockIdx.x * kStemT;
+  const int t0 = blockIdx.x * T_OUT;
   const size_t clip = (size_t)blockIdx.y * t;
 
-  for (int i = threadIdx.x; i < kStemIn * (n_mels / 2); i += kThreads) {
+  for (int i = threadIdx.x; i < kIn * (n_mels / 2); i += kThreads) {
     const int u = i / (n_mels / 2), c = (i - u * (n_mels / 2)) * 2;
     const int tt = t0 - 2 + u;
     uint32_t e = 0u, o = 0u;
@@ -646,22 +621,22 @@ __global__ void __launch_bounds__(kThreads, 1) conv_stem_kernel(
     const bf16_t* w = w1t + (size_t)n0 * ld1;
 #pragma unroll 1
     for (int par = 0; par < 2; ++par) {
-      float acc[kStemH / 16][4][4];
+      float acc[kH / 16][4][4];
       zero(acc);
-      warp_gemm<kStemH / 16, 4>(acc, par ? ev + lm : od, lm, w, ld1, k1, lane);
-      warp_gemm<kStemH / 16, 4>(acc, par ? od + lm : ev + lm, lm, w + n_mels, ld1, k1, lane);
-      warp_gemm<kStemH / 16, 4>(acc, par ? ev + 2 * lm : od + lm, lm, w + 2 * n_mels, ld1, k1,
-                                lane);
+      warp_gemm<kH / 16, 4>(acc, par ? ev + lm : od, lm, w, ld1, k1, lane);
+      warp_gemm<kH / 16, 4>(acc, par ? od + lm : ev + lm, lm, w + n_mels, ld1, k1, lane);
+      warp_gemm<kH / 16, 4>(acc, par ? ev + 2 * lm : od + lm, lm, w + 2 * n_mels, ld1, k1, lane);
       bf16_t* dst = par ? ho : he;
 #pragma unroll
       for (int tl = 0; tl < 4; ++tl) {
         const int col = n0 + tl * 8 + fc;
         const float bb0 = b1[col], bb1 = b1[col + 1];
 #pragma unroll
-        for (int m = 0; m < kStemH / 16; ++m) {
+        for (int m = 0; m < kH / 16; ++m) {
 #pragma unroll
           for (int hh = 0; hh < 2; ++hh) {
             const int r = m * 16 + fr + hh * 8;
+            if (r >= H_KEEP) continue;
             const int tau = t0 - 1 + r;
             const uint32_t val = (tau >= 0 && tau < t)
                                      ? pack2(gelu(acc[m][tl][2 * hh] + bb0),
@@ -680,17 +655,17 @@ __global__ void __launch_bounds__(kThreads, 1) conv_stem_kernel(
   const int k2 = d / 16, ld2 = 3 * d;
   for (int n0 = warp * kColTile; n0 < d; n0 += kWarps * kColTile) {
     const bf16_t* w = w2t + (size_t)n0 * ld2;
-    float acc[kStemT / 16][4][4];
+    float acc[T_OUT / 16][4][4];
     zero(acc);
-    warp_gemm<kStemT / 16, 4>(acc, ho, lh, w, ld2, k2, lane);
-    warp_gemm<kStemT / 16, 4>(acc, he + lh, lh, w + d, ld2, k2, lane);
-    warp_gemm<kStemT / 16, 4>(acc, ho + lh, lh, w + 2 * d, ld2, k2, lane);
+    warp_gemm<T_OUT / 16, 4>(acc, ho, lh, w, ld2, k2, lane);
+    warp_gemm<T_OUT / 16, 4>(acc, he + lh, lh, w + d, ld2, k2, lane);
+    warp_gemm<T_OUT / 16, 4>(acc, ho + lh, lh, w + 2 * d, ld2, k2, lane);
 #pragma unroll
     for (int tl = 0; tl < 4; ++tl) {
       const int col = n0 + tl * 8 + fc;
       const float bb0 = b2[col], bb1 = b2[col + 1];
 #pragma unroll
-      for (int m = 0; m < kStemT / 16; ++m) {
+      for (int m = 0; m < T_OUT / 16; ++m) {
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int tt = t0 + m * 16 + fr + hh * 8;
@@ -712,8 +687,10 @@ size_t mlp_smem(int d) {
          (size_t)2 * kMlpChunk * (d + 8) * sizeof(bf16_t) +
          (size_t)2 * d * (kMlpChunk + 8) * sizeof(bf16_t);
 }
+constexpr size_t kGemmTnSmem = (size_t)kGStages * (kGM + kGN) * kGLd * sizeof(bf16_t);
+template <int T_OUT, int H_KEEP>
 size_t stem_smem(int n_mels, int d) {
-  return ((size_t)2 * kStemIn * (n_mels + 8) + (size_t)2 * kStemH * (d + 8)) * sizeof(bf16_t);
+  return ((size_t)2 * (T_OUT + 18) * (n_mels + 8) + (size_t)2 * H_KEEP * (d + 8)) * sizeof(bf16_t);
 }
 
 template <typename K>
@@ -735,6 +712,36 @@ int launch_mlp(const bf16_t* x, long long n, int d, int f, const float* g, const
   return (int)cudaGetLastError();
 }
 
+template <int EPI>
+int launch_gemm_tn(const bf16_t* a, const bf16_t* b, long long m, int n, int k, const float* bias,
+                   const bf16_t* res, bf16_t* out, bf16_t* aux, cudaStream_t s) {
+  int err = set_smem(gemm_tn_kernel<EPI>, kGemmTnSmem);
+  if (err) return err;
+  const dim3 grid(n / kGN, (unsigned)((m + kGM - 1) / kGM));
+  gemm_tn_kernel<EPI><<<grid, kThreads, kGemmTnSmem, s>>>(a, b, m, n, k, bias, res, out, aux);
+  return (int)cudaGetLastError();
+}
+
+int launch_ln_rows(const bf16_t* x, long long n, int d, const float* g, const float* b,
+                   bf16_t* out_bf, float* out_f32, cudaStream_t s) {
+  const unsigned blocks = (unsigned)((n + kWarps - 1) / kWarps);
+  ln_rows_kernel<<<blocks, kThreads, 0, s>>>(x, n, d, g, b, out_bf, out_f32);
+  return (int)cudaGetLastError();
+}
+
+template <int T_OUT, int H_KEEP>
+int launch_stem(const bf16_t* even, const bf16_t* odd, int b, int t, int n_mels, int d,
+                const bf16_t* w1t, const float* b1, const bf16_t* w2t, const float* b2,
+                const bf16_t* pos, bf16_t* out, cudaStream_t s) {
+  const size_t smem = stem_smem<T_OUT, H_KEEP>(n_mels, d);
+  int err = set_smem(conv_stem_kernel<T_OUT, H_KEEP>, smem);
+  if (err) return err;
+  const dim3 grid((t + T_OUT - 1) / T_OUT, b);
+  conv_stem_kernel<T_OUT, H_KEEP><<<grid, kThreads, smem, s>>>(even, odd, t, n_mels, d, w1t, b1,
+                                                               w2t, b2, pos, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace wst_enc
 
 extern "C" {
@@ -742,6 +749,8 @@ extern "C" {
 // Geometry the kernels take (checked again in Python before each launch).
 int wst_enc_head_dim() { return wst_enc::kHeadDim; }
 int wst_enc_mlp_chunk() { return wst_enc::kMlpChunk; }
+int wst_enc_narrow_max() { return wst_enc::kMlpNarrowMax; }
+int wst_enc_wide_max() { return wst_enc::kWideMax; }
 
 int wst_ln_qkv_fwd(const void* x, long long n, int d, const void* g, const void* bln,
                    const void* wt, const void* bias, float q_scale, void* q, void* k, void* v,
@@ -757,17 +766,6 @@ int wst_ln_qkv_fwd(const void* x, long long n, int d, const void* g, const void*
       static_cast<const float*>(bln), static_cast<const bf16_t*>(wt),
       static_cast<const float*>(bias), q_scale, static_cast<bf16_t*>(q),
       static_cast<bf16_t*>(k), static_cast<bf16_t*>(v));
-  return (int)cudaGetLastError();
-}
-
-int wst_attention_fwd(const void* q, const void* k, const void* v, int b, int t, int t_real,
-                      int d, int n_heads, void* out, void* stream) {
-  using namespace wst_enc;
-  if (b <= 0 || t <= 0) return 0;
-  const dim3 grid((t + kAttnQ - 1) / kAttnQ, n_heads, b);
-  attention_kernel<<<grid, kAttnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16_t*>(q), static_cast<const bf16_t*>(k),
-      static_cast<const bf16_t*>(v), t, t_real, d, static_cast<bf16_t*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -809,21 +807,54 @@ int wst_mlp_block_fwd(const void* x, long long n, int d, int f, const void* g, c
   }
 }
 
+// The wide MLP block (D a multiple of 128 up to 1536, F a multiple of
+// 128).  xln: [n, d] bf16, LN2(x) (the mlp_in capture when asked);
+// hid: [n, f] bf16 scratch; mlp_out: [n, d] bf16 or null; cap as in
+// wst_mlp_block_fwd (cap_mode 0 none, 1 bf16, 2 f32).
+int wst_mlp_block_wide_fwd(const void* x, long long n, int d, int f, const void* g,
+                           const void* bln, const void* w1t, const void* b1, const void* w2t,
+                           const void* b2, const void* fg, const void* fb, int cap_mode,
+                           void* out, void* cap, void* xln, void* hid, void* mlp_out,
+                           void* stream) {
+  using namespace wst_enc;
+  if (n <= 0) return 0;
+  if (d % kGN || d > kWideMax || f % kGN || d % kGK || f % kGK) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16_t* xx = static_cast<const bf16_t*>(x);
+  bf16_t *xl = static_cast<bf16_t*>(xln), *h = static_cast<bf16_t*>(hid);
+  bf16_t* o = static_cast<bf16_t*>(out);
+  int err = launch_ln_rows(xx, n, d, static_cast<const float*>(g), static_cast<const float*>(bln),
+                           xl, nullptr, s);
+  if (!err)
+    err = launch_gemm_tn<kGelu>(xl, static_cast<const bf16_t*>(w1t), n, f, d,
+                                static_cast<const float*>(b1), nullptr, h, nullptr, s);
+  if (!err)
+    err = launch_gemm_tn<kResidual>(h, static_cast<const bf16_t*>(w2t), n, d, f,
+                                    static_cast<const float*>(b2), xx, o,
+                                    static_cast<bf16_t*>(mlp_out), s);
+  if (!err && cap_mode)
+    err = launch_ln_rows(o, n, d, static_cast<const float*>(fg), static_cast<const float*>(fb),
+                         cap_mode == 1 ? static_cast<bf16_t*>(cap) : nullptr,
+                         cap_mode == 2 ? static_cast<float*>(cap) : nullptr, s);
+  return err;
+}
+
+// The conv stem: 64 output frames a CTA up to D = 512, 32 above (the
+// wide form), D a multiple of 32 up to 1536.
 int wst_conv_stem_fwd(const void* even, const void* odd, int b, int t, int n_mels, int d,
                       const void* w1t, const void* b1, const void* w2t, const void* b2,
                       const void* pos, void* out, void* stream) {
   using namespace wst_enc;
   if (b <= 0 || t <= 0) return 0;
-  const size_t smem = stem_smem(n_mels, d);
-  int err = set_smem(conv_stem_kernel, smem);
-  if (err) return err;
-  const dim3 grid((t + kStemT - 1) / kStemT, b);
-  conv_stem_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16_t*>(even), static_cast<const bf16_t*>(odd), t, n_mels, d,
-      static_cast<const bf16_t*>(w1t), static_cast<const float*>(b1),
-      static_cast<const bf16_t*>(w2t), static_cast<const float*>(b2),
-      static_cast<const bf16_t*>(pos), static_cast<bf16_t*>(out));
-  return (int)cudaGetLastError();
+  if (d > kWideMax) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16_t *e = static_cast<const bf16_t*>(even), *od = static_cast<const bf16_t*>(odd);
+  const bf16_t *w1 = static_cast<const bf16_t*>(w1t), *w2 = static_cast<const bf16_t*>(w2t);
+  const float *bb1 = static_cast<const float*>(b1), *bb2 = static_cast<const float*>(b2);
+  const bf16_t* p = static_cast<const bf16_t*>(pos);
+  bf16_t* o = static_cast<bf16_t*>(out);
+  if (d <= kMlpNarrowMax) return launch_stem<64, 80>(e, od, b, t, n_mels, d, w1, bb1, w2, bb2, p, o, s);
+  return launch_stem<32, 33>(e, od, b, t, n_mels, d, w1, bb1, w2, bb2, p, o, s);
 }
 
 }  // extern "C"

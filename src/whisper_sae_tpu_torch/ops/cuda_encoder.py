@@ -8,22 +8,30 @@ kernels' ``[N, K]`` bf16 layout (the B operand of ``mma.sync`` as two
 32-bit loads).
 
 - ``conv_stem_fwd`` replaces ``ops/pallas_encoder.py:fused_conv_stem``
-  (``pallas_call`` at :604).  The even/odd split of the mel's time
-  columns stays a torch copy before the launch, as it is XLA prep there.
+  (``pallas_call`` at :604): 64 output frames a CTA up to D=512, and its
+  wide form, 32 frames a CTA, for 512 < D <= 1536.  The even/odd split of
+  the mel's time columns stays a torch copy before the launch, as it is
+  XLA prep there.
 - ``attention_block_fwd`` replaces ``fused_attention_block`` (:340) with
   three launches: ``ln_qkv_fwd`` (LN1 and one ``[rows, D] x [D, 3D]``
-  product), ``self_attention_fwd`` (one CTA per clip, head and 64
-  queries, online softmax over 64-key tiles) and ``out_proj_fwd`` (the
-  product with the bias and the residual).  Three launches instead of
-  one because the product over all heads (out-projection) and the
-  per-head core want different tilings; q, k, v and the core's output
-  make one bf16 round trip through device memory each.
+  product), ``self_attention_fwd`` (the Hopper attention core of
+  ``csrc/attention_kernel.cu``: three consumer warpgroups of 64 queries,
+  wgmma products, K/V tiles fed by TMA) and ``out_proj_fwd`` (the product
+  with the bias and the residual).  Three launches instead of one because
+  the product over all heads (out-projection) and the per-head core want
+  different tilings; q, k, v and the core's output make one bf16 round
+  trip through device memory each.
 - ``flash_self_attention_fwd`` is the same core launched from the
   composed route, where the JAX package calls the library flash
   attention (``models/whisper.py:_flash_self_attention``, :141).
-- ``mlp_block_fwd`` replaces ``fused_mlp_block`` (:500): the ``[rows, F]``
-  hidden stays in shared memory, one 32-column chunk at a time, while the
-  next chunk of W1 and W2 streams into shared memory beside it.
+- ``mlp_block_fwd`` replaces ``fused_mlp_block`` (:500).  Up to D=512 the
+  ``[rows, F]`` hidden stays in shared memory, one 32-column chunk at a
+  time, while the next chunk of W1 and W2 streams in beside it.  Its wide
+  form (D = 768 .. 1536, multiples of 128) is LN2, the fc1 GEMM with GELU
+  into a bf16 ``[rows, F]`` hidden in device memory, the fc2 GEMM with the
+  residual, and the final-LN capture.
+- The stem and the MLP block count their wide form's launches apart, in
+  ``wide_launches``; the library's ``wst_enc_narrow_max()`` draws the line.
 
 Bounds at whisper-tiny, 64 clips: operations (see the source's note).
 """
@@ -62,12 +70,18 @@ def _check_width(d: int, what: str) -> None:
 
 
 def conv_stem_fwd(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tensor:
-    """mel ``[B, n_mels, T_mel]`` bf16 -> ``[B, T_mel//2, D]`` bf16."""
+    """mel ``[B, n_mels, T_mel]`` bf16 -> ``[B, T_mel//2, D]`` bf16.  The
+    library picks the form by D: 64 output frames a CTA up to
+    ``wst_enc_narrow_max()`` (counted in ``launches``), 32 above it up to
+    ``wst_enc_wide_max()`` (the wide form, ``wide_launches``)."""
     mel = mel.contiguous()  # any strides: the even/odd split copies it anyway
     _check_rows(mel, "conv_stem_fwd", 3)
     b, n_mels, t_mel = mel.shape
     d = conv1_w.shape[0]
     _check_width(d, "conv_stem_fwd")
+    lib = _build.load_library()
+    if d > lib.wst_enc_wide_max():
+        raise ValueError(f"conv_stem_fwd takes D <= {lib.wst_enc_wide_max()} (got {d})")
     if t_mel % 2 or n_mels % 16 or tuple(conv1_w.shape) != (d, n_mels, 3):
         raise ValueError(f"conv_stem_fwd takes an even T_mel and n_mels a multiple of 16 "
                          f"(got {n_mels} x {t_mel}, conv1 {tuple(conv1_w.shape)})")
@@ -81,12 +95,14 @@ def conv_stem_fwd(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tensor:
     b1, b2 = _f32(conv1_b), _f32(conv2_b)
     posb = pos[:t].detach().to(_BF).contiguous()
     out = torch.empty((b, t, d), dtype=_BF, device=mel.device)
-    lib = _build.load_library()
     err = lib.wst_conv_stem_fwd(even.data_ptr(), odd.data_ptr(), b, t, n_mels, d,
                                 w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
                                 posb.data_ptr(), out.data_ptr(), _stream(mel.device))
     _build.check(err, "conv_stem_fwd")
-    conv_stem_fwd.launches += 1
+    if d > lib.wst_enc_narrow_max():
+        conv_stem_fwd.wide_launches += 1
+    else:
+        conv_stem_fwd.launches += 1
     return out
 
 
@@ -174,23 +190,11 @@ def attention_block_fwd(x, ln_g, ln_b, p, n_heads: int, t_real: int | None = Non
 _MLP_WIDTHS = (128, 256, 384, 512)
 
 
-def mlp_block_fwd(x, ln_g, ln_b, p, capture: bool = False, final_ln=None,
-                  capture_dtype=torch.bfloat16):
-    """x + bf16(GELU(LN2(x) W1 + b1) W2 + b2) on rows ``[N, D]`` bf16.
-    Returns out [, ln_f(out) at ``capture_dtype``] [, mlp_in, mlp_out]."""
-    _check_rows(x, "mlp_block_fwd", 2)
-    n, d = x.shape
-    f = p["w1"].shape[1]
-    lib = _build.load_library()
-    if d not in _MLP_WIDTHS or f % lib.wst_enc_mlp_chunk():
-        raise ValueError(f"mlp_block_fwd takes D in {_MLP_WIDTHS} and F a multiple of "
-                         f"{lib.wst_enc_mlp_chunk()} (got D={d}, F={f})")
+def _mlp_outputs(x, capture: bool, final_ln, capture_dtype):
+    """(out, cap, fg, fb, cap_mode, mlp_in, mlp_out) for the launch."""
     if final_ln is not None and capture_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"mlp_block_fwd captures in bf16 or f32 (got {capture_dtype})")
-    # every converted operand is held in a local until the launch
-    g, bln = _f32(ln_g), _f32(ln_b)
-    w1t, w2t = _bf16_nk(p["w1"]), _bf16_nk(p["w2"])
-    b1, b2 = _f32(p["b1"]), _f32(p["b2"])
+        raise ValueError(f"mlp_block captures in bf16 or f32 (got {capture_dtype})")
+    n, d = x.shape
     out = torch.empty_like(x)
     cap = fg = fb = mlp_in = mlp_out = None
     cap_mode = 0
@@ -200,21 +204,66 @@ def mlp_block_fwd(x, ln_g, ln_b, p, capture: bool = False, final_ln=None,
         cap_mode = 2 if capture_dtype == torch.float32 else 1
     if capture:
         mlp_in, mlp_out = torch.empty_like(x), torch.empty_like(x)
+    return out, cap, fg, fb, cap_mode, mlp_in, mlp_out
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    err = lib.wst_mlp_block_fwd(x.data_ptr(), n, d, f, g.data_ptr(),
-                                bln.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-                                w2t.data_ptr(), b2.data_ptr(), ptr(fg), ptr(fb), cap_mode,
-                                out.data_ptr(), ptr(cap), ptr(mlp_in), ptr(mlp_out),
-                                _stream(x.device))
-    _build.check(err, "mlp_block_fwd")
-    mlp_block_fwd.launches += 1
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _mlp_result(out, cap, mlp_in, mlp_out, capture: bool):
     outs = [out] + ([cap] if cap is not None else []) + ([mlp_in, mlp_out] if capture else [])
     return tuple(outs) if len(outs) > 1 else out
+
+
+def mlp_block_fwd(x, ln_g, ln_b, p, capture: bool = False, final_ln=None,
+                  capture_dtype=torch.bfloat16):
+    """x + bf16(GELU(LN2(x) W1 + b1) W2 + b2) on rows ``[N, D]`` bf16.
+    Returns out [, ln_f(out) at ``capture_dtype``] [, mlp_in, mlp_out].
+    Up to ``wst_enc_narrow_max()`` the hidden stays in shared memory
+    (``launches``); above it, D a multiple of 128 up to
+    ``wst_enc_wide_max()``, the wide form keeps a bf16 ``[N, F]`` hidden as
+    scratch in device memory (``wide_launches``)."""
+    _check_rows(x, "mlp_block_fwd", 2)
+    n, d = x.shape
+    f = p["w1"].shape[1]
+    lib = _build.load_library()
+    wide = d > lib.wst_enc_narrow_max()
+    if wide and (d % 128 or d > lib.wst_enc_wide_max() or f % 128):
+        raise ValueError(f"mlp_block_fwd's wide form takes D a multiple of 128 up to "
+                         f"{lib.wst_enc_wide_max()} and F a multiple of 128 (got D={d}, F={f})")
+    if not wide and (d not in _MLP_WIDTHS or f % lib.wst_enc_mlp_chunk()):
+        raise ValueError(f"mlp_block_fwd takes D in {_MLP_WIDTHS} and F a multiple of "
+                         f"{lib.wst_enc_mlp_chunk()} (got D={d}, F={f})")
+    out, cap, fg, fb, cap_mode, mlp_in, mlp_out = _mlp_outputs(x, capture, final_ln,
+                                                               capture_dtype)
+    # every converted operand is held in a local until the launch
+    g, bln = _f32(ln_g), _f32(ln_b)
+    w1t, w2t = _bf16_nk(p["w1"]), _bf16_nk(p["w2"])
+    b1, b2 = _f32(p["b1"]), _f32(p["b2"])
+    if wide:
+        xln = mlp_in if capture else torch.empty_like(x)
+        hid = torch.empty((n, f), dtype=_BF, device=x.device)
+        err = lib.wst_mlp_block_wide_fwd(x.data_ptr(), n, d, f, g.data_ptr(), bln.data_ptr(),
+                                         w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
+                                         b2.data_ptr(), _ptr(fg), _ptr(fb), cap_mode,
+                                         out.data_ptr(), _ptr(cap), xln.data_ptr(),
+                                         hid.data_ptr(), _ptr(mlp_out), _stream(x.device))
+    else:
+        err = lib.wst_mlp_block_fwd(x.data_ptr(), n, d, f, g.data_ptr(),
+                                    bln.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+                                    w2t.data_ptr(), b2.data_ptr(), _ptr(fg), _ptr(fb), cap_mode,
+                                    out.data_ptr(), _ptr(cap), _ptr(mlp_in), _ptr(mlp_out),
+                                    _stream(x.device))
+    _build.check(err, "mlp_block_fwd")
+    if wide:
+        mlp_block_fwd.wide_launches += 1
+    else:
+        mlp_block_fwd.launches += 1
+    return _mlp_result(out, cap, mlp_in, mlp_out, capture)
 
 
 for _fn in (conv_stem_fwd, ln_qkv_fwd, self_attention_fwd, flash_self_attention_fwd,
             out_proj_fwd, mlp_block_fwd):
     _fn.launches = 0
+conv_stem_fwd.wide_launches = mlp_block_fwd.wide_launches = 0

@@ -12,9 +12,11 @@ polynomial (3.4e-5 abs, under bf16 rounding), a workaround for Mosaic
 that is not ported.
 
 Dispatch: a CPU tensor goes to the plain version, a CUDA tensor to the
-hand-written kernel (``ops/cuda_encoder.py``), which raises on a shape it
-cannot take; there is no fallback.  ``plain_calls`` counts calls of the
-plain versions, so a run on the card can show that it used none.
+hand-written kernel (``ops/cuda_encoder.py``), which raises on a shape it cannot take; there is no fallback.  ``plain_calls``
+counts calls of the plain versions, so a run on the card can show that it
+used none.  ``fused_encoder_supported`` is the route's gate, the port's
+counterpart of ``pallas_encoder.supported``: where it fails the model
+takes the composed path, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ from ..utils.device import mm_f32
 
 LN_EPS = 1e-5
 MASKED_SCORE = -1e30
+# the fused route's gate (pallas_encoder.py:664-692): head dim of the
+# attention core, the widest D, the longest padded T
+HEAD_DIM = 64
+MAX_D = 1536
+MAX_T_PAD = 2048
 
 plain_calls: Counter = Counter()
 
@@ -142,6 +149,17 @@ def mlp_block_plain(x, ln_g, ln_b, p, capture: bool = False, final_ln=None,
 # ---------------------------------------------------------------------------
 # dispatch: CPU -> plain version, CUDA -> kernel
 # ---------------------------------------------------------------------------
+
+
+def fused_encoder_supported(t: int, d: int, n_heads: int) -> bool:
+    """The fused encoder blocks hold the geometry: ``t_pad = ceil128(T) <=
+    2048``, D a multiple of 128 up to 1536, head dim 64 (every Whisper from
+    tiny to large-v3).  The JAX package's ``_use_fused_encoder`` also asks
+    for the TPU; here the kernels run on the card and their plain versions
+    on the CPU, so the route is the same on both."""
+    t_pad = -(-t // 128) * 128
+    return (d % n_heads == 0 and d // n_heads == HEAD_DIM and d % 128 == 0 and d <= MAX_D
+            and t_pad <= MAX_T_PAD)
 
 
 def _route(t: torch.Tensor, what: str) -> bool:

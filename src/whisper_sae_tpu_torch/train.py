@@ -6,7 +6,9 @@ the port's log-mel, the Whisper encoder through the fused kernels in bf16
 under ``use_amp``, the decoder on one BOS token, batch 64 -- into the
 JAX package's cache format; then each layer trains from its cache
 (``create_sae`` -> ``SAETrainer.train`` -> ``sae_final.*`` and
-``metrics.json``)::
+``metrics.json``); a cache of more than one shard streams from disk
+batch by batch (a prefetching shard loader) and resamples from a bounded
+subsample, as the JAX CLI does::
 
     python -m whisper_sae_tpu_torch.train --config configs/tiny_default.yaml \
         --layer encoder:0 --no-wandb
@@ -126,7 +128,7 @@ def extract(config: ExperimentConfig, feature_cache: FeatureCache, encoder_layer
             f"dataset_name {config.data.dataset_name!r} is not ported: the port extracts from "
             "dataset_name: synthetic only (LibriSpeech streaming needs data that is not here)")
     arch = arch_for(config.whisper.model_name)
-    gen = torch.Generator().manual_seed(config.training.seed)
+    gen = torch.Generator(device=device).manual_seed(config.training.seed)  # made on the card
     if random_whisper:
         params = init_whisper(gen, arch)
         print("Using RANDOM Whisper weights (--random-whisper)")
@@ -167,7 +169,14 @@ def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component
     run_dir.mkdir(parents=True, exist_ok=True)
     trainer = SAETrainer(model=sae, config=config.training, run_dir=run_dir)
     if config.sae.dead_feature_resample:
-        trainer.set_resample_dataset(dataloader.data)
+        if hasattr(dataloader, "reader"):
+            # a multi-shard cache streams: resample from a bounded sorted
+            # subsample of 8 resample batches (scripts/train.py:231-240)
+            idx = np.random.default_rng(config.training.seed).permutation(
+                metadata.num_tokens)[:8 * trainer.resample_batch_size]
+            trainer.set_resample_dataset(dataloader.reader.gather(np.sort(idx)))
+        else:
+            trainer.set_resample_dataset(dataloader.data)
     if resume is not None:
         trainer.load_checkpoint(resume)
         print(f"Resumed from {resume} (step {trainer.global_step})")

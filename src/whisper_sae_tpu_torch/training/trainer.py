@@ -399,6 +399,45 @@ class SAETrainer:
         self.epoch += 1
         return epoch_metrics
 
+    def train_epoch_out_of_core(self, reader, chunk_tokens: int = 1 << 22,
+                                seed: int | None = None) -> list[TrainingMetrics]:
+        """One epoch over a disk-resident cache as a few fused chunks
+        (``trainer.py:1014-1069`` of the JAX package).
+
+        The epoch's global order is ``default_rng(seed + epoch).permutation``
+        of the rows; each slice of ``chunk_tokens`` of it (a multiple of the
+        batch) is gathered in sorted order through ``reader.gather``,
+        staged in bf16 under AMP, and trained as one
+        ``train_epoch_fused(chunk, shuffle=True)`` with the epoch number
+        held, so the resample is checked at every chunk boundary.  One
+        worker thread gathers chunk i+1 while chunk i trains."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        n = reader.num_rows
+        b = self.config.batch_size
+        chunk_tokens = max(b, (chunk_tokens // b) * b)
+        stage_bf16 = self.compute_dtype == torch.bfloat16
+        rng = np.random.default_rng((self.config.seed if seed is None else seed) + self.epoch)
+        order = rng.permutation(n)
+
+        def fetch(start):
+            chunk = reader.gather(np.sort(order[start:start + chunk_tokens]))
+            return _tree(lambda a: a.to(torch.bfloat16), chunk) if stage_bf16 else chunk
+
+        epoch_no = self.epoch
+        starts = list(range(0, n, chunk_tokens))
+        epoch_metrics: list[TrainingMetrics] = []
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            fut = ex.submit(fetch, starts[0])
+            for i in range(len(starts)):
+                chunk = fut.result()
+                if i + 1 < len(starts):
+                    fut = ex.submit(fetch, starts[i + 1])
+                epoch_metrics.extend(self.train_epoch_fused(chunk, shuffle=True))
+                self.epoch = epoch_no  # train_epoch_fused counts an epoch per call
+        self.epoch = epoch_no + 1
+        return epoch_metrics
+
     def train_epoch(self, dataloader) -> list[TrainingMetrics]:
         """One epoch, one ``train_step`` per batch of ``dataloader``."""
         epoch_metrics = []
@@ -414,17 +453,34 @@ class SAETrainer:
     def train(self, dataloader, epochs: int | None = None, checkpoint_every: int | None = None,
               fused: bool | None = None) -> None:
         """Full loop.  ``fused=None`` takes the fused epoch when the loader
-        exposes its rows (``.data``).  Resumable: epochs already in
-        ``self.epoch`` are skipped and the schedule spans all ``epochs``."""
+        exposes its rows (``.data``); a fused loader that also has a
+        ``reader`` (the launcher's paired reader), or any loader with one
+        when ``fused=True``, runs chunked out-of-core epochs,
+        ``chunk_tokens`` from the loader or 3 GB of the reader's
+        ``row_bytes``
+        (``trainer.py:1116-1145`` of the JAX package).  A shard loader
+        alone has no ``.data`` and steps batch by batch, as in JAX.
+        Resumable: epochs already in ``self.epoch`` are skipped and the
+        schedule spans all ``epochs``."""
         epochs = epochs or self.config.epochs
         checkpoint_every = checkpoint_every or self.config.checkpoint_every
         self.setup_scheduler(len(dataloader) * epochs)
         if fused is None:
             fused = hasattr(dataloader, "data")
-        data = _tree(self._to_device, dataloader.data) if fused else None
+        streamed = hasattr(dataloader, "reader") and fused is not False
+        chunk_tokens = None
+        if streamed:
+            chunk_tokens = getattr(dataloader, "chunk_tokens", None)
+            if chunk_tokens is None:
+                chunk_tokens = max(self.config.batch_size,
+                                   (3 << 30) // dataloader.reader.row_bytes)
+        data = _tree(self._to_device, dataloader.data) if fused and not streamed else None
         for ep in range(self.epoch, epochs):
             self.throughput.start()
-            if fused:
+            if streamed:
+                epoch_metrics = self.train_epoch_out_of_core(dataloader.reader,
+                                                             chunk_tokens=chunk_tokens)
+            elif fused:
                 epoch_metrics = self.train_epoch_fused(data, shuffle=getattr(dataloader, "shuffle", True))
             else:
                 epoch_metrics = self.train_epoch(dataloader)

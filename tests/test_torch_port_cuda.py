@@ -303,11 +303,15 @@ def _encoder(d, heads, f, n_mels, t, seed=0):
     return enc, W._layer(enc["layers"], 0), g
 
 
-GEOMS = [(128, 2, 256, 80, 100), (384, 6, 1536, 80, 1500), (384, 6, 1536, 128, 1500)]
+GEOMS = [(128, 2, 256, 80, 100), (384, 6, 1536, 80, 1500), (384, 6, 1536, 128, 1500),
+         (768, 12, 3072, 80, 1500), (1280, 20, 5120, 128, 1500), (1536, 24, 6144, 128, 200)]
 
 
 @pytest.mark.parametrize("d,heads,f,n_mels,t", GEOMS)
 def test_encoder_kernels_match_plain(dev, d, heads, f, n_mels, t):
+    """Every encoder kernel at whisper-tiny, -small and -large-v3 widths
+    (and D=1536, the widest the fused route takes), narrow or wide form
+    by width; the attention core with T unpadded and with keys masked."""
     enc, lp, g = _encoder(d, heads, f, n_mels, t)
     mel = (torch.randn(2, n_mels, 2 * t, generator=g) * 0.5).to(dev).bfloat16()
     stem = (enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"], enc["pos"])
@@ -335,21 +339,71 @@ def test_encoder_kernels_match_plain(dev, d, heads, f, n_mels, t):
         _close(got, want)
 
 
+@pytest.mark.parametrize("d,heads,f", [(384, 6, 1536), (1280, 20, 5120)], ids=["narrow", "wide"])
 @pytest.mark.parametrize("capture,final_ln,cap_dt", [
     (False, False, torch.bfloat16), (True, False, torch.bfloat16),
     (False, True, torch.bfloat16), (True, True, torch.float32),
 ])
-def test_mlp_kernel_all_modes(dev, capture, final_ln, cap_dt):
-    enc, lp, g = _encoder(384, 6, 1536, 80, 1500, seed=1)
-    x = torch.randn(3000, 384, generator=g).to(dev).bfloat16()
+def test_mlp_kernel_all_modes(dev, capture, final_ln, cap_dt, d, heads, f):
+    enc, lp, g = _encoder(d, heads, f, 80, 1500, seed=1)
+    x = torch.randn(3000, d, generator=g).to(dev).bfloat16()
     fl = (enc["ln_f_g"].float(), enc["ln_f_b"].float()) if final_ln else None
+    before = (CE.mlp_block_fwd.launches, CE.mlp_block_fwd.wide_launches)
     got = CE.mlp_block_fwd(x, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
+    wide = d > _build.load_library().wst_enc_narrow_max()
+    assert (CE.mlp_block_fwd.launches - before[0], CE.mlp_block_fwd.wide_launches - before[1]) \
+        == (int(not wide), int(wide))
     want = E.mlp_block_plain(x, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
     got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
     assert len(got) == len(want) == 1 + final_ln + 2 * capture
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         _close(a, b)
+
+
+@pytest.mark.parametrize("d,heads,b", [(384, 6, 4), (1280, 20, 2)], ids=["tiny", "large"])
+def test_attention_core_deterministic(dev, d, heads, b):
+    """Two launches of the attention core give the same bits."""
+    g = torch.Generator().manual_seed(d)
+    q, k, v = ((torch.randn(b, 1500, d, generator=g) * s).to(dev).bfloat16()
+               for s in (0.125, 1.0, 1.0))
+    a = CE.self_attention_fwd(q, k, v, heads, 1437)
+    assert torch.equal(a, CE.self_attention_fwd(q, k, v, heads, 1437))
+
+
+def test_encoder_gate_constants_match_the_library(dev):
+    """The fused route's gate admits no width or head dim the kernels
+    cannot take."""
+    lib = _build.load_library()
+    assert (E.MAX_D, E.HEAD_DIM) == (lib.wst_enc_wide_max(), lib.wst_enc_head_dim())
+
+
+def test_large_v3_extraction_uses_only_kernels(dev):
+    """bf16 extract_activations at whisper-large-v3 width (2+2 layers, one
+    clip) launches the wide forms and the attention core, no plain
+    version, and agrees per layer with the card's composed route at the
+    stack bar."""
+    arch = W.WhisperArch(1280, 2, 2, 20, 5120, n_mels=128, vocab_size=51866)
+    p = W.params_to(W.init_whisper(torch.Generator().manual_seed(6), arch), dev)
+    mel = (torch.randn(1, 128, 3000, generator=torch.Generator().manual_seed(7)) * 0.5).to(dev)
+    E.plain_calls.clear()
+    def counts():
+        return [CE.conv_stem_fwd.wide_launches, CE.ln_qkv_fwd.launches,
+                CE.self_attention_fwd.launches, CE.out_proj_fwd.launches,
+                CE.mlp_block_fwd.wide_launches, CE.conv_stem_fwd.launches,
+                CE.mlp_block_fwd.launches]
+
+    before = counts()
+    got = W.extract_activations(p, mel, arch, compute_dtype=torch.bfloat16,
+                                capture_dtype=torch.bfloat16, with_mlp=True)
+    assert sum(E.plain_calls.values()) == 0
+    assert [a - b for a, b in zip(counts(), before)] == [1, 2, 2, 2, 2, 0, 0]
+    want = W.extract_activations(p, mel, arch, compute_dtype=torch.bfloat16,
+                                 capture_dtype=torch.bfloat16, with_mlp=True,
+                                 use_fused_encoder=False)
+    for key in ("encoder", "encoder_mlp_in", "encoder_mlp_out"):
+        for i in range(arch.encoder_layers):
+            _close(got[key][i], want[key][i], 2.0**-4, 2.0**-7)
 
 
 def test_extraction_on_the_card_uses_only_kernels(dev):
@@ -406,6 +460,16 @@ def test_encoder_kernels_refuse_shapes(dev):
         CE.conv_stem_fwd(torch.zeros(1, 80, 199, device=dev, dtype=torch.bfloat16),
                          enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"],
                          enc["pos"])
+    mel = torch.zeros(1, 80, 200, device=dev, dtype=torch.bfloat16)
+    w1 = torch.zeros(1568, 80, 3, device=dev)  # wider than the wide form
+    with pytest.raises(ValueError, match="D <= 1536"):
+        CE.conv_stem_fwd(mel, w1, w1[:, 0, 0], torch.zeros(1568, 1568, 3, device=dev),
+                         w1[:, 0, 0], torch.zeros(100, 1568, device=dev))
+    wide, _, _ = _encoder(576, 9, 2304, 80, 100)  # above 512, not a multiple of 128
+    wl = W._layer(wide["layers"], 0)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        CE.mlp_block_fwd(torch.zeros(8, 576, device=dev, dtype=torch.bfloat16),
+                         wl["ln2_g"], wl["ln2_b"], wl["mlp"])
 
 
 # ---------------------------------------------------------------------------
