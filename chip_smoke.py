@@ -41,7 +41,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    out-projection, the whole attention block and the MLP block in all
    four output modes, each against its plain version on the same card
    inputs at the one-block bar (max|d| <= 2**-6 max|ref|, mean|d| <=
-   2**-9 mean|ref|).
+   2**-9 mean|ref|).  LN+QKV and the out-projection (the Hopper GEMM of
+   ``ops/csrc/encoder_gemm.cu``) also at every width the gate takes
+   (D = 384 .. 1536, heads of 64) on a ragged 64*1500 - 37 rows and on
+   100 rows; they and the attention core give the same bits on two
+   launches.
 6. Extraction through the CLI (``--extract-only --random-whisper``,
    tiny_default.yaml's widths and layers, the synthetic dataset, 128
    clips, bf16): every encoder kernel's launch count is zeroed before
@@ -61,7 +65,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    encoder kernel beside its plain version, its bound and a library
    yardstick (``torch.matmul`` for the projections, the conv1d pair for
    the stem, ``scaled_dot_product_attention`` for the core -- yardsticks,
-   not ports).
+   not ports).  The kernels run on weights already in their layout (built
+   once per parameter tensor); the preparation's one-off time is printed
+   on its own line, and LN+QKV's two launches and the out-projection's
+   GEMM, each timed alone, on another.
 8. The coder kernel (``ops/csrc/coder_kernels.cu``) at whisper-tiny width,
    B=4096, in its five modes (Skip and TopK transcoder, ReLU SAE: D=384,
    H=3072, k=32; TopK and ReLU crosscoder: L*D=1536, S=3072), sliced, at
@@ -124,7 +131,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     attention core (T unpadded, and with keys from 1437 masked; also as
     the flash route), the out-projection and the whole attention block,
     each against its plain version at the one-block bar; the attention
-    core bit-identical run to run at both widths.
+    core, LN+QKV and the out-projection bit-identical run to run at both
+    widths, the last two also at every width of the gate on 16*1500 - 37
+    and 100 rows, as in phase 5.
 15. Whisper-large-v3 extraction through the CLI (``--extract-only
     --random-whisper``, weights made on the card from the config's seed,
     the synthetic dataset, 16 clips, bf16, the full 32+32-layer forward,
@@ -139,8 +148,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     flash route) from the same input, at the stack bar.
 16. Times at whisper-large-v3: one 8-clip batch of ``extract_activations``
     (bf16, every layer captured, decoder on) on the host clock and under
-    ``torch.profiler``, beside its operation bound; each encoder kernel
-    beside its plain version, its bound and a library yardstick.
+    ``torch.profiler``, beside its operation bound, with the heaviest
+    device operations and the device's idle gaps (their count and total,
+    the longest, and the host operations that ran in them) and the
+    encoder's and the decoder's part on the host clock; each encoder
+    kernel beside its plain version, its bound and a library yardstick,
+    the weight preparation and LN+QKV's parts as in phase 7.
 17. Out of core through the CLI: a cache of 2 shards (65,536 + 32,768
     rows x 384) trained for one epoch at tiny_default.yaml's widths; the
     CLI streams it batch by batch through the prefetching shard loader,
@@ -209,6 +222,9 @@ DL, HL, BL = 1280, 40960, 8192
 LARGE_STEPS, LARGE_EPOCHS = 6, 2
 BLOCKED_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/blocked_encode.cu"
 ATTN_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/attention_kernel.cu"
+GEMM_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/encoder_gemm.cu"
+# every width the fused route's gate takes (ops/encoder.py:fused_encoder_supported)
+GATE_WIDTHS = (384, 512, 768, 1024, 1280, 1536)
 # whisper-large-v3 extraction: bench.py:388-400 times batches of LG_B = 8
 # clips; the CLI extracts LG_CLIPS = 16 in one batch (EXTRACT_BATCH is 64),
 # and phase 14 holds the kernels against their plain versions at that batch
@@ -629,6 +645,14 @@ def encoder_kernel_phase(dev, W, E, CE, arch=None, b: int = ENC_B) -> tuple[dict
     errs["out_proj"] = bar_check(CE.out_proj_fwd(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
                                  E.out_proj_plain(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
                                  BLOCK_BAR, "out_proj")
+    check(all(torch.equal(a, w) for a, w in zip(got, CE.ln_qkv_fwd(
+        rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads))), "ln_qkv: two launches differ")
+    check(torch.equal(CE.out_proj_fwd(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"]),
+                      CE.out_proj_fwd(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"])),
+          "out_proj: two launches differ")
+    sweep = gemm_width_sweep(dev, E, CE, b)
+    errs["ln_qkv"] = max(errs["ln_qkv"], sweep["ln_qkv"])
+    errs["out_proj"] = max(errs["out_proj"], sweep["out_proj"])
     block = E.attention_block_plain(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
     block_err = bar_check(CE.attention_block_fwd(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads),
                           block, BLOCK_BAR, "attention block")
@@ -650,10 +674,48 @@ def encoder_kernel_phase(dev, W, E, CE, arch=None, b: int = ENC_B) -> tuple[dict
              if k.startswith(("conv_stem", "mlp_block")) and n > before[k]}
     log("  " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f", attention block {block_err:.3g} (max abs err, each within the one-block bar; "
-        f"B={b}; stem and MLP forms launched {forms}; the attention core bit-identical run "
-        "to run)")
+        f"B={b}; stem and MLP forms launched {forms}; the attention core, LN+QKV and the "
+        "out-projection bit-identical run to run)")
     inp.update(x=x, rows=rows, q=q, k=k, v=v, arows=arows, brows=brows)
     return errs, inp
+
+
+def gemm_width_sweep(dev, E, CE, b: int) -> dict:
+    """LN+QKV and the out-projection (the Hopper GEMM of
+    ``ops/csrc/encoder_gemm.cu``) against their plain versions at every
+    width of the gate, heads of 64, on a ragged ``b*T - 37`` rows and on
+    100 rows, at the one-block bar; two launches equal.  Returns the max
+    abs errors."""
+    errs = {"ln_qkv": 0.0, "out_proj": 0.0}
+    for d in GATE_WIDTHS:
+        g = torch.Generator().manual_seed(d)
+
+        def r(*shape, scale=0.05):
+            return (torch.randn(*shape, generator=g) * scale).to(dev).bfloat16()
+
+        p = {"wq": r(d, d), "wk": r(d, d), "wv": r(d, d), "wo": r(d, d), "bq": r(d),
+             "bv": r(d), "bo": r(d)}
+        ln_g, ln_b, heads = 1 + r(d), r(d), d // 64
+        for n in (b * ENC_T - 37, 100):
+            x = r(n, d, scale=1.0)
+            got = CE.ln_qkv_fwd(x, ln_g, ln_b, p, heads)
+            want = E.ln_qkv_plain(x, ln_g, ln_b, p, heads)
+            errs["ln_qkv"] = max([errs["ln_qkv"]] + [bar_check(a, w, BLOCK_BAR, f"ln_qkv {c} D={d} "
+                                                               f"rows={n}")
+                                                     for c, a, w in zip("qkv", got, want)])
+            check(all(torch.equal(a, w) for a, w in zip(got, CE.ln_qkv_fwd(x, ln_g, ln_b, p, heads))),
+                  f"ln_qkv D={d} rows={n}: two launches differ")
+            out = CE.out_proj_fwd(got[2], x, p["wo"], p["bo"])
+            errs["out_proj"] = max(errs["out_proj"], bar_check(
+                out, E.out_proj_plain(got[2], x, p["wo"], p["bo"]), BLOCK_BAR,
+                f"out_proj D={d} rows={n}"))
+            check(torch.equal(out, CE.out_proj_fwd(got[2], x, p["wo"], p["bo"])),
+                  f"out_proj D={d} rows={n}: two launches differ")
+            del x, got, want, out
+    log(f"  LN+QKV and out-projection at D={list(GATE_WIDTHS)}, rows {b * ENC_T - 37} and 100: "
+        f"max abs err {errs['ln_qkv']:.3g} / {errs['out_proj']:.3g}, each within the one-block "
+        "bar, two launches equal")
+    return errs
 
 
 def extraction_config(work: Path) -> Path:
@@ -676,6 +738,27 @@ def extraction_config(work: Path) -> Path:
 ENC_WRAPPERS = ("conv_stem", "ln_qkv", "self_attention", "out_proj", "mlp_block",
                 "flash_self_attention")
 WIDE_FORMS = {"conv_stem_wide": "conv_stem", "mlp_block_wide": "mlp_block"}  # D > 512
+
+
+def enc_source(name: str) -> str:
+    if "attention" in name:
+        return ATTN_SOURCE
+    return GEMM_SOURCE if name in ("ln_qkv", "out_proj") else ENC_SOURCE
+
+
+def prep_entry(name: str, parts: dict) -> dict:
+    """The ``kernels`` line's extra keys of an encoder kernel: the one-off
+    weight preparation and, for LN+QKV and the out-projection, the parts
+    timed alone (LN1, the GEMM)."""
+    key = {"ln_qkv": "qkv", "out_proj": "out_proj", "mlp_block": "mlp", "conv_stem": "stem"}
+    out = {}
+    if name in key:
+        out["weight_prep_ms"] = parts["prep_ms"][key[name]]
+    if name == "ln_qkv":
+        out["parts_ms"] = {k: v for k, v in parts["parts_ms"].items() if not k.startswith("out")}
+    elif name == "out_proj":
+        out["parts_ms"] = {k: v for k, v in parts["parts_ms"].items() if k.startswith("out")}
+    return out
 
 
 def enc_launches(CE) -> dict:
@@ -957,6 +1040,50 @@ def encoder_kernel_times(inp: dict, E, CE) -> dict:
         time_ms(lambda: torch.matmul(torch.matmul(brows, lp["mlp"]["w1"]), lp["mlp"]["w2"])),
     )
     return res
+
+
+def encoder_prep_and_parts(inp: dict, CE, lib) -> dict:
+    """Phases 7b and 16b, beside the kernel times (which run on weights
+    prepared by the earlier phases): the weight preparation's one-off time
+    (each kernel layout built from the parameters, not taken from the
+    cache), and LN+QKV's two launches and the out-projection's GEMM, each
+    timed alone, weights prepared."""
+    lp, enc, rows, arows = inp["lp"], inp["enc"], inp["rows"], inp["arows"]
+    a, m = lp["attn"], lp["mlp"]
+    n, d = rows.shape
+    prep = {
+        "qkv": lambda: CE._build_qkv(a["wq"], a["wk"], a["wv"], a["bq"], a["bv"], lp["ln1_g"],
+                                     lp["ln1_b"]),
+        "out_proj": lambda: CE._build_out_proj(a["wo"], a["bo"]),
+        "mlp": lambda: CE._build_mlp(m["w1"], m["b1"], m["w2"], m["b2"], lp["ln2_g"],
+                                     lp["ln2_b"]),
+        "stem": lambda: CE._build_stem(enc["conv1_w"], enc["conv1_b"], enc["conv2_w"],
+                                       enc["conv2_b"], enc["pos"][:ENC_T]),
+    }
+    prep_ms = {k: time_ms(fn, iters=5, warmup=1) for k, fn in prep.items()}
+    wt, bias, g, bln = CE.qkv_weights(a, lp["ln1_g"], lp["ln1_b"])
+    wo, bo = CE.out_proj_weights(a["wo"], a["bo"])
+    xln, q, k, v, out = (torch.empty_like(rows) for _ in range(5))
+    st = torch.cuda.current_stream().cuda_stream
+    calls = {
+        "ln1": lambda: lib.wst_ln_rows_fwd(rows.data_ptr(), n, d, g.data_ptr(), bln.data_ptr(),
+                                           xln.data_ptr(), st),
+        "qkv_gemm": lambda: lib.wst_enc_gemm_fwd(
+            0, xln.data_ptr(), wt.data_ptr(), n, 3 * d, d, bias.data_ptr(), 0.125, d,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, st),
+        "out_proj_gemm": lambda: lib.wst_enc_gemm_fwd(
+            1, arows.data_ptr(), wo.data_ptr(), n, d, d, bo.data_ptr(), 1.0, d, out.data_ptr(),
+            None, None, rows.data_ptr(), st),
+    }
+    parts_ms = {}
+    for name, fn in calls.items():
+        check(fn() == 0, f"{name}: launch failed")
+        parts_ms[name] = time_ms(fn)
+    log("  weight preparation, one-off ms a layer (built once per parameter tensor, not in "
+        "the kernel times): " + ", ".join(f"{k} {v:.4f}" for k, v in prep_ms.items()))
+    log(f"  LN+QKV's parts and the out-projection's GEMM alone ({n} rows, D={d}), ms: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts_ms.items()))
+    return {"prep_ms": prep_ms, "parts_ms": parts_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1673,10 +1800,93 @@ def large_batch_times(dev, W, pb: dict) -> dict:
     log(f"  device busy {busy:.3f} ms a batch (profiled run), idle share "
         f"{res['idle_share']:.1%} of the unprofiled batch")
     res["top"] = []
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         ms = e.self_device_time_total / 1e3 / 2
         res["top"].append([e.key[:60], ms, e.count // 2])
         log(f"    {ms:8.4f} ms/batch  {e.count // 2:3d}x  {e.key[:90]}")
+    res["idle"] = idle_breakdown(prof, 2)
+    res.update(batch_split(dev, W, pb, mels[0], arch))
+    return res
+
+
+def batch_split(dev, W, pb: dict, mel: torch.Tensor, arch) -> dict:
+    """Phase 16a: the same batch's encoder (stem and 32 fused layers with
+    the final-LN captures) and its one-token, 32-layer decoder apart, each
+    on the host clock ending in a synchronise, 3 runs after a warm one."""
+    def clock(fn, n: int = 3):
+        out = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            out = fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n, out
+
+    with torch.no_grad(), W.f32_matmuls():
+        mel = mel.bfloat16()
+        enc_ms, enc = clock(lambda: W.encoder_forward(pb, mel, arch, capture_final_ln=True,
+                                                      capture_dtype=torch.bfloat16))
+        bos = torch.full((mel.shape[0], 1), arch.decoder_start_token_id, device=dev)
+        dec_ms, _ = clock(lambda: W.decoder_forward(pb, bos, enc[0], arch, with_mlp=True))
+    log(f"  the batch's parts on the host clock: encoder_forward {enc_ms:.3f} ms, "
+        f"decoder_forward (one token, {arch.decoder_layers} layers) {dec_ms:.3f} ms")
+    return {"encoder_ms": enc_ms, "decoder_ms": dec_ms}
+
+
+def idle_breakdown(prof, batches: int, top: int = 5, min_us: float = 10.0) -> dict:
+    """Where the device idles in a profiled window.  The device's
+    activities (kernels, copies, memsets) are merged into busy spans; a
+    gap is the time between two spans.  Returns the gaps' count and
+    total, the longest ``top`` with the host operations that ran during
+    each (innermost CPU events, by overlap), and the host operations
+    summed over every gap of at least ``min_us`` -- where no recorded
+    operation ran, the host was in Python ("unrecorded").  ms a batch."""
+    import bisect
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    spans: list[list[float]] = []
+    for s0, e0 in sorted((e.time_range.start, e.time_range.end) for e in evs
+                         if e.device_type == DeviceType.CUDA):
+        if spans and s0 <= spans[-1][1]:
+            spans[-1][1] = max(spans[-1][1], e0)
+        else:
+            spans.append([s0, e0])
+    gaps = [(a[1], b[0]) for a, b in zip(spans, spans[1:]) if b[0] - a[1] >= min_us]
+    all_gap_us = sum(b[0] - a[1] for a, b in zip(spans, spans[1:]))
+    starts = [g[0] for g in gaps]
+    per_gap = [Counter() for _ in gaps]
+    for e in evs:
+        if e.device_type != DeviceType.CPU or e.cpu_children:
+            continue
+        s0, e0 = e.time_range.start, e.time_range.end
+        i = bisect.bisect_right(starts, e0) - 1
+        while i >= 0 and gaps[i][1] > s0:
+            o = min(e0, gaps[i][1]) - max(s0, gaps[i][0])
+            if o > 0:
+                per_gap[i][e.key] += o
+            i -= 1
+    total = Counter()
+    for (g0, g1), c in zip(gaps, per_gap):
+        c["unrecorded"] = max(0.0, (g1 - g0) - sum(c.values()))
+        total.update(c)
+    longest = sorted(range(len(gaps)), key=lambda i: gaps[i][0] - gaps[i][1])[:top]
+    res = {
+        "gaps": len(spans) - 1, "gap_ms": all_gap_us / 1e3 / batches,
+        "gaps_over_min": len(gaps),
+        "gap_over_min_ms": sum(g1 - g0 for g0, g1 in gaps) / 1e3 / batches,
+        "host_in_gaps_ms": [[k[:60], v / 1e3 / batches] for k, v in total.most_common(8)],
+        "longest": [[(gaps[i][1] - gaps[i][0]) / 1e3,
+                     [[k[:40], v / 1e3] for k, v in per_gap[i].most_common(3)]] for i in longest],
+    }
+    log(f"  device idle: {res['gaps']} gaps, {res['gap_ms']:.3f} ms a batch between the first "
+        f"and last device activity; {res['gaps_over_min']} gaps of >= {min_us:g} us hold "
+        f"{res['gap_over_min_ms']:.3f} ms a batch; host operations in them (ms a batch): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["host_in_gaps_ms"]))
+    for ms, ops in res["longest"]:
+        log(f"    gap {ms:.4f} ms: " + ", ".join(f"{k} {v:.4f}" for k, v in ops))
     return res
 
 
@@ -1941,17 +2151,17 @@ def main() -> int:
     log(f"  CLI extraction end to end: {extraction['cli_clips_per_s']:,.1f} clips/s")
     ext_times["breakdown_ms"] = extraction_breakdown(work, dev, W, cfg_mod, cache_mod, ds_mod)
     enc_res = encoder_kernel_times(enc_inp, E, CE)
+    enc_parts = encoder_prep_and_parts(enc_inp, CE, _build.load_library())
     for name in ENC_WRAPPERS:
         ms, plain, bound_ms, by, lib_ms = enc_res[name]
         log(f"  {name:24s} B={ENC_B:5d}: {ms:.4f} ms, plain {plain:.4f}, bound {bound_ms:.4f} "
             f"({by}), library {lib_ms:.4f}")
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": ATTN_SOURCE if "attention" in name else ENC_SOURCE,
+            "name": name, "route": "cuda", "source": enc_source(name),
             "replaces": ENC_REPLACES[name],
             "launches": extraction["launches"][name], "max_abs_err": enc_errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms, "batch": ENC_B,
+            "library_ms": lib_ms, "batch": ENC_B, **prep_entry(name, enc_parts),
         })
     log(f"  extraction: {json.dumps({**ext_times, 'cli_clips_per_s': extraction['cli_clips_per_s']})}")
 
@@ -2021,6 +2231,7 @@ def main() -> int:
     log("phase 16: times at whisper-large-v3 (library_ms as in phase 7)")
     lg_batch = large_batch_times(dev, W, path15.pop("params"))
     lg_res = encoder_kernel_times(lg_inp, E, CE)
+    lg_parts = encoder_prep_and_parts(lg_inp, CE, _build.load_library())
     del lg_inp
     for name in ENC_WRAPPERS:
         ms, plain, bound_ms, by, lib_ms = lg_res[name]
@@ -2033,14 +2244,14 @@ def main() -> int:
             entry["at_whisper_large_v3"] = {
                 "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
                 "library_ms": lib_ms, "batch": lg_cli_b, "launches": path15["launches"][name],
-                "max_abs_err": lg_errs[name]}
+                "max_abs_err": lg_errs[name], **prep_entry(name, lg_parts)}
     for wide, name in WIDE_FORMS.items():
         ms, plain, bound_ms, by, lib_ms = lg_res[name]
         kernels.append({
             "name": wide, "route": "cuda", "source": ENC_SOURCE, "replaces": ENC_REPLACES[name],
             "launches": path15["launches"][wide], "max_abs_err": lg_errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms, "batch": lg_cli_b,
+            "library_ms": lib_ms, "batch": lg_cli_b, **prep_entry(name, lg_parts),
         })
         check(kernels[-1]["launches"] > 0, f"{wide}: no launch on the whisper-large-v3 path")
     log(f"  whisper-large-v3 extraction: {json.dumps({**lg_batch, 'cli_clips_per_s': path15['cli_clips_per_s'], 'cli_s': path15['extract_s']})}")

@@ -20,9 +20,9 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "attention_kernel.cu", "coder_kernels.cu",
-            "blocked_encode.cu")
-_HEADERS = ("topk_common.cuh",)
+_SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "attention_kernel.cu", "encoder_gemm.cu",
+            "coder_kernels.cu", "blocked_encode.cu")
+_HEADERS = ("topk_common.cuh", "hopper_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # The kernels' compile-time limits, kept here as Python constants because
 # the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
@@ -65,13 +65,14 @@ _SIGNATURES = {
     "wst_enc_mlp_chunk": ([], _I),
     "wst_enc_narrow_max": ([], _I),
     "wst_enc_wide_max": ([], _I),
-    "wst_ln_qkv_fwd": (
-        [_P, _L, _I, _P, _P, _P, _P, ctypes.c_float,  # x, n, d, g, b, wt, bias, q_scale
-         _P, _P, _P, _P],                            # q, k, v, stream
+    "wst_ln_rows_fwd": ([_P, _L, _I, _P, _P, _P, _P], _I),  # x, n, d, g, b, out, stream
+    "wst_enc_gemm_fwd": (
+        [_I, _P, _P, _L, _I, _I,                    # epi, a, b, m, n, k
+         _P, ctypes.c_float, _I, _P, _P, _P,        # bias, q_scale, d, out0, out1, out2
+         _P, _P],                                   # res, stream
         _I,
     ),
     "wst_attention_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
-    "wst_out_proj_fwd": ([_P, _P, _L, _I, _P, _P, _P, _P], _I),
     "wst_mlp_block_fwd": (
         [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P,    # x, n, d, f, g, b, w1t, b1, w2t, b2
          _P, _P, _I, _P, _P, _P, _P, _P],           # fg, fb, cap_mode, out, cap, in, out, stream

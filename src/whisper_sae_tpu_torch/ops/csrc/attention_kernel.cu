@@ -5,9 +5,10 @@
 //   replaces the core of whisper_sae_tpu/ops/pallas_encoder.py:
 //   _attention_block_kernel / _attention_block_kernel_tiled
 //   (fused_attention_block, pallas_call at :340), launched between the
-//   LN+QKV and out-projection kernels of ops/csrc/encoder_kernels.cu, and
-//   the library flash attention of models/whisper.py:_flash_self_attention
-//   (:141) on the composed route.
+//   LN+QKV and out-projection GEMMs of ops/csrc/encoder_gemm.cu, and the
+//   library flash attention of models/whisper.py:_flash_self_attention
+//   (:141) on the composed route.  Its mbarrier, TMA, descriptor and wgmma
+//   helpers are in ops/csrc/hopper_common.cuh.
 //
 // Semantics (unchanged from the mma.sync kernel it replaces): q arrives
 // scaled; key columns >= t_real get exactly zero weight; query rows
@@ -40,13 +41,14 @@
 //   was the softmax under its own warpgroup's PV product while ptxas
 //   serialised that loop's wgmmas.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_common.cuh"
 
 namespace wst_attn {
+
+using namespace wst_hopper;
 
 typedef unsigned short bf16_t;
 
@@ -70,79 +72,6 @@ struct __align__(1024) Smem {
   uint64_t q_full;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Spin until the phase of parity ``parity`` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-// TMA: the box at (c0 columns, c1 rows, c2 clip) of a 3-D tensor map into
-// shared memory, completion counted in bytes on ``bar``.
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptors for a 128-byte-swizzled tile whose rows
-// are 128 bytes (64 bf16): 8-row groups 1024 bytes apart.
-//   K-major (Q, K: rows along M/N, contiguous along K): SBO = 1024, LBO unused.
-//   MN-major (V: rows along K, contiguous along N): the 8-row K groups are
-//   1024 bytes apart; the tile is one 64-wide swizzle atom along N, so the
-//   atom stride is never used.  Both offsets are set to 1024, which reads
-//   the same under either field's role.
-__device__ __forceinline__ uint64_t desc_encode(uint32_t x) { return (uint64_t)((x & 0x3FFFF) >> 4); }
-__device__ __forceinline__ uint64_t desc_k_major(const void* p) {
-  return desc_encode(smem_u32(p)) | (desc_encode(16) << 16) | (desc_encode(1024) << 32) |
-         ((uint64_t)1 << 62);
-}
-__device__ __forceinline__ uint64_t desc_mn_major(const void* p) {
-  return desc_encode(smem_u32(p)) | (desc_encode(1024) << 16) | (desc_encode(1024) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// wait until at most N committed wgmma groups of this warpgroup are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator registers across the async
-// wgmma window.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 #define WST_D32                                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
   "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -376,28 +305,6 @@ __global__ void __launch_bounds__(NC * 128 + 32, 1) attention_kernel(
       *reinterpret_cast<uint32_t*>(out + base + (size_t)r1 * d + c) =
           pack2(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
   }
-}
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  cudaError_t err =
-      cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-  cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-  if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-  fn = reinterpret_cast<EncodeTiled>(p);
-  return fn;
 }
 
 // [b, t, d] bf16 as a 3-D map (innermost first: d, t, b), boxes of

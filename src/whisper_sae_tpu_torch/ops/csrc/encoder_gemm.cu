@@ -1,0 +1,439 @@
+// The Whisper encoder's row products on Hopper: one warp-specialised,
+// TMA-fed wgmma GEMM, written for sm_90a.
+//
+// gemm_kernel<kQkv>       ("wst_enc_gemm_fwd", epi 0)
+//   after ln_rows_kernel (encoder_kernels.cu) is LN1 + the q/k/v product
+//   of the attention block;
+// gemm_kernel<kResidual>  ("wst_enc_gemm_fwd", epi 1)
+//   is the out-projection with its bias and the residual.
+// With attention_kernel.cu's core between them they replace
+// whisper_sae_tpu/ops/pallas_encoder.py:_attention_block_kernel and
+// _attention_block_kernel_tiled (fused_attention_block, pallas_call at
+// :340).
+//
+// C[m, n] = A[m, k] . B[n, k]^T: A bf16 rows (the LN'd rows, or the
+// attention core's output), B the weight in the [N, K] layout, f32 sums.
+// K and N multiples of 128; rows of A past m load as zeros (TMA) and are
+// not stored.  Epilogues with the Pallas kernels' numerics
+// (pallas_encoder.py:186-197, :225-229):
+//   kQkv       q = bf16((acc + bq) * head_dim**-0.5), k = bf16(acc),
+//              v = bf16(acc + bv), each written [m, d] (N = 3d; a
+//              128-column tile lies in one third, as 128 divides d);
+//   kResidual  y = bf16(acc + bo); out = bf16(x + y).
+// No atomics: two launches give the same bits.
+//
+// Bounds at whisper-large-v3, 16 clips (24,000 rows, D=1280; 989 TFLOP/s
+// bf16, 3.35 TB/s): the q/k/v product is 2*24000*1280*3840 = 236 GFLOP,
+// 0.24 ms; the out-projection 79 GFLOP, 0.08 ms.  Both are bound by
+// operations.
+//
+// What the design does about it (the usual shape of a Hopper GEMM):
+// - One producer warp keeps TMA loads in flight: A and B tiles of 64 K
+//   columns (one 128-byte swizzle span a row) from 2-D tensor maps into a
+//   ring of 6 stages of 32 KB (5 for kResidual) with full/empty
+//   mbarriers.
+// - Two consumer warpgroups each own a 64 x 128 half of a 128 x 128
+//   output tile and issue wgmma.mma_async m64n128k16 (bf16 in, f32 sums)
+//   from shared memory, both operands K-major; one wgmma group stays in
+//   flight while the next stage's is issued, and a stage is released as
+//   soon as the group that read it has completed.
+// - A persistent grid walks the output tiles, N fastest, so the CTAs in
+//   flight share A's row tiles in L2.  The q/k/v product runs in clusters
+//   of two CTAs that take the same column tile of two row tiles: each
+//   producer loads its own A tile and half of the B tile, multicast into
+//   both CTAs, so L2 serves 3/4 of the bytes; a stage is refilled once the
+//   consumers of both CTAs have released it.  The out-projection runs
+//   one CTA alone: clusters did not speed it up on the card.
+// - The epilogue writes the rounded tile into a swizzled shared buffer
+//   and one thread stores it with TMA; the consumers go on to the next
+//   tile's products while the store drains, and the producer has run
+//   ahead into that tile's stages.  The residual tile of kResidual is
+//   prefetched by TMA into its own buffer while the tile's products run.
+// A 256-column tile halves the re-reads of A but, with room for its
+// output buffer, keeps only 3 stages; it was slower on the card.
+
+#include <cuda_bf16.h>
+
+#include "hopper_common.cuh"
+
+namespace wst_gemm {
+
+using namespace wst_hopper;
+
+typedef unsigned short bf16_t;
+
+constexpr int kBM = 128;         // rows of an output tile: two warpgroups of 64
+constexpr int kBN = 128;         // columns of an output tile: one m64n128k16 wgmma
+constexpr int kBK = 64;          // K columns a stage: 128 bytes, one swizzle span
+constexpr int kBoxes = kBN / kBK;  // 64-column TMA boxes of an output tile
+constexpr int kConsumers = 2;    // consumer warpgroups a CTA
+constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
+constexpr int kAlign = 128;      // N and K must be multiples of this
+constexpr int kMaxDevices = 64;  // devices whose launch setup is kept
+constexpr uint32_t kStageBytes = (kBM + kBN) * kBK * sizeof(bf16_t);
+constexpr uint32_t kTileBytes = kBM * kBN * sizeof(bf16_t);
+
+constexpr int kQkv = 0;
+constexpr int kResidual = 1;
+
+// the ring's depth; kResidual gives a stage to the residual tile's buffer
+template <int EPI>
+struct Stages {
+  static constexpr int value = EPI == kResidual ? 5 : 6;
+};
+
+// CTAs a cluster (see the note at the top)
+template <int EPI>
+struct Cluster {
+  static constexpr int value = EPI == kQkv ? 2 : 1;
+};
+
+// A probe's build (-DWST_GEMM_MAINLOOP_ONLY, never the library's) runs the
+// products alone: no epilogue, nothing stored.
+#ifdef WST_GEMM_MAINLOOP_ONLY
+constexpr bool kEpilogue = false;
+#else
+constexpr bool kEpilogue = true;
+#endif
+
+// Every tile is 1024-byte aligned (the 128-byte swizzle repeats every 8 rows).
+template <int EPI>
+struct __align__(1024) GemmSmem {
+  static constexpr int S = Stages<EPI>::value;
+  static constexpr int R = EPI == kResidual ? kBoxes : 1;
+  bf16_t a[S][kBM * kBK];       // 16 KB a stage
+  bf16_t b[S][kBN * kBK];       // 16 KB a stage
+  bf16_t out[kBoxes][kBM * kBK];  // the output tile, as TMA boxes of 64 columns
+  bf16_t res[R][EPI == kResidual ? kBM * kBK : 8];  // the residual tile (kResidual)
+  uint64_t full[S];
+  uint64_t empty[S];
+  uint64_t res_full;
+};
+
+struct Epilogue {
+  const float* bias;   // [n] f32 (kQkv: bq, 0, bv)
+  float q_scale;       // kQkv: the q third's factor
+  int d;               // kQkv: the width of one third
+};
+
+__device__ __forceinline__ float bf2f(bf16_t u) { return __uint_as_float((uint32_t)u << 16); }
+__device__ __forceinline__ bf16_t f2bf(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  return (uint32_t)f2bf(lo) | ((uint32_t)f2bf(hi) << 16);
+}
+
+#define WST_D64                                                                             \
+  "{"                                                                                       \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                 \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "       \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "       \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"         \
+  "}"
+#define WST_D64_OUT(d)                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),      \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),           \
+      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),        \
+      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),        \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),        \
+      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),        \
+      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),        \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),        \
+      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),        \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d[64 x 128] (+)= A[64 x 16] . B[16 x 128], both from shared memory,
+// K-major; ``accumulate`` 0 overwrites d.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WST_D64
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : WST_D64_OUT(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// One CTA: two consumer warpgroups (threads 0 .. 255) and one producer
+// warp (256 .. 287).  CLUSTER CTAs (2 for kQkv, 1 for kResidual) form a
+// cluster that walks the cluster tiles c = clusterid, + nclusterid, ...:
+// CTA ``rank`` of the cluster takes the output tile of row tile CLUSTER
+// (c / n_tiles) + rank and column tile c % n_tiles.
+// Accumulator layout (wgmma m64n128, f32): thread (warp w of the
+// warpgroup, lane l) holds rows 16w + l/4 and 16w + l/4 + 8, columns 8j +
+// 2(l%4) + {0, 1} in d[4j + {0, 1}] and d[4j + {2, 3}].
+// The output tile (and the residual tile) lie in shared memory as TMA
+// writes them: 64-column boxes of 128-byte rows whose 16-byte chunks are
+// swizzled by the row (chunk c of row r at c ^ (r % 8)).
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
+    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+    const __grid_constant__ CUtensorMap map_o0, const __grid_constant__ CUtensorMap map_o1,
+    const __grid_constant__ CUtensorMap map_o2, const __grid_constant__ CUtensorMap map_res,
+    long long m, int n, int k, const Epilogue ep) {
+  using Smem = GemmSmem<EPI>;
+  constexpr int STAGES = Smem::S;
+  constexpr int CLUSTER = Cluster<EPI>::value;
+  constexpr int kBPart = kBN / CLUSTER;  // rows of B each CTA's producer loads
+  extern __shared__ unsigned char smem_raw[];
+  Smem& s = *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                     ~static_cast<uintptr_t>(1023));
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int rank = CLUSTER > 1 ? (int)cluster_rank() : 0;
+  const long long first = CLUSTER > 1 ? cluster_id_x() : blockIdx.x;
+  const long long stride = CLUSTER > 1 ? cluster_count_x() : gridDim.x;
+  const int n_tiles = n / kBN;
+  const long long m_tiles = (m + kBM - 1) / kBM;
+  const long long tiles = (m_tiles + CLUSTER - 1) / CLUSTER * n_tiles;  // cluster tiles
+  const int kblocks = k / kBK;
+  auto tile_rows = [&](long long tile) { return (tile / n_tiles * CLUSTER + rank) * kBM; };
+  auto tile_col = [&](long long tile) { return (int)(tile % n_tiles) * kBN; };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&s.full[st], 1);
+      mbar_init(&s.empty[st], CLUSTER * kConsumers * 4);  // every consumer warp of the cluster
+    }
+    mbar_init(&s.res_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (CLUSTER > 1) cluster_sync();  // the peer's barriers exist before any multicast
+  else __syncthreads();
+
+  if (wg == kConsumers) {  // the producer warp
+    if (tid == kConsumers * 128) {
+      int it = 0;
+      for (long long tile = first; tile < tiles; tile += stride) {
+        const long long row0 = tile_rows(tile);
+        const int col0 = tile_col(tile);
+        // a row tile wholly past m (the odd one of a pair) reads rows 0 ..; nothing is stored
+        const int a_row = (int)(row0 < m ? row0 : 0);
+        for (int kb = 0; kb < kblocks; ++kb, ++it) {
+          const int st = it % STAGES, round = it / STAGES;
+          if (round > 0) mbar_wait(&s.empty[st], (round - 1) & 1);
+          mbar_expect_tx(&s.full[st], kStageBytes);
+          tma_load_2d(s.a[st], &map_a, &s.full[st], kb * kBK, a_row);
+          if (CLUSTER > 1)
+            tma_load_2d_multicast(s.b[st] + rank * kBPart * kBK, &map_b, &s.full[st], kb * kBK,
+                                  col0 + rank * kBPart, (uint16_t)((1u << CLUSTER) - 1));
+          else
+            tma_load_2d(s.b[st], &map_b, &s.full[st], kb * kBK, col0);
+        }
+      }
+    }
+  } else {
+    const int lane = tid & 31, warp = (tid / 32) & 3;
+    const int fr = lane >> 2, fc = (lane & 3) * 2;
+    const int lr0 = wg * 64 + warp * 16 + fr;  // rows lr0 and lr0 + 8 of a tile
+    // this warp is done with stage ``st`` (at CLUSTER = 2 lane r arrives
+    // on CTA r's barrier)
+    auto release = [&](int st) {
+      __syncwarp();
+      if (CLUSTER > 1) {
+        if (lane < CLUSTER) mbar_arrive_cluster(&s.empty[st], lane);
+      } else if (lane == 0) {
+        mbar_arrive(&s.empty[st]);
+      }
+    };
+    // kResidual: the residual tile of ``tile`` into s.res (thread 0, once
+    // every consumer is done with the buffer)
+    auto fetch_res = [&](long long tile) {
+      if constexpr (EPI == kResidual && kEpilogue) {
+        if (tid != 0 || tile >= tiles) return;
+        const long long row0 = tile_rows(tile);
+        mbar_expect_tx(&s.res_full, kTileBytes);
+#pragma unroll
+        for (int bx = 0; bx < kBoxes; ++bx)
+          tma_load_2d(s.res[bx], &map_res, &s.res_full, tile_col(tile) + bx * kBK,
+                      (int)(row0 < m ? row0 : 0));
+      }
+    };
+    // element (row r, column c) of a tile buffer of 64-column boxes
+    auto at = [&](bf16_t (*buf)[kBM * kBK], int r, int c) {
+      return buf[c >> 6] + r * kBK + ((((c >> 3) & 7) ^ (r & 7)) << 3) + (c & 7);
+    };
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+    fetch_res(first);
+    int it = 0, local = 0;
+    for (long long tile = first; tile < tiles; tile += stride, ++local) {
+      const long long row0 = tile_rows(tile);
+      const int col0 = tile_col(tile);
+      for (int kb = 0; kb < kblocks; ++kb, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(&s.full[st], (it / STAGES) & 1);
+        const uint64_t da = desc_k_major(s.a[st] + wg * 64 * kBK);
+        const uint64_t db = desc_k_major(s.b[st]);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk)
+          wgmma_n128(acc, da + 2 * kk, db + 2 * kk, kb > 0 || kk > 0);
+        wgmma_commit();
+        fence_acc(acc);
+        if (kb > 0) {  // the previous stage's group has completed: hand its stage back
+          wgmma_wait<1>();
+          release((it - 1) % STAGES);
+        }
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      release((it - 1) % STAGES);
+      if (!kEpilogue) continue;
+
+      // The epilogue: the values, rounded to bf16, into the output-tile
+      // buffer once the previous tile's store has read it; then thread 0
+      // stores it (rows past m are not written) and fetches the next
+      // residual tile, and the consumers go on to the next tile.
+      const CUtensorMap* map_o = &map_o0;
+      int ocol0 = col0;
+      float sc = 1.0f;
+      if (EPI == kQkv) {
+        const int part = col0 / ep.d;
+        map_o = part == 0 ? &map_o0 : part == 1 ? &map_o1 : &map_o2;
+        ocol0 = col0 - part * ep.d;
+        sc = part == 0 ? ep.q_scale : 1.0f;
+      }
+      if (tid == 0) bulk_wait_read<0>();
+      if (EPI == kResidual) mbar_wait(&s.res_full, local & 1);
+      named_sync(1, kConsumers * 128);
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const int c = j * 8 + fc;
+        const float b0 = __ldg(ep.bias + col0 + c), b1 = __ldg(ep.bias + col0 + c + 1);
+        uint32_t* o0 = reinterpret_cast<uint32_t*>(at(s.out, lr0, c));
+        uint32_t* o1 = reinterpret_cast<uint32_t*>(at(s.out, lr0 + 8, c));
+        if constexpr (EPI == kQkv) {
+          *o0 = pack2((acc[4 * j] + b0) * sc, (acc[4 * j + 1] + b1) * sc);
+          *o1 = pack2((acc[4 * j + 2] + b0) * sc, (acc[4 * j + 3] + b1) * sc);
+        } else {
+          const uint32_t x0 = *reinterpret_cast<const uint32_t*>(at(s.res, lr0, c));
+          const uint32_t x1 = *reinterpret_cast<const uint32_t*>(at(s.res, lr0 + 8, c));
+          *o0 = pack2(bf2f((bf16_t)(x0 & 0xffffu)) + bf2f(f2bf(acc[4 * j] + b0)),
+                      bf2f((bf16_t)(x0 >> 16)) + bf2f(f2bf(acc[4 * j + 1] + b1)));
+          *o1 = pack2(bf2f((bf16_t)(x1 & 0xffffu)) + bf2f(f2bf(acc[4 * j + 2] + b0)),
+                      bf2f((bf16_t)(x1 >> 16)) + bf2f(f2bf(acc[4 * j + 3] + b1)));
+        }
+      }
+      fence_proxy_async();
+      named_sync(1, kConsumers * 128);
+      if (tid == 0) {
+        if (row0 < m) {
+#pragma unroll
+          for (int bx = 0; bx < kBoxes; ++bx)
+            tma_store_2d(map_o, s.out[bx], ocol0 + bx * kBK, (int)row0);
+          bulk_commit();
+        }
+        fetch_res(tile + stride);
+      }
+    }
+    if (tid == 0) bulk_wait<0>();  // every store has landed before the CTA ends
+  }
+  // no CTA of the cluster leaves while its peer may still arrive on its barriers
+  if (CLUSTER > 1) cluster_sync();
+}
+
+// [rows, cols] bf16 row-major as a 2-D map (innermost first: cols, rows),
+// boxes of 64 columns x box_rows rows, 128-byte swizzle, zeros out of bounds.
+int make_map(CUtensorMap* map, const void* ptr, long long rows, int cols, int box_rows) {
+  EncodeTiled fn = encode_fn();
+  if (!fn) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16_t)};
+  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// The clusters that fit on each device, by epilogue, 0 until the first
+// launch there.  File-local: a function-local static of a template would
+// be one object across every loaded copy of the library.
+static int g_fits[2][kMaxDevices];
+
+// outs: q, k, v ([m, d] each) for kQkv; out ([m, n]) three times for
+// kResidual, whose residual ``res`` is [m, n].
+template <int EPI>
+int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* const* outs,
+                const void* res, const Epilogue& ep, cudaStream_t stream) {
+  constexpr int CLUSTER = Cluster<EPI>::value;
+  auto kernel = gemm_kernel<EPI>;
+  const int out_cols = EPI == kQkv ? ep.d : n;
+  CUtensorMap ma, mb, mo[3], mr;
+  int err = make_map(&ma, a, m, k, kBM);
+  if (!err) err = make_map(&mb, b, n, k, kBN / CLUSTER);
+  for (int i = 0; i < 3 && !err; ++i) err = make_map(&mo[i], outs[i], m, out_cols, kBM);
+  if (!err) err = make_map(&mr, EPI == kResidual ? res : outs[0], m, out_cols, kBM);
+  if (err) return err;
+  const size_t smem = sizeof(GemmSmem<EPI>) + 1024;  // + room to align the base to 1024
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // persistent: as many clusters as fit on the card at once, at most one
+  // a cluster tile; the attribute and the count are set up once a device
+  // (the launch is on the host's path between every two layers)
+  int* fits = g_fits[EPI];
+  int dev = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (fits[dev] == 0) {
+    int sms = 0, fit = 0;
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cfg.gridDim = dim3(sms / CLUSTER * CLUSTER);
+    if (!err) err = (int)cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (err) return err;
+    if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
+    fits[dev] = fit;
+  }
+  const int fit = fits[dev];
+  const long long tiles = ((m + kBM - 1) / kBM + CLUSTER - 1) / CLUSTER * (n / kBN);
+  cfg.gridDim = dim3((unsigned)((tiles < fit ? tiles : fit) * CLUSTER));
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, ma, mb, mo[0], mo[1], mo[2], mr, m, n, k, ep);
+  return err ? err : (int)cudaGetLastError();
+}
+
+}  // namespace wst_gemm
+
+extern "C" {
+
+// C = A . B^T with epilogue ``epi`` (0: q/k/v, 1: bias + residual).
+// a: [m, k] bf16; b: [n, k] bf16; bias: [n] f32; n and k multiples of
+// 128.  epi 0: n = 3d, outputs out0/out1/out2 = q/k/v [m, d]; epi 1: out0
+// [m, n] = res + bf16(acc + bias).
+int wst_enc_gemm_fwd(int epi, const void* a, const void* b, long long m, int n, int k,
+                     const void* bias, float q_scale, int d, void* out0, void* out1, void* out2,
+                     const void* res, void* stream) {
+  using namespace wst_gemm;
+  if (m <= 0) return 0;
+  if (k <= 0 || k % kAlign || n <= 0 || n % kAlign || (epi != kQkv && epi != kResidual))
+    return (int)cudaErrorInvalidValue;
+  if (epi == kQkv && (d <= 0 || d % kBN || n != 3 * d)) return (int)cudaErrorInvalidValue;
+  Epilogue ep;
+  ep.bias = static_cast<const float*>(bias);
+  ep.q_scale = q_scale;
+  ep.d = d;
+  void* const outs[3] = {out0, epi == kQkv ? out1 : out0, epi == kQkv ? out2 : out0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (epi == kQkv) return launch_gemm<kQkv>(a, b, m, n, k, outs, res, ep, s);
+  return launch_gemm<kResidual>(a, b, m, n, k, outs, res, ep, s);
+}
+
+}  // extern "C"

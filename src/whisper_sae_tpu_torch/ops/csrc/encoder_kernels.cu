@@ -4,12 +4,11 @@
 // conv_stem_kernel<32, 33> (512 < D <= 1536)
 //   replace whisper_sae_tpu/ops/pallas_encoder.py:_conv_stem_kernel
 //   (fused_conv_stem, pallas_call at :604).
-// ln_qkv_kernel, out_proj_kernel   (the attention block)
-//   with attention_kernel (ops/csrc/attention_kernel.cu) replace
+// ln_rows_kernel ("wst_ln_rows_fwd")  LN1 of the attention block, ahead of
+//   the q/k/v product; with the Hopper GEMM of encoder_gemm.cu (q/k/v and
+//   the out-projection) and the core of attention_kernel.cu it replaces
 //   _attention_block_kernel and _attention_block_kernel_tiled
-//   (fused_attention_block, pallas_call at :340) as three launches:
-//   LN1 + the q/k/v product, the attention core, the out-projection with
-//   the residual.
+//   (fused_attention_block, pallas_call at :340).
 // mlp_block_kernel     ("mlp_block_fwd", D <= 512) and the wide form
 //   ln_rows_kernel + gemm_tn_kernel<kGelu> + gemm_tn_kernel<kResidual>
 //   (+ ln_rows_kernel) ("mlp_block_wide_fwd", D = 768 .. 1536)
@@ -18,14 +17,13 @@
 //
 // Numerics are the Pallas kernels': bf16 operands with f32 sums
 // (mma.sync.m16n8k16), every bias added in f32 before the single
-// rounding to bf16, LN (eps 1e-5, population variance) and softmax in
-// f32, exact erff GELU (the TPU kernels' erf polynomial, 3.4e-5, is a
-// Mosaic workaround), the residual add rounded once to bf16, and the
-// final-LN capture taken from the bf16-rounded layer output.
+// rounding to bf16, LN (eps 1e-5, population variance) in f32, exact erff
+// GELU (the TPU kernels' erf polynomial, 3.4e-5, is a Mosaic workaround),
+// the residual add rounded once to bf16, and the final-LN capture taken
+// from the bf16-rounded layer output.
 //
 // Bounds on the H100 at whisper-tiny, 64 clips (T=1500, D=384, F=1536;
 // 989 TFLOP/s bf16): all are bound by operations, not bytes.
-//   attention block  64*(8*T*D^2 + 4*T^2*D) = 334 GFLOP   0.34 ms
 //   MLP block        4*(64*T)*D*F           = 226 GFLOP   0.23 ms
 //   conv stem        2*64*T*D*(3*80+3*D)    = 103 GFLOP   0.10 ms
 // At whisper-large-v3, 8 clips (D=1280, F=5120, 128 mels) a layer's MLP
@@ -34,8 +32,7 @@
 // from a tile of rows staged once in shared memory; the weights stream
 // from L2 as 32-bit B fragments in the [N, K] layout.  Up to D = 512 the
 // MLP's [rows, F] hidden and the stem's [T_mel, D] hidden never reach
-// device memory.  Between the three attention launches q, k, v and the
-// attention output make one round trip each (4 * B*T*D bf16).
+// device memory.
 //
 // The wide forms.  The stem's 64-frame tile needs 2 x 80 rows of h in
 // shared memory (412 KB at D=1280); its wide form takes 32 output frames
@@ -52,10 +49,12 @@
 // ms of products.  The products are one 128 x 128-tile GEMM
 // (gemm_tn_kernel, 4-stage cp.async ring, ldmatrix fragments, mma.sync).
 //
-// Not yet fast: no wgmma, TMA or persistent grid outside the attention
-// core.  The MLP block pipelines its loads (cp.async, ldmatrix
-// fragments); the other products read their weights as 32-bit B
-// fragments straight from L2 (warp_gemm).
+// Which products run where.  The attention block's q/k/v product and
+// out-projection run on the warp-specialised wgmma/TMA GEMM of
+// encoder_gemm.cu.  The products here are still mma.sync: the MLP block
+// (cp.async ring, ldmatrix fragments) and the conv stem (its weights read
+// as 32-bit B fragments straight from L2, warp_gemm); encoder_gemm.cu's
+// GEMM is their next candidate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -164,80 +163,66 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
     for (int t = 0; t < NT; ++t) acc[m][t][0] = acc[m][t][1] = acc[m][t][2] = acc[m][t][3] = 0.0f;
 }
 
-// LN in f32 of the row src[0..d) into dst as bf16, by one warp (two-pass
-// mean and population variance, as jnp.mean / jnp.var).
-__device__ __forceinline__ void ln_row(const bf16_t* src, int d, const float* g, const float* b,
+// LN in f32 of one row by one warp (two passes over the row held in
+// registers: mean, then population variance, as jnp.mean / jnp.var),
+// stored bf16 (dst_bf) or f32 (dst_f32).  D = 128 P: lane l holds columns
+// 128i + 4l .. +4 for i < P, read as one 8-byte piece each.  src and
+// dst_bf may lie in global or shared memory.
+template <int P>
+__device__ __forceinline__ void ln_row(const bf16_t* src, const float* g, const float* b,
                                        bf16_t* dst_bf, float* dst_f32, int lane) {
+  float v[P][4];
   float s = 0.0f;
-  for (int c = lane; c < d; c += kWarp) s += bf2f(src[c]);
-  const float mean = warp_sum(s) / (float)d;
-  float v = 0.0f;
-  for (int c = lane; c < d; c += kWarp) {
-    const float dv = bf2f(src[c]) - mean;
-    v = fmaf(dv, dv, v);
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const uint2 u = *reinterpret_cast<const uint2*>(src + 128 * i + 4 * lane);
+    v[i][0] = bf2f((bf16_t)(u.x & 0xffffu));
+    v[i][1] = bf2f((bf16_t)(u.x >> 16));
+    v[i][2] = bf2f((bf16_t)(u.y & 0xffffu));
+    v[i][3] = bf2f((bf16_t)(u.y >> 16));
+    s += (v[i][0] + v[i][1]) + (v[i][2] + v[i][3]);
   }
-  const float rs = rsqrtf(warp_sum(v) / (float)d + kLnEps);
-  for (int c = lane; c < d; c += kWarp) {
-    const float y = (bf2f(src[c]) - mean) * rs * g[c] + b[c];
-    if (dst_f32) dst_f32[c] = y;
-    else dst_bf[c] = f2bf(y);
+  constexpr float d = 128 * P;
+  const float mean = warp_sum(s) / d;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float dv = v[i][j] - mean;
+      q = fmaf(dv, dv, q);
+    }
+  }
+  const float rs = rsqrtf(warp_sum(q) / d + kLnEps);
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    const int c = 128 * i + 4 * lane;
+    const float4 gg = __ldg(reinterpret_cast<const float4*>(g + c));
+    const float4 bb = __ldg(reinterpret_cast<const float4*>(b + c));
+    const float y0 = (v[i][0] - mean) * rs * gg.x + bb.x;
+    const float y1 = (v[i][1] - mean) * rs * gg.y + bb.y;
+    const float y2 = (v[i][2] - mean) * rs * gg.z + bb.z;
+    const float y3 = (v[i][3] - mean) * rs * gg.w + bb.w;
+    if (dst_f32)
+      *reinterpret_cast<float4*>(dst_f32 + c) = make_float4(y0, y1, y2, y3);
+    else
+      *reinterpret_cast<uint2*>(dst_bf + c) = make_uint2(pack2(y0, y1), pack2(y2, y3));
   }
 }
 
-// LN1/LN2 prologue: rows row0 .. row0+kRows of x into xs (bf16, stride
-// lds); rows past n are zeros.
-__device__ __forceinline__ void ln_tile(const bf16_t* x, long long n, long long row0, int d,
+// LN2 prologue: rows row0 .. row0+kRows of x (D = 128 P) into xs (bf16,
+// stride lds); rows past n are zeros.
+template <int P>
+__device__ __forceinline__ void ln_tile(const bf16_t* x, long long n, long long row0,
                                         const float* g, const float* b, bf16_t* xs, int lds,
                                         int warp, int lane) {
+  constexpr int d = 128 * P;
   for (int r = warp; r < kRows; r += kWarps) {
     const long long gr = row0 + r;
     if (gr < n) {
-      ln_row(x + gr * d, d, g, b, xs + r * lds, nullptr, lane);
+      ln_row<P>(x + gr * d, g, b, xs + r * lds, nullptr, lane);
     } else {
       for (int c = lane; c < d; c += kWarp) xs[r * lds + c] = 0;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// attention block, launch (a): q, k, v = LN1(x) @ [Wq | Wk | Wv] (+ biases)
-// ---------------------------------------------------------------------------
-
-// wt: [3d, d] bf16, the q, k and v weights transposed and stacked;
-// bias: [3d] f32 = (bq, 0, bv).  q = bf16((acc + bq) * q_scale),
-// k = bf16(acc), v = bf16(acc + bv), each written [n, d].
-__global__ void __launch_bounds__(kThreads) ln_qkv_kernel(
-    const bf16_t* x, long long n, int d, const float* g, const float* bln, const bf16_t* wt,
-    const float* bias, float q_scale, bf16_t* q, bf16_t* k, bf16_t* v) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16_t* xs = reinterpret_cast<bf16_t*>(smem);
-  const int lds = d + 8;
-  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
-  const int fr = lane >> 2, fc = (lane & 3) * 2;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  ln_tile(x, n, row0, d, g, bln, xs, lds, warp, lane);
-  __syncthreads();
-  for (int n0 = warp * kColTile; n0 < 3 * d; n0 += kWarps * kColTile) {
-    float acc[4][4][4];
-    zero(acc);
-    warp_gemm<4, 4>(acc, xs, lds, wt + (size_t)n0 * d, d, d / 16, lane);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int col = n0 + t * 8 + fc;
-      const int part = col / d, c = col - part * d;
-      bf16_t* dst = part == 0 ? q : (part == 1 ? k : v);
-      const float sc = part == 0 ? q_scale : 1.0f;
-      const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long long gr = row0 + m * 16 + fr + h * 8;
-          if (gr < n)
-            st32(dst + gr * d + c,
-                 pack2((acc[m][t][2 * h] + b0) * sc, (acc[m][t][2 * h + 1] + b1) * sc));
-        }
-      }
     }
   }
 }
@@ -264,54 +249,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16_t* p) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
 }
-// ---------------------------------------------------------------------------
-// attention block, launch (c): out = x + bf16(attn @ Wo + bo)
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads) out_proj_kernel(
-    const bf16_t* attn, const bf16_t* x, long long n, int d, const bf16_t* wt, const float* bias,
-    bf16_t* out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16_t* as = reinterpret_cast<bf16_t*>(smem);
-  const int lds = d + 8;
-  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
-  const int fr = lane >> 2, fc = (lane & 3) * 2;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int vec = d / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < kRows * vec; i += kThreads) {
-    const int r = i / vec, c = (i - r * vec) * 8;
-    const long long gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < n) val = __ldg(reinterpret_cast<const uint4*>(attn + gr * d + c));
-    *reinterpret_cast<uint4*>(as + r * lds + c) = val;
-  }
-  __syncthreads();
-  for (int n0 = warp * kColTile; n0 < d; n0 += kWarps * kColTile) {
-    float acc[4][4][4];
-    zero(acc);
-    warp_gemm<4, 4>(acc, as, lds, wt + (size_t)n0 * d, d, d / 16, lane);
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int col = n0 + t * 8 + fc;
-      const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long long gr = row0 + m * 16 + fr + h * 8;
-          if (gr < n) {
-            const uint32_t xv = ldg32(x + gr * d + col);
-            const float y0 = round_bf(acc[m][t][2 * h] + b0);
-            const float y1 = round_bf(acc[m][t][2 * h + 1] + b1);
-            st32(out + gr * d + col,
-                 pack2(bf2f((bf16_t)(xv & 0xffffu)) + y0, bf2f((bf16_t)(xv >> 16)) + y1));
-          }
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // MLP block: out = x + bf16(GELU(LN2(x) @ W1 + b1) @ W2 + b2)
 // ---------------------------------------------------------------------------
@@ -358,7 +295,8 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_block_kernel(
   };
   load_chunk(0, 0);
 
-  ln_tile(x, n, row0, d, g, bln, xs, lds, warp, lane);
+  static_assert(NY % 2 == 0, "LN takes D a multiple of 128");
+  ln_tile<NY / 2>(x, n, row0, g, bln, xs, lds, warp, lane);
   __syncthreads();
   if (mlp_in) {
     for (int i = tid; i < kRows * (d / 2); i += kThreads) {
@@ -451,9 +389,9 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_block_kernel(
       const long long gr = row0 + r;
       if (gr >= n) continue;
       if (cap_mode == 2)
-        ln_row(xs + r * lds, d, fg, fb, nullptr, static_cast<float*>(cap) + gr * d, lane);
+        ln_row<NY / 2>(xs + r * lds, fg, fb, nullptr, static_cast<float*>(cap) + gr * d, lane);
       else
-        ln_row(xs + r * lds, d, fg, fb, static_cast<bf16_t*>(cap) + gr * d, nullptr, lane);
+        ln_row<NY / 2>(xs + r * lds, fg, fb, static_cast<bf16_t*>(cap) + gr * d, nullptr, lane);
     }
   }
 }
@@ -462,15 +400,18 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_block_kernel(
 // MLP block, wide form: LN rows, then two 128 x 128-tile GEMMs
 // ---------------------------------------------------------------------------
 
-// One warp a row: dst = LN(x row) in f32, stored bf16 (out_bf) or f32.
-__global__ void __launch_bounds__(kThreads) ln_rows_kernel(const bf16_t* x, long long n, int d,
+// One warp a row: dst = LN(x row) in f32, stored bf16 (out_bf) or f32
+// (D = 128 P up to kWideMax).
+template <int P>
+__global__ void __launch_bounds__(kThreads) ln_rows_kernel(const bf16_t* x, long long n,
                                                            const float* g, const float* b,
                                                            bf16_t* out_bf, float* out_f32) {
+  constexpr int d = 128 * P;
   const int lane = threadIdx.x & (kWarp - 1);
   const long long r = (long long)blockIdx.x * kWarps + threadIdx.x / kWarp;
   if (r >= n) return;
-  ln_row(x + r * d, d, g, b, out_bf ? out_bf + r * d : nullptr, out_f32 ? out_f32 + r * d : nullptr,
-         lane);
+  ln_row<P>(x + r * d, g, b, out_bf ? out_bf + r * d : nullptr,
+            out_f32 ? out_f32 + r * d : nullptr, lane);
 }
 
 constexpr int kGelu = 0;      // out = bf16(GELU(acc + bias))
@@ -681,9 +622,8 @@ __global__ void __launch_bounds__(kThreads, 1) conv_stem_kernel(
   }
 }
 
-size_t gemm_smem(int d) { return (size_t)kRows * (d + 8) * sizeof(bf16_t); }
 size_t mlp_smem(int d) {
-  return gemm_smem(d) + (size_t)kRows * (kMlpChunk + 8) * sizeof(bf16_t) +
+  return (size_t)kRows * (d + 8) * sizeof(bf16_t) + (size_t)kRows * (kMlpChunk + 8) * sizeof(bf16_t) +
          (size_t)2 * kMlpChunk * (d + 8) * sizeof(bf16_t) +
          (size_t)2 * d * (kMlpChunk + 8) * sizeof(bf16_t);
 }
@@ -724,8 +664,16 @@ int launch_gemm_tn(const bf16_t* a, const bf16_t* b, long long m, int n, int k, 
 
 int launch_ln_rows(const bf16_t* x, long long n, int d, const float* g, const float* b,
                    bf16_t* out_bf, float* out_f32, cudaStream_t s) {
+  if (d <= 0 || d % 128 || d > kWideMax) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((n + kWarps - 1) / kWarps);
-  ln_rows_kernel<<<blocks, kThreads, 0, s>>>(x, n, d, g, b, out_bf, out_f32);
+  static_assert(kWideMax == 12 * 128, "one instantiation for each D / 128");
+  switch (d / 128) {
+#define WST_LN_CASE(P) \
+  case P: ln_rows_kernel<P><<<blocks, kThreads, 0, s>>>(x, n, g, b, out_bf, out_f32); break;
+    WST_LN_CASE(1) WST_LN_CASE(2) WST_LN_CASE(3) WST_LN_CASE(4) WST_LN_CASE(5) WST_LN_CASE(6)
+    WST_LN_CASE(7) WST_LN_CASE(8) WST_LN_CASE(9) WST_LN_CASE(10) WST_LN_CASE(11) WST_LN_CASE(12)
+#undef WST_LN_CASE
+  }
   return (int)cudaGetLastError();
 }
 
@@ -752,36 +700,16 @@ int wst_enc_mlp_chunk() { return wst_enc::kMlpChunk; }
 int wst_enc_narrow_max() { return wst_enc::kMlpNarrowMax; }
 int wst_enc_wide_max() { return wst_enc::kWideMax; }
 
-int wst_ln_qkv_fwd(const void* x, long long n, int d, const void* g, const void* bln,
-                   const void* wt, const void* bias, float q_scale, void* q, void* k, void* v,
-                   void* stream) {
+// LN of each row of x ([n, d] bf16, D a multiple of 128 up to 1536) in
+// f32, stored bf16: the attention block's LN1 ahead of the q/k/v product
+// (encoder_gemm.cu).
+int wst_ln_rows_fwd(const void* x, long long n, int d, const void* g, const void* b, void* out,
+                    void* stream) {
   using namespace wst_enc;
   if (n <= 0) return 0;
-  const size_t smem = gemm_smem(d);
-  int err = set_smem(ln_qkv_kernel, smem);
-  if (err) return err;
-  const unsigned blocks = (unsigned)((n + kRows - 1) / kRows);
-  ln_qkv_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16_t*>(x), n, d, static_cast<const float*>(g),
-      static_cast<const float*>(bln), static_cast<const bf16_t*>(wt),
-      static_cast<const float*>(bias), q_scale, static_cast<bf16_t*>(q),
-      static_cast<bf16_t*>(k), static_cast<bf16_t*>(v));
-  return (int)cudaGetLastError();
-}
-
-int wst_out_proj_fwd(const void* attn, const void* x, long long n, int d, const void* wt,
-                     const void* bias, void* out, void* stream) {
-  using namespace wst_enc;
-  if (n <= 0) return 0;
-  const size_t smem = gemm_smem(d);
-  int err = set_smem(out_proj_kernel, smem);
-  if (err) return err;
-  const unsigned blocks = (unsigned)((n + kRows - 1) / kRows);
-  out_proj_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16_t*>(attn), static_cast<const bf16_t*>(x), n, d,
-      static_cast<const bf16_t*>(wt), static_cast<const float*>(bias),
-      static_cast<bf16_t*>(out));
-  return (int)cudaGetLastError();
+  return launch_ln_rows(static_cast<const bf16_t*>(x), n, d, static_cast<const float*>(g),
+                        static_cast<const float*>(b), static_cast<bf16_t*>(out), nullptr,
+                        static_cast<cudaStream_t>(stream));
 }
 
 int wst_mlp_block_fwd(const void* x, long long n, int d, int f, const void* g, const void* bln,

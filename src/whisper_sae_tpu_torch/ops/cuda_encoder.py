@@ -1,26 +1,33 @@
-"""The fused Whisper-encoder kernels on the card (``csrc/encoder_kernels.cu``).
+"""The fused Whisper-encoder kernels on the card (``csrc/encoder_kernels.cu``,
+``csrc/encoder_gemm.cu``, ``csrc/attention_kernel.cu``).
 
 Each wrapper checks what its kernel takes, allocates the outputs,
 launches on the current stream and counts the launch in its own
 ``launches``; a shape the kernel cannot take raises.  The weights are
-given in the JAX package's ``x @ W`` layout and turned here into the
-kernels' ``[N, K]`` bf16 layout (the B operand of ``mma.sync`` as two
-32-bit loads).
+given in the JAX package's ``x @ W`` layout; the kernels take them in an
+``[N, K]`` bf16 layout with f32 biases and LN vectors.  That layout is
+built once per parameter tensor (``prepared``, keyed on the source
+tensors' address, shape, strides, dtype and version, so an in-place
+update rebuilds it, and dropped when the source tensors are freed), not
+on every launch.
 
 - ``conv_stem_fwd`` replaces ``ops/pallas_encoder.py:fused_conv_stem``
   (``pallas_call`` at :604): 64 output frames a CTA up to D=512, and its
   wide form, 32 frames a CTA, for 512 < D <= 1536.  The even/odd split of
   the mel's time columns stays a torch copy before the launch, as it is
-  XLA prep there.
+  XLA prep there.  Its products run on ``mma.sync`` (``warp_gemm``).
 - ``attention_block_fwd`` replaces ``fused_attention_block`` (:340) with
-  three launches: ``ln_qkv_fwd`` (LN1 and one ``[rows, D] x [D, 3D]``
-  product), ``self_attention_fwd`` (the Hopper attention core of
+  three steps: ``ln_qkv_fwd`` (LN1 of the rows into a bf16 scratch, then
+  one ``[rows, D] x [D, 3D]`` product on the Hopper GEMM of
+  ``csrc/encoder_gemm.cu``: a producer warp feeding TMA tiles to two
+  wgmma consumer warpgroups, a persistent grid, the q/k/v epilogue on the
+  accumulators), ``self_attention_fwd`` (the Hopper attention core of
   ``csrc/attention_kernel.cu``: three consumer warpgroups of 64 queries,
-  wgmma products, K/V tiles fed by TMA) and ``out_proj_fwd`` (the product
-  with the bias and the residual).  Three launches instead of one because
-  the product over all heads (out-projection) and the per-head core want
-  different tilings; q, k, v and the core's output make one bf16 round
-  trip through device memory each.
+  wgmma products, K/V tiles fed by TMA) and ``out_proj_fwd`` (the same
+  GEMM with the bias and residual epilogue).  The product over all heads
+  and the per-head core want different tilings; q, k, v and the core's
+  output make one bf16 round trip through device memory each, and LN1's
+  rows one more.
 - ``flash_self_attention_fwd`` is the same core launched from the
   composed route, where the JAX package calls the library flash
   attention (``models/whisper.py:_flash_self_attention``, :141).
@@ -29,20 +36,24 @@ kernels' ``[N, K]`` bf16 layout (the B operand of ``mma.sync`` as two
   time, while the next chunk of W1 and W2 streams in beside it.  Its wide
   form (D = 768 .. 1536, multiples of 128) is LN2, the fc1 GEMM with GELU
   into a bf16 ``[rows, F]`` hidden in device memory, the fc2 GEMM with the
-  residual, and the final-LN capture.
+  residual, and the final-LN capture.  Both still run on ``mma.sync``.
 - The stem and the MLP block count their wide form's launches apart, in
   ``wide_launches``; the library's ``wst_enc_narrow_max()`` draws the line.
 
-Bounds at whisper-tiny, 64 clips: operations (see the source's note).
+Bounds at whisper-tiny, 64 clips: operations (see the sources' notes).
 """
 
 from __future__ import annotations
+
+import weakref
 
 import torch
 
 from . import _build
 
 _BF = torch.bfloat16
+_EPI_QKV, _EPI_RESIDUAL = 0, 1  # epilogues of wst_enc_gemm_fwd
+_GEMM_WIDTH = 128  # the GEMM's N and K are multiples of its tile (the fused route's gate too)
 
 
 def _stream(device: torch.device) -> int:
@@ -64,9 +75,96 @@ def _check_rows(x: torch.Tensor, what: str, dims: int) -> None:
                          f"(got {x.dtype} {tuple(x.shape)} on {x.device})")
 
 
-def _check_width(d: int, what: str) -> None:
-    if d % 32:
-        raise ValueError(f"{what} takes D a multiple of 32 (got {d})")
+def _check_width(d: int, what: str, multiple: int = 32) -> None:
+    if d % multiple:
+        raise ValueError(f"{what} takes D a multiple of {multiple} (got {d})")
+
+
+# ---------------------------------------------------------------------------
+# the kernels' weight layouts, built once per parameter tensor
+# ---------------------------------------------------------------------------
+
+_prepared: dict = {}
+
+
+def _owner(t: torch.Tensor) -> torch.Tensor:
+    """The tensor that owns ``t``'s memory: its base if it is a view."""
+    return t if t._base is None else t._base
+
+
+def prepared(kind: str, sources: tuple, build):
+    """``build(*sources)``, cached per source tensors.
+
+    The key is ``kind`` and each source's address, shape, strides, dtype
+    and device; the entry keeps the sources' versions, so an in-place
+    update rebuilds it.  The entry goes when any source's owner (its base,
+    for the views ``_layer`` makes) is freed, before its memory can be
+    reused by other tensors that would hit a stale entry; the cache holds
+    no reference to the sources, so it keeps nothing alive past the
+    weights themselves (an output that shares a source's memory is copied).
+    Inference tensors keep no version counter: they are built every call."""
+    if any(s.is_inference() for s in sources):
+        return build(*sources)
+    key = (kind,) + tuple((s.data_ptr(), tuple(s.shape), s.stride(), s.dtype, s.device)
+                          for s in sources)
+    versions = tuple(s._version for s in sources)
+    entry = _prepared.get(key)
+    if entry is not None and entry[0] == versions:
+        return entry[1]
+    mem = {s.untyped_storage().data_ptr() for s in sources}
+    out = tuple(o.clone() if o.untyped_storage().data_ptr() in mem else o
+                for o in build(*sources))
+    if entry is None:  # a rebuild keeps the finalizers of the first build
+        for owner in {id(o): o for o in map(_owner, sources)}.values():
+            weakref.finalize(owner, _prepared.pop, key, None).atexit = False
+    _prepared[key] = (versions, out)
+    return out
+
+
+def _build_qkv(wq, wk, wv, bq, bv, ln_g, ln_b):
+    d = wq.shape[0]
+    wt = torch.cat([_bf16_nk(wq), _bf16_nk(wk), _bf16_nk(wv)])
+    bias = torch.cat([_f32(bq), torch.zeros(d, dtype=torch.float32, device=bq.device), _f32(bv)])
+    return wt, bias, _f32(ln_g), _f32(ln_b)
+
+
+def qkv_weights(p: dict, ln_g, ln_b):
+    """(wt ``[3D, D]`` bf16 = Wq^T, Wk^T, Wv^T stacked; bias ``[3D]`` f32 =
+    (bq, 0, bv); LN1 gain and shift in f32) for ``ln_qkv_fwd``."""
+    return prepared("qkv", (p["wq"], p["wk"], p["wv"], p["bq"], p["bv"], ln_g, ln_b), _build_qkv)
+
+
+def _build_out_proj(wo, bo):
+    return _bf16_nk(wo), _f32(bo)
+
+
+def out_proj_weights(wo, bo):
+    """(Wo^T ``[D, D]`` bf16, bo f32) for ``out_proj_fwd``."""
+    return prepared("out_proj", (wo, bo), _build_out_proj)
+
+
+def _build_mlp(w1, b1, w2, b2, ln_g, ln_b):
+    return _bf16_nk(w1), _f32(b1), _bf16_nk(w2), _f32(b2), _f32(ln_g), _f32(ln_b)
+
+
+def mlp_weights(p: dict, ln_g, ln_b):
+    """(W1^T ``[F, D]`` bf16, b1 f32, W2^T ``[D, F]`` bf16, b2 f32, LN2 gain
+    and shift f32) for ``mlp_block_fwd``."""
+    return prepared("mlp", (p["w1"], p["b1"], p["w2"], p["b2"], ln_g, ln_b), _build_mlp)
+
+
+def _build_stem(conv1_w, conv1_b, conv2_w, conv2_b, pos):
+    d, n_mels, _ = conv1_w.shape
+    w1t = conv1_w.detach().to(_BF).permute(0, 2, 1).reshape(d, 3 * n_mels).contiguous()
+    w2t = conv2_w.detach().to(_BF).permute(0, 2, 1).reshape(d, 3 * d).contiguous()
+    return w1t, _f32(conv1_b), w2t, _f32(conv2_b), pos.detach().to(_BF).contiguous()
+
+
+def stem_weights(conv1_w, conv1_b, conv2_w, conv2_b, pos):
+    """(conv1 ``[D, 3 n_mels]`` and conv2 ``[D, 3D]`` bf16 with tap j in
+    columns j*n_mels.. / j*D.., their biases f32, ``pos`` bf16) for
+    ``conv_stem_fwd``; ``pos`` is the rows the launch reads."""
+    return prepared("stem", (conv1_w, conv1_b, conv2_w, conv2_b, pos), _build_stem)
 
 
 def conv_stem_fwd(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tensor:
@@ -90,10 +188,7 @@ def conv_stem_fwd(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tensor:
         raise ValueError(f"{pos.shape[0]} positions for {t} frames")
     mt = mel.transpose(1, 2)
     even, odd = mt[:, 0::2].contiguous(), mt[:, 1::2].contiguous()
-    w1t = conv1_w.detach().to(_BF).permute(0, 2, 1).reshape(d, 3 * n_mels).contiguous()
-    w2t = conv2_w.detach().to(_BF).permute(0, 2, 1).reshape(d, 3 * d).contiguous()
-    b1, b2 = _f32(conv1_b), _f32(conv2_b)
-    posb = pos[:t].detach().to(_BF).contiguous()
+    w1t, b1, w2t, b2, posb = stem_weights(conv1_w, conv1_b, conv2_w, conv2_b, pos[:t])
     out = torch.empty((b, t, d), dtype=_BF, device=mel.device)
     err = lib.wst_conv_stem_fwd(even.data_ptr(), odd.data_ptr(), b, t, n_mels, d,
                                 w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
@@ -107,18 +202,27 @@ def conv_stem_fwd(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tensor:
 
 
 def ln_qkv_fwd(x, ln_g, ln_b, p, n_heads: int):
-    """LN1 + q/k/v on rows ``[N, D]`` bf16 -> (q scaled, k, v), each ``[N, D]``."""
+    """LN1 + q/k/v on rows ``[N, D]`` bf16 -> (q scaled, k, v), each ``[N, D]``:
+    the rows' LN into a bf16 scratch, then the Hopper GEMM with the q/k/v
+    epilogue (D a multiple of 128 up to ``wst_enc_wide_max()``)."""
     _check_rows(x, "ln_qkv_fwd", 2)
     n, d = x.shape
-    _check_width(d, "ln_qkv_fwd")
-    wt = torch.cat([_bf16_nk(p["wq"]), _bf16_nk(p["wk"]), _bf16_nk(p["wv"])])
-    bias = torch.cat([_f32(p["bq"]), torch.zeros(d, device=x.device), _f32(p["bv"])])
-    g, bln = _f32(ln_g), _f32(ln_b)  # held until the launch: the kernel reads them
-    q, k, v = (torch.empty_like(x) for _ in range(3))
+    _check_width(d, "ln_qkv_fwd", _GEMM_WIDTH)
+    wt, bias, g, bln = qkv_weights(p, ln_g, ln_b)
+    if tuple(wt.shape) != (3 * d, d):
+        raise ValueError(f"ln_qkv_fwd: q/k/v weights {tuple(p['wq'].shape)} for D={d}")
     lib = _build.load_library()
-    err = lib.wst_ln_qkv_fwd(x.data_ptr(), n, d, g.data_ptr(), bln.data_ptr(),
-                             wt.data_ptr(), bias.data_ptr(), float(d // n_heads) ** -0.5,
-                             q.data_ptr(), k.data_ptr(), v.data_ptr(), _stream(x.device))
+    if d > lib.wst_enc_wide_max():
+        raise ValueError(f"ln_qkv_fwd takes D <= {lib.wst_enc_wide_max()} (got {d})")
+    xln = torch.empty_like(x)
+    q, k, v = (torch.empty_like(x) for _ in range(3))
+    stream = _stream(x.device)
+    err = lib.wst_ln_rows_fwd(x.data_ptr(), n, d, g.data_ptr(), bln.data_ptr(), xln.data_ptr(),
+                              stream)
+    _build.check(err, "ln_qkv_fwd (LN1)")
+    err = lib.wst_enc_gemm_fwd(_EPI_QKV, xln.data_ptr(), wt.data_ptr(), n, 3 * d, d,
+                               bias.data_ptr(), float(d // n_heads) ** -0.5, d, q.data_ptr(),
+                               k.data_ptr(), v.data_ptr(), None, stream)
     _build.check(err, "ln_qkv_fwd")
     ln_qkv_fwd.launches += 1
     return q, k, v
@@ -160,18 +264,22 @@ def flash_self_attention_fwd(q, k, v, n_heads: int) -> torch.Tensor:
 
 
 def out_proj_fwd(attn, x, wo, bo) -> torch.Tensor:
-    """x + bf16(attn Wo + bo) on rows ``[N, D]`` bf16."""
+    """x + bf16(attn Wo + bo) on rows ``[N, D]`` bf16: the Hopper GEMM with
+    the bias and residual epilogue (D a multiple of 128)."""
     _check_rows(attn, "out_proj_fwd", 2)
     _check_rows(x, "out_proj_fwd", 2)
     n, d = x.shape
-    _check_width(d, "out_proj_fwd")
+    _check_width(d, "out_proj_fwd", _GEMM_WIDTH)
     if attn.shape != x.shape:
         raise ValueError("out_proj_fwd: attn and x must share one shape")
-    wt, bias = _bf16_nk(wo), _f32(bo)
+    wt, bias = out_proj_weights(wo, bo)
+    if tuple(wt.shape) != (d, d):
+        raise ValueError(f"out_proj_fwd: Wo {tuple(wo.shape)} for D={d}")
     out = torch.empty_like(x)
     lib = _build.load_library()
-    err = lib.wst_out_proj_fwd(attn.data_ptr(), x.data_ptr(), n, d, wt.data_ptr(),
-                               bias.data_ptr(), out.data_ptr(), _stream(x.device))
+    err = lib.wst_enc_gemm_fwd(_EPI_RESIDUAL, attn.data_ptr(), wt.data_ptr(), n, d, d,
+                               bias.data_ptr(), 1.0, d, out.data_ptr(), None, None, x.data_ptr(),
+                               _stream(x.device))
     _build.check(err, "out_proj_fwd")
     out_proj_fwd.launches += 1
     return out
@@ -237,10 +345,7 @@ def mlp_block_fwd(x, ln_g, ln_b, p, capture: bool = False, final_ln=None,
                          f"{lib.wst_enc_mlp_chunk()} (got D={d}, F={f})")
     out, cap, fg, fb, cap_mode, mlp_in, mlp_out = _mlp_outputs(x, capture, final_ln,
                                                                capture_dtype)
-    # every converted operand is held in a local until the launch
-    g, bln = _f32(ln_g), _f32(ln_b)
-    w1t, w2t = _bf16_nk(p["w1"]), _bf16_nk(p["w2"])
-    b1, b2 = _f32(p["b1"]), _f32(p["b2"])
+    w1t, b1, w2t, b2, g, bln = mlp_weights(p, ln_g, ln_b)
     if wide:
         xln = mlp_in if capture else torch.empty_like(x)
         hid = torch.empty((n, f), dtype=_BF, device=x.device)

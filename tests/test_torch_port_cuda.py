@@ -371,6 +371,68 @@ def test_attention_core_deterministic(dev, d, heads, b):
     assert torch.equal(a, CE.self_attention_fwd(q, k, v, heads, 1437))
 
 
+# every width the fused route's gate takes (ops/encoder.py:fused_encoder_supported)
+GATE_WIDTHS = (384, 512, 768, 1024, 1280, 1536)
+
+
+def _attn_params(d, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=0.05):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda").bfloat16()
+
+    p = {"wq": r(d, d), "wk": r(d, d), "wv": r(d, d), "wo": r(d, d), "bq": r(d), "bv": r(d),
+         "bo": r(d)}
+    return p, 1 + r(d), r(d)
+
+
+@pytest.mark.parametrize("rows", [2 * 1500 - 37, 100])
+@pytest.mark.parametrize("d", GATE_WIDTHS)
+def test_encoder_gemm_matches_plain(dev, d, rows):
+    """LN+QKV and the out-projection on the Hopper GEMM (csrc/encoder_gemm.cu)
+    against their plain versions at every width of the gate, on a ragged
+    and a small row count; two launches give the same bits."""
+    heads = d // 64
+    p, ln_g, ln_b = _attn_params(d, d + rows)
+    x = torch.randn(rows, d, generator=torch.Generator().manual_seed(rows)).to(dev).bfloat16()
+    before = (CE.ln_qkv_fwd.launches, CE.out_proj_fwd.launches)
+    got = CE.ln_qkv_fwd(x, ln_g, ln_b, p, heads)
+    for a, w in zip(got, E.ln_qkv_plain(x, ln_g, ln_b, p, heads)):
+        _close(a, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, CE.ln_qkv_fwd(x, ln_g, ln_b, p, heads)))
+    attn = got[2]
+    out = CE.out_proj_fwd(attn, x, p["wo"], p["bo"])
+    _close(out, E.out_proj_plain(attn, x, p["wo"], p["bo"]))
+    assert torch.equal(out, CE.out_proj_fwd(attn, x, p["wo"], p["bo"]))
+    assert (CE.ln_qkv_fwd.launches - before[0], CE.out_proj_fwd.launches - before[1]) == (2, 2)
+
+
+def test_encoder_gemm_refuses_shapes(dev):
+    p, ln_g, ln_b = _attn_params(320, 0)
+    x = torch.zeros(64, 320, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        CE.ln_qkv_fwd(x, ln_g, ln_b, p, 5)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        CE.out_proj_fwd(x, x, p["wo"], p["bo"])
+    p, ln_g, ln_b = _attn_params(256, 0)
+    x = torch.zeros(64, 384, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="weights"):
+        CE.ln_qkv_fwd(x, ln_g, ln_b, p, 6)
+
+
+def test_weights_are_prepared_once_on_the_card(dev):
+    """A second attention block over the same weights builds no new
+    kernel-layout weights and gives the same bits."""
+    CE._prepared.clear()
+    p, ln_g, ln_b = _attn_params(384, 5)
+    x = torch.randn(2, 1500, 384, generator=torch.Generator().manual_seed(6)).to(dev).bfloat16()
+    first = CE.attention_block_fwd(x, ln_g, ln_b, p, 6)
+    entries = dict(CE._prepared)
+    assert len(entries) == 2  # the q/k/v and the out-projection operands
+    assert torch.equal(first, CE.attention_block_fwd(x, ln_g, ln_b, p, 6))
+    assert all(CE._prepared[k][1] is v[1] for k, v in entries.items())
+
+
 def test_encoder_gate_constants_match_the_library(dev):
     """The fused route's gate admits no width or head dim the kernels
     cannot take."""
