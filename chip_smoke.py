@@ -41,11 +41,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    out-projection, the whole attention block and the MLP block in all
    four output modes, each against its plain version on the same card
    inputs at the one-block bar (max|d| <= 2**-6 max|ref|, mean|d| <=
-   2**-9 mean|ref|).  LN+QKV and the out-projection (the Hopper GEMM of
-   ``ops/csrc/encoder_gemm.cu``) also at every width the gate takes
-   (D = 384 .. 1536, heads of 64) on a ragged 64*1500 - 37 rows and on
-   100 rows; they and the attention core give the same bits on two
-   launches.
+   2**-9 mean|ref|).  LN+QKV, the out-projection and the MLP block (all
+   on the Hopper GEMM of ``ops/csrc/encoder_gemm.cu``) also at every
+   width the gate takes (D = 384 .. 1536, heads of 64, F = 4D) on a
+   ragged 64*1500 - 37 rows and on 100 rows, the MLP block in all four
+   modes (on the ragged rows against its plain version on one row in 16
+   of every tile and the whole last tile); they and the attention core
+   give the same bits on two launches.
 6. Extraction through the CLI (``--extract-only --random-whisper``,
    tiny_default.yaml's widths and layers, the synthetic dataset, 128
    clips, bf16): every encoder kernel's launch count is zeroed before
@@ -61,14 +63,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    finite and falling) and the caches are deleted.
 7. Times of the extraction slice: ``extract_activations`` at batch 64
    (bf16, all layers captured, decoder on), the CLI extraction end to
-   end, the device's busy share under ``torch.profiler``, and each
+   end, the device's busy share under ``torch.profiler`` and the attention
+   and MLP blocks' parts of it, and each
    encoder kernel beside its plain version, its bound and a library
    yardstick (``torch.matmul`` for the projections, the conv1d pair for
    the stem, ``scaled_dot_product_attention`` for the core -- yardsticks,
    not ports).  The kernels run on weights already in their layout (built
    once per parameter tensor); the preparation's one-off time is printed
-   on its own line, and LN+QKV's two launches and the out-projection's
-   GEMM, each timed alone, on another.
+   on its own line, and the launches of LN+QKV (LN1, the GEMM), the
+   out-projection and the MLP block (LN2, fc1, fc2, the final LN), each
+   timed alone, on one line a kernel.
 8. The coder kernel (``ops/csrc/coder_kernels.cu``) at whisper-tiny width,
    B=4096, in its five modes (Skip and TopK transcoder, ReLU SAE: D=384,
    H=3072, k=32; TopK and ReLU crosscoder: L*D=1536, S=3072), sliced, at
@@ -126,22 +130,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
     one training step at batch 8192 under ``torch.profiler``.
 
 14. Encoder kernels at whisper-large-v3 width (D=1280, 20 heads, F=5120,
-    T=1500, 128 mels), 8 clips (bench.py:388-400): the conv stem's and
-    the MLP block's wide forms (all four output modes), LN+QKV, the
+    T=1500, 128 mels), 16 clips (the CLI run's batch): the conv stem's
+    wide form, the MLP block (all four output modes), LN+QKV, the
     attention core (T unpadded, and with keys from 1437 masked; also as
     the flash route), the out-projection and the whole attention block,
     each against its plain version at the one-block bar; the attention
-    core, LN+QKV and the out-projection bit-identical run to run at both
-    widths, the last two also at every width of the gate on 16*1500 - 37
-    and 100 rows, as in phase 5.
+    core, LN+QKV, the out-projection and the MLP block bit-identical run
+    to run, the last three also at every width of the gate on 16*1500 -
+    37 and 100 rows, as in phase 5.
 15. Whisper-large-v3 extraction through the CLI (``--extract-only
     --random-whisper``, weights made on the card from the config's seed,
     the synthetic dataset, 16 clips, bf16, the full 32+32-layer forward,
     encoder layers 0 and 31 and decoder layer 31 captured): every
     encoder wrapper's count is zeroed before and read after (the wide
-    stem once a batch, the attention launches and the wide MLP block
-    once a layer and batch, the narrow forms and the plain versions no
-    time); the caches hold 16*1500 (16) finite rows of 1280 and agree
+    stem once a batch, the attention launches and the MLP block once a
+    layer and batch, the narrow stem and the plain versions no time);
+    the caches hold 16*1500 (16) finite rows of 1280 and agree
     with ``extract_activations`` on 2 clips at the stack bar.  Then, on
     those 2 clips, every layer of the fused route is held against the
     card's composed route (torch products, the attention core on its
@@ -149,11 +153,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
 16. Times at whisper-large-v3: one 8-clip batch of ``extract_activations``
     (bf16, every layer captured, decoder on) on the host clock and under
     ``torch.profiler``, beside its operation bound, with the heaviest
-    device operations and the device's idle gaps (their count and total,
-    the longest, and the host operations that ran in them) and the
+    device operations, the attention and MLP blocks' parts of the busy
+    time, the device's idle gaps (their count and total, the longest,
+    and the host operations that ran in them) and the
     encoder's and the decoder's part on the host clock; each encoder
     kernel beside its plain version, its bound and a library yardstick,
-    the weight preparation and LN+QKV's parts as in phase 7.
+    the weight preparation and the kernels' parts as in phase 7.
 17. Out of core through the CLI: a cache of 2 shards (65,536 + 32,768
     rows x 384) trained for one epoch at tiny_default.yaml's widths; the
     CLI streams it batch by batch through the prefetching shard loader,
@@ -175,6 +180,7 @@ The last two lines are the ``kernels`` JSON line and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -617,6 +623,11 @@ def encoder_inputs(dev, W, CE, arch=None, b: int = ENC_B) -> dict:
             "final_ln": (enc["ln_f_g"].float(), enc["ln_f_b"].float())}
 
 
+# the MLP block's output modes: (capture, final-LN capture, its dtype)
+MLP_MODES = ((False, False, torch.bfloat16), (True, False, torch.bfloat16),
+             (False, True, torch.bfloat16), (True, True, torch.float32))
+
+
 def encoder_kernel_phase(dev, W, E, CE, arch=None, b: int = ENC_B) -> tuple[dict, dict]:
     """Phases 5 and 14; returns (max abs errors by kernel, the inputs for
     the times)."""
@@ -651,42 +662,52 @@ def encoder_kernel_phase(dev, W, E, CE, arch=None, b: int = ENC_B) -> tuple[dict
                       CE.out_proj_fwd(arows, rows, lp["attn"]["wo"], lp["attn"]["bo"])),
           "out_proj: two launches differ")
     sweep = gemm_width_sweep(dev, E, CE, b)
-    errs["ln_qkv"] = max(errs["ln_qkv"], sweep["ln_qkv"])
-    errs["out_proj"] = max(errs["out_proj"], sweep["out_proj"])
     block = E.attention_block_plain(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
     block_err = bar_check(CE.attention_block_fwd(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads),
                           block, BLOCK_BAR, "attention block")
     brows = block.view(-1, d)
     errs["mlp_block"] = 0.0
-    for capture, fl, cap_dt in ((False, None, torch.bfloat16), (True, None, torch.bfloat16),
-                                (False, inp["final_ln"], torch.bfloat16),
-                                (True, inp["final_ln"], torch.float32)):
+    for capture, final_ln, cap_dt in MLP_MODES:
+        fl = inp["final_ln"] if final_ln else None
         got = CE.mlp_block_fwd(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
         want = E.mlp_block_plain(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
         got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
         check(len(got) == len(want) and all(a.dtype == w.dtype for a, w in zip(got, want)),
-              f"mlp_block capture={capture} final_ln={fl is not None}: outputs differ in kind")
+              f"mlp_block capture={capture} final_ln={final_ln}: outputs differ in kind")
         for a, w in zip(got, want):
             errs["mlp_block"] = max(errs["mlp_block"], bar_check(
-                a, w, BLOCK_BAR, f"mlp_block capture={capture} final_ln={fl is not None}"))
+                a, w, BLOCK_BAR, f"mlp_block capture={capture} final_ln={final_ln}"))
+    for name in sweep:
+        errs[name] = max(errs[name], sweep[name])
     torch.cuda.synchronize()
     forms = {k: n - before[k] for k, n in enc_launches(CE).items()
              if k.startswith(("conv_stem", "mlp_block")) and n > before[k]}
     log("  " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f", attention block {block_err:.3g} (max abs err, each within the one-block bar; "
-        f"B={b}; stem and MLP forms launched {forms}; the attention core, LN+QKV and the "
-        "out-projection bit-identical run to run)")
+        f"B={b}; stem and MLP forms launched {forms}; the attention core, LN+QKV, the "
+        "out-projection and the MLP block bit-identical run to run)")
     inp.update(x=x, rows=rows, q=q, k=k, v=v, arows=arows, brows=brows)
     return errs, inp
 
 
+def mlp_sample(n: int) -> torch.Tensor:
+    """Rows the width sweep holds against the MLP block's plain version:
+    one in 16 of every 128-row tile, at a position that moves from tile
+    to tile (all 16 residues over 16 tiles), and the whole last tile."""
+    r = torch.arange(n)
+    return r[((r + r // 128) % 16 == 0) | (r >= (n - 1) // 128 * 128)]
+
+
 def gemm_width_sweep(dev, E, CE, b: int) -> dict:
-    """LN+QKV and the out-projection (the Hopper GEMM of
+    """LN+QKV, the out-projection and the MLP block (the Hopper GEMM of
     ``ops/csrc/encoder_gemm.cu``) against their plain versions at every
-    width of the gate, heads of 64, on a ragged ``b*T - 37`` rows and on
-    100 rows, at the one-block bar; two launches equal.  Returns the max
-    abs errors."""
-    errs = {"ln_qkv": 0.0, "out_proj": 0.0}
+    width of the gate, heads of 64, F = 4D, on a ragged ``b*T - 37`` rows
+    and on 100 rows, at the one-block bar, the MLP block in all four
+    output modes; two launches equal.  On the ragged rows the MLP block's
+    plain version runs on the rows of ``mlp_sample`` (the block is row by
+    row; its f32 products on every row of every width would take minutes).
+    Returns the max abs errors."""
+    errs = {"ln_qkv": 0.0, "out_proj": 0.0, "mlp_block": 0.0}
     for d in GATE_WIDTHS:
         g = torch.Generator().manual_seed(d)
 
@@ -696,6 +717,9 @@ def gemm_width_sweep(dev, E, CE, b: int) -> dict:
         p = {"wq": r(d, d), "wk": r(d, d), "wv": r(d, d), "wo": r(d, d), "bq": r(d),
              "bv": r(d), "bo": r(d)}
         ln_g, ln_b, heads = 1 + r(d), r(d), d // 64
+        mlp = {"w1": r(d, 4 * d, scale=d ** -0.5), "b1": r(4 * d),
+               "w2": r(4 * d, d, scale=(4 * d) ** -0.5), "b2": r(d)}
+        fl = ((1 + r(d)).float(), r(d).float())
         for n in (b * ENC_T - 37, 100):
             x = r(n, d, scale=1.0)
             got = CE.ln_qkv_fwd(x, ln_g, ln_b, p, heads)
@@ -711,10 +735,28 @@ def gemm_width_sweep(dev, E, CE, b: int) -> dict:
                 f"out_proj D={d} rows={n}"))
             check(torch.equal(out, CE.out_proj_fwd(got[2], x, p["wo"], p["bo"])),
                   f"out_proj D={d} rows={n}: two launches differ")
-            del x, got, want, out
-    log(f"  LN+QKV and out-projection at D={list(GATE_WIDTHS)}, rows {b * ENC_T - 37} and 100: "
-        f"max abs err {errs['ln_qkv']:.3g} / {errs['out_proj']:.3g}, each within the one-block "
-        "bar, two launches equal")
+            del got, want, out
+            rows = mlp_sample(n).to(dev)
+            # out, ln_f(out) in f32, mlp_in, mlp_out: every mode's outputs
+            ref = E.mlp_block_plain(x[rows], ln_g, ln_b, mlp, True, fl, torch.float32)
+            for capture, final_ln, cap_dt in MLP_MODES:
+                what = f"mlp_block D={d} rows={n} capture={capture} final_ln={final_ln}"
+                f_ln = fl if final_ln else None
+                got = CE.mlp_block_fwd(x, ln_g, ln_b, mlp, capture, f_ln, cap_dt)
+                again = CE.mlp_block_fwd(x, ln_g, ln_b, mlp, capture, f_ln, cap_dt)
+                got, again = (o if isinstance(o, tuple) else (o,) for o in (got, again))
+                want = ([ref[0]] + ([ref[1].to(cap_dt)] if final_ln else [])
+                        + (list(ref[2:]) if capture else []))
+                check(len(got) == len(want) and all(a.dtype == w.dtype for a, w in zip(got, want)),
+                      f"{what}: outputs differ in kind")
+                for a, w, a2 in zip(got, want, again):
+                    errs["mlp_block"] = max(errs["mlp_block"], bar_check(a[rows], w, BLOCK_BAR, what))
+                    check(torch.equal(a, a2), f"{what}: two launches differ")
+                del got, again
+            del x, ref
+    log(f"  LN+QKV, out-projection and MLP block (4 modes) at D={list(GATE_WIDTHS)}, rows "
+        f"{b * ENC_T - 37} and 100: max abs err {errs['ln_qkv']:.3g} / {errs['out_proj']:.3g} / "
+        f"{errs['mlp_block']:.3g}, each within the one-block bar, two launches equal")
     return errs
 
 
@@ -737,32 +779,30 @@ def extraction_config(work: Path) -> Path:
 
 ENC_WRAPPERS = ("conv_stem", "ln_qkv", "self_attention", "out_proj", "mlp_block",
                 "flash_self_attention")
-WIDE_FORMS = {"conv_stem_wide": "conv_stem", "mlp_block_wide": "mlp_block"}  # D > 512
+WIDE_FORMS = {"conv_stem_wide": "conv_stem"}  # D > 512
 
 
 def enc_source(name: str) -> str:
     if "attention" in name:
         return ATTN_SOURCE
-    return GEMM_SOURCE if name in ("ln_qkv", "out_proj") else ENC_SOURCE
+    return ENC_SOURCE if name == "conv_stem" else GEMM_SOURCE
 
 
 def prep_entry(name: str, parts: dict) -> dict:
     """The ``kernels`` line's extra keys of an encoder kernel: the one-off
-    weight preparation and, for LN+QKV and the out-projection, the parts
-    timed alone (LN1, the GEMM)."""
+    weight preparation and, for LN+QKV, the out-projection and the MLP
+    block, the parts timed alone (the LN launches, the GEMMs)."""
     key = {"ln_qkv": "qkv", "out_proj": "out_proj", "mlp_block": "mlp", "conv_stem": "stem"}
     out = {}
     if name in key:
         out["weight_prep_ms"] = parts["prep_ms"][key[name]]
-    if name == "ln_qkv":
-        out["parts_ms"] = {k: v for k, v in parts["parts_ms"].items() if not k.startswith("out")}
-    elif name == "out_proj":
-        out["parts_ms"] = {k: v for k, v in parts["parts_ms"].items() if k.startswith("out")}
+    if name in parts["parts_ms"]:
+        out["parts_ms"] = parts["parts_ms"][name]
     return out
 
 
 def enc_launches(CE) -> dict:
-    """Launches by kernel, the stem's and the MLP block's wide forms apart."""
+    """Launches by kernel, the stem's wide form apart."""
     counts = {name: getattr(CE, f"{name}_fwd").launches for name in ENC_WRAPPERS}
     counts.update({wide: getattr(CE, f"{name}_fwd").wide_launches
                    for wide, name in WIDE_FORMS.items()})
@@ -796,7 +836,7 @@ def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E
     layers = len(cfg.encoder_layers)
     want = {"conv_stem": batches, "ln_qkv": layers * batches, "self_attention": layers * batches,
             "out_proj": layers * batches, "mlp_block": layers * batches,
-            "flash_self_attention": 0, "conv_stem_wide": 0, "mlp_block_wide": 0}
+            "flash_self_attention": 0, "conv_stem_wide": 0}
     check(launches == want, f"extraction launches {launches} != {want}")
     check(sum(E.plain_calls.values()) == 0, f"plain versions ran on the card: {E.plain_calls}")
 
@@ -876,11 +916,66 @@ def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E
     return {"launches": launches, "cli_clips_per_s": EXTRACT_CLIPS / extract_s}
 
 
+ENC_BLOCKS = ("attention_block", "mlp_block")
+
+
+@contextlib.contextmanager
+def annotated_blocks(W):
+    """Each call of the encoder's attention and MLP blocks inside a
+    ``torch.profiler.record_function`` range ``enc.<block>``, for a
+    profiled run only: the trace then gives each block's device time (the
+    kernels launched inside the range)."""
+    from torch.profiler import record_function
+
+    ops = W.encoder_ops
+    saved = {name: getattr(ops, name) for name in ENC_BLOCKS}
+
+    def wrap(name, fn):
+        def annotated(*args, **kwargs):
+            with record_function(f"enc.{name}"):
+                return fn(*args, **kwargs)
+        return annotated
+
+    for name, fn in saved.items():
+        setattr(ops, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def device_ops(events) -> list:
+    """The device's own activities (kernels, copies, memsets) among a
+    trace's events: the ``enc.<block>`` ranges' device-side spans are left
+    out, so nothing is counted twice."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith("enc.")]
+
+
+def block_shares(prof, batches: int, busy: float) -> dict:
+    """ms a batch of each ``enc.<block>`` range on the device (from its
+    first kernel's start to its last kernel's end) and its share of the
+    busy time; None where the trace has no device span for the range (not
+    measured)."""
+    from torch.autograd import DeviceType
+
+    res = {}
+    for name in ENC_BLOCKS:
+        us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and e.key == f"enc.{name}")
+        res[name] = {"ms": us / 1e3 / batches, "share": us / 1e3 / batches / busy} if us else None
+    log("  the encoder's blocks on the device (each call's span, ms a batch, share of busy): "
+        + ", ".join(f"{k} " + (f"{v['ms']:.3f} ({v['share']:.1%})" if v else "not measured")
+                    for k, v in res.items()))
+    return res
+
+
 def extraction_times(dev, W) -> dict:
     """Phase 7a: the bench definition (random weights and mel, batch 64,
     bf16, all layers captured in bf16, decoder on), 8 batches timed on the
     host clock; then the device's busy share under ``torch.profiler``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     arch = W.arch_for("openai/whisper-tiny")
@@ -903,10 +998,11 @@ def extraction_times(dev, W) -> dict:
     clips_s = 8 * ENC_B / dt
     res = {"clips_per_s": clips_s, "tokens_per_s_per_layer": clips_s * ENC_T,
            "batch_ms": 1e3 * dt / 8}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with annotated_blocks(W), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
         run(3)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_ops(prof.key_averages())
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
     res["busy_ms"] = busy
     log(f"  extract_activations, batch 64 bf16: {res['batch_ms']:.3f} ms a batch, "
@@ -920,6 +1016,7 @@ def extraction_times(dev, W) -> dict:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3 / 3:8.4f} ms/batch  {e.count // 3:3d}x  "
             f"{e.key[:90]}")
+    res["blocks"] = block_shares(prof, 3, busy)
     return res
 
 
@@ -1046,11 +1143,13 @@ def encoder_prep_and_parts(inp: dict, CE, lib) -> dict:
     """Phases 7b and 16b, beside the kernel times (which run on weights
     prepared by the earlier phases): the weight preparation's one-off time
     (each kernel layout built from the parameters, not taken from the
-    cache), and LN+QKV's two launches and the out-projection's GEMM, each
+    cache), and the launches of LN+QKV, the out-projection and the MLP
+    block (in the main path's mode: the final-LN capture in bf16), each
     timed alone, weights prepared."""
-    lp, enc, rows, arows = inp["lp"], inp["enc"], inp["rows"], inp["arows"]
+    lp, enc, rows, arows, brows = (inp[n] for n in ("lp", "enc", "rows", "arows", "brows"))
     a, m = lp["attn"], lp["mlp"]
     n, d = rows.shape
+    f = m["w1"].shape[1]
     prep = {
         "qkv": lambda: CE._build_qkv(a["wq"], a["wk"], a["wv"], a["bq"], a["bv"], lp["ln1_g"],
                                      lp["ln1_b"]),
@@ -1063,26 +1162,45 @@ def encoder_prep_and_parts(inp: dict, CE, lib) -> dict:
     prep_ms = {k: time_ms(fn, iters=5, warmup=1) for k, fn in prep.items()}
     wt, bias, g, bln = CE.qkv_weights(a, lp["ln1_g"], lp["ln1_b"])
     wo, bo = CE.out_proj_weights(a["wo"], a["bo"])
-    xln, q, k, v, out = (torch.empty_like(rows) for _ in range(5))
+    w1t, b1, w2t, b2, g2, bln2 = CE.mlp_weights(m, lp["ln2_g"], lp["ln2_b"])
+    fg, fb = (t.float().contiguous() for t in inp["final_ln"])
+    xln, q, k, v, out, out2, xln2, cap = (torch.empty_like(rows) for _ in range(8))
+    hid = torch.empty((n, f), dtype=rows.dtype, device=rows.device)
     st = torch.cuda.current_stream().cuda_stream
     calls = {
-        "ln1": lambda: lib.wst_ln_rows_fwd(rows.data_ptr(), n, d, g.data_ptr(), bln.data_ptr(),
-                                           xln.data_ptr(), st),
-        "qkv_gemm": lambda: lib.wst_enc_gemm_fwd(
-            0, xln.data_ptr(), wt.data_ptr(), n, 3 * d, d, bias.data_ptr(), 0.125, d,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, st),
-        "out_proj_gemm": lambda: lib.wst_enc_gemm_fwd(
-            1, arows.data_ptr(), wo.data_ptr(), n, d, d, bo.data_ptr(), 1.0, d, out.data_ptr(),
-            None, None, rows.data_ptr(), st),
+        "ln_qkv": {
+            "ln1": lambda: lib.wst_ln_rows_fwd(rows.data_ptr(), n, d, g.data_ptr(),
+                                               bln.data_ptr(), xln.data_ptr(), st),
+            "qkv_gemm": lambda: lib.wst_enc_gemm_fwd(
+                0, xln.data_ptr(), wt.data_ptr(), n, 3 * d, d, bias.data_ptr(), 0.125, d,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None, st)},
+        "out_proj": {
+            "out_proj_gemm": lambda: lib.wst_enc_gemm_fwd(
+                1, arows.data_ptr(), wo.data_ptr(), n, d, d, bo.data_ptr(), 1.0, d,
+                out.data_ptr(), None, None, rows.data_ptr(), st)},
+        "mlp_block": {
+            "ln2": lambda: lib.wst_ln_rows_fwd(brows.data_ptr(), n, d, g2.data_ptr(),
+                                               bln2.data_ptr(), xln2.data_ptr(), st),
+            "fc1_gemm": lambda: lib.wst_enc_gemm_fwd(
+                2, xln2.data_ptr(), w1t.data_ptr(), n, f, d, b1.data_ptr(), 1.0, d,
+                hid.data_ptr(), None, None, None, st),
+            "fc2_gemm": lambda: lib.wst_enc_gemm_fwd(
+                1, hid.data_ptr(), w2t.data_ptr(), n, d, f, b2.data_ptr(), 1.0, d,
+                out2.data_ptr(), None, None, brows.data_ptr(), st),
+            "final_ln": lambda: lib.wst_ln_rows_fwd(out2.data_ptr(), n, d, fg.data_ptr(),
+                                                    fb.data_ptr(), cap.data_ptr(), st)},
     }
     parts_ms = {}
-    for name, fn in calls.items():
-        check(fn() == 0, f"{name}: launch failed")
-        parts_ms[name] = time_ms(fn)
+    for kernel, parts in calls.items():
+        parts_ms[kernel] = {}
+        for name, fn in parts.items():
+            check(fn() == 0, f"{name}: launch failed")
+            parts_ms[kernel][name] = time_ms(fn)
     log("  weight preparation, one-off ms a layer (built once per parameter tensor, not in "
         "the kernel times): " + ", ".join(f"{k} {v:.4f}" for k, v in prep_ms.items()))
-    log(f"  LN+QKV's parts and the out-projection's GEMM alone ({n} rows, D={d}), ms: "
-        + ", ".join(f"{k} {v:.4f}" for k, v in parts_ms.items()))
+    for kernel, parts in parts_ms.items():
+        log(f"  {kernel}'s launches alone ({n} rows, D={d}), ms: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
     return {"prep_ms": prep_ms, "parts_ms": parts_ms}
 
 
@@ -1697,8 +1815,8 @@ def large_extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod
     batches = -(-LG_CLIPS // train_mod.EXTRACT_BATCH)
     per_layer = arch.encoder_layers * batches
     want = {"conv_stem": 0, "conv_stem_wide": batches, "ln_qkv": per_layer,
-            "self_attention": per_layer, "out_proj": per_layer, "mlp_block": 0,
-            "mlp_block_wide": per_layer, "flash_self_attention": 0}
+            "self_attention": per_layer, "out_proj": per_layer, "mlp_block": per_layer,
+            "flash_self_attention": 0}
     check(launches == want, f"large extraction launches {launches} != {want}")
     check(sum(E.plain_calls.values()) == 0, f"plain versions ran on the card: {E.plain_calls}")
 
@@ -1761,7 +1879,6 @@ def large_batch_times(dev, W, pb: dict) -> dict:
     after one warm batch, then 2 under ``torch.profiler``; the bound
     counts the encoder's products and the stem (the one-token decoder is
     under 0.1% of it)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     arch = W.arch_for(LV3)
@@ -1784,10 +1901,11 @@ def large_batch_times(dev, W, pb: dict) -> dict:
                     + 2 * t * d * (6 * n_mels + 3 * d))
     res = {"batch_ms": 1e3 * dt / 3, "clips_per_s": 3 * LG_B / dt,
            "bound_ms": 1e3 * flops / PEAK_BF16, "gflop": flops / 1e9}
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with annotated_blocks(W), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
         run(2)
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_ops(prof.key_averages())
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 2
     res["busy_ms"] = busy if busy > 0 else None
     log(f"  extract_activations, whisper-large-v3, batch {LG_B} bf16: {res['batch_ms']:.3f} ms a "
@@ -1804,6 +1922,7 @@ def large_batch_times(dev, W, pb: dict) -> dict:
         ms = e.self_device_time_total / 1e3 / 2
         res["top"].append([e.key[:60], ms, e.count // 2])
         log(f"    {ms:8.4f} ms/batch  {e.count // 2:3d}x  {e.key[:90]}")
+    res["blocks"] = block_shares(prof, 2, busy)
     res["idle"] = idle_breakdown(prof, 2)
     res.update(batch_split(dev, W, pb, mels[0], arch))
     return res
@@ -1848,8 +1967,7 @@ def idle_breakdown(prof, batches: int, top: int = 5, min_us: float = 10.0) -> di
 
     evs = prof.events()
     spans: list[list[float]] = []
-    for s0, e0 in sorted((e.time_range.start, e.time_range.end) for e in evs
-                         if e.device_type == DeviceType.CUDA):
+    for s0, e0 in sorted((e.time_range.start, e.time_range.end) for e in device_ops(evs)):
         if spans and s0 <= spans[-1][1]:
             spans[-1][1] = max(spans[-1][1], e0)
         else:

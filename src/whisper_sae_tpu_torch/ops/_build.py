@@ -22,7 +22,7 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "attention_kernel.cu", "encoder_gemm.cu",
             "coder_kernels.cu", "blocked_encode.cu")
-_HEADERS = ("topk_common.cuh", "hopper_common.cuh")
+_HEADERS = ("topk_common.cuh", "hopper_common.cuh", "encoder_gemm.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # The kernels' compile-time limits, kept here as Python constants because
 # the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
@@ -62,7 +62,6 @@ _SIGNATURES = {
         _I,
     ),
     "wst_enc_head_dim": ([], _I),
-    "wst_enc_mlp_chunk": ([], _I),
     "wst_enc_narrow_max": ([], _I),
     "wst_enc_wide_max": ([], _I),
     "wst_ln_rows_fwd": ([_P, _L, _I, _P, _P, _P, _P], _I),  # x, n, d, g, b, out, stream
@@ -74,11 +73,6 @@ _SIGNATURES = {
     ),
     "wst_attention_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
     "wst_mlp_block_fwd": (
-        [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P,    # x, n, d, f, g, b, w1t, b1, w2t, b2
-         _P, _P, _I, _P, _P, _P, _P, _P],           # fg, fb, cap_mode, out, cap, in, out, stream
-        _I,
-    ),
-    "wst_mlp_block_wide_fwd": (
         [_P, _L, _I, _I, _P, _P, _P, _P, _P, _P,    # x, n, d, f, g, b, w1t, b1, w2t, b2
          _P, _P, _I, _P, _P, _P, _P, _P, _P],       # fg, fb, cap_mode, out, cap, xln, hid, mlp_out, stream
         _I,

@@ -5,27 +5,44 @@
 //   after ln_rows_kernel (encoder_kernels.cu) is LN1 + the q/k/v product
 //   of the attention block;
 // gemm_kernel<kResidual>  ("wst_enc_gemm_fwd", epi 1)
-//   is the out-projection with its bias and the residual.
-// With attention_kernel.cu's core between them they replace
-// whisper_sae_tpu/ops/pallas_encoder.py:_attention_block_kernel and
-// _attention_block_kernel_tiled (fused_attention_block, pallas_call at
-// :340).
+//   is the out-projection with its bias and the residual, and the MLP
+//   block's fc2 (with the pre-residual output when it is captured);
+// gemm_kernel<kGelu>      ("wst_enc_gemm_fwd", epi 2)
+//   is the MLP block's fc1 with its bias and GELU.
+// With attention_kernel.cu's core between them, q/k/v and the
+// out-projection replace whisper_sae_tpu/ops/pallas_encoder.py:
+// _attention_block_kernel and _attention_block_kernel_tiled
+// (fused_attention_block, pallas_call at :340); LN2 (ln_rows_kernel),
+// fc1, fc2 and the final-LN capture (ln_rows_kernel) replace
+// _mlp_block_kernel (fused_mlp_block, pallas_call at :500), launched
+// together by wst_mlp_block_fwd (encoder_kernels.cu).
 //
-// C[m, n] = A[m, k] . B[n, k]^T: A bf16 rows (the LN'd rows, or the
-// attention core's output), B the weight in the [N, K] layout, f32 sums.
-// K and N multiples of 128; rows of A past m load as zeros (TMA) and are
-// not stored.  Epilogues with the Pallas kernels' numerics
-// (pallas_encoder.py:186-197, :225-229):
+// C[m, n] = A[m, k] . B[n, k]^T: A bf16 rows (the LN'd rows, the
+// attention core's output or the MLP's hidden), B the weight in the
+// [N, K] layout, f32 sums.  K and N multiples of 128; rows of A past m
+// load as zeros (TMA) and are not stored.  Epilogues with the Pallas
+// kernels' numerics (pallas_encoder.py:186-197, :225-229, :396-418):
 //   kQkv       q = bf16((acc + bq) * head_dim**-0.5), k = bf16(acc),
 //              v = bf16(acc + bv), each written [m, d] (N = 3d; a
 //              128-column tile lies in one third, as 128 divides d);
-//   kResidual  y = bf16(acc + bo); out = bf16(x + y).
+//   kResidual  y = bf16(acc + b); out = bf16(x + y); and, when asked,
+//              aux = y (fc2's mlp_out capture);
+//   kGelu      h = bf16(gelu(acc + b)), the exact erff GELU in f32 (the
+//              TPU kernel's erf polynomial is a Mosaic workaround).
 // No atomics: two launches give the same bits.
 //
-// Bounds at whisper-large-v3, 16 clips (24,000 rows, D=1280; 989 TFLOP/s
-// bf16, 3.35 TB/s): the q/k/v product is 2*24000*1280*3840 = 236 GFLOP,
-// 0.24 ms; the out-projection 79 GFLOP, 0.08 ms.  Both are bound by
-// operations.
+// Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s); every product here
+// is bound by operations.  At whisper-large-v3, 16 clips (24,000 rows,
+// D=1280, F=5120): q/k/v 2*24000*1280*3840 = 236 GFLOP, 0.24 ms; the
+// out-projection 79 GFLOP, 0.08 ms; fc1 and fc2 315 GFLOP each, 0.32 ms.
+// At whisper-tiny, 64 clips (96,000 rows, D=384, F=1536): fc1 and fc2
+// 113 GFLOP each, 0.11 ms.  The MLP's hidden makes one bf16 round trip
+// through device memory (2 * rows * F * 2 bytes: 0.18 ms at 3.35 TB/s at
+// whisper-tiny, 0.15 ms at 16 large-v3 clips), the price of one route for
+// every width: a kernel keeping the hidden on chip needs a 64 x D f32
+// output accumulator a warpgroup (192 registers a thread at D = 384)
+// beside fc1's, and re-reads both weights (2.36 MB at whisper-tiny) for
+// every 64 rows, below the card's L2 ridge.
 //
 // What the design does about it (the usual shape of a Hopper GEMM):
 // - One producer warp keeps TMA loads in flight: A and B tiles of 64 K
@@ -42,25 +59,42 @@
 //   of two CTAs that take the same column tile of two row tiles: each
 //   producer loads its own A tile and half of the B tile, multicast into
 //   both CTAs, so L2 serves 3/4 of the bytes; a stage is refilled once the
-//   consumers of both CTAs have released it.  The out-projection runs
-//   one CTA alone: clusters did not speed it up on the card.
+//   consumers of both CTAs have released it.  The out-projection and fc2
+//   run one CTA alone: clusters did not speed the out-projection up on
+//   the card.  fc1 (N = 4D, the widest product) runs one CTA alone too:
+//   two CTAs were no faster on the card (PERF.md).
+// - fc1's epilogue is issue-bound SIMT work (an erff a value): at
+//   whisper-tiny, where K = 384 leaves a tile six k-blocks, it is 42% of
+//   the kernel, run between the tiles' products.  Three ways to run it
+//   under them were tried on the card and were slower: consumers taking
+//   whole tiles in turn (a ping-pong, with an order barrier and
+//   setmaxnreg), with one warpgroup a tile (one warp a sub-partition to
+//   issue a tile's epilogue: 5% slower) or two (spills at 112 registers:
+//   20% slower), and the epilogue deferred under the next tile's first
+//   k-blocks in a second accumulator set (ptxas serialises the wgmmas:
+//   1.9x).  PERF.md gives the times.
 // - The epilogue writes the rounded tile into a swizzled shared buffer
 //   and one thread stores it with TMA; the consumers go on to the next
 //   tile's products while the store drains, and the producer has run
 //   ahead into that tile's stages.  The residual tile of kResidual is
 //   prefetched by TMA into its own buffer while the tile's products run.
+//   fc2's capture of y needs a third 32 KB tile that shared memory does
+//   not have beside 5 stages: each thread writes y over the residual
+//   element it has just read (the same address, so no thread reads what
+//   another wrote), TMA stores both buffers, and the next residual
+//   prefetch waits until that store has read the buffer (bulk_wait_read).
+//   The wait is only in the capture mode (the --capture-mlp extraction):
+//   it costs 11% of fc2 at whisper-tiny and 2% at large-v3 (PERF.md); a
+//   separate capture template with one stage fewer was not tried.
 // A 256-column tile halves the re-reads of A but, with room for its
 // output buffer, keeps only 3 stages; it was slower on the card.
 
-#include <cuda_bf16.h>
-
+#include "encoder_gemm.cuh"
 #include "hopper_common.cuh"
 
 namespace wst_gemm {
 
 using namespace wst_hopper;
-
-typedef unsigned short bf16_t;
 
 constexpr int kBM = 128;         // rows of an output tile: two warpgroups of 64
 constexpr int kBN = 128;         // columns of an output tile: one m64n128k16 wgmma
@@ -72,9 +106,6 @@ constexpr int kAlign = 128;      // N and K must be multiples of this
 constexpr int kMaxDevices = 64;  // devices whose launch setup is kept
 constexpr uint32_t kStageBytes = (kBM + kBN) * kBK * sizeof(bf16_t);
 constexpr uint32_t kTileBytes = kBM * kBN * sizeof(bf16_t);
-
-constexpr int kQkv = 0;
-constexpr int kResidual = 1;
 
 // the ring's depth; kResidual gives a stage to the residual tile's buffer
 template <int EPI>
@@ -114,12 +145,13 @@ struct Epilogue {
   const float* bias;   // [n] f32 (kQkv: bq, 0, bv)
   float q_scale;       // kQkv: the q third's factor
   int d;               // kQkv: the width of one third
+  int aux;             // kResidual: also store y = bf16(acc + b) (through map_o1)
 };
 
-__device__ __forceinline__ float bf2f(bf16_t u) { return __uint_as_float((uint32_t)u << 16); }
-__device__ __forceinline__ bf16_t f2bf(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  return (uint32_t)f2bf(lo) | ((uint32_t)f2bf(hi) << 16);
+// bf16(a + b) of two packed pairs, each added in f32
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  return pack2(bf2f((bf16_t)(a & 0xffffu)) + bf2f((bf16_t)(b & 0xffffu)),
+               bf2f((bf16_t)(a >> 16)) + bf2f((bf16_t)(b >> 16)));
 }
 
 #define WST_D64                                                                             \
@@ -155,7 +187,7 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
 }
 
 // One CTA: two consumer warpgroups (threads 0 .. 255) and one producer
-// warp (256 .. 287).  CLUSTER CTAs (2 for kQkv, 1 for kResidual) form a
+// warp (256 .. 287).  CLUSTER CTAs (2 for kQkv, else 1) form a
 // cluster that walks the cluster tiles c = clusterid, + nclusterid, ...:
 // CTA ``rank`` of the cluster takes the output tile of row tile CLUSTER
 // (c / n_tiles) + rank and column tile c % n_tiles.
@@ -311,13 +343,20 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
         if constexpr (EPI == kQkv) {
           *o0 = pack2((acc[4 * j] + b0) * sc, (acc[4 * j + 1] + b1) * sc);
           *o1 = pack2((acc[4 * j + 2] + b0) * sc, (acc[4 * j + 3] + b1) * sc);
+        } else if constexpr (EPI == kGelu) {
+          *o0 = pack2(gelu(acc[4 * j] + b0), gelu(acc[4 * j + 1] + b1));
+          *o1 = pack2(gelu(acc[4 * j + 2] + b0), gelu(acc[4 * j + 3] + b1));
         } else {
-          const uint32_t x0 = *reinterpret_cast<const uint32_t*>(at(s.res, lr0, c));
-          const uint32_t x1 = *reinterpret_cast<const uint32_t*>(at(s.res, lr0 + 8, c));
-          *o0 = pack2(bf2f((bf16_t)(x0 & 0xffffu)) + bf2f(f2bf(acc[4 * j] + b0)),
-                      bf2f((bf16_t)(x0 >> 16)) + bf2f(f2bf(acc[4 * j + 1] + b1)));
-          *o1 = pack2(bf2f((bf16_t)(x1 & 0xffffu)) + bf2f(f2bf(acc[4 * j + 2] + b0)),
-                      bf2f((bf16_t)(x1 >> 16)) + bf2f(f2bf(acc[4 * j + 3] + b1)));
+          uint32_t* r0 = reinterpret_cast<uint32_t*>(at(s.res, lr0, c));
+          uint32_t* r1 = reinterpret_cast<uint32_t*>(at(s.res, lr0 + 8, c));
+          const uint32_t y0 = pack2(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+          const uint32_t y1 = pack2(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
+          *o0 = add2(*r0, y0);
+          *o1 = add2(*r1, y1);
+          if (ep.aux) {  // y over the residual this thread has just read
+            *r0 = y0;
+            *r1 = y1;
+          }
         }
       }
       fence_proxy_async();
@@ -327,8 +366,17 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
 #pragma unroll
           for (int bx = 0; bx < kBoxes; ++bx)
             tma_store_2d(map_o, s.out[bx], ocol0 + bx * kBK, (int)row0);
+          if constexpr (EPI == kResidual) {
+            if (ep.aux) {
+#pragma unroll
+              for (int bx = 0; bx < kBoxes; ++bx)
+                tma_store_2d(&map_o1, s.res[bx], ocol0 + bx * kBK, (int)row0);
+            }
+          }
           bulk_commit();
         }
+        // the store has read y before the next residual lands in its buffer
+        if (EPI == kResidual && ep.aux) bulk_wait_read<0>();
         fetch_res(tile + stride);
       }
     }
@@ -357,10 +405,11 @@ int make_map(CUtensorMap* map, const void* ptr, long long rows, int cols, int bo
 // The clusters that fit on each device, by epilogue, 0 until the first
 // launch there.  File-local: a function-local static of a template would
 // be one object across every loaded copy of the library.
-static int g_fits[2][kMaxDevices];
+static int g_fits[kEpilogues][kMaxDevices];
 
-// outs: q, k, v ([m, d] each) for kQkv; out ([m, n]) three times for
-// kResidual, whose residual ``res`` is [m, n].
+// outs: q, k, v ([m, d] each) for kQkv; for kResidual out ([m, n]), then
+// aux ([m, n], or out again when ep.aux is 0), out; its residual ``res``
+// is [m, n]; out ([m, n]) three times for kGelu.
 template <int EPI>
 int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* const* outs,
                 const void* res, const Epilogue& ep, cudaStream_t stream) {
@@ -414,25 +463,28 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
 
 extern "C" {
 
-// C = A . B^T with epilogue ``epi`` (0: q/k/v, 1: bias + residual).
-// a: [m, k] bf16; b: [n, k] bf16; bias: [n] f32; n and k multiples of
-// 128.  epi 0: n = 3d, outputs out0/out1/out2 = q/k/v [m, d]; epi 1: out0
-// [m, n] = res + bf16(acc + bias).
+// C = A . B^T with epilogue ``epi`` (0: q/k/v, 1: bias + residual, 2:
+// bias + GELU).  a: [m, k] bf16; b: [n, k] bf16; bias: [n] f32; n and k
+// multiples of 128.  epi 0: n = 3d, outputs out0/out1/out2 = q/k/v [m, d];
+// epi 1: out0 [m, n] = res + y with y = bf16(acc + bias), and out1 [m, n]
+// = y unless it is null; epi 2: out0 [m, n] = bf16(gelu(acc + bias)).
 int wst_enc_gemm_fwd(int epi, const void* a, const void* b, long long m, int n, int k,
                      const void* bias, float q_scale, int d, void* out0, void* out1, void* out2,
                      const void* res, void* stream) {
   using namespace wst_gemm;
   if (m <= 0) return 0;
-  if (k <= 0 || k % kAlign || n <= 0 || n % kAlign || (epi != kQkv && epi != kResidual))
+  if (k <= 0 || k % kAlign || n <= 0 || n % kAlign || epi < 0 || epi >= kEpilogues)
     return (int)cudaErrorInvalidValue;
   if (epi == kQkv && (d <= 0 || d % kBN || n != 3 * d)) return (int)cudaErrorInvalidValue;
   Epilogue ep;
   ep.bias = static_cast<const float*>(bias);
   ep.q_scale = q_scale;
   ep.d = d;
-  void* const outs[3] = {out0, epi == kQkv ? out1 : out0, epi == kQkv ? out2 : out0};
+  ep.aux = epi == kResidual && out1 != nullptr;
+  void* const outs[3] = {out0, epi == kQkv || ep.aux ? out1 : out0, epi == kQkv ? out2 : out0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epi == kQkv) return launch_gemm<kQkv>(a, b, m, n, k, outs, res, ep, s);
+  if (epi == kGelu) return launch_gemm<kGelu>(a, b, m, n, k, outs, res, ep, s);
   return launch_gemm<kResidual>(a, b, m, n, k, outs, res, ep, s);
 }
 

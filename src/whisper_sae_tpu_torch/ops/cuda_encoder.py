@@ -31,14 +31,14 @@ on every launch.
 - ``flash_self_attention_fwd`` is the same core launched from the
   composed route, where the JAX package calls the library flash
   attention (``models/whisper.py:_flash_self_attention``, :141).
-- ``mlp_block_fwd`` replaces ``fused_mlp_block`` (:500).  Up to D=512 the
-  ``[rows, F]`` hidden stays in shared memory, one 32-column chunk at a
-  time, while the next chunk of W1 and W2 streams in beside it.  Its wide
-  form (D = 768 .. 1536, multiples of 128) is LN2, the fc1 GEMM with GELU
-  into a bf16 ``[rows, F]`` hidden in device memory, the fc2 GEMM with the
-  residual, and the final-LN capture.  Both still run on ``mma.sync``.
-- The stem and the MLP block count their wide form's launches apart, in
-  ``wide_launches``; the library's ``wst_enc_narrow_max()`` draws the line.
+- ``mlp_block_fwd`` replaces ``fused_mlp_block`` (:500) at every width the
+  fused route takes (D and F multiples of 128, D <= 1536), in one C call
+  of four launches: LN2 of the rows, fc1 on the Hopper GEMM with the GELU
+  epilogue into a bf16 ``[rows, F]`` hidden in device memory, fc2 on the
+  same GEMM with the residual epilogue (and the ``mlp_out`` capture), and
+  the final-LN capture.
+- The stem counts its wide form's launches apart, in ``wide_launches``;
+  the library's ``wst_enc_narrow_max()`` draws the line.
 
 Bounds at whisper-tiny, 64 clips: operations (see the sources' notes).
 """
@@ -52,7 +52,7 @@ import torch
 from . import _build
 
 _BF = torch.bfloat16
-_EPI_QKV, _EPI_RESIDUAL = 0, 1  # epilogues of wst_enc_gemm_fwd
+_EPI_QKV, _EPI_RESIDUAL = 0, 1  # epilogues of wst_enc_gemm_fwd (csrc/encoder_gemm.cuh)
 _GEMM_WIDTH = 128  # the GEMM's N and K are multiples of its tile (the fused route's gate too)
 
 
@@ -295,9 +295,6 @@ def attention_block_fwd(x, ln_g, ln_b, p, n_heads: int, t_real: int | None = Non
     return out_proj_fwd(attn.view(b * t, d), rows, p["wo"], p["bo"]).view(b, t, d)
 
 
-_MLP_WIDTHS = (128, 256, 384, 512)
-
-
 def _mlp_outputs(x, capture: bool, final_ln, capture_dtype):
     """(out, cap, fg, fb, cap_mode, mlp_in, mlp_out) for the launch."""
     if final_ln is not None and capture_dtype not in (torch.bfloat16, torch.float32):
@@ -326,49 +323,38 @@ def _mlp_result(out, cap, mlp_in, mlp_out, capture: bool):
 
 def mlp_block_fwd(x, ln_g, ln_b, p, capture: bool = False, final_ln=None,
                   capture_dtype=torch.bfloat16):
-    """x + bf16(GELU(LN2(x) W1 + b1) W2 + b2) on rows ``[N, D]`` bf16.
-    Returns out [, ln_f(out) at ``capture_dtype``] [, mlp_in, mlp_out].
-    Up to ``wst_enc_narrow_max()`` the hidden stays in shared memory
-    (``launches``); above it, D a multiple of 128 up to
-    ``wst_enc_wide_max()``, the wide form keeps a bf16 ``[N, F]`` hidden as
-    scratch in device memory (``wide_launches``)."""
+    """x + bf16(GELU(LN2(x) W1 + b1) W2 + b2) on rows ``[N, D]`` bf16, D and
+    F multiples of 128, D up to ``wst_enc_wide_max()``.  Returns out [,
+    ln_f(out) at ``capture_dtype``] [, mlp_in, mlp_out].  One C call: LN2
+    (into ``mlp_in`` when captured, else a scratch), fc1 with GELU into a
+    bf16 ``[N, F]`` scratch, fc2 with the residual, the final-LN capture."""
     _check_rows(x, "mlp_block_fwd", 2)
     n, d = x.shape
     f = p["w1"].shape[1]
+    if d % _GEMM_WIDTH or f % _GEMM_WIDTH:
+        raise ValueError(f"mlp_block_fwd takes D and F a multiple of {_GEMM_WIDTH} "
+                         f"(got D={d}, F={f})")
     lib = _build.load_library()
-    wide = d > lib.wst_enc_narrow_max()
-    if wide and (d % 128 or d > lib.wst_enc_wide_max() or f % 128):
-        raise ValueError(f"mlp_block_fwd's wide form takes D a multiple of 128 up to "
-                         f"{lib.wst_enc_wide_max()} and F a multiple of 128 (got D={d}, F={f})")
-    if not wide and (d not in _MLP_WIDTHS or f % lib.wst_enc_mlp_chunk()):
-        raise ValueError(f"mlp_block_fwd takes D in {_MLP_WIDTHS} and F a multiple of "
-                         f"{lib.wst_enc_mlp_chunk()} (got D={d}, F={f})")
+    if d > lib.wst_enc_wide_max():
+        raise ValueError(f"mlp_block_fwd takes D <= {lib.wst_enc_wide_max()} (got {d})")
+    w1t, b1, w2t, b2, g, bln = mlp_weights(p, ln_g, ln_b)
+    if tuple(w1t.shape) != (f, d) or tuple(w2t.shape) != (d, f):
+        raise ValueError(f"mlp_block_fwd: weights {tuple(p['w1'].shape)}, "
+                         f"{tuple(p['w2'].shape)} for D={d}")
     out, cap, fg, fb, cap_mode, mlp_in, mlp_out = _mlp_outputs(x, capture, final_ln,
                                                                capture_dtype)
-    w1t, b1, w2t, b2, g, bln = mlp_weights(p, ln_g, ln_b)
-    if wide:
-        xln = mlp_in if capture else torch.empty_like(x)
-        hid = torch.empty((n, f), dtype=_BF, device=x.device)
-        err = lib.wst_mlp_block_wide_fwd(x.data_ptr(), n, d, f, g.data_ptr(), bln.data_ptr(),
-                                         w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(),
-                                         b2.data_ptr(), _ptr(fg), _ptr(fb), cap_mode,
-                                         out.data_ptr(), _ptr(cap), xln.data_ptr(),
-                                         hid.data_ptr(), _ptr(mlp_out), _stream(x.device))
-    else:
-        err = lib.wst_mlp_block_fwd(x.data_ptr(), n, d, f, g.data_ptr(),
-                                    bln.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
-                                    w2t.data_ptr(), b2.data_ptr(), _ptr(fg), _ptr(fb), cap_mode,
-                                    out.data_ptr(), _ptr(cap), _ptr(mlp_in), _ptr(mlp_out),
-                                    _stream(x.device))
+    xln = mlp_in if capture else torch.empty_like(x)
+    hid = torch.empty((n, f), dtype=_BF, device=x.device)
+    err = lib.wst_mlp_block_fwd(x.data_ptr(), n, d, f, g.data_ptr(), bln.data_ptr(),
+                                w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+                                _ptr(fg), _ptr(fb), cap_mode, out.data_ptr(), _ptr(cap),
+                                xln.data_ptr(), hid.data_ptr(), _ptr(mlp_out), _stream(x.device))
     _build.check(err, "mlp_block_fwd")
-    if wide:
-        mlp_block_fwd.wide_launches += 1
-    else:
-        mlp_block_fwd.launches += 1
+    mlp_block_fwd.launches += 1
     return _mlp_result(out, cap, mlp_in, mlp_out, capture)
 
 
 for _fn in (conv_stem_fwd, ln_qkv_fwd, self_attention_fwd, flash_self_attention_fwd,
             out_proj_fwd, mlp_block_fwd):
     _fn.launches = 0
-conv_stem_fwd.wide_launches = mlp_block_fwd.wide_launches = 0
+conv_stem_fwd.wide_launches = 0

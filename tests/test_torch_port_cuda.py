@@ -310,8 +310,8 @@ GEOMS = [(128, 2, 256, 80, 100), (384, 6, 1536, 80, 1500), (384, 6, 1536, 128, 1
 @pytest.mark.parametrize("d,heads,f,n_mels,t", GEOMS)
 def test_encoder_kernels_match_plain(dev, d, heads, f, n_mels, t):
     """Every encoder kernel at whisper-tiny, -small and -large-v3 widths
-    (and D=1536, the widest the fused route takes), narrow or wide form
-    by width; the attention core with T unpadded and with keys masked."""
+    (and D=1536, the widest the fused route takes), the stem's narrow or
+    wide form by width; the attention core with T unpadded and with keys masked."""
     enc, lp, g = _encoder(d, heads, f, n_mels, t)
     mel = (torch.randn(2, n_mels, 2 * t, generator=g) * 0.5).to(dev).bfloat16()
     stem = (enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"], enc["pos"])
@@ -339,26 +339,71 @@ def test_encoder_kernels_match_plain(dev, d, heads, f, n_mels, t):
         _close(got, want)
 
 
-@pytest.mark.parametrize("d,heads,f", [(384, 6, 1536), (1280, 20, 5120)], ids=["narrow", "wide"])
+# every width the MLP route takes up to the widest of the gate (F = 4D)
+MLP_WIDTHS = (128, 256, 384, 512, 768, 1024, 1280, 1536)
+
+
+@pytest.mark.parametrize("d", MLP_WIDTHS)
 @pytest.mark.parametrize("capture,final_ln,cap_dt", [
     (False, False, torch.bfloat16), (True, False, torch.bfloat16),
     (False, True, torch.bfloat16), (True, True, torch.float32),
 ])
-def test_mlp_kernel_all_modes(dev, capture, final_ln, cap_dt, d, heads, f):
-    enc, lp, g = _encoder(d, heads, f, 80, 1500, seed=1)
-    x = torch.randn(3000, d, generator=g).to(dev).bfloat16()
+def test_mlp_kernel_all_modes(dev, capture, final_ln, cap_dt, d):
+    """The MLP route (LN2, fc1 and fc2 on the Hopper GEMM, the final-LN
+    capture) at every width, on a ragged 3000 - 37 rows; one launch each,
+    two launches bit-identical."""
+    enc, lp, g = _encoder(d, d // 64, 4 * d, 80, 1500, seed=1)
+    x = torch.randn(3000 - 37, d, generator=g).to(dev).bfloat16()
     fl = (enc["ln_f_g"].float(), enc["ln_f_b"].float()) if final_ln else None
-    before = (CE.mlp_block_fwd.launches, CE.mlp_block_fwd.wide_launches)
+    before = CE.mlp_block_fwd.launches
     got = CE.mlp_block_fwd(x, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
-    wide = d > _build.load_library().wst_enc_narrow_max()
-    assert (CE.mlp_block_fwd.launches - before[0], CE.mlp_block_fwd.wide_launches - before[1]) \
-        == (int(not wide), int(wide))
+    assert CE.mlp_block_fwd.launches - before == 1
     want = E.mlp_block_plain(x, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
-    got, want = (o if isinstance(o, tuple) else (o,) for o in (got, want))
+    again = CE.mlp_block_fwd(x, lp["ln2_g"], lp["ln2_b"], lp["mlp"], capture, fl, cap_dt)
+    got, want, again = (o if isinstance(o, tuple) else (o,) for o in (got, want, again))
     assert len(got) == len(want) == 1 + final_ln + 2 * capture
-    for a, b in zip(got, want):
+    for a, b, c in zip(got, want, again):
         assert a.dtype == b.dtype
         _close(a, b)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("d", [384, 1280])
+def test_encoder_gemm_mlp_epilogues(dev, d):
+    """``wst_enc_gemm_fwd`` with the GELU epilogue (fc1) and with the
+    residual epilogue and the pre-residual output (fc2) against a torch
+    reference of each epilogue on ragged rows; fc2's output is the same
+    with and without the capture, and the capture is exactly the y that
+    was added; unknown epilogues and widths are refused."""
+    import torch.nn.functional as F
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    lib, f, rows = _build.load_library(), 4 * d, 1500 - 37
+    g = torch.Generator().manual_seed(d)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    a, x = r(rows, d).bfloat16(), r(rows, d).bfloat16()
+    w1, w2 = r(f, d, scale=d ** -0.5).bfloat16(), r(d, f, scale=f ** -0.5).bfloat16()
+    b1, b2 = r(f, scale=0.1), r(d, scale=0.1)
+    h = torch.empty(rows, f, dtype=torch.bfloat16, device=dev)
+    out, out2, y = (torch.empty_like(x) for _ in range(3))
+    st = torch.cuda.current_stream().cuda_stream
+    assert lib.wst_enc_gemm_fwd(2, a.data_ptr(), w1.data_ptr(), rows, f, d, b1.data_ptr(), 1.0, d,
+                                h.data_ptr(), None, None, None, st) == 0
+    _close(h, F.gelu(mm_f32(a, w1.t()) + b1).bfloat16())
+    assert lib.wst_enc_gemm_fwd(1, h.data_ptr(), w2.data_ptr(), rows, d, f, b2.data_ptr(), 1.0, d,
+                                out.data_ptr(), y.data_ptr(), None, x.data_ptr(), st) == 0
+    assert lib.wst_enc_gemm_fwd(1, h.data_ptr(), w2.data_ptr(), rows, d, f, b2.data_ptr(), 1.0, d,
+                                out2.data_ptr(), None, None, x.data_ptr(), st) == 0
+    y_want = (mm_f32(h, w2.t()) + b2).bfloat16()
+    _close(y, y_want)
+    _close(out, (x.float() + y_want.float()).bfloat16())
+    assert torch.equal(out, (x.float() + y.float()).bfloat16()) and torch.equal(out, out2)
+    for epi, n in ((3, f), (2, f - 64)):
+        assert lib.wst_enc_gemm_fwd(epi, a.data_ptr(), w1.data_ptr(), rows, n, d, b1.data_ptr(),
+                                    1.0, d, h.data_ptr(), None, None, None, st) != 0
 
 
 @pytest.mark.parametrize("d,heads,b", [(384, 6, 4), (1280, 20, 2)], ids=["tiny", "large"])
@@ -442,9 +487,9 @@ def test_encoder_gate_constants_match_the_library(dev):
 
 def test_large_v3_extraction_uses_only_kernels(dev):
     """bf16 extract_activations at whisper-large-v3 width (2+2 layers, one
-    clip) launches the wide forms and the attention core, no plain
-    version, and agrees per layer with the card's composed route at the
-    stack bar."""
+    clip) launches the wide stem, the attention launches and the MLP
+    route, no plain version, and agrees per layer with the card's
+    composed route at the stack bar."""
     arch = W.WhisperArch(1280, 2, 2, 20, 5120, n_mels=128, vocab_size=51866)
     p = W.params_to(W.init_whisper(torch.Generator().manual_seed(6), arch), dev)
     mel = (torch.randn(1, 128, 3000, generator=torch.Generator().manual_seed(7)) * 0.5).to(dev)
@@ -452,14 +497,13 @@ def test_large_v3_extraction_uses_only_kernels(dev):
     def counts():
         return [CE.conv_stem_fwd.wide_launches, CE.ln_qkv_fwd.launches,
                 CE.self_attention_fwd.launches, CE.out_proj_fwd.launches,
-                CE.mlp_block_fwd.wide_launches, CE.conv_stem_fwd.launches,
-                CE.mlp_block_fwd.launches]
+                CE.mlp_block_fwd.launches, CE.conv_stem_fwd.launches]
 
     before = counts()
     got = W.extract_activations(p, mel, arch, compute_dtype=torch.bfloat16,
                                 capture_dtype=torch.bfloat16, with_mlp=True)
     assert sum(E.plain_calls.values()) == 0
-    assert [a - b for a, b in zip(counts(), before)] == [1, 2, 2, 2, 2, 0, 0]
+    assert [a - b for a, b in zip(counts(), before)] == [1, 2, 2, 2, 2, 0]
     want = W.extract_activations(p, mel, arch, compute_dtype=torch.bfloat16,
                                  capture_dtype=torch.bfloat16, with_mlp=True,
                                  use_fused_encoder=False)
