@@ -196,6 +196,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 D, H, K = 384, 3072, 32
 BATCHES = (128, 4096)
+A_WIDE_BATCH = 32768  # kernel A alone: checked and timed, not trained
+# kernel A's four launches, by the profiler's kernel names
+A_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_kernel<3>",
+           "select_decode": "sae_select_decode_kernel", "finalize": "sae_loss_finalize_kernel"}
 N_ROWS = (1 << 18) + 64
 EPOCHS = 3
 RANK = 64
@@ -339,6 +343,37 @@ def grads_close(fn, p, cpu_fn, names, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> None:
+    """Kernel A against its plain version at ``b`` rows, sliced and at a
+    row offset into an epoch buffer; two launches give the same bits."""
+    we_t = cuda_sae._bf16_t(p["w_enc"])
+    wd = p["w_dec"].bfloat16()
+    b_out = p["b_dec"] + p["b_pre"]
+    for what, data, off in (("fused_sae_loss", x, 0), ("fused_sae_loss_indexed", buf, b)):
+        got = cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"], p["b_pre"], wd, b_out, K)
+        want = cuda_sae.fused_sae_loss_plain(data[off:off + b], we_t, p["b_enc"], p["b_pre"],
+                                             wd, b_out, K)
+        torch.cuda.synchronize()
+        ok = agree(got[3], want[3])
+        share = float(ok.float().mean())
+        check(share >= 0.999, f"{what} B={b}: selection agrees on {share:.4%} of rows")
+        rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        check(rel <= 1e-4, f"{what} B={b}: loss rel err {rel:.3g} > 1e-4")
+        hk, hp = got[3][ok] > 0, want[3][ok] > 0
+        check(int(hk.sum()) == int(hp.sum()), f"{what} B={b}: l0 differs on agreeing rows")
+        check(torch.equal(hk.any(0), hp.any(0)), f"{what} B={b}: active differs on agreeing rows")
+        if bool(ok.all()):
+            check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
+                  f"{what} B={b}: l0/active outputs differ")
+        check(torch.equal(got[5], want[5]), f"{what} B={b}: centred rows differ")
+        errs[what] = max(errs.get(what, 0.0), float((got[4][ok] - want[4][ok]).abs().max()))
+        log(f"  {what:24s} B={b:5d}: rows agreeing {share:.4%}, loss {float(got[0]):.7g} "
+            f"vs plain {float(want[0]):.7g}, l0 {float(got[1]):.3f}")
+    a = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
+    a2 = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
+    check(all(torch.equal(u, v) for u, v in zip(a, a2)), f"kernel A B={b}: loss not bit-identical")
+
+
 def kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
     errs: dict[str, float] = {}
     for b in BATCHES:
@@ -347,33 +382,7 @@ def kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
         x = torch.randn(b, D, generator=gen).to(dev)
         buf = torch.randn(3 * b, D, generator=gen).to(dev)
         we_t = cuda_sae._bf16_t(p["w_enc"])
-        wd = p["w_dec"].bfloat16()
-        b_out = p["b_dec"] + p["b_pre"]
-
-        # kernel A, sliced and at a row offset into an epoch buffer
-        for what, data, off in (("fused_sae_loss", x, 0), ("fused_sae_loss_indexed", buf, b)):
-            got = cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"], p["b_pre"], wd, b_out, K)
-            want = cuda_sae.fused_sae_loss_plain(data[off:off + b], we_t, p["b_enc"], p["b_pre"],
-                                                 wd, b_out, K)
-            torch.cuda.synchronize()
-            ok = agree(got[3], want[3])
-            share = float(ok.float().mean())
-            check(share >= 0.999, f"{what} B={b}: selection agrees on {share:.4%} of rows")
-            rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
-            check(rel <= 1e-4, f"{what} B={b}: loss rel err {rel:.3g} > 1e-4")
-            hk, hp = got[3][ok] > 0, want[3][ok] > 0
-            check(int(hk.sum()) == int(hp.sum()), f"{what} B={b}: l0 differs on agreeing rows")
-            check(torch.equal(hk.any(0), hp.any(0)), f"{what} B={b}: active differs on agreeing rows")
-            if bool(ok.all()):
-                check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
-                      f"{what} B={b}: l0/active outputs differ")
-            check(torch.equal(got[5], want[5]), f"{what} B={b}: centred rows differ")
-            errs[what] = max(errs.get(what, 0.0), float((got[4][ok] - want[4][ok]).abs().max()))
-            log(f"  {what:24s} B={b:5d}: rows agreeing {share:.4%}, loss {float(got[0]):.7g} "
-                f"vs plain {float(want[0]):.7g}, l0 {float(got[1]):.3f}")
-        a = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
-        a2 = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
-        check(all(torch.equal(u, v) for u, v in zip(a, a2)), f"kernel A B={b}: loss not bit-identical")
+        check_kernel_a(cuda_sae, b, p, x, buf, errs)
 
         # kernel B, bf16 and f32 latent
         for out_dtype in (torch.bfloat16, torch.float32):
@@ -413,6 +422,10 @@ def kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
             cuda_topk.topk_mask(pc, K).backward(g.to(dev))
             check(torch.equal(pc.grad, torch.where(want > 0, g.to(dev), 0.0)), "topk_mask: gradient")
             log(f"  gradients B={b}: agree (rtol 2e-2)")
+    b = A_WIDE_BATCH
+    gen = torch.Generator().manual_seed(b + 1)
+    check_kernel_a(cuda_sae, b, params(b, dev), torch.randn(b, D, generator=gen).to(dev),
+                   torch.randn(3 * b, D, generator=gen).to(dev), errs)
     return errs
 
 
@@ -556,16 +569,37 @@ def step_profile(trainer, rows, steps: int) -> dict:
     return res
 
 
+def kernel_a_split(fn, calls: int = 10) -> dict:
+    """Device ms per launch of each of kernel A's four kernels, from
+    ``torch.profiler`` over ``calls`` calls of ``fn`` (None where the
+    profiler saw no device time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    split = {}
+    for part, kname in A_PARTS.items():  # each launches once a call
+        hits = [e for e in kernels if kname in e.key]
+        us, n = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
+        split[part] = us / 1e3 / n if us > 0 else None
+    return split
+
+
 def times(dev, cuda_sae, cuda_topk, topk) -> dict:
     res: dict = {}
-    for b in BATCHES:
+    for b in (*BATCHES, A_WIDE_BATCH):
         p = params(7, dev)
         x = torch.randn(b, D, generator=torch.Generator().manual_seed(8)).to(dev)
         buf = torch.cat([torch.randn_like(x), x, torch.randn_like(x)])
         we_t = cuda_sae._bf16_t(p["w_enc"])
         wd, b_out = p["w_dec"].bfloat16(), p["b_dec"] + p["b_pre"]
         xc, w_bf = (x - p["b_pre"]).bfloat16(), p["w_enc"].bfloat16()
-        pre = (torch.matmul(xc.float(), w_bf.float()) + p["b_enc"]).contiguous()
         _, _, active, hid, _, _ = cuda_sae._fused_loss_launch(x, 0, b, we_t, p["b_enc"], p["b_pre"],
                                                               wd, b_out, K)
         nnz, n_active = int((hid > 0).sum()), int(active.sum())
@@ -580,9 +614,16 @@ def times(dev, cuda_sae, cuda_topk, topk) -> dict:
                                                                 b_out, K), iters=5, warmup=1)
         # sliced, and at a row offset into a 3-batch epoch buffer
         for name, data, off in (("fused_sae_loss", x, 0), ("fused_sae_loss_indexed", buf, b)):
-            a_ms = time_ms(lambda: cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"],
-                                                               p["b_pre"], wd, b_out, K))
+            launch = lambda: cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"],  # noqa: E731
+                                                         p["b_pre"], wd, b_out, K)
+            a_ms = time_ms(launch)
             res[(name, b)] = (a_ms, a_plain, *a_bound, lib_gemm)
+            res[("split", name, b)] = split = kernel_a_split(launch)
+            log(f"  {name:24s} B={b:5d}: launches in ms: "
+                + ", ".join(f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
+                            for k_, v in split.items()))
+        if b not in BATCHES:
+            continue
 
         b_bytes = b * D * 4 + D * H * 2 + (H + D) * 4 + b * H * 2
         b_bound = bound(b_bytes, 2 * b * D * H, 32 * b * H)
@@ -592,6 +633,7 @@ def times(dev, cuda_sae, cuda_topk, topk) -> dict:
                                                              torch.bfloat16), iters=5, warmup=1)
         res[("fused_topk_encode", b)] = (b_ms, b_plain, *b_bound, lib_gemm)
 
+        pre = (torch.matmul(xc.float(), w_bf.float()) + p["b_enc"]).contiguous()
         c_bound = bound(2 * b * H * 4, 0, 32 * b * H)
         c_ms = time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K))
         c_plain = time_ms(lambda: topk.topk_mask_plain(pre, K), iters=5, warmup=1)
@@ -2248,20 +2290,28 @@ def main() -> int:
     }
     kernels = []
     for name in wrappers:
-        for b in BATCHES:
+        kernel_a = name.startswith("fused_sae_loss")
+        for b in (*BATCHES, A_WIDE_BATCH) if kernel_a else BATCHES:
             ms, plain, bound_ms, by, lib_ms = res[(name, b)]
             log(f"  {name:24s} B={b:5d}: {ms:.4f} ms, plain {plain:.4f}, bound {bound_ms:.4f} "
                 f"({by}), library {lib_ms:.4f}")
         ms, plain, bound_ms, by, lib_ms = res[(name, BATCHES[-1])]
         s_ms, s_plain, s_bound, s_by, s_lib = res[(name, BATCHES[0])]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
             "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
             "batch": BATCHES[-1],
             "at_batch_128": {"ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
                              "bound_by": s_by, "library_ms": s_lib},
-        })
+        }
+        if kernel_a:
+            w_ms, w_plain, w_bound, w_by, w_lib = res[(name, A_WIDE_BATCH)]
+            entry[f"at_batch_{A_WIDE_BATCH}"] = {"ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
+                                                 "bound_by": w_by, "library_ms": w_lib}
+            entry["split_ms"] = {str(b): res[("split", name, b)]
+                                 for b in (*BATCHES, A_WIDE_BATCH)}
+        kernels.append(entry)
     log("phase 7: times of the extraction slice (library_ms: torch.matmul for the "
         "projections, the conv1d pair for the stem, scaled_dot_product_attention for the core "
         "-- yardsticks, not equivalents)")

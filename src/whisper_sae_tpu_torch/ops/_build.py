@@ -46,7 +46,7 @@ _SIGNATURES = {
     "wst_sae_fused_loss_fwd": (
         [_P, _I, ctypes.c_longlong, _I, _I, _I, _I,   # x, x_bf16, off, rows, d, h, k
          _P, _P, _P, _P, _P,                         # w_enc_t, b_enc, b_pre, w_dec, b_out
-         _P, _P, _P, _P, _P, _P, _P, _P],            # hid, resid, xc, partial, counts, loss, l0, stream
+         _P, _P, _P, _P, _P, _P, _P, _P, _P],        # hid, resid, xc, pre, partial, counts, loss, l0, stream
         _I,
     ),
     "wst_sae_topk_encode_fwd": (

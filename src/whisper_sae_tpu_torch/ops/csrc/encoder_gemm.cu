@@ -8,7 +8,10 @@
 //   is the out-projection with its bias and the residual, and the MLP
 //   block's fc2 (with the pre-residual output when it is captured);
 // gemm_kernel<kGelu>      ("wst_enc_gemm_fwd", epi 2)
-//   is the MLP block's fc1 with its bias and GELU.
+//   is the MLP block's fc1 with its bias and GELU;
+// gemm_kernel<kPre>       ("wst_enc_gemm_fwd", epi 3)
+//   is the TopK SAE's encode, pre = xc . W_enc + b_enc in f32, the second
+//   of kernel A's four launches (sae_kernels.cu).
 // With attention_kernel.cu's core between them, q/k/v and the
 // out-projection replace whisper_sae_tpu/ops/pallas_encoder.py:
 // _attention_block_kernel and _attention_block_kernel_tiled
@@ -18,17 +21,28 @@
 // together by wst_mlp_block_fwd (encoder_kernels.cu).
 //
 // C[m, n] = A[m, k] . B[n, k]^T: A bf16 rows (the LN'd rows, the
-// attention core's output or the MLP's hidden), B the weight in the
-// [N, K] layout, f32 sums.  K and N multiples of 128; rows of A past m
-// load as zeros (TMA) and are not stored.  Epilogues with the Pallas
-// kernels' numerics (pallas_encoder.py:186-197, :225-229, :396-418):
+// attention core's output, the MLP's hidden or the SAE's centred rows),
+// B the weight in the [N, K] layout, f32 sums.  K and N multiples of 128
+// (kPre: K a multiple of 8, N even; the last K block and the last column
+// tile are ragged, TMA loads their columns past K and rows past N as
+// zeros, and no column past N is stored); rows of A past m load as zeros
+// (TMA) and are not stored.  Epilogues with the Pallas kernels' numerics
+// (pallas_encoder.py:186-197, :225-229, :396-418; pallas_sae.py:189):
 //   kQkv       q = bf16((acc + bq) * head_dim**-0.5), k = bf16(acc),
 //              v = bf16(acc + bv), each written [m, d] (N = 3d; a
 //              128-column tile lies in one third, as 128 divides d);
 //   kResidual  y = bf16(acc + b); out = bf16(x + y); and, when asked,
 //              aux = y (fc2's mlp_out capture);
 //   kGelu      h = bf16(gelu(acc + b)), the exact erff GELU in f32 (the
-//              TPU kernel's erf polynomial is a Mosaic workaround).
+//              TPU kernel's erf polynomial is a Mosaic workaround);
+//   kPre       pre = acc + b in f32, stored straight from the registers
+//              (two f32 a thread and row: each 32-byte sector is written
+//              whole), so no output tile takes shared memory and the ring
+//              keeps its 6 stages.  pre goes to device memory and back
+//              (8 bytes a value): the price of kernel A's route, see
+//              sae_kernels.cu.  At K = 384 the f32 output bounds it,
+//              not the product: 50 MB at 4096 rows (15 us) against 9.7
+//              GFLOP (9.8 us).
 // No atomics: two launches give the same bits.
 //
 // Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s); every product here
@@ -143,6 +157,7 @@ struct __align__(1024) GemmSmem {
 
 struct Epilogue {
   const float* bias;   // [n] f32 (kQkv: bq, 0, bv)
+  float* pre;          // kPre: the [m, n] f32 output
   float q_scale;       // kQkv: the q third's factor
   int d;               // kQkv: the width of one third
   int aux;             // kResidual: also store y = bf16(acc + b) (through map_o1)
@@ -215,10 +230,10 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
   const int rank = CLUSTER > 1 ? (int)cluster_rank() : 0;
   const long long first = CLUSTER > 1 ? cluster_id_x() : blockIdx.x;
   const long long stride = CLUSTER > 1 ? cluster_count_x() : gridDim.x;
-  const int n_tiles = n / kBN;
+  const int n_tiles = (n + kBN - 1) / kBN;
   const long long m_tiles = (m + kBM - 1) / kBM;
   const long long tiles = (m_tiles + CLUSTER - 1) / CLUSTER * n_tiles;  // cluster tiles
-  const int kblocks = k / kBK;
+  const int kblocks = (k + kBK - 1) / kBK;
   auto tile_rows = [&](long long tile) { return (tile / n_tiles * CLUSTER + rank) * kBM; };
   auto tile_col = [&](long long tile) { return (int)(tile % n_tiles) * kBN; };
 
@@ -318,6 +333,23 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
       release((it - 1) % STAGES);
       if (!kEpilogue) continue;
 
+      if constexpr (EPI == kPre) {  // f32 pairs straight to device memory
+        const long long r0 = row0 + lr0;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int c = col0 + j * 8 + fc;
+          if (c >= n) continue;  // n is even, so c + 1 < n too
+          const float b0 = __ldg(ep.bias + c), b1 = __ldg(ep.bias + c + 1);
+          if (r0 < m)
+            *reinterpret_cast<float2*>(ep.pre + r0 * n + c) =
+                make_float2(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+          if (r0 + 8 < m)
+            *reinterpret_cast<float2*>(ep.pre + (r0 + 8) * n + c) =
+                make_float2(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
+        }
+        continue;
+      }
+
       // The epilogue: the values, rounded to bf16, into the output-tile
       // buffer once the previous tile's store has read it; then thread 0
       // stores it (rows past m are not written) and fetches the next
@@ -346,7 +378,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
         } else if constexpr (EPI == kGelu) {
           *o0 = pack2(gelu(acc[4 * j] + b0), gelu(acc[4 * j + 1] + b1));
           *o1 = pack2(gelu(acc[4 * j + 2] + b0), gelu(acc[4 * j + 3] + b1));
-        } else {
+        } else if constexpr (EPI == kResidual) {
           uint32_t* r0 = reinterpret_cast<uint32_t*>(at(s.res, lr0, c));
           uint32_t* r1 = reinterpret_cast<uint32_t*>(at(s.res, lr0 + 8, c));
           const uint32_t y0 = pack2(acc[4 * j] + b0, acc[4 * j + 1] + b1);
@@ -409,7 +441,8 @@ static int g_fits[kEpilogues][kMaxDevices];
 
 // outs: q, k, v ([m, d] each) for kQkv; for kResidual out ([m, n]), then
 // aux ([m, n], or out again when ep.aux is 0), out; its residual ``res``
-// is [m, n]; out ([m, n]) three times for kGelu.
+// is [m, n]; out ([m, n]) three times for kGelu; unused for kPre (its f32
+// output is ep.pre, stored without a tensor map).
 template <int EPI>
 int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* const* outs,
                 const void* res, const Epilogue& ep, cudaStream_t stream) {
@@ -419,8 +452,12 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
   CUtensorMap ma, mb, mo[3], mr;
   int err = make_map(&ma, a, m, k, kBM);
   if (!err) err = make_map(&mb, b, n, k, kBN / CLUSTER);
-  for (int i = 0; i < 3 && !err; ++i) err = make_map(&mo[i], outs[i], m, out_cols, kBM);
-  if (!err) err = make_map(&mr, EPI == kResidual ? res : outs[0], m, out_cols, kBM);
+  if (EPI == kPre) {  // no bf16 output or residual: the maps are never read
+    mo[0] = mo[1] = mo[2] = mr = ma;
+  } else {
+    for (int i = 0; i < 3 && !err; ++i) err = make_map(&mo[i], outs[i], m, out_cols, kBM);
+    if (!err) err = make_map(&mr, EPI == kResidual ? res : outs[0], m, out_cols, kBM);
+  }
   if (err) return err;
   const size_t smem = sizeof(GemmSmem<EPI>) + 1024;  // + room to align the base to 1024
   cudaLaunchAttribute attr[1];
@@ -453,7 +490,7 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
     fits[dev] = fit;
   }
   const int fit = fits[dev];
-  const long long tiles = ((m + kBM - 1) / kBM + CLUSTER - 1) / CLUSTER * (n / kBN);
+  const long long tiles = ((m + kBM - 1) / kBM + CLUSTER - 1) / CLUSTER * ((n + kBN - 1) / kBN);
   cfg.gridDim = dim3((unsigned)((tiles < fit ? tiles : fit) * CLUSTER));
   err = (int)cudaLaunchKernelEx(&cfg, kernel, ma, mb, mo[0], mo[1], mo[2], mr, m, n, k, ep);
   return err ? err : (int)cudaGetLastError();
@@ -464,20 +501,24 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
 extern "C" {
 
 // C = A . B^T with epilogue ``epi`` (0: q/k/v, 1: bias + residual, 2:
-// bias + GELU).  a: [m, k] bf16; b: [n, k] bf16; bias: [n] f32; n and k
-// multiples of 128.  epi 0: n = 3d, outputs out0/out1/out2 = q/k/v [m, d];
-// epi 1: out0 [m, n] = res + y with y = bf16(acc + bias), and out1 [m, n]
-// = y unless it is null; epi 2: out0 [m, n] = bf16(gelu(acc + bias)).
+// bias + GELU, 3: bias, f32).  a: [m, k] bf16; b: [n, k] bf16; bias: [n]
+// f32; n and k multiples of 128 (epi 3: k a multiple of 8, n even).
+// epi 0: n = 3d, outputs out0/out1/out2 = q/k/v [m, d]; epi 1: out0 [m, n]
+// = res + y with y = bf16(acc + bias), and out1 [m, n] = y unless it is
+// null; epi 2: out0 [m, n] = bf16(gelu(acc + bias)); epi 3: out0 [m, n]
+// f32 = acc + bias.
 int wst_enc_gemm_fwd(int epi, const void* a, const void* b, long long m, int n, int k,
                      const void* bias, float q_scale, int d, void* out0, void* out1, void* out2,
                      const void* res, void* stream) {
   using namespace wst_gemm;
   if (m <= 0) return 0;
-  if (k <= 0 || k % kAlign || n <= 0 || n % kAlign || epi < 0 || epi >= kEpilogues)
+  if (epi < 0 || epi >= kEpilogues || k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (epi == kPre ? (k % 8 || n % 2) : (k % kAlign || n % kAlign))
     return (int)cudaErrorInvalidValue;
   if (epi == kQkv && (d <= 0 || d % kBN || n != 3 * d)) return (int)cudaErrorInvalidValue;
   Epilogue ep;
   ep.bias = static_cast<const float*>(bias);
+  ep.pre = static_cast<float*>(out0);
   ep.q_scale = q_scale;
   ep.d = d;
   ep.aux = epi == kResidual && out1 != nullptr;
@@ -485,6 +526,7 @@ int wst_enc_gemm_fwd(int epi, const void* a, const void* b, long long m, int n, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epi == kQkv) return launch_gemm<kQkv>(a, b, m, n, k, outs, res, ep, s);
   if (epi == kGelu) return launch_gemm<kGelu>(a, b, m, n, k, outs, res, ep, s);
+  if (epi == kPre) return launch_gemm<kPre>(a, b, m, n, k, outs, res, ep, s);
   return launch_gemm<kResidual>(a, b, m, n, k, outs, res, ep, s);
 }
 

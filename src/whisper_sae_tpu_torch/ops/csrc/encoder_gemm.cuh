@@ -1,5 +1,6 @@
 // The encoder GEMM's C entry (encoder_gemm.cu) and its epilogue codes,
-// for the sources that launch it (encoder_kernels.cu: the MLP block), and
+// for the sources that launch it (encoder_kernels.cu: the MLP block;
+// sae_kernels.cu: kernel A's encode), and
 // the element functions both sources' epilogues share: the bf16 reads and
 // packing, and the exact erff GELU of the Pallas kernels.
 
@@ -13,7 +14,8 @@ namespace wst_gemm {
 constexpr int kQkv = 0;       // q/k/v: the biases, the q scale, three outputs
 constexpr int kResidual = 1;  // the bias and the residual (+ the pre-residual output)
 constexpr int kGelu = 2;      // the bias and GELU
-constexpr int kEpilogues = 3;
+constexpr int kPre = 3;       // the bias, f32 out (the SAE's pre-activation)
+constexpr int kEpilogues = 4;
 
 typedef unsigned short bf16_t;
 

@@ -1,6 +1,8 @@
 // Hand-written Hopper kernels of the TopK-SAE training path.
 //
-// sae_rows_kernel<kFusedLoss>   (kernel A, "sae_fused_loss_fwd")
+// Kernel A ("sae_fused_loss_fwd"), one C call of four launches:
+//   sae_centre_kernel, gemm_kernel<kPre> (encoder_gemm.cu),
+//   sae_select_decode_kernel, sae_loss_finalize_kernel;
 //   replaces whisper_sae_tpu/ops/pallas_sae.py:_fused_loss_kernel, reached
 //   by fused_sae_loss (pallas_call at :249) and, with a row offset into the
 //   epoch buffer, by fused_sae_loss_indexed (:424).
@@ -21,20 +23,33 @@
 //
 // Bound on the H100 at whisper-tiny (D=384, H=3072, k=32; 989 TFLOP/s
 // bf16, 3.35 TB/s): the encode product is 2*B*D*H FLOPs (9.7 GFLOP at
-// B=4096, 9.8 us) and the kernel must move x, hid, resid, xc and the two
-// weight matrices (B*(4D + 2H + 4D + 2D) + 2*2*D*H bytes: 50 MB at
+// B=4096, 9.8 us) and the function must move x, hid, resid, xc and the
+// two weight matrices (B*(4D + 2H + 4D + 2D) + 2*2*D*H bytes: 50 MB at
 // B=4096, 15 us), so it is bound by bytes, chiefly the bf16 latent it
 // writes for the backward.  The decode reads only the k selected rows
 // of W_dec (2*B*k*D FLOPs), not the dense H*D product.
 //
-// What the design does about it: a CTA owns 16 rows (one m16 tile of
-// mma.sync.m16n8k16) and keeps their whole [16, H] f32 pre-activation in
-// shared memory (192 KB at H=3072), so pre never reaches device memory,
-// exactly as the TPU kernel keeps it in VMEM.  W_enc is read as its
-// transpose [H, D] so each B fragment is two 32-bit loads; it stays in
-// L2 (2.25 MB).  Then one warp per row moves the row into registers, runs
-// the bisection there, writes the latent once and decodes straight from
-// a compacted list of its selected features.
+// A's route, and its price:
+//  1. sae_centre_kernel writes xc once, read at the row offset: it is
+//     both an output (the backward's) and the encode's A operand.
+//  2. The encode is encoder_gemm.cu's warp-specialised TMA/wgmma GEMM
+//     with the kPre epilogue: A = xc [B, D], B = W_enc^T [H, D], pre =
+//     acc + b_enc in f32 to a workspace.  Ragged D and H (multiples of
+//     32) load as zeros past their ends.
+//  3. sae_select_decode_kernel: one warp a row reads its row of pre into
+//     registers (96 values a lane), finds the threshold (warp_kth_largest:
+//     per-lane counts, stop at count == k), writes the bf16 latent,
+//     compacts its positive selections into the warp's slice of shared
+//     memory in feature order and decodes from those W_dec rows only,
+//     four rows at a time, lanes over D.  Shared memory is the lists
+//     alone (H entries of 4 bytes a warp: 48 KB a CTA at H = 3072), so
+//     four CTAs of four warps fit an SM, against the one 16-row CTA that
+//     the fused kernel's 192 KB tile of pre allowed.
+//  4. sae_loss_finalize_kernel sums the per-CTA loss partials.
+// The price is the f32 pre's round trip through device memory, 2*B*H*4
+// bytes beyond the bound (101 MB, ~0.03 ms at B=4096): the traffic the
+// TPU kernel keeps in VMEM.  Keeping it on chip needs a cluster holding a
+// 64-row tile's pre (768 KB f32) across DSMEM.
 //
 // Cross-CTA reductions: CTAs run concurrently (unlike the TPU grid's
 // read-modify-write accumulation, pallas_sae.py:213-223), so l0 and
@@ -43,24 +58,31 @@
 // sae_loss_finalize_kernel.  No float atomics: the loss has the same
 // bits from run to run.
 //
-// Not yet fast: no wgmma, TMA, warp specialisation or persistent grid.
+// Kernel B is the fused form A had before: a CTA owns 16 rows (one m16
+// tile of mma.sync.m16n8k16) and keeps their [16, H] f32 pre in shared
+// memory (192 KB at H=3072); W_enc^T is read from L2 with __ldg.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encoder_gemm.cuh"
 #include "topk_common.cuh"
 
 namespace wst {
 
-constexpr int kRows = 16;  // rows per CTA: the M of one mma.sync tile
+constexpr int kRows = 16;  // kernel B: rows per CTA, the M of one mma.sync tile
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * kWarp;
-constexpr int kMaxD = 384;  // decode keeps D/32 f32 sums per lane
+constexpr int kMaxD = 384;  // kernel A's decode keeps D/32 f32 sums per lane
 constexpr int kColsPerWarpStep = 32;  // four n8 MMA tiles per warp step
 constexpr int kFinalizeThreads = 256;
+constexpr int kCentreThreads = 128;
+constexpr int kSelWarps = 4;  // kernel A's row kernel: rows (one a warp) per CTA
+constexpr int kSelThreads = kSelWarps * kWarp;
+constexpr int kDecUnroll = 4;  // W_dec rows whose loads are in flight together
 
-enum Mode { kEncodeBf16 = 0, kEncodeF32 = 1, kFusedLoss = 2 };
+enum Mode { kEncodeBf16 = 0, kEncodeF32 = 1 };
 
 __device__ __forceinline__ float bf16_bits_to_float(unsigned short u) {
   return __uint_as_float(static_cast<unsigned int>(u) << 16);
@@ -85,21 +107,154 @@ __device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint3
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
-struct RowsArgs {
+// -- kernel A -------------------------------------------------------------
+
+// xc[r, :] = bf16(x[row_offset + r, :] - b_pre), one CTA a row.
+__global__ void __launch_bounds__(kCentreThreads) sae_centre_kernel(
+    const void* x, int x_bf16, long long row_offset, int d, const float* b_pre,
+    unsigned short* xc) {
+  const size_t r = blockIdx.x;
+  for (int c = threadIdx.x; c < d; c += kCentreThreads) {
+    const float xv = load_x(x, x_bf16, (size_t)(row_offset + (long long)r) * d + c);
+    xc[r * d + c] = float_to_bf16_bits(xv - b_pre[c]);
+  }
+}
+
+struct LossArgs {
   const void* x;             // [>= row_offset + rows, d] f32 or bf16
   int x_bf16;
   long long row_offset;      // first row of this batch in x
   int rows, d, h, k;
+  const float* pre;          // [rows, h] f32: xc @ W_enc + b_enc
+  const unsigned short* w_dec;  // [h, d] bf16
+  const float* b_out;        // [d] = b_dec + b_pre
+  unsigned short* hidden;    // [rows, h] bf16
+  float* resid;              // [rows, d]
+  float* sq_partial;         // [gridDim.x]
+  int* counts;               // [1 + h]: l0, active (zeroed)
+};
+
+// One warp a row: the threshold, the latent, the decode and the row's
+// share of the loss; dynamic shared memory holds each warp's list of
+// selections (h entries at most).
+__global__ void __launch_bounds__(kSelThreads, 4) sae_select_decode_kernel(LossArgs a) {
+  extern __shared__ unsigned int sel_lists[];
+  __shared__ float row_sq[kSelWarps];
+  __shared__ int row_l0[kSelWarps];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int g = blockIdx.x * kSelWarps + warp;
+  float sq = 0.0f;
+  int nsel = 0;
+  if (g < a.rows) {  // warp-uniform
+    int xi[kMaxPerLane];
+    load_row_monotone(a.pre + (size_t)g * a.h, a.h, lane, xi);
+    const int th = warp_kth_largest(xi, a.k);
+
+    // the latent, and the positive selections as (feature << 16 | bf16
+    // bits) in feature order
+    unsigned int* list = sel_lists + warp * a.h;
+#pragma unroll
+    for (int j = 0; j < kMaxPerLane; ++j) {
+      const int c = j * kWarp + lane;
+      const float v = c < a.h ? masked_relu(xi[j], th) : 0.0f;
+      const unsigned short bits = float_to_bf16_bits(v);
+      if (c < a.h) a.hidden[(size_t)g * a.h + c] = bits;
+      const bool pos = v > 0.0f;
+      const unsigned int m = __ballot_sync(0xffffffffu, pos);
+      if (pos) {
+        list[nsel + __popc(m & ((1u << lane) - 1u))] = (static_cast<unsigned int>(c) << 16) | bits;
+        atomicOr(&a.counts[1 + c], 1);
+      }
+      nsel += __popc(m);
+    }
+    __syncwarp();
+
+    // resid = sum_sel hid_j * W_dec[j, :] + b_out - x, lanes over D; the
+    // sums run in feature order.  Every load of a step is issued before
+    // its sums, unconditionally (columns past D read column lane and are
+    // not summed): a load under a branch on D waits for the sums before
+    // it, one latency each.
+    constexpr int kT = kMaxD / kWarp;
+    const int nt = a.d / kWarp;
+    float acc[kT];
+#pragma unroll
+    for (int t = 0; t < kT; ++t) acc[t] = 0.0f;
+    int s = 0;
+    for (; s + kDecUnroll <= nsel; s += kDecUnroll) {
+      float hv[kDecUnroll];
+      unsigned short w[kDecUnroll][kT];
+#pragma unroll
+      for (int u = 0; u < kDecUnroll; ++u) {
+        const unsigned int e = list[s + u];
+        hv[u] = bf16_bits_to_float(static_cast<unsigned short>(e & 0xffffu));
+        const unsigned short* wr = a.w_dec + (size_t)(e >> 16) * a.d + lane;
+#pragma unroll
+        for (int t = 0; t < kT; ++t) w[u][t] = __ldg(wr + (t < nt ? t : 0) * kWarp);
+      }
+#pragma unroll
+      for (int t = 0; t < kT; ++t) {
+#pragma unroll
+        for (int u = 0; u < kDecUnroll; ++u)
+          if (t < nt) acc[t] = fmaf(hv[u], bf16_bits_to_float(w[u][t]), acc[t]);
+      }
+    }
+    for (; s < nsel; ++s) {
+      const unsigned int e = list[s];
+      const float hv = bf16_bits_to_float(static_cast<unsigned short>(e & 0xffffu));
+      const unsigned short* wr = a.w_dec + (size_t)(e >> 16) * a.d + lane;
+      unsigned short w[kT];
+#pragma unroll
+      for (int t = 0; t < kT; ++t) w[t] = __ldg(wr + (t < nt ? t : 0) * kWarp);
+#pragma unroll
+      for (int t = 0; t < kT; ++t)
+        if (t < nt) acc[t] = fmaf(hv, bf16_bits_to_float(w[t]), acc[t]);
+    }
+    float xv[kT], bo[kT];
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      const int c = (t < nt ? t : 0) * kWarp + lane;
+      xv[t] = load_x(a.x, a.x_bf16, (size_t)(a.row_offset + g) * a.d + c);
+      bo[t] = a.b_out[c];
+    }
+#pragma unroll
+    for (int t = 0; t < kT; ++t) {
+      if (t < nt) {
+        const float res = (acc[t] + bo[t]) - xv[t];
+        a.resid[(size_t)g * a.d + t * kWarp + lane] = res;
+        sq = fmaf(res, res, sq);
+      }
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  }
+  if (lane == 0) {
+    row_sq[warp] = sq;
+    row_l0[warp] = nsel;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    int l0 = 0;
+    for (int r = 0; r < kSelWarps; ++r) {
+      total += row_sq[r];
+      l0 += row_l0[r];
+    }
+    a.sq_partial[blockIdx.x] = total;
+    atomicAdd(&a.counts[0], l0);
+  }
+}
+
+// -- kernel B -------------------------------------------------------------
+
+struct RowsArgs {
+  const void* x;             // [rows, d] f32 or bf16
+  int x_bf16;
+  int rows, d, h, k;
   const unsigned short* w_enc_t;  // [h, d] bf16: W_enc transposed
   const float* b_enc;        // [h]
   const float* b_pre;        // [d]
-  const unsigned short* w_dec;    // [h, d] bf16          (A only)
-  const float* b_out;        // [d] = b_dec + b_pre   (A only)
-  void* hidden;              // [rows, h] bf16 (A, B bf16) or f32 (B f32)
-  float* resid;              // [rows, d]             (A only)
-  unsigned short* xc;        // [rows, d] bf16        (A only)
-  float* sq_partial;         // [gridDim.x]           (A only)
-  int* counts;               // [1 + h]: l0, active   (A only; zeroed)
+  void* hidden;              // [rows, h] bf16 or f32
 };
 
 template <int MODE>
@@ -109,8 +264,6 @@ __global__ void __launch_bounds__(kThreads, 1) sae_rows_kernel(RowsArgs a) {
   const int ds = a.d + 8;  // off a single bank
   float* pre_s = reinterpret_cast<float*>(smem);
   unsigned short* xc_s = reinterpret_cast<unsigned short*>(pre_s + kRows * hs);
-  __shared__ float row_sq[kRows];
-  __shared__ int row_l0[kRows];
 
   const int tid = threadIdx.x;
   const int lane = tid & (kWarp - 1);
@@ -122,16 +275,8 @@ __global__ void __launch_bounds__(kThreads, 1) sae_rows_kernel(RowsArgs a) {
     const int r = i / a.d, c = i - r * a.d;
     const int g = row0 + r;
     unsigned short v = 0;
-    if (g < a.rows) {
-      const float xv = load_x(a.x, a.x_bf16, (size_t)(a.row_offset + g) * a.d + c);
-      v = float_to_bf16_bits(xv - a.b_pre[c]);
-      if (MODE == kFusedLoss) a.xc[(size_t)g * a.d + c] = v;
-    }
+    if (g < a.rows) v = float_to_bf16_bits(load_x(a.x, a.x_bf16, (size_t)g * a.d + c) - a.b_pre[c]);
     xc_s[r * ds + c] = v;
-  }
-  if (tid < kRows) {
-    row_sq[tid] = 0.0f;
-    row_l0[tid] = 0;
   }
   __syncthreads();
 
@@ -170,95 +315,24 @@ __global__ void __launch_bounds__(kThreads, 1) sae_rows_kernel(RowsArgs a) {
   }
   __syncthreads();
 
-  // -- one warp per row: bisection in registers, latent, decode ---------
+  // -- one warp per row: bisection in registers, the latent --------------
   for (int r = warp; r < kRows; r += kWarps) {
     const int g = row0 + r;
     if (g >= a.rows) continue;  // warp-uniform
     int xi[kMaxPerLane];
     load_row_monotone(pre_s + r * hs, a.h, lane, xi);
     const int th = warp_kth_largest(xi, a.k);
-
-    if (MODE != kFusedLoss) {
-#pragma unroll
-      for (int j = 0; j < kMaxPerLane; ++j) {
-        const int c = j * kWarp + lane;
-        if (c < a.h) {
-          const float v = masked_relu(xi[j], th);
-          if (MODE == kEncodeF32) {
-            static_cast<float*>(a.hidden)[(size_t)g * a.h + c] = v;
-          } else {
-            static_cast<unsigned short*>(a.hidden)[(size_t)g * a.h + c] = float_to_bf16_bits(v);
-          }
-        }
-      }
-      continue;
-    }
-
-    // Compact the positive selections into this row's (now free) shared
-    // slice as (feature << 16 | bf16 bits), in feature order.
-    __syncwarp();
-    unsigned int* list = reinterpret_cast<unsigned int*>(pre_s + r * hs);
-    int nsel = 0;
 #pragma unroll
     for (int j = 0; j < kMaxPerLane; ++j) {
       const int c = j * kWarp + lane;
-      const float v = c < a.h ? masked_relu(xi[j], th) : 0.0f;
-      const unsigned short bits = float_to_bf16_bits(v);
-      if (c < a.h) static_cast<unsigned short*>(a.hidden)[(size_t)g * a.h + c] = bits;
-      const bool pos = v > 0.0f;
-      const unsigned int m = __ballot_sync(0xffffffffu, pos);
-      if (pos) {
-        list[nsel + __popc(m & ((1u << lane) - 1u))] = (static_cast<unsigned int>(c) << 16) | bits;
-        atomicOr(&a.counts[1 + c], 1);
+      if (c < a.h) {
+        const float v = masked_relu(xi[j], th);
+        if (MODE == kEncodeF32) {
+          static_cast<float*>(a.hidden)[(size_t)g * a.h + c] = v;
+        } else {
+          static_cast<unsigned short*>(a.hidden)[(size_t)g * a.h + c] = float_to_bf16_bits(v);
+        }
       }
-      nsel += __popc(m);
-    }
-    __syncwarp();
-
-    // resid = sum_sel hid_j * W_dec[j, :] + b_out - x, lanes over D
-    float acc[kMaxD / kWarp];
-#pragma unroll
-    for (int t = 0; t < kMaxD / kWarp; ++t) acc[t] = 0.0f;
-    const int nt = a.d / kWarp;
-    for (int s = 0; s < nsel; ++s) {
-      const unsigned int e = list[s];
-      const float hv = bf16_bits_to_float(static_cast<unsigned short>(e & 0xffffu));
-      const unsigned short* wr = a.w_dec + (size_t)(e >> 16) * a.d + lane;
-#pragma unroll
-      for (int t = 0; t < kMaxD / kWarp; ++t) {
-        if (t < nt) acc[t] = fmaf(hv, bf16_bits_to_float(__ldg(wr + t * kWarp)), acc[t]);
-      }
-    }
-    float sq = 0.0f;
-#pragma unroll
-    for (int t = 0; t < kMaxD / kWarp; ++t) {
-      if (t < nt) {
-        const int c = t * kWarp + lane;
-        const float xv = load_x(a.x, a.x_bf16, (size_t)(a.row_offset + g) * a.d + c);
-        const float res = (acc[t] + a.b_out[c]) - xv;
-        a.resid[(size_t)g * a.d + c] = res;
-        sq = fmaf(res, res, sq);
-      }
-    }
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    if (lane == 0) {
-      row_sq[r] = sq;
-      row_l0[r] = nsel;
-    }
-  }
-
-  if (MODE == kFusedLoss) {
-    __syncthreads();
-    if (tid == 0) {
-      float sq = 0.0f;
-      int l0 = 0;
-      for (int r = 0; r < kRows; ++r) {
-        sq += row_sq[r];
-        l0 += row_l0[r];
-      }
-      a.sq_partial[blockIdx.x] = sq;
-      atomicAdd(&a.counts[0], l0);
     }
   }
 }
@@ -343,35 +417,50 @@ extern "C" {
 // Largest row count / widths the kernels take (checked again in Python).
 int wst_max_row_width() { return wst::kMaxRow; }
 int wst_max_d() { return wst::kMaxD; }
-int wst_rows_per_cta() { return wst::kRows; }
+// Rows a CTA of kernel A's row kernel takes: one loss partial each.
+int wst_rows_per_cta() { return wst::kSelWarps; }
 
-// Kernel A (+ the fixed-order finalize into the scalars loss and l0).
+// Kernel A: centre, encode (the GEMM's kPre epilogue into ``pre``, an
+// f32 [rows, h] workspace), select and decode, then the fixed-order
+// finalize into the scalars loss and l0.
 int wst_sae_fused_loss_fwd(const void* x, int x_bf16, long long row_offset, int rows, int d,
                            int h, int k, const void* w_enc_t, const void* b_enc,
                            const void* b_pre, const void* w_dec, const void* b_out,
-                           void* hidden, void* resid, void* xc, void* sq_partial, void* counts,
-                           void* loss, void* l0, void* stream) {
-  wst::RowsArgs a{x,
-                  x_bf16,
-                  row_offset,
-                  rows,
-                  d,
-                  h,
-                  k,
-                  static_cast<const unsigned short*>(w_enc_t),
-                  static_cast<const float*>(b_enc),
-                  static_cast<const float*>(b_pre),
-                  static_cast<const unsigned short*>(w_dec),
-                  static_cast<const float*>(b_out),
-                  hidden,
-                  static_cast<float*>(resid),
-                  static_cast<unsigned short*>(xc),
-                  static_cast<float*>(sq_partial),
-                  static_cast<int*>(counts)};
+                           void* hidden, void* resid, void* xc, void* pre, void* sq_partial,
+                           void* counts, void* loss, void* l0, void* stream) {
+  if (rows <= 0 || d <= 0 || d % wst::kWarp || d > wst::kMaxD || h <= 0 || h % wst::kWarp ||
+      h > wst::kMaxRow || k < 1 || k > h)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = wst::launch_rows<wst::kFusedLoss>(a, s);
-  if (err != 0) return err;
-  const int blocks = (rows + wst::kRows - 1) / wst::kRows;
+  wst::sae_centre_kernel<<<rows, wst::kCentreThreads, 0, s>>>(
+      x, x_bf16, row_offset, d, static_cast<const float*>(b_pre), static_cast<unsigned short*>(xc));
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  err = wst_enc_gemm_fwd(wst_gemm::kPre, xc, w_enc_t, rows, h, d, b_enc, 1.0f, 0, pre, nullptr,
+                         nullptr, nullptr, stream);
+  if (err) return err;
+  const wst::LossArgs a{x,
+                        x_bf16,
+                        row_offset,
+                        rows,
+                        d,
+                        h,
+                        k,
+                        static_cast<const float*>(pre),
+                        static_cast<const unsigned short*>(w_dec),
+                        static_cast<const float*>(b_out),
+                        static_cast<unsigned short*>(hidden),
+                        static_cast<float*>(resid),
+                        static_cast<float*>(sq_partial),
+                        static_cast<int*>(counts)};
+  const size_t smem = (size_t)wst::kSelWarps * h * sizeof(unsigned int);
+  err = (int)cudaFuncSetAttribute(wst::sae_select_decode_kernel,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  const int blocks = (rows + wst::kSelWarps - 1) / wst::kSelWarps;
+  wst::sae_select_decode_kernel<<<blocks, wst::kSelThreads, smem, s>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
   wst::sae_loss_finalize_kernel<<<1, wst::kFinalizeThreads, 0, s>>>(
       static_cast<const float*>(sq_partial), blocks, static_cast<const int*>(counts), rows, d,
       static_cast<float*>(loss), static_cast<float*>(l0));
@@ -382,11 +471,11 @@ int wst_sae_fused_loss_fwd(const void* x, int x_bf16, long long row_offset, int 
 int wst_sae_topk_encode_fwd(const void* x, int x_bf16, int rows, int d, int h, int k,
                             const void* w_enc_t, const void* b_enc, const void* b_pre,
                             void* hidden, int out_f32, void* stream) {
-  wst::RowsArgs a{x,       x_bf16,  0,       rows,    d,       h,       k,
+  wst::RowsArgs a{x,       x_bf16,  rows,    d,       h,       k,
                   static_cast<const unsigned short*>(w_enc_t),
                   static_cast<const float*>(b_enc),
                   static_cast<const float*>(b_pre),
-                  nullptr, nullptr, hidden,  nullptr, nullptr, nullptr, nullptr};
+                  hidden};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_f32 ? wst::launch_rows<wst::kEncodeF32>(a, s)
                  : wst::launch_rows<wst::kEncodeBf16>(a, s);

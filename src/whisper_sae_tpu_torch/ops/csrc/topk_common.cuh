@@ -10,8 +10,15 @@
 // Design for Hopper: one warp owns one row and keeps it in registers
 // (lane l holds elements j*32 + l, up to kMaxPerLane of them), so each of
 // the 32 counting passes reads registers, not shared or device memory.
-// Each pass counts with __ballot_sync/__popc; the count is the same in
-// every lane, so the branch on it never diverges.
+// Each pass counts per lane in a register (a compare and an add an
+// element) and sums the lanes once with __reduce_add_sync, instead of a
+// __ballot_sync and a __popc an element; the sum is the same in every
+// lane, so the branch on it never diverges.  The loop stops as soon as
+// the count is exactly k: every threshold in (v_{k+1}, v_k] selects the
+// same k entries, so the mask is the one the full 32 passes give, though
+// the threshold's value may differ from ops/topk.py:topk_threshold's.
+// Under a tie at v_k no midpoint counts exactly k, and the loop runs on
+// to v_k as before.
 //
 // Rows wider than a warp's registers (whisper-large 32x: H = 40960, 160
 // KB of f32) go to one CTA of kWideThreads threads instead
@@ -56,8 +63,11 @@ __device__ __forceinline__ void load_row_monotone(const float* row, int h, int l
   }
 }
 
-// Largest lo with count(xi >= lo) >= k, the k-th largest value's monotone
-// int.  Same start, midpoint and update as ops/topk.py:topk_threshold.
+// A threshold th with {xi >= th} = the row's k largest entries (with
+// every entry tied with the k-th): the first midpoint that counts exactly
+// k, else the largest lo with count(xi >= lo) >= k, the k-th largest
+// value's monotone int.  Same start, midpoint and update as
+// ops/topk.py:topk_threshold.
 template <int N>
 __device__ __forceinline__ int warp_kth_largest(const int (&xi)[N], int k) {
   int lo = -2147483647, hi = 2147483647;
@@ -66,8 +76,10 @@ __device__ __forceinline__ int warp_kth_largest(const int (&xi)[N], int k) {
     const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
     int cnt = 0;
 #pragma unroll
-    for (int j = 0; j < N; ++j) cnt += __popc(__ballot_sync(0xffffffffu, xi[j] >= mid));
-    if (cnt >= k) {
+    for (int j = 0; j < N; ++j) cnt += xi[j] >= mid ? 1 : 0;
+    cnt = __reduce_add_sync(0xffffffffu, cnt);
+    if (cnt == k) return mid;
+    if (cnt > k) {
       lo = mid;
     } else {
       hi = mid;

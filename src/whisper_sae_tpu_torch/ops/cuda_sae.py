@@ -1,21 +1,25 @@
 """Kernels A and B and the blocked encode: the fused TopK-SAE forward and
 the fused top-k encode.
 
-Kernel A, ``sae_fused_loss_fwd`` (``csrc/sae_kernels.cu``,
-``sae_rows_kernel<kFusedLoss>``), replaces two Pallas entry points of
-``whisper_sae_tpu/ops/pallas_sae.py``: ``fused_sae_loss``
-(``_fused_loss_forward``, ``pallas_call`` at :249) and
-``fused_sae_loss_indexed`` (``_fused_loss_forward_indexed``, :424), the
-latter as the same kernel reading its batch at a row offset into the
-epoch buffer.  In one launch it centres the rows, encodes them, finds
-the exact top-k threshold, writes the bf16 latent, decodes from the
-selected decoder rows only and reduces sum(resid^2), l0 and the
-any-active vector (a second, one-CTA launch sums the per-CTA loss
-partials in a fixed order).
+Kernel A, ``sae_fused_loss_fwd`` (``csrc/sae_kernels.cu``), replaces two
+Pallas entry points of ``whisper_sae_tpu/ops/pallas_sae.py``:
+``fused_sae_loss`` (``_fused_loss_forward``, ``pallas_call`` at :249)
+and ``fused_sae_loss_indexed`` (``_fused_loss_forward_indexed``, :424),
+the latter reading its batch at a row offset into the epoch buffer.  One
+C call launches four kernels: ``sae_centre_kernel`` writes the centred
+bf16 rows; the encoder GEMM (``csrc/encoder_gemm.cu``, warp-specialised
+TMA/wgmma) with its ``kPre`` epilogue writes the f32 pre-activation to a
+workspace allocated here; ``sae_select_decode_kernel`` (one warp a row)
+finds the exact top-k threshold, writes the bf16 latent, decodes from
+the selected decoder rows only and reduces sum(resid^2), l0 and the
+any-active vector; ``sae_loss_finalize_kernel`` sums the per-CTA loss
+partials in a fixed order.  The f32 pre's round trip through device
+memory is the route's price (the TPU kernel keeps it in VMEM).
 
 Kernel B, ``sae_topk_encode_fwd`` (``sae_rows_kernel<kEncodeBf16|F32>``),
-replaces ``fused_topk_encode`` (``_encode_forward``, :77): the encode and
-bisection stages of A alone, writing the hidden in bf16 or f32.
+replaces ``fused_topk_encode`` (``_encode_forward``, :77): one fused
+kernel, 16 rows a CTA with their pre in shared memory, writing the
+hidden in bf16 or f32.
 
 The blocked encode, ``blocked_encode_fwd`` (``csrc/blocked_encode.cu``),
 replaces ``_encode_forward_blocked`` (:1392), the branch of
@@ -64,8 +68,9 @@ def uses_blocked(d: int, h: int) -> bool:
 
 
 def _bf16_t(w_enc: torch.Tensor) -> torch.Tensor:
-    """W_enc [D, H] -> its bf16 transpose [H, D], the layout in which the
-    kernel loads each MMA B fragment as two 32-bit words."""
+    """W_enc [D, H] -> its bf16 transpose [H, D]: the K-major B operand of
+    kernel A's encode GEMM, and the layout in which kernel B loads each
+    MMA B fragment as two 32-bit words."""
     return w_enc.detach().t().to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
@@ -135,19 +140,22 @@ def _fused_loss_launch(data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out,
     bf, f32 = torch.bfloat16, torch.float32
     _check_operands(dev, w_enc_t=(we_t, bf, (h, d)), w_dec=(wd_bf, bf, (h, d)),
                     b_enc=(b_enc, f32, (h,)), b_pre=(b_pre, f32, (d,)), b_out=(b_out, f32, (d,)))
+    if we_t.data_ptr() % 16:  # read by TMA
+        raise ValueError("sae_fused_loss_fwd: w_enc_t must be 16-byte aligned")
     blocks = -(-rows // lib.wst_rows_per_cta())
     hid = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
     resid = torch.empty((rows, d), dtype=torch.float32, device=dev)
     xc = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)
     partial = torch.empty((blocks,), dtype=torch.float32, device=dev)
+    pre = torch.empty((rows, h), dtype=torch.float32, device=dev)  # the encode's workspace
     counts = torch.zeros((1 + h,), dtype=torch.int32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     l0 = torch.empty((), dtype=torch.float32, device=dev)
     err = lib.wst_sae_fused_loss_fwd(
         data.data_ptr(), int(data.dtype == torch.bfloat16), row_offset, rows, d, h, k,
         we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(), wd_bf.data_ptr(), b_out.data_ptr(),
-        hid.data_ptr(), resid.data_ptr(), xc.data_ptr(), partial.data_ptr(), counts.data_ptr(),
-        loss.data_ptr(), l0.data_ptr(), _stream(dev),
+        hid.data_ptr(), resid.data_ptr(), xc.data_ptr(), pre.data_ptr(), partial.data_ptr(),
+        counts.data_ptr(), loss.data_ptr(), l0.data_ptr(), _stream(dev),
     )
     _build.check(err, "sae_fused_loss_fwd")
     return loss, l0, counts[1:] > 0, hid, resid, xc

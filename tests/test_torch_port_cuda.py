@@ -92,7 +92,7 @@ def test_encode_kernel_matches_plain(dev, rows, out_dtype):
 
 
 @pytest.mark.parametrize("offset,rows,n", [(0, 128, 128), (256, 128, 1024), (0, 4096, 4096),
-                                          (16, 100, 200)])
+                                          (16, 100, 200), (0, 32768, 32768)])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_fused_loss_kernel_matches_plain(dev, offset, rows, n, x_dtype):
     p, data = _params(3), _rows(4, n).to(x_dtype)
@@ -112,6 +112,97 @@ def test_fused_loss_kernel_matches_plain(dev, offset, rows, n, x_dtype):
     ok = ((hid > 0) == (want[3] > 0)).all(dim=1)
     # a latent on a bf16 rounding boundary may round the other way
     torch.testing.assert_close(resid[ok], want[4][ok], rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("rows", [100, 4096])
+@pytest.mark.parametrize("d,h", [(384, 3072), (96, 352)])
+def test_encode_pre_gemm_matches_f32_product(dev, d, h, rows):
+    """Kernel A's encode, ``wst_enc_gemm_fwd`` with the kPre epilogue,
+    against the f32 product of the same bf16 operands plus the bias, at
+    whisper-tiny's width and at a ragged one (K a multiple of 32 but not
+    of 64, N not a multiple of 128); every element is written, none past
+    the end.  atol 1e-4 of the largest value: f32 sums of exact products
+    in another order."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    lib = _build.load_library()
+    g = torch.Generator().manual_seed(d + rows)
+    xc = torch.randn(rows, d, generator=g).to(dev).bfloat16()
+    we_t = (torch.randn(h, d, generator=g) * 0.05).to(dev).bfloat16()
+    b_enc = (torch.randn(h, generator=g) * 0.05).to(dev)
+    buf = torch.full((rows * h + 4096,), float("nan"), device=dev)
+    pre = buf[:rows * h].view(rows, h)
+    st = torch.cuda.current_stream().cuda_stream
+    assert lib.wst_enc_gemm_fwd(3, xc.data_ptr(), we_t.data_ptr(), rows, h, d, b_enc.data_ptr(),
+                                1.0, 0, pre.data_ptr(), None, None, None, st) == 0
+    torch.cuda.synchronize()
+    want = mm_f32(xc, we_t.t()) + b_enc
+    torch.testing.assert_close(pre, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    assert bool(buf[rows * h:].isnan().all())
+    again = torch.empty_like(pre)
+    assert lib.wst_enc_gemm_fwd(3, xc.data_ptr(), we_t.data_ptr(), rows, h, d, b_enc.data_ptr(),
+                                1.0, 0, again.data_ptr(), None, None, None, st) == 0
+    assert torch.equal(pre, again)
+
+
+@pytest.mark.parametrize("k", [1, 32])
+def test_select_kernel_mask_matches_plain_on_its_pre(dev, k):
+    """Kernel A's row kernel against ``topk_mask_plain`` on the pre it
+    ran on (the encode GEMM again on kernel A's centred rows: it gives the
+    same bits every launch): the latent bit-identical, ties included (rows
+    equal to b_pre have pre = b_enc exactly, on a grid of 0.5 with 40
+    entries tied at its largest value), l0 and active exact, the residual
+    the decode of that latent (atol 1e-4: f32 sums of exact products in
+    another order)."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    rows = 300
+    p, x = _params(17), _rows(18, rows)
+    p["b_enc"] = torch.round(p["b_enc"] * 40) / 2
+    p["b_enc"][:40] = p["b_enc"].max()  # more than k tied at the top of those rows
+    x[:8] = p["b_pre"]
+    we_t = cuda_sae._bf16_t(p["w_enc"])
+    wd = p["w_dec"].bfloat16()
+    b_out = p["b_dec"] + p["b_pre"]
+    loss, l0, active, hid, resid, xc = cuda_sae._fused_loss_launch(
+        x, 0, rows, we_t, p["b_enc"], p["b_pre"], wd, b_out, k)
+    pre = torch.empty(rows, H, device=dev)
+    assert _build.load_library().wst_enc_gemm_fwd(
+        3, xc.data_ptr(), we_t.data_ptr(), rows, H, D, p["b_enc"].data_ptr(), 1.0, 0,
+        pre.data_ptr(), None, None, None, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(pre[:8], p["b_enc"].expand(8, H))
+    want = topk_mask_plain(pre, k)
+    assert torch.equal(hid, want.bfloat16())
+    assert int((hid[:8] > 0).sum(dim=1).max()) > k  # the ties admit more than k
+    # l0 is an f32 division on the card (torch divides by a scalar's reciprocal)
+    assert float(l0) == float(np.float32(int((want > 0).sum()) / rows))
+    assert torch.equal(active, (want > 0).any(dim=0))
+    want_resid = mm_f32(hid, wd) + b_out - x
+    torch.testing.assert_close(resid, want_resid, rtol=0, atol=1e-4)
+    torch.testing.assert_close(loss, (want_resid * want_resid).mean(), rtol=1e-5, atol=0)
+
+
+def test_fused_loss_is_four_launches(dev):
+    """One call of kernel A counts one launch on its wrapper and is four
+    kernels on the card, each once: the centre, the encode GEMM (kPre),
+    the select-and-decode row kernel and the finalize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p, x = _params(19), _rows(20, 512)
+    cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
+    torch.cuda.synchronize()
+    before = cuda_sae.fused_sae_loss.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
+        torch.cuda.synchronize()
+    assert cuda_sae.fused_sae_loss.launches - before == 1
+    keys = [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type == DeviceType.CUDA]
+    for name in ("sae_centre_kernel", "gemm_kernel<3>", "sae_select_decode_kernel",
+                 "sae_loss_finalize_kernel"):
+        assert sum(name in key for key in keys) == 1, (name, keys)
 
 
 def test_fused_loss_deterministic(dev):
@@ -401,7 +492,7 @@ def test_encoder_gemm_mlp_epilogues(dev, d):
     _close(y, y_want)
     _close(out, (x.float() + y_want.float()).bfloat16())
     assert torch.equal(out, (x.float() + y.float()).bfloat16()) and torch.equal(out, out2)
-    for epi, n in ((3, f), (2, f - 64)):
+    for epi, n in ((4, f), (2, f - 64)):
         assert lib.wst_enc_gemm_fwd(epi, a.data_ptr(), w1.data_ptr(), rows, n, d, b1.data_ptr(),
                                     1.0, d, h.data_ptr(), None, None, None, st) != 0
 

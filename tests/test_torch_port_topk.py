@@ -90,6 +90,54 @@ def test_vjp_matches_pallas_interpret():
     np.testing.assert_array_equal(_bits(p.grad), _bits(want))
 
 
+def _monotone(pre: np.ndarray) -> np.ndarray:
+    x = pre.view(np.int32)
+    return np.where(x < 0, x ^ 0x7FFFFFFF, x)
+
+
+def _warp_threshold(xi: np.ndarray, k: int) -> tuple[int, int]:
+    """The pass loop of ``csrc/topk_common.cuh:warp_kth_largest`` on one
+    row, transcribed: lane l holds elements j*32 + l (INT_MIN past the
+    row), each pass counts per lane and sums the lanes once, and the loop
+    stops at a count of exactly k.  -> (threshold, passes run)."""
+    lanes = np.full(-(-xi.size // 32) * 32, np.iinfo(np.int32).min, np.int64)
+    lanes[:xi.size] = xi
+    lanes = lanes.reshape(-1, 32)  # [j, lane]
+    lo, hi = -2147483647, 2147483647
+    for p in range(32):
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        cnt = int((lanes >= mid).sum(axis=0).sum())  # per-lane counts, then one reduction
+        if cnt == k:
+            return mid, p + 1
+        if cnt > k:
+            lo = mid
+        else:
+            hi = mid
+    return lo, 32
+
+
+@pytest.mark.parametrize("k", [1, 32, H])
+@pytest.mark.parametrize("ties", [False, True])
+def test_kernel_select_early_exit_bit_identical_to_jax(k, ties):
+    """The kernels' select stops at the first midpoint that counts exactly
+    k.  Its threshold may differ from the full bisection's, but any
+    threshold in (v_{k+1}, v_k] selects the same entries, and under a tie
+    at v_k no midpoint counts k: the mask is the JAX package's, bit for
+    bit, and on rows without ties the loop does stop early."""
+    pre = _pre(100 + k, ties)
+    want = np.asarray(jtopk.topk_mask_dense(jnp.asarray(pre), k))
+    xi = _monotone(pre)
+    got = np.zeros_like(pre)
+    passes = []
+    for r in range(B):
+        th, n = _warp_threshold(xi[r], k)
+        got[r] = np.where(xi[r] >= th, np.maximum(pre[r], 0.0), 0.0)
+        passes.append(n)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    if not ties:
+        assert min(passes) < 32
+
+
 def test_cpu_dispatch_counts_no_launch():
     before = topk_mask_fwd.launches
     topk_mask_fwd(torch.from_numpy(_pre(1, False)), 4)
