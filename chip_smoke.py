@@ -16,7 +16,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sums in another order than the plain f32 product, so >= 99.9% of rows
    must select the same features, A's loss at rtol 1e-4, l0 and the
    active vector equal on those rows, the latent within bf16 rounding
-   (atol 1e-2 * max); gradients at rtol 2e-2.
+   (atol 1e-2 * max); gradients at rtol 2e-2.  Each row that selects
+   differently is printed with the plain pre's gap between its k-th and
+   (k+1)-th values and the row's max |pre_card - pre_plain| (kernel A's
+   own pre, from its kPre encode); a gap wider than twice that fails.
 2. Training through the CLI (``whisper_sae_tpu_torch.train.main``) on a
    synthetic gaussian cache (covariance mostly of rank 64) of 2^18 + 64
    rows x 384 f32 in the JAX
@@ -73,17 +76,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on its own line, and the launches of LN+QKV (LN1, the GEMM), the
    out-projection and the MLP block (LN2, fc1, fc2, the final LN), each
    timed alone, on one line a kernel.
-8. The coder kernel (``ops/csrc/coder_kernels.cu``) at whisper-tiny width,
-   B=4096, in its five modes (Skip and TopK transcoder, ReLU SAE: D=384,
-   H=3072, k=32; TopK and ReLU crosscoder: L*D=1536, S=3072), sliced, at
-   a row offset into a larger buffer and on a ragged 1,792-row remainder,
-   against its plain version: TopK modes at kernel A's bars; ReLU modes
-   with the latent within bf16 rounding (atol 1e-2 * max), sum(resid^2),
-   the L1 and the hidden sums at rtol 1e-4 and ``active`` equal on >=
-   99.9% of features.  Gradients through each autograd.Function (sliced
-   and windowed, 1024 rows) against the same Function on the CPU at rtol
-   2e-2 (ReLU modes: >= 99.99% of each gradient's elements, as a pre
-   within rounding of 0 moves one feature's column); outputs
+8. The coder kernel (``ops/csrc/coder_kernels.cu``; the ReLU modes' encode
+   and decode on ``encoder_gemm.cu``) at whisper-tiny width, B=4096, in
+   its five modes (Skip and TopK transcoder, ReLU SAE: D=384, H=3072,
+   k=32; TopK and ReLU crosscoder: L*D=1536, S=3072), sliced, at a row
+   offset into a larger buffer, on a 1,792-row remainder, on ragged
+   100- and 1,000-row windows at an offset (whose pad rows, with pre =
+   b_enc about half positive, must count nowhere) and at B=32768 (the
+   ReLU modes also at phase 9's batch of 128 rows, sliced and at a row
+   offset), against its plain version: TopK modes at kernel A's bars (with phase
+   1's print of each row that selects differently, its gap held to twice
+   the worst-case f32 sum-order error, as the row kernel's own pre is not
+   kept); ReLU modes with the latent within bf16 rounding (atol 1e-2 *
+   max), sum(resid^2), the L1 and the hidden sums at rtol 1e-4, l0 at
+   rel 1e-4 and ``active`` equal on >= 99.9% of features.  Gradients
+   through each autograd.Function (sliced and windowed, 1024 rows)
+   against the same Function on the CPU at rtol 2e-2 (ReLU modes: >=
+   99.99% of each gradient's elements, as a pre within rounding of 0
+   moves one feature's column); outputs
    bit-identical run to run.
 9. The coder slice through its entry points, every coder launch counter
    and the plain-call counters zeroed first: a ReLU SAE through the CLI
@@ -100,11 +110,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    trained family's forward on 512 rows on the card is held against the
    same model on the CPU (loss rtol 1e-3, >= 99% of rows selecting the
    same features).  The caches are deleted.
-10. Times of the coder slice: each mode at B=4096 and 32768, sliced and
-    at a row offset, beside its plain version, its bound and a library
+10. Times of the coder slice: each mode at B=128, 4096 and 32768, sliced
+    and at a row offset, beside its plain version, its bound and a library
     yardstick (the bf16 encode product, plus the dense decode product in
-    ReLU modes); one training step of the Skip transcoder and of the
-    ReLU crosscoder at batch 4096 and 32768, wall and device busy time.
+    ReLU modes), in ReLU modes with each of the five launches' device time
+    under ``torch.profiler``; one training step of phase 9's ReLU SAE at
+    batch 128, and of the Skip transcoder and of the ReLU crosscoder at
+    batch 4096 and 32768, wall and device busy time.
 11. Whisper-large 32x (D=1280, H=40960, k=32; bench.py:83-112): the
     blocked encode (``ops/csrc/blocked_encode.cu``) against its plain
     version at 8192 rows and a ragged 1,000, for f32 and bf16 rows and
@@ -174,7 +186,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     chunked epochs through the paired reader (windowed coder launches
     equal to the steps).  Losses finite and falling, run files written.
 
-The last two lines are the ``kernels`` JSON line and
+Before them, one line lists the rows of phases 1 and 8 that select
+differently from the plain version, with their gaps.  The last two lines
+are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Scratch files go under ``build/``.
 """
 
@@ -200,6 +214,9 @@ A_WIDE_BATCH = 32768  # kernel A alone: checked and timed, not trained
 # kernel A's four launches, by the profiler's kernel names
 A_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_kernel<3>",
            "select_decode": "sae_select_decode_kernel", "finalize": "sae_loss_finalize_kernel"}
+# the coder's ReLU modes' five launches, by the same names
+RELU_PARTS = {"cast": "coder_cast_kernel", "encode": "gemm_kernel<4>", "decode": "gemm_kernel<5>",
+              "hsum": "coder_hsum_kernel", "sum": "coder_sum_kernel"}
 N_ROWS = (1 << 18) + 64
 EPOCHS = 3
 RANK = 64
@@ -219,6 +236,7 @@ BLOCK_BAR, STACK_BAR = (2.0**-6, 2.0**-9), (2.0**-4, 2.0**-7)
 CODER_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/coder_kernels.cu"
 CODER_BATCHES = (4096, 32768)
 CODER_B = CODER_BATCHES[0]
+CODER_TIME_BATCHES = (128, *CODER_BATCHES)  # 128: the CLI's ReLU SAE batch (phase 9)
 CODER_MODES = {  # mode: (D, dout, k or None for ReLU, skip, y is x)
     "skip_transcoder": (D, D, K, True, False),
     "topk_transcoder": (D, D, K, False, False),
@@ -253,6 +271,10 @@ ENC_REPLACES = {
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# phases 1 and 8: the rows that select differently from the plain version
+GAPS: dict[str, list] = {}
 
 
 def check(cond: bool, what: str) -> None:
@@ -322,6 +344,50 @@ def agree(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a > 0) == (b > 0)).all(dim=1)
 
 
+def selection_gaps(xc, we_t, b_enc, got_hid, want_hid, k: int, what: str, own_pre: bool) -> list:
+    """Each row whose selection differs from the plain version, with the
+    plain pre's gap between its k-th and (k+1)-th values, its k-th value,
+    the row's max |pre_card - pre_plain| (pre_card: the encode GEMM's kPre
+    epilogue on the same bf16 rows, which gives the same bits every launch)
+    and the worst-case f32 sum-order error of a pre, 2 * K * 2**-24 *
+    max_j sum_t |xc_t w_tj| (the float-sum bound, doubled for rounding in
+    both versions).  Two features can swap across the boundary only if
+    the gap is at most the two versions' errors on both, and a selected
+    value can change sign only if it is within them of 0.  ``own_pre``
+    (kernel A: it selects on exactly that pre) holds the gap to twice the
+    measured difference; else (the coder's TopK row kernel sums pre with
+    mma.sync in its own order) to twice the worst-case bound.  Fails on
+    any wider gap: the kernel, not the sum order, would be at fault."""
+    from whisper_sae_tpu_torch.ops import _build
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    bad = (~agree(got_hid, want_hid)).nonzero().flatten()
+    if bad.numel() == 0:
+        return []
+    rows, d = xc.shape
+    h = we_t.shape[0]
+    pre_card = torch.empty(rows, h, device=xc.device)
+    check(_build.load_library().wst_enc_gemm_fwd(
+        3, xc.data_ptr(), we_t.data_ptr(), rows, h, d, b_enc.data_ptr(), 1.0, 0,
+        pre_card.data_ptr(), None, None, None, torch.cuda.current_stream().cuda_stream) == 0,
+        f"{what}: the kPre GEMM did not launch")
+    pre_plain = (mm_f32(xc, we_t.t()) + b_enc)[bad]
+    top = torch.topk(pre_plain, k + 1, dim=1).values
+    gap, kth = top[:, k - 1] - top[:, k], top[:, k - 1]
+    diff = (pre_card[bad] - pre_plain).abs().max(dim=1).values
+    worst = 2 * d * 2.0**-24 * mm_f32(xc[bad].float().abs(), we_t.t().float().abs()).max(dim=1).values
+    out = []
+    for r, g, v, df, w in zip(bad.tolist(), gap.tolist(), kth.tolist(), diff.tolist(),
+                              worst.tolist()):
+        limit = 2 * (df if own_pre else w)
+        log(f"    {what}: row {r} selects differently: gap {g:.4g} (k-th value {v:.4g}), "
+            f"max|pre_card - pre_plain| {df:.4g}, worst-case sum-order error {w:.4g}")
+        check(g <= limit or abs(v) <= limit,
+              f"{what}: row {r}'s gap {g:.4g} is wider than the sum order explains ({limit:.4g})")
+        out.append({"row": r, "gap": g, "kth": v, "max_pre_diff": df, "worst_case": w})
+    return out
+
+
 def grads_close(fn, p, cpu_fn, names, what: str) -> None:
     """Gradients of ``fn`` on the card vs the same Function on the CPU
     (plain forward), rtol 2e-2 (bf16 products, other sum order)."""
@@ -357,6 +423,8 @@ def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> None:
         ok = agree(got[3], want[3])
         share = float(ok.float().mean())
         check(share >= 0.999, f"{what} B={b}: selection agrees on {share:.4%} of rows")
+        GAPS[f"{what} B={b}"] = selection_gaps(got[5], we_t, p["b_enc"], got[3], want[3], K,
+                                               f"{what} B={b}", own_pre=True)
         rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
         check(rel <= 1e-4, f"{what} B={b}: loss rel err {rel:.3g} > 1e-4")
         hk, hp = got[3][ok] > 0, want[3][ok] > 0
@@ -569,10 +637,11 @@ def step_profile(trainer, rows, steps: int) -> dict:
     return res
 
 
-def kernel_a_split(fn, calls: int = 10) -> dict:
-    """Device ms per launch of each of kernel A's four kernels, from
-    ``torch.profiler`` over ``calls`` calls of ``fn`` (None where the
-    profiler saw no device time)."""
+def launch_split(fn, parts: dict, calls: int = 10) -> dict:
+    """Device ms per launch of each kernel of ``parts`` (part: profiler
+    name; each launches once a call of ``fn``: kernel A's four, the coder's
+    ReLU modes' five), from ``torch.profiler`` over ``calls`` calls (None
+    where the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -584,7 +653,7 @@ def kernel_a_split(fn, calls: int = 10) -> dict:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     split = {}
-    for part, kname in A_PARTS.items():  # each launches once a call
+    for part, kname in parts.items():
         hits = [e for e in kernels if kname in e.key]
         us, n = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
         split[part] = us / 1e3 / n if us > 0 else None
@@ -618,7 +687,7 @@ def times(dev, cuda_sae, cuda_topk, topk) -> dict:
                                                          p["b_pre"], wd, b_out, K)
             a_ms = time_ms(launch)
             res[(name, b)] = (a_ms, a_plain, *a_bound, lib_gemm)
-            res[("split", name, b)] = split = kernel_a_split(launch)
+            res[("split", name, b)] = split = launch_split(launch, A_PARTS)
             log(f"  {name:24s} B={b:5d}: launches in ms: "
                 + ", ".join(f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
                             for k_, v in split.items()))
@@ -1298,6 +1367,8 @@ def check_coder(got, want, k, what: str) -> float:
             check(err <= 1e-4, f"{what}: {name} rel err {err:.3g} > 1e-4")
         share = float((got.active == want.active).float().mean())
         check(share >= 0.999, f"{what}: active equal on {share:.4%} of features")
+        rel = abs(int(got.l0) - int(want.l0)) / max(1, int(want.l0))
+        check(rel <= 1e-4, f"{what}: l0 rel err {rel:.3g} > 1e-4")
     herr = float((got.hid[ok].float() - want.hid[ok].float()).abs().max())
     check(herr <= 1e-2 * hmax, f"{what}: latent off by {herr:.3g} (max {hmax:.3g})")
     return float((got.resid[ok] - want.resid[ok]).abs().max())
@@ -1347,22 +1418,37 @@ def coder_grads_close(CC, mode: str, p: dict, x, y, step, batch, what: str) -> N
 
 def coder_kernel_phase(dev, CC) -> dict:
     """Phase 8: each mode at B=4096, sliced, at a row offset into a larger
-    buffer and on a ragged 1,792-row remainder, against its plain version;
+    buffer, on a 1,792-row remainder and on ragged 100- and 1,000-row
+    windows at an offset, and at B=32768 (the ReLU modes also at phase
+    9's 128 rows, sliced and at a row offset), against its plain version;
     gradients; bit-identical losses run to run."""
-    b, tail = CODER_BATCHES[0], 1792
+    b, tail, wide, small = CODER_BATCHES[0], 1792, CODER_BATCHES[-1], 128
     errs = {}
     for i, mode in enumerate(CODER_MODES):
         xbuf, ybuf, p, k = coder_inputs(mode, 2 * b + tail, 30 + i, dev)
         ops = coder_ops(CC, p)
         err = 0.0
-        for what, x, y, off, rows in (
-                ("sliced", xbuf[:b].contiguous(), None if ybuf is None else ybuf[:b].contiguous(),
-                 0, b),
-                ("offset", xbuf, ybuf, b, b), ("remainder", xbuf, ybuf, 2 * b, tail)):
-            got = CC._coder_launch(x, y, off, rows, ops, k)
+        wx, wy, wp, _ = coder_inputs(mode, wide, 40 + i, dev)
+        windows = [
+            ("sliced", xbuf[:b].contiguous(), None if ybuf is None else ybuf[:b].contiguous(),
+             0, b, ops),
+            ("offset", xbuf, ybuf, b, b, ops), ("remainder", xbuf, ybuf, 2 * b, tail, ops),
+            ("ragged", xbuf, ybuf, 37, 100, ops), ("ragged", xbuf, ybuf, b + 300, 1000, ops),
+            ("wide", wx, wy, 0, wide, coder_ops(CC, wp))]
+        if k is None:  # phase 9's batch: the CLI's 128 rows, sliced and as a windowed step
+            windows += [("sliced", xbuf[:small].contiguous(), None, 0, small, ops),
+                        ("windowed", xbuf, None, 5 * small, small, ops)]
+        for what, x, y, off, rows, o in windows:
+            got = CC._coder_launch(x, y, off, rows, o, k)
             win = slice(off, off + rows)
-            want = CC.coder_forward_plain(x[win], None if y is None else y[win], ops, k)
-            err = max(err, check_coder(got, want, k, f"{mode} {what} [{off}, {off + rows})"))
+            want = CC.coder_forward_plain(x[win], None if y is None else y[win], o, k)
+            tag = f"{mode} {what} [{off}, {off + rows})"
+            err = max(err, check_coder(got, want, k, tag))
+            if k is not None:
+                GAPS[tag] = selection_gaps(got.xc, o.we_t, o.b_enc, got.hid, want.hid, k, tag,
+                                           own_pre=False)
+            del got, want
+        del wx, wy
         a = CC._coder_launch(xbuf, ybuf, b, b, ops, k)
         a2 = CC._coder_launch(xbuf, ybuf, b, b, ops, k)
         torch.cuda.synchronize()
@@ -1374,8 +1460,10 @@ def coder_kernel_phase(dev, CC) -> dict:
                           f"{mode} sliced")
         coder_grads_close(CC, mode, p, gx, gy, 1, gb, f"{mode} windowed")
         errs[mode] = err
-        log(f"  {mode:16s}: agrees sliced, at offset {b} and on the {tail}-row remainder "
-            f"(resid max abs err {err:.3g}); loss bit-identical; gradients agree")
+        also = f", on {small} rows sliced and at offset {5 * small}" if k is None else ""
+        log(f"  {mode:16s}: agrees sliced, at offset {b}, on the {tail}-row remainder, on 100 "
+            f"and 1,000 rows at an offset and at {wide} rows{also} (resid max abs err "
+            f"{err:.3g}); loss bit-identical; gradients agree")
     return errs
 
 
@@ -1519,7 +1607,7 @@ def coder_path(work: Path, dev, mix, train_mod, launch_mod, cfg_mod, cache_mod, 
             f"{share:.2%} rows select the same features")
     shutil.rmtree(lcache, ignore_errors=True)
     shutil.rmtree(work / "cache", ignore_errors=True)
-    res.update(launches=launches, by_mode=dict(CC.mode_launches))
+    res.update(launches=launches, by_mode=dict(CC.mode_launches), relu_trainer=trainer)
     return res
 
 
@@ -1537,11 +1625,12 @@ def coder_bound(mode: str, b: int, x, nnz: int) -> tuple[float, str]:
 
 
 def coder_times(dev, CC) -> dict:
-    """Phase 10a: each mode at B=4096 and 32768, sliced and at a row offset,
-    beside its plain version, its bound and a library yardstick (the bf16
-    encode product, plus the dense decode product in ReLU modes)."""
+    """Phase 10a: each mode at B=128, 4096 and 32768, sliced and at a row
+    offset, beside its plain version, its bound and a library yardstick
+    (the bf16 encode product, plus the dense decode product in ReLU modes);
+    in ReLU modes also each of the five launches' device ms."""
     res = {}
-    for b in CODER_BATCHES:
+    for b in CODER_TIME_BATCHES:
         for i, mode in enumerate(CODER_MODES):
             xbuf, ybuf, p, k = coder_inputs(mode, 2 * b, 50 + i, dev)
             ops = coder_ops(CC, p)
@@ -1552,10 +1641,11 @@ def coder_times(dev, CC) -> dict:
             lib = (lambda: torch.matmul(torch.matmul(xc, we), wd)) if k is None else (
                 lambda: torch.matmul(xc, we))
             iters = 5 if b > CODER_BATCHES[0] else 20
+            sliced = lambda: CC._coder_launch(x, y, 0, b, ops, k)  # noqa: E731
+            indexed = lambda: CC._coder_launch(xbuf, ybuf, b, b, ops, k)  # noqa: E731
             res[(mode, b)] = {
-                "ms": time_ms(lambda: CC._coder_launch(x, y, 0, b, ops, k), iters=iters),
-                "indexed_ms": time_ms(lambda: CC._coder_launch(xbuf, ybuf, b, b, ops, k),
-                                      iters=iters),
+                "ms": time_ms(sliced, iters=iters),
+                "indexed_ms": time_ms(indexed, iters=iters),
                 "plain_ms": time_ms(lambda: CC.coder_forward_plain(x, y, ops, k), iters=3,
                                     warmup=1),
                 **dict(zip(("bound_ms", "bound_by"), coder_bound(mode, b, x, nnz))),
@@ -1563,20 +1653,28 @@ def coder_times(dev, CC) -> dict:
                 "nnz_per_row": nnz / b,
             }
             r = res[(mode, b)]
+            if k is None:
+                r["split_ms"] = launch_split(sliced, RELU_PARTS)
+                r["indexed_split_ms"] = launch_split(indexed, RELU_PARTS)
             log(f"  {mode:16s} B={b:5d}: {r['ms']:.4f} ms (at an offset {r['indexed_ms']:.4f}), "
                 f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
-                f"library {r['library_ms']:.4f}, {r['nnz_per_row']:.1f} nonzero latents a row")
+                f"library {r['library_ms']:.4f}, {r['nnz_per_row']:.1f} nonzero latents a row"
+                + ("" if k is not None else "; launches in ms: " + ", ".join(
+                    f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
+                    for k_, v in r["split_ms"].items())))
             del xbuf, ybuf, x, y, out
     return res
 
 
-def coder_step_times(work: Path, dev, TC, XC, CT, cfg_mod) -> dict:
-    """Phase 10b: one training step of the Skip transcoder and of the ReLU
-    crosscoder under AMP (windowed kernel) at the launcher's batch 4096 and
-    bench.py's 32768, wall and device busy time, on random rows on the
-    card."""
+def coder_step_times(work: Path, dev, TC, XC, CT, cfg_mod, relu_trainer, mix) -> dict:
+    """Phase 10b: one training step of phase 9's ReLU SAE at the CLI's batch
+    128, and of the Skip transcoder and of the ReLU crosscoder under AMP
+    (windowed kernel) at the launcher's batch 4096 and bench.py's 32768,
+    wall and device busy time, on random rows on the card."""
     g = torch.Generator(device=dev).manual_seed(61)
-    res = {}
+    log(f"  ReLU SAE (D=384, H=3072), batch {relu_trainer.config.batch_size}:")
+    res = {"relu_sae_128": step_profile(relu_trainer, gaussian_rows(
+        200 * relu_trainer.config.batch_size, g, mix), 200)}
     for b, steps in ((CODER_B, 20), (CODER_BATCHES[-1], 6)):
         n = steps * b
         cfg = cfg_mod.TrainingConfig(batch_size=b, warmup_steps=10, use_amp=True)
@@ -2342,9 +2440,8 @@ def main() -> int:
     log("phase 10: times of the coder slice (library_ms: the bf16 encode product, plus the "
         "dense decode product in ReLU modes -- yardsticks, not equivalents)")
     ctimes = coder_times(dev, CC)
-    steps10 = coder_step_times(work, dev, TC, XC, CT, cfg_mod)
+    steps10 = coder_step_times(work, dev, TC, XC, CT, cfg_mod, path9.pop("relu_trainer"), mix)
     for mode in CODER_MODES:
-        big = ctimes[(mode, CODER_BATCHES[-1])]
         for entry, replaces, key in (
                 ("fused", "src/whisper_sae_tpu/ops/pallas_sae.py:679", "ms"),
                 ("fused_indexed", "src/whisper_sae_tpu/ops/pallas_sae.py:1057", "indexed_ms")):
@@ -2357,10 +2454,17 @@ def main() -> int:
                 "max_abs_err": coder_errs[mode], "ms": r[key], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"], "batch": CODER_B,
-                f"at_batch_{CODER_BATCHES[-1]}": {
-                    "ms": big[key], "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
-                    "bound_by": big["bound_by"], "library_ms": big["library_ms"]},
+                **{f"at_batch_{b}": {
+                    "ms": ctimes[(mode, b)][key], "plain_ms": ctimes[(mode, b)]["plain_ms"],
+                    "bound_ms": ctimes[(mode, b)]["bound_ms"],
+                    "bound_by": ctimes[(mode, b)]["bound_by"],
+                    "library_ms": ctimes[(mode, b)]["library_ms"]}
+                   for b in CODER_TIME_BATCHES if b != CODER_B},
             })
+            if CODER_MODES[mode][2] is None:
+                split = "split_ms" if key == "ms" else "indexed_split_ms"
+                kernels[-1]["split_ms"] = {str(b): ctimes[(mode, b)][split]
+                                           for b in CODER_TIME_BATCHES}
     for k_ in [k_ for k_ in kernels if k_["name"].startswith("coder_")]:
         check(k_["launches"] > 0, f"{k_['name']}: no launch on the coder path")
     log(f"  coder slice: {json.dumps({'steps': steps10, 'losses': path9['losses'], 'job_s': path9['job_s'], 'relu_sae_train_s': path9['relu_sae_train_s'], 'extract_s': path9['extract_s']})}")
@@ -2430,6 +2534,9 @@ def main() -> int:
         "through the launcher")
     wide18 = wide_coder_path(work, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_topk, topk)
     log(f"  out of core and wide coders: {json.dumps({'ooc': ooc, 'wide': wide18})}")
+    log(f"  rows selecting differently from the plain version (phases 1 and 8): "
+        f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
+        f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

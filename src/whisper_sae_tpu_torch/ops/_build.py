@@ -82,9 +82,15 @@ _SIGNATURES = {
     "wst_coder_fwd": (
         [_P, _I, _P, _I, _L, _I, _I, _I, _I, _I,   # x, x_bf16, y, y_bf16, off, rows, d, h, dout, k
          _I, _I, _P, _P, _P, _P, _P,               # use_skip, y_is_x, w_enc_t, b_enc, w_dec_t, b_out, w_skip_t
-         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],  # hid, resid, xc, sq/l1/hsum partials, counts, sums, hsum, stream
+         _P, _P, _P, _P, _P, _P, _P, _P, _P],      # hid, resid, xc, sq/hsum partials, counts, sums, hsum, stream
         _I,
     ),
+    "wst_coder_gemm_fwd": (
+        [_I, _P, _P, _L, _I, _I, _P,               # epi, a, b, m, n, k, bias
+         _P, _P, _P, _P, _I, _L, _P],              # out, partial, l0, x, x_bf16, row_offset, stream
+        _I,
+    ),
+    "wst_gemm_tile": ([], _I),
 }
 
 _lock = threading.Lock()

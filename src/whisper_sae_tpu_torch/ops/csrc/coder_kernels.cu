@@ -1,11 +1,10 @@
-// Hand-written Hopper kernel of the coder families' training forward.
-//
-// coder_rows_kernel<TOPK, SKIP, Y_IS_X>   ("coder_fwd")
-//   replaces whisper_sae_tpu/ops/pallas_sae.py:_fused_coder_kernel, reached
-//   by _fused_coder_forward (pallas_call at :679; fused_transcoder_loss,
-//   fused_relu_sae_loss, fused_relu_crosscoder_loss) and, with a row offset
-//   into the epoch buffers, by _fused_coder_forward_indexed (:1057; the
-//   three *_indexed entries).
+// Hand-written Hopper kernels of the coder families' training forward,
+// one C call ("coder_fwd", wst_coder_fwd) that replaces
+// whisper_sae_tpu/ops/pallas_sae.py:_fused_coder_kernel, reached by
+// _fused_coder_forward (pallas_call at :679; fused_transcoder_loss,
+// fused_relu_sae_loss, fused_relu_crosscoder_loss) and, with a row offset
+// into the epoch buffers, by _fused_coder_forward_indexed (:1057; the
+// three *_indexed entries).
 //
 // What it computes for each row (no centring: these families have no b_pre):
 //   xc    = bf16(x)
@@ -23,41 +22,72 @@
 // decode needs 2*B*k*dout FLOPs; x, y, the weights, the bf16 latent and
 // the f32 residual are ~52 MB at B=4096, 16 us).
 //
-// What the design does about it: a CTA owns 16 rows (the M of one
+// ReLU modes (k <= 0): five launches, each of the two products on the
+// warp-specialised TMA/wgmma GEMM of encoder_gemm.cu.  The latent is about
+// half positive, so the decode is a second dense GEMM, and nothing is
+// gained by keeping a row's pre on chip (kernel A's reason for a row
+// kernel, the exact top-k, is absent).
+//  1. coder_cast_kernel writes xc = bf16(x[row_offset + r]) once: the
+//     backward's operand and the encode's A; and zeroes l0.
+//  2. gemm_kernel<kRelu>: A = xc, B = W_enc^T [H, D]; hid =
+//     bf16(relu(acc + b_enc)) through the output tile and TMA; from the
+//     f32 values, the per-feature sums of each 64 rows (hsum_partial
+//     [ceil(B/64), H]) and l0 (an int32 atomic).  Rows past B load as TMA
+//     zeros and their acc + b_enc = b_enc, about half positive: the
+//     epilogue leaves them out of every sum and of l0.
+//  3. gemm_kernel<kResid>: A = hid, B = W_dec^T [dout, H]; resid = acc +
+//     b_dec - f32(x) in f32 from the registers, and one sum(resid^2)
+//     partial a 128 x 128 output tile.
+//  4. coder_hsum_kernel: hsum[j] = the partials of column j, in row order;
+//     feature j is active exactly when hsum[j] > 0 (a sum of values >= 0),
+//     which the caller reads off hsum.
+//  5. coder_sum_kernel: sums[0] = the sq partials, sums[1] = sum(hsum),
+//     each in a fixed order.
+// The price: hid makes one bf16 round trip through device memory (2*B*H*2
+// bytes, 50 MB at B=4096: 15 us at 3.35 TB/s), and at 128 rows the
+// decode has 3 output tiles of 48 K blocks each for 132 SMs.  The ReLU
+// modes' earlier form, the TopK row kernel below with a ReLU (16-row CTAs,
+// mma.sync from L2, a [16, H] f32 tile of pre in shared memory, so one CTA
+// an SM, re-reading both weights every 16 rows), took 0.2855 ms for the
+// ReLU SAE and 1.1092 for the ReLU crosscoder at B=4096 (PERF.md, rows 6c
+// and 6e).
+//
+// TopK modes (k > 0): coder_rows_kernel<SKIP, Y_IS_X>, then
+// coder_sum_kernel.  A CTA owns 16 rows (the M of one
 // mma.sync.m16n8k16 tile) and keeps their [16, H] f32 pre-activation in
 // shared memory (192 KB at H=3072), so pre and the latent never reach
 // device memory except as the bf16 latent the backward needs.  The rows'
 // bf16 tile sits beside it when it fits (D=384: 12 KB); at the
 // crosscoder's L*D=1536 it does not (48 KB), and the products read their
 // A fragments from the CTA's own bf16 rows in device memory (written first,
-// then served from L1/L2).  The activation gives each row to one warp,
-// which holds it in registers (topk_common.cuh: the exact 32-pass
-// bisection for TopK) and overwrites the row's f32 slot with its bf16
+// then served from L1/L2).  The top-k gives each row to one warp, which
+// holds it in registers (topk_common.cuh: the exact 32-pass
+// bisection) and overwrites the row's f32 slot with its bf16
 // latent; then the decode is a tensor-core product of that latent tile
-// with W_dec^T for every mode (dense: the ReLU latent is about half
-// positive; TopK decodes its zeros too, which costs FLOPs, not bytes).
+// with W_dec^T (TopK decodes its zeros too, which costs FLOPs, not bytes).
 // Weights are read as their bf16 transposes [N, K] and stay in L2; every
 // lane takes its A and B fragments for two MMA steps with one 16-byte
 // load each (a permutation of K that A and B share) and keeps four such
 // K blocks of loads in flight before their MMAs, so the products wait on
 // L2 bandwidth rather than on one round trip per 16-wide K step.  The
 // encode gives each warp 32 columns of H at a time, the decode 16 of dout
-// (24 tiles for 8 warps at dout=384, none idle).
+// (24 tiles for 8 warps at dout=384, none idle).  Not yet fast: no wgmma,
+// TMA, warp specialisation or persistent grid; each CTA re-reads W_enc and
+// W_dec from L2 (ROADMAP queue 2).
 //
 // Cross-CTA reductions without float atomics (CTAs run concurrently,
 // unlike the TPU grid's read-modify-write accumulation at :606-622): l0
-// and active are int32 atomics (order-free); sum(resid^2), sum(hid) and
-// the [H] hsum are written as per-CTA partials and summed in a fixed
-// order by coder_sum_kernel and coder_hsum_kernel.  The loss has the same
-// bits from run to run.
-//
-// Not yet fast: no wgmma, TMA, warp specialisation or persistent grid;
-// each CTA re-reads W_enc and W_dec from L2.
+// and active are int32 atomics (order-free; ReLU mode needs only l0's);
+// sum(resid^2) and the [H]
+// hsum are written as partials and summed in a fixed order by
+// coder_sum_kernel and coder_hsum_kernel.  The loss has the same bits
+// from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encoder_gemm.cuh"
 #include "topk_common.cuh"
 
 namespace wst {
@@ -70,6 +100,7 @@ constexpr int kEncTiles = 4;  // n8 tiles per encode warp step: 32 columns of H
 constexpr int kDecTiles = 2;  // n8 tiles per decode warp step: 16 columns of dout
 constexpr int kLoads = 4;     // 32-wide K blocks whose loads are in flight together
 constexpr int kSumThreads = 256;
+constexpr int kCastThreads = 256;
 constexpr int kSmemOptin = 232448;  // H100: shared memory a block may opt into
 constexpr int kSmemStatic = 1024;   // margin for the kernel's static arrays
 
@@ -174,13 +205,11 @@ struct CoderArgs {
   float* resid;               // [rows, dout]
   unsigned short* xc;         // [rows, d] bf16
   float* sq_partial;          // [gridDim.x]
-  float* l1_partial;          // [gridDim.x]        (ReLU)
-  float* hsum_partial;        // [gridDim.x, h]     (ReLU)
   int* counts;                // [1 + h], zeroed: l0, active
   int stage_x;                // the rows' bf16 tile is staged in shared memory
 };
 
-template <bool TOPK, bool SKIP, bool Y_IS_X>
+template <bool SKIP, bool Y_IS_X>
 __global__ void __launch_bounds__(kThreads, 1) coder_rows_kernel(CoderArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int hs = pre_stride(a.h);
@@ -233,30 +262,8 @@ __global__ void __launch_bounds__(kThreads, 1) coder_rows_kernel(CoderArgs a) {
   }
   __syncthreads();
 
-  // -- ReLU: per-feature sums over this CTA's rows (f32 hid, rows in order),
-  //    the any-active vector and the CTA's L1 partial --------------------
-  if (!TOPK) {
-    float l1 = 0.0f;
-    for (int c = tid; c < a.h; c += kThreads) {
-      float s = 0.0f;
-      for (int r = 0; r < nrows; ++r) s += fmaxf(pre_s[r * hs + c], 0.0f);
-      a.hsum_partial[(size_t)blockIdx.x * a.h + c] = s;
-      if (s > 0.0f) atomicOr(&a.counts[1 + c], 1);
-      l1 += s;
-    }
-    l1 = warp_sum(l1);
-    if (lane == 0) warp_part[warp] = l1;
-    __syncthreads();
-    if (tid == 0) {
-      float s = 0.0f;
-      for (int w = 0; w < kWarps; ++w) s += warp_part[w];
-      a.l1_partial[blockIdx.x] = s;
-    }
-    __syncthreads();  // warp_part is reused below
-  }
-
-  // -- one warp per row: the row in registers, its threshold (TopK), the
-  //    bf16 latent over the row's own f32 slot and to device memory -------
+  // -- one warp per row: the row in registers, its threshold, the bf16
+  //    latent over the row's own f32 slot and to device memory -----------
   for (int r = warp; r < kRows; r += kWarps) {
     unsigned short* lat = reinterpret_cast<unsigned short*>(pre_s + r * hs);
     if (r >= nrows) {  // warp-uniform: zero latent rows past the batch
@@ -266,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1) coder_rows_kernel(CoderArgs a) {
     const size_t g = (size_t)(row0 + r);
     int xi[kMaxPerLane];
     load_row_monotone(pre_s + r * hs, a.h, lane, xi);
-    const int th = TOPK ? warp_kth_largest(xi, a.k) : kIntMin;
+    const int th = warp_kth_largest(xi, a.k);
     __syncwarp();  // the whole row is in registers before its slot is rewritten
     int cnt = 0;
 #pragma unroll
@@ -279,7 +286,7 @@ __global__ void __launch_bounds__(kThreads, 1) coder_rows_kernel(CoderArgs a) {
         a.hidden[g * a.h + c] = bits;
         if (v > 0.0f) {
           ++cnt;
-          if (TOPK) atomicOr(&a.counts[1 + c], 1);
+          atomicOr(&a.counts[1 + c], 1);
         }
       }
     }
@@ -338,13 +345,15 @@ __global__ void __launch_bounds__(kThreads, 1) coder_rows_kernel(CoderArgs a) {
   }
 }
 
-// sums[blockIdx.x] = the partials of block 0 (sum resid^2) or 1 (sum hid),
-// in a fixed order (strided per thread, then a fixed tree).
-__global__ void __launch_bounds__(kSumThreads) coder_sum_kernel(const float* sq_partial,
-                                                                const float* l1_partial, int n,
+// sums[blockIdx.x] = the n_sq partials of block 0 (sum resid^2) or the
+// n_hid values of block 1 (sum hid: the per-feature sums), in a fixed
+// order (strided per thread, then a fixed tree).
+__global__ void __launch_bounds__(kSumThreads) coder_sum_kernel(const float* sq_partial, int n_sq,
+                                                                const float* hsum, int n_hid,
                                                                 float* sums) {
   __shared__ float buf[kSumThreads];
-  const float* p = blockIdx.x == 0 ? sq_partial : l1_partial;
+  const float* p = blockIdx.x == 0 ? sq_partial : hsum;
+  const int n = blockIdx.x == 0 ? n_sq : n_hid;
   float s = 0.0f;
   for (int i = threadIdx.x; i < n; i += kSumThreads) s += p[i];
   buf[threadIdx.x] = s;
@@ -356,7 +365,7 @@ __global__ void __launch_bounds__(kSumThreads) coder_sum_kernel(const float* sq_
   if (threadIdx.x == 0) sums[blockIdx.x] = buf[0];
 }
 
-// hsum[j] = sum over CTAs of hsum_partial[:, j], CTAs in order.
+// hsum[j] = sum over blocks of rows of hsum_partial[:, j], in order.
 __global__ void __launch_bounds__(kSumThreads) coder_hsum_kernel(const float* partial, int blocks,
                                                                  int h, float* hsum) {
   const int j = blockIdx.x * kSumThreads + threadIdx.x;
@@ -366,30 +375,81 @@ __global__ void __launch_bounds__(kSumThreads) coder_hsum_kernel(const float* pa
   hsum[j] = s;
 }
 
+// xc = bf16(x[row_offset : row_offset + rows]), four values a thread (d is
+// a multiple of 4, so a group never straddles a row); *l0 = 0 for the
+// encode that follows.
+__global__ void __launch_bounds__(kCastThreads) coder_cast_kernel(const void* x, int x_bf16,
+                                                                  long long row_offset, int d,
+                                                                  long long groups,
+                                                                  unsigned short* xc, int* l0) {
+  const long long first = (long long)blockIdx.x * kCastThreads + threadIdx.x;
+  if (first == 0) *l0 = 0;
+  const long long stride = (long long)gridDim.x * kCastThreads;
+  const long long src = row_offset * d;
+  for (long long i = first; i < groups; i += stride) {
+    if (x_bf16) {
+      reinterpret_cast<uint2*>(xc)[i] =
+          __ldg(reinterpret_cast<const uint2*>(static_cast<const unsigned short*>(x) + src) + i);
+    } else {
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(static_cast<const float*>(x) + src) + i);
+      const unsigned int lo = float_to_bf16_bits(v.x) | ((unsigned int)float_to_bf16_bits(v.y) << 16);
+      const unsigned int hi = float_to_bf16_bits(v.z) | ((unsigned int)float_to_bf16_bits(v.w) << 16);
+      reinterpret_cast<uint2*>(xc)[i] = make_uint2(lo, hi);
+    }
+  }
+}
+
 size_t smem_bytes(int d, int h, int stage_x) {
   return (size_t)kRows * pre_stride(h) * sizeof(float) +
          (stage_x ? (size_t)kRows * x_stride(d) * sizeof(unsigned short) : 0);
 }
 
-template <bool TOPK, bool SKIP, bool Y_IS_X>
+template <bool SKIP, bool Y_IS_X>
 int launch(const CoderArgs& a, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(coder_rows_kernel<TOPK, SKIP, Y_IS_X>,
+  cudaError_t err = cudaFuncSetAttribute(coder_rows_kernel<SKIP, Y_IS_X>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (a.rows + kRows - 1) / kRows;
-  coder_rows_kernel<TOPK, SKIP, Y_IS_X><<<blocks, kThreads, smem, stream>>>(a);
+  coder_rows_kernel<SKIP, Y_IS_X><<<blocks, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool TOPK, bool SKIP>
+template <bool SKIP>
 int launch_y(const CoderArgs& a, int y_is_x, size_t smem, cudaStream_t s) {
-  return y_is_x ? launch<TOPK, SKIP, true>(a, smem, s) : launch<TOPK, SKIP, false>(a, smem, s);
+  return y_is_x ? launch<SKIP, true>(a, smem, s) : launch<SKIP, false>(a, smem, s);
 }
 
-template <bool TOPK>
-int launch_skip(const CoderArgs& a, int use_skip, int y_is_x, size_t smem, cudaStream_t s) {
-  return use_skip ? launch_y<TOPK, true>(a, y_is_x, smem, s)
-                  : launch_y<TOPK, false>(a, y_is_x, smem, s);
+// The ReLU modes (y is x): cast, encode (kRelu), decode (kResid), hsum, sums.
+int relu_fwd(const void* x, int x_bf16, long long row_offset, int rows, int d, int h, int dout,
+             const void* w_enc_t, const void* b_enc, const void* w_dec_t, const void* b_out,
+             void* hidden, void* resid, void* xc, void* sq_partial, void* hsum_partial,
+             void* l0, void* sums, void* hsum, void* stream) {
+  if (d % 4 || dout != d) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long groups = (long long)rows * d / 4;
+  const long long want = (groups + kCastThreads - 1) / kCastThreads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  coder_cast_kernel<<<blocks, kCastThreads, 0, s>>>(x, x_bf16, row_offset, d, groups,
+                                                    static_cast<unsigned short*>(xc),
+                                                    static_cast<int*>(l0));
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  err = wst_coder_gemm_fwd(wst_gemm::kRelu, xc, w_enc_t, rows, h, d, b_enc, hidden, hsum_partial,
+                           l0, nullptr, 0, 0, stream);
+  if (err) return err;
+  err = wst_coder_gemm_fwd(wst_gemm::kResid, hidden, w_dec_t, rows, dout, h, b_out, resid,
+                           sq_partial, nullptr, x, x_bf16, row_offset, stream);
+  if (err) return err;
+  const int tile = wst_gemm_tile();
+  const int hsum_rows = (rows + tile / 2 - 1) / (tile / 2);
+  const int sq_parts = (rows + tile - 1) / tile * ((dout + tile - 1) / tile);
+  coder_hsum_kernel<<<(h + kSumThreads - 1) / kSumThreads, kSumThreads, 0, s>>>(
+      static_cast<const float*>(hsum_partial), hsum_rows, h, static_cast<float*>(hsum));
+  coder_sum_kernel<<<2, kSumThreads, 0, s>>>(static_cast<const float*>(sq_partial), sq_parts,
+                                              static_cast<const float*>(hsum), h,
+                                              static_cast<float*>(sums));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace coder
@@ -397,19 +457,28 @@ int launch_skip(const CoderArgs& a, int use_skip, int y_is_x, size_t smem, cudaS
 
 extern "C" {
 
-// Rows per CTA (the per-CTA partials have one entry per CTA).
+// Rows per CTA of the TopK modes' row kernel (one sq partial a CTA).
 int wst_coder_rows_per_cta() { return wst::coder::kRows; }
 
-// The coder kernel, then the fixed-order sums: sums[0] = sum(resid^2),
-// sums[1] = sum(hid) and hsum[h] (ReLU, k <= 0); counts[0] = l0 count,
-// counts[1 + j] = feature j active.  k > 0 selects TopK.
+// The coder forward: sums[0] = sum(resid^2), counts[0] = l0 count.  k > 0
+// selects TopK: the row kernel, sq_partial [ceil(rows / 16)], counts
+// [1 + h] zeroed by the caller, counts[1 + j] = feature j active.  k <= 0
+// is ReLU mode (y is x, no skip): sums[1] = sum(hid) and hsum[h] (feature
+// j is active when hsum[j] > 0), with sq_partial [ceil(rows / 128) *
+// ceil(dout / 128)], hsum_partial [ceil(rows / 64), h] (wst_gemm_tile() =
+// 128) and counts [1], set here.
 int wst_coder_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row_offset,
                   int rows, int d, int h, int dout, int k, int use_skip, int y_is_x,
                   const void* w_enc_t, const void* b_enc, const void* w_dec_t, const void* b_out,
                   const void* w_skip_t, void* hidden, void* resid, void* xc, void* sq_partial,
-                  void* l1_partial, void* hsum_partial, void* counts, void* sums, void* hsum,
-                  void* stream) {
+                  void* hsum_partial, void* counts, void* sums, void* hsum, void* stream) {
   namespace C = wst::coder;
+  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  if (k <= 0) {
+    if (use_skip || !y_is_x) return (int)cudaErrorInvalidValue;
+    return C::relu_fwd(x, x_bf16, row_offset, rows, d, h, dout, w_enc_t, b_enc, w_dec_t, b_out,
+                       hidden, resid, xc, sq_partial, hsum_partial, counts, sums, hsum, stream);
+  }
   int stage_x = 1;
   size_t smem = C::smem_bytes(d, h, stage_x);
   if (smem > (size_t)(C::kSmemOptin - C::kSmemStatic)) {
@@ -426,23 +495,15 @@ int wst_coder_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long lon
                  static_cast<float*>(resid),
                  static_cast<unsigned short*>(xc),
                  static_cast<float*>(sq_partial),
-                 static_cast<float*>(l1_partial),
-                 static_cast<float*>(hsum_partial),
                  static_cast<int*>(counts),
                  stage_x};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = k > 0 ? C::launch_skip<true>(a, use_skip, y_is_x, smem, s)
-                        : C::launch_skip<false>(a, use_skip, y_is_x, smem, s);
+  const int err = use_skip ? C::launch_y<true>(a, y_is_x, smem, s)
+                           : C::launch_y<false>(a, y_is_x, smem, s);
   if (err != 0) return err;
   const int blocks = (rows + C::kRows - 1) / C::kRows;
-  const int relu = k <= 0;
-  C::coder_sum_kernel<<<relu ? 2 : 1, C::kSumThreads, 0, s>>>(
-      static_cast<const float*>(sq_partial), static_cast<const float*>(l1_partial), blocks,
-      static_cast<float*>(sums));
-  if (relu) {
-    C::coder_hsum_kernel<<<(h + C::kSumThreads - 1) / C::kSumThreads, C::kSumThreads, 0, s>>>(
-        static_cast<const float*>(hsum_partial), blocks, h, static_cast<float*>(hsum));
-  }
+  C::coder_sum_kernel<<<1, C::kSumThreads, 0, s>>>(static_cast<const float*>(sq_partial), blocks,
+                                                   nullptr, 0, static_cast<float*>(sums));
   return (int)cudaGetLastError();
 }
 

@@ -11,7 +11,15 @@
 //   is the MLP block's fc1 with its bias and GELU;
 // gemm_kernel<kPre>       ("wst_enc_gemm_fwd", epi 3)
 //   is the TopK SAE's encode, pre = xc . W_enc + b_enc in f32, the second
-//   of kernel A's four launches (sae_kernels.cu).
+//   of kernel A's four launches (sae_kernels.cu);
+// gemm_kernel<kRelu>      ("wst_coder_gemm_fwd", epi 4)
+//   is the ReLU coder modes' encode, hid = bf16(relu(xc . W_enc + b_enc))
+//   with the per-feature sums and l0, and
+// gemm_kernel<kResid>     ("wst_coder_gemm_fwd", epi 5)
+//   their decode, resid = hid . W_dec + b_dec - x in f32 with the sum of
+//   squares: launches 2 and 3 of the ReLU modes of wst_coder_fwd
+//   (coder_kernels.cu), which replace pallas_sae.py:_fused_coder_kernel
+//   in ReLU mode.
 // With attention_kernel.cu's core between them, q/k/v and the
 // out-projection replace whisper_sae_tpu/ops/pallas_encoder.py:
 // _attention_block_kernel and _attention_block_kernel_tiled
@@ -23,10 +31,10 @@
 // C[m, n] = A[m, k] . B[n, k]^T: A bf16 rows (the LN'd rows, the
 // attention core's output, the MLP's hidden or the SAE's centred rows),
 // B the weight in the [N, K] layout, f32 sums.  K and N multiples of 128
-// (kPre: K a multiple of 8, N even; the last K block and the last column
-// tile are ragged, TMA loads their columns past K and rows past N as
-// zeros, and no column past N is stored); rows of A past m load as zeros
-// (TMA) and are not stored.  Epilogues with the Pallas kernels' numerics
+// (kPre, kRelu, kResid: K a multiple of 8, N even (kRelu: of 8); the last
+// K block and the last column tile are ragged, TMA loads their columns
+// past K and rows past N as zeros, and no column past N is stored); rows
+// of A past m load as zeros (TMA) and are not stored.  Epilogues with the Pallas kernels' numerics
 // (pallas_encoder.py:186-197, :225-229, :396-418; pallas_sae.py:189):
 //   kQkv       q = bf16((acc + bq) * head_dim**-0.5), k = bf16(acc),
 //              v = bf16(acc + bv), each written [m, d] (N = 3d; a
@@ -43,10 +51,28 @@
 //              sae_kernels.cu.  At K = 384 the f32 output bounds it,
 //              not the product: 50 MB at 4096 rows (15 us) against 9.7
 //              GFLOP (9.8 us).
-// No atomics: two launches give the same bits.
+//   kRelu      hid = bf16(relu(acc + b)) through the output tile, as kGelu
+//              (pallas_sae.py:579, :594); from the f32 values in registers,
+//              over the rows below m only (a row past m loads as zeros, so
+//              its value is relu(b), about half of it positive):
+//              partial[r / 64, c] = the column's sum over the 64 rows of
+//              one warpgroup (the f32, unrounded hidden, :604), summed
+//              over the thread's two rows, then the warp's eight row pairs
+//              by a butterfly, then the warpgroup's four warps in order
+//              through shared memory (4 KB: the ring keeps 5 stages);
+//              l0 += the positive values, an int32 atomic (order-free).
+//              A feature is active exactly when its sum is positive (a
+//              sum of values >= 0), so no active vector is kept here.
+//   kResid     resid = acc + b - f32(x[row_offset + r, c]) in f32 (:599),
+//              stored from the registers as kPre; partial[tile] = the
+//              tile's sum of resid^2 over its rows below m: each thread's
+//              fmaf chain, a butterfly, then the eight warps in order
+//              (a two-slot shared buffer, one barrier a tile).
+// No float atomics: two launches give the same bits.
 //
 // Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s); every product here
-// is bound by operations.  At whisper-large-v3, 16 clips (24,000 rows,
+// is bound by operations (the ReLU SAE's encode and decode at 4096 rows
+// 9.7 GFLOP each, 9.8 us, the ReLU crosscoder's 38.7 GFLOP each, 39 us).  At whisper-large-v3, 16 clips (24,000 rows,
 // D=1280, F=5120): q/k/v 2*24000*1280*3840 = 236 GFLOP, 0.24 ms; the
 // out-projection 79 GFLOP, 0.08 ms; fc1 and fc2 315 GFLOP each, 0.32 ms.
 // At whisper-tiny, 64 clips (96,000 rows, D=384, F=1536): fc1 and fc2
@@ -121,10 +147,11 @@ constexpr int kMaxDevices = 64;  // devices whose launch setup is kept
 constexpr uint32_t kStageBytes = (kBM + kBN) * kBK * sizeof(bf16_t);
 constexpr uint32_t kTileBytes = kBM * kBN * sizeof(bf16_t);
 
-// the ring's depth; kResidual gives a stage to the residual tile's buffer
+// the ring's depth; kResidual gives a stage to the residual tile's
+// buffer, kRelu to its column sums
 template <int EPI>
 struct Stages {
-  static constexpr int value = EPI == kResidual ? 5 : 6;
+  static constexpr int value = EPI == kResidual || EPI == kRelu ? 5 : 6;
 };
 
 // CTAs a cluster (see the note at the top)
@@ -150,6 +177,9 @@ struct __align__(1024) GemmSmem {
   bf16_t b[S][kBN * kBK];       // 16 KB a stage
   bf16_t out[kBoxes][kBM * kBK];  // the output tile, as TMA boxes of 64 columns
   bf16_t res[R][EPI == kResidual ? kBM * kBK : 8];  // the residual tile (kResidual)
+  // kRelu: each consumer warp's column sums of a tile; kResid: each
+  // consumer warp's sum of squares, in two slots (tiles alternate)
+  float red[EPI == kRelu ? kConsumers * 4 * kBN : EPI == kResid ? 2 * kConsumers * 4 : 1];
   uint64_t full[S];
   uint64_t empty[S];
   uint64_t res_full;
@@ -157,10 +187,15 @@ struct __align__(1024) GemmSmem {
 
 struct Epilogue {
   const float* bias;   // [n] f32 (kQkv: bq, 0, bv)
-  float* pre;          // kPre: the [m, n] f32 output
+  float* pre;          // kPre, kResid: the [m, n] f32 output
   float q_scale;       // kQkv: the q third's factor
   int d;               // kQkv: the width of one third
   int aux;             // kResidual: also store y = bf16(acc + b) (through map_o1)
+  float* partial;      // kRelu: [ceil(m / 64), n] column sums; kResid: [tiles] sums of squares
+  int* l0;             // kRelu: the count of positive values, zeroed by the caller
+  const void* x;       // kResid: the target rows [>= row_offset + m, n], f32 or bf16
+  int x_bf16;
+  long long row_offset;
 };
 
 // bf16(a + b) of two packed pairs, each added in f32
@@ -350,6 +385,51 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
         continue;
       }
 
+      if constexpr (EPI == kResid) {  // f32 pairs straight to device memory, as kPre
+        float sq = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int c = col0 + j * 8 + fc;
+          if (c >= n) continue;
+          const float b0 = __ldg(ep.bias + c), b1 = __ldg(ep.bias + c + 1);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const long long r = row0 + lr0 + 8 * half;
+            if (r >= m) continue;
+            const long long xi = (ep.row_offset + r) * n + c;
+            float x0, x1;
+            if (ep.x_bf16) {
+              const uint32_t v = __ldg(reinterpret_cast<const unsigned int*>(
+                  static_cast<const bf16_t*>(ep.x) + xi));
+              x0 = bf2f((bf16_t)(v & 0xffffu));
+              x1 = bf2f((bf16_t)(v >> 16));
+            } else {
+              const float2 v = __ldg(reinterpret_cast<const float2*>(
+                  static_cast<const float*>(ep.x) + xi));
+              x0 = v.x;
+              x1 = v.y;
+            }
+            const float e0 = acc[4 * j + 2 * half] + b0 - x0;
+            const float e1 = acc[4 * j + 2 * half + 1] + b1 - x1;
+            *reinterpret_cast<float2*>(ep.pre + r * n + c) = make_float2(e0, e1);
+            sq = fmaf(e0, e0, sq);
+            sq = fmaf(e1, e1, sq);
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+        float* red = s.red + (local & 1) * (kConsumers * 4);
+        if (lane == 0) red[wg * 4 + warp] = sq;
+        named_sync(1, kConsumers * 128);
+        if (tid == 0) {  // thread 0 has read this slot before any warp passes the next barrier
+          float t = 0.0f;
+#pragma unroll
+          for (int w = 0; w < kConsumers * 4; ++w) t += red[w];
+          ep.partial[tile] = t;
+        }
+        continue;
+      }
+
       // The epilogue: the values, rounded to bf16, into the output-tile
       // buffer once the previous tile's store has read it; then thread 0
       // stores it (rows past m are not written) and fetches the next
@@ -366,10 +446,14 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
       if (tid == 0) bulk_wait_read<0>();
       if (EPI == kResidual) mbar_wait(&s.res_full, local & 1);
       named_sync(1, kConsumers * 128);
+      // kRelu: rows below m, the positive values this thread holds there
+      const bool v0 = row0 + lr0 < m, v1 = row0 + lr0 + 8 < m;
+      int pos = 0;
 #pragma unroll
       for (int j = 0; j < kBN / 8; ++j) {
         const int c = j * 8 + fc;
-        const float b0 = __ldg(ep.bias + col0 + c), b1 = __ldg(ep.bias + col0 + c + 1);
+        float b0 = 0.0f, b1 = 0.0f;  // n is even: c + 1 is below n with c
+        if (col0 + c < n) b0 = __ldg(ep.bias + col0 + c), b1 = __ldg(ep.bias + col0 + c + 1);
         uint32_t* o0 = reinterpret_cast<uint32_t*>(at(s.out, lr0, c));
         uint32_t* o1 = reinterpret_cast<uint32_t*>(at(s.out, lr0 + 8, c));
         if constexpr (EPI == kQkv) {
@@ -389,15 +473,45 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
             *r0 = y0;
             *r1 = y1;
           }
+        } else if constexpr (EPI == kRelu) {
+          const float h00 = fmaxf(acc[4 * j] + b0, 0.0f), h01 = fmaxf(acc[4 * j + 1] + b1, 0.0f);
+          const float h10 = fmaxf(acc[4 * j + 2] + b0, 0.0f), h11 = fmaxf(acc[4 * j + 3] + b1, 0.0f);
+          *o0 = pack2(h00, h01);
+          *o1 = pack2(h10, h11);
+          float s0 = (v0 ? h00 : 0.0f) + (v1 ? h10 : 0.0f);
+          float s1 = (v0 ? h01 : 0.0f) + (v1 ? h11 : 0.0f);
+          pos += (v0 ? (h00 > 0.0f) + (h01 > 0.0f) : 0) + (v1 ? (h10 > 0.0f) + (h11 > 0.0f) : 0);
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {  // the warp's 8 row pairs (lanes of one lane & 3)
+            s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+          }
+          if (fr == 0) {
+            float* red = s.red + (wg * 4 + warp) * kBN;
+            red[c] = s0;
+            red[c + 1] = s1;
+          }
         }
       }
       fence_proxy_async();
       named_sync(1, kConsumers * 128);
+      if constexpr (EPI == kRelu) {
+        // the warpgroup's 64 rows: its four warps' column sums, in order;
+        // the barrier before the next tile's sums keeps these reads first
+        const int c = tid & (kBN - 1);
+        if (row0 + wg * 64 < m && col0 + c < n) {
+          const float* red = s.red + wg * 4 * kBN + c;
+          ep.partial[(row0 / 64 + wg) * n + col0 + c] =
+              ((red[0] + red[kBN]) + red[2 * kBN]) + red[3 * kBN];
+        }
+        pos = __reduce_add_sync(0xffffffffu, pos);
+        if (lane == 0 && pos) atomicAdd(ep.l0, pos);
+      }
       if (tid == 0) {
         if (row0 < m) {
 #pragma unroll
           for (int bx = 0; bx < kBoxes; ++bx)
-            tma_store_2d(map_o, s.out[bx], ocol0 + bx * kBK, (int)row0);
+            if (col0 + bx * kBK < n) tma_store_2d(map_o, s.out[bx], ocol0 + bx * kBK, (int)row0);
           if constexpr (EPI == kResidual) {
             if (ep.aux) {
 #pragma unroll
@@ -441,8 +555,8 @@ static int g_fits[kEpilogues][kMaxDevices];
 
 // outs: q, k, v ([m, d] each) for kQkv; for kResidual out ([m, n]), then
 // aux ([m, n], or out again when ep.aux is 0), out; its residual ``res``
-// is [m, n]; out ([m, n]) three times for kGelu; unused for kPre (its f32
-// output is ep.pre, stored without a tensor map).
+// is [m, n]; out ([m, n]) three times for kGelu and kRelu; unused for kPre
+// and kResid (their f32 output is ep.pre, stored without a tensor map).
 template <int EPI>
 int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* const* outs,
                 const void* res, const Epilogue& ep, cudaStream_t stream) {
@@ -452,11 +566,16 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
   CUtensorMap ma, mb, mo[3], mr;
   int err = make_map(&ma, a, m, k, kBM);
   if (!err) err = make_map(&mb, b, n, k, kBN / CLUSTER);
-  if (EPI == kPre) {  // no bf16 output or residual: the maps are never read
+  if (EPI == kPre || EPI == kResid) {  // no bf16 output or residual: the maps are never read
     mo[0] = mo[1] = mo[2] = mr = ma;
   } else {
-    for (int i = 0; i < 3 && !err; ++i) err = make_map(&mo[i], outs[i], m, out_cols, kBM);
-    if (!err) err = make_map(&mr, EPI == kResidual ? res : outs[0], m, out_cols, kBM);
+    // one encode a distinct tensor (kGelu and kRelu store one output)
+    if (!err) err = make_map(&mo[0], outs[0], m, out_cols, kBM);
+    for (int i = 1; i < 3 && !err; ++i)
+      if (outs[i] == outs[0]) mo[i] = mo[0];
+      else err = make_map(&mo[i], outs[i], m, out_cols, kBM);
+    if (EPI == kResidual && !err) err = make_map(&mr, res, m, out_cols, kBM);
+    else mr = mo[0];
   }
   if (err) return err;
   const size_t smem = sizeof(GemmSmem<EPI>) + 1024;  // + room to align the base to 1024
@@ -512,11 +631,11 @@ int wst_enc_gemm_fwd(int epi, const void* a, const void* b, long long m, int n, 
                      const void* res, void* stream) {
   using namespace wst_gemm;
   if (m <= 0) return 0;
-  if (epi < 0 || epi >= kEpilogues || k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+  if (epi < 0 || epi > kPre || k <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
   if (epi == kPre ? (k % 8 || n % 2) : (k % kAlign || n % kAlign))
     return (int)cudaErrorInvalidValue;
   if (epi == kQkv && (d <= 0 || d % kBN || n != 3 * d)) return (int)cudaErrorInvalidValue;
-  Epilogue ep;
+  Epilogue ep{};
   ep.bias = static_cast<const float*>(bias);
   ep.pre = static_cast<float*>(out0);
   ep.q_scale = q_scale;
@@ -529,5 +648,40 @@ int wst_enc_gemm_fwd(int epi, const void* a, const void* b, long long m, int n, 
   if (epi == kPre) return launch_gemm<kPre>(a, b, m, n, k, outs, res, ep, s);
   return launch_gemm<kResidual>(a, b, m, n, k, outs, res, ep, s);
 }
+
+// The ReLU coder modes' GEMMs, C = A . B^T with epilogue ``epi``: a [m, k]
+// bf16, b [n, k] bf16, bias [n] f32, k a multiple of 8, n of 8.
+// epi 4 (kRelu): out [m, n] bf16 = relu(acc + bias); partial [ceil(m /
+// 64), n] f32 the column sums over each 64 rows; l0 [1] int32, zeroed by
+// the caller, += the positive values.  epi 5 (kResid): out [m, n] f32
+// = acc + bias - x[row_offset + r, :] (x f32, or bf16 when x_bf16, with
+// rows of n); partial [ceil(m / 128) * ceil(n / 128)] f32 the sums of
+// squares of the 128 x 128 tiles, row tiles outer.
+int wst_coder_gemm_fwd(int epi, const void* a, const void* b, long long m, int n, int k,
+                       const void* bias, void* out, void* partial, void* l0, const void* x,
+                       int x_bf16, long long row_offset, void* stream) {
+  using namespace wst_gemm;
+  if (m <= 0) return 0;
+  if ((epi != kRelu && epi != kResid) || k <= 0 || n <= 0 || k % 8 || n % 8)
+    return (int)cudaErrorInvalidValue;
+  if (epi == kRelu ? l0 == nullptr : (x == nullptr || row_offset < 0))
+    return (int)cudaErrorInvalidValue;
+  Epilogue ep{};
+  ep.bias = static_cast<const float*>(bias);
+  ep.pre = static_cast<float*>(out);
+  ep.partial = static_cast<float*>(partial);
+  ep.l0 = static_cast<int*>(l0);
+  ep.x = x;
+  ep.x_bf16 = x_bf16;
+  ep.row_offset = row_offset;
+  void* const outs[3] = {out, out, out};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (epi == kRelu) return launch_gemm<kRelu>(a, b, m, n, k, outs, nullptr, ep, s);
+  return launch_gemm<kResid>(a, b, m, n, k, outs, nullptr, ep, s);
+}
+
+// Rows (and columns) of the GEMM's output tile: the kResid partials are
+// one a tile, the kRelu partials one a half tile of rows.
+int wst_gemm_tile() { return wst_gemm::kBM; }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
-// The encoder GEMM's C entry (encoder_gemm.cu) and its epilogue codes,
+// The encoder GEMM's C entries (encoder_gemm.cu) and its epilogue codes,
 // for the sources that launch it (encoder_kernels.cu: the MLP block;
-// sae_kernels.cu: kernel A's encode), and
+// sae_kernels.cu: kernel A's encode; coder_kernels.cu: the ReLU coder
+// modes' encode and decode), and
 // the element functions both sources' epilogues share: the bf16 reads and
 // packing, and the exact erff GELU of the Pallas kernels.
 
@@ -15,7 +16,9 @@ constexpr int kQkv = 0;       // q/k/v: the biases, the q scale, three outputs
 constexpr int kResidual = 1;  // the bias and the residual (+ the pre-residual output)
 constexpr int kGelu = 2;      // the bias and GELU
 constexpr int kPre = 3;       // the bias, f32 out (the SAE's pre-activation)
-constexpr int kEpilogues = 4;
+constexpr int kRelu = 4;      // the bias and ReLU, bf16 out, per-feature sums, l0
+constexpr int kResid = 5;     // the bias minus the rows, f32 out, sum-of-squares partials
+constexpr int kEpilogues = 6;
 
 typedef unsigned short bf16_t;
 
@@ -35,3 +38,8 @@ __device__ __forceinline__ float gelu(float x) {
 extern "C" int wst_enc_gemm_fwd(int epi, const void* a, const void* b, long long m, int n, int k,
                                 const void* bias, float q_scale, int d, void* out0, void* out1,
                                 void* out2, const void* res, void* stream);
+extern "C" int wst_coder_gemm_fwd(int epi, const void* a, const void* b, long long m, int n,
+                                  int k, const void* bias, void* out, void* partial, void* l0,
+                                  const void* x, int x_bf16, long long row_offset,
+                                  void* stream);
+extern "C" int wst_gemm_tile();

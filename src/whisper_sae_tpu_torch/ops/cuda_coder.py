@@ -1,18 +1,21 @@
 """The coder kernel: one fused training forward for the transcoder, ReLU-SAE
 and crosscoder families.
 
-``coder_fwd`` (``csrc/coder_kernels.cu``, ``coder_rows_kernel<TOPK, SKIP,
-Y_IS_X>``) replaces both launches of the Pallas body
-``_fused_coder_kernel`` in ``whisper_sae_tpu/ops/pallas_sae.py``:
-``_fused_coder_forward`` (``pallas_call`` at :679) and
-``_fused_coder_forward_indexed`` (:1057), the latter as the same kernel
-reading its batch at a row offset into the epoch buffers.  In one launch
-it rounds the rows to bf16, encodes them, applies the exact top-k mask or
-the ReLU, writes the bf16 latent, decodes it (plus the skip product),
-writes the f32 residual against the target and reduces sum(resid^2), the
-l0 count, the any-active vector and, in ReLU mode, sum(hid) and the
-per-feature hidden sums; two small launches sum the per-CTA partials in
-a fixed order.
+``coder_fwd`` (``csrc/coder_kernels.cu``, one C call ``wst_coder_fwd``)
+replaces both launches of the Pallas body ``_fused_coder_kernel`` in
+``whisper_sae_tpu/ops/pallas_sae.py``: ``_fused_coder_forward``
+(``pallas_call`` at :679) and ``_fused_coder_forward_indexed`` (:1057),
+the latter as the same call reading its batch at a row offset into the
+epoch buffers.  It rounds the rows to bf16, encodes them, applies the
+exact top-k mask or the ReLU, writes the bf16 latent, decodes it (plus
+the skip product), writes the f32 residual against the target and
+reduces sum(resid^2), the l0 count, the any-active vector and, in ReLU
+mode, sum(hid) and the per-feature hidden sums, the sums as partials
+added in a fixed order.  The TopK modes run one row kernel
+(``coder_rows_kernel<SKIP, Y_IS_X>``) and a sum; the ReLU modes run the
+cast to bf16, the encode and the dense decode on the Hopper GEMM of
+``csrc/encoder_gemm.cu`` (``gemm_kernel<kRelu>``, ``gemm_kernel<kResid>``)
+and two sums (:func:`coder_route_plain` transcribes that route).
 
 The entry points keep the JAX names and the JAX parameter layout
 (``w_enc [D, H]``, ``w_dec [H, dout]``, ``w_skip [D, dout]``):
@@ -22,9 +25,10 @@ The entry points keep the JAX names and the JAX parameter layout
 ``*_indexed`` forms.  Each counts its launches in ``.launches``, and
 ``mode_launches`` counts them by (entry, mode).  A CUDA tensor goes to the
 kernel (or the wrapper raises); a CPU tensor to the plain version beside
-it, counted in ``plain_calls``.  The kernel holds a row of pre in one
-warp's registers, so it takes H <= 3072 (:func:`coder_supported`, the
-port's counterpart of ``fused_coder_supported``); wider geometries are
+it, counted in ``plain_calls``.  The TopK row kernel holds a row of pre
+in one warp's registers, so the call takes H <= 3072 in every mode
+(:func:`coder_supported`, the port's counterpart of
+``fused_coder_supported``); wider geometries are
 composed around the blocked encode by the models, as the JAX package
 composes them.  The TPU's other gates (``pick_block_rows``, ``WST_*``)
 have no counterpart.
@@ -104,6 +108,60 @@ def coder_forward_plain(x: torch.Tensor, y: torch.Tensor | None, ops: CoderOpera
                     hidden.sum() if relu else None, hidden.sum(dim=0) if relu else None)
 
 
+def _fixed_order_sum(v: torch.Tensor, threads: int = 256) -> torch.Tensor:
+    """``coder_sum_kernel``'s order: thread t adds v[t], v[t + 256], ... in
+    turn, then a halving tree over the 256 threads."""
+    buf = torch.zeros(threads, dtype=torch.float32)
+    for i in range(0, v.numel(), threads):
+        part = v[i:i + threads]
+        buf[:part.numel()] += part
+    w = threads // 2
+    while w:
+        buf[:w] += buf[w:2 * w]
+        w //= 2
+    return buf[0]
+
+
+def coder_route_plain(x: torch.Tensor, row_offset: int, rows: int,
+                      ops: CoderOperands, tile: int) -> CoderOut:
+    """The ReLU modes' CUDA route written out in plain PyTorch, for the
+    tests, with the GEMM's output tile ``tile`` x ``tile`` (128:
+    ``wst_gemm_tile()``): ``x[row_offset : row_offset + rows]`` to bf16,
+    the encode on whole tiles of rows (rows past the window are zeros, so
+    their pre-activation is b_enc) with the per-feature sums of each
+    ``tile / 2`` rows and l0 over the window's rows alone, the decode and
+    one sum(resid^2) a tile over those rows, then the partials added in
+    the kernels' fixed orders (``coder_hsum_kernel``: the partial sums of
+    a feature in row order; ``coder_sum_kernel``); a feature is active when
+    its sum is positive.  Sums within a partial run in PyTorch's order,
+    not the GEMM's."""
+    half = tile // 2
+    xw = x[row_offset:row_offset + rows]
+    xc = xw.bfloat16()
+    h = ops.we_t.shape[0]
+    dout = ops.wd_t.shape[0]
+    padded = -(-rows // tile) * tile
+    pre = torch.cat([mm_f32(xc, ops.we_t.t()) + ops.b_enc,
+                     ops.b_enc.expand(padded - rows, h)])
+    hidden = torch.relu(pre)
+    valid = (torch.arange(padded) < rows)[:, None]
+    counted = torch.where(valid, hidden, torch.zeros(()))
+    parts = counted.view(padded // half, half, h).sum(dim=1)[:-(-rows // half)]
+    hsum = torch.zeros(h, dtype=torch.float32)
+    for p in parts:  # coder_hsum_kernel: row blocks in order
+        hsum = hsum + p
+    pos = (hidden > 0) & valid
+    hid = hidden[:rows].bfloat16()  # the pad rows' decode is neither stored nor summed
+    resid = mm_f32(hid, ops.wd_t.t()) + ops.b_out - xw.float()
+    sq_tiles = torch.zeros(padded // tile, -(-dout // tile))
+    for i in range(padded // tile):
+        for j in range(sq_tiles.shape[1]):
+            t = resid[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile]
+            sq_tiles[i, j] = (t * t).sum()
+    return CoderOut(_fixed_order_sum(sq_tiles.flatten()), pos.sum(), hsum > 0,
+                    hid, resid, xc, _fixed_order_sum(hsum), hsum)
+
+
 def _check(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
     if (t.device != device or t.dtype not in dtypes or tuple(t.shape) != shape
             or not t.is_contiguous()):
@@ -145,15 +203,26 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
     if ops.ws_t is not None:
         _check("w_skip_t", ops.ws_t, dev, bf, (dout, d))
     relu = k is None
-    blocks = -(-rows // lib.wst_coder_rows_per_cta())
+    if relu:
+        if y is not None or ops.ws_t is not None:
+            raise ValueError("ReLU mode takes the rows as their own target and no skip path")
+        for name, t in (("x", x), ("w_enc_t", ops.we_t), ("w_dec_t", ops.wd_t)):
+            if t.data_ptr() % 16:  # read by TMA (the weights) and 16 bytes at a time (x)
+                raise ValueError(f"coder_fwd: {name} must be 16-byte aligned")
+        tile = lib.wst_gemm_tile()  # the ReLU partials: one a tile, hsum one a half tile of rows
+        sq_parts = -(-rows // tile) * -(-dout // tile)
+    else:
+        sq_parts = -(-rows // lib.wst_coder_rows_per_cta())
     hid = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
     resid = torch.empty((rows, dout), dtype=torch.float32, device=dev)
     xc = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)
-    sq_partial = torch.empty((blocks,), dtype=torch.float32, device=dev)
-    l1_partial = torch.empty((blocks,), dtype=torch.float32, device=dev) if relu else None
-    hsum_partial = torch.empty((blocks, h), dtype=torch.float32, device=dev) if relu else None
+    sq_partial = torch.empty((sq_parts,), dtype=torch.float32, device=dev)
+    hsum_partial = (torch.empty((-(-rows // (tile // 2)), h), dtype=torch.float32, device=dev)
+                    if relu else None)
     hsum = torch.empty((h,), dtype=torch.float32, device=dev) if relu else None
-    counts = torch.zeros((1 + h,), dtype=torch.int32, device=dev)
+    # ReLU mode: l0 alone, set by the call; a feature is active when its hidden sum is positive
+    counts = (torch.empty((1,), dtype=torch.int32, device=dev) if relu
+              else torch.zeros((1 + h,), dtype=torch.int32, device=dev))
     sums = torch.empty((2,), dtype=torch.float32, device=dev)
 
     def ptr(t):
@@ -165,11 +234,11 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
         0 if relu else k, int(ops.ws_t is not None), int(y is None),
         ops.we_t.data_ptr(), ops.b_enc.data_ptr(), ops.wd_t.data_ptr(), ops.b_out.data_ptr(),
         ptr(ops.ws_t), hid.data_ptr(), resid.data_ptr(), xc.data_ptr(), sq_partial.data_ptr(),
-        ptr(l1_partial), ptr(hsum_partial), counts.data_ptr(), sums.data_ptr(), ptr(hsum),
+        ptr(hsum_partial), counts.data_ptr(), sums.data_ptr(), ptr(hsum),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "coder_fwd")
-    return CoderOut(sums[0], counts[0], counts[1:] > 0, hid, resid, xc,
+    return CoderOut(sums[0], counts[0], hsum > 0 if relu else counts[1:] > 0, hid, resid, xc,
                     sums[1] if relu else None, hsum)
 
 

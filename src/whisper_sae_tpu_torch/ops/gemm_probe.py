@@ -29,7 +29,8 @@ import subprocess
 
 import torch
 
-from . import _build, cuda_encoder
+from . import _build, _probe, cuda_encoder
+from ._probe import time_ms
 
 SHAPES = {"whisper_large_v3": (16 * 1500, 1280), "whisper_tiny": (64 * 1500, 384)}
 PEAK_BF16 = 989e12  # dense bf16 operations a second, H100 SXM
@@ -46,19 +47,6 @@ def _mainloop_only():
     fn = ctypes.CDLL(str(out)).wst_enc_gemm_fwd
     fn.argtypes, fn.restype = _build._SIGNATURES["wst_enc_gemm_fwd"]
     return fn
-
-
-def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _calls(gemm, m: int, d: int) -> dict:
@@ -123,7 +111,7 @@ def mlp_widths() -> dict:
         ln_g, ln_b = 1 + r(d, scale=0.1), r(d, scale=0.1)
         fl = (1 + r(d, scale=0.1).float(), r(d, scale=0.1).float())
         fn = lambda: cuda_encoder.mlp_block_fwd(x, ln_g, ln_b, p, False, fl)  # noqa: E731
-        res[d] = {"rows": n, "ms": [_time_ms(fn), _time_ms(fn)]}
+        res[d] = {"rows": n, "ms": [time_ms(fn), time_ms(fn)]}
         print(f"mlp_block_fwd D={d} F={f} rows={n}: {res[d]['ms']}")
         del x, p
     return res
@@ -137,9 +125,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("gemm_probe needs a CUDA card")
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True).stdout
-    print(card.strip().splitlines()[0] if card.strip() else "nvidia-smi: no card listed")
+    print(_probe.card())
     if args.mlp_widths:
         print(json.dumps(mlp_widths()))
         return 0
@@ -153,7 +139,7 @@ def main() -> int:
             readings = {key: [] for key in fns}
             for order in (list(fns), list(fns)[::-1]):
                 for key in order:
-                    readings[key].append(_time_ms(fns[key]))
+                    readings[key].append(time_ms(fns[key]))
             row = {"rows": m, "k": k, "n": n, "bound_ms": 2 * m * k * n / PEAK_BF16 * 1e3,
                    **readings}
             res[f"{model}.{prod}"] = row

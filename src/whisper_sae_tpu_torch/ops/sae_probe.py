@@ -17,35 +17,21 @@ Needs one H100; from the repository root:
 from __future__ import annotations
 
 import json
-import subprocess
 
 import torch
 
-from . import _build, cuda_sae, cuda_topk
+from . import _build, _probe, cuda_sae, cuda_topk
+from ._probe import time_ms
 
 D, H, K = 384, 3072, 32
 ROWS = (128, 4096, 32768)
-
-
-def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("sae_probe: needs a CUDA device")
     dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = _probe.card()
     print(card, flush=True)
     _build.load_library()
     g = torch.Generator().manual_seed(0)
@@ -59,11 +45,11 @@ def main() -> None:
         x = torch.randn(rows, D, generator=g).to(dev)
         pre = (torch.randn(rows, H, generator=g)).to(dev)
         res[str(rows)] = {
-            "fused_sae_loss": _time_ms(lambda: cuda_sae._fused_loss_launch(
+            "fused_sae_loss": time_ms(lambda: cuda_sae._fused_loss_launch(
                 x, 0, rows, we_t, b_enc, b_pre, wd, b_out, K)),
-            "fused_topk_encode": _time_ms(lambda: cuda_sae._topk_encode_launch(
+            "fused_topk_encode": time_ms(lambda: cuda_sae._topk_encode_launch(
                 x, we_t, b_enc, b_pre, K, torch.bfloat16)),
-            "topk_mask": _time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K)),
+            "topk_mask": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K)),
         }
     print(json.dumps(res), flush=True)
 

@@ -258,3 +258,50 @@ def test_wrappers_refuse_other_devices():
         cc.fused_relu_sae_loss(meta, w, torch.empty(H, device="meta"),
                                torch.empty((H, D), device="meta"), torch.empty(D, device="meta"),
                                SW)
+
+
+@pytest.mark.parametrize("offset,rows", [(100, 100), (64, 200)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["relu_sae", "relu_crosscoder"])
+def test_relu_route_matches_plain_and_pallas_interpret(mode, x_dtype, offset, rows):
+    """The ReLU modes' CUDA route written out (``coder_route_plain``: the
+    encode on whole 128-row tiles, the 64-row per-feature partials, the pad
+    rows left out of every sum and count, one sum of squares a 128 x 128
+    tile, the fixed-order finalize) on a ragged window at a row offset,
+    with a b_enc about half of which is positive (so a pad row, whose
+    pre-activation is b_enc, would count), against ``coder_forward_plain``
+    and the JAX Pallas kernel in interpret mode on the same rows: the bf16
+    rows and the latent bit-equal to the plain version's, l0 and active
+    exact, l1, the hidden sums and sum(resid^2) at rtol 1e-6.  XLA's f32
+    dot sums in another order than PyTorch's, so a latent value may round
+    one bf16 step the other way against the JAX kernel (one of 25,600 here):
+    there the latent is held within one step (rtol 2**-7)."""
+    p = _params(mode, 20)
+    assert 0.3 < float(np.mean(p["b_enc"] > 0)) < 0.7
+    xbuf = torch.from_numpy(_rows(21, offset + rows + 40)).to(x_dtype)
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    ops = cc.operands(t["w_enc"], t["b_enc"], t["w_dec"], t["b_dec"])
+    got = cc.coder_route_plain(xbuf, offset, rows, ops, 128)
+    win = xbuf[offset:offset + rows]
+    plain = cc.coder_forward_plain(win, None, ops, None)
+
+    assert torch.equal(got.xc, plain.xc) and torch.equal(got.hid, plain.hid)
+    assert int(got.l0) == int(plain.l0) and torch.equal(got.active, plain.active)
+    torch.testing.assert_close(got.resid, plain.resid, rtol=0, atol=0)
+    for name in ("sq", "l1", "hsum"):
+        torch.testing.assert_close(getattr(got, name), getattr(plain, name), rtol=1e-6, atol=0)
+
+    zero = jnp.zeros((), jnp.float32)
+    xj = jnp.asarray(win.float().numpy()).astype(jnp.bfloat16 if x_dtype == torch.bfloat16
+                                                 else jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        loss, l0, active, resid, hid, l1, hsum, _, _ = ps._fused_coder_impl(
+            xj, xj, *(jnp.asarray(p[n]) for n in ("w_enc", "b_enc", "w_dec", "b_dec")), zero,
+            zero, None, rows // 5, False, True)
+    torch.testing.assert_close(got.hid.float(), torch.from_numpy(np.array(hid.astype(jnp.float32))),
+                               rtol=2.0**-7, atol=0)
+    assert float(np.float32(int(got.l0)) / np.float32(rows)) == float(l0)
+    np.testing.assert_array_equal(got.active.numpy(), np.asarray(active))
+    np.testing.assert_allclose(float(got.sq) / (rows * D), float(loss), rtol=1e-6)
+    np.testing.assert_allclose(float(got.l1), float(l1), rtol=1e-6)
+    np.testing.assert_allclose(got.hsum.numpy(), np.asarray(hsum), rtol=1e-6, atol=0)

@@ -821,3 +821,145 @@ def test_coder_kernel_refuses_shapes(dev):
         CC._coder_launch(x, y, 32, 64, ops, k)
     with pytest.raises(ValueError, match="b_enc must be"):
         CC._coder_launch(x, y, 0, 64, ops._replace(b_enc=ops.b_enc.double()), k)
+
+
+# ---------------------------------------------------------------------------
+# the coder kernel's ReLU modes: five launches, the encode and the decode on
+# the Hopper GEMM (csrc/encoder_gemm.cu: gemm_kernel<kRelu>, gemm_kernel<kResid>),
+# at the phase-8 bars of chip_smoke.py (those of _check_coder above)
+# ---------------------------------------------------------------------------
+
+RELU_PARTS = ("coder_cast_kernel", "gemm_kernel<4>", "gemm_kernel<5>", "coder_hsum_kernel",
+              "coder_sum_kernel")
+
+
+@pytest.mark.parametrize("mode", ["relu_sae", "relu_crosscoder"])
+@pytest.mark.parametrize("offset,rows,n,x_dtype", [
+    (0, 128, 128, torch.float32), (0, 128, 128, torch.bfloat16),
+    (37, 100, 300, torch.float32), (37, 100, 300, torch.bfloat16),
+    (300, 1000, 1400, torch.float32), (300, 1000, 1400, torch.bfloat16)])
+def test_coder_relu_route_matches_plain(dev, mode, offset, rows, n, x_dtype):
+    """Sliced and at a row offset, on windows whose last 128-row tile is
+    ragged (100, 1000: its pad rows have pre = b_enc, about half positive,
+    and must count nowhere), f32 and bf16 rows."""
+    x, _, ops, _ = _coder_inputs(mode, n, 26, x_dtype)
+    assert 0.3 < float((ops.b_enc > 0).float().mean()) < 0.7
+    got = CC._coder_launch(x, None, offset, rows, ops, None)
+    want = CC.coder_forward_plain(x[offset:offset + rows], None, ops, None)
+    _check_coder(got, want, None, f"{mode} [{offset}, {offset + rows})")
+
+
+@pytest.mark.parametrize("rows", [100, 4096])
+@pytest.mark.parametrize("d,h", [(384, 3072), (1536, 3072), (96, 352)])
+def test_coder_gemms_match_f32_product(dev, d, h, rows):
+    """``wst_coder_gemm_fwd`` alone: the kRelu encode against bf16(relu(the
+    f32 product of the same bf16 operands + b_enc)) (one bf16 step, rtol
+    2**-7; atol 1e-4 of the largest value for a pre within f32 rounding of
+    0), its 64-row column sums (rtol 1e-4; positive exactly where a row
+    below m is, on >= 99.9% of them) and l0 (rel 1e-4) against the same
+    of the plain f32 values over the rows below m; the kResid decode
+    of that latent against its f32 product + b_dec - x (atol 1e-4 of the
+    largest value: f32 sums in another order) and its tile sums of squares
+    (rtol 1e-4).  Nothing is written past the outputs' ends; at (96, 352)
+    K is a multiple of 32, not 64, and N not of 128."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    lib = _build.load_library()
+    st = torch.cuda.current_stream().cuda_stream
+    g = torch.Generator().manual_seed(d + h + rows)
+    off = 5
+    x = torch.randn(off + rows, d, generator=g).to(dev)
+    xc = x[off:].bfloat16()
+    we_t = (torch.randn(h, d, generator=g) / d ** 0.5).to(dev).bfloat16()
+    b_enc = (torch.randn(h, generator=g) * 0.05).to(dev)
+    wd_t = (torch.randn(d, h, generator=g) * 0.05).to(dev).bfloat16()
+    b_dec = (torch.randn(d, generator=g) * 0.05).to(dev)
+    tile = lib.wst_gemm_tile()
+    halves, tiles = -(-rows // (tile // 2)), -(-rows // tile) * -(-d // tile)
+
+    def guarded(numel, dtype):  # the output, then a tail that must stay NaN
+        buf = torch.full((numel + 4096,), float("nan"), device=dev, dtype=dtype)
+        return buf, buf[:numel]
+
+    hbuf, hid = guarded(rows * h, torch.bfloat16)
+    pbuf, part = guarded(halves * h, torch.float32)
+    l0 = torch.zeros(1, dtype=torch.int32, device=dev)
+    assert lib.wst_coder_gemm_fwd(4, xc.data_ptr(), we_t.data_ptr(), rows, h, d, b_enc.data_ptr(),
+                                  hid.data_ptr(), part.data_ptr(), l0.data_ptr(), None, 0, 0,
+                                  st) == 0
+    torch.cuda.synchronize()
+    hidden = torch.relu(mm_f32(xc, we_t.t()) + b_enc)
+    hmax = float(hidden.abs().max())
+    torch.testing.assert_close(hid.view(rows, h).float(), hidden.bfloat16().float(), rtol=2.0**-7,
+                               atol=1e-4 * hmax)
+    pad = torch.zeros(halves * (tile // 2) - rows, h, device=dev)
+    want_part = torch.cat([hidden, pad]).view(halves, tile // 2, h).sum(dim=1)
+    torch.testing.assert_close(part.view(halves, h), want_part, rtol=1e-4,
+                               atol=1e-4 * float(want_part.abs().max()))
+    pos = hidden > 0
+    assert abs(int(l0) - int(pos.sum())) <= 1e-4 * int(pos.sum())
+    want_any = torch.cat([pos, pad.bool()]).view(halves, tile // 2, h).any(dim=1)
+    assert float(((part.view(halves, h) > 0) == want_any).float().mean()) >= 0.999
+    assert bool(hbuf[rows * h:].isnan().all()) and bool(pbuf[halves * h:].isnan().all())
+
+    rbuf, resid = guarded(rows * d, torch.float32)
+    sbuf, sq = guarded(tiles, torch.float32)
+    assert lib.wst_coder_gemm_fwd(5, hid.data_ptr(), wd_t.data_ptr(), rows, d, h, b_dec.data_ptr(),
+                                  resid.data_ptr(), sq.data_ptr(), None, x.data_ptr(), 0, off,
+                                  st) == 0
+    torch.cuda.synchronize()
+    want = mm_f32(hid.view(rows, h), wd_t.t()) + b_dec - x[off:]
+    torch.testing.assert_close(resid.view(rows, d), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    mt, nt = -(-rows // tile), -(-d // tile)
+    wpad = torch.cat([want, torch.zeros(mt * tile - rows, d, device=dev)])
+    wpad = torch.cat([wpad, torch.zeros(mt * tile, nt * tile - d, device=dev)], dim=1)
+    want_sq = (wpad * wpad).view(mt, tile, nt, tile).sum(dim=(1, 3)).flatten()
+    torch.testing.assert_close(sq, want_sq, rtol=1e-4, atol=0)
+    assert bool(rbuf[rows * d:].isnan().all()) and bool(sbuf[tiles:].isnan().all())
+
+
+def test_coder_relu_is_five_launches(dev):
+    """A ReLU call counts one launch on its wrapper and is five kernels on
+    the card, none more than once a call; the TopK modes' row kernel does
+    not run.  Over 4 profiled calls each kernel is seen at least once and
+    at most 4 times: the profiler has missed the first kernel of a C call
+    now and then (coder_cast_kernel here; kernel A's sae_centre_kernel, 2
+    of 10, in another run), which ran, as every result test shows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 4
+    x, _, ops, _ = _coder_inputs("relu_sae", 512, 27)
+    w = (ops.we_t.t().float(), ops.b_enc, ops.wd_t.t().float(), ops.b_out)
+    CC.fused_relu_sae_loss(x, *w, 0.01)
+    torch.cuda.synchronize()
+    before = CC.fused_relu_sae_loss.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            CC.fused_relu_sae_loss(x, *w, 0.01)
+        torch.cuda.synchronize()
+    assert CC.fused_relu_sae_loss.launches - before == calls
+    keys = [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type == DeviceType.CUDA]
+    for name in RELU_PARTS:
+        assert 1 <= sum(name in key for key in keys) <= calls, (name, keys)
+    assert not any("coder_rows_kernel" in key for key in keys), keys
+
+
+@pytest.mark.parametrize("mode", ["relu_sae", "relu_crosscoder"])
+@pytest.mark.parametrize("offset,rows", [(37, 100), (300, 1000)])
+def test_coder_relu_route_deterministic(dev, mode, offset, rows):
+    x, _, ops, _ = _coder_inputs(mode, offset + rows + 50, 28)
+    a = CC._coder_launch(x, None, offset, rows, ops, None)
+    b = CC._coder_launch(x, None, offset, rows, ops, None)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_coder_relu_route_refuses(dev):
+    x, _, ops, _ = _coder_inputs("relu_sae", 64, 29)
+    with pytest.raises(ValueError, match="own target"):
+        CC._coder_launch(x, x.clone(), 0, 64, ops, None)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        CC._coder_launch(x.view(-1)[2:2 + 63 * 384].view(63, 384), None, 0, 63, ops, None)
