@@ -118,13 +118,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
     batch 128, and of the Skip transcoder and of the ReLU crosscoder at
     batch 4096 and 32768, wall and device busy time.
 11. Whisper-large 32x (D=1280, H=40960, k=32; bench.py:83-112): the
-    blocked encode (``ops/csrc/blocked_encode.cu``) against its plain
-    version at 8192 rows and a ragged 1,000, for f32 and bf16 rows and
-    both latent dtypes, at kernel B's bars (>= 99.9% of rows select the
-    same features, values on those rows within 1e-2 * max|ref|); its
-    gradients against the CPU on 256 rows (rtol 2e-2, on the rows whose
-    selection the two agree on); two launches bit-identical; kernel C's
-    CTA-per-row form on [1024, 40960] with tie rows, exact.
+    blocked encode (``ops/csrc/blocked_encode.cu``: per 2048-row chunk
+    the centre, the kPre GEMM of ``encoder_gemm.cu`` and the CTA select)
+    against its plain version at 8192 rows, 4,200 (two full chunks and a
+    ragged one) and a ragged 1,000, for f32 and bf16 rows and both latent
+    dtypes, at kernel B's bars (>= 99.9% of rows select the same
+    features, values on those rows within 1e-2 * max|ref|), with phase
+    1's print of each row that selects differently, its gap held to twice
+    the row's max |pre_card - pre_plain| (pre_card: the kPre GEMM on the
+    same centred rows, the pre the route selects on); its gradients
+    against the CPU on 256 rows (rtol 2e-2, on the rows whose selection
+    the two agree on); two launches bit-identical; kernel C's CTA-per-row
+    form on [1024, 40960] with tie rows, exact.
 12. The whisper-large 32x path through the CLI: a synthetic gaussian
     cache of 6 x 8192 rows x 1280 under ``build/chip_smoke/``, a config
     naming ``openai/whisper-large-v3`` with expansion 32, k 32, batch
@@ -138,8 +143,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
     on 64 rows on the card agrees with the CPU at phase 11's bars.
 13. Times at whisper-large 32x: the blocked encode at 8192 rows beside
     its plain version, its bound and the bf16 ``torch.mm`` of the same
-    shape; kernel C's wide form on [8192, 40960] beside ``torch.topk``;
-    one training step at batch 8192 under ``torch.profiler``.
+    shape, with each of its three launches' device time under
+    ``torch.profiler`` (``split_ms``, a call's four chunks) and the
+    product's TFLOP/s; kernel C's wide form on [8192, 40960] beside
+    ``torch.topk``; the select's passes a row on that pre (it stops at a
+    count of exactly k), which both bounds count; one training step at
+    batch 8192 under ``torch.profiler``.
 
 14. Encoder kernels at whisper-large-v3 width (D=1280, 20 heads, F=5120,
     T=1500, 128 mels), 16 clips (the CLI run's batch): the conv stem's
@@ -186,7 +195,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     chunked epochs through the paired reader (windowed coder launches
     equal to the steps).  Losses finite and falling, run files written.
 
-Before them, one line lists the rows of phases 1 and 8 that select
+Before them, one line lists the rows of phases 1, 8 and 11 that select
 differently from the plain version, with their gaps.  The last two lines
 are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Scratch files go under ``build/``.
@@ -248,7 +257,12 @@ LAUNCH_CLIPS = 64
 # whisper-large 32x (bench.py:83-112): the blocked encode's geometry
 DL, HL, BL = 1280, 40960, 8192
 LARGE_STEPS, LARGE_EPOCHS = 6, 2
+LARGE_CHECK_ROWS = (BL, 4200, 1000)  # 4200: two full chunks of the blocked encode and a ragged one
 BLOCKED_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/blocked_encode.cu"
+# the blocked encode's three launches a chunk, by the profiler's kernel names
+# (at whisper-large 32x the product walks column tiles first)
+BLOCKED_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_cols_kernel<3>",
+                 "select": "blocked_select_kernel"}
 ATTN_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/attention_kernel.cu"
 GEMM_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/encoder_gemm.cu"
 # every width the fused route's gate takes (ops/encoder.py:fused_encoder_supported)
@@ -273,7 +287,7 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# phases 1 and 8: the rows that select differently from the plain version
+# phases 1, 8 and 11: the rows that select differently from the plain version
 GAPS: dict[str, list] = {}
 
 
@@ -1705,9 +1719,10 @@ def large_kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
     we_t = cuda_sae._bf16_t(p["w_enc"])
     g = torch.Generator(device=dev).manual_seed(41)
     args = (we_t, p["b_enc"], p["b_pre"], K)
-    for rows in (BL, 1000):
+    for rows in LARGE_CHECK_ROWS:
         x32 = torch.randn(rows, DL, generator=g, device=dev)
         for x in (x32, x32.bfloat16()):
+            xc = (x.float() - p["b_pre"]).bfloat16()
             for out_dtype in (torch.bfloat16, torch.float32):
                 what = f"blocked encode rows={rows} x {x.dtype} -> {out_dtype}"
                 got = cuda_sae._blocked_encode_launch(x, *args, out_dtype)
@@ -1721,6 +1736,8 @@ def large_kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
                 check(err <= 1e-2 * float(want.float().abs().max()), f"{what}: values off by {err:.3g}")
                 errs["fused_topk_encode_blocked"] = max(errs["fused_topk_encode_blocked"], err)
                 log(f"  {what}: rows agreeing {share:.4%}, max abs err {err:.3g}")
+                # the route selects on the kPre GEMM's pre of these rows
+                GAPS[what] = selection_gaps(xc, we_t, p["b_enc"], got, want, K, what, own_pre=True)
                 del got, want
     a = cuda_sae._blocked_encode_launch(x32, *args, torch.bfloat16)
     check(torch.equal(a, cuda_sae._blocked_encode_launch(x32, *args, torch.bfloat16)),
@@ -1857,36 +1874,59 @@ def large_times(work: Path, dev, trainer, cuda_sae, cuda_topk, topk) -> dict:
     """Phase 13: the blocked encode and kernel C's wide form at 8192 rows
     beside their plain versions, bounds and library yardsticks; one
     training step at batch 8192."""
+    from whisper_sae_tpu_torch.ops import _build
+
     p = params(50, dev, DL, HL)
     we_t = cuda_sae._bf16_t(p["w_enc"])
     x = torch.randn(BL, DL, generator=torch.Generator(device=dev).manual_seed(51), device=dev)
     args = (x, we_t, p["b_enc"], p["b_pre"], K, torch.bfloat16)
     xc, w_bf = (x - p["b_pre"]).bfloat16(), p["w_enc"].bfloat16()
+    pre = (torch.matmul(xc.float(), w_bf.float()) + p["b_enc"]).contiguous()
+    # the select's passes on this pre (it stops at a count of exactly k):
+    # a compare and an add an element a pass, and the mask
+    chunk = _build.load_library().wst_blocked_chunk_rows()
+    passes = torch.cat([topk.cta_threshold(pre[r0:r0 + chunk], K)[2]
+                        for r0 in range(0, BL, chunk)]).double()
+    select_ops = float(2 * passes.sum() * HL + BL * HL)
     res = {}
-    # x, W_enc^T and the biases in, the bf16 latent out; the product and
-    # 33 integer operations a pre (32 passes and the mask)
+    # x, W_enc^T and the biases in, the bf16 latent out; the product and the select
     b_bound = bound(BL * DL * 4 + DL * HL * 2 + (HL + DL) * 4 + BL * HL * 2, 2 * BL * DL * HL,
-                    33 * BL * HL)
+                    select_ops)
+    launch = lambda: cuda_sae._blocked_encode_launch(*args)  # noqa: E731
+    split = launch_split(launch, BLOCKED_PARTS)
+    chunks = -(-BL // chunk)
     res["fused_topk_encode_blocked"] = {
-        "ms": time_ms(lambda: cuda_sae._blocked_encode_launch(*args), iters=10, warmup=2),
+        "ms": time_ms(launch, iters=10, warmup=2),
         "plain_ms": time_ms(lambda: cuda_sae.topk_encode_plain(*args), iters=2, warmup=1),
         **dict(zip(("bound_ms", "bound_by"), b_bound)),
         "library_ms": time_ms(lambda: torch.mm(xc, w_bf), iters=10, warmup=2),
-        # the int32 workspace written and read back, beyond the bound
+        # the f32 workspace written and read back, beyond the bound
         "workspace_bytes_ms": 1e3 * 2 * 4 * BL * HL / PEAK_BYTES,
+        # device ms a call of each part (its launches a chunk, times the chunks)
+        "split_ms": {k_: v * chunks if v is not None else None for k_, v in split.items()},
+        "select_passes_mean": float(passes.mean()),
+        "select_passes_max": int(passes.max()),
     }
-    pre = (torch.matmul(xc.float(), w_bf.float()) + p["b_enc"]).contiguous()
+    enc_ms = res["fused_topk_encode_blocked"]["split_ms"]["encode"]
+    res["fused_topk_encode_blocked"]["encode_tflops"] = (
+        2 * BL * DL * HL / enc_ms / 1e9 if enc_ms else None)
     res["topk_mask_wide"] = {
         "ms": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K), iters=10, warmup=2),
         "plain_ms": time_ms(lambda: topk.topk_mask_plain(pre, K), iters=2, warmup=1),
-        **dict(zip(("bound_ms", "bound_by"), bound(2 * BL * HL * 4, 0, 32 * BL * HL))),
+        **dict(zip(("bound_ms", "bound_by"), bound(2 * BL * HL * 4, 0, select_ops))),
         "library_ms": time_ms(lambda: torch.topk(pre, K), iters=10, warmup=2),
     }
     for name, r in res.items():
         log(f"  {name:26s} B={BL}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} ({r['bound_by']}), library {r['library_ms']:.4f}")
-    log(f"  (the blocked encode's workspace adds {res['fused_topk_encode_blocked']['workspace_bytes_ms']:.4f}"
-        " ms of HBM traffic beyond its bound)")
+    r = res["fused_topk_encode_blocked"]
+    log(f"  blocked encode, device ms a call ({chunks} chunks of {chunk} rows): "
+        + ", ".join(f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
+                    for k_, v in r["split_ms"].items())
+        + (f"; the product at {r['encode_tflops']:.1f} TFLOP/s" if r["encode_tflops"] else ""))
+    log(f"  the select ran {r['select_passes_mean']:.2f} passes a row on average, "
+        f"{r['select_passes_max']} at most (of 32); the f32 workspace adds "
+        f"{r['workspace_bytes_ms']:.4f} ms of HBM traffic beyond the bound")
     del pre, xc, w_bf, x
     log(f"  one training step at batch {BL} (D={DL}, H={HL}, k={K}, AMP):")
     stepper = type(trainer)(trainer.model, trainer.config, run_dir=work / "lgstep")
@@ -2487,7 +2527,10 @@ def main() -> int:
             "batch": BL,
         })
         check(kernels[-1]["launches"] > 0, f"{name}: no launch on the whisper-large path")
-    kernels[-2]["workspace_bytes_ms"] = ltimes["fused_topk_encode_blocked"]["workspace_bytes_ms"]
+    kernels[-2]["sources"] = [BLOCKED_SOURCE, GEMM_SOURCE]
+    kernels[-2].update({k_: ltimes["fused_topk_encode_blocked"][k_] for k_ in (
+        "workspace_bytes_ms", "split_ms", "encode_tflops", "select_passes_mean",
+        "select_passes_max")})
     log(f"  whisper-large slice: {json.dumps({'step': ltimes['step'], 'losses': path12['losses'], 'train_s': path12['train_s']})}")
 
     lg_cli_b = min(LG_CLIPS, train_mod.EXTRACT_BATCH)
@@ -2534,7 +2577,7 @@ def main() -> int:
         "through the launcher")
     wide18 = wide_coder_path(work, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_topk, topk)
     log(f"  out of core and wide coders: {json.dumps({'ooc': ooc, 'wide': wide18})}")
-    log(f"  rows selecting differently from the plain version (phases 1 and 8): "
+    log(f"  rows selecting differently from the plain version (phases 1, 8 and 11): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
     print(json.dumps({"kernels": kernels}))

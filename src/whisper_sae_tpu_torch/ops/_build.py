@@ -56,6 +56,7 @@ _SIGNATURES = {
     "wst_max_wide_row_width": ([], _I),
     "wst_topk_mask_wide_fwd": ([_P, _P, _I, _I, _I, _P], _I),
     "wst_blocked_chunk_rows": ([], _I),
+    "wst_blocked_workspace_bytes": ([_I, _I, _I], _L),  # rows, d, h
     "wst_blocked_encode_fwd": (
         [_P, _I, _I, _I, _I, _I,          # x, x_bf16, rows, d, h, k
          _P, _P, _P, _P, _I, _P, _P],     # w_enc_t, b_enc, b_pre, out, out_f32, ws, stream

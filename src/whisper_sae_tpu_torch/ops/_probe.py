@@ -1,10 +1,11 @@
 """What the card probes (``gemm_probe``, ``sae_probe``, ``coder_probe``)
-share: a call's time between CUDA events and the card's name and power
-limit."""
+share: a call's time between CUDA events, a training step's wall time and
+the card's name and power limit."""
 
 from __future__ import annotations
 
 import subprocess
+import time
 
 import torch
 
@@ -30,3 +31,13 @@ def card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     return out.splitlines()[0] if out else "nvidia-smi: no card listed"
+
+
+def step_ms(trainer, rows: torch.Tensor, steps: int, epochs: int = 1) -> float:
+    """Wall ms a step over ``epochs`` epochs of ``rows`` (``steps`` batches
+    each), after a warm epoch; each epoch ends with its one metrics fetch."""
+    trainer.train_epoch_fused(rows, shuffle=False)
+    t0 = time.perf_counter()
+    for _ in range(epochs):
+        trainer.train_epoch_fused(rows, shuffle=False)
+    return 1e3 * (time.perf_counter() - t0) / (steps * epochs)

@@ -29,7 +29,7 @@ import time
 import torch
 
 from . import _build, _probe, cuda_coder
-from ._probe import time_ms
+from ._probe import step_ms, time_ms
 from ..config import SAEConfig, TrainingConfig
 from ..models.crosscoder import create_crosscoder
 from ..models.sae import create_sae
@@ -58,16 +58,6 @@ def _host_us(fn, calls: int = 50) -> float:
     us = 1e6 * (time.perf_counter() - t0) / calls
     torch.cuda.synchronize()
     return us
-
-
-def _step_ms(trainer, rows: torch.Tensor, steps: int, epochs: int = 1) -> float:
-    """Wall ms a step over ``epochs`` epochs of ``rows`` (``steps`` batches
-    each), after a warm epoch; each epoch ends with its one metrics fetch."""
-    trainer.train_epoch_fused(rows, shuffle=False)
-    t0 = time.perf_counter()
-    for _ in range(epochs):
-        trainer.train_epoch_fused(rows, shuffle=False)
-    return 1e3 * (time.perf_counter() - t0) / (steps * epochs)
 
 
 def main() -> None:
@@ -100,14 +90,14 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as runs:
         sae = create_sae(SAEConfig(activation="relu"), D, device=dev)
         cfg = TrainingConfig(batch_size=128, warmup_steps=10, use_amp=True)
-        res["relu_sae_step_128"] = _step_ms(SAETrainer(sae, cfg, run_dir=f"{runs}/sae"),
+        res["relu_sae_step_128"] = step_ms(SAETrainer(sae, cfg, run_dir=f"{runs}/sae"),
                                             torch.randn(200 * 128, D, generator=g, device=dev),
                                             200, epochs=3)
         for b, steps in ((4096, 20), (32768, 6)):
             cfg = TrainingConfig(batch_size=b, warmup_steps=10, use_amp=True)
             xc = CrosscoderTrainer(create_crosscoder(D, 4, H, use_topk=False, device=dev), cfg,
                                    run_dir=f"{runs}/cc{b}")
-            res[f"relu_crosscoder_step_{b}"] = _step_ms(
+            res[f"relu_crosscoder_step_{b}"] = step_ms(
                 xc, torch.randn(steps * b, 4, D, generator=g, device=dev), steps)
             del xc
     print(json.dumps(res), flush=True)

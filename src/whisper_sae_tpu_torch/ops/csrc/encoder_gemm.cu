@@ -11,7 +11,9 @@
 //   is the MLP block's fc1 with its bias and GELU;
 // gemm_kernel<kPre>       ("wst_enc_gemm_fwd", epi 3)
 //   is the TopK SAE's encode, pre = xc . W_enc + b_enc in f32, the second
-//   of kernel A's four launches (sae_kernels.cu);
+//   of kernel A's four launches (sae_kernels.cu); gemm_cols_kernel<kPre>,
+//   the same with the column tiles outer, is the second of the blocked
+//   encode's three launches a chunk (blocked_encode.cu);
 // gemm_kernel<kRelu>      ("wst_coder_gemm_fwd", epi 4)
 //   is the ReLU coder modes' encode, hid = bf16(relu(xc . W_enc + b_enc))
 //   with the per-feature sums and l0, and
@@ -95,7 +97,15 @@
 //   flight while the next stage's is issued, and a stage is released as
 //   soon as the group that read it has completed.
 // - A persistent grid walks the output tiles, N fastest, so the CTAs in
-//   flight share A's row tiles in L2.  The q/k/v product runs in clusters
+//   flight share A's row tiles in L2.  Where B is larger than the L2 and
+//   than A (kPre in the blocked encode, blocked_encode.cu: W_enc^T is 105
+//   MB at whisper-large 32x) gemm_cols_kernel walks M fastest instead, so
+//   that the CTAs in flight share B's column tiles, every row tile of A
+//   stays in L2 and B streams from device memory once, not once a row
+//   tile; each output is one CTA's fixed K chain either way, so the order
+//   changes no bits.  The order is a template argument, not a run-time
+//   one: read at run time it cost the other launches 1-4% on the card
+//   (PERF.md).  The q/k/v product runs in clusters
 //   of two CTAs that take the same column tile of two row tiles: each
 //   producer loads its own A tile and half of the B tile, multicast into
 //   both CTAs, so L2 serves 3/4 of the bytes; a stage is refilled once the
@@ -144,6 +154,7 @@ constexpr int kConsumers = 2;    // consumer warpgroups a CTA
 constexpr int kThreads = kConsumers * 128 + 32;  // + one producer warp
 constexpr int kAlign = 128;      // N and K must be multiples of this
 constexpr int kMaxDevices = 64;  // devices whose launch setup is kept
+constexpr long long kL2Bytes = 50ll << 20;  // the H100's L2 cache
 constexpr uint32_t kStageBytes = (kBM + kBN) * kBK * sizeof(bf16_t);
 constexpr uint32_t kTileBytes = kBM * kBN * sizeof(bf16_t);
 
@@ -240,19 +251,22 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
 // warp (256 .. 287).  CLUSTER CTAs (2 for kQkv, else 1) form a
 // cluster that walks the cluster tiles c = clusterid, + nclusterid, ...:
 // CTA ``rank`` of the cluster takes the output tile of row tile CLUSTER
-// (c / n_tiles) + rank and column tile c % n_tiles.
+// (c / n_tiles) + rank and column tile c % n_tiles, or with COLS (column
+// tiles outer) row tile CLUSTER (c % m_ctiles) + rank and column tile c /
+// m_ctiles (m_ctiles: the cluster row tiles).  gemm_kernel<EPI> runs it
+// rows outer, gemm_cols_kernel<EPI> columns outer: two entries, so that
+// the order costs the launches that keep rows outer nothing.
 // Accumulator layout (wgmma m64n128, f32): thread (warp w of the
 // warpgroup, lane l) holds rows 16w + l/4 and 16w + l/4 + 8, columns 8j +
 // 2(l%4) + {0, 1} in d[4j + {0, 1}] and d[4j + {2, 3}].
 // The output tile (and the residual tile) lie in shared memory as TMA
 // writes them: 64-column boxes of 128-byte rows whose 16-byte chunks are
 // swizzled by the row (chunk c of row r at c ^ (r % 8)).
-template <int EPI>
-__global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
-    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-    const __grid_constant__ CUtensorMap map_o0, const __grid_constant__ CUtensorMap map_o1,
-    const __grid_constant__ CUtensorMap map_o2, const __grid_constant__ CUtensorMap map_res,
-    long long m, int n, int k, const Epilogue ep) {
+template <int EPI, bool COLS>
+__device__ __forceinline__ void gemm_tiles(const CUtensorMap& map_a, const CUtensorMap& map_b,
+                                           const CUtensorMap& map_o0, const CUtensorMap& map_o1,
+                                           const CUtensorMap& map_o2, const CUtensorMap& map_res,
+                                           long long m, int n, int k, const Epilogue& ep) {
   using Smem = GemmSmem<EPI>;
   constexpr int STAGES = Smem::S;
   constexpr int CLUSTER = Cluster<EPI>::value;
@@ -267,10 +281,15 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
   const long long stride = CLUSTER > 1 ? cluster_count_x() : gridDim.x;
   const int n_tiles = (n + kBN - 1) / kBN;
   const long long m_tiles = (m + kBM - 1) / kBM;
-  const long long tiles = (m_tiles + CLUSTER - 1) / CLUSTER * n_tiles;  // cluster tiles
+  const long long m_ctiles = (m_tiles + CLUSTER - 1) / CLUSTER;
+  const long long tiles = m_ctiles * n_tiles;  // cluster tiles
   const int kblocks = (k + kBK - 1) / kBK;
-  auto tile_rows = [&](long long tile) { return (tile / n_tiles * CLUSTER + rank) * kBM; };
-  auto tile_col = [&](long long tile) { return (int)(tile % n_tiles) * kBN; };
+  auto tile_rows = [&](long long tile) {
+    return ((COLS ? tile % m_ctiles : tile / n_tiles) * CLUSTER + rank) * kBM;
+  };
+  auto tile_col = [&](long long tile) {
+    return (int)(COLS ? tile / m_ctiles : tile % n_tiles) * kBN;
+  };
 
   if (tid == 0) {
 #pragma unroll
@@ -532,6 +551,26 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(
   if (CLUSTER > 1) cluster_sync();
 }
 
+#define WST_GEMM_PARAMS                                                                     \
+  const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,     \
+      const __grid_constant__ CUtensorMap map_o0, const __grid_constant__ CUtensorMap map_o1, \
+      const __grid_constant__ CUtensorMap map_o2, const __grid_constant__ CUtensorMap map_res, \
+      long long m, int n, int k, const Epilogue ep
+
+// Row tiles outer: every launch but the blocked encode's product.
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, 1) gemm_kernel(WST_GEMM_PARAMS) {
+  gemm_tiles<EPI, false>(map_a, map_b, map_o0, map_o1, map_o2, map_res, m, n, k, ep);
+}
+
+// Column tiles outer, for a B larger than the L2 and than A (see the note
+// at the top; launch_gemm decides).
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, 1) gemm_cols_kernel(WST_GEMM_PARAMS) {
+  gemm_tiles<EPI, true>(map_a, map_b, map_o0, map_o1, map_o2, map_res, m, n, k, ep);
+}
+#undef WST_GEMM_PARAMS
+
 // [rows, cols] bf16 row-major as a 2-D map (innermost first: cols, rows),
 // boxes of 64 columns x box_rows rows, 128-byte swizzle, zeros out of bounds.
 int make_map(CUtensorMap* map, const void* ptr, long long rows, int cols, int box_rows) {
@@ -548,10 +587,11 @@ int make_map(CUtensorMap* map, const void* ptr, long long rows, int cols, int bo
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The clusters that fit on each device, by epilogue, 0 until the first
-// launch there.  File-local: a function-local static of a template would
-// be one object across every loaded copy of the library.
-static int g_fits[kEpilogues][kMaxDevices];
+// The clusters that fit on each device, by epilogue (and one slot for
+// gemm_cols_kernel<kPre>), 0 until the first launch there.  File-local: a
+// function-local static of a template would be one object across every
+// loaded copy of the library.
+static int g_fits[kEpilogues + 1][kMaxDevices];
 
 // outs: q, k, v ([m, d] each) for kQkv; for kResidual out ([m, n]), then
 // aux ([m, n], or out again when ep.aux is 0), out; its residual ``res``
@@ -562,6 +602,16 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
                 const void* res, const Epilogue& ep, cudaStream_t stream) {
   constexpr int CLUSTER = Cluster<EPI>::value;
   auto kernel = gemm_kernel<EPI>;
+  int* fits = g_fits[EPI];
+  // the tile order (see the note at the top): column tiles outer only
+  // where B is larger than the L2 and than A, which only kPre's blocked
+  // encode meets (kResid's partials are indexed by tile in row order)
+  if constexpr (EPI == kPre) {
+    if (n > m && (long long)n * k * (long long)sizeof(bf16_t) > kL2Bytes) {
+      kernel = gemm_cols_kernel<EPI>;
+      fits = g_fits[kEpilogues];
+    }
+  }
   const int out_cols = EPI == kQkv ? ep.d : n;
   CUtensorMap ma, mb, mo[3], mr;
   int err = make_map(&ma, a, m, k, kBM);
@@ -593,7 +643,6 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
   // persistent: as many clusters as fit on the card at once, at most one
   // a cluster tile; the attribute and the count are set up once a device
   // (the launch is on the host's path between every two layers)
-  int* fits = g_fits[EPI];
   int dev = 0;
   err = (int)cudaGetDevice(&dev);
   if (err) return err;

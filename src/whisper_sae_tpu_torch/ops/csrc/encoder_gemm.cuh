@@ -1,6 +1,7 @@
 // The encoder GEMM's C entries (encoder_gemm.cu) and its epilogue codes,
 // for the sources that launch it (encoder_kernels.cu: the MLP block;
-// sae_kernels.cu: kernel A's encode; coder_kernels.cu: the ReLU coder
+// sae_kernels.cu: kernel A's encode; blocked_encode.cu: the large-H
+// encode's product; coder_kernels.cu: the ReLU coder
 // modes' encode and decode), and
 // the element functions both sources' epilogues share: the bf16 reads and
 // packing, and the exact erff GELU of the Pallas kernels.

@@ -420,6 +420,16 @@ int wst_max_d() { return wst::kMaxD; }
 // Rows a CTA of kernel A's row kernel takes: one loss partial each.
 int wst_rows_per_cta() { return wst::kSelWarps; }
 
+// xc[r, :] = bf16(x[row_offset + r, :] - b_pre) for r < rows (xc [rows,
+// d] bf16): kernel A's first launch, and the blocked encode's first a
+// chunk (blocked_encode.cu).
+int wst_sae_centre_fwd(const void* x, int x_bf16, long long row_offset, int rows, int d,
+                       const void* b_pre, void* xc, void* stream) {
+  wst::sae_centre_kernel<<<rows, wst::kCentreThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, x_bf16, row_offset, d, static_cast<const float*>(b_pre), static_cast<unsigned short*>(xc));
+  return (int)cudaGetLastError();
+}
+
 // Kernel A: centre, encode (the GEMM's kPre epilogue into ``pre``, an
 // f32 [rows, h] workspace), select and decode, then the fixed-order
 // finalize into the scalars loss and l0.
@@ -432,9 +442,7 @@ int wst_sae_fused_loss_fwd(const void* x, int x_bf16, long long row_offset, int 
       h > wst::kMaxRow || k < 1 || k > h)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  wst::sae_centre_kernel<<<rows, wst::kCentreThreads, 0, s>>>(
-      x, x_bf16, row_offset, d, static_cast<const float*>(b_pre), static_cast<unsigned short*>(xc));
-  int err = (int)cudaGetLastError();
+  int err = wst_sae_centre_fwd(x, x_bf16, row_offset, rows, d, b_pre, xc, stream);
   if (err) return err;
   err = wst_enc_gemm_fwd(wst_gemm::kPre, xc, w_enc_t, rows, h, d, b_enc, 1.0f, 0, pre, nullptr,
                          nullptr, nullptr, stream);

@@ -24,8 +24,10 @@ hidden in bf16 or f32.
 The blocked encode, ``blocked_encode_fwd`` (``csrc/blocked_encode.cu``),
 replaces ``_encode_forward_blocked`` (:1392), the branch of
 ``fused_topk_encode`` for geometries whose weights do not fit on chip:
-a tiled encode product into an int32 workspace, then one CTA per row for
-the bisection.  Kernels A and B hold a row of pre in one warp's
+per chunk of rows three launches, the centre, the encoder GEMM's kPre
+epilogue into an f32 workspace (W_enc streamed once a chunk) and one CTA
+per row for the threshold and the latent (:func:`blocked_route_plain`
+writes the route out).  Kernels A and B hold a row of pre in one warp's
 registers and kernel A's decode keeps D/32 sums a lane, so they take
 D % 32 == 0, D <= 384 and H <= 3072 (:func:`fused_loss_supported`);
 every other geometry takes the blocked encode (:func:`uses_blocked`),
@@ -53,7 +55,7 @@ import torch
 
 from ..utils.device import mm_f32
 from . import _build
-from .topk import plain_calls, topk_mask_plain
+from .topk import cta_threshold, plain_calls, topk_mask_plain
 
 
 def fused_loss_supported(d: int, h: int) -> bool:
@@ -270,9 +272,25 @@ def _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
     return hidden
 
 
+def blocked_route_plain(x, we_t, b_enc, b_pre, k, out_dtype, chunk):
+    """The blocked encode's route written out in plain PyTorch, for the
+    tests: per chunk of ``chunk`` rows the centred bf16 rows, pre = their
+    f32 product with W_enc plus b_enc (the kPre GEMM), the select's pass
+    loop stopping at a count of exactly k (:func:`ops.topk.cta_threshold`),
+    and the masked relu in ``out_dtype``."""
+    out = torch.empty((x.shape[0], we_t.shape[0]), dtype=out_dtype, device=x.device)
+    for r0 in range(0, x.shape[0], chunk):
+        xc = (x[r0:r0 + chunk].float() - b_pre).bfloat16()
+        pre = mm_f32(xc, we_t.t()) + b_enc
+        xi, th, _ = cta_threshold(pre, k)
+        out[r0:r0 + chunk] = torch.where(xi >= th, torch.relu(pre),
+                                         torch.zeros((), device=pre.device)).to(out_dtype)
+    return out
+
+
 def _blocked_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
-    """The blocked encode (CUDA only): a workspace of at most
-    ``wst_blocked_chunk_rows()`` rows of int32 pre, reused chunk by chunk."""
+    """The blocked encode (CUDA only), chunk by chunk through one workspace
+    (a chunk's f32 pre and centred bf16 rows), allocated once a call."""
     h, d = we_t.shape
     lib = _build.load_library()
     _check_rows(x, d, h, k)
@@ -284,13 +302,13 @@ def _blocked_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
     dev = x.device
     _check_operands(dev, w_enc_t=(we_t, torch.bfloat16, (h, d)),
                     b_enc=(b_enc, torch.float32, (h,)), b_pre=(b_pre, torch.float32, (d,)))
-    for name, t in (("rows", x), ("b_pre", b_pre)):  # read as 16-byte vectors
-        if t.data_ptr() % 16:
-            raise ValueError(f"blocked_encode_fwd: {name} must be 16-byte aligned")
+    if we_t.data_ptr() % 16:  # read by TMA
+        raise ValueError("blocked_encode_fwd: w_enc_t must be 16-byte aligned")
     rows = x.shape[0]
     hidden = torch.empty((rows, h), dtype=out_dtype, device=dev)
     if rows:
-        ws = torch.empty((min(rows, lib.wst_blocked_chunk_rows()), h), dtype=torch.int32, device=dev)
+        ws = torch.empty((lib.wst_blocked_workspace_bytes(rows, d, h),), dtype=torch.uint8,
+                         device=dev)
         err = lib.wst_blocked_encode_fwd(
             x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d, h, k,
             we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(), hidden.data_ptr(),

@@ -9,8 +9,9 @@ bisection passes, so ``pre`` is read from device memory once.  Rows
 wider than a warp's registers (H > 3072; the TPU kernel takes H = 40960
 in 32-row blocks, ``pallas_topk.py:89-113``) go to its wide form,
 ``topk_mask_wide_kernel``: one CTA of 512 threads per row, up to H =
-40960 in registers, the same 32 passes with the counts summed across
-the CTA in int32, so the mask is bit-identical to the plain version.
+40960 in registers, the same passes with the counts summed across the
+CTA in int32, stopping at the first count of exactly k, so the mask is
+bit-identical to the plain version.
 Bound on the H100: bytes, 8*B*H (one f32 read, one f32 write).
 
 The backward is ``g * [hidden > 0]`` (``pallas_topk.py:81-83``).

@@ -1,10 +1,16 @@
-"""Kernels A, B and C timed alone on the card, for comparing two trees.
+"""Kernels A, B and C and the blocked encode timed alone on the card, for
+comparing two trees.
 
 Times ``cuda_sae._fused_loss_launch`` (kernel A, sliced), kernel B's
 ``_topk_encode_launch`` (bf16 latent) and kernel C's ``topk_mask_fwd`` at
 whisper-tiny's width (D=384, H=3072, k=32) on 128, 4096 and 32768 rows of
 seeded gaussian data, each over 20 launches between CUDA events after 3
-warm ones.  The kernels are those of the package found on the import
+warm ones; then, at whisper-large 32x (D=1280, H=40960, k=32, 8192 rows),
+the blocked encode (``_blocked_encode_launch``, bf16 latent) and kernel
+C's wide form (``topk_mask_fwd`` on an f32 [8192, 40960] pre) over 10
+launches after 2 warm ones, and the wall time of a TopK-SAE training step
+there (AMP, batch 8192, 2 epochs of 3 steps after a warm one).  The
+kernels are those of the package found on the import
 path, built from its own sources, so the same command run with another
 tree's ``src`` first on ``PYTHONPATH`` times that tree: run the two in
 turns (parent, change, change, parent) in one call to compare them on
@@ -17,14 +23,20 @@ Needs one H100; from the repository root:
 from __future__ import annotations
 
 import json
+import tempfile
 
 import torch
 
 from . import _build, _probe, cuda_sae, cuda_topk
-from ._probe import time_ms
+from ._probe import step_ms, time_ms
+from ..config import SAEConfig, TrainingConfig
+from ..models.sae import create_sae
+from ..training.trainer import SAETrainer
 
 D, H, K = 384, 3072, 32
 ROWS = (128, 4096, 32768)
+DL, HL, BL = 1280, 40960, 8192  # whisper-large 32x at bench.py's batch
+LARGE_STEPS = 3
 
 
 def main() -> None:
@@ -51,6 +63,28 @@ def main() -> None:
                 x, we_t, b_enc, b_pre, K, torch.bfloat16)),
             "topk_mask": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K)),
         }
+    del x, pre
+
+    gl = torch.Generator(device=dev).manual_seed(1)
+    w_enc = torch.randn(DL, HL, generator=gl, device=dev) * 0.05
+    b_enc, b_pre = (torch.randn(HL, generator=gl, device=dev) * 0.05,
+                    torch.randn(DL, generator=gl, device=dev) * 0.05)
+    x = torch.randn(BL, DL, generator=gl, device=dev)
+    we_t = cuda_sae._bf16_t(w_enc)
+    pre = (torch.matmul((x - b_pre).bfloat16().float(), w_enc.bfloat16().float()) + b_enc)
+    res[f"whisper_large_32x_{BL}"] = {
+        "fused_topk_encode_blocked": time_ms(lambda: cuda_sae._blocked_encode_launch(
+            x, we_t, b_enc, b_pre, K, torch.bfloat16), iters=10, warmup=2),
+        "topk_mask_wide": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K), iters=10, warmup=2),
+    }
+    del w_enc, we_t, x, pre
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as runs:
+        sae = create_sae(SAEConfig(expansion_factor=HL // DL, k=K), DL, device=dev)
+        cfg = TrainingConfig(batch_size=BL, warmup_steps=2, use_amp=True)
+        rows = torch.randn(LARGE_STEPS * BL, DL, generator=gl, device=dev)
+        res[f"whisper_large_32x_{BL}"]["step"] = step_ms(
+            SAETrainer(sae, cfg, run_dir=f"{runs}/large"), rows, LARGE_STEPS, epochs=2)
     print(json.dumps(res), flush=True)
 
 

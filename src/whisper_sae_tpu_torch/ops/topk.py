@@ -48,6 +48,39 @@ def topk_threshold(pre: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     return x, lo
 
 
+def cta_threshold(pre: torch.Tensor, k: int, threads: int = 512,
+                  warp: int = 32) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' CTA-per-row select (``csrc/topk_common.cuh:
+    cta_kth_largest``) on each row of a 2-D ``pre``, transcribed: thread t
+    holds elements j*threads + t (INT_MIN past the row), each pass counts
+    per thread, sums each warp's lanes, then the warps, and a row leaves
+    the loop at the first pass whose total is exactly k, else after 32
+    passes at ``lo``.  -> (x, th [rows, 1], passes [rows]).  Any threshold
+    in (v_{k+1}, v_k] selects what :func:`topk_threshold`'s does."""
+    x = _monotone_int(pre)
+    rows, h = x.shape
+    slots = torch.full((rows, -(-h // threads) * threads), -2147483648, dtype=torch.int32,
+                       device=pre.device)
+    slots[:, :h] = x
+    slots = slots.view(rows, -1, threads // warp, warp)  # [row, j, warp, lane]
+    lo = torch.full((rows,), -2147483647, dtype=torch.int32, device=pre.device)
+    hi = torch.full_like(lo, 2147483647)
+    th, passes = lo.clone(), torch.zeros_like(lo)
+    done = torch.zeros(rows, dtype=torch.bool, device=pre.device)
+    for _ in range(32):
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        per_thread = (slots >= mid[:, None, None, None]).sum(dim=1)  # [row, warp, lane]
+        total = per_thread.sum(dim=2).sum(dim=1)  # each warp's sum, then the CTA's
+        live = ~done
+        passes += live.int()
+        hit = live & (total == k)
+        th = torch.where(hit, mid, th)
+        lo = torch.where(live & (total > k), mid, lo)
+        hi = torch.where(live & (total < k), mid, hi)
+        done |= hit
+    return x, torch.where(done, th, lo)[:, None], passes
+
+
 def topk_mask_plain(pre: torch.Tensor, k: int) -> torch.Tensor:
     """relu(pre) where pre is among the row's k largest, else 0."""
     x, th = topk_threshold(pre, k)

@@ -114,6 +114,38 @@ def test_fused_loss_kernel_matches_plain(dev, offset, rows, n, x_dtype):
     torch.testing.assert_close(resid[ok], want[4][ok], rtol=0, atol=1e-2)
 
 
+def _pre_gemm(xc, we_t, b_enc, out):
+    """``wst_enc_gemm_fwd`` with the kPre epilogue: out = xc . we_t^T + b_enc."""
+    rows, d = xc.shape
+    assert _build.load_library().wst_enc_gemm_fwd(
+        3, xc.data_ptr(), we_t.data_ptr(), rows, we_t.shape[0], d, b_enc.data_ptr(), 1.0, 0,
+        out.data_ptr(), None, None, None, torch.cuda.current_stream().cuda_stream) == 0
+
+
+def _check_pre_gemm(dev, d, h, rows):
+    """The kPre GEMM against the f32 product of the same bf16 operands plus
+    the bias; every element written, none past the end, two launches
+    bit-identical.  Returns the operands and the output."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    g = torch.Generator().manual_seed(d + rows)
+    xc = torch.randn(rows, d, generator=g).to(dev).bfloat16()
+    we_t = (torch.randn(h, d, generator=g) * 0.05).to(dev).bfloat16()
+    b_enc = (torch.randn(h, generator=g) * 0.05).to(dev)
+    buf = torch.full((rows * h + 4096,), float("nan"), device=dev)
+    pre = buf[:rows * h].view(rows, h)
+    _pre_gemm(xc, we_t, b_enc, pre)
+    torch.cuda.synchronize()
+    want = mm_f32(xc, we_t.t()) + b_enc
+    torch.testing.assert_close(pre, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+    assert bool(buf[rows * h:].isnan().all())
+    del want
+    again = torch.empty_like(pre)
+    _pre_gemm(xc, we_t, b_enc, again)
+    assert torch.equal(pre, again)
+    return xc, we_t, b_enc, pre
+
+
 @pytest.mark.parametrize("rows", [100, 4096])
 @pytest.mark.parametrize("d,h", [(384, 3072), (96, 352)])
 def test_encode_pre_gemm_matches_f32_product(dev, d, h, rows):
@@ -123,26 +155,7 @@ def test_encode_pre_gemm_matches_f32_product(dev, d, h, rows):
     of 64, N not a multiple of 128); every element is written, none past
     the end.  atol 1e-4 of the largest value: f32 sums of exact products
     in another order."""
-    from whisper_sae_tpu_torch.utils.device import mm_f32
-
-    lib = _build.load_library()
-    g = torch.Generator().manual_seed(d + rows)
-    xc = torch.randn(rows, d, generator=g).to(dev).bfloat16()
-    we_t = (torch.randn(h, d, generator=g) * 0.05).to(dev).bfloat16()
-    b_enc = (torch.randn(h, generator=g) * 0.05).to(dev)
-    buf = torch.full((rows * h + 4096,), float("nan"), device=dev)
-    pre = buf[:rows * h].view(rows, h)
-    st = torch.cuda.current_stream().cuda_stream
-    assert lib.wst_enc_gemm_fwd(3, xc.data_ptr(), we_t.data_ptr(), rows, h, d, b_enc.data_ptr(),
-                                1.0, 0, pre.data_ptr(), None, None, None, st) == 0
-    torch.cuda.synchronize()
-    want = mm_f32(xc, we_t.t()) + b_enc
-    torch.testing.assert_close(pre, want, rtol=0, atol=1e-4 * float(want.abs().max()))
-    assert bool(buf[rows * h:].isnan().all())
-    again = torch.empty_like(pre)
-    assert lib.wst_enc_gemm_fwd(3, xc.data_ptr(), we_t.data_ptr(), rows, h, d, b_enc.data_ptr(),
-                                1.0, 0, again.data_ptr(), None, None, None, st) == 0
-    assert torch.equal(pre, again)
+    _check_pre_gemm(dev, d, h, rows)
 
 
 @pytest.mark.parametrize("k", [1, 32])
@@ -289,6 +302,21 @@ def test_gate_constants_match_the_library(dev):
         lib.wst_max_d(), lib.wst_max_row_width(), lib.wst_max_wide_row_width())
 
 
+def test_blocked_product_gemm_matches_f32_product(dev):
+    """The blocked encode's product, one chunk: the kPre GEMM at [2048 x
+    1280] . [40960 x 1280]^T, where W_enc^T (105 MB) is larger than the L2
+    and than A, so the GEMM walks its column tiles first, at the bar of
+    test_encode_pre_gemm_matches_f32_product.  The order changes no bits:
+    the same rows as the first 2048 of 41,088 (more rows than columns:
+    ``gemm_kernel``, row tiles first) give the same values."""
+    xc, we_t, b_enc, pre = _check_pre_gemm(dev, DL, HL, 2048)
+    tall = torch.cat([xc, torch.randn(HL + 128 - 2048, DL, device=dev).bfloat16()])
+    out = torch.empty(tall.shape[0], HL, device=dev)
+    _pre_gemm(tall, we_t, b_enc, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:2048], pre)
+
+
 @pytest.mark.parametrize("h", [3104, 4096, 10000, HL])
 def test_topk_mask_wide_kernel_exact(dev, h):
     pre = torch.randn(64, h, generator=torch.Generator().manual_seed(h)).to(dev)
@@ -318,6 +346,37 @@ def test_blocked_encode_matches_plain(dev, d, h, rows, x_dtype, out_dtype):
     ok = ((got > 0) == (want > 0)).all(dim=1)
     torch.testing.assert_close(got[ok].float(), want[ok].float(), rtol=0,
                                atol=1e-2 * float(want.float().abs().max()))
+
+
+def test_blocked_encode_is_three_launches_a_chunk(dev):
+    """A call counts one launch on its wrapper and is, for each chunk of
+    ``wst_blocked_chunk_rows()`` rows, the centre (kernel A's
+    ``sae_centre_kernel``), the kPre GEMM (at whisper-large 32x its
+    column-tiles-first entry, ``gemm_cols_kernel``) and the CTA select on
+    the card; the mma.sync product of the first
+    version (``encode_gemm_kernel``) is gone.  Counted over 4 profiled
+    calls of 4200 rows (3 chunks), allowing the profiler to miss one
+    kernel a call (it has missed a C call's first kernel now and then)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls, rows = 4, 4200
+    chunks = -(-rows // _build.load_library().wst_blocked_chunk_rows())
+    p, x = _params(30, d=DL, h=HL), _rows(31, rows, d=DL)
+    cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
+    torch.cuda.synchronize()
+    before = cuda_sae.fused_topk_encode.blocked_launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
+        torch.cuda.synchronize()
+    assert cuda_sae.fused_topk_encode.blocked_launches - before == calls
+    keys = [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type == DeviceType.CUDA]
+    for name in ("sae_centre_kernel", "gemm_cols_kernel<3>", "blocked_select_kernel"):
+        seen = sum(name in key for key in keys)
+        assert calls * (chunks - 1) <= seen <= calls * chunks, (name, seen, keys)
+    assert not any("encode_gemm_kernel" in key or "gemm_kernel<" in key for key in keys), keys
 
 
 def test_blocked_encode_deterministic(dev):

@@ -130,6 +130,44 @@ def test_blocked_encode_matches_pallas_interpret(rows, x_dtype, out):
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+@pytest.mark.parametrize("rows", [24, 20])
+@pytest.mark.parametrize("d,h", [(128, 4096), (96, 4160)])
+def test_blocked_route_matches_plain_and_pallas_interpret(d, h, rows, out):
+    """The card's route written out (``blocked_route_plain``: chunks of 8
+    rows, here 3 full ones or 2 and a ragged 4; the kPre product; the CTA
+    select stopping at a count of exactly k) against kernel B's plain
+    version, the mask identically, bf16 bit for bit, f32 at rtol 1e-6 (the
+    CPU's f32 product of 8 rows sums in another order than that of 20),
+    and against the JAX kernel at test_blocked_encode_matches_pallas_interpret's
+    bars."""
+    p, x = _sae_params(d + rows, d, h), _rows(d + rows + 1, rows, d)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if out == "bf16" else (jnp.float32, torch.float32)
+    we_t = cuda_sae._bf16_t(torch.from_numpy(p["w_enc"]))
+    args = (torch.from_numpy(x), we_t, torch.from_numpy(p["b_enc"]), torch.from_numpy(p["b_pre"]),
+            K, tdt)
+    got = cuda_sae.blocked_route_plain(*args, 8)
+    assert got.dtype == tdt and got.shape == (rows, h)
+    plain = cuda_sae.topk_encode_plain(*args)
+    assert torch.equal(got > 0, plain > 0)
+    if out == "bf16":
+        assert torch.equal(got, plain)
+    else:
+        torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6)
+    with pltpu.force_tpu_interpret_mode():
+        want = ps._encode_forward_blocked(
+            jnp.asarray(x), jnp.asarray(p["w_enc"]).astype(jnp.bfloat16), jnp.asarray(p["b_enc"]),
+            jnp.asarray(p["b_pre"]), K, 8, jdt)
+    want = np.asarray(want.astype(jnp.float32))
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got > 0, want > 0)
+    assert ((got > 0).sum(axis=1) == K).all()
+    if out == "bf16":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 def test_blocked_encode_grads_match_jax(jax_blocked):
     p, x = _sae_params(3), _rows(4, 24)
     g = np.random.default_rng(5).standard_normal((24, H)).astype(np.float32)

@@ -23,9 +23,9 @@ from whisper_sae_tpu_torch.ops.cuda_topk import topk_mask, topk_mask_fwd
 B, H = 64, 512
 
 
-def _pre(seed: int, ties: bool) -> np.ndarray:
+def _pre(seed: int, ties: bool, h: int = H) -> np.ndarray:
     rng = np.random.default_rng(seed)
-    pre = rng.standard_normal((B, H)).astype(np.float32)
+    pre = rng.standard_normal((B, h)).astype(np.float32)
     if ties:
         # coarse grid: every row has many exact ties at its threshold,
         # and some rows are all equal or all negative
@@ -116,26 +116,69 @@ def _warp_threshold(xi: np.ndarray, k: int) -> tuple[int, int]:
     return lo, 32
 
 
-@pytest.mark.parametrize("k", [1, 32, H])
-@pytest.mark.parametrize("ties", [False, True])
-def test_kernel_select_early_exit_bit_identical_to_jax(k, ties):
-    """The kernels' select stops at the first midpoint that counts exactly
-    k.  Its threshold may differ from the full bisection's, but any
-    threshold in (v_{k+1}, v_k] selects the same entries, and under a tie
-    at v_k no midpoint counts k: the mask is the JAX package's, bit for
-    bit, and on rows without ties the loop does stop early."""
-    pre = _pre(100 + k, ties)
+def _cta_threshold(xi: np.ndarray, k: int, threads: int = 512) -> tuple[int, int]:
+    """The pass loop of ``csrc/topk_common.cuh:cta_kth_largest`` on one
+    row, transcribed: thread t of the CTA's 512 holds elements j*512 + t
+    (INT_MIN past the row); each pass counts per thread, sums each warp's
+    32 lanes, then every thread sums the 16 warp counts, and the loop
+    stops at a total of exactly k.  -> (threshold, passes run)."""
+    slots = np.full(-(-xi.size // threads) * threads, np.iinfo(np.int32).min, np.int64)
+    slots[:xi.size] = xi
+    slots = slots.reshape(-1, threads // 32, 32)  # [j, warp, lane]
+    lo, hi = -2147483647, 2147483647
+    for p in range(32):
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        per_thread = (slots >= mid).sum(axis=0)  # [warp, lane]
+        total = int(per_thread.sum(axis=1).sum())  # each warp's sum, then the CTA's
+        if total == k:
+            return mid, p + 1
+        if total > k:
+            lo = mid
+        else:
+            hi = mid
+    return lo, 32
+
+
+WIDE_H = 40960  # whisper-large 32x: the CTA-per-row form
+SELECT_CASES = [pytest.param(_warp_threshold, H, k, ties, id=f"{ties}-{k}")
+                for k in (1, 32, H) for ties in (False, True)] + [
+               pytest.param(_cta_threshold, WIDE_H, k, ties, id=f"cta-{ties}-{k}")
+               for k in (1, 32, WIDE_H) for ties in (False, True)]
+
+
+@pytest.mark.parametrize("select,h,k,ties", SELECT_CASES)
+def test_kernel_select_early_exit_bit_identical_to_jax(select, h, k, ties):
+    """The kernels' select, in its warp form (a row of H = 512 in one
+    warp) and its CTA form (H = 40960 across 512 threads), stops at the
+    first midpoint that counts exactly k.  Its threshold may differ from
+    the full bisection's, but any threshold in (v_{k+1}, v_k] selects the
+    same entries, and under a tie at v_k no midpoint counts k: the mask
+    is the JAX package's, bit for bit, and every row without ties leaves
+    the loop before its 32nd pass."""
+    pre = _pre(100 + k, ties, h)
     want = np.asarray(jtopk.topk_mask_dense(jnp.asarray(pre), k))
     xi = _monotone(pre)
     got = np.zeros_like(pre)
     passes = []
     for r in range(B):
-        th, n = _warp_threshold(xi[r], k)
+        th, n = select(xi[r], k)
         got[r] = np.where(xi[r] >= th, np.maximum(pre[r], 0.0), 0.0)
         passes.append(n)
     np.testing.assert_array_equal(_bits(got), _bits(want))
     if not ties:
-        assert min(passes) < 32
+        assert max(passes) < 32
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_cta_threshold_matches_the_pass_loop(ties):
+    """``ops.topk.cta_threshold`` (the select as the blocked route's plain
+    transcription and the smoke run's bound count it, rows at once) gives
+    each row the threshold and the pass count of the one-row loop above."""
+    pre = _pre(7, ties, WIDE_H)[:16]
+    x, th, passes = ttopk.cta_threshold(torch.from_numpy(pre), 32)
+    for r in range(pre.shape[0]):
+        assert (int(th[r, 0]), int(passes[r])) == _cta_threshold(_monotone(pre)[r], 32)
+    np.testing.assert_array_equal(x.numpy(), _monotone(pre))
 
 
 def test_cpu_dispatch_counts_no_launch():
