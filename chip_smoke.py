@@ -76,18 +76,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on its own line, and the launches of LN+QKV (LN1, the GEMM), the
    out-projection and the MLP block (LN2, fc1, fc2, the final LN), each
    timed alone, on one line a kernel.
-8. The coder kernel (``ops/csrc/coder_kernels.cu``; the ReLU modes' encode
-   and decode on ``encoder_gemm.cu``) at whisper-tiny width, B=4096, in
-   its five modes (Skip and TopK transcoder, ReLU SAE: D=384, H=3072,
-   k=32; TopK and ReLU crosscoder: L*D=1536, S=3072), sliced, at a row
-   offset into a larger buffer, on a 1,792-row remainder, on ragged
-   100- and 1,000-row windows at an offset (whose pad rows, with pre =
-   b_enc about half positive, must count nowhere) and at B=32768 (the
-   ReLU modes also at phase 9's batch of 128 rows, sliced and at a row
-   offset), against its plain version: TopK modes at kernel A's bars (with phase
-   1's print of each row that selects differently, its gap held to twice
-   the worst-case f32 sum-order error, as the row kernel's own pre is not
-   kept); ReLU modes with the latent within bf16 rounding (atol 1e-2 *
+8. The coder kernel (``ops/csrc/coder_kernels.cu``; the encodes, the
+   ReLU modes' decode and the Skip mode's skip product on
+   ``encoder_gemm.cu``) at whisper-tiny width, B=4096, in its five modes
+   (Skip and TopK transcoder, ReLU SAE: D=384, H=3072, k=32; TopK and
+   ReLU crosscoder: L*D=1536, S=3072), sliced, at a row offset into a
+   larger buffer, on a 1,792-row remainder, on ragged 100- and
+   1,000-row windows at an offset (whose pad rows, with pre = b_enc
+   about half positive, must count nowhere) and at B=32768 (the ReLU
+   modes also at phase 9's batch of 128 rows, sliced and at a row
+   offset), against its plain version: TopK modes at kernel A's bars
+   (with phase 1's print of each row that selects differently, its gap
+   held to twice the row's max |pre_card - pre_plain|: the TopK modes
+   select on exactly the kPre pre that phase 1's check recomputes);
+   ReLU modes with the latent within bf16 rounding (atol 1e-2 *
    max), sum(resid^2), the L1 and the hidden sums at rtol 1e-4, l0 at
    rel 1e-4 and ``active`` equal on >= 99.9% of features.  Gradients
    through each autograd.Function (sliced and windowed, 1024 rows)
@@ -113,10 +115,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
 10. Times of the coder slice: each mode at B=128, 4096 and 32768, sliced
     and at a row offset, beside its plain version, its bound and a library
     yardstick (the bf16 encode product, plus the dense decode product in
-    ReLU modes), in ReLU modes with each of the five launches' device time
-    under ``torch.profiler``; one training step of phase 9's ReLU SAE at
-    batch 128, and of the Skip transcoder and of the ReLU crosscoder at
-    batch 4096 and 32768, wall and device busy time.
+    ReLU modes), with each launch's device time under ``torch.profiler``
+    (ReLU modes: the cast, ``gemm_kernel<4>``, ``gemm_kernel<5>`` and the
+    two sums; TopK modes: the cast, the encode ``gemm_kernel<3>``, in Skip
+    mode the skip product -- a second ``gemm_kernel<3>``, told apart by
+    its place in the call -- ``coder_select_decode_kernel`` and the sum);
+    one training step of phase 9's ReLU SAE at batch 128, and of the Skip
+    transcoder, the ReLU crosscoder and the TopK crosscoder at batch 4096
+    and 32768, wall and device busy time.
 11. Whisper-large 32x (D=1280, H=40960, k=32; bench.py:83-112): the
     blocked encode (``ops/csrc/blocked_encode.cu``: per 2048-row chunk
     the centre, the kPre GEMM of ``encoder_gemm.cu`` and the CTA select)
@@ -226,6 +232,13 @@ A_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_kernel<3>",
 # the coder's ReLU modes' five launches, by the same names
 RELU_PARTS = {"cast": "coder_cast_kernel", "encode": "gemm_kernel<4>", "decode": "gemm_kernel<5>",
               "hsum": "coder_hsum_kernel", "sum": "coder_sum_kernel"}
+# the coder's TopK modes' four launches (five in Skip mode: the skip
+# product, a second gemm_kernel<3>, follows the encode)
+TOPK_PARTS = {"cast": "coder_cast_kernel", "encode": "gemm_kernel<3>",
+              "select_decode": "coder_select_decode_kernel", "sum": "coder_sum_kernel"}
+SKIP_PARTS = {"cast": "coder_cast_kernel", "encode": "gemm_kernel<3>",
+              "skip_product": "gemm_kernel<3>", "select_decode": "coder_select_decode_kernel",
+              "sum": "coder_sum_kernel"}
 N_ROWS = (1 << 18) + 64
 EPOCHS = 3
 RANK = 64
@@ -358,20 +371,17 @@ def agree(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a > 0) == (b > 0)).all(dim=1)
 
 
-def selection_gaps(xc, we_t, b_enc, got_hid, want_hid, k: int, what: str, own_pre: bool) -> list:
+def selection_gaps(xc, we_t, b_enc, got_hid, want_hid, k: int, what: str) -> list:
     """Each row whose selection differs from the plain version, with the
-    plain pre's gap between its k-th and (k+1)-th values, its k-th value,
-    the row's max |pre_card - pre_plain| (pre_card: the encode GEMM's kPre
-    epilogue on the same bf16 rows, which gives the same bits every launch)
-    and the worst-case f32 sum-order error of a pre, 2 * K * 2**-24 *
-    max_j sum_t |xc_t w_tj| (the float-sum bound, doubled for rounding in
-    both versions).  Two features can swap across the boundary only if
-    the gap is at most the two versions' errors on both, and a selected
-    value can change sign only if it is within them of 0.  ``own_pre``
-    (kernel A: it selects on exactly that pre) holds the gap to twice the
-    measured difference; else (the coder's TopK row kernel sums pre with
-    mma.sync in its own order) to twice the worst-case bound.  Fails on
-    any wider gap: the kernel, not the sum order, would be at fault."""
+    plain pre's gap between its k-th and (k+1)-th values, its k-th value
+    and the row's max |pre_card - pre_plain| (pre_card: the encode GEMM's
+    kPre epilogue on the same bf16 rows, which gives the same bits every
+    launch: the pre that kernel A, the coder's TopK modes and the blocked
+    encode select on).  Two features can swap across the boundary only if
+    the gap is at most the two versions' difference on both, and a
+    selected value can change sign only if it is within it of 0, so the
+    gap (or the k-th value) is held to twice the row's difference.  Fails
+    on any wider gap: the kernel, not the sum order, would be at fault."""
     from whisper_sae_tpu_torch.ops import _build
     from whisper_sae_tpu_torch.utils.device import mm_f32
 
@@ -389,16 +399,13 @@ def selection_gaps(xc, we_t, b_enc, got_hid, want_hid, k: int, what: str, own_pr
     top = torch.topk(pre_plain, k + 1, dim=1).values
     gap, kth = top[:, k - 1] - top[:, k], top[:, k - 1]
     diff = (pre_card[bad] - pre_plain).abs().max(dim=1).values
-    worst = 2 * d * 2.0**-24 * mm_f32(xc[bad].float().abs(), we_t.t().float().abs()).max(dim=1).values
     out = []
-    for r, g, v, df, w in zip(bad.tolist(), gap.tolist(), kth.tolist(), diff.tolist(),
-                              worst.tolist()):
-        limit = 2 * (df if own_pre else w)
+    for r, g, v, df in zip(bad.tolist(), gap.tolist(), kth.tolist(), diff.tolist()):
         log(f"    {what}: row {r} selects differently: gap {g:.4g} (k-th value {v:.4g}), "
-            f"max|pre_card - pre_plain| {df:.4g}, worst-case sum-order error {w:.4g}")
-        check(g <= limit or abs(v) <= limit,
-              f"{what}: row {r}'s gap {g:.4g} is wider than the sum order explains ({limit:.4g})")
-        out.append({"row": r, "gap": g, "kth": v, "max_pre_diff": df, "worst_case": w})
+            f"max|pre_card - pre_plain| {df:.4g}")
+        check(g <= 2 * df or abs(v) <= 2 * df,
+              f"{what}: row {r}'s gap {g:.4g} is wider than the sum order explains ({2 * df:.4g})")
+        out.append({"row": r, "gap": g, "kth": v, "max_pre_diff": df})
     return out
 
 
@@ -438,7 +445,7 @@ def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> None:
         share = float(ok.float().mean())
         check(share >= 0.999, f"{what} B={b}: selection agrees on {share:.4%} of rows")
         GAPS[f"{what} B={b}"] = selection_gaps(got[5], we_t, p["b_enc"], got[3], want[3], K,
-                                               f"{what} B={b}", own_pre=True)
+                                               f"{what} B={b}")
         rel = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
         check(rel <= 1e-4, f"{what} B={b}: loss rel err {rel:.3g} > 1e-4")
         hk, hp = got[3][ok] > 0, want[3][ok] > 0
@@ -653,9 +660,12 @@ def step_profile(trainer, rows, steps: int) -> dict:
 
 def launch_split(fn, parts: dict, calls: int = 10) -> dict:
     """Device ms per launch of each kernel of ``parts`` (part: profiler
-    name; each launches once a call of ``fn``: kernel A's four, the coder's
-    ReLU modes' five), from ``torch.profiler`` over ``calls`` calls (None
-    where the profiler saw no device time)."""
+    name, in the order a call of ``fn`` launches them: kernel A's four,
+    the coder's five or four), from ``torch.profiler`` over ``calls``
+    calls (None where the profiler saw no device time).  Where parts share
+    a name (the Skip mode's encode and skip product, both gemm_kernel<3>),
+    the n-th launch of a run of that name, in time order, is the n-th of
+    those parts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -665,13 +675,20 @@ def launch_split(fn, parts: dict, calls: int = 10) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    split = {}
-    for part, kname in parts.items():
-        hits = [e for e in kernels if kname in e.key]
-        us, n = sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)
-        split[part] = us / 1e3 / n if us > 0 else None
-    return split
+    kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    us, n = dict.fromkeys(parts, 0.0), dict.fromkeys(parts, 0)
+    prev, run = None, 0
+    for e in kernels:
+        hits = [part for part, kname in parts.items() if kname in e.name]
+        kname = parts[hits[0]] if hits else None
+        run = run + 1 if kname is not None and kname == prev else 0
+        prev = kname
+        if hits:
+            part = hits[min(run, len(hits) - 1)]
+            us[part] += e.time_range.elapsed_us()
+            n[part] += 1
+    return {part: us[part] / 1e3 / n[part] if us[part] > 0 else None for part in parts}
 
 
 def times(dev, cuda_sae, cuda_topk, topk) -> dict:
@@ -1352,9 +1369,10 @@ def coder_inputs(mode: str, n: int, seed: int, dev) -> tuple:
     return x, y, p, k
 
 
-def coder_ops(CC, p: dict):
+def coder_ops(CC, p: dict, k):
     b_out = p["b_dec"] + p["b_skip"] if "w_skip" in p else p["b_dec"]
-    return CC.operands(p["w_enc"], p["b_enc"], p["w_dec"], b_out, p.get("w_skip"))
+    return CC.operands(p["w_enc"], p["b_enc"], p["w_dec"], b_out, p.get("w_skip"),
+                       topk=k is not None)
 
 
 def check_coder(got, want, k, what: str) -> float:
@@ -1440,7 +1458,7 @@ def coder_kernel_phase(dev, CC) -> dict:
     errs = {}
     for i, mode in enumerate(CODER_MODES):
         xbuf, ybuf, p, k = coder_inputs(mode, 2 * b + tail, 30 + i, dev)
-        ops = coder_ops(CC, p)
+        ops = coder_ops(CC, p, k)
         err = 0.0
         wx, wy, wp, _ = coder_inputs(mode, wide, 40 + i, dev)
         windows = [
@@ -1448,7 +1466,7 @@ def coder_kernel_phase(dev, CC) -> dict:
              0, b, ops),
             ("offset", xbuf, ybuf, b, b, ops), ("remainder", xbuf, ybuf, 2 * b, tail, ops),
             ("ragged", xbuf, ybuf, 37, 100, ops), ("ragged", xbuf, ybuf, b + 300, 1000, ops),
-            ("wide", wx, wy, 0, wide, coder_ops(CC, wp))]
+            ("wide", wx, wy, 0, wide, coder_ops(CC, wp, k))]
         if k is None:  # phase 9's batch: the CLI's 128 rows, sliced and as a windowed step
             windows += [("sliced", xbuf[:small].contiguous(), None, 0, small, ops),
                         ("windowed", xbuf, None, 5 * small, small, ops)]
@@ -1459,8 +1477,7 @@ def coder_kernel_phase(dev, CC) -> dict:
             tag = f"{mode} {what} [{off}, {off + rows})"
             err = max(err, check_coder(got, want, k, tag))
             if k is not None:
-                GAPS[tag] = selection_gaps(got.xc, o.we_t, o.b_enc, got.hid, want.hid, k, tag,
-                                           own_pre=False)
+                GAPS[tag] = selection_gaps(got.xc, o.we_t, o.b_enc, got.hid, want.hid, k, tag)
             del got, want
         del wx, wy
         a = CC._coder_launch(xbuf, ybuf, b, b, ops, k)
@@ -1641,13 +1658,13 @@ def coder_bound(mode: str, b: int, x, nnz: int) -> tuple[float, str]:
 def coder_times(dev, CC) -> dict:
     """Phase 10a: each mode at B=128, 4096 and 32768, sliced and at a row
     offset, beside its plain version, its bound and a library yardstick
-    (the bf16 encode product, plus the dense decode product in ReLU modes);
-    in ReLU modes also each of the five launches' device ms."""
+    (the bf16 encode product, plus the dense decode product in ReLU modes),
+    and each of its launches' device ms."""
     res = {}
     for b in CODER_TIME_BATCHES:
         for i, mode in enumerate(CODER_MODES):
             xbuf, ybuf, p, k = coder_inputs(mode, 2 * b, 50 + i, dev)
-            ops = coder_ops(CC, p)
+            ops = coder_ops(CC, p, k)
             x, y = xbuf[:b].contiguous(), None if ybuf is None else ybuf[:b].contiguous()
             out = CC._coder_launch(x, y, 0, b, ops, k)
             nnz = int((out.hid > 0).sum())
@@ -1667,24 +1684,25 @@ def coder_times(dev, CC) -> dict:
                 "nnz_per_row": nnz / b,
             }
             r = res[(mode, b)]
-            if k is None:
-                r["split_ms"] = launch_split(sliced, RELU_PARTS)
-                r["indexed_split_ms"] = launch_split(indexed, RELU_PARTS)
+            parts = RELU_PARTS if k is None else SKIP_PARTS if "w_skip" in p else TOPK_PARTS
+            r["split_ms"] = launch_split(sliced, parts)
+            r["indexed_split_ms"] = launch_split(indexed, parts)
             log(f"  {mode:16s} B={b:5d}: {r['ms']:.4f} ms (at an offset {r['indexed_ms']:.4f}), "
                 f"plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), "
                 f"library {r['library_ms']:.4f}, {r['nnz_per_row']:.1f} nonzero latents a row"
-                + ("" if k is not None else "; launches in ms: " + ", ".join(
+                "; launches in ms: " + ", ".join(
                     f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
-                    for k_, v in r["split_ms"].items())))
+                    for k_, v in r["split_ms"].items()))
             del xbuf, ybuf, x, y, out
     return res
 
 
 def coder_step_times(work: Path, dev, TC, XC, CT, cfg_mod, relu_trainer, mix) -> dict:
     """Phase 10b: one training step of phase 9's ReLU SAE at the CLI's batch
-    128, and of the Skip transcoder and of the ReLU crosscoder under AMP
-    (windowed kernel) at the launcher's batch 4096 and bench.py's 32768,
-    wall and device busy time, on random rows on the card."""
+    128, and of the Skip transcoder, the ReLU crosscoder and the TopK
+    crosscoder under AMP (windowed kernel) at the launcher's batch 4096 and
+    bench.py's 32768, wall and device busy time, on random rows on the
+    card."""
     g = torch.Generator(device=dev).manual_seed(61)
     log(f"  ReLU SAE (D=384, H=3072), batch {relu_trainer.config.batch_size}:")
     res = {"relu_sae_128": step_profile(relu_trainer, gaussian_rows(
@@ -1702,6 +1720,12 @@ def coder_step_times(work: Path, dev, TC, XC, CT, cfg_mod, relu_trainer, mix) ->
         xc = CT.CrosscoderTrainer(XC.create_crosscoder(D, 4, H, use_topk=False, device=dev), cfg,
                                   run_dir=work / "xstep")
         res[f"relu_crosscoder_{b}"] = step_profile(
+            xc, torch.randn(n, 4, D, generator=g, device=dev), steps)
+        del xc
+        log(f"  TopK crosscoder (L=4, D=384, S=3072, k=32), batch {b}:")
+        xc = CT.CrosscoderTrainer(XC.create_crosscoder(D, 4, H, k=K, use_topk=True, device=dev),
+                                  cfg, run_dir=work / "kstep")
+        res[f"topk_crosscoder_{b}"] = step_profile(
             xc, torch.randn(n, 4, D, generator=g, device=dev), steps)
         del tc, xc
     return res
@@ -1737,7 +1761,7 @@ def large_kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
                 errs["fused_topk_encode_blocked"] = max(errs["fused_topk_encode_blocked"], err)
                 log(f"  {what}: rows agreeing {share:.4%}, max abs err {err:.3g}")
                 # the route selects on the kPre GEMM's pre of these rows
-                GAPS[what] = selection_gaps(xc, we_t, p["b_enc"], got, want, K, what, own_pre=True)
+                GAPS[what] = selection_gaps(xc, we_t, p["b_enc"], got, want, K, what)
                 del got, want
     a = cuda_sae._blocked_encode_launch(x32, *args, torch.bfloat16)
     check(torch.equal(a, cuda_sae._blocked_encode_launch(x32, *args, torch.bfloat16)),
@@ -2501,10 +2525,12 @@ def main() -> int:
                     "library_ms": ctimes[(mode, b)]["library_ms"]}
                    for b in CODER_TIME_BATCHES if b != CODER_B},
             })
-            if CODER_MODES[mode][2] is None:
-                split = "split_ms" if key == "ms" else "indexed_split_ms"
-                kernels[-1]["split_ms"] = {str(b): ctimes[(mode, b)][split]
-                                           for b in CODER_TIME_BATCHES}
+            split = "split_ms" if key == "ms" else "indexed_split_ms"
+            kernels[-1]["split_ms"] = {str(b): ctimes[(mode, b)][split]
+                                       for b in CODER_TIME_BATCHES}
+            if mode == "skip_transcoder":
+                kernels[-1]["split_note"] = ("encode and skip_product are both gemm_kernel<3>: "
+                                             "the second of a call's two is the skip product")
     for k_ in [k_ for k_ in kernels if k_["name"].startswith("coder_")]:
         check(k_["launches"] > 0, f"{k_['name']}: no launch on the coder path")
     log(f"  coder slice: {json.dumps({'steps': steps10, 'losses': path9['losses'], 'job_s': path9['job_s'], 'relu_sae_train_s': path9['relu_sae_train_s'], 'extract_s': path9['extract_s']})}")

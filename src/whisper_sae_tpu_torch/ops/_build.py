@@ -22,13 +22,14 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "attention_kernel.cu", "encoder_gemm.cu",
             "coder_kernels.cu", "blocked_encode.cu")
-_HEADERS = ("topk_common.cuh", "hopper_common.cuh", "encoder_gemm.cuh")
+_HEADERS = ("topk_common.cuh", "hopper_common.cuh", "encoder_gemm.cuh", "select_decode.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # The kernels' compile-time limits, kept here as Python constants because
 # the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
-# pins them to wst_max_d(), wst_max_row_width() and
-# wst_max_wide_row_width()).
+# pins them to wst_max_d(), wst_max_row_width(), wst_max_wide_row_width()
+# and wst_rows_per_cta()).
 MAX_D = 384  # kernel A's decode keeps D/32 f32 sums a lane
+SEL_ROWS = 4  # rows (one a warp) a CTA of the select-and-decode kernels: one sq partial each
 MAX_ROW = 3072  # one warp holds a row in registers: kernels A, B, C and the coder kernel
 MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, wide kernel C
 NVCC_FLAGS = (
@@ -79,11 +80,10 @@ _SIGNATURES = {
         _I,
     ),
     "wst_conv_stem_fwd": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
-    "wst_coder_rows_per_cta": ([], _I),
     "wst_coder_fwd": (
         [_P, _I, _P, _I, _L, _I, _I, _I, _I, _I,   # x, x_bf16, y, y_bf16, off, rows, d, h, dout, k
-         _I, _I, _P, _P, _P, _P, _P,               # use_skip, y_is_x, w_enc_t, b_enc, w_dec_t, b_out, w_skip_t
-         _P, _P, _P, _P, _P, _P, _P, _P, _P],      # hid, resid, xc, sq/hsum partials, counts, sums, hsum, stream
+         _I, _I, _P, _P, _P, _P, _P,               # use_skip, y_is_x, w_enc_t, b_enc, w_dec, b_out, w_skip_t
+         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],  # hid, resid, xc, pre, sq/hsum partials, counts, sums, hsum, stream
         _I,
     ),
     "wst_coder_gemm_fwd": (

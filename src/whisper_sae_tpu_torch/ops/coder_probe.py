@@ -6,22 +6,25 @@ H=3072, k=32; TopK and ReLU crosscoder on the flattened view: L*D=1536,
 S=3072) on 128, 4096 and 32768 rows of seeded gaussian data, sliced, over
 20 launches (5 at 32768) between CUDA events after 3 warm ones, and at 128
 rows the host's time to enqueue a call (the mean of 50 calls on the host
-clock, none waiting for the card); then the
-wall time of a training step (AMP, the windowed kernel) of a ReLU SAE at
-the CLI's batch 128 (3 epochs of 200 steps) and of a ReLU crosscoder (L=4,
-S=3072) at batch 4096 (an epoch of 20 steps) and 32768 (6), on the host
-clock after a warm epoch.  The kernels are those of the package found on the import
-path, built from its own sources, so the same command run with another
-tree's ``src`` first on ``PYTHONPATH`` times that tree: run the two in
-turns (parent, change, change, parent) in one call to compare them on one
-card.  Prints the card's name and power limit, then one JSON line.  Needs
-one H100; from the repository root:
+clock, none waiting for the card); then the wall time of a training step
+(AMP, the windowed kernel) of a ReLU SAE at the CLI's batch 128 (3 epochs
+of 200 steps) and of a ReLU crosscoder (L=4, S=3072), a TopK crosscoder
+(L=4, S=3072, k=32) and a Skip transcoder (D=384, H=3072, k=32) at batch
+4096 (an epoch of 20 steps) and 32768 (6), on the host clock after a warm
+epoch.  The kernels are those of the package found on the import path,
+built from its own sources, so the same command run with another tree's
+``src`` first on ``PYTHONPATH`` times that tree: run the two in turns
+(parent, change, change, parent) in one call to compare them on one card
+(a tree whose ``cuda_coder.operands`` takes no ``topk`` builds W_dec in
+both layouts).  Prints the card's name and power limit, then one JSON
+line.  Needs one H100; from the repository root:
 
     PYTHONPATH=src python -m whisper_sae_tpu_torch.ops.coder_probe
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import tempfile
 import time
@@ -33,7 +36,8 @@ from ._probe import step_ms, time_ms
 from ..config import SAEConfig, TrainingConfig
 from ..models.crosscoder import create_crosscoder
 from ..models.sae import create_sae
-from ..training.coder_trainers import CrosscoderTrainer
+from ..models.transcoder import create_transcoder
+from ..training.coder_trainers import CrosscoderTrainer, TranscoderTrainer
 from ..training.trainer import SAETrainer
 
 D, H, K = 384, 3072, 32
@@ -68,6 +72,7 @@ def main() -> None:
     print(card, flush=True)
     _build.load_library()
     res = {"card": card, "src": cuda_coder.__file__}
+    one_layout = "topk" in inspect.signature(cuda_coder.operands).parameters
     for i, (mode, (d, dout, k, skip, y_is_x)) in enumerate(MODES.items()):
         g = torch.Generator(device=dev).manual_seed(i)
 
@@ -76,7 +81,8 @@ def main() -> None:
 
         ops = cuda_coder.operands(randn(d, H, scale=d ** -0.5), randn(H, scale=0.05),
                                   randn(H, dout, scale=0.05), randn(dout, scale=0.05),
-                                  randn(d, dout, scale=0.02) if skip else None)
+                                  randn(d, dout, scale=0.02) if skip else None,
+                                  **({"topk": k is not None} if one_layout else {}))
         res[mode] = {}
         for rows in ROWS:
             x = randn(rows, d)
@@ -95,11 +101,18 @@ def main() -> None:
                                             200, epochs=3)
         for b, steps in ((4096, 20), (32768, 6)):
             cfg = TrainingConfig(batch_size=b, warmup_steps=10, use_amp=True)
-            xc = CrosscoderTrainer(create_crosscoder(D, 4, H, use_topk=False, device=dev), cfg,
-                                   run_dir=f"{runs}/cc{b}")
-            res[f"relu_crosscoder_step_{b}"] = step_ms(
-                xc, torch.randn(steps * b, 4, D, generator=g, device=dev), steps)
-            del xc
+            for name, topk in (("relu_crosscoder", False), ("topk_crosscoder", True)):
+                xc = CrosscoderTrainer(create_crosscoder(D, 4, H, k=K, use_topk=topk, device=dev),
+                                       cfg, run_dir=f"{runs}/{name}{b}")
+                res[f"{name}_step_{b}"] = step_ms(
+                    xc, torch.randn(steps * b, 4, D, generator=g, device=dev), steps)
+                del xc
+            tc = TranscoderTrainer(create_transcoder(D, D, H, k=K, use_skip=True, device=dev), cfg,
+                                   run_dir=f"{runs}/tc{b}")
+            res[f"skip_transcoder_step_{b}"] = step_ms(
+                tc, (torch.randn(steps * b, D, generator=g, device=dev),
+                     torch.randn(steps * b, D, generator=g, device=dev)), steps)
+            del tc
     print(json.dumps(res), flush=True)
 
 

@@ -25,7 +25,7 @@
 // ReLU modes (k <= 0): five launches, each of the two products on the
 // warp-specialised TMA/wgmma GEMM of encoder_gemm.cu.  The latent is about
 // half positive, so the decode is a second dense GEMM, and nothing is
-// gained by keeping a row's pre on chip (kernel A's reason for a row
+// gained by keeping a row's pre on chip (the TopK modes' reason for a row
 // kernel, the exact top-k, is absent).
 //  1. coder_cast_kernel writes xc = bf16(x[row_offset + r]) once: the
 //     backward's operand and the encode's A; and zeroes l0.
@@ -45,304 +45,126 @@
 //     each in a fixed order.
 // The price: hid makes one bf16 round trip through device memory (2*B*H*2
 // bytes, 50 MB at B=4096: 15 us at 3.35 TB/s), and at 128 rows the
-// decode has 3 output tiles of 48 K blocks each for 132 SMs.  The ReLU
-// modes' earlier form, the TopK row kernel below with a ReLU (16-row CTAs,
-// mma.sync from L2, a [16, H] f32 tile of pre in shared memory, so one CTA
-// an SM, re-reading both weights every 16 rows), took 0.2855 ms for the
-// ReLU SAE and 1.1092 for the ReLU crosscoder at B=4096 (PERF.md, rows 6c
-// and 6e).
+// decode has 3 output tiles of 48 K blocks each for 132 SMs.
 //
-// TopK modes (k > 0): coder_rows_kernel<SKIP, Y_IS_X>, then
-// coder_sum_kernel.  A CTA owns 16 rows (the M of one
-// mma.sync.m16n8k16 tile) and keeps their [16, H] f32 pre-activation in
-// shared memory (192 KB at H=3072), so pre and the latent never reach
-// device memory except as the bf16 latent the backward needs.  The rows'
-// bf16 tile sits beside it when it fits (D=384: 12 KB); at the
-// crosscoder's L*D=1536 it does not (48 KB), and the products read their
-// A fragments from the CTA's own bf16 rows in device memory (written first,
-// then served from L1/L2).  The top-k gives each row to one warp, which
-// holds it in registers (topk_common.cuh: the exact 32-pass
-// bisection) and overwrites the row's f32 slot with its bf16
-// latent; then the decode is a tensor-core product of that latent tile
-// with W_dec^T (TopK decodes its zeros too, which costs FLOPs, not bytes).
-// Weights are read as their bf16 transposes [N, K] and stay in L2; every
-// lane takes its A and B fragments for two MMA steps with one 16-byte
-// load each (a permutation of K that A and B share) and keeps four such
-// K blocks of loads in flight before their MMAs, so the products wait on
-// L2 bandwidth rather than on one round trip per 16-wide K step.  The
-// encode gives each warp 32 columns of H at a time, the decode 16 of dout
-// (24 tiles for 8 warps at dout=384, none idle).  Not yet fast: no wgmma,
-// TMA, warp specialisation or persistent grid; each CTA re-reads W_enc and
-// W_dec from L2 (ROADMAP queue 2).
+// TopK modes (k > 0): kernel A's route (sae_kernels.cu), four launches
+// (five with the skip path).
+//  1. coder_cast_kernel writes xc as above and zeroes the int32 counts
+//     (l0 and the [H] active flags).
+//  2. gemm_kernel<kPre> (wst_enc_gemm_fwd): A = xc, B = W_enc^T [H, D];
+//     pre = acc + b_enc in f32 to a workspace [B, H].
+//  3. Skip mode: gemm_kernel<kPre> again, A = xc, B = W_skip^T [dout, D],
+//     bias b_out: the base xc @ W_skip + b_out, f32, straight into resid.
+//  4. coder_select_decode_kernel<SKIP, Y_IS_X>: one warp a row loads its
+//     pre into registers, finds the threshold (topk_common.cuh), writes
+//     the bf16 latent, sets the active flags and compacts its positive
+//     selections into its list in shared memory, in feature order; then
+//     decodes from those rows of W_dec [H, dout] alone, lanes over dout,
+//     in passes of kDecCols = 384 columns (the crosscoder's dout = 1536
+//     takes four), from the rounded latent; resid = (decode + base) - y
+//     with base = resid's row (Skip) or b_out; one sum(resid^2) partial
+//     and an l0 atomic a CTA of four rows (select_decode.cuh, shared with
+//     kernel A).
+//  5. coder_sum_kernel adds the partials in a fixed order.
+// The price is kernel A's: the f32 pre's round trip through device
+// memory, 2*B*H*4 bytes beyond the bound (101 MB at B=4096, ~0.03 ms),
+// and the decode's gathers, k rows of W_dec a row (32 * 1536 * 2 bytes
+// at the crosscoder), served from L2.  The TopK modes' earlier form, a row
+// kernel of 16-row CTAs (mma.sync from L2, a [16, H] f32 tile of pre in
+// shared memory, so one CTA an SM, re-reading both weights every 16 rows,
+// and a dense decode of the latent's zeros), took 0.3157 / 0.2900 /
+// 1.0914 ms for the Skip / TopK transcoder and the TopK crosscoder at
+// B=4096 (PERF.md, rows 6a, 6b, 6d).
 //
 // Cross-CTA reductions without float atomics (CTAs run concurrently,
 // unlike the TPU grid's read-modify-write accumulation at :606-622): l0
 // and active are int32 atomics (order-free; ReLU mode needs only l0's);
-// sum(resid^2) and the [H]
-// hsum are written as partials and summed in a fixed order by
-// coder_sum_kernel and coder_hsum_kernel.  The loss has the same bits
-// from run to run.
+// sum(resid^2) and the [H] hsum are written as partials and summed in a
+// fixed order by coder_sum_kernel and coder_hsum_kernel.  The loss has
+// the same bits from run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "encoder_gemm.cuh"
+#include "select_decode.cuh"
 #include "topk_common.cuh"
 
 namespace wst {
 namespace coder {
 
-constexpr int kRows = 16;   // rows per CTA: the M of one mma.sync tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * kWarp;
-constexpr int kEncTiles = 4;  // n8 tiles per encode warp step: 32 columns of H
-constexpr int kDecTiles = 2;  // n8 tiles per decode warp step: 16 columns of dout
-constexpr int kLoads = 4;     // 32-wide K blocks whose loads are in flight together
 constexpr int kSumThreads = 256;
 constexpr int kCastThreads = 256;
-constexpr int kSmemOptin = 232448;  // H100: shared memory a block may opt into
-constexpr int kSmemStatic = 1024;   // margin for the kernel's static arrays
-
-__device__ __forceinline__ float bf16_bits_to_float(unsigned short u) {
-  return __uint_as_float(static_cast<unsigned int>(u) << 16);
-}
-
-__device__ __forceinline__ unsigned short float_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ float load_val(const void* p, int is_bf16, size_t i) {
   return is_bf16 ? bf16_bits_to_float(static_cast<const unsigned short*>(p)[i])
                  : static_cast<const float*>(p)[i];
 }
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                          uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Eight bf16 (16 bytes) of row r of a row-major bf16 tile (shared or
-// device memory) from column c; rows past the batch read as zeros.
-__device__ __forceinline__ uint4 ld_row8(const unsigned short* base, int stride, int r, int c,
-                                        int nrows) {
-  return r < nrows ? *reinterpret_cast<const uint4*>(base + (size_t)r * stride + c)
-                   : make_uint4(0u, 0u, 0u, 0u);
-}
-
-// acc[t] += A[16, K] @ Bt[n0 + 8t : n0 + 8t + 8, :]^T over K (a multiple
-// of 32), for one warp: A row-major (stride a_stride), Bt the [N, K] bf16
-// transpose (stride K).  Within each 32-wide K block, lane q = lane & 3
-// loads the 8 consecutive k at 8q of its two A rows and its B row with
-// one 16-byte load each, and feeds them to two m16n8k16 steps as the
-// fragments' k pairs {2q, 2q+1, 2q+8, 2q+9}: A and B see the same
-// permutation of k, so the sum is the same product.  U blocks of loads
-// are issued before their MMAs, so U L2 round trips overlap instead of
-// following one another.
-template <int NT, int U>
-__device__ __forceinline__ void warp_product(float (&acc)[NT][4], const unsigned short* a,
-                                             int a_stride, int nrows,
-                                             const unsigned short* bt, int kdim, int n0,
-                                             int lane) {
-  const int fr = lane >> 2, q = lane & 3;
-  for (int k0 = 0; k0 < kdim; k0 += 32 * U) {
-    uint4 av[U][2], bv[U][NT];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int kc = k0 + 32 * u + 8 * q;
-      if (k0 + 32 * u < kdim) {
-        av[u][0] = ld_row8(a, a_stride, fr, kc, nrows);
-        av[u][1] = ld_row8(a, a_stride, fr + 8, kc, nrows);
-#pragma unroll
-        for (int t = 0; t < NT; ++t)
-          bv[u][t] = __ldg(reinterpret_cast<const uint4*>(bt + (size_t)(n0 + t * 8 + fr) * kdim + kc));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (k0 + 32 * u < kdim) {
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          mma_16816(acc[t], av[u][0].x, av[u][1].x, av[u][0].y, av[u][1].y, bv[u][t].x, bv[u][t].y);
-          mma_16816(acc[t], av[u][0].z, av[u][1].z, av[u][0].w, av[u][1].w, bv[u][t].z, bv[u][t].w);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Row strides of the shared tiles, chosen so that a quarter-warp's 16-byte
-// fragment loads (two rows x 64 bytes) fall on all 32 banks once: 16 words
-// mod 32.  pre_stride is in f32 words and is also the bf16 latent's row
-// stride in words (the latent overwrites its row's f32 slot); x_stride
-// is in bf16 elements.  H and D are multiples of 32.
-__host__ __device__ __forceinline__ int pre_stride(int h) { return h + 16; }
-__host__ __device__ __forceinline__ int x_stride(int d) { return d + (d % 64 == 0 ? 32 : 0); }
-
-struct CoderArgs {
+struct SelectArgs {
   const void* x;              // [>= row_offset + rows, d] f32 or bf16
   int x_bf16;
   const void* y;              // [>= row_offset + rows, dout] f32 or bf16 (not Y_IS_X)
   int y_bf16;
   long long row_offset;       // first row of this batch in x (and y)
   int rows, d, h, dout, k;
-  const unsigned short* w_enc_t;   // [h, d] bf16: W_enc transposed
-  const float* b_enc;              // [h]
-  const unsigned short* w_dec_t;   // [dout, h] bf16: W_dec transposed
-  const float* b_out;              // [dout]
-  const unsigned short* w_skip_t;  // [dout, d] bf16 (SKIP)
+  const float* pre;           // [rows, h] f32: xc @ W_enc + b_enc
+  const unsigned short* w_dec;  // [h, dout] bf16
+  const float* b_out;         // [dout] (not SKIP)
   unsigned short* hidden;     // [rows, h] bf16
-  float* resid;               // [rows, dout]
-  unsigned short* xc;         // [rows, d] bf16
+  float* resid;               // [rows, dout]; SKIP: holds xc @ W_skip + b_out on entry
   float* sq_partial;          // [gridDim.x]
   int* counts;                // [1 + h], zeroed: l0, active
-  int stage_x;                // the rows' bf16 tile is staged in shared memory
 };
 
+// One warp a row: the threshold, the latent, the sparse decode in passes
+// of kDecCols columns and the row's share of the loss; dynamic shared
+// memory holds each warp's list of selections (h entries at most).
 template <bool SKIP, bool Y_IS_X>
-__global__ void __launch_bounds__(kThreads, 1) coder_rows_kernel(CoderArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hs = pre_stride(a.h);
-  const int ds = x_stride(a.d);
-  float* pre_s = reinterpret_cast<float*>(smem);
-  unsigned short* xs = reinterpret_cast<unsigned short*>(pre_s + kRows * hs);
-  __shared__ float warp_part[kWarps];
-  __shared__ int row_l0[kRows];
-
-  const int tid = threadIdx.x;
-  const int lane = tid & (kWarp - 1);
-  const int warp = tid / kWarp;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, a.rows - row0);
-
-  // -- bf16 rows: to device memory (the backward's operand) and, when they
-  //    fit, to shared memory; rows past the batch are zeros ---------------
-  for (int i = tid; i < kRows * a.d; i += kThreads) {
-    const int r = i / a.d, c = i - r * a.d;
-    unsigned short v = 0;
-    if (r < nrows) {
-      const size_t g = (size_t)(row0 + r);
-      v = float_to_bf16_bits(load_val(a.x, a.x_bf16, (size_t)(a.row_offset + g) * a.d + c));
-      a.xc[g * a.d + c] = v;
-    }
-    if (a.stage_x) xs[r * ds + c] = v;
-  }
-  if (tid < kRows) row_l0[tid] = 0;
-  __syncthreads();
-  const unsigned short* xa = a.stage_x ? xs : a.xc + (size_t)row0 * a.d;
-  const int xa_stride = a.stage_x ? ds : a.d;
-
-  // -- encode: pre = xc @ W_enc + b_enc, into shared memory -----------------
-  {
-    const int fr = lane >> 2, fc = (lane & 3) * 2;
-    constexpr int cols = kEncTiles * 8;
-    for (int n0 = warp * cols; n0 < a.h; n0 += kWarps * cols) {
-      float acc[kEncTiles][4] = {};
-      warp_product<kEncTiles, kLoads>(acc, xa, xa_stride, nrows, a.w_enc_t, a.d, n0, lane);
-#pragma unroll
-      for (int t = 0; t < kEncTiles; ++t) {
-        const int col = n0 + t * 8 + fc;
-        const float be0 = a.b_enc[col], be1 = a.b_enc[col + 1];
-        *reinterpret_cast<float2*>(pre_s + fr * hs + col) = make_float2(acc[t][0] + be0,
-                                                                        acc[t][1] + be1);
-        *reinterpret_cast<float2*>(pre_s + (fr + 8) * hs + col) = make_float2(acc[t][2] + be0,
-                                                                              acc[t][3] + be1);
-      }
-    }
-  }
-  __syncthreads();
-
-  // -- one warp per row: the row in registers, its threshold, the bf16
-  //    latent over the row's own f32 slot and to device memory -----------
-  for (int r = warp; r < kRows; r += kWarps) {
-    unsigned short* lat = reinterpret_cast<unsigned short*>(pre_s + r * hs);
-    if (r >= nrows) {  // warp-uniform: zero latent rows past the batch
-      for (int c = lane; c < a.h; c += kWarp) lat[c] = 0;
-      continue;
-    }
-    const size_t g = (size_t)(row0 + r);
-    int xi[kMaxPerLane];
-    load_row_monotone(pre_s + r * hs, a.h, lane, xi);
-    const int th = warp_kth_largest(xi, a.k);
-    __syncwarp();  // the whole row is in registers before its slot is rewritten
-    int cnt = 0;
-#pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      const int c = j * kWarp + lane;
-      if (c < a.h) {
-        const float v = masked_relu(xi[j], th);
-        const unsigned short bits = float_to_bf16_bits(v);
-        lat[c] = bits;
-        a.hidden[g * a.h + c] = bits;
-        if (v > 0.0f) {
-          ++cnt;
-          atomicOr(&a.counts[1 + c], 1);
-        }
-      }
-    }
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
-    if (lane == 0) row_l0[r] = cnt;
-  }
-  __syncthreads();
-
-  // -- decode: pred = (hid @ W_dec + b_out) [+ xc @ W_skip]; resid = pred - y
-  const unsigned short* lat_s = reinterpret_cast<const unsigned short*>(pre_s);
-  const int ls = 2 * hs;  // latent row stride in bf16 elements
+__global__ void __launch_bounds__(kSelThreads, 4) coder_select_decode_kernel(SelectArgs a) {
+  extern __shared__ unsigned int sel_lists[];
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int warp = threadIdx.x / kWarp;
+  const int g = blockIdx.x * kSelWarps + warp;
   float sq = 0.0f;
-  {
-    const int fr = lane >> 2, fc = (lane & 3) * 2;
-    constexpr int cols = kDecTiles * 8;
-    for (int n0 = warp * cols; n0 < a.dout; n0 += kWarps * cols) {
-      float acc[kDecTiles][4] = {};
-      float acc_skip[kDecTiles][4] = {};
-      warp_product<kDecTiles, kLoads>(acc, lat_s, ls, kRows, a.w_dec_t, a.h, n0, lane);
-      if (SKIP)
-        warp_product<kDecTiles, kLoads>(acc_skip, xa, xa_stride, nrows, a.w_skip_t, a.d, n0, lane);
+  int nsel = 0;
+  if (g < a.rows) {  // warp-uniform
+    int xi[kMaxPerLane];
+    load_row_monotone(a.pre + (size_t)g * a.h, a.h, lane, xi);
+    const int th = warp_kth_largest(xi, a.k);
+    unsigned int* list = sel_lists + warp * a.h;
+    nsel = select_to_list(xi, th, a.h, lane, a.hidden + (size_t)g * a.h, a.counts + 1, list);
+
+    const size_t src = (size_t)(a.row_offset + g);
+    float* rrow = a.resid + (size_t)g * a.dout;
+    for (int c0 = 0; c0 < a.dout; c0 += kDecCols) {
+      const int nt = min(kDecCols, a.dout - c0) / kWarp;
+      float acc[kDecTiles];
+#pragma unroll
+      for (int t = 0; t < kDecTiles; ++t) acc[t] = 0.0f;
+      sparse_decode(list, nsel, a.w_dec, a.dout, c0, nt, lane, acc);
+      float base[kDecTiles], yv[kDecTiles];
 #pragma unroll
       for (int t = 0; t < kDecTiles; ++t) {
+        const int c = c0 + (t < nt ? t : 0) * kWarp + lane;
+        base[t] = SKIP ? rrow[c] : a.b_out[c];
+        yv[t] = Y_IS_X ? load_val(a.x, a.x_bf16, src * a.d + c)
+                       : load_val(a.y, a.y_bf16, src * a.dout + c);
+      }
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = fr + 8 * half;
-          if (r >= nrows) continue;
-          const size_t g = (size_t)(row0 + r);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = n0 + t * 8 + fc + e;
-            float p = acc[t][2 * half + e] + a.b_out[col];
-            if (SKIP) p += acc_skip[t][2 * half + e];
-            const float yv = Y_IS_X
-                ? load_val(a.x, a.x_bf16, (size_t)(a.row_offset + g) * a.d + col)
-                : load_val(a.y, a.y_bf16, (size_t)(a.row_offset + g) * a.dout + col);
-            const float res = p - yv;
-            a.resid[g * a.dout + col] = res;
-            sq = fmaf(res, res, sq);
-          }
+      for (int t = 0; t < kDecTiles; ++t) {
+        if (t < nt) {
+          const float res = (acc[t] + base[t]) - yv[t];
+          rrow[c0 + t * kWarp + lane] = res;
+          sq = fmaf(res, res, sq);
         }
       }
     }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
   }
-  sq = warp_sum(sq);
-  if (lane == 0) warp_part[warp] = sq;
-  __syncthreads();
-  if (tid == 0) {
-    float s = 0.0f;
-    int l0 = 0;
-    for (int w = 0; w < kWarps; ++w) s += warp_part[w];
-    for (int r = 0; r < kRows; ++r) l0 += row_l0[r];
-    a.sq_partial[blockIdx.x] = s;
-    atomicAdd(&a.counts[0], l0);
-  }
+  cta_partial(sq, nsel, a.sq_partial, a.counts);
 }
 
 // sums[blockIdx.x] = the n_sq partials of block 0 (sum resid^2) or the
@@ -376,15 +198,16 @@ __global__ void __launch_bounds__(kSumThreads) coder_hsum_kernel(const float* pa
 }
 
 // xc = bf16(x[row_offset : row_offset + rows]), four values a thread (d is
-// a multiple of 4, so a group never straddles a row); *l0 = 0 for the
-// encode that follows.
+// a multiple of 4, so a group never straddles a row); counts[0 : n_counts]
+// = 0 for the launches that follow.
 __global__ void __launch_bounds__(kCastThreads) coder_cast_kernel(const void* x, int x_bf16,
                                                                   long long row_offset, int d,
                                                                   long long groups,
-                                                                  unsigned short* xc, int* l0) {
+                                                                  unsigned short* xc, int* counts,
+                                                                  int n_counts) {
   const long long first = (long long)blockIdx.x * kCastThreads + threadIdx.x;
-  if (first == 0) *l0 = 0;
   const long long stride = (long long)gridDim.x * kCastThreads;
+  for (long long i = first; i < n_counts; i += stride) counts[i] = 0;
   const long long src = row_offset * d;
   for (long long i = first; i < groups; i += stride) {
     if (x_bf16) {
@@ -400,24 +223,15 @@ __global__ void __launch_bounds__(kCastThreads) coder_cast_kernel(const void* x,
   }
 }
 
-size_t smem_bytes(int d, int h, int stage_x) {
-  return (size_t)kRows * pre_stride(h) * sizeof(float) +
-         (stage_x ? (size_t)kRows * x_stride(d) * sizeof(unsigned short) : 0);
-}
-
-template <bool SKIP, bool Y_IS_X>
-int launch(const CoderArgs& a, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(coder_rows_kernel<SKIP, Y_IS_X>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.rows + kRows - 1) / kRows;
-  coder_rows_kernel<SKIP, Y_IS_X><<<blocks, kThreads, smem, stream>>>(a);
+int cast(const void* x, int x_bf16, long long row_offset, int rows, int d, void* xc,
+         void* counts, int n_counts, cudaStream_t s) {
+  const long long groups = (long long)rows * d / 4;
+  const long long want = (groups + kCastThreads - 1) / kCastThreads;
+  const int blocks = (int)(want < 4096 ? want : 4096);
+  coder_cast_kernel<<<blocks, kCastThreads, 0, s>>>(x, x_bf16, row_offset, d, groups,
+                                                    static_cast<unsigned short*>(xc),
+                                                    static_cast<int*>(counts), n_counts);
   return (int)cudaGetLastError();
-}
-
-template <bool SKIP>
-int launch_y(const CoderArgs& a, int y_is_x, size_t smem, cudaStream_t s) {
-  return y_is_x ? launch<SKIP, true>(a, smem, s) : launch<SKIP, false>(a, smem, s);
 }
 
 // The ReLU modes (y is x): cast, encode (kRelu), decode (kResid), hsum, sums.
@@ -425,15 +239,9 @@ int relu_fwd(const void* x, int x_bf16, long long row_offset, int rows, int d, i
              const void* w_enc_t, const void* b_enc, const void* w_dec_t, const void* b_out,
              void* hidden, void* resid, void* xc, void* sq_partial, void* hsum_partial,
              void* l0, void* sums, void* hsum, void* stream) {
-  if (d % 4 || dout != d) return (int)cudaErrorInvalidValue;
+  if (dout != d) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long groups = (long long)rows * d / 4;
-  const long long want = (groups + kCastThreads - 1) / kCastThreads;
-  const int blocks = (int)(want < 4096 ? want : 4096);
-  coder_cast_kernel<<<blocks, kCastThreads, 0, s>>>(x, x_bf16, row_offset, d, groups,
-                                                    static_cast<unsigned short*>(xc),
-                                                    static_cast<int*>(l0));
-  int err = (int)cudaGetLastError();
+  int err = cast(x, x_bf16, row_offset, rows, d, xc, l0, 1, s);
   if (err) return err;
   err = wst_coder_gemm_fwd(wst_gemm::kRelu, xc, w_enc_t, rows, h, d, b_enc, hidden, hsum_partial,
                            l0, nullptr, 0, 0, stream);
@@ -452,59 +260,88 @@ int relu_fwd(const void* x, int x_bf16, long long row_offset, int rows, int d, i
   return (int)cudaGetLastError();
 }
 
+template <bool SKIP, bool Y_IS_X>
+int launch_select(const SelectArgs& a, cudaStream_t s) {
+  const size_t smem = (size_t)kSelWarps * a.h * sizeof(unsigned int);
+  const cudaError_t err = cudaFuncSetAttribute(coder_select_decode_kernel<SKIP, Y_IS_X>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (a.rows + kSelWarps - 1) / kSelWarps;
+  coder_select_decode_kernel<SKIP, Y_IS_X><<<blocks, kSelThreads, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The TopK modes: cast, encode (kPre), [the skip product (kPre)], select
+// and decode, sum.
+int topk_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row_offset, int rows,
+             int d, int h, int dout, int k, int use_skip, int y_is_x, const void* w_enc_t,
+             const void* b_enc, const void* w_dec, const void* b_out, const void* w_skip_t,
+             void* hidden, void* resid, void* xc, void* pre, void* sq_partial, void* counts,
+             void* sums, void* stream) {
+  if (h > kMaxRow || k > h || (y_is_x ? dout != d : y == nullptr) || (use_skip && !w_skip_t))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = cast(x, x_bf16, row_offset, rows, d, xc, counts, 1 + h, s);
+  if (err) return err;
+  err = wst_enc_gemm_fwd(wst_gemm::kPre, xc, w_enc_t, rows, h, d, b_enc, 1.0f, 0, pre, nullptr,
+                         nullptr, nullptr, stream);
+  if (err) return err;
+  if (use_skip) {
+    err = wst_enc_gemm_fwd(wst_gemm::kPre, xc, w_skip_t, rows, dout, d, b_out, 1.0f, 0, resid,
+                           nullptr, nullptr, nullptr, stream);
+    if (err) return err;
+  }
+  const SelectArgs a{x, x_bf16, y, y_bf16, row_offset, rows, d, h, dout, k,
+                     static_cast<const float*>(pre),
+                     static_cast<const unsigned short*>(w_dec),
+                     static_cast<const float*>(b_out),
+                     static_cast<unsigned short*>(hidden),
+                     static_cast<float*>(resid),
+                     static_cast<float*>(sq_partial),
+                     static_cast<int*>(counts)};
+  err = use_skip ? (y_is_x ? launch_select<true, true>(a, s) : launch_select<true, false>(a, s))
+                 : (y_is_x ? launch_select<false, true>(a, s) : launch_select<false, false>(a, s));
+  if (err) return err;
+  const int blocks = (rows + kSelWarps - 1) / kSelWarps;
+  coder_sum_kernel<<<1, kSumThreads, 0, s>>>(static_cast<const float*>(sq_partial), blocks,
+                                              nullptr, 0, static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace coder
 }  // namespace wst
 
 extern "C" {
 
-// Rows per CTA of the TopK modes' row kernel (one sq partial a CTA).
-int wst_coder_rows_per_cta() { return wst::coder::kRows; }
-
-// The coder forward: sums[0] = sum(resid^2), counts[0] = l0 count.  k > 0
-// selects TopK: the row kernel, sq_partial [ceil(rows / 16)], counts
-// [1 + h] zeroed by the caller, counts[1 + j] = feature j active.  k <= 0
-// is ReLU mode (y is x, no skip): sums[1] = sum(hid) and hsum[h] (feature
-// j is active when hsum[j] > 0), with sq_partial [ceil(rows / 128) *
-// ceil(dout / 128)], hsum_partial [ceil(rows / 64), h] (wst_gemm_tile() =
-// 128) and counts [1], set here.
+// The coder forward: sums[0] = sum(resid^2), counts[0] = l0 count; d, h
+// and dout multiples of 32.  k > 0 selects TopK: w_dec is W_dec itself
+// [h, dout] bf16 (the rows the sparse decode gathers), pre an f32 [rows,
+// h] workspace, sq_partial [ceil(rows / wst_rows_per_cta())] (4 rows a
+// partial), counts [1 + h] (counts[1 + j] = feature j active), h <= 3072;
+// w_skip_t [dout, d] with use_skip.  k <= 0 is ReLU mode (y is x, no skip):
+// w_dec is W_dec^T [dout, h], sums[1] = sum(hid) and hsum[h] (feature j is
+// active when hsum[j] > 0), with sq_partial [ceil(rows / 128) * ceil(dout /
+// 128)], hsum_partial [ceil(rows / 64), h] (wst_gemm_tile() = 128) and
+// counts [1].  The counts are zeroed here.
 int wst_coder_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row_offset,
                   int rows, int d, int h, int dout, int k, int use_skip, int y_is_x,
-                  const void* w_enc_t, const void* b_enc, const void* w_dec_t, const void* b_out,
-                  const void* w_skip_t, void* hidden, void* resid, void* xc, void* sq_partial,
-                  void* hsum_partial, void* counts, void* sums, void* hsum, void* stream) {
+                  const void* w_enc_t, const void* b_enc, const void* w_dec, const void* b_out,
+                  const void* w_skip_t, void* hidden, void* resid, void* xc, void* pre,
+                  void* sq_partial, void* hsum_partial, void* counts, void* sums, void* hsum,
+                  void* stream) {
   namespace C = wst::coder;
-  if (rows <= 0) return (int)cudaErrorInvalidValue;
+  if (rows <= 0 || d <= 0 || h <= 0 || dout <= 0 || d % wst::kWarp || h % wst::kWarp ||
+      dout % wst::kWarp)
+    return (int)cudaErrorInvalidValue;
   if (k <= 0) {
     if (use_skip || !y_is_x) return (int)cudaErrorInvalidValue;
-    return C::relu_fwd(x, x_bf16, row_offset, rows, d, h, dout, w_enc_t, b_enc, w_dec_t, b_out,
+    return C::relu_fwd(x, x_bf16, row_offset, rows, d, h, dout, w_enc_t, b_enc, w_dec, b_out,
                        hidden, resid, xc, sq_partial, hsum_partial, counts, sums, hsum, stream);
   }
-  int stage_x = 1;
-  size_t smem = C::smem_bytes(d, h, stage_x);
-  if (smem > (size_t)(C::kSmemOptin - C::kSmemStatic)) {
-    stage_x = 0;
-    smem = C::smem_bytes(d, h, stage_x);
-  }
-  C::CoderArgs a{x, x_bf16, y, y_bf16, row_offset, rows, d, h, dout, k,
-                 static_cast<const unsigned short*>(w_enc_t),
-                 static_cast<const float*>(b_enc),
-                 static_cast<const unsigned short*>(w_dec_t),
-                 static_cast<const float*>(b_out),
-                 static_cast<const unsigned short*>(w_skip_t),
-                 static_cast<unsigned short*>(hidden),
-                 static_cast<float*>(resid),
-                 static_cast<unsigned short*>(xc),
-                 static_cast<float*>(sq_partial),
-                 static_cast<int*>(counts),
-                 stage_x};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = use_skip ? C::launch_y<true>(a, y_is_x, smem, s)
-                           : C::launch_y<false>(a, y_is_x, smem, s);
-  if (err != 0) return err;
-  const int blocks = (rows + C::kRows - 1) / C::kRows;
-  C::coder_sum_kernel<<<1, C::kSumThreads, 0, s>>>(static_cast<const float*>(sq_partial), blocks,
-                                                   nullptr, 0, static_cast<float*>(sums));
-  return (int)cudaGetLastError();
+  return C::topk_fwd(x, x_bf16, y, y_bf16, row_offset, rows, d, h, dout, k, use_skip, y_is_x,
+                     w_enc_t, b_enc, w_dec, b_out, w_skip_t, hidden, resid, xc, pre, sq_partial,
+                     counts, sums, stream);
 }
 
 }  // extern "C"

@@ -11,7 +11,8 @@
 //   is the MLP block's fc1 with its bias and GELU;
 // gemm_kernel<kPre>       ("wst_enc_gemm_fwd", epi 3)
 //   is the TopK SAE's encode, pre = xc . W_enc + b_enc in f32, the second
-//   of kernel A's four launches (sae_kernels.cu); gemm_cols_kernel<kPre>,
+//   of kernel A's four launches (sae_kernels.cu), and the coder's TopK
+//   modes' encode and skip product (coder_kernels.cu); gemm_cols_kernel<kPre>,
 //   the same with the column tiles outer, is the second of the blocked
 //   encode's three launches a chunk (blocked_encode.cu);
 // gemm_kernel<kRelu>      ("wst_coder_gemm_fwd", epi 4)

@@ -41,7 +41,9 @@
 //     per-lane counts, stop at count == k), writes the bf16 latent,
 //     compacts its positive selections into the warp's slice of shared
 //     memory in feature order and decodes from those W_dec rows only,
-//     four rows at a time, lanes over D.  Shared memory is the lists
+//     four rows at a time, lanes over D (select_to_list and sparse_decode
+//     of select_decode.cuh, which the coder's TopK modes share).  Shared
+//     memory is the lists
 //     alone (H entries of 4 bytes a warp: 48 KB a CTA at H = 3072), so
 //     four CTAs of four warps fit an SM, against the one 16-row CTA that
 //     the fused kernel's 192 KB tile of pre allowed.
@@ -67,6 +69,7 @@
 #include <stdint.h>
 
 #include "encoder_gemm.cuh"
+#include "select_decode.cuh"
 #include "topk_common.cuh"
 
 namespace wst {
@@ -74,23 +77,12 @@ namespace wst {
 constexpr int kRows = 16;  // kernel B: rows per CTA, the M of one mma.sync tile
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * kWarp;
-constexpr int kMaxD = 384;  // kernel A's decode keeps D/32 f32 sums per lane
+constexpr int kMaxD = kDecCols;  // kernel A decodes D in one pass (select_decode.cuh)
 constexpr int kColsPerWarpStep = 32;  // four n8 MMA tiles per warp step
 constexpr int kFinalizeThreads = 256;
 constexpr int kCentreThreads = 128;
-constexpr int kSelWarps = 4;  // kernel A's row kernel: rows (one a warp) per CTA
-constexpr int kSelThreads = kSelWarps * kWarp;
-constexpr int kDecUnroll = 4;  // W_dec rows whose loads are in flight together
 
 enum Mode { kEncodeBf16 = 0, kEncodeF32 = 1 };
-
-__device__ __forceinline__ float bf16_bits_to_float(unsigned short u) {
-  return __uint_as_float(static_cast<unsigned int>(u) << 16);
-}
-
-__device__ __forceinline__ unsigned short float_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ float load_x(const void* x, int x_bf16, size_t i) {
   return x_bf16 ? bf16_bits_to_float(static_cast<const unsigned short*>(x)[i])
@@ -139,8 +131,6 @@ struct LossArgs {
 // selections (h entries at most).
 __global__ void __launch_bounds__(kSelThreads, 4) sae_select_decode_kernel(LossArgs a) {
   extern __shared__ unsigned int sel_lists[];
-  __shared__ float row_sq[kSelWarps];
-  __shared__ int row_l0[kSelWarps];
   const int lane = threadIdx.x & (kWarp - 1);
   const int warp = threadIdx.x / kWarp;
   const int g = blockIdx.x * kSelWarps + warp;
@@ -150,75 +140,24 @@ __global__ void __launch_bounds__(kSelThreads, 4) sae_select_decode_kernel(LossA
     int xi[kMaxPerLane];
     load_row_monotone(a.pre + (size_t)g * a.h, a.h, lane, xi);
     const int th = warp_kth_largest(xi, a.k);
-
-    // the latent, and the positive selections as (feature << 16 | bf16
-    // bits) in feature order
     unsigned int* list = sel_lists + warp * a.h;
-#pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      const int c = j * kWarp + lane;
-      const float v = c < a.h ? masked_relu(xi[j], th) : 0.0f;
-      const unsigned short bits = float_to_bf16_bits(v);
-      if (c < a.h) a.hidden[(size_t)g * a.h + c] = bits;
-      const bool pos = v > 0.0f;
-      const unsigned int m = __ballot_sync(0xffffffffu, pos);
-      if (pos) {
-        list[nsel + __popc(m & ((1u << lane) - 1u))] = (static_cast<unsigned int>(c) << 16) | bits;
-        atomicOr(&a.counts[1 + c], 1);
-      }
-      nsel += __popc(m);
-    }
-    __syncwarp();
+    nsel = select_to_list(xi, th, a.h, lane, a.hidden + (size_t)g * a.h, a.counts + 1, list);
 
-    // resid = sum_sel hid_j * W_dec[j, :] + b_out - x, lanes over D; the
-    // sums run in feature order.  Every load of a step is issued before
-    // its sums, unconditionally (columns past D read column lane and are
-    // not summed): a load under a branch on D waits for the sums before
-    // it, one latency each.
-    constexpr int kT = kMaxD / kWarp;
+    // resid = sum_sel hid_j * W_dec[j, :] + b_out - x, lanes over D
     const int nt = a.d / kWarp;
-    float acc[kT];
+    float acc[kDecTiles];
 #pragma unroll
-    for (int t = 0; t < kT; ++t) acc[t] = 0.0f;
-    int s = 0;
-    for (; s + kDecUnroll <= nsel; s += kDecUnroll) {
-      float hv[kDecUnroll];
-      unsigned short w[kDecUnroll][kT];
+    for (int t = 0; t < kDecTiles; ++t) acc[t] = 0.0f;
+    sparse_decode(list, nsel, a.w_dec, a.d, 0, nt, lane, acc);
+    float xv[kDecTiles], bo[kDecTiles];
 #pragma unroll
-      for (int u = 0; u < kDecUnroll; ++u) {
-        const unsigned int e = list[s + u];
-        hv[u] = bf16_bits_to_float(static_cast<unsigned short>(e & 0xffffu));
-        const unsigned short* wr = a.w_dec + (size_t)(e >> 16) * a.d + lane;
-#pragma unroll
-        for (int t = 0; t < kT; ++t) w[u][t] = __ldg(wr + (t < nt ? t : 0) * kWarp);
-      }
-#pragma unroll
-      for (int t = 0; t < kT; ++t) {
-#pragma unroll
-        for (int u = 0; u < kDecUnroll; ++u)
-          if (t < nt) acc[t] = fmaf(hv[u], bf16_bits_to_float(w[u][t]), acc[t]);
-      }
-    }
-    for (; s < nsel; ++s) {
-      const unsigned int e = list[s];
-      const float hv = bf16_bits_to_float(static_cast<unsigned short>(e & 0xffffu));
-      const unsigned short* wr = a.w_dec + (size_t)(e >> 16) * a.d + lane;
-      unsigned short w[kT];
-#pragma unroll
-      for (int t = 0; t < kT; ++t) w[t] = __ldg(wr + (t < nt ? t : 0) * kWarp);
-#pragma unroll
-      for (int t = 0; t < kT; ++t)
-        if (t < nt) acc[t] = fmaf(hv, bf16_bits_to_float(w[t]), acc[t]);
-    }
-    float xv[kT], bo[kT];
-#pragma unroll
-    for (int t = 0; t < kT; ++t) {
+    for (int t = 0; t < kDecTiles; ++t) {
       const int c = (t < nt ? t : 0) * kWarp + lane;
       xv[t] = load_x(a.x, a.x_bf16, (size_t)(a.row_offset + g) * a.d + c);
       bo[t] = a.b_out[c];
     }
 #pragma unroll
-    for (int t = 0; t < kT; ++t) {
+    for (int t = 0; t < kDecTiles; ++t) {
       if (t < nt) {
         const float res = (acc[t] + bo[t]) - xv[t];
         a.resid[(size_t)g * a.d + t * kWarp + lane] = res;
@@ -228,21 +167,7 @@ __global__ void __launch_bounds__(kSelThreads, 4) sae_select_decode_kernel(LossA
 #pragma unroll
     for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
   }
-  if (lane == 0) {
-    row_sq[warp] = sq;
-    row_l0[warp] = nsel;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    int l0 = 0;
-    for (int r = 0; r < kSelWarps; ++r) {
-      total += row_sq[r];
-      l0 += row_l0[r];
-    }
-    a.sq_partial[blockIdx.x] = total;
-    atomicAdd(&a.counts[0], l0);
-  }
+  cta_partial(sq, nsel, a.sq_partial, a.counts);
 }
 
 // -- kernel B -------------------------------------------------------------
@@ -417,7 +342,8 @@ extern "C" {
 // Largest row count / widths the kernels take (checked again in Python).
 int wst_max_row_width() { return wst::kMaxRow; }
 int wst_max_d() { return wst::kMaxD; }
-// Rows a CTA of kernel A's row kernel takes: one loss partial each.
+// Rows a CTA of the select-and-decode kernels takes (kernel A's and the
+// coder's TopK modes'): one loss partial each.
 int wst_rows_per_cta() { return wst::kSelWarps; }
 
 // xc[r, :] = bf16(x[row_offset + r, :] - b_pre) for r < rows (xc [rows,

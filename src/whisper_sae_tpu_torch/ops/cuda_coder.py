@@ -11,11 +11,16 @@ exact top-k mask or the ReLU, writes the bf16 latent, decodes it (plus
 the skip product), writes the f32 residual against the target and
 reduces sum(resid^2), the l0 count, the any-active vector and, in ReLU
 mode, sum(hid) and the per-feature hidden sums, the sums as partials
-added in a fixed order.  The TopK modes run one row kernel
-(``coder_rows_kernel<SKIP, Y_IS_X>``) and a sum; the ReLU modes run the
-cast to bf16, the encode and the dense decode on the Hopper GEMM of
-``csrc/encoder_gemm.cu`` (``gemm_kernel<kRelu>``, ``gemm_kernel<kResid>``)
-and two sums (:func:`coder_route_plain` transcribes that route).
+added in a fixed order.  Both families of modes start with the cast to
+bf16 and run their products on the Hopper GEMM of
+``csrc/encoder_gemm.cu``.  The TopK modes take kernel A's route: the
+encode with the f32 pre-activation epilogue (``gemm_kernel<kPre>``), in
+Skip mode a second one for the skip product, then a select-and-decode
+row kernel (``coder_select_decode_kernel<SKIP, Y_IS_X>``: the exact
+top-k, the latent and the sparse decode from the selected rows of
+W_dec) and a sum (:func:`coder_topk_route_plain` transcribes that route).
+The ReLU modes run the dense encode and decode (``gemm_kernel<kRelu>``,
+``gemm_kernel<kResid>``) and two sums (:func:`coder_route_plain`).
 
 The entry points keep the JAX names and the JAX parameter layout
 (``w_enc [D, H]``, ``w_dec [H, dout]``, ``w_skip [D, dout]``):
@@ -25,7 +30,7 @@ The entry points keep the JAX names and the JAX parameter layout
 ``*_indexed`` forms.  Each counts its launches in ``.launches``, and
 ``mode_launches`` counts them by (entry, mode).  A CUDA tensor goes to the
 kernel (or the wrapper raises); a CPU tensor to the plain version beside
-it, counted in ``plain_calls``.  The TopK row kernel holds a row of pre
+it, counted in ``plain_calls``.  The TopK modes' select holds a row of pre
 in one warp's registers, so the call takes H <= 3072 in every mode
 (:func:`coder_supported`, the port's counterpart of
 ``fused_coder_supported``); wider geometries are
@@ -67,11 +72,18 @@ def _bf16_t(w: torch.Tensor) -> torch.Tensor:
 
 
 class CoderOperands(NamedTuple):
+    """The kernel's operands; W_dec in the layout its mode reads, once."""
+
     we_t: torch.Tensor          # [H, D] bf16
     b_enc: torch.Tensor         # [H] f32
-    wd_t: torch.Tensor          # [dout, H] bf16
+    wd_t: torch.Tensor | None   # [dout, H] bf16: ReLU modes (the decode GEMM's B)
     b_out: torch.Tensor         # [dout] f32: b_dec (+ b_skip)
-    ws_t: torch.Tensor | None   # [dout, D] bf16, or None without the skip path
+    ws_t: torch.Tensor | None = None   # [dout, D] bf16, or None without the skip path
+    wd: torch.Tensor | None = None     # [H, dout] bf16: TopK modes (the rows the decode gathers)
+
+    def w_dec(self) -> torch.Tensor:
+        """W_dec [H, dout] bf16 (a view of ``wd_t`` in ReLU mode)."""
+        return self.wd_t.t() if self.wd is None else self.wd
 
 
 class CoderOut(NamedTuple):
@@ -85,9 +97,12 @@ class CoderOut(NamedTuple):
     hsum: torch.Tensor | None    # [H] per-feature sum of hid, ReLU mode
 
 
-def operands(w_enc, b_enc, w_dec, b_out, w_skip=None) -> CoderOperands:
-    return CoderOperands(_bf16_t(w_enc), b_enc.detach(), _bf16_t(w_dec), b_out.detach(),
-                         None if w_skip is None else _bf16_t(w_skip))
+def operands(w_enc, b_enc, w_dec, b_out, w_skip=None, *, topk: bool = False) -> CoderOperands:
+    """The bf16 copies a call reads: W_dec as ``wd`` [H, dout] for the
+    TopK modes (``topk``), as ``wd_t`` [dout, H] for the ReLU modes."""
+    wd = w_dec.detach().to(torch.bfloat16).contiguous() if topk else None
+    return CoderOperands(_bf16_t(w_enc), b_enc.detach(), None if topk else _bf16_t(w_dec),
+                         b_out.detach(), None if w_skip is None else _bf16_t(w_skip), wd)
 
 
 def coder_forward_plain(x: torch.Tensor, y: torch.Tensor | None, ops: CoderOperands,
@@ -98,7 +113,7 @@ def coder_forward_plain(x: torch.Tensor, y: torch.Tensor | None, ops: CoderOpera
     pre = mm_f32(xc, ops.we_t.t()) + ops.b_enc
     hidden = torch.relu(pre) if k is None else topk_mask_plain(pre, k)
     hid = hidden.bfloat16()
-    pred = mm_f32(hid, ops.wd_t.t()) + ops.b_out
+    pred = mm_f32(hid, ops.w_dec()) + ops.b_out
     if ops.ws_t is not None:
         pred = pred + mm_f32(xc, ops.ws_t.t())
     resid = pred - (x if y is None else y).float()
@@ -111,7 +126,7 @@ def coder_forward_plain(x: torch.Tensor, y: torch.Tensor | None, ops: CoderOpera
 def _fixed_order_sum(v: torch.Tensor, threads: int = 256) -> torch.Tensor:
     """``coder_sum_kernel``'s order: thread t adds v[t], v[t + 256], ... in
     turn, then a halving tree over the 256 threads."""
-    buf = torch.zeros(threads, dtype=torch.float32)
+    buf = torch.zeros(threads, dtype=torch.float32, device=v.device)
     for i in range(0, v.numel(), threads):
         part = v[i:i + threads]
         buf[:part.numel()] += part
@@ -139,7 +154,7 @@ def coder_route_plain(x: torch.Tensor, row_offset: int, rows: int,
     xw = x[row_offset:row_offset + rows]
     xc = xw.bfloat16()
     h = ops.we_t.shape[0]
-    dout = ops.wd_t.shape[0]
+    dout = ops.b_out.shape[0]
     padded = -(-rows // tile) * tile
     pre = torch.cat([mm_f32(xc, ops.we_t.t()) + ops.b_enc,
                      ops.b_enc.expand(padded - rows, h)])
@@ -162,6 +177,52 @@ def coder_route_plain(x: torch.Tensor, row_offset: int, rows: int,
                     hid, resid, xc, _fixed_order_sum(hsum), hsum)
 
 
+def coder_topk_route_plain(x: torch.Tensor, y: torch.Tensor | None, row_offset: int, rows: int,
+                           ops: CoderOperands, k: int, pass_cols: int) -> CoderOut:
+    """The TopK modes' CUDA route written out in plain PyTorch, for the
+    tests: ``x[row_offset : row_offset + rows]`` to bf16, the encode (the
+    kPre product), in Skip mode the base ``xc @ W_skip + b_out`` first (the
+    second kPre product), the exact top-k and the bf16 latent; then each
+    row's decode from its selected rows of W_dec in feature order, in
+    passes of ``pass_cols`` output columns (the kernel's 384), resid =
+    (decode + base) - y (``y`` None: the rows themselves); one sum(resid^2)
+    partial a CTA of ``_build.SEL_ROWS`` rows, its rows added in order,
+    and the partials in ``coder_sum_kernel``'s fixed order.  A row's sum
+    of squares runs in PyTorch's order, not the warp's."""
+    win = slice(row_offset, row_offset + rows)
+    xw = x[win]
+    target = (xw if y is None else y[win]).float()
+    xc = xw.bfloat16()
+    pre = mm_f32(xc, ops.we_t.t()) + ops.b_enc
+    base = (mm_f32(xc, ops.ws_t.t()) + ops.b_out if ops.ws_t is not None
+            else ops.b_out.expand(rows, -1))
+    hidden = topk_mask_plain(pre, k)
+    hid = hidden.bfloat16()
+    pos = hidden > 0
+    h, dout = hid.shape[1], ops.b_out.shape[0]
+    dev = hid.device
+    # each row's selections in feature order, padded with feature h: a zero row of W_dec
+    nsel = int(pos.sum(dim=1).max())
+    feats = torch.where(pos, torch.arange(h, device=dev), h).sort(dim=1).values[:, :nsel]
+    hv = torch.cat([hid.float(), torch.zeros(rows, 1, device=dev)], dim=1).gather(1, feats)
+    wd = torch.cat([ops.w_dec().float(), torch.zeros(1, dout, device=dev)])
+    resid = torch.empty(rows, dout, device=dev)
+    for c0 in range(0, dout, pass_cols):
+        cols = slice(c0, c0 + pass_cols)
+        acc = torch.zeros(rows, min(pass_cols, dout - c0), device=dev)
+        for j in range(nsel):
+            acc = acc + hv[:, j:j + 1] * wd[feats[:, j], cols]
+        resid[:, cols] = (acc + base[:, cols]) - target[:, cols]
+    per_cta = _build.SEL_ROWS
+    row_sq = torch.zeros(-(-rows // per_cta) * per_cta, device=dev)
+    row_sq[:rows] = (resid * resid).sum(dim=1)
+    row_sq = row_sq.view(-1, per_cta)
+    parts = row_sq[:, 0]
+    for r in range(1, per_cta):
+        parts = parts + row_sq[:, r]
+    return CoderOut(_fixed_order_sum(parts), pos.sum(), pos.any(dim=0), hid, resid, xc, None, None)
+
+
 def _check(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
     if (t.device != device or t.dtype not in dtypes or tuple(t.shape) != shape
             or not t.is_contiguous()):
@@ -176,7 +237,7 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
     of ``y``), CUDA only."""
     lib = _build.load_library()
     h, d = ops.we_t.shape
-    dout = ops.wd_t.shape[0]
+    dout = ops.b_out.shape[0]
     dev = x.device
     rows_t = (torch.float32, torch.bfloat16)
     if x.dim() != 2:
@@ -189,41 +250,47 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
     if d % 32 or h % 32 or dout % 32:
         raise ValueError(f"the coder kernel takes D, H and dout multiples of 32 (got {d}, {h}, {dout})")
     if h > lib.wst_max_row_width():
-        raise ValueError(f"the coder kernel holds a row in one warp's registers: "
-                         f"H <= {lib.wst_max_row_width()} (got {h})")
+        raise ValueError(f"the coder kernel's TopK select holds a row of pre in one warp's "
+                         f"registers: H <= {lib.wst_max_row_width()} (got {h})")
     if k is not None and not 1 <= k <= h:
         raise ValueError(f"need 1 <= k <= H (got k={k}, H={h})")
     if rows <= 0 or row_offset < 0 or row_offset + rows > x.shape[0]:
         raise ValueError(f"window [{row_offset}, {row_offset + rows}) outside {x.shape[0]} rows")
+    relu = k is None
     bf, f32 = (torch.bfloat16,), (torch.float32,)
     _check("w_enc_t", ops.we_t, dev, bf, (h, d))
     _check("b_enc", ops.b_enc, dev, f32, (h,))
-    _check("w_dec_t", ops.wd_t, dev, bf, (dout, h))
+    wd, wd_name, wd_shape = (ops.wd_t, "w_dec_t", (dout, h)) if relu else (ops.wd, "w_dec", (h, dout))
+    if wd is None:
+        raise ValueError(f"{'ReLU' if relu else 'TopK'} mode reads W_dec as {wd_name} {wd_shape}: "
+                         f"operands(..., topk={not relu})")
+    _check(wd_name, wd, dev, bf, wd_shape)
     _check("b_out", ops.b_out, dev, f32, (dout,))
     if ops.ws_t is not None:
         _check("w_skip_t", ops.ws_t, dev, bf, (dout, d))
-    relu = k is None
-    if relu:
-        if y is not None or ops.ws_t is not None:
-            raise ValueError("ReLU mode takes the rows as their own target and no skip path")
-        for name, t in (("x", x), ("w_enc_t", ops.we_t), ("w_dec_t", ops.wd_t)):
-            if t.data_ptr() % 16:  # read by TMA (the weights) and 16 bytes at a time (x)
-                raise ValueError(f"coder_fwd: {name} must be 16-byte aligned")
-        tile = lib.wst_gemm_tile()  # the ReLU partials: one a tile, hsum one a half tile of rows
-        sq_parts = -(-rows // tile) * -(-dout // tile)
-    else:
-        sq_parts = -(-rows // lib.wst_coder_rows_per_cta())
+    if relu and (y is not None or ops.ws_t is not None):
+        raise ValueError("ReLU mode takes the rows as their own target and no skip path")
+    # read 16 bytes at a time (x, by the cast) and by TMA (the GEMMs' weights)
+    aligned = (("x", x), ("w_enc_t", ops.we_t), (wd_name, wd) if relu else ("w_skip_t", ops.ws_t))
+    for name, t in aligned:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"coder_fwd: {name} must be 16-byte aligned")
     hid = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
     resid = torch.empty((rows, dout), dtype=torch.float32, device=dev)
     xc = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)
-    sq_partial = torch.empty((sq_parts,), dtype=torch.float32, device=dev)
-    hsum_partial = (torch.empty((-(-rows // (tile // 2)), h), dtype=torch.float32, device=dev)
-                    if relu else None)
-    hsum = torch.empty((h,), dtype=torch.float32, device=dev) if relu else None
-    # ReLU mode: l0 alone, set by the call; a feature is active when its hidden sum is positive
-    counts = (torch.empty((1,), dtype=torch.int32, device=dev) if relu
-              else torch.zeros((1 + h,), dtype=torch.int32, device=dev))
     sums = torch.empty((2,), dtype=torch.float32, device=dev)
+    pre = hsum_partial = hsum = None
+    if relu:
+        tile = lib.wst_gemm_tile()  # the ReLU partials: one a tile, hsum one a half tile of rows
+        sq_parts = -(-rows // tile) * -(-dout // tile)
+        hsum_partial = torch.empty((-(-rows // (tile // 2)), h), dtype=torch.float32, device=dev)
+        hsum = torch.empty((h,), dtype=torch.float32, device=dev)
+        counts = torch.empty((1,), dtype=torch.int32, device=dev)  # l0; active: hsum > 0
+    else:
+        sq_parts = -(-rows // lib.wst_rows_per_cta())
+        pre = torch.empty((rows, h), dtype=torch.float32, device=dev)  # the encode's workspace
+        counts = torch.empty((1 + h,), dtype=torch.int32, device=dev)  # l0, active
+    sq_partial = torch.empty((sq_parts,), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -232,9 +299,9 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
         x.data_ptr(), int(x.dtype == torch.bfloat16), ptr(y),
         int(y is not None and y.dtype == torch.bfloat16), row_offset, rows, d, h, dout,
         0 if relu else k, int(ops.ws_t is not None), int(y is None),
-        ops.we_t.data_ptr(), ops.b_enc.data_ptr(), ops.wd_t.data_ptr(), ops.b_out.data_ptr(),
-        ptr(ops.ws_t), hid.data_ptr(), resid.data_ptr(), xc.data_ptr(), sq_partial.data_ptr(),
-        ptr(hsum_partial), counts.data_ptr(), sums.data_ptr(), ptr(hsum),
+        ops.we_t.data_ptr(), ops.b_enc.data_ptr(), wd.data_ptr(), ops.b_out.data_ptr(),
+        ptr(ops.ws_t), hid.data_ptr(), resid.data_ptr(), xc.data_ptr(), ptr(pre),
+        sq_partial.data_ptr(), ptr(hsum_partial), counts.data_ptr(), sums.data_ptr(), ptr(hsum),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(err, "coder_fwd")
@@ -287,13 +354,13 @@ class _TranscoderLoss(torch.autograd.Function):
                 entry):
         use_skip = w_skip is not None
         b_out = b_dec + b_skip if use_skip else b_dec
-        ops = operands(w_enc, b_enc, w_dec, b_out, w_skip)
+        ops = operands(w_enc, b_enc, w_dec, b_out, w_skip, topk=True)
         mode = "skip_transcoder" if use_skip else ("topk_crosscoder" if y is None else "topk_transcoder")
         out = coder_forward(x, y, row_offset, rows, ops, k, entry, mode)
-        dout = ops.wd_t.shape[0]
+        dout = ops.b_out.shape[0]
         loss = out.sq / (rows * dout)
         l0 = out.l0.float() / rows
-        ctx.save_for_backward(out.hid, out.resid, out.xc, ops.we_t, ops.wd_t,
+        ctx.save_for_backward(out.hid, out.resid, out.xc, ops.we_t, ops.wd,
                               *(() if ops.ws_t is None else (ops.ws_t,)))
         ctx.meta = (row_offset, rows, use_skip, y is None)
         ctx.like = (_like(x), _like(y))
@@ -303,14 +370,14 @@ class _TranscoderLoss(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gl, _g_l0, _g_active, g_resid, g_hid):
-        hid, resid, xc, we_t, wd_t, *ws = ctx.saved_tensors
+        hid, resid, xc, we_t, wd, *ws = ctx.saved_tensors
         row_offset, rows, use_skip, y_is_x = ctx.meta
         dout = resid.shape[1]
         d_pred = resid * (2.0 * _or0(gl) / (rows * dout))
         if g_resid is not None:
             d_pred = d_pred + g_resid
         dp_bf = d_pred.bfloat16()
-        dhidden = mm_f32(dp_bf, wd_t)
+        dhidden = mm_f32(dp_bf, wd.t())
         if g_hid is not None:
             dhidden = dhidden + g_hid.float()
         dpre = torch.where(hid > 0, dhidden, torch.zeros((), device=dhidden.device))

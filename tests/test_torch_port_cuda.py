@@ -298,8 +298,9 @@ DL, HL = 1280, 40960
 
 def test_gate_constants_match_the_library(dev):
     lib = _build.load_library()
-    assert (_build.MAX_D, _build.MAX_ROW, _build.MAX_WIDE_ROW) == (
-        lib.wst_max_d(), lib.wst_max_row_width(), lib.wst_max_wide_row_width())
+    assert (_build.MAX_D, _build.MAX_ROW, _build.MAX_WIDE_ROW, _build.SEL_ROWS) == (
+        lib.wst_max_d(), lib.wst_max_row_width(), lib.wst_max_wide_row_width(),
+        lib.wst_rows_per_cta())
 
 
 def test_blocked_product_gemm_matches_f32_product(dev):
@@ -759,7 +760,7 @@ def _coder_inputs(mode, n, seed, x_dtype=torch.float32, device="cuda"):
     b_enc = torch.randn(h, generator=g) * 0.05
     b_out = torch.randn(dout, generator=g) * 0.05
     ops = CC.operands(w_enc.to(device), b_enc.to(device), w_dec.to(device), b_out.to(device),
-                      None if w_skip is None else w_skip.to(device))
+                      None if w_skip is None else w_skip.to(device), topk=k is not None)
     return x.to(device), None if y is None else y.to(device), ops, k
 
 
@@ -875,7 +876,7 @@ def test_coder_kernel_refuses_shapes(dev):
     with pytest.raises(ValueError, match="multiples of 32"):
         CC._coder_launch(x[:, :100].contiguous(), y, 0, 64,
                          CC.operands(torch.zeros(100, 3072, device=dev), ops.b_enc,
-                                     torch.zeros(3072, 384, device=dev), ops.b_out), k)
+                                     torch.zeros(3072, 384, device=dev), ops.b_out, topk=True), k)
     with pytest.raises(ValueError, match="window"):
         CC._coder_launch(x, y, 32, 64, ops, k)
     with pytest.raises(ValueError, match="b_enc must be"):
@@ -980,8 +981,8 @@ def test_coder_gemms_match_f32_product(dev, d, h, rows):
 
 def test_coder_relu_is_five_launches(dev):
     """A ReLU call counts one launch on its wrapper and is five kernels on
-    the card, none more than once a call; the TopK modes' row kernel does
-    not run.  Over 4 profiled calls each kernel is seen at least once and
+    the card, none more than once a call; the TopK modes' encode and select
+    do not run.  Over 4 profiled calls each kernel is seen at least once and
     at most 4 times: the profiler has missed the first kernel of a C call
     now and then (coder_cast_kernel here; kernel A's sae_centre_kernel, 2
     of 10, in another run), which ran, as every result test shows."""
@@ -1003,7 +1004,8 @@ def test_coder_relu_is_five_launches(dev):
             if e.device_type == DeviceType.CUDA]
     for name in RELU_PARTS:
         assert 1 <= sum(name in key for key in keys) <= calls, (name, keys)
-    assert not any("coder_rows_kernel" in key for key in keys), keys
+    assert not any("coder_select_decode_kernel" in key or "gemm_kernel<3>" in key
+                   for key in keys), keys
 
 
 @pytest.mark.parametrize("mode", ["relu_sae", "relu_crosscoder"])
@@ -1022,3 +1024,133 @@ def test_coder_relu_route_refuses(dev):
         CC._coder_launch(x, x.clone(), 0, 64, ops, None)
     with pytest.raises(ValueError, match="16-byte aligned"):
         CC._coder_launch(x.view(-1)[2:2 + 63 * 384].view(63, 384), None, 0, 63, ops, None)
+
+
+# ---------------------------------------------------------------------------
+# the coder kernel's TopK modes on kernel A's route: the cast, the kPre encode
+# on the Hopper GEMM (twice in Skip mode: the skip product is the second),
+# coder_select_decode_kernel and coder_sum_kernel, at the bars of
+# _check_coder above
+# ---------------------------------------------------------------------------
+
+TOPK_MODES = ("skip_transcoder", "topk_transcoder", "topk_crosscoder")
+
+
+@pytest.mark.parametrize("mode", TOPK_MODES)
+@pytest.mark.parametrize("offset,rows,n,x_dtype", [
+    (0, 4096, 4096, torch.float32), (4096, 4096, 8192, torch.bfloat16),
+    (37, 100, 300, torch.float32), (37, 100, 300, torch.bfloat16)])
+def test_coder_topk_route_matches_both_plain_versions(dev, mode, offset, rows, n, x_dtype):
+    """Sliced, at a row offset and on a 100-row window (not a whole number
+    of the select's 4-row CTAs), f32 and bf16 rows, against
+    ``coder_forward_plain`` and the route written out
+    (``coder_topk_route_plain``, 384-column passes)."""
+    x, y, ops, k = _coder_inputs(mode, n, 30, x_dtype)
+    got = CC._coder_launch(x, y, offset, rows, ops, k)
+    win = slice(offset, offset + rows)
+    want = CC.coder_forward_plain(x[win], None if y is None else y[win], ops, k)
+    _check_coder(got, want, k, f"{mode} [{offset}, {offset + rows})")
+    route = CC.coder_topk_route_plain(x, y, offset, rows, ops, k, 384)
+    _check_coder(got, route, k, f"{mode} [{offset}, {offset + rows}) route")
+
+
+def test_coder_topk_crosscoder_at_32768_rows(dev):
+    """The TopK crosscoder (dout = 1536: four decode passes) at 32768 rows
+    against both plain versions."""
+    x, y, ops, k = _coder_inputs("topk_crosscoder", 32768, 31)
+    got = CC._coder_launch(x, y, 0, 32768, ops, k)
+    _check_coder(got, CC.coder_forward_plain(x, None, ops, k), k, "topk_crosscoder 32768")
+    _check_coder(got, CC.coder_topk_route_plain(x, None, 0, 32768, ops, k, 384), k,
+                 "topk_crosscoder 32768 route")
+
+
+@pytest.mark.parametrize("mode", TOPK_MODES)
+def test_coder_select_matches_plain_on_its_pre(dev, mode):
+    """The select and decode against the plain version on the pre they
+    ran on (the kPre GEMM again on the call's bf16 rows: it gives the same
+    bits every launch): the latent bit-identical, l0 and active exact, the
+    residual the decode of that latent plus the base, minus y (atol 1e-4 of
+    the largest value: f32 sums of exact products in another order)."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    offset, rows = 37, 300
+    x, y, ops, k = _coder_inputs(mode, offset + rows + 20, 32)
+    got = CC._coder_launch(x, y, offset, rows, ops, k)
+    h = ops.we_t.shape[0]
+    pre = torch.empty(rows, h, device=dev)
+    _pre_gemm(got.xc, ops.we_t, ops.b_enc, pre)
+    torch.cuda.synchronize()
+    want = topk_mask_plain(pre, k)
+    assert torch.equal(got.hid, want.bfloat16())
+    assert int(got.l0) == int((want > 0).sum()) and torch.equal(got.active, (want > 0).any(dim=0))
+    win = slice(offset, offset + rows)
+    base = ops.b_out if ops.ws_t is None else mm_f32(got.xc, ops.ws_t.t()) + ops.b_out
+    target = x[win] if y is None else y[win]
+    want_resid = mm_f32(got.hid, ops.wd) + base - target
+    torch.testing.assert_close(got.resid, want_resid, rtol=0,
+                               atol=1e-4 * float(want_resid.abs().max()))
+    torch.testing.assert_close(got.sq, (want_resid * want_resid).sum(), rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("mode", TOPK_MODES)
+@pytest.mark.parametrize("offset,rows", [(37, 100), (300, 1000)])
+def test_coder_topk_route_deterministic(dev, mode, offset, rows):
+    x, y, ops, k = _coder_inputs(mode, offset + rows + 50, 33)
+    a = CC._coder_launch(x, y, offset, rows, ops, k)
+    b = CC._coder_launch(x, y, offset, rows, ops, k)
+    for u, v in zip(a, b):
+        assert u is None or torch.equal(u, v)
+
+
+@pytest.mark.parametrize("mode", TOPK_MODES)
+def test_coder_topk_is_four_or_five_launches(dev, mode):
+    """A TopK call counts one launch on its wrapper and is four kernels on
+    the card (five in Skip mode, whose skip product is a second
+    gemm_kernel<3>); the ReLU modes' GEMMs do not run.  Counted over 4
+    profiled calls, as in test_coder_relu_is_five_launches: each kernel at
+    least once a call but for the first of a C call, which the profiler
+    has missed now and then."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = 4
+    x, y, ops, k = _coder_inputs(mode, 512, 34)
+    skip = mode == "skip_transcoder"
+    w = (ops.we_t.t().float(), ops.b_enc, ops.wd.float(), ops.b_out)
+    extra = (ops.ws_t.t().float(), torch.zeros_like(ops.b_out)) if skip else (None, None)
+
+    def call():
+        return CC.fused_transcoder_loss(x, y, *w, *extra, k, skip, y is None)
+
+    call()
+    torch.cuda.synchronize()
+    before = CC.fused_transcoder_loss.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            call()
+        torch.cuda.synchronize()
+    assert CC.fused_transcoder_loss.launches - before == calls
+    keys = [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type == DeviceType.CUDA]
+    parts = {"coder_cast_kernel": 1, "gemm_kernel<3>": 2 if skip else 1,
+             "coder_select_decode_kernel": 1, "coder_sum_kernel": 1}
+    for name, per_call in parts.items():
+        assert 1 <= sum(name in key for key in keys) <= per_call * calls, (name, keys)
+    assert sum("gemm_kernel<3>" in key for key in keys) >= (calls + 1 if skip else 1), keys
+    assert not any(name in key for key in keys for name in ("gemm_kernel<4>", "gemm_kernel<5>",
+                                                            "coder_hsum_kernel")), keys
+
+
+def test_coder_topk_route_refuses(dev):
+    """x and W_skip^T must be 16-byte aligned (the cast reads x 16 bytes at
+    a time, TMA reads W_skip^T); TopK mode needs W_dec as its rows."""
+    x, y, ops, k = _coder_inputs("skip_transcoder", 64, 35)
+    with pytest.raises(ValueError, match="x must be 16-byte aligned"):
+        CC._coder_launch(x.view(-1)[2:2 + 63 * 384].view(63, 384), y[:63].contiguous(), 0, 63,
+                         ops, k)
+    ws = torch.empty(384 * 384 + 8, dtype=torch.bfloat16, device=dev)[2:2 + 384 * 384]
+    with pytest.raises(ValueError, match="w_skip_t must be 16-byte aligned"):
+        CC._coder_launch(x, y, 0, 64, ops._replace(ws_t=ws.view(384, 384)), k)
+    relu_ops = ops._replace(wd=None, wd_t=ops.wd.t().contiguous())
+    with pytest.raises(ValueError, match="TopK mode reads W_dec"):
+        CC._coder_launch(x, y, 0, 64, relu_ops, k)
