@@ -39,18 +39,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    work.
 
 5. Encoder kernels at whisper-tiny width (D=384, 6 heads, F=1536,
-   T=1500, 80 mels), 64 clips: the conv stem, LN+QKV, the attention core
+   T=1500, 80 mels), 64 clips: the conv stem (three launches: the prep,
+   conv1 and conv2 as tap products on the Hopper GEMM of
+   ``ops/csrc/encoder_gemm.cu``), LN+QKV, the attention core
    (also launched as the composed route's flash attention), the
    out-projection, the whole attention block and the MLP block in all
    four output modes, each against its plain version on the same card
    inputs at the one-block bar (max|d| <= 2**-6 max|ref|, mean|d| <=
    2**-9 mean|ref|).  LN+QKV, the out-projection and the MLP block (all
-   on the Hopper GEMM of ``ops/csrc/encoder_gemm.cu``) also at every
-   width the gate takes (D = 384 .. 1536, heads of 64, F = 4D) on a
-   ragged 64*1500 - 37 rows and on 100 rows, the MLP block in all four
-   modes (on the ragged rows against its plain version on one row in 16
-   of every tile and the whole last tile); they and the attention core
-   give the same bits on two launches.
+   on the same GEMM) also at every width the gate takes (D = 384 ..
+   1536, heads of 64, F = 4D) on a ragged 64*1500 - 37 rows and on 100
+   rows, the MLP block in all four modes (on the ragged rows against its
+   plain version on one row in 16 of every tile and the whole last
+   tile), and the stem at every gate width for 80 and 128 mels on 2
+   clips; they, the stem and the attention core give the same bits on
+   two launches.
 6. Extraction through the CLI (``--extract-only --random-whisper``,
    tiny_default.yaml's widths and layers, the synthetic dataset, 128
    clips, bf16): every encoder kernel's launch count is zeroed before
@@ -67,7 +70,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 7. Times of the extraction slice: ``extract_activations`` at batch 64
    (bf16, all layers captured, decoder on), the CLI extraction end to
    end, the device's busy share under ``torch.profiler`` and the attention
-   and MLP blocks' parts of it, and each
+   and MLP blocks' parts of it, the stem's three launches' device ms
+   (``torch.profiler``), and each
    encoder kernel beside its plain version, its bound and a library
    yardstick (``torch.matmul`` for the projections, the conv1d pair for
    the stem, ``scaled_dot_product_attention`` for the core -- yardsticks,
@@ -157,8 +161,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     batch 8192 under ``torch.profiler``.
 
 14. Encoder kernels at whisper-large-v3 width (D=1280, 20 heads, F=5120,
-    T=1500, 128 mels), 16 clips (the CLI run's batch): the conv stem's
-    wide form, the MLP block (all four output modes), LN+QKV, the
+    T=1500, 128 mels), 16 clips (the CLI run's batch): the conv stem,
+    the MLP block (all four output modes), LN+QKV, the
     attention core (T unpadded, and with keys from 1437 masked; also as
     the flash route), the out-projection and the whole attention block,
     each against its plain version at the one-block bar; the attention
@@ -169,9 +173,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     --random-whisper``, weights made on the card from the config's seed,
     the synthetic dataset, 16 clips, bf16, the full 32+32-layer forward,
     encoder layers 0 and 31 and decoder layer 31 captured): every
-    encoder wrapper's count is zeroed before and read after (the wide
-    stem once a batch, the attention launches and the MLP block once a
-    layer and batch, the narrow stem and the plain versions no time);
+    encoder wrapper's count is zeroed before and read after (the stem
+    once a batch, the attention launches and the MLP block once a layer
+    and batch, the plain versions no time);
     the caches hold 16*1500 (16) finite rows of 1280 and agree
     with ``extract_activations`` on 2 clips at the stack bar.  Then, on
     those 2 clips, every layer of the fused route is held against the
@@ -185,7 +189,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     and the host operations that ran in them) and the
     encoder's and the decoder's part on the host clock; each encoder
     kernel beside its plain version, its bound and a library yardstick,
-    the weight preparation and the kernels' parts as in phase 7.
+    the weight preparation, the kernels' parts and the stem's three
+    launches as in phase 7.
 17. Out of core through the CLI: a cache of 2 shards (65,536 + 32,768
     rows x 384) trained for one epoch at tiny_default.yaml's widths; the
     CLI streams it batch by batch through the prefetching shard loader,
@@ -276,6 +281,10 @@ BLOCKED_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/blocked_encode.cu"
 # (at whisper-large 32x the product walks column tiles first)
 BLOCKED_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_cols_kernel<3>",
                  "select": "blocked_select_kernel"}
+# the conv stem's three launches (the GEMM's conv row order, epilogues 2
+# and 6: kGelu, kGeluPos)
+STEM_PARTS = {"prep": "stem_prep_kernel", "conv1": "gemm_conv_kernel<2>",
+              "conv2": "gemm_conv_kernel<6>"}
 ATTN_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/attention_kernel.cu"
 GEMM_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/encoder_gemm.cu"
 # every width the fused route's gate takes (ops/encoder.py:fused_encoder_supported)
@@ -777,7 +786,10 @@ def encoder_kernel_phase(dev, W, E, CE, arch=None, b: int = ENC_B) -> tuple[dict
     lp, errs, d, heads = inp["lp"], {}, inp["d"], inp["heads"]
     before = enc_launches(CE)
     x = E.conv_stem_plain(*inp["stem"])
-    errs["conv_stem"] = bar_check(CE.conv_stem_fwd(*inp["stem"]), x, BLOCK_BAR, "conv_stem")
+    stem = CE.conv_stem_fwd(*inp["stem"])
+    errs["conv_stem"] = bar_check(stem, x, BLOCK_BAR, "conv_stem")
+    check(torch.equal(stem, CE.conv_stem_fwd(*inp["stem"])), "conv_stem: two launches differ")
+    del stem
     rows = x.view(-1, d)
     qkv = E.ln_qkv_plain(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
     got = CE.ln_qkv_fwd(rows, lp["ln1_g"], lp["ln1_b"], lp["attn"], heads)
@@ -826,8 +838,8 @@ def encoder_kernel_phase(dev, W, E, CE, arch=None, b: int = ENC_B) -> tuple[dict
              if k.startswith(("conv_stem", "mlp_block")) and n > before[k]}
     log("  " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
         + f", attention block {block_err:.3g} (max abs err, each within the one-block bar; "
-        f"B={b}; stem and MLP forms launched {forms}; the attention core, LN+QKV, the "
-        "out-projection and the MLP block bit-identical run to run)")
+        f"B={b}; stem and MLP forms launched {forms}; the stem, the attention core, LN+QKV, "
+        "the out-projection and the MLP block bit-identical run to run)")
     inp.update(x=x, rows=rows, q=q, k=k, v=v, arows=arows, brows=brows)
     return errs, inp
 
@@ -848,8 +860,9 @@ def gemm_width_sweep(dev, E, CE, b: int) -> dict:
     output modes; two launches equal.  On the ragged rows the MLP block's
     plain version runs on the rows of ``mlp_sample`` (the block is row by
     row; its f32 products on every row of every width would take minutes).
-    Returns the max abs errors."""
-    errs = {"ln_qkv": 0.0, "out_proj": 0.0, "mlp_block": 0.0}
+    The conv stem at every width for 80 and 128 mels on 2 clips of 1500
+    frames, two launches equal.  Returns the max abs errors."""
+    errs = {"ln_qkv": 0.0, "out_proj": 0.0, "mlp_block": 0.0, "conv_stem": 0.0}
     for d in GATE_WIDTHS:
         g = torch.Generator().manual_seed(d)
 
@@ -896,9 +909,20 @@ def gemm_width_sweep(dev, E, CE, b: int) -> dict:
                     check(torch.equal(a, a2), f"{what}: two launches differ")
                 del got, again
             del x, ref
+        for n_mels in (80, 128):
+            stem = (r(d, n_mels, 3, scale=(3 * n_mels) ** -0.5), r(d),
+                    r(d, d, 3, scale=(3 * d) ** -0.5), r(d), r(ENC_T, d))
+            mel = r(2, n_mels, 2 * ENC_T, scale=0.5)
+            got = CE.conv_stem_fwd(mel, *stem)
+            errs["conv_stem"] = max(errs["conv_stem"], bar_check(
+                got, E.conv_stem_plain(mel, *stem), BLOCK_BAR, f"conv_stem D={d} mels={n_mels}"))
+            check(torch.equal(got, CE.conv_stem_fwd(mel, *stem)),
+                  f"conv_stem D={d} mels={n_mels}: two launches differ")
+            del stem, mel, got
     log(f"  LN+QKV, out-projection and MLP block (4 modes) at D={list(GATE_WIDTHS)}, rows "
         f"{b * ENC_T - 37} and 100: max abs err {errs['ln_qkv']:.3g} / {errs['out_proj']:.3g} / "
-        f"{errs['mlp_block']:.3g}, each within the one-block bar, two launches equal")
+        f"{errs['mlp_block']:.3g}; the stem (80 and 128 mels, 2 clips) {errs['conv_stem']:.3g}; "
+        "each within the one-block bar, two launches equal")
     return errs
 
 
@@ -921,7 +945,6 @@ def extraction_config(work: Path) -> Path:
 
 ENC_WRAPPERS = ("conv_stem", "ln_qkv", "self_attention", "out_proj", "mlp_block",
                 "flash_self_attention")
-WIDE_FORMS = {"conv_stem_wide": "conv_stem"}  # D > 512
 
 
 def enc_source(name: str) -> str:
@@ -932,30 +955,28 @@ def enc_source(name: str) -> str:
 
 def prep_entry(name: str, parts: dict) -> dict:
     """The ``kernels`` line's extra keys of an encoder kernel: the one-off
-    weight preparation and, for LN+QKV, the out-projection and the MLP
-    block, the parts timed alone (the LN launches, the GEMMs)."""
+    weight preparation, for LN+QKV, the out-projection and the MLP block
+    the parts timed alone (the LN launches, the GEMMs), and for the stem
+    each launch's device ms (``split_ms``)."""
     key = {"ln_qkv": "qkv", "out_proj": "out_proj", "mlp_block": "mlp", "conv_stem": "stem"}
     out = {}
     if name in key:
         out["weight_prep_ms"] = parts["prep_ms"][key[name]]
     if name in parts["parts_ms"]:
         out["parts_ms"] = parts["parts_ms"][name]
+    if name == "conv_stem":
+        out["split_ms"] = parts["stem_split_ms"]
     return out
 
 
 def enc_launches(CE) -> dict:
-    """Launches by kernel, the stem's wide form apart."""
-    counts = {name: getattr(CE, f"{name}_fwd").launches for name in ENC_WRAPPERS}
-    counts.update({wide: getattr(CE, f"{name}_fwd").wide_launches
-                   for wide, name in WIDE_FORMS.items()})
-    return counts
+    """Launches by kernel."""
+    return {name: getattr(CE, f"{name}_fwd").launches for name in ENC_WRAPPERS}
 
 
 def reset_enc_launches(CE) -> None:
     for name in ENC_WRAPPERS:
         getattr(CE, f"{name}_fwd").launches = 0
-    for name in WIDE_FORMS.values():
-        getattr(CE, f"{name}_fwd").wide_launches = 0
 
 
 def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E, CE) -> dict:
@@ -978,7 +999,7 @@ def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E
     layers = len(cfg.encoder_layers)
     want = {"conv_stem": batches, "ln_qkv": layers * batches, "self_attention": layers * batches,
             "out_proj": layers * batches, "mlp_block": layers * batches,
-            "flash_self_attention": 0, "conv_stem_wide": 0}
+            "flash_self_attention": 0}
     check(launches == want, f"extraction launches {launches} != {want}")
     check(sum(E.plain_calls.values()) == 0, f"plain versions ran on the card: {E.plain_calls}")
 
@@ -1338,12 +1359,16 @@ def encoder_prep_and_parts(inp: dict, CE, lib) -> dict:
         for name, fn in parts.items():
             check(fn() == 0, f"{name}: launch failed")
             parts_ms[kernel][name] = time_ms(fn)
+    stem_split = launch_split(lambda: CE.conv_stem_fwd(*inp["stem"]), STEM_PARTS)
     log("  weight preparation, one-off ms a layer (built once per parameter tensor, not in "
         "the kernel times): " + ", ".join(f"{k} {v:.4f}" for k, v in prep_ms.items()))
     for kernel, parts in parts_ms.items():
         log(f"  {kernel}'s launches alone ({n} rows, D={d}), ms: "
             + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()))
-    return {"prep_ms": prep_ms, "parts_ms": parts_ms}
+    log(f"  conv_stem's three launches, device ms a call ({inp['b']} clips, D={d}; "
+        "torch.profiler): " + ", ".join(
+            f"{k} {'not measured' if v is None else f'{v:.4f}'}" for k, v in stem_split.items()))
+    return {"prep_ms": prep_ms, "parts_ms": parts_ms, "stem_split_ms": stem_split}
 
 
 # ---------------------------------------------------------------------------
@@ -2018,7 +2043,7 @@ def large_extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod
     check(out == {}, "--extract-only trained something")
     batches = -(-LG_CLIPS // train_mod.EXTRACT_BATCH)
     per_layer = arch.encoder_layers * batches
-    want = {"conv_stem": 0, "conv_stem_wide": batches, "ln_qkv": per_layer,
+    want = {"conv_stem": batches, "ln_qkv": per_layer,
             "self_attention": per_layer, "out_proj": per_layer, "mlp_block": per_layer,
             "flash_self_attention": 0}
     check(launches == want, f"large extraction launches {launches} != {want}")
@@ -2493,6 +2518,9 @@ def main() -> int:
             "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": lib_ms, "batch": ENC_B, **prep_entry(name, enc_parts),
         })
+        if name == "conv_stem":
+            kernels[-1]["sources"] = [ENC_SOURCE, GEMM_SOURCE]
+            kernels[-1]["route_launches"] = list(STEM_PARTS.values())
     log(f"  extraction: {json.dumps({**ext_times, 'cli_clips_per_s': extraction['cli_clips_per_s']})}")
 
     log("phase 8: the coder kernel at whisper-tiny width, B=4096, against its plain version")
@@ -2580,21 +2608,12 @@ def main() -> int:
             f"{bound_ms:.4f} ({by}), library {lib_ms:.4f}")
     for entry in kernels:
         name = entry["name"]
-        if name in ENC_WRAPPERS and name not in WIDE_FORMS.values():
+        if name in ENC_WRAPPERS:
             ms, plain, bound_ms, by, lib_ms = lg_res[name]
             entry["at_whisper_large_v3"] = {
                 "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
                 "library_ms": lib_ms, "batch": lg_cli_b, "launches": path15["launches"][name],
                 "max_abs_err": lg_errs[name], **prep_entry(name, lg_parts)}
-    for wide, name in WIDE_FORMS.items():
-        ms, plain, bound_ms, by, lib_ms = lg_res[name]
-        kernels.append({
-            "name": wide, "route": "cuda", "source": ENC_SOURCE, "replaces": ENC_REPLACES[name],
-            "launches": path15["launches"][wide], "max_abs_err": lg_errs[name],
-            "ms": ms, "plain_ms": plain, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms, "batch": lg_cli_b, **prep_entry(name, lg_parts),
-        })
-        check(kernels[-1]["launches"] > 0, f"{wide}: no launch on the whisper-large-v3 path")
     log(f"  whisper-large-v3 extraction: {json.dumps({**lg_batch, 'cli_clips_per_s': path15['cli_clips_per_s'], 'cli_s': path15['extract_s']})}")
 
     log("phase 17: a 2-shard cache trained through the CLI, out of core")

@@ -64,7 +64,6 @@ _SIGNATURES = {
         _I,
     ),
     "wst_enc_head_dim": ([], _I),
-    "wst_enc_narrow_max": ([], _I),
     "wst_enc_wide_max": ([], _I),
     "wst_ln_rows_fwd": ([_P, _L, _I, _P, _P, _P, _P], _I),  # x, n, d, g, b, out, stream
     "wst_enc_gemm_fwd": (
@@ -79,7 +78,11 @@ _SIGNATURES = {
          _P, _P, _I, _P, _P, _P, _P, _P, _P],       # fg, fb, cap_mode, out, cap, xln, hid, mlp_out, stream
         _I,
     ),
-    "wst_conv_stem_fwd": ([_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P], _I),
+    "wst_conv_stem_fwd": (
+        [_P, _I, _I, _I, _I, _P, _P, _P, _P,       # mel, b, t_mel, n_mels, d, w1t, b1, w2t, b2
+         _P, _P, _P, _P, _P],                      # pos, mel_pad, h_pad, out, stream
+        _I,
+    ),
     "wst_coder_fwd": (
         [_P, _I, _P, _I, _L, _I, _I, _I, _I, _I,   # x, x_bf16, y, y_bf16, off, rows, d, h, dout, k
          _I, _I, _P, _P, _P, _P, _P,               # use_skip, y_is_x, w_enc_t, b_enc, w_dec, b_out, w_skip_t

@@ -1,6 +1,6 @@
-"""What the card probes (``gemm_probe``, ``sae_probe``, ``coder_probe``)
-share: a call's time between CUDA events, a training step's wall time and
-the card's name and power limit."""
+"""What the card probes (``gemm_probe``, ``sae_probe``, ``coder_probe``,
+``stem_probe``) share: a call's time between CUDA events, a training
+step's wall time and the card's name and power limit."""
 
 from __future__ import annotations
 

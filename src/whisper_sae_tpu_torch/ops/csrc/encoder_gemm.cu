@@ -22,7 +22,15 @@
 //   their decode, resid = hid . W_dec + b_dec - x in f32 with the sum of
 //   squares: launches 2 and 3 of the ReLU modes of wst_coder_fwd
 //   (coder_kernels.cu), which replace pallas_sae.py:_fused_coder_kernel
-//   in ReLU mode.
+//   in ReLU mode;
+// gemm_conv_kernel<kGelu>     ("wst_conv_gemm_fwd", epi 2)
+//   is the conv stem's conv1 with its bias and GELU, and
+// gemm_conv_kernel<kGeluPos>  ("wst_conv_gemm_fwd", epi 6)
+//   its conv2 with its bias, GELU and the positions: launches 2 and 3 of
+//   wst_conv_stem_fwd (encoder_kernels.cu), which replaces
+//   pallas_encoder.py:_conv_stem_kernel (fused_conv_stem, pallas_call at
+//   :604).  Each is a product of three taps, K = 3 x the tap's width, in
+//   clip coordinates (see the conv row order below).
 // With attention_kernel.cu's core between them, q/k/v and the
 // out-projection replace whisper_sae_tpu/ops/pallas_encoder.py:
 // _attention_block_kernel and _attention_block_kernel_tiled
@@ -32,9 +40,10 @@
 // together by wst_mlp_block_fwd (encoder_kernels.cu).
 //
 // C[m, n] = A[m, k] . B[n, k]^T: A bf16 rows (the LN'd rows, the
-// attention core's output, the MLP's hidden or the SAE's centred rows),
-// B the weight in the [N, K] layout, f32 sums.  K and N multiples of 128
-// (kPre, kRelu, kResid: K a multiple of 8, N even (kRelu: of 8); the last
+// attention core's output, the MLP's hidden, the SAE's centred rows or
+// the stem's tap windows), B the weight in the [N, K] layout, f32 sums.
+// K and N multiples of 128 (kPre, kRelu, kResid and the conv kernels: K a
+// multiple of 8, N even (kRelu: of 8); the last
 // K block and the last column tile are ragged, TMA loads their columns
 // past K and rows past N as zeros, and no column past N is stored); rows
 // of A past m load as zeros (TMA) and are not stored.  Epilogues with the Pallas kernels' numerics
@@ -66,6 +75,9 @@
 //              l0 += the positive values, an int32 atomic (order-free).
 //              A feature is active exactly when its sum is positive (a
 //              sum of values >= 0), so no active vector is kept here.
+//   kGeluPos   out = bf16(bf16(gelu(acc + b)) + pos[t]), the positions
+//              (row t of the clip) prefetched by TMA as kResidual's
+//              residual (pallas_encoder.py:565-568);
 //   kResid     resid = acc + b - f32(x[row_offset + r, c]) in f32 (:599),
 //              stored from the registers as kPre; partial[tile] = the
 //              tile's sum of resid^2 over its rows below m: each thread's
@@ -139,6 +151,27 @@
 //   separate capture template with one stage fewer was not tried.
 // A 256-column tile halves the re-reads of A but, with room for its
 // output buffer, keeps only 3 stages; it was slower on the card.
+//
+// The conv row order (gemm_conv_kernel): the rows are clips of ``rows``
+// frames, each cut into ceil(rows / 128) row tiles, so no tile crosses a
+// clip; row tile i is frames t0 = (i % tiles_per_clip) * 128 .. of clip i
+// / tiles_per_clip.  A and the output are 3-D tensor maps [clips, rows,
+// cols], the positions a 2-D map [rows, cols]: frames past a clip's end
+// load as zeros and are not stored.  Row t of A is the window of its three
+// taps, read in place through a row stride shorter than the row, so the
+// rows overlap: conv1's row f is the 3 x n_mels values of mel frames f - 1,
+// f, f + 1 (the time-major mel with a zero frame at each end, a row stride
+// of one frame), conv2's row t the 3 x D values of the hidden's rows 2t -
+// 1, 2t, 2t + 1 (the hidden with its zero row h[-1] first, a row stride of
+// two rows); B is the [n, 3 x width] weight with tap j in columns j x
+// width .., so K = 3 x width is an ordinary K loop.  At 80 mels K = 240
+// leaves its last K-block ragged (TMA loads zeros past K): 4 K-blocks.
+// The hidden makes one bf16 round trip through device memory (2 x 3000 x
+// D x 2 bytes a clip: 147 MB at 64 whisper-tiny clips, 123 MB at 16
+// large-v3 clips), the trade the MLP block makes: a kernel keeping it on
+// chip needs every D column of the 257 hidden rows a 128-frame tile of
+// conv2 reads (658 KB at D = 1280), or conv1 recomputed for every column
+// tile of conv2.
 
 #include "encoder_gemm.cuh"
 #include "hopper_common.cuh"
@@ -159,11 +192,18 @@ constexpr long long kL2Bytes = 50ll << 20;  // the H100's L2 cache
 constexpr uint32_t kStageBytes = (kBM + kBN) * kBK * sizeof(bf16_t);
 constexpr uint32_t kTileBytes = kBM * kBN * sizeof(bf16_t);
 
-// the ring's depth; kResidual gives a stage to the residual tile's
-// buffer, kRelu to its column sums
+// epilogues that read a second bf16 tile (kResidual the residual,
+// kGeluPos the positions), prefetched by TMA into its own buffer
+template <int EPI>
+struct TileIn {
+  static constexpr bool value = EPI == kResidual || EPI == kGeluPos;
+};
+
+// the ring's depth; kResidual and kGeluPos give a stage to their second
+// tile's buffer, kRelu to its column sums
 template <int EPI>
 struct Stages {
-  static constexpr int value = EPI == kResidual || EPI == kRelu ? 5 : 6;
+  static constexpr int value = TileIn<EPI>::value || EPI == kRelu ? 5 : 6;
 };
 
 // CTAs a cluster (see the note at the top)
@@ -184,11 +224,11 @@ constexpr bool kEpilogue = true;
 template <int EPI>
 struct __align__(1024) GemmSmem {
   static constexpr int S = Stages<EPI>::value;
-  static constexpr int R = EPI == kResidual ? kBoxes : 1;
+  static constexpr int R = TileIn<EPI>::value ? kBoxes : 1;
   bf16_t a[S][kBM * kBK];       // 16 KB a stage
   bf16_t b[S][kBN * kBK];       // 16 KB a stage
   bf16_t out[kBoxes][kBM * kBK];  // the output tile, as TMA boxes of 64 columns
-  bf16_t res[R][EPI == kResidual ? kBM * kBK : 8];  // the residual tile (kResidual)
+  bf16_t res[R][TileIn<EPI>::value ? kBM * kBK : 8];  // the residual or positions tile
   // kRelu: each consumer warp's column sums of a tile; kResid: each
   // consumer warp's sum of squares, in two slots (tiles alternate)
   float red[EPI == kRelu ? kConsumers * 4 * kBN : EPI == kResid ? 2 * kConsumers * 4 : 1];
@@ -208,6 +248,7 @@ struct Epilogue {
   const void* x;       // kResid: the target rows [>= row_offset + m, n], f32 or bf16
   int x_bf16;
   long long row_offset;
+  int clip_tiles;      // gemm_conv_kernel: row tiles a clip
 };
 
 // bf16(a + b) of two packed pairs, each added in f32
@@ -263,7 +304,9 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
 // The output tile (and the residual tile) lie in shared memory as TMA
 // writes them: 64-column boxes of 128-byte rows whose 16-byte chunks are
 // swizzled by the row (chunk c of row r at c ^ (r % 8)).
-template <int EPI, bool COLS>
+// CONV (gemm_conv_kernel): the conv row order, map_a and map_o0 3-D maps,
+// m a whole number of tiles a clip (see the note at the top).
+template <int EPI, bool COLS, bool CONV = false>
 __device__ __forceinline__ void gemm_tiles(const CUtensorMap& map_a, const CUtensorMap& map_b,
                                            const CUtensorMap& map_o0, const CUtensorMap& map_o1,
                                            const CUtensorMap& map_o2, const CUtensorMap& map_res,
@@ -291,6 +334,13 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap& map_a, const CUten
   auto tile_col = [&](long long tile) {
     return (int)(COLS ? tile / m_ctiles : tile % n_tiles) * kBN;
   };
+  // CONV: the first frame and the clip of the row tile at row0, once a
+  // tile (with the divisions in the K loop the producer fell behind the
+  // products: conv2 took 20-22% longer on the card, PERF.md)
+  auto frame_clip = [&](long long row0) {
+    const long long clip_rows = (long long)ep.clip_tiles * kBM, clip = row0 / clip_rows;
+    return make_int2((int)(row0 - clip * clip_rows), (int)clip);
+  };
 
   if (tid == 0) {
 #pragma unroll
@@ -312,10 +362,16 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap& map_a, const CUten
         const int col0 = tile_col(tile);
         // a row tile wholly past m (the odd one of a pair) reads rows 0 ..; nothing is stored
         const int a_row = (int)(row0 < m ? row0 : 0);
+        const int2 tc = CONV ? frame_clip(row0) : make_int2(0, 0);
         for (int kb = 0; kb < kblocks; ++kb, ++it) {
           const int st = it % STAGES, round = it / STAGES;
           if (round > 0) mbar_wait(&s.empty[st], (round - 1) & 1);
           mbar_expect_tx(&s.full[st], kStageBytes);
+          if constexpr (CONV) {
+            tma_load_3d(s.a[st], &map_a, &s.full[st], kb * kBK, tc.x, tc.y);
+            tma_load_2d(s.b[st], &map_b, &s.full[st], kb * kBK, col0);
+            continue;
+          }
           tma_load_2d(s.a[st], &map_a, &s.full[st], kb * kBK, a_row);
           if (CLUSTER > 1)
             tma_load_2d_multicast(s.b[st] + rank * kBPart * kBK, &map_b, &s.full[st], kb * kBK,
@@ -339,17 +395,18 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap& map_a, const CUten
         mbar_arrive(&s.empty[st]);
       }
     };
-    // kResidual: the residual tile of ``tile`` into s.res (thread 0, once
-    // every consumer is done with the buffer)
+    // kResidual: the residual tile of ``tile`` into s.res, kGeluPos: the
+    // positions of its frames (thread 0, once every consumer is done with
+    // the buffer)
     auto fetch_res = [&](long long tile) {
-      if constexpr (EPI == kResidual && kEpilogue) {
+      if constexpr (TileIn<EPI>::value && kEpilogue) {
         if (tid != 0 || tile >= tiles) return;
         const long long row0 = tile_rows(tile);
+        const int r = EPI == kGeluPos ? frame_clip(row0).x : (int)(row0 < m ? row0 : 0);
         mbar_expect_tx(&s.res_full, kTileBytes);
 #pragma unroll
         for (int bx = 0; bx < kBoxes; ++bx)
-          tma_load_2d(s.res[bx], &map_res, &s.res_full, tile_col(tile) + bx * kBK,
-                      (int)(row0 < m ? row0 : 0));
+          tma_load_2d(s.res[bx], &map_res, &s.res_full, tile_col(tile) + bx * kBK, r);
       }
     };
     // element (row r, column c) of a tile buffer of 64-column boxes
@@ -464,7 +521,7 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap& map_a, const CUten
         sc = part == 0 ? ep.q_scale : 1.0f;
       }
       if (tid == 0) bulk_wait_read<0>();
-      if (EPI == kResidual) mbar_wait(&s.res_full, local & 1);
+      if (TileIn<EPI>::value) mbar_wait(&s.res_full, local & 1);
       named_sync(1, kConsumers * 128);
       // kRelu: rows below m, the positive values this thread holds there
       const bool v0 = row0 + lr0 < m, v1 = row0 + lr0 + 8 < m;
@@ -482,6 +539,11 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap& map_a, const CUten
         } else if constexpr (EPI == kGelu) {
           *o0 = pack2(gelu(acc[4 * j] + b0), gelu(acc[4 * j + 1] + b1));
           *o1 = pack2(gelu(acc[4 * j + 2] + b0), gelu(acc[4 * j + 3] + b1));
+        } else if constexpr (EPI == kGeluPos) {
+          const uint32_t p0 = *reinterpret_cast<const uint32_t*>(at(s.res, lr0, c));
+          const uint32_t p1 = *reinterpret_cast<const uint32_t*>(at(s.res, lr0 + 8, c));
+          *o0 = add2(pack2(gelu(acc[4 * j] + b0), gelu(acc[4 * j + 1] + b1)), p0);
+          *o1 = add2(pack2(gelu(acc[4 * j + 2] + b0), gelu(acc[4 * j + 3] + b1)), p1);
         } else if constexpr (EPI == kResidual) {
           uint32_t* r0 = reinterpret_cast<uint32_t*>(at(s.res, lr0, c));
           uint32_t* r1 = reinterpret_cast<uint32_t*>(at(s.res, lr0 + 8, c));
@@ -529,9 +591,15 @@ __device__ __forceinline__ void gemm_tiles(const CUtensorMap& map_a, const CUten
       }
       if (tid == 0) {
         if (row0 < m) {
+          const int2 tc = CONV ? frame_clip(row0) : make_int2(0, 0);
 #pragma unroll
           for (int bx = 0; bx < kBoxes; ++bx)
-            if (col0 + bx * kBK < n) tma_store_2d(map_o, s.out[bx], ocol0 + bx * kBK, (int)row0);
+            if (col0 + bx * kBK < n) {
+              if constexpr (CONV)
+                tma_store_3d(map_o, s.out[bx], ocol0 + bx * kBK, tc.x, tc.y);
+              else
+                tma_store_2d(map_o, s.out[bx], ocol0 + bx * kBK, (int)row0);
+            }
           if constexpr (EPI == kResidual) {
             if (ep.aux) {
 #pragma unroll
@@ -570,29 +638,88 @@ template <int EPI>
 __global__ void __launch_bounds__(kThreads, 1) gemm_cols_kernel(WST_GEMM_PARAMS) {
   gemm_tiles<EPI, true>(map_a, map_b, map_o0, map_o1, map_o2, map_res, m, n, k, ep);
 }
+
+// The conv row order (see the note at the top): m is clips x
+// ep.clip_tiles x 128 rows, map_a and map_o0 3-D maps, map_res (kGeluPos)
+// the positions [rows, n].
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, 1) gemm_conv_kernel(WST_GEMM_PARAMS) {
+  gemm_tiles<EPI, false, true>(map_a, map_b, map_o0, map_o1, map_o2, map_res, m, n, k, ep);
+}
 #undef WST_GEMM_PARAMS
 
-// [rows, cols] bf16 row-major as a 2-D map (innermost first: cols, rows),
-// boxes of 64 columns x box_rows rows, 128-byte swizzle, zeros out of bounds.
-int make_map(CUtensorMap* map, const void* ptr, long long rows, int cols, int box_rows) {
+// A bf16 tensor map (innermost first: cols, rows, and clips when clips >
+// 0), rows ``ld`` and clips ``clip_ld`` elements apart (rows may overlap:
+// ld < cols), boxes of 64 columns x box_rows rows (x 1 clip), 128-byte
+// swizzle, zeros out of bounds.  Every stride and the base must be a
+// multiple of 16 bytes.
+int make_map_nd(CUtensorMap* map, const void* ptr, int cols, long long rows, long long ld,
+                long long clips, long long clip_ld, int box_rows) {
   EncodeTiled fn = encode_fn();
   if (!fn) return (int)cudaErrorSymbolNotFound;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16_t)};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+  const cuuint32_t rank = clips > 0 ? 3 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)clips};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * sizeof(bf16_t),
+                                 (cuuint64_t)clip_ld * sizeof(bf16_t)};
+  const cuuint32_t box[3] = {(cuuint32_t)kBK, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The clusters that fit on each device, by epilogue (and one slot for
-// gemm_cols_kernel<kPre>), 0 until the first launch there.  File-local: a
+// [rows, cols] bf16 row-major as a 2-D map.
+int make_map(CUtensorMap* map, const void* ptr, long long rows, int cols, int box_rows) {
+  return make_map_nd(map, ptr, cols, rows, cols, 0, 0, box_rows);
+}
+
+// The clusters that fit on each device, by epilogue, and a slot each for
+// gemm_cols_kernel<kPre> and gemm_conv_kernel<kGelu> (kGeluPos runs only
+// as gemm_conv_kernel), 0 until the first launch there.  File-local: a
 // function-local static of a template would be one object across every
 // loaded copy of the library.
-static int g_fits[kEpilogues + 1][kMaxDevices];
+constexpr int kColsSlot = kEpilogues, kConvGeluSlot = kEpilogues + 1;
+static int g_fits[kEpilogues + 2][kMaxDevices];
+
+// Launches ``kernel`` on a persistent grid: as many clusters of CLUSTER
+// CTAs as fit on the card at once, at most one a cluster tile; the
+// attribute and the count are set up once a device (the launch is on the
+// host's path between every two layers).
+template <int CLUSTER, typename Kernel, typename... Args>
+int launch_persistent(Kernel kernel, int* fits, size_t smem, long long tiles,
+                      cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (fits[dev] == 0) {
+    int sms = 0, fit = 0;
+    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cfg.gridDim = dim3(sms / CLUSTER * CLUSTER);
+    if (!err) err = (int)cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
+    if (err) return err;
+    if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
+    fits[dev] = fit;
+  }
+  const int fit = fits[dev];
+  cfg.gridDim = dim3((unsigned)((tiles < fit ? tiles : fit) * CLUSTER));
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err ? err : (int)cudaGetLastError();
+}
 
 // outs: q, k, v ([m, d] each) for kQkv; for kResidual out ([m, n]), then
 // aux ([m, n], or out again when ep.aux is 0), out; its residual ``res``
@@ -610,7 +737,7 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
   if constexpr (EPI == kPre) {
     if (n > m && (long long)n * k * (long long)sizeof(bf16_t) > kL2Bytes) {
       kernel = gemm_cols_kernel<EPI>;
-      fits = g_fits[kEpilogues];
+      fits = g_fits[kColsSlot];
     }
   }
   const int out_cols = EPI == kQkv ? ep.d : n;
@@ -630,39 +757,32 @@ int launch_gemm(const void* a, const void* b, long long m, int n, int k, void* c
   }
   if (err) return err;
   const size_t smem = sizeof(GemmSmem<EPI>) + 1024;  // + room to align the base to 1024
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  // persistent: as many clusters as fit on the card at once, at most one
-  // a cluster tile; the attribute and the count are set up once a device
-  // (the launch is on the host's path between every two layers)
-  int dev = 0;
-  err = (int)cudaGetDevice(&dev);
-  if (err) return err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (fits[dev] == 0) {
-    int sms = 0, fit = 0;
-    err = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (!err) err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cfg.gridDim = dim3(sms / CLUSTER * CLUSTER);
-    if (!err) err = (int)cudaOccupancyMaxActiveClusters(&fit, kernel, &cfg);
-    if (err) return err;
-    if (fit <= 0) return (int)cudaErrorInvalidConfiguration;
-    fits[dev] = fit;
-  }
-  const int fit = fits[dev];
   const long long tiles = ((m + kBM - 1) / kBM + CLUSTER - 1) / CLUSTER * ((n + kBN - 1) / kBN);
-  cfg.gridDim = dim3((unsigned)((tiles < fit ? tiles : fit) * CLUSTER));
-  err = (int)cudaLaunchKernelEx(&cfg, kernel, ma, mb, mo[0], mo[1], mo[2], mr, m, n, k, ep);
-  return err ? err : (int)cudaGetLastError();
+  return launch_persistent<CLUSTER>(kernel, fits, smem, tiles, stream, ma, mb, mo[0], mo[1], mo[2],
+                                    mr, m, n, k, ep);
+}
+
+// See wst_conv_gemm_fwd.
+template <int EPI>
+int launch_conv(int clips, int rows, int k, int n, const void* a, long long a_row,
+                long long a_clip, const void* w, const float* bias, void* out, long long out_clip,
+                const void* pos, cudaStream_t stream) {
+  CUtensorMap ma, mb, mo, mp;
+  int err = make_map_nd(&ma, a, k, rows, a_row, clips, a_clip, kBM);
+  if (!err) err = make_map(&mb, w, n, k, kBN);
+  if (!err) err = make_map_nd(&mo, out, n, rows, n, clips, out_clip, kBM);
+  if (!err && EPI == kGeluPos) err = make_map(&mp, pos, rows, n, kBM);
+  else mp = mo;
+  if (err) return err;
+  Epilogue ep{};
+  ep.bias = bias;
+  ep.clip_tiles = (rows + kBM - 1) / kBM;
+  const long long m = (long long)clips * ep.clip_tiles * kBM;
+  const size_t smem = sizeof(GemmSmem<EPI>) + 1024;
+  return launch_persistent<1>(gemm_conv_kernel<EPI>,
+                              g_fits[EPI == kGelu ? kConvGeluSlot : EPI], smem,
+                              m / kBM * ((n + kBN - 1) / kBN), stream, ma, mb, mo, mo, mo, mp, m,
+                              n, k, ep);
 }
 
 }  // namespace wst_gemm
@@ -728,6 +848,35 @@ int wst_coder_gemm_fwd(int epi, const void* a, const void* b, long long m, int n
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (epi == kRelu) return launch_gemm<kRelu>(a, b, m, n, k, outs, nullptr, ep, s);
   return launch_gemm<kResid>(a, b, m, n, k, outs, nullptr, ep, s);
+}
+
+// The conv stem's tap products (wst_conv_stem_fwd, encoder_kernels.cu) in
+// the conv row order: for each of ``clips`` clips and each of its
+// ``rows`` frames t, out[clip, t, :] = epi(A[clip, t, :] . w^T + bias),
+// where row t of A is the k bf16 values at a + clip * a_clip + t * a_row
+// (a_row may be below k: the rows overlap); w is [n, k] bf16; bias [n]
+// f32; out [clips, rows, n] bf16 with clips out_clip elements apart.  epi
+// 2 (kGelu): bf16(gelu(acc + bias)); epi 6 (kGeluPos): bf16(bf16(gelu(acc
+// + bias)) + pos[t]), pos [rows, n] bf16.  n a multiple of 128, k of 8,
+// every pointer 16-byte aligned, every stride a multiple of 8 elements
+// (TMA's 16 bytes).
+int wst_conv_gemm_fwd(int epi, int clips, int rows, int k, int n, const void* a,
+                      long long a_row, long long a_clip, const void* w, const void* bias,
+                      void* out, long long out_clip, const void* pos, void* stream) {
+  using namespace wst_gemm;
+  if (clips <= 0 || rows <= 0) return 0;
+  if ((epi != kGelu && epi != kGeluPos) || k <= 0 || k % 8 || n <= 0 || n % kAlign)
+    return (int)cudaErrorInvalidValue;
+  if (a_row <= 0 || a_row % 8 || a_clip % 8 || out_clip % 8 || a == nullptr || w == nullptr ||
+      out == nullptr || (epi == kGeluPos && pos == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)a | (uintptr_t)w | (uintptr_t)out | (uintptr_t)pos) % 16)
+    return (int)cudaErrorInvalidValue;
+  const float* b = static_cast<const float*>(bias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (epi == kGelu)
+    return launch_conv<kGelu>(clips, rows, k, n, a, a_row, a_clip, w, b, out, out_clip, pos, s);
+  return launch_conv<kGeluPos>(clips, rows, k, n, a, a_row, a_clip, w, b, out, out_clip, pos, s);
 }
 
 // Rows (and columns) of the GEMM's output tile: the kResid partials are

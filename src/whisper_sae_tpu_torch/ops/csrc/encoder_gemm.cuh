@@ -2,7 +2,8 @@
 // for the sources that launch it (encoder_kernels.cu: the MLP block;
 // sae_kernels.cu: kernel A's encode; blocked_encode.cu: the large-H
 // encode's product; coder_kernels.cu: the coder modes' encodes, the ReLU
-// modes' decode and the Skip mode's skip product), and
+// modes' decode and the Skip mode's skip product; encoder_kernels.cu also
+// the conv stem's two tap products), and
 // the element functions both sources' epilogues share: the bf16 reads and
 // packing, and the exact erff GELU of the Pallas kernels.
 
@@ -19,7 +20,8 @@ constexpr int kGelu = 2;      // the bias and GELU
 constexpr int kPre = 3;       // the bias, f32 out (the SAE's pre-activation)
 constexpr int kRelu = 4;      // the bias and ReLU, bf16 out, per-feature sums, l0
 constexpr int kResid = 5;     // the bias minus the rows, f32 out, sum-of-squares partials
-constexpr int kEpilogues = 6;
+constexpr int kGeluPos = 6;   // the bias and GELU, rounded, plus the positions (the stem's conv2)
+constexpr int kEpilogues = 7;
 
 typedef unsigned short bf16_t;
 
@@ -43,4 +45,8 @@ extern "C" int wst_coder_gemm_fwd(int epi, const void* a, const void* b, long lo
                                   int k, const void* bias, void* out, void* partial, void* l0,
                                   const void* x, int x_bf16, long long row_offset,
                                   void* stream);
+extern "C" int wst_conv_gemm_fwd(int epi, int clips, int rows, int k, int n, const void* a,
+                                 long long a_row, long long a_clip, const void* w,
+                                 const void* bias, void* out, long long out_clip,
+                                 const void* pos, void* stream);
 extern "C" int wst_gemm_tile();

@@ -1,8 +1,12 @@
 // Hand-written Hopper kernels of the Whisper-encoder extraction path.
 //
-// conv_stem_kernel<64, 80> ("conv_stem_fwd", D <= 512) and its wide form
-// conv_stem_kernel<32, 33> (512 < D <= 1536)
-//   replace whisper_sae_tpu/ops/pallas_encoder.py:_conv_stem_kernel
+// wst_conv_stem_fwd    the conv stem, three launches of one C call:
+//   stem_prep_kernel (the mel time-major with conv1's zero rows, and the
+//   hidden's zero row h[-1], conv2's padding), conv1 with its bias and
+//   GELU (gemm_conv_kernel<kGelu> of encoder_gemm.cu) into a bf16 [T_mel
+//   + 1, D] hidden a clip in device memory, and conv2 with its bias, GELU
+//   and the positions (gemm_conv_kernel<kGeluPos>).  It replaces
+//   whisper_sae_tpu/ops/pallas_encoder.py:_conv_stem_kernel
 //   (fused_conv_stem, pallas_call at :604).
 // ln_rows_kernel ("wst_ln_rows_fwd")  LN1 of the attention block, ahead of
 //   the q/k/v product; with the Hopper GEMM of encoder_gemm.cu (q/k/v and
@@ -21,29 +25,31 @@
 // Numerics are the Pallas kernels': bf16 operands with f32 sums, every
 // bias added in f32 before the single rounding to bf16, LN (eps 1e-5,
 // population variance) in f32, exact erff GELU (the TPU kernels' erf
-// polynomial, 3.4e-5, is a Mosaic workaround), the residual add rounded
-// once to bf16, and the final-LN capture taken from the bf16-rounded
-// layer output.
+// polynomial, 3.4e-5, is a Mosaic workaround), the residual add and the
+// positions' add rounded once to bf16 after the GELU's own rounding, and
+// the final-LN capture taken from the bf16-rounded layer output.
 //
-// Bounds on the H100 at whisper-tiny, 64 clips (T=1500, D=384, F=1536;
-// 989 TFLOP/s bf16, 3.35 TB/s): both are bound by operations.
-//   MLP block        4*(64*T)*D*F           = 226 GFLOP   0.23 ms
-//   conv stem        2*64*T*D*(3*80+3*D)    = 103 GFLOP   0.10 ms
-// At whisper-large-v3, 8 clips (D=1280, F=5120, 128 mels) a layer's MLP
-// block is 315 GFLOP (0.32 ms) and the stem 130 GFLOP (0.13 ms).  An LN
-// pass reads a row and writes it once (bytes: 0.03 ms for 96,000 rows of
-// 384), one warp a row holding it in registers.
+// Bounds on the H100 at whisper-tiny, 64 clips (T=1500, D=384, F=1536,
+// 80 mels; 989 TFLOP/s bf16, 3.35 TB/s): both are bound by operations.
+//   MLP block        4*(64*T)*D*F                     = 226 GFLOP   0.23 ms
+//   conv stem        2*64*T*D*(6*80 + 3*D)            = 120 GFLOP   0.12 ms
+// (conv1 runs at all 2T mel frames, conv2 at the T output frames).  At
+// whisper-large-v3, 8 clips (D=1280, F=5120, 128 mels) a layer's MLP block
+// is 315 GFLOP (0.32 ms) and the stem 142 GFLOP (0.14 ms).  An LN pass
+// reads a row and writes it once (bytes: 0.03 ms for 96,000 rows of 384),
+// one warp a row holding it in registers.
 //
-// The stem's design: its products run on the tensor cores (mma.sync,
-// warp_gemm) from a tile of frames staged once in shared memory, the
-// weights streaming from L2 as 32-bit B fragments in the [N, K] layout;
-// the [T_mel, D] hidden never reaches device memory.  Its 64-frame tile
-// needs 2 x 80 rows of h in shared memory (412 KB at D=1280); the wide
-// form takes 32 output frames a CTA and keeps the 33 h rows of each
-// parity conv2 reads (231,008 B at D=1536 and 128 mels, under the
-// 232,448 B a block may have).  The stem is the one product left on
-// mma.sync; encoder_gemm.cu's GEMM is its next candidate (conv2 is three
-// shifted products of the stride-2 h rows, K = 3D).
+// The stem's design: both convolutions are products of three taps on the
+// warp-specialised wgmma/TMA GEMM of encoder_gemm.cu (its conv row order:
+// clip-shaped 3-D tensor maps whose rows are the three taps' window, read
+// in place through a row stride of one frame for conv1 and two hidden rows
+// for conv2, so no copy of shifted rows is made).  The prep copy and the hidden's bf16 round trip
+// through device memory (147 MB at 64 tiny clips) are the price: a kernel
+// keeping the hidden on chip needs all D columns of 257 hidden rows for a
+// 128-frame tile (658 KB at D = 1280), or conv1 recomputed for every
+// column tile of conv2 (the single-kernel stem this route replaced
+// recomputed 16-18 halo rows of conv1 for every 32- or 64-frame tile and
+// ran at ~90 TFLOP/s).
 //
 // The MLP block's design: every product on the warp-specialised
 // wgmma/TMA GEMM of encoder_gemm.cu, whose notes give its bounds and why
@@ -68,21 +74,15 @@ using wst_gemm::pack2;
 constexpr int kWarp = 32;
 constexpr float kLnEps = 1e-5f;
 
-// the stem and the LN rows: 8 warps a CTA
+// the stem's prep and the LN rows: 8 warps a CTA
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * kWarp;
-constexpr int kColTile = 32;  // columns per warp step: four n8 MMA tiles
-constexpr int kStemNarrowMax = 512;  // widest D of the 64-frame stem
-constexpr int kWideMax = 1536;       // widest D of the encoder kernels (the fused route's gate)
+constexpr int kPrepTile = 64;  // frames and mels of the prep's transpose tile
+constexpr int kWideMax = 1536;  // widest D of the encoder kernels (the fused route's gate)
 
 // the attention core's head dim (ops/csrc/attention_kernel.cu)
 constexpr int kHeadDim = 64;
 
-__device__ __forceinline__ bf16_t f2bf(float v) { return __bfloat16_as_ushort(__float2bfloat16_rn(v)); }
-__device__ __forceinline__ float round_bf(float v) { return bf2f(f2bf(v)); }
-__device__ __forceinline__ uint32_t ld32(const bf16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 __device__ __forceinline__ uint32_t ldg32(const bf16_t* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
@@ -91,64 +91,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// acc[m][t] += A[m*16 .. +16, 0 .. 16*ksteps) . Bt[t*8 .. +8, same k]^T
-//   a:  shared memory, row-major with stride lda, at the warp tile's (row 0, k 0)
-//   bt: global, [N, K] row-major with stride ldb, at (the warp's n0, k 0)
-// The next k-step's B fragments load while this step's MMAs run.
-template <int MT, int NT>
-__device__ __forceinline__ void warp_gemm(float (&acc)[MT][NT][4], const bf16_t* a, int lda,
-                                          const bf16_t* bt, int ldb, int ksteps, int lane) {
-  const int fr = lane >> 2, fc = (lane & 3) * 2;
-  const bf16_t* ap = a + fr * lda + fc;
-  const bf16_t* bp = bt + (size_t)fr * ldb + fc;
-  uint32_t b[NT][2];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    b[t][0] = ldg32(bp + (size_t)t * 8 * ldb);
-    b[t][1] = ldg32(bp + (size_t)t * 8 * ldb + 8);
-  }
-  for (int ks = 0; ks < ksteps; ++ks) {
-    const int k0 = ks * 16;
-    const int kn = ks + 1 < ksteps ? k0 + 16 : k0;
-    uint32_t bn[NT][2];
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      bn[t][0] = ldg32(bp + (size_t)t * 8 * ldb + kn);
-      bn[t][1] = ldg32(bp + (size_t)t * 8 * ldb + kn + 8);
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const bf16_t* am = ap + m * 16 * lda + k0;
-      const uint32_t a0 = ld32(am), a1 = ld32(am + 8 * lda);
-      const uint32_t a2 = ld32(am + 8), a3 = ld32(am + 8 * lda + 8);
-#pragma unroll
-      for (int t = 0; t < NT; ++t) mma16816(acc[m][t], a0, a1, a2, a3, b[t][0], b[t][1]);
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      b[t][0] = bn[t][0];
-      b[t][1] = bn[t][1];
-    }
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int t = 0; t < NT; ++t) acc[m][t][0] = acc[m][t][1] = acc[m][t][2] = acc[m][t][3] = 0.0f;
 }
 
 // LN in f32 of one row by one warp (two passes over the row held in
@@ -216,123 +158,49 @@ __global__ void __launch_bounds__(kThreads) ln_rows_kernel(const bf16_t* x, long
 }
 
 // ---------------------------------------------------------------------------
-// conv stem: GELU(conv2(GELU(conv1(mel)))) + pos
+// conv stem: the prep ahead of its two tap products
 // ---------------------------------------------------------------------------
 
-// even/odd: [B, t, n_mels] bf16, the mel's even and odd time columns.
-// w1t: [d, 3*n_mels] (tap j in columns j*n_mels ..), w2t: [d, 3*d].
-// T_OUT output frames a CTA (t0 ..); conv1 computes T_OUT + 16 h rows of
-// each parity (row r is time t0-1+r) from the T_OUT + 18 mel rows t0-2 ..,
-// and keeps the first H_KEEP of them, of which conv2 reads rows 0 .. T_OUT.
-// h rows outside [0, t) are zero, which is conv2's zero padding on h;
-// conv1's padding is the zero mel rows staged outside [0, t).
-//   <64, 80>: the narrow form (D <= 512); <32, 33>: the wide form.
-template <int T_OUT, int H_KEEP>
-__global__ void __launch_bounds__(kThreads, 1) conv_stem_kernel(
-    const bf16_t* even, const bf16_t* odd, int t, int n_mels, int d, const bf16_t* w1t,
-    const float* b1, const bf16_t* w2t, const float* b2, const bf16_t* pos, bf16_t* out) {
-  constexpr int kH = T_OUT + 16, kIn = kH + 2;
-  static_assert(H_KEEP > T_OUT && H_KEEP <= kH, "conv2 reads h rows 0 .. T_OUT");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lm = n_mels + 8, lh = d + 8;
-  bf16_t* ev = reinterpret_cast<bf16_t*>(smem);
-  bf16_t* od = ev + kIn * lm;
-  bf16_t* he = od + kIn * lm;
-  bf16_t* ho = he + H_KEEP * lh;
+// mel [B, n_mels, t_mel] -> mel_pad [B, t_mel + 2, n_mels] (time-major, a
+// zero row at each end of every clip: conv1's padding), and a zero row 0
+// of each clip's hidden h_pad [B, t_mel + 1, d] (conv2's padding, h[-1]);
+// the pad rows are written on every call (the caller's scratch is not
+// zeroed).  One CTA transposes a 64-frame x 64-mel tile of one clip
+// through shared memory as bf16 pairs (t_mel and n_mels even): each warp
+// reads 32 frame pairs of a mel row, then writes 32 mel pairs of a frame.
+// The CTAs of the first frame tile also write their mels of the two pad
+// rows, and the first of them the hidden's pad row.  Bytes: 2 x 30.7 MB
+// at 64 whisper-tiny clips, 0.02 ms at 3.35 TB/s.
+__global__ void __launch_bounds__(kThreads) stem_prep_kernel(const bf16_t* mel, int t_mel,
+                                                             int n_mels, int d, bf16_t* mel_pad,
+                                                             bf16_t* h_pad) {
+  __shared__ uint32_t tile[kPrepTile][kPrepTile / 2 + 1];  // [mel][frame pair]
+  const int t0 = blockIdx.x * kPrepTile, c0 = blockIdx.y * kPrepTile;
+  const long long clip = blockIdx.z;
+  const bf16_t* src = mel + clip * n_mels * t_mel;
+  bf16_t* dst = mel_pad + clip * (t_mel + 2) * n_mels;
   const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
-  const int fr = lane >> 2, fc = (lane & 3) * 2;
-  const int t0 = blockIdx.x * T_OUT;
-  const size_t clip = (size_t)blockIdx.y * t;
-
-  for (int i = threadIdx.x; i < kIn * (n_mels / 2); i += kThreads) {
-    const int u = i / (n_mels / 2), c = (i - u * (n_mels / 2)) * 2;
-    const int tt = t0 - 2 + u;
-    uint32_t e = 0u, o = 0u;
-    if (tt >= 0 && tt < t) {
-      e = ldg32(even + (clip + tt) * n_mels + c);
-      o = ldg32(odd + (clip + tt) * n_mels + c);
-    }
-    st32(ev + u * lm + c, e);
-    st32(od + u * lm + c, o);
+  for (int c = warp; c < kPrepTile; c += kWarps) {
+    uint32_t v = 0u;
+    if (c0 + c < n_mels && t0 + 2 * lane < t_mel)
+      v = ldg32(src + (long long)(c0 + c) * t_mel + t0 + 2 * lane);
+    tile[c][lane] = v;
   }
   __syncthreads();
-
-  // conv1, even then odd h rows:
-  //   h_even[tau] = odd[tau-1] W0 + even[tau] W1 + odd[tau] W2
-  //   h_odd[tau]  = even[tau]  W0 + odd[tau]  W1 + even[tau+1] W2
-  const int k1 = n_mels / 16, ld1 = 3 * n_mels;
-  for (int n0 = warp * kColTile; n0 < d; n0 += kWarps * kColTile) {
-    const bf16_t* w = w1t + (size_t)n0 * ld1;
-#pragma unroll 1
-    for (int par = 0; par < 2; ++par) {
-      float acc[kH / 16][4][4];
-      zero(acc);
-      warp_gemm<kH / 16, 4>(acc, par ? ev + lm : od, lm, w, ld1, k1, lane);
-      warp_gemm<kH / 16, 4>(acc, par ? od + lm : ev + lm, lm, w + n_mels, ld1, k1, lane);
-      warp_gemm<kH / 16, 4>(acc, par ? ev + 2 * lm : od + lm, lm, w + 2 * n_mels, ld1, k1, lane);
-      bf16_t* dst = par ? ho : he;
-#pragma unroll
-      for (int tl = 0; tl < 4; ++tl) {
-        const int col = n0 + tl * 8 + fc;
-        const float bb0 = b1[col], bb1 = b1[col + 1];
-#pragma unroll
-        for (int m = 0; m < kH / 16; ++m) {
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int r = m * 16 + fr + hh * 8;
-            if (r >= H_KEEP) continue;
-            const int tau = t0 - 1 + r;
-            const uint32_t val = (tau >= 0 && tau < t)
-                                     ? pack2(gelu(acc[m][tl][2 * hh] + bb0),
-                                             gelu(acc[m][tl][2 * hh + 1] + bb1))
-                                     : 0u;
-            st32(dst + r * lh + col, val);
-          }
-        }
-      }
-    }
+  const bool in = c0 + 2 * lane < n_mels;  // n_mels is even: so is the pair's second mel
+  for (int t = warp; t < kPrepTile; t += kWarps) {
+    if (!in || t0 + t >= t_mel) continue;
+    const int sh = (t & 1) * 16;
+    const uint32_t lo = (tile[2 * lane][t >> 1] >> sh) & 0xffffu;
+    const uint32_t hi = (tile[2 * lane + 1][t >> 1] >> sh) & 0xffffu;
+    st32(dst + (long long)(1 + t0 + t) * n_mels + c0 + 2 * lane, lo | (hi << 16));
   }
-  __syncthreads();
-
-  // conv2 (stride 2): out[t0+j] = h_odd[t0+j-1] V0 + h_even[t0+j] V1 + h_odd[t0+j] V2,
-  // i.e. h rows j, j+1, j+1 of the tile
-  const int k2 = d / 16, ld2 = 3 * d;
-  for (int n0 = warp * kColTile; n0 < d; n0 += kWarps * kColTile) {
-    const bf16_t* w = w2t + (size_t)n0 * ld2;
-    float acc[T_OUT / 16][4][4];
-    zero(acc);
-    warp_gemm<T_OUT / 16, 4>(acc, ho, lh, w, ld2, k2, lane);
-    warp_gemm<T_OUT / 16, 4>(acc, he + lh, lh, w + d, ld2, k2, lane);
-    warp_gemm<T_OUT / 16, 4>(acc, ho + lh, lh, w + 2 * d, ld2, k2, lane);
-#pragma unroll
-    for (int tl = 0; tl < 4; ++tl) {
-      const int col = n0 + tl * 8 + fc;
-      const float bb0 = b2[col], bb1 = b2[col + 1];
-#pragma unroll
-      for (int m = 0; m < T_OUT / 16; ++m) {
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int tt = t0 + m * 16 + fr + hh * 8;
-          if (tt >= t) continue;
-          const uint32_t pv = ldg32(pos + (size_t)tt * d + col);
-          const float o0 = round_bf(gelu(acc[m][tl][2 * hh] + bb0));
-          const float o1 = round_bf(gelu(acc[m][tl][2 * hh + 1] + bb1));
-          st32(out + (clip + tt) * d + col,
-               pack2(o0 + bf2f((bf16_t)(pv & 0xffffu)), o1 + bf2f((bf16_t)(pv >> 16))));
-        }
-      }
-    }
+  if (blockIdx.x == 0) {
+    if (warp < 2 && in) st32(dst + (long long)warp * (t_mel + 1) * n_mels + c0 + 2 * lane, 0u);
+    if (blockIdx.y == 0)
+      for (int i = threadIdx.x; i < d / 2; i += kThreads)
+        st32(h_pad + clip * (t_mel + 1) * d + 2 * i, 0u);
   }
-}
-
-template <int T_OUT, int H_KEEP>
-size_t stem_smem(int n_mels, int d) {
-  return ((size_t)2 * (T_OUT + 18) * (n_mels + 8) + (size_t)2 * H_KEEP * (d + 8)) * sizeof(bf16_t);
-}
-
-template <typename K>
-int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 int launch_ln_rows(const bf16_t* x, long long n, int d, const float* g, const float* b,
@@ -350,26 +218,12 @@ int launch_ln_rows(const bf16_t* x, long long n, int d, const float* g, const fl
   return (int)cudaGetLastError();
 }
 
-template <int T_OUT, int H_KEEP>
-int launch_stem(const bf16_t* even, const bf16_t* odd, int b, int t, int n_mels, int d,
-                const bf16_t* w1t, const float* b1, const bf16_t* w2t, const float* b2,
-                const bf16_t* pos, bf16_t* out, cudaStream_t s) {
-  const size_t smem = stem_smem<T_OUT, H_KEEP>(n_mels, d);
-  int err = set_smem(conv_stem_kernel<T_OUT, H_KEEP>, smem);
-  if (err) return err;
-  const dim3 grid((t + T_OUT - 1) / T_OUT, b);
-  conv_stem_kernel<T_OUT, H_KEEP><<<grid, kThreads, smem, s>>>(even, odd, t, n_mels, d, w1t, b1,
-                                                               w2t, b2, pos, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace wst_enc
 
 extern "C" {
 
 // Geometry the kernels take (checked again in Python before each launch).
 int wst_enc_head_dim() { return wst_enc::kHeadDim; }
-int wst_enc_narrow_max() { return wst_enc::kStemNarrowMax; }
 int wst_enc_wide_max() { return wst_enc::kWideMax; }
 
 // LN of each row of x ([n, d] bf16, D a multiple of 128 up to 1536) in
@@ -416,22 +270,40 @@ int wst_mlp_block_fwd(const void* x, long long n, int d, int f, const void* g, c
   return err;
 }
 
-// The conv stem: 64 output frames a CTA up to D = 512, 32 above (the
-// wide form), D a multiple of 32 up to 1536.
-int wst_conv_stem_fwd(const void* even, const void* odd, int b, int t, int n_mels, int d,
-                      const void* w1t, const void* b1, const void* w2t, const void* b2,
-                      const void* pos, void* out, void* stream) {
+// The conv stem, three launches on ``stream``: stem_prep_kernel (mel [b,
+// n_mels, t_mel] bf16 into mel_pad [b, t_mel + 2, n_mels] and the pad rows
+// of h_pad [b, t_mel + 1, d], both bf16 scratch), conv1 on the encoder
+// GEMM (gemm_conv_kernel<kGelu>: tap j of frame f reads mel_pad row f + j;
+// into rows 1 .. t_mel of h_pad) and conv2 (gemm_conv_kernel<kGeluPos>:
+// tap j of frame t reads h_pad row 2t + j; into out [b, t_mel / 2, d]
+// bf16).  w1t [d, 3 n_mels]
+// and w2t [d, 3d] bf16 with tap j in columns j n_mels .. / j d ..; b1, b2
+// [d] f32; pos [t_mel / 2, d] bf16.  d a multiple of 128 up to 1536,
+// n_mels a multiple of 16, t_mel even; every pointer 16-byte aligned.
+int wst_conv_stem_fwd(const void* mel, int b, int t_mel, int n_mels, int d, const void* w1t,
+                      const void* b1, const void* w2t, const void* b2, const void* pos,
+                      void* mel_pad, void* h_pad, void* out, void* stream) {
   using namespace wst_enc;
-  if (b <= 0 || t <= 0) return 0;
-  if (d > kWideMax) return (int)cudaErrorInvalidValue;
+  if (b <= 0 || t_mel <= 0) return 0;
+  if (d <= 0 || d % 128 || d > kWideMax || n_mels <= 0 || n_mels % 16 || t_mel % 2 ||
+      b > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16_t *e = static_cast<const bf16_t*>(even), *od = static_cast<const bf16_t*>(odd);
-  const bf16_t *w1 = static_cast<const bf16_t*>(w1t), *w2 = static_cast<const bf16_t*>(w2t);
-  const float *bb1 = static_cast<const float*>(b1), *bb2 = static_cast<const float*>(b2);
-  const bf16_t* p = static_cast<const bf16_t*>(pos);
-  bf16_t* o = static_cast<bf16_t*>(out);
-  if (d <= kStemNarrowMax) return launch_stem<64, 80>(e, od, b, t, n_mels, d, w1, bb1, w2, bb2, p, o, s);
-  return launch_stem<32, 33>(e, od, b, t, n_mels, d, w1, bb1, w2, bb2, p, o, s);
+  bf16_t* mp = static_cast<bf16_t*>(mel_pad);
+  bf16_t* hp = static_cast<bf16_t*>(h_pad);
+  const dim3 grid((t_mel + kPrepTile - 1) / kPrepTile, (n_mels + kPrepTile - 1) / kPrepTile, b);
+  stem_prep_kernel<<<grid, kThreads, 0, s>>>(static_cast<const bf16_t*>(mel), t_mel, n_mels, d,
+                                             mp, hp);
+  int err = (int)cudaGetLastError();
+  const long long h_clip = (long long)(t_mel + 1) * d;  // a clip of h_pad
+  if (!err)  // row f: mel_pad rows f .. f + 2, one frame apart
+    err = wst_conv_gemm_fwd(wst_gemm::kGelu, b, t_mel, 3 * n_mels, d, mp, n_mels,
+                            (long long)(t_mel + 2) * n_mels, w1t, b1, hp + d, h_clip, nullptr,
+                            stream);
+  if (!err)  // row t: h_pad rows 2t .. 2t + 2, two rows apart
+    err = wst_conv_gemm_fwd(wst_gemm::kGeluPos, b, t_mel / 2, 3 * d, d, hp, 2LL * d, h_clip, w2t,
+                            b2, out, (long long)(t_mel / 2) * d, pos, stream);
+  return err;
 }
 
 }  // extern "C"

@@ -75,18 +75,26 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// TMA store: the box at (c0 columns, c1 rows) of a 2-D tensor map from
-// shared memory (elements outside the tensor are not written), as one
-// bulk group a thread commits; the fence makes this thread's generic
-// shared-memory writes visible to the store; wait_read<N> returns once at
-// most N of this thread's committed groups still read shared memory,
-// wait<N> once at most N are incomplete.
+// TMA store: the box at (c0 columns, c1 rows) of a 2-D tensor map, or at
+// (c0, c1, c2) of a 3-D one, from shared memory (elements outside the
+// tensor are not written), as one bulk group a thread commits; the fence
+// makes this thread's generic shared-memory writes visible to the store;
+// wait_read<N> returns once at most N of this thread's committed groups
+// still read shared memory, wait<N> once at most N are incomplete.
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
                                              int c1) {
   asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map)),
                "r"(smem_u32(src)), "r"(c0), "r"(c1)
                : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 template <int N>

@@ -12,10 +12,13 @@ update rebuilds it, and dropped when the source tensors are freed), not
 on every launch.
 
 - ``conv_stem_fwd`` replaces ``ops/pallas_encoder.py:fused_conv_stem``
-  (``pallas_call`` at :604): 64 output frames a CTA up to D=512, and its
-  wide form, 32 frames a CTA, for 512 < D <= 1536.  The even/odd split of
-  the mel's time columns stays a torch copy before the launch, as it is
-  XLA prep there.  Its products run on ``mma.sync`` (``warp_gemm``).
+  (``pallas_call`` at :604) at every width the fused route takes (D a
+  multiple of 128 up to 1536), in one C call of three launches:
+  ``stem_prep_kernel`` (the mel time-major with conv1's zero rows, and
+  the hidden's zero row), conv1 as three tap products on the Hopper GEMM
+  of ``csrc/encoder_gemm.cu`` with the GELU epilogue into a bf16 hidden
+  in device memory, and conv2 as three stride-2 tap products on the same
+  GEMM with the GELU and positions epilogue.
 - ``attention_block_fwd`` replaces ``fused_attention_block`` (:340) with
   three steps: ``ln_qkv_fwd`` (LN1 of the rows into a bf16 scratch, then
   one ``[rows, D] x [D, 3D]`` product on the Hopper GEMM of
@@ -37,8 +40,6 @@ on every launch.
   epilogue into a bf16 ``[rows, F]`` hidden in device memory, fc2 on the
   same GEMM with the residual epilogue (and the ``mlp_out`` capture), and
   the final-LN capture.
-- The stem counts its wide form's launches apart, in ``wide_launches``;
-  the library's ``wst_enc_narrow_max()`` draws the line.
 
 Bounds at whisper-tiny, 64 clips: operations (see the sources' notes).
 """
@@ -75,9 +76,9 @@ def _check_rows(x: torch.Tensor, what: str, dims: int) -> None:
                          f"(got {x.dtype} {tuple(x.shape)} on {x.device})")
 
 
-def _check_width(d: int, what: str, multiple: int = 32) -> None:
-    if d % multiple:
-        raise ValueError(f"{what} takes D a multiple of {multiple} (got {d})")
+def _check_width(d: int, what: str) -> None:
+    if d % _GEMM_WIDTH:
+        raise ValueError(f"{what} takes D a multiple of {_GEMM_WIDTH} (got {d})")
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +169,12 @@ def stem_weights(conv1_w, conv1_b, conv2_w, conv2_b, pos):
 
 
 def conv_stem_fwd(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tensor:
-    """mel ``[B, n_mels, T_mel]`` bf16 -> ``[B, T_mel//2, D]`` bf16.  The
-    library picks the form by D: 64 output frames a CTA up to
-    ``wst_enc_narrow_max()`` (counted in ``launches``), 32 above it up to
-    ``wst_enc_wide_max()`` (the wide form, ``wide_launches``)."""
-    mel = mel.contiguous()  # any strides: the even/odd split copies it anyway
+    """mel ``[B, n_mels, T_mel]`` bf16 -> ``[B, T_mel//2, D]`` bf16, D a
+    multiple of 128 up to ``wst_enc_wide_max()``: one C call of three
+    launches (the prep, conv1, conv2) with two bf16 scratch tensors, the
+    padded time-major mel ``[B, T_mel + 2, n_mels]`` and the padded hidden
+    ``[B, T_mel + 1, D]``."""
+    mel = mel.contiguous()  # the prep reads [B, n_mels, T_mel] rows
     _check_rows(mel, "conv_stem_fwd", 3)
     b, n_mels, t_mel = mel.shape
     d = conv1_w.shape[0]
@@ -186,18 +188,16 @@ def conv_stem_fwd(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tensor:
     t = t_mel // 2
     if pos.shape[0] < t:
         raise ValueError(f"{pos.shape[0]} positions for {t} frames")
-    mt = mel.transpose(1, 2)
-    even, odd = mt[:, 0::2].contiguous(), mt[:, 1::2].contiguous()
     w1t, b1, w2t, b2, posb = stem_weights(conv1_w, conv1_b, conv2_w, conv2_b, pos[:t])
+    mel_pad = torch.empty((b, t_mel + 2, n_mels), dtype=_BF, device=mel.device)
+    h_pad = torch.empty((b, t_mel + 1, d), dtype=_BF, device=mel.device)
     out = torch.empty((b, t, d), dtype=_BF, device=mel.device)
-    err = lib.wst_conv_stem_fwd(even.data_ptr(), odd.data_ptr(), b, t, n_mels, d,
-                                w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
-                                posb.data_ptr(), out.data_ptr(), _stream(mel.device))
+    err = lib.wst_conv_stem_fwd(mel.data_ptr(), b, t_mel, n_mels, d, w1t.data_ptr(),
+                                b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), posb.data_ptr(),
+                                mel_pad.data_ptr(), h_pad.data_ptr(), out.data_ptr(),
+                                _stream(mel.device))
     _build.check(err, "conv_stem_fwd")
-    if d > lib.wst_enc_narrow_max():
-        conv_stem_fwd.wide_launches += 1
-    else:
-        conv_stem_fwd.launches += 1
+    conv_stem_fwd.launches += 1
     return out
 
 
@@ -207,7 +207,7 @@ def ln_qkv_fwd(x, ln_g, ln_b, p, n_heads: int):
     epilogue (D a multiple of 128 up to ``wst_enc_wide_max()``)."""
     _check_rows(x, "ln_qkv_fwd", 2)
     n, d = x.shape
-    _check_width(d, "ln_qkv_fwd", _GEMM_WIDTH)
+    _check_width(d, "ln_qkv_fwd")
     wt, bias, g, bln = qkv_weights(p, ln_g, ln_b)
     if tuple(wt.shape) != (3 * d, d):
         raise ValueError(f"ln_qkv_fwd: q/k/v weights {tuple(p['wq'].shape)} for D={d}")
@@ -269,7 +269,7 @@ def out_proj_fwd(attn, x, wo, bo) -> torch.Tensor:
     _check_rows(attn, "out_proj_fwd", 2)
     _check_rows(x, "out_proj_fwd", 2)
     n, d = x.shape
-    _check_width(d, "out_proj_fwd", _GEMM_WIDTH)
+    _check_width(d, "out_proj_fwd")
     if attn.shape != x.shape:
         raise ValueError("out_proj_fwd: attn and x must share one shape")
     wt, bias = out_proj_weights(wo, bo)
@@ -357,4 +357,3 @@ def mlp_block_fwd(x, ln_g, ln_b, p, capture: bool = False, final_ln=None,
 for _fn in (conv_stem_fwd, ln_qkv_fwd, self_attention_fwd, flash_self_attention_fwd,
             out_proj_fwd, mlp_block_fwd):
     _fn.launches = 0
-conv_stem_fwd.wide_launches = 0

@@ -84,6 +84,27 @@ def conv_stem_plain(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tenso
     return _bf16_add(F.gelu(out).bfloat16(), pos[:t].to(torch.bfloat16))
 
 
+def conv_stem_route_plain(mel, conv1_w, conv1_b, conv2_w, conv2_b, pos) -> torch.Tensor:
+    """The card's route of the conv stem (``cuda_encoder.conv_stem_fwd``)
+    written out step by step, for the tests: the prep's time-major mel
+    with a zero row at each end of every clip, conv1 as three tap products
+    over its frames f + j, the GELU epilogue rounded into a hidden whose
+    row 0 is zero (h[-1]), conv2 as three tap products over the hidden's
+    rows 2t + j (stride 2), then the GELU and positions epilogue.  mel
+    ``[B, n_mels, T_mel]`` -> ``[B, T_mel//2, D]`` bf16."""
+    b, n_mels, t_mel = mel.shape
+    t = t_mel // 2
+    d = conv1_w.shape[0]
+    w1, w2 = conv1_w.to(torch.bfloat16), conv2_w.to(torch.bfloat16)
+    mel_pad = torch.zeros(b, t_mel + 2, n_mels, dtype=torch.bfloat16, device=mel.device)
+    mel_pad[:, 1:-1] = mel.to(torch.bfloat16).transpose(1, 2)
+    acc = sum(mm_f32(mel_pad[:, j:j + t_mel], w1[:, :, j].t()) for j in range(3))
+    h_pad = torch.zeros(b, t_mel + 1, d, dtype=torch.bfloat16, device=mel.device)
+    h_pad[:, 1:] = F.gelu(acc + conv1_b.float()).bfloat16()
+    acc = sum(mm_f32(h_pad[:, j:j + 2 * t:2], w2[:, :, j].t()) for j in range(3))
+    return _bf16_add(F.gelu(acc + conv2_b.float()).bfloat16(), pos[:t].to(torch.bfloat16))
+
+
 def ln_qkv_plain(x, ln_g, ln_b, p, n_heads: int):
     """LN1 and the q/k/v products: q = bf16((xln Wq + bq) * hd**-0.5),
     k = bf16(xln Wk), v = bf16(xln Wv + bv), each ``[..., D]``."""

@@ -461,8 +461,9 @@ GEOMS = [(128, 2, 256, 80, 100), (384, 6, 1536, 80, 1500), (384, 6, 1536, 128, 1
 @pytest.mark.parametrize("d,heads,f,n_mels,t", GEOMS)
 def test_encoder_kernels_match_plain(dev, d, heads, f, n_mels, t):
     """Every encoder kernel at whisper-tiny, -small and -large-v3 widths
-    (and D=1536, the widest the fused route takes), the stem's narrow or
-    wide form by width; the attention core with T unpadded and with keys masked."""
+    (and D=1536, the widest the fused route takes), the stem's three
+    launches at every width; the attention core with T unpadded and with
+    keys masked."""
     enc, lp, g = _encoder(d, heads, f, n_mels, t)
     mel = (torch.randn(2, n_mels, 2 * t, generator=g) * 0.5).to(dev).bfloat16()
     stem = (enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"], enc["pos"])
@@ -488,6 +489,46 @@ def test_encoder_kernels_match_plain(dev, d, heads, f, n_mels, t):
     for got, want in zip(CE.mlp_block_fwd(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], True, fl),
                          E.mlp_block_plain(brows, lp["ln2_g"], lp["ln2_b"], lp["mlp"], True, fl)):
         _close(got, want)
+
+
+def _stem_case(dev, d: int, n_mels: int, b: int, t: int) -> None:
+    """conv_stem_fwd against conv_stem_plain on ``b`` random clips of ``t``
+    output frames, its scratch taken from an allocator cache poisoned with
+    NaN (the pad rows are written on every call); one launch a call, two
+    calls bit-identical."""
+    g = torch.Generator().manual_seed(d + n_mels + t)
+
+    def r(*shape, scale):
+        return (torch.randn(*shape, generator=g) * scale).to(dev).bfloat16()
+
+    stem = (r(d, n_mels, 3, scale=(3 * n_mels) ** -0.5), r(d, scale=0.1),
+            r(d, d, 3, scale=(3 * d) ** -0.5), r(d, scale=0.1), r(t, d, scale=0.1))
+    mel = r(b, n_mels, 2 * t, scale=0.5)
+    want = E.conv_stem_plain(mel, *stem)
+    for shape in ((b, 2 * t + 2, n_mels), (b, 2 * t + 1, d)):  # the wrapper's two scratch tensors
+        torch.full(shape, float("nan"), device=dev, dtype=torch.bfloat16)
+    before = CE.conv_stem_fwd.launches
+    got = CE.conv_stem_fwd(mel, *stem)
+    assert CE.conv_stem_fwd.launches - before == 1
+    _close(got, want)
+    assert torch.equal(got, CE.conv_stem_fwd(mel, *stem))
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+@pytest.mark.parametrize("d", range(128, 1537, 128))
+def test_conv_stem_every_width(dev, d, n_mels):
+    """The stem (the prep, then conv1 and conv2 as tap products on the
+    Hopper GEMM) at every width the fused route takes, for 80 and 128 mels,
+    on two clips of 100 output frames: conv1's 200 rows and conv2's 100 end
+    inside a tile, and a clip boundary is crossed."""
+    _stem_case(dev, d, n_mels, 2, 100)
+
+
+@pytest.mark.parametrize("n_mels,d", [(80, 384), (128, 1280)])
+def test_conv_stem_three_full_clips(dev, n_mels, d):
+    """Three 30-second clips (T = 1500: 24 conv1 tiles and 12 conv2 tiles
+    a clip, the last of each partial) at whisper-tiny and -large-v3 widths."""
+    _stem_case(dev, d, n_mels, 3, 1500)
 
 
 # every width the MLP route takes up to the widest of the gate (F = 4D)
@@ -638,23 +679,23 @@ def test_encoder_gate_constants_match_the_library(dev):
 
 def test_large_v3_extraction_uses_only_kernels(dev):
     """bf16 extract_activations at whisper-large-v3 width (2+2 layers, one
-    clip) launches the wide stem, the attention launches and the MLP
-    route, no plain version, and agrees per layer with the card's
-    composed route at the stack bar."""
+    clip) launches the stem, the attention launches and the MLP route, no
+    plain version, and agrees per layer with the card's composed route at
+    the stack bar."""
     arch = W.WhisperArch(1280, 2, 2, 20, 5120, n_mels=128, vocab_size=51866)
     p = W.params_to(W.init_whisper(torch.Generator().manual_seed(6), arch), dev)
     mel = (torch.randn(1, 128, 3000, generator=torch.Generator().manual_seed(7)) * 0.5).to(dev)
     E.plain_calls.clear()
     def counts():
-        return [CE.conv_stem_fwd.wide_launches, CE.ln_qkv_fwd.launches,
+        return [CE.conv_stem_fwd.launches, CE.ln_qkv_fwd.launches,
                 CE.self_attention_fwd.launches, CE.out_proj_fwd.launches,
-                CE.mlp_block_fwd.launches, CE.conv_stem_fwd.launches]
+                CE.mlp_block_fwd.launches]
 
     before = counts()
     got = W.extract_activations(p, mel, arch, compute_dtype=torch.bfloat16,
                                 capture_dtype=torch.bfloat16, with_mlp=True)
     assert sum(E.plain_calls.values()) == 0
-    assert [a - b for a, b in zip(counts(), before)] == [1, 2, 2, 2, 2, 0]
+    assert [a - b for a, b in zip(counts(), before)] == [1, 2, 2, 2, 2]
     want = W.extract_activations(p, mel, arch, compute_dtype=torch.bfloat16,
                                  capture_dtype=torch.bfloat16, with_mlp=True,
                                  use_fused_encoder=False)
@@ -718,10 +759,14 @@ def test_encoder_kernels_refuse_shapes(dev):
                          enc["conv1_w"], enc["conv1_b"], enc["conv2_w"], enc["conv2_b"],
                          enc["pos"])
     mel = torch.zeros(1, 80, 200, device=dev, dtype=torch.bfloat16)
-    w1 = torch.zeros(1568, 80, 3, device=dev)  # wider than the wide form
+    w1 = torch.zeros(1664, 80, 3, device=dev)  # wider than the fused route's gate
     with pytest.raises(ValueError, match="D <= 1536"):
-        CE.conv_stem_fwd(mel, w1, w1[:, 0, 0], torch.zeros(1568, 1568, 3, device=dev),
-                         w1[:, 0, 0], torch.zeros(100, 1568, device=dev))
+        CE.conv_stem_fwd(mel, w1, w1[:, 0, 0], torch.zeros(1664, 1664, 3, device=dev),
+                         w1[:, 0, 0], torch.zeros(100, 1664, device=dev))
+    w1 = torch.zeros(96, 80, 3, device=dev)  # the GEMM's tiles need D a multiple of 128
+    with pytest.raises(ValueError, match="multiple of 128"):
+        CE.conv_stem_fwd(mel, w1, w1[:, 0, 0], torch.zeros(96, 96, 3, device=dev),
+                         w1[:, 0, 0], torch.zeros(100, 96, device=dev))
     wide, _, _ = _encoder(576, 9, 2304, 80, 100)  # above 512, not a multiple of 128
     wl = W._layer(wide["layers"], 0)
     with pytest.raises(ValueError, match="multiple of 128"):
