@@ -7,19 +7,26 @@ NVIDIA GPU (built for the H100, ``sm_90a``).
 Phases, each of which fails the run (non-zero exit, no result line):
 
 0. Build: compile the port's CUDA kernels from ``ops/csrc`` with nvcc.
-1. Kernels at whisper-tiny width (D=384, H=3072, k=32), B=128 and B=4096:
-   each kernel against its plain PyTorch version on the same card inputs
-   (kernel A sliced and at a row offset, B in bf16 and f32, C), with
-   gradients through each autograd.Function against the same Function on
-   the CPU (plain forward), and kernel A's loss bit-identical run to run.
+1. Kernels at whisper-tiny width (D=384, H=3072, k=32), B=128 and B=4096
+   (A and B also at 32768: kernel B's two chunks): each kernel against
+   its plain PyTorch version on the same card inputs (kernel A sliced and
+   at a row offset, B in bf16 and f32, C), with gradients through each
+   autograd.Function against the same Function on the CPU (plain
+   forward), kernel A's loss and kernel B's latent bit-identical run to
+   run, and kernel B's bf16 latent equal to kernel A's on the same rows
+   (both select on the kPre pre with the warp select).
    Tolerances: kernel C exact; A and B compute ``pre`` with tensor-core
    sums in another order than the plain f32 product, so >= 99.9% of rows
    must select the same features, A's loss at rtol 1e-4, l0 and the
    active vector equal on those rows, the latent within bf16 rounding
    (atol 1e-2 * max); gradients at rtol 2e-2.  Each row that selects
    differently is printed with the plain pre's gap between its k-th and
-   (k+1)-th values and the row's max |pre_card - pre_plain| (kernel A's
-   own pre, from its kPre encode); a gap wider than twice that fails.
+   (k+1)-th values and the row's max |pre_card - pre_plain| (the kPre
+   encode's pre); a gap wider than twice that fails.  Where fewer than
+   99.9% of A's or B's rows agree, the run logs before it fails the rows
+   that differ, the card latent's non-finite and all-zero rows, whether
+   the card's centred rows equal the plain ones, the max |pre_card -
+   pre_plain| over all rows and whether a relaunch gives the same bits.
 2. Training through the CLI (``whisper_sae_tpu_torch.train.main``) on a
    synthetic gaussian cache (covariance mostly of rank 64) of 2^18 + 64
    rows x 384 f32 in the JAX
@@ -36,7 +43,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel, its plain version and one PyTorch call as a yardstick (the
    bf16 encode product for A and B, ``torch.topk`` for C -- yardsticks,
    not equivalents), beside the least time the card needs for the same
-   work.
+   work; kernels A and B also at 32768 rows, with each launch's device
+   time under ``torch.profiler`` (``split_ms``: A's four launches, B's
+   centre, ``gemm_kernel<3>`` and warp select summed over its chunks).
 
 5. Encoder kernels at whisper-tiny width (D=384, 6 heads, F=1536,
    T=1500, 80 mels), 64 clips: the conv stem (three launches: the prep,
@@ -251,6 +260,9 @@ RANK = 64
 # cores (also used here for the bisection's int compares), HBM3
 PEAK_BF16, PEAK_ALU, PEAK_BYTES = 989e12, 67e12, 3.35e12
 SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/sae_kernels.cu"
+# kernel B's three launches a chunk (blocked_encode.cu's chunk loop), by the
+# profiler's kernel names
+B_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_kernel<3>", "select": "topk_mask_kernel"}
 NAMES = ("w_enc", "b_enc", "b_pre", "w_dec", "b_dec")
 # extraction slice: whisper-tiny width, 64 clips a batch
 ENC_B, ENC_T, ENC_D, ENC_HEADS, ENC_F, N_MELS = 64, 1500, 384, 6, 1536, 80
@@ -380,6 +392,20 @@ def agree(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a > 0) == (b > 0)).all(dim=1)
 
 
+def card_pre(xc, we_t, b_enc, what: str) -> torch.Tensor:
+    """The encode GEMM's kPre epilogue on the card, f32 [rows, H] =
+    xc . we_t^T + b_enc; fails if it does not launch."""
+    from whisper_sae_tpu_torch.ops import _build
+
+    rows, d = xc.shape
+    pre = torch.empty(rows, we_t.shape[0], device=xc.device)
+    check(_build.load_library().wst_enc_gemm_fwd(
+        3, xc.data_ptr(), we_t.data_ptr(), rows, we_t.shape[0], d, b_enc.data_ptr(), 1.0, 0,
+        pre.data_ptr(), None, None, None, torch.cuda.current_stream().cuda_stream) == 0,
+        f"{what}: the kPre GEMM did not launch")
+    return pre
+
+
 def selection_gaps(xc, we_t, b_enc, got_hid, want_hid, k: int, what: str) -> list:
     """Each row whose selection differs from the plain version, with the
     plain pre's gap between its k-th and (k+1)-th values, its k-th value
@@ -391,19 +417,12 @@ def selection_gaps(xc, we_t, b_enc, got_hid, want_hid, k: int, what: str) -> lis
     selected value can change sign only if it is within it of 0, so the
     gap (or the k-th value) is held to twice the row's difference.  Fails
     on any wider gap: the kernel, not the sum order, would be at fault."""
-    from whisper_sae_tpu_torch.ops import _build
     from whisper_sae_tpu_torch.utils.device import mm_f32
 
     bad = (~agree(got_hid, want_hid)).nonzero().flatten()
     if bad.numel() == 0:
         return []
-    rows, d = xc.shape
-    h = we_t.shape[0]
-    pre_card = torch.empty(rows, h, device=xc.device)
-    check(_build.load_library().wst_enc_gemm_fwd(
-        3, xc.data_ptr(), we_t.data_ptr(), rows, h, d, b_enc.data_ptr(), 1.0, 0,
-        pre_card.data_ptr(), None, None, None, torch.cuda.current_stream().cuda_stream) == 0,
-        f"{what}: the kPre GEMM did not launch")
+    pre_card = card_pre(xc, we_t, b_enc, what)
     pre_plain = (mm_f32(xc, we_t.t()) + b_enc)[bad]
     top = torch.topk(pre_plain, k + 1, dim=1).values
     gap, kth = top[:, k - 1] - top[:, k], top[:, k - 1]
@@ -416,6 +435,33 @@ def selection_gaps(xc, we_t, b_enc, got_hid, want_hid, k: int, what: str) -> lis
               f"{what}: row {r}'s gap {g:.4g} is wider than the sum order explains ({2 * df:.4g})")
         out.append({"row": r, "gap": g, "kth": v, "max_pre_diff": df})
     return out
+
+
+def explain_disagreement(what: str, got_hid, want_hid, card_xc, plain_xc, we_t, b_enc,
+                         relaunch) -> None:
+    """Logs, for a check about to fail on fewer than 99.9% of rows
+    agreeing, what tells a fault of the kernel from one of its inputs or
+    of the card: the rows that differ; the card latent's non-finite and
+    all-zero rows; whether the card's centred rows equal the plain
+    version's; the max |pre_card - pre_plain| over all rows (pre_card: the
+    kPre GEMM on the card's centred rows); whether one relaunch on the same
+    inputs gives the same bits."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    bad = int((~agree(got_hid, want_hid)).sum())
+    g = got_hid.float()
+    nonfinite = int((~torch.isfinite(g)).any(dim=1).sum())
+    zero = int((g == 0).all(dim=1).sum())
+    rows = card_xc.shape[0]
+    pre_card = card_pre(card_xc, we_t, b_enc, what)
+    pre_diff = float((pre_card - (mm_f32(plain_xc, we_t.t()) + b_enc)).abs().max())
+    again = relaunch()
+    torch.cuda.synchronize()
+    log(f"    {what}: {bad} of {rows} rows select differently; the card latent has "
+        f"{nonfinite} non-finite and {zero} all-zero rows; card xc == plain xc: "
+        f"{torch.equal(card_xc, plain_xc)}; max |pre_card - pre_plain| {pre_diff:.4g}; "
+        f"a relaunch gives the same bits: "
+        f"{torch.equal(again, got_hid)}")
 
 
 def grads_close(fn, p, cpu_fn, names, what: str) -> None:
@@ -439,9 +485,10 @@ def grads_close(fn, p, cpu_fn, names, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> None:
+def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> torch.Tensor:
     """Kernel A against its plain version at ``b`` rows, sliced and at a
-    row offset into an epoch buffer; two launches give the same bits."""
+    row offset into an epoch buffer; two launches give the same bits.
+    Returns the sliced call's bf16 latent."""
     we_t = cuda_sae._bf16_t(p["w_enc"])
     wd = p["w_dec"].bfloat16()
     b_out = p["b_dec"] + p["b_pre"]
@@ -452,6 +499,11 @@ def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> None:
         torch.cuda.synchronize()
         ok = agree(got[3], want[3])
         share = float(ok.float().mean())
+        if share < 0.999:
+            explain_disagreement(
+                f"{what} B={b}", got[3], want[3], got[5], want[5], we_t, p["b_enc"],
+                lambda: cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"], p["b_pre"],
+                                                    wd, b_out, K)[3])
         check(share >= 0.999, f"{what} B={b}: selection agrees on {share:.4%} of rows")
         GAPS[f"{what} B={b}"] = selection_gaps(got[5], we_t, p["b_enc"], got[3], want[3], K,
                                                f"{what} B={b}")
@@ -467,31 +519,69 @@ def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> None:
         errs[what] = max(errs.get(what, 0.0), float((got[4][ok] - want[4][ok]).abs().max()))
         log(f"  {what:24s} B={b:5d}: rows agreeing {share:.4%}, loss {float(got[0]):.7g} "
             f"vs plain {float(want[0]):.7g}, l0 {float(got[1]):.3f}")
+        if off == 0:
+            hid = got[3]
     a = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
     a2 = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
     check(all(torch.equal(u, v) for u, v in zip(a, a2)), f"kernel A B={b}: loss not bit-identical")
+    return hid
 
 
-def kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
+def check_kernel_b(cuda_sae, lib, b: int, p: dict, x, hid_a, errs: dict) -> None:
+    """Kernel B (the centre, the kPre GEMM, the warp select, chunk by
+    chunk), called through its entry point ``fused_topk_encode``, against
+    its plain version at ``b`` rows, bf16 and f32 latent: one launch of
+    kernel B and none of the blocked encode a call; >= 99.9% of rows
+    select the same features, values on those rows within 1e-2 * max,
+    every differing row through the gap check; the bf16 latent equal to
+    kernel A's on the same rows (``hid_a``), bit for bit; a second launch
+    (``_topk_encode_launch``) gives the same bits."""
+    we_t = cuda_sae._bf16_t(p["w_enc"])
+    args = (we_t, p["b_enc"], p["b_pre"], K)
+    plain_xc = (x.float() - p["b_pre"]).bfloat16()
+    enc = cuda_sae.fused_topk_encode
+    for out_dtype in (torch.bfloat16, torch.float32):
+        what = f"fused_topk_encode B={b} -> {str(out_dtype)[6:]}"
+        before = (enc.launches, enc.blocked_launches)
+        got = enc(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
+        check((enc.launches, enc.blocked_launches) == (before[0] + 1, before[1]),
+              f"{what}: the entry point did not launch kernel B once")
+        want = cuda_sae.topk_encode_plain(x, *args, out_dtype)
+        torch.cuda.synchronize()
+        check(got.dtype == out_dtype and got.shape == (b, H), f"{what}: output")
+        ok = agree(got, want)
+        share = float(ok.float().mean())
+        if share < 0.999:
+            card_xc = torch.empty_like(plain_xc)
+            check(lib.wst_sae_centre_fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), 0, b, D,
+                                         p["b_pre"].data_ptr(), card_xc.data_ptr(),
+                                         torch.cuda.current_stream().cuda_stream) == 0,
+                  f"{what}: the centre did not launch")
+            explain_disagreement(what, got, want, card_xc, plain_xc, we_t, p["b_enc"],
+                                 lambda: cuda_sae._topk_encode_launch(x, *args, out_dtype))
+        check(share >= 0.999, f"{what}: selection agrees on {share:.4%} of rows")
+        err = float((got[ok].float() - want[ok].float()).abs().max())
+        check(err <= 1e-2 * float(want.float().abs().max()), f"{what}: values off by {err:.3g}")
+        errs["fused_topk_encode"] = max(errs.get("fused_topk_encode", 0.0), err)
+        GAPS[what] = selection_gaps(plain_xc, we_t, p["b_enc"], got, want, K, what)
+        if out_dtype == torch.bfloat16:
+            check(torch.equal(got, hid_a), f"{what}: the latent differs from kernel A's")
+        check(torch.equal(got, cuda_sae._topk_encode_launch(x, *args, out_dtype)),
+              f"{what}: two launches differ")
+        log(f"  {what:30s}: rows agreeing {share:.4%}, max abs err {err:.3g}; "
+            + ("equal to kernel A's latent, " if out_dtype == torch.bfloat16 else "")
+            + "two launches bit-identical")
+        del got, want
+
+
+def kernel_phase(dev, cuda_sae, cuda_topk, topk, lib) -> dict:
     errs: dict[str, float] = {}
     for b in BATCHES:
         p = params(b, dev)
         gen = torch.Generator().manual_seed(b + 1)
         x = torch.randn(b, D, generator=gen).to(dev)
         buf = torch.randn(3 * b, D, generator=gen).to(dev)
-        we_t = cuda_sae._bf16_t(p["w_enc"])
-        check_kernel_a(cuda_sae, b, p, x, buf, errs)
-
-        # kernel B, bf16 and f32 latent
-        for out_dtype in (torch.bfloat16, torch.float32):
-            got = cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
-            want = cuda_sae.topk_encode_plain(x, we_t, p["b_enc"], p["b_pre"], K, out_dtype)
-            torch.cuda.synchronize()
-            ok = agree(got, want)
-            check(float(ok.float().mean()) >= 0.999, f"fused_topk_encode B={b}: selection")
-            err = float((got[ok].float() - want[ok].float()).abs().max())
-            check(err <= 1e-2 * float(want.float().abs().max()), f"fused_topk_encode B={b}: values")
-            errs["fused_topk_encode"] = max(errs.get("fused_topk_encode", 0.0), err)
+        check_kernel_b(cuda_sae, lib, b, p, x, check_kernel_a(cuda_sae, b, p, x, buf, errs), errs)
 
         # kernel C, exact
         pre = torch.randn(b, H, generator=gen).to(dev)
@@ -499,7 +589,7 @@ def kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
         got, want = cuda_topk.topk_mask_fwd(pre, K), topk.topk_mask_plain(pre, K)
         check(torch.equal(got, want), f"topk_mask B={b}: differs from the plain version")
         errs["topk_mask"] = 0.0
-        log(f"  fused_topk_encode, topk_mask B={b:5d}: agree")
+        log(f"  topk_mask B={b:5d}: equal to the plain version")
 
         # gradients through each autograd.Function
         if b == BATCHES[-1]:
@@ -522,8 +612,9 @@ def kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
             log(f"  gradients B={b}: agree (rtol 2e-2)")
     b = A_WIDE_BATCH
     gen = torch.Generator().manual_seed(b + 1)
-    check_kernel_a(cuda_sae, b, params(b, dev), torch.randn(b, D, generator=gen).to(dev),
-                   torch.randn(3 * b, D, generator=gen).to(dev), errs)
+    p, x = params(b, dev), torch.randn(b, D, generator=gen).to(dev)
+    hid_a = check_kernel_a(cuda_sae, b, p, x, torch.randn(3 * b, D, generator=gen).to(dev), errs)
+    check_kernel_b(cuda_sae, lib, b, p, x, hid_a, errs)
     return errs
 
 
@@ -668,10 +759,12 @@ def step_profile(trainer, rows, steps: int) -> dict:
 
 
 def launch_split(fn, parts: dict, calls: int = 10) -> dict:
-    """Device ms per launch of each kernel of ``parts`` (part: profiler
-    name, in the order a call of ``fn`` launches them: kernel A's four,
-    the coder's five or four), from ``torch.profiler`` over ``calls``
-    calls (None where the profiler saw no device time).  Where parts share
+    """Device ms a call of each kernel of ``parts`` (part: profiler name,
+    in the order a call of ``fn`` launches them: kernel A's four, the
+    coder's five or four, a chunked route's three a chunk): the device
+    time of every launch of it that ``torch.profiler`` saw over ``calls``
+    calls, summed and divided by ``calls`` (None where it saw no device
+    time).  Where parts share
     a name (the Skip mode's encode and skip product, both gemm_kernel<3>),
     the n-th launch of a run of that name, in time order, is the n-th of
     those parts."""
@@ -686,7 +779,7 @@ def launch_split(fn, parts: dict, calls: int = 10) -> dict:
         torch.cuda.synchronize()
     kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-    us, n = dict.fromkeys(parts, 0.0), dict.fromkeys(parts, 0)
+    us = dict.fromkeys(parts, 0.0)
     prev, run = None, 0
     for e in kernels:
         hits = [part for part, kname in parts.items() if kname in e.name]
@@ -696,12 +789,14 @@ def launch_split(fn, parts: dict, calls: int = 10) -> dict:
         if hits:
             part = hits[min(run, len(hits) - 1)]
             us[part] += e.time_range.elapsed_us()
-            n[part] += 1
-    return {part: us[part] / 1e3 / n[part] if us[part] > 0 else None for part in parts}
+    return {part: us[part] / 1e3 / calls if us[part] > 0 else None for part in parts}
 
 
 def times(dev, cuda_sae, cuda_topk, topk) -> dict:
+    from whisper_sae_tpu_torch.ops import _build
+
     res: dict = {}
+    chunk_b = _build.load_library().wst_sae_topk_encode_chunk_rows(H)
     for b in (*BATCHES, A_WIDE_BATCH):
         p = params(7, dev)
         x = torch.randn(b, D, generator=torch.Generator().manual_seed(8)).to(dev)
@@ -731,16 +826,23 @@ def times(dev, cuda_sae, cuda_topk, topk) -> dict:
             log(f"  {name:24s} B={b:5d}: launches in ms: "
                 + ", ".join(f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
                             for k_, v in split.items()))
-        if b not in BATCHES:
-            continue
 
+        # B: x, W_enc^T and the biases in, the bf16 latent out
         b_bytes = b * D * 4 + D * H * 2 + (H + D) * 4 + b * H * 2
         b_bound = bound(b_bytes, 2 * b * D * H, 32 * b * H)
-        b_ms = time_ms(lambda: cuda_sae._topk_encode_launch(x, we_t, p["b_enc"], p["b_pre"], K,
-                                                            torch.bfloat16))
+        launch = lambda: cuda_sae._topk_encode_launch(x, we_t, p["b_enc"], p["b_pre"], K,  # noqa: E731
+                                                      torch.bfloat16)
+        b_ms = time_ms(launch)
         b_plain = time_ms(lambda: cuda_sae.topk_encode_plain(x, we_t, p["b_enc"], p["b_pre"], K,
                                                              torch.bfloat16), iters=5, warmup=1)
         res[("fused_topk_encode", b)] = (b_ms, b_plain, *b_bound, lib_gemm)
+        # each part's device ms a call, over the launches of all its chunks
+        res[("split", "fused_topk_encode", b)] = split = launch_split(launch, B_PARTS)
+        log(f"  {'fused_topk_encode':24s} B={b:5d} ({-(-b // chunk_b)} chunks): device ms a call: "
+            + ", ".join(f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
+                        for k_, v in split.items()))
+        if b not in BATCHES:
+            continue
 
         pre = (torch.matmul(xc.float(), w_bf.float()) + p["b_enc"]).contiguous()
         c_bound = bound(2 * b * H * 4, 0, 32 * b * H)
@@ -1949,10 +2051,8 @@ def large_times(work: Path, dev, trainer, cuda_sae, cuda_topk, topk) -> dict:
         "plain_ms": time_ms(lambda: cuda_sae.topk_encode_plain(*args), iters=2, warmup=1),
         **dict(zip(("bound_ms", "bound_by"), b_bound)),
         "library_ms": time_ms(lambda: torch.mm(xc, w_bf), iters=10, warmup=2),
-        # the f32 workspace written and read back, beyond the bound
-        "workspace_bytes_ms": 1e3 * 2 * 4 * BL * HL / PEAK_BYTES,
-        # device ms a call of each part (its launches a chunk, times the chunks)
-        "split_ms": {k_: v * chunks if v is not None else None for k_, v in split.items()},
+        # device ms a call of each part, over the launches of all its chunks
+        "split_ms": split,
         "select_passes_mean": float(passes.mean()),
         "select_passes_max": int(passes.max()),
     }
@@ -1975,7 +2075,7 @@ def large_times(work: Path, dev, trainer, cuda_sae, cuda_topk, topk) -> dict:
         + (f"; the product at {r['encode_tflops']:.1f} TFLOP/s" if r["encode_tflops"] else ""))
     log(f"  the select ran {r['select_passes_mean']:.2f} passes a row on average, "
         f"{r['select_passes_max']} at most (of 32); the f32 workspace adds "
-        f"{r['workspace_bytes_ms']:.4f} ms of HBM traffic beyond the bound")
+        f"{1e3 * 2 * 4 * BL * HL / PEAK_BYTES:.4f} ms of HBM traffic beyond the bound")
     del pre, xc, w_bf, x
     log(f"  one training step at batch {BL} (D={DL}, H={HL}, k={K}, AMP):")
     stepper = type(trainer)(trainer.model, trainer.config, run_dir=work / "lgstep")
@@ -2434,7 +2534,7 @@ def main() -> int:
     _build.load_library()
 
     log("phase 1: kernels against their plain versions")
-    errs = kernel_phase(dev, cuda_sae, cuda_topk, topk)
+    errs = kernel_phase(dev, cuda_sae, cuda_topk, topk, _build.load_library())
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -2477,8 +2577,8 @@ def main() -> int:
     }
     kernels = []
     for name in wrappers:
-        kernel_a = name.startswith("fused_sae_loss")
-        for b in (*BATCHES, A_WIDE_BATCH) if kernel_a else BATCHES:
+        wide = name != "topk_mask"  # kernels A and B: also at A_WIDE_BATCH, with split_ms
+        for b in (*BATCHES, A_WIDE_BATCH) if wide else BATCHES:
             ms, plain, bound_ms, by, lib_ms = res[(name, b)]
             log(f"  {name:24s} B={b:5d}: {ms:.4f} ms, plain {plain:.4f}, bound {bound_ms:.4f} "
                 f"({by}), library {lib_ms:.4f}")
@@ -2492,12 +2592,16 @@ def main() -> int:
             "at_batch_128": {"ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
                              "bound_by": s_by, "library_ms": s_lib},
         }
-        if kernel_a:
+        if wide:
             w_ms, w_plain, w_bound, w_by, w_lib = res[(name, A_WIDE_BATCH)]
             entry[f"at_batch_{A_WIDE_BATCH}"] = {"ms": w_ms, "plain_ms": w_plain, "bound_ms": w_bound,
                                                  "bound_by": w_by, "library_ms": w_lib}
             entry["split_ms"] = {str(b): res[("split", name, b)]
                                  for b in (*BATCHES, A_WIDE_BATCH)}
+        if name == "fused_topk_encode":
+            entry["source"] = BLOCKED_SOURCE
+            entry["sources"] = [BLOCKED_SOURCE, SOURCE, GEMM_SOURCE]
+            entry["route_launches"] = list(B_PARTS.values())
         kernels.append(entry)
     log("phase 7: times of the extraction slice (library_ms: torch.matmul for the "
         "projections, the conv1d pair for the stem, scaled_dot_product_attention for the core "
@@ -2583,7 +2687,7 @@ def main() -> int:
         check(kernels[-1]["launches"] > 0, f"{name}: no launch on the whisper-large path")
     kernels[-2]["sources"] = [BLOCKED_SOURCE, GEMM_SOURCE]
     kernels[-2].update({k_: ltimes["fused_topk_encode_blocked"][k_] for k_ in (
-        "workspace_bytes_ms", "split_ms", "encode_tflops", "select_passes_mean",
+        "split_ms", "encode_tflops", "select_passes_mean",
         "select_passes_max")})
     log(f"  whisper-large slice: {json.dumps({'step': ltimes['step'], 'losses': path12['losses'], 'train_s': path12['train_s']})}")
 

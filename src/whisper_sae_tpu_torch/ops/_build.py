@@ -26,12 +26,23 @@ _HEADERS = ("topk_common.cuh", "hopper_common.cuh", "encoder_gemm.cuh", "select_
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # The kernels' compile-time limits, kept here as Python constants because
 # the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
-# pins them to wst_max_d(), wst_max_row_width(), wst_max_wide_row_width()
-# and wst_rows_per_cta()).
+# pins them to wst_max_d(), wst_max_row_width(), wst_max_wide_row_width(),
+# wst_rows_per_cta() and wst_sae_topk_encode_chunk_rows()).
 MAX_D = 384  # kernel A's decode keeps D/32 f32 sums a lane
 SEL_ROWS = 4  # rows (one a warp) a CTA of the select-and-decode kernels: one sq partial each
 MAX_ROW = 3072  # one warp holds a row in registers: kernels A, B, C and the coder kernel
 MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, wide kernel C
+BLOCKED_CHUNK_ROWS = 2048  # rows of a chunk of the blocked encode
+PRE_BUDGET = BLOCKED_CHUNK_ROWS * MAX_WIDE_ROW * 4  # bytes of a chunk's f32 pre at most
+
+
+def topk_encode_chunk_rows(h: int) -> int:
+    """Rows of a chunk of kernel B at width ``h``: those whose f32 pre
+    fits ``PRE_BUDGET``, rounded down to a multiple of 128 (the GEMM's
+    tile rows)."""
+    return PRE_BUDGET // (4 * h) // 128 * 128
+
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
@@ -50,8 +61,12 @@ _SIGNATURES = {
          _P, _P, _P, _P, _P, _P, _P, _P, _P],        # hid, resid, xc, pre, partial, counts, loss, l0, stream
         _I,
     ),
+    "wst_sae_topk_encode_chunk_rows": ([_I], _I),  # h
+    "wst_sae_topk_encode_workspace_bytes": ([_I, _I, _I], _L),  # rows, d, h
     "wst_sae_topk_encode_fwd": (
-        [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I, _P], _I,
+        [_P, _I, _I, _I, _I, _I,          # x, x_bf16, rows, d, h, k
+         _P, _P, _P, _P, _I, _P, _P],     # w_enc_t, b_enc, b_pre, out, out_f32, ws, stream
+        _I,
     ),
     "wst_topk_mask_fwd": ([_P, _P, _I, _I, _I, _P], _I),
     "wst_max_wide_row_width": ([], _I),

@@ -1,6 +1,7 @@
 """What the card probes (``gemm_probe``, ``sae_probe``, ``coder_probe``,
-``stem_probe``) share: a call's time between CUDA events, a training
-step's wall time and the card's name and power limit."""
+``stem_probe``) share: a call's time between CUDA events, each of its
+kernels' device time, a training step's wall time and the card's name
+and power limit."""
 
 from __future__ import annotations
 
@@ -23,6 +24,28 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_split(fn, calls: int = 10) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches, by its name
+    without the arguments, from ``torch.profiler`` over ``calls`` calls
+    after a warm one (the profiler now and then misses a C call's first
+    kernel: such a kernel reads low)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.split("(", 1)[0].removeprefix("void ")
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
 
 
 def card() -> str:

@@ -6,14 +6,18 @@
 //   replaces whisper_sae_tpu/ops/pallas_sae.py:_fused_loss_kernel, reached
 //   by fused_sae_loss (pallas_call at :249) and, with a row offset into the
 //   epoch buffer, by fused_sae_loss_indexed (:424).
-// sae_rows_kernel<kEncodeBf16|kEncodeF32>   (kernel B, "sae_topk_encode_fwd")
-//   replaces ops/pallas_sae.py:_encode_kernel (fused_topk_encode, :77).
-// topk_mask_kernel   (kernel C, "topk_mask_fwd")
+// topk_mask_kernel<float>   (kernel C, "topk_mask_fwd")
 //   replaces ops/pallas_topk.py:_mask_kernel (topk_mask_pallas, :51);
 //   topk_mask_wide_kernel<N> ("topk_mask_wide_fwd") is its form for rows
 //   wider than a warp's registers (the TPU kernel's H = 40960).
+// topk_mask_kernel<unsigned short|float>, the same body writing a bf16 or
+//   f32 latent at a row offset, is the select of kernel B
+//   ("sae_topk_encode_fwd" in blocked_encode.cu: the centre, the kPre
+//   GEMM, then this select, chunk by chunk), which replaces
+//   ops/pallas_sae.py:_encode_kernel (fused_topk_encode, :77).
 //
-// What A computes for each row (B shares the first three lines):
+// What A computes for each row (B computes the first four, its latent in
+// bf16 or f32):
 //   xc     = bf16(x - b_pre)
 //   pre    = xc @ W_enc + b_enc                  (bf16 products, f32 sums)
 //   th     = exact k-th largest of pre           (topk_common.cuh)
@@ -45,8 +49,8 @@
 //     of select_decode.cuh, which the coder's TopK modes share).  Shared
 //     memory is the lists
 //     alone (H entries of 4 bytes a warp: 48 KB a CTA at H = 3072), so
-//     four CTAs of four warps fit an SM, against the one 16-row CTA that
-//     the fused kernel's 192 KB tile of pre allowed.
+//     four CTAs of four warps fit an SM, against the one 16-row CTA an
+//     SM that a 192 KB tile of pre in shared memory would allow.
 //  4. sae_loss_finalize_kernel sums the per-CTA loss partials.
 // The price is the f32 pre's round trip through device memory, 2*B*H*4
 // bytes beyond the bound (101 MB, ~0.03 ms at B=4096): the traffic the
@@ -59,10 +63,6 @@
 // is written as one partial per CTA and summed in a fixed order by
 // sae_loss_finalize_kernel.  No float atomics: the loss has the same
 // bits from run to run.
-//
-// Kernel B is the fused form A had before: a CTA owns 16 rows (one m16
-// tile of mma.sync.m16n8k16) and keeps their [16, H] f32 pre in shared
-// memory (192 KB at H=3072); W_enc^T is read from L2 with __ldg.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -74,29 +74,15 @@
 
 namespace wst {
 
-constexpr int kRows = 16;  // kernel B: rows per CTA, the M of one mma.sync tile
-constexpr int kWarps = 8;
+constexpr int kWarps = 8;  // the warp select (kernels B and C): rows (one a warp) a CTA
 constexpr int kThreads = kWarps * kWarp;
 constexpr int kMaxD = kDecCols;  // kernel A decodes D in one pass (select_decode.cuh)
-constexpr int kColsPerWarpStep = 32;  // four n8 MMA tiles per warp step
 constexpr int kFinalizeThreads = 256;
 constexpr int kCentreThreads = 128;
-
-enum Mode { kEncodeBf16 = 0, kEncodeF32 = 1 };
 
 __device__ __forceinline__ float load_x(const void* x, int x_bf16, size_t i) {
   return x_bf16 ? bf16_bits_to_float(static_cast<const unsigned short*>(x)[i])
                 : static_cast<const float*>(x)[i];
-}
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], uint32_t a0, uint32_t a1,
-                                               uint32_t a2, uint32_t a3, uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // -- kernel A -------------------------------------------------------------
@@ -170,98 +156,6 @@ __global__ void __launch_bounds__(kSelThreads, 4) sae_select_decode_kernel(LossA
   cta_partial(sq, nsel, a.sq_partial, a.counts);
 }
 
-// -- kernel B -------------------------------------------------------------
-
-struct RowsArgs {
-  const void* x;             // [rows, d] f32 or bf16
-  int x_bf16;
-  int rows, d, h, k;
-  const unsigned short* w_enc_t;  // [h, d] bf16: W_enc transposed
-  const float* b_enc;        // [h]
-  const float* b_pre;        // [d]
-  void* hidden;              // [rows, h] bf16 or f32
-};
-
-template <int MODE>
-__global__ void __launch_bounds__(kThreads, 1) sae_rows_kernel(RowsArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hs = a.h + 4;  // padded strides keep MMA fragment traffic
-  const int ds = a.d + 8;  // off a single bank
-  float* pre_s = reinterpret_cast<float*>(smem);
-  unsigned short* xc_s = reinterpret_cast<unsigned short*>(pre_s + kRows * hs);
-
-  const int tid = threadIdx.x;
-  const int lane = tid & (kWarp - 1);
-  const int warp = tid / kWarp;
-  const int row0 = blockIdx.x * kRows;
-
-  // -- centred bf16 rows; rows past the batch are zeros ----------------
-  for (int i = tid; i < kRows * a.d; i += kThreads) {
-    const int r = i / a.d, c = i - r * a.d;
-    const int g = row0 + r;
-    unsigned short v = 0;
-    if (g < a.rows) v = float_to_bf16_bits(load_x(a.x, a.x_bf16, (size_t)g * a.d + c) - a.b_pre[c]);
-    xc_s[r * ds + c] = v;
-  }
-  __syncthreads();
-
-  // -- encode: pre = xc @ W_enc + b_enc, into shared memory -------------
-  {
-    const int fr = lane >> 2;       // fragment row / column group
-    const int fc = (lane & 3) * 2;  // fragment k (or n) pair
-    for (int n0 = warp * kColsPerWarpStep; n0 < a.h; n0 += kWarps * kColsPerWarpStep) {
-      float acc[4][4];
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
-      for (int k0 = 0; k0 < a.d; k0 += 16) {
-        const uint32_t a0 = *reinterpret_cast<const uint32_t*>(&xc_s[fr * ds + k0 + fc]);
-        const uint32_t a1 = *reinterpret_cast<const uint32_t*>(&xc_s[(fr + 8) * ds + k0 + fc]);
-        const uint32_t a2 = *reinterpret_cast<const uint32_t*>(&xc_s[fr * ds + k0 + fc + 8]);
-        const uint32_t a3 =
-            *reinterpret_cast<const uint32_t*>(&xc_s[(fr + 8) * ds + k0 + fc + 8]);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const unsigned short* wp = a.w_enc_t + (size_t)(n0 + t * 8 + fr) * a.d + k0 + fc;
-          const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(wp));
-          const uint32_t b1 = __ldg(reinterpret_cast<const unsigned int*>(wp + 8));
-          mma_bf16_16816(acc[t], a0, a1, a2, a3, b0, b1);
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int col = n0 + t * 8 + fc;
-        const float be0 = a.b_enc[col], be1 = a.b_enc[col + 1];
-        pre_s[fr * hs + col] = acc[t][0] + be0;
-        pre_s[fr * hs + col + 1] = acc[t][1] + be1;
-        pre_s[(fr + 8) * hs + col] = acc[t][2] + be0;
-        pre_s[(fr + 8) * hs + col + 1] = acc[t][3] + be1;
-      }
-    }
-  }
-  __syncthreads();
-
-  // -- one warp per row: bisection in registers, the latent --------------
-  for (int r = warp; r < kRows; r += kWarps) {
-    const int g = row0 + r;
-    if (g >= a.rows) continue;  // warp-uniform
-    int xi[kMaxPerLane];
-    load_row_monotone(pre_s + r * hs, a.h, lane, xi);
-    const int th = warp_kth_largest(xi, a.k);
-#pragma unroll
-    for (int j = 0; j < kMaxPerLane; ++j) {
-      const int c = j * kWarp + lane;
-      if (c < a.h) {
-        const float v = masked_relu(xi[j], th);
-        if (MODE == kEncodeF32) {
-          static_cast<float*>(a.hidden)[(size_t)g * a.h + c] = v;
-        } else {
-          static_cast<unsigned short*>(a.hidden)[(size_t)g * a.h + c] = float_to_bf16_bits(v);
-        }
-      }
-    }
-  }
-}
-
 // loss = sum(partials) / (rows * d) and l0 = count / rows, summed in a
 // fixed order (strided per thread, then a fixed tree).
 __global__ void __launch_bounds__(kFinalizeThreads) sae_loss_finalize_kernel(
@@ -281,11 +175,19 @@ __global__ void __launch_bounds__(kFinalizeThreads) sae_loss_finalize_kernel(
   }
 }
 
+__device__ __forceinline__ void store_latent(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_latent(unsigned short* p, float v) {
+  *p = float_to_bf16_bits(v);
+}
+
 // Kernel C: hidden = relu(pre) * [pre >= k-th largest], one warp per row.
 // Bound: bytes (read pre once, write hidden once: 8*B*H bytes, 30 us at
 // B=4096, H=3072 on 3.35 TB/s); the TPU kernel's point, one read of pre
-// instead of 32, holds here by keeping the row in registers.
-__global__ void __launch_bounds__(kThreads) topk_mask_kernel(const float* pre, float* out,
+// instead of 32, holds here by keeping the row in registers.  OutT =
+// unsigned short writes the latent in bf16 (kernel B's select: 6*B*H
+// bytes); the caller offsets ``out`` to the chunk's first row.
+template <typename OutT>
+__global__ void __launch_bounds__(kThreads) topk_mask_kernel(const float* pre, OutT* out,
                                                               int rows, int h, int k) {
   const int lane = threadIdx.x & (kWarp - 1);
   const int r = blockIdx.x * kWarps + threadIdx.x / kWarp;
@@ -296,7 +198,7 @@ __global__ void __launch_bounds__(kThreads) topk_mask_kernel(const float* pre, f
 #pragma unroll
   for (int j = 0; j < kMaxPerLane; ++j) {
     const int c = j * kWarp + lane;
-    if (c < h) out[(size_t)r * h + c] = masked_relu(xi[j], th);
+    if (c < h) store_latent(out + (size_t)r * h + c, masked_relu(xi[j], th));
   }
 }
 
@@ -318,21 +220,6 @@ __global__ void __launch_bounds__(kWideThreads, 1) topk_mask_wide_kernel(const f
     const int c = j * kWideThreads + threadIdx.x;
     if (c < h) out[base + c] = masked_relu(xi[j], th);
   }
-}
-
-size_t rows_smem_bytes(int d, int h) {
-  return (size_t)kRows * (h + 4) * sizeof(float) + (size_t)kRows * (d + 8) * sizeof(unsigned short);
-}
-
-template <int MODE>
-int launch_rows(const RowsArgs& a, cudaStream_t stream) {
-  const size_t smem = rows_smem_bytes(a.d, a.h);
-  cudaError_t err = cudaFuncSetAttribute(sae_rows_kernel<MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (a.rows + kRows - 1) / kRows;
-  sae_rows_kernel<MODE><<<blocks, kThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace wst
@@ -401,26 +288,27 @@ int wst_sae_fused_loss_fwd(const void* x, int x_bf16, long long row_offset, int 
   return (int)cudaGetLastError();
 }
 
-// Kernel B: hidden in bf16 (out_f32 = 0) or f32 (out_f32 = 1).
-int wst_sae_topk_encode_fwd(const void* x, int x_bf16, int rows, int d, int h, int k,
-                            const void* w_enc_t, const void* b_enc, const void* b_pre,
-                            void* hidden, int out_f32, void* stream) {
-  wst::RowsArgs a{x,       x_bf16,  rows,    d,       h,       k,
-                  static_cast<const unsigned short*>(w_enc_t),
-                  static_cast<const float*>(b_enc),
-                  static_cast<const float*>(b_pre),
-                  hidden};
+// The warp select: rows [0, rows) of an f32 pre [rows, h] into rows
+// [row0, row0 + rows) of out ([*, h]; f32 when out_f32, else bf16).
+// Kernel C is one call (row0 = 0, f32); kernel B calls it once a chunk
+// (blocked_encode.cu).
+int wst_topk_mask_rows_fwd(const float* pre, int rows, int h, int k, void* out, int out_f32,
+                           long long row0, void* stream) {
+  const int blocks = (rows + wst::kWarps - 1) / wst::kWarps;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_f32 ? wst::launch_rows<wst::kEncodeF32>(a, s)
-                 : wst::launch_rows<wst::kEncodeBf16>(a, s);
+  if (out_f32) {
+    wst::topk_mask_kernel<float><<<blocks, wst::kThreads, 0, s>>>(
+        pre, static_cast<float*>(out) + (size_t)row0 * h, rows, h, k);
+  } else {
+    wst::topk_mask_kernel<unsigned short><<<blocks, wst::kThreads, 0, s>>>(
+        pre, static_cast<unsigned short*>(out) + (size_t)row0 * h, rows, h, k);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Kernel C.
 int wst_topk_mask_fwd(const void* pre, void* out, int rows, int h, int k, void* stream) {
-  const int blocks = (rows + wst::kWarps - 1) / wst::kWarps;
-  wst::topk_mask_kernel<<<blocks, wst::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pre), static_cast<float*>(out), rows, h, k);
-  return (int)cudaGetLastError();
+  return wst_topk_mask_rows_fwd(static_cast<const float*>(pre), rows, h, k, out, 1, 0, stream);
 }
 
 // Widest row the CTA-per-row kernels take.

@@ -16,28 +16,31 @@ any-active vector; ``sae_loss_finalize_kernel`` sums the per-CTA loss
 partials in a fixed order.  The f32 pre's round trip through device
 memory is the route's price (the TPU kernel keeps it in VMEM).
 
-Kernel B, ``sae_topk_encode_fwd`` (``sae_rows_kernel<kEncodeBf16|F32>``),
-replaces ``fused_topk_encode`` (``_encode_forward``, :77): one fused
-kernel, 16 rows a CTA with their pre in shared memory, writing the
-hidden in bf16 or f32.
-
-The blocked encode, ``blocked_encode_fwd`` (``csrc/blocked_encode.cu``),
-replaces ``_encode_forward_blocked`` (:1392), the branch of
-``fused_topk_encode`` for geometries whose weights do not fit on chip:
-per chunk of rows three launches, the centre, the encoder GEMM's kPre
-epilogue into an f32 workspace (W_enc streamed once a chunk) and one CTA
-per row for the threshold and the latent (:func:`blocked_route_plain`
-writes the route out).  Kernels A and B hold a row of pre in one warp's
-registers and kernel A's decode keeps D/32 sums a lane, so they take
-D % 32 == 0, D <= 384 and H <= 3072 (:func:`fused_loss_supported`);
-every other geometry takes the blocked encode (:func:`uses_blocked`),
-and the SAE loss is then composed around it (``models/sae.py``), as the
-JAX package composes it (``models/sae.py:229-246``).  These gates are the
-port's kernel limits, not the TPU's VMEM budgets.
+Kernel B, ``sae_topk_encode_fwd``, and the blocked encode,
+``blocked_encode_fwd`` (both in ``csrc/blocked_encode.cu``), are one
+chunk loop with two selects: per chunk of rows the centre
+(``sae_centre_kernel``), the encoder GEMM's kPre epilogue into an f32
+workspace allocated here, and a select that writes the latent in bf16
+or f32 (:func:`topk_encode_route_plain` writes the route out).  Kernel B
+replaces ``fused_topk_encode`` (``_encode_forward``, :77); its select is
+kernel C's warp select (one warp a row), its chunk the rows whose f32 pre
+fits the blocked encode's budget (:func:`_build.topk_encode_chunk_rows`:
+27,264 at H = 3072).  The blocked encode replaces
+``_encode_forward_blocked`` (:1392), the branch of ``fused_topk_encode``
+for geometries whose weights do not fit on chip; its select is one CTA
+a row, its chunk 2048 rows, and W_enc streams once a chunk.  Kernels A
+and B hold a row of pre in one warp's registers and kernel A's decode
+keeps D/32 sums a lane, so they take D % 32 == 0, D <= 384 and H <= 3072
+(:func:`fused_loss_supported`); every other geometry takes the blocked
+encode (:func:`uses_blocked`), and the SAE loss is then composed around
+it (``models/sae.py``), as the JAX package composes it
+(``models/sae.py:229-246``).  These gates are the port's kernel limits,
+not the TPU's VMEM budgets.
 
 Bounds on the H100: A and B at whisper-tiny (D=384, H=3072) by the bytes
-they must move (see the note in ``csrc/sae_kernels.cu``); the blocked
-encode at whisper-large 32x by operations (``csrc/blocked_encode.cu``).
+they must move (the notes in ``csrc/sae_kernels.cu`` and
+``csrc/blocked_encode.cu``); the blocked encode at whisper-large 32x by
+operations (``csrc/blocked_encode.cu``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain PyTorch version beside it only for CPU tensors, counted in
@@ -71,8 +74,7 @@ def uses_blocked(d: int, h: int) -> bool:
 
 def _bf16_t(w_enc: torch.Tensor) -> torch.Tensor:
     """W_enc [D, H] -> its bf16 transpose [H, D]: the K-major B operand of
-    kernel A's encode GEMM, and the layout in which kernel B loads each
-    MMA B fragment as two 32-bit words."""
+    the encode GEMM (kernels A and B, the blocked encode), read by TMA."""
     return w_enc.detach().t().to(torch.bfloat16, memory_format=torch.contiguous_format)
 
 
@@ -251,33 +253,49 @@ def topk_encode_plain(x, we_t, b_enc, b_pre, k, out_dtype):
     return topk_mask_plain(pre, k).to(out_dtype)
 
 
-def _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
+def _encode_call(fwd, workspace_bytes, what: str, x, we_t, b_enc, b_pre, k, out_dtype):
+    """One C call ``fwd`` of a top-k encode route (kernel B's or the
+    blocked encode's) on CUDA rows: the operands checked, one workspace of
+    ``workspace_bytes(rows, d, h)`` bytes, the latent [rows, H] in
+    ``out_dtype``."""
     h, d = we_t.shape
-    lib = _check_geometry(x, d, h, k)
     if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"sae_topk_encode_fwd writes bf16 or f32 (got {out_dtype})")
+        raise ValueError(f"{what} writes bf16 or f32 (got {out_dtype})")
     dev = x.device
     _check_operands(dev, w_enc_t=(we_t, torch.bfloat16, (h, d)),
                     b_enc=(b_enc, torch.float32, (h,)), b_pre=(b_pre, torch.float32, (d,)))
+    if we_t.data_ptr() % 16:  # read by TMA
+        raise ValueError(f"{what}: w_enc_t must be 16-byte aligned")
     rows = x.shape[0]
     hidden = torch.empty((rows, h), dtype=out_dtype, device=dev)
     if rows:
-        err = lib.wst_sae_topk_encode_fwd(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d, h, k,
-            we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(), hidden.data_ptr(),
-            int(out_dtype == torch.float32), _stream(dev),
-        )
-        _build.check(err, "sae_topk_encode_fwd")
+        ws = torch.empty((workspace_bytes(rows, d, h),), dtype=torch.uint8, device=dev)
+        err = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d, h, k,
+                  we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(), hidden.data_ptr(),
+                  int(out_dtype == torch.float32), ws.data_ptr(), _stream(dev))
+        _build.check(err, what)
+    return hidden
+
+
+def _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
+    """Kernel B (CUDA only): per chunk of ``_build.topk_encode_chunk_rows(H)``
+    rows the centre, the kPre GEMM and the warp select."""
+    h, d = we_t.shape
+    lib = _check_geometry(x, d, h, k)
+    hidden = _encode_call(lib.wst_sae_topk_encode_fwd, lib.wst_sae_topk_encode_workspace_bytes,
+                          "sae_topk_encode_fwd", x, we_t, b_enc, b_pre, k, out_dtype)
+    if x.shape[0]:
         fused_topk_encode.launches += 1
     return hidden
 
 
-def blocked_route_plain(x, we_t, b_enc, b_pre, k, out_dtype, chunk):
-    """The blocked encode's route written out in plain PyTorch, for the
-    tests: per chunk of ``chunk`` rows the centred bf16 rows, pre = their
-    f32 product with W_enc plus b_enc (the kPre GEMM), the select's pass
-    loop stopping at a count of exactly k (:func:`ops.topk.cta_threshold`),
-    and the masked relu in ``out_dtype``."""
+def topk_encode_route_plain(x, we_t, b_enc, b_pre, k, out_dtype, chunk):
+    """Kernel B's and the blocked encode's route written out in plain
+    PyTorch, for the tests: per chunk of ``chunk`` rows the centred bf16
+    rows, pre = their f32 product with W_enc plus b_enc (the kPre GEMM),
+    the select's pass loop stopping at a count of exactly k
+    (:func:`ops.topk.cta_threshold`; the warp select's midpoints and
+    counts are the CTA select's), and the masked relu in ``out_dtype``."""
     out = torch.empty((x.shape[0], we_t.shape[0]), dtype=out_dtype, device=x.device)
     for r0 in range(0, x.shape[0], chunk):
         xc = (x[r0:r0 + chunk].float() - b_pre).bfloat16()
@@ -297,24 +315,9 @@ def _blocked_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
     if d % 32 or h % 32 or h > lib.wst_max_wide_row_width():
         raise ValueError(f"the blocked encode takes D and H multiples of 32 and H <= "
                          f"{lib.wst_max_wide_row_width()} (got D={d}, H={h})")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"blocked_encode_fwd writes bf16 or f32 (got {out_dtype})")
-    dev = x.device
-    _check_operands(dev, w_enc_t=(we_t, torch.bfloat16, (h, d)),
-                    b_enc=(b_enc, torch.float32, (h,)), b_pre=(b_pre, torch.float32, (d,)))
-    if we_t.data_ptr() % 16:  # read by TMA
-        raise ValueError("blocked_encode_fwd: w_enc_t must be 16-byte aligned")
-    rows = x.shape[0]
-    hidden = torch.empty((rows, h), dtype=out_dtype, device=dev)
-    if rows:
-        ws = torch.empty((lib.wst_blocked_workspace_bytes(rows, d, h),), dtype=torch.uint8,
-                         device=dev)
-        err = lib.wst_blocked_encode_fwd(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d, h, k,
-            we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(), hidden.data_ptr(),
-            int(out_dtype == torch.float32), ws.data_ptr(), _stream(dev),
-        )
-        _build.check(err, "blocked_encode_fwd")
+    hidden = _encode_call(lib.wst_blocked_encode_fwd, lib.wst_blocked_workspace_bytes,
+                          "blocked_encode_fwd", x, we_t, b_enc, b_pre, k, out_dtype)
+    if x.shape[0]:
         fused_topk_encode.blocked_launches += 1
     return hidden
 

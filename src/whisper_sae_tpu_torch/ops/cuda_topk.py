@@ -3,9 +3,10 @@
 Replaces ``whisper_sae_tpu/ops/pallas_topk.py:topk_mask_pallas``
 (``_mask_kernel``, ``pallas_call`` at :51): hidden = relu(pre) where pre
 is among the row's k largest, else 0, over a precomputed f32 ``[B, H]``
-pre-activation.  The kernel (``csrc/sae_kernels.cu:topk_mask_kernel``)
-gives each row to one warp, which holds it in registers for the 32
-bisection passes, so ``pre`` is read from device memory once.  Rows
+pre-activation.  The kernel (``csrc/sae_kernels.cu:topk_mask_kernel<float>``;
+with a bf16 latent it is also kernel B's select) gives each row to one
+warp, which holds it in registers for the 32 bisection passes, so
+``pre`` is read from device memory once.  Rows
 wider than a warp's registers (H > 3072; the TPU kernel takes H = 40960
 in 32-row blocks, ``pallas_topk.py:89-113``) go to its wide form,
 ``topk_mask_wide_kernel``: one CTA of 512 threads per row, up to H =

@@ -5,7 +5,8 @@ Times ``cuda_sae._fused_loss_launch`` (kernel A, sliced), kernel B's
 ``_topk_encode_launch`` (bf16 latent) and kernel C's ``topk_mask_fwd`` at
 whisper-tiny's width (D=384, H=3072, k=32) on 128, 4096 and 32768 rows of
 seeded gaussian data, each over 20 launches between CUDA events after 3
-warm ones; then, at whisper-large 32x (D=1280, H=40960, k=32, 8192 rows),
+warm ones, and kernel B's device ms a call by kernel under
+``torch.profiler`` (``fused_topk_encode_split``); then, at whisper-large 32x (D=1280, H=40960, k=32, 8192 rows),
 the blocked encode (``_blocked_encode_launch``, bf16 latent) and kernel
 C's wide form (``topk_mask_fwd`` on an f32 [8192, 40960] pre) over 10
 launches after 2 warm ones, and the wall time of a TopK-SAE training step
@@ -28,7 +29,7 @@ import tempfile
 import torch
 
 from . import _build, _probe, cuda_sae, cuda_topk
-from ._probe import step_ms, time_ms
+from ._probe import device_split, step_ms, time_ms
 from ..config import SAEConfig, TrainingConfig
 from ..models.sae import create_sae
 from ..training.trainer import SAETrainer
@@ -56,12 +57,14 @@ def main() -> None:
     for rows in ROWS:
         x = torch.randn(rows, D, generator=g).to(dev)
         pre = (torch.randn(rows, H, generator=g)).to(dev)
+        encode = lambda: cuda_sae._topk_encode_launch(x, we_t, b_enc, b_pre, K,  # noqa: E731
+                                                      torch.bfloat16)
         res[str(rows)] = {
             "fused_sae_loss": time_ms(lambda: cuda_sae._fused_loss_launch(
                 x, 0, rows, we_t, b_enc, b_pre, wd, b_out, K)),
-            "fused_topk_encode": time_ms(lambda: cuda_sae._topk_encode_launch(
-                x, we_t, b_enc, b_pre, K, torch.bfloat16)),
+            "fused_topk_encode": time_ms(encode),
             "topk_mask": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K)),
+            "fused_topk_encode_split": device_split(encode),
         }
     del x, pre
 

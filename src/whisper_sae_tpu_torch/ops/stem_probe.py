@@ -16,7 +16,6 @@ H100; from the repository root:
 from __future__ import annotations
 
 import json
-from collections import defaultdict
 
 import torch
 import torch.nn.functional as F
@@ -52,24 +51,6 @@ def bound_ms(b: int, n_mels: int, d: int) -> float:
     return 1e3 * max(flops / PEAK_BF16, nbytes / PEAK_BYTES)
 
 
-def launches_ms(fn, calls: int = 10) -> dict:
-    """Device ms a call of each kernel ``fn`` launches, by name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us[e.name[:80]] += e.time_range.elapsed_us()
-    return {name: v / 1e3 / calls for name, v in us.items()}
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("stem_probe needs a CUDA card")
@@ -88,7 +69,7 @@ def main() -> int:
             for key in order:
                 readings[key].append(time_ms(fns[key]))
         row = {"clips": b, "n_mels": n_mels, "d": d, "bound_ms": bound_ms(b, n_mels, d),
-               **readings, "launches_ms": launches_ms(fns["stem_ms"])}
+               **readings, "launches_ms": _probe.device_split(fns["stem_ms"])}
         res[model] = row
         print(f"{model}: " + ", ".join(f"{k} {v}" for k, v in row.items()))
         del mel, w1, w2, pos, fns

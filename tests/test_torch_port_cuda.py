@@ -91,6 +91,139 @@ def test_encode_kernel_matches_plain(dev, rows, out_dtype):
                                atol=1e-2 * float(want.float().abs().max()))
 
 
+def _encode_args(p):
+    return cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [128, 4096, 4100])
+def test_encode_latent_equals_kernel_a(dev, rows, x_dtype):
+    """Kernel B's bf16 latent is kernel A's on the same rows, bit for bit:
+    both select on the kPre GEMM's pre of the same centred rows with the
+    same warp select (4100: a ragged last tile)."""
+    p, x = _params(40), _rows(41, rows).to(x_dtype)
+    we_t, b_enc, b_pre, k = _encode_args(p)
+    got = cuda_sae._topk_encode_launch(x, we_t, b_enc, b_pre, k, torch.bfloat16)
+    hid = cuda_sae._fused_loss_launch(x, 0, rows, we_t, b_enc, b_pre, p["w_dec"].bfloat16(),
+                                      p["b_dec"] + b_pre, k)[3]
+    torch.cuda.synchronize()
+    assert torch.equal(got, hid)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_encode_equals_blocked_encode_at_tiny(dev, out_dtype):
+    """Kernel B (the warp select, one chunk) against the blocked encode
+    called at D=384, H=3072 (the CTA select, chunks of 2048): the same
+    product, and both selects stop at the first midpoint that counts
+    exactly k, so the latents have the same bits."""
+    p, x = _params(42), _rows(43, 4100)
+    args = (*_encode_args(p), out_dtype)
+    got = cuda_sae._topk_encode_launch(x, *args)
+    want = cuda_sae._blocked_encode_launch(x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_encode_writes_every_element(dev, out_dtype):
+    """The C call on an output and a workspace filled with NaN, each with a
+    guard tail: every element of the latent, of the chunk's f32 pre and of
+    its centred rows is written, nothing past either end; the latent is the
+    wrapper's, and the workspace holds the kPre pre and the centre's rows."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    lib = _build.load_library()
+    rows = 300
+    p, x = _params(44), _rows(45, rows)
+    we_t, b_enc, b_pre, k = _encode_args(p)
+    out = torch.full((rows * H + 4096,), float("nan"), dtype=out_dtype, device=dev)
+    nbytes = lib.wst_sae_topk_encode_workspace_bytes(rows, D, H)
+    assert nbytes == rows * H * 4 + rows * D * 2
+    ws = torch.full((nbytes + 4096,), 255, dtype=torch.uint8, device=dev)  # NaN in f32 and bf16
+    assert lib.wst_sae_topk_encode_fwd(
+        x.data_ptr(), 0, rows, D, H, k, we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(),
+        out.data_ptr(), int(out_dtype == torch.float32), ws.data_ptr(),
+        torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    hidden = out[:rows * H].view(rows, H)
+    assert not bool(hidden.isnan().any()) and bool(out[rows * H:].isnan().all())
+    assert torch.equal(hidden, cuda_sae._topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype))
+    pre = ws[:rows * H * 4].view(torch.float32).view(rows, H)
+    xc = ws[rows * H * 4:nbytes].view(torch.bfloat16).view(rows, D)
+    assert bool((ws[nbytes:] == 255).all())
+    assert torch.equal(xc, (x - b_pre).bfloat16())
+    want = mm_f32(xc, we_t.t()) + b_enc
+    torch.testing.assert_close(pre, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_encode_deterministic(dev, out_dtype):
+    p, x = _params(46), _rows(47, 4096)
+    args = (*_encode_args(p), out_dtype)
+    assert torch.equal(cuda_sae._topk_encode_launch(x, *args), cuda_sae._topk_encode_launch(x, *args))
+
+
+def test_encode_runs_two_chunks_at_32768_rows(dev):
+    """32,768 rows are two chunks (27,264 + 5,504 at H = 3072): each of the
+    three launches -- the centre, the kPre GEMM (row tiles first:
+    ``gemm_kernel<3>``), the warp select (``topk_mask_kernel``) -- twice a
+    call, counted over 3 profiled calls: the GEMM and the select exactly
+    twice a call, the centre at least once (the profiler has missed a C
+    call's first kernel now and then, which is the first chunk's centre
+    here; the second chunk's is seen); one count on the wrapper a call.  The latent agrees with the
+    plain version at the bars of test_encode_kernel_matches_plain and with
+    kernel A's (one chunk) bit for bit."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, calls = 32768, 3
+    chunks = -(-rows // _build.load_library().wst_sae_topk_encode_chunk_rows(H))
+    assert chunks == 2
+    p, x = _params(48), _rows(49, rows)
+    we_t, b_enc, b_pre, k = _encode_args(p)
+    got = cuda_sae.fused_topk_encode(x, p["w_enc"], b_enc, b_pre, k)
+    torch.cuda.synchronize()
+    before = cuda_sae.fused_topk_encode.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            cuda_sae.fused_topk_encode(x, p["w_enc"], b_enc, b_pre, k)
+        torch.cuda.synchronize()
+    assert cuda_sae.fused_topk_encode.launches - before == calls
+    keys = [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type == DeviceType.CUDA]
+    for name, least in (("sae_centre_kernel", calls * (chunks - 1)),
+                        ("gemm_kernel<3>", calls * chunks), ("topk_mask_kernel", calls * chunks)):
+        seen = sum(name in key for key in keys)
+        assert least <= seen <= calls * chunks, (name, seen, keys)
+    assert not any("gemm_cols_kernel" in key or "blocked_select" in key for key in keys), keys
+    want = cuda_sae.topk_encode_plain(x, we_t, b_enc, b_pre, k, torch.bfloat16)
+    assert _row_agreement(got, want) >= 0.999
+    ok = ((got > 0) == (want > 0)).all(dim=1)
+    torch.testing.assert_close(got[ok].float(), want[ok].float(), rtol=0,
+                               atol=1e-2 * float(want.float().abs().max()))
+    hid = cuda_sae._fused_loss_launch(x, 0, rows, we_t, b_enc, b_pre, p["w_dec"].bfloat16(),
+                                      p["b_dec"] + b_pre, k)[3]
+    assert torch.equal(got, hid)
+
+
+def test_encode_misaligned_w_enc_t_raises(dev):
+    """W_enc^T is read by TMA: an address off 16 bytes is refused."""
+    p, x = _params(50), _rows(51, 64)
+    we_t, b_enc, b_pre, k = _encode_args(p)
+    flat = torch.empty(H * D + 8, dtype=torch.bfloat16, device=dev)
+    off = flat[1:1 + H * D].view(H, D)
+    off.copy_(we_t)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_sae._topk_encode_launch(x, off, b_enc, b_pre, k, torch.bfloat16)
+
+
+def test_topk_encode_chunk_rows_match_the_library(dev):
+    lib = _build.load_library()
+    assert lib.wst_blocked_chunk_rows() == _build.BLOCKED_CHUNK_ROWS
+    for h in (32, 384, 3072, 4096, 40960):
+        assert lib.wst_sae_topk_encode_chunk_rows(h) == _build.topk_encode_chunk_rows(h), h
+
+
 @pytest.mark.parametrize("offset,rows,n", [(0, 128, 128), (256, 128, 1024), (0, 4096, 4096),
                                           (16, 100, 200), (0, 32768, 32768)])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])

@@ -134,7 +134,7 @@ def test_blocked_encode_matches_pallas_interpret(rows, x_dtype, out):
 @pytest.mark.parametrize("rows", [24, 20])
 @pytest.mark.parametrize("d,h", [(128, 4096), (96, 4160)])
 def test_blocked_route_matches_plain_and_pallas_interpret(d, h, rows, out):
-    """The card's route written out (``blocked_route_plain``: chunks of 8
+    """The card's route written out (``topk_encode_route_plain``: chunks of 8
     rows, here 3 full ones or 2 and a ragged 4; the kPre product; the CTA
     select stopping at a count of exactly k) against kernel B's plain
     version, the mask identically, bf16 bit for bit, f32 at rtol 1e-6 (the
@@ -146,7 +146,7 @@ def test_blocked_route_matches_plain_and_pallas_interpret(d, h, rows, out):
     we_t = cuda_sae._bf16_t(torch.from_numpy(p["w_enc"]))
     args = (torch.from_numpy(x), we_t, torch.from_numpy(p["b_enc"]), torch.from_numpy(p["b_pre"]),
             K, tdt)
-    got = cuda_sae.blocked_route_plain(*args, 8)
+    got = cuda_sae.topk_encode_route_plain(*args, 8)
     assert got.dtype == tdt and got.shape == (rows, h)
     plain = cuda_sae.topk_encode_plain(*args)
     assert torch.equal(got > 0, plain > 0)
