@@ -214,9 +214,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
     above ``--max-resident-gb`` streams
     chunked epochs through the paired reader (windowed coder launches
     equal to the steps).  Losses finite and falling, run files written.
+19. Transcription and capture.  (a) Whisper-large-v3 at full width, bf16,
+    random weights made on the card: ``greedy_decode_cached`` of 8
+    synthetic 30 s clips at ``max_len`` 64; the encoder wrappers' counts
+    rise by 1 (stem) and 32 (LN+QKV, the core, the out-projection, the
+    MLP block) in the call, no plain version runs; each encoder layer
+    is held against the composed route's layer from the same input at
+    the stack bar, and the final hidden against the f32 route no farther
+    than 1.25 x the composed route's error (over 32 layers the two bf16
+    routes part by more than a layer's bar); column 0 is
+    the start token and a row is all EOS after its first EOS; teacher-
+    forced along the cached tokens, the cached steps' logits are held
+    against the full-sequence ``decoder_forward`` + ``decoder_logits``: in
+    f32 at rtol 1e-4, atol 1e-5; in bf16 each route against the f32
+    logits, the cached no farther than 1.25 x the full sequence; and a
+    token may differ from the bf16 reference's argmax only where its
+    top-1 to top-2 gap is under twice the step's max |d logit|.  Then clips/s, decoded tokens/s, the encoder's and a
+    step's ms on the host clock and as device busy time, the idle share
+    and the heaviest device operations (``torch.profiler``).  (b)
+    Whisper-tiny, f32, through ``python -m whisper_sae_tpu_torch.launch
+    transcribe`` (one wav written with ``utils.wavio`` and 15 synthetic
+    clips, one batch of 16, ``max_len`` 224); the same weights on the
+    CPU decode the same tokens in the f32 mode, a difference allowed
+    only where the same gap rule explains it.  (c) The facades:
+    ``extract_features_batch`` (bf16) on (a)'s batch at encoder layers 0
+    and 31 and decoder layer 31 bit-equal to ``extract_activations``;
+    ``logit_lens`` and ``cross_attention_maps`` at whisper-tiny on the
+    card against the CPU at the f32 bars (rtol 1e-4; atol 1e-5, the
+    maps 1e-6).
 
 Before them, one line lists the rows of phases 1, 8 and 11 that select
-differently from the plain version, with their gaps.  The last two lines
+differently from the plain version, with their gaps, and one the
+decoded tokens of phase 19 that differ from their reference.  The last two lines
 are the ``kernels`` JSON line and
 ``{"ok": true, "device": {...}}``.  Scratch files go under ``build/``.
 """
@@ -323,6 +352,8 @@ class SmokeFailure(RuntimeError):
 
 # phases 1, 8 and 11: the rows that select differently from the plain version
 GAPS: dict[str, list] = {}
+# phase 19: the decoded tokens that differ from their reference
+TOKEN_GAPS: dict[str, list] = {}
 
 
 def check(cond: bool, what: str) -> None:
@@ -368,11 +399,16 @@ def bar_check(got: torch.Tensor, want: torch.Tensor, bar: tuple[float, float], w
     g, w = got.float(), want.float().to(got.device)
     check(tuple(g.shape) == tuple(w.shape), f"{what}: shape {tuple(g.shape)} != {tuple(w.shape)}")
     check(bool(torch.isfinite(g).all()), f"{what}: non-finite values")
-    d = (g - w).abs()
-    mx, mn = float(d.max() / w.abs().max()), float(d.mean() / w.abs().mean())
+    mx, mn = rel_err(g, w)
     check(mx <= bar[0] and mn <= bar[1],
           f"{what}: max rel {mx:.3g}, mean rel {mn:.3g} above the bar {bar}")
-    return float(d.max())
+    return float((g - w).abs().max())
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max|d| / max|ref|, mean|d| / mean|ref|)."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max() / want.float().abs().max()), float(d.mean() / want.float().abs().mean())
 
 
 def params(seed: int, dev, d: int = D, h: int = H) -> dict[str, torch.Tensor]:
@@ -1212,11 +1248,12 @@ def annotated_blocks(W):
 
 def device_ops(events) -> list:
     """The device's own activities (kernels, copies, memsets) among a
-    trace's events: the ``enc.<block>`` ranges' device-side spans are left
-    out, so nothing is counted twice."""
+    trace's events: the ``enc.<block>`` and ``dec.<part>`` ranges'
+    device-side spans are left out, so nothing is counted twice."""
     from torch.autograd import DeviceType
 
-    return [e for e in events if e.device_type == DeviceType.CUDA and not e.key.startswith("enc.")]
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and not e.key.startswith(("enc.", "dec."))]
 
 
 def block_shares(prof, batches: int, busy: float) -> dict:
@@ -2492,6 +2529,399 @@ def wide_coder_path(work: Path, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_to
 
 
 # ---------------------------------------------------------------------------
+# phase 19: transcription and capture
+# ---------------------------------------------------------------------------
+
+DEC_CLIPS, DEC_LEN, PROF_LEN = 8, 64, 8  # 19a: large-v3 bf16; the profiled call's max_len
+TINY = "openai/whisper-tiny"
+TR_SYNTH, TR_BATCH, TR_LEN = 15, 16, 224  # 19b: the launcher, one batch of 16
+DEC_PARTS = ("encoder_forward", "_decode_step")
+
+
+def synthetic_audio(n: int, seed: int) -> np.ndarray:
+    """``n`` 30 s clips of 0.1 x normal noise at 16 kHz, drawn and scaled
+    as the transcribe job's synthetic clips."""
+    return np.random.default_rng(seed).standard_normal((n, 30 * 16_000)).astype(np.float32) * 0.1
+
+
+def frozen_steps(tokens: np.ndarray, eos: int) -> np.ndarray:
+    """``[B, L - 1]``: the steps whose token the EOS freeze set."""
+    hit = np.cumsum(tokens[:, 1:] == eos, axis=1)
+    return np.concatenate([np.zeros((tokens.shape[0], 1), bool), hit[:, :-1] > 0], axis=1)
+
+
+def token_gaps(tokens: np.ndarray, ref_logits: torch.Tensor, got_logits: torch.Tensor,
+               steps: np.ndarray, what: str) -> None:
+    """At the ``steps`` ``[L - 1, B]`` checked, a decoded token may differ
+    from the reference logits' argmax only where the reference's top-1 to
+    top-2 gap is under twice that step's max |d logit| on the row
+    (``[L - 1, B, V]`` logits); each such step is logged in TOKEN_GAPS."""
+    rows = TOKEN_GAPS.setdefault(what, [])
+    ref_arg = ref_logits.argmax(-1).cpu().numpy()
+    for t, r in zip(*np.nonzero((ref_arg != tokens[:, 1:].T) & steps)):
+        top2 = torch.topk(ref_logits[t, r].float(), 2).values
+        gap = float(top2[0] - top2[1])
+        delta = float((got_logits[t, r].float().cpu() - ref_logits[t, r].float().cpu()).abs().max())
+        rows.append({"step": int(t), "row": int(r), "token": int(tokens[r, t + 1]),
+                     "ref": int(ref_arg[t, r]), "gap": gap, "max_abs_d_logit": delta})
+        check(gap < 2 * delta, f"{what}: step {t} row {r} decodes {tokens[r, t + 1]} where the "
+                               f"reference's argmax {ref_arg[t, r]} leads by {gap:.3g} >= 2 x "
+                               f"{delta:.3g}")
+
+
+def teacher_forced(W, params, arch, enc, tokens: torch.Tensor) -> torch.Tensor:
+    """Each cached step's logits along ``tokens``: ``[L - 1, B, V]``."""
+    with torch.no_grad(), W.f32_matmuls():
+        state = W._decode_state(params, arch, enc, tokens.shape[1])
+        return torch.stack([W._decode_step(params, arch, state, tokens[:, t], t)
+                            for t in range(tokens.shape[1] - 1)])
+
+
+@contextlib.contextmanager
+def annotated_decode(W):
+    """The cached decode's encoder and each of its steps inside a
+    ``torch.profiler.record_function`` range ``dec.<name>``, for a profiled
+    run only."""
+    from torch.profiler import record_function
+
+    saved = {name: getattr(W, name) for name in DEC_PARTS}
+
+    def wrap(name, fn):
+        def annotated(*args, **kwargs):
+            with record_function(f"dec.{name}"):
+                return fn(*args, **kwargs)
+        return annotated
+
+    for name, fn in saved.items():
+        setattr(W, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(W, name, fn)
+
+
+def range_busy(prof, name: str) -> float:
+    """Device busy ms of the kernels that ran inside the ``name`` ranges'
+    device spans (the ranges follow each other on one stream)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+
+    evs = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                   if e.device_type == DeviceType.CUDA and e.key == name)
+    starts = [a for a, _ in spans]
+    us = 0.0
+    for e in device_ops(evs):
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            us += e.time_range.end - e.time_range.start
+    return us / 1e3
+
+
+def encoder_agreement(W, pb: dict, mel, arch, enc) -> dict:
+    """Phase 19a's encoder: each of the fused route's layers against the
+    composed route's layer from the same input (the composed route's
+    previous layer output) at the stack bar; and the whole stack's final
+    hidden, where bf16 rounding in two orders adds up over 32 layers:
+    the fused route no farther from the f32 route (the same bf16 weights
+    widened, TF32 off) than 1.25 x the composed route is, max and mean."""
+    enc_c, comp_layers = W.encoder_forward(pb, mel, arch, use_fused=False)
+    x = W.encoder_ops.conv_stem(mel, pb["encoder"])
+    bar_check(x, composed_stem(mel, pb["encoder"]), STACK_BAR, "decode stem: fused vs composed")
+    worst = 0.0
+    for i in range(arch.encoder_layers):
+        lp = W._layer(pb["encoder"]["layers"], i)
+        x_in = comp_layers[i - 1] if i else x
+        y = W.encoder_ops.attention_block(x_in, lp["ln1_g"], lp["ln1_b"], lp["attn"],
+                                          arch.num_heads)
+        y = W.encoder_ops.mlp_block(y.reshape(-1, arch.d_model), lp["ln2_g"], lp["ln2_b"],
+                                    lp["mlp"]).reshape(x_in.shape)
+        want = W._encoder_layer(x_in, lp, arch.num_heads)[0]
+        bar_check(y, want, STACK_BAR, f"decode encoder layer {i}: fused vs composed")
+        worst = max(worst, rel_err(y, want)[1])
+    del comp_layers
+    p32 = {"encoder": W._tree_map(lambda a: a.float(), pb["encoder"])}
+    enc_32 = W.encoder_forward(p32, mel.float(), arch)[0]
+    res = {"layer_mean_rel_worst": worst, "fused_vs_composed": rel_err(enc, enc_c),
+           "fused_vs_f32": rel_err(enc, enc_32), "composed_vs_f32": rel_err(enc_c, enc_32)}
+    check(res["fused_vs_f32"][0] <= 1.25 * res["composed_vs_f32"][0]
+          and res["fused_vs_f32"][1] <= 1.25 * res["composed_vs_f32"][1],
+          f"decode encoder hidden: fused route's error against f32 {res['fused_vs_f32']} above "
+          f"1.25 x the composed route's {res['composed_vs_f32']}")
+    log(f"  encoder: each layer fused vs composed from the same input within the stack bar "
+        f"(worst mean rel {worst:.3g}); the final hidden (max rel, mean rel) fused vs composed "
+        f"{tuple(round(v, 5) for v in res['fused_vs_composed'])}, against the f32 route: fused "
+        f"{tuple(round(v, 5) for v in res['fused_vs_f32'])}, composed "
+        f"{tuple(round(v, 5) for v in res['composed_vs_f32'])}")
+    return res
+
+
+DEC_GAPS = "19a large-v3 bf16: cached tokens vs decoder_forward"
+
+
+def decoder_agreement(W, pb: dict, arch, enc, tok: np.ndarray, tokl, frozen) -> dict:
+    """Phase 19a's decoder, teacher-forced along the cached tokens: the
+    cached steps against the full-sequence ``decoder_forward`` +
+    ``decoder_logits``, (1) in f32 (the same weights widened, TF32 off)
+    at the f32 bar, rtol 1e-4, atol 1e-5; (2) in bf16, where rounding in
+    two orders adds up over 32 layers as in the encoder, each route
+    against the f32 full-sequence logits: the cached steps no farther
+    than 1.25 x the full sequence, max and mean; a token may differ from
+    the bf16 full sequence's argmax only where the gap rule explains it."""
+    got = teacher_forced(W, pb, arch, enc, tokl)
+    ref = W.decoder_logits(pb, W.decoder_forward(pb, tokl[:, :-1], enc, arch)[0])
+    ref = ref.transpose(0, 1).contiguous()  # [L - 1, B, V]
+    check(bool(torch.isfinite(got).all()), "cached step logits: non-finite values")
+    token_gaps(tok, ref, got, ~frozen.T, DEC_GAPS)
+    p32 = {"decoder": W._tree_map(lambda a: a.float(), pb["decoder"])}
+    enc32 = enc.float()
+    got32 = teacher_forced(W, p32, arch, enc32, tokl)
+    ref32 = W.decoder_logits(p32, W.decoder_forward(p32, tokl[:, :-1], enc32, arch)[0])
+    ref32 = ref32.transpose(0, 1).contiguous()
+    err32 = float((got32 - ref32).abs().max())
+    check(torch.allclose(got32, ref32, rtol=1e-4, atol=1e-5),
+          f"f32 cached step logits vs decoder_forward: max abs err {err32:.3g}")
+    del got32
+    res = {"f32_max_abs_err": err32, "bf16_cached_vs_full": rel_err(got, ref),
+           "bf16_cached_vs_f32": rel_err(got, ref32), "bf16_full_vs_f32": rel_err(ref, ref32)}
+    check(res["bf16_cached_vs_f32"][0] <= 1.25 * res["bf16_full_vs_f32"][0]
+          and res["bf16_cached_vs_f32"][1] <= 1.25 * res["bf16_full_vs_f32"][1],
+          f"bf16 cached steps' error against f32 {res['bf16_cached_vs_f32']} above 1.25 x the "
+          f"full sequence's {res['bf16_full_vs_f32']}")
+    log(f"  decoder, {tokl.shape[1] - 1} teacher-forced steps: f32 cached vs decoder_forward max "
+        f"abs err {err32:.3g}; bf16 (max rel, mean rel) cached vs full "
+        f"{tuple(round(v, 5) for v in res['bf16_cached_vs_full'])}, against f32: cached "
+        f"{tuple(round(v, 5) for v in res['bf16_cached_vs_f32'])}, full "
+        f"{tuple(round(v, 5) for v in res['bf16_full_vs_f32'])}")
+    return res
+
+
+def transcription_path(dev, W, E, CE) -> dict:
+    """Phase 19a; returns the launches, the times and (for 19c) the bf16
+    weights and mel."""
+    arch = W.arch_for(LV3)
+    params = W.init_whisper(torch.Generator(device=dev).manual_seed(19), arch)
+    pb = W.cast_params(params, torch.bfloat16)
+    del params
+    mel = W.log_mel_spectrogram(synthetic_audio(DEC_CLIPS, 19), n_mels=arch.n_mels,
+                                device=dev).bfloat16()
+    eos, start = arch.eos_token_id, arch.decoder_start_token_id
+    finished = torch.zeros(3, dtype=torch.bool, device=dev)
+    tie = torch.tensor([[0.0, 3.0, 3.0, 1.0], [5.0, 5.0, 0.0, 5.0], [0, 0, 0, 9.0]], device=dev)
+    check(W._next_token(tie, -1, finished, eos).tolist() == [1, 0, 3],
+          "argmax on the card does not take the first maximum")
+
+    reset_enc_launches(CE)
+    E.plain_calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tokens = W.greedy_decode_cached(pb, mel, arch, max_len=DEC_LEN)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = enc_launches(CE)
+    log(f"  greedy_decode_cached, {DEC_CLIPS} clips, max_len {DEC_LEN}, bf16: first call "
+        f"{first_s:.2f} s (weight layouts built); launches {launches}, plain-version calls "
+        f"{dict(E.plain_calls)}")
+    n = arch.encoder_layers
+    want = {"conv_stem": 1, "ln_qkv": n, "self_attention": n, "out_proj": n, "mlp_block": n,
+            "flash_self_attention": 0}
+    check(launches == want, f"decode launches {launches} != {want}")
+    check(sum(E.plain_calls.values()) == 0, f"plain versions ran on the card: {E.plain_calls}")
+    tok = tokens.cpu().numpy()
+    check(tokens.dtype == torch.int32 and tok.shape == (DEC_CLIPS, DEC_LEN)
+          and tokens.device == mel.device, f"tokens {tokens.dtype} {tok.shape} {tokens.device}")
+    check(bool((tok[:, 0] == start).all()), "column 0 is not the start token")
+    frozen = frozen_steps(tok, eos)
+    check(bool((tok[:, 1:][frozen] == eos).all()), "a row left EOS after emitting it")
+
+    with torch.no_grad(), W.f32_matmuls():
+        enc = W.encoder_forward(pb, mel, arch)[0]
+        enc_err = encoder_agreement(W, pb, mel, arch, enc)
+        tokl = tokens.long()
+        dec_err = decoder_agreement(W, pb, arch, enc, tok, tokl, frozen)
+    log(f"  {int((tok == eos).any(1).sum())} rows reached EOS; tokens differing from "
+        f"decoder_forward's argmax: {len(TOKEN_GAPS[DEC_GAPS])}")
+    res = {"launches": launches, "first_call_s": first_s, "encoder": enc_err, "decoder": dec_err,
+           "pb": pb, "mel": mel}
+    res.update(decode_times(W, pb, mel, arch))
+    return res
+
+
+def decode_times(W, pb: dict, mel, arch) -> dict:
+    """Phase 19a's times on the host clock (after a warm run, ending in a
+    synchronise): a whole decode call and the encoder; a step is (the
+    call - the encoder) / 63, the cross K/V and the token choice
+    included.  Then an 8-token call under ``torch.profiler`` (a 64-token
+    one is ~300,000 events): device busy, the encoder's and the steps'
+    parts (``dec.<part>`` ranges), the idle share of the same call
+    unprofiled and of a step (its device busy against its host ms), the
+    heaviest device operations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    steps, prof_steps = DEC_LEN - 1, PROF_LEN - 1
+
+    def clock(fn, n: int = 1) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    with torch.no_grad(), W.f32_matmuls():
+        encode = lambda: W.encoder_forward(pb, mel, arch)  # noqa: E731
+        encode()
+        enc_ms = clock(encode, 3)
+    call_ms = clock(lambda: W.greedy_decode_cached(pb, mel, arch, max_len=DEC_LEN))
+    short = lambda: W.greedy_decode_cached(pb, mel, arch, max_len=PROF_LEN)  # noqa: E731
+    short_ms = clock(short)
+    res = {"call_ms": call_ms, "clips_per_s": DEC_CLIPS * 1e3 / call_ms,
+           "tokens_per_s": DEC_CLIPS * steps * 1e3 / call_ms, "encoder_host_ms": enc_ms,
+           "step_host_ms": (call_ms - enc_ms) / steps, "short_call_ms": short_ms}
+    log(f"  decode call {call_ms:.1f} ms: {res['clips_per_s']:.3f} clips/s, "
+        f"{res['tokens_per_s']:.1f} decoded tokens/s ({DEC_CLIPS} x {steps}); host clock: "
+        f"encoder {enc_ms:.3f} ms, a step {res['step_host_ms']:.3f} ms; the {PROF_LEN}-token call "
+        f"{short_ms:.1f} ms")
+    with annotated_decode(W), profile(activities=[ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]) as prof:
+        short()
+        torch.cuda.synchronize()
+    kernels = device_ops(prof.key_averages())
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy <= 0:
+        log("  device busy time: not measured (the profiler saw no device time)")
+        res.update(short_busy_ms=None, encoder_busy_ms=None, step_busy_ms=None,
+                   short_idle_share=None, step_idle_share=None)
+        return res
+    res.update(short_busy_ms=busy, short_idle_share=max(0.0, 1 - busy / short_ms),
+               encoder_busy_ms=range_busy(prof, "dec.encoder_forward"),
+               step_busy_ms=range_busy(prof, "dec._decode_step") / prof_steps)
+    res["step_idle_share"] = max(0.0, 1 - res["step_busy_ms"] / res["step_host_ms"])
+    log(f"  the {PROF_LEN}-token call profiled: device busy {busy:.3f} ms (encoder "
+        f"{res['encoder_busy_ms']:.3f} ms, a step {res['step_busy_ms']:.4f} ms), idle share "
+        f"{res['short_idle_share']:.1%} of the same call unprofiled; a step's idle share "
+        f"{res['step_idle_share']:.1%} (its busy ms against its host ms)")
+    res["top"] = []
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        ms = e.self_device_time_total / 1e3
+        res["top"].append([e.key[:60], ms, e.count])
+        log(f"    {ms:8.3f} ms/call  {e.count:5d}x  {e.key[:90]}")
+    return res
+
+
+def transcribe_cli_path(work: Path, dev, W, wavio) -> dict:
+    """Phase 19b: the launcher's transcribe job (whisper-tiny, f32) in its
+    own process, then the same weights and mel decoded on the CPU."""
+    import os
+
+    tdir = work / "transcribe"
+    clips = tdir / "clips"
+    clips.mkdir(parents=True)
+    wav = clips / "clip.wav"
+    wavio.write_wav(wav, synthetic_audio(1, 7)[0, :10 * 8000], sample_rate=8000)
+    out_json = tdir / "transcripts.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "whisper_sae_tpu_torch.launch", "transcribe",
+                           str(clips), "--random-whisper", "--num-synthetic", str(TR_SYNTH),
+                           "--batch-size", str(TR_BATCH), "--max-len", str(TR_LEN),
+                           "--output", str(out_json)],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    job_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"launch transcribe failed: {proc.stderr[-2000:]}")
+    saved = json.loads(out_json.read_text())
+    names = [str(wav)] + [f"synthetic_{i}" for i in range(TR_SYNTH)]
+    check(saved["num_clips"] == TR_BATCH and sorted(saved["transcripts"]) == sorted(names),
+          f"transcripts for {sorted(saved['transcripts'])}")
+    arch = W.arch_for(TINY)
+    eos = arch.eos_token_id
+    card = np.full((TR_BATCH, TR_LEN), eos, np.int64)
+    for r, name in enumerate(names):
+        ids = saved["transcripts"][name]["token_ids"]
+        check(1 <= len(ids) <= TR_LEN and ids[0] == arch.decoder_start_token_id, f"{name}: {ids}")
+        card[r, :len(ids)] = ids
+    log(f"  launch transcribe ({TR_BATCH} clips, whisper-tiny f32, max_len {TR_LEN}): "
+        f"{job_s:.2f} s in its own process, the job's elapsed_s {saved['elapsed_s']}; "
+        f"{TR_BATCH} transcripts of {min(map(len, (saved['transcripts'][n]['token_ids'] for n in names)))}"
+        f"-{max(map(len, (saved['transcripts'][n]['token_ids'] for n in names)))} ids")
+
+    # the job's weights (a CUDA generator seeded 0) and mel, decoded on the CPU
+    params = W.init_whisper(torch.Generator(device=dev).manual_seed(0), arch)
+    audio, rate = wavio.read_wav(wav)
+    rows = [np.pad(wavio.resample(audio, rate, 16_000), (0, 30 * 16_000 - 10 * 16_000))]
+    rows += list(synthetic_audio(TR_SYNTH, 0))
+    mel = W.log_mel_spectrogram(np.stack(rows), n_mels=arch.n_mels, device=dev)
+    pc, mc = W.params_to(params, "cpu"), mel.cpu()
+    t0 = time.perf_counter()
+    with torch.no_grad(), W.f32_matmuls():
+        enc_c = W.encoder_forward(pc, mc, arch)[0]
+    cpu = W.greedy_decode_cached(pc, None, arch, max_len=TR_LEN, encoder_hidden=enc_c).numpy()
+    cpu_s = time.perf_counter() - t0
+    differ = np.nonzero((cpu != card).any(1))[0]
+    if len(differ):
+        # teacher-forced along the card's tokens on both devices up to each
+        # differing row's first difference
+        first = {int(r): int(np.nonzero(cpu[r] != card[r])[0][0]) for r in differ}
+        upto = max(first.values()) + 1
+        rows_t = torch.tensor(sorted(first))
+        tok = torch.from_numpy(card[rows_t.numpy(), :upto])
+        with torch.no_grad(), W.f32_matmuls():
+            enc_g = W.encoder_forward(params, mel[rows_t.to(dev)], arch)[0]
+        got = teacher_forced(W, params, arch, enc_g, tok.to(dev)).cpu()
+        ref = teacher_forced(W, pc, arch, enc_c[rows_t], tok)
+        steps = np.zeros((upto - 1, len(first)), bool)
+        for j, r in enumerate(sorted(first)):
+            steps[first[r] - 1, j] = True
+        token_gaps(card[rows_t.numpy(), :upto], ref, got, steps,
+                   "19b whisper-tiny f32: card vs CPU")
+    log(f"  the same weights and mel on the CPU (f32, {cpu_s:.1f} s): {TR_BATCH - len(differ)} of "
+        f"{TR_BATCH} rows decode the same {TR_LEN} tokens"
+        + (f"; rows {differ.tolist()} part where the gap rule explains it" if len(differ) else ""))
+    return {"job_s": job_s, "cpu_s": cpu_s, "rows_differing": len(differ),
+            "params": params, "mel": mel[:2], "tokens": card[:2]}
+
+
+def facades_path(W, H, DA, a19: dict, b19: dict) -> dict:
+    """Phase 19c."""
+    arch = W.arch_for(LV3)
+    pb, mel = a19["pb"], a19["mel"]
+    enc_layers, dec_layers = [0, arch.encoder_layers - 1], [arch.decoder_layers - 1]
+    got = H.extract_features_batch(pb, arch, mel, encoder_layers=enc_layers,
+                                   decoder_layers=dec_layers, compute_dtype=torch.bfloat16)
+    ref = W.extract_activations(pb, mel, arch, compute_dtype=torch.bfloat16)
+    for comp, layers in (("encoder", enc_layers), ("decoder", dec_layers)):
+        check(sorted(got[comp]) == layers, f"extract_features_batch {comp} layers {sorted(got[comp])}")
+        for i in layers:
+            check(np.array_equal(got[comp][i], ref[comp][i].cpu().numpy()),
+                  f"extract_features_batch {comp}:{i} differs from extract_activations")
+    del ref
+    tiny = W.arch_for(TINY)
+    params, mel_t = b19["params"], b19["mel"]
+    prompt = torch.from_numpy(np.ascontiguousarray(b19["tokens"][:, :4]))
+    pc, mc = W.params_to(params, "cpu"), mel_t.cpu()
+    lens_g = DA.logit_lens(params, mel_t, tiny, token_ids=prompt.to(mel_t.device))
+    lens_c = DA.logit_lens(pc, mc, tiny, token_ids=prompt)
+    maps_g = DA.cross_attention_maps(params, mel_t, tiny, token_ids=prompt.to(mel_t.device))
+    maps_c = DA.cross_attention_maps(pc, mc, tiny, token_ids=prompt)
+    check(torch.equal(lens_g["token_ids"].cpu(), lens_c["token_ids"]),
+          "logit_lens token ids: card vs CPU")
+    check(torch.allclose(lens_g["probs"].cpu(), lens_c["probs"], rtol=1e-4, atol=0),
+          "logit_lens probs: card vs CPU")
+    check(torch.allclose(lens_g["logits_last"].cpu(), lens_c["logits_last"], rtol=1e-4, atol=1e-5),
+          "logit_lens logits_last: card vs CPU")
+    check(torch.allclose(maps_g.cpu(), maps_c, rtol=1e-4, atol=1e-6),
+          "cross_attention_maps: card vs CPU")
+    err = {"logit_lens_probs": float((lens_g["probs"].cpu() - lens_c["probs"]).abs().max()),
+           "cross_attention_maps": float((maps_g.cpu() - maps_c).abs().max())}
+    log(f"  extract_features_batch (bf16) encoder {enc_layers} and decoder {dec_layers} bit-equal to "
+        f"extract_activations; logit_lens and cross_attention_maps at whisper-tiny, card vs "
+        f"CPU, max abs err {err}")
+    return err
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2513,6 +2943,9 @@ def main() -> int:
         from whisper_sae_tpu_torch.models import transcoder as TC
         from whisper_sae_tpu_torch.ops import cuda_coder as CC
         from whisper_sae_tpu_torch.training import coder_trainers as CT
+        from whisper_sae_tpu_torch.models import hooks as H
+        from whisper_sae_tpu_torch import decoder_analysis as DA
+        from whisper_sae_tpu_torch.utils import wavio
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the repository root",
               file=sys.stderr)
@@ -2726,9 +3159,28 @@ def main() -> int:
         "through the launcher")
     wide18 = wide_coder_path(work, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_topk, topk)
     log(f"  out of core and wide coders: {json.dumps({'ooc': ooc, 'wide': wide18})}")
+    log("phase 19: transcription and capture: (a) whisper-large-v3 bf16 greedy decoding "
+        f"({DEC_CLIPS} clips, max_len {DEC_LEN})")
+    a19 = transcription_path(dev, W, E, CE)
+    for entry in kernels:
+        if entry["name"] in ENC_WRAPPERS:
+            entry["at_transcription"] = {"launches": a19["launches"][entry["name"]],
+                                         "clips": DEC_CLIPS, "max_len": DEC_LEN}
+    log(f"  (b) launch transcribe: whisper-tiny f32, {TR_BATCH} clips, max_len {TR_LEN}")
+    b19 = transcribe_cli_path(work, dev, W, wavio)
+    log("  (c) the capture facades and decoder analysis")
+    c19 = facades_path(W, H, DA, a19, b19)
+    summary = {k: v for k, v in a19.items() if k not in ("pb", "mel")}
+    summary.update(cli_job_s=b19["job_s"], cpu_decode_s=b19["cpu_s"],
+                   cli_rows_differing=b19["rows_differing"], facades_max_abs_err=c19)
+    del a19, b19
+    log(f"  transcription: {json.dumps(summary)}")
     log(f"  rows selecting differently from the plain version (phases 1, 8 and 11): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
+    log(f"  decoded tokens differing from their reference (phase 19): "
+        f"{json.dumps({what: rows for what, rows in TOKEN_GAPS.items() if rows})}; "
+        f"checked with none: {sorted(what for what, rows in TOKEN_GAPS.items() if not rows)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
 """PyTorch/CUDA port of whisper_sae_tpu for one NVIDIA H100.
 
 It extracts Whisper activations into the JAX package's feature-cache
-format (log-mel, encoder and decoder capture) and trains TopK SAEs from
-such a cache (the other coder families are not ported yet).  The Pallas
-kernels on those paths are hand-written CUDA kernels for sm_90a under
-``ops/csrc/``, built with nvcc at first use.  The package imports torch
+format (log-mel, encoder and decoder capture), trains every coder family
+from such a cache (TopK and ReLU SAEs, transcoders, crosscoders),
+transcribes audio by KV-cached greedy decoding, and captures and probes
+activations (the hooks facades, the logit lens, cross-attention maps).
+The Pallas kernels on those paths are hand-written CUDA kernels for
+sm_90a under ``ops/csrc/``, built with nvcc at first use.  The package imports torch
 and numpy (and pydantic/yaml for its config), never jax and nothing of
 ``whisper_sae_tpu``.
 """

@@ -1,11 +1,13 @@
 """Job launcher of the port (counterpart of ``launcher/launch.py``): the
-extraction job and the transcoder and crosscoder training jobs, with the
-JAX launcher's flags, defaults, run directories and output files::
+extraction job, the transcoder and crosscoder training jobs and batch
+transcription, with the JAX launcher's flags, defaults, run directories
+and output files::
 
     python -m whisper_sae_tpu_torch.launch extract --capture-mlp --random-whisper \\
         --dataset synthetic --max-samples 64 --layers-encoder 0,1,2,3 --layers-decoder ""
     python -m whisper_sae_tpu_torch.launch train-transcoder --component encoder --layer-idx 0
     python -m whisper_sae_tpu_torch.launch train-crosscoder --layers 0,1,2,3 [--relu]
+    python -m whisper_sae_tpu_torch.launch transcribe clips/ --random-whisper --output t.json
 
 Every job runs on the card unless ``--device cpu`` is given (then the
 kernels' plain versions run).  Only ``--dataset synthetic`` is ported.
@@ -36,10 +38,14 @@ from .data.librispeech import AudioBatchLoader, LibriSpeechFeaturesOnly, Synthet
 from .data.loader import ActivationLoader, MultiLayerLoader, PairedActivationLoader
 from .models.crosscoder import create_crosscoder
 from .models.transcoder import create_transcoder
-from .models.whisper import arch_for, init_whisper, load_pretrained
+from .data.mel import SAMPLE_RATE, log_mel_spectrogram
+from .models.whisper import (
+    _hf_snapshot, arch_for, greedy_decode_cached, init_whisper, load_pretrained, params_to,
+)
 from .training.coder_trainers import CrosscoderTrainer, TranscoderTrainer
 from .utils.checkpoint import save_pytree
 from .utils.device import resolve_device
+from .utils.wavio import read_wav, resample
 
 CACHE_DIR = Path("cache")
 OUTPUT_DIR = Path("outputs")
@@ -336,6 +342,103 @@ def train_crosscoder(
     return result
 
 
+def transcribe_job(
+    inputs: list[str] | None = None,
+    model_name: str = "openai/whisper-tiny",
+    random_whisper: bool = False,
+    max_len: int = 224,
+    batch_size: int = 16,
+    output: str | Path | None = None,
+    num_synthetic: int = 0,
+    device=None,
+) -> dict:
+    """Batch ASR: wav files -> log-mel -> encoder -> KV-cached greedy
+    decode -> ``{model_name, num_clips, elapsed_s, transcripts}`` (written
+    to ``output`` when given).  ``inputs`` are wav paths and directories
+    (searched for ``*.wav``), resampled to 16 kHz; ``num_synthetic`` adds
+    30 s clips of 0.1 x normal noise from ``default_rng(0)``.  Each clip
+    is padded or trimmed to 30 s.  ``random_whisper`` makes the weights on
+    the device from a generator seeded 0; otherwise they come from the
+    local snapshot (``load_pretrained`` raises without one), and so does
+    the tokenizer when ``transformers`` can read it (then the transcripts
+    carry text too)."""
+    dev = resolve_device(device)
+    t0 = time.time()
+    if random_whisper:
+        arch = arch_for(model_name)
+        params = init_whisper(torch.Generator(device=dev).manual_seed(0), arch)
+    else:
+        params, arch = load_pretrained(model_name)
+        params = params_to(params, dev)
+
+    tokenizer = None
+    forced_ids = None
+    if not random_whisper:
+        try:
+            from transformers import WhisperTokenizer
+
+            tokenizer = WhisperTokenizer.from_pretrained(str(_hf_snapshot(model_name)),
+                                                         local_files_only=True)
+            forced_ids = tuple(tok for _, tok in sorted(tokenizer.get_decoder_prompt_ids()))
+        except Exception as e:  # no transformers, or no tokenizer files in the snapshot
+            print(f"tokenizer unavailable ({e}); writing token ids only", file=sys.stderr)
+
+    names: list[str] = []
+    clips: list[np.ndarray] = []
+    n_samples = 30 * SAMPLE_RATE
+    for spec in inputs or []:
+        p = Path(spec)
+        for wav in (sorted(p.glob("*.wav")) if p.is_dir() else [p]):
+            audio, rate = read_wav(wav)
+            if rate != SAMPLE_RATE:
+                audio = resample(audio, rate, SAMPLE_RATE)
+            names.append(str(wav))
+            clips.append(np.asarray(audio, np.float32))
+    rng = np.random.default_rng(0)
+    for i in range(num_synthetic):
+        names.append(f"synthetic_{i}")
+        clips.append(rng.standard_normal(n_samples).astype(np.float32) * 0.1)
+    if not clips:
+        raise ValueError("no inputs: pass wav paths/dirs or --num-synthetic")
+
+    def pad_or_trim(a: np.ndarray) -> np.ndarray:
+        return a[:n_samples] if len(a) >= n_samples else np.pad(a, (0, n_samples - len(a)))
+
+    results: dict[str, dict] = {}
+    for lo in range(0, len(clips), batch_size):
+        rows = [pad_or_trim(c) for c in clips[lo:lo + batch_size]]
+        n_real = len(rows)
+        # a ragged final batch is padded with silence to the batch shape,
+        # as the JAX job does for its one compiled shape
+        if n_real < batch_size and lo > 0:
+            rows += [np.zeros(n_samples, np.float32)] * (batch_size - n_real)
+        mel = log_mel_spectrogram(np.stack(rows), n_mels=arch.n_mels, device=dev)
+        ids = greedy_decode_cached(params, mel, arch, max_len=max_len,
+                                   forced_ids=forced_ids)[:n_real].cpu().numpy()
+        texts = (tokenizer.batch_decode(ids, skip_special_tokens=True)
+                 if tokenizer is not None else [None] * len(ids))
+        for name, row, text in zip(names[lo:lo + batch_size], ids, texts):
+            toks = row.tolist()
+            while len(toks) > 1 and toks[-1] == arch.eos_token_id:  # the trailing EOS run
+                toks.pop()
+            entry: dict = {"token_ids": toks}
+            if text is not None:
+                entry["text"] = text
+            results[name] = entry
+
+    out = {
+        "model_name": model_name,
+        "num_clips": len(clips),
+        "elapsed_s": round(time.time() - t0, 1),
+        "transcripts": results,
+    }
+    if output:
+        Path(output).parent.mkdir(parents=True, exist_ok=True)
+        Path(output).write_text(json.dumps(out, indent=2))
+        print(f"wrote {output}")
+    return out
+
+
 def _train_flags(sp: argparse.ArgumentParser) -> None:
     sp.add_argument("--component", default="encoder")
     sp.add_argument("--model-name", default="openai/whisper-tiny")
@@ -396,6 +499,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     pc.add_argument("--layers", default="0,1,2,3")
     pc.add_argument("--relu", action="store_true",
                     help="ReLU + decoder-norm-weighted L1 variant (default TopK)")
+
+    pr = sub.add_parser("transcribe", help="batch ASR: wav files/dirs -> greedy transcripts.json")
+    pr.add_argument("inputs", nargs="*", help="wav files and/or directories of *.wav")
+    pr.add_argument("--model-name", default="openai/whisper-tiny")
+    pr.add_argument("--random-whisper", action="store_true")
+    pr.add_argument("--max-len", type=int, default=224)
+    pr.add_argument("--batch-size", type=int, default=16)
+    pr.add_argument("--num-synthetic", type=int, default=0)
+    pr.add_argument("--output", default=None,
+                    help="transcripts JSON path (default: print summary only)")
+    pr.add_argument("--device", default=None, help="cuda (default) or cpu")
     return p.parse_args(argv)
 
 
@@ -411,6 +525,13 @@ def main(argv=None) -> dict:
             checkpoint_every=args.checkpoint_every or None, auto_resume=not args.no_resume,
             cache_dtype=args.cache_dtype, device=args.device,
         )
+    elif args.cmd == "transcribe":
+        out = transcribe_job(
+            inputs=args.inputs, model_name=args.model_name, random_whisper=args.random_whisper,
+            max_len=args.max_len, batch_size=args.batch_size, num_synthetic=args.num_synthetic,
+            output=args.output, device=args.device,
+        )
+        out = {k: v for k, v in out.items() if k != "transcripts"}
     else:
         common = dict(
             component=args.component, model_name=args.model_name,

@@ -23,7 +23,10 @@ Routes, as in the JAX package:
   attention kernel, where JAX calls the library flash attention.  The
   f32 parity mode runs with TF32 off (``f32_matmuls``).
 
-Deferred: ``greedy_decode(_cached)``, ``transcribe``, the hooks facades.
+Decoding (``greedy_decode_cached``, ``greedy_decode``, ``transcribe``)
+follows the JAX package's loops step for step: the same static-shape
+caches, dtypes at each op, forcing and EOS freeze; the loop runs eagerly
+on the host, one cached step (``_decode_step``) a token.
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data.mel import log_mel_spectrogram
 from ..ops import encoder as encoder_ops
-from ..utils.device import f32_matmuls
+from ..utils.device import f32_matmuls, mm_f32, resolve_device
 
 LN_EPS = 1e-5
 
@@ -504,3 +508,187 @@ def flatten_activations(acts: torch.Tensor, component: str = "encoder") -> torch
     """``[B, S, H]`` -> ``[B*S, H]`` row-major (``component`` is accepted
     for call-site parity; the reshape is the same for both)."""
     return acts.reshape(-1, acts.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# decoding
+# ---------------------------------------------------------------------------
+
+
+def decoder_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    """LM logits from decoder hidden states (the output projection is tied
+    to the token embedding), an f32 product of the operands as given."""
+    return mm_f32(hidden, params["decoder"]["tok"].t())
+
+
+def _forced_buffer(forced_ids, max_len: int) -> np.ndarray:
+    """``[max_len]`` int32: the forced token id at positions
+    1..len(forced_ids), -1 (unforced) elsewhere, as HF generate's
+    ``forced_decoder_ids``."""
+    buf = np.full((max_len,), -1, np.int32)
+    if forced_ids:
+        ids = list(forced_ids)[: max_len - 1]
+        buf[1 : 1 + len(ids)] = ids
+    return buf
+
+
+@dataclass
+class _DecodeState:
+    """What a cached decode keeps across its steps: each layer's parameter
+    views, the cross-attention keys (``[B, heads, hd, T_enc]``, widened to
+    f32 once for the f32 scores) and values (``[B, heads, T_enc, hd]``),
+    and the self-attention caches ``[L, B, max_len, D]``."""
+
+    layers: list
+    xk: list
+    xv: list
+    cache_k: torch.Tensor
+    cache_v: torch.Tensor
+    positions: torch.Tensor
+
+
+def _decode_state(params: dict, arch: WhisperArch, enc: torch.Tensor,
+                  max_len: int) -> _DecodeState:
+    """Cross-attention K and V once per layer (``enc @ wk``, ``enc @ wv +
+    bv``; not the few-query reassociation of ``_attention``, as the JAX
+    cached decode) and zeroed caches in ``enc``'s dtype."""
+    dec = params["decoder"]
+    b, t_enc, d = enc.shape
+    nh, hd = arch.num_heads, arch.head_dim
+    layers = [_layer(dec["layers"], i) for i in range(_n_layers(dec["layers"]))]
+    xk, xv = [], []
+    for lp in layers:
+        k = enc @ lp["xattn"]["wk"]
+        v = enc @ lp["xattn"]["wv"] + lp["xattn"]["bv"]
+        xk.append(k.reshape(b, t_enc, nh, hd).permute(0, 2, 3, 1).float().contiguous())
+        xv.append(v.reshape(b, t_enc, nh, hd).transpose(1, 2).contiguous())
+    cache = torch.zeros((len(layers), b, max_len, d), dtype=enc.dtype, device=enc.device)
+    return _DecodeState(layers, xk, xv, cache, cache.clone(),
+                        torch.arange(max_len, device=enc.device))
+
+
+def _decode_step(params: dict, arch: WhisperArch, state: _DecodeState, tok: torch.Tensor,
+                 t: int) -> torch.Tensor:
+    """One cached decoder step at position ``t`` for the tokens ``tok``
+    ``[B]``: writes the step's self-attention keys (no bias) and values
+    into the caches at ``t`` and returns the next-token logits ``[B, V]``
+    f32.  q is scaled in the compute dtype; scores and softmax are f32,
+    positions past ``t`` masked; the softmax is cast to v's dtype before
+    the value product."""
+    dec = params["decoder"]
+    b = tok.shape[0]
+    nh, hd, d = arch.num_heads, arch.head_dim, arch.d_model
+    max_len = state.cache_k.shape[2]
+
+    def heads(y):  # [B, 1, D] -> [B, nh, 1, hd]
+        return y.reshape(b, 1, nh, hd).transpose(1, 2)
+
+    def merge(y):  # [B, nh, 1, hd] -> [B, 1, D]
+        return y.transpose(1, 2).reshape(b, 1, d)
+
+    future = state.positions > t
+    x = dec["tok"][tok.long()][:, None, :] + dec["pos"][t]
+    for i, lp in enumerate(state.layers):
+        a = lp["attn"]
+        hn = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
+        q = heads((hn @ a["wq"] + a["bq"]) * hd**-0.5)
+        state.cache_k[i, :, t] = (hn @ a["wk"])[:, 0]
+        state.cache_v[i, :, t] = (hn @ a["wv"] + a["bv"])[:, 0]
+        ks = state.cache_k[i].reshape(b, max_len, nh, hd).transpose(1, 2)
+        vs = state.cache_v[i].reshape(b, max_len, nh, hd).transpose(1, 2)
+        s = torch.matmul(q.float(), ks.float().transpose(-1, -2))
+        s = s.masked_fill(future, torch.finfo(torch.float32).min)
+        w = torch.softmax(s, dim=-1).to(vs.dtype)
+        x = x + merge(w @ vs) @ a["wo"] + a["bo"]
+        c = lp["xattn"]
+        hn = _layer_norm(x, lp["ln_x_g"], lp["ln_x_b"])
+        q = heads((hn @ c["wq"] + c["bq"]) * hd**-0.5)
+        w = torch.softmax(torch.matmul(q.float(), state.xk[i]), dim=-1).to(state.xv[i].dtype)
+        x = x + merge(w @ state.xv[i]) @ c["wo"] + c["bo"]
+        x = x + _mlp(_layer_norm(x, lp["ln2_g"], lp["ln2_b"]), lp["mlp"])
+    x = _layer_norm(x, dec["ln_f_g"], dec["ln_f_b"])
+    return decoder_logits(params, x[:, 0])
+
+
+def _next_token(logits: torch.Tensor, forced_id: int, finished: torch.Tensor,
+                eos: int) -> torch.Tensor:
+    """The first maximum, then the forced id (``>= 0``), then the EOS
+    freeze; marks the rows that emitted EOS in ``finished``."""
+    nxt = logits.argmax(dim=-1)
+    if forced_id >= 0:
+        nxt = torch.full_like(nxt, forced_id)
+    nxt = nxt.masked_fill(finished, eos)
+    finished |= nxt == eos
+    return nxt
+
+
+@torch.no_grad()
+def greedy_decode_cached(params: dict, mel: torch.Tensor | None, arch: WhisperArch,
+                         max_len: int = 32, encoder_hidden: torch.Tensor | None = None,
+                         forced_ids: tuple[int, ...] | None = None) -> torch.Tensor:
+    """KV-cached greedy decoding: one incremental decoder step a token.
+
+    The encoder runs only when ``encoder_hidden`` is None (bf16 weights
+    and mel take the fused encoder kernels).  Cross-attention K/V are
+    computed once; the self-attention caches are static ``[L, B,
+    max_len, D]`` buffers written at each step.  Sequences freeze to
+    ``arch.eos_token_id`` once they emit it; ``forced_ids`` pins the
+    prompt positions 1..len(forced_ids).  Returns int32 ``[B, max_len]``
+    starting with the decoder start token, on the encoder hidden's
+    device (mel's, when the encoder runs here)."""
+    with f32_matmuls():
+        if encoder_hidden is None:
+            encoder_hidden, _ = encoder_forward(params, mel, arch)
+        state = _decode_state(params, arch, encoder_hidden, max_len)
+        b = encoder_hidden.shape[0]
+        tokens = torch.full((b, max_len), arch.decoder_start_token_id, dtype=torch.long,
+                            device=encoder_hidden.device)
+        finished = torch.zeros(b, dtype=torch.bool, device=encoder_hidden.device)
+        forced = _forced_buffer(forced_ids, max_len)
+        for t in range(max_len - 1):
+            logits = _decode_step(params, arch, state, tokens[:, t], t)
+            tokens[:, t + 1] = _next_token(logits, int(forced[t + 1]), finished,
+                                           arch.eos_token_id)
+    return tokens.to(torch.int32)
+
+
+@torch.no_grad()
+def greedy_decode(params: dict, mel: torch.Tensor | None, arch: WhisperArch, max_len: int = 32,
+                  encoder_hidden: torch.Tensor | None = None,
+                  forced_ids: tuple[int, ...] | None = None) -> torch.Tensor:
+    """Greedy decoding without a cache: a full ``decoder_forward`` over the
+    fixed-length buffer a step.  Same tokens, freeze and forcing as
+    :func:`greedy_decode_cached`."""
+    with f32_matmuls():
+        if encoder_hidden is None:
+            encoder_hidden, _ = encoder_forward(params, mel, arch)
+        b = encoder_hidden.shape[0]
+        tokens = torch.full((b, max_len), arch.decoder_start_token_id, dtype=torch.long,
+                            device=encoder_hidden.device)
+        finished = torch.zeros(b, dtype=torch.bool, device=encoder_hidden.device)
+        forced = _forced_buffer(forced_ids, max_len)
+        for t in range(max_len - 1):
+            hidden, _ = decoder_forward(params, tokens, encoder_hidden, arch)
+            tokens[:, t + 1] = _next_token(decoder_logits(params, hidden[:, t]),
+                                           int(forced[t + 1]), finished, arch.eos_token_id)
+    return tokens.to(torch.int32)
+
+
+def transcribe(params: dict, arch: WhisperArch, audio, tokenizer=None, max_len: int = 224,
+               forced_ids: tuple[int, ...] | None = None, device=None):
+    """Audio ``[n]`` or ``[B, n]`` at 16 kHz -> token ids ``[B, max_len]``,
+    or text when a tokenizer (anything with ``batch_decode``) is given.
+
+    Log-mel, the encoder and the cached greedy decode on ``device`` (the
+    card unless ``"cpu"`` is asked for; ``params`` must be there).  With
+    a tokenizer and no ``forced_ids``, its ``get_decoder_prompt_ids``
+    (sorted by position) is the forced prompt."""
+    mel = log_mel_spectrogram(audio, n_mels=arch.n_mels, device=resolve_device(device))
+    if forced_ids is None and tokenizer is not None:
+        get_prompt = getattr(tokenizer, "get_decoder_prompt_ids", None)
+        if get_prompt is not None:
+            forced_ids = tuple(tok for _, tok in sorted(get_prompt()))
+    tokens = greedy_decode_cached(params, mel, arch, max_len=max_len, forced_ids=forced_ids)
+    if tokenizer is None:
+        return tokens
+    return tokenizer.batch_decode(tokens.cpu().numpy(), skip_special_tokens=True)

@@ -25,10 +25,11 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "whisper_sae_tpu"))
 need = {"launch", "models.transcoder", "models.crosscoder", "training.coder_trainers",
-        "ops.cuda_coder"}
+        "ops.cuda_coder", "models.hooks", "decoder_analysis.logit_lens",
+        "decoder_analysis.cross_attention", "utils.wavio", "utils.metrics"}
 missing = sorted(n for n in need if pkg.__name__ + "." + n not in names)
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 29 else 0)
+sys.exit(1 if bad or missing or len(names) < 42 else 0)
 """
 
 
@@ -51,6 +52,7 @@ def test_sources_name_no_jax_import():
 
 
 def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
+    from whisper_sae_tpu_torch import launch
     from whisper_sae_tpu_torch import train as cli
     from whisper_sae_tpu_torch.config import SAEConfig
     from whisper_sae_tpu_torch.models.sae import TopKSAE, create_sae
@@ -63,6 +65,8 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
         create_sae(SAEConfig(k=4, expansion_factor=4), input_dim=32)
     with pytest.raises(RuntimeError, match="--device cpu"):
         cli.main(["--config", str(tmp_path / "missing.yaml"), "--no-wandb"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.transcribe_job(random_whisper=True, num_synthetic=1)
     with pytest.raises(RuntimeError):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
