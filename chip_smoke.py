@@ -242,8 +242,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``logit_lens`` and ``cross_attention_maps`` at whisper-tiny on the
     card against the CPU at the f32 bars (rtol 1e-4; atol 1e-5, the
     maps 1e-6).
+20. Kernel A's wide route (``sae_fused_loss_wide_fwd``: one CTA a row,
+    the decode's warps over D), taken wherever the JAX package fuses
+    past the warp form's D <= 384, H <= 3072.  (a) Against its plain
+    version at (D, H) = (512, 4096), (768, 6144), (1024, 8192), (384,
+    24576) and (768, 3072), k = 32, 4096 rows (whisper-small 8x also at
+    128 and at 32768: three chunks), sliced and at a row offset, at
+    phase 1's bars with the gap rule, the loss bit-identical run to run;
+    gradients at whisper-small 8x against the CPU; at whisper-tiny its
+    latent, residual and centred rows equal to the warp form's bit for
+    bit.  (b) Whisper-small 8x through the CLI: tiny_default.yaml with
+    ``model_name: openai/whisper-small`` (D=768, H=6144, k=32, batch
+    128, AMP) on a synthetic 2^16 + 64-row cache, 2 epochs of 512
+    windowed steps and a remainder step, the resample forced at the
+    last: every step one kernel-A launch on the wide route (windowed,
+    and sliced for the remainders), no plain version, the resample's f32
+    encode on kernel C's wide form, the loss finite and falling, decoder rows unit
+    norm, the trained SAE on 512 rows against the CPU.  (c) At 128,
+    4096 and 32768 rows the wide route and the composed route it
+    replaces (the blocked encode, the ``mm_f32`` decode, the loss) in
+    turns (composed / wide / wide / composed), each launch's device ms;
+    a CLI step at batch 128 and one at 32768.
 
-Before them, one line lists the rows of phases 1, 8 and 11 that select
+Before them, one line lists the rows of phases 1, 8, 11 and 20 that select
 differently from the plain version, with their gaps, and one the
 decoded tokens of phase 19 that differ from their reference.  The last two lines
 are the ``kernels`` JSON line and
@@ -336,6 +357,19 @@ GATE_WIDTHS = (384, 512, 768, 1024, 1280, 1536)
 LV3 = "openai/whisper-large-v3"
 LG_B, LG_CLIPS = 8, 16
 LG_ENC_LAYERS, LG_DEC_LAYERS = [0, 31], [31]
+# phase 20: kernel A's wide route at every geometry the JAX package fuses
+# past the warp form (D > 384 or H > 3072), and whisper-small 8x through
+# the CLI: 2^16 + 64 rows (512 windowed steps and a 64-row remainder an epoch)
+DS, HS = 768, 6144
+WIDE_GEOMS = ((512, 4096), (DS, HS), (1024, 8192), (384, 24576), (768, 3072))
+WIDE_BATCHES = (128, 4096, 32768)  # whisper-small 8x; the others at 4096
+# the wide route's launches, by the profiler's kernel names (the encode and
+# the select-and-decode once a chunk)
+WIDE_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_kernel<3>",
+              "select_decode": "sae_select_decode_wide_kernel",
+              "finalize": "sae_loss_finalize_kernel"}
+SMALL_ROWS, SMALL_EPOCHS = (1 << 16) + 64, 2
+SELECT_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/select_decode.cuh"
 ENC_REPLACES = {
     "conv_stem": "src/whisper_sae_tpu/ops/pallas_encoder.py:604",
     "ln_qkv": "src/whisper_sae_tpu/ops/pallas_encoder.py:340",
@@ -521,25 +555,29 @@ def grads_close(fn, p, cpu_fn, names, what: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> torch.Tensor:
-    """Kernel A against its plain version at ``b`` rows, sliced and at a
-    row offset into an epoch buffer; two launches give the same bits.
-    Returns the sliced call's bf16 latent."""
+def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict, wide: bool = False
+                   ) -> torch.Tensor:
+    """Kernel A (its warp form, or with ``wide`` its wide route) against
+    its plain version at ``b`` rows, sliced and at a row offset into an
+    epoch buffer; two launches give the same bits.  Returns the sliced
+    call's bf16 latent."""
     we_t = cuda_sae._bf16_t(p["w_enc"])
     wd = p["w_dec"].bfloat16()
     b_out = p["b_dec"] + p["b_pre"]
-    for what, data, off in (("fused_sae_loss", x, 0), ("fused_sae_loss_indexed", buf, b)):
-        got = cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"], p["b_pre"], wd, b_out, K)
+    tag = f"_wide D={we_t.shape[1]} H={we_t.shape[0]}" if wide else ""
+    for name, data, off in (("fused_sae_loss", x, 0), ("fused_sae_loss_indexed", buf, b)):
+        what = name + tag
+        launch = lambda: cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"],  # noqa: E731
+                                                     p["b_pre"], wd, b_out, K, wide)
+        got = launch()
         want = cuda_sae.fused_sae_loss_plain(data[off:off + b], we_t, p["b_enc"], p["b_pre"],
                                              wd, b_out, K)
         torch.cuda.synchronize()
         ok = agree(got[3], want[3])
         share = float(ok.float().mean())
         if share < 0.999:
-            explain_disagreement(
-                f"{what} B={b}", got[3], want[3], got[5], want[5], we_t, p["b_enc"],
-                lambda: cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"], p["b_pre"],
-                                                    wd, b_out, K)[3])
+            explain_disagreement(f"{what} B={b}", got[3], want[3], got[5], want[5], we_t,
+                                 p["b_enc"], lambda: launch()[3])
         check(share >= 0.999, f"{what} B={b}: selection agrees on {share:.4%} of rows")
         GAPS[f"{what} B={b}"] = selection_gaps(got[5], we_t, p["b_enc"], got[3], want[3], K,
                                                f"{what} B={b}")
@@ -552,14 +590,19 @@ def check_kernel_a(cuda_sae, b: int, p: dict, x, buf, errs: dict) -> torch.Tenso
             check(torch.equal(got[1], want[1]) and torch.equal(got[2], want[2]),
                   f"{what} B={b}: l0/active outputs differ")
         check(torch.equal(got[5], want[5]), f"{what} B={b}: centred rows differ")
-        errs[what] = max(errs.get(what, 0.0), float((got[4][ok] - want[4][ok]).abs().max()))
+        hid_err = float((got[3][ok].float() - want[3][ok].float()).abs().max())
+        check(hid_err <= 1e-2 * float(want[3].float().abs().max()),
+              f"{what} B={b}: latent off by {hid_err:.3g}")
+        key = name + ("_wide" if wide else "")
+        errs[key] = max(errs.get(key, 0.0), float((got[4][ok] - want[4][ok]).abs().max()))
         log(f"  {what:24s} B={b:5d}: rows agreeing {share:.4%}, loss {float(got[0]):.7g} "
             f"vs plain {float(want[0]):.7g}, l0 {float(got[1]):.3f}")
         if off == 0:
             hid = got[3]
     a = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
     a2 = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
-    check(all(torch.equal(u, v) for u, v in zip(a, a2)), f"kernel A B={b}: loss not bit-identical")
+    check(all(torch.equal(u, v) for u, v in zip(a, a2)),
+          f"kernel A{tag} B={b}: loss not bit-identical")
     return hid
 
 
@@ -2924,6 +2967,235 @@ def facades_path(W, H, DA, a19: dict, b19: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 20: kernel A's wide route; a whisper-small 8x TopK SAE through the CLI
+# ---------------------------------------------------------------------------
+
+
+def wide_kernel_phase(dev, cuda_sae) -> dict:
+    """Phase 20a: kernel A's wide route against its plain version at every
+    geometry of ``WIDE_GEOMS`` (4096 rows; whisper-small 8x also at 128 and
+    32768: three chunks), sliced and at a row offset, at phase 1's bars;
+    gradients through the Function at whisper-small 8x; at whisper-tiny
+    its latent, residual and centred rows equal to the warp form's."""
+    errs: dict[str, float] = {}
+    for d, h in WIDE_GEOMS:
+        for b in WIDE_BATCHES if (d, h) == (DS, HS) else (4096,):
+            p = params(d + h + b, dev, d, h)
+            gen = torch.Generator(device=dev).manual_seed(d + h + b + 1)
+            x = torch.randn(b, d, generator=gen, device=dev)
+            buf = torch.randn(3 * b, d, generator=gen, device=dev)
+            check_kernel_a(cuda_sae, b, p, x, buf, errs, wide=True)
+            if (d, h, b) == (DS, HS, 4096):
+                # gradients against the CPU on the rows whose selection the
+                # card and the CPU agree on (a row selecting differently
+                # moves its features' gradients by more than the bar)
+                we_t, wd = cuda_sae._bf16_t(p["w_enc"]), p["w_dec"].bfloat16()
+                ops = (we_t, p["b_enc"], p["b_pre"], wd, p["b_dec"] + p["b_pre"], K)
+                card = cuda_sae._fused_loss_launch(x, 0, b, *ops, True)[3]
+                cpu = cuda_sae.fused_sae_loss_plain(x.cpu(), *(t.cpu() for t in ops[:-1]), K)[3]
+                ok = agree(card.cpu(), cpu).to(dev)
+                xs = x[ok].contiguous()
+                n = xs.shape[0]
+                check(n >= 0.999 * b, f"wide route vs the CPU on {b} rows: {n} select alike")
+                bs = torch.cat([buf[:n], xs, buf[-n:]])
+                grads_close(lambda q: cuda_sae.fused_sae_loss(xs, *(q[n_] for n_ in NAMES), K)[0], p,
+                            lambda q: cuda_sae.fused_sae_loss(xs.cpu(), *(q[n_] for n_ in NAMES),
+                                                              K)[0],
+                            NAMES, "fused_sae_loss wide")
+                grads_close(lambda q: cuda_sae.fused_sae_loss_indexed(
+                                bs, 1, *(q[n_] for n_ in NAMES), K, n)[0], p,
+                            lambda q: cuda_sae.fused_sae_loss_indexed(
+                                bs.cpu(), 1, *(q[n_] for n_ in NAMES), K, n)[0],
+                            NAMES, "fused_sae_loss_indexed wide")
+                log(f"  gradients D={d} H={h} on the {n} of {b} rows the card and the CPU select "
+                    f"alike: agree (rtol 2e-2)")
+                del xs, bs
+            del x, buf
+    b = 4096
+    p = params(b + 5, dev)
+    gen = torch.Generator(device=dev).manual_seed(b + 6)
+    x, buf = torch.randn(b, D, generator=gen, device=dev), torch.randn(3 * b, D, generator=gen, device=dev)
+    we_t, wd, b_out = cuda_sae._bf16_t(p["w_enc"]), p["w_dec"].bfloat16(), p["b_dec"] + p["b_pre"]
+    for data, off in ((x, 0), (buf, b)):
+        wide, warp = (cuda_sae._fused_loss_launch(data, off, b, we_t, p["b_enc"], p["b_pre"], wd, b_out,
+                                                  K, w) for w in (True, False))
+        torch.cuda.synchronize()
+        check(all(torch.equal(wide[i], warp[i]) for i in (3, 4, 5)),
+              f"wide route at D={D} H={H}, offset {off}: latent, resid or xc differ from the warp form's")
+        rel = abs(float(wide[0]) - float(warp[0])) / float(warp[0])
+        log(f"  wide route at D={D} H={H} B={b}, offset {off}: latent, resid and xc equal to the "
+            f"warp form's bit for bit; loss rel diff {rel:.3g} (partials a row against a CTA)")
+    return errs
+
+
+def small_config(work: Path) -> Path:
+    """tiny_default.yaml at whisper-small's width (its own expansion 8, k,
+    batch 128 and AMP), 2 epochs, a dead-feature threshold of 2 steps."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    check((cfg["sae"]["k"], cfg["sae"]["expansion_factor"], cfg["training"]["batch_size"],
+           cfg["training"]["use_amp"]) == (K, HS // DS, 128, True), "tiny_default.yaml widths changed")
+    cfg["whisper"]["model_name"] = "openai/whisper-small"
+    cfg["sae"]["dead_feature_threshold"] = 2
+    cfg["training"].update(epochs=SMALL_EPOCHS, warmup_steps=50)
+    cfg["data"]["cache_dir"] = str(work / "smcache")
+    cfg["output_dir"] = str(work / "smout")
+    cfg["experiment_name"] = "small_smoke"
+    path = work / "small_smoke.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def small_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, cuda_topk,
+               topk) -> dict:
+    """Phase 20b: the whisper-small 8x TopK SAE through the CLI; returns the
+    trainer, launches by kernel, the losses and the mixing matrix."""
+    path = small_config(work)
+    cfg = cfg_mod.ExperimentConfig.from_yaml(path)
+    check(cfg.whisper.hidden_dim == DS and cfg.sae.get_hidden_dim(DS) == HS, "small config widths")
+    cache = cache_mod.FeatureCache(work / "smcache" / "features", cfg.whisper, cfg.data)
+    writer = cache.writer("encoder", 0)
+    gen = torch.Generator(device=dev).manual_seed(70)
+    mix = torch.randn(RANK, DS, generator=gen, device=dev) / RANK ** 0.5
+    writer.append(gaussian_rows(SMALL_ROWS, gen, mix).cpu().numpy())
+    meta = writer.finalize(num_samples=SMALL_ROWS // 1500)
+    check(meta.num_tokens == SMALL_ROWS and meta.hidden_dim == DS, "small cache metadata")
+    windowed = SMALL_EPOCHS * (SMALL_ROWS // 128)
+    steps = windowed + SMALL_EPOCHS  # one remainder step an epoch
+
+    class Trainer(train_mod.SAETrainer):
+        """The CLI's trainer with the resample due at the last step."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, resample_dead_every=steps, **kw)
+
+    a_entries = (cuda_sae.fused_sae_loss, cuda_sae.fused_sae_loss_indexed)
+    for w in a_entries:
+        w.launches = w.wide_launches = 0
+    cuda_sae.fused_topk_encode.launches = cuda_sae.fused_topk_encode.blocked_launches = 0
+    cuda_topk.topk_mask_fwd.launches = cuda_topk.topk_mask_fwd.wide_launches = 0
+    topk.plain_calls.clear()
+    cli_trainer, train_mod.SAETrainer = train_mod.SAETrainer, Trainer
+    try:
+        t0 = time.perf_counter()
+        (trainer,) = train_mod.main(["--config", str(path), "--layer", "encoder:0",
+                                     "--no-wandb"]).values()
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        train_mod.SAETrainer = cli_trainer
+    launches = {}
+    for w in a_entries:
+        launches[w.__name__] = w.launches
+        launches[w.__name__ + "_wide"] = w.wide_launches
+    launches.update(fused_topk_encode=cuda_sae.fused_topk_encode.launches,
+                    fused_topk_encode_blocked=cuda_sae.fused_topk_encode.blocked_launches,
+                    topk_mask=cuda_topk.topk_mask_fwd.launches,
+                    topk_mask_wide=cuda_topk.topk_mask_fwd.wide_launches)
+    log(f"  CLI trained {steps} steps at batch 128 (D={DS}, H={HS}, k={K}, AMP) in {train_s:.1f} s "
+        f"(cache load and setup included); launches {launches}, plain-version calls "
+        f"{dict(topk.plain_calls)}")
+    check(launches["fused_sae_loss_indexed"] == launches["fused_sae_loss_indexed_wide"] == windowed,
+          f"windowed launches {launches['fused_sae_loss_indexed']} (wide "
+          f"{launches['fused_sae_loss_indexed_wide']}) != {windowed} windowed steps")
+    check(launches["fused_sae_loss"] == launches["fused_sae_loss_wide"] == SMALL_EPOCHS,
+          f"sliced launches {launches['fused_sae_loss']} (wide {launches['fused_sae_loss_wide']}) "
+          f"!= {SMALL_EPOCHS} remainder steps")
+    check(sum(topk.plain_calls.values()) == 0, f"plain versions ran: {dict(topk.plain_calls)}")
+    check(trainer.num_resampled_total > 0 and launches["topk_mask_wide"] > 0
+          and launches["fused_topk_encode"] == 0,
+          "the resample did not run through kernel C's wide form")
+    rows = json.loads((trainer.run_dir / "metrics.json").read_text())
+    losses = np.array([r["loss"] for r in rows])
+    check(len(rows) == steps and bool(np.isfinite(losses).all()),
+          f"metrics: {len(rows)} rows, finite {bool(np.isfinite(losses).all())}")
+    first, last = float(losses[:50].mean()), float(losses[-50:].mean())
+    check(last < first, f"loss did not fall ({first:.5f} -> {last:.5f})")
+    with np.load(trainer.run_dir / "sae_final.npz") as z:
+        check(z["w_enc"].shape == (DS, HS), "sae_final.npz shapes")
+        check(all(bool(np.isfinite(z[n]).all()) for n in z.files), "non-finite parameters")
+        check(bool(np.allclose(np.linalg.norm(z["w_dec"], axis=1), 1.0, rtol=1e-5)),
+              "decoder rows are not unit norm")
+    log(f"  loss {first:.5f} -> {last:.5f} (means of 50 steps), every step one kernel-A launch on "
+        f"the wide route, resampled {trainer.num_resampled_total} features, decoder rows unit norm")
+    sae = sae_mod.load_trained_sae(trainer.run_dir).eval()
+    eval_against_cpu(sae, gaussian_rows(512, torch.Generator(device=dev).manual_seed(71), mix),
+                     sae_mod)
+    shutil.rmtree(work / "smcache", ignore_errors=True)
+    return {"trainer": trainer, "launches": launches, "losses": [first, last], "train_s": train_s,
+            "mix": mix}
+
+
+def wide_times(dev, cuda_sae, sae_mod, topk) -> dict:
+    """Phase 20c at whisper-small 8x, 128 / 4096 / 32768 rows: the wide
+    route (sliced and at an offset) and the composed route it replaces at
+    these widths (``topk_sae_apply``'s bf16 forward: the blocked encode,
+    the ``mm_f32`` decode, the loss) timed in turns, composed / wide /
+    wide / composed; the plain version, the bound, the bf16 encode GEMM
+    as the library yardstick, each launch's device ms."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    res: dict = {}
+    p = params(60, dev, DS, HS)
+    we_t, wd, b_out = cuda_sae._bf16_t(p["w_enc"]), p["w_dec"].bfloat16(), p["b_dec"] + p["b_pre"]
+    for b in WIDE_BATCHES:
+        gen = torch.Generator(device=dev).manual_seed(61 + b)
+        x = torch.randn(b, DS, generator=gen, device=dev)
+        buf = torch.cat([torch.randn_like(x), x, torch.randn_like(x)])
+        xc, w_bf = (x - p["b_pre"]).bfloat16(), p["w_enc"].bfloat16()
+        _, _, active, hid, _, _ = cuda_sae._fused_loss_launch(x, 0, b, we_t, p["b_enc"], p["b_pre"],
+                                                              wd, b_out, K, True)
+        nnz, n_active = int((hid > 0).sum()), int(active.sum())
+        # the select's passes on this pre (it stops at a count of exactly k)
+        passes = topk.cta_threshold(mm_f32(xc, we_t.t()) + p["b_enc"], K)[2].double()
+        # x, W_enc^T, the W_dec rows this batch selects, biases in; latent,
+        # residual, centred rows, counts out; the encode, the sparse decode, the select
+        nbytes = (b * DS * 4 + DS * HS * 2 + n_active * DS * 2 + (HS + 2 * DS) * 4
+                  + b * HS * 2 + b * DS * 4 + b * DS * 2 + (HS + 1) * 4)
+        bound_ms, by = bound(nbytes, 2 * b * DS * HS + 2 * nnz * DS,
+                             float(2 * passes.sum() * HS + b * HS))
+        wide = lambda: cuda_sae._fused_loss_launch(x, 0, b, we_t, p["b_enc"],  # noqa: E731
+                                                   p["b_pre"], wd, b_out, K, True)
+        with torch.no_grad():
+            composed = lambda: sae_mod.topk_sae_apply(p, x, K, torch.bfloat16)  # noqa: E731
+            turns = [time_ms(f) for f in (composed, wide, wide, composed)]
+        r = {
+            "ms": (turns[1] + turns[2]) / 2, "composed_ms": (turns[0] + turns[3]) / 2,
+            "turns_ms": turns,
+            "indexed_ms": time_ms(lambda: cuda_sae._fused_loss_launch(
+                buf, b, b, we_t, p["b_enc"], p["b_pre"], wd, b_out, K, True)),
+            "plain_ms": time_ms(lambda: cuda_sae.fused_sae_loss_plain(
+                x, we_t, p["b_enc"], p["b_pre"], wd, b_out, K), iters=5, warmup=1),
+            "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.matmul(xc, w_bf)),
+            "split_ms": launch_split(wide, WIDE_PARTS),
+            "select_passes_mean": float(passes.mean()),
+        }
+        res[b] = r
+        log(f"  wide route B={b:5d}: {r['ms']:.4f} ms (turns {turns[1]:.4f}, {turns[2]:.4f}), at an "
+            f"offset {r['indexed_ms']:.4f}; composed route {r['composed_ms']:.4f} (turns "
+            f"{turns[0]:.4f}, {turns[3]:.4f}); plain {r['plain_ms']:.4f}, bound {bound_ms:.4f} "
+            f"({by}), library {r['library_ms']:.4f}; device ms a call: "
+            + ", ".join(f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
+                        for k_, v in r["split_ms"].items()))
+        del x, buf, xc, hid
+    return res
+
+
+def wide_step_times(work: Path, dev, trainer, mix) -> dict:
+    """Phase 20c: a training step of phase 20b's SAE at the CLI's batch of
+    128 (100 windowed steps) and at 32768 (3), host clock and device busy."""
+    res = {"128": step_profile(trainer, gaussian_rows(
+        100 * 128, torch.Generator(device=dev).manual_seed(72), mix), 100)}
+    stepper = type(trainer)(trainer.model, trainer.config.model_copy(update={"batch_size": 32768}),
+                            run_dir=work / "smstep")
+    res["32768"] = step_profile(stepper, gaussian_rows(
+        3 * 32768, torch.Generator(device=dev).manual_seed(73), mix), 3)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3175,7 +3447,31 @@ def main() -> int:
                    cli_rows_differing=b19["rows_differing"], facades_max_abs_err=c19)
     del a19, b19
     log(f"  transcription: {json.dumps(summary)}")
-    log(f"  rows selecting differently from the plain version (phases 1, 8 and 11): "
+    log("phase 20: (a) kernel A's wide route against its plain version")
+    wide_errs = wide_kernel_phase(dev, cuda_sae)
+    log("  (b) the whisper-small 8x TopK SAE through the CLI")
+    path20 = small_path(work, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, cuda_topk, topk)
+    log("  (c) times at whisper-small 8x (library_ms: the bf16 encode GEMM, a yardstick, not an "
+        "equivalent; composed_ms: the route the wide one replaces at these widths)")
+    wtimes = wide_times(dev, cuda_sae, sae_mod, topk)
+    wsteps = wide_step_times(work, dev, path20["trainer"], path20["mix"])
+    for name, key, replaces in (("fused_sae_loss", "ms", ":249"),
+                                ("fused_sae_loss_indexed", "indexed_ms", ":424")):
+        at = {b: {"ms": wtimes[b][key], **{k_: wtimes[b][k_] for k_ in (
+            "composed_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}} for b in WIDE_BATCHES}
+        kernels.append({
+            "name": f"{name}_wide", "route": "cuda", "source": SOURCE,
+            "sources": [SOURCE, SELECT_SOURCE, GEMM_SOURCE],
+            "replaces": f"src/whisper_sae_tpu/ops/pallas_sae.py{replaces}",
+            "launches": path20["launches"][f"{name}_wide"], "max_abs_err": wide_errs[f"{name}_wide"],
+            **at[4096], "batch": 4096, "geometry": {"d": DS, "h": HS, "k": K},
+            **{f"at_batch_{b}": at[b] for b in WIDE_BATCHES if b != 4096},
+            "split_ms": {str(b): wtimes[b]["split_ms"] for b in WIDE_BATCHES},
+            "route_launches": list(WIDE_PARTS.values()),
+        })
+        check(kernels[-1]["launches"] > 0, f"{name}_wide: no launch on the whisper-small path")
+    log(f"  whisper-small slice: {json.dumps({'steps': wsteps, 'losses': path20['losses'], 'train_s': path20['train_s'], 'turns_ms': {b: wtimes[b]['turns_ms'] for b in WIDE_BATCHES}, 'select_passes_mean': {b: wtimes[b]['select_passes_mean'] for b in WIDE_BATCHES}})}")
+    log(f"  rows selecting differently from the plain version (phases 1, 8, 11 and 20): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
     log(f"  decoded tokens differing from their reference (phase 19): "

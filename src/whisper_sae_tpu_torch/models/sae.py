@@ -11,7 +11,9 @@ so the two packages compare like with like:
 Dispatch follows the geometry, as in the JAX package (``models/sae.py:
 229-246``), with the port's kernel limits as gates: a bf16
 ``topk_sae_loss`` is kernel A (``ops.cuda_sae.fused_sae_loss``) where
-``fused_loss_supported`` holds (D <= 384, H <= 3072), else the composed
+``fused_loss_supported`` holds (the JAX package's budget: bf16 W_enc +
+W_dec within 48 MiB, H <= 40960; kernel A's wide route above D = 384 or
+H = 3072), else (whisper-large) the composed
 ``topk_sae_apply``; a bf16 ``topk_hidden_dense`` is ``fused_topk_encode``
 (kernel B, or the blocked encode at larger geometries such as
 whisper-large 32x); an f32 ``topk_hidden_dense`` is an f32 product (TF32

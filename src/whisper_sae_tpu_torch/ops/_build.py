@@ -28,10 +28,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
 # pins them to wst_max_d(), wst_max_row_width(), wst_max_wide_row_width(),
 # wst_rows_per_cta() and wst_sae_topk_encode_chunk_rows()).
-MAX_D = 384  # kernel A's decode keeps D/32 f32 sums a lane
+MAX_D = 384  # kernel A's warp form decodes D in one pass, D/32 f32 sums a lane
 SEL_ROWS = 4  # rows (one a warp) a CTA of the select-and-decode kernels: one sq partial each
 MAX_ROW = 3072  # one warp holds a row in registers: kernels A, B, C and the coder kernel
-MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, wide kernel C
+MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, wide kernels A and C
 BLOCKED_CHUNK_ROWS = 2048  # rows of a chunk of the blocked encode
 PRE_BUDGET = BLOCKED_CHUNK_ROWS * MAX_WIDE_ROW * 4  # bytes of a chunk's f32 pre at most
 
@@ -56,6 +56,12 @@ _SIGNATURES = {
     "wst_max_d": ([], _I),
     "wst_rows_per_cta": ([], _I),
     "wst_sae_fused_loss_fwd": (
+        [_P, _I, ctypes.c_longlong, _I, _I, _I, _I,   # x, x_bf16, off, rows, d, h, k
+         _P, _P, _P, _P, _P,                         # w_enc_t, b_enc, b_pre, w_dec, b_out
+         _P, _P, _P, _P, _P, _P, _P, _P, _P],        # hid, resid, xc, pre, partial, counts, loss, l0, stream
+        _I,
+    ),
+    "wst_sae_fused_loss_wide_fwd": (
         [_P, _I, ctypes.c_longlong, _I, _I, _I, _I,   # x, x_bf16, off, rows, d, h, k
          _P, _P, _P, _P, _P,                         # w_enc_t, b_enc, b_pre, w_dec, b_out
          _P, _P, _P, _P, _P, _P, _P, _P, _P],        # hid, resid, xc, pre, partial, counts, loss, l0, stream

@@ -57,6 +57,22 @@
 // TPU kernel keeps in VMEM.  Keeping it on chip needs a cluster holding a
 // 64-row tile's pre (768 KB f32) across DSMEM.
 //
+// A's wide route ("sae_fused_loss_wide_fwd"), the same function at every
+// geometry the JAX package fuses (bf16 W_enc + W_dec within its 48 MiB
+// VMEM budget: whisper-base to -medium 8x, whisper-tiny up to 64x), where
+// a row of pre outgrows a warp's registers (H > 3072) or the decode one
+// pass (D > 384): sae_centre_kernel over all rows, then per chunk of
+// rows whose f32 pre fits the blocked encode's budget (kernel B's chunk:
+// 13,568 rows at H = 6144) the kPre encode and
+// sae_select_decode_wide_kernel<N> (one CTA of 512 threads a row: the CTA
+// select of topk_common.cuh, the list in feature order, the warps over
+// D in 32-column tiles), then sae_loss_finalize_kernel over one partial
+// a row.  Bound at whisper-small 8x (D=768, H=6144, k=32, B=4096): the
+// encode's 2*B*D*H = 38.7 GFLOP (0.039 ms) against ~100 MB of x, the
+// latent, resid, xc and both weights (0.030 ms): operations.  The route
+// adds the f32 pre's round trip (2*4*B*H = 201 MB, 0.060 ms), as the
+// warp form does.
+//
 // Cross-CTA reductions: CTAs run concurrently (unlike the TPU grid's
 // read-modify-write accumulation, pallas_sae.py:213-223), so l0 and
 // active use int32 atomics (order-free, deterministic) and sum(resid^2)
@@ -71,6 +87,10 @@
 #include "encoder_gemm.cuh"
 #include "select_decode.cuh"
 #include "topk_common.cuh"
+
+// blocked_encode.cu: the rows of a chunk whose f32 pre fits the blocked
+// encode's budget at width h (kernel B's chunk; kernel A's wide route's)
+extern "C" int wst_sae_topk_encode_chunk_rows(int h);
 
 namespace wst {
 
@@ -103,12 +123,12 @@ struct LossArgs {
   int x_bf16;
   long long row_offset;      // first row of this batch in x
   int rows, d, h, k;
-  const float* pre;          // [rows, h] f32: xc @ W_enc + b_enc
+  const float* pre;          // [rows, h] f32: xc @ W_enc + b_enc (wide: the chunk's rows)
   const unsigned short* w_dec;  // [h, d] bf16
   const float* b_out;        // [d] = b_dec + b_pre
   unsigned short* hidden;    // [rows, h] bf16
   float* resid;              // [rows, d]
-  float* sq_partial;         // [gridDim.x]
+  float* sq_partial;         // [gridDim.x] (wide: [rows], one a row)
   int* counts;               // [1 + h]: l0, active (zeroed)
 };
 
@@ -154,6 +174,62 @@ __global__ void __launch_bounds__(kSelThreads, 4) sae_select_decode_kernel(LossA
     for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
   }
   cta_partial(sq, nsel, a.sq_partial, a.counts);
+}
+
+// Kernel A's wide form: one CTA a row of a chunk, for rows wider than a
+// warp's registers or outputs wider than one decode pass.  Block b takes
+// row row0 + b of the batch (pre holds the chunk's rows from row0): the
+// threshold over the row in registers (cta_kth_largest), the latent and
+// the list of selections in feature order (cta_select_to_list), the
+// decode with the warps over D in 32-column tiles, each column summed in
+// list order as the warp form sums it; then sq_partial[row0 + b] = the
+// row's sum(resid^2) (each warp's tiles in order, the warps in order),
+// and its selections added to l0 (int32).  Dynamic shared memory holds
+// the list (h entries at most).
+template <int N>
+__global__ void __launch_bounds__(kWideThreads, N <= 16 ? 2 : 1)
+    sae_select_decode_wide_kernel(LossArgs a, int row0) {
+  extern __shared__ unsigned int wide_list[];
+  __shared__ int warp_cnt[2][kWideWarps];
+  __shared__ WideSelScratch<N> sc;
+  __shared__ float warp_sq[kWideWarps];
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const size_t g = (size_t)row0 + blockIdx.x;
+  int xi[N];
+  load_wide_monotone(a.pre + (size_t)blockIdx.x * a.h, a.h, xi);
+  const int th = cta_kth_largest(xi, a.k, warp_cnt);
+  const int nsel = cta_select_to_list(xi, th, a.h, a.hidden + g * a.h, a.counts + 1, wide_list, sc);
+
+  int t0, t1;
+  wide_tiles(a.d / kWarp, warp, t0, t1);
+  const size_t src = (size_t)(a.row_offset + (long long)g) * a.d;
+  float sq = 0.0f;
+  for (int tb = t0; tb < t1; tb += kWideDecTiles) {
+    const int nt = min(kWideDecTiles, t1 - tb);
+    float acc[kWideDecTiles];
+#pragma unroll
+    for (int t = 0; t < kWideDecTiles; ++t) acc[t] = 0.0f;
+    sparse_decode(wide_list, nsel, a.w_dec, a.d, tb * kWarp, nt, lane, acc);
+#pragma unroll
+    for (int t = 0; t < kWideDecTiles; ++t) {
+      if (t < nt) {
+        const int c = (tb + t) * kWarp + lane;
+        const float res = (acc[t] + a.b_out[c]) - load_x(a.x, a.x_bf16, src + c);
+        a.resid[g * a.d + c] = res;
+        sq = fmaf(res, res, sq);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  if (lane == 0) warp_sq[warp] = sq;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < kWideWarps; ++w) total += warp_sq[w];
+    a.sq_partial[g] = total;
+    atomicAdd(a.counts, nsel);
+  }
 }
 
 // loss = sum(partials) / (rows * d) and l0 = count / rows, summed in a
@@ -284,6 +360,65 @@ int wst_sae_fused_loss_fwd(const void* x, int x_bf16, long long row_offset, int 
   if (err) return err;
   wst::sae_loss_finalize_kernel<<<1, wst::kFinalizeThreads, 0, s>>>(
       static_cast<const float*>(sq_partial), blocks, static_cast<const int*>(counts), rows, d,
+      static_cast<float*>(loss), static_cast<float*>(l0));
+  return (int)cudaGetLastError();
+}
+
+// Kernel A's wide route (d and h multiples of 32, h <=
+// wst_max_wide_row_width(), any d): the centre of every row into xc, then
+// per chunk of wst_sae_topk_encode_chunk_rows(h) rows the encode (the
+// GEMM's kPre epilogue into ``pre``, an f32 [min(rows, chunk), h]
+// workspace) and sae_select_decode_wide_kernel, then the fixed-order
+// finalize over the rows' partials (sq_partial: [rows]).
+int wst_sae_fused_loss_wide_fwd(const void* x, int x_bf16, long long row_offset, int rows, int d,
+                                int h, int k, const void* w_enc_t, const void* b_enc,
+                                const void* b_pre, const void* w_dec, const void* b_out,
+                                void* hidden, void* resid, void* xc, void* pre, void* sq_partial,
+                                void* counts, void* loss, void* l0, void* stream) {
+  if (rows <= 0 || d <= 0 || d % wst::kWarp || h <= 0 || h % wst::kWarp ||
+      h > wst::kMaxWideRow || k < 1 || k > h)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = wst_sae_centre_fwd(x, x_bf16, row_offset, rows, d, b_pre, xc, stream);
+  if (err) return err;
+  const wst::LossArgs a{x,
+                        x_bf16,
+                        row_offset,
+                        rows,
+                        d,
+                        h,
+                        k,
+                        static_cast<const float*>(pre),
+                        static_cast<const unsigned short*>(w_dec),
+                        static_cast<const float*>(b_out),
+                        static_cast<unsigned short*>(hidden),
+                        static_cast<float*>(resid),
+                        static_cast<float*>(sq_partial),
+                        static_cast<int*>(counts)};
+  const int smem = h * (int)sizeof(unsigned int);
+#define WST_WIDE_SMEM(N)                                                                   \
+  err = (int)cudaFuncSetAttribute(wst::sae_select_decode_wide_kernel<N>,                   \
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+  WST_WIDE_DISPATCH(h, WST_WIDE_SMEM)
+#undef WST_WIDE_SMEM
+  if (err) return err;
+  const int chunk = wst_sae_topk_encode_chunk_rows(h);
+  for (int row0 = 0; row0 < rows; row0 += chunk) {
+    const int n = rows - row0 < chunk ? rows - row0 : chunk;
+    // the chunk's centred rows: 16-byte aligned (row0 * d * 2 is a multiple of 64), as TMA reads them
+    err = wst_enc_gemm_fwd(wst_gemm::kPre, static_cast<unsigned short*>(xc) + (size_t)row0 * d,
+                           w_enc_t, n, h, d, b_enc, 1.0f, 0, pre, nullptr, nullptr, nullptr,
+                           stream);
+    if (err) return err;
+#define WST_LAUNCH_WIDE(N) \
+  wst::sae_select_decode_wide_kernel<N><<<n, wst::kWideThreads, smem, s>>>(a, row0)
+    WST_WIDE_DISPATCH(h, WST_LAUNCH_WIDE)
+#undef WST_LAUNCH_WIDE
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  wst::sae_loss_finalize_kernel<<<1, wst::kFinalizeThreads, 0, s>>>(
+      static_cast<const float*>(sq_partial), rows, static_cast<const int*>(counts), rows, d,
       static_cast<float*>(loss), static_cast<float*>(l0));
   return (int)cudaGetLastError();
 }

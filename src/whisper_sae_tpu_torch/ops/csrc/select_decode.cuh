@@ -1,5 +1,6 @@
-// The select-and-sparse-decode steps shared by kernel A's row kernel
-// (sae_kernels.cu: sae_select_decode_kernel) and the coder's TopK modes
+// The select-and-sparse-decode steps shared by kernel A's row kernels
+// (sae_kernels.cu: sae_select_decode_kernel and its wide form) and the
+// coder's TopK modes
 // (coder_kernels.cu: coder_select_decode_kernel).
 //
 // One warp owns one row.  After the threshold (topk_common.cuh), the warp
@@ -11,6 +12,17 @@
 // zeros.  A lane keeps kDecTiles f32 sums, so one call decodes at most
 // kDecCols columns; wider outputs (the crosscoder's L*D = 1536) are
 // decoded in passes of kDecCols columns over the same list.
+//
+// Rows wider than a warp's registers (H > kMaxRow) and outputs wider than
+// one pass (D > kDecCols) take the CTA-per-row form (kernel A's
+// sae_select_decode_wide_kernel): one CTA of kWideThreads threads owns
+// the row (topk_common.cuh: cta_kth_largest), cta_select_to_list
+// compacts its positive selections into one list in shared memory, in
+// feature order, and the CTA's warps split the output columns into
+// 32-column tiles (wide_tiles), each summing its tiles over the whole
+// list with sparse_decode.  A column's sum is the same fmaf chain in list
+// order as the warp form's, so the two forms give the same bits where
+// both hold the geometry.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -62,28 +74,29 @@ __device__ __forceinline__ int select_to_list(const int (&xi)[N], int th, int h,
 }
 
 // acc[t] += sum over the list of hid_j * w[j, col0 + t*kWarp + lane] for t
-// < nt (w: [h, ld] bf16 rows), each sum in list order.  Every load of a
-// step is issued before its sums, unconditionally (tiles past nt read
-// tile 0 and are not summed): a load under a branch on nt waits for the
-// sums before it, one latency each.
+// < nt <= NT (w: [h, ld] bf16 rows), each sum in list order.  Every load
+// of a step is issued before its sums, unconditionally (tiles past nt
+// read tile 0 and are not summed): a load under a branch on nt waits for
+// the sums before it, one latency each.
+template <int NT>
 __device__ __forceinline__ void sparse_decode(const unsigned int* list, int nsel,
                                               const unsigned short* w, int ld, int col0, int nt,
-                                              int lane, float (&acc)[kDecTiles]) {
+                                              int lane, float (&acc)[NT]) {
   const unsigned short* base = w + col0 + lane;
   int s = 0;
   for (; s + kDecUnroll <= nsel; s += kDecUnroll) {
     float hv[kDecUnroll];
-    unsigned short wv[kDecUnroll][kDecTiles];
+    unsigned short wv[kDecUnroll][NT];
 #pragma unroll
     for (int u = 0; u < kDecUnroll; ++u) {
       const unsigned int e = list[s + u];
       hv[u] = bf16_bits_to_float(static_cast<unsigned short>(e & 0xffffu));
       const unsigned short* wr = base + (size_t)(e >> 16) * ld;
 #pragma unroll
-      for (int t = 0; t < kDecTiles; ++t) wv[u][t] = __ldg(wr + (t < nt ? t : 0) * kWarp);
+      for (int t = 0; t < NT; ++t) wv[u][t] = __ldg(wr + (t < nt ? t : 0) * kWarp);
     }
 #pragma unroll
-    for (int t = 0; t < kDecTiles; ++t) {
+    for (int t = 0; t < NT; ++t) {
 #pragma unroll
       for (int u = 0; u < kDecUnroll; ++u)
         if (t < nt) acc[t] = fmaf(hv[u], bf16_bits_to_float(wv[u][t]), acc[t]);
@@ -93,11 +106,11 @@ __device__ __forceinline__ void sparse_decode(const unsigned int* list, int nsel
     const unsigned int e = list[s];
     const float hv = bf16_bits_to_float(static_cast<unsigned short>(e & 0xffffu));
     const unsigned short* wr = base + (size_t)(e >> 16) * ld;
-    unsigned short wv[kDecTiles];
+    unsigned short wv[NT];
 #pragma unroll
-    for (int t = 0; t < kDecTiles; ++t) wv[t] = __ldg(wr + (t < nt ? t : 0) * kWarp);
+    for (int t = 0; t < NT; ++t) wv[t] = __ldg(wr + (t < nt ? t : 0) * kWarp);
 #pragma unroll
-    for (int t = 0; t < kDecTiles; ++t)
+    for (int t = 0; t < NT; ++t)
       if (t < nt) acc[t] = fmaf(hv, bf16_bits_to_float(wv[t]), acc[t]);
   }
 }
@@ -125,6 +138,85 @@ __device__ __forceinline__ void cta_partial(float sq, int nsel, float* sq_partia
     sq_partial[blockIdx.x] = total;
     atomicAdd(l0, n);
   }
+}
+
+// -- the CTA-per-row form -------------------------------------------------
+
+constexpr int kWideDecTiles = 2;  // 32-column tiles a warp of the wide decode sums at once
+
+// cta_select_to_list's shared scratch for a row of N values a thread:
+// each warp's count of positive selections at each j, then their
+// exclusive prefix in (j, warp) order, and the total.
+template <int N>
+struct WideSelScratch {
+  int cnt[N * kWideWarps + 1];
+};
+
+// select_to_list over a row spread across the CTA (thread t holds element
+// c = j*kWideThreads + t, as load_wide_monotone loads it; every thread of
+// the CTA calls it): the latent to hidden_row[0:h), active[c] = 1 for
+// each positive selection, and those selections to list as (feature <<
+// 16 | bf16 bits) in feature order.  Feature order is (j, warp, lane)
+// order, so (1) each warp counts its positives at each j with a ballot,
+// (2) warp 0 takes the exclusive prefix of those counts in (j, warp)
+// order, and (3) each positive lands at its (j, warp) offset plus its
+// rank in the warp's ballot.  Returns the count (the same in every
+// thread); the list is complete for the CTA on return.
+template <int N>
+__device__ __forceinline__ int cta_select_to_list(const int (&xi)[N], int th, int h,
+                                                  unsigned short* hidden_row, int* active,
+                                                  unsigned int* list, WideSelScratch<N>& sc) {
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = j * kWideThreads + threadIdx.x;
+    const unsigned int m = __ballot_sync(0xffffffffu, c < h && masked_relu(xi[j], th) > 0.0f);
+    if (lane == 0) sc.cnt[j * kWideWarps + warp] = __popc(m);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int carry = 0;
+#pragma unroll 1
+    for (int i0 = 0; i0 < N * kWideWarps; i0 += kWarp) {  // N * kWideWarps: a multiple of 32
+      const int v = sc.cnt[i0 + lane];
+      int incl = v;
+#pragma unroll
+      for (int off = 1; off < kWarp; off <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, off);
+        if (lane >= off) incl += u;
+      }
+      sc.cnt[i0 + lane] = carry + incl - v;
+      carry += __shfl_sync(0xffffffffu, incl, kWarp - 1);
+    }
+    if (lane == 0) sc.cnt[N * kWideWarps] = carry;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int c = j * kWideThreads + threadIdx.x;
+    const float v = c < h ? masked_relu(xi[j], th) : 0.0f;
+    const unsigned short bits = float_to_bf16_bits(v);
+    if (c < h) hidden_row[c] = bits;
+    const bool pos = v > 0.0f;
+    const unsigned int m = __ballot_sync(0xffffffffu, pos);
+    if (pos) {
+      list[sc.cnt[j * kWideWarps + warp] + __popc(m & ((1u << lane) - 1u))] =
+          (static_cast<unsigned int>(c) << 16) | bits;
+      atomicOr(&active[c], 1);
+    }
+  }
+  const int nsel = sc.cnt[N * kWideWarps];
+  __syncthreads();
+  return nsel;
+}
+
+// The 32-column tiles [t0, t1) of an output of ntiles tiles that warp
+// ``warp`` of a CTA-per-row kernel decodes: contiguous runs of
+// ceil(ntiles / kWideWarps) tiles, the last warps' runs short or empty.
+__device__ __forceinline__ void wide_tiles(int ntiles, int warp, int& t0, int& t1) {
+  const int per = (ntiles + kWideWarps - 1) / kWideWarps;
+  t0 = min(warp * per, ntiles);
+  t1 = min(t0 + per, ntiles);
 }
 
 }  // namespace wst

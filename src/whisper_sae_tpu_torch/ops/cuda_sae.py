@@ -28,19 +28,28 @@ fits the blocked encode's budget (:func:`_build.topk_encode_chunk_rows`:
 27,264 at H = 3072).  The blocked encode replaces
 ``_encode_forward_blocked`` (:1392), the branch of ``fused_topk_encode``
 for geometries whose weights do not fit on chip; its select is one CTA
-a row, its chunk 2048 rows, and W_enc streams once a chunk.  Kernels A
-and B hold a row of pre in one warp's registers and kernel A's decode
-keeps D/32 sums a lane, so they take D % 32 == 0, D <= 384 and H <= 3072
-(:func:`fused_loss_supported`); every other geometry takes the blocked
-encode (:func:`uses_blocked`), and the SAE loss is then composed around
-it (``models/sae.py``), as the JAX package composes it
-(``models/sae.py:229-246``).  These gates are the port's kernel limits,
-not the TPU's VMEM budgets.
+a row, its chunk 2048 rows, and W_enc streams once a chunk.  Kernel B
+and kernel A's warp form hold a row of pre in one warp's registers and
+A's decode keeps D/32 sums a lane, so they take D % 32 == 0, D <= 384
+and H <= 3072 (:func:`row_kernels_hold`); the top-k encode takes the
+blocked encode at every other geometry (:func:`uses_blocked`).  Kernel A
+also has a wide route, ``sae_fused_loss_wide_fwd``: the centre, then per
+chunk of kernel B's rows the kPre encode and
+``sae_select_decode_wide_kernel`` (one CTA a row, the decode's warps
+over D in 32-column tiles), then the finalize over one partial a row.
+Kernel A takes every geometry the JAX package fuses
+(:func:`fused_loss_supported`: bf16 W_enc + W_dec within its 48 MiB,
+``pallas_sae.py:359-365``), through its warp form where
+:func:`row_kernels_hold`, else through the wide route; beyond that budget
+(whisper-large) the SAE loss is composed around the blocked encode
+(``models/sae.py``), as the JAX package composes it
+(``models/sae.py:229-246``).
 
 Bounds on the H100: A and B at whisper-tiny (D=384, H=3072) by the bytes
-they must move (the notes in ``csrc/sae_kernels.cu`` and
-``csrc/blocked_encode.cu``); the blocked encode at whisper-large 32x by
-operations (``csrc/blocked_encode.cu``).
+they must move, A's wide route at whisper-small 8x by operations (the
+notes in ``csrc/sae_kernels.cu`` and ``csrc/blocked_encode.cu``); the
+blocked encode at whisper-large 32x by operations
+(``csrc/blocked_encode.cu``).
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain PyTorch version beside it only for CPU tensors, counted in
@@ -61,15 +70,31 @@ from . import _build
 from .topk import cta_threshold, plain_calls, topk_mask_plain
 
 
+# bf16 W_enc + W_dec at most: the JAX package's budget for the fused
+# training forward (``pallas_sae.py:_MAX_W_VMEM_BYTES``, :1428), kept so
+# that the port fuses where the JAX package fuses
+FUSED_W_BYTES = 48 * 1024 * 1024
+
+
 def fused_loss_supported(d: int, h: int) -> bool:
-    """Kernels A and B hold the geometry: D a multiple of 32 up to 384,
-    H a multiple of 32 up to 3072."""
+    """Kernel A takes the geometry (``pallas_sae.py:fused_loss_supported``):
+    D and H multiples of 32, bf16 W_enc + W_dec within ``FUSED_W_BYTES``,
+    H within the CTA select's row (whisper-tiny to 64x, base 8x and 32x,
+    small 8x and 16x, medium 8x; not whisper-large)."""
+    return (d % 32 == 0 and h % 32 == 0 and 4 * d * h <= FUSED_W_BYTES
+            and h <= _build.MAX_WIDE_ROW)
+
+
+def row_kernels_hold(d: int, h: int) -> bool:
+    """Kernel B and kernel A's warp form hold the geometry: D a multiple
+    of 32 up to 384 (kernel A's one decode pass), H a multiple of 32 up to
+    3072 (a row in one warp's registers)."""
     return d % 32 == 0 and h % 32 == 0 and d <= _build.MAX_D and h <= _build.MAX_ROW
 
 
 def uses_blocked(d: int, h: int) -> bool:
     """The top-k encode takes the blocked kernel (``pallas_sae.py:69-75``)."""
-    return not fused_loss_supported(d, h)
+    return not row_kernels_hold(d, h)
 
 
 def _bf16_t(w_enc: torch.Tensor) -> torch.Tensor:
@@ -96,6 +121,17 @@ def _check_geometry(x: torch.Tensor, d: int, h: int, k: int) -> ctypes.CDLL:
         raise ValueError(
             f"the SAE kernels take H a multiple of 32 and <= {lib.wst_max_row_width()} (got {h})"
         )
+    return lib
+
+
+def _check_wide_geometry(x: torch.Tensor, d: int, h: int, k: int, what: str) -> ctypes.CDLL:
+    """The CTA-per-row routes' limits (kernel A's wide route, the blocked
+    encode): D and H multiples of 32, H up to ``wst_max_wide_row_width()``."""
+    lib = _build.load_library()
+    _check_rows(x, d, h, k)
+    if d % 32 or h % 32 or h > lib.wst_max_wide_row_width():
+        raise ValueError(f"{what} takes D and H multiples of 32 and H <= "
+                         f"{lib.wst_max_wide_row_width()} (got D={d}, H={h})")
     return lib
 
 
@@ -134,10 +170,13 @@ def fused_sae_loss_plain(x, we_t, b_enc, b_pre, wd_bf, b_out, k):
     return loss, l0, pos.any(dim=0), hid, resid, xc
 
 
-def _fused_loss_launch(data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out, k):
-    """Kernel A on ``data[row_offset : row_offset + rows]`` (CUDA only)."""
+def _fused_loss_launch(data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out, k, wide=False):
+    """Kernel A on ``data[row_offset : row_offset + rows]`` (CUDA only): its
+    warp form, or with ``wide`` its CTA-per-row route, which takes any D
+    and H multiples of 32 up to ``wst_max_wide_row_width()``."""
     h, d = we_t.shape
-    lib = _check_geometry(data, d, h, k)
+    lib = (_check_wide_geometry(data, d, h, k, "kernel A's wide route") if wide
+           else _check_geometry(data, d, h, k))
     if not 0 < rows or row_offset < 0 or row_offset + rows > data.shape[0]:
         raise ValueError(f"window [{row_offset}, {row_offset + rows}) outside {data.shape[0]} rows")
     dev = data.device
@@ -146,22 +185,27 @@ def _fused_loss_launch(data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out,
                     b_enc=(b_enc, f32, (h,)), b_pre=(b_pre, f32, (d,)), b_out=(b_out, f32, (d,)))
     if we_t.data_ptr() % 16:  # read by TMA
         raise ValueError("sae_fused_loss_fwd: w_enc_t must be 16-byte aligned")
-    blocks = -(-rows // lib.wst_rows_per_cta())
+    if wide:  # one loss partial a row; the encode's workspace holds one chunk
+        partials, pre_rows = rows, min(rows, lib.wst_sae_topk_encode_chunk_rows(h))
+        fwd, what = lib.wst_sae_fused_loss_wide_fwd, "sae_fused_loss_wide_fwd"
+    else:  # one loss partial a CTA
+        partials, pre_rows = -(-rows // lib.wst_rows_per_cta()), rows
+        fwd, what = lib.wst_sae_fused_loss_fwd, "sae_fused_loss_fwd"
     hid = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
     resid = torch.empty((rows, d), dtype=torch.float32, device=dev)
     xc = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)
-    partial = torch.empty((blocks,), dtype=torch.float32, device=dev)
-    pre = torch.empty((rows, h), dtype=torch.float32, device=dev)  # the encode's workspace
+    partial = torch.empty((partials,), dtype=torch.float32, device=dev)
+    pre = torch.empty((pre_rows, h), dtype=torch.float32, device=dev)  # the encode's workspace
     counts = torch.zeros((1 + h,), dtype=torch.int32, device=dev)
     loss = torch.empty((), dtype=torch.float32, device=dev)
     l0 = torch.empty((), dtype=torch.float32, device=dev)
-    err = lib.wst_sae_fused_loss_fwd(
+    err = fwd(
         data.data_ptr(), int(data.dtype == torch.bfloat16), row_offset, rows, d, h, k,
         we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(), wd_bf.data_ptr(), b_out.data_ptr(),
         hid.data_ptr(), resid.data_ptr(), xc.data_ptr(), pre.data_ptr(), partial.data_ptr(),
         counts.data_ptr(), loss.data_ptr(), l0.data_ptr(), _stream(dev),
     )
-    _build.check(err, "sae_fused_loss_fwd")
+    _build.check(err, what)
     return loss, l0, counts[1:] > 0, hid, resid, xc
 
 
@@ -172,10 +216,12 @@ class _FusedLoss(torch.autograd.Function):
         wd_bf = w_dec.detach().to(torch.bfloat16)
         b_out = b_dec + b_pre
         if data.device.type == "cuda":
+            wide = not row_kernels_hold(*w_enc.shape)
             loss, l0, active, hid, resid, xc = _fused_loss_launch(
-                data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out, k
+                data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out, k, wide
             )
             entry.launches += 1
+            entry.wide_launches += int(wide)
         elif data.device.type == "cpu":
             plain_calls[entry.__name__] += 1
             loss, l0, active, hid, resid, xc = fused_sae_loss_plain(
@@ -220,7 +266,9 @@ def fused_sae_loss(x, w_enc, b_enc, b_pre, w_dec, b_dec, k):
     loss = mean((topk_mask(relu(bf16(x - b_pre) @ W_enc + b_enc)) @ W_dec
     + b_dec + b_pre - x)^2) with the decode consuming the bf16 latent;
     l0 = mean active count per row; active = any-over-batch per feature.
-    Launches are counted in ``fused_sae_loss.launches``."""
+    Kernel A's warp form where :func:`row_kernels_hold`, else its wide
+    route.  Launches are counted in ``fused_sae_loss.launches``, those of
+    the wide route also in ``fused_sae_loss.wide_launches``."""
     return _FusedLoss.apply(
         x, 0, x.shape[0], w_enc, b_enc, b_pre, w_dec, b_dec, k, fused_sae_loss
     )
@@ -230,15 +278,15 @@ def fused_sae_loss_indexed(data, step, w_enc, b_enc, b_pre, w_dec, b_dec, k, bat
     """:func:`fused_sae_loss` over ``data[step*batch : (step+1)*batch]``,
     read by the kernel at a row offset into the epoch buffer (no slice is
     copied).  ``data`` is not differentiated.  Launches are counted in
-    ``fused_sae_loss_indexed.launches``."""
+    ``fused_sae_loss_indexed.launches`` (and ``.wide_launches``)."""
     return _FusedLoss.apply(
         data, int(step) * batch, batch, w_enc, b_enc, b_pre, w_dec, b_dec, k,
         fused_sae_loss_indexed,
     )
 
 
-fused_sae_loss.launches = 0
-fused_sae_loss_indexed.launches = 0
+fused_sae_loss.launches = fused_sae_loss.wide_launches = 0
+fused_sae_loss_indexed.launches = fused_sae_loss_indexed.wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -310,11 +358,7 @@ def _blocked_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
     """The blocked encode (CUDA only), chunk by chunk through one workspace
     (a chunk's f32 pre and centred bf16 rows), allocated once a call."""
     h, d = we_t.shape
-    lib = _build.load_library()
-    _check_rows(x, d, h, k)
-    if d % 32 or h % 32 or h > lib.wst_max_wide_row_width():
-        raise ValueError(f"the blocked encode takes D and H multiples of 32 and H <= "
-                         f"{lib.wst_max_wide_row_width()} (got D={d}, H={h})")
+    lib = _check_wide_geometry(x, d, h, k, "the blocked encode")
     hidden = _encode_call(lib.wst_blocked_encode_fwd, lib.wst_blocked_workspace_bytes,
                           "blocked_encode_fwd", x, we_t, b_enc, b_pre, k, out_dtype)
     if x.shape[0]:

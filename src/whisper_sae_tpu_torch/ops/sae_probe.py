@@ -6,7 +6,12 @@ Times ``cuda_sae._fused_loss_launch`` (kernel A, sliced), kernel B's
 whisper-tiny's width (D=384, H=3072, k=32) on 128, 4096 and 32768 rows of
 seeded gaussian data, each over 20 launches between CUDA events after 3
 warm ones, and kernel B's device ms a call by kernel under
-``torch.profiler`` (``fused_topk_encode_split``); then, at whisper-large 32x (D=1280, H=40960, k=32, 8192 rows),
+``torch.profiler`` (``fused_topk_encode_split``); then kernel A's wide
+route at whisper-small 8x (D=768, H=6144, k=32; 128, 4096 and 32768 rows)
+in turns with the composed route it replaces there (``topk_sae_apply``'s
+bf16 forward: the blocked encode, the ``mm_f32`` decode, the loss):
+composed / wide / wide / composed, and each of the wide route's launches'
+device ms (``fused_sae_loss_wide_split``); then, at whisper-large 32x (D=1280, H=40960, k=32, 8192 rows),
 the blocked encode (``_blocked_encode_launch``, bf16 latent) and kernel
 C's wide form (``topk_mask_fwd`` on an f32 [8192, 40960] pre) over 10
 launches after 2 warm ones, and the wall time of a TopK-SAE training step
@@ -31,11 +36,12 @@ import torch
 from . import _build, _probe, cuda_sae, cuda_topk
 from ._probe import device_split, step_ms, time_ms
 from ..config import SAEConfig, TrainingConfig
-from ..models.sae import create_sae
+from ..models.sae import create_sae, topk_sae_apply
 from ..training.trainer import SAETrainer
 
 D, H, K = 384, 3072, 32
 ROWS = (128, 4096, 32768)
+DS, HS = 768, 6144  # whisper-small 8x: kernel A's wide route
 DL, HL, BL = 1280, 40960, 8192  # whisper-large 32x at bench.py's batch
 LARGE_STEPS = 3
 
@@ -67,6 +73,26 @@ def main() -> None:
             "fused_topk_encode_split": device_split(encode),
         }
     del x, pre
+
+    gs = torch.Generator(device=dev).manual_seed(2)
+    ps = {"w_enc": torch.randn(DS, HS, generator=gs, device=dev) * 0.05,
+          "b_enc": torch.randn(HS, generator=gs, device=dev) * 0.05,
+          "b_pre": torch.randn(DS, generator=gs, device=dev) * 0.05,
+          "w_dec": torch.randn(HS, DS, generator=gs, device=dev) * 0.05,
+          "b_dec": torch.randn(DS, generator=gs, device=dev) * 0.05}
+    we_t, wd, b_out = cuda_sae._bf16_t(ps["w_enc"]), ps["w_dec"].bfloat16(), ps["b_dec"] + ps["b_pre"]
+    for rows in ROWS:
+        x = torch.randn(rows, DS, generator=gs, device=dev)
+        wide = lambda: cuda_sae._fused_loss_launch(  # noqa: E731
+            x, 0, rows, we_t, ps["b_enc"], ps["b_pre"], wd, b_out, K, True)
+        with torch.no_grad():
+            composed = lambda: topk_sae_apply(ps, x, K, torch.bfloat16)  # noqa: E731
+            turns = [time_ms(f) for f in (composed, wide, wide, composed)]
+        res[f"whisper_small_8x_{rows}"] = {
+            "composed_wide_wide_composed": turns,
+            "fused_sae_loss_wide_split": device_split(wide),
+        }
+    del x
 
     gl = torch.Generator(device=dev).manual_seed(1)
     w_enc = torch.randn(DL, HL, generator=gl, device=dev) * 0.05

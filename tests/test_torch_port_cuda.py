@@ -557,6 +557,122 @@ def test_large_loss_takes_the_blocked_route(dev):
 
 
 # ---------------------------------------------------------------------------
+# kernel A's wide route (sae_fused_loss_wide_fwd: one CTA a row, the
+# decode's warps over D) at the geometries the JAX package fuses past the
+# warp form, at kernel A's bars
+# ---------------------------------------------------------------------------
+
+WIDE_GEOMS = [(512, 4096), (768, 6144), (1024, 8192), (384, 24576), (768, 3072)]
+
+
+def _wide_args(p):
+    return cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], p["w_dec"].bfloat16(), \
+        p["b_dec"] + p["b_pre"]
+
+
+@pytest.mark.parametrize("offset,rows,n", [(0, 4096, 4096), (256, 128, 1024), (16, 100, 200)])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h", WIDE_GEOMS)
+def test_wide_fused_loss_matches_plain(dev, d, h, offset, rows, n, x_dtype):
+    p, data = _params(d + h, d, h), _rows(d + h + 1, n, d).to(x_dtype)
+    we_t, b_enc, b_pre, wd, b_out = _wide_args(p)
+    got = cuda_sae._fused_loss_launch(data, offset, rows, we_t, b_enc, b_pre, wd, b_out, K, True)
+    want = cuda_sae.fused_sae_loss_plain(data[offset:offset + rows], we_t, b_enc, b_pre, wd, b_out, K)
+    torch.cuda.synchronize()
+    loss, l0, active, hid, resid, xc = got
+    assert _row_agreement(hid, want[3]) >= 0.999
+    torch.testing.assert_close(loss, want[0], rtol=1e-4, atol=0)
+    assert torch.equal(xc, want[5])
+    ok = ((hid > 0) == (want[3] > 0)).all(dim=1)
+    if bool(ok.all()):
+        assert torch.equal(l0, want[1]) and torch.equal(active, want[2])
+    torch.testing.assert_close(hid[ok].float(), want[3][ok].float(), rtol=0,
+                               atol=1e-2 * float(want[3].float().abs().max()))
+    torch.testing.assert_close(resid[ok], want[4][ok], rtol=0, atol=1e-2)
+
+
+@pytest.mark.parametrize("offset", [0, 4096])
+def test_wide_route_equals_warp_form_at_tiny(dev, offset):
+    """At D=384, H=3072 both forms hold the geometry: the same list order
+    and the same fmaf chain give the same latent, residual and centred rows."""
+    p, data = _params(30), _rows(31, 8192)
+    args = _wide_args(p)
+    wide = cuda_sae._fused_loss_launch(data, offset, 4096, *args, K, True)
+    warp = cuda_sae._fused_loss_launch(data, offset, 4096, *args, K, False)
+    torch.cuda.synchronize()
+    for i in (1, 2, 3, 4, 5):
+        assert torch.equal(wide[i], warp[i]), i
+    torch.testing.assert_close(wide[0], warp[0], rtol=1e-5, atol=0)
+
+
+def test_wide_route_deterministic_over_chunks(dev):
+    p, x = _params(32, 768, 6144), _rows(33, 32768, 768)
+    a = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
+    b = cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_wide_route_launches_a_chunk(dev):
+    """One call at 32768 rows of whisper-small 8x counts one wide launch
+    and is the centre, three chunks (13,568 rows) of the encode GEMM and
+    the wide select-and-decode, and the finalize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    p, x = _params(34, 768, 6144), _rows(35, 32768, 768)
+    cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
+    torch.cuda.synchronize()
+    before = (cuda_sae.fused_sae_loss.launches, cuda_sae.fused_sae_loss.wide_launches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cuda_sae.fused_sae_loss(x, *(p[n] for n in NAMES), K)
+        torch.cuda.synchronize()
+    assert (cuda_sae.fused_sae_loss.launches, cuda_sae.fused_sae_loss.wide_launches) == (
+        before[0] + 1, before[1] + 1)
+    chunks = -(-32768 // _build.topk_encode_chunk_rows(6144))
+    keys = [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type == DeviceType.CUDA]
+    for name, n in (("sae_centre_kernel", 1), ("gemm_kernel<3>", chunks),
+                    ("sae_select_decode_wide_kernel", chunks), ("sae_loss_finalize_kernel", 1)):
+        assert sum(name in key for key in keys) == n, (name, keys)
+
+
+def test_wide_grads_match_plain_on_cpu(dev):
+    p, x = _params(36, 768, 6144), _rows(37, 512, 768)
+    card = _grads(lambda q: cuda_sae.fused_sae_loss(x, *(q[n] for n in NAMES), K)[0], p)
+    pc = {k: v.cpu() for k, v in p.items()}
+    cpu = _grads(lambda q: cuda_sae.fused_sae_loss(x.cpu(), *(q[n] for n in NAMES), K)[0], pc)
+    for name in NAMES:
+        want = cpu[name]
+        torch.testing.assert_close(card[name].cpu(), want, rtol=2e-2,
+                                   atol=2e-2 * float(want.abs().max()))
+
+
+def test_small_loss_takes_the_wide_route(dev):
+    """At whisper-small 8x the loss is kernel A's wide route and the top-k
+    encode (eval, resampling) stays on the blocked encode."""
+    from whisper_sae_tpu_torch.models.sae import topk_sae_loss
+
+    p, x = _params(38, 768, 6144), _rows(39, 512, 768)
+    enc = cuda_sae.fused_topk_encode
+    before = (cuda_sae.fused_sae_loss.wide_launches, enc.launches, enc.blocked_launches)
+    loss, aux = topk_sae_loss(p, x, K, torch.bfloat16)
+    enc(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
+    assert (cuda_sae.fused_sae_loss.wide_launches, enc.launches, enc.blocked_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    assert bool(torch.isfinite(loss)) and float(aux["l0"]) == K
+
+
+def test_wide_route_refuses(dev):
+    p, x = _params(40, 384, 40992), _rows(41, 16)
+    args = _wide_args(p)
+    with pytest.raises(ValueError, match="H <= 40960"):
+        cuda_sae._fused_loss_launch(x, 0, 16, *args, K, True)
+    with pytest.raises(ValueError, match="window"):
+        q = _wide_args(_params(42, 768, 6144))
+        cuda_sae._fused_loss_launch(_rows(43, 16, 768), 8, 16, *q, K, True)
+
+
+# ---------------------------------------------------------------------------
 # the encoder kernels (csrc/encoder_kernels.cu) against their plain versions
 # (pinned to the JAX Pallas kernels by test_torch_port_encoder_ops.py).
 # Bar for one bf16 block: max|d| <= 2**-6 max|ref|, mean|d| <= 2**-9 mean|ref|;

@@ -2,13 +2,16 @@
 
 Above the widths its row kernels hold (D <= 384, H <= 3072) the port
 takes the blocked top-k encode (``ops/csrc/blocked_encode.cu``, its plain
-version here), composes the SAE loss around it, and sends f32 masks to
-kernel C's CTA-per-row form -- the route the JAX package takes at
+version here) and sends f32 masks to kernel C's CTA-per-row form; where
+its weights pass the fused loss's budget it also composes the SAE loss
+around the blocked encode -- the route the JAX package takes at
 whisper-large 32x, where its weights do not fit in VMEM
 (``pallas_sae.py:_encode_forward_blocked``).  The widths here are small
-ones that still take that route: D = 128 or 64, H = 4096, k = 32.  The
-JAX side runs its blocked Pallas kernel in interpret mode, with the
-geometry gates patched so that these widths reach it.
+ones: D = 128 or 64, H = 4096, k = 32.  The JAX side runs its blocked
+Pallas kernel in interpret mode, with the geometry gates patched so that
+these widths reach it; the port's loss gate is patched the same way
+where a test holds the composed loss (``port_composed``), since kernel
+A's wide route takes these widths.
 
 Tolerances: the blocked encode's mask identically and its bf16 latent
 bit for bit, its f32 latent at rtol 1e-6 (f32 sums in another order);
@@ -38,6 +41,7 @@ from whisper_sae_tpu_torch.models import sae as tsae
 from whisper_sae_tpu_torch.models import transcoder as ttc
 from whisper_sae_tpu_torch.ops import cuda_coder, cuda_sae
 from whisper_sae_tpu_torch.ops.topk import plain_calls, topk_mask_dense
+from whisper_sae_tpu_torch.training import trainer as trainer_mod
 from whisper_sae_tpu_torch.training.coder_trainers import TranscoderTrainer
 from whisper_sae_tpu_torch.training.trainer import SAETrainer
 from whisper_sae_tpu_torch.utils.checkpoint import params_from_jax
@@ -68,6 +72,15 @@ def jax_blocked(monkeypatch):
         yield
 
 
+@pytest.fixture
+def port_composed(monkeypatch):
+    """Send the port's bf16 SAE loss and its trainer's epoch at these
+    widths to the composed loss and the sliced epoch, as at whisper-large:
+    kernel A's gate off where it is used."""
+    monkeypatch.setattr(tsae, "fused_loss_supported", lambda *a: False)
+    monkeypatch.setattr(trainer_mod, "fused_loss_supported", lambda *a: False)
+
+
 def _sae_params(seed: int, d: int = D, h: int = H) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     bound = 1 / np.sqrt(d)
@@ -96,8 +109,14 @@ def _jp(p):
 
 def test_gates():
     assert cuda_sae.fused_loss_supported(384, 3072) and cuda_sae.fused_loss_supported(64, 512)
+    assert not cuda_sae.uses_blocked(384, 3072) and not cuda_sae.uses_blocked(64, 512)
     for d, h in ((416, 3072), (384, 3104), (100, 512), (1280, 40960), (128, 4096)):
-        assert not cuda_sae.fused_loss_supported(d, h) and cuda_sae.uses_blocked(d, h)
+        assert cuda_sae.uses_blocked(d, h) and not cuda_sae.row_kernels_hold(d, h)
+    # kernel A's wide route takes the loss wherever bf16 W_enc + W_dec fit 48 MiB
+    for d, h in ((416, 3072), (384, 3104), (128, 4096)):
+        assert cuda_sae.fused_loss_supported(d, h)
+    for d, h in ((100, 512), (1280, 40960), (1280, 10240)):
+        assert not cuda_sae.fused_loss_supported(d, h)
     assert cuda_coder.coder_supported(1536, 1536, 3072)
     assert not cuda_coder.coder_supported(64, 64, 4096)
 
@@ -188,9 +207,13 @@ def test_blocked_encode_grads_match_jax(jax_blocked):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-2, atol=1e-5 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("d,h,route", [(128, 4096, "fused_topk_encode_blocked"),
-                                       (64, 512, "fused_sae_loss")], ids=["blocked", "kernel_a"])
-def test_loss_route_by_geometry(d, h, route):
+@pytest.mark.parametrize("d,h,route,composed", [(128, 4096, "fused_topk_encode_blocked", True),
+                                                (64, 512, "fused_sae_loss", False),
+                                                (128, 4096, "fused_sae_loss", False)],
+                         ids=["blocked", "kernel_a", "kernel_a_wide"])
+def test_loss_route_by_geometry(d, h, route, composed, monkeypatch):
+    if composed:  # the whisper-large route at a small width: kernel A's gate off
+        monkeypatch.setattr(tsae, "fused_loss_supported", lambda *a: False)
     p, x = params_from_jax(_sae_params(6, d, h)), torch.from_numpy(_rows(7, 32, d))
     before = dict(plain_calls)
     loss, aux = tsae.topk_sae_loss(p, x, K, torch.bfloat16)
@@ -199,7 +222,7 @@ def test_loss_route_by_geometry(d, h, route):
     assert torch.isfinite(loss) and float(aux["l0"]) == K
 
 
-def test_composed_loss_matches_jax(jax_blocked):
+def test_composed_loss_matches_jax(jax_blocked, port_composed):
     p, x = _sae_params(8), _rows(9, 32)
     (jl, jaux), jg = jax.value_and_grad(
         lambda q: jsae.topk_sae_loss(q, jnp.asarray(x), K, jnp.bfloat16), has_aux=True)(_jp(p))
@@ -252,7 +275,7 @@ def test_forward_f32_matches_jax():
 TD, TB, TSTEPS = 64, 32, 4  # width, batch, steps an epoch; 2 epochs
 
 
-def test_trainer_matches_jax(jax_blocked, tmp_path):
+def test_trainer_matches_jax(jax_blocked, port_composed, tmp_path):
     p = _sae_params(12, TD)
     data = _rows(13, TSTEPS * TB, TD)
     perms = [np.random.default_rng(14 + e).permutation(len(data)) for e in range(2)]
