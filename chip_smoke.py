@@ -208,12 +208,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
     8 x 8192-row subsample, the loss falls.
 18. The launcher's coder jobs past the earlier limits, on synthetic
     caches: ``train-crosscoder --expansion-factor 16`` (L=2, D=384,
-    S=6144 > 3072; TopK, then ``--relu``) composes as the JAX package
-    does -- no coder-kernel launch, kernel C's wide form for the TopK
-    mask; learning rate 1e-2, for ReLU 1e-3 and 4 epochs -- and ``train-transcoder``
-    above ``--max-resident-gb`` streams
-    chunked epochs through the paired reader (windowed coder launches
-    equal to the steps).  Losses finite and falling, run files written.
+    S=6144 > 3072; TopK, then ``--relu``; learning rate 1e-2, for ReLU
+    1e-3 and 4 epochs) runs every training step on the coder kernel past
+    H = 3072 (windowed launches, all counted in ``.wide_launches``, equal
+    to the steps; no sliced launch), as the JAX package fuses it, and
+    ``train-transcoder`` above ``--max-resident-gb`` streams chunked
+    epochs through the paired reader (windowed coder launches equal to
+    the steps).  Losses finite and falling, run files written.
 19. Transcription and capture.  (a) Whisper-large-v3 at full width, bf16,
     random weights made on the card: ``greedy_decode_cached`` of 8
     synthetic 30 s clips at ``max_len`` 64; the encoder wrappers' counts
@@ -264,7 +265,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
     turns (composed / wide / wide / composed), each launch's device ms;
     a CLI step at batch 128 and one at 32768.
 
-Before them, one line lists the rows of phases 1, 8, 11 and 20 that select
+21. The coder kernel past H = 3072, at every geometry the JAX package
+    fuses there (bf16 weights within its 48 MiB): the TopK modes' wide
+    route (``wst_coder_wide_fwd``: the cast, in Skip mode the skip product
+    over all rows, per chunk of kernel B's rows the kPre encode and
+    ``coder_select_decode_wide_kernel``, one CTA a row, then the sum), the
+    ReLU modes' one route.  (a) Against its plain version at 4096 rows:
+    the Skip and TopK transcoders at (D, H) = (768, 6144), (1024, 8192)
+    and (384, 24576), the TopK and ReLU crosscoders at L*D = 768 and 1536
+    with S = 6144, the ReLU SAE at (768, 6144), and the Skip transcoder at
+    whisper-small 8x also at 128 and 32768 rows (three chunks); sliced and
+    at a row offset, at phase 8's bars with the gap rule, bit-identical
+    run to run; gradients of the five modes at whisper-small 8x against
+    the CPU (512 rows; the TopK modes on the rows selecting alike);
+    at (384, 3072) in Skip mode and at L*D = 1536, S = 3072 the wide
+    route's latent and resid equal to the warp form's bit for bit.  (b)
+    ``launch train-transcoder`` at whisper-small 8x (``--model-name
+    openai/whisper-small --expansion-factor 8``: D=768, H=6144, k=32,
+    batch 4096, 2 epochs at learning rate 1e-2), the Skip transcoder then
+    ``--no-skip``, on a synthetic 8 x 4096-row (mlp_in, mlp_out) cache
+    (y = tanh(x W)): every step one windowed launch on the wide route, no
+    sliced or composed step, no plain version, losses finite and falling;
+    the trained Skip transcoder on 512 rows against the CPU.  (d) The
+    kernel and the composed route it replaces (the top-k encode or the
+    ReLU encode, then ``mm_f32`` products) in turns, composed / kernel /
+    kernel / composed, for the Skip transcoder (128, 4096, 32768 rows),
+    the TopK transcoder (4096) and the TopK and ReLU crosscoders at L*D =
+    768 (4096, 32768), with each launch's device ms; a launcher step of
+    the Skip transcoder at batch 4096.
+
+Before them, one line lists the rows of phases 1, 8, 11, 20 and 21 that select
 differently from the plain version, with their gaps, and one the
 decoded tokens of phase 19 that differ from their reference.  The last two lines
 are the ``kernels`` JSON line and
@@ -370,6 +400,30 @@ WIDE_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_kernel<3>",
               "finalize": "sae_loss_finalize_kernel"}
 SMALL_ROWS, SMALL_EPOCHS = (1 << 16) + 64, 2
 SELECT_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/select_decode.cuh"
+# phase 21: the coder kernel past H = 3072 at every geometry the JAX package
+# fuses (the TopK modes' wide route, the ReLU modes' one route): (mode, D,
+# dout, H), the crosscoders on their flattened view (L*D = 768: phase 18's;
+# 1536: whisper-tiny's four layers)
+CODER_WIDE_GEOMS = (
+    ("skip_transcoder", DS, DS, HS), ("topk_transcoder", DS, DS, HS),
+    ("skip_transcoder", 1024, 1024, 8192), ("topk_transcoder", 1024, 1024, 8192),
+    ("skip_transcoder", 384, 384, 24576), ("topk_transcoder", 384, 384, 24576),
+    ("topk_crosscoder", DS, DS, HS), ("relu_crosscoder", DS, DS, HS),
+    ("topk_crosscoder", 1536, 1536, HS), ("relu_crosscoder", 1536, 1536, HS),
+    ("relu_sae", DS, DS, HS))
+CODER_WIDE_BATCHES = (128, 4096, 32768)  # the Skip transcoder at whisper-small 8x; the rest at 4096
+# timed in turns with the composed route (phase 21d), at whisper-small 8x
+CODER_WIDE_TIMED = {"skip_transcoder": (128, 4096, 32768), "topk_transcoder": (4096,),
+                    "topk_crosscoder": (4096, 32768), "relu_crosscoder": (4096, 32768)}
+# the wide route's launches, by the profiler's kernel names: the cast, in
+# Skip mode the skip product over all rows, then the encode and the
+# select-and-decode once a chunk, the sum
+CODER_WIDE_PARTS = {"cast": "coder_cast_kernel", "encode": "gemm_kernel<3>",
+                    "select_decode": "coder_select_decode_wide_kernel", "sum": "coder_sum_kernel"}
+CODER_WIDE_SKIP_PARTS = {"cast": "coder_cast_kernel", "skip_product": "gemm_kernel<3>",
+                         "encode": "gemm_kernel<3>",
+                         "select_decode": "coder_select_decode_wide_kernel",
+                         "sum": "coder_sum_kernel"}
 ENC_REPLACES = {
     "conv_stem": "src/whisper_sae_tpu/ops/pallas_encoder.py:604",
     "ln_qkv": "src/whisper_sae_tpu/ops/pallas_encoder.py:340",
@@ -384,7 +438,7 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# phases 1, 8 and 11: the rows that select differently from the plain version
+# phases 1, 8, 11, 20 and 21: the rows that select differently from the plain version
 GAPS: dict[str, list] = {}
 # phase 19: the decoded tokens that differ from their reference
 TOKEN_GAPS: dict[str, list] = {}
@@ -845,8 +899,9 @@ def launch_split(fn, parts: dict, calls: int = 10) -> dict:
     calls, summed and divided by ``calls`` (None where it saw no device
     time).  Where parts share
     a name (the Skip mode's encode and skip product, both gemm_kernel<3>),
-    the n-th launch of a run of that name, in time order, is the n-th of
-    those parts."""
+    the n-th launch of that name in a call, in time order, is the n-th of
+    those parts (the last of them for any later one: the wide route's
+    encodes a chunk); a call ends with the last part's launch."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -859,15 +914,17 @@ def launch_split(fn, parts: dict, calls: int = 10) -> dict:
     kernels = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
     us = dict.fromkeys(parts, 0.0)
-    prev, run = None, 0
+    last = list(parts.values())[-1]
+    seen: dict = {}
     for e in kernels:
         hits = [part for part, kname in parts.items() if kname in e.name]
-        kname = parts[hits[0]] if hits else None
-        run = run + 1 if kname is not None and kname == prev else 0
-        prev = kname
         if hits:
-            part = hits[min(run, len(hits) - 1)]
-            us[part] += e.time_range.elapsed_us()
+            kname = parts[hits[0]]
+            n = seen.get(kname, 0)
+            seen[kname] = n + 1
+            us[hits[min(n, len(hits) - 1)]] += e.time_range.elapsed_us()
+            if kname == last:
+                seen.clear()
     return {part: us[part] / 1e3 / calls if us[part] > 0 else None for part in parts}
 
 
@@ -1558,10 +1615,14 @@ def encoder_prep_and_parts(inp: dict, CE, lib) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def coder_inputs(mode: str, n: int, seed: int, dev) -> tuple:
+def coder_inputs(mode: str, n: int, seed: int, dev, geom: tuple | None = None) -> tuple:
     """Rows, targets (None when the rows are their own target) and weights
-    of ``mode`` at whisper-tiny width, drawn on the card from ``seed``."""
+    of ``mode`` at whisper-tiny width, or at ``geom`` = (D, dout, H),
+    drawn on the card from ``seed``."""
     d, dout, k, skip, y_is_x = CODER_MODES[mode]
+    h = H
+    if geom is not None:
+        d, dout, h = geom
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.0):
@@ -1569,8 +1630,8 @@ def coder_inputs(mode: str, n: int, seed: int, dev) -> tuple:
 
     x = randn(n, d)
     y = None if y_is_x else randn(n, dout)
-    p = {"w_enc": randn(d, H, scale=d ** -0.5), "b_enc": randn(H, scale=0.05),
-         "w_dec": randn(H, dout, scale=0.05), "b_dec": randn(dout, scale=0.05)}
+    p = {"w_enc": randn(d, h, scale=d ** -0.5), "b_enc": randn(h, scale=0.05),
+         "w_dec": randn(h, dout, scale=0.05), "b_dec": randn(dout, scale=0.05)}
     if skip:
         p.update(w_skip=randn(d, dout, scale=0.02), b_skip=randn(dout, scale=0.05))
     return x, y, p, k
@@ -1849,17 +1910,24 @@ def coder_path(work: Path, dev, mix, train_mod, launch_mod, cfg_mod, cache_mod, 
     return res
 
 
-def coder_bound(mode: str, b: int, x, nnz: int) -> tuple[float, str]:
-    """Least time of one coder launch: x (and y) read, the bf16 weights and
-    biases read, latent, residual and bf16 rows written; encode, the
-    decode of this run's nonzero latents and the skip product on the
-    tensor cores; the bisection's 32 compares per pre in TopK modes."""
+def coder_bound(mode: str, b: int, x, nnz: int, geom: tuple | None = None,
+                passes: float | None = None) -> tuple[float, str]:
+    """Least time of one coder launch (at whisper-tiny width, or at
+    ``geom`` = (D, dout, H)): x (and y) read, the bf16 weights and biases
+    read, latent, residual and bf16 rows written; encode, the decode of
+    this run's nonzero latents and the skip product on the tensor cores;
+    the bisection's compares in TopK modes (32 passes over each pre, or
+    ``passes``, this run's passes summed over its rows, each over a row)."""
     d, dout, k, skip, y_is_x = CODER_MODES[mode]
+    h = H
+    if geom is not None:
+        d, dout, h = geom
     nbytes = (b * d * x.element_size() + (0 if y_is_x else b * dout * 4)
-              + (d * H + H * dout + (d * dout if skip else 0)) * 2 + (H + dout) * 4
-              + b * H * 2 + b * dout * 4 + b * d * 2 + (H + 1) * 4 + (0 if k else H * 4))
-    flops = 2 * b * d * H + 2 * nnz * dout + (2 * b * d * dout if skip else 0)
-    return bound(nbytes, flops, (32 if k else 1) * b * H)
+              + (d * h + h * dout + (d * dout if skip else 0)) * 2 + (h + dout) * 4
+              + b * h * 2 + b * dout * 4 + b * d * 2 + (h + 1) * 4 + (0 if k else h * 4))
+    flops = 2 * b * d * h + 2 * nnz * dout + (2 * b * d * dout if skip else 0)
+    alu = (32 * b if passes is None else passes) * h if k else b * h
+    return bound(nbytes, flops, alu)
 
 
 def coder_times(dev, CC) -> dict:
@@ -2530,12 +2598,19 @@ def wide_coder_path(work: Path, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_to
         res["losses"][name] = check_run(Path(out["run_dir"]), "crosscoder_final.npz",
                                         eps * (n // b), f"launch train-crosscoder S={s_wide}"
                                         + (" --relu" if "--relu" in extra else ""))
-    coder = sum(e.launches for e in CC.ENTRIES)
+    # every TopK and ReLU step on the coder kernel past H = 3072 (windowed:
+    # the resident cache, 8 steps an epoch and no remainder)
+    res["launches"] = {"topk_crosscoder": CC.fused_transcoder_loss_indexed.wide_launches,
+                       "relu_crosscoder": CC.fused_relu_crosscoder_loss_indexed.wide_launches}
     res["topk_mask_wide_launches"] = cuda_topk.topk_mask_fwd.wide_launches
-    check(coder == 0, f"the coder kernel launched {coder} times at S={s_wide}")
-    check(res["topk_mask_wide_launches"] >= epochs * (n // b),
-          f"kernel C's wide form launched {res['topk_mask_wide_launches']} times for "
-          f"{epochs * (n // b)} TopK steps")
+    for mode, entry, eps in (("topk_crosscoder", CC.fused_transcoder_loss_indexed, epochs),
+                             ("relu_crosscoder", CC.fused_relu_crosscoder_loss_indexed, 4)):
+        steps = eps * (n // b)
+        check(entry.wide_launches == entry.launches == CC.mode_launches[(entry.__name__, mode)]
+              == steps, f"{mode} at S={s_wide}: {entry.launches} windowed launches ("
+              f"{entry.wide_launches} wide) for {steps} steps")
+    sliced = sum(e.launches for e in CC.ENTRIES if not e.__name__.endswith("_indexed"))
+    check(sliced == 0, f"{sliced} sliced coder launches at S={s_wide}")
     check(sum(CC.plain_calls.values()) == 0 and sum(topk.plain_calls.values()) == 0,
           f"plain versions ran: {dict(CC.plain_calls)} {dict(topk.plain_calls)}")
 
@@ -2564,9 +2639,10 @@ def wide_coder_path(work: Path, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_to
     res["losses"]["skip_transcoder_out_of_core"] = check_run(
         Path(out["run_dir"]), "transcoder_final.npz", epochs * (n // b),
         "launch train-transcoder above --max-resident-gb")
-    log(f"  crosscoders at S={s_wide}: no coder-kernel launch, kernel C's wide form "
-        f"{res['topk_mask_wide_launches']} times; the transcoder streamed {len(chunks)} chunked "
-        f"epochs through the paired reader, {windowed} windowed launches")
+    log(f"  crosscoders at S={s_wide}: every step on the coder kernel past H = 3072 "
+        f"({res['launches']}), kernel C's wide form {res['topk_mask_wide_launches']} times; the "
+        f"transcoder streamed {len(chunks)} chunked epochs through the paired reader, {windowed} "
+        f"windowed launches")
     shutil.rmtree(wcache, ignore_errors=True)
     return res
 
@@ -3196,6 +3272,270 @@ def wide_step_times(work: Path, dev, trainer, mix) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the coder kernel past H = 3072; a whisper-small 8x Skip
+# transcoder through the launcher
+# ---------------------------------------------------------------------------
+
+
+def coder_wide_check(CC, mode: str, geom: tuple, b: int, seed: int, dev, errs: dict) -> None:
+    """Phase 21a at one geometry and batch: the kernel (the TopK modes'
+    wide route) against its plain version, sliced and at a row offset into
+    an epoch buffer, at phase 8's bars, each row that selects differently
+    through the gap rule; two launches bit-identical."""
+    xbuf, ybuf, p, k = coder_inputs(mode, 2 * b + 64, seed, dev, geom)
+    ops = coder_ops(CC, p, k)
+    wide = k is not None
+    err = 0.0
+    for what, off in (("sliced", 0), ("offset", b + 64)):
+        x = xbuf[:b].contiguous() if off == 0 else xbuf
+        y = None if ybuf is None else (ybuf[:b].contiguous() if off == 0 else ybuf)
+        got = CC._coder_launch(x, y, off, b, ops, k, wide)
+        win = slice(off, off + b)
+        want = CC.coder_forward_plain(x[win], None if y is None else y[win], ops, k)
+        tag = f"{mode} D={geom[0]} H={geom[2]} B={b} {what}"
+        err = max(err, check_coder(got, want, k, tag))
+        if wide:
+            GAPS[tag] = selection_gaps(got.xc, ops.we_t, ops.b_enc, got.hid, want.hid, k, tag)
+        if off:
+            again = CC._coder_launch(x, y, off, b, ops, k, wide)
+            torch.cuda.synchronize()
+            check(all(u is None or torch.equal(u, v) for u, v in zip(got, again)),
+                  f"{tag}: outputs not bit-identical run to run")
+        del got, want
+    errs[mode] = max(errs.get(mode, 0.0), err)
+    log(f"  {mode:16s} D={geom[0]:4d} dout={geom[1]:4d} H={geom[2]:5d} B={b:5d}: agrees sliced "
+        f"and at offset {b + 64} (resid max abs err {err:.3g}), bit-identical run to run")
+
+
+def coder_wide_grads(CC, mode: str, n: int, dev) -> None:
+    """Phase 21a: gradients through the Function at whisper-small 8x on the
+    card against the same Function on the CPU, on the rows whose selection
+    the card and the CPU agree on (a row selecting differently moves its
+    features' gradients by more than the bar); the Skip transcoder and the
+    ReLU SAE also windowed."""
+    x, y, p, k = coder_inputs(mode, n, 300 + len(mode), dev, (DS, DS, HS))
+    if k is not None:
+        ops = coder_ops(CC, p, k)
+        card = CC._coder_launch(x, y, 0, n, ops, k, True).hid
+        cpu = CC.coder_forward_plain(x.cpu(), None if y is None else y.cpu(),
+                                     coder_ops(CC, {k_: v.cpu() for k_, v in p.items()}, k), k).hid
+        ok = agree(card.cpu(), cpu).to(dev)
+        check(int(ok.sum()) >= 0.99 * n, f"{mode}: {int(ok.sum())} of {n} rows select alike")
+        x, y = x[ok].contiguous(), None if y is None else y[ok].contiguous()
+    m = x.shape[0]
+    coder_grads_close(CC, mode, p, x, y, None, None, f"{mode} wide sliced")
+    if mode in ("skip_transcoder", "relu_sae"):
+        xb = torch.cat([x, x.flip(0)])
+        yb = None if y is None else torch.cat([y, y.flip(0)])
+        coder_grads_close(CC, mode, p, xb, yb, 1, m, f"{mode} wide windowed")
+
+
+def coder_wide_phase(dev, CC) -> dict:
+    """Phase 21a: every geometry of ``CODER_WIDE_GEOMS`` at 4096 rows (the
+    Skip transcoder at whisper-small 8x also at 128 and 32768: three
+    chunks), gradients at whisper-small 8x, and the wide route equal to
+    the warp form bit for bit where both hold the geometry."""
+    errs: dict[str, float] = {}
+    for i, (mode, d, dout, h) in enumerate(CODER_WIDE_GEOMS):
+        first = (mode, d, h) == ("skip_transcoder", DS, HS)
+        for b in CODER_WIDE_BATCHES if first else (4096,):
+            coder_wide_check(CC, mode, (d, dout, h), b, 200 + 10 * i + b % 7, dev, errs)
+    for mode in CODER_MODES:
+        coder_wide_grads(CC, mode, 512, dev)
+    log("  gradients at D=768 H=6144, 512 rows (the TopK modes on those selecting alike on the "
+        "card and the CPU): agree (rtol 2e-2)")
+    for mode in ("skip_transcoder", "topk_crosscoder"):  # (384, 3072) and L*D = 1536, S = 3072
+        xbuf, ybuf, p, k = coder_inputs(mode, 4096 + 64, 260, dev)
+        ops = coder_ops(CC, p, k)
+        wide, warp = (CC._coder_launch(xbuf, ybuf, 64, 4096, ops, k, w) for w in (True, False))
+        torch.cuda.synchronize()
+        same = all(torch.equal(getattr(wide, n), getattr(warp, n))
+                   for n in ("hid", "resid", "xc", "l0", "active"))
+        check(same, f"{mode} at H={H}: the wide route's latent or resid differ from the warp form's")
+        rel = abs(float(wide.sq) - float(warp.sq)) / float(warp.sq)
+        log(f"  {mode} at H={H} (D={CODER_MODES[mode][0]}), 4096 rows at offset 64: the wide "
+            f"route's latent, resid, bf16 rows, l0 and active equal to the warp form's bit for "
+            f"bit; sum of squares rel diff {rel:.3g} (partials a row against a CTA)")
+    return errs
+
+
+def small_coder_path(work: Path, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_sae, cuda_topk,
+                     topk, TC) -> dict:
+    """Phase 21b: ``launch train-transcoder`` at whisper-small 8x (D=768,
+    H=6144, k=32, batch 4096, the Skip transcoder, then ``--no-skip``), 2
+    epochs of 8 windowed steps on a synthetic 8 x 4096-row (mlp_in,
+    mlp_out) cache; every step one windowed launch on the coder kernel's
+    wide route, no sliced launch, no composed step, no plain version;
+    losses finite and falling; the trained Skip transcoder on 512 rows on
+    the card against the CPU."""
+    whisper = cfg_mod.WhisperConfig(model_name="openai/whisper-small")
+    scache, sout = work / "sccache", work / "scout"
+    cache = cache_mod.FeatureCache(scache / "features", whisper, cfg_mod.DataConfig())
+    n, b, epochs = 8 * CODER_B, CODER_B, 2
+    gen = torch.Generator(device=dev).manual_seed(93)
+    mix = torch.randn(RANK, DS, generator=gen, device=dev) / RANK ** 0.5
+    x0 = gaussian_rows(n, gen, mix)
+    wt = torch.randn(DS, DS, generator=gen, device=dev) / DS ** 0.5
+    for comp, rows in (("encoder_mlp_in", x0), ("encoder_mlp_out", torch.tanh(x0 @ wt))):
+        w = cache.writer(comp, 0)
+        w.append(rows.cpu().numpy())
+        meta = w.finalize(num_samples=n // 1500)
+        check((meta.num_tokens, meta.hidden_dim) == (n, DS), f"{comp}: {meta}")
+    steps = epochs * (n // b)
+    res = {"losses": {}, "job_s": {}, "launches": {}}
+    common = ["train-transcoder", "--layer-idx", "0", "--model-name", "openai/whisper-small",
+              "--expansion-factor", str(HS // DS), "--batch-size", str(b), "--epochs", str(epochs),
+              "--learning-rate", "1e-2", "--cache-dir", str(scache), "--output-dir", str(sout)]
+    runs = {}
+    for mode, extra in (("skip_transcoder", ["--experiment-name", "small"]),
+                        ("topk_transcoder", ["--no-skip", "--experiment-name", "small_topk"])):
+        for e in CC.ENTRIES:
+            e.launches = e.wide_launches = 0
+        CC.mode_launches.clear()
+        CC.plain_calls.clear()
+        topk.plain_calls.clear()
+        enc = cuda_sae.fused_topk_encode
+        enc.launches = enc.blocked_launches = 0
+        cuda_topk.topk_mask_fwd.launches = cuda_topk.topk_mask_fwd.wide_launches = 0
+        t0 = time.perf_counter()
+        out = launch_mod.main(common + extra)
+        torch.cuda.synchronize()
+        res["job_s"][mode] = time.perf_counter() - t0
+        runs[mode] = Path(out["run_dir"])
+        win, sl = CC.fused_transcoder_loss_indexed, CC.fused_transcoder_loss
+        res["launches"][mode] = win.wide_launches
+        check(win.launches == win.wide_launches == CC.mode_launches[(win.__name__, mode)] == steps,
+              f"{mode}: {win.launches} windowed launches ({win.wide_launches} wide) for {steps} "
+              "steps")
+        check(sl.launches == 0, f"{mode}: {sl.launches} sliced launches")
+        composed = (enc.launches, enc.blocked_launches, cuda_topk.topk_mask_fwd.launches,
+                    cuda_topk.topk_mask_fwd.wide_launches)
+        check(composed == (0, 0, 0, 0), f"{mode}: the composed route ran: {composed}")
+        check(sum(CC.plain_calls.values()) == 0 and sum(topk.plain_calls.values()) == 0,
+              f"{mode}: plain versions ran: {dict(CC.plain_calls)} {dict(topk.plain_calls)}")
+        res["losses"][mode] = check_run(runs[mode], "transcoder_final.npz", steps,
+                                        f"launch train-transcoder D={DS} H={HS} ({mode})")
+        with np.load(runs[mode] / "transcoder_final.npz") as z:
+            check(z["w_enc"].shape == (DS, HS), f"{mode}: w_enc {z['w_enc'].shape}")
+            check(all(bool(np.isfinite(z[n_]).all()) for n_ in z.files),
+                  f"{mode}: non-finite parameters")
+    x_in, _ = cache.load("encoder_mlp_in", 0)
+    y_out, _ = cache.load("encoder_mlp_out", 0)
+    with torch.no_grad():
+        card = TC.load_trained_transcoder(runs["skip_transcoder"])(x_in[:512].to(dev),
+                                                                   y_out[:512].to(dev))
+        cpu = TC.load_trained_transcoder(runs["skip_transcoder"], device="cpu")(x_in[:512],
+                                                                                y_out[:512])
+    rel = abs(float(card.loss) - float(cpu.loss)) / float(cpu.loss)
+    share = float(agree(card.hidden.cpu(), cpu.hidden).float().mean())
+    check(bool(torch.isfinite(card.loss)) and rel < 1e-3 and share >= 0.99,
+          f"trained Skip transcoder: card vs CPU on 512 rows: loss rel err {rel:.3g}, "
+          f"{share:.2%} rows agree")
+    log(f"  every step one windowed launch on the coder kernel's wide route ({res['launches']}), "
+        f"no sliced or composed step, no plain version; the trained Skip transcoder on 512 rows, "
+        f"card vs CPU: loss rel err {rel:.2g}, {share:.2%} rows select the same features")
+    shutil.rmtree(scache, ignore_errors=True)
+    return res
+
+
+@contextlib.contextmanager
+def coder_gate_off(*modules):
+    """The coder kernel's gate closed in ``modules``: their losses take the
+    composed route that serves past the 48 MiB budget."""
+    real = [m.coder_supported for m in modules]
+    for m in modules:
+        m.coder_supported = lambda *a, **k: False
+    try:
+        yield
+    finally:
+        for m, f in zip(modules, real):
+            m.coder_supported = f
+
+
+def coder_wide_times(dev, CC, TC, XC, topk) -> dict:
+    """Phase 21d at whisper-small 8x: each mode of ``CODER_WIDE_TIMED`` at
+    its batches, the kernel and the composed route it replaces (the Skip
+    and TopK transcoders' ``transcoder_loss`` with the coder gate closed:
+    the top-k encode, then the ``mm_f32`` decode and skip; the
+    crosscoders' ``crosscoder_apply``: the top-k encode or the ``mm_f32``
+    ReLU encode, then the ``mm_f32`` decode) in turns, composed / kernel /
+    kernel / composed; at an offset, the plain version, the bound, the
+    bf16 encode GEMM as the library yardstick, each launch's device ms."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    res: dict = {}
+    for mode, batches in CODER_WIDE_TIMED.items():
+        d, dout, k, skip, y_is_x = CODER_MODES[mode]
+        for b in batches:
+            xbuf, ybuf, p, _ = coder_inputs(mode, 2 * b, 400 + b % 11, dev, (DS, DS, HS))
+            ops = coder_ops(CC, p, k)
+            x, y = xbuf[:b].contiguous(), None if ybuf is None else ybuf[:b].contiguous()
+            wide = k is not None
+            out = CC._coder_launch(x, y, 0, b, ops, k, wide)
+            nnz, n_active = int((out.hid > 0).sum()), int(out.active.sum())
+            passes = None
+            if wide:  # the select's passes on this pre (it stops at a count of exactly k)
+                pre = mm_f32(out.xc, ops.we_t.t()) + ops.b_enc
+                passes = float(topk.cta_threshold(pre, k)[2].double().sum())
+                del pre
+            kernel = lambda: CC._coder_launch(x, y, 0, b, ops, k, wide)  # noqa: E731
+            if mode.endswith("transcoder"):
+                def composed():
+                    with coder_gate_off(TC):
+                        return TC.transcoder_loss(p, x, y, K, torch.bfloat16, use_skip=skip)
+            else:
+                layers = DS // 384
+                cp = {"w_enc": p["w_enc"].view(layers, 384, HS), "b_enc": p["b_enc"],
+                      "w_dec": p["w_dec"].view(HS, layers, 384), "b_dec": p["b_dec"].view(layers, 384)}
+                acts = x.view(b, layers, 384).transpose(0, 1)
+
+                def composed():
+                    return XC.crosscoder_apply(cp, acts, k=k, sparsity_weight=0.01,
+                                               compute_dtype=torch.bfloat16)
+            with torch.no_grad():
+                turns = [time_ms(f, iters=10) for f in (composed, kernel, kernel, composed)]
+            xc, w_bf = x.bfloat16(), p["w_enc"].bfloat16()
+            parts = (CODER_WIDE_SKIP_PARTS if skip else CODER_WIDE_PARTS) if wide else RELU_PARTS
+            r = {
+                "ms": (turns[1] + turns[2]) / 2, "composed_ms": (turns[0] + turns[3]) / 2,
+                "turns_ms": turns,
+                "indexed_ms": time_ms(lambda: CC._coder_launch(xbuf, ybuf, b, b, ops, k, wide),
+                                      iters=10),
+                "plain_ms": time_ms(lambda: CC.coder_forward_plain(x, y, ops, k), iters=3,
+                                    warmup=1),
+                **dict(zip(("bound_ms", "bound_by"), coder_bound(
+                    mode, b, x, nnz, (DS, DS, HS), passes))),
+                "library_ms": time_ms(lambda: torch.matmul(xc, w_bf), iters=10),
+                "split_ms": launch_split(kernel, parts),
+                "nnz_per_row": nnz / b, "active_features": n_active,
+            }
+            res[(mode, b)] = r
+            log(f"  {mode:16s} B={b:5d}: {r['ms']:.4f} ms (turns {turns[1]:.4f}, {turns[2]:.4f}), "
+                f"at an offset {r['indexed_ms']:.4f}; composed {r['composed_ms']:.4f} (turns "
+                f"{turns[0]:.4f}, {turns[3]:.4f}); plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']}), library {r['library_ms']:.4f}; device ms "
+                "a call: " + ", ".join(f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
+                                       for k_, v in r["split_ms"].items()))
+            del xbuf, ybuf, x, y, out
+    return res
+
+
+def small_coder_step(work: Path, dev, TC, CT, cfg_mod) -> dict:
+    """Phase 21d: one training step of the whisper-small 8x Skip
+    transcoder under AMP at the launcher's batch 4096 (20 windowed steps),
+    host clock and device busy time."""
+    g = torch.Generator(device=dev).manual_seed(94)
+    steps, b = 20, CODER_B
+    cfg = cfg_mod.TrainingConfig(batch_size=b, warmup_steps=10, use_amp=True)
+    tc = CT.TranscoderTrainer(TC.create_transcoder(DS, DS, HS, k=K, use_skip=True, device=dev),
+                              cfg, run_dir=work / "scstep")
+    check(tc._use_indexed_epoch(), "the whisper-small 8x transcoder trainer is not windowed")
+    log(f"  Skip transcoder (D={DS}, H={HS}, k={K}), batch {b}:")
+    return step_profile(tc, (torch.randn(steps * b, DS, generator=g, device=dev),
+                             torch.randn(steps * b, DS, generator=g, device=dev)), steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3471,7 +3811,39 @@ def main() -> int:
         })
         check(kernels[-1]["launches"] > 0, f"{name}_wide: no launch on the whisper-small path")
     log(f"  whisper-small slice: {json.dumps({'steps': wsteps, 'losses': path20['losses'], 'train_s': path20['train_s'], 'turns_ms': {b: wtimes[b]['turns_ms'] for b in WIDE_BATCHES}, 'select_passes_mean': {b: wtimes[b]['select_passes_mean'] for b in WIDE_BATCHES}})}")
-    log(f"  rows selecting differently from the plain version (phases 1, 8, 11 and 20): "
+    log("phase 21: (a) the coder kernel past H = 3072 against its plain version")
+    cw_errs = coder_wide_phase(dev, CC)
+    log("  (b) the whisper-small 8x transcoders through the launcher")
+    path21 = small_coder_path(work, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_sae, cuda_topk,
+                              topk, TC)
+    log("  (d) times at whisper-small 8x (library_ms: the bf16 encode GEMM, a yardstick, not an "
+        "equivalent; composed_ms: the route the kernel replaces at these widths)")
+    cw_times = coder_wide_times(dev, CC, TC, XC, topk)
+    cw_step = small_coder_step(work, dev, TC, CT, cfg_mod)
+    cw_launches = {**path21["launches"], **wide18["launches"]}
+    for mode, batches in CODER_WIDE_TIMED.items():
+        wide = CODER_MODES[mode][2] is not None
+        at = {b: {k_: cw_times[(mode, b)][k_] for k_ in (
+            "ms", "composed_ms", "indexed_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for b in batches}
+        main_b = 4096
+        kernels.append({
+            "name": f"coder_wide[{mode}]", "route": "cuda", "source": CODER_SOURCE,
+            "sources": [CODER_SOURCE, SELECT_SOURCE, GEMM_SOURCE] if wide else [CODER_SOURCE,
+                                                                                GEMM_SOURCE],
+            "replaces": "src/whisper_sae_tpu/ops/pallas_sae.py:679",
+            "also_replaces": "src/whisper_sae_tpu/ops/pallas_sae.py:1057",
+            "launches": cw_launches[mode], "max_abs_err": cw_errs[mode],
+            **at[main_b], "batch": main_b, "geometry": {"d": DS, "dout": DS, "h": HS,
+                                                        "k": K if wide else None},
+            **{f"at_batch_{b}": at[b] for b in batches if b != main_b},
+            "split_ms": {str(b): cw_times[(mode, b)]["split_ms"] for b in batches},
+            "route_launches": list((CODER_WIDE_SKIP_PARTS if mode == "skip_transcoder"
+                                    else CODER_WIDE_PARTS if wide else RELU_PARTS).values()),
+        })
+        check(kernels[-1]["launches"] > 0, f"coder_wide[{mode}]: no launch on its path")
+    log(f"  whisper-small coder slice: {json.dumps({'step': cw_step, 'losses': path21['losses'], 'job_s': path21['job_s'], 'turns_ms': {f'{m}_{b}': cw_times[(m, b)]['turns_ms'] for m, bs in CODER_WIDE_TIMED.items() for b in bs}})}")
+    log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20 and 21): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
     log(f"  decoded tokens differing from their reference (phase 19): "

@@ -11,10 +11,14 @@ plus, in the ReLU variant, the decoder-norm-weighted L1.
 Dispatch: a bf16 ``crosscoder_loss`` is the coder kernel on the
 flattened ``[B, L*D]`` view -- TopK through ``fused_transcoder_loss``
 with ``y = x``, ReLU through ``fused_relu_crosscoder_loss`` with the
-flat decoder norms as a differentiable input -- where the kernel holds
-the geometry (``coder_supported``, S <= 3072); wider ones and f32 are
-the composed path (f32 products of bf16 operands, kernel C for the
-mask, its wide form above 3072).
+flat decoder norms as a differentiable input -- wherever the JAX package
+fuses it (``coder_supported``: bf16 W_enc + W_dec within 48 MiB, the
+kernel's wide route past S = 3072); past that budget and in f32 it is
+``crosscoder_apply``: f32 products of bf16 operands, and for the bf16
+TopK variant the top-k encode on the flattened view
+(``ops.cuda_sae.fused_topk_encode``) where bf16 W_enc alone fits the
+budget, as JAX ``models/crosscoder.py:124-144`` encodes, else kernel C
+for the mask (its wide form above 3072).
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops.cuda_coder import coder_supported, fused_relu_crosscoder_loss, fused_transcoder_loss
+from ..ops.cuda_sae import FUSED_W_BYTES, fused_topk_encode
 from ..ops.topk import topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
@@ -104,13 +110,30 @@ def decoder_norms(params) -> torch.Tensor:
     return torch.linalg.vector_norm(w.reshape(w.shape[0], -1), dim=1)
 
 
+def _encode_fits(width: int, s: int) -> bool:
+    """The flattened TopK encode takes the top-k encode (kernel B or the
+    blocked encode): bf16 W_enc [L*D, S] within the JAX package's budget
+    (``pallas_sae.py:uses_blocked`` false), widths the encode holds."""
+    return (width % 32 == 0 and s % 32 == 0 and s <= _build.MAX_WIDE_ROW
+            and 2 * width * s <= FUSED_W_BYTES)
+
+
 def crosscoder_apply(params, acts: torch.Tensor, *, k: int | None = None,
                      sparsity_weight: float = 0.01, compute_dtype=torch.float32):
     """Pure forward on [L, B, D] -> (recon [L, B, D], hidden [B, S], loss,
     recon_loss, sparsity_loss, l0).  ``k=None`` is the ReLU + weighted-L1
-    variant."""
-    pre = crosscoder_encode_pre(params, acts, compute_dtype)
-    hidden = torch.relu(pre) if k is None else topk_mask_dense(pre, k)
+    variant.  Under AMP the TopK encode is the top-k encode on the
+    flattened view (b_pre = 0, a bf16 latent) where bf16 W_enc fits the
+    budget, as the JAX package encodes it."""
+    n_layers, _, d_model = acts.shape
+    width = n_layers * d_model
+    if (k is not None and compute_dtype == torch.bfloat16
+            and _encode_fits(width, params["b_enc"].shape[0])):
+        hidden = fused_topk_encode(_rows_of(acts), _flat(params)[0], params["b_enc"],
+                                   torch.zeros(width, device=acts.device), k)
+    else:
+        pre = crosscoder_encode_pre(params, acts, compute_dtype)
+        hidden = torch.relu(pre) if k is None else topk_mask_dense(pre, k)
     recon = crosscoder_decode(params, hidden, compute_dtype)
     recon_loss = torch.mean(torch.square(recon - acts), dim=(1, 2)).sum()
     if k is None:
@@ -129,9 +152,9 @@ def crosscoder_loss(params, acts: torch.Tensor, *, k: int | None = None,
                     ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training loss -> (loss, {reconstruction_loss, sparsity_loss, l0,
     active}).  bf16 runs the coder kernel on the flattened view, where the
-    sum of per-layer means is L x the flat mean, where the kernel holds
-    the geometry; a wider one (S > 3072) is ``crosscoder_apply``, as the
-    JAX package composes it beyond ``fused_coder_supported``."""
+    sum of per-layer means is L x the flat mean, wherever the kernel takes
+    the geometry; past its budget it is ``crosscoder_apply``, as the JAX
+    package composes it beyond ``fused_coder_supported``."""
     n_layers, _, d_model = acts.shape
     width = n_layers * d_model
     if compute_dtype == torch.bfloat16 and coder_supported(width, width, params["b_enc"].shape[0]):

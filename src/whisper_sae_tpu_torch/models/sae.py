@@ -19,8 +19,9 @@ H = 3072), else (whisper-large) the composed
 whisper-large 32x); an f32 ``topk_hidden_dense`` is an f32 product (TF32
 off) followed by kernel C (``ops.topk.topk_mask_dense``, its CTA-per-row
 form above H = 3072).  A bf16 ``relu_sae_loss`` is the coder kernel in
-ReLU mode (``ops.cuda_coder.fused_relu_sae_loss``) where it holds the
-geometry, else the composed ``relu_sae_apply``.  On the CPU each
+ReLU mode (``ops.cuda_coder.fused_relu_sae_loss``) where
+``coder_supported`` holds (the same 48 MiB budget, at any H up to
+40960), else the composed ``relu_sae_apply``.  On the CPU each
 kernel's plain version runs instead, on the same route.
 
 :class:`TopKSAE` is the ``nn.Module`` facade with the reference's object

@@ -11,13 +11,15 @@ decoder row at the normalised residual.
 
 Dispatch: a bf16 ``transcoder_loss`` is the coder kernel
 (``ops.cuda_coder.fused_transcoder_loss``), which also exposes
-``predicted = resid + y`` and the latent, where the kernel holds the
-geometry; a wider one (H > 3072) is the blocked encode
-(``ops.cuda_sae.fused_topk_encode`` with b_pre = 0) followed by f32
-products of bf16 operands for the decode and the skip path, as in JAX
-``models/transcoder.py:114-128``; f32 is the composed path (f32 products,
-kernel C for the mask).  On the CPU each kernel's plain version runs
-instead, on the same route.
+``predicted = resid + y`` and the latent, wherever the JAX package fuses
+it (``coder_supported``: bf16 W_enc + W_dec + W_skip within 48 MiB, as
+``fused_coder_supported`` with the skip path; the kernel's wide route
+past H = 3072); beyond that budget (whisper-large 8x) it is the top-k
+encode (``ops.cuda_sae.fused_topk_encode`` with b_pre = 0) followed by
+f32 products of bf16 operands for the decode and the skip path, as in
+JAX ``models/transcoder.py:114-128``; f32 is the composed path (f32
+products, kernel C for the mask).  On the CPU each kernel's plain
+version runs instead, on the same route.
 """
 
 from __future__ import annotations
@@ -81,14 +83,14 @@ def transcoder_loss(params, x: torch.Tensor, y: torch.Tensor, k: int,
     if use_skip is None:
         use_skip = "w_skip" in params
     d, h = params["w_enc"].shape
-    if compute_dtype == torch.bfloat16 and coder_supported(d, y.shape[1], h):
+    if compute_dtype == torch.bfloat16 and coder_supported(d, y.shape[1], h, with_skip=use_skip):
         loss, l0, active, resid, hid = fused_transcoder_loss(
             x, y, params["w_enc"], params["b_enc"], params["w_dec"], params["b_dec"],
             params.get("w_skip"), params.get("b_skip"), k, use_skip,
         )
         return loss, {"l0": l0, "active": active, "predicted": resid + y.float(),
                       "hidden": hid.float()}
-    if compute_dtype == torch.bfloat16:  # wider than the coder kernel holds
+    if compute_dtype == torch.bfloat16:  # past the coder kernel's budget
         hidden = fused_topk_encode(x, params["w_enc"], params["b_enc"],
                                    torch.zeros(d, device=x.device), k)
         pred = mm_f32(hidden, params["w_dec"].bfloat16()) + params["b_dec"]

@@ -31,7 +31,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 MAX_D = 384  # kernel A's warp form decodes D in one pass, D/32 f32 sums a lane
 SEL_ROWS = 4  # rows (one a warp) a CTA of the select-and-decode kernels: one sq partial each
 MAX_ROW = 3072  # one warp holds a row in registers: kernels A, B, C and the coder kernel
-MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, wide kernels A and C
+MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, the wide kernels
 BLOCKED_CHUNK_ROWS = 2048  # rows of a chunk of the blocked encode
 PRE_BUDGET = BLOCKED_CHUNK_ROWS * MAX_WIDE_ROW * 4  # bytes of a chunk's f32 pre at most
 
@@ -108,6 +108,12 @@ _SIGNATURES = {
         [_P, _I, _P, _I, _L, _I, _I, _I, _I, _I,   # x, x_bf16, y, y_bf16, off, rows, d, h, dout, k
          _I, _I, _P, _P, _P, _P, _P,               # use_skip, y_is_x, w_enc_t, b_enc, w_dec, b_out, w_skip_t
          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],  # hid, resid, xc, pre, sq/hsum partials, counts, sums, hsum, stream
+        _I,
+    ),
+    "wst_coder_wide_fwd": (
+        [_P, _I, _P, _I, _L, _I, _I, _I, _I, _I,   # x, x_bf16, y, y_bf16, off, rows, d, h, dout, k
+         _I, _I, _P, _P, _P, _P, _P,               # use_skip, y_is_x, w_enc_t, b_enc, w_dec, b_out, w_skip_t
+         _P, _P, _P, _P, _P, _P, _P, _P],          # hid, resid, xc, pre, sq partials, counts, sums, stream
         _I,
     ),
     "wst_coder_gemm_fwd": (

@@ -11,7 +11,10 @@ clock, none waiting for the card); then the wall time of a training step
 of 200 steps) and of a ReLU crosscoder (L=4, S=3072), a TopK crosscoder
 (L=4, S=3072, k=32) and a Skip transcoder (D=384, H=3072, k=32) at batch
 4096 (an epoch of 20 steps) and 32768 (6), on the host clock after a warm
-epoch.  The kernels are those of the package found on the import path,
+epoch.  Then the same modes at whisper-small 8x (``whisper_small_8x_*``:
+D = dout = 768, H = 6144, the crosscoders as L*D = 2 x 384, S = 6144;
+the TopK modes on their wide route) at 4096 and 32768 rows, and a Skip
+transcoder training step there at batch 4096 (20 steps).  The kernels are those of the package found on the import path,
 built from its own sources, so the same command run with another tree's
 ``src`` first on ``PYTHONPATH`` times that tree: run the two in turns
 (parent, change, change, parent) in one call to compare them on one card
@@ -42,6 +45,8 @@ from ..training.trainer import SAETrainer
 
 D, H, K = 384, 3072, 32
 ROWS = (128, 4096, 32768)
+SMALL_D, SMALL_H = 768, 6144  # whisper-small 8x
+SMALL_ROWS = (4096, 32768)
 MODES = {  # mode: (D, dout, k or None for ReLU, skip, y is x)
     "skip_transcoder": (D, D, K, True, False),
     "topk_transcoder": (D, D, K, False, False),
@@ -64,6 +69,33 @@ def _host_us(fn, calls: int = 50) -> float:
     return us
 
 
+def _modes(res: dict, dev, one_layout: bool, h: int, rows_list, prefix: str = "",
+           width: int | None = None) -> None:
+    """Each mode at width ``h`` (and D = dout = ``width`` when given) on
+    ``rows_list`` rows, into ``res[prefix + mode]``."""
+    for i, (mode, (d, dout, k, skip, y_is_x)) in enumerate(MODES.items()):
+        if width is not None:
+            d = dout = width
+        g = torch.Generator(device=dev).manual_seed(i)
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device=dev) * scale
+
+        ops = cuda_coder.operands(randn(d, h, scale=d ** -0.5), randn(h, scale=0.05),
+                                  randn(h, dout, scale=0.05), randn(dout, scale=0.05),
+                                  randn(d, dout, scale=0.02) if skip else None,
+                                  **({"topk": k is not None} if one_layout else {}))
+        wide = {"wide": cuda_coder.uses_wide(h, k)} if h > _build.MAX_ROW else {}
+        out = res[prefix + mode] = {}
+        for rows in rows_list:
+            x = randn(rows, d)
+            y = None if y_is_x else randn(rows, dout)
+            call = lambda: cuda_coder._coder_launch(x, y, 0, rows, ops, k, **wide)  # noqa: E731
+            out[str(rows)] = time_ms(call, iters=5 if rows > 4096 else 20)
+            if rows == 128:
+                out["host_us_128"] = _host_us(call)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("coder_probe: needs a CUDA device")
@@ -73,24 +105,8 @@ def main() -> None:
     _build.load_library()
     res = {"card": card, "src": cuda_coder.__file__}
     one_layout = "topk" in inspect.signature(cuda_coder.operands).parameters
-    for i, (mode, (d, dout, k, skip, y_is_x)) in enumerate(MODES.items()):
-        g = torch.Generator(device=dev).manual_seed(i)
-
-        def randn(*shape, scale=1.0):
-            return torch.randn(*shape, generator=g, device=dev) * scale
-
-        ops = cuda_coder.operands(randn(d, H, scale=d ** -0.5), randn(H, scale=0.05),
-                                  randn(H, dout, scale=0.05), randn(dout, scale=0.05),
-                                  randn(d, dout, scale=0.02) if skip else None,
-                                  **({"topk": k is not None} if one_layout else {}))
-        res[mode] = {}
-        for rows in ROWS:
-            x = randn(rows, d)
-            y = None if y_is_x else randn(rows, dout)
-            call = lambda: cuda_coder._coder_launch(x, y, 0, rows, ops, k)  # noqa: E731
-            res[mode][str(rows)] = time_ms(call, iters=5 if rows > 4096 else 20)
-            if rows == ROWS[0]:
-                res[mode]["host_us_128"] = _host_us(call)
+    _modes(res, dev, one_layout, H, ROWS)
+    _modes(res, dev, one_layout, SMALL_H, SMALL_ROWS, "whisper_small_8x_", SMALL_D)
     g = torch.Generator(device=dev).manual_seed(99)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as runs:
@@ -113,6 +129,12 @@ def main() -> None:
                 tc, (torch.randn(steps * b, D, generator=g, device=dev),
                      torch.randn(steps * b, D, generator=g, device=dev)), steps)
             del tc
+        cfg = TrainingConfig(batch_size=4096, warmup_steps=10, use_amp=True)
+        tc = TranscoderTrainer(create_transcoder(SMALL_D, SMALL_D, SMALL_H, k=K, use_skip=True,
+                                                 device=dev), cfg, run_dir=f"{runs}/small")
+        res["whisper_small_8x_skip_transcoder_step_4096"] = step_ms(
+            tc, (torch.randn(20 * 4096, SMALL_D, generator=g, device=dev),
+                 torch.randn(20 * 4096, SMALL_D, generator=g, device=dev)), 20)
     print(json.dumps(res), flush=True)
 
 

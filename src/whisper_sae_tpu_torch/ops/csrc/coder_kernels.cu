@@ -69,7 +69,29 @@
 // The price is kernel A's: the f32 pre's round trip through device
 // memory, 2*B*H*4 bytes beyond the bound (101 MB at B=4096, ~0.03 ms),
 // and the decode's gathers, k rows of W_dec a row (32 * 1536 * 2 bytes
-// at the crosscoder), served from L2.  The TopK modes' earlier form, a row
+// at the crosscoder), served from L2.
+//
+// The TopK modes' wide route ("coder_wide_fwd", wst_coder_wide_fwd), the
+// same function at every geometry the JAX package fuses (bf16 W_enc +
+// W_dec [+ W_skip] within its 48 MiB VMEM budget) past the warp select's
+// H <= 3072: whisper-small 8x and 16x, whisper-medium 8x, whisper-tiny up
+// to 64x, the crosscoders at S = 6144.  The cast over all rows (and, in
+// Skip mode, the skip product over all rows into resid), then per chunk
+// of rows whose f32 pre fits the blocked encode's budget (kernel B's
+// chunk: 13,568 rows at H = 6144) the kPre encode into a [chunk, H]
+// workspace and coder_select_decode_wide_kernel<N, SKIP, Y_IS_X>: one CTA
+// of 512 threads a row, the CTA select of topk_common.cuh, the list of
+// selections in feature order (cta_select_to_list) and the decode with
+// the warps over dout in 32-column tiles (wide_tiles), each column the
+// same fmaf chain in list order as the warp form's, so the two give the
+// same latent and resid bits where both hold the geometry; one loss
+// partial a row, summed by coder_sum_kernel in a fixed order.  Bound of
+// the Skip transcoder at whisper-small 8x (D = dout = 768, H = 6144,
+// B = 4096): the encode and skip products' 43.5 GFLOP (0.044 ms) against
+// ~114 MB moved (0.034 ms): operations.  The route adds the f32 pre's
+// round trip (2*4*B*H = 201 MB, 0.060 ms), as the warp form does.  The
+// ReLU modes need no wide form: their two GEMMs and the per-feature sums
+// take any H.  The TopK modes' earlier form, a row
 // kernel of 16-row CTAs (mma.sync from L2, a [16, H] f32 tile of pre in
 // shared memory, so one CTA an SM, re-reading both weights every 16 rows,
 // and a dense decode of the latent's zeros), took 0.3157 / 0.2900 /
@@ -91,6 +113,10 @@
 #include "select_decode.cuh"
 #include "topk_common.cuh"
 
+// blocked_encode.cu: the rows of a chunk whose f32 pre fits the blocked
+// encode's budget at width h (kernel B's chunk; the wide routes')
+extern "C" int wst_sae_topk_encode_chunk_rows(int h);
+
 namespace wst {
 namespace coder {
 
@@ -109,12 +135,12 @@ struct SelectArgs {
   int y_bf16;
   long long row_offset;       // first row of this batch in x (and y)
   int rows, d, h, dout, k;
-  const float* pre;           // [rows, h] f32: xc @ W_enc + b_enc
+  const float* pre;           // [rows, h] f32: xc @ W_enc + b_enc (wide: the chunk's rows)
   const unsigned short* w_dec;  // [h, dout] bf16
   const float* b_out;         // [dout] (not SKIP)
   unsigned short* hidden;     // [rows, h] bf16
   float* resid;               // [rows, dout]; SKIP: holds xc @ W_skip + b_out on entry
-  float* sq_partial;          // [gridDim.x]
+  float* sq_partial;          // [gridDim.x] (wide: [rows], one a row)
   int* counts;                // [1 + h], zeroed: l0, active
 };
 
@@ -165,6 +191,67 @@ __global__ void __launch_bounds__(kSelThreads, 4) coder_select_decode_kernel(Sel
     for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
   }
   cta_partial(sq, nsel, a.sq_partial, a.counts);
+}
+
+// The TopK modes' wide form: one CTA a row of a chunk, for rows wider
+// than a warp's registers.  Block b takes row row0 + b of the batch (its
+// pre at chunk row b, its x and y at row row_offset + row0 + b): the
+// threshold over the row in registers (cta_kth_largest), the latent and
+// the list of selections in feature order (cta_select_to_list), the
+// decode with the warps over dout in 32-column tiles, each column summed
+// in list order as the warp form sums it; resid = (decode + base) - y
+// with base = resid's row (Skip, read before it is overwritten) or b_out;
+// then sq_partial[row0 + b] = the row's sum(resid^2) (each warp's tiles in
+// order, the warps in order), and its selections added to l0 (int32).
+// Dynamic shared memory holds the list (h entries at most).
+template <int N, bool SKIP, bool Y_IS_X>
+__global__ void __launch_bounds__(kWideThreads, N <= 16 ? 2 : 1)
+    coder_select_decode_wide_kernel(SelectArgs a, int row0) {
+  extern __shared__ unsigned int wide_list[];
+  __shared__ int warp_cnt[2][kWideWarps];
+  __shared__ WideSelScratch<N> sc;
+  __shared__ float warp_sq[kWideWarps];
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  const size_t g = (size_t)row0 + blockIdx.x;
+  int xi[N];
+  load_wide_monotone(a.pre + (size_t)blockIdx.x * a.h, a.h, xi);
+  const int th = cta_kth_largest(xi, a.k, warp_cnt);
+  const int nsel = cta_select_to_list(xi, th, a.h, a.hidden + g * a.h, a.counts + 1, wide_list, sc);
+
+  int t0, t1;
+  wide_tiles(a.dout / kWarp, warp, t0, t1);
+  const size_t src = (size_t)(a.row_offset + (long long)g);
+  float* rrow = a.resid + g * a.dout;
+  float sq = 0.0f;
+  for (int tb = t0; tb < t1; tb += kWideDecTiles) {
+    const int nt = min(kWideDecTiles, t1 - tb);
+    float acc[kWideDecTiles];
+#pragma unroll
+    for (int t = 0; t < kWideDecTiles; ++t) acc[t] = 0.0f;
+    sparse_decode(wide_list, nsel, a.w_dec, a.dout, tb * kWarp, nt, lane, acc);
+#pragma unroll
+    for (int t = 0; t < kWideDecTiles; ++t) {
+      if (t < nt) {
+        const int c = (tb + t) * kWarp + lane;
+        const float base = SKIP ? rrow[c] : a.b_out[c];
+        const float yv = Y_IS_X ? load_val(a.x, a.x_bf16, src * a.d + c)
+                                : load_val(a.y, a.y_bf16, src * a.dout + c);
+        const float res = (acc[t] + base) - yv;
+        rrow[c] = res;
+        sq = fmaf(res, res, sq);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = kWarp / 2; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+  if (lane == 0) warp_sq[warp] = sq;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.0f;
+    for (int w = 0; w < kWideWarps; ++w) total += warp_sq[w];
+    a.sq_partial[g] = total;
+    atomicAdd(a.counts, nsel);
+  }
 }
 
 // sums[blockIdx.x] = the n_sq partials of block 0 (sum resid^2) or the
@@ -309,6 +396,73 @@ int topk_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row
   return (int)cudaGetLastError();
 }
 
+// The wide route's select and decode, per chunk of rows: the instance
+// for the row width (WST_WIDE_DISPATCH) and the mode.
+template <bool SKIP, bool Y_IS_X>
+int launch_select_wide(const SelectArgs& a, int d, const void* xc, const void* w_enc_t,
+                       const void* b_enc, cudaStream_t s) {
+  const int smem = a.h * (int)sizeof(unsigned int);
+  int err = 0;
+#define WST_CODER_WIDE_SMEM(N)                                                              \
+  err = (int)cudaFuncSetAttribute(coder_select_decode_wide_kernel<N, SKIP, Y_IS_X>,         \
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+  WST_WIDE_DISPATCH(a.h, WST_CODER_WIDE_SMEM)
+#undef WST_CODER_WIDE_SMEM
+  if (err) return err;
+  const int chunk = wst_sae_topk_encode_chunk_rows(a.h);
+  for (int row0 = 0; row0 < a.rows; row0 += chunk) {
+    const int n = a.rows - row0 < chunk ? a.rows - row0 : chunk;
+    // the chunk's bf16 rows: 16-byte aligned (row0 * d * 2 is a multiple of 64), as TMA reads them
+    err = wst_enc_gemm_fwd(wst_gemm::kPre, static_cast<const unsigned short*>(xc) + (size_t)row0 * d,
+                           w_enc_t, n, a.h, d, b_enc, 1.0f, 0, const_cast<float*>(a.pre), nullptr,
+                           nullptr, nullptr, s);
+    if (err) return err;
+#define WST_LAUNCH_CODER_WIDE(N) \
+  coder_select_decode_wide_kernel<N, SKIP, Y_IS_X><<<n, kWideThreads, smem, s>>>(a, row0)
+    WST_WIDE_DISPATCH(a.h, WST_LAUNCH_CODER_WIDE)
+#undef WST_LAUNCH_CODER_WIDE
+    err = (int)cudaGetLastError();
+    if (err) return err;
+  }
+  return 0;
+}
+
+// The TopK modes' wide route: cast, [the skip product over all rows
+// (kPre)], per chunk the encode (kPre) and the CTA-per-row select and
+// decode, sum.
+int topk_wide_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row_offset,
+                  int rows, int d, int h, int dout, int k, int use_skip, int y_is_x,
+                  const void* w_enc_t, const void* b_enc, const void* w_dec, const void* b_out,
+                  const void* w_skip_t, void* hidden, void* resid, void* xc, void* pre,
+                  void* sq_partial, void* counts, void* sums, void* stream) {
+  if (h > kMaxWideRow || k > h || (y_is_x ? dout != d : y == nullptr) ||
+      (use_skip && (!w_skip_t || y_is_x)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err = cast(x, x_bf16, row_offset, rows, d, xc, counts, 1 + h, s);
+  if (err) return err;
+  if (use_skip) {
+    err = wst_enc_gemm_fwd(wst_gemm::kPre, xc, w_skip_t, rows, dout, d, b_out, 1.0f, 0, resid,
+                           nullptr, nullptr, nullptr, stream);
+    if (err) return err;
+  }
+  const SelectArgs a{x, x_bf16, y, y_bf16, row_offset, rows, d, h, dout, k,
+                     static_cast<const float*>(pre),
+                     static_cast<const unsigned short*>(w_dec),
+                     static_cast<const float*>(b_out),
+                     static_cast<unsigned short*>(hidden),
+                     static_cast<float*>(resid),
+                     static_cast<float*>(sq_partial),
+                     static_cast<int*>(counts)};
+  err = use_skip ? launch_select_wide<true, false>(a, d, xc, w_enc_t, b_enc, s)
+        : y_is_x ? launch_select_wide<false, true>(a, d, xc, w_enc_t, b_enc, s)
+                 : launch_select_wide<false, false>(a, d, xc, w_enc_t, b_enc, s);
+  if (err) return err;
+  coder_sum_kernel<<<1, kSumThreads, 0, s>>>(static_cast<const float*>(sq_partial), rows, nullptr,
+                                              0, static_cast<float*>(sums));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace coder
 }  // namespace wst
 
@@ -342,6 +496,25 @@ int wst_coder_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long lon
   return C::topk_fwd(x, x_bf16, y, y_bf16, row_offset, rows, d, h, dout, k, use_skip, y_is_x,
                      w_enc_t, b_enc, w_dec, b_out, w_skip_t, hidden, resid, xc, pre, sq_partial,
                      counts, sums, stream);
+}
+
+// The TopK modes' wide route (k >= 1; d, h and dout multiples of 32, h
+// <= wst_max_wide_row_width()): the arguments of wst_coder_fwd's TopK
+// modes, with ``pre`` an f32 [min(rows, wst_sae_topk_encode_chunk_rows(h)),
+// h] workspace (the chunk's encode) and sq_partial [rows] (one partial a
+// row).  Skip mode with y given only (the transcoder).
+int wst_coder_wide_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row_offset,
+                       int rows, int d, int h, int dout, int k, int use_skip, int y_is_x,
+                       const void* w_enc_t, const void* b_enc, const void* w_dec,
+                       const void* b_out, const void* w_skip_t, void* hidden, void* resid,
+                       void* xc, void* pre, void* sq_partial, void* counts, void* sums,
+                       void* stream) {
+  if (rows <= 0 || d <= 0 || h <= 0 || dout <= 0 || k < 1 || d % wst::kWarp || h % wst::kWarp ||
+      dout % wst::kWarp)
+    return (int)cudaErrorInvalidValue;
+  return wst::coder::topk_wide_fwd(x, x_bf16, y, y_bf16, row_offset, rows, d, h, dout, k,
+                                   use_skip, y_is_x, w_enc_t, b_enc, w_dec, b_out, w_skip_t,
+                                   hidden, resid, xc, pre, sq_partial, counts, sums, stream);
 }
 
 }  // extern "C"

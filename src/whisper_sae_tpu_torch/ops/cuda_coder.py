@@ -27,16 +27,26 @@ The entry points keep the JAX names and the JAX parameter layout
 ``fused_transcoder_loss`` (TopK transcoder, Skip transcoder and, with
 ``y_is_x``, the TopK crosscoder on its flattened view),
 ``fused_relu_sae_loss``, ``fused_relu_crosscoder_loss`` and their
-``*_indexed`` forms.  Each counts its launches in ``.launches``, and
-``mode_launches`` counts them by (entry, mode).  A CUDA tensor goes to the
-kernel (or the wrapper raises); a CPU tensor to the plain version beside
-it, counted in ``plain_calls``.  The TopK modes' select holds a row of pre
-in one warp's registers, so the call takes H <= 3072 in every mode
+``*_indexed`` forms.  Each counts its launches in ``.launches``, those
+past H = 3072 also in ``.wide_launches``, and ``mode_launches`` counts
+them by (entry, mode).  A CUDA tensor goes to the kernel (or the wrapper
+raises); a CPU tensor to the plain version beside it, counted in
+``plain_calls``.
+
+The kernel takes every geometry the JAX package fuses
 (:func:`coder_supported`, the port's counterpart of
-``fused_coder_supported``); wider geometries are
-composed around the blocked encode by the models, as the JAX package
-composes them.  The TPU's other gates (``pick_block_rows``, ``WST_*``)
-have no counterpart.
+``fused_coder_supported``: bf16 W_enc + W_dec, plus W_skip with the skip
+path, within the JAX package's 48 MiB).  The TopK modes' warp select
+holds a row of pre in one warp's registers, H <= 3072; past it they take
+the wide route, ``coder_wide_fwd`` (``wst_coder_wide_fwd``): the cast,
+in Skip mode the skip product over all rows, then per chunk of kernel
+B's rows the kPre encode and ``coder_select_decode_wide_kernel<N, SKIP,
+Y_IS_X>`` (one CTA a row, the decode's warps over dout in 32-column
+tiles), and the sum over one partial a row (:func:`coder_topk_route_plain`
+with ``per_row``).  The ReLU modes run one route at every width.  Beyond
+the budget (whisper-large 8x, whisper-tiny 128x) the models compose the
+loss around the blocked encode, as the JAX package composes it.  The
+TPU's other gates (``pick_block_rows``, ``WST_*``) have no counterpart.
 
 Each backward transcribes its JAX custom VJP (``_fused_coder_vjp_bwd``
 :758-799, ``_fused_relu_vjp_bwd`` :845-875, ``_fused_relu_cc_vjp_bwd``
@@ -53,16 +63,28 @@ import torch
 
 from ..utils.device import mm_f32
 from . import _build
+from .cuda_sae import FUSED_W_BYTES
 from .topk import topk_mask_plain
 
 mode_launches: Counter = Counter()
 plain_calls: Counter = Counter()
 
 
-def coder_supported(d: int, dout: int, h: int) -> bool:
-    """The coder kernel holds the geometry: D, dout and H multiples of 32,
-    H <= 3072."""
-    return d % 32 == 0 and dout % 32 == 0 and h % 32 == 0 and h <= _build.MAX_ROW
+def coder_supported(d: int, dout: int, h: int, with_skip: bool = False) -> bool:
+    """The coder kernel takes the geometry (``pallas_sae.py:
+    fused_coder_supported``): D, dout and H multiples of 32, bf16 W_enc +
+    W_dec (+ W_skip ``with_skip``) within ``FUSED_W_BYTES``, H within the
+    CTA select's row.  Whisper-tiny to 64x, base, small 8x and 16x,
+    medium 8x; not whisper-large 8x or tiny 128x."""
+    w_bytes = (d * h + h * dout + (d * dout if with_skip else 0)) * 2
+    return (d % 32 == 0 and dout % 32 == 0 and h % 32 == 0 and w_bytes <= FUSED_W_BYTES
+            and h <= _build.MAX_WIDE_ROW)
+
+
+def uses_wide(h: int, k: int | None) -> bool:
+    """A launch at width ``h`` takes the TopK modes' wide route: a row of
+    pre wider than a warp's registers."""
+    return k is not None and h > _build.MAX_ROW
 
 
 def _bf16_t(w: torch.Tensor) -> torch.Tensor:
@@ -178,17 +200,20 @@ def coder_route_plain(x: torch.Tensor, row_offset: int, rows: int,
 
 
 def coder_topk_route_plain(x: torch.Tensor, y: torch.Tensor | None, row_offset: int, rows: int,
-                           ops: CoderOperands, k: int, pass_cols: int) -> CoderOut:
+                           ops: CoderOperands, k: int, pass_cols: int,
+                           per_row: bool = False) -> CoderOut:
     """The TopK modes' CUDA route written out in plain PyTorch, for the
     tests: ``x[row_offset : row_offset + rows]`` to bf16, the encode (the
     kPre product), in Skip mode the base ``xc @ W_skip + b_out`` first (the
     second kPre product), the exact top-k and the bf16 latent; then each
     row's decode from its selected rows of W_dec in feature order, in
-    passes of ``pass_cols`` output columns (the kernel's 384), resid =
-    (decode + base) - y (``y`` None: the rows themselves); one sum(resid^2)
-    partial a CTA of ``_build.SEL_ROWS`` rows, its rows added in order,
-    and the partials in ``coder_sum_kernel``'s fixed order.  A row's sum
-    of squares runs in PyTorch's order, not the warp's."""
+    passes of ``pass_cols`` output columns (the kernel's 384; the wide
+    route's 32-column tiles), resid = (decode + base) - y (``y`` None: the
+    rows themselves); one sum(resid^2) partial a CTA of ``_build.SEL_ROWS``
+    rows, its rows added in order (``per_row``: one a row, the wide
+    route's; its chunks change no value), and the partials in
+    ``coder_sum_kernel``'s fixed order.  A row's sum of squares runs in
+    PyTorch's order, not the kernel's."""
     win = slice(row_offset, row_offset + rows)
     xw = x[win]
     target = (xw if y is None else y[win]).float()
@@ -213,7 +238,7 @@ def coder_topk_route_plain(x: torch.Tensor, y: torch.Tensor | None, row_offset: 
         for j in range(nsel):
             acc = acc + hv[:, j:j + 1] * wd[feats[:, j], cols]
         resid[:, cols] = (acc + base[:, cols]) - target[:, cols]
-    per_cta = _build.SEL_ROWS
+    per_cta = 1 if per_row else _build.SEL_ROWS
     row_sq = torch.zeros(-(-rows // per_cta) * per_cta, device=dev)
     row_sq[:rows] = (resid * resid).sum(dim=1)
     row_sq = row_sq.view(-1, per_cta)
@@ -232,9 +257,11 @@ def _check(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
         )
 
 
-def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int | None) -> CoderOut:
+def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int | None,
+                  wide: bool = False) -> CoderOut:
     """The kernel on ``x[row_offset : row_offset + rows]`` (and the same rows
-    of ``y``), CUDA only."""
+    of ``y``), CUDA only; ``wide`` takes the TopK modes' wide route, which
+    holds every H up to ``wst_max_wide_row_width()``, narrow ones too."""
     lib = _build.load_library()
     h, d = ops.we_t.shape
     dout = ops.b_out.shape[0]
@@ -249,8 +276,13 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
         raise ValueError(f"y = x needs dout == D (got {dout} and {d})")
     if d % 32 or h % 32 or dout % 32:
         raise ValueError(f"the coder kernel takes D, H and dout multiples of 32 (got {d}, {h}, {dout})")
-    if h > lib.wst_max_row_width():
-        raise ValueError(f"the coder kernel's TopK select holds a row of pre in one warp's "
+    if h > lib.wst_max_wide_row_width():
+        raise ValueError(f"the coder kernel's CTA select holds a row of pre in one CTA's "
+                         f"registers: H <= {lib.wst_max_wide_row_width()} (got {h})")
+    if wide and k is None:
+        raise ValueError("the wide route is the TopK modes': the ReLU modes take every H")
+    if k is not None and not wide and h > lib.wst_max_row_width():
+        raise ValueError(f"the coder kernel's TopK warp select holds a row of pre in one warp's "
                          f"registers: H <= {lib.wst_max_row_width()} (got {h})")
     if k is not None and not 1 <= k <= h:
         raise ValueError(f"need 1 <= k <= H (got k={k}, H={h})")
@@ -286,6 +318,11 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
         hsum_partial = torch.empty((-(-rows // (tile // 2)), h), dtype=torch.float32, device=dev)
         hsum = torch.empty((h,), dtype=torch.float32, device=dev)
         counts = torch.empty((1,), dtype=torch.int32, device=dev)  # l0; active: hsum > 0
+    elif wide:  # one loss partial a row; the encode's workspace holds one chunk
+        sq_parts = rows
+        pre = torch.empty((min(rows, lib.wst_sae_topk_encode_chunk_rows(h)), h),
+                          dtype=torch.float32, device=dev)
+        counts = torch.empty((1 + h,), dtype=torch.int32, device=dev)  # l0, active
     else:
         sq_parts = -(-rows // lib.wst_rows_per_cta())
         pre = torch.empty((rows, h), dtype=torch.float32, device=dev)  # the encode's workspace
@@ -295,27 +332,34 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.wst_coder_fwd(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), ptr(y),
-        int(y is not None and y.dtype == torch.bfloat16), row_offset, rows, d, h, dout,
-        0 if relu else k, int(ops.ws_t is not None), int(y is None),
-        ops.we_t.data_ptr(), ops.b_enc.data_ptr(), wd.data_ptr(), ops.b_out.data_ptr(),
-        ptr(ops.ws_t), hid.data_ptr(), resid.data_ptr(), xc.data_ptr(), ptr(pre),
-        sq_partial.data_ptr(), ptr(hsum_partial), counts.data_ptr(), sums.data_ptr(), ptr(hsum),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "coder_fwd")
+    head = (x.data_ptr(), int(x.dtype == torch.bfloat16), ptr(y),
+            int(y is not None and y.dtype == torch.bfloat16), row_offset, rows, d, h, dout,
+            0 if relu else k, int(ops.ws_t is not None), int(y is None),
+            ops.we_t.data_ptr(), ops.b_enc.data_ptr(), wd.data_ptr(), ops.b_out.data_ptr(),
+            ptr(ops.ws_t), hid.data_ptr(), resid.data_ptr(), xc.data_ptr(), ptr(pre),
+            sq_partial.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if wide:
+        err, what = lib.wst_coder_wide_fwd(*head, counts.data_ptr(), sums.data_ptr(),
+                                           stream), "coder_wide_fwd"
+    else:
+        err, what = lib.wst_coder_fwd(*head, ptr(hsum_partial), counts.data_ptr(),
+                                      sums.data_ptr(), ptr(hsum), stream), "coder_fwd"
+    _build.check(err, what)
     return CoderOut(sums[0], counts[0], hsum > 0 if relu else counts[1:] > 0, hid, resid, xc,
                     sums[1] if relu else None, hsum)
 
 
 def coder_forward(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int | None,
                   entry, mode: str) -> CoderOut:
-    """The kernel for CUDA rows, the plain version for CPU rows; ``entry``
-    and ``mode`` name the launch in the counters."""
+    """The kernel for CUDA rows (the TopK modes' wide route past H =
+    3072), the plain version for CPU rows; ``entry`` and ``mode`` name the
+    launch in the counters."""
     if x.device.type == "cuda":
-        out = _coder_launch(x, y, row_offset, rows, ops, k)
+        h = ops.we_t.shape[0]
+        out = _coder_launch(x, y, row_offset, rows, ops, k, uses_wide(h, k))
         entry.launches += 1
+        entry.wide_launches += int(h > _build.MAX_ROW)
         mode_launches[(entry.__name__, mode)] += 1
         return out
     if x.device.type == "cpu":
@@ -414,7 +458,8 @@ def fused_transcoder_loss(x, y, w_enc, b_enc, w_dec, b_dec, w_skip, b_skip, k, u
     ``b_skip``; ``y_is_x`` takes the rows as their own target (the TopK
     crosscoder's flattened view) and ignores ``y``.  The backward honours
     the cotangents of ``resid`` and ``hidden`` too.  Launches are counted
-    in ``fused_transcoder_loss.launches``."""
+    in ``fused_transcoder_loss.launches``, those past H = 3072 (the wide
+    route) also in ``.wide_launches``."""
     return _TranscoderLoss.apply(
         x, None if y_is_x else y, 0, x.shape[0], w_enc, b_enc, w_dec, b_dec,
         w_skip if use_skip else None, b_skip if use_skip else None, k, fused_transcoder_loss,
@@ -427,7 +472,7 @@ def fused_transcoder_loss_indexed(xbuf, ybuf, step, w_enc, b_enc, w_dec, b_dec, 
     (step+1)*batch]``, read by the kernel at a row offset (no slice is
     copied).  Returns (loss, l0, active); the buffers are not
     differentiated.  Launches are counted in
-    ``fused_transcoder_loss_indexed.launches``."""
+    ``fused_transcoder_loss_indexed.launches`` (and ``.wide_launches``)."""
     loss, l0, active, _, _ = _TranscoderLoss.apply(
         xbuf, None if y_is_x else ybuf, int(step) * batch, batch, w_enc, b_enc, w_dec, b_dec,
         w_skip if use_skip else None, b_skip if use_skip else None, k,
@@ -508,14 +553,16 @@ def fused_relu_sae_loss(x, w_enc, b_enc, w_dec, b_dec, sparsity_weight):
     """(loss, recon_loss, sparsity_loss, l0, active) of a ReLU + L1 SAE under
     AMP in one kernel: recon = relu(bf16(x) @ W_enc + b_enc) @ W_dec + b_dec
     on the bf16 latent, loss = mean((recon - x)^2) + sw * mean(hidden).
-    Launches are counted in ``fused_relu_sae_loss.launches``."""
+    Launches are counted in ``fused_relu_sae_loss.launches``, those past
+    H = 3072 also in ``.wide_launches`` (the same route at every width)."""
     return _ReluLoss.apply(x, 0, x.shape[0], w_enc, b_enc, w_dec, b_dec, None,
                            float(sparsity_weight), 1, fused_relu_sae_loss)
 
 
 def fused_relu_sae_loss_indexed(buf, step, w_enc, b_enc, w_dec, b_dec, sparsity_weight, batch):
     """:func:`fused_relu_sae_loss` over ``buf[step*batch : (step+1)*batch]``
-    at a row offset.  Launches: ``fused_relu_sae_loss_indexed.launches``."""
+    at a row offset.  Launches: ``fused_relu_sae_loss_indexed.launches``
+    (and ``.wide_launches``)."""
     return _ReluLoss.apply(buf, int(step) * batch, batch, w_enc, b_enc, w_dec, b_dec, None,
                            float(sparsity_weight), 1, fused_relu_sae_loss_indexed)
 
@@ -527,7 +574,7 @@ def fused_relu_crosscoder_loss(x, w_enc, b_enc, w_dec, b_dec, norms, sparsity_we
     decoder norms, a differentiable input (its cotangent is c_sp * hsum,
     and autograd differentiates the norms themselves).  recon_loss = L x
     the flat MSE; sparsity = mean_b(hidden @ norms).  Launches are counted
-    in ``fused_relu_crosscoder_loss.launches``."""
+    in ``fused_relu_crosscoder_loss.launches`` (and ``.wide_launches``)."""
     return _ReluLoss.apply(x, 0, x.shape[0], w_enc, b_enc, w_dec, b_dec, norms,
                            float(sparsity_weight), int(n_layers), fused_relu_crosscoder_loss)
 
@@ -536,7 +583,8 @@ def fused_relu_crosscoder_loss_indexed(buf, step, w_enc, b_enc, w_dec, b_dec, no
                                        sparsity_weight, n_layers, batch):
     """:func:`fused_relu_crosscoder_loss` over ``buf[step*batch :
     (step+1)*batch]`` (the flattened [N, L*D] view) at a row offset.
-    Launches: ``fused_relu_crosscoder_loss_indexed.launches``."""
+    Launches: ``fused_relu_crosscoder_loss_indexed.launches`` (and
+    ``.wide_launches``)."""
     return _ReluLoss.apply(buf, int(step) * batch, batch, w_enc, b_enc, w_dec, b_dec, norms,
                            float(sparsity_weight), int(n_layers),
                            fused_relu_crosscoder_loss_indexed)
@@ -546,4 +594,4 @@ ENTRIES = (fused_transcoder_loss, fused_transcoder_loss_indexed, fused_relu_sae_
            fused_relu_sae_loss_indexed, fused_relu_crosscoder_loss,
            fused_relu_crosscoder_loss_indexed)
 for _entry in ENTRIES:
-    _entry.launches = 0
+    _entry.launches = _entry.wide_launches = 0

@@ -3,11 +3,12 @@
 
 Both reuse :class:`SAETrainer` whole (step, fused epochs, schedule,
 checkpoints, metrics, resampling) and override its family hooks.  Under
-AMP, where the coder kernel holds the geometry, the fused epoch reads
-each batch at a row offset into the epoch buffers through the kernel's
-windowed entries; otherwise each step takes a slice view of the buffers
-(a transcoder wider than the kernel: the blocked encode, then the
-composed decode; ``coder_trainers.py:72-85`` of the JAX package).
+AMP, wherever the JAX package fuses the family (``coder_supported``, with
+the skip path counted), the fused epoch reads each batch at a row offset
+into the epoch buffers through the kernel's windowed entries; otherwise
+each step takes a slice view of the buffers (a transcoder past the 48 MiB
+budget: the top-k encode, then the composed decode;
+``coder_trainers.py:72-85`` of the JAX package).
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ class TranscoderTrainer(SAETrainer):
     def _use_indexed_epoch(self) -> bool:
         m = self.model
         return (self.compute_dtype == torch.bfloat16
-                and coder_supported(m.input_dim, m.output_dim, m.hidden_dim))
+                and coder_supported(m.input_dim, m.output_dim, m.hidden_dim,
+                                    with_skip=self._use_skip))
 
     def _indexed_loss_fn(self, params, sel, step: int):
         x, y = sel

@@ -1,10 +1,13 @@
-"""The crosscoder wider than the coder kernel (S > 3072) against the JAX
-package, on the CPU.  Under AMP the port composes there, as the JAX
-package does beyond ``fused_coder_supported``
-(``models/crosscoder.py:180-185``, ``:227-236``): f32 products of bf16
-operands, and for TopK kernel C's wide form (its plain version here); the
-trainer takes the sliced epoch.  At L=2, D=64, S=6144 (the widths of a
-whisper-base crosscoder at its default expansion, S=4096, and above).
+"""The crosscoder's composed route at S > 3072 against the JAX package,
+on the CPU.  The coder kernel takes these widths (its wide route); the
+port composes past its 48 MiB budget, as the JAX package does beyond
+``fused_coder_supported`` (``models/crosscoder.py:180-185``, ``:227-236``),
+and these tests hold that route with the port's coder gate patched off
+(``port_composed``): f32 products of bf16 operands, and for TopK the
+top-k encode on the flattened view (the blocked encode's plain version
+here), as JAX ``crosscoder_apply`` encodes; the trainer takes the sliced
+epoch.  At L=2, D=64, S=6144 (the widths of a whisper-base crosscoder at
+its default expansion, S=4096, and above).
 
 Tolerances: the loss at rtol 1e-3 and the selection l0 within 2% (bf16
 products summed in another order by XLA and by torch, the bar of the AMP
@@ -60,6 +63,14 @@ def _few_threads():
     torch.set_num_threads(n)
 
 
+@pytest.fixture(autouse=True)
+def port_composed(monkeypatch):
+    """The port's crosscoder loss and trainer epoch composed, as past the
+    coder kernel's budget: its gate off where it is used."""
+    monkeypatch.setattr(txc, "coder_supported", lambda *a, **k: False)
+    monkeypatch.setattr(tct, "coder_supported", lambda *a, **k: False)
+
+
 def _params(seed: int) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     w_dec = rng.standard_normal((S, L, D))
@@ -71,7 +82,7 @@ def _params(seed: int) -> dict[str, np.ndarray]:
 
 
 def _no_kernel(*a, **k):
-    raise AssertionError("the coder kernel ran above its width")
+    raise AssertionError("the coder kernel ran with its gate off")
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -87,7 +98,8 @@ def test_wide_crosscoder_loss_composes_like_jax(variant, monkeypatch):
     plain_calls.clear()
     tl, taux = txc.crosscoder_loss(params_from_jax(params), torch.from_numpy(acts), k=k,
                                    compute_dtype=torch.bfloat16)
-    assert plain_calls["topk_mask_wide"] == (1 if k else 0)
+    assert plain_calls["fused_topk_encode_blocked"] == (1 if k else 0)
+    assert plain_calls["topk_mask_wide"] == 0
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-3)
     for key in ("reconstruction_loss", "sparsity_loss"):
         np.testing.assert_allclose(float(taux[key]), float(jaux[key]), rtol=1e-3, atol=1e-7)

@@ -1043,8 +1043,8 @@ CODER_MODES = {  # mode: (D, dout, H, k, skip, y_is_x)
 }
 
 
-def _coder_inputs(mode, n, seed, x_dtype=torch.float32, device="cuda"):
-    d, dout, h, k, skip, y_is_x = CODER_MODES[mode]
+def _coder_inputs(mode, n, seed, x_dtype=torch.float32, device="cuda", modes=CODER_MODES):
+    d, dout, h, k, skip, y_is_x = modes[mode]
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(n, d, generator=g).to(x_dtype)
     y = None if y_is_x else torch.randn(n, dout, generator=g).to(x_dtype)
@@ -1448,3 +1448,152 @@ def test_coder_topk_route_refuses(dev):
     relu_ops = ops._replace(wd=None, wd_t=ops.wd.t().contiguous())
     with pytest.raises(ValueError, match="TopK mode reads W_dec"):
         CC._coder_launch(x, y, 0, 64, relu_ops, k)
+
+
+# ---------------------------------------------------------------------------
+# the coder kernel past H = 3072 (every geometry the JAX package fuses): the
+# TopK modes' wide route (wst_coder_wide_fwd: the cast, the skip product, per
+# chunk the kPre encode and coder_select_decode_wide_kernel, the sum), the
+# ReLU modes' one route, at the bars of _check_coder above
+# ---------------------------------------------------------------------------
+
+WIDE_CODER_MODES = {  # whisper-small 8x; the crosscoders as 2 layers of 384 (S = 6144)
+    mode: (768, 768, 6144, k, skip, y_is_x)
+    for mode, (_, _, _, k, skip, y_is_x) in CODER_MODES.items()
+}
+
+
+@pytest.mark.parametrize("mode", TOPK_MODES)
+@pytest.mark.parametrize("offset,rows,n,x_dtype", [
+    (0, 4096, 4096, torch.float32), (4096, 4096, 8192, torch.bfloat16),
+    (37, 100, 300, torch.float32)])
+def test_coder_wide_route_matches_both_plain_versions(dev, mode, offset, rows, n, x_dtype):
+    """Sliced, at a row offset and on a ragged window, against
+    ``coder_forward_plain`` and the wide route written out
+    (``coder_topk_route_plain``: 32-column tiles, one partial a row)."""
+    x, y, ops, k = _coder_inputs(mode, n, 40, x_dtype, modes=WIDE_CODER_MODES)
+    got = CC._coder_launch(x, y, offset, rows, ops, k, True)
+    win = slice(offset, offset + rows)
+    want = CC.coder_forward_plain(x[win], None if y is None else y[win], ops, k)
+    _check_coder(got, want, k, f"{mode} wide [{offset}, {offset + rows})")
+    route = CC.coder_topk_route_plain(x, y, offset, rows, ops, k, 32, per_row=True)
+    _check_coder(got, route, k, f"{mode} wide [{offset}, {offset + rows}) route")
+
+
+@pytest.mark.parametrize("mode", TOPK_MODES)
+def test_coder_wide_route_equals_warp_form(dev, mode):
+    """At H = 3072 (the crosscoder at L*D = 1536) the wide route's latent,
+    residual, bf16 rows, l0 and active equal the warp form's bit for bit:
+    the same selections listed in feature order, each column the same fmaf
+    chain."""
+    x, y, ops, k = _coder_inputs(mode, 1200, 41)
+    wide = CC._coder_launch(x, y, 37, 1000, ops, k, True)
+    warp = CC._coder_launch(x, y, 37, 1000, ops, k, False)
+    torch.cuda.synchronize()
+    for name in ("hid", "resid", "xc", "l0", "active"):
+        assert torch.equal(getattr(wide, name), getattr(warp, name)), name
+    torch.testing.assert_close(wide.sq, warp.sq, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["relu_sae", "relu_crosscoder"])
+@pytest.mark.parametrize("offset,rows,n", [(0, 4096, 4096), (37, 100, 300)])
+def test_coder_relu_route_at_6144(dev, mode, offset, rows, n):
+    """The ReLU modes' one route at H = 6144 (the hidden sums' partials
+    [ceil(rows / 64), H], coder_hsum_kernel over them)."""
+    x, y, ops, k = _coder_inputs(mode, n, 42, modes=WIDE_CODER_MODES)
+    got = CC._coder_launch(x, y, offset, rows, ops, k)
+    win = slice(offset, offset + rows)
+    _check_coder(got, CC.coder_forward_plain(x[win], None, ops, k), k, f"{mode} H=6144")
+
+
+@pytest.mark.parametrize("h", [24576, 32768])
+def test_coder_relu_route_up_to_32768(dev, h):
+    """The ReLU SAE at D = 384 up to H = 32768, the widest the 48 MiB
+    budget admits there: the GEMMs' 64-bit indexing, the [ceil(rows / 64),
+    H] hidden-sum partials and coder_hsum_kernel over them."""
+    modes = {"relu_sae": (384, 384, h, None, False, True)}
+    assert CC.coder_supported(384, 384, h)
+    x, _, ops, k = _coder_inputs("relu_sae", 4096, 47, modes=modes)
+    got = CC._coder_launch(x, None, 0, 4096, ops, k)
+    _check_coder(got, CC.coder_forward_plain(x, None, ops, k), k, f"relu_sae H={h}")
+
+
+def test_coder_wide_route_deterministic_over_chunks(dev):
+    """16,384 rows at H = 6144 run two chunks (13,568 + 2,816): two calls
+    give the same bits, the loss included."""
+    rows = 16384
+    assert _build.topk_encode_chunk_rows(6144) < rows
+    x, y, ops, k = _coder_inputs("skip_transcoder", rows, 43, modes=WIDE_CODER_MODES)
+    a = CC._coder_launch(x, y, 0, rows, ops, k, True)
+    b = CC._coder_launch(x, y, 0, rows, ops, k, True)
+    for u, v in zip(a, b):
+        assert u is None or torch.equal(u, v)
+    _check_coder(a, CC.coder_forward_plain(x, y, ops, k), k, "skip_transcoder two chunks")
+
+
+def test_coder_counts_wide_launches(dev):
+    """Each entry counts every launch in ``.launches`` and those past H =
+    3072 also in ``.wide_launches``, in every mode; no plain version runs."""
+    entries = CC.ENTRIES
+    plain = sum(CC.plain_calls.values())
+    for h, wide in ((3072, 0), (6144, 1)):
+        g = torch.Generator(device=dev).manual_seed(h)
+        w = {"w_enc": torch.randn(384, h, generator=g, device=dev) / 384 ** 0.5,
+             "b_enc": torch.zeros(h, device=dev),
+             "w_dec": torch.randn(h, 384, generator=g, device=dev) * 0.05,
+             "b_dec": torch.zeros(384, device=dev)}
+        x = torch.randn(256, 384, generator=g, device=dev)
+        before = [(e.launches, e.wide_launches) for e in entries]
+        CC.fused_transcoder_loss(x, x, *w.values(), None, None, 32, False)
+        CC.fused_transcoder_loss_indexed(x, x, 1, *w.values(), None, None, 32, 128, False)
+        CC.fused_relu_sae_loss(x, *w.values(), 0.01)
+        CC.fused_relu_sae_loss_indexed(x, 1, *w.values(), 0.01, 128)
+        norms = torch.ones(h, device=dev)
+        CC.fused_relu_crosscoder_loss(x, *w.values(), norms, 0.01, 1)
+        CC.fused_relu_crosscoder_loss_indexed(x, 1, *w.values(), norms, 0.01, 1, 128)
+        assert [(e.launches - b[0], e.wide_launches - b[1])
+                for e, b in zip(entries, before)] == [(1, wide)] * 6, h
+    assert sum(CC.plain_calls.values()) == plain
+
+
+def test_coder_wide_entry_limits(dev):
+    """The wide C entry takes H up to wst_max_wide_row_width() and refuses
+    past it, and k < 1; the wrapper refuses the wide route in ReLU mode and
+    the warp form past wst_max_row_width()."""
+    lib = _build.load_library()
+    assert lib.wst_max_wide_row_width() == _build.MAX_WIDE_ROW
+    t = torch.zeros(64, device=dev)
+    ptr = t.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    for h, k in ((lib.wst_max_wide_row_width() + 32, 32), (6144, 0)):
+        err = lib.wst_coder_wide_fwd(ptr, 0, ptr, 0, 0, 4, 32, h, 32, k, 0, 0, ptr, ptr, ptr, ptr,
+                                     None, ptr, ptr, ptr, ptr, ptr, ptr, ptr, stream)
+        assert err != 0, (h, k)
+    x, y, ops, k = _coder_inputs("topk_transcoder", 64, 44, modes=WIDE_CODER_MODES)
+    with pytest.raises(ValueError, match="warp select"):
+        CC._coder_launch(x, y, 0, 64, ops, k, False)
+    xr, _, relu_ops, _ = _coder_inputs("relu_sae", 64, 45, modes=WIDE_CODER_MODES)
+    with pytest.raises(ValueError, match="the ReLU modes take every H"):
+        CC._coder_launch(xr, None, 0, 64, relu_ops, None, True)
+    wide = 40992
+    over = CC.operands(torch.zeros(32, wide, device=dev), torch.zeros(wide, device=dev),
+                       torch.zeros(wide, 32, device=dev), torch.zeros(32, device=dev), topk=True)
+    with pytest.raises(ValueError, match="one CTA's registers"):
+        CC._coder_launch(torch.zeros(8, 32, device=dev), torch.zeros(8, 32, device=dev), 0, 8,
+                         over, 32, True)
+
+
+def test_small_transcoder_takes_the_wide_route(dev):
+    """``transcoder_loss`` at whisper-small 8x under AMP: one launch of the
+    coder kernel on its wide route, and the loss its plain version's."""
+    from whisper_sae_tpu_torch.models import transcoder as TC
+
+    x, y, ops, k = _coder_inputs("skip_transcoder", 512, 46, modes=WIDE_CODER_MODES)
+    p = {"w_enc": ops.we_t.t().float(), "b_enc": ops.b_enc, "w_dec": ops.wd.float(),
+         "b_dec": ops.b_out, "w_skip": ops.ws_t.t().float(), "b_skip": torch.zeros_like(ops.b_out)}
+    e = CC.fused_transcoder_loss
+    before = (e.launches, e.wide_launches)
+    loss, aux = TC.transcoder_loss(p, x, y, 32, torch.bfloat16)
+    assert (e.launches, e.wide_launches) == (before[0] + 1, before[1] + 1)
+    want = CC.coder_forward_plain(x, y, ops, k)
+    torch.testing.assert_close(loss, want.sq / (512 * 768), rtol=1e-4, atol=0)

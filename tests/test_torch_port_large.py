@@ -9,9 +9,10 @@ whisper-large 32x, where its weights do not fit in VMEM
 (``pallas_sae.py:_encode_forward_blocked``).  The widths here are small
 ones: D = 128 or 64, H = 4096, k = 32.  The JAX side runs its blocked
 Pallas kernel in interpret mode, with the geometry gates patched so that
-these widths reach it; the port's loss gate is patched the same way
-where a test holds the composed loss (``port_composed``), since kernel
-A's wide route takes these widths.
+these widths reach it; the port's loss gates are patched the same way
+where a test holds the composed loss (``port_composed``,
+``port_coder_composed``), since kernel A's and the coder kernel's wide
+routes take these widths.
 
 Tolerances: the blocked encode's mask identically and its bf16 latent
 bit for bit, its f32 latent at rtol 1e-6 (f32 sums in another order);
@@ -41,6 +42,7 @@ from whisper_sae_tpu_torch.models import sae as tsae
 from whisper_sae_tpu_torch.models import transcoder as ttc
 from whisper_sae_tpu_torch.ops import cuda_coder, cuda_sae
 from whisper_sae_tpu_torch.ops.topk import plain_calls, topk_mask_dense
+from whisper_sae_tpu_torch.training import coder_trainers
 from whisper_sae_tpu_torch.training import trainer as trainer_mod
 from whisper_sae_tpu_torch.training.coder_trainers import TranscoderTrainer
 from whisper_sae_tpu_torch.training.trainer import SAETrainer
@@ -81,6 +83,16 @@ def port_composed(monkeypatch):
     monkeypatch.setattr(trainer_mod, "fused_loss_supported", lambda *a: False)
 
 
+@pytest.fixture
+def port_coder_composed(monkeypatch):
+    """Send the port's bf16 ReLU-SAE and transcoder losses and their
+    trainers' epochs at these widths to the composed losses and the sliced
+    epoch, as past the coder kernel's budget (whisper-large 8x): the coder
+    gate off where it is used."""
+    for mod in (tsae, ttc, trainer_mod, coder_trainers):
+        monkeypatch.setattr(mod, "coder_supported", lambda *a, **k: False)
+
+
 def _sae_params(seed: int, d: int = D, h: int = H) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     bound = 1 / np.sqrt(d)
@@ -117,8 +129,12 @@ def test_gates():
         assert cuda_sae.fused_loss_supported(d, h)
     for d, h in ((100, 512), (1280, 40960), (1280, 10240)):
         assert not cuda_sae.fused_loss_supported(d, h)
+    # the coder kernel takes every geometry whose bf16 weights fit 48 MiB,
+    # these widths too (its wide route past H = 3072)
     assert cuda_coder.coder_supported(1536, 1536, 3072)
-    assert not cuda_coder.coder_supported(64, 64, 4096)
+    assert cuda_coder.coder_supported(64, 64, 4096)
+    assert cuda_coder.coder_supported(64, 64, 4096, with_skip=True)
+    assert not cuda_coder.coder_supported(1280, 1280, 10240)
 
 
 @pytest.mark.parametrize("out", ["bf16", "f32"])
@@ -302,11 +318,11 @@ def test_trainer_matches_jax(jax_blocked, port_composed, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the ReLU SAE and the transcoder wider than the coder kernel
+# the ReLU SAE and the transcoder composed, as past the coder kernel's budget
 # ---------------------------------------------------------------------------
 
 
-def test_relu_sae_composed_matches_jax():
+def test_relu_sae_composed_matches_jax(port_coder_composed):
     p = {k: v for k, v in _sae_params(15, 64).items() if k != "b_pre"}
     x = _rows(16, 32, 64)
     jl, jaux = jsae.relu_sae_loss(_jp(p), jnp.asarray(x), 0.01, jnp.bfloat16)
@@ -338,7 +354,7 @@ def _pair(seed: int, n: int):
 
 
 @pytest.mark.parametrize("skip", [True, False], ids=["skip", "topk"])
-def test_transcoder_blocked_route_matches_jax(jax_blocked, skip):
+def test_transcoder_blocked_route_matches_jax(jax_blocked, port_coder_composed, skip):
     p = _transcoder_params(17, skip)
     x, y = _pair(18, 32)
     (jl, jaux), jg = jax.value_and_grad(
@@ -360,7 +376,7 @@ def test_transcoder_blocked_route_matches_jax(jax_blocked, skip):
                                    atol=1e-2 * np.abs(want).max(), err_msg=k)
 
 
-def test_transcoder_trainer_takes_sliced_epoch(tmp_path):
+def test_transcoder_trainer_takes_sliced_epoch(tmp_path, port_coder_composed):
     p = _transcoder_params(19, True)
     x, y = _pair(20, 3 * TB)
     model = ttc.create_transcoder(64, 64, H, k=K, use_skip=True, params=params_from_jax(p),
