@@ -243,13 +243,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``logit_lens`` and ``cross_attention_maps`` at whisper-tiny on the
     card against the CPU at the f32 bars (rtol 1e-4; atol 1e-5, the
     maps 1e-6).
-20. Kernel A's wide route (``sae_fused_loss_wide_fwd``: one CTA a row,
-    the decode's warps over D), taken wherever the JAX package fuses
-    past the warp form's D <= 384, H <= 3072.  (a) Against its plain
+20. Kernel A's wide route (``sae_fused_loss_wide_fwd``), taken wherever
+    the JAX package fuses past the warp form's D <= 384, H <= 3072; its
+    select-and-decode is the group form up to H = 8192 (a warp group a
+    row on its own named barrier, persistent CTAs, the next row's pre
+    brought in by a bulk copy), past it the CTA-per-row form
+    (``_build.wide_form``).  (a) Against its plain
     version at (D, H) = (512, 4096), (768, 6144), (1024, 8192), (384,
     24576) and (768, 3072), k = 32, 4096 rows (whisper-small 8x also at
     128 and at 32768: three chunks), sliced and at a row offset, at
     phase 1's bars with the gap rule, the loss bit-identical run to run;
+    at each geometry the library's launch counts show the form the
+    dispatch names, once a chunk, and not the other (both forms driven),
+    as does the profiler where it sees the kernels;
     gradients at whisper-small 8x against the CPU; at whisper-tiny its
     latent, residual and centred rows equal to the warp form's bit for
     bit.  (b) Whisper-small 8x through the CLI: tiny_default.yaml with
@@ -268,15 +274,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
 21. The coder kernel past H = 3072, at every geometry the JAX package
     fuses there (bf16 weights within its 48 MiB): the TopK modes' wide
     route (``wst_coder_wide_fwd``: the cast, in Skip mode the skip product
-    over all rows, per chunk of kernel B's rows the kPre encode and
-    ``coder_select_decode_wide_kernel``, one CTA a row, then the sum), the
-    ReLU modes' one route.  (a) Against its plain version at 4096 rows:
+    over all rows, per chunk of kernel B's rows the kPre encode and the
+    select-and-decode, kernel A's forms: ``coder_select_decode_group_kernel``
+    up to H = 8192, ``coder_select_decode_wide_kernel`` past it, then the
+    sum), the ReLU modes' one route.  (a) Against its plain version at 4096 rows
     the Skip and TopK transcoders at (D, H) = (768, 6144), (1024, 8192)
     and (384, 24576), the TopK and ReLU crosscoders at L*D = 768 and 1536
     with S = 6144, the ReLU SAE at (768, 6144), and the Skip transcoder at
     whisper-small 8x also at 128 and 32768 rows (three chunks); sliced and
     at a row offset, at phase 8's bars with the gap rule, bit-identical
-    run to run; gradients of the five modes at whisper-small 8x against
+    run to run, the form the dispatch names in the library's launch
+    counts (and the profiler's);
+    gradients of the five modes at whisper-small 8x against
     the CPU (512 rows; the TopK modes on the rows selecting alike);
     at (384, 3072) in Skip mode and at L*D = 1536, S = 3072 the wide
     route's latent and resid equal to the warp form's bit for bit.  (b)
@@ -393,11 +402,15 @@ LG_ENC_LAYERS, LG_DEC_LAYERS = [0, 31], [31]
 DS, HS = 768, 6144
 WIDE_GEOMS = ((512, 4096), (DS, HS), (1024, 8192), (384, 24576), (768, 3072))
 WIDE_BATCHES = (128, 4096, 32768)  # whisper-small 8x; the others at 4096
-# the wide route's launches, by the profiler's kernel names (the encode and
-# the select-and-decode once a chunk)
+# the wide routes' select-and-decode by form (_build.wide_form: the group
+# form up to H = 8192, the CTA-per-row form past it), by the profiler's names
+WIDE_SELECT = {"group": "sae_select_decode_group_kernel", "cta": "sae_select_decode_wide_kernel"}
+CODER_WIDE_SELECT = {"group": "coder_select_decode_group_kernel",
+                     "cta": "coder_select_decode_wide_kernel"}
+# the wide route's launches at whisper-small 8x, by the profiler's kernel
+# names (the encode and the select-and-decode once a chunk)
 WIDE_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_kernel<3>",
-              "select_decode": "sae_select_decode_wide_kernel",
-              "finalize": "sae_loss_finalize_kernel"}
+              "select_decode": WIDE_SELECT["group"], "finalize": "sae_loss_finalize_kernel"}
 SMALL_ROWS, SMALL_EPOCHS = (1 << 16) + 64, 2
 SELECT_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/select_decode.cuh"
 # phase 21: the coder kernel past H = 3072 at every geometry the JAX package
@@ -419,10 +432,9 @@ CODER_WIDE_TIMED = {"skip_transcoder": (128, 4096, 32768), "topk_transcoder": (4
 # Skip mode the skip product over all rows, then the encode and the
 # select-and-decode once a chunk, the sum
 CODER_WIDE_PARTS = {"cast": "coder_cast_kernel", "encode": "gemm_kernel<3>",
-                    "select_decode": "coder_select_decode_wide_kernel", "sum": "coder_sum_kernel"}
+                    "select_decode": CODER_WIDE_SELECT["group"], "sum": "coder_sum_kernel"}
 CODER_WIDE_SKIP_PARTS = {"cast": "coder_cast_kernel", "skip_product": "gemm_kernel<3>",
-                         "encode": "gemm_kernel<3>",
-                         "select_decode": "coder_select_decode_wide_kernel",
+                         "encode": "gemm_kernel<3>", "select_decode": CODER_WIDE_SELECT["group"],
                          "sum": "coder_sum_kernel"}
 ENC_REPLACES = {
     "conv_stem": "src/whisper_sae_tpu/ops/pallas_encoder.py:604",
@@ -440,6 +452,8 @@ class SmokeFailure(RuntimeError):
 
 # phases 1, 8, 11, 20 and 21: the rows that select differently from the plain version
 GAPS: dict[str, list] = {}
+# phases 20 and 21: the select-and-decode form each wide geometry launched
+FORMS: dict[str, dict] = {"fused_sae_loss": {}, "coder": {}}
 # phase 19: the decoded tokens that differ from their reference
 TOKEN_GAPS: dict[str, list] = {}
 
@@ -926,6 +940,54 @@ def launch_split(fn, parts: dict, calls: int = 10) -> dict:
             if kname == last:
                 seen.clear()
     return {part: us[part] / 1e3 / calls if us[part] > 0 else None for part in parts}
+
+
+def check_select_form(fn, names: dict, counter: str, h: int, rows: int, what: str,
+                      calls: int = 3) -> str:
+    """The wide route's select-and-decode form that ``calls`` calls of
+    ``fn`` (at width ``h``, ``rows`` rows) launch.  The library counts
+    each launch where it makes it (its function ``counter``, of the form:
+    0 the group form, 1 the CTA-per-row form): once a chunk a call in the form
+    ``_build.wide_form(h)`` names, none in the other.  The profiler, by
+    the kernel names (``names``: form -> name), must see that form's
+    kernel only, at most once a chunk a call.  ``torch.profiler`` now and
+    then misses every kernel of a window (PERF.md §7), so a window where
+    it saw no select-and-decode is profiled again, once, and a second
+    empty window is logged; the library's counts hold either way."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from whisper_sae_tpu_torch.ops import _build
+
+    forms = tuple(names)
+    count = getattr(_build.load_library(), counter)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        before = [count(i) for i in range(len(forms))]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        made = {form: count(i) - before[i] for i, form in enumerate(forms)}
+        seen = {form: sum(e.count for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA and name in e.key)
+                for form, name in names.items()}
+        if any(seen.values()):
+            break
+    form = _build.wide_form(h)
+    chunks = -(-rows // _build.topk_encode_chunk_rows(h))
+    check(made == {f: calls * chunks if f == form else 0 for f in forms},
+          f"{what}: select-and-decode launches made {made} over {calls} calls, the dispatch "
+          f"names {form} ({chunks} a call)")
+    if any(seen.values()):
+        check(1 <= seen[form] <= calls * chunks and sum(seen.values()) == seen[form],
+              f"{what}: the profiler saw select-and-decode launches {seen} over {calls} calls, "
+              f"the dispatch names {form} ({chunks} a call)")
+    else:
+        log(f"  {what}: the profiler saw no kernel in two windows (PERF.md §7); "
+            f"the library made {made}")
+    return form
 
 
 def times(dev, cuda_sae, cuda_topk, topk) -> dict:
@@ -3062,6 +3124,15 @@ def wide_kernel_phase(dev, cuda_sae) -> dict:
             x = torch.randn(b, d, generator=gen, device=dev)
             buf = torch.randn(3 * b, d, generator=gen, device=dev)
             check_kernel_a(cuda_sae, b, p, x, buf, errs, wide=True)
+            if b == 4096:
+                args = (cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], p["w_dec"].bfloat16(),
+                        p["b_dec"] + p["b_pre"], K, True)
+                form = check_select_form(lambda: cuda_sae._fused_loss_launch(x, 0, b, *args),
+                                         WIDE_SELECT, "wst_sae_select_launches",
+                                         h, b, f"fused_sae_loss_wide D={d} H={h}")
+                FORMS["fused_sae_loss"][f"D={d} H={h}"] = form
+                log(f"  fused_sae_loss_wide D={d} H={h}: the {form} form's select-and-decode, "
+                    "as the dispatch names")
             if (d, h, b) == (DS, HS, 4096):
                 # gradients against the CPU on the rows whose selection the
                 # card and the CPU agree on (a row selecting differently
@@ -3302,10 +3373,17 @@ def coder_wide_check(CC, mode: str, geom: tuple, b: int, seed: int, dev, errs: d
             torch.cuda.synchronize()
             check(all(u is None or torch.equal(u, v) for u, v in zip(got, again)),
                   f"{tag}: outputs not bit-identical run to run")
+            if wide and b == 4096:
+                form = check_select_form(lambda: CC._coder_launch(x, y, off, b, ops, k, wide),
+                                         CODER_WIDE_SELECT, "wst_coder_select_launches",
+                                         geom[2], b, tag)
+                FORMS["coder"][f"{mode} D={geom[0]} H={geom[2]}"] = form
         del got, want
     errs[mode] = max(errs.get(mode, 0.0), err)
+    form = FORMS["coder"].get(f"{mode} D={geom[0]} H={geom[2]}") if wide and b == 4096 else None
     log(f"  {mode:16s} D={geom[0]:4d} dout={geom[1]:4d} H={geom[2]:5d} B={b:5d}: agrees sliced "
-        f"and at offset {b + 64} (resid max abs err {err:.3g}), bit-identical run to run")
+        f"and at offset {b + 64} (resid max abs err {err:.3g}), bit-identical run to run"
+        + (f"; the {form} form's select-and-decode" if form else ""))
 
 
 def coder_wide_grads(CC, mode: str, n: int, dev) -> None:
@@ -3808,6 +3886,7 @@ def main() -> int:
             **{f"at_batch_{b}": at[b] for b in WIDE_BATCHES if b != 4096},
             "split_ms": {str(b): wtimes[b]["split_ms"] for b in WIDE_BATCHES},
             "route_launches": list(WIDE_PARTS.values()),
+            "select_forms": FORMS["fused_sae_loss"],
         })
         check(kernels[-1]["launches"] > 0, f"{name}_wide: no launch on the whisper-small path")
     log(f"  whisper-small slice: {json.dumps({'steps': wsteps, 'losses': path20['losses'], 'train_s': path20['train_s'], 'turns_ms': {b: wtimes[b]['turns_ms'] for b in WIDE_BATCHES}, 'select_passes_mean': {b: wtimes[b]['select_passes_mean'] for b in WIDE_BATCHES}})}")
@@ -3840,6 +3919,8 @@ def main() -> int:
             "split_ms": {str(b): cw_times[(mode, b)]["split_ms"] for b in batches},
             "route_launches": list((CODER_WIDE_SKIP_PARTS if mode == "skip_transcoder"
                                     else CODER_WIDE_PARTS if wide else RELU_PARTS).values()),
+            **({"select_forms": {g: f for g, f in FORMS["coder"].items() if g.startswith(mode)}}
+               if wide else {}),
         })
         check(kernels[-1]["launches"] > 0, f"coder_wide[{mode}]: no launch on its path")
     log(f"  whisper-small coder slice: {json.dumps({'step': cw_step, 'losses': path21['losses'], 'job_s': path21['job_s'], 'turns_ms': {f'{m}_{b}': cw_times[(m, b)]['turns_ms'] for m, bs in CODER_WIDE_TIMED.items() for b in bs}})}")

@@ -27,11 +27,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # The kernels' compile-time limits, kept here as Python constants because
 # the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
 # pins them to wst_max_d(), wst_max_row_width(), wst_max_wide_row_width(),
-# wst_rows_per_cta() and wst_sae_topk_encode_chunk_rows()).
+# wst_max_group_row_width(), wst_rows_per_cta() and
+# wst_sae_topk_encode_chunk_rows()).
 MAX_D = 384  # kernel A's warp form decodes D in one pass, D/32 f32 sums a lane
 SEL_ROWS = 4  # rows (one a warp) a CTA of the select-and-decode kernels: one sq partial each
 MAX_ROW = 3072  # one warp holds a row in registers: kernels A, B, C and the coder kernel
 MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, the wide kernels
+MAX_GROUP_ROW = 8192  # a warp group holds a row in registers: the wide routes' group form
 BLOCKED_CHUNK_ROWS = 2048  # rows of a chunk of the blocked encode
 PRE_BUDGET = BLOCKED_CHUNK_ROWS * MAX_WIDE_ROW * 4  # bytes of a chunk's f32 pre at most
 
@@ -41,6 +43,15 @@ def topk_encode_chunk_rows(h: int) -> int:
     fits ``PRE_BUDGET``, rounded down to a multiple of 128 (the GEMM's
     tile rows)."""
     return PRE_BUDGET // (4 * h) // 128 * 128
+
+
+def wide_form(h: int) -> str:
+    """The select-and-decode the wide routes (kernel A's and the coder's
+    TopK modes') launch at row width ``h``: ``"group"``
+    (``*_select_decode_group_kernel``: a warp group a row, persistent
+    CTAs) up to ``MAX_GROUP_ROW``, else ``"cta"``
+    (``*_select_decode_wide_kernel``: a CTA a row)."""
+    return "group" if h <= MAX_GROUP_ROW else "cta"
 
 
 NVCC_FLAGS = (
@@ -76,6 +87,9 @@ _SIGNATURES = {
     ),
     "wst_topk_mask_fwd": ([_P, _P, _I, _I, _I, _P], _I),
     "wst_max_wide_row_width": ([], _I),
+    "wst_max_group_row_width": ([], _I),
+    "wst_sae_select_launches": ([_I], _L),  # form: 0 group, 1 CTA a row
+    "wst_coder_select_launches": ([_I], _L),
     "wst_topk_mask_wide_fwd": ([_P, _P, _I, _I, _I, _P], _I),
     "wst_blocked_chunk_rows": ([], _I),
     "wst_blocked_workspace_bytes": ([_I, _I, _I], _L),  # rows, d, h

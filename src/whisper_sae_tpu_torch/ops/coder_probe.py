@@ -13,8 +13,9 @@ of 200 steps) and of a ReLU crosscoder (L=4, S=3072), a TopK crosscoder
 4096 (an epoch of 20 steps) and 32768 (6), on the host clock after a warm
 epoch.  Then the same modes at whisper-small 8x (``whisper_small_8x_*``:
 D = dout = 768, H = 6144, the crosscoders as L*D = 2 x 384, S = 6144;
-the TopK modes on their wide route) at 4096 and 32768 rows, and a Skip
-transcoder training step there at batch 4096 (20 steps).  The kernels are those of the package found on the import path,
+the TopK modes on their wide route) at 128, 4096 and 32768 rows, with
+each launch's device ms a call under ``torch.profiler`` (``<rows>_split``),
+and a Skip transcoder training step there at batch 4096 (20 steps).  The kernels are those of the package found on the import path,
 built from its own sources, so the same command run with another tree's
 ``src`` first on ``PYTHONPATH`` times that tree: run the two in turns
 (parent, change, change, parent) in one call to compare them on one card
@@ -35,7 +36,7 @@ import time
 import torch
 
 from . import _build, _probe, cuda_coder
-from ._probe import step_ms, time_ms
+from ._probe import device_split, step_ms, time_ms
 from ..config import SAEConfig, TrainingConfig
 from ..models.crosscoder import create_crosscoder
 from ..models.sae import create_sae
@@ -46,7 +47,7 @@ from ..training.trainer import SAETrainer
 D, H, K = 384, 3072, 32
 ROWS = (128, 4096, 32768)
 SMALL_D, SMALL_H = 768, 6144  # whisper-small 8x
-SMALL_ROWS = (4096, 32768)
+SMALL_ROWS = (128, 4096, 32768)
 MODES = {  # mode: (D, dout, k or None for ReLU, skip, y is x)
     "skip_transcoder": (D, D, K, True, False),
     "topk_transcoder": (D, D, K, False, False),
@@ -70,9 +71,10 @@ def _host_us(fn, calls: int = 50) -> float:
 
 
 def _modes(res: dict, dev, one_layout: bool, h: int, rows_list, prefix: str = "",
-           width: int | None = None) -> None:
+           width: int | None = None, split: bool = False) -> None:
     """Each mode at width ``h`` (and D = dout = ``width`` when given) on
-    ``rows_list`` rows, into ``res[prefix + mode]``."""
+    ``rows_list`` rows, into ``res[prefix + mode]``; with ``split`` also
+    each launch's device ms a call."""
     for i, (mode, (d, dout, k, skip, y_is_x)) in enumerate(MODES.items()):
         if width is not None:
             d = dout = width
@@ -94,6 +96,8 @@ def _modes(res: dict, dev, one_layout: bool, h: int, rows_list, prefix: str = ""
             out[str(rows)] = time_ms(call, iters=5 if rows > 4096 else 20)
             if rows == 128:
                 out["host_us_128"] = _host_us(call)
+            if split:
+                out[f"{rows}_split"] = device_split(call)
 
 
 def main() -> None:
@@ -106,7 +110,7 @@ def main() -> None:
     res = {"card": card, "src": cuda_coder.__file__}
     one_layout = "topk" in inspect.signature(cuda_coder.operands).parameters
     _modes(res, dev, one_layout, H, ROWS)
-    _modes(res, dev, one_layout, SMALL_H, SMALL_ROWS, "whisper_small_8x_", SMALL_D)
+    _modes(res, dev, one_layout, SMALL_H, SMALL_ROWS, "whisper_small_8x_", SMALL_D, split=True)
     g = torch.Generator(device=dev).manual_seed(99)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as runs:

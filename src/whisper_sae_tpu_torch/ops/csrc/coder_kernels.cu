@@ -79,13 +79,18 @@
 // Skip mode, the skip product over all rows into resid), then per chunk
 // of rows whose f32 pre fits the blocked encode's budget (kernel B's
 // chunk: 13,568 rows at H = 6144) the kPre encode into a [chunk, H]
-// workspace and coder_select_decode_wide_kernel<N, SKIP, Y_IS_X>: one CTA
-// of 512 threads a row, the CTA select of topk_common.cuh, the list of
+// workspace and the select-and-decode: up to H = 8192
+// coder_select_decode_group_kernel<N, SKIP, Y_IS_X> (kernel A's group
+// form, select_decode.cuh: persistent CTAs, a warp group a row on its own
+// named barrier, the next row's pre brought in by a bulk copy, the decode
+// over the group's four warps, two columns a thread), past it
+// coder_select_decode_wide_kernel<N, SKIP, Y_IS_X> (one CTA of 512
+// threads a row, the CTA select of topk_common.cuh, the list of
 // selections in feature order (cta_select_to_list) and the decode with
-// the warps over dout in 32-column tiles (wide_tiles), each column the
-// same fmaf chain in list order as the warp form's, so the two give the
-// same latent and resid bits where both hold the geometry; one loss
-// partial a row, summed by coder_sum_kernel in a fixed order.  Bound of
+// the warps over dout in 32-column tiles (wide_tiles)); in both each
+// column is the same fmaf chain in list order as the warp form's, so
+// they give the same latent and resid bits where both hold the geometry;
+// one loss partial a row, summed by coder_sum_kernel in a fixed order.  Bound of
 // the Skip transcoder at whisper-small 8x (D = dout = 768, H = 6144,
 // B = 4096): the encode and skip products' 43.5 GFLOP (0.044 ms) against
 // ~114 MB moved (0.034 ms): operations.  The route adds the f32 pre's
@@ -193,8 +198,17 @@ __global__ void __launch_bounds__(kSelThreads, 4) coder_select_decode_kernel(Sel
   cta_partial(sq, nsel, a.sq_partial, a.counts);
 }
 
-// The TopK modes' wide form: one CTA a row of a chunk, for rows wider
-// than a warp's registers.  Block b takes row row0 + b of the batch (its
+// The TopK modes' group form (select_decode.cuh: group_select_decode,
+// kernel A's body with the modes' base and target), for rows of at most
+// kGroupMaxRow values.
+template <int N, bool SKIP, bool Y_IS_X>
+__global__ void __launch_bounds__(kGroupThreads * group_rows(N), group_ctas_sm(N))
+    coder_select_decode_group_kernel(GroupArgs a, int row0, int n) {
+  group_select_decode<N, SKIP, Y_IS_X>(a, row0, n);
+}
+
+// The TopK modes' CTA-per-row form, for rows wider than the group form
+// holds (kGroupMaxRow < h).  Block b takes row row0 + b of the batch (its
 // pre at chunk row b, its x and y at row row_offset + row0 + b): the
 // threshold over the row in registers (cta_kth_largest), the latent and
 // the list of selections in feature order (cta_select_to_list), the
@@ -205,7 +219,7 @@ __global__ void __launch_bounds__(kSelThreads, 4) coder_select_decode_kernel(Sel
 // order, the warps in order), and its selections added to l0 (int32).
 // Dynamic shared memory holds the list (h entries at most).
 template <int N, bool SKIP, bool Y_IS_X>
-__global__ void __launch_bounds__(kWideThreads, N <= 16 ? 2 : 1)
+__global__ void __launch_bounds__(kWideThreads, 1)
     coder_select_decode_wide_kernel(SelectArgs a, int row0) {
   extern __shared__ unsigned int wide_list[];
   __shared__ int warp_cnt[2][kWideWarps];
@@ -396,18 +410,35 @@ int topk_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row
   return (int)cudaGetLastError();
 }
 
-// The wide route's select and decode, per chunk of rows: the instance
-// for the row width (WST_WIDE_DISPATCH) and the mode.
+// Select-and-decode launches of the wide route by form (0: group, 1: CTA
+// a row), counted where each launch is made.
+long long g_select_launches[2] = {0, 0};
+
+// The wide route's select and decode, per chunk of rows: the group form
+// up to kGroupMaxRow, past it the CTA-per-row form, the instance for the
+// row width and the mode.
 template <bool SKIP, bool Y_IS_X>
 int launch_select_wide(const SelectArgs& a, int d, const void* xc, const void* w_enc_t,
                        const void* b_enc, cudaStream_t s) {
-  const int smem = a.h * (int)sizeof(unsigned int);
+  const bool group = a.h <= kGroupMaxRow;
+  const GroupArgs ga{a.x, a.x_bf16, a.y, a.y_bf16, a.row_offset, a.d, a.h, a.dout, a.k, a.pre,
+                     a.w_dec, a.b_out, a.hidden, a.resid, a.sq_partial, a.counts};
+  int smem = a.h * (int)sizeof(unsigned int);
   int err = 0;
+  if (group) {
+#define WST_CODER_GROUP_SMEM(N)                                                             \
+  smem = group_smem_bytes(N, a.h);                                                          \
+  err = (int)cudaFuncSetAttribute(coder_select_decode_group_kernel<N, SKIP, Y_IS_X>,        \
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+    WST_GROUP_DISPATCH(a.h, WST_CODER_GROUP_SMEM)
+#undef WST_CODER_GROUP_SMEM
+  } else {
 #define WST_CODER_WIDE_SMEM(N)                                                              \
   err = (int)cudaFuncSetAttribute(coder_select_decode_wide_kernel<N, SKIP, Y_IS_X>,         \
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-  WST_WIDE_DISPATCH(a.h, WST_CODER_WIDE_SMEM)
+    WST_WIDE_DISPATCH_PAST_GROUP(a.h, WST_CODER_WIDE_SMEM)
 #undef WST_CODER_WIDE_SMEM
+  }
   if (err) return err;
   const int chunk = wst_sae_topk_encode_chunk_rows(a.h);
   for (int row0 = 0; row0 < a.rows; row0 += chunk) {
@@ -417,26 +448,35 @@ int launch_select_wide(const SelectArgs& a, int d, const void* xc, const void* w
                            w_enc_t, n, a.h, d, b_enc, 1.0f, 0, const_cast<float*>(a.pre), nullptr,
                            nullptr, nullptr, s);
     if (err) return err;
+    if (group) {
+#define WST_LAUNCH_CODER_GROUP(N)                                                    \
+  coder_select_decode_group_kernel<N, SKIP, Y_IS_X>                                  \
+      <<<group_grid(n, group_ctas_sm(N)), kGroupThreads * group_rows(N), smem, s>>>(ga, row0, n)
+      WST_GROUP_DISPATCH(a.h, WST_LAUNCH_CODER_GROUP)
+#undef WST_LAUNCH_CODER_GROUP
+    } else {
 #define WST_LAUNCH_CODER_WIDE(N) \
   coder_select_decode_wide_kernel<N, SKIP, Y_IS_X><<<n, kWideThreads, smem, s>>>(a, row0)
-    WST_WIDE_DISPATCH(a.h, WST_LAUNCH_CODER_WIDE)
+      WST_WIDE_DISPATCH_PAST_GROUP(a.h, WST_LAUNCH_CODER_WIDE)
 #undef WST_LAUNCH_CODER_WIDE
+    }
     err = (int)cudaGetLastError();
     if (err) return err;
+    ++g_select_launches[group ? 0 : 1];
   }
   return 0;
 }
 
 // The TopK modes' wide route: cast, [the skip product over all rows
-// (kPre)], per chunk the encode (kPre) and the CTA-per-row select and
-// decode, sum.
+// (kPre)], per chunk the encode (kPre) and the select and decode (the
+// group form, or past it the CTA-per-row form), sum.
 int topk_wide_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row_offset,
                   int rows, int d, int h, int dout, int k, int use_skip, int y_is_x,
                   const void* w_enc_t, const void* b_enc, const void* w_dec, const void* b_out,
                   const void* w_skip_t, void* hidden, void* resid, void* xc, void* pre,
                   void* sq_partial, void* counts, void* sums, void* stream) {
   if (h > kMaxWideRow || k > h || (y_is_x ? dout != d : y == nullptr) ||
-      (use_skip && (!w_skip_t || y_is_x)))
+      (use_skip && (!w_skip_t || y_is_x)) || reinterpret_cast<uintptr_t>(w_dec) % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = cast(x, x_bf16, row_offset, rows, d, xc, counts, 1 + h, s);
@@ -502,7 +542,7 @@ int wst_coder_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long lon
 // <= wst_max_wide_row_width()): the arguments of wst_coder_fwd's TopK
 // modes, with ``pre`` an f32 [min(rows, wst_sae_topk_encode_chunk_rows(h)),
 // h] workspace (the chunk's encode) and sq_partial [rows] (one partial a
-// row).  Skip mode with y given only (the transcoder).
+// row), w_dec 4-byte aligned.  Skip mode with y given only (the transcoder).
 int wst_coder_wide_fwd(const void* x, int x_bf16, const void* y, int y_bf16, long long row_offset,
                        int rows, int d, int h, int dout, int k, int use_skip, int y_is_x,
                        const void* w_enc_t, const void* b_enc, const void* w_dec,
@@ -515,6 +555,12 @@ int wst_coder_wide_fwd(const void* x, int x_bf16, const void* y, int y_bf16, lon
   return wst::coder::topk_wide_fwd(x, x_bf16, y, y_bf16, row_offset, rows, d, h, dout, k,
                                    use_skip, y_is_x, w_enc_t, b_enc, w_dec, b_out, w_skip_t,
                                    hidden, resid, xc, pre, sq_partial, counts, sums, stream);
+}
+
+// Select-and-decode launches the TopK modes' wide route has made in this
+// process in the given form (0: the group form, 1: the CTA-per-row form).
+long long wst_coder_select_launches(int form) {
+  return form == 0 || form == 1 ? wst::coder::g_select_launches[form] : -1;
 }
 
 }  // extern "C"

@@ -75,6 +75,23 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 1-D bulk copy: ``bytes`` contiguous bytes (a multiple of 16; both
+// addresses 16-byte aligned) from global to shared memory, completion
+// counted in bytes on ``bar``.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// Makes this thread's mbarrier inits visible to the async proxy (the
+// bulk copies that complete on them).
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
 // TMA store: the box at (c0 columns, c1 rows) of a 2-D tensor map, or at
 // (c0, c1, c2) of a 3-D one, from shared memory (elements outside the
 // tensor are not written), as one bulk group a thread commits; the fence

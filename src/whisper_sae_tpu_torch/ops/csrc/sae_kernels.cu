@@ -63,15 +63,20 @@
 // a row of pre outgrows a warp's registers (H > 3072) or the decode one
 // pass (D > 384): sae_centre_kernel over all rows, then per chunk of
 // rows whose f32 pre fits the blocked encode's budget (kernel B's chunk:
-// 13,568 rows at H = 6144) the kPre encode and
+// 13,568 rows at H = 6144) the kPre encode and the select-and-decode,
+// then sae_loss_finalize_kernel over one partial a row.  The
+// select-and-decode is sae_select_decode_group_kernel<N> up to H = 8192
+// (select_decode.cuh's group form: persistent CTAs, a warp group a row
+// on its own named barrier, the next row's pre brought into shared
+// memory by a bulk copy during the current row's select, the decode over
+// all four warps, two columns a thread), past it
 // sae_select_decode_wide_kernel<N> (one CTA of 512 threads a row: the CTA
 // select of topk_common.cuh, the list in feature order, the warps over
-// D in 32-column tiles), then sae_loss_finalize_kernel over one partial
-// a row.  Bound at whisper-small 8x (D=768, H=6144, k=32, B=4096): the
-// encode's 2*B*D*H = 38.7 GFLOP (0.039 ms) against ~100 MB of x, the
-// latent, resid, xc and both weights (0.030 ms): operations.  The route
-// adds the f32 pre's round trip (2*4*B*H = 201 MB, 0.060 ms), as the
-// warp form does.
+// D in 32-column tiles).  Bound at whisper-small 8x (D=768, H=6144,
+// k=32, B=4096): the encode's 2*B*D*H = 38.7 GFLOP (0.039 ms) against
+// ~100 MB of x, the latent, resid, xc and both weights (0.030 ms):
+// operations.  The route adds the f32 pre's round trip (2*4*B*H = 201
+// MB, 0.060 ms), as the warp form does.
 //
 // Cross-CTA reductions: CTAs run concurrently (unlike the TPU grid's
 // read-modify-write accumulation, pallas_sae.py:213-223), so l0 and
@@ -176,8 +181,8 @@ __global__ void __launch_bounds__(kSelThreads, 4) sae_select_decode_kernel(LossA
   cta_partial(sq, nsel, a.sq_partial, a.counts);
 }
 
-// Kernel A's wide form: one CTA a row of a chunk, for rows wider than a
-// warp's registers or outputs wider than one decode pass.  Block b takes
+// Kernel A's CTA-per-row form, for rows wider than the group form holds
+// (kGroupMaxRow < h <= kMaxWideRow).  Block b takes
 // row row0 + b of the batch (pre holds the chunk's rows from row0): the
 // threshold over the row in registers (cta_kth_largest), the latent and
 // the list of selections in feature order (cta_select_to_list), the
@@ -187,8 +192,8 @@ __global__ void __launch_bounds__(kSelThreads, 4) sae_select_decode_kernel(LossA
 // and its selections added to l0 (int32).  Dynamic shared memory holds
 // the list (h entries at most).
 template <int N>
-__global__ void __launch_bounds__(kWideThreads, N <= 16 ? 2 : 1)
-    sae_select_decode_wide_kernel(LossArgs a, int row0) {
+__global__ void __launch_bounds__(kWideThreads, 1) sae_select_decode_wide_kernel(LossArgs a,
+                                                                                int row0) {
   extern __shared__ unsigned int wide_list[];
   __shared__ int warp_cnt[2][kWideWarps];
   __shared__ WideSelScratch<N> sc;
@@ -230,6 +235,16 @@ __global__ void __launch_bounds__(kWideThreads, N <= 16 ? 2 : 1)
     a.sq_partial[g] = total;
     atomicAdd(a.counts, nsel);
   }
+}
+
+// Kernel A's group form (select_decode.cuh: group_select_decode), for
+// rows of at most kGroupMaxRow values: persistent CTAs of group_rows(N)
+// warp groups, each group a row at a time, the next row's pre brought in
+// by a bulk copy; the coder's TopK modes run the same body.
+template <int N>
+__global__ void __launch_bounds__(kGroupThreads * group_rows(N), group_ctas_sm(N))
+    sae_select_decode_group_kernel(GroupArgs a, int row0, int n) {
+  group_select_decode<N, false, true>(a, row0, n);
 }
 
 // loss = sum(partials) / (rows * d) and l0 = count / rows, summed in a
@@ -297,6 +312,10 @@ __global__ void __launch_bounds__(kWideThreads, 1) topk_mask_wide_kernel(const f
     if (c < h) out[base + c] = masked_relu(xi[j], th);
   }
 }
+
+// Select-and-decode launches of kernel A's wide route by form (0: group,
+// 1: CTA a row), counted where each launch is made.
+long long g_sae_select_launches[2] = {0, 0};
 
 }  // namespace wst
 
@@ -368,19 +387,22 @@ int wst_sae_fused_loss_fwd(const void* x, int x_bf16, long long row_offset, int 
 // wst_max_wide_row_width(), any d): the centre of every row into xc, then
 // per chunk of wst_sae_topk_encode_chunk_rows(h) rows the encode (the
 // GEMM's kPre epilogue into ``pre``, an f32 [min(rows, chunk), h]
-// workspace) and sae_select_decode_wide_kernel, then the fixed-order
-// finalize over the rows' partials (sq_partial: [rows]).
+// workspace) and the select-and-decode -- sae_select_decode_group_kernel
+// for h <= wst_max_group_row_width(), else sae_select_decode_wide_kernel
+// -- then the fixed-order finalize over the rows' partials (sq_partial:
+// [rows]).  w_dec must be 4-byte aligned (the group form reads bf16 pairs).
 int wst_sae_fused_loss_wide_fwd(const void* x, int x_bf16, long long row_offset, int rows, int d,
                                 int h, int k, const void* w_enc_t, const void* b_enc,
                                 const void* b_pre, const void* w_dec, const void* b_out,
                                 void* hidden, void* resid, void* xc, void* pre, void* sq_partial,
                                 void* counts, void* loss, void* l0, void* stream) {
   if (rows <= 0 || d <= 0 || d % wst::kWarp || h <= 0 || h % wst::kWarp ||
-      h > wst::kMaxWideRow || k < 1 || k > h)
+      h > wst::kMaxWideRow || k < 1 || k > h || reinterpret_cast<uintptr_t>(w_dec) % 4)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int err = wst_sae_centre_fwd(x, x_bf16, row_offset, rows, d, b_pre, xc, stream);
   if (err) return err;
+  const bool group = h <= wst::kGroupMaxRow;
   const wst::LossArgs a{x,
                         x_bf16,
                         row_offset,
@@ -395,12 +417,23 @@ int wst_sae_fused_loss_wide_fwd(const void* x, int x_bf16, long long row_offset,
                         static_cast<float*>(resid),
                         static_cast<float*>(sq_partial),
                         static_cast<int*>(counts)};
-  const int smem = h * (int)sizeof(unsigned int);
+  const wst::GroupArgs ga{x, x_bf16, nullptr, 0, row_offset, d, h, d, k, a.pre, a.w_dec, a.b_out,
+                          a.hidden, a.resid, a.sq_partial, a.counts};
+  int smem = h * (int)sizeof(unsigned int);
+  if (group) {
+#define WST_GROUP_SMEM(N)                                                                  \
+  smem = wst::group_smem_bytes(N, h);                                                      \
+  err = (int)cudaFuncSetAttribute(wst::sae_select_decode_group_kernel<N>,                  \
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+    WST_GROUP_DISPATCH(h, WST_GROUP_SMEM)
+#undef WST_GROUP_SMEM
+  } else {
 #define WST_WIDE_SMEM(N)                                                                   \
   err = (int)cudaFuncSetAttribute(wst::sae_select_decode_wide_kernel<N>,                   \
                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
-  WST_WIDE_DISPATCH(h, WST_WIDE_SMEM)
+    WST_WIDE_DISPATCH_PAST_GROUP(h, WST_WIDE_SMEM)
 #undef WST_WIDE_SMEM
+  }
   if (err) return err;
   const int chunk = wst_sae_topk_encode_chunk_rows(h);
   for (int row0 = 0; row0 < rows; row0 += chunk) {
@@ -410,12 +443,22 @@ int wst_sae_fused_loss_wide_fwd(const void* x, int x_bf16, long long row_offset,
                            w_enc_t, n, h, d, b_enc, 1.0f, 0, pre, nullptr, nullptr, nullptr,
                            stream);
     if (err) return err;
+    if (group) {
+#define WST_LAUNCH_GROUP(N)                                                             \
+  wst::sae_select_decode_group_kernel<N><<<wst::group_grid(n, wst::group_ctas_sm(N)),   \
+                                           wst::kGroupThreads * wst::group_rows(N), smem, \
+                                           s>>>(ga, row0, n)
+      WST_GROUP_DISPATCH(h, WST_LAUNCH_GROUP)
+#undef WST_LAUNCH_GROUP
+    } else {
 #define WST_LAUNCH_WIDE(N) \
   wst::sae_select_decode_wide_kernel<N><<<n, wst::kWideThreads, smem, s>>>(a, row0)
-    WST_WIDE_DISPATCH(h, WST_LAUNCH_WIDE)
+      WST_WIDE_DISPATCH_PAST_GROUP(h, WST_LAUNCH_WIDE)
 #undef WST_LAUNCH_WIDE
+    }
     err = (int)cudaGetLastError();
     if (err) return err;
+    ++wst::g_sae_select_launches[group ? 0 : 1];
   }
   wst::sae_loss_finalize_kernel<<<1, wst::kFinalizeThreads, 0, s>>>(
       static_cast<const float*>(sq_partial), rows, static_cast<const int*>(counts), rows, d,
@@ -448,6 +491,14 @@ int wst_topk_mask_fwd(const void* pre, void* out, int rows, int h, int k, void* 
 
 // Widest row the CTA-per-row kernels take.
 int wst_max_wide_row_width() { return wst::kMaxWideRow; }
+// Widest row the wide routes' group form takes (wider: the CTA-per-row form).
+int wst_max_group_row_width() { return wst::kGroupMaxRow; }
+
+// Select-and-decode launches kernel A's wide route has made in this
+// process in the given form (0: the group form, 1: the CTA-per-row form).
+long long wst_sae_select_launches(int form) {
+  return form == 0 || form == 1 ? wst::g_sae_select_launches[form] : -1;
+}
 
 // Kernel C's wide form: one CTA per row.
 int wst_topk_mask_wide_fwd(const void* pre, void* out, int rows, int h, int k, void* stream) {

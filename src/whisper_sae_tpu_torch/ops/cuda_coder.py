@@ -40,10 +40,12 @@ path, within the JAX package's 48 MiB).  The TopK modes' warp select
 holds a row of pre in one warp's registers, H <= 3072; past it they take
 the wide route, ``coder_wide_fwd`` (``wst_coder_wide_fwd``): the cast,
 in Skip mode the skip product over all rows, then per chunk of kernel
-B's rows the kPre encode and ``coder_select_decode_wide_kernel<N, SKIP,
-Y_IS_X>`` (one CTA a row, the decode's warps over dout in 32-column
-tiles), and the sum over one partial a row (:func:`coder_topk_route_plain`
-with ``per_row``).  The ReLU modes run one route at every width.  Beyond
+B's rows the kPre encode and kernel A's wide select-and-decode in the
+modes' form: ``coder_select_decode_group_kernel<N, SKIP, Y_IS_X>`` up to
+H = 8192 (a warp group a row), ``coder_select_decode_wide_kernel`` past
+it (one CTA a row; ``_build.wide_form``), and the sum over one partial a
+row (:func:`coder_topk_route_plain` with ``per_row``).  The ReLU modes
+run one route at every width.  Beyond
 the budget (whisper-large 8x, whisper-tiny 128x) the models compose the
 loss around the blocked encode, as the JAX package composes it.  The
 TPU's other gates (``pick_block_rows``, ``WST_*``) have no counterpart.
@@ -63,7 +65,7 @@ import torch
 
 from ..utils.device import mm_f32
 from . import _build
-from .cuda_sae import FUSED_W_BYTES
+from .cuda_sae import FUSED_W_BYTES, fixed_order_sum, group_row_sq, list_decode_plain
 from .topk import topk_mask_plain
 
 mode_launches: Counter = Counter()
@@ -145,20 +147,6 @@ def coder_forward_plain(x: torch.Tensor, y: torch.Tensor | None, ops: CoderOpera
                     hidden.sum() if relu else None, hidden.sum(dim=0) if relu else None)
 
 
-def _fixed_order_sum(v: torch.Tensor, threads: int = 256) -> torch.Tensor:
-    """``coder_sum_kernel``'s order: thread t adds v[t], v[t + 256], ... in
-    turn, then a halving tree over the 256 threads."""
-    buf = torch.zeros(threads, dtype=torch.float32, device=v.device)
-    for i in range(0, v.numel(), threads):
-        part = v[i:i + threads]
-        buf[:part.numel()] += part
-    w = threads // 2
-    while w:
-        buf[:w] += buf[w:2 * w]
-        w //= 2
-    return buf[0]
-
-
 def coder_route_plain(x: torch.Tensor, row_offset: int, rows: int,
                       ops: CoderOperands, tile: int) -> CoderOut:
     """The ReLU modes' CUDA route written out in plain PyTorch, for the
@@ -195,8 +183,8 @@ def coder_route_plain(x: torch.Tensor, row_offset: int, rows: int,
         for j in range(sq_tiles.shape[1]):
             t = resid[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile]
             sq_tiles[i, j] = (t * t).sum()
-    return CoderOut(_fixed_order_sum(sq_tiles.flatten()), pos.sum(), hsum > 0,
-                    hid, resid, xc, _fixed_order_sum(hsum), hsum)
+    return CoderOut(fixed_order_sum(sq_tiles.flatten()), pos.sum(), hsum > 0,
+                    hid, resid, xc, fixed_order_sum(hsum), hsum)
 
 
 def coder_topk_route_plain(x: torch.Tensor, y: torch.Tensor | None, row_offset: int, rows: int,
@@ -207,13 +195,14 @@ def coder_topk_route_plain(x: torch.Tensor, y: torch.Tensor | None, row_offset: 
     kPre product), in Skip mode the base ``xc @ W_skip + b_out`` first (the
     second kPre product), the exact top-k and the bf16 latent; then each
     row's decode from its selected rows of W_dec in feature order, in
-    passes of ``pass_cols`` output columns (the kernel's 384; the wide
-    route's 32-column tiles), resid = (decode + base) - y (``y`` None: the
-    rows themselves); one sum(resid^2) partial a CTA of ``_build.SEL_ROWS``
-    rows, its rows added in order (``per_row``: one a row, the wide
-    route's; its chunks change no value), and the partials in
-    ``coder_sum_kernel``'s fixed order.  A row's sum of squares runs in
-    PyTorch's order, not the kernel's."""
+    passes of ``pass_cols`` output columns (the warp form's 384; passes
+    change no value), resid = (decode + base) - y (``y`` None: the rows
+    themselves); one sum(resid^2) partial a CTA of ``_build.SEL_ROWS``
+    rows, its rows added in order, each row's squares in PyTorch's order
+    (the warp form's route), or with ``per_row`` one partial a row, its
+    squares in the group form's order (:func:`cuda_sae.group_row_sq`: the
+    wide route's at H <= ``_build.MAX_GROUP_ROW``; its chunks change no
+    value); then the partials in ``coder_sum_kernel``'s fixed order."""
     win = slice(row_offset, row_offset + rows)
     xw = x[win]
     target = (xw if y is None else y[win]).float()
@@ -224,28 +213,18 @@ def coder_topk_route_plain(x: torch.Tensor, y: torch.Tensor | None, row_offset: 
     hidden = topk_mask_plain(pre, k)
     hid = hidden.bfloat16()
     pos = hidden > 0
-    h, dout = hid.shape[1], ops.b_out.shape[0]
-    dev = hid.device
-    # each row's selections in feature order, padded with feature h: a zero row of W_dec
-    nsel = int(pos.sum(dim=1).max())
-    feats = torch.where(pos, torch.arange(h, device=dev), h).sort(dim=1).values[:, :nsel]
-    hv = torch.cat([hid.float(), torch.zeros(rows, 1, device=dev)], dim=1).gather(1, feats)
-    wd = torch.cat([ops.w_dec().float(), torch.zeros(1, dout, device=dev)])
-    resid = torch.empty(rows, dout, device=dev)
-    for c0 in range(0, dout, pass_cols):
-        cols = slice(c0, c0 + pass_cols)
-        acc = torch.zeros(rows, min(pass_cols, dout - c0), device=dev)
-        for j in range(nsel):
-            acc = acc + hv[:, j:j + 1] * wd[feats[:, j], cols]
-        resid[:, cols] = (acc + base[:, cols]) - target[:, cols]
-    per_cta = 1 if per_row else _build.SEL_ROWS
-    row_sq = torch.zeros(-(-rows // per_cta) * per_cta, device=dev)
-    row_sq[:rows] = (resid * resid).sum(dim=1)
-    row_sq = row_sq.view(-1, per_cta)
-    parts = row_sq[:, 0]
-    for r in range(1, per_cta):
-        parts = parts + row_sq[:, r]
-    return CoderOut(_fixed_order_sum(parts), pos.sum(), pos.any(dim=0), hid, resid, xc, None, None)
+    resid = (list_decode_plain(hid, pos, ops.w_dec(), pass_cols) + base) - target
+    if per_row:
+        parts = group_row_sq(resid)
+    else:
+        per_cta = _build.SEL_ROWS
+        row_sq = torch.zeros(-(-rows // per_cta) * per_cta, device=hid.device)
+        row_sq[:rows] = (resid * resid).sum(dim=1)
+        row_sq = row_sq.view(-1, per_cta)
+        parts = row_sq[:, 0]
+        for r in range(1, per_cta):
+            parts = parts + row_sq[:, r]
+    return CoderOut(fixed_order_sum(parts), pos.sum(), pos.any(dim=0), hid, resid, xc, None, None)
 
 
 def _check(name: str, t: torch.Tensor, device, dtypes, shape) -> None:
@@ -307,6 +286,8 @@ def _coder_launch(x, y, row_offset: int, rows: int, ops: CoderOperands, k: int |
     for name, t in aligned:
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"coder_fwd: {name} must be 16-byte aligned")
+    if wide and wd.data_ptr() % 4:  # the group form reads bf16 pairs
+        raise ValueError("coder_wide_fwd: w_dec must be 4-byte aligned")
     hid = torch.empty((rows, h), dtype=torch.bfloat16, device=dev)
     resid = torch.empty((rows, dout), dtype=torch.float32, device=dev)
     xc = torch.empty((rows, d), dtype=torch.bfloat16, device=dev)

@@ -34,9 +34,16 @@ A's decode keeps D/32 sums a lane, so they take D % 32 == 0, D <= 384
 and H <= 3072 (:func:`row_kernels_hold`); the top-k encode takes the
 blocked encode at every other geometry (:func:`uses_blocked`).  Kernel A
 also has a wide route, ``sae_fused_loss_wide_fwd``: the centre, then per
-chunk of kernel B's rows the kPre encode and
-``sae_select_decode_wide_kernel`` (one CTA a row, the decode's warps
-over D in 32-column tiles), then the finalize over one partial a row.
+chunk of kernel B's rows the kPre encode and the select-and-decode,
+then the finalize over one partial a row.  The select-and-decode is the
+group form up to H = 8192 (``sae_select_decode_group_kernel``:
+persistent CTAs of warp groups, a group a row on its own named barrier,
+the next row's pre brought into shared memory by a bulk copy, the
+decode over the group's warps two columns a thread;
+:func:`fused_loss_wide_route_plain` writes it out), past it the
+CTA-per-row form (``sae_select_decode_wide_kernel``: one CTA a row, the
+decode's warps over D in 32-column tiles); ``_build.wide_form`` names
+the form of a width.
 Kernel A takes every geometry the JAX package fuses
 (:func:`fused_loss_supported`: bf16 W_enc + W_dec within its 48 MiB,
 ``pallas_sae.py:359-365``), through its warp form where
@@ -67,7 +74,7 @@ import torch
 
 from ..utils.device import mm_f32
 from . import _build
-from .topk import cta_threshold, plain_calls, topk_mask_plain
+from .topk import cta_threshold, group_threshold, plain_calls, topk_mask_plain
 
 
 # bf16 W_enc + W_dec at most: the JAX package's budget for the fused
@@ -170,6 +177,104 @@ def fused_sae_loss_plain(x, we_t, b_enc, b_pre, wd_bf, b_out, k):
     return loss, l0, pos.any(dim=0), hid, resid, xc
 
 
+def fixed_order_sum(v: torch.Tensor, threads: int = 256) -> torch.Tensor:
+    """The partials' sum in ``sae_loss_finalize_kernel``'s and
+    ``coder_sum_kernel``'s order: thread t adds v[t], v[t + 256], ... in
+    turn, then a halving tree over the 256 threads."""
+    buf = torch.zeros(threads, dtype=torch.float32, device=v.device)
+    for i in range(0, v.numel(), threads):
+        part = v[i:i + threads]
+        buf[:part.numel()] += part
+    w = threads // 2
+    while w:
+        buf[:w] += buf[w:2 * w]
+        w //= 2
+    return buf[0]
+
+
+def group_row_sq(resid: torch.Tensor, threads: int = 128, pairs: int = 4,
+                 warp: int = 32) -> torch.Tensor:
+    """Each row's sum of squares in the group form's order
+    (``csrc/select_decode.cuh: group_select_decode``): thread t of the
+    row's warp group squares its columns into its sum in turn (passes of
+    ``threads * pairs`` column pairs, then its pairs p0 + t + i*threads,
+    then the pair's two columns; each step an f32 fmaf, here the exact
+    product and sum in f64 rounded once to f32), then a butterfly over
+    each warp's lanes, then the warps in order.  -> [rows] f32."""
+    rows, dout = resid.shape
+    npairs = dout // 2
+    r = resid.double()
+    acc = torch.zeros(rows, threads, dtype=torch.float32, device=resid.device)
+    t = torch.arange(threads, device=resid.device)
+    for p0 in range(0, npairs, threads * pairs):
+        for i in range(min(pairs, -(-(npairs - p0) // threads))):
+            p = p0 + t + i * threads
+            ok = p < npairs
+            for j in (0, 1):
+                v = r[:, (2 * p + j).clamp(max=dout - 1)]
+                acc = torch.where(ok, (v * v + acc.double()).float(), acc)
+    w = acc.view(rows, threads // warp, warp)
+    lane = torch.arange(warp, device=resid.device)
+    off = warp // 2
+    while off:
+        w = w + w[:, :, lane ^ off]
+        off //= 2
+    total = w[:, 0, 0]
+    for i in range(1, threads // warp):
+        total = total + w[:, i, 0]
+    return total
+
+
+def list_decode_plain(hid: torch.Tensor, pos: torch.Tensor, w_dec: torch.Tensor,
+                      pass_cols: int | None = None) -> torch.Tensor:
+    """Each row's decode from its selected rows of ``w_dec`` [H, dout]
+    alone, written out as the select-and-decode kernels run it: the
+    positive selections in feature order, each output column summed in
+    list order from 0 (in ``pass_cols``-column passes, which change no
+    value).  Products and sums are rounded apart, where the kernels fuse
+    them.  -> [rows, dout] f32."""
+    rows, h = hid.shape
+    dout = w_dec.shape[1]
+    dev = hid.device
+    # each row's selections in feature order, padded with feature h: a zero row of W_dec
+    nsel = int(pos.sum(dim=1).max()) if rows else 0
+    feats = torch.where(pos, torch.arange(h, device=dev), h).sort(dim=1).values[:, :nsel]
+    hv = torch.cat([hid.float(), torch.zeros(rows, 1, device=dev)], dim=1).gather(1, feats)
+    wd = torch.cat([w_dec.float(), torch.zeros(1, dout, device=dev)])
+    out = torch.empty(rows, dout, device=dev)
+    step = pass_cols or dout
+    for c0 in range(0, dout, step):
+        cols = slice(c0, c0 + step)
+        acc = torch.zeros(rows, min(step, dout - c0), device=dev)
+        for j in range(nsel):
+            acc = acc + hv[:, j:j + 1] * wd[feats[:, j], cols]
+        out[:, cols] = acc
+    return out
+
+
+def fused_loss_wide_route_plain(x, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out, k):
+    """Kernel A's wide route at the group form's widths (H <=
+    ``_build.MAX_GROUP_ROW``) written out in plain PyTorch, for the tests,
+    on ``x[row_offset : row_offset + rows]``: the centred bf16 rows, pre =
+    their f32 product with W_enc plus b_enc (the kPre GEMM; its chunks
+    change no value), the group select (:func:`ops.topk.group_threshold`),
+    the bf16 latent, the decode from the selected W_dec rows in feature
+    order (:func:`list_decode_plain`), resid = (decode + b_out) - x, each
+    row's sum of squares in the group form's order (:func:`group_row_sq`)
+    and the finalize's fixed order over one partial a row.  Returns
+    kernel A's (loss, l0, active, hid, resid, xc)."""
+    xw = x[row_offset:row_offset + rows]
+    xc = (xw.float() - b_pre).bfloat16()
+    pre = mm_f32(xc, we_t.t()) + b_enc
+    xi, th, _ = group_threshold(pre, k)
+    hidden = torch.where(xi >= th, torch.relu(pre), torch.zeros((), device=pre.device))
+    hid = hidden.bfloat16()
+    pos = hidden > 0
+    resid = (list_decode_plain(hid, pos, wd_bf) + b_out) - xw.float()
+    loss = fixed_order_sum(group_row_sq(resid)) / (rows * resid.shape[1])
+    return loss, pos.sum().float() / rows, pos.any(dim=0), hid, resid, xc
+
+
 def _fused_loss_launch(data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out, k, wide=False):
     """Kernel A on ``data[row_offset : row_offset + rows]`` (CUDA only): its
     warp form, or with ``wide`` its CTA-per-row route, which takes any D
@@ -185,6 +290,8 @@ def _fused_loss_launch(data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out,
                     b_enc=(b_enc, f32, (h,)), b_pre=(b_pre, f32, (d,)), b_out=(b_out, f32, (d,)))
     if we_t.data_ptr() % 16:  # read by TMA
         raise ValueError("sae_fused_loss_fwd: w_enc_t must be 16-byte aligned")
+    if wide and wd_bf.data_ptr() % 4:  # the group form reads bf16 pairs
+        raise ValueError("sae_fused_loss_wide_fwd: w_dec must be 4-byte aligned")
     if wide:  # one loss partial a row; the encode's workspace holds one chunk
         partials, pre_rows = rows, min(rows, lib.wst_sae_topk_encode_chunk_rows(h))
         fwd, what = lib.wst_sae_fused_loss_wide_fwd, "sae_fused_loss_wide_fwd"

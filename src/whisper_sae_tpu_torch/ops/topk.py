@@ -81,6 +81,64 @@ def cta_threshold(pre: torch.Tensor, k: int, threads: int = 512,
     return x, torch.where(done, th, lo)[:, None], passes
 
 
+def group_threshold(pre: torch.Tensor, k: int, threads: int = 128, run: int = 4,
+                    warp: int = 32, cand: int = 256
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The wide routes' group-form select (``csrc/select_decode.cuh:
+    group_kth_largest``) on each row of a 2-D ``pre``, transcribed: a warp
+    group of ``threads`` threads holds the row, thread t the runs of
+    ``run`` values c = q*threads*run + run*t + i (INT_MIN past the row, in
+    32, 48 or 64 slots a thread: ``group_per_thread``); each pass counts
+    per thread, sums each warp's lanes, then the group's warps, and a row
+    leaves the loop at the first pass whose total is exactly k, else after
+    32 passes at ``lo``.  Once passes have set both bounds and at most
+    ``cand`` values lie in [lo, hi) (the totals at lo and hi apart), those
+    values are the candidates and each later total is the total at hi
+    then plus the candidates >= mid (the kernel's warp 0 alone counts
+    them; ``cand=0``: never).  -> (x, th [rows,
+    1], passes [rows]).  The midpoints and totals are
+    :func:`cta_threshold`'s, so the threshold, the pass count and the mask
+    are too."""
+    x = _monotone_int(pre)
+    rows, h = x.shape
+    per = 32 if h <= 32 * threads else 48 if h <= 48 * threads else 64
+    if h > per * threads:
+        raise ValueError(f"the group form holds rows of at most {64 * threads} values (got {h})")
+    slots = torch.full((rows, per * threads), -2147483648, dtype=torch.int32, device=pre.device)
+    slots[:, :h] = x
+    # [row, q, warp, lane, i]: value q*threads*run + run*(warp*32 + lane) + i
+    slots = slots.view(rows, per // run, threads // warp, warp, run)
+    lo = torch.full((rows,), -2147483647, dtype=torch.int32, device=pre.device)
+    hi = torch.full_like(lo, 2147483647)
+    c_lo, c_hi = torch.full_like(lo, -1), torch.full_like(lo, -1)
+    th, passes = lo.clone(), torch.zeros_like(lo)
+    done = torch.zeros(rows, dtype=torch.bool, device=pre.device)
+    compact = torch.zeros_like(done)
+    in_cand = torch.zeros_like(slots, dtype=torch.bool)
+
+    def b(t):  # a per-row value against the slots
+        return t[:, None, None, None, None]
+
+    for _ in range(32):
+        now = ~compact & ~done & (c_lo >= 0) & (c_hi >= 0) & (c_lo - c_hi <= cand)
+        in_cand = torch.where(b(now), (slots >= b(lo)) & (slots < b(hi)), in_cand)
+        compact |= now
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        ge = slots >= b(mid)
+        per_thread = torch.where(b(compact), ge & in_cand, ge).sum(dim=(1, 4))  # [row, warp, lane]
+        total = per_thread.sum(dim=2).sum(dim=1)  # each warp's sum, then the group's
+        total = torch.where(compact, total + c_hi, total)
+        live = ~done
+        passes += live.int()
+        hit = live & (total == k)
+        th = torch.where(hit, mid, th)
+        up, down = live & (total > k), live & (total < k)
+        lo, c_lo = torch.where(up, mid, lo), torch.where(up & ~compact, total, c_lo)
+        hi, c_hi = torch.where(down, mid, hi), torch.where(down & ~compact, total, c_hi)
+        done |= hit
+    return x, torch.where(done, th, lo)[:, None], passes
+
+
 def topk_mask_plain(pre: torch.Tensor, k: int) -> torch.Tensor:
     """relu(pre) where pre is among the row's k largest, else 0."""
     x, th = topk_threshold(pre, k)

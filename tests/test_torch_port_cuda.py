@@ -431,9 +431,10 @@ DL, HL = 1280, 40960
 
 def test_gate_constants_match_the_library(dev):
     lib = _build.load_library()
-    assert (_build.MAX_D, _build.MAX_ROW, _build.MAX_WIDE_ROW, _build.SEL_ROWS) == (
+    assert (_build.MAX_D, _build.MAX_ROW, _build.MAX_WIDE_ROW, _build.SEL_ROWS,
+            _build.MAX_GROUP_ROW) == (
         lib.wst_max_d(), lib.wst_max_row_width(), lib.wst_max_wide_row_width(),
-        lib.wst_rows_per_cta())
+        lib.wst_rows_per_cta(), lib.wst_max_group_row_width())
 
 
 def test_blocked_product_gemm_matches_f32_product(dev):
@@ -563,6 +564,8 @@ def test_large_loss_takes_the_blocked_route(dev):
 # ---------------------------------------------------------------------------
 
 WIDE_GEOMS = [(512, 4096), (768, 6144), (1024, 8192), (384, 24576), (768, 3072)]
+# the wide route's select-and-decode by form (_build.wide_form), by the profiler's kernel names
+WIDE_SELECT = {"group": "sae_select_decode_group_kernel", "cta": "sae_select_decode_wide_kernel"}
 
 
 def _wide_args(p):
@@ -615,7 +618,8 @@ def test_wide_route_deterministic_over_chunks(dev):
 def test_wide_route_launches_a_chunk(dev):
     """One call at 32768 rows of whisper-small 8x counts one wide launch
     and is the centre, three chunks (13,568 rows) of the encode GEMM and
-    the wide select-and-decode, and the finalize."""
+    the wide select-and-decode (its group form at H = 6144), and the
+    finalize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -632,7 +636,7 @@ def test_wide_route_launches_a_chunk(dev):
     keys = [e.key for e in prof.key_averages() for _ in range(e.count)
             if e.device_type == DeviceType.CUDA]
     for name, n in (("sae_centre_kernel", 1), ("gemm_kernel<3>", chunks),
-                    ("sae_select_decode_wide_kernel", chunks), ("sae_loss_finalize_kernel", 1)):
+                    (WIDE_SELECT[_build.wide_form(6144)], chunks), ("sae_loss_finalize_kernel", 1)):
         assert sum(name in key for key in keys) == n, (name, keys)
 
 
@@ -1597,3 +1601,213 @@ def test_small_transcoder_takes_the_wide_route(dev):
     assert (e.launches, e.wide_launches) == (before[0] + 1, before[1] + 1)
     want = CC.coder_forward_plain(x, y, ops, k)
     torch.testing.assert_close(loss, want.sq / (512 * 768), rtol=1e-4, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# the wide routes' group form (csrc/select_decode.cuh: group_select_decode,
+# kernel A's sae_select_decode_group_kernel and the coder's
+# coder_select_decode_group_kernel) at each instantiated width, in kernel A
+# and the three TopK modes, and the dispatch between it and the
+# CTA-per-row form; at the bars above
+# ---------------------------------------------------------------------------
+
+# N = 32, 48 and 64 values a thread, and a row ending inside a thread's run column
+GROUP_WIDTHS = [(512, 4096), (768, 6144), (1024, 8192), (384, 4160)]
+# rows not a multiple of a CTA's rows, and fewer rows than SMs
+GROUP_ROWS = [(0, 4096, 4096), (3, 1001, 1200), (5, 7, 20)]
+GROUP_MODES = ["kernel_a", *TOPK_MODES]
+
+
+def _group_coder_modes(mode, d, h):
+    _, _, _, k, skip, y_is_x = CODER_MODES[mode]
+    return {mode: (d, d, h, k, skip, y_is_x)}
+
+
+def _check_wide_a(got, want, what):
+    torch.cuda.synchronize()
+    loss, l0, active, hid, resid, xc = got
+    assert _row_agreement(hid, want[3]) >= 0.999, what
+    torch.testing.assert_close(loss, want[0], rtol=1e-4, atol=0)
+    assert torch.equal(xc, want[5]), what
+    ok = ((hid > 0) == (want[3] > 0)).all(dim=1)
+    if bool(ok.all()):
+        # the same count: the kernel divides it by the rows, torch multiplies
+        # by their reciprocal (one f32 rounding apart past a power of 2)
+        rows = hid.shape[0]
+        assert round(float(l0) * rows) == round(float(want[1]) * rows), what
+        assert torch.equal(active, want[2]), what
+    torch.testing.assert_close(hid[ok].float(), want[3][ok].float(), rtol=0,
+                               atol=1e-2 * float(want[3].float().abs().max()))
+    torch.testing.assert_close(resid[ok], want[4][ok], rtol=0, atol=1e-2)
+
+
+def _group_call(mode, d, h, offset, rows, n, seed):
+    """(card output, plain version's) of ``mode`` on its wide route over
+    rows [offset, offset + rows) of ``n``."""
+    if mode == "kernel_a":
+        p, data = _params(seed, d, h), _rows(seed + 1, n, d)
+        args = _wide_args(p)
+        return (cuda_sae._fused_loss_launch(data, offset, rows, *args, K, True),
+                cuda_sae.fused_sae_loss_plain(data[offset:offset + rows], *args, K))
+    x, y, ops, k = _coder_inputs(mode, n, seed, modes=_group_coder_modes(mode, d, h))
+    win = slice(offset, offset + rows)
+    return (CC._coder_launch(x, y, offset, rows, ops, k, True),
+            CC.coder_forward_plain(x[win], None if y is None else y[win], ops, k))
+
+
+@pytest.mark.parametrize("offset,rows,n", GROUP_ROWS)
+@pytest.mark.parametrize("mode", GROUP_MODES)
+@pytest.mark.parametrize("d,h", GROUP_WIDTHS)
+def test_group_form_matches_plain(dev, d, h, mode, offset, rows, n):
+    """Every width the group form is instantiated for, in each mode, sliced
+    and at a row offset, on whole and ragged CTAs, against the plain
+    version (and the coder's against its route written out)."""
+    assert _build.wide_form(h) == "group"
+    got, want = _group_call(mode, d, h, offset, rows, n, d + h + rows)
+    what = f"{mode} D={d} H={h} [{offset}, {offset + rows})"
+    if mode == "kernel_a":
+        _check_wide_a(got, want, what)
+        return
+    _check_coder(got, want, K, what)
+    x, y, ops, k = _coder_inputs(mode, n, d + h + rows, modes=_group_coder_modes(mode, d, h))
+    _check_coder(got, CC.coder_topk_route_plain(x, y, offset, rows, ops, k, 32, per_row=True), k,
+                 what + " route")
+
+
+@pytest.mark.parametrize("k,ties", [(1, "top40"), (32, "top40"), (32, "all"), (2000, "top40")])
+@pytest.mark.parametrize("mode", GROUP_MODES)
+def test_group_form_ties_match_plain_on_its_pre(dev, mode, k, ties):
+    """Rows whose pre is b_enc exactly (kernel A: x = b_pre; the coder: x =
+    0), b_enc on a grid of 0.5 with 40 entries tied at its largest value
+    (``all``: every entry equal and positive, so all 6144 are selected),
+    at whisper-small 8x: the latent bit-identical to ``topk_mask_plain`` on
+    the pre the kPre GEMM gives the kernel's bf16 rows (more than k
+    selected on the tie rows), l0 and active exact, the residual the
+    decode of that latent (atol 1e-4 of its largest value: f32 sums in
+    another order).  The ``all`` rows and k = 2000 list thousands of
+    selections a row."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    d, h, rows = 768, 6144, 300
+    p = _params(50, d, h)
+    b_enc = torch.round(p["b_enc"] * 40) / 2
+    b_enc[:40] = b_enc.max()
+    if ties == "all":
+        b_enc[:] = 0.5
+    x = _rows(51, rows, d)
+    if mode == "kernel_a":
+        x[:8] = p["b_pre"]
+        we_t, _, b_pre, wd, b_out = _wide_args(p)
+        loss, l0, active, hid, resid, xc = cuda_sae._fused_loss_launch(x, 0, rows, we_t, b_enc,
+                                                                       b_pre, wd, b_out, k, True)
+        base, target = b_out, x
+    else:
+        _, _, _, _, skip, y_is_x = CODER_MODES[mode]
+        x[:8] = 0.0
+        y = None if y_is_x else _rows(52, rows, d)
+        w_skip = torch.randn(d, d, generator=torch.Generator().manual_seed(53)).to(dev) * 0.02
+        ops = CC.operands(p["w_enc"], b_enc, p["w_dec"], p["b_dec"], w_skip if skip else None,
+                          topk=True)
+        out = CC._coder_launch(x, y, 0, rows, ops, k, True)
+        l0, active, hid, resid, xc = out.l0, out.active, out.hid, out.resid, out.xc
+        we_t, wd = ops.we_t, ops.wd
+        base = ops.b_out + (mm_f32(xc, ops.ws_t.t()) if skip else 0.0)
+        target = x if y is None else y
+    pre = torch.empty(rows, h, device=dev)
+    _pre_gemm(xc, we_t, b_enc, pre)
+    torch.cuda.synchronize()
+    assert torch.equal(pre[:8], b_enc.expand(8, h))
+    want = topk_mask_plain(pre, k)
+    assert torch.equal(hid, want.bfloat16())
+    assert int((hid[:8] > 0).sum(dim=1).max()) > k  # the ties admit more than k
+    assert int(l0 if mode != "kernel_a" else round(float(l0) * rows)) == int((want > 0).sum())
+    assert torch.equal(active, (want > 0).any(dim=0))
+    want_resid = mm_f32(hid, wd) + base - target
+    torch.testing.assert_close(resid, want_resid, rtol=0,
+                               atol=1e-4 * max(1.0, float(want_resid.abs().max())))
+
+
+@pytest.mark.parametrize("mode", ["kernel_a", "skip_transcoder"])
+def test_group_form_across_chunks_windowed(dev, mode):
+    """More rows than one chunk at H = 6144 (13,568 + 1,233), read at a row
+    offset into a longer buffer: against the plain version, and two calls
+    bit-identical."""
+    rows = _build.topk_encode_chunk_rows(6144) + 1233
+    got, want = _group_call(mode, 768, 6144, 77, rows, rows + 200, 54)
+    if mode == "kernel_a":
+        _check_wide_a(got, want, "kernel_a two chunks")
+    else:
+        _check_coder(got, want, K, f"{mode} two chunks")
+    again, _ = _group_call(mode, 768, 6144, 77, rows, rows + 200, 54)
+    for u, v in zip(got, again):
+        assert u is None or torch.equal(u, v)
+
+
+@pytest.mark.parametrize("mode", GROUP_MODES)
+def test_group_form_deterministic(dev, mode):
+    """Two launches at whisper-small 8x, 4096 rows, give the same bits in
+    every output, the loss included."""
+    a, _ = _group_call(mode, 768, 6144, 0, 4096, 4096, 55)
+    b, _ = _group_call(mode, 768, 6144, 0, 4096, 4096, 55)
+    for u, v in zip(a, b):
+        assert u is None or torch.equal(u, v)
+
+
+@pytest.mark.parametrize("d,h", [(768, 6144), (384, 24576)])
+@pytest.mark.parametrize("mode", ["kernel_a", "skip_transcoder"])
+def test_wide_dispatch_names_the_form(dev, mode, d, h):
+    """The wide routes launch the select-and-decode ``_build.wide_form``
+    names at each width (the group form at whisper-small 8x, the CTA-per-
+    row form at whisper-tiny 64x), once a chunk, and no other."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {"kernel_a": WIDE_SELECT,
+             "skip_transcoder": {"group": "coder_select_decode_group_kernel",
+                                 "cta": "coder_select_decode_wide_kernel"}}[mode]
+    _group_call(mode, d, h, 0, 512, 512, 56)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            _group_call(mode, d, h, 0, 512, 512, 56)
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages() for _ in range(e.count)
+            if e.device_type == DeviceType.CUDA]
+    form = _build.wide_form(h)
+    assert form == ("group" if h <= 8192 else "cta")
+    assert sum(names[form] in key for key in keys) == 3, keys
+    other = names["cta" if form == "group" else "group"]
+    assert not any(other in key for key in keys), keys
+
+
+@pytest.mark.parametrize("d,h,rows", [(768, 6144, 512), (768, 6144, 13569), (384, 24576, 512)])
+@pytest.mark.parametrize("mode", GROUP_MODES)
+def test_wide_dispatch_counts_the_form(dev, mode, d, h, rows):
+    """The library's own count of the select-and-decode launches by form
+    (``wst_*_select_launches``, kept where each launch is made): once a
+    chunk in the form ``_build.wide_form`` names, none in the other."""
+    lib = _build.load_library()
+    count = lib.wst_sae_select_launches if mode == "kernel_a" else lib.wst_coder_select_launches
+    before = [count(0), count(1)]
+    _group_call(mode, d, h, 0, rows, rows, 60)
+    torch.cuda.synchronize()
+    chunks = -(-rows // _build.topk_encode_chunk_rows(h))
+    made = [count(0) - before[0], count(1) - before[1]]
+    assert made == ([chunks, 0] if _build.wide_form(h) == "group" else [0, chunks])
+    assert count(2) == -1
+
+
+def test_group_form_refuses_misaligned_w_dec(dev):
+    """The group form reads W_dec as bf16 pairs: both wrappers refuse a
+    W_dec not 4-byte aligned."""
+    p, x = _params(57, 768, 6144), _rows(58, 16, 768)
+    we_t, b_enc, b_pre, wd, b_out = _wide_args(p)
+    odd = torch.empty(wd.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view_as(wd)
+    odd.copy_(wd)
+    with pytest.raises(ValueError, match="w_dec must be 4-byte aligned"):
+        cuda_sae._fused_loss_launch(x, 0, 16, we_t, b_enc, b_pre, odd, b_out, K, True)
+    xs, ys, ops, k = _coder_inputs("topk_transcoder", 16, 59, modes=WIDE_CODER_MODES)
+    odd = torch.empty(ops.wd.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view_as(ops.wd)
+    odd.copy_(ops.wd)
+    with pytest.raises(ValueError, match="w_dec must be 4-byte aligned"):
+        CC._coder_launch(xs, ys, 0, 16, ops._replace(wd=odd), k, True)
