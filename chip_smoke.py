@@ -14,7 +14,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    autograd.Function against the same Function on the CPU (plain
    forward), kernel A's loss and kernel B's latent bit-identical run to
    run, and kernel B's bf16 latent equal to kernel A's on the same rows
-   (both select on the kPre pre with the warp select).
+   (both select on the kPre pre with the warp select); kernel C's warp and
+   wide forms on rows where -0.0 is selected (their -0.0 count logged).
    Tolerances: kernel C exact; A and B compute ``pre`` with tensor-core
    sums in another order than the plain f32 product, so >= 99.9% of rows
    must select the same features, A's loss at rtol 1e-4, l0 and the
@@ -303,7 +304,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
     768 (4096, 32768), with each launch's device ms; a launcher step of
     the Skip transcoder at batch 4096.
 
-Before them, one line lists the rows of phases 1, 8, 11, 20 and 21 that select
+22. The research loop after extraction at whisper-tiny width (D=384,
+    H=3072, k=32), every launch count zeroed first: (a) ``launch
+    extract`` of 64 synthetic clips, encoder and decoder layer 3; (b)
+    ``launch train --all-layers`` (batch 4096, 2 epochs, a checkpoint an
+    epoch) in this process -- kernel A's windowed and sliced launches
+    equal to its steps -- then the same command under ``--supervise`` in
+    its own process, its child killed with SIGKILL once the first epoch's
+    checkpoint is on disk (a FIFO at the second's temporary path holds it
+    there): the supervisor log shows two attempts, the rerun resumes
+    from epoch 1, the final encoder SAE equals the uninterrupted one at
+    rtol 1e-3 (bit-equality printed); (c) ``train.py --profile`` for one
+    epoch at batch 128 on 4 clips: the trace parses, with events (kernel
+    names logged, kernel A's not required); (d) ``launch analyze`` with
+    every output (top-k 20, top-n 100, 16 co-activation features, 4
+    features' clips, labels, dashboard), its encode (kernel B writing
+    f32, as JAX's TPU encode) timed; (e) ``launch causal-validate`` for
+    both components (4 clips, 8 swept features; kernel B in the SAE
+    patches) and the identity patch's logits bit-equal to the clean
+    forward's.  (d) and (e) read the uninterrupted run's SAEs.  Kernels A
+    and B launched, no plain version.  Against the CPU (a side process,
+    ``research_cpu_child``, beside (b)-(e), with no CUDA context; its SAE
+    encode is kernel B's plain version): the first 12,000-row analyze
+    chunk's latent (>= 99.9% of rows alike, the rest within the gap rule,
+    values on the rest within 1e-5 of the max), the analyze summary's top
+    100 features (>= 99 shared, max activations at rtol 1e-5),
+    causal-validate with the card's weights (logit KL within 1e-3
+    relative + 1e-6, token agreement equal).
+
+Before them, one line lists the rows of phases 1, 8, 11, 20, 21 and 22 that select
 differently from the plain version, with their gaps, and one the
 decoded tokens of phase 19 that differ from their reference.  The last two lines
 are the ``kernels`` JSON line and
@@ -450,7 +479,7 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# phases 1, 8, 11, 20 and 21: the rows that select differently from the plain version
+# phases 1, 8, 11, 20, 21 and 22: the rows that select differently from the plain version
 GAPS: dict[str, list] = {}
 # phases 20 and 21: the select-and-decode form each wide geometry launched
 FORMS: dict[str, dict] = {"fused_sae_loss": {}, "coder": {}}
@@ -561,10 +590,15 @@ def selection_gaps(xc, we_t, b_enc, got_hid, want_hid, k: int, what: str) -> lis
     if bad.numel() == 0:
         return []
     pre_card = card_pre(xc, we_t, b_enc, what)
-    pre_plain = (mm_f32(xc, we_t.t()) + b_enc)[bad]
+    return gap_rule(bad, pre_card[bad], (mm_f32(xc, we_t.t()) + b_enc)[bad], k, what)
+
+
+def gap_rule(bad, pre_card, pre_plain, k: int, what: str) -> list:
+    """:func:`selection_gaps`' rule on the rows ``bad`` that select
+    differently, given both versions' pre of those rows."""
     top = torch.topk(pre_plain, k + 1, dim=1).values
     gap, kth = top[:, k - 1] - top[:, k], top[:, k - 1]
-    diff = (pre_card[bad] - pre_plain).abs().max(dim=1).values
+    diff = (pre_card - pre_plain).abs().max(dim=1).values
     out = []
     for r, g, v, df in zip(bad.tolist(), gap.tolist(), kth.tolist(), diff.tolist()):
         log(f"    {what}: row {r} selects differently: gap {g:.4g} (k-th value {v:.4g}), "
@@ -762,7 +796,28 @@ def kernel_phase(dev, cuda_sae, cuda_topk, topk, lib) -> dict:
     p, x = params(b, dev), torch.randn(b, D, generator=gen).to(dev)
     hid_a = check_kernel_a(cuda_sae, b, p, x, torch.randn(3 * b, D, generator=gen).to(dev), errs)
     check_kernel_b(cuda_sae, lib, b, p, x, hid_a, errs)
+    signed_zeros(cuda_topk, topk, dev)
     return errs
+
+
+def signed_zeros(cuda_topk, topk, dev) -> None:
+    """Kernel C's warp and wide forms on rows where -0.0 is selected (few
+    positives, the rest +0.0 and -0.0; one row all -0.0): logs how many
+    -0.0 their latents hold.  The plain version gives +0.0 there, as
+    ``jax.nn.relu`` does; fails if a form's latent differs from it other
+    than in that sign."""
+    for h in (H, 4160):
+        g = torch.Generator().manual_seed(h)
+        pre = torch.where(torch.rand(8, h, generator=g) < 0.5, 0.0, -0.0)
+        pre[:, torch.randperm(h, generator=g)[:20]] = 1.0
+        pre[1] = -0.0
+        pre = pre.to(dev)
+        got, want = cuda_topk.topk_mask_fwd(pre, K), topk.topk_mask_plain(pre, K)
+        check(torch.equal(got, want), f"topk_mask H={h}: signed-zero rows differ")
+        neg = int(((got == 0) & torch.signbit(got)).sum())
+        check(not bool(torch.signbit(want).any()), "topk_mask_plain gives -0.0")
+        log(f"  topk_mask H={h} ({'wide' if h > H else 'warp'} form) on signed-zero rows: "
+            f"{neg} -0.0 in the kernel's latent, 0 in the plain version's")
 
 
 # ---------------------------------------------------------------------------
@@ -2319,16 +2374,6 @@ def large_extraction_config(work: Path) -> Path:
     return path
 
 
-def composed_stem(mel: torch.Tensor, enc: dict) -> torch.Tensor:
-    """The composed route's conv stem (``encoder_forward``'s torch ops)."""
-    import torch.nn.functional as F
-
-    h = F.gelu(F.conv1d(mel, enc["conv1_w"], padding=1) + enc["conv1_b"][None, :, None])
-    x = F.gelu(F.conv1d(h, enc["conv2_w"], stride=2, padding=1) + enc["conv2_b"][None, :, None])
-    x = x.transpose(1, 2)
-    return x + enc["pos"][: x.shape[1]]
-
-
 def large_extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E,
                           CE) -> dict:
     """Phase 15; returns launches by kernel, the CLI's clips/s and the
@@ -2393,7 +2438,7 @@ def large_extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod
     with torch.no_grad(), W.f32_matmuls():
         mel = mel2.bfloat16()
         x = W.encoder_ops.conv_stem(mel, enc)
-        bar_check(x, composed_stem(mel, enc), STACK_BAR, "stem: fused vs composed")
+        bar_check(x, W.composed_stem(mel, enc), STACK_BAR, "stem: fused vs composed")
         for i in range(arch.encoder_layers):
             lp = W._layer(enc["layers"], i)
             y = W.encoder_ops.attention_block(x, lp["ln1_g"], lp["ln1_b"], lp["attn"],
@@ -2810,7 +2855,7 @@ def encoder_agreement(W, pb: dict, mel, arch, enc) -> dict:
     widened, TF32 off) than 1.25 x the composed route is, max and mean."""
     enc_c, comp_layers = W.encoder_forward(pb, mel, arch, use_fused=False)
     x = W.encoder_ops.conv_stem(mel, pb["encoder"])
-    bar_check(x, composed_stem(mel, pb["encoder"]), STACK_BAR, "decode stem: fused vs composed")
+    bar_check(x, W.composed_stem(mel, pb["encoder"]), STACK_BAR, "decode stem: fused vs composed")
     worst = 0.0
     for i in range(arch.encoder_layers):
         lp = W._layer(pb["encoder"]["layers"], i)
@@ -3614,6 +3659,459 @@ def small_coder_step(work: Path, dev, TC, CT, cfg_mod) -> dict:
                              torch.randn(steps * b, DS, generator=g, device=dev)), steps)
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the research loop after extraction
+# ---------------------------------------------------------------------------
+
+RL_CLIPS, RL_LAYER, RL_BATCH, RL_EPOCHS = 64, 3, 4096, 2
+RL_SEED = 42  # the launcher's default: extraction's and causal-validate's weights
+RL_SAMPLES, RL_SWEEP = 4, 8
+RL_PROF_CLIPS = 4  # train.py --profile: 6,000 rows, 46 steps and a remainder
+A_NAMES = tuple(A_PARTS.values())
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name: str, rows=None):
+    """Wraps ``owner.name`` to add each call's wall time (after a device
+    synchronisation) and, with ``rows``, the rows of its first argument to
+    the yielded dict; restores it after."""
+    real = getattr(owner, name)
+    acc = {"s": 0.0, "calls": 0, "rows": 0}
+
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        acc["s"] += time.perf_counter() - t0
+        acc["calls"] += 1
+        if rows is not None:
+            acc["rows"] += rows(*a)
+        return out
+
+    setattr(owner, name, wrapped)
+    try:
+        yield acc
+    finally:
+        setattr(owner, name, real)
+
+
+def launch_cmd(*args: str) -> list[str]:
+    return [sys.executable, "-m", "whisper_sae_tpu_torch.launch", *args]
+
+
+def child_processes(pid: int) -> list[int]:
+    """The processes ``/proc/<pid>/task/*/children`` names whose parent is
+    ``pid`` (some kernels list a child's threads there too: only thread
+    group leaders are kept)."""
+    out = set()
+    for t in Path(f"/proc/{pid}/task").iterdir():
+        for c in (t / "children").read_text().split():
+            try:
+                text = Path(f"/proc/{c}/status").read_text()
+            except OSError:  # a thread's id, not a process's
+                continue
+            status = dict(line.split(":\t", 1) for line in text.splitlines() if ":\t" in line)
+            if status.get("Tgid", "").strip() == c and status.get("PPid", "").strip() == str(pid):
+                out.add(int(c))
+    return sorted(out)
+
+
+def supervised_train(rl: Path, train_args: list[str], card: str) -> dict:
+    """Phase 22b: ``launch train --all-layers --supervise`` in its own
+    process.  A FIFO at the second epoch's checkpoint path holds the child
+    there once the first epoch's checkpoint is on disk; the phase then
+    unlinks it and kills the child (its pid from the supervisor's
+    ``/proc/<pid>/task/*/children``, :func:`child_processes`) with SIGKILL.  The supervisor reruns
+    the job, which resumes from epoch 1."""
+    import os
+    import signal
+
+    out = rl / "out"
+    run = out / f"launch_encoder_layer{RL_LAYER}"
+    run.mkdir(parents=True)
+    fifo = run / "checkpoint_epoch2.npz.tmp"
+    os.mkfifo(fifo)
+    log_path = rl / "supervised.log"
+    path = os.environ.get("PYTHONPATH")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + (os.pathsep + path if path else "")}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as f:
+        sup = subprocess.Popen(launch_cmd(*train_args, "--supervise", "--max-restarts", "1",
+                                          "--restart-backoff", "0"),
+                               cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT,
+                               start_new_session=True)
+        try:
+            deadline = time.time() + 300
+            while not (run / "checkpoint_epoch1.npz").exists():
+                check(sup.poll() is None and time.time() < deadline,
+                      f"supervised train: no first checkpoint ({log_path.read_text()[-2000:]})")
+                time.sleep(0.02)
+            killed_s = time.perf_counter() - t0
+            children = child_processes(sup.pid)
+            check(len(children) == 1, f"supervisor children {children}")
+            fifo.unlink()  # the blocked open keeps its inode; the rerun writes a plain file
+            os.kill(children[0], signal.SIGKILL)
+            rc = sup.wait(timeout=600)
+        finally:
+            if sup.poll() is None:  # the supervisor and the job it runs
+                os.killpg(sup.pid, signal.SIGKILL)
+                sup.wait()
+    wall = time.perf_counter() - t0
+    text = log_path.read_text()
+    check(rc == 0, f"supervised train exited {rc}: {text[-3000:]}")
+    attempts = json.loads((out / "launch_supervisor_log.json").read_text())
+    check([a["returncode"] for a in attempts] == [-signal.SIGKILL, 0],
+          f"supervisor attempts {[a['returncode'] for a in attempts]}")
+    check(f"checkpoint_epoch1.npz (epoch 1," in text and "resuming from" in text,
+          f"the rerun did not resume from epoch 1: {text[-3000:]}")
+    log(f"  launch train --all-layers --supervise: the child killed (SIGKILL) {killed_s:.1f} s "
+        f"in, after checkpoint_epoch1.npz; the supervisor reran it (attempts "
+        f"{[a['returncode'] for a in attempts]}), which resumed from epoch 1; {wall:.1f} s in all "
+        f"[{card}]")
+    return {"out": out, "wall_s": wall, "killed_after_s": killed_s}
+
+
+def profile_cli(rl: Path, train_mod, cache_mod, card: str) -> dict:
+    """Phase 22c: ``train.py --profile DIR`` for one epoch at batch 128 on
+    the first ``RL_PROF_CLIPS`` clips of the extracted encoder cache (a
+    trace of every step of all 64 clips is hundreds of MB); the trace
+    parses with events."""
+    import yaml
+    from whisper_sae_tpu_torch.config import DataConfig, WhisperConfig
+
+    src = cache_mod.FeatureCache(rl / "cache" / "features", WhisperConfig(), DataConfig())
+    dst = cache_mod.FeatureCache(rl / "prof_cache" / "features", WhisperConfig(), DataConfig())
+    writer = dst.writer("encoder", RL_LAYER)
+    writer.append(src.load("encoder", RL_LAYER)[0][:RL_PROF_CLIPS * ENC_T])
+    writer.finalize(num_samples=RL_PROF_CLIPS)
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    cfg["training"].update(epochs=1, batch_size=128)
+    cfg["data"]["cache_dir"] = str(rl / "prof_cache")
+    cfg["output_dir"] = str(rl / "prof_out")
+    cfg["experiment_name"] = "prof"
+    path = rl / "prof.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    t0 = time.perf_counter()
+    train_mod.main(["--config", str(path), "--layer", f"encoder:{RL_LAYER}", "--no-wandb",
+                    "--profile", str(rl / "trace")])
+    wall = time.perf_counter() - t0
+    traces = list((rl / "trace").glob("trace_*.json"))
+    check(len(traces) == 1, f"--profile wrote {traces}")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    check(len(events) > 0, "the trace holds no events")
+    top = [(n.split("<")[0].split("(")[0][-40:], c) for n, c in
+           sorted(kernels.items(), key=lambda kv: -kv[1])[:6]]
+    seen_a = {n: sum(c for k_, c in kernels.items() if n in k_) for n in A_NAMES}
+    log(f"  train.py --profile (1 epoch, batch 128, {RL_PROF_CLIPS * ENC_T} rows): {wall:.1f} s, trace "
+        f"{traces[0].stat().st_size / 2**20:.1f} MiB with {len(events)} events, "
+        f"{sum(kernels.values())} kernel events of {len(kernels)} names; kernel A's launches "
+        f"seen by name {seen_a}; most frequent {top} [{card}]")
+    shutil.rmtree(rl / "trace", ignore_errors=True)
+    return {"wall_s": wall, "events": len(events), "kernel_events": sum(kernels.values()),
+            "kernel_a_seen": seen_a}
+
+
+def analyze_path(rl: Path, launch_mod, sae_mod, card: str) -> dict:
+    """Phase 22d on the card: ``launch analyze`` with every output on the
+    uninterrupted train job's encoder SAE (``ref/``, the one the CPU side
+    reads), its encode (kernel B writing f32) timed."""
+    out = rl / "ref"
+    args = ["analyze", "--layer-idx", str(RL_LAYER), "--top-k", "20", "--top-n", "100",
+            "--coactivation", "16", "--clips", "4", "--auto-label", "--dashboard",
+            "--cache-dir", str(rl / "cache"), "--output-dir", str(out)]
+    t0 = time.perf_counter()
+    with timed_calls(sae_mod.TopKSAE, "encode", rows=lambda self, x: int(x.shape[0])) as enc:
+        res = launch_mod.main(args)
+    wall = time.perf_counter() - t0
+    adir = Path(res["analysis_dir"])
+    for name in ("summary.json", "tracker_state.json", "coactivation.json", "dashboard.html",
+                 "analysis_log.json", "audio/manifest.json"):
+        check((adir / name).exists(), f"analyze wrote no {name}")
+    n_feat = len(list((adir / "features").glob("feature_*.json")))
+    check(n_feat == 100 and res["clips_written"] > 0 and res["coactivation_features"] == 16,
+          f"analyze: {n_feat} feature files, {res}")
+    rows = RL_CLIPS * ENC_T
+    check(enc["rows"] == 2 * rows, f"analyze encoded {enc['rows']} rows, not 2 x {rows}")
+    log(f"  launch analyze: {wall:.2f} s; {enc['calls']} encode calls of "
+        f"{8 * ENC_T} rows, {enc['rows']:,} rows in {enc['s']:.2f} s "
+        f"({enc['rows'] / enc['s']:,.0f} rows/s, {enc['s'] / wall:.1%} of the job's wall); "
+        f"{n_feat} feature reports, {res['clips_written']} clips, labels "
+        f"{res['auto_labeled_features']} [{card}]")
+    return {"wall_s": wall, "encode_s": enc["s"], "encode_rows": enc["rows"],
+            "rows_per_s": enc["rows"] / enc["s"], "encode_share": enc["s"] / wall}
+
+
+def causal_path(rl: Path, launch_mod, card: str) -> dict:
+    """Phase 22e on the card: ``launch causal-validate`` for both
+    components on the uninterrupted train job's SAEs (``ref/``), the sweep
+    timed."""
+    res = {}
+    for comp in ("encoder", "decoder"):
+        t0 = time.perf_counter()
+        with timed_calls(launch_mod, "feature_ablation_sweep") as sweep:
+            out = launch_mod.main(["causal-validate", "--component", comp, "--layer-idx",
+                                   str(RL_LAYER), "--random-whisper", "--num-samples",
+                                   str(RL_SAMPLES), "--sweep-features", str(RL_SWEEP),
+                                   "--cache-dir", str(rl / "cache"),
+                                   "--output-dir", str(rl / "ref")])
+        wall = time.perf_counter() - t0
+        saved = json.loads((rl / "ref" / f"launch_{comp}_layer{RL_LAYER}" / "analysis"
+                            / "causal_validation.json").read_text())
+        check(len(saved["ablation_sweep"]) == RL_SWEEP and np.isfinite(saved["logit_kl"]),
+              f"causal-validate {comp}: {out}")
+        res[comp] = {"wall_s": wall, "s_per_feature": sweep["s"] / RL_SWEEP, "saved": saved}
+        log(f"  launch causal-validate --component {comp}: {wall:.2f} s, "
+            f"{sweep['s'] / RL_SWEEP:.3f} s a swept feature; logit_kl {saved['logit_kl']:.6g}, "
+            f"token agreement {saved['token_agreement']} [{card}]")
+    return res
+
+
+def identity_patch(W, P, ds_mod, dev, params: dict) -> None:
+    """Phase 22e: the identity patch's logits equal the clean forward's bit
+    for bit on the card (the job's weights ``params`` and mel)."""
+    arch = W.arch_for(TINY)
+    ds = ds_mod.SyntheticSpeechDataset(RL_SAMPLES, seed=RL_SEED, n_mels=arch.n_mels, device=dev)
+    mel = torch.from_numpy(np.stack([ds[i]["input_features"] for i in range(RL_SAMPLES)])).to(dev)
+    with torch.no_grad(), W.f32_matmuls():
+        enc = W.encoder_forward(params, mel, arch)[0]
+        bos = torch.full((RL_SAMPLES, 1), arch.decoder_start_token_id, device=dev)
+        clean = W.decoder_logits(params, W.decoder_forward(params, bos, enc, arch)[0][:, 0])
+    for what, got in (("encoder", P.patched_logits(params, mel, arch, RL_LAYER, lambda h: h)),
+                      ("decoder", P.patched_logits_decoder(params, mel, arch, RL_LAYER,
+                                                           lambda h: h))):
+        check(torch.equal(got, clean), f"identity patch on {what} layer {RL_LAYER}: logits differ "
+              f"from the clean forward (max {float((got - clean).abs().max()):.3g})")
+    log(f"  identity patches on encoder and decoder layer {RL_LAYER}: logits bit-equal to the "
+        "clean forward")
+
+
+def research_cpu_child(rl: str) -> None:
+    """Phase 22's CPU side, in a process of its own beside the card's (b)
+    to (e): ``launch analyze --device cpu`` (the summary), then
+    ``causal-validate`` on the CPU for both components, on a copy of the
+    uninterrupted train job's SAEs (``ref/``, which the card's jobs read
+    too), the Whisper weights the card's job makes (``whisper.pt``, patched
+    into ``launch.init_whisper``).  A TopK SAE's f32 encode takes the
+    card's route here, in its plain version: kernel B's
+    (``fused_topk_encode`` on CPU rows), where the CPU's own route is the
+    f32 product.  Opens no CUDA context.  Writes ``cpu.json``.  Run as
+    ``python -c "import chip_smoke; chip_smoke.research_cpu_child(DIR)"``."""
+    import os
+
+    from whisper_sae_tpu_torch import launch as launch_mod
+    from whisper_sae_tpu_torch.causal import patching
+    from whisper_sae_tpu_torch.models import sae as sae_mod
+    from whisper_sae_tpu_torch.ops import cuda_sae
+
+    def kernel_b_plain(p, x, k):
+        return cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], k, torch.float32)
+
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) - 2))
+    rl = Path(rl)
+    whisper = torch.load(rl / "whisper.pt")
+    launch_mod.init_whisper = lambda gen, arch: whisper
+    sae_mod.topk_hidden_f32 = patching.topk_hidden_f32 = kernel_b_plain
+    res = {}
+    for comp in ("encoder", "decoder"):
+        src, dst = rl / "ref" / f"launch_{comp}_layer{RL_LAYER}", rl / "cpu_out"
+        (dst / src.name).mkdir(parents=True)
+        for name in ("sae_final.npz", "training_config.json"):
+            shutil.copy(src / name, dst / src.name / name)
+    t0 = time.perf_counter()
+    launch_mod.analyze(layer_idx=RL_LAYER, top_k=20, top_n=100, cache_dir=rl / "cache",
+                       output_dir=rl / "cpu_out", device="cpu")
+    res["analyze_s"] = time.perf_counter() - t0
+    for comp in ("encoder", "decoder"):
+        t0 = time.perf_counter()
+        res[comp] = launch_mod.causal_validate(
+            component=comp, layer_idx=RL_LAYER, num_samples=RL_SAMPLES, sweep_features=RL_SWEEP,
+            random_whisper=True, seed=RL_SEED, cache_dir=rl / "cache",
+            output_dir=rl / "cpu_out", device="cpu")
+        res[f"causal_{comp}_s"] = time.perf_counter() - t0
+    res["cuda_initialized"] = torch.cuda.is_initialized()
+    (rl / "cpu.json").write_text(json.dumps(res))
+
+
+def start_cpu_side(rl: Path) -> subprocess.Popen:
+    import os
+
+    path = os.environ.get("PYTHONPATH")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src") + (os.pathsep + path if path else "")}
+    with open(rl / "cpu.log", "w") as f:
+        return subprocess.Popen([sys.executable, "-c", "import chip_smoke; "
+                                 f"chip_smoke.research_cpu_child({str(rl)!r})"],
+                                cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT)
+
+
+def research_cpu(rl: Path, proc: subprocess.Popen, sae_mod, cache_mod, cuda_sae,
+                 card_causal: dict) -> dict:
+    """Phase 22d/e against the CPU: the first analyze chunk's latent (here),
+    then the CPU side's analyze summary and causal-validate results, all on
+    the uninterrupted train job's SAEs (``ref/``)."""
+    from whisper_sae_tpu_torch.config import DataConfig, WhisperConfig
+
+    run = rl / "ref" / f"launch_encoder_layer{RL_LAYER}"
+    card_sae = sae_mod.load_trained_sae(run)
+    q = {k_: v.detach() for k_, v in sae_mod.load_trained_sae(run, device="cpu").params.items()}
+    cache = cache_mod.FeatureCache(rl / "cache" / "features", WhisperConfig(), DataConfig())
+    rows = cache.load_rows("encoder", RL_LAYER)[0][:8 * ENC_T].float()
+    with torch.no_grad():
+        got = card_sae.encode(rows.to(card_sae.device))
+        want = cuda_sae.topk_encode_plain(rows, cuda_sae._bf16_t(q["w_enc"]), q["b_enc"],
+                                          q["b_pre"], K, torch.float32)
+    ok = agree(got.cpu(), want)
+    share = float(ok.float().mean())
+    check(share >= 0.999, f"analyze chunk: {share:.4%} of rows select alike on card and CPU")
+    what = "22d analyze chunk: kernel B (f32 out) vs its plain version on the CPU"
+    p = {k_: v.detach() for k_, v in card_sae.params.items()}
+    GAPS[what] = selection_gaps((rows.to(got.device) - p["b_pre"]).bfloat16(),
+                                cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], got,
+                                want.to(got.device), K, what)
+    err = float((got.cpu()[ok] - want[ok]).abs().max())
+    check(err <= 1e-5 * float(want.abs().max()),
+          f"analyze chunk: values off by {err:.3g} on rows that select alike")
+    log(f"  the first analyze chunk ({rows.shape[0]} rows) card vs CPU: {share:.4%} of rows "
+        f"select alike, max |d| {err:.3g} on those")
+
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    check(rc == 0, f"the CPU side failed: {(rl / 'cpu.log').read_text()[-3000:]}")
+    cpu = json.loads((rl / "cpu.json").read_text())
+    check(not cpu["cuda_initialized"], "the CPU side opened a CUDA context")
+    tops = {}
+    for what_, d in (("card", rl / "ref"), ("cpu", rl / "cpu_out")):
+        summary = json.loads((d / run.name / "analysis" / "summary.json").read_text())
+        tops[what_] = {f["feature_idx"]: f["max_activation"] for f in summary["top_features"]}
+    common = set(tops["card"]) & set(tops["cpu"])
+    check(len(common) >= 99, f"analyze top-100 features: {len(common)} shared by card and CPU")
+    worst = max(abs(tops["card"][f] - tops["cpu"][f]) / abs(tops["cpu"][f]) for f in common)
+    check(worst <= 1e-5, f"analyze max activations: rel err {worst:.3g} > 1e-5")
+    log(f"  launch analyze --device cpu ({cpu['analyze_s']:.1f} s; waited {waited:.1f} s for "
+        f"the CPU side): {len(common)} of the top 100 features shared, their max activations "
+        f"within rel {worst:.3g}")
+    for comp in ("encoder", "decoder"):
+        card, c = card_causal[comp]["saved"], cpu[comp]
+        kl_d = abs(card["logit_kl"] - c["logit_kl"])
+        check(kl_d <= 1e-3 * abs(c["logit_kl"]) + 1e-6,
+              f"causal {comp}: logit_kl {card['logit_kl']} (card) vs {c['logit_kl']} (CPU)")
+        check(card["token_agreement"] == c["token_agreement"],
+              f"causal {comp}: token agreement {card['token_agreement']} (card) vs "
+              f"{c['token_agreement']} (CPU)")
+        cs = {r["feature_idx"]: r["logit_kl"] for r in c["ablation_sweep"]}
+        both = [r for r in card["ablation_sweep"] if r["feature_idx"] in cs]
+        sweep_d = max((abs(r["logit_kl"] - cs[r["feature_idx"]]) / abs(cs[r["feature_idx"]])
+                       for r in both), default=float("nan"))
+        log(f"  causal-validate --component {comp} --device cpu ({cpu[f'causal_{comp}_s']:.1f} s):"
+            f" logit_kl |d| {kl_d:.3g} ({kl_d / abs(c['logit_kl']):.3g} rel), token agreement "
+            f"equal ({c['token_agreement']}); {len(both)} features swept on both, their KLs "
+            f"within rel {sweep_d:.3g}")
+    return {"cpu_analyze_s": cpu["analyze_s"], "cpu_causal_s": {
+        c_: cpu[f"causal_{c_}_s"] for c_ in ("encoder", "decoder")}, "cpu_wait_s": waited,
+        "chunk_rows_agreeing": share}
+
+
+def research_path(work: Path, dev, card: str, launch_mod, train_mod, sae_mod, cache_mod,
+                  ds_mod, cuda_sae, cuda_topk, topk, W, P) -> dict:
+    """Phase 22: the research loop after extraction at whisper-tiny width
+    (D=384, H=3072, k=32): extract, the supervised train job with a kill
+    and a resume, the CLI's --profile, analyze, causal-validate; launch
+    counts; the card against the CPU."""
+    t_phase = time.perf_counter()
+    rl = work / "research"
+    shutil.rmtree(rl, ignore_errors=True)
+    rl.mkdir()
+    counted = {"fused_sae_loss": cuda_sae.fused_sae_loss,
+               "fused_sae_loss_indexed": cuda_sae.fused_sae_loss_indexed,
+               "fused_topk_encode": cuda_sae.fused_topk_encode}
+    for w in (*counted.values(), cuda_topk.topk_mask_fwd):
+        w.launches = 0
+    cuda_sae.fused_topk_encode.blocked_launches = cuda_topk.topk_mask_fwd.wide_launches = 0
+    topk.plain_calls.clear()
+    res = {}
+
+    t0 = time.perf_counter()
+    launch_mod.main(["extract", "--random-whisper", "--dataset", "synthetic", "--max-samples",
+                     str(RL_CLIPS), "--layers-encoder", str(RL_LAYER), "--layers-decoder",
+                     str(RL_LAYER), "--cache-dir", str(rl / "cache")])
+    res["extract_s"] = time.perf_counter() - t0
+    log(f"  (a) launch extract: {RL_CLIPS} clips, encoder and decoder layer {RL_LAYER}, "
+        f"{res['extract_s']:.2f} s [{card}]")
+
+    train_args = ["train", "--all-layers", "--layers-encoder", str(RL_LAYER), "--layers-decoder",
+                  str(RL_LAYER), "--batch-size", str(RL_BATCH), "--epochs", str(RL_EPOCHS),
+                  "--checkpoint-every", "1", "--cache-dir", str(rl / "cache")]
+    log("  (b) the train job uninterrupted in this process, then supervised and killed once")
+    t0 = time.perf_counter()
+    ref = launch_mod.main(train_args + ["--output-dir", str(rl / "ref")])
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    acts = sum(r["num_tokens"] for r in ref) * RL_EPOCHS
+    enc_rows = RL_CLIPS * ENC_T
+    want_a = {"fused_sae_loss_indexed": RL_EPOCHS * (enc_rows // RL_BATCH),
+              "fused_sae_loss": RL_EPOCHS * 2}  # the encoder's remainder and the decoder's step
+    got_a = {n: counted[n].launches for n in want_a}
+    check(got_a == want_a, f"the train job's kernel A launches {got_a} != {want_a}")
+    log(f"  launch train --all-layers: {ref_s:.2f} s, {acts / ref_s:,.0f} act/s end to end "
+        f"[{card}]; kernel A launches {got_a}")
+    arch = W.arch_for(TINY)  # causal-validate's weights, made as the job makes them
+    whisper = W.init_whisper(torch.Generator(device=dev).manual_seed(RL_SEED), arch)
+    torch.save(W.params_to(whisper, "cpu"), rl / "whisper.pt")
+    cpu_side = start_cpu_side(rl)  # the CPU comparison runs beside the rest, on these SAEs
+    try:
+        sup = supervised_train(rl, train_args + ["--output-dir", str(rl / "out")], card)
+        run, ref_run = rl / "out" / f"launch_encoder_layer{RL_LAYER}", Path(ref[0]["run_dir"])
+        with np.load(run / "sae_final.npz") as z, np.load(ref_run / "sae_final.npz") as zr:
+            bit = all(np.array_equal(z[k_], zr[k_]) for k_ in z.files)
+            worst = max(float(np.abs(z[k_] - zr[k_]).max() / np.abs(zr[k_]).max())
+                        for k_ in z.files)
+        lg = [r["loss"] for r in json.loads((run / "metrics.json").read_text())]
+        lr_ = [r["loss"] for r in json.loads((ref_run / "metrics.json").read_text())]
+        check(len(lg) == len(lr_) and np.allclose(lg, lr_, rtol=1e-3, atol=0),
+              "the resumed run's losses differ from the uninterrupted run's at rtol 1e-3")
+        check(worst <= 1e-3,
+              f"the resumed encoder SAE differs from the uninterrupted one: {worst:.3g}")
+        log(f"  the resumed encoder SAE against the uninterrupted one: bit-equal {bit}, max rel "
+            f"|d| {worst:.3g}")
+        res.update(train_wall_s=sup["wall_s"], train_ref_s=ref_s, train_act_per_s=acts / ref_s,
+                   resumed_bit_equal=bit)
+
+        log("  (c) train.py --profile")
+        res["profile"] = profile_cli(rl, train_mod, cache_mod, card)
+        log("  (d) launch analyze")
+        res["analyze"] = analyze_path(rl, launch_mod, sae_mod, card)
+        log("  (e) launch causal-validate")
+        causal = causal_path(rl, launch_mod, card)
+        identity_patch(W, P, ds_mod, dev, whisper)
+        launches = {n: w.launches for n, w in counted.items()}
+        launches.update(fused_topk_encode_blocked=cuda_sae.fused_topk_encode.blocked_launches,
+                        topk_mask=cuda_topk.topk_mask_fwd.launches,
+                        topk_mask_wide=cuda_topk.topk_mask_fwd.wide_launches)
+        plain = dict(topk.plain_calls)
+        log(f"  launches on the research loop (in this process): {launches}; plain-version calls "
+            f"{plain}")
+        for n in counted:
+            check(launches[n] > 0, f"{n}: no launch on the research loop")
+        check(sum(plain.values()) == 0, f"plain versions ran on the card: {plain}")
+        res.update(launches=launches,
+                   causal={c: {k_: v for k_, v in r.items() if k_ != "saved"}
+                           for c, r in causal.items()})
+        log("  the card against the CPU")
+        res.update(research_cpu(rl, cpu_side, sae_mod, cache_mod, cuda_sae, causal))
+    finally:
+        if cpu_side.poll() is None:  # a check failed while it ran
+            cpu_side.kill()
+            cpu_side.wait()
+    shutil.rmtree(rl, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3636,6 +4134,7 @@ def main() -> int:
         from whisper_sae_tpu_torch.models import hooks as H
         from whisper_sae_tpu_torch import decoder_analysis as DA
         from whisper_sae_tpu_torch.utils import wavio
+        from whisper_sae_tpu_torch.causal import patching as P
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the repository root",
               file=sys.stderr)
@@ -3924,7 +4423,15 @@ def main() -> int:
         })
         check(kernels[-1]["launches"] > 0, f"coder_wide[{mode}]: no launch on its path")
     log(f"  whisper-small coder slice: {json.dumps({'step': cw_step, 'losses': path21['losses'], 'job_s': path21['job_s'], 'turns_ms': {f'{m}_{b}': cw_times[(m, b)]['turns_ms'] for m, bs in CODER_WIDE_TIMED.items() for b in bs}})}")
-    log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20 and 21): "
+    log("phase 22: the research loop after extraction at whisper-tiny width: extract, train "
+        "--all-layers --supervise with a kill, train.py --profile, analyze, causal-validate")
+    r22 = research_path(work, dev, card, launch_mod, train_mod, sae_mod, cache_mod, ds_mod,
+                        cuda_sae, cuda_topk, topk, W, P)
+    for entry in kernels:
+        if entry["name"] in r22["launches"]:
+            entry["at_research_loop"] = {"launches": r22["launches"][entry["name"]]}
+    log(f"  research loop [{card}]: {json.dumps({k_: v for k_, v in r22.items() if k_ != 'launches'})}")
+    log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20, 21 and 22): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
     log(f"  decoded tokens differing from their reference (phase 19): "

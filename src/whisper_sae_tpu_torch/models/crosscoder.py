@@ -33,7 +33,7 @@ import torch
 from ..ops import _build
 from ..ops.cuda_coder import coder_supported, fused_relu_crosscoder_loss, fused_transcoder_loss
 from ..ops.cuda_sae import FUSED_W_BYTES, fused_topk_encode
-from ..ops.topk import topk_mask_dense
+from ..ops.topk import relu, topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
 from .sae import DeadFeatureMixin, ParamModule, update_dead_state
@@ -133,7 +133,7 @@ def crosscoder_apply(params, acts: torch.Tensor, *, k: int | None = None,
                                    torch.zeros(width, device=acts.device), k)
     else:
         pre = crosscoder_encode_pre(params, acts, compute_dtype)
-        hidden = torch.relu(pre) if k is None else topk_mask_dense(pre, k)
+        hidden = relu(pre) if k is None else topk_mask_dense(pre, k)
     recon = crosscoder_decode(params, hidden, compute_dtype)
     recon_loss = torch.mean(torch.square(recon - acts), dim=(1, 2)).sum()
     if k is None:
@@ -245,7 +245,7 @@ class CrossLayerCrosscoder(DeadFeatureMixin, ParamModule):
 
     def encode(self, layer_activations) -> torch.Tensor:
         pre = crosscoder_encode_pre(self.params, self._stack(layer_activations))
-        return torch.relu(pre) if self._k is None else topk_mask_dense(pre, self._k)
+        return relu(pre) if self._k is None else topk_mask_dense(pre, self._k)
 
     def decode(self, hidden: torch.Tensor) -> dict[int, torch.Tensor]:
         recon = crosscoder_decode(self.params, hidden)

@@ -18,11 +18,18 @@ H = 3072), else (whisper-large) the composed
 (kernel B, or the blocked encode at larger geometries such as
 whisper-large 32x); an f32 ``topk_hidden_dense`` is an f32 product (TF32
 off) followed by kernel C (``ops.topk.topk_mask_dense``, its CTA-per-row
-form above H = 3072).  A bf16 ``relu_sae_loss`` is the coder kernel in
-ReLU mode (``ops.cuda_coder.fused_relu_sae_loss``) where
+form above H = 3072).  The f32 latent of ``TopKSAE.encode`` and of the
+causal patches (``topk_hidden_f32``) takes the route JAX's
+``topk_hidden_dense`` takes on each backend: on the card
+``fused_topk_encode`` writing f32 where D and H are multiples of 128,
+as the TPU's Pallas encode does (bf16 operands, f32 accumulation); on
+the CPU the f32 product and the plain mask, as XLA's.  A bf16
+``relu_sae_loss`` is the coder kernel in ReLU mode
+(``ops.cuda_coder.fused_relu_sae_loss``) where
 ``coder_supported`` holds (the same 48 MiB budget, at any H up to
 40960), else the composed ``relu_sae_apply``.  On the CPU each
-kernel's plain version runs instead, on the same route.
+kernel's plain version runs instead, on the same route
+(``topk_hidden_f32`` aside).
 
 :class:`TopKSAE` is the ``nn.Module`` facade with the reference's object
 API (encode/decode/forward/dead features/resampling); :class:`ReLUSAE`
@@ -43,7 +50,7 @@ from torch import nn
 from ..config import SAEConfig
 from ..ops.cuda_coder import coder_supported, fused_relu_sae_loss
 from ..ops.cuda_sae import fused_loss_supported, fused_sae_loss, fused_topk_encode
-from ..ops.topk import topk_mask_dense
+from ..ops.topk import relu, topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
 
@@ -137,6 +144,19 @@ def topk_hidden_dense(params, x: torch.Tensor, k: int, compute_dtype=torch.float
     return topk_mask_dense(pre, k)
 
 
+def topk_hidden_f32(params, x: torch.Tensor, k: int) -> torch.Tensor:
+    """f32 [B, H] top-k latent as JAX's ``topk_hidden_dense`` gives it on
+    the backend of ``x``: on the card, where D and H are multiples of 128
+    (``pallas_sae.supported``), kernel B or the blocked encode writing f32
+    (the TPU's ``_encode_forward``, bf16 operands); otherwise the f32
+    product and kernel C, or its plain version on the CPU (XLA's route)."""
+    d, h = params["w_enc"].shape
+    if x.device.type == "cuda" and d % 128 == 0 and h % 128 == 0:
+        return fused_topk_encode(x, params["w_enc"], params["b_enc"], params["b_pre"], k,
+                                 torch.float32)
+    return topk_hidden_dense(params, x, k)
+
+
 def topk_sae_apply(params, x: torch.Tensor, k: int, compute_dtype=torch.float32
                    ) -> tuple[SAEOutput, torch.Tensor]:
     """Pure TopK-SAE forward -> (output, active [H] bool)."""
@@ -182,11 +202,11 @@ def relu_sae_apply(params, x: torch.Tensor, sparsity_weight: float, compute_dtyp
     squared error + ``sparsity_weight`` * mean |hidden|."""
     if compute_dtype == torch.bfloat16:
         pre = mm_f32(x.bfloat16(), params["w_enc"].bfloat16()) + params["b_enc"]
-        hidden = torch.relu(pre)
+        hidden = relu(pre)
         recon = mm_f32(hidden.bfloat16(), params["w_dec"].bfloat16()) + params["b_dec"]
     else:
         with f32_matmuls():
-            hidden = torch.relu(torch.matmul(x.float(), params["w_enc"]) + params["b_enc"])
+            hidden = relu(torch.matmul(x.float(), params["w_enc"]) + params["b_enc"])
             recon = torch.matmul(hidden, params["w_dec"]) + params["b_dec"]
     reconstruction_loss = torch.mean(torch.square(recon - x))
     sparsity_loss = torch.mean(torch.abs(hidden))
@@ -328,7 +348,7 @@ class TopKSAE(DeadFeatureMixin, ParamModule):
 
     # -- forward API --
     def encode(self, x: torch.Tensor) -> torch.Tensor:
-        return topk_hidden_dense(self.params, self._rows(x), self.k)
+        return topk_hidden_f32(self.params, self._rows(x), self.k)
 
     def decode(self, hidden: torch.Tensor) -> torch.Tensor:
         with f32_matmuls():
@@ -418,7 +438,7 @@ class ReLUSAE(ParamModule):
 
     def encode(self, x) -> torch.Tensor:
         with f32_matmuls():
-            return torch.relu(torch.matmul(self._rows(x), self.w_enc) + self.b_enc)
+            return relu(torch.matmul(self._rows(x), self.w_enc) + self.b_enc)
 
     def decode(self, hidden: torch.Tensor) -> torch.Tensor:
         with f32_matmuls():

@@ -385,6 +385,17 @@ def _fused_encoder_layers(x, enc: dict, arch: WhisperArch, with_mlp: bool,
     return x, torch.stack(caps), pair
 
 
+def composed_stem(mel: torch.Tensor, enc: dict) -> torch.Tensor:
+    """The conv stem as library calls: conv1 + GELU, conv2 (stride 2) +
+    GELU, to ``[B, T, D]``, plus the positions (the composed path's
+    stem; the caller sets the matmul precision)."""
+    x = F.conv1d(mel, enc["conv1_w"], padding=1) + enc["conv1_b"][None, :, None]
+    x = F.gelu(x)
+    x = F.conv1d(x, enc["conv2_w"], stride=2, padding=1) + enc["conv2_b"][None, :, None]
+    x = F.gelu(x).transpose(1, 2)
+    return x + enc["pos"][: x.shape[1]]
+
+
 def encoder_forward(params: dict, mel: torch.Tensor, arch: WhisperArch, with_mlp: bool = False,
                     use_fused: bool = True, capture_final_ln: bool = False, capture_dtype=None):
     """Encoder forward on mel ``[B, n_mels, T_mel]``.
@@ -411,11 +422,7 @@ def encoder_forward(params: dict, mel: torch.Tensor, arch: WhisperArch, with_mlp
             last = _layer_norm(x, enc["ln_f_g"], enc["ln_f_b"])
         return (last, layer_outputs, mlp_pair) if with_mlp else (last, layer_outputs)
 
-    x = F.conv1d(mel, enc["conv1_w"], padding=1) + enc["conv1_b"][None, :, None]
-    x = F.gelu(x)
-    x = F.conv1d(x, enc["conv2_w"], stride=2, padding=1) + enc["conv2_b"][None, :, None]
-    x = F.gelu(x).transpose(1, 2)
-    x = x + enc["pos"][: x.shape[1]]
+    x = composed_stem(mel, enc)
     outs, mins, mouts = [], [], []
     for i in range(_n_layers(enc["layers"])):
         x, mlp_in, mlp_out = _encoder_layer(x, _layer(enc["layers"], i), arch.num_heads)

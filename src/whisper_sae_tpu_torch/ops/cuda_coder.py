@@ -66,7 +66,7 @@ import torch
 from ..utils.device import mm_f32
 from . import _build
 from .cuda_sae import FUSED_W_BYTES, fixed_order_sum, group_row_sq, list_decode_plain
-from .topk import topk_mask_plain
+from .topk import relu as _relu, topk_mask_plain
 
 mode_launches: Counter = Counter()
 plain_calls: Counter = Counter()
@@ -135,7 +135,7 @@ def coder_forward_plain(x: torch.Tensor, y: torch.Tensor | None, ops: CoderOpera
     ``y`` (``None``: the rows themselves); ``k=None`` is ReLU mode."""
     xc = x.bfloat16()
     pre = mm_f32(xc, ops.we_t.t()) + ops.b_enc
-    hidden = torch.relu(pre) if k is None else topk_mask_plain(pre, k)
+    hidden = _relu(pre) if k is None else topk_mask_plain(pre, k)
     hid = hidden.bfloat16()
     pred = mm_f32(hid, ops.w_dec()) + ops.b_out
     if ops.ws_t is not None:
@@ -168,7 +168,7 @@ def coder_route_plain(x: torch.Tensor, row_offset: int, rows: int,
     padded = -(-rows // tile) * tile
     pre = torch.cat([mm_f32(xc, ops.we_t.t()) + ops.b_enc,
                      ops.b_enc.expand(padded - rows, h)])
-    hidden = torch.relu(pre)
+    hidden = _relu(pre)
     valid = (torch.arange(padded) < rows)[:, None]
     counted = torch.where(valid, hidden, torch.zeros(()))
     parts = counted.view(padded // half, half, h).sum(dim=1)[:-(-rows // half)]

@@ -74,7 +74,7 @@ import torch
 
 from ..utils.device import mm_f32
 from . import _build
-from .topk import cta_threshold, group_threshold, plain_calls, topk_mask_plain
+from .topk import cta_threshold, group_threshold, plain_calls, relu, topk_mask_plain
 
 
 # bf16 W_enc + W_dec at most: the JAX package's budget for the fused
@@ -267,7 +267,7 @@ def fused_loss_wide_route_plain(x, row_offset, rows, we_t, b_enc, b_pre, wd_bf, 
     xc = (xw.float() - b_pre).bfloat16()
     pre = mm_f32(xc, we_t.t()) + b_enc
     xi, th, _ = group_threshold(pre, k)
-    hidden = torch.where(xi >= th, torch.relu(pre), torch.zeros((), device=pre.device))
+    hidden = torch.where(xi >= th, relu(pre), torch.zeros((), device=pre.device))
     hid = hidden.bfloat16()
     pos = hidden > 0
     resid = (list_decode_plain(hid, pos, wd_bf) + b_out) - xw.float()
@@ -456,7 +456,7 @@ def topk_encode_route_plain(x, we_t, b_enc, b_pre, k, out_dtype, chunk):
         xc = (x[r0:r0 + chunk].float() - b_pre).bfloat16()
         pre = mm_f32(xc, we_t.t()) + b_enc
         xi, th, _ = cta_threshold(pre, k)
-        out[r0:r0 + chunk] = torch.where(xi >= th, torch.relu(pre),
+        out[r0:r0 + chunk] = torch.where(xi >= th, relu(pre),
                                          torch.zeros((), device=pre.device)).to(out_dtype)
     return out
 

@@ -139,10 +139,16 @@ def group_threshold(pre: torch.Tensor, k: int, threads: int = 128, run: int = 4,
     return x, torch.where(done, th, lo)[:, None], passes
 
 
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.relu``: max(x, 0), with +0.0 for -0.0 (``torch.relu``
+    keeps the sign of a -0.0; adding +0.0 clears it and nothing else)."""
+    return torch.relu(x) + 0.0
+
+
 def topk_mask_plain(pre: torch.Tensor, k: int) -> torch.Tensor:
-    """relu(pre) where pre is among the row's k largest, else 0."""
+    """relu(pre) where pre is among the row's k largest, else +0.0."""
     x, th = topk_threshold(pre, k)
-    return torch.where(x >= th, torch.relu(pre), torch.zeros((), dtype=pre.dtype, device=pre.device))
+    return torch.where(x >= th, relu(pre), torch.zeros((), dtype=pre.dtype, device=pre.device))
 
 
 def topk_mask_dense(pre: torch.Tensor, k: int) -> torch.Tensor:

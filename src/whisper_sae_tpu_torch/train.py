@@ -14,6 +14,7 @@ subsample, as the JAX CLI does::
         --layer encoder:0 --no-wandb
     python -m whisper_sae_tpu_torch.train --config ... --extract-only --random-whisper
     python -m whisper_sae_tpu_torch.train --device cpu ...   # plain versions
+    python -m whisper_sae_tpu_torch.train ... --profile profiles/run1   # Chrome trace
 
 Without ``--random-whisper`` the pretrained weights are loaded from the
 local HF cache, with a fallback to random weights.  Only
@@ -38,6 +39,7 @@ from .models.sae import create_sae
 from .models.whisper import arch_for, init_whisper, load_pretrained
 from .training.trainer import SAETrainer
 from .utils.device import resolve_device
+from .utils.profiling import trace
 
 EXTRACT_BATCH = 64
 
@@ -62,6 +64,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="Resume training from a checkpoint file")
     parser.add_argument("--random-whisper", action="store_true",
                         help="Use randomly initialised Whisper weights (offline mode)")
+    parser.add_argument("--profile", type=Path, default=None,
+                        help="Write a torch.profiler trace (Chrome JSON) of training into "
+                             "this directory")
     return parser.parse_args(argv)
 
 
@@ -115,7 +120,7 @@ def main(argv=None) -> dict[str, SAETrainer]:
     for component, layer_idx in layers:
         run_name = f"{config.experiment_name}_{component}_layer{layer_idx}"
         trainers[run_name] = train_layer(config, feature_cache, component, layer_idx, run_name,
-                                         device, args.resume)
+                                         device, args.resume, args.profile)
     print("Training complete!")
     return trainers
 
@@ -154,7 +159,7 @@ def extract(config: ExperimentConfig, feature_cache: FeatureCache, encoder_layer
 
 def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component: str,
                 layer_idx: int, run_name: str, device: torch.device,
-                resume: Path | None = None) -> SAETrainer:
+                resume: Path | None = None, profile: Path | None = None) -> SAETrainer:
     print(f"Training SAE for {component} layer {layer_idx}")
     metadata = feature_cache.load_metadata(component, layer_idx)
     print(f"Cached {metadata.num_tokens:,} tokens, dim={metadata.hidden_dim}, dtype={metadata.dtype}")
@@ -202,7 +207,8 @@ def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component
             print(f"W&B initialization failed: {e}\nContinuing without W&B logging...")
 
     print(f"Training for {config.training.epochs} epochs...")
-    trainer.train(dataloader, epochs=config.training.epochs)
+    with trace(profile):
+        trainer.train(dataloader, epochs=config.training.epochs)
     trainer.save_final()
     trainer.save_metrics()
     (run_dir / "training_config.json").write_text(json.dumps({

@@ -26,10 +26,13 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "whisper_sae_tpu"))
 need = {"launch", "models.transcoder", "models.crosscoder", "training.coder_trainers",
         "ops.cuda_coder", "models.hooks", "decoder_analysis.logit_lens",
-        "decoder_analysis.cross_attention", "utils.wavio", "utils.metrics"}
+        "decoder_analysis.cross_attention", "utils.wavio", "utils.metrics",
+        "utils.profiling", "analysis.feature_viz", "analysis.coactivation",
+        "analysis.audio_extraction", "analysis.auto_label", "analysis.dashboard",
+        "causal.patching"}
 missing = sorted(n for n in need if pkg.__name__ + "." + n not in names)
 print(len(names), bad, missing)
-sys.exit(1 if bad or missing or len(names) < 42 else 0)
+sys.exit(1 if bad or missing or len(names) < 50 else 0)
 """
 
 

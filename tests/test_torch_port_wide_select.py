@@ -66,9 +66,9 @@ def _model(h: int):
 
 def _check_select(pre: np.ndarray, k: int) -> None:
     """The model's mask on ``pre`` bit for bit against the JAX package's
-    ``topk_threshold`` mask, and its latent against ``topk_mask_dense``'s:
-    bit for bit, but for the sign of a selected -0.0 (``torch.relu`` keeps
-    it, ``jax.nn.relu`` gives +0.0; no selection depends on it)."""
+    ``topk_threshold`` mask, and its latent (and the plain top-k's) against
+    ``topk_mask_dense``'s bit for bit, the sign of a selected -0.0
+    included (+0.0, as ``jax.nn.relu`` gives)."""
     jx, jth = jtopk.topk_threshold(jnp.asarray(pre), k)
     want_mask = np.asarray(jx >= jth)
     want_latent = np.asarray(jtopk.topk_mask_dense(jnp.asarray(pre), k))
@@ -76,8 +76,9 @@ def _check_select(pre: np.ndarray, k: int) -> None:
     x, th, _ = _model(pre.shape[1])(t, k)
     mask = x >= th
     np.testing.assert_array_equal(mask.numpy(), want_mask)
-    latent = torch.where(mask, torch.relu(t), torch.zeros(())).numpy()
-    np.testing.assert_array_equal(_bits(latent + 0.0), _bits(want_latent + 0.0))
+    latent = torch.where(mask, ttopk.relu(t), torch.zeros(())).numpy()
+    np.testing.assert_array_equal(_bits(latent), _bits(want_latent))
+    np.testing.assert_array_equal(_bits(ttopk.topk_mask_plain(t, k).numpy()), _bits(want_latent))
 
 
 @pytest.mark.parametrize("k", [1, 32, 64])
@@ -118,8 +119,10 @@ EDGES = ["ties", "all_negative", "few_positive", "signed_zero", "k_equals_h"]
 def test_select_edge_cases_bit_identical_to_jax(case, h):
     pre, k = _edge_rows(case, h)
     _check_select(pre, k)
-    if case == "signed_zero":  # -0.0 sorts below +0.0 in the monotone view
+    if case == "signed_zero":  # -0.0 sorts below +0.0 in the monotone view, and is selected
         assert bool((ttopk._monotone_int(torch.tensor([-0.0])) < 0).all())
+        assert np.signbit(pre).any() and not np.signbit(
+            ttopk.topk_mask_plain(torch.from_numpy(pre), k).numpy()).any()
 
 
 @pytest.mark.parametrize("case", ["gaussian", *EDGES])
