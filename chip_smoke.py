@@ -138,8 +138,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     transcoder, the ReLU crosscoder and the TopK crosscoder at batch 4096
     and 32768, wall and device busy time.
 11. Whisper-large 32x (D=1280, H=40960, k=32; bench.py:83-112): the
-    blocked encode (``ops/csrc/blocked_encode.cu``: per 2048-row chunk
-    the centre, the kPre GEMM of ``encoder_gemm.cu`` and the CTA select)
+    blocked encode (``ops/csrc/blocked_encode.cu``: per 2048-row chunk,
+    the budget's rows at this width, the centre, the kPre GEMM of ``encoder_gemm.cu`` and the CTA select)
     against its plain version at 8192 rows, 4,200 (two full chunks and a
     ragged one) and a ragged 1,000, for f32 and bf16 rows and both latent
     dtypes, at kernel B's bars (>= 99.9% of rows select the same
@@ -268,7 +268,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     encode on kernel C's wide form, the loss finite and falling, decoder rows unit
     norm, the trained SAE on 512 rows against the CPU.  (c) At 128,
     4096 and 32768 rows the wide route and the composed route it
-    replaces (the blocked encode, the ``mm_f32`` decode, the loss) in
+    replaces (kernel B's top-k encode, the ``mm_f32`` decode, the loss) in
     turns (composed / wide / wide / composed), each launch's device ms;
     a CLI step at batch 128 and one at 32768.
 
@@ -332,7 +332,48 @@ Phases, each of which fails the run (non-zero exit, no result line):
     causal-validate with the card's weights (logit KL within 1e-3
     relative + 1e-6, token agreement equal).
 
-Before them, one line lists the rows of phases 1, 8, 11, 20, 21 and 22 that select
+23. The top-k encode and mask at every width the JAX package takes: (a)
+    kernel B through ``fused_topk_encode`` in each select form past the
+    warp select (``_build.select_form``: the group form at whisper-small
+    8x, D=768 H=6144; the CTA form at whisper-large 8x, 1280 x 10240; the
+    spill form at whisper-tiny 128x, 384 x 49152), 4096 rows, bf16 and
+    f32 out; the blocked encode at whisper-large 64x (1280 x 81920, the
+    spill form, chunks of 1024 rows); each at kernel B's bars with the gap
+    rule, two launches bit-identical, the library's select counts by form
+    one a chunk in the named form and none in another; kernel C past H =
+    40960 ([4096, 49152], [1024, 81920], [64, 262144]) exact.  (b-c) The
+    main path, every count zeroed first: a whisper-tiny 128x TopK SAE
+    (k=32, AMP, batch 4096) trained on a synthetic 48 x 4096-row cache
+    for 4 epochs as the launcher's ``train`` job trains one (the SAE
+    config of both packages refuses an expansion past 32, so the SAE is a
+    ``TopKSAE`` of H = 49152 and the job's steps run through the
+    library), kernel B once a step and kernel A never; 4 f32 steps
+    (kernel C's spill form once a step); ``TopKSAE.encode`` (kernel B
+    writing f32); 3 AMP steps of a whisper-large 64x SAE through the
+    trainer (the blocked encode once a step); every kernel of the path
+    launched, the selects all in the spill form, no plain version.  (d)
+    Against the CPU: the train job at batch 256 for 8 steps and 4 f32
+    steps of each trained SAE, losses at rtol 1e-3; the encode's f32
+    latent (>= 99.9% of rows alike, the gap rule, values within 1e-5 of
+    the max) and the f32 forward (``eval_against_cpu``); whisper-large
+    64x from the same parameters, 3 steps at batch 64, losses at rtol
+    1e-3.  (e) A whisper-large 64x step at batch 4096 under the profiler;
+    each kernel beside its plain version, its bound (the select's passes
+    on this pre counted) and a library yardstick (bf16 ``torch.mm``;
+    ``torch.topk`` and a scatter for the mask), kernel B at whisper-small
+    8x and large 8x in turns with the same rows in calls of 2048 (the
+    blocked encode's chunk there before kernel B and the blocked encode
+    took one C entry), the group select at whisper-small 8x in turns with
+    the CTA select the blocked encode ran there, the blocked encode at
+    large 16x in one 4096-row chunk in turns with calls of 2048, each
+    launch's device ms at tiny 128x and large 64x (kept only where the
+    parts add up to within 10% of the call).  The ``kernels``
+    entries ``fused_topk_encode_wide``, ``topk_mask_spill`` and
+    ``fused_topk_encode_blocked_spill``; ``fused_topk_encode`` and
+    ``fused_topk_encode_blocked`` carry ``select_forms``, the library's
+    counts by form on phases 2-3's and 12's paths.
+
+Before them, one line lists the rows of phases 1, 8, 11, 20, 21, 22 and 23 that select
 differently from the plain version, with their gaps, and one the
 decoded tokens of phase 19 that differ from their reference.  The last two lines
 are the ``kernels`` JSON line and
@@ -479,7 +520,7 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# phases 1, 8, 11, 20, 21 and 22: the rows that select differently from the plain version
+# phases 1, 8, 11, 20, 21, 22 and 23: the rows that select differently from the plain version
 GAPS: dict[str, list] = {}
 # phases 20 and 21: the select-and-decode form each wide geometry launched
 FORMS: dict[str, dict] = {"fused_sae_loss": {}, "coder": {}}
@@ -2141,7 +2182,7 @@ def large_kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
             xc = (x.float() - p["b_pre"]).bfloat16()
             for out_dtype in (torch.bfloat16, torch.float32):
                 what = f"blocked encode rows={rows} x {x.dtype} -> {out_dtype}"
-                got = cuda_sae._blocked_encode_launch(x, *args, out_dtype)
+                got = cuda_sae._topk_encode_launch(x, *args, out_dtype)
                 want = cuda_sae.topk_encode_plain(x, *args, out_dtype)
                 torch.cuda.synchronize()
                 check(got.dtype == out_dtype and got.shape == (rows, HL), f"{what}: output")
@@ -2155,8 +2196,8 @@ def large_kernel_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
                 # the route selects on the kPre GEMM's pre of these rows
                 GAPS[what] = selection_gaps(xc, we_t, p["b_enc"], got, want, K, what)
                 del got, want
-    a = cuda_sae._blocked_encode_launch(x32, *args, torch.bfloat16)
-    check(torch.equal(a, cuda_sae._blocked_encode_launch(x32, *args, torch.bfloat16)),
+    a = cuda_sae._topk_encode_launch(x32, *args, torch.bfloat16)
+    check(torch.equal(a, cuda_sae._topk_encode_launch(x32, *args, torch.bfloat16)),
           "blocked encode: two launches differ")
     del a
 
@@ -2300,7 +2341,7 @@ def large_times(work: Path, dev, trainer, cuda_sae, cuda_topk, topk) -> dict:
     pre = (torch.matmul(xc.float(), w_bf.float()) + p["b_enc"]).contiguous()
     # the select's passes on this pre (it stops at a count of exactly k):
     # a compare and an add an element a pass, and the mask
-    chunk = _build.load_library().wst_blocked_chunk_rows()
+    chunk = _build.topk_encode_chunk_rows(HL)
     passes = torch.cat([topk.cta_threshold(pre[r0:r0 + chunk], K)[2]
                         for r0 in range(0, BL, chunk)]).double()
     select_ops = float(2 * passes.sum() * HL + BL * HL)
@@ -2308,7 +2349,7 @@ def large_times(work: Path, dev, trainer, cuda_sae, cuda_topk, topk) -> dict:
     # x, W_enc^T and the biases in, the bf16 latent out; the product and the select
     b_bound = bound(BL * DL * 4 + DL * HL * 2 + (HL + DL) * 4 + BL * HL * 2, 2 * BL * DL * HL,
                     select_ops)
-    launch = lambda: cuda_sae._blocked_encode_launch(*args)  # noqa: E731
+    launch = lambda: cuda_sae._topk_encode_launch(*args)  # noqa: E731
     split = launch_split(launch, BLOCKED_PARTS)
     chunks = -(-BL // chunk)
     res["fused_topk_encode_blocked"] = {
@@ -3323,8 +3364,8 @@ def small_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae
 def wide_times(dev, cuda_sae, sae_mod, topk) -> dict:
     """Phase 20c at whisper-small 8x, 128 / 4096 / 32768 rows: the wide
     route (sliced and at an offset) and the composed route it replaces at
-    these widths (``topk_sae_apply``'s bf16 forward: the blocked encode,
-    the ``mm_f32`` decode, the loss) timed in turns, composed / wide /
+    these widths (``topk_sae_apply``'s bf16 forward: kernel B's top-k
+    encode, the ``mm_f32`` decode, the loss) timed in turns, composed / wide /
     wide / composed; the plain version, the bound, the bf16 encode GEMM
     as the library yardstick, each launch's device ms."""
     from whisper_sae_tpu_torch.utils.device import mm_f32
@@ -4112,6 +4153,494 @@ def research_path(work: Path, dev, card: str, launch_mod, train_mod, sae_mod, ca
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the top-k encode and mask at every width the JAX package takes
+# ---------------------------------------------------------------------------
+
+# kernel B past the warp select, one geometry a select form: whisper-small
+# 8x (the group form), whisper-large 8x (the CTA form), whisper-tiny 128x
+# (the spill form); 4096 rows
+ENC_FORM_GEOMS = {"group": (768, 6144), "cta": (1280, 10240), "spill": (384, 49152)}
+MASK_SPILL_SHAPES = ((4096, 49152), (1024, 81920), (64, 262144))
+DT, HT = 384, 49152  # whisper-tiny 128x: kernel B's spill form
+DG, HG = 1280, 81920  # whisper-large 64x: the blocked encode's spill form
+WB = 4096  # the trainers' batch
+TINY_STEPS, TINY_EPOCHS = 48, 4  # the train job: 48 x 4096 rows, 4 epochs
+F32_STEPS, LARGE_STEPS64 = 4, 3
+REF_B, REF_STEPS = 256, 8  # the card-vs-CPU runs: 8 steps of 256 rows
+SPILL_PARTS = {"centre": "sae_centre_kernel", "encode": "_kernel<3>",
+               "select": "spill_select_kernel"}
+
+
+def encode_check(cuda_sae, x, p: dict, out_dtype, what: str, errs: dict, key: str) -> None:
+    """``fused_topk_encode`` on ``x`` against its plain version: >= 99.9% of
+    rows select alike, values on them within 1e-2 * max, every other row
+    through the gap rule; two launches bit-identical."""
+    we_t = cuda_sae._bf16_t(p["w_enc"])
+    args = (we_t, p["b_enc"], p["b_pre"], K, out_dtype)
+    got = cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
+    want = cuda_sae.topk_encode_plain(x, *args)
+    torch.cuda.synchronize()
+    check(got.dtype == out_dtype and got.shape == want.shape, f"{what}: output")
+    ok = agree(got, want)
+    share = float(ok.float().mean())
+    check(share >= 0.999, f"{what}: selection agrees on {share:.4%} of rows")
+    err = float((got[ok].float() - want[ok].float()).abs().max())
+    check(err <= 1e-2 * float(want.float().abs().max()), f"{what}: values off by {err:.3g}")
+    errs[key] = max(errs.get(key, 0.0), err)
+    GAPS[what] = selection_gaps((x.float() - p["b_pre"]).bfloat16(), we_t, p["b_enc"], got, want,
+                                K, what)
+    again = cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
+    check(torch.equal(got, again), f"{what}: two launches differ")
+    log(f"  {what}: rows agreeing {share:.4%}, max abs err {err:.3g}, two launches bit-identical")
+
+
+def encode_widths_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
+    """Phase 23a: kernel B in its group, CTA and spill forms, the blocked
+    encode's spill form and kernel C's against their plain versions, the
+    selects counted by form in the library.  Returns the max abs error by
+    ``kernels`` entry."""
+    from whisper_sae_tpu_torch.ops import _build
+
+    errs: dict[str, float] = {"topk_mask_spill": 0.0}
+    enc = cuda_sae.fused_topk_encode
+    for form, (d, h) in ENC_FORM_GEOMS.items():
+        p = params(90 + d, dev, d, h)
+        x = torch.randn(WB, d, generator=torch.Generator(device=dev).manual_seed(91), device=dev)
+        chunks = -(-WB // _build.topk_encode_chunk_rows(h))
+        for out_dtype in (torch.bfloat16, torch.float32):
+            before = (enc.launches, enc.blocked_launches, cuda_sae.encode_select_launches())
+            encode_check(cuda_sae, x, p, out_dtype,
+                         f"kernel B D={d} H={h} ({form}) -> {str(out_dtype)[6:]}", errs,
+                         "fused_topk_encode_wide")
+            made = {f: n - before[2][f] for f, n in cuda_sae.encode_select_launches().items()}
+            check((enc.launches, enc.blocked_launches) == (before[0] + 2, before[1])
+                  and made == {f: 2 * chunks if f == form else 0 for f in made},
+                  f"kernel B D={d} H={h}: launches {enc.launches - before[0]}, blocked "
+                  f"{enc.blocked_launches - before[1]}, selects by form {made}")
+        del p, x
+    p = params(92, dev, DG, HG)
+    x = torch.randn(WB, DG, generator=torch.Generator(device=dev).manual_seed(93), device=dev)
+    chunks = -(-WB // _build.topk_encode_chunk_rows(HG))
+    for out_dtype in (torch.bfloat16, torch.float32):
+        before = (enc.launches, enc.blocked_launches, cuda_sae.encode_select_launches()["spill"])
+        encode_check(cuda_sae, x, p, out_dtype,
+                     f"blocked encode D={DG} H={HG} (spill) -> {str(out_dtype)[6:]}", errs,
+                     "fused_topk_encode_blocked_spill")
+        check((enc.launches, enc.blocked_launches, cuda_sae.encode_select_launches()["spill"])
+              == (before[0], before[1] + 2, before[2] + 2 * chunks),
+              f"blocked encode D={DG} H={HG}: not the blocked route's spill form")
+    del p, x
+    for rows, h in MASK_SPILL_SHAPES:
+        pre = torch.randn(rows, h, generator=torch.Generator(device=dev).manual_seed(h), device=dev)
+        pre[:4] = torch.round(pre[:4] * 2) / 2  # exact ties at the threshold
+        before = cuda_topk.topk_mask_fwd.spill_launches
+        got = cuda_topk.topk_mask_fwd(pre, K)
+        check(cuda_topk.topk_mask_fwd.spill_launches == before + 1,
+              f"topk_mask [{rows}, {h}]: not the spill form")
+        check(torch.equal(got, topk.topk_mask_plain(pre, K)),
+              f"topk_mask [{rows}, {h}]: differs from the plain version")
+        check(int((got[4:] > 0).sum(1).min()) == K, f"topk_mask [{rows}, {h}]: not k per row")
+        log(f"  topk_mask [{rows}, {h}] (spill form) with tie rows: equal to the plain version")
+        del pre, got
+    return errs
+
+
+def write_rows(cache_dir: Path, rows: int, gen: torch.Generator, mix: torch.Tensor,
+               cfg_mod, cache_mod) -> None:
+    """A synthetic ``encoder:0`` cache of ``rows`` gaussian rows at
+    whisper-tiny width where the launcher looks for one."""
+    cache = cache_mod.FeatureCache(cache_dir / "features", cfg_mod.WhisperConfig(),
+                                   cfg_mod.DataConfig())
+    writer = cache.writer("encoder", 0)
+    for start in range(0, rows, 1 << 16):
+        writer.append(gaussian_rows(min(1 << 16, rows - start), gen, mix).cpu().numpy())
+    meta = writer.finalize(num_samples=max(1, rows // 1500))
+    check(meta.num_tokens == rows and meta.hidden_dim == DT, "phase 23 cache metadata")
+
+
+def train_job(cfg_mod, cache_mod, sae_mod, train_mod, cache_dir: Path, run_dir: Path,
+              batch: int, epochs: int, device: str = "cuda"):
+    """A whisper-tiny 128x TopK SAE (k = 32, AMP) trained on the cache as
+    the launcher's ``train`` job trains one (``launch.train_sae``: the
+    SAE made from its seed, the cache's loader, ``SAETrainer.train`` with
+    the cache as the resample set, ``save_final``, ``save_metrics``),
+    through the library: the SAE config of both packages refuses an
+    expansion past 32 (``config.py:55``), so a 128x SAE is made as a
+    ``TopKSAE`` of H = 49152.  Returns the trainer."""
+    cache = cache_mod.FeatureCache(cache_dir / "features", cfg_mod.WhisperConfig(),
+                                   cfg_mod.DataConfig())
+    sae = sae_mod.TopKSAE(DT, HT, K, seed=42, device=device)
+    trainer = train_mod.SAETrainer(sae, cfg_mod.TrainingConfig(
+        batch_size=batch, learning_rate=1e-3, epochs=epochs, warmup_steps=20, use_amp=True,
+        seed=42), run_dir=run_dir)
+    loader = cache.get_dataloader("encoder", 0, batch_size=batch, seed=42)
+    trainer.set_resample_dataset(loader.data)
+    trainer.train(loader, epochs=epochs)
+    trainer.save_final()
+    trainer.save_metrics()
+    return trainer
+
+
+def main_path_counts(cuda_sae, cuda_topk, topk) -> None:
+    for w in (cuda_sae.fused_sae_loss, cuda_sae.fused_sae_loss_indexed):
+        w.launches = w.wide_launches = 0
+    cuda_sae.fused_topk_encode.launches = cuda_sae.fused_topk_encode.blocked_launches = 0
+    m = cuda_topk.topk_mask_fwd
+    m.launches = m.wide_launches = m.spill_launches = 0
+    topk.plain_calls.clear()
+
+
+def widths_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, cuda_topk,
+                topk) -> dict:
+    """Phase 23b-c, the main path, every count zeroed first: the
+    whisper-tiny 128x TopK SAE trained as the ``train`` job trains (AMP:
+    the composed loss around kernel B's spill form), a few f32 steps
+    (kernel C's spill form), ``TopKSAE.encode`` (kernel B writing f32),
+    then whisper-large 64x AMP steps through the trainer (the blocked
+    encode's spill form).  Returns the launches, the trained SAE and the
+    rows for the comparisons."""
+    from whisper_sae_tpu_torch.ops import _build
+
+    wd = work / "widths"
+    shutil.rmtree(wd, ignore_errors=True)
+    gen = torch.Generator(device=dev).manual_seed(94)
+    mix = torch.randn(RANK, DT, generator=gen, device=dev) / RANK ** 0.5
+    write_rows(wd / "cache", TINY_STEPS * WB, gen, mix, cfg_mod, cache_mod)
+    enc, mask = cuda_sae.fused_topk_encode, cuda_topk.topk_mask_fwd
+    main_path_counts(cuda_sae, cuda_topk, topk)
+    forms0 = cuda_sae.encode_select_launches()
+    res: dict = {"mix": mix}
+
+    steps = TINY_STEPS * TINY_EPOCHS
+    t0 = time.perf_counter()
+    job = train_job(cfg_mod, cache_mod, sae_mod, train_mod, wd / "cache", wd / "out", WB,
+                    TINY_EPOCHS)
+    torch.cuda.synchronize()
+    res["train_s"] = time.perf_counter() - t0
+    run = job.run_dir
+    amp = (enc.launches, enc.blocked_launches, cuda_sae.fused_sae_loss.launches,
+           cuda_sae.fused_sae_loss_indexed.launches)
+    check(amp == (steps, 0, 0, 0), f"the tiny 128x train job: kernel B, blocked, kernel A "
+          f"(sliced, windowed) launches {amp} for {steps} steps")
+    losses = np.array([r["loss"] for r in json.loads((run / "metrics.json").read_text())])
+    check(len(losses) == steps and bool(np.isfinite(losses).all()), f"metrics: {losses}")
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    check(last < first, f"loss did not fall ({first:.5f} -> {last:.5f})")
+    res["losses"] = [first, last]
+    log(f"  (b) the train job's steps, whisper-tiny 128x (D={DT}, H={HT}, k={K}, batch {WB}, AMP): "
+        f"{steps} steps in {res['train_s']:.1f} s (cache load and saves included), loss "
+        f"{first:.5f} -> {last:.5f} (means of 10 steps), kernel B {steps} launches")
+
+    sae = job.model
+    with np.load(run / "sae_final.npz") as z:
+        check(z["w_enc"].shape == (DT, HT) and all(bool(np.isfinite(z[n_]).all()) for n_ in z.files),
+              "sae_final.npz: shapes or non-finite parameters")
+    rows = gaussian_rows((F32_STEPS + 1) * WB, gen, mix)
+    f32 = train_mod.SAETrainer(sae, cfg_mod.TrainingConfig(
+        batch_size=WB, learning_rate=1e-4, warmup_steps=0, use_amp=False), run_dir=wd / "f32")
+    before = mask.spill_launches
+    m32 = [m.loss for m in f32.train_epoch_fused(rows[:F32_STEPS * WB], shuffle=False)]
+    check(mask.spill_launches - before == F32_STEPS and all(np.isfinite(m32)),
+          f"f32 steps: kernel C's spill form {mask.spill_launches - before} launches for "
+          f"{F32_STEPS} steps, losses {m32}")
+    res["f32_losses"] = m32
+    log(f"  f32 steps at batch {WB}: losses {[round(v, 6) for v in m32]}, kernel C's spill form "
+        "once a step")
+    held = rows[F32_STEPS * WB:]
+    before = enc.launches
+    with torch.no_grad():
+        latent = sae.encode(held)
+    check(enc.launches == before + 1 and latent.dtype == torch.float32,
+          "TopKSAE.encode did not take kernel B writing f32")
+    res.update(sae=sae, held=held, latent=latent)
+
+    gl = torch.Generator(device=dev).manual_seed(95)
+    mix_l = torch.randn(RANK, DG, generator=gl, device=dev) / RANK ** 0.5
+    lg = sae_mod.TopKSAE(DG, HG, K, seed=96, device=dev)
+    res["large_init"] = {n_: v.detach().cpu().clone() for n_, v in lg.params.items()}
+    lrows = gaussian_rows(LARGE_STEPS64 * WB, gl, mix_l)
+    trainer = train_mod.SAETrainer(lg, cfg_mod.TrainingConfig(
+        batch_size=WB, learning_rate=1e-3, warmup_steps=2, use_amp=True), run_dir=wd / "large")
+    before = enc.blocked_launches
+    t0 = time.perf_counter()
+    ml = [m.loss for m in trainer.train_epoch_fused(lrows, shuffle=False)]
+    torch.cuda.synchronize()
+    check(enc.blocked_launches - before == LARGE_STEPS64 and all(np.isfinite(ml)),
+          f"whisper-large 64x: {enc.blocked_launches - before} blocked launches for "
+          f"{LARGE_STEPS64} steps, losses {ml}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  (c) whisper-large 64x (D={DG}, H={HG}, k={K}, batch {WB}, AMP) through the trainer: "
+        f"{LARGE_STEPS64} steps in {time.perf_counter() - t0:.2f} s, losses "
+        f"{[round(v, 6) for v in ml]}, the blocked encode once a step; card memory peak so far "
+        f"{peak_gb:.1f} GiB")
+    res.update(large_losses=ml, large_trainer=trainer, large_rows=lrows, large_mix=mix_l)
+
+    made = {f: n - forms0[f] for f, n in cuda_sae.encode_select_launches().items()}
+    res["launches"] = {"fused_topk_encode_wide": enc.launches,
+                       "topk_mask_spill": mask.spill_launches,
+                       "fused_topk_encode_blocked_spill": enc.blocked_launches}
+    res["select_forms"] = made
+    tiny_chunks, large_chunks = (-(-WB // _build.topk_encode_chunk_rows(HT)),
+                                 -(-WB // _build.topk_encode_chunk_rows(HG)))
+    want = (steps + 1) * tiny_chunks + LARGE_STEPS64 * large_chunks
+    check(made == {f: want if f == "spill" else 0 for f in made},
+          f"selects by form on the main path {made}: want {want} spill")
+    check(sum(topk.plain_calls.values()) == 0, f"plain versions ran: {dict(topk.plain_calls)}")
+    log(f"  launches on the main path: {res['launches']}, selects by form {made}")
+    return res
+
+
+def widths_against_cpu(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae,
+                       r: dict) -> dict:
+    """Phase 23d, the main path against the CPU (plain versions): (1) the
+    tiny 128x train job on 2048 rows at batch 256 (8 steps) on the card
+    and on the CPU, losses at rtol 1e-3, then 4 f32 steps of each trained
+    SAE at rtol 1e-3; (2) ``TopKSAE.encode``'s f32 latent of the
+    main path's SAE against kernel B's plain version (>= 99.9% of rows
+    alike, the gap rule, values within 1e-5 * max) and its f32 forward
+    (``eval_against_cpu``); (3) whisper-large 64x from the same initial
+    parameters, 3 steps at batch 64 on the card and on the CPU, losses at
+    rtol 1e-3."""
+    wd = work / "widths"
+    res: dict = {}
+    gen = torch.Generator(device=dev).manual_seed(97)
+    write_rows(wd / "ref_cache", REF_STEPS * REF_B, gen, r["mix"], cfg_mod, cache_mod)
+    jobs, traj = {}, {}
+    t0 = time.perf_counter()
+    for where in ("cuda", "cpu"):
+        jobs[where] = train_job(cfg_mod, cache_mod, sae_mod, train_mod, wd / "ref_cache",
+                                wd / f"ref_{where}", REF_B, 1, device=where)
+        traj[where] = [m.loss for m in jobs[where].metrics_history]
+    check(len(traj["cuda"]) == len(traj["cpu"]) == REF_STEPS
+          and np.allclose(traj["cuda"], traj["cpu"], rtol=1e-3, atol=0),
+          f"the train job on the card {traj['cuda']} vs the CPU {traj['cpu']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(traj["cuda"], traj["cpu"]))
+    rows = gaussian_rows(F32_STEPS * REF_B, gen, r["mix"])
+    f32 = {}
+    for where in ("cuda", "cpu"):
+        t = train_mod.SAETrainer(jobs[where].model, cfg_mod.TrainingConfig(
+            batch_size=REF_B, learning_rate=1e-4, warmup_steps=0, use_amp=False),
+            run_dir=wd / f"f32_{where}")
+        f32[where] = [m.loss for m in t.train_epoch_fused(rows.to(where), shuffle=False)]
+    check(np.allclose(f32["cuda"], f32["cpu"], rtol=1e-3, atol=0),
+          f"f32 steps on the card {f32['cuda']} vs the CPU {f32['cpu']}")
+    rel32 = max(abs(a - b) / abs(b) for a, b in zip(f32["cuda"], f32["cpu"]))
+    log(f"  (d) the train job (batch {REF_B}, {REF_STEPS} steps), card vs CPU: losses "
+        f"within rel {rel:.3g}; then {F32_STEPS} f32 steps within rel {rel32:.3g} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    res.update(train_rel=rel, f32_rel=rel32)
+
+    sae, held, got = r["sae"], r["held"][:1024], r["latent"][:1024]
+    q = {n_: v.detach().cpu() for n_, v in sae.params.items()}
+    want = cuda_sae.topk_encode_plain(held.cpu(), cuda_sae._bf16_t(q["w_enc"]), q["b_enc"],
+                                      q["b_pre"], K, torch.float32)
+    ok = agree(got.cpu(), want)
+    share = float(ok.float().mean())
+    check(share >= 0.999, f"TopKSAE.encode: {share:.4%} of rows alike on card and CPU")
+    what = "23d TopKSAE.encode: kernel B (f32 out) vs its plain version on the CPU"
+    p = {n_: v.detach() for n_, v in sae.params.items()}
+    GAPS[what] = selection_gaps((held - p["b_pre"]).bfloat16(), cuda_sae._bf16_t(p["w_enc"]),
+                                p["b_enc"], got, want.to(dev), K, what)
+    err = float((got.cpu()[ok] - want[ok]).abs().max())
+    check(err <= 1e-5 * float(want.abs().max()), f"TopKSAE.encode: values off by {err:.3g}")
+    log(f"  TopKSAE.encode of 1024 held-out rows, card vs CPU: {share:.4%} alike, max |d| "
+        f"{err:.3g} on those")
+    eval_against_cpu(sae, held, sae_mod)
+
+    init = r["large_init"]
+    lrows = r["large_rows"][:LARGE_STEPS64 * 64]
+    lg = {}
+    t0 = time.perf_counter()
+    for where in ("cuda", "cpu"):
+        model = sae_mod.TopKSAE(DG, HG, K, params={n_: v.clone() for n_, v in init.items()},
+                                device=where)
+        t = train_mod.SAETrainer(model, cfg_mod.TrainingConfig(
+            batch_size=64, learning_rate=1e-3, warmup_steps=2, use_amp=True),
+            run_dir=wd / f"large_{where}")
+        lg[where] = [m.loss for m in t.train_epoch_fused(lrows.to(where), shuffle=False)]
+        del model, t
+    check(np.allclose(lg["cuda"], lg["cpu"], rtol=1e-3, atol=0),
+          f"whisper-large 64x on the card {lg['cuda']} vs the CPU {lg['cpu']}")
+    rel_l = max(abs(a - b) / abs(b) for a, b in zip(lg["cuda"], lg["cpu"]))
+    log(f"  whisper-large 64x, {LARGE_STEPS64} steps at batch 64 from the same parameters, card vs "
+        f"CPU: losses within rel {rel_l:.3g} ({time.perf_counter() - t0:.1f} s)")
+    res.update(encode_rows_alike=share, large_rel=rel_l)
+    return res
+
+
+def topk_scatter(pre: torch.Tensor, k: int) -> torch.Tensor:
+    """The library yardstick of kernel C: ``torch.topk`` and a scatter of
+    the relu'd values (exactly k a row: ties are not kept)."""
+    v, i = torch.topk(pre, k, dim=1)
+    return torch.zeros_like(pre).scatter_(1, i, v.relu())
+
+
+def checked_split(fn, parts: dict, ms: float, what: str, calls: int = 5) -> dict | None:
+    """``launch_split`` of ``fn``, kept only where its parts add up to
+    within 10% of the call's ``ms`` (the profiler has missed launches in a
+    long run): taken again once, else None, with a log line."""
+    for _ in range(2):
+        split = launch_split(fn, parts, calls=calls)
+        total = sum(v for v in split.values() if v is not None)
+        if abs(total - ms) <= 0.1 * ms:
+            return split
+        log(f"  {what}: the profiler's split adds up to {total:.4f} of a {ms:.4f} ms call")
+    log(f"  {what}: split not measured (the profiler missed launches twice)")
+    return None
+
+
+def select_turns(lib, pre: torch.Tensor, forms: tuple, k: int) -> dict:
+    """The select forms ``forms`` alone on one f32 pre (``wst_encode_select_fwd``,
+    a bf16 latent), in turns a / b / b / a: device ms a call of each, and
+    the four turns."""
+    from whisper_sae_tpu_torch.ops import _build
+
+    rows, h = pre.shape
+    out = torch.empty((rows, h), dtype=torch.bfloat16, device=pre.device)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(form):
+        def call():
+            err = lib.wst_encode_select_fwd(_build.SELECT_FORMS.index(form), pre.data_ptr(), rows,
+                                            h, k, out.data_ptr(), 0, 0, stream)
+            check(err == 0, f"wst_encode_select_fwd ({form} form): error {err}")
+        return call
+
+    a, b = forms
+    turns = [time_ms(run(f)) for f in (a, b, b, a)]
+    return {f"{b}_ms": (turns[1] + turns[2]) / 2, f"{a}_ms": (turns[0] + turns[3]) / 2,
+            "turns_ms": turns}
+
+
+def widths_times(dev, cuda_sae, cuda_topk, topk) -> dict:
+    """Phase 23e: kernel B in each form, the blocked encode at whisper-large
+    64x and kernel C past 40960 at the main path's shapes, beside their
+    plain versions, bounds (the select's passes on this pre counted) and
+    library yardsticks; at whisper-small 8x and large 8x kernel B in turns
+    with the same rows in calls of 2048 (the blocked encode's chunk there
+    before both took one entry: blocked / B / B / blocked), and at
+    whisper-small 8x the group select in turns with the CTA select the
+    blocked encode ran there; at whisper-large 16x the blocked encode in
+    one chunk in turns with calls of 2048 rows; each launch's device ms at
+    whisper-tiny 128x and large 64x."""
+    from whisper_sae_tpu_torch.ops import _build
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    lib = _build.load_library()
+    res: dict = {}
+    geoms = {**{f: (d, h, False) for f, (d, h) in ENC_FORM_GEOMS.items()},
+             "blocked_spill": (DG, HG, True)}
+    for form, (d, h, blocked) in geoms.items():
+        p = params(98 + d, dev, d, h)
+        x = torch.randn(WB, d, generator=torch.Generator(device=dev).manual_seed(99), device=dev)
+        we_t = cuda_sae._bf16_t(p["w_enc"])
+        args = (x, we_t, p["b_enc"], p["b_pre"], K, torch.bfloat16)
+        xc, w_bf = (x - p["b_pre"]).bfloat16(), p["w_enc"].bfloat16()
+        pre = mm_f32(xc, we_t.t()) + p["b_enc"]
+        passes = topk.cta_threshold(pre, K)[2].double()
+        b_bound = bound(WB * d * 4 + d * h * 2 + (h + d) * 4 + WB * h * 2, 2 * WB * d * h,
+                        float(2 * passes.sum() * h + WB * h))
+        kernel = lambda: cuda_sae._topk_encode_launch(*args)  # noqa: E731
+        r = {"plain_ms": time_ms(lambda: cuda_sae.topk_encode_plain(*args), iters=2, warmup=1),
+             **dict(zip(("bound_ms", "bound_by"), b_bound)),
+             "library_ms": time_ms(lambda: torch.mm(xc, w_bf), iters=10, warmup=2),
+             "select_passes_mean": float(passes.mean()), "geometry": {"d": d, "h": h, "k": K}}
+        if form in ("group", "cta"):  # the blocked encode took these widths, 2048 rows a chunk
+            old = lambda: [cuda_sae._topk_encode_launch(x[r0:r0 + 2048], *args[1:])  # noqa: E731
+                           for r0 in range(0, WB, 2048)]
+            turns = [time_ms(f) for f in (old, kernel, kernel, old)]
+            r.update(ms=(turns[1] + turns[2]) / 2, blocked_ms=(turns[0] + turns[3]) / 2,
+                     turns_ms=turns)
+            if form == "group":  # the select the blocked encode ran here, and the new one
+                r["select"] = select_turns(lib, pre, ("cta", "group"), K)
+        else:
+            r["ms"] = time_ms(kernel, iters=10, warmup=2)
+            r["split_ms"] = checked_split(kernel, SPILL_PARTS, r["ms"],
+                                          f"{'blocked encode' if blocked else 'kernel B'} H={h}")
+        res[form] = r
+        sel = r.get("select")
+        log(f"  {'blocked encode' if blocked else 'kernel B'} D={d} H={h} ({form.split('_')[-1]} "
+            f"form) B={WB}: {r['ms']:.4f} ms"
+            + (f" (turns {r['turns_ms'][1]:.4f}, {r['turns_ms'][2]:.4f}); in calls of 2048 rows "
+               f"(the blocked encode's chunk) {r['blocked_ms']:.4f} (turns {r['turns_ms'][0]:.4f}, "
+               f"{r['turns_ms'][3]:.4f})" if "turns_ms" in r else "")
+            + (f"; the select alone: group {sel['group_ms']:.4f}, the blocked encode's CTA form "
+               f"{sel['cta_ms']:.4f} (turns " + ", ".join(f"{t:.4f}" for t in sel["turns_ms"])
+               + ")" if sel else "")
+            + f"; plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), library "
+            f"{r['library_ms']:.4f}; {r['select_passes_mean']:.2f} select passes a row"
+            + ("; device ms a call: " + ", ".join(
+                f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
+                for k_, v in r["split_ms"].items()) if r.get("split_ms") else ""))
+        del p, x, xc, w_bf, pre
+    # whisper-large 16x, past the budget: the blocked encode, one 4096-row
+    # chunk, in turns with its former 2048-row chunks
+    p = params(100, dev, DG, 16 * DG)
+    x = torch.randn(WB, DG, generator=torch.Generator(device=dev).manual_seed(101), device=dev)
+    args = (cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K, torch.bfloat16)
+    new = lambda: cuda_sae._topk_encode_launch(x, *args)  # noqa: E731
+    old = lambda: [cuda_sae._topk_encode_launch(x[r0:r0 + 2048], *args)  # noqa: E731
+                   for r0 in range(0, WB, 2048)]
+    turns = [time_ms(f) for f in (old, new, new, old)]
+    res["large_16x"] = {"ms": (turns[1] + turns[2]) / 2, "in_2048_row_calls_ms":
+                        (turns[0] + turns[3]) / 2, "turns_ms": turns,
+                        "geometry": {"d": DG, "h": 16 * DG, "k": K}}
+    log(f"  blocked encode D={DG} H={16 * DG} (whisper-large 16x, CTA form) B={WB}, one chunk: "
+        f"{res['large_16x']['ms']:.4f} ms; in calls of 2048 rows "
+        f"{res['large_16x']['in_2048_row_calls_ms']:.4f} (turns "
+        + ", ".join(f"{t:.4f}" for t in turns) + ")")
+    del p, x
+    for rows, h in MASK_SPILL_SHAPES:
+        pre = torch.randn(rows, h, generator=torch.Generator(device=dev).manual_seed(h + 1),
+                          device=dev)
+        passes = topk.cta_threshold(pre, K)[2].double()
+        r = {"ms": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K), iters=10, warmup=2),
+             "plain_ms": time_ms(lambda: topk.topk_mask_plain(pre, K), iters=2, warmup=1),
+             **dict(zip(("bound_ms", "bound_by"),
+                        bound(2 * rows * h * 4, 0, float(2 * passes.sum() * h + rows * h)))),
+             "library_ms": time_ms(lambda: topk_scatter(pre, K), iters=10, warmup=2),
+             "select_passes_mean": float(passes.mean())}
+        res[("mask", rows, h)] = r
+        log(f"  topk_mask [{rows}, {h}] (spill form): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}), library {r['library_ms']:.4f} "
+            f"(torch.topk and a scatter); {r['select_passes_mean']:.2f} passes a row")
+        del pre
+    return res
+
+
+def widths_entries(path: dict, errs: dict, tm: dict) -> list:
+    """Phase 23's ``kernels`` entries: rows 3w, 4s and 5s of PERF.md."""
+    def pick(r):
+        return {k_: r[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+
+    sources = [BLOCKED_SOURCE, SELECT_SOURCE, SOURCE, GEMM_SOURCE]
+    mask_main = tm[("mask", *MASK_SPILL_SHAPES[0])]
+    return [
+        {"name": "fused_topk_encode_wide", "route": "cuda", "source": BLOCKED_SOURCE,
+         "sources": sources, "replaces": "src/whisper_sae_tpu/ops/pallas_sae.py:77",
+         "launches": path["launches"]["fused_topk_encode_wide"],
+         "max_abs_err": errs["fused_topk_encode_wide"], **pick(tm["spill"]), "batch": WB,
+         "geometry": tm["spill"]["geometry"], "split_ms": tm["spill"]["split_ms"],
+         "select_forms": path["select_forms"],
+         **{f"at_{form}_form": {**pick(tm[form]), "geometry": tm[form]["geometry"],
+                                "in_2048_row_calls_ms": tm[form]["blocked_ms"],
+                                "turns_ms": tm[form]["turns_ms"]} for form in ("group", "cta")},
+         "select_alone_at_group_form": tm["group"]["select"]},
+        {"name": "topk_mask_spill", "route": "cuda", "source": BLOCKED_SOURCE,
+         "sources": [SOURCE, BLOCKED_SOURCE], "replaces": "src/whisper_sae_tpu/ops/pallas_topk.py:51",
+         "launches": path["launches"]["topk_mask_spill"], "max_abs_err": errs["topk_mask_spill"],
+         **pick(mask_main), "shape": list(MASK_SPILL_SHAPES[0]),
+         **{f"at_{rows}x{h}": pick(tm[("mask", rows, h)]) for rows, h in MASK_SPILL_SHAPES[1:]}},
+        {"name": "fused_topk_encode_blocked_spill", "route": "cuda", "source": BLOCKED_SOURCE,
+         "sources": sources, "replaces": "src/whisper_sae_tpu/ops/pallas_sae.py:1392",
+         "launches": path["launches"]["fused_topk_encode_blocked_spill"],
+         "max_abs_err": errs["fused_topk_encode_blocked_spill"], **pick(tm["blocked_spill"]),
+         "batch": WB, "geometry": tm["blocked_spill"]["geometry"],
+         "split_ms": tm["blocked_spill"]["split_ms"], "at_large_16x": tm["large_16x"]},
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4171,8 +4700,10 @@ def main() -> int:
     for w in wrappers.values():
         w.launches = 0
     log("phases 2-3: train through the CLI, then eval")
+    forms0 = cuda_sae.encode_select_launches()
     trainer, sae, held_out = main_path(work, dev, mix, train_mod, sae_mod)
     launches = {name: w.launches for name, w in wrappers.items()}
+    b_forms = {f: n - forms0[f] for f, n in cuda_sae.encode_select_launches().items()}
     log(f"  launches on the main path: {launches}")
     eval_against_cpu(sae, held_out, sae_mod)
     for name, n in launches.items():
@@ -4224,6 +4755,7 @@ def main() -> int:
             entry["source"] = BLOCKED_SOURCE
             entry["sources"] = [BLOCKED_SOURCE, SOURCE, GEMM_SOURCE]
             entry["route_launches"] = list(B_PARTS.values())
+            entry["select_forms"] = b_forms
         kernels.append(entry)
     log("phase 7: times of the extraction slice (library_ms: torch.matmul for the "
         "projections, the conv1d pair for the stem, scaled_dot_product_attention for the core "
@@ -4292,7 +4824,9 @@ def main() -> int:
     log("phase 11: whisper-large 32x kernels (D=1280, H=40960) against their plain versions")
     large_errs = large_kernel_phase(dev, cuda_sae, cuda_topk, topk)
     log("phase 12: the whisper-large 32x TopK SAE through the CLI")
+    forms0 = cuda_sae.encode_select_launches()
     path12 = large_path(work, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, cuda_topk, topk)
+    blocked_forms = {f: n - forms0[f] for f, n in cuda_sae.encode_select_launches().items()}
     log("phase 13: times at whisper-large 32x (library_ms: the bf16 torch.mm of the encode "
         "product, torch.topk -- yardsticks, not equivalents)")
     ltimes = large_times(work, dev, path12["trainer"], cuda_sae, cuda_topk, topk)
@@ -4308,6 +4842,7 @@ def main() -> int:
         })
         check(kernels[-1]["launches"] > 0, f"{name}: no launch on the whisper-large path")
     kernels[-2]["sources"] = [BLOCKED_SOURCE, GEMM_SOURCE]
+    kernels[-2]["select_forms"] = blocked_forms
     kernels[-2].update({k_: ltimes["fused_topk_encode_blocked"][k_] for k_ in (
         "split_ms", "encode_tflops", "select_passes_mean",
         "select_passes_max")})
@@ -4431,7 +4966,29 @@ def main() -> int:
         if entry["name"] in r22["launches"]:
             entry["at_research_loop"] = {"launches": r22["launches"][entry["name"]]}
     log(f"  research loop [{card}]: {json.dumps({k_: v for k_, v in r22.items() if k_ != 'launches'})}")
-    log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20, 21 and 22): "
+    log("phase 23: the top-k encode and mask at every width the JAX package takes: (a) kernel B "
+        "in its group, CTA and spill forms, the blocked encode and kernel C past H = 40960, "
+        "against their plain versions")
+    w_errs = encode_widths_phase(dev, cuda_sae, cuda_topk, topk)
+    log("  (b) whisper-tiny 128x trained as the train job trains, f32 steps, TopKSAE.encode; (c) "
+        "whisper-large 64x through the trainer")
+    t23 = time.perf_counter()
+    path23 = widths_path(work, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, cuda_topk,
+                         topk)
+    for name_, n_ in path23["launches"].items():
+        check(n_ > 0, f"{name_}: no launch on phase 23's main path")
+    cpu23 = widths_against_cpu(work, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae,
+                               path23)
+    log("  (e) times (library_ms: the bf16 torch.mm of the encode product, torch.topk and a "
+        "scatter for the mask -- yardsticks, not equivalents; at whisper-small 8x and large 8x "
+        "kernel B in turns with the same rows in calls of 2048, the blocked encode's chunk there "
+        "before both took one entry, and the group select with the CTA select it replaces)")
+    step23 = step_profile(path23["large_trainer"], path23["large_rows"], LARGE_STEPS64)
+    tm23 = widths_times(dev, cuda_sae, cuda_topk, topk)
+    kernels.extend(widths_entries(path23, w_errs, tm23))
+    shutil.rmtree(work / "widths", ignore_errors=True)
+    log(f"  widths [{card}]: {json.dumps({'train_s': path23['train_s'], 'losses': path23['losses'], 'f32_losses': path23['f32_losses'], 'large_losses': path23['large_losses'], 'large_step': step23, **cpu23, 'phase_s': time.perf_counter() - t23})}")
+    log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20, 21, 22 and 23): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
     log(f"  decoded tokens differing from their reference (phase 19): "

@@ -30,9 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops import _build
 from ..ops.cuda_coder import coder_supported, fused_relu_crosscoder_loss, fused_transcoder_loss
-from ..ops.cuda_sae import FUSED_W_BYTES, fused_topk_encode
+from ..ops.cuda_sae import fused_topk_encode, uses_blocked
 from ..ops.topk import relu, topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
@@ -111,11 +110,10 @@ def decoder_norms(params) -> torch.Tensor:
 
 
 def _encode_fits(width: int, s: int) -> bool:
-    """The flattened TopK encode takes the top-k encode (kernel B or the
-    blocked encode): bf16 W_enc [L*D, S] within the JAX package's budget
-    (``pallas_sae.py:uses_blocked`` false), widths the encode holds."""
-    return (width % 32 == 0 and s % 32 == 0 and s <= _build.MAX_WIDE_ROW
-            and 2 * width * s <= FUSED_W_BYTES)
+    """The flattened TopK encode takes the top-k encode (kernel B): bf16
+    W_enc [L*D, S] within the JAX package's budget
+    (``pallas_sae.py:uses_blocked`` false), widths multiples of 32."""
+    return width % 32 == 0 and s % 32 == 0 and not uses_blocked(width, s)
 
 
 def crosscoder_apply(params, acts: torch.Tensor, *, k: int | None = None,

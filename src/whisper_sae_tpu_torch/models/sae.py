@@ -13,12 +13,14 @@ Dispatch follows the geometry, as in the JAX package (``models/sae.py:
 ``topk_sae_loss`` is kernel A (``ops.cuda_sae.fused_sae_loss``) where
 ``fused_loss_supported`` holds (the JAX package's budget: bf16 W_enc +
 W_dec within 48 MiB, H <= 40960; kernel A's wide route above D = 384 or
-H = 3072), else (whisper-large) the composed
+H = 3072), else (whisper-tiny 128x, whisper-large) the composed
 ``topk_sae_apply``; a bf16 ``topk_hidden_dense`` is ``fused_topk_encode``
-(kernel B, or the blocked encode at larger geometries such as
-whisper-large 32x); an f32 ``topk_hidden_dense`` is an f32 product (TF32
-off) followed by kernel C (``ops.topk.topk_mask_dense``, its CTA-per-row
-form above H = 3072).  The f32 latent of ``TopKSAE.encode`` and of the
+(kernel B wherever bf16 W_enc fits the JAX package's 48 MiB, up to H =
+65536 at whisper-tiny's D = 384; else the blocked encode, as at
+whisper-large 16x and wider, up to H = 2^20); an f32 ``topk_hidden_dense``
+is an f32 product (TF32 off) followed by kernel C
+(``ops.topk.topk_mask_dense``, its CTA-per-row form above H = 3072, up
+to H = 262,144).  The f32 latent of ``TopKSAE.encode`` and of the
 causal patches (``topk_hidden_f32``) takes the route JAX's
 ``topk_hidden_dense`` takes on each backend: on the card
 ``fused_topk_encode`` writing f32 where D and H are multiples of 128,
@@ -27,7 +29,8 @@ the CPU the f32 product and the plain mask, as XLA's.  A bf16
 ``relu_sae_loss`` is the coder kernel in ReLU mode
 (``ops.cuda_coder.fused_relu_sae_loss``) where
 ``coder_supported`` holds (the same 48 MiB budget, at any H up to
-40960), else the composed ``relu_sae_apply``.  On the CPU each
+40960: the coder kernel holds a row in one CTA's registers), else the
+composed ``relu_sae_apply``.  On the CPU each
 kernel's plain version runs instead, on the same route
 (``topk_hidden_f32`` aside).
 

@@ -13,9 +13,11 @@ Dispatch: a bf16 ``transcoder_loss`` is the coder kernel
 (``ops.cuda_coder.fused_transcoder_loss``), which also exposes
 ``predicted = resid + y`` and the latent, wherever the JAX package fuses
 it (``coder_supported``: bf16 W_enc + W_dec + W_skip within 48 MiB, as
-``fused_coder_supported`` with the skip path; the kernel's wide route
-past H = 3072); beyond that budget (whisper-large 8x) it is the top-k
-encode (``ops.cuda_sae.fused_topk_encode`` with b_pre = 0) followed by
+``fused_coder_supported`` with the skip path, H <= 40960; the kernel's
+wide route past H = 3072); beyond that budget or that width (whisper-large
+8x, whisper-tiny 128x) it is the top-k encode
+(``ops.cuda_sae.fused_topk_encode`` with b_pre = 0: kernel B within the
+JAX package's 48 MiB of bf16 W_enc, else the blocked encode) followed by
 f32 products of bf16 operands for the decode and the skip path, as in
 JAX ``models/transcoder.py:114-128``; f32 is the composed path (f32
 products, kernel C for the mask).  On the CPU each kernel's plain

@@ -27,31 +27,59 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # The kernels' compile-time limits, kept here as Python constants because
 # the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
 # pins them to wst_max_d(), wst_max_row_width(), wst_max_wide_row_width(),
-# wst_max_group_row_width(), wst_rows_per_cta() and
+# wst_max_group_row_width(), wst_max_blocked_row_width(),
+# wst_max_mask_row_width(), wst_rows_per_cta(), wst_select_form() and
 # wst_sae_topk_encode_chunk_rows()).
 MAX_D = 384  # kernel A's warp form decodes D in one pass, D/32 f32 sums a lane
 SEL_ROWS = 4  # rows (one a warp) a CTA of the select-and-decode kernels: one sq partial each
 MAX_ROW = 3072  # one warp holds a row in registers: kernels A, B, C and the coder kernel
-MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: the blocked encode, the wide kernels
-MAX_GROUP_ROW = 8192  # a warp group holds a row in registers: the wide routes' group form
-BLOCKED_CHUNK_ROWS = 2048  # rows of a chunk of the blocked encode
-PRE_BUDGET = BLOCKED_CHUNK_ROWS * MAX_WIDE_ROW * 4  # bytes of a chunk's f32 pre at most
+MAX_WIDE_ROW = 40960  # one CTA holds a row in registers: kernel A's and the coder's wide routes
+MAX_GROUP_ROW = 8192  # a warp group holds a row in registers: the group forms
+# the top-k encode's widest row, kernel B's and the blocked encode's: the
+# TPU's blocked encode's, ``pallas_sae.py:_MAX_H``
+MAX_BLOCKED_ROW = 1 << 20
+MAX_MASK_ROW = 262144  # kernel C's: ``pallas_topk.py:supported`` (8 rows of f32 + int32 in 16 MiB)
+PRE_BUDGET = 2048 * MAX_WIDE_ROW * 4  # bytes of a chunk's f32 pre at most (335 MB)
+GEMM_TILE_ROWS = 128
 
 
 def topk_encode_chunk_rows(h: int) -> int:
-    """Rows of a chunk of kernel B at width ``h``: those whose f32 pre
+    """Rows of a chunk of the top-k encode (kernel B and the blocked
+    encode: one C entry) at width ``h``: those whose f32 pre
     fits ``PRE_BUDGET``, rounded down to a multiple of 128 (the GEMM's
-    tile rows)."""
-    return PRE_BUDGET // (4 * h) // 128 * 128
+    tile rows) where that leaves a tile or more (H <= 655,360), else as
+    they are (80 at H = 2^20), and at least one."""
+    rows = PRE_BUDGET // (4 * h)
+    if rows >= GEMM_TILE_ROWS:
+        return rows // GEMM_TILE_ROWS * GEMM_TILE_ROWS
+    return max(rows, 1)
+
+
+# The forms of the select by row width, in the order of their index in the
+# library's counts (``wst_encode_select_launches(form)``, ``wst_select_form(h)``)
+SELECT_FORMS = ("warp", "group", "cta", "spill")
+
+
+def select_form(h: int) -> str:
+    """The select the top-k encode launches at row width ``h``
+    (``csrc/blocked_encode.cu:select_form``): ``"warp"`` (kernel C's warp
+    select, a warp a row) up to ``MAX_ROW``, ``"group"`` (a warp group a
+    row, persistent CTAs) up to ``MAX_GROUP_ROW``, ``"cta"`` (a CTA a
+    row, the row in registers) up to ``MAX_WIDE_ROW``, else ``"spill"``
+    (a CTA a row, the rest of the row in shared memory and read again)."""
+    if h <= MAX_ROW:
+        return "warp"
+    return wide_form(h)
 
 
 def wide_form(h: int) -> str:
-    """The select-and-decode the wide routes (kernel A's and the coder's
-    TopK modes') launch at row width ``h``: ``"group"``
-    (``*_select_decode_group_kernel``: a warp group a row, persistent
-    CTAs) up to ``MAX_GROUP_ROW``, else ``"cta"``
-    (``*_select_decode_wide_kernel``: a CTA a row)."""
-    return "group" if h <= MAX_GROUP_ROW else "cta"
+    """:func:`select_form` past the warp select: the select-and-decode the
+    wide routes (kernel A's and the coder's TopK modes') launch at row
+    width ``h`` -- ``"group"`` (``*_select_decode_group_kernel``) up to
+    ``MAX_GROUP_ROW``, else ``"cta"`` (``*_select_decode_wide_kernel``) --
+    and the select-only forms of the top-k encode past 3072, ``"spill"``
+    past ``MAX_WIDE_ROW``, where no wide route runs."""
+    return "group" if h <= MAX_GROUP_ROW else "cta" if h <= MAX_WIDE_ROW else "spill"
 
 
 NVCC_FLAGS = (
@@ -91,13 +119,12 @@ _SIGNATURES = {
     "wst_sae_select_launches": ([_I], _L),  # form: 0 group, 1 CTA a row
     "wst_coder_select_launches": ([_I], _L),
     "wst_topk_mask_wide_fwd": ([_P, _P, _I, _I, _I, _P], _I),
-    "wst_blocked_chunk_rows": ([], _I),
-    "wst_blocked_workspace_bytes": ([_I, _I, _I], _L),  # rows, d, h
-    "wst_blocked_encode_fwd": (
-        [_P, _I, _I, _I, _I, _I,          # x, x_bf16, rows, d, h, k
-         _P, _P, _P, _P, _I, _P, _P],     # w_enc_t, b_enc, b_pre, out, out_f32, ws, stream
-        _I,
-    ),
+    "wst_max_blocked_row_width": ([], _I),
+    "wst_max_mask_row_width": ([], _I),
+    "wst_select_form": ([_I], _I),  # h
+    "wst_encode_select_launches": ([_I], _L),  # form: SELECT_FORMS' index
+    # form, pre, rows, h, k, out, out_f32, row0, stream
+    "wst_encode_select_fwd": ([_I, _P, _I, _I, _I, _P, _I, _L, _P], _I),
     "wst_enc_head_dim": ([], _I),
     "wst_enc_wide_max": ([], _I),
     "wst_ln_rows_fwd": ([_P, _L, _I, _P, _P, _P, _P], _I),  # x, n, d, g, b, out, stream

@@ -1,7 +1,8 @@
-// Hand-written Hopper kernels of the top-k encode: kernel B and the
-// blocked (large-H) encode, one chunk loop with two selects.
+// Hand-written Hopper kernels of the top-k encode: one C entry,
+// wst_sae_topk_encode_fwd, that is both kernel B and the blocked
+// (large-H) encode -- one chunk loop with one select by row width.
 //
-// Both compute, for each row, the function of the TPU's encode kernels:
+// It computes, for each row, the function of the TPU's encode kernels:
 //   xc  = bf16(x - b_pre)                          (x f32 or bf16)
 //   pre = xc @ W_enc + b_enc                       (bf16 products, f32 sums)
 //   th  = exact k-th largest of pre                (topk_common.cuh)
@@ -12,39 +13,66 @@
 //   (b) the encoder GEMM's kPre epilogue (TMA, wgmma, warp-specialised;
 //       the same C entry as kernel A's encode) writes pre = acc + b_enc in
 //       f32 from the registers into the workspace ([chunk, H]);
-//   (c) a select reads each row of pre once into registers, finds the
-//       exact threshold, stopping at the first count of exactly k, and
-//       writes the latent at the chunk's row offset.
+//   (c) a select reads each row of pre from device memory once (past
+//       98,304 values: part of it once a pass), finds the exact threshold,
+//       stopping at the first count of exactly k, and writes the latent
+//       at the chunk's row offset.
 // Offsets of the [rows, H] arrays are 64-bit: above 13,107 rows a [rows,
 // H] f32 array passes 2^31 bytes.
 //
-// Kernel B, wst_sae_topk_encode_fwd (D <= 384, H <= 3072: the gate of
-// cuda_sae.fused_loss_supported), replaces
-// whisper_sae_tpu/ops/pallas_sae.py:_encode_kernel (fused_topk_encode ->
-// _encode_forward, pallas_call at :77).  Its select is the warp select of
-// kernel C (sae_kernels.cu: topk_mask_kernel<bf16|f32>, one warp a row,
-// the row in registers), and its chunk is the rows whose f32 pre fits the
-// blocked encode's budget (kPreBudget: 27,264 rows at H = 3072).  W_enc
-// (2.4 MB) fits the L2, so the GEMM walks row tiles first
-// (gemm_kernel<kPre>).  Bound on the H100 at B = 4096 (3.35 TB/s, 989
-// TFLOP/s bf16): bytes, x 6.3 MB, W_enc 2.4 MB and the bf16 latent 25 MB
-// (0.0101 ms), against the product's 9.7 GFLOP (0.0098 ms).  The route
-// adds the f32 pre's round trip, 2*4*B*H bytes (101 MB, 0.030 ms): the
-// traffic the TPU kernel keeps in VMEM.  A CTA that kept its rows' pre in shared memory (16 rows
-// of f32 at H = 3072 fill 192 KB) fits one CTA an SM and reads all of
-// W_enc once every 16 rows; the GEMM reads it once every 128-row tile.
+// The select by row width (select_form; ops/_build.py:select_form names
+// the same forms), counted by form in g_select_launches:
+//   warp   (H <= 3072)  kernel C's warp select (sae_kernels.cu:
+//                       topk_mask_kernel<bf16|f32>, one warp a row);
+//   group  (H <= 8192)  group_select_kernel: select_decode.cuh's group
+//                       form without its decode -- persistent CTAs, a warp
+//                       group a row on its own named barrier, the next
+//                       row's pre brought into shared memory by a bulk copy
+//                       (group_kth_largest), each thread writing its runs
+//                       of four values in 8 (bf16) or 16 (f32) bytes;
+//   cta    (H <= 40960) blocked_select_kernel: one CTA a row, the row in
+//                       registers (cta_kth_largest);
+//   spill  (H <= 2^20)  spill_select_kernel: one CTA a row, 40960 values in
+//                       registers, up to 57,344 more in dynamic shared
+//                       memory, the rest read again each pass
+//                       (spill_kth_largest).
+// Every form's midpoints, totals and early stop are cta_kth_largest's, so
+// the forms give the same mask at any width they share
+// (ops/topk.py:cta_threshold is their plain model).
 //
-// The blocked encode, wst_blocked_encode_fwd, replaces
-// pallas_sae.py:_encode_forward_blocked (_encode_kernel_blocked,
-// pallas_call at :1392), the branch of fused_topk_encode taken when
-// W_enc does not fit on chip (whisper-large 32x: D=1280, H=40960, W_enc
-// 105 MB in bf16).  Its select is blocked_select_kernel: one CTA a row
-// (cta_kth_largest), and its chunk kChunkRows = 2048 rows.
-// Bound on the H100 at bench.py's batch (B=8192; 989 TFLOP/s bf16, 3.35
-// TB/s): the product is 2*B*D*H = 859 GFLOP (0.87 ms) and the bisection
-// at most 33*B*H integer operations (0.17 ms at 67 T/s), while the bytes
-// it must move (x 42 MB, W_enc 105 MB, the bf16 latent 671 MB) take 0.24
-// ms: it is bound by operations, 0.87 ms.
+// The chunk: the rows whose f32 pre fits kPreBudget (335 MB: 2048 rows
+// at H = 40960), rounded down to a multiple of the GEMM's 128-row tile
+// where that leaves a tile or more (H <= 655,360), else the budget's rows
+// as they are (80 at H = 2^20), so the workspace never passes the budget
+// plus the chunk's centred rows (encode_chunk_rows: 27,264 rows at H =
+// 3072, 4,096 at whisper-large 16x, 1,280 at 65536).
+//
+// The entry replaces two Pallas kernels, and the Python wrapper
+// (ops/cuda_sae.py:fused_topk_encode) counts its launches by the one it
+// stands for, by the JAX package's own gate (pallas_sae.py:uses_blocked,
+// :1433-1434: bf16 W_enc past 48 MiB):
+//
+// Kernel B replaces whisper_sae_tpu/ops/pallas_sae.py:_encode_kernel
+// (fused_topk_encode -> _encode_forward, pallas_call at :77), which the
+// JAX package takes wherever bf16 W_enc fits its 48 MiB of VMEM: every
+// Whisper SAE up to H = 65536 at D = 384 (whisper-tiny 128x: H = 49152,
+// the spill form) but whisper-large 16x and wider.  Bound on the H100 at
+// whisper-tiny (D=384, H=3072) and B = 4096
+// (3.35 TB/s, 989 TFLOP/s bf16): bytes, x 6.3 MB, W_enc 2.4 MB and the
+// bf16 latent 25 MB (0.0101 ms), against the product's 9.7 GFLOP (0.0098
+// ms).  The route adds the f32 pre's round trip, 2*4*B*H bytes (101 MB,
+// 0.030 ms): the traffic the TPU kernel keeps in VMEM.
+//
+// The blocked encode replaces pallas_sae.py:_encode_forward_blocked
+// (_encode_kernel_blocked, pallas_call at :1392), the branch of
+// fused_topk_encode taken when W_enc does not fit on chip (whisper-large
+// 16x and wider: D=1280, H >= 20480; W_enc 105 MB in bf16 at 32x), up
+// to H = 2^20 (pallas_sae.py:_MAX_H).  Bound on the H100 at bench.py's batch (B=8192;
+// 989 TFLOP/s bf16, 3.35 TB/s) at whisper-large 32x: the product is
+// 2*B*D*H = 859 GFLOP (0.87 ms) and the bisection at most 33*B*H integer
+// operations (0.17 ms at 67 T/s), while the bytes it must move (x 42 MB,
+// W_enc 105 MB, the bf16 latent 671 MB) take 0.24 ms: it is bound by
+// operations, 0.87 ms.
 // Why the TPU's design does not carry over: the TPU keeps a 256-row block
 // of pre (40 MB of int32) in VMEM while W_enc streams past it in [D, 2048]
 // tiles.  One row of pre is 160 KB here, and an SM has 228 KB of shared
@@ -55,8 +83,8 @@
 // GB at 8192 rows, against once a 128-row tile (6.7 GB) in the row-tile
 // order.  Each output is one CTA's fixed K chain, so the order changes no
 // bits.  Beyond the bound: the f32 workspace is written and read back,
-// 2*4*B*H bytes (2.7 GB at B=8192, >= 0.80 ms); chunks of 2048 rows keep
-// it at 335 MB.  Keeping pre on chip needs a thread-block cluster holding
+// 2*4*B*H bytes (2.7 GB at B=8192, >= 0.80 ms); the chunk keeps it at
+// 335 MB.  Keeping pre on chip needs a thread-block cluster holding
 // a row block's pre across its CTAs' shared memory, with the counts
 // reduced over DSMEM: a later version.
 
@@ -65,6 +93,7 @@
 #include <stdint.h>
 
 #include "encoder_gemm.cuh"
+#include "select_decode.cuh"
 #include "topk_common.cuh"
 
 // sae_kernels.cu: xc = bf16(x[row_offset + r] - b_pre) for r < rows, and
@@ -77,81 +106,230 @@ extern "C" int wst_topk_mask_rows_fwd(const float* pre, int rows, int h, int k, 
 namespace wst {
 namespace blocked {
 
-constexpr int kChunkRows = 2048;  // the blocked encode's chunk
 // the f32 pre of one chunk at most: 2048 rows at H = 40960 (335 MB)
-constexpr long long kPreBudget = (long long)kChunkRows * kMaxWideRow * sizeof(float);
-constexpr int kRowAlign = 128;  // kernel B's chunk: a multiple of the GEMM's tile rows
+constexpr long long kPreBudget = 2048LL * kMaxWideRow * sizeof(float);
+constexpr int kRowAlign = 128;  // a chunk's rows: a multiple of the GEMM's tile rows
 
-// Kernel B's chunk: the rows whose f32 pre fits kPreBudget, rounded down
-// to a multiple of kRowAlign.
-static int warp_chunk_rows(int h) {
-  return (int)(kPreBudget / ((long long)h * sizeof(float)) / kRowAlign * kRowAlign);
+// The select's forms by row width (ops/_build.py:SELECT_FORMS).
+enum Form { kWarpForm = 0, kGroupForm = 1, kCtaForm = 2, kSpillForm = 3 };
+
+static int select_form(int h) {
+  return h <= kMaxRow ? kWarpForm : h <= kGroupMaxRow ? kGroupForm
+                                  : h <= kMaxWideRow  ? kCtaForm
+                                                      : kSpillForm;
 }
 
-__device__ __forceinline__ unsigned short float_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+// Select launches of the encode in this process, by form.
+long long g_select_launches[4] = {0, 0, 0, 0};
+
+// The rows of a chunk at width h: those whose f32 pre fits kPreBudget,
+// rounded down to a multiple of kRowAlign where that leaves kRowAlign or
+// more, else as they are (at least one).
+static int encode_chunk_rows(int h) {
+  const long long rows = kPreBudget / ((long long)h * (long long)sizeof(float));
+  if (rows >= kRowAlign) return (int)(rows / kRowAlign * kRowAlign);
+  return rows > 0 ? (int)rows : 1;
 }
 
-// One CTA per row of the chunk: the row's pre into registers once (as
-// monotone ints), the exact threshold, the latent written once.
-template <int N, bool F32_OUT>
+// The CTA form: one CTA per row of the chunk, the row's pre into registers
+// once (as monotone ints), the exact threshold, the latent written once.
+template <int N, typename OutT>
 __global__ void __launch_bounds__(kWideThreads, 1) blocked_select_kernel(const float* pre, int h,
-                                                                         int k, void* out,
+                                                                         int k, OutT* out,
                                                                          long long row0) {
   __shared__ int warp_cnt[2][kWideWarps];
   int xi[N];
   load_wide_monotone(pre + (size_t)blockIdx.x * h, h, xi);
   const int th = cta_kth_largest(xi, k, warp_cnt);
-  const size_t base = (size_t)(row0 + blockIdx.x) * h;
+  OutT* o = out + (size_t)(row0 + blockIdx.x) * h;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     const int c = j * kWideThreads + threadIdx.x;
-    if (c < h) {
-      const float v = masked_relu(xi[j], th);
-      if (F32_OUT) {
-        static_cast<float*>(out)[base + c] = v;
-      } else {
-        static_cast<unsigned short*>(out)[base + c] = float_to_bf16_bits(v);
+    if (c < h) store_latent(o + c, masked_relu(xi[j], th));
+  }
+}
+
+__device__ __forceinline__ void store_run(float* p, const float (&v)[kGroupRun]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store_run(unsigned short* p, const float (&v)[kGroupRun]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(float_to_bf16_bits(v[0]) | ((unsigned int)float_to_bf16_bits(v[1]) << 16),
+                 float_to_bf16_bits(v[2]) | ((unsigned int)float_to_bf16_bits(v[3]) << 16));
+}
+
+// The group form without a decode, over a chunk of n rows: persistent
+// CTAs of group_rows(N) warp groups (blockDim.x = kGroupThreads *
+// group_rows(N), dynamic shared memory group_rows(N) * h * 4 bytes: each
+// group's pre buffer).  Group g of CTA b walks rows b + gridDim.x * (g +
+// G*i) of the chunk: the next row's pre comes into the group's buffer by
+// a bulk copy once every thread of the group holds the current row in
+// registers, the select runs on the group's named barrier, and thread t
+// writes its runs c = q*kGroupSpan + 4t .. +3 of the latent at row row0 + r.
+template <int N, typename OutT>
+__global__ void __launch_bounds__(kGroupThreads * group_rows(N), group_ctas_sm(N))
+    group_select_kernel(const float* pre, int n, int h, int k, OutT* out, long long row0) {
+  constexpr int G = group_rows(N);
+  extern __shared__ __align__(16) unsigned char group_smem[];
+  __shared__ uint64_t full[G];
+  __shared__ GroupSelScratch sel[G];
+  const int grp = threadIdx.x / kGroupThreads, t = threadIdx.x % kGroupThreads;
+  const int bar_id = 1 + grp;
+  float* buf = reinterpret_cast<float*>(group_smem) + (size_t)grp * h;
+  const uint32_t bytes = static_cast<uint32_t>(h) * 4u;
+  const int stride = gridDim.x * G;
+  int r = blockIdx.x + gridDim.x * grp;
+  if (t == 0) {
+    sel[grp].ncand = 0;
+    wst_hopper::mbar_init(&full[grp], 1);
+    wst_hopper::fence_mbar_init();
+    if (r < n) {
+      wst_hopper::mbar_expect_tx(&full[grp], bytes);
+      wst_hopper::bulk_load_1d(buf, pre + (size_t)r * h, bytes, &full[grp]);
+    }
+  }
+  wst_hopper::named_sync(bar_id, kGroupThreads);  // the barrier is initialised
+#pragma unroll 1
+  for (int phase = 0; r < n; r += stride, phase ^= 1) {
+    wst_hopper::mbar_wait(&full[grp], phase);
+    int xi[N];
+    load_group_monotone(buf, h, t, xi);
+    wst_hopper::named_sync(bar_id, kGroupThreads);  // every thread has read the buffer
+    if (t == 0 && r + stride < n) {
+      wst_hopper::fence_proxy_async();
+      wst_hopper::mbar_expect_tx(&full[grp], bytes);
+      wst_hopper::bulk_load_1d(buf, pre + (size_t)(r + stride) * h, bytes, &full[grp]);
+    }
+    const int th = group_kth_largest(xi, k, sel[grp], bar_id);
+    OutT* o = out + (size_t)(row0 + r) * h;
+#pragma unroll
+    for (int q = 0; q < N / kGroupRun; ++q) {
+      const int c = q * kGroupSpan + kGroupRun * t;
+      if (c < h) {  // h is a multiple of 32: a run is wholly in or out
+        float v[kGroupRun];
+#pragma unroll
+        for (int i = 0; i < kGroupRun; ++i) v[i] = masked_relu(xi[kGroupRun * q + i], th);
+        store_run(o + c, v);
       }
     }
   }
 }
 
-// The CTA select of rows [0, n) of pre into out[row0 : row0 + n): the
-// blocked encode's (c).
-static int cta_select(const float* pre, int n, int h, int k, void* out, int out_f32,
-                      long long row0, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define WST_LAUNCH_SELECT(N)                                                                \
-  if (out_f32) {                                                                            \
-    blocked_select_kernel<N, true><<<n, kWideThreads, 0, s>>>(pre, h, k, out, row0);        \
-  } else {                                                                                  \
-    blocked_select_kernel<N, false><<<n, kWideThreads, 0, s>>>(pre, h, k, out, row0);       \
+// The spill form: one CTA per row of h > kMaxWideRow values, the first
+// kMaxWideRow in registers (load_wide_monotone: every slot inside the
+// row), the next ns = min(h - kMaxWideRow, kSpillSmemInts) as monotone
+// ints in dynamic shared memory (ns * 4 bytes), the rest read again from
+// device memory each pass and once more for the latent.
+template <typename OutT>
+__global__ void __launch_bounds__(kWideThreads, 1) spill_select_kernel(const float* pre, int h,
+                                                                       int k, OutT* out,
+                                                                       long long row0) {
+  __shared__ int warp_cnt[2][kWideWarps];
+  extern __shared__ int spill[];
+  const float* row = pre + (size_t)blockIdx.x * h;
+  int xi[kMaxPerThread];
+  load_wide_monotone(row, h, xi);
+  const int ns = h - kMaxWideRow < kSpillSmemInts ? h - kMaxWideRow : kSpillSmemInts;
+  const int g0 = kMaxWideRow + ns;
+  for (int s = threadIdx.x; s < ns; s += kWideThreads) spill[s] = monotone_int(row[kMaxWideRow + s]);
+  __syncthreads();
+  const int th = spill_kth_largest(xi, spill, ns, row, g0, h, k, warp_cnt);
+  OutT* o = out + (size_t)(row0 + blockIdx.x) * h;
+#pragma unroll
+  for (int j = 0; j < kMaxPerThread; ++j)
+    store_latent(o + j * kWideThreads + threadIdx.x, masked_relu(xi[j], th));
+  for (int s = threadIdx.x; s < ns; s += kWideThreads)
+    store_latent(o + kMaxWideRow + s, masked_relu(spill[s], th));
+  for (int c = g0 + threadIdx.x; c < h; c += kWideThreads)
+    store_latent(o + c, masked_relu(monotone_int(row[c]), th));
+}
+
+template <typename OutT>
+static int group_select(const float* pre, int n, int h, int k, OutT* out, long long row0,
+                        cudaStream_t s) {
+  int err = 0;
+#define WST_LAUNCH_GROUP_SELECT(N)                                                              \
+  {                                                                                             \
+    const int smem = group_rows(N) * h * (int)sizeof(float);                                    \
+    err = (int)cudaFuncSetAttribute(group_select_kernel<N, OutT>,                               \
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, smem);         \
+    if (!err)                                                                                   \
+      group_select_kernel<N, OutT><<<group_grid(n, group_ctas_sm(N)),                           \
+                                     kGroupThreads * group_rows(N), smem, s>>>(pre, n, h, k,    \
+                                                                               out, row0);      \
   }
+  WST_GROUP_DISPATCH(h, WST_LAUNCH_GROUP_SELECT)
+#undef WST_LAUNCH_GROUP_SELECT
+  return err ? err : (int)cudaGetLastError();
+}
+
+template <typename OutT>
+static int cta_select(const float* pre, int n, int h, int k, OutT* out, long long row0,
+                      cudaStream_t s) {
+#define WST_LAUNCH_SELECT(N) \
+  blocked_select_kernel<N, OutT><<<n, kWideThreads, 0, s>>>(pre, h, k, out, row0)
   WST_WIDE_DISPATCH(h, WST_LAUNCH_SELECT)
 #undef WST_LAUNCH_SELECT
   return (int)cudaGetLastError();
 }
 
-typedef int (*SelectFn)(const float* pre, int n, int h, int k, void* out, int out_f32,
-                        long long row0, void* stream);
+template <typename OutT>
+static int spill_select(const float* pre, int n, int h, int k, OutT* out, long long row0,
+                        cudaStream_t s) {
+  const int ns = h - kMaxWideRow < kSpillSmemInts ? h - kMaxWideRow : kSpillSmemInts;
+  const int smem = ns * (int)sizeof(int);
+  int err = (int)cudaFuncSetAttribute(spill_select_kernel<OutT>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err) return err;
+  spill_select_kernel<OutT><<<n, kWideThreads, smem, s>>>(pre, h, k, out, row0);
+  return (int)cudaGetLastError();
+}
 
-// Bytes of the workspace for ``rows`` rows in chunks of ``chunk``: one
-// chunk's f32 pre [n, h], then its centred bf16 rows [n, d], n =
-// min(rows, chunk).
-static long long workspace_bytes(int rows, int d, int h, int chunk) {
+template <typename OutT>
+static int typed_select(int form, const float* pre, int n, int h, int k, OutT* out,
+                        long long row0, cudaStream_t s) {
+  switch (form) {
+    case kGroupForm: return group_select(pre, n, h, k, out, row0, s);
+    case kCtaForm: return cta_select(pre, n, h, k, out, row0, s);
+    default: return spill_select(pre, n, h, k, out, row0, s);
+  }
+}
+
+// The select of rows [0, n) of pre into out[row0 : row0 + n) (bf16, or
+// f32 when out_f32) in the form of the row width: the encode's (c).
+static int select_rows(const float* pre, int n, int h, int k, void* out, int out_f32,
+                       long long row0, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int form = select_form(h);
+  int err;
+  if (form == kWarpForm) {
+    err = wst_topk_mask_rows_fwd(pre, n, h, k, out, out_f32, row0, stream);
+  } else if (out_f32) {
+    err = typed_select(form, pre, n, h, k, static_cast<float*>(out), row0, s);
+  } else {
+    err = typed_select(form, pre, n, h, k, static_cast<unsigned short*>(out), row0, s);
+  }
+  if (!err) ++g_select_launches[form];
+  return err;
+}
+
+// Bytes of the workspace for ``rows`` rows: one chunk's f32 pre [n, h],
+// then its centred bf16 rows [n, d], n = min(rows, encode_chunk_rows(h)).
+static long long workspace_bytes(int rows, int d, int h) {
+  const int chunk = encode_chunk_rows(h);
   const long long n = rows < chunk ? rows : chunk;
   return n * h * (long long)sizeof(float) + n * d * 2;
 }
 
 // The encode over all rows, chunk by chunk: (a) the centre, (b) the
-// product (the GEMM's kPre epilogue) into the workspace, (c) ``select``
+// product (the GEMM's kPre epilogue) into the workspace, (c) the select
 // into out ([rows, h], bf16, or f32 when out_f32).  ws holds
-// workspace_bytes(rows, d, h, chunk) bytes; w_enc_t ([h, d] bf16) is
-// 16-byte aligned (read by TMA).
+// workspace_bytes(rows, d, h) bytes; w_enc_t ([h, d] bf16) is 16-byte
+// aligned (read by TMA).
 static int encode_chunks(const void* x, int x_bf16, int rows, int d, int h, int k,
                          const void* w_enc_t, const void* b_enc, const void* b_pre, void* out,
-                         int out_f32, void* ws, int chunk, SelectFn select, void* stream) {
+                         int out_f32, void* ws, void* stream) {
+  const int chunk = encode_chunk_rows(h);
   const int cap = rows < chunk ? rows : chunk;
   float* pre = static_cast<float*>(ws);
   // 16-byte aligned, as TMA reads it: cap * h * 4 is a multiple of 128
@@ -164,59 +342,70 @@ static int encode_chunks(const void* x, int x_bf16, int rows, int d, int h, int 
     err = wst_enc_gemm_fwd(wst_gemm::kPre, xc, w_enc_t, n, h, d, b_enc, 1.0f, 0, pre, nullptr,
                            nullptr, nullptr, stream);
     if (err) return err;
-    err = select(pre, n, h, k, out, out_f32, row0, stream);
+    err = select_rows(pre, n, h, k, out, out_f32, row0, stream);
     if (err) return err;
   }
   return 0;
 }
 
-static bool bad_geometry(int rows, int d, int h, int k, int max_h) {
-  return rows <= 0 || d <= 0 || d % kWarp || h <= 0 || h % kWarp || h > max_h || k < 1 || k > h;
-}
 
 }  // namespace blocked
 }  // namespace wst
 
 extern "C" {
 
-// Rows of a chunk of the blocked encode: each chunk is three launches.
-int wst_blocked_chunk_rows() { return wst::blocked::kChunkRows; }
+// Widest row of the encode: the TPU's blocked encode's (pallas_sae.py:_MAX_H).
+int wst_max_blocked_row_width() { return wst::kMaxSpillRow; }
 
-// Bytes of the blocked encode's workspace for ``rows`` rows.
-long long wst_blocked_workspace_bytes(int rows, int d, int h) {
-  return wst::blocked::workspace_bytes(rows, d, h, wst::blocked::kChunkRows);
-}
+// Rows of a chunk of the encode at width h: each chunk is three launches.
+int wst_sae_topk_encode_chunk_rows(int h) { return wst::blocked::encode_chunk_rows(h); }
 
-// The blocked encode (d and h multiples of 32, h <= wst_max_wide_row_width()):
-// encode_chunks with the CTA select, chunks of kChunkRows; ws holds
-// wst_blocked_workspace_bytes(rows, d, h) bytes.
-int wst_blocked_encode_fwd(const void* x, int x_bf16, int rows, int d, int h, int k,
-                           const void* w_enc_t, const void* b_enc, const void* b_pre, void* out,
-                           int out_f32, void* ws, void* stream) {
-  namespace B = wst::blocked;
-  if (B::bad_geometry(rows, d, h, k, wst::kMaxWideRow)) return (int)cudaErrorInvalidValue;
-  return B::encode_chunks(x, x_bf16, rows, d, h, k, w_enc_t, b_enc, b_pre, out, out_f32, ws,
-                          B::kChunkRows, B::cta_select, stream);
-}
-
-// Rows of a chunk of kernel B at width h.
-int wst_sae_topk_encode_chunk_rows(int h) { return wst::blocked::warp_chunk_rows(h); }
-
-// Bytes of kernel B's workspace for ``rows`` rows.
+// Bytes of the encode's workspace for ``rows`` rows.
 long long wst_sae_topk_encode_workspace_bytes(int rows, int d, int h) {
-  return wst::blocked::workspace_bytes(rows, d, h, wst::blocked::warp_chunk_rows(h));
+  return wst::blocked::workspace_bytes(rows, d, h);
 }
 
-// Kernel B (d and h multiples of 32, h <= wst_max_row_width()):
-// encode_chunks with kernel C's warp select, a bf16 latent (out_f32 = 0)
-// or f32; ws holds wst_sae_topk_encode_workspace_bytes(rows, d, h) bytes.
+// The encode, kernel B's and the blocked encode's (d and h multiples of
+// 32, h <= wst_max_blocked_row_width()): encode_chunks in chunks of
+// wst_sae_topk_encode_chunk_rows(h), a bf16 latent (out_f32 = 0) or f32;
+// ws holds wst_sae_topk_encode_workspace_bytes(rows, d, h) bytes.
 int wst_sae_topk_encode_fwd(const void* x, int x_bf16, int rows, int d, int h, int k,
                             const void* w_enc_t, const void* b_enc, const void* b_pre, void* out,
                             int out_f32, void* ws, void* stream) {
+  if (rows <= 0 || d <= 0 || d % wst::kWarp || h <= 0 || h % wst::kWarp ||
+      h > wst::kMaxSpillRow || k < 1 || k > h)
+    return (int)cudaErrorInvalidValue;
+  return wst::blocked::encode_chunks(x, x_bf16, rows, d, h, k, w_enc_t, b_enc, b_pre, out,
+                                     out_f32, ws, stream);
+}
+
+// The select's form at row width h (0 warp, 1 group, 2 CTA, 3 spill).
+int wst_select_form(int h) { return wst::blocked::select_form(h); }
+
+// Select launches the encode has made in this process in the given form
+// (one a chunk).
+long long wst_encode_select_launches(int form) {
+  return form >= 0 && form < 4 ? wst::blocked::g_select_launches[form] : -1;
+}
+
+// One select form alone, uncounted, on rows [0, rows) of pre into
+// out[row0 : row0 + rows) (bf16, or f32 when out_f32), at a width the
+// form holds: the group form (h a multiple of 32 up to 8192) or the CTA
+// form (h up to 40960), both for comparisons on the card, or the spill
+// form (40960 < h <= 2^20), kernel C's wide form past 40960
+// (sae_kernels.cu).
+int wst_encode_select_fwd(int form, const float* pre, int rows, int h, int k, void* out,
+                          int out_f32, long long row0, void* stream) {
   namespace B = wst::blocked;
-  if (B::bad_geometry(rows, d, h, k, wst::kMaxRow)) return (int)cudaErrorInvalidValue;
-  return B::encode_chunks(x, x_bf16, rows, d, h, k, w_enc_t, b_enc, b_pre, out, out_f32, ws,
-                          B::warp_chunk_rows(h), wst_topk_mask_rows_fwd, stream);
+  const bool holds = form == B::kGroupForm  ? h <= wst::kGroupMaxRow && h % wst::kWarp == 0
+                     : form == B::kCtaForm   ? h <= wst::kMaxWideRow
+                     : form == B::kSpillForm ? h > wst::kMaxWideRow && h <= wst::kMaxSpillRow
+                                             : false;
+  if (!holds || rows <= 0 || h <= 0 || k < 1 || k > h) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_f32 ? B::typed_select(form, pre, rows, h, k, static_cast<float*>(out), row0, s)
+                 : B::typed_select(form, pre, rows, h, k, static_cast<unsigned short*>(out),
+                                   row0, s);
 }
 
 }  // extern "C"

@@ -9,11 +9,13 @@
 // topk_mask_kernel<float>   (kernel C, "topk_mask_fwd")
 //   replaces ops/pallas_topk.py:_mask_kernel (topk_mask_pallas, :51);
 //   topk_mask_wide_kernel<N> ("topk_mask_wide_fwd") is its form for rows
-//   wider than a warp's registers (the TPU kernel's H = 40960).
+//   wider than a warp's registers up to a CTA's (H = 40960), and past
+//   that the same entry launches blocked_encode.cu's spill form, up to
+//   the TPU kernel's widest row (kMaxMaskRow = 262,144).
 // topk_mask_kernel<unsigned short|float>, the same body writing a bf16 or
-//   f32 latent at a row offset, is the select of kernel B
+//   f32 latent at a row offset, is the select of kernel B up to H = 3072
 //   ("sae_topk_encode_fwd" in blocked_encode.cu: the centre, the kPre
-//   GEMM, then this select, chunk by chunk), which replaces
+//   GEMM, then a select by row width, chunk by chunk), which replaces
 //   ops/pallas_sae.py:_encode_kernel (fused_topk_encode, :77).
 //
 // What A computes for each row (B computes the first four, its latent in
@@ -62,7 +64,7 @@
 // VMEM budget: whisper-base to -medium 8x, whisper-tiny up to 64x), where
 // a row of pre outgrows a warp's registers (H > 3072) or the decode one
 // pass (D > 384): sae_centre_kernel over all rows, then per chunk of
-// rows whose f32 pre fits the blocked encode's budget (kernel B's chunk:
+// rows whose f32 pre fits the top-k encode's budget (its chunk:
 // 13,568 rows at H = 6144) the kPre encode and the select-and-decode,
 // then sae_loss_finalize_kernel over one partial a row.  The
 // select-and-decode is sae_select_decode_group_kernel<N> up to H = 8192
@@ -93,9 +95,12 @@
 #include "select_decode.cuh"
 #include "topk_common.cuh"
 
-// blocked_encode.cu: the rows of a chunk whose f32 pre fits the blocked
-// encode's budget at width h (kernel B's chunk; kernel A's wide route's)
+// blocked_encode.cu: the rows of a chunk whose f32 pre fits the top-k
+// encode's budget at width h (its chunk; kernel A's wide route's)
 extern "C" int wst_sae_topk_encode_chunk_rows(int h);
+// blocked_encode.cu: one select form (3: the spill form) on rows [0, rows) of an f32 pre
+extern "C" int wst_encode_select_fwd(int form, const float* pre, int rows, int h, int k,
+                                     void* out, int out_f32, long long row0, void* stream);
 
 namespace wst {
 
@@ -266,11 +271,6 @@ __global__ void __launch_bounds__(kFinalizeThreads) sae_loss_finalize_kernel(
   }
 }
 
-__device__ __forceinline__ void store_latent(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_latent(unsigned short* p, float v) {
-  *p = float_to_bf16_bits(v);
-}
-
 // Kernel C: hidden = relu(pre) * [pre >= k-th largest], one warp per row.
 // Bound: bytes (read pre once, write hidden once: 8*B*H bytes, 30 us at
 // B=4096, H=3072 on 3.35 TB/s); the TPU kernel's point, one read of pre
@@ -316,6 +316,9 @@ __global__ void __launch_bounds__(kWideThreads, 1) topk_mask_wide_kernel(const f
 // Select-and-decode launches of kernel A's wide route by form (0: group,
 // 1: CTA a row), counted where each launch is made.
 long long g_sae_select_launches[2] = {0, 0};
+
+// Kernel C's widest row (pallas_topk.py:supported).
+constexpr int kMaxMaskRow = 262144;
 
 }  // namespace wst
 
@@ -500,8 +503,17 @@ long long wst_sae_select_launches(int form) {
   return form == 0 || form == 1 ? wst::g_sae_select_launches[form] : -1;
 }
 
-// Kernel C's wide form: one CTA per row.
+// Widest row kernel C takes: the TPU kernel's (pallas_topk.py:supported,
+// an 8-row f32 + int32 tile within 16 MiB).
+int wst_max_mask_row_width() { return wst::kMaxMaskRow; }
+
+// Kernel C's wide form: one CTA per row, the row in registers up to
+// wst_max_wide_row_width(), past it blocked_encode.cu's spill form.
 int wst_topk_mask_wide_fwd(const void* pre, void* out, int rows, int h, int k, void* stream) {
+  if (rows <= 0 || h <= 0 || h > wst::kMaxMaskRow || k < 1 || k > h)
+    return (int)cudaErrorInvalidValue;
+  if (h > wst::kMaxWideRow)
+    return wst_encode_select_fwd(3, static_cast<const float*>(pre), rows, h, k, out, 1, 0, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define WST_LAUNCH_MASK_WIDE(N)                                                        \
   wst::topk_mask_wide_kernel<N><<<rows, wst::kWideThreads, 0, s>>>(                    \

@@ -48,10 +48,6 @@ __device__ __forceinline__ float bf16_bits_to_float(unsigned short u) {
   return __uint_as_float(static_cast<unsigned int>(u) << 16);
 }
 
-__device__ __forceinline__ unsigned short float_to_bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
 // The row's latent bf16(relu(pre) * [pre >= th]) to hidden_row[0:h);
 // active[c] = 1 for each positive one; its positive selections to list as
 // (feature << 16 | bf16 bits), in feature order.  Returns their count

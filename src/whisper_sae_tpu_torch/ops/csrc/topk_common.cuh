@@ -30,8 +30,18 @@
 // the same total and the CTA leaves the loop together, and the mask is
 // the one the warp form and ops/topk.py:topk_threshold give (gaussian
 // rows of 40960 at k = 32: ~17 passes, against 32).
+//
+// Rows wider than a CTA's registers (whisper-tiny 128x: H = 49152,
+// whisper-large 64x: 81920; the TPU's blocked encode takes H up to 2^20)
+// go to the spill form (spill_kth_largest): the first kMaxWideRow values
+// stay in registers as in the CTA form, the next kSpillSmemInts in
+// dynamic shared memory (both read once from device memory), and the rest
+// is read again from device memory on every pass (a chunk's pre, in the
+// L2 where it fits).  Its midpoints, totals and early stop are
+// cta_kth_largest's, so its threshold is too.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,6 +107,16 @@ __device__ __forceinline__ float masked_relu(int x, int th) {
   return x >= th ? fmaxf(monotone_float(x), 0.0f) : 0.0f;
 }
 
+__device__ __forceinline__ unsigned short float_to_bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// A latent value in f32, or in bf16 (its bits, rounded to nearest even).
+__device__ __forceinline__ void store_latent(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_latent(unsigned short* p, float v) {
+  *p = float_to_bf16_bits(v);
+}
+
 // -- the CTA-per-row form -------------------------------------------------
 
 constexpr int kWideThreads = 512;
@@ -132,6 +152,20 @@ __device__ __forceinline__ void load_wide_monotone(const float* row, int h, int 
   }
 }
 
+// One pass's CTA total: each thread's count summed over its warp's lanes,
+// then over the CTA's warps through warp_cnt[pass & 1], after one barrier.
+__device__ __forceinline__ int cta_total(int cnt, int pass, int (&warp_cnt)[2][kWideWarps]) {
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  cnt = __reduce_add_sync(0xffffffffu, cnt);
+  int* buf = warp_cnt[pass & 1];
+  if (lane == 0) buf[warp] = cnt;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWideWarps; ++w) total += buf[w];
+  return total;
+}
+
 // warp_kth_largest over a row spread across the whole CTA (kWideThreads
 // threads, every one of which must call it).  warp_cnt is __shared__
 // scratch; its two halves alternate between passes, so one
@@ -143,7 +177,6 @@ __device__ __forceinline__ void load_wide_monotone(const float* row, int h, int 
 template <int N>
 __device__ __forceinline__ int cta_kth_largest(const int (&xi)[N], int k,
                                                int (&warp_cnt)[2][kWideWarps]) {
-  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
   int lo = -2147483647, hi = 2147483647;
 #pragma unroll 1
   for (int pass = 0; pass < 32; ++pass) {
@@ -151,13 +184,48 @@ __device__ __forceinline__ int cta_kth_largest(const int (&xi)[N], int k,
     int cnt = 0;
 #pragma unroll
     for (int j = 0; j < N; ++j) cnt += xi[j] >= mid ? 1 : 0;
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    int* buf = warp_cnt[pass & 1];
-    if (lane == 0) buf[warp] = cnt;
-    __syncthreads();
-    int total = 0;
+    const int total = cta_total(cnt, pass, warp_cnt);
+    if (total == k) return mid;
+    if (total > k) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// -- the spill form ---------------------------------------------------------
+
+// Values of a row in dynamic shared memory past the registers: 224 KB of
+// the 227 KB a CTA may opt in to on the H100, so a row of up to
+// kMaxWideRow + kSpillSmemInts = 98,304 values is read from device memory
+// once.
+constexpr int kSpillSmemInts = 56 * 1024;
+constexpr int kMaxSpillRow = 1 << 20;  // the TPU's blocked encode: _MAX_H
+
+// cta_kth_largest over a row of h > kMaxWideRow values: thread t's
+// registers xi (elements j*kWideThreads + t, all inside the row), the ns
+// values sm[0:ns) (monotone ints of row[kMaxWideRow : kMaxWideRow + ns),
+// strided over the threads) and row[g0:h) read again each pass (f32).
+// Every thread of the CTA calls it after sm is written and a barrier.
+template <int N>
+__device__ __forceinline__ int spill_kth_largest(const int (&xi)[N], const int* sm, int ns,
+                                                 const float* row, int g0, int h, int k,
+                                                 int (&warp_cnt)[2][kWideWarps]) {
+  int lo = -2147483647, hi = 2147483647;
+#pragma unroll 1
+  for (int pass = 0; pass < 32; ++pass) {
+    const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);
+    int cnt = 0;
 #pragma unroll
-    for (int w = 0; w < kWideWarps; ++w) total += buf[w];
+    for (int j = 0; j < N; ++j) cnt += xi[j] >= mid ? 1 : 0;
+#pragma unroll 4
+    for (int s = threadIdx.x; s < ns; s += kWideThreads) cnt += sm[s] >= mid ? 1 : 0;
+#pragma unroll 4
+    for (int c = g0 + threadIdx.x; c < h; c += kWideThreads)
+      cnt += monotone_int(__ldg(row + c)) >= mid ? 1 : 0;
+    const int total = cta_total(cnt, pass, warp_cnt);
     if (total == k) return mid;
     if (total > k) {
       lo = mid;

@@ -47,7 +47,7 @@ it (one CTA a row; ``_build.wide_form``), and the sum over one partial a
 row (:func:`coder_topk_route_plain` with ``per_row``).  The ReLU modes
 run one route at every width.  Beyond
 the budget (whisper-large 8x, whisper-tiny 128x) the models compose the
-loss around the blocked encode, as the JAX package composes it.  The
+loss around the top-k encode, as the JAX package composes it.  The
 TPU's other gates (``pick_block_rows``, ``WST_*``) have no counterpart.
 
 Each backward transcribes its JAX custom VJP (``_fused_coder_vjp_bwd``

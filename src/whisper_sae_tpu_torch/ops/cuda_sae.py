@@ -16,26 +16,35 @@ any-active vector; ``sae_loss_finalize_kernel`` sums the per-CTA loss
 partials in a fixed order.  The f32 pre's round trip through device
 memory is the route's price (the TPU kernel keeps it in VMEM).
 
-Kernel B, ``sae_topk_encode_fwd``, and the blocked encode,
-``blocked_encode_fwd`` (both in ``csrc/blocked_encode.cu``), are one
-chunk loop with two selects: per chunk of rows the centre
+Kernel B and the blocked encode are one C entry,
+``sae_topk_encode_fwd`` (``csrc/blocked_encode.cu``): one chunk loop
+with one select by row width, per chunk of rows the centre
 (``sae_centre_kernel``), the encoder GEMM's kPre epilogue into an f32
 workspace allocated here, and a select that writes the latent in bf16
-or f32 (:func:`topk_encode_route_plain` writes the route out).  Kernel B
-replaces ``fused_topk_encode`` (``_encode_forward``, :77); its select is
-kernel C's warp select (one warp a row), its chunk the rows whose f32 pre
-fits the blocked encode's budget (:func:`_build.topk_encode_chunk_rows`:
-27,264 at H = 3072).  The blocked encode replaces
-``_encode_forward_blocked`` (:1392), the branch of ``fused_topk_encode``
-for geometries whose weights do not fit on chip; its select is one CTA
-a row, its chunk 2048 rows, and W_enc streams once a chunk.  Kernel B
-and kernel A's warp form hold a row of pre in one warp's registers and
-A's decode keeps D/32 sums a lane, so they take D % 32 == 0, D <= 384
-and H <= 3072 (:func:`row_kernels_hold`); the top-k encode takes the
-blocked encode at every other geometry (:func:`uses_blocked`).  Kernel A
-also has a wide route, ``sae_fused_loss_wide_fwd``: the centre, then per
-chunk of kernel B's rows the kPre encode and the select-and-decode,
-then the finalize over one partial a row.  The select-and-decode is the
+or f32 (:func:`topk_encode_route_plain` writes the route out).  The
+select's form is ``_build.select_form(h)``: kernel C's warp select up to
+H = 3072, a warp group a row up to 8192 (``group_select_kernel``), a CTA
+a row up to 40960 (``blocked_select_kernel``), past it the spill form
+(``spill_select_kernel``: a CTA a row, 40960 values in registers, up to
+57,344 more in shared memory, the rest read again each pass); the library
+counts the selects it launches by form (:func:`encode_select_launches`).
+Its chunk is the rows whose f32 pre fits ``_build.PRE_BUDGET``
+(:func:`_build.topk_encode_chunk_rows`: 27,264 at H = 3072), W_enc
+streams once a chunk, and it takes H up to ``_build.MAX_BLOCKED_ROW`` =
+2^20 (``pallas_sae.py:_MAX_H``).  The entry stands for two Pallas kernels,
+and :func:`fused_topk_encode` counts its launches by the one the JAX
+package would take (:func:`uses_blocked`, ``pallas_sae.py:1433-1434``):
+kernel B, ``fused_topk_encode`` (``_encode_forward``, :77), wherever
+bf16 W_enc fits its 48 MiB budget -- every Whisper SAE up to
+whisper-tiny 128x (D = 384, H = 49152) but whisper-large 16x and wider
+-- else the blocked encode, ``_encode_forward_blocked`` (:1392), the
+branch for weights that do not fit on chip.  Kernel A's warp form
+holds a row of pre in one warp's registers and keeps D/32 decode sums a
+lane, so it takes D % 32 == 0, D <= 384 and H <= 3072
+(:func:`row_kernels_hold`).  Kernel A also has a wide route,
+``sae_fused_loss_wide_fwd``: the centre, then per chunk of kernel B's
+rows the kPre encode and the select-and-decode, then the finalize over
+one partial a row.  The select-and-decode is the
 group form up to H = 8192 (``sae_select_decode_group_kernel``:
 persistent CTAs of warp groups, a group a row on its own named barrier,
 the next row's pre brought into shared memory by a bulk copy, the
@@ -47,9 +56,10 @@ the form of a width.
 Kernel A takes every geometry the JAX package fuses
 (:func:`fused_loss_supported`: bf16 W_enc + W_dec within its 48 MiB,
 ``pallas_sae.py:359-365``), through its warp form where
-:func:`row_kernels_hold`, else through the wide route; beyond that budget
-(whisper-large) the SAE loss is composed around the blocked encode
-(``models/sae.py``), as the JAX package composes it
+:func:`row_kernels_hold`, else through the wide route, up to H = 40960
+(the CTA select-and-decode's row in registers); beyond that budget
+(whisper-tiny 128x, whisper-large) the SAE loss is composed around the
+top-k encode (``models/sae.py``), as the JAX package composes it
 (``models/sae.py:229-246``).
 
 Bounds on the H100: A and B at whisper-tiny (D=384, H=3072) by the bytes
@@ -100,8 +110,17 @@ def row_kernels_hold(d: int, h: int) -> bool:
 
 
 def uses_blocked(d: int, h: int) -> bool:
-    """The top-k encode takes the blocked kernel (``pallas_sae.py:69-75``)."""
-    return not row_kernels_hold(d, h)
+    """The top-k encode's blocked branch, as the JAX package's
+    ``pallas_sae.py:uses_blocked`` (:1433-1434): bf16 W_enc [D, H] past
+    ``FUSED_W_BYTES``."""
+    return d * h * 2 > FUSED_W_BYTES
+
+
+def encode_select_launches() -> dict[str, int]:
+    """The selects the top-k encode has launched in this process, by form (``_build.SELECT_FORMS``): one a chunk.  CUDA only:
+    the count is the library's."""
+    lib = _build.load_library()
+    return {f: int(lib.wst_encode_select_launches(i)) for i, f in enumerate(_build.SELECT_FORMS)}
 
 
 def _bf16_t(w_enc: torch.Tensor) -> torch.Tensor:
@@ -131,14 +150,16 @@ def _check_geometry(x: torch.Tensor, d: int, h: int, k: int) -> ctypes.CDLL:
     return lib
 
 
-def _check_wide_geometry(x: torch.Tensor, d: int, h: int, k: int, what: str) -> ctypes.CDLL:
-    """The CTA-per-row routes' limits (kernel A's wide route, the blocked
-    encode): D and H multiples of 32, H up to ``wst_max_wide_row_width()``."""
+def _check_wide_geometry(x: torch.Tensor, d: int, h: int, k: int, what: str,
+                         max_h: int) -> ctypes.CDLL:
+    """The limits of the routes whose GEMM takes any width (kernel A's wide
+    route, the top-k encode): D and H multiples of 32, H up to the route's
+    ``max_h``."""
     lib = _build.load_library()
     _check_rows(x, d, h, k)
-    if d % 32 or h % 32 or h > lib.wst_max_wide_row_width():
-        raise ValueError(f"{what} takes D and H multiples of 32 and H <= "
-                         f"{lib.wst_max_wide_row_width()} (got D={d}, H={h})")
+    if d % 32 or h % 32 or h > max_h:
+        raise ValueError(f"{what} takes D and H multiples of 32 and H <= {max_h} "
+                         f"(got D={d}, H={h})")
     return lib
 
 
@@ -277,11 +298,11 @@ def fused_loss_wide_route_plain(x, row_offset, rows, we_t, b_enc, b_pre, wd_bf, 
 
 def _fused_loss_launch(data, row_offset, rows, we_t, b_enc, b_pre, wd_bf, b_out, k, wide=False):
     """Kernel A on ``data[row_offset : row_offset + rows]`` (CUDA only): its
-    warp form, or with ``wide`` its CTA-per-row route, which takes any D
-    and H multiples of 32 up to ``wst_max_wide_row_width()``."""
+    warp form, or with ``wide`` its wide route, which takes any D and H
+    multiples of 32 up to ``_build.MAX_WIDE_ROW``."""
     h, d = we_t.shape
-    lib = (_check_wide_geometry(data, d, h, k, "kernel A's wide route") if wide
-           else _check_geometry(data, d, h, k))
+    lib = (_check_wide_geometry(data, d, h, k, "kernel A's wide route", _build.MAX_WIDE_ROW)
+           if wide else _check_geometry(data, d, h, k))
     if not 0 < rows or row_offset < 0 or row_offset + rows > data.shape[0]:
         raise ValueError(f"window [{row_offset}, {row_offset + rows}) outside {data.shape[0]} rows")
     dev = data.device
@@ -408,69 +429,55 @@ def topk_encode_plain(x, we_t, b_enc, b_pre, k, out_dtype):
     return topk_mask_plain(pre, k).to(out_dtype)
 
 
-def _encode_call(fwd, workspace_bytes, what: str, x, we_t, b_enc, b_pre, k, out_dtype):
-    """One C call ``fwd`` of a top-k encode route (kernel B's or the
-    blocked encode's) on CUDA rows: the operands checked, one workspace of
-    ``workspace_bytes(rows, d, h)`` bytes, the latent [rows, H] in
-    ``out_dtype``."""
+def _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
+    """The top-k encode (CUDA only, uncounted): per chunk of
+    ``_build.topk_encode_chunk_rows(H)`` rows, through one workspace
+    allocated once a call, the centre, the kPre GEMM and the select of
+    ``_build.select_form(H)``; the latent [rows, H] in ``out_dtype``."""
     h, d = we_t.shape
+    lib = _check_wide_geometry(x, d, h, k, "the top-k encode", _build.MAX_BLOCKED_ROW)
     if out_dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"{what} writes bf16 or f32 (got {out_dtype})")
+        raise ValueError(f"the top-k encode writes bf16 or f32 (got {out_dtype})")
     dev = x.device
     _check_operands(dev, w_enc_t=(we_t, torch.bfloat16, (h, d)),
                     b_enc=(b_enc, torch.float32, (h,)), b_pre=(b_pre, torch.float32, (d,)))
     if we_t.data_ptr() % 16:  # read by TMA
-        raise ValueError(f"{what}: w_enc_t must be 16-byte aligned")
+        raise ValueError("sae_topk_encode_fwd: w_enc_t must be 16-byte aligned")
     rows = x.shape[0]
     hidden = torch.empty((rows, h), dtype=out_dtype, device=dev)
     if rows:
-        ws = torch.empty((workspace_bytes(rows, d, h),), dtype=torch.uint8, device=dev)
-        err = fwd(x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d, h, k,
-                  we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(), hidden.data_ptr(),
-                  int(out_dtype == torch.float32), ws.data_ptr(), _stream(dev))
-        _build.check(err, what)
+        ws = torch.empty((lib.wst_sae_topk_encode_workspace_bytes(rows, d, h),),
+                         dtype=torch.uint8, device=dev)
+        err = lib.wst_sae_topk_encode_fwd(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), rows, d, h, k, we_t.data_ptr(),
+            b_enc.data_ptr(), b_pre.data_ptr(), hidden.data_ptr(),
+            int(out_dtype == torch.float32), ws.data_ptr(), _stream(dev))
+        _build.check(err, "sae_topk_encode_fwd")
     return hidden
 
 
-def _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
-    """Kernel B (CUDA only): per chunk of ``_build.topk_encode_chunk_rows(H)``
-    rows the centre, the kPre GEMM and the warp select."""
-    h, d = we_t.shape
-    lib = _check_geometry(x, d, h, k)
-    hidden = _encode_call(lib.wst_sae_topk_encode_fwd, lib.wst_sae_topk_encode_workspace_bytes,
-                          "sae_topk_encode_fwd", x, we_t, b_enc, b_pre, k, out_dtype)
-    if x.shape[0]:
-        fused_topk_encode.launches += 1
-    return hidden
-
-
-def topk_encode_route_plain(x, we_t, b_enc, b_pre, k, out_dtype, chunk):
-    """Kernel B's and the blocked encode's route written out in plain
-    PyTorch, for the tests: per chunk of ``chunk`` rows the centred bf16
-    rows, pre = their f32 product with W_enc plus b_enc (the kPre GEMM),
-    the select's pass loop stopping at a count of exactly k
-    (:func:`ops.topk.cta_threshold`; the warp select's midpoints and
-    counts are the CTA select's), and the masked relu in ``out_dtype``."""
-    out = torch.empty((x.shape[0], we_t.shape[0]), dtype=out_dtype, device=x.device)
+def topk_encode_route_plain(x, we_t, b_enc, b_pre, k, out_dtype, chunk=None):
+    """The top-k encode's route written out in plain PyTorch, for the
+    tests: per chunk of ``chunk`` rows (by default the route's own,
+    :func:`_build.topk_encode_chunk_rows`) the centred bf16 rows, pre =
+    their f32 product with W_enc plus b_enc (the kPre GEMM), the select's
+    pass loop stopping at a count of exactly k in the form of the row width
+    (:func:`ops.topk.group_threshold` for the group form, else
+    :func:`ops.topk.cta_threshold`: the warp, CTA and spill forms'
+    midpoints and counts are the CTA select's), and the masked relu in
+    ``out_dtype``."""
+    h = we_t.shape[0]
+    if chunk is None:
+        chunk = _build.topk_encode_chunk_rows(h)
+    threshold = group_threshold if _build.select_form(h) == "group" else cta_threshold
+    out = torch.empty((x.shape[0], h), dtype=out_dtype, device=x.device)
     for r0 in range(0, x.shape[0], chunk):
         xc = (x[r0:r0 + chunk].float() - b_pre).bfloat16()
         pre = mm_f32(xc, we_t.t()) + b_enc
-        xi, th, _ = cta_threshold(pre, k)
+        xi, th, _ = threshold(pre, k)
         out[r0:r0 + chunk] = torch.where(xi >= th, relu(pre),
                                          torch.zeros((), device=pre.device)).to(out_dtype)
     return out
-
-
-def _blocked_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype):
-    """The blocked encode (CUDA only), chunk by chunk through one workspace
-    (a chunk's f32 pre and centred bf16 rows), allocated once a call."""
-    h, d = we_t.shape
-    lib = _check_wide_geometry(x, d, h, k, "the blocked encode")
-    hidden = _encode_call(lib.wst_blocked_encode_fwd, lib.wst_blocked_workspace_bytes,
-                          "blocked_encode_fwd", x, we_t, b_enc, b_pre, k, out_dtype)
-    if x.shape[0]:
-        fused_topk_encode.blocked_launches += 1
-    return hidden
 
 
 class _TopKEncode(torch.autograd.Function):
@@ -479,8 +486,11 @@ class _TopKEncode(torch.autograd.Function):
         we_t = _bf16_t(w_enc)
         blocked = uses_blocked(*w_enc.shape)
         if x.device.type == "cuda":
-            launch = _blocked_encode_launch if blocked else _topk_encode_launch
-            hidden = launch(x, we_t, b_enc, b_pre, k, out_dtype)
+            hidden = _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype)
+            if x.shape[0] and blocked:
+                fused_topk_encode.blocked_launches += 1
+            elif x.shape[0]:
+                fused_topk_encode.launches += 1
         elif x.device.type == "cpu":
             plain_calls["fused_topk_encode_blocked" if blocked else "fused_topk_encode"] += 1
             hidden = topk_encode_plain(x, we_t, b_enc, b_pre, k, out_dtype)
@@ -505,9 +515,12 @@ class _TopKEncode(torch.autograd.Function):
 
 def fused_topk_encode(x, w_enc, b_enc, b_pre, k, out_dtype=torch.bfloat16):
     """hidden = topk_mask(relu(bf16(x - b_pre) @ W_enc + b_enc), k) in
-    ``out_dtype``: kernel B where it holds the geometry, else the blocked
-    encode.  Launches are counted in ``fused_topk_encode.launches`` (kernel
-    B) and ``fused_topk_encode.blocked_launches``."""
+    ``out_dtype``: one C entry, counted as kernel B where bf16 W_enc fits
+    the JAX package's budget, else as the blocked encode
+    (:func:`uses_blocked`).  Launches are counted in
+    ``fused_topk_encode.launches`` (kernel B) and
+    ``fused_topk_encode.blocked_launches``, the selects by form in the
+    library (:func:`encode_select_launches`)."""
     return _TopKEncode.apply(x, w_enc, b_enc, b_pre, k, out_dtype)
 
 

@@ -7,12 +7,16 @@ pre-activation.  The kernel (``csrc/sae_kernels.cu:topk_mask_kernel<float>``;
 with a bf16 latent it is also kernel B's select) gives each row to one
 warp, which holds it in registers for the 32 bisection passes, so
 ``pre`` is read from device memory once.  Rows
-wider than a warp's registers (H > 3072; the TPU kernel takes H = 40960
-in 32-row blocks, ``pallas_topk.py:89-113``) go to its wide form,
-``topk_mask_wide_kernel``: one CTA of 512 threads per row, up to H =
-40960 in registers, the same passes with the counts summed across the
-CTA in int32, stopping at the first count of exactly k, so the mask is
-bit-identical to the plain version.
+wider than a warp's registers (H > 3072; the TPU kernel takes H up to
+262,144, ``pallas_topk.py:89-103``: 8 rows of f32 and int32 within 16
+MiB) go to its wide form, ``wst_topk_mask_wide_fwd``: one CTA of 512
+threads per row, the same passes with the counts summed across the CTA
+in int32, stopping at the first count of exactly k, so the mask is
+bit-identical to the plain version.  Up to H = 40960 the row is in
+registers (``topk_mask_wide_kernel``); past it the entry launches the
+top-k encode's spill form (``csrc/blocked_encode.cu:
+spill_select_kernel``: 40960 values in registers, up to 57,344 more in
+shared memory, the rest read again each pass), up to H = 262,144.
 Bound on the H100: bytes, 8*B*H (one f32 read, one f32 write).
 
 The backward is ``g * [hidden > 0]`` (``pallas_topk.py:81-83``).
@@ -28,9 +32,10 @@ from .topk import plain_calls, topk_mask_plain
 
 def topk_mask_fwd(pre: torch.Tensor, k: int) -> torch.Tensor:
     """Forward only: kernel C for a CUDA tensor (the warp form up to H =
-    3072, the wide form above), the plain version for a CPU tensor.
-    Counts launches in ``topk_mask_fwd.launches`` (warp form) and
-    ``topk_mask_fwd.wide_launches``."""
+    3072, the wide form above, up to ``_build.MAX_MASK_ROW``), the plain
+    version for a CPU tensor.  Counts launches in ``topk_mask_fwd.launches``
+    (warp form) and ``topk_mask_fwd.wide_launches``, those past H = 40960
+    also in ``topk_mask_fwd.spill_launches``."""
     wide = pre.dim() == 2 and pre.shape[1] > _build.MAX_ROW
     if pre.device.type == "cpu":
         plain_calls["topk_mask_wide" if wide else "topk_mask"] += 1
@@ -43,9 +48,8 @@ def topk_mask_fwd(pre: torch.Tensor, k: int) -> torch.Tensor:
     if not 1 <= k <= h:
         raise ValueError(f"need 1 <= k <= H (got k={k}, H={h})")
     lib = _build.load_library()
-    if h > lib.wst_max_wide_row_width():
-        raise ValueError(f"topk_mask_fwd holds a row in one CTA's registers: "
-                         f"H <= {lib.wst_max_wide_row_width()} (got {h})")
+    if h > lib.wst_max_mask_row_width():
+        raise ValueError(f"topk_mask_fwd takes H <= {lib.wst_max_mask_row_width()} (got {h})")
     out = torch.empty_like(pre)
     if rows:
         launch = lib.wst_topk_mask_wide_fwd if wide else lib.wst_topk_mask_fwd
@@ -54,6 +58,7 @@ def topk_mask_fwd(pre: torch.Tensor, k: int) -> torch.Tensor:
         _build.check(err, "topk_mask_wide_fwd" if wide else "topk_mask_fwd")
         if wide:
             topk_mask_fwd.wide_launches += 1
+            topk_mask_fwd.spill_launches += int(h > _build.MAX_WIDE_ROW)
         else:
             topk_mask_fwd.launches += 1
     return out
@@ -61,6 +66,7 @@ def topk_mask_fwd(pre: torch.Tensor, k: int) -> torch.Tensor:
 
 topk_mask_fwd.launches = 0
 topk_mask_fwd.wide_launches = 0
+topk_mask_fwd.spill_launches = 0
 
 
 class TopKMask(torch.autograd.Function):

@@ -9,10 +9,11 @@ warm ones, and kernel B's device ms a call by kernel under
 ``torch.profiler`` (``fused_topk_encode_split``); then kernel A's wide
 route at whisper-small 8x (D=768, H=6144, k=32; 128, 4096 and 32768 rows)
 in turns with the composed route it replaces there (``topk_sae_apply``'s
-bf16 forward: the blocked encode, the ``mm_f32`` decode, the loss):
+bf16 forward: the top-k encode, the ``mm_f32`` decode, the loss):
 composed / wide / wide / composed, and each of the wide route's launches'
 device ms (``fused_sae_loss_wide_split``); then, at whisper-large 32x (D=1280, H=40960, k=32, 8192 rows),
-the blocked encode (``_blocked_encode_launch``, bf16 latent) and kernel
+the blocked encode (``_topk_encode_launch``, bf16 latent; a tree whose
+blocked encode has its own entry, ``_blocked_encode_launch``) and kernel
 C's wide form (``topk_mask_fwd`` on an f32 [8192, 40960] pre) over 10
 launches after 2 warm ones, and the wall time of a TopK-SAE training step
 there (AMP, batch 8192, 2 epochs of 3 steps after a warm one).  The
@@ -101,8 +102,9 @@ def main() -> None:
     x = torch.randn(BL, DL, generator=gl, device=dev)
     we_t = cuda_sae._bf16_t(w_enc)
     pre = (torch.matmul((x - b_pre).bfloat16().float(), w_enc.bfloat16().float()) + b_enc)
+    blocked = getattr(cuda_sae, "_blocked_encode_launch", cuda_sae._topk_encode_launch)
     res[f"whisper_large_32x_{BL}"] = {
-        "fused_topk_encode_blocked": time_ms(lambda: cuda_sae._blocked_encode_launch(
+        "fused_topk_encode_blocked": time_ms(lambda: blocked(
             x, we_t, b_enc, b_pre, K, torch.bfloat16), iters=10, warmup=2),
         "topk_mask_wide": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K), iters=10, warmup=2),
     }

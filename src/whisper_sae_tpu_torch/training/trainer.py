@@ -12,7 +12,7 @@ an aux with reconstruction_loss, sparsity_loss, l0 and active),
 ``_prepare_batch``, ``_renorm_params``/``_should_renorm``,
 ``_use_indexed_epoch``, ``_indexed_prepare`` and ``_indexed_loss_fn``.
 This class trains the TopK SAE (kernel A, or the composed loss around the
-blocked encode) and the ReLU SAE (the coder kernel in ReLU mode);
+top-k encode) and the ReLU SAE (the coder kernel in ReLU mode);
 ``coder_trainers.py`` overrides the hooks for transcoders and
 crosscoders.
 
@@ -22,8 +22,8 @@ permutation; under AMP, where the family's kernel holds the geometry
 (``_use_indexed_epoch``), each step runs that kernel at a row offset into
 the buffer (the port of ``fused_sae_loss_indexed`` and the ``*_indexed``
 coder entries); otherwise each step hands ``_loss_fn`` a slice view of
-the buffer (whisper-large 32x: the composed loss around the blocked
-encode).  Metrics stay on the device and are
+the buffer (whisper-tiny 128x, whisper-large: the composed loss around
+the top-k encode).  Metrics stay on the device and are
 fetched once per epoch; the remainder batch goes through ``train_step``.
 """
 

@@ -381,11 +381,11 @@ def test_windowed_amp_trainer_matches_jax(family, tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("s,route", [(256, "fused_topk_encode"), (H, "fused_topk_encode_blocked")])
+@pytest.mark.parametrize("s,route", [(256, "fused_topk_encode"), (H, "fused_topk_encode")])
 def test_crosscoder_apply_encodes_like_jax(s, route, monkeypatch):
-    """S = 256: kernel B's route; S = 3200: the blocked encode's.  The JAX
-    side takes its non-blocked Pallas encode (its backend check lifted,
-    in interpret mode)."""
+    """S = 256 and 3200: kernel B's route, as the JAX side takes its
+    non-blocked Pallas encode (its backend check lifted, in interpret
+    mode): bf16 W_enc within 48 MiB."""
     rng = np.random.default_rng(30 + s)
     w_dec = rng.standard_normal((s, L, D // L))
     w_dec = 0.1 * w_dec / np.linalg.norm(w_dec.reshape(s, -1), axis=1)[:, None, None]

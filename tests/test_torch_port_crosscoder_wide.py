@@ -4,8 +4,8 @@ port composes past its 48 MiB budget, as the JAX package does beyond
 ``fused_coder_supported`` (``models/crosscoder.py:180-185``, ``:227-236``),
 and these tests hold that route with the port's coder gate patched off
 (``port_composed``): f32 products of bf16 operands, and for TopK the
-top-k encode on the flattened view (the blocked encode's plain version
-here), as JAX ``crosscoder_apply`` encodes; the trainer takes the sliced
+top-k encode on the flattened view (kernel B's plain version here: bf16
+W_enc within 48 MiB), as JAX ``crosscoder_apply`` encodes; the trainer takes the sliced
 epoch.  At L=2, D=64, S=6144 (the widths of a whisper-base crosscoder at
 its default expansion, S=4096, and above).
 
@@ -98,7 +98,7 @@ def test_wide_crosscoder_loss_composes_like_jax(variant, monkeypatch):
     plain_calls.clear()
     tl, taux = txc.crosscoder_loss(params_from_jax(params), torch.from_numpy(acts), k=k,
                                    compute_dtype=torch.bfloat16)
-    assert plain_calls["fused_topk_encode_blocked"] == (1 if k else 0)
+    assert plain_calls["fused_topk_encode"] == (1 if k else 0)
     assert plain_calls["topk_mask_wide"] == 0
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-3)
     for key in ("reconstruction_loss", "sparsity_loss"):

@@ -112,16 +112,29 @@ def test_encode_latent_equals_kernel_a(dev, rows, x_dtype):
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_encode_equals_blocked_encode_at_tiny(dev, out_dtype):
-    """Kernel B (the warp select, one chunk) against the blocked encode
-    called at D=384, H=3072 (the CTA select, chunks of 2048): the same
-    product, and both selects stop at the first midpoint that counts
-    exactly k, so the latents have the same bits."""
-    p, x = _params(42), _rows(43, 4100)
-    args = (*_encode_args(p), out_dtype)
-    got = cuda_sae._topk_encode_launch(x, *args)
-    want = cuda_sae._blocked_encode_launch(x, *args)
+    """Kernel B at D=384, H=3072 (the warp select, one chunk) against the
+    select of the blocked encode at whisper-large 32x (the CTA form) on
+    the pre kernel B left in its workspace: both selects stop at the first
+    midpoint that counts exactly k, so the latents have the same bits."""
+    lib = _build.load_library()
+    rows = 4100
+    p, x = _params(42), _rows(43, rows)
+    we_t, b_enc, b_pre, k = _encode_args(p)
+    out_f32 = int(out_dtype == torch.float32)
+    got = torch.empty((rows, H), dtype=out_dtype, device=dev)
+    ws = torch.empty((lib.wst_sae_topk_encode_workspace_bytes(rows, D, H),), dtype=torch.uint8,
+                     device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.wst_sae_topk_encode_fwd(
+        x.data_ptr(), 0, rows, D, H, k, we_t.data_ptr(), b_enc.data_ptr(), b_pre.data_ptr(),
+        got.data_ptr(), out_f32, ws.data_ptr(), stream) == 0
+    want = torch.empty_like(got)
+    cta = _build.SELECT_FORMS.index("cta")
+    assert lib.wst_encode_select_fwd(cta, ws.data_ptr(), rows, H, k, want.data_ptr(), out_f32, 0,
+                                     stream) == 0
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(got, cuda_sae._topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype))
 
 
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
@@ -219,9 +232,9 @@ def test_encode_misaligned_w_enc_t_raises(dev):
 
 def test_topk_encode_chunk_rows_match_the_library(dev):
     lib = _build.load_library()
-    assert lib.wst_blocked_chunk_rows() == _build.BLOCKED_CHUNK_ROWS
-    for h in (32, 384, 3072, 4096, 40960):
+    for h in (32, 384, 3072, 4096, 40960, 49152, 81920, 262144, 655360, 655392, 1 << 20):
         assert lib.wst_sae_topk_encode_chunk_rows(h) == _build.topk_encode_chunk_rows(h), h
+        assert lib.wst_select_form(h) == _build.SELECT_FORMS.index(_build.select_form(h)), h
 
 
 @pytest.mark.parametrize("offset,rows,n", [(0, 128, 128), (256, 128, 1024), (0, 4096, 4096),
@@ -405,12 +418,13 @@ def test_kernels_count_launches(dev):
 
 
 def test_unsupported_shapes_raise(dev):
-    p = _params(14, d=384, h=40992)  # wider than the blocked encode holds
-    x = _rows(15, 16)
-    with pytest.raises(ValueError, match="H multiples of 32 and H <= 40960"):
+    p = _params(14, d=32, h=(1 << 20) + 32)  # wider than the blocked encode holds
+    x = _rows(15, 16, d=32)
+    with pytest.raises(ValueError, match="H multiples of 32 and H <= 1048576"):
         cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
-    with pytest.raises(ValueError, match="registers"):
-        topk_mask_fwd(torch.randn(4, 40992, device=dev), K)
+    with pytest.raises(ValueError, match="H <= 262144"):
+        topk_mask_fwd(torch.randn(4, 262176, device=dev), K)
+    x = _rows(15, 16)
     q = _params(16)
     with pytest.raises(ValueError, match="window"):
         cuda_sae.fused_sae_loss_indexed(x, 1, *(q[n] for n in NAMES), K, 16)
@@ -432,9 +446,11 @@ DL, HL = 1280, 40960
 def test_gate_constants_match_the_library(dev):
     lib = _build.load_library()
     assert (_build.MAX_D, _build.MAX_ROW, _build.MAX_WIDE_ROW, _build.SEL_ROWS,
-            _build.MAX_GROUP_ROW) == (
+            _build.MAX_GROUP_ROW, _build.MAX_BLOCKED_ROW,
+            _build.MAX_MASK_ROW) == (
         lib.wst_max_d(), lib.wst_max_row_width(), lib.wst_max_wide_row_width(),
-        lib.wst_rows_per_cta(), lib.wst_max_group_row_width())
+        lib.wst_rows_per_cta(), lib.wst_max_group_row_width(), lib.wst_max_blocked_row_width(),
+        lib.wst_max_mask_row_width())
 
 
 def test_blocked_product_gemm_matches_f32_product(dev):
@@ -467,7 +483,11 @@ def test_topk_mask_wide_kernel_exact(dev, h):
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,h,rows", [(128, 4096, 300), (96, 4160, 129), (256, 8192, 4200),
                                       (DL, HL, 1000)])
-def test_blocked_encode_matches_plain(dev, d, h, rows, x_dtype, out_dtype):
+def test_blocked_encode_matches_plain(dev, d, h, rows, x_dtype, out_dtype, monkeypatch):
+    """The blocked encode through ``fused_topk_encode``: at whisper-large
+    32x by its own gate, at the narrower widths (kernel B's within the JAX
+    package's budget) with the gate patched on, as past the budget."""
+    monkeypatch.setattr(cuda_sae, "uses_blocked", lambda *a: True)
     p, x = _params(21, d=d, h=h), _rows(22, rows, d=d).to(x_dtype)
     before = (cuda_sae.fused_topk_encode.blocked_launches, cuda_sae.fused_topk_encode.launches)
     got = cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
@@ -485,7 +505,7 @@ def test_blocked_encode_matches_plain(dev, d, h, rows, x_dtype, out_dtype):
 
 def test_blocked_encode_is_three_launches_a_chunk(dev):
     """A call counts one launch on its wrapper and is, for each chunk of
-    ``wst_blocked_chunk_rows()`` rows, the centre (kernel A's
+    ``wst_sae_topk_encode_chunk_rows(H)`` rows, the centre (kernel A's
     ``sae_centre_kernel``), the kPre GEMM (at whisper-large 32x its
     column-tiles-first entry, ``gemm_cols_kernel``) and the CTA select on
     the card; the mma.sync product of the first
@@ -496,7 +516,7 @@ def test_blocked_encode_is_three_launches_a_chunk(dev):
     from torch.profiler import ProfilerActivity, profile
 
     calls, rows = 4, 4200
-    chunks = -(-rows // _build.load_library().wst_blocked_chunk_rows())
+    chunks = -(-rows // _build.load_library().wst_sae_topk_encode_chunk_rows(HL))
     p, x = _params(30, d=DL, h=HL), _rows(31, rows, d=DL)
     cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
     torch.cuda.synchronize()
@@ -555,6 +575,120 @@ def test_large_loss_takes_the_blocked_route(dev):
     assert (cuda_sae.fused_topk_encode.blocked_launches, cuda_sae.fused_sae_loss.launches) == (
         before[0] + 1, before[1])
     assert bool(torch.isfinite(loss)) and float(aux["l0"]) == K
+
+
+# ---------------------------------------------------------------------------
+# the top-k encode and mask at every width the JAX package takes: kernel B
+# within 48 MiB of bf16 W_enc (the group, CTA and spill selects), the
+# blocked encode and kernel C past H = 40960 (the spill form)
+# ---------------------------------------------------------------------------
+
+# (D, H): whisper-small 8x, whisper-large 8x, whisper-tiny 128x, the widest row at D = 384
+ENCODE_FORMS = [(768, 6144, "group"), (1280, 10240, "cta"), (384, 49152, "spill"),
+                (384, 65536, "spill")]
+
+
+def _check_encode(got, want, rows, h, out_dtype):
+    assert got.dtype == out_dtype and got.shape == (rows, h)
+    assert _row_agreement(got, want) >= 0.999
+    ok = ((got > 0) == (want > 0)).all(dim=1)
+    torch.testing.assert_close(got[ok].float(), want[ok].float(), rtol=0,
+                               atol=1e-2 * float(want.float().abs().max()))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,h,form", ENCODE_FORMS)
+def test_encode_forms_match_plain(dev, d, h, form, out_dtype):
+    """Kernel B through ``fused_topk_encode`` at each select form past the
+    warp select: one kernel-B launch, one select a chunk in the form
+    ``_build.select_form`` names and none in another, the latent at kernel
+    B's bars, two launches bit-identical."""
+    rows = 4096
+    assert _build.select_form(h) == form and not cuda_sae.uses_blocked(d, h)
+    p, x = _params(60 + d, d=d, h=h), _rows(61, rows, d=d)
+    enc = cuda_sae.fused_topk_encode
+    before = (enc.launches, enc.blocked_launches, cuda_sae.encode_select_launches())
+    got = enc(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
+    forms = cuda_sae.encode_select_launches()
+    chunks = -(-rows // _build.topk_encode_chunk_rows(h))
+    assert (enc.launches, enc.blocked_launches) == (before[0] + 1, before[1])
+    assert {f: n - before[2][f] for f, n in forms.items()} == {
+        f: chunks if f == form else 0 for f in _build.SELECT_FORMS}
+    args = (cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K, out_dtype)
+    _check_encode(got, cuda_sae.topk_encode_plain(x, *args), rows, h, out_dtype)
+    assert torch.equal(got, cuda_sae._topk_encode_launch(x, *args))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_blocked_encode_spill_form_matches_plain(dev, out_dtype):
+    """The blocked encode at whisper-large 64x (D = 1280, H = 81920): chunks
+    of 1024 rows (the budget's), the spill select each chunk."""
+    d, h, rows = 1280, 81920, 2100
+    assert cuda_sae.uses_blocked(d, h) and _build.topk_encode_chunk_rows(h) == 1024
+    p, x = _params(62, d=d, h=h), _rows(63, rows, d=d)
+    enc = cuda_sae.fused_topk_encode
+    before = (enc.blocked_launches, cuda_sae.encode_select_launches()["spill"])
+    got = enc(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
+    assert (enc.blocked_launches, cuda_sae.encode_select_launches()["spill"]) == (
+        before[0] + 1, before[1] + 3)
+    want = cuda_sae.topk_encode_plain(x, cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K,
+                                      out_dtype)
+    _check_encode(got, want, rows, h, out_dtype)
+
+
+@pytest.mark.parametrize("rows,h", [(4096, 49152), (1024, 81920), (64, 262144), (32, 98336),
+                                    (16, 50001)])
+def test_topk_mask_spill_form_exact(dev, rows, h):
+    """Kernel C past H = 40960 (the spill form: the row past 98,304 read
+    again each pass at 262,144 and 98,336; 50,001 no multiple of 32):
+    exact, counted in ``.wide_launches`` and ``.spill_launches``."""
+    pre = torch.randn(rows, h, generator=torch.Generator().manual_seed(h)).to(dev)
+    pre[:4] = torch.round(pre[:4] * 2) / 2  # exact ties
+    before = (topk_mask_fwd.launches, topk_mask_fwd.wide_launches, topk_mask_fwd.spill_launches)
+    got = topk_mask_fwd(pre, K)
+    torch.cuda.synchronize()
+    assert (topk_mask_fwd.launches, topk_mask_fwd.wide_launches, topk_mask_fwd.spill_launches) == (
+        before[0], before[1] + 1, before[2] + 1)
+    assert torch.equal(got, topk_mask_plain(pre, K))
+
+
+@pytest.mark.parametrize("h,rows", [(655392, 1100), (1 << 20, 1100)])
+def test_blocked_encode_widest_rows_match_plain(dev, h, rows):
+    """The encode at its widest rows, D = 64 (bf16 W_enc past 48 MiB: the
+    blocked encode): chunks of fewer rows than a GEMM tile (127 at
+    655,392, 80 at 2^20, each with a ragged last chunk), the spill select
+    reading about 557K (950K) values a row again each pass, at kernel B's
+    bars."""
+    d = 64
+    chunk = _build.topk_encode_chunk_rows(h)
+    assert chunk < 128 and rows % chunk and cuda_sae.uses_blocked(d, h)
+    p, x = _params(66, d=d, h=h), _rows(67, rows, d=d)
+    enc = cuda_sae.fused_topk_encode
+    before = (enc.blocked_launches, cuda_sae.encode_select_launches()["spill"])
+    got = enc(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
+    assert (enc.blocked_launches, cuda_sae.encode_select_launches()["spill"]) == (
+        before[0] + 1, before[1] + -(-rows // chunk))
+    want = cuda_sae.topk_encode_plain(x, cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K,
+                                      torch.bfloat16)
+    _check_encode(got, want, rows, h, torch.bfloat16)
+
+
+def test_encode_and_mask_limits_refuse(dev):
+    h = _build.MAX_BLOCKED_ROW + 32
+    p, x = _params(64, d=32, h=h), _rows(65, 8, d=32)
+    with pytest.raises(ValueError, match="H <= 1048576"):
+        cuda_sae._topk_encode_launch(x, cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K,
+                                     torch.bfloat16)
+    with pytest.raises(ValueError, match="H <= 262144"):
+        topk_mask_fwd(torch.zeros(2, 262176, device=dev), K)
+    lib = _build.load_library()
+    pre = torch.zeros(2, 40992, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    # each form refuses a width it does not hold
+    for form, width in (("group", 8224), ("group", 4100), ("cta", 40992), ("spill", 40960),
+                        ("warp", 1024)):
+        assert lib.wst_encode_select_fwd(_build.SELECT_FORMS.index(form), pre.data_ptr(), 1,
+                                         width, K, pre.data_ptr(), 1, 0, stream) != 0, form
 
 
 # ---------------------------------------------------------------------------
@@ -653,16 +787,18 @@ def test_wide_grads_match_plain_on_cpu(dev):
 
 def test_small_loss_takes_the_wide_route(dev):
     """At whisper-small 8x the loss is kernel A's wide route and the top-k
-    encode (eval, resampling) stays on the blocked encode."""
+    encode (eval, resampling) takes kernel B, its group-form select."""
     from whisper_sae_tpu_torch.models.sae import topk_sae_loss
 
     p, x = _params(38, 768, 6144), _rows(39, 512, 768)
     enc = cuda_sae.fused_topk_encode
     before = (cuda_sae.fused_sae_loss.wide_launches, enc.launches, enc.blocked_launches)
     loss, aux = topk_sae_loss(p, x, K, torch.bfloat16)
+    forms = cuda_sae.encode_select_launches()
     enc(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
     assert (cuda_sae.fused_sae_loss.wide_launches, enc.launches, enc.blocked_launches) == (
-        before[0] + 1, before[1], before[2] + 1)
+        before[0] + 1, before[1] + 1, before[2])
+    assert cuda_sae.encode_select_launches()["group"] == forms["group"] + 1
     assert bool(torch.isfinite(loss)) and float(aux["l0"]) == K
 
 

@@ -1,18 +1,18 @@
 """The port's large-geometry route against the JAX package's, on the CPU.
 
-Above the widths its row kernels hold (D <= 384, H <= 3072) the port
-takes the blocked top-k encode (``ops/csrc/blocked_encode.cu``, its plain
-version here) and sends f32 masks to kernel C's CTA-per-row form; where
-its weights pass the fused loss's budget it also composes the SAE loss
-around the blocked encode -- the route the JAX package takes at
-whisper-large 32x, where its weights do not fit in VMEM
+Past 48 MiB of bf16 W_enc the port takes the blocked top-k encode
+(``ops/csrc/blocked_encode.cu``, its plain version here) and sends f32
+masks past H = 3072 to kernel C's CTA-per-row form; where its weights
+pass the fused loss's budget it also composes the SAE loss around the
+blocked encode -- the route the JAX package takes at whisper-large 32x,
+where its weights do not fit in VMEM
 (``pallas_sae.py:_encode_forward_blocked``).  The widths here are small
 ones: D = 128 or 64, H = 4096, k = 32.  The JAX side runs its blocked
 Pallas kernel in interpret mode, with the geometry gates patched so that
-these widths reach it; the port's loss gates are patched the same way
-where a test holds the composed loss (``port_composed``,
-``port_coder_composed``), since kernel A's and the coder kernel's wide
-routes take these widths.
+these widths reach it; the port's gates are patched the same way where a
+test holds the blocked encode (``port_blocked``) or the composed loss
+(``port_composed``, ``port_coder_composed``), since kernel B, kernel A's
+and the coder kernel's wide routes take these widths.
 
 Tolerances: the blocked encode's mask identically and its bf16 latent
 bit for bit, its f32 latent at rtol 1e-6 (f32 sums in another order);
@@ -75,6 +75,14 @@ def jax_blocked(monkeypatch):
 
 
 @pytest.fixture
+def port_blocked(monkeypatch):
+    """Send the port's top-k encode at these widths to the blocked encode,
+    as past 48 MiB of bf16 W_enc (whisper-large 16x and wider): its gate
+    on, as ``jax_blocked`` turns the JAX package's on."""
+    monkeypatch.setattr(cuda_sae, "uses_blocked", lambda *a: True)
+
+
+@pytest.fixture
 def port_composed(monkeypatch):
     """Send the port's bf16 SAE loss and its trainer's epoch at these
     widths to the composed loss and the sliced epoch, as at whisper-large:
@@ -122,8 +130,10 @@ def _jp(p):
 def test_gates():
     assert cuda_sae.fused_loss_supported(384, 3072) and cuda_sae.fused_loss_supported(64, 512)
     assert not cuda_sae.uses_blocked(384, 3072) and not cuda_sae.uses_blocked(64, 512)
-    for d, h in ((416, 3072), (384, 3104), (100, 512), (1280, 40960), (128, 4096)):
-        assert cuda_sae.uses_blocked(d, h) and not cuda_sae.row_kernels_hold(d, h)
+    # the top-k encode's blocked branch is the JAX package's: bf16 W_enc past 48 MiB
+    for d, h in ((416, 3072), (384, 3104), (100, 512), (128, 4096)):
+        assert not cuda_sae.uses_blocked(d, h) and not cuda_sae.row_kernels_hold(d, h)
+    assert cuda_sae.uses_blocked(1280, 40960) and cuda_sae.uses_blocked(1280, 20480)
     # kernel A's wide route takes the loss wherever bf16 W_enc + W_dec fit 48 MiB
     for d, h in ((416, 3072), (384, 3104), (128, 4096)):
         assert cuda_sae.fused_loss_supported(d, h)
@@ -140,7 +150,7 @@ def test_gates():
 @pytest.mark.parametrize("out", ["bf16", "f32"])
 @pytest.mark.parametrize("x_dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("rows", [16, 24])
-def test_blocked_encode_matches_pallas_interpret(rows, x_dtype, out):
+def test_blocked_encode_matches_pallas_interpret(rows, x_dtype, out, port_blocked):
     p, x = _sae_params(rows), _rows(rows + 1, rows)
     jdt, tdt = (jnp.bfloat16, torch.bfloat16) if out == "bf16" else (jnp.float32, torch.float32)
     jx, tx = jnp.asarray(x), torch.from_numpy(x)
@@ -228,8 +238,9 @@ def test_blocked_encode_grads_match_jax(jax_blocked):
                                                 (128, 4096, "fused_sae_loss", False)],
                          ids=["blocked", "kernel_a", "kernel_a_wide"])
 def test_loss_route_by_geometry(d, h, route, composed, monkeypatch):
-    if composed:  # the whisper-large route at a small width: kernel A's gate off
+    if composed:  # the whisper-large route at a small width: kernel A's gate off, the blocked on
         monkeypatch.setattr(tsae, "fused_loss_supported", lambda *a: False)
+        monkeypatch.setattr(cuda_sae, "uses_blocked", lambda *a: True)
     p, x = params_from_jax(_sae_params(6, d, h)), torch.from_numpy(_rows(7, 32, d))
     before = dict(plain_calls)
     loss, aux = tsae.topk_sae_loss(p, x, K, torch.bfloat16)
@@ -291,7 +302,7 @@ def test_forward_f32_matches_jax():
 TD, TB, TSTEPS = 64, 32, 4  # width, batch, steps an epoch; 2 epochs
 
 
-def test_trainer_matches_jax(jax_blocked, port_composed, tmp_path):
+def test_trainer_matches_jax(jax_blocked, port_composed, port_blocked, tmp_path):
     p = _sae_params(12, TD)
     data = _rows(13, TSTEPS * TB, TD)
     perms = [np.random.default_rng(14 + e).permutation(len(data)) for e in range(2)]
@@ -354,7 +365,8 @@ def _pair(seed: int, n: int):
 
 
 @pytest.mark.parametrize("skip", [True, False], ids=["skip", "topk"])
-def test_transcoder_blocked_route_matches_jax(jax_blocked, port_coder_composed, skip):
+def test_transcoder_blocked_route_matches_jax(jax_blocked, port_coder_composed, port_blocked,
+                                              skip):
     p = _transcoder_params(17, skip)
     x, y = _pair(18, 32)
     (jl, jaux), jg = jax.value_and_grad(
@@ -376,7 +388,7 @@ def test_transcoder_blocked_route_matches_jax(jax_blocked, port_coder_composed, 
                                    atol=1e-2 * np.abs(want).max(), err_msg=k)
 
 
-def test_transcoder_trainer_takes_sliced_epoch(tmp_path, port_coder_composed):
+def test_transcoder_trainer_takes_sliced_epoch(tmp_path, port_coder_composed, port_blocked):
     p = _transcoder_params(19, True)
     x, y = _pair(20, 3 * TB)
     model = ttc.create_transcoder(64, 64, H, k=K, use_skip=True, params=params_from_jax(p),

@@ -185,7 +185,9 @@ def test_windowed_amp_epoch_matches_jax(tmp_path, monkeypatch):
 # ---------------------------------------------------------------------------
 
 # (D, H) of the Whisper widths: kernel A takes those the JAX package fuses
-# (bf16 W_enc + W_dec within 48 MiB), and composes whisper-large and tiny 128x
+# (bf16 W_enc + W_dec within 48 MiB), and composes whisper-large and tiny
+# 128x; the top-k encode takes the blocked encode past 48 MiB of bf16 W_enc
+# alone (whisper-large 32x), as the JAX package's uses_blocked
 GATE_TABLE = {
     "tiny_8x": (384, 3072, True), "tiny_16x": (384, 6144, True), "tiny_32x": (384, 12288, True),
     "tiny_64x": (384, 24576, True), "base_8x": (512, 4096, True), "base_32x": (512, 16384, True),
@@ -200,13 +202,14 @@ def test_kernel_a_gate_table(name):
     d, h, fused = GATE_TABLE[name]
     assert cuda_sae.fused_loss_supported(d, h) is fused
     assert cuda_sae.row_kernels_hold(d, h) is (name == "tiny_8x")
-    assert cuda_sae.uses_blocked(d, h) is (name != "tiny_8x")
+    assert cuda_sae.uses_blocked(d, h) is (name == "large_32x")
 
 
 def test_kernel_b_keeps_the_blocked_encode_at_base_8x():
     """At (512, 4096) kernel A takes the loss, and the top-k encode (eval,
-    resampling) stays on the blocked encode: its plain version runs, no
-    launch is counted."""
+    resampling) takes kernel B, as the JAX package takes its non-blocked
+    encode there (bf16 W_enc 4 MiB): its plain version runs, no launch is
+    counted."""
     d, h, k = 512, 4096, 32
     p = params_from_jax(_params(3, d, h))
     x = torch.from_numpy(_rows(4, 16, d))
@@ -215,7 +218,7 @@ def test_kernel_b_keeps_the_blocked_encode_at_base_8x():
     hid = enc(x, p["w_enc"], p["b_enc"], p["b_pre"], k)
     loss, aux = tsae.topk_sae_loss(p, x, k, torch.bfloat16)
     moved = {n: v - before[0].get(n, 0) for n, v in plain_calls.items() if v != before[0].get(n, 0)}
-    assert moved == {"fused_topk_encode_blocked": 1, "fused_sae_loss": 1}
+    assert moved == {"fused_topk_encode": 1, "fused_sae_loss": 1}
     assert (enc.launches, enc.blocked_launches) == before[1:]
     assert hid.shape == (16, h) and int((hid > 0).sum(dim=1).min()) == k
     assert bool(torch.isfinite(loss)) and float(aux["l0"]) == k
