@@ -336,22 +336,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     kernel B through ``fused_topk_encode`` in each select form past the
     warp select (``_build.select_form``: the group form at whisper-small
     8x, D=768 H=6144; the CTA form at whisper-large 8x, 1280 x 10240; the
-    spill form at whisper-tiny 128x, 384 x 49152), 4096 rows, bf16 and
+    cluster form at whisper-tiny 128x, 384 x 49152), 4096 rows, bf16 and
     f32 out; the blocked encode at whisper-large 64x (1280 x 81920, the
-    spill form, chunks of 1024 rows); each at kernel B's bars with the gap
-    rule, two launches bit-identical, the library's select counts by form
-    one a chunk in the named form and none in another; kernel C past H =
-    40960 ([4096, 49152], [1024, 81920], [64, 262144]) exact.  (b-c) The
+    cluster form, chunks of 1024 rows); each at kernel B's bars with the
+    gap rule, two launches bit-identical, the library's select counts by
+    form one a chunk in the named form and none in another; kernel C past
+    H = 40960 ([4096, 49152], [1024, 81920], [64, 262144]) exact, with
+    rows of ties past the compaction's 8192 candidates, all-equal rows and
+    the cluster select alone at k = h, bit-identical over two launches;
+    the card's clusters at once (``cudaOccupancyMaxActiveClusters``) for
+    each cluster size.  (b-c) The
     main path, every count zeroed first: a whisper-tiny 128x TopK SAE
     (k=32, AMP, batch 4096) trained on a synthetic 48 x 4096-row cache
     for 4 epochs as the launcher's ``train`` job trains one (the SAE
     config of both packages refuses an expansion past 32, so the SAE is a
     ``TopKSAE`` of H = 49152 and the job's steps run through the
     library), kernel B once a step and kernel A never; 4 f32 steps
-    (kernel C's spill form once a step); ``TopKSAE.encode`` (kernel B
+    (kernel C's cluster form once a step); ``TopKSAE.encode`` (kernel B
     writing f32); 3 AMP steps of a whisper-large 64x SAE through the
     trainer (the blocked encode once a step); every kernel of the path
-    launched, the selects all in the spill form, no plain version.  (d)
+    launched, the selects all in the cluster form, no plain version.  (d)
     Against the CPU: the train job at batch 256 for 8 steps and 4 f32
     steps of each trained SAE, losses at rtol 1e-3; the encode's f32
     latent (>= 99.9% of rows alike, the gap rule, values within 1e-5 of
@@ -359,17 +363,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
     64x from the same parameters, 3 steps at batch 64, losses at rtol
     1e-3.  (e) A whisper-large 64x step at batch 4096 under the profiler;
     each kernel beside its plain version, its bound (the select's passes
-    on this pre counted) and a library yardstick (bf16 ``torch.mm``;
+    and compaction on this pre counted, ``ops.topk.cluster_threshold``)
+    and a library yardstick (bf16 ``torch.mm``;
     ``torch.topk`` and a scatter for the mask), kernel B at whisper-small
     8x and large 8x in turns with the same rows in calls of 2048 (the
     blocked encode's chunk there before kernel B and the blocked encode
     took one C entry), the group select at whisper-small 8x in turns with
     the CTA select the blocked encode ran there, the blocked encode at
-    large 16x in one 4096-row chunk in turns with calls of 2048, each
-    launch's device ms at tiny 128x and large 64x (kept only where the
-    parts add up to within 10% of the call).  The ``kernels``
-    entries ``fused_topk_encode_wide``, ``topk_mask_spill`` and
-    ``fused_topk_encode_blocked_spill``; ``fused_topk_encode`` and
+    large 16x in one 4096-row chunk in turns with calls of 2048, the
+    cluster select alone on each encode's pre, each launch's device ms at
+    tiny 128x and large 64x (kept only where the parts add up to within
+    10% of the call).  The ``kernels`` entries ``fused_topk_encode_wide``,
+    ``topk_mask_spill`` and ``fused_topk_encode_blocked_spill`` (the
+    names of the spill form they first ran; ``select_form`` names the
+    cluster form); ``fused_topk_encode`` and
     ``fused_topk_encode_blocked`` carry ``select_forms``, the library's
     counts by form on phases 2-3's and 12's paths.
 
@@ -4159,17 +4166,20 @@ def research_path(work: Path, dev, card: str, launch_mod, train_mod, sae_mod, ca
 
 # kernel B past the warp select, one geometry a select form: whisper-small
 # 8x (the group form), whisper-large 8x (the CTA form), whisper-tiny 128x
-# (the spill form); 4096 rows
-ENC_FORM_GEOMS = {"group": (768, 6144), "cta": (1280, 10240), "spill": (384, 49152)}
+# (the cluster form); 4096 rows
+ENC_FORM_GEOMS = {"group": (768, 6144), "cta": (1280, 10240), "cluster": (384, 49152)}
 MASK_SPILL_SHAPES = ((4096, 49152), (1024, 81920), (64, 262144))
-DT, HT = 384, 49152  # whisper-tiny 128x: kernel B's spill form
-DG, HG = 1280, 81920  # whisper-large 64x: the blocked encode's spill form
+DT, HT = 384, 49152  # whisper-tiny 128x: kernel B's cluster form
+DG, HG = 1280, 81920  # whisper-large 64x: the blocked encode's cluster form
 WB = 4096  # the trainers' batch
 TINY_STEPS, TINY_EPOCHS = 48, 4  # the train job: 48 x 4096 rows, 4 epochs
 F32_STEPS, LARGE_STEPS64 = 4, 3
 REF_B, REF_STEPS = 256, 8  # the card-vs-CPU runs: 8 steps of 256 rows
-SPILL_PARTS = {"centre": "sae_centre_kernel", "encode": "_kernel<3>",
-               "select": "spill_select_kernel"}
+CLUSTER_PARTS = {"centre": "sae_centre_kernel", "encode": "_kernel<3>",
+                 "select": "cluster_select_kernel"}
+# a width per cluster size: 2 CTAs a row (whisper-tiny 128x, large 64x), 4
+# (whisper-large 128x), 8 (kernel C's widest)
+CLUSTER_WIDTHS = (49152, 81920, 163840, 262144)
 
 
 def encode_check(cuda_sae, x, p: dict, out_dtype, what: str, errs: dict, key: str) -> None:
@@ -4195,13 +4205,33 @@ def encode_check(cuda_sae, x, p: dict, out_dtype, what: str, errs: dict, key: st
     log(f"  {what}: rows agreeing {share:.4%}, max abs err {err:.3g}, two launches bit-identical")
 
 
+def cluster_edge_rows(dev, h: int) -> torch.Tensor:
+    """Rows for the cluster select's edges at width h: more than the
+    compaction's 8192 candidates tied at the k-th value, all equal, all
+    negative, +0.0 and -0.0 straddling the k-th, 15,000 tied at the k-th
+    of an otherwise gaussian row."""
+    g = torch.Generator(device=dev).manual_seed(h + 7)
+    pre = torch.randn(5, h, generator=g, device=dev)
+    pre[0, :10000] = pre[0].max()
+    pre[1] = 1.5
+    pre[2] = -pre[2].abs() - 1
+    pre[3] = torch.where(torch.rand(h, generator=g, device=dev) < 0.5, 0.0, -0.0)
+    pre[3, :20] = 1.0
+    pre[4, 5000:20000] = 2.0
+    return pre
+
+
 def encode_widths_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
-    """Phase 23a: kernel B in its group, CTA and spill forms, the blocked
-    encode's spill form and kernel C's against their plain versions, the
-    selects counted by form in the library.  Returns the max abs error by
-    ``kernels`` entry."""
+    """Phase 23a: kernel B in its group, CTA and cluster forms, the
+    blocked encode's cluster form and kernel C's against their plain
+    versions, the selects counted by form in the library; the cluster
+    select on edge rows (and alone at k = h) exact and bit-identical over
+    two launches; the card's clusters at once for each cluster size.
+    Returns the max abs error by ``kernels`` entry and the clusters at
+    once by width."""
     from whisper_sae_tpu_torch.ops import _build
 
+    lib = _build.load_library()
     errs: dict[str, float] = {"topk_mask_spill": 0.0}
     enc = cuda_sae.fused_topk_encode
     for form, (d, h) in ENC_FORM_GEOMS.items():
@@ -4223,27 +4253,46 @@ def encode_widths_phase(dev, cuda_sae, cuda_topk, topk) -> dict:
     x = torch.randn(WB, DG, generator=torch.Generator(device=dev).manual_seed(93), device=dev)
     chunks = -(-WB // _build.topk_encode_chunk_rows(HG))
     for out_dtype in (torch.bfloat16, torch.float32):
-        before = (enc.launches, enc.blocked_launches, cuda_sae.encode_select_launches()["spill"])
+        before = (enc.launches, enc.blocked_launches, cuda_sae.encode_select_launches()["cluster"])
         encode_check(cuda_sae, x, p, out_dtype,
-                     f"blocked encode D={DG} H={HG} (spill) -> {str(out_dtype)[6:]}", errs,
+                     f"blocked encode D={DG} H={HG} (cluster) -> {str(out_dtype)[6:]}", errs,
                      "fused_topk_encode_blocked_spill")
-        check((enc.launches, enc.blocked_launches, cuda_sae.encode_select_launches()["spill"])
+        check((enc.launches, enc.blocked_launches, cuda_sae.encode_select_launches()["cluster"])
               == (before[0], before[1] + 2, before[2] + 2 * chunks),
-              f"blocked encode D={DG} H={HG}: not the blocked route's spill form")
+              f"blocked encode D={DG} H={HG}: not the blocked route's cluster form")
     del p, x
+    stream = torch.cuda.current_stream().cuda_stream
     for rows, h in MASK_SPILL_SHAPES:
         pre = torch.randn(rows, h, generator=torch.Generator(device=dev).manual_seed(h), device=dev)
         pre[:4] = torch.round(pre[:4] * 2) / 2  # exact ties at the threshold
-        before = cuda_topk.topk_mask_fwd.spill_launches
+        pre[4:9] = cluster_edge_rows(dev, h)
+        before = cuda_topk.topk_mask_fwd.cluster_launches
         got = cuda_topk.topk_mask_fwd(pre, K)
-        check(cuda_topk.topk_mask_fwd.spill_launches == before + 1,
-              f"topk_mask [{rows}, {h}]: not the spill form")
-        check(torch.equal(got, topk.topk_mask_plain(pre, K)),
-              f"topk_mask [{rows}, {h}]: differs from the plain version")
-        check(int((got[4:] > 0).sum(1).min()) == K, f"topk_mask [{rows}, {h}]: not k per row")
-        log(f"  topk_mask [{rows}, {h}] (spill form) with tie rows: equal to the plain version")
-        del pre, got
-    return errs
+        again = cuda_topk.topk_mask_fwd(pre, K)
+        check(cuda_topk.topk_mask_fwd.cluster_launches == before + 2,
+              f"topk_mask [{rows}, {h}]: not the cluster form")
+        check(torch.equal(got, topk.topk_mask_plain(pre, K)) and torch.equal(got, again),
+              f"topk_mask [{rows}, {h}]: differs from the plain version or between launches")
+        check(int((got[9:] > 0).sum(1).min()) == K, f"topk_mask [{rows}, {h}]: not k per row")
+        edge = cluster_edge_rows(dev, h)
+        out = torch.empty_like(edge)
+        check(lib.wst_encode_select_fwd(_build.SELECT_FORMS.index("cluster"), edge.data_ptr(), 5,
+                                        h, h, out.data_ptr(), 1, 0, stream) == 0,
+              f"the cluster select at k = h = {h}: launch")
+        check(torch.equal(out, topk.topk_mask_plain(edge, h)),
+              f"the cluster select at k = h = {h}: differs from the plain version")
+        log(f"  topk_mask [{rows}, {h}] (cluster form, {_build.cluster_ctas(h)} CTAs a row) with "
+            "tie and edge rows, and k = h: equal to the plain version, two launches bit-identical")
+        del pre, got, again, edge, out
+    at_once = {}
+    for h in CLUSTER_WIDTHS:
+        at_once[h] = int(lib.wst_cluster_select_max_active(h))
+        check(lib.wst_cluster_ctas(h) == _build.cluster_ctas(h) and at_once[h] > 0,
+              f"the cluster select at H = {h}: {lib.wst_cluster_ctas(h)} CTAs a row, "
+              f"{at_once[h]} clusters at once")
+    log("  the cluster select's clusters the card holds at once (cudaOccupancyMaxActiveClusters): "
+        + ", ".join(f"H = {h}: {at_once[h]} of {_build.cluster_ctas(h)} CTAs" for h in CLUSTER_WIDTHS))
+    return {"errs": errs, "max_active_clusters": at_once}
 
 
 def write_rows(cache_dir: Path, rows: int, gen: torch.Generator, mix: torch.Tensor,
@@ -4287,7 +4336,7 @@ def main_path_counts(cuda_sae, cuda_topk, topk) -> None:
         w.launches = w.wide_launches = 0
     cuda_sae.fused_topk_encode.launches = cuda_sae.fused_topk_encode.blocked_launches = 0
     m = cuda_topk.topk_mask_fwd
-    m.launches = m.wide_launches = m.spill_launches = 0
+    m.launches = m.wide_launches = m.cluster_launches = 0
     topk.plain_calls.clear()
 
 
@@ -4295,10 +4344,10 @@ def widths_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sa
                 topk) -> dict:
     """Phase 23b-c, the main path, every count zeroed first: the
     whisper-tiny 128x TopK SAE trained as the ``train`` job trains (AMP:
-    the composed loss around kernel B's spill form), a few f32 steps
-    (kernel C's spill form), ``TopKSAE.encode`` (kernel B writing f32),
+    the composed loss around kernel B's cluster form), a few f32 steps
+    (kernel C's cluster form), ``TopKSAE.encode`` (kernel B writing f32),
     then whisper-large 64x AMP steps through the trainer (the blocked
-    encode's spill form).  Returns the launches, the trained SAE and the
+    encode's cluster form).  Returns the launches, the trained SAE and the
     rows for the comparisons."""
     from whisper_sae_tpu_torch.ops import _build
 
@@ -4339,13 +4388,13 @@ def widths_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sa
     rows = gaussian_rows((F32_STEPS + 1) * WB, gen, mix)
     f32 = train_mod.SAETrainer(sae, cfg_mod.TrainingConfig(
         batch_size=WB, learning_rate=1e-4, warmup_steps=0, use_amp=False), run_dir=wd / "f32")
-    before = mask.spill_launches
+    before = mask.cluster_launches
     m32 = [m.loss for m in f32.train_epoch_fused(rows[:F32_STEPS * WB], shuffle=False)]
-    check(mask.spill_launches - before == F32_STEPS and all(np.isfinite(m32)),
-          f"f32 steps: kernel C's spill form {mask.spill_launches - before} launches for "
+    check(mask.cluster_launches - before == F32_STEPS and all(np.isfinite(m32)),
+          f"f32 steps: kernel C's cluster form {mask.cluster_launches - before} launches for "
           f"{F32_STEPS} steps, losses {m32}")
     res["f32_losses"] = m32
-    log(f"  f32 steps at batch {WB}: losses {[round(v, 6) for v in m32]}, kernel C's spill form "
+    log(f"  f32 steps at batch {WB}: losses {[round(v, 6) for v in m32]}, kernel C's cluster form "
         "once a step")
     held = rows[F32_STEPS * WB:]
     before = enc.launches
@@ -4378,14 +4427,14 @@ def widths_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sa
 
     made = {f: n - forms0[f] for f, n in cuda_sae.encode_select_launches().items()}
     res["launches"] = {"fused_topk_encode_wide": enc.launches,
-                       "topk_mask_spill": mask.spill_launches,
+                       "topk_mask_spill": mask.cluster_launches,
                        "fused_topk_encode_blocked_spill": enc.blocked_launches}
     res["select_forms"] = made
     tiny_chunks, large_chunks = (-(-WB // _build.topk_encode_chunk_rows(HT)),
                                  -(-WB // _build.topk_encode_chunk_rows(HG)))
     want = (steps + 1) * tiny_chunks + LARGE_STEPS64 * large_chunks
-    check(made == {f: want if f == "spill" else 0 for f in made},
-          f"selects by form on the main path {made}: want {want} spill")
+    check(made == {f: want if f == "cluster" else 0 for f in made},
+          f"selects by form on the main path {made}: want {want} cluster")
     check(sum(topk.plain_calls.values()) == 0, f"plain versions ran: {dict(topk.plain_calls)}")
     log(f"  launches on the main path: {res['launches']}, selects by form {made}")
     return res
@@ -4490,47 +4539,69 @@ def checked_split(fn, parts: dict, ms: float, what: str, calls: int = 5) -> dict
     return None
 
 
-def select_turns(lib, pre: torch.Tensor, forms: tuple, k: int) -> dict:
-    """The select forms ``forms`` alone on one f32 pre (``wst_encode_select_fwd``,
-    a bf16 latent), in turns a / b / b / a: device ms a call of each, and
-    the four turns."""
+def select_call(lib, pre: torch.Tensor, form: str, k: int):
+    """A call of the select form ``form`` alone on an f32 pre
+    (``wst_encode_select_fwd``, a bf16 latent), checked."""
     from whisper_sae_tpu_torch.ops import _build
 
     rows, h = pre.shape
     out = torch.empty((rows, h), dtype=torch.bfloat16, device=pre.device)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def run(form):
-        def call():
-            err = lib.wst_encode_select_fwd(_build.SELECT_FORMS.index(form), pre.data_ptr(), rows,
-                                            h, k, out.data_ptr(), 0, 0, stream)
-            check(err == 0, f"wst_encode_select_fwd ({form} form): error {err}")
-        return call
+    def call():
+        err = lib.wst_encode_select_fwd(_build.SELECT_FORMS.index(form), pre.data_ptr(), rows, h,
+                                        k, out.data_ptr(), 0, 0, stream)
+        check(err == 0, f"wst_encode_select_fwd ({form} form): error {err}")
+    return call
 
+
+def select_turns(lib, pre: torch.Tensor, forms: tuple, k: int) -> dict:
+    """The select forms ``forms`` alone on one f32 pre, in turns a / b / b
+    / a: device ms a call of each, and the four turns."""
     a, b = forms
-    turns = [time_ms(run(f)) for f in (a, b, b, a)]
+    turns = [time_ms(select_call(lib, pre, f, k)) for f in (a, b, b, a)]
     return {f"{b}_ms": (turns[1] + turns[2]) / 2, f"{a}_ms": (turns[0] + turns[3]) / 2,
             "turns_ms": turns}
+
+
+def select_ops(topk, pre: torch.Tensor, form: str) -> tuple[float, float]:
+    """The integer operations the select of ``form`` needs on this pre
+    (its plain model's passes: a compare and an add a value a pass over
+    the whole row; for the cluster form only the passes that count, a third
+    midpoint in the sweep of passes 0 and 1, the compaction's count and
+    write over the row and the later passes that count over its
+    candidates), plus a compare a value for the latent; and the mean
+    passes a row."""
+    rows, h = pre.shape
+    if form != "cluster":
+        passes = topk.cta_threshold(pre, K)[2].double()
+        return float(2 * passes.sum() * h + rows * h), float(passes.mean())
+    st: dict = {}
+    passes = topk.cluster_threshold(pre, K, stats=st)[2].double()
+    full, cand, listed = (st[n_].double() for n_ in ("full_passes", "candidates", "list_passes"))
+    ops = 2 * ((full + 1) * h + (cand > 0).double() * 2 * h + listed * cand) + h
+    return float(ops.sum()), float(passes.mean())
 
 
 def widths_times(dev, cuda_sae, cuda_topk, topk) -> dict:
     """Phase 23e: kernel B in each form, the blocked encode at whisper-large
     64x and kernel C past 40960 at the main path's shapes, beside their
-    plain versions, bounds (the select's passes on this pre counted) and
+    plain versions, bounds (the select's work on this pre counted) and
     library yardsticks; at whisper-small 8x and large 8x kernel B in turns
     with the same rows in calls of 2048 (the blocked encode's chunk there
     before both took one entry: blocked / B / B / blocked), and at
     whisper-small 8x the group select in turns with the CTA select the
     blocked encode ran there; at whisper-large 16x the blocked encode in
-    one chunk in turns with calls of 2048 rows; each launch's device ms at
-    whisper-tiny 128x and large 64x."""
+    one chunk in turns with calls of 2048 rows; at whisper-tiny 128x and
+    large 64x the cluster select alone on the encode's pre and each
+    launch's device ms."""
     from whisper_sae_tpu_torch.ops import _build
     from whisper_sae_tpu_torch.utils.device import mm_f32
 
     lib = _build.load_library()
     res: dict = {}
     geoms = {**{f: (d, h, False) for f, (d, h) in ENC_FORM_GEOMS.items()},
-             "blocked_spill": (DG, HG, True)}
+             "blocked_cluster": (DG, HG, True)}
     for form, (d, h, blocked) in geoms.items():
         p = params(98 + d, dev, d, h)
         x = torch.randn(WB, d, generator=torch.Generator(device=dev).manual_seed(99), device=dev)
@@ -4538,14 +4609,14 @@ def widths_times(dev, cuda_sae, cuda_topk, topk) -> dict:
         args = (x, we_t, p["b_enc"], p["b_pre"], K, torch.bfloat16)
         xc, w_bf = (x - p["b_pre"]).bfloat16(), p["w_enc"].bfloat16()
         pre = mm_f32(xc, we_t.t()) + p["b_enc"]
-        passes = topk.cta_threshold(pre, K)[2].double()
-        b_bound = bound(WB * d * 4 + d * h * 2 + (h + d) * 4 + WB * h * 2, 2 * WB * d * h,
-                        float(2 * passes.sum() * h + WB * h))
+        ops, passes = select_ops(topk, pre, _build.select_form(h))
+        b_bound = bound(WB * d * 4 + d * h * 2 + (h + d) * 4 + WB * h * 2, 2 * WB * d * h, ops)
         kernel = lambda: cuda_sae._topk_encode_launch(*args)  # noqa: E731
         r = {"plain_ms": time_ms(lambda: cuda_sae.topk_encode_plain(*args), iters=2, warmup=1),
              **dict(zip(("bound_ms", "bound_by"), b_bound)),
              "library_ms": time_ms(lambda: torch.mm(xc, w_bf), iters=10, warmup=2),
-             "select_passes_mean": float(passes.mean()), "geometry": {"d": d, "h": h, "k": K}}
+             "select_passes_mean": passes, "geometry": {"d": d, "h": h, "k": K},
+             "select_form": _build.select_form(h)}
         if form in ("group", "cta"):  # the blocked encode took these widths, 2048 rows a chunk
             old = lambda: [cuda_sae._topk_encode_launch(x[r0:r0 + 2048], *args[1:])  # noqa: E731
                            for r0 in range(0, WB, 2048)]
@@ -4556,11 +4627,12 @@ def widths_times(dev, cuda_sae, cuda_topk, topk) -> dict:
                 r["select"] = select_turns(lib, pre, ("cta", "group"), K)
         else:
             r["ms"] = time_ms(kernel, iters=10, warmup=2)
-            r["split_ms"] = checked_split(kernel, SPILL_PARTS, r["ms"],
+            r["select_alone_ms"] = time_ms(select_call(lib, pre, "cluster", K), iters=10, warmup=2)
+            r["split_ms"] = checked_split(kernel, CLUSTER_PARTS, r["ms"],
                                           f"{'blocked encode' if blocked else 'kernel B'} H={h}")
         res[form] = r
         sel = r.get("select")
-        log(f"  {'blocked encode' if blocked else 'kernel B'} D={d} H={h} ({form.split('_')[-1]} "
+        log(f"  {'blocked encode' if blocked else 'kernel B'} D={d} H={h} ({r['select_form']} "
             f"form) B={WB}: {r['ms']:.4f} ms"
             + (f" (turns {r['turns_ms'][1]:.4f}, {r['turns_ms'][2]:.4f}); in calls of 2048 rows "
                f"(the blocked encode's chunk) {r['blocked_ms']:.4f} (turns {r['turns_ms'][0]:.4f}, "
@@ -4568,6 +4640,8 @@ def widths_times(dev, cuda_sae, cuda_topk, topk) -> dict:
             + (f"; the select alone: group {sel['group_ms']:.4f}, the blocked encode's CTA form "
                f"{sel['cta_ms']:.4f} (turns " + ", ".join(f"{t:.4f}" for t in sel["turns_ms"])
                + ")" if sel else "")
+            + (f"; the cluster select alone on its {WB} rows {r['select_alone_ms']:.4f}"
+               if "select_alone_ms" in r else "")
             + f"; plain {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), library "
             f"{r['library_ms']:.4f}; {r['select_passes_mean']:.2f} select passes a row"
             + ("; device ms a call: " + ", ".join(
@@ -4594,34 +4668,39 @@ def widths_times(dev, cuda_sae, cuda_topk, topk) -> dict:
     for rows, h in MASK_SPILL_SHAPES:
         pre = torch.randn(rows, h, generator=torch.Generator(device=dev).manual_seed(h + 1),
                           device=dev)
-        passes = topk.cta_threshold(pre, K)[2].double()
+        ops, passes = select_ops(topk, pre, "cluster")
         r = {"ms": time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K), iters=10, warmup=2),
              "plain_ms": time_ms(lambda: topk.topk_mask_plain(pre, K), iters=2, warmup=1),
-             **dict(zip(("bound_ms", "bound_by"),
-                        bound(2 * rows * h * 4, 0, float(2 * passes.sum() * h + rows * h)))),
+             **dict(zip(("bound_ms", "bound_by"), bound(2 * rows * h * 4, 0, ops))),
              "library_ms": time_ms(lambda: topk_scatter(pre, K), iters=10, warmup=2),
-             "select_passes_mean": float(passes.mean())}
+             "select_passes_mean": passes}
         res[("mask", rows, h)] = r
-        log(f"  topk_mask [{rows}, {h}] (spill form): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, "
-            f"bound {r['bound_ms']:.4f} ({r['bound_by']}), library {r['library_ms']:.4f} "
-            f"(torch.topk and a scatter); {r['select_passes_mean']:.2f} passes a row")
+        log(f"  topk_mask [{rows}, {h}] (cluster form): {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} ({r['bound_by']}), library "
+            f"{r['library_ms']:.4f} (torch.topk and a scatter); {r['select_passes_mean']:.2f} "
+            "passes a row")
         del pre
     return res
 
 
-def widths_entries(path: dict, errs: dict, tm: dict) -> list:
-    """Phase 23's ``kernels`` entries: rows 3w, 4s and 5s of PERF.md."""
+def widths_entries(path: dict, w23: dict, tm: dict) -> list:
+    """Phase 23's ``kernels`` entries: rows 3w, 4s and 5s of PERF.md (their
+    names those of the spill form they first ran; ``select_form`` names
+    the select past H = 40960, ``max_active_clusters`` the card's clusters
+    at once by width)."""
     def pick(r):
         return {k_: r[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
 
+    errs, at_once = w23["errs"], {str(h): n for h, n in w23["max_active_clusters"].items()}
     sources = [BLOCKED_SOURCE, SELECT_SOURCE, SOURCE, GEMM_SOURCE]
     mask_main = tm[("mask", *MASK_SPILL_SHAPES[0])]
     return [
         {"name": "fused_topk_encode_wide", "route": "cuda", "source": BLOCKED_SOURCE,
          "sources": sources, "replaces": "src/whisper_sae_tpu/ops/pallas_sae.py:77",
          "launches": path["launches"]["fused_topk_encode_wide"],
-         "max_abs_err": errs["fused_topk_encode_wide"], **pick(tm["spill"]), "batch": WB,
-         "geometry": tm["spill"]["geometry"], "split_ms": tm["spill"]["split_ms"],
+         "max_abs_err": errs["fused_topk_encode_wide"], **pick(tm["cluster"]), "batch": WB,
+         "geometry": tm["cluster"]["geometry"], "split_ms": tm["cluster"]["split_ms"],
+         "select_form": "cluster", "select_alone_ms": tm["cluster"]["select_alone_ms"],
          "select_forms": path["select_forms"],
          **{f"at_{form}_form": {**pick(tm[form]), "geometry": tm[form]["geometry"],
                                 "in_2048_row_calls_ms": tm[form]["blocked_ms"],
@@ -4630,14 +4709,17 @@ def widths_entries(path: dict, errs: dict, tm: dict) -> list:
         {"name": "topk_mask_spill", "route": "cuda", "source": BLOCKED_SOURCE,
          "sources": [SOURCE, BLOCKED_SOURCE], "replaces": "src/whisper_sae_tpu/ops/pallas_topk.py:51",
          "launches": path["launches"]["topk_mask_spill"], "max_abs_err": errs["topk_mask_spill"],
-         **pick(mask_main), "shape": list(MASK_SPILL_SHAPES[0]),
+         **pick(mask_main), "shape": list(MASK_SPILL_SHAPES[0]), "select_form": "cluster",
+         "max_active_clusters": at_once,
          **{f"at_{rows}x{h}": pick(tm[("mask", rows, h)]) for rows, h in MASK_SPILL_SHAPES[1:]}},
         {"name": "fused_topk_encode_blocked_spill", "route": "cuda", "source": BLOCKED_SOURCE,
          "sources": sources, "replaces": "src/whisper_sae_tpu/ops/pallas_sae.py:1392",
          "launches": path["launches"]["fused_topk_encode_blocked_spill"],
-         "max_abs_err": errs["fused_topk_encode_blocked_spill"], **pick(tm["blocked_spill"]),
-         "batch": WB, "geometry": tm["blocked_spill"]["geometry"],
-         "split_ms": tm["blocked_spill"]["split_ms"], "at_large_16x": tm["large_16x"]},
+         "max_abs_err": errs["fused_topk_encode_blocked_spill"], **pick(tm["blocked_cluster"]),
+         "batch": WB, "geometry": tm["blocked_cluster"]["geometry"],
+         "split_ms": tm["blocked_cluster"]["split_ms"], "select_form": "cluster",
+         "select_alone_ms": tm["blocked_cluster"]["select_alone_ms"],
+         "at_large_16x": tm["large_16x"]},
     ]
 
 
@@ -4967,9 +5049,9 @@ def main() -> int:
             entry["at_research_loop"] = {"launches": r22["launches"][entry["name"]]}
     log(f"  research loop [{card}]: {json.dumps({k_: v for k_, v in r22.items() if k_ != 'launches'})}")
     log("phase 23: the top-k encode and mask at every width the JAX package takes: (a) kernel B "
-        "in its group, CTA and spill forms, the blocked encode and kernel C past H = 40960, "
+        "in its group, CTA and cluster forms, the blocked encode and kernel C past H = 40960, "
         "against their plain versions")
-    w_errs = encode_widths_phase(dev, cuda_sae, cuda_topk, topk)
+    w23 = encode_widths_phase(dev, cuda_sae, cuda_topk, topk)
     log("  (b) whisper-tiny 128x trained as the train job trains, f32 steps, TopKSAE.encode; (c) "
         "whisper-large 64x through the trainer")
     t23 = time.perf_counter()
@@ -4985,7 +5067,7 @@ def main() -> int:
         "before both took one entry, and the group select with the CTA select it replaces)")
     step23 = step_profile(path23["large_trainer"], path23["large_rows"], LARGE_STEPS64)
     tm23 = widths_times(dev, cuda_sae, cuda_topk, topk)
-    kernels.extend(widths_entries(path23, w_errs, tm23))
+    kernels.extend(widths_entries(path23, w23, tm23))
     shutil.rmtree(work / "widths", ignore_errors=True)
     log(f"  widths [{card}]: {json.dumps({'train_s': path23['train_s'], 'losses': path23['losses'], 'f32_losses': path23['f32_losses'], 'large_losses': path23['large_losses'], 'large_step': step23, **cpu23, 'phase_s': time.perf_counter() - t23})}")
     log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20, 21, 22 and 23): "

@@ -28,8 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # the CPU cannot load the library to ask it (tests/test_torch_port_cuda.py
 # pins them to wst_max_d(), wst_max_row_width(), wst_max_wide_row_width(),
 # wst_max_group_row_width(), wst_max_blocked_row_width(),
-# wst_max_mask_row_width(), wst_rows_per_cta(), wst_select_form() and
-# wst_sae_topk_encode_chunk_rows()).
+# wst_max_mask_row_width(), wst_rows_per_cta(), wst_select_form(),
+# wst_cluster_ctas() and wst_sae_topk_encode_chunk_rows()).
 MAX_D = 384  # kernel A's warp form decodes D in one pass, D/32 f32 sums a lane
 SEL_ROWS = 4  # rows (one a warp) a CTA of the select-and-decode kernels: one sq partial each
 MAX_ROW = 3072  # one warp holds a row in registers: kernels A, B, C and the coder kernel
@@ -39,6 +39,10 @@ MAX_GROUP_ROW = 8192  # a warp group holds a row in registers: the group forms
 # TPU's blocked encode's, ``pallas_sae.py:_MAX_H``
 MAX_BLOCKED_ROW = 1 << 20
 MAX_MASK_ROW = 262144  # kernel C's: ``pallas_topk.py:supported`` (8 rows of f32 + int32 in 16 MiB)
+# the cluster select (past MAX_WIDE_ROW): values a CTA holds on chip, and
+# its compaction's candidates at most (``csrc/topk_common.cuh``)
+CLUSTER_SLICE = 40960
+CLUSTER_CAND = 8192
 PRE_BUDGET = 2048 * MAX_WIDE_ROW * 4  # bytes of a chunk's f32 pre at most (335 MB)
 GEMM_TILE_ROWS = 128
 
@@ -57,7 +61,7 @@ def topk_encode_chunk_rows(h: int) -> int:
 
 # The forms of the select by row width, in the order of their index in the
 # library's counts (``wst_encode_select_launches(form)``, ``wst_select_form(h)``)
-SELECT_FORMS = ("warp", "group", "cta", "spill")
+SELECT_FORMS = ("warp", "group", "cta", "cluster")
 
 
 def select_form(h: int) -> str:
@@ -65,8 +69,8 @@ def select_form(h: int) -> str:
     (``csrc/blocked_encode.cu:select_form``): ``"warp"`` (kernel C's warp
     select, a warp a row) up to ``MAX_ROW``, ``"group"`` (a warp group a
     row, persistent CTAs) up to ``MAX_GROUP_ROW``, ``"cta"`` (a CTA a
-    row, the row in registers) up to ``MAX_WIDE_ROW``, else ``"spill"``
-    (a CTA a row, the rest of the row in shared memory and read again)."""
+    row, the row in registers) up to ``MAX_WIDE_ROW``, else ``"cluster"``
+    (a thread-block cluster of :func:`cluster_ctas` CTAs a row)."""
     if h <= MAX_ROW:
         return "warp"
     return wide_form(h)
@@ -77,9 +81,17 @@ def wide_form(h: int) -> str:
     wide routes (kernel A's and the coder's TopK modes') launch at row
     width ``h`` -- ``"group"`` (``*_select_decode_group_kernel``) up to
     ``MAX_GROUP_ROW``, else ``"cta"`` (``*_select_decode_wide_kernel``) --
-    and the select-only forms of the top-k encode past 3072, ``"spill"``
+    and the select-only forms of the top-k encode past 3072, ``"cluster"``
     past ``MAX_WIDE_ROW``, where no wide route runs."""
-    return "group" if h <= MAX_GROUP_ROW else "cta" if h <= MAX_WIDE_ROW else "spill"
+    return "group" if h <= MAX_GROUP_ROW else "cta" if h <= MAX_WIDE_ROW else "cluster"
+
+
+def cluster_ctas(h: int) -> int:
+    """The cluster select's CTAs for a row of ``h`` values
+    (``csrc/topk_common.cuh:cluster_ctas``): the fewest of 2, 4 and 8 whose
+    slices of ``CLUSTER_SLICE`` values hold the row, else 8 (past 327,680
+    values each slice's rest is read again each pass)."""
+    return 2 if h <= 2 * CLUSTER_SLICE else 4 if h <= 4 * CLUSTER_SLICE else 8
 
 
 NVCC_FLAGS = (
@@ -122,6 +134,8 @@ _SIGNATURES = {
     "wst_max_blocked_row_width": ([], _I),
     "wst_max_mask_row_width": ([], _I),
     "wst_select_form": ([_I], _I),  # h
+    "wst_cluster_ctas": ([_I], _I),  # h
+    "wst_cluster_select_max_active": ([_I], _I),  # h
     "wst_encode_select_launches": ([_I], _L),  # form: SELECT_FORMS' index
     # form, pre, rows, h, k, out, out_f32, row0, stream
     "wst_encode_select_fwd": ([_I, _P, _I, _I, _I, _P, _I, _L, _P], _I),

@@ -14,9 +14,9 @@
 //       the same C entry as kernel A's encode) writes pre = acc + b_enc in
 //       f32 from the registers into the workspace ([chunk, H]);
 //   (c) a select reads each row of pre from device memory once (past
-//       98,304 values: part of it once a pass), finds the exact threshold,
-//       stopping at the first count of exactly k, and writes the latent
-//       at the chunk's row offset.
+//       327,680 values: part of it once a pass), finds the exact
+//       threshold, stopping at the first count of exactly k, and writes
+//       the latent at the chunk's row offset.
 // Offsets of the [rows, H] arrays are 64-bit: above 13,107 rows a [rows,
 // H] f32 array passes 2^31 bytes.
 //
@@ -32,13 +32,28 @@
 //                       of four values in 8 (bf16) or 16 (f32) bytes;
 //   cta    (H <= 40960) blocked_select_kernel: one CTA a row, the row in
 //                       registers (cta_kth_largest);
-//   spill  (H <= 2^20)  spill_select_kernel: one CTA a row, 40960 values in
-//                       registers, up to 57,344 more in dynamic shared
-//                       memory, the rest read again each pass
-//                       (spill_kth_largest).
+//   cluster (H <= 2^20) cluster_select_kernel: a thread-block cluster of
+//                       2, 4 or 8 CTAs a row (cluster_ctas), each CTA a
+//                       slice in registers and shared memory, the counts
+//                       summed over distributed shared memory, the last
+//                       passes on the compacted candidates
+//                       (cluster_kth_largest).
 // Every form's midpoints, totals and early stop are cta_kth_largest's, so
 // the forms give the same mask at any width they share
-// (ops/topk.py:cta_threshold is their plain model).
+// (ops/topk.py:cta_threshold is their plain model; group_threshold and
+// cluster_threshold add their forms' compaction, which changes neither).
+//
+// The cluster form replaces a spill form (one CTA a row, 40960
+// values in registers, 57,344 in shared memory, the rest read again each
+// pass): at [64, 262144] 64 CTAs re-read 163,840 values a row ~17 times,
+// and at every width every pass walked the whole row.  Here [64, 262144]
+// takes 8 CTAs a row, 512 in all, reads each value once; passes 0 and 1
+// take one sweep, passes above the row's largest value none, and the
+// compaction the rest, so before the compaction a row costs one sweep
+// and exchange over the whole row on unit gaussian rows (two on
+// whisper-large 64x's pre), of its ~17 passes; two CTAs an SM (256
+// threads of at most 128 registers, 110 KB of shared memory) let one
+// row's loads and stores run under another's passes.
 //
 // The chunk: the rows whose f32 pre fits kPreBudget (335 MB: 2048 rows
 // at H = 40960), rounded down to a multiple of the GEMM's 128-row tile
@@ -56,7 +71,7 @@
 // (fused_topk_encode -> _encode_forward, pallas_call at :77), which the
 // JAX package takes wherever bf16 W_enc fits its 48 MiB of VMEM: every
 // Whisper SAE up to H = 65536 at D = 384 (whisper-tiny 128x: H = 49152,
-// the spill form) but whisper-large 16x and wider.  Bound on the H100 at
+// the cluster form) but whisper-large 16x and wider.  Bound on the H100 at
 // whisper-tiny (D=384, H=3072) and B = 4096
 // (3.35 TB/s, 989 TFLOP/s bf16): bytes, x 6.3 MB, W_enc 2.4 MB and the
 // bf16 latent 25 MB (0.0101 ms), against the product's 9.7 GFLOP (0.0098
@@ -84,9 +99,9 @@
 // order.  Each output is one CTA's fixed K chain, so the order changes no
 // bits.  Beyond the bound: the f32 workspace is written and read back,
 // 2*4*B*H bytes (2.7 GB at B=8192, >= 0.80 ms); the chunk keeps it at
-// 335 MB.  Keeping pre on chip needs a thread-block cluster holding
-// a row block's pre across its CTAs' shared memory, with the counts
-// reduced over DSMEM: a later version.
+// 335 MB.  Keeping a row block's pre on chip (the select's cluster
+// holds one row, not the GEMM's tile) would need the GEMM's epilogue to
+// feed the cluster select: not done.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -111,12 +126,12 @@ constexpr long long kPreBudget = 2048LL * kMaxWideRow * sizeof(float);
 constexpr int kRowAlign = 128;  // a chunk's rows: a multiple of the GEMM's tile rows
 
 // The select's forms by row width (ops/_build.py:SELECT_FORMS).
-enum Form { kWarpForm = 0, kGroupForm = 1, kCtaForm = 2, kSpillForm = 3 };
+enum Form { kWarpForm = 0, kGroupForm = 1, kCtaForm = 2, kClusterForm = 3 };
 
 static int select_form(int h) {
   return h <= kMaxRow ? kWarpForm : h <= kGroupMaxRow ? kGroupForm
                                   : h <= kMaxWideRow  ? kCtaForm
-                                                      : kSpillForm;
+                                                      : kClusterForm;
 }
 
 // Select launches of the encode in this process, by form.
@@ -215,33 +230,180 @@ __global__ void __launch_bounds__(kGroupThreads * group_rows(N), group_ctas_sm(N
   }
 }
 
-// The spill form: one CTA per row of h > kMaxWideRow values, the first
-// kMaxWideRow in registers (load_wide_monotone: every slot inside the
-// row), the next ns = min(h - kMaxWideRow, kSpillSmemInts) as monotone
-// ints in dynamic shared memory (ns * 4 bytes), the rest read again from
-// device memory each pass and once more for the latent.
-template <typename OutT>
-__global__ void __launch_bounds__(kWideThreads, 1) spill_select_kernel(const float* pre, int h,
-                                                                       int k, OutT* out,
-                                                                       long long row0) {
-  __shared__ int warp_cnt[2][kWideWarps];
-  extern __shared__ int spill[];
-  const float* row = pre + (size_t)blockIdx.x * h;
-  int xi[kMaxPerThread];
-  load_wide_monotone(row, h, xi);
-  const int ns = h - kMaxWideRow < kSpillSmemInts ? h - kMaxWideRow : kSpillSmemInts;
-  const int g0 = kMaxWideRow + ns;
-  for (int s = threadIdx.x; s < ns; s += kWideThreads) spill[s] = monotone_int(row[kMaxWideRow + s]);
-  __syncthreads();
-  const int th = spill_kth_largest(xi, spill, ns, row, g0, h, k, warp_cnt);
-  OutT* o = out + (size_t)(row0 + blockIdx.x) * h;
+// The first kClusterRegs elements of a slice into registers, in runs of
+// four (xi[4q + i] = src[4 (q * kClusterThreads + t) + i]), as raw bits
+// (0xffffffff past len, whose monotone int is kIntMin): every load issued
+// before any is used, 16 bytes each where VEC, else 4.
+template <bool VEC>
+__device__ __forceinline__ void load_slice_bits(const float* src, int len, int t,
+                                                int (&xi)[kClusterPerThread]) {
 #pragma unroll
-  for (int j = 0; j < kMaxPerThread; ++j)
-    store_latent(o + j * kWideThreads + threadIdx.x, masked_relu(xi[j], th));
-  for (int s = threadIdx.x; s < ns; s += kWideThreads)
-    store_latent(o + kMaxWideRow + s, masked_relu(spill[s], th));
-  for (int c = g0 + threadIdx.x; c < h; c += kWideThreads)
-    store_latent(o + c, masked_relu(monotone_int(row[c]), th));
+  for (int q = 0; q < kClusterPerThread / kGroupRun; ++q) {
+    const int c = kGroupRun * (q * kClusterThreads + t);
+    if (VEC) {
+      const int4 v = c < len ? __ldg(reinterpret_cast<const int4*>(src + c)) : make_int4(-1, -1, -1, -1);
+      xi[kGroupRun * q] = v.x;
+      xi[kGroupRun * q + 1] = v.y;
+      xi[kGroupRun * q + 2] = v.z;
+      xi[kGroupRun * q + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int i = 0; i < kGroupRun; ++i)
+        xi[kGroupRun * q + i] = c + i < len ? __float_as_int(__ldg(src + c + i)) : -1;
+    }
+  }
+}
+
+// The slice's next ns elements into sm[0:ns) by asynchronous copies, 16
+// bytes each where VEC (ns a multiple of 4), else 4; the caller waits.
+template <bool VEC>
+__device__ __forceinline__ void copy_slice_async(const float* src, int ns, int t, int* sm) {
+  if (VEC) {
+    for (int r = t; kGroupRun * r < ns; r += kClusterThreads)
+      wst_hopper::cp_async_16(sm + kGroupRun * r, src + kGroupRun * r);
+  } else {
+    for (int i = t; i < ns; i += kClusterThreads) wst_hopper::cp_async_4(sm + i, src + i);
+  }
+  wst_hopper::cp_async_commit();
+}
+
+// The latent of the registers' elements, in runs of four (none past len).
+template <bool VEC, typename OutT>
+__device__ __forceinline__ void store_slice(OutT* o, int len, int t,
+                                            const int (&xi)[kClusterPerThread], int th) {
+#pragma unroll
+  for (int q = 0; q < kClusterPerThread / kGroupRun; ++q) {
+    const int c = kGroupRun * (q * kClusterThreads + t);
+    float v[kGroupRun];
+#pragma unroll
+    for (int i = 0; i < kGroupRun; ++i) v[i] = masked_relu(xi[kGroupRun * q + i], th);
+    if (VEC) {
+      if (c < len) store_run(o + c, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kGroupRun; ++i)
+        if (c + i < len) store_latent(o + c + i, v[i]);
+    }
+  }
+}
+
+// The cluster form over a chunk of rows: cluster i (clusterid.x) of
+// cluster_ctas(h) CTAs holds row i, CTA r the slice [r * slice, (r + 1) *
+// slice) of it (the last slice the row's rest): the first kClusterRegs
+// elements in registers, in runs of four (thread t the runs q *
+// kClusterThreads + t), the next ns in dynamic shared memory (smem_ints
+// ints, kIntMin past the slice), read from device memory once (every load
+// in flight before any is used; 16-byte loads, copies and stores where h
+// is a multiple of 4 and the arrays aligned), the rest read again each
+// pass.  The cluster barrier is split around the loads (the mbarriers'
+// init before them, its wait after) and around the stores (no CTA exits
+// while another's remote stores or arrives may still reach it).
+template <typename OutT>
+__global__ void __launch_bounds__(kClusterThreads, 2)
+    cluster_select_kernel(const float* pre, int h, int k, OutT* out, long long row0, int slice,
+                          int smem_ints) {
+  extern __shared__ __align__(16) int cluster_sm[];
+  __shared__ ClusterSelScratch sc;
+  const int t = threadIdx.x;
+  const int row = (int)wst_hopper::cluster_id_x();
+  const int base = (int)wst_hopper::cluster_rank() * slice;
+  const int len = h - base < slice ? h - base : slice;  // > 0: h > (C - 1) * slice
+  const float* src = pre + (size_t)row * h + base;
+  OutT* o = out + (size_t)(row0 + row) * h + base;
+  const bool vec = h % kGroupRun == 0 && reinterpret_cast<uintptr_t>(pre) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (t == 0) {
+    const int arrivals = (int)wst_hopper::cluster_nctas() * kClusterWarps;
+    wst_hopper::mbar_init(&sc.bar[0], arrivals);
+    wst_hopper::mbar_init(&sc.bar[1], arrivals);
+    wst_hopper::fence_mbar_init();
+  }
+  wst_hopper::cluster_arrive();
+  const int rest = len - kClusterRegs;
+  const int ns = rest <= 0 ? 0 : rest < smem_ints ? rest : smem_ints;
+  int xi[kClusterPerThread];
+  if (vec) {
+    copy_slice_async<true>(src + kClusterRegs, ns, t, cluster_sm);
+    load_slice_bits<true>(src, len, t, xi);
+  } else {
+    copy_slice_async<false>(src + kClusterRegs, ns, t, cluster_sm);
+    load_slice_bits<false>(src, len, t, xi);
+  }
+  wst_hopper::cp_async_wait_all();
+  __syncthreads();  // the shared part has landed: its monotone ints in place
+  int4* sm4 = reinterpret_cast<int4*>(cluster_sm);
+  int top = kIntMin;  // the largest of this thread's values (kIntMin past the slice)
+  for (int r = t; r < smem_ints / kGroupRun; r += kClusterThreads) {
+    const int4 b = sm4[r];
+    const int c = kGroupRun * r;
+    const int4 x = make_int4(c < ns ? monotone_int(__int_as_float(b.x)) : kIntMin,
+                             c + 1 < ns ? monotone_int(__int_as_float(b.y)) : kIntMin,
+                             c + 2 < ns ? monotone_int(__int_as_float(b.z)) : kIntMin,
+                             c + 3 < ns ? monotone_int(__int_as_float(b.w)) : kIntMin);
+    sm4[r] = x;
+    top = max(top, max(max(x.x, x.y), max(x.z, x.w)));
+  }
+#pragma unroll
+  for (int j = 0; j < kClusterPerThread; ++j) {
+    xi[j] = monotone_int(__int_as_float(xi[j]));
+    top = max(top, xi[j]);
+  }
+  __syncthreads();
+  wst_hopper::cluster_wait();  // every CTA's mbarriers are initialised
+  const int g0 = kClusterRegs + ns;
+  const int th = cluster_kth_largest(xi, cluster_sm, smem_ints, src, g0, len, k, top, sc);
+  wst_hopper::cluster_arrive();
+  if (vec) {
+    store_slice<true>(o, len, t, xi, th);
+    for (int r = t; kGroupRun * r < ns; r += kClusterThreads) {
+      const int4 x = sm4[r];
+      const float v[kGroupRun] = {masked_relu(x.x, th), masked_relu(x.y, th),
+                                  masked_relu(x.z, th), masked_relu(x.w, th)};
+      store_run(o + kClusterRegs + kGroupRun * r, v);
+    }
+  } else {
+    store_slice<false>(o, len, t, xi, th);
+    for (int i = t; i < ns; i += kClusterThreads)
+      store_latent(o + kClusterRegs + i, masked_relu(cluster_sm[i], th));
+  }
+  for (int c = g0 + t; c < len; c += kClusterThreads)
+    store_latent(o + c, masked_relu(monotone_int(src[c]), th));
+  wst_hopper::cluster_wait();
+}
+
+// The launch's cluster, slice and dynamic shared memory at width h.
+static cudaLaunchConfig_t cluster_config(int n, int h, cudaStream_t s, cudaLaunchAttribute* attr,
+                                         int* slice, int* smem_ints) {
+  const int c = cluster_ctas(h);
+  *slice = cluster_slice(h, c);
+  *smem_ints = cluster_smem_ints(*slice);
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = c;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)n * c);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = (size_t)*smem_ints * sizeof(int);
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename OutT>
+static int cluster_select(const float* pre, int n, int h, int k, OutT* out, long long row0,
+                          cudaStream_t s) {
+  cudaLaunchAttribute attr;
+  int slice, smem_ints;
+  const cudaLaunchConfig_t cfg = cluster_config(n, h, s, &attr, &slice, &smem_ints);
+  int err = (int)cudaFuncSetAttribute(cluster_select_kernel<OutT>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)cfg.dynamicSmemBytes);
+  if (err) return err;
+  err = (int)cudaLaunchKernelEx(&cfg, cluster_select_kernel<OutT>, pre, h, k, out, row0, slice,
+                                smem_ints);
+  return err ? err : (int)cudaGetLastError();
 }
 
 template <typename OutT>
@@ -274,24 +436,12 @@ static int cta_select(const float* pre, int n, int h, int k, OutT* out, long lon
 }
 
 template <typename OutT>
-static int spill_select(const float* pre, int n, int h, int k, OutT* out, long long row0,
-                        cudaStream_t s) {
-  const int ns = h - kMaxWideRow < kSpillSmemInts ? h - kMaxWideRow : kSpillSmemInts;
-  const int smem = ns * (int)sizeof(int);
-  int err = (int)cudaFuncSetAttribute(spill_select_kernel<OutT>,
-                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err) return err;
-  spill_select_kernel<OutT><<<n, kWideThreads, smem, s>>>(pre, h, k, out, row0);
-  return (int)cudaGetLastError();
-}
-
-template <typename OutT>
 static int typed_select(int form, const float* pre, int n, int h, int k, OutT* out,
                         long long row0, cudaStream_t s) {
   switch (form) {
     case kGroupForm: return group_select(pre, n, h, k, out, row0, s);
     case kCtaForm: return cta_select(pre, n, h, k, out, row0, s);
-    default: return spill_select(pre, n, h, k, out, row0, s);
+    default: return cluster_select(pre, n, h, k, out, row0, s);
   }
 }
 
@@ -355,7 +505,7 @@ static int encode_chunks(const void* x, int x_bf16, int rows, int d, int h, int 
 extern "C" {
 
 // Widest row of the encode: the TPU's blocked encode's (pallas_sae.py:_MAX_H).
-int wst_max_blocked_row_width() { return wst::kMaxSpillRow; }
+int wst_max_blocked_row_width() { return wst::kMaxBlockedRow; }
 
 // Rows of a chunk of the encode at width h: each chunk is three launches.
 int wst_sae_topk_encode_chunk_rows(int h) { return wst::blocked::encode_chunk_rows(h); }
@@ -373,13 +523,13 @@ int wst_sae_topk_encode_fwd(const void* x, int x_bf16, int rows, int d, int h, i
                             const void* w_enc_t, const void* b_enc, const void* b_pre, void* out,
                             int out_f32, void* ws, void* stream) {
   if (rows <= 0 || d <= 0 || d % wst::kWarp || h <= 0 || h % wst::kWarp ||
-      h > wst::kMaxSpillRow || k < 1 || k > h)
+      h > wst::kMaxBlockedRow || k < 1 || k > h)
     return (int)cudaErrorInvalidValue;
   return wst::blocked::encode_chunks(x, x_bf16, rows, d, h, k, w_enc_t, b_enc, b_pre, out,
                                      out_f32, ws, stream);
 }
 
-// The select's form at row width h (0 warp, 1 group, 2 CTA, 3 spill).
+// The select's form at row width h (0 warp, 1 group, 2 CTA, 3 cluster).
 int wst_select_form(int h) { return wst::blocked::select_form(h); }
 
 // Select launches the encode has made in this process in the given form
@@ -391,7 +541,7 @@ long long wst_encode_select_launches(int form) {
 // One select form alone, uncounted, on rows [0, rows) of pre into
 // out[row0 : row0 + rows) (bf16, or f32 when out_f32), at a width the
 // form holds: the group form (h a multiple of 32 up to 8192) or the CTA
-// form (h up to 40960), both for comparisons on the card, or the spill
+// form (h up to 40960), both for comparisons on the card, or the cluster
 // form (40960 < h <= 2^20), kernel C's wide form past 40960
 // (sae_kernels.cu).
 int wst_encode_select_fwd(int form, const float* pre, int rows, int h, int k, void* out,
@@ -399,7 +549,7 @@ int wst_encode_select_fwd(int form, const float* pre, int rows, int h, int k, vo
   namespace B = wst::blocked;
   const bool holds = form == B::kGroupForm  ? h <= wst::kGroupMaxRow && h % wst::kWarp == 0
                      : form == B::kCtaForm   ? h <= wst::kMaxWideRow
-                     : form == B::kSpillForm ? h > wst::kMaxWideRow && h <= wst::kMaxSpillRow
+                     : form == B::kClusterForm ? h > wst::kMaxWideRow && h <= wst::kMaxBlockedRow
                                              : false;
   if (!holds || rows <= 0 || h <= 0 || k < 1 || k > h) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -407,5 +557,25 @@ int wst_encode_select_fwd(int form, const float* pre, int rows, int h, int k, vo
                  : B::typed_select(form, pre, rows, h, k, static_cast<unsigned short*>(out),
                                    row0, s);
 }
+
+// Clusters of the cluster select at width h (40960 < h <= 2^20) that
+// the card can hold at once (cudaOccupancyMaxActiveClusters), or minus a
+// CUDA error.
+int wst_cluster_select_max_active(int h) {
+  namespace B = wst::blocked;
+  if (h <= wst::kMaxWideRow || h > wst::kMaxBlockedRow) return -(int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  int slice, smem_ints;
+  const cudaLaunchConfig_t cfg = B::cluster_config(4096, h, nullptr, &attr, &slice, &smem_ints);
+  int err = (int)cudaFuncSetAttribute(B::cluster_select_kernel<float>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      (int)cfg.dynamicSmemBytes);
+  int n = 0;
+  if (!err) err = (int)cudaOccupancyMaxActiveClusters(&n, B::cluster_select_kernel<float>, &cfg);
+  return err ? -err : n;
+}
+
+// The cluster select's CTAs a row at width h (cluster_ctas).
+int wst_cluster_ctas(int h) { return wst::cluster_ctas(h); }
 
 }  // extern "C"

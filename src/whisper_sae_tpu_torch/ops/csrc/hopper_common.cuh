@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the TMA-fed wgmma kernels
-// (attention_kernel.cu, encoder_gemm.cu): mbarriers, TMA loads (also
-// multicast across a cluster) and stores, cluster ids, barriers and
-// remote arrives, wgmma shared-memory descriptors for 128-byte-swizzled
+// (attention_kernel.cu, encoder_gemm.cu) and the selects (select_decode.cuh,
+// topk_common.cuh): mbarriers, TMA loads (also multicast across a
+// cluster) and stores, cluster ids, barriers, remote arrives and
+// distributed shared memory, wgmma shared-memory descriptors for 128-byte-swizzled
 // tiles, the wgmma group fences, and the CUDA driver API's cuTensorMapEncodeTiled
 // found through the runtime (no -lcuda).  sm_90a only.
 
@@ -158,6 +159,63 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank
       "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
       "r"(rank)
       : "memory");
+}
+
+// Distributed shared memory (the cluster select, blocked_encode.cu): the
+// cluster's CTA count, the shared::cluster address of ``p``'s location in
+// CTA ``rank``, a 32-bit store there; an arrive on the mbarrier at a
+// shared::cluster address that releases this thread's earlier writes to
+// the cluster, and a wait on a local mbarrier that acquires them; the
+// cluster barrier split into its arrive and its wait.
+__device__ __forceinline__ uint32_t cluster_nctas() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_map(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, int v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_release_cluster(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait_acquire_cluster(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+// Ampere's asynchronous copies, global to shared memory without a
+// register: 16 bytes (both addresses 16-byte aligned, through the L2) or
+// 4; a thread's copies so far as one group, and a wait for all of its
+// groups.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // wgmma shared-memory descriptors for a 128-byte-swizzled tile whose rows

@@ -10,7 +10,7 @@
 //   replaces ops/pallas_topk.py:_mask_kernel (topk_mask_pallas, :51);
 //   topk_mask_wide_kernel<N> ("topk_mask_wide_fwd") is its form for rows
 //   wider than a warp's registers up to a CTA's (H = 40960), and past
-//   that the same entry launches blocked_encode.cu's spill form, up to
+//   that the same entry launches blocked_encode.cu's cluster form, up to
 //   the TPU kernel's widest row (kMaxMaskRow = 262,144).
 // topk_mask_kernel<unsigned short|float>, the same body writing a bf16 or
 //   f32 latent at a row offset, is the select of kernel B up to H = 3072
@@ -98,7 +98,7 @@
 // blocked_encode.cu: the rows of a chunk whose f32 pre fits the top-k
 // encode's budget at width h (its chunk; kernel A's wide route's)
 extern "C" int wst_sae_topk_encode_chunk_rows(int h);
-// blocked_encode.cu: one select form (3: the spill form) on rows [0, rows) of an f32 pre
+// blocked_encode.cu: one select form (3: the cluster form) on rows [0, rows) of an f32 pre
 extern "C" int wst_encode_select_fwd(int form, const float* pre, int rows, int h, int k,
                                      void* out, int out_f32, long long row0, void* stream);
 
@@ -508,7 +508,7 @@ long long wst_sae_select_launches(int form) {
 int wst_max_mask_row_width() { return wst::kMaxMaskRow; }
 
 // Kernel C's wide form: one CTA per row, the row in registers up to
-// wst_max_wide_row_width(), past it blocked_encode.cu's spill form.
+// wst_max_wide_row_width(), past it blocked_encode.cu's cluster form.
 int wst_topk_mask_wide_fwd(const void* pre, void* out, int rows, int h, int k, void* stream) {
   if (rows <= 0 || h <= 0 || h > wst::kMaxMaskRow || k < 1 || k > h)
     return (int)cudaErrorInvalidValue;

@@ -24,10 +24,12 @@ workspace allocated here, and a select that writes the latent in bf16
 or f32 (:func:`topk_encode_route_plain` writes the route out).  The
 select's form is ``_build.select_form(h)``: kernel C's warp select up to
 H = 3072, a warp group a row up to 8192 (``group_select_kernel``), a CTA
-a row up to 40960 (``blocked_select_kernel``), past it the spill form
-(``spill_select_kernel``: a CTA a row, 40960 values in registers, up to
-57,344 more in shared memory, the rest read again each pass); the library
-counts the selects it launches by form (:func:`encode_select_launches`).
+a row up to 40960 (``blocked_select_kernel``), past it the cluster form
+(``cluster_select_kernel``: a thread-block cluster of 2, 4 or 8 CTAs a
+row, ``_build.cluster_ctas``, each CTA a slice in registers and shared
+memory, the counts summed over distributed shared memory, the last passes
+on the compacted candidates); the library counts the selects it launches
+by form (:func:`encode_select_launches`).
 Its chunk is the rows whose f32 pre fits ``_build.PRE_BUDGET``
 (:func:`_build.topk_encode_chunk_rows`: 27,264 at H = 3072), W_enc
 streams once a chunk, and it takes H up to ``_build.MAX_BLOCKED_ROW`` =
@@ -84,7 +86,8 @@ import torch
 
 from ..utils.device import mm_f32
 from . import _build
-from .topk import cta_threshold, group_threshold, plain_calls, relu, topk_mask_plain
+from .topk import (cluster_threshold, cta_threshold, group_threshold, plain_calls, relu,
+                   topk_mask_plain)
 
 
 # bf16 W_enc + W_dec at most: the JAX package's budget for the fused
@@ -462,14 +465,16 @@ def topk_encode_route_plain(x, we_t, b_enc, b_pre, k, out_dtype, chunk=None):
     :func:`_build.topk_encode_chunk_rows`) the centred bf16 rows, pre =
     their f32 product with W_enc plus b_enc (the kPre GEMM), the select's
     pass loop stopping at a count of exactly k in the form of the row width
-    (:func:`ops.topk.group_threshold` for the group form, else
-    :func:`ops.topk.cta_threshold`: the warp, CTA and spill forms'
-    midpoints and counts are the CTA select's), and the masked relu in
-    ``out_dtype``."""
+    (:func:`ops.topk.group_threshold` for the group form,
+    :func:`ops.topk.cluster_threshold` for the cluster form, else
+    :func:`ops.topk.cta_threshold`: the warp and CTA forms' midpoints and
+    counts are the CTA select's, and the other two keep them), and the
+    masked relu in ``out_dtype``."""
     h = we_t.shape[0]
     if chunk is None:
         chunk = _build.topk_encode_chunk_rows(h)
-    threshold = group_threshold if _build.select_form(h) == "group" else cta_threshold
+    threshold = {"group": group_threshold, "cluster": cluster_threshold}.get(
+        _build.select_form(h), cta_threshold)
     out = torch.empty((x.shape[0], h), dtype=out_dtype, device=x.device)
     for r0 in range(0, x.shape[0], chunk):
         xc = (x[r0:r0 + chunk].float() - b_pre).bfloat16()

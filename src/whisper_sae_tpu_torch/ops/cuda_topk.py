@@ -9,15 +9,21 @@ warp, which holds it in registers for the 32 bisection passes, so
 ``pre`` is read from device memory once.  Rows
 wider than a warp's registers (H > 3072; the TPU kernel takes H up to
 262,144, ``pallas_topk.py:89-103``: 8 rows of f32 and int32 within 16
-MiB) go to its wide form, ``wst_topk_mask_wide_fwd``: one CTA of 512
-threads per row, the same passes with the counts summed across the CTA
-in int32, stopping at the first count of exactly k, so the mask is
-bit-identical to the plain version.  Up to H = 40960 the row is in
-registers (``topk_mask_wide_kernel``); past it the entry launches the
-top-k encode's spill form (``csrc/blocked_encode.cu:
-spill_select_kernel``: 40960 values in registers, up to 57,344 more in
-shared memory, the rest read again each pass), up to H = 262,144.
-Bound on the H100: bytes, 8*B*H (one f32 read, one f32 write).
+MiB) go to its wide form, ``wst_topk_mask_wide_fwd``.  Up to H = 40960
+one CTA of 512 threads holds a row in registers
+(``topk_mask_wide_kernel``), the same passes with the counts summed
+across the CTA in int32, stopping at the first count of exactly k.  Past
+it the entry launches the top-k encode's cluster form
+(``csrc/blocked_encode.cu: cluster_select_kernel``), up to H = 262,144:
+a thread-block cluster of 2, 4 or 8 CTAs holds a row
+(``_build.cluster_ctas``: 2 at 49152 and 81920, 8 at 262,144), each CTA
+a slice in registers and shared memory, read from device memory once;
+the passes' warp counts go to every CTA over distributed shared memory,
+and once at most 8192 values lie between the bounds the CTAs compact
+them into one list in each CTA and finish the passes on it.  Every form
+keeps the CTA select's midpoints and totals, so the mask is bit-identical
+to the plain version.  Bound on the H100: bytes, 8*B*H (one f32 read,
+one f32 write).
 
 The backward is ``g * [hidden > 0]`` (``pallas_topk.py:81-83``).
 """
@@ -35,7 +41,7 @@ def topk_mask_fwd(pre: torch.Tensor, k: int) -> torch.Tensor:
     3072, the wide form above, up to ``_build.MAX_MASK_ROW``), the plain
     version for a CPU tensor.  Counts launches in ``topk_mask_fwd.launches``
     (warp form) and ``topk_mask_fwd.wide_launches``, those past H = 40960
-    also in ``topk_mask_fwd.spill_launches``."""
+    (the cluster form) also in ``topk_mask_fwd.cluster_launches``."""
     wide = pre.dim() == 2 and pre.shape[1] > _build.MAX_ROW
     if pre.device.type == "cpu":
         plain_calls["topk_mask_wide" if wide else "topk_mask"] += 1
@@ -58,7 +64,7 @@ def topk_mask_fwd(pre: torch.Tensor, k: int) -> torch.Tensor:
         _build.check(err, "topk_mask_wide_fwd" if wide else "topk_mask_fwd")
         if wide:
             topk_mask_fwd.wide_launches += 1
-            topk_mask_fwd.spill_launches += int(h > _build.MAX_WIDE_ROW)
+            topk_mask_fwd.cluster_launches += int(h > _build.MAX_WIDE_ROW)
         else:
             topk_mask_fwd.launches += 1
     return out
@@ -66,7 +72,7 @@ def topk_mask_fwd(pre: torch.Tensor, k: int) -> torch.Tensor:
 
 topk_mask_fwd.launches = 0
 topk_mask_fwd.wide_launches = 0
-topk_mask_fwd.spill_launches = 0
+topk_mask_fwd.cluster_launches = 0
 
 
 class TopKMask(torch.autograd.Function):

@@ -21,15 +21,24 @@ kernels are those of the package found on the import
 path, built from its own sources, so the same command run with another
 tree's ``src`` first on ``PYTHONPATH`` times that tree: run the two in
 turns (parent, change, change, parent) in one call to compare them on
-one card.  Prints the card's name and power limit, then one JSON line.
+one card.  With ``--widths`` it times instead only the selects past H =
+40960 at ``chip_smoke.py`` phase 23's shapes: kernel C
+(``topk_mask_fwd``, f32) at [4096, 49152], [1024, 81920] and [64,
+262144], and the top-k encode (``_topk_encode_launch``, bf16 latent) at
+whisper-tiny 128x (kernel B, D=384, H=49152, 4096 rows), whisper-large
+64x (the blocked encode, D=1280, H=81920, 4096 rows) and its widest row
+(D=64, H=2^20, 512 rows in chunks of 80), each encode's launches' device
+ms under ``torch.profiler`` (``select``: the select kernel's, whatever its
+name).  Prints the card's name and power limit, then one JSON line.
 Needs one H100; from the repository root:
 
-    PYTHONPATH=src python -m whisper_sae_tpu_torch.ops.sae_probe
+    PYTHONPATH=src python -m whisper_sae_tpu_torch.ops.sae_probe [--widths]
 """
 
 from __future__ import annotations
 
 import json
+import sys
 import tempfile
 
 import torch
@@ -45,6 +54,32 @@ ROWS = (128, 4096, 32768)
 DS, HS = 768, 6144  # whisper-small 8x: kernel A's wide route
 DL, HL, BL = 1280, 40960, 8192  # whisper-large 32x at bench.py's batch
 LARGE_STEPS = 3
+WIDTHS_MASK = ((4096, 49152), (1024, 81920), (64, 262144))
+# (D, H, rows): whisper-tiny 128x, whisper-large 64x, the encode's widest row
+WIDTHS_ENCODE = ((384, 49152, 4096), (1280, 81920, 4096), (64, 1 << 20, 512))
+
+
+def widths(dev, res: dict) -> None:
+    """The selects past H = 40960 at phase 23's shapes (``--widths``)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    for rows, h in WIDTHS_MASK:
+        pre = torch.randn(rows, h, generator=g, device=dev)
+        res[f"topk_mask_{rows}x{h}"] = time_ms(lambda: cuda_topk.topk_mask_fwd(pre, K), iters=10,
+                                               warmup=2)
+        del pre
+    for d, h, rows in WIDTHS_ENCODE:
+        w_enc = torch.randn(d, h, generator=g, device=dev) * 0.05
+        b_enc, b_pre = (torch.randn(h, generator=g, device=dev) * 0.05,
+                        torch.randn(d, generator=g, device=dev) * 0.05)
+        x = torch.randn(rows, d, generator=g, device=dev)
+        we_t = cuda_sae._bf16_t(w_enc)
+        encode = lambda: cuda_sae._topk_encode_launch(x, we_t, b_enc, b_pre, K,  # noqa: E731
+                                                      torch.bfloat16)
+        split = device_split(encode, calls=5)
+        res[f"topk_encode_{d}x{h}"] = {
+            "ms": time_ms(encode, iters=10, warmup=2), "split_ms": split,
+            "select": sum(v for k_, v in split.items() if "select" in k_)}
+        del w_enc, we_t, x
 
 
 def main() -> None:
@@ -54,6 +89,11 @@ def main() -> None:
     card = _probe.card()
     print(card, flush=True)
     _build.load_library()
+    if "--widths" in sys.argv[1:]:
+        res = {"card": card, "src": cuda_sae.__file__}
+        widths(dev, res)
+        print(json.dumps(res), flush=True)
+        return
     g = torch.Generator().manual_seed(0)
     w_enc, b_enc, b_pre = (torch.randn(D, H, generator=g) * 0.05, torch.randn(H, generator=g) * 0.05,
                            torch.randn(D, generator=g) * 0.05)

@@ -17,6 +17,8 @@ from collections import Counter
 
 import torch
 
+from . import _build
+
 # Calls of the SAE kernels' plain versions (kernels A, B, C, their wide and
 # blocked forms) by route, counted where a wrapper takes one for a CPU
 # tensor: a run on the card whose count moved did not go through its kernels.
@@ -48,6 +50,58 @@ def topk_threshold(pre: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
     return x, lo
 
 
+def _bisect(slots: torch.Tensor, k: int, cand: int, total_of, top: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernels' pass loop on each row.  ``slots`` [rows, ...] holds
+    each row's monotone ints as the form's threads hold them (INT_MIN past
+    the row, which no midpoint counts); ``total_of`` sums a boolean tensor
+    of that layout to each row's total in the form's order.  A row leaves
+    at the first pass whose total is exactly k, else after 32 passes at
+    ``lo``.  With ``cand`` > 0, once passes have set both bounds and at most
+    ``cand`` values lie in [lo, hi) (the totals at lo and hi apart), those
+    values are the candidates and each later total is the total at hi then
+    plus the candidates >= mid (``cand=0``: never).  With ``top`` (each
+    row's largest value) a pass after the first two whose mid lies above
+    it counts nothing (its total is known).  -> (th [rows, 1], passes, the
+    passes over the whole row that count, the candidates (0 where none),
+    the passes on the candidates that count), the last four [rows]."""
+    rows = slots.shape[0]
+    lo = torch.full((rows,), -2147483647, dtype=torch.int32, device=slots.device)
+    hi = torch.full_like(lo, 2147483647)
+    c_lo, c_hi = torch.full_like(lo, -1), torch.full_like(lo, -1)
+    th, passes, full = lo.clone(), torch.zeros_like(lo), torch.zeros_like(lo)
+    listed = torch.zeros_like(lo)
+    done = torch.zeros(rows, dtype=torch.bool, device=slots.device)
+    compact = torch.zeros_like(done)
+    in_cand = torch.zeros_like(slots, dtype=torch.bool)
+    shape = (rows,) + (1,) * (slots.dim() - 1)
+
+    def b(t):  # a per-row value against the slots
+        return t.view(shape)
+
+    for _ in range(32):
+        now = ~compact & ~done & (c_lo >= 0) & (c_hi >= 0) & (c_lo - c_hi <= cand)
+        in_cand = torch.where(b(now), (slots >= b(lo)) & (slots < b(hi)), in_cand)
+        compact |= now
+        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+        ge = slots >= b(mid)
+        total = total_of(torch.where(b(compact), ge & in_cand, ge))
+        total = torch.where(compact, total + c_hi, total)
+        live = ~done
+        counts = live if top is None else live & ((passes <= 1) | (mid <= top))
+        passes += live.int()
+        full += (counts & ~compact).int()
+        listed += (counts & compact).int()
+        hit = live & (total == k)
+        th = torch.where(hit, mid, th)
+        up, down = live & (total > k), live & (total < k)
+        lo, c_lo = torch.where(up, mid, lo), torch.where(up & ~compact, total, c_lo)
+        hi, c_hi = torch.where(down, mid, hi), torch.where(down & ~compact, total, c_hi)
+        done |= hit
+    ncand = torch.where(compact, c_lo - c_hi, torch.zeros_like(lo))
+    return torch.where(done, th, lo)[:, None], passes, full, ncand, listed
+
+
 def cta_threshold(pre: torch.Tensor, k: int, threads: int = 512,
                   warp: int = 32) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kernels' CTA-per-row select (``csrc/topk_common.cuh:
@@ -63,22 +117,9 @@ def cta_threshold(pre: torch.Tensor, k: int, threads: int = 512,
                        device=pre.device)
     slots[:, :h] = x
     slots = slots.view(rows, -1, threads // warp, warp)  # [row, j, warp, lane]
-    lo = torch.full((rows,), -2147483647, dtype=torch.int32, device=pre.device)
-    hi = torch.full_like(lo, 2147483647)
-    th, passes = lo.clone(), torch.zeros_like(lo)
-    done = torch.zeros(rows, dtype=torch.bool, device=pre.device)
-    for _ in range(32):
-        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
-        per_thread = (slots >= mid[:, None, None, None]).sum(dim=1)  # [row, warp, lane]
-        total = per_thread.sum(dim=2).sum(dim=1)  # each warp's sum, then the CTA's
-        live = ~done
-        passes += live.int()
-        hit = live & (total == k)
-        th = torch.where(hit, mid, th)
-        lo = torch.where(live & (total > k), mid, lo)
-        hi = torch.where(live & (total < k), mid, hi)
-        done |= hit
-    return x, torch.where(done, th, lo)[:, None], passes
+    # each thread's count, each warp's sum, then the CTA's
+    th, passes, *_ = _bisect(slots, k, 0, lambda m: m.sum(dim=1).sum(dim=2).sum(dim=1))
+    return x, th, passes
 
 
 def group_threshold(pre: torch.Tensor, k: int, threads: int = 128, run: int = 4,
@@ -108,35 +149,46 @@ def group_threshold(pre: torch.Tensor, k: int, threads: int = 128, run: int = 4,
     slots[:, :h] = x
     # [row, q, warp, lane, i]: value q*threads*run + run*(warp*32 + lane) + i
     slots = slots.view(rows, per // run, threads // warp, warp, run)
-    lo = torch.full((rows,), -2147483647, dtype=torch.int32, device=pre.device)
-    hi = torch.full_like(lo, 2147483647)
-    c_lo, c_hi = torch.full_like(lo, -1), torch.full_like(lo, -1)
-    th, passes = lo.clone(), torch.zeros_like(lo)
-    done = torch.zeros(rows, dtype=torch.bool, device=pre.device)
-    compact = torch.zeros_like(done)
-    in_cand = torch.zeros_like(slots, dtype=torch.bool)
+    th, passes, *_ = _bisect(slots, k, cand, lambda m: m.sum(dim=(1, 4)).sum(dim=2).sum(dim=1))
+    return x, th, passes
 
-    def b(t):  # a per-row value against the slots
-        return t[:, None, None, None, None]
 
-    for _ in range(32):
-        now = ~compact & ~done & (c_lo >= 0) & (c_hi >= 0) & (c_lo - c_hi <= cand)
-        in_cand = torch.where(b(now), (slots >= b(lo)) & (slots < b(hi)), in_cand)
-        compact |= now
-        mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
-        ge = slots >= b(mid)
-        per_thread = torch.where(b(compact), ge & in_cand, ge).sum(dim=(1, 4))  # [row, warp, lane]
-        total = per_thread.sum(dim=2).sum(dim=1)  # each warp's sum, then the group's
-        total = torch.where(compact, total + c_hi, total)
-        live = ~done
-        passes += live.int()
-        hit = live & (total == k)
-        th = torch.where(hit, mid, th)
-        up, down = live & (total > k), live & (total < k)
-        lo, c_lo = torch.where(up, mid, lo), torch.where(up & ~compact, total, c_lo)
-        hi, c_hi = torch.where(down, mid, hi), torch.where(down & ~compact, total, c_hi)
-        done |= hit
-    return x, torch.where(done, th, lo)[:, None], passes
+def cluster_threshold(pre: torch.Tensor, k: int, ctas: int | None = None,
+                      cand: int = _build.CLUSTER_CAND, stats: dict | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The cluster select (``csrc/topk_common.cuh: cluster_kth_largest``)
+    on each row of a 2-D ``pre``, transcribed: ``ctas`` CTAs
+    (:func:`_build.cluster_ctas` of the width by default) hold the row,
+    CTA r the slice [r*s, (r+1)*s), s = ceil(H / ctas) rounded up to 32
+    (INT_MIN past the row); each pass sums each CTA's count, then the
+    cluster's, and a row leaves the loop at the first pass whose total is
+    exactly k, else after 32 passes at ``lo``.  Once passes have set both
+    bounds and at most ``cand`` values lie in [lo, hi), those values are
+    the candidates (the leader's list) and each later total is the total
+    at hi then plus the candidates >= mid, as in :func:`group_threshold`.
+    Passes 0 and 1 are one sweep (it counts at 0 and at both mids pass 1
+    can take); a later pass whose mid lies above the row's largest value
+    (the sweep's exchange brings it) has the total 0 on the whole row,
+    c_hi on the list, with no count.  -> (x, th [rows, 1], passes
+    [rows]), with ``stats``, if given, filled with ``full_passes`` (the
+    passes that count over the whole row), ``candidates`` (the list's
+    length, 0 where there was none) and ``list_passes`` (the passes that
+    count on the list), each [rows].  The midpoints and totals are
+    :func:`cta_threshold`'s, so the threshold, the pass count and the mask
+    are too."""
+    x = _monotone_int(pre)
+    rows, h = x.shape
+    c = ctas or _build.cluster_ctas(h)
+    s = -(-h // c)
+    s = -(-s // 32) * 32  # csrc/topk_common.cuh:cluster_slice
+    slots = torch.full((rows, c * s), -2147483648, dtype=torch.int32, device=pre.device)
+    slots[:, :h] = x
+    slots = slots.view(rows, c, s)  # [row, CTA, slice element]
+    th, passes, full, ncand, listed = _bisect(slots, k, cand, lambda m: m.sum(dim=2).sum(dim=1),
+                                              x.max(dim=1).values)
+    if stats is not None:
+        stats.update(full_passes=full, candidates=ncand, list_passes=listed)
+    return x, th, passes
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

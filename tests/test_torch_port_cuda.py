@@ -235,6 +235,8 @@ def test_topk_encode_chunk_rows_match_the_library(dev):
     for h in (32, 384, 3072, 4096, 40960, 49152, 81920, 262144, 655360, 655392, 1 << 20):
         assert lib.wst_sae_topk_encode_chunk_rows(h) == _build.topk_encode_chunk_rows(h), h
         assert lib.wst_select_form(h) == _build.SELECT_FORMS.index(_build.select_form(h)), h
+        if _build.select_form(h) == "cluster":
+            assert lib.wst_cluster_ctas(h) == _build.cluster_ctas(h), h
 
 
 @pytest.mark.parametrize("offset,rows,n", [(0, 128, 128), (256, 128, 1024), (0, 4096, 4096),
@@ -579,13 +581,13 @@ def test_large_loss_takes_the_blocked_route(dev):
 
 # ---------------------------------------------------------------------------
 # the top-k encode and mask at every width the JAX package takes: kernel B
-# within 48 MiB of bf16 W_enc (the group, CTA and spill selects), the
-# blocked encode and kernel C past H = 40960 (the spill form)
+# within 48 MiB of bf16 W_enc (the group, CTA and cluster selects), the
+# blocked encode and kernel C past H = 40960 (the cluster form)
 # ---------------------------------------------------------------------------
 
 # (D, H): whisper-small 8x, whisper-large 8x, whisper-tiny 128x, the widest row at D = 384
-ENCODE_FORMS = [(768, 6144, "group"), (1280, 10240, "cta"), (384, 49152, "spill"),
-                (384, 65536, "spill")]
+ENCODE_FORMS = [(768, 6144, "group"), (1280, 10240, "cta"), (384, 49152, "cluster"),
+                (384, 65536, "cluster")]
 
 
 def _check_encode(got, want, rows, h, out_dtype):
@@ -622,14 +624,14 @@ def test_encode_forms_match_plain(dev, d, h, form, out_dtype):
 @pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
 def test_blocked_encode_spill_form_matches_plain(dev, out_dtype):
     """The blocked encode at whisper-large 64x (D = 1280, H = 81920): chunks
-    of 1024 rows (the budget's), the spill select each chunk."""
+    of 1024 rows (the budget's), the cluster select each chunk."""
     d, h, rows = 1280, 81920, 2100
     assert cuda_sae.uses_blocked(d, h) and _build.topk_encode_chunk_rows(h) == 1024
     p, x = _params(62, d=d, h=h), _rows(63, rows, d=d)
     enc = cuda_sae.fused_topk_encode
-    before = (enc.blocked_launches, cuda_sae.encode_select_launches()["spill"])
+    before = (enc.blocked_launches, cuda_sae.encode_select_launches()["cluster"])
     got = enc(x, p["w_enc"], p["b_enc"], p["b_pre"], K, out_dtype)
-    assert (enc.blocked_launches, cuda_sae.encode_select_launches()["spill"]) == (
+    assert (enc.blocked_launches, cuda_sae.encode_select_launches()["cluster"]) == (
         before[0] + 1, before[1] + 3)
     want = cuda_sae.topk_encode_plain(x, cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K,
                                       out_dtype)
@@ -639,15 +641,16 @@ def test_blocked_encode_spill_form_matches_plain(dev, out_dtype):
 @pytest.mark.parametrize("rows,h", [(4096, 49152), (1024, 81920), (64, 262144), (32, 98336),
                                     (16, 50001)])
 def test_topk_mask_spill_form_exact(dev, rows, h):
-    """Kernel C past H = 40960 (the spill form: the row past 98,304 read
-    again each pass at 262,144 and 98,336; 50,001 no multiple of 32):
-    exact, counted in ``.wide_launches`` and ``.spill_launches``."""
+    """Kernel C past H = 40960 (the cluster form: 2 CTAs a row up to 81920,
+    4 at 98,336, 8 at 262,144; 50,001 no multiple of 4, so its loads and
+    stores one value at a time): exact, counted in ``.wide_launches`` and
+    ``.cluster_launches``."""
     pre = torch.randn(rows, h, generator=torch.Generator().manual_seed(h)).to(dev)
     pre[:4] = torch.round(pre[:4] * 2) / 2  # exact ties
-    before = (topk_mask_fwd.launches, topk_mask_fwd.wide_launches, topk_mask_fwd.spill_launches)
+    before = (topk_mask_fwd.launches, topk_mask_fwd.wide_launches, topk_mask_fwd.cluster_launches)
     got = topk_mask_fwd(pre, K)
     torch.cuda.synchronize()
-    assert (topk_mask_fwd.launches, topk_mask_fwd.wide_launches, topk_mask_fwd.spill_launches) == (
+    assert (topk_mask_fwd.launches, topk_mask_fwd.wide_launches, topk_mask_fwd.cluster_launches) == (
         before[0], before[1] + 1, before[2] + 1)
     assert torch.equal(got, topk_mask_plain(pre, K))
 
@@ -656,17 +659,17 @@ def test_topk_mask_spill_form_exact(dev, rows, h):
 def test_blocked_encode_widest_rows_match_plain(dev, h, rows):
     """The encode at its widest rows, D = 64 (bf16 W_enc past 48 MiB: the
     blocked encode): chunks of fewer rows than a GEMM tile (127 at
-    655,392, 80 at 2^20, each with a ragged last chunk), the spill select
-    reading about 557K (950K) values a row again each pass, at kernel B's
-    bars."""
+    655,392, 80 at 2^20, each with a ragged last chunk), the cluster select
+    of 8 CTAs a row reading the rest of each slice past 40960 values again
+    each pass, at kernel B's bars."""
     d = 64
     chunk = _build.topk_encode_chunk_rows(h)
     assert chunk < 128 and rows % chunk and cuda_sae.uses_blocked(d, h)
     p, x = _params(66, d=d, h=h), _rows(67, rows, d=d)
     enc = cuda_sae.fused_topk_encode
-    before = (enc.blocked_launches, cuda_sae.encode_select_launches()["spill"])
+    before = (enc.blocked_launches, cuda_sae.encode_select_launches()["cluster"])
     got = enc(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
-    assert (enc.blocked_launches, cuda_sae.encode_select_launches()["spill"]) == (
+    assert (enc.blocked_launches, cuda_sae.encode_select_launches()["cluster"]) == (
         before[0] + 1, before[1] + -(-rows // chunk))
     want = cuda_sae.topk_encode_plain(x, cuda_sae._bf16_t(p["w_enc"]), p["b_enc"], p["b_pre"], K,
                                       torch.bfloat16)
@@ -685,10 +688,108 @@ def test_encode_and_mask_limits_refuse(dev):
     pre = torch.zeros(2, 40992, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
     # each form refuses a width it does not hold
-    for form, width in (("group", 8224), ("group", 4100), ("cta", 40992), ("spill", 40960),
-                        ("warp", 1024)):
+    for form, width in (("group", 8224), ("group", 4100), ("cta", 40992), ("cluster", 40960),
+                        ("cluster", _build.MAX_BLOCKED_ROW + 32), ("warp", 1024)):
         assert lib.wst_encode_select_fwd(_build.SELECT_FORMS.index(form), pre.data_ptr(), 1,
                                          width, K, pre.data_ptr(), 1, 0, stream) != 0, form
+
+
+def _cluster_select(pre, k, out_dtype=torch.float32, rows=None):
+    """The cluster select alone (``wst_encode_select_fwd``, uncounted) on the
+    first ``rows`` rows of an f32 pre."""
+    lib = _build.load_library()
+    rows = pre.shape[0] if rows is None else rows
+    out = torch.zeros((rows, pre.shape[1]), dtype=out_dtype, device=pre.device)
+    err = lib.wst_encode_select_fwd(_build.SELECT_FORMS.index("cluster"), pre.data_ptr(), rows,
+                                    pre.shape[1], k, out.data_ptr(),
+                                    int(out_dtype == torch.float32), 0,
+                                    torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    return out
+
+
+def _cluster_edge_rows(h, dev):
+    """More than the compaction's 8192 candidates tied at the k-th value,
+    all equal, all negative, +0.0 and -0.0 straddling the k-th, 15,000
+    tied at the k-th of a gaussian row."""
+    g = torch.Generator().manual_seed(h + 3)
+    pre = torch.randn(5, h, generator=g)
+    pre[0, :10000] = pre[0].max()
+    pre[1] = 1.5
+    pre[2] = -pre[2].abs() - 1
+    pre[3] = torch.where(torch.rand(h, generator=g) < 0.5, 0.0, -0.0)
+    pre[3, :20] = 1.0
+    pre[4, 5000:20000] = 2.0
+    return pre.to(dev)
+
+
+# (rows, H): one row; more rows than the card's CTAs (132 x the cluster's)
+CLUSTER_SHAPES = [(1, 49152), (300, 49152), (1, 81920), (300, 81920), (2, 163840), (600, 163840),
+                  (1, 262144), (1100, 262144)]
+
+
+@pytest.mark.parametrize("k", [1, 32, 64])
+@pytest.mark.parametrize("rows,h", CLUSTER_SHAPES)
+def test_cluster_select_exact(dev, rows, h, k):
+    """The cluster select (2, 4 and 8 CTAs a row) against the plain mask:
+    bit for bit in f32, and in bf16 the plain latent rounded."""
+    assert _build.select_form(h) == "cluster" and (rows * _build.cluster_ctas(h) > 132 or rows < 3)
+    pre = torch.randn(rows, h, generator=torch.Generator().manual_seed(rows + h + k)).to(dev)
+    pre[: min(rows, 2)] *= 3.0
+    want = topk_mask_plain(pre, k)
+    got = _cluster_select(pre, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(_cluster_select(pre, k, torch.bfloat16), want.bfloat16())
+
+
+@pytest.mark.parametrize("h", [49152, 81920, 262144, 655392])
+def test_cluster_select_edge_rows_exact(dev, h):
+    """Ties past the compaction's cap, all-equal, all-negative and signed-zero
+    rows, at k = 32 and k = H; two launches bit-identical."""
+    pre = _cluster_edge_rows(h, dev)
+    for k in (32, h):
+        got = _cluster_select(pre, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, topk_mask_plain(pre, k)), k
+        assert torch.equal(got, _cluster_select(pre, k)), k
+
+
+def test_cluster_select_unaligned_rows_exact(dev):
+    """Rows whose start is not 16-byte aligned (a pre at an offset of one
+    value, and a width no multiple of 4): the loads, copies and stores one
+    value at a time."""
+    h, rows = 49152, 64
+    flat = torch.randn(rows * h + 1, generator=torch.Generator().manual_seed(9)).to(dev)
+    pre = flat[1:].view(rows, h)
+    assert pre.data_ptr() % 16
+    assert torch.equal(_cluster_select(pre, K), topk_mask_plain(pre, K))
+    odd = torch.randn(70, 81922, generator=torch.Generator().manual_seed(10)).to(dev)
+    assert torch.equal(_cluster_select(odd, K), topk_mask_plain(odd, K))
+
+
+def test_cluster_select_counted_by_form(dev):
+    """The encode counts its selects past H = 40960 as the cluster form, and
+    kernel C in ``.cluster_launches``; the C entry alone counts nothing."""
+    pre = torch.randn(16, 49152, generator=torch.Generator().manual_seed(11)).to(dev)
+    forms = cuda_sae.encode_select_launches()
+    before = topk_mask_fwd.cluster_launches
+    _cluster_select(pre, K)
+    topk_mask_fwd(pre, K)
+    assert topk_mask_fwd.cluster_launches == before + 1
+    assert cuda_sae.encode_select_launches() == forms
+    p, x = _params(68, d=384, h=49152), _rows(69, 100, d=384)
+    cuda_sae.fused_topk_encode(x, p["w_enc"], p["b_enc"], p["b_pre"], K)
+    now = cuda_sae.encode_select_launches()
+    assert {f: now[f] - forms[f] for f in now} == {f: int(f == "cluster") for f in now}
+
+
+def test_cluster_select_fits_the_card(dev):
+    """Every cluster size the select takes has clusters resident at once."""
+    lib = _build.load_library()
+    for h in (49152, 81920, 163840, 262144, _build.MAX_BLOCKED_ROW):
+        assert lib.wst_cluster_ctas(h) == _build.cluster_ctas(h)
+        assert lib.wst_cluster_select_max_active(h) > 0, h
 
 
 # ---------------------------------------------------------------------------

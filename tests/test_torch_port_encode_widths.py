@@ -7,10 +7,11 @@ the blocked encode (``_encode_forward_blocked``); kernel C takes H up to
 262,144 (``pallas_topk.py:supported``).  The route is one chunk loop
 whose select takes its form by row width (``_build.select_form``: the
 warp select up to 3072, a warp group a row up to 8192, a CTA a row up to
-40960, past it the spill form: part of the row in shared memory and read
-again each pass), all with the CTA select's midpoints, counts and early
-stop (``ops.topk.cta_threshold``; the group form's model is
-``ops.topk.group_threshold``).
+40960, past it the cluster form: a thread-block cluster of CTAs a row),
+all with the CTA select's midpoints, counts and early stop
+(``ops.topk.cta_threshold``; the group and cluster forms' models, with
+their compaction, are ``ops.topk.group_threshold`` and
+``ops.topk.cluster_threshold``).
 
 Held here against the JAX package, from numpy-seeded inputs:
   - the dispatch over Whisper's D x expansion grid, and the routes' limits
@@ -24,7 +25,7 @@ Held here against the JAX package, from numpy-seeded inputs:
     (atol 1e-2 * max), as ``tests/test_torch_port_topk_encode_route.py``;
   - the blocked route against ``_encode_forward_blocked`` in interpret
     mode at whisper-large 16x (past the budget, unpatched) and at H =
-    49152 (the spill form): selection identical, bf16 bit for bit, f32 at
+    49152 (the cluster form): selection identical, bf16 bit for bit, f32 at
     rtol 1e-6, as ``tests/test_torch_port_large.py``;
   - the select model bit for bit against ``topk_threshold`` /
     ``topk_mask_dense`` at H = 49152, 81920 and 262,144, with the edge
@@ -146,11 +147,11 @@ def test_limits_match_jax(tpu_backend):
 
 
 @pytest.mark.parametrize("h,form", [(3072, "warp"), (3104, "group"), (8192, "group"),
-                                    (8224, "cta"), (40960, "cta"), (40992, "spill"),
-                                    (1 << 20, "spill")])
+                                    (8224, "cta"), (40960, "cta"), (40992, "cluster"),
+                                    (1 << 20, "cluster")])
 def test_select_form_by_width(h, form):
     assert _build.select_form(h) == form
-    assert _build.SELECT_FORMS.index(form) == ("warp", "group", "cta", "spill").index(form)
+    assert _build.SELECT_FORMS.index(form) == ("warp", "group", "cta", "cluster").index(form)
     if form != "warp":
         assert _build.wide_form(h) == form
 
@@ -198,12 +199,12 @@ def test_kernel_b_route_matches_pallas_interpret(h, x_dtype, out):
 
 
 @_OUT
-@pytest.mark.parametrize("d,h", [(1280, 20480), (128, 49152)], ids=["large_16x", "spill"])
+@pytest.mark.parametrize("d,h", [(1280, 20480), (128, 49152)], ids=["large_16x", "cluster"])
 def test_blocked_route_matches_pallas_interpret(d, h, out):
     """The encode's route (its own chunk, and ragged chunks of 8)
     against ``_encode_forward_blocked`` in interpret mode: at whisper-large
     16x, past the budget, through ``fused_topk_encode``'s dispatch too; at
-    H = 49152 (the spill form) by the kernel itself."""
+    H = 49152 (the cluster form) by the kernel itself."""
     rows = 20
     tx, jx, p = _encode_case(d + h, rows, d, h)
     jdt, tdt = _dtypes(out)
@@ -245,7 +246,7 @@ WIDE = [49152, 81920, 262144]
 def test_select_mask_bit_identical_to_jax(h, k):
     rng = np.random.default_rng(h + k)
     pre = (rng.standard_normal((4, h)) * rng.uniform(0.05, 3.0, (4, 1))).astype(np.float32)
-    assert _build.select_form(h) == "spill"
+    assert _build.select_form(h) == "cluster"
     _check_select(pre, k)
 
 

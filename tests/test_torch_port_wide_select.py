@@ -59,9 +59,12 @@ def _bits(a) -> np.ndarray:
 
 
 def _model(h: int):
-    """The select the wide routes run at width ``h``: the group form's up to
-    ``_build.MAX_GROUP_ROW``, else the CTA-per-row form's."""
-    return ttopk.group_threshold if _build.wide_form(h) == "group" else ttopk.cta_threshold
+    """The select the wide routes (and past H = 40960 the top-k encode) run
+    at width ``h``: the group form's up to ``_build.MAX_GROUP_ROW``, the
+    CTA-per-row form's up to ``_build.MAX_WIDE_ROW``, else the cluster
+    form's."""
+    return {"group": ttopk.group_threshold, "cluster": ttopk.cluster_threshold}.get(
+        _build.wide_form(h), ttopk.cta_threshold)
 
 
 def _check_select(pre: np.ndarray, k: int) -> None:
