@@ -380,7 +380,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``fused_topk_encode_blocked`` carry ``select_forms``, the library's
     counts by form on phases 2-3's and 12's paths.
 
-Before them, one line lists the rows of phases 1, 8, 11, 20, 21, 22 and 23 that select
+24. The native shard reader and the single-device API at whisper-tiny
+    width (D=384, H=3072, k=32), kernel A's counts zeroed before each part
+    of the path: (a) ``runtime/shard_reader.py``'s ``build_native`` (its
+    seconds logged; a fallback to the memmap gather fails the phase), 2-shard
+    f32 and bf16 caches of 2^17 + 2^16 rows on which the native gather
+    equals the memmap one bit for bit (shuffled, repeated and sorted
+    indices, ``out=`` too), both timed in GB/s on one shuffled epoch's
+    indices in turns; phase 17's CLI run on the f32 cache, its loader's
+    reader native, one sliced kernel-A launch a step; a chunked
+    out-of-core epoch (``train(loader, fused=True)``, chunks of 2^16
+    rows) on the same cache, one windowed launch a step; each of the two
+    also on the memmap gather (the CLI after the native run, the epoch
+    before it), with the same metrics, or parameters, bit for bit; act/s
+    of all four end to end.  (b) A cache written by ``FeatureCache.save`` read back
+    bit for bit; 3 epochs of ``train_epochs_fused`` (AMP, batch 128, 256
+    steps an epoch) equal to the sequential ``train_epoch_fused`` loop
+    bit for bit in parameters, optimizer and dead-feature state and
+    metrics, windowed kernel-A launches 3 x 256; each form's wall ms an
+    epoch in turns and its host syncs (``torch.cuda.set_sync_debug_mode``).
+    (c) ``TopKSAE.encode_sparse`` of the trained SAE on 4096 rows against
+    the CPU: idx equal but on rows the gap rule excuses, values within
+    1e-5 of the max; ``scatter_topk`` of it equal to ``topk_hidden_dense``
+    on rows with no tie at the threshold; ``sparse_decode`` against the
+    dense decode at rtol 1e-5.  Kernel A's entries carry ``at_api_slice``.
+
+Before them, one line lists the rows of phases 1, 8, 11, 20, 21, 22, 23 and 24 that select
 differently from the plain version, with their gaps, and one the
 decoded tokens of phase 19 that differ from their reference.  The last two lines
 are the ``kernels`` JSON line and
@@ -527,7 +552,7 @@ class SmokeFailure(RuntimeError):
     pass
 
 
-# phases 1, 8, 11, 20, 21, 22 and 23: the rows that select differently from the plain version
+# phases 1, 8, 11, 20, 21, 22, 23 and 24: the rows that select differently from the plain version
 GAPS: dict[str, list] = {}
 # phases 20 and 21: the select-and-decode form each wide geometry launched
 FORMS: dict[str, dict] = {"fused_sae_loss": {}, "coder": {}}
@@ -2640,15 +2665,15 @@ def idle_breakdown(prof, batches: int, top: int = 5, min_us: float = 10.0) -> di
     return res
 
 
-def out_of_core_config(work: Path) -> Path:
+def out_of_core_config(work: Path, cache: str = "ocache", name: str = "ooc_smoke") -> Path:
     import yaml
 
     cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
     cfg["training"].update(epochs=1, warmup_steps=100)
-    cfg["data"]["cache_dir"] = str(work / "ocache")
+    cfg["data"]["cache_dir"] = str(work / cache)
     cfg["output_dir"] = str(work / "oout")
-    cfg["experiment_name"] = "ooc_smoke"
-    path = work / "ooc_smoke.yaml"
+    cfg["experiment_name"] = name
+    path = work / f"{name}.yaml"
     path.write_text(yaml.safe_dump(cfg))
     return path
 
@@ -2665,7 +2690,18 @@ def out_of_core_path(work: Path, dev, train_mod, cfg_mod, cache_mod, cuda_sae, t
         writer.append(gaussian_rows(rows, gen, mix).cpu().numpy())
     meta = writer.finalize(num_samples=3 * (1 << 15) // 1500)
     check(len(meta.shards) == 2, f"the cache has {len(meta.shards)} shards, not 2")
-    n = meta.num_tokens
+    run = streamed_cli(path, meta.num_tokens, train_mod, cfg_mod, cache_mod, cuda_sae, topk)
+    shutil.rmtree(work / "ocache", ignore_errors=True)
+    return {k: run[k] for k in ("launches", "steps", "train_s", "losses")}
+
+
+def streamed_cli(path: Path, n: int, train_mod, cfg_mod, cache_mod, cuda_sae, topk) -> dict:
+    """Train through the CLI (config ``path``) on a cache of ``n`` rows in
+    more than one shard, which its ``PrefetchLoader`` streams batch by
+    batch: kernel A's counts zeroed first, one sliced launch a step, no
+    plain version, the run's files and a falling loss.  Returns the
+    launches, steps, seconds, losses, the loader and the trainer."""
+    cfg = cfg_mod.ExperimentConfig.from_yaml(path)
     loaders = []
     real = cache_mod.FeatureCache.get_dataloader
 
@@ -2697,11 +2733,11 @@ def out_of_core_path(work: Path, dev, train_mod, cfg_mod, cache_mod, cuda_sae, t
     check(len(trainer._resample_dataset) == 8 * trainer.resample_batch_size,
           f"resample set of {len(trainer._resample_dataset)} rows")
     losses = check_run(trainer.run_dir, "sae_final.npz", steps, "2-shard cache through the CLI")
-    log(f"  {n} rows in 2 shards streamed batch by batch: {steps} steps in {train_s:.1f} s "
-        f"({n / train_s:,.0f} act/s end to end), launches {launches}, resample set "
-        f"{len(trainer._resample_dataset)} rows")
-    shutil.rmtree(work / "ocache", ignore_errors=True)
-    return {"launches": launches, "steps": steps, "train_s": train_s, "losses": losses}
+    log(f"  {n} rows in 2 shards streamed batch by batch ({'native' if loader.reader.native else 'memmap'} "
+        f"gather): {steps} steps in {train_s:.1f} s ({n / train_s:,.0f} act/s end to end), "
+        f"launches {launches}, resample set {len(trainer._resample_dataset)} rows")
+    return {"launches": launches, "steps": steps, "train_s": train_s, "losses": losses,
+            "loader": loader, "trainer": trainer}
 
 
 def wide_coder_path(work: Path, dev, launch_mod, cfg_mod, cache_mod, CC, cuda_topk,
@@ -4723,6 +4759,354 @@ def widths_entries(path: dict, w23: dict, tm: dict) -> list:
     ]
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the native shard reader and the single-device API
+# ---------------------------------------------------------------------------
+
+API_SHARD = 1 << 17
+API_ROWS = (1 << 17) + (1 << 16)  # two shards
+API_CHUNK = 1 << 16  # the chunked epoch's chunks: three, gathered on the loader's thread
+CHAIN_ROWS = 1 << 15  # 256 steps an epoch at batch 128
+CHAIN_EPOCHS = 3
+SPARSE_ROWS = 4096
+
+
+def with_memmap(rt, fn):
+    """``fn()`` with the native library hidden: the readers it opens take
+    the memmap fallback, as on a machine without a compiler."""
+    real = rt._load_lib
+    rt._load_lib = lambda: None
+    try:
+        return fn()
+    finally:
+        rt._load_lib = real
+
+
+def gather_checks(rt, paths: list, dtype: str, n: int) -> dict:
+    """The native gather against the memmap one, bit for bit, on shuffled,
+    repeated and sorted indices, with and without ``out=``; then both
+    timed on one shuffled epoch's indices in turns (native, memmap,
+    memmap, native; the shards in the page cache: warm reads)."""
+    native, plain = rt.ShardReader(paths, dtype), with_memmap(rt, lambda: rt.ShardReader(paths, dtype))
+    check(native.native and not plain.native, f"{dtype} cache: native {native.native}")
+    rng = np.random.default_rng(24)
+    orders = {"shuffled": rng.permutation(n), "repeated": rng.integers(0, n, n // 2),
+              "sorted": np.sort(rng.choice(n, n // 3, replace=False))}
+    for name, idx in orders.items():
+        got, want = native.gather(idx), plain.gather(idx)
+        check(got.dtype == want.dtype and torch.equal(got.view(torch.int16), want.view(torch.int16)),
+              f"{dtype} {name}: the native gather differs from the memmap one")
+        for reader in (native, plain):
+            out = torch.empty_like(got)
+            check(reader.gather(idx, out=out) is out
+                  and torch.equal(out.view(torch.int16), got.view(torch.int16)),
+                  f"{dtype} {name}: gather(out=) differs")
+    idx = orders["shuffled"]
+    secs = {"native": [], "memmap": []}
+    for which in ("native", "memmap", "memmap", "native"):
+        reader = native if which == "native" else plain
+        t0 = time.perf_counter()
+        reader.gather(idx)
+        secs[which].append(time.perf_counter() - t0)
+    gbps = {k: n * native.row_bytes / (sum(v) / len(v)) / 1e9 for k, v in secs.items()}
+    log(f"  {dtype}: native gather bit-identical to memmap on shuffled, repeated and sorted "
+        f"indices (out= too); one shuffled epoch of {n} rows x {native.row_bytes} B: native "
+        f"{gbps['native']:.3f} GB/s, memmap {gbps['memmap']:.3f} GB/s (warm reads, in turns)")
+    native.close()
+    plain.close()
+    return {"gbps": gbps, "seconds": secs}
+
+
+@contextlib.contextmanager
+def host_syncs():
+    """Counts the synchronizing CUDA operations inside the block
+    (``torch.cuda.set_sync_debug_mode("warn")``); the count and the
+    count by the Python line that made each are appended to the yielded
+    list at the end."""
+    import warnings
+    from collections import Counter
+
+    out: list = []
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield out
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [f"{Path(w.filename).name}:{w.lineno}" for w in rec if "synchroniz" in str(w.message)]
+    out.extend([len(sites), dict(Counter(sites))])
+
+
+def kernel_a_launches(cuda_sae) -> dict:
+    return {"fused_sae_loss": cuda_sae.fused_sae_loss.launches,
+            "fused_sae_loss_indexed": cuda_sae.fused_sae_loss_indexed.launches}
+
+
+def zero_kernel_a(cuda_sae, topk) -> None:
+    for w in (cuda_sae.fused_sae_loss, cuda_sae.fused_sae_loss_indexed):
+        w.launches = 0
+    topk.plain_calls.clear()
+
+
+def same_training(a, b, what: str) -> None:
+    """Two trainers' parameters, AdamW and dead-feature state bit for bit."""
+    for k in a.model.params:
+        check(torch.equal(a.model.params[k], b.model.params[k])
+              and torch.equal(a.opt_state.mu[k], b.opt_state.mu[k])
+              and torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]), f"{what}: {k} differs")
+    check(a.opt_state.count == b.opt_state.count and a.global_step == b.global_step
+          and a.epoch == b.epoch, f"{what}: counters differ")
+    check(torch.equal(a.model.feature_last_activated, b.model.feature_last_activated)
+          and torch.equal(a.model.step_count, b.model.step_count), f"{what}: dead state differs")
+
+
+def chained_epochs(work: Path, dev, gen, mix, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae,
+                   topk) -> dict:
+    """Phase 24b: a cache written by ``FeatureCache.save`` read back bit for
+    bit; 3 epochs of ``train_epochs_fused`` (AMP, batch 128) against the
+    sequential ``train_epoch_fused`` loop from the same parameters, bit
+    for bit, windowed kernel-A launches 3 x steps; each form's wall ms an
+    epoch (in turns, 3 more epochs each) and host syncs."""
+    rows = gaussian_rows(CHAIN_ROWS, gen, mix).cpu().numpy()
+    cache = cache_mod.FeatureCache(work / "apisave" / "features", cfg_mod.WhisperConfig(),
+                                   cfg_mod.DataConfig())
+    meta = cache.save(rows, "encoder", 2, num_samples=CHAIN_ROWS // 1500)
+    back, meta2 = cache.load("encoder", 2)
+    check(meta.shards == meta2.shards and len(meta.shards) == 1 and meta2.num_tokens == CHAIN_ROWS
+          and np.array_equal(back.numpy().view(np.int32), rows.view(np.int32)),
+          "FeatureCache.save: the cache does not read back bit for bit")
+    data = back.to(dev)
+    steps = CHAIN_ROWS // 128
+
+    def fresh(name):
+        t = train_mod.SAETrainer(sae_mod.TopKSAE(D, H, K, seed=24), cfg_mod.TrainingConfig(
+            batch_size=128, learning_rate=1e-3, epochs=4 * CHAIN_EPOCHS, warmup_steps=100,
+            use_amp=True, seed=24), run_dir=work / "apiout" / name)
+        t.setup_scheduler(4 * CHAIN_EPOCHS * steps)
+        return t
+
+    chained, loop = fresh("chained"), fresh("loop")
+    zero_kernel_a(cuda_sae, topk)
+    with host_syncs() as syncs_c:
+        cm = chained.train_epochs_fused(data, CHAIN_EPOCHS)
+    launches = kernel_a_launches(cuda_sae)
+    check(launches == {"fused_sae_loss": 0, "fused_sae_loss_indexed": CHAIN_EPOCHS * steps},
+          f"chained epochs: kernel A launches {launches}, not {CHAIN_EPOCHS} x {steps} windowed")
+    check(sum(topk.plain_calls.values()) == 0, f"plain versions ran: {dict(topk.plain_calls)}")
+    with host_syncs() as syncs_l:
+        lm = [m for _ in range(CHAIN_EPOCHS) for m in loop.train_epoch_fused(data)]
+    check(cm == lm, "train_epochs_fused's metrics differ from the sequential loop's")
+    same_training(chained, loop, "train_epochs_fused against the sequential loop")
+    losses = np.array([m.loss for m in cm])
+    check(bool(np.isfinite(losses).all()) and losses[-20:].mean() < losses[:20].mean(),
+          "chained epochs: the loss did not fall")
+    wall = {"chained": [], "loop": []}
+    for which in ("chained", "loop", "loop", "chained"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "chained":
+            chained.train_epochs_fused(data, CHAIN_EPOCHS)
+        else:
+            for _ in range(CHAIN_EPOCHS):
+                loop.train_epoch_fused(data)
+        torch.cuda.synchronize()
+        wall[which].append(1e3 * (time.perf_counter() - t0) / CHAIN_EPOCHS)
+    ms = {k: sum(v) / len(v) for k, v in wall.items()}
+    same_training(chained, loop, "train_epochs_fused against the sequential loop (timed epochs)")
+    log(f"  FeatureCache.save: {CHAIN_ROWS} rows read back bit for bit; {CHAIN_EPOCHS} chained "
+        f"epochs of {steps} steps bit-identical to the sequential loop, windowed kernel-A "
+        f"launches {launches['fused_sae_loss_indexed']}; wall per epoch chained {ms['chained']:.2f} ms "
+        f"/ loop {ms['loop']:.2f} ms (in turns); host syncs chained {syncs_c[0]} {syncs_c[1]} / "
+        f"loop {syncs_l[0]} {syncs_l[1]}")
+    return {"launches": launches, "steps": steps, "epoch_ms": ms, "epoch_ms_turns": wall,
+            "host_syncs": {"chained": syncs_c[0], "loop": syncs_l[0]},
+            "host_sync_sites": {"chained": syncs_c[1], "loop": syncs_l[1]}, "model": chained.model,
+            "losses": [float(losses[:20].mean()), float(losses[-20:].mean())]}
+
+
+def sparse_encode_check(model, x, sae_mod, topk) -> dict:
+    """Phase 24c: ``TopKSAE.encode_sparse`` on the card against the same
+    SAE on the CPU: idx equal but on rows the gap rule excuses (a set
+    that differs: the gap between the k-th and (k+1)-th plain pre within
+    twice the row's max |pre_card - pre_plain|; the same set in another
+    order: each swapped pair's plain values within that), values within
+    1e-5 of the max; ``scatter_topk`` of it equal to ``topk_hidden_dense``
+    (f32 product, kernel C) on rows with no tie at the threshold;
+    ``sparse_decode`` against the dense decode at rtol 1e-5 (atol 1e-5 of
+    the max)."""
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    what = "24c encode_sparse"
+    p = {k: v.detach() for k, v in model.params.items()}
+    pc = {k: v.cpu() for k, v in p.items()}
+    cpu = sae_mod.TopKSAE(D, H, K, params=pc, device="cpu")
+    with torch.no_grad():
+        vc, ic = model.encode_sparse(x)
+        vp, ip = cpu.encode_sparse(x.cpu())
+        # both versions' pre, each the product its encode_sparse ran
+        pre = mm_f32(x - p["b_pre"], p["w_enc"]) + p["b_enc"]
+        pre_card = pre.cpu()
+        pre_plain = mm_f32(x.cpu() - pc["b_pre"], pc["w_enc"]) + pc["b_enc"]
+    check(vc.shape == (SPARSE_ROWS, K) and ic.shape == (SPARSE_ROWS, K) and vc.is_cuda,
+          f"{what}: shapes {tuple(vc.shape)}, {tuple(ic.shape)}")
+    icc, vcc = ic.cpu(), vc.cpu()
+    bad = (icc != ip).any(dim=1).nonzero().flatten()
+    sets = (icc[bad].sort(dim=1).values != ip[bad].sort(dim=1).values).any(dim=1)
+    gaps = gap_rule(bad[sets], pre_card[bad[sets]], pre_plain[bad[sets]], K, what) if sets.any() \
+        else []
+    for r in bad[~sets].tolist():  # the same set in another order
+        order = pre_plain[r][icc[r]]
+        rise = float((order[1:] - order[:-1]).max())
+        diff = float((pre_card[r] - pre_plain[r]).abs().max())
+        log(f"    {what}: row {r} orders its selection differently: the largest rise {rise:.4g} "
+            f"in the plain pre, max|pre_card - pre_plain| {diff:.4g}")
+        check(rise <= 2 * diff, f"{what}: row {r}'s order is wider apart than the sum order explains")
+        gaps.append({"row": r, "order_rise": rise, "max_pre_diff": diff})
+    GAPS[what] = gaps
+    ok = torch.ones(SPARSE_ROWS, dtype=torch.bool)
+    ok[bad] = False
+    err = float((vcc[ok] - vp[ok]).abs().max())
+    check(err <= 1e-5 * float(vp.abs().max()), f"{what}: values differ by {err:.3g}")
+    with torch.no_grad():
+        dense = topk.scatter_topk(vc, ic, H)
+        want = sae_mod.topk_hidden_dense(p, x, K)
+        top = torch.topk(pre, K + 1, dim=1).values
+        clean = top[:, K - 1] > top[:, K]
+        same = torch.equal(dense[clean], want[clean])
+        recon = topk.sparse_decode(vc, ic, p["w_dec"], p["b_dec"])
+        ref = mm_f32(dense, p["w_dec"]) + p["b_dec"]
+        ms = time_ms(lambda: model.encode_sparse(x), iters=10)
+    check(same, f"{what}: scatter_topk differs from topk_hidden_dense on rows with no tie")
+    check(torch.allclose(recon, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max())),
+          f"{what}: sparse_decode differs from the dense decode by "
+          f"{float((recon - ref).abs().max()):.3g}")
+    log(f"  encode_sparse on {SPARSE_ROWS} rows: {SPARSE_ROWS - bad.numel()} rows' idx equal to "
+        f"the CPU's, {bad.numel()} excused by the gap rule; values max abs err {err:.3g}; "
+        f"scatter_topk equal to topk_hidden_dense on {int(clean.sum())} rows with no tie at the "
+        f"threshold; sparse_decode max abs err {float((recon - ref).abs().max()):.3g}; "
+        f"{ms:.4f} ms a call")
+    return {"rows_differing": int(bad.numel()), "max_abs_err": err, "ms": ms,
+            "decode_max_abs_err": float((recon - ref).abs().max()), "no_tie_rows": int(clean.sum())}
+
+
+def api_slice_path(work: Path, dev, card: str, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae,
+                   topk) -> dict:
+    """Phase 24 at whisper-tiny width (D=384, H=3072, k=32): (a) the native
+    shard reader built and checked, the CLI streaming a 2-shard f32 cache
+    through it and a chunked out-of-core epoch on the same cache; (b)
+    chained fused epochs on a cache written by ``FeatureCache.save``;
+    (c) the sparse top-k encode.  Kernel A's counts are zeroed before each
+    part of the path and read after it; returns them, summed in
+    ``launches``."""
+    from whisper_sae_tpu_torch.runtime import shard_reader as rt
+
+    t_phase = time.perf_counter()
+    loaded = rt._lib is not None  # phase 17's reader built and loaded it at its first use
+    t0 = time.perf_counter()
+    built = rt.build_native()
+    check(built and rt.native_available(),
+          f"the native shard reader did not build: {rt.last_build_log.strip()[-400:]}")
+    ready_s = time.perf_counter() - t0
+    # a fresh build of the same source, into a directory of its own, for its seconds
+    shutil.rmtree(work / "wstio_build", ignore_errors=True)
+    home, rt.BUILD_DIR = rt.BUILD_DIR, work / "wstio_build"
+    try:
+        t0 = time.perf_counter()
+        fresh = rt._compile()
+        build_s = time.perf_counter() - t0
+    finally:
+        rt.BUILD_DIR = home
+    check(fresh is not None, f"a fresh build of wstio.cpp failed: {rt.last_build_log.strip()[-400:]}")
+    log(f"  (a) native reader: {rt.library_path().relative_to(ROOT)} "
+        f"{'already loaded' if loaded else 'built and loaded'}, ready in {ready_s:.2f} s; a fresh "
+        f"build of wstio.cpp takes {build_s:.2f} s (native_available: {rt.native_available()})")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    mix = torch.randn(RANK, D, generator=gen, device=dev) / RANK ** 0.5
+    path = out_of_core_config(work, cache="apicache", name="api_smoke")
+    cfg = cfg_mod.ExperimentConfig.from_yaml(path)
+    cache = cache_mod.FeatureCache(work / "apicache" / "features", cfg.whisper, cfg.data)
+    writers = {dt: cache.writer("encoder", i, shard_tokens=API_SHARD, dtype=dt)
+               for i, dt in enumerate(("float32", "bfloat16"))}
+    for rows in (API_SHARD, API_ROWS - API_SHARD):  # the writer rolls a shard at an append
+        block = gaussian_rows(rows, gen, mix).cpu()
+        for w in writers.values():
+            w.append(block)
+    gathers = {}
+    for i, (dt, w) in enumerate(writers.items()):
+        meta = w.finalize(num_samples=API_ROWS // 1500)
+        check(len(meta.shards) == 2 and meta.num_tokens == API_ROWS,
+              f"{dt} cache: {len(meta.shards)} shards, {meta.num_tokens} rows")
+        gathers[dt] = gather_checks(rt, [cache.cache_dir / s for s in meta.shards], dt, API_ROWS)
+
+    cli = streamed_cli(path, API_ROWS, train_mod, cfg_mod, cache_mod, cuda_sae, topk)
+    check(cli["loader"].reader.native, "the CLI's loader gathers through the memmap fallback")
+    cli_launches = cli["launches"]
+    log("  the same CLI run on the memmap gather, for comparison:")
+    cli_mm = with_memmap(rt, lambda: streamed_cli(path, API_ROWS, train_mod, cfg_mod, cache_mod,
+                                                  cuda_sae, topk))
+    check(not cli_mm["loader"].reader.native, "the comparison run gathered natively")
+    check(cli_mm["trainer"].metrics_history == cli["trainer"].metrics_history,
+          "the CLI run's metrics differ between the native and the memmap gather")
+
+    def chunked_epoch():
+        loader = cache.get_dataloader("encoder", 0, batch_size=128, seed=24)
+        check(isinstance(loader, cache_mod.PrefetchLoader), "the 2-shard cache is not streamed")
+        loader.chunk_tokens = API_CHUNK
+        trainer = train_mod.SAETrainer(sae_mod.TopKSAE(D, H, K, seed=24), cfg_mod.TrainingConfig(
+            batch_size=128, learning_rate=1e-3, epochs=1, warmup_steps=100, use_amp=True,
+            seed=24), run_dir=work / "apiout" / "chunked")
+        zero_kernel_a(cuda_sae, topk)
+        t0 = time.perf_counter()
+        trainer.train(loader, fused=True)
+        torch.cuda.synchronize()
+        return trainer, loader.reader.native, time.perf_counter() - t0, kernel_a_launches(cuda_sae)
+
+    # memmap first here, native first for the CLI: an order effect would cut both ways
+    trainer_mm, native_mm, chunked_mm_s, _ = with_memmap(rt, chunked_epoch)
+    check(not native_mm, "the comparison epoch gathered natively")
+    trainer, native, chunked_s, chunked_launches = chunked_epoch()
+    check(native, "the chunked epoch's reader is not native")
+    steps = API_ROWS // 128
+    check(chunked_launches == {"fused_sae_loss": 0, "fused_sae_loss_indexed": steps},
+          f"chunked epoch: kernel A launches {chunked_launches}, not {steps} windowed")
+    check(sum(topk.plain_calls.values()) == 0, f"plain versions ran: {dict(topk.plain_calls)}")
+    losses = np.array([m.loss for m in trainer.metrics_history])
+    check(len(losses) == steps and bool(np.isfinite(losses).all())
+          and losses[-50:].mean() < losses[:50].mean(), "chunked epoch: the loss did not fall")
+    same_training(trainer, trainer_mm, "the chunked epoch, native against memmap gathers")
+    rates = {"cli": {"native": API_ROWS / cli["train_s"], "memmap": API_ROWS / cli_mm["train_s"]},
+             "chunked": {"native": API_ROWS / chunked_s, "memmap": API_ROWS / chunked_mm_s}}
+    log(f"  chunked out-of-core epoch (train(loader, fused=True), chunks of {API_CHUNK} rows "
+        f"gathered on the trainer's gather thread): {steps} steps in {chunked_s:.2f} s native "
+        f"({rates['chunked']['native']:,.0f} act/s end to end), {chunked_mm_s:.2f} s memmap "
+        f"({rates['chunked']['memmap']:,.0f}), the same parameters bit for bit; launches "
+        f"{chunked_launches}.  The CLI run: {rates['cli']['native']:,.0f} act/s native, "
+        f"{rates['cli']['memmap']:,.0f} memmap, the same metrics")
+    shutil.rmtree(work / "apicache", ignore_errors=True)
+
+    log(f"  (b) chained epochs: {CHAIN_EPOCHS} x train_epochs_fused against the sequential loop")
+    chain = chained_epochs(work, dev, gen, mix, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae,
+                           topk)
+    shutil.rmtree(work / "apisave", ignore_errors=True)
+    log("  (c) TopKSAE.encode_sparse on the card against the CPU")
+    sparse = sparse_encode_check(chain.pop("model"), gaussian_rows(SPARSE_ROWS, gen, mix),
+                                 sae_mod, topk)
+    launches = {k: cli_launches[k] + chunked_launches[k] + chain["launches"][k]
+                for k in cli_launches}
+    for name, n in launches.items():
+        check(n > 0, f"{name}: no launch on phase 24's path")
+    shutil.rmtree(work / "apiout", ignore_errors=True)
+    return {"card": card, "launches": launches, "build_s": build_s,
+            "gather_gbps": {dt: g["gbps"] for dt, g in gathers.items()},
+            "cli": {"act_per_s": rates["cli"], "train_s": cli["train_s"],
+                    "memmap_train_s": cli_mm["train_s"], "steps": cli["steps"],
+                    "launches": cli_launches, "losses": cli["losses"]},
+            "chunked": {"act_per_s": rates["chunked"], "train_s": chunked_s,
+                        "memmap_train_s": chunked_mm_s, "launches": chunked_launches},
+            "chained": chain, "sparse": sparse, "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5070,7 +5454,14 @@ def main() -> int:
     kernels.extend(widths_entries(path23, w23, tm23))
     shutil.rmtree(work / "widths", ignore_errors=True)
     log(f"  widths [{card}]: {json.dumps({'train_s': path23['train_s'], 'losses': path23['losses'], 'f32_losses': path23['f32_losses'], 'large_losses': path23['large_losses'], 'large_step': step23, **cpu23, 'phase_s': time.perf_counter() - t23})}")
-    log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20, 21, 22 and 23): "
+    log("phase 24: the native shard reader and the single-device API at whisper-tiny width: (a) "
+        "the reader, the CLI streaming a 2-shard cache through it, a chunked out-of-core epoch")
+    a24 = api_slice_path(work, dev, card, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, topk)
+    for entry in kernels:
+        if entry["name"] in a24["launches"]:
+            entry["at_api_slice"] = {"launches": a24["launches"][entry["name"]]}
+    log(f"  api slice [{card}]: {json.dumps({k_: v for k_, v in a24.items() if k_ != 'launches'})}")
+    log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20, 21, 22, 23 and 24): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
     log(f"  decoded tokens differing from their reference (phase 19): "

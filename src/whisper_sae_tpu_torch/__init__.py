@@ -20,3 +20,26 @@ and numpy (and pydantic/yaml for its config), never jax and nothing of
 """
 
 __version__ = "0.1.0"
+
+from .config import (
+    DataConfig,
+    ExperimentConfig,
+    LayerConfig,
+    MeshConfig,
+    SAEConfig,
+    TrainingConfig,
+    WandbConfig,
+    WhisperConfig,
+)
+
+__all__ = [
+    "DataConfig",
+    "ExperimentConfig",
+    "LayerConfig",
+    "MeshConfig",
+    "SAEConfig",
+    "TrainingConfig",
+    "WandbConfig",
+    "WhisperConfig",
+    "__version__",
+]

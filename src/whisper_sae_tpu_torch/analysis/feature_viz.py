@@ -13,8 +13,8 @@ batch, concatenate with the state, top-k again.  ``jax.lax.top_k`` ranks
 equal values by the lower index first and ``torch.topk`` promises no
 order among ties (the -inf padding is one large tie), so both top-k's
 rank int64 keys that hold the value's order in the high half and the
-reversed index in the low half: every key is distinct, and the samples
-and positions kept are JAX's on ties too.  Transcriptions and metadata
+reversed index in the low half (``ops.topk.top_k``): every key is
+distinct, and the samples and positions kept are JAX's on ties too.  Transcriptions and metadata
 are joined on the host at read-out time through a per-sample registry.
 """
 
@@ -28,6 +28,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..ops.topk import top_k
 from ..utils.device import resolve_device
 
 MS_PER_FRAME = 10.0  # the reference's convention (10 ms a frame)
@@ -65,22 +66,6 @@ class FeatureActivation:
         return cls(**d)
 
 
-def _order_keys(values: torch.Tensor) -> torch.Tensor:
-    """int64 keys of the last axis that rank as ``jax.lax.top_k`` does: by
-    value, descending, then by the lower index (-0.0 counts as +0.0)."""
-    bits = (values.float() + 0.0).contiguous().view(torch.int32)
-    mono = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    idx = torch.arange(values.shape[-1], dtype=torch.int64, device=values.device)
-    return mono * (1 << 32) + ((1 << 32) - 1 - idx)
-
-
-def _top_k(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` over the last axis: (values, indices), descending,
-    ties to the lower index."""
-    idx = torch.topk(_order_keys(values), k, dim=-1).indices
-    return torch.gather(values, -1, idx), idx
-
-
 def _merge_topk(
     values: torch.Tensor,  # [F, k] running top values (-inf padded)
     samples: torch.Tensor,  # [F, k] int32
@@ -92,11 +77,11 @@ def _merge_topk(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     kc = min(k, acts.shape[0])
     masked = torch.where(acts > 0, acts, float("-inf")).t()  # [F, N]
-    cand_v, cand_i = _top_k(masked, kc)  # [F, kc]
+    cand_v, cand_i = top_k(masked, kc)  # [F, kc]
     all_v = torch.cat([values, cand_v], dim=1)
     all_s = torch.cat([samples, sample_ids[cand_i]], dim=1)
     all_p = torch.cat([positions, position_ids[cand_i]], dim=1)
-    new_v, sel = _top_k(all_v, k)
+    new_v, sel = top_k(all_v, k)
     total = torch.sum(acts > 0)
     return new_v, torch.gather(all_s, 1, sel), torch.gather(all_p, 1, sel), total
 

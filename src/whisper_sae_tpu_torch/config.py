@@ -154,3 +154,21 @@ class ExperimentConfig(BaseModel):
         run_dir = self.output_dir / self.experiment_name
         run_dir.mkdir(parents=True, exist_ok=True)
         return run_dir
+
+
+class LayerConfig(BaseModel):
+    """Per-layer SAE configuration (reference config.py:160-177)."""
+
+    component: Literal["encoder", "decoder"]
+    layer_idx: int = Field(ge=0)
+    input_dim: int
+    sae_config: SAEConfig = Field(default_factory=SAEConfig)
+    training_config: TrainingConfig = Field(default_factory=TrainingConfig)
+
+    @property
+    def name(self) -> str:
+        return f"{self.component}_layer{self.layer_idx}"
+
+    @property
+    def hidden_dim(self) -> int:
+        return self.sae_config.get_hidden_dim(self.input_dim)

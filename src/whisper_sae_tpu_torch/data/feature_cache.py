@@ -11,7 +11,7 @@ third-party dtype package.
 
 A single-shard cache loads into memory whole; a cache of more than one
 shard streams from disk (``get_dataloader(out_of_core=None)``: a
-:class:`~.shard_reader.PrefetchLoader`, batch by batch, or chunked epochs
+:class:`~..runtime.shard_reader.PrefetchLoader`, batch by batch, or chunked epochs
 from its reader when the trainer is asked for them), and ``load_rows``
 gives row access over its shards without reading them whole (the
 launcher's coder jobs).
@@ -28,14 +28,17 @@ from collections.abc import Callable
 from dataclasses import asdict, dataclass
 from datetime import datetime
 from pathlib import Path
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from ..config import DataConfig, WhisperConfig
-from ..models.whisper import WhisperArch, cast_params, extract_activations, params_to
+from ..runtime.shard_reader import PrefetchLoader, ShardReader
 from .loader import ActivationLoader
-from .shard_reader import PrefetchLoader, ShardReader
+
+if TYPE_CHECKING:
+    from ..models.whisper import WhisperArch
 
 DEFAULT_SHARD_TOKENS = 1 << 21
 
@@ -263,6 +266,13 @@ class FeatureCache:
             return self.load(component, layer_idx)[0], meta
         return _LazyShardRows([self.cache_dir / s for s in shards], meta.dtype), meta
 
+    def save(self, features, component: str, layer_idx: int, num_samples: int,
+             shard_tokens: int = DEFAULT_SHARD_TOKENS) -> CacheMetadata:
+        """One-shot save of f32 rows (reference feature_cache.py:136-167)."""
+        w = self.writer(component, layer_idx, shard_tokens=shard_tokens)
+        w.append(features)
+        return w.finalize(num_samples)
+
     def writer(self, component: str, layer_idx: int, **kw) -> CacheWriter:
         return CacheWriter(self, component, layer_idx, **kw)
 
@@ -339,6 +349,9 @@ def extract_and_cache_features(
     - ``device``: where the forward runs (default: where the parameters
       are).  ``mesh`` (multi-device extraction) is not ported and raises.
     """
+    # imported here: ``models.whisper`` imports this package (``data.mel``)
+    from ..models.whisper import cast_params, extract_activations, params_to
+
     if mesh is not None:
         raise NotImplementedError("multi-GPU extraction is not ported yet")
     transfer_bf16 = compute_dtype == torch.bfloat16

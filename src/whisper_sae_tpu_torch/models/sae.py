@@ -53,7 +53,7 @@ from torch import nn
 from ..config import SAEConfig
 from ..ops.cuda_coder import coder_supported, fused_relu_sae_loss
 from ..ops.cuda_sae import fused_loss_supported, fused_sae_loss, fused_topk_encode
-from ..ops.topk import relu, topk_mask_dense
+from ..ops.topk import relu, topk_encode, topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
 
@@ -77,6 +77,13 @@ class DeadFeatureState(NamedTuple):
 
     feature_last_activated: torch.Tensor  # [H] int32
     step_count: torch.Tensor  # scalar int32
+
+
+def init_dead_state(hidden_dim: int, device=None) -> DeadFeatureState:
+    """Zeroed counters, on the card unless the caller asks for the CPU."""
+    dev = resolve_device(device)
+    return DeadFeatureState(torch.zeros(hidden_dim, dtype=torch.int32, device=dev),
+                            torch.zeros((), dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------------------
@@ -134,6 +141,12 @@ def normalize_decoder(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor
     w_dec = params["w_dec"]
     norm = torch.linalg.vector_norm(w_dec, dim=1, keepdim=True)
     return {**params, "w_dec": w_dec / torch.clamp(norm, min=1e-12)}
+
+
+def topk_encode_sparse(params, x: torch.Tensor, k: int, compute_dtype=torch.float32
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encode to the compact (vals [B, k], idx [B, k]) form."""
+    return topk_encode(x, params["w_enc"], params["b_enc"], params["b_pre"], k, compute_dtype)
 
 
 def topk_hidden_dense(params, x: torch.Tensor, k: int, compute_dtype=torch.float32) -> torch.Tensor:
@@ -352,6 +365,10 @@ class TopKSAE(DeadFeatureMixin, ParamModule):
     # -- forward API --
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         return topk_hidden_f32(self.params, self._rows(x), self.k)
+
+    def encode_sparse(self, x) -> tuple[torch.Tensor, torch.Tensor]:
+        """(vals, idx) of the f32 top-k encode, on the model's device."""
+        return topk_encode_sparse(self.params, self._rows(x), self.k)
 
     def decode(self, hidden: torch.Tensor) -> torch.Tensor:
         with f32_matmuls():

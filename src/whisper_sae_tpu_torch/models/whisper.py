@@ -246,6 +246,15 @@ def _arch_from_hf_config(cfg: dict) -> WhisperArch:
     )
 
 
+def from_hf_torch(model) -> tuple[dict, WhisperArch]:
+    """(params, arch) from a ``transformers`` ``WhisperForConditionalGeneration``
+    or ``WhisperModel`` instance; the params are CPU tensors in the
+    ``x @ W`` layout, as :func:`load_pretrained` gives them."""
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    arch = _arch_from_hf_config(model.config.to_dict())
+    return from_hf_state_dict(sd, arch), arch
+
+
 def _hf_snapshot(model_name: str) -> Path:
     """The local HF hub snapshot directory of ``model_name`` (no download)."""
     hub = os.environ.get("HF_HUB_CACHE") or str(

@@ -210,3 +210,65 @@ def topk_mask_dense(pre: torch.Tensor, k: int) -> torch.Tensor:
     from .cuda_topk import topk_mask
 
     return topk_mask(pre, k)
+
+
+# ---------------------------------------------------------------------------
+# the (vals, idx) sparse form (``ops/topk.py:92-160`` of the JAX package:
+# ``jax.lax.top_k`` and an einsum there, no Pallas kernel, so plain PyTorch
+# on either device here)
+# ---------------------------------------------------------------------------
+
+
+def _order_keys(values: torch.Tensor) -> torch.Tensor:
+    """int64 keys of the last axis that rank as ``jax.lax.top_k`` does: by
+    value, descending, -0.0 below +0.0 (the f32 total order), then by the
+    lower index."""
+    mono = _monotone_int(values.float()).to(torch.int64)
+    idx = torch.arange(values.shape[-1], dtype=torch.int64, device=values.device)
+    return mono * (1 << 32) + ((1 << 32) - 1 - idx)
+
+
+def top_k(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: (values, indices), descending,
+    ties to the lower index."""
+    idx = torch.topk(_order_keys(values), k, dim=-1).indices
+    return torch.gather(values, -1, idx), idx
+
+
+def topk_select(pre: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k largest pre-activations of each row, relu'd: (vals [..., k]
+    descending, idx [..., k] int64 into the feature axis)."""
+    vals, idx = top_k(pre, k)
+    return relu(vals), idx
+
+
+def scatter_topk(vals: torch.Tensor, idx: torch.Tensor, hidden_dim: int) -> torch.Tensor:
+    """Scatter [..., k] (vals, idx) into a dense [..., hidden_dim] tensor."""
+    dense = torch.zeros(*vals.shape[:-1], hidden_dim, dtype=vals.dtype, device=vals.device)
+    return dense.scatter_(-1, idx.long(), vals)
+
+
+def sparse_decode(vals: torch.Tensor, idx: torch.Tensor, w_dec: torch.Tensor,
+                  b_dec: torch.Tensor) -> torch.Tensor:
+    """Reconstruction from the k active latents only: [B, D] =
+    sum_k vals[:, k] * w_dec[idx[:, k]] + b_dec, the values cast to
+    ``w_dec``'s dtype and summed in f32 (TF32 off)."""
+    from ..utils.device import f32_matmuls
+
+    rows = w_dec[idx]  # [B, k, D]
+    with f32_matmuls():
+        recon = torch.bmm(vals.to(rows.dtype).float()[:, None, :], rows.float())[:, 0]
+    return recon + b_dec
+
+
+def topk_encode(x: torch.Tensor, w_enc: torch.Tensor, b_enc: torch.Tensor,
+                b_pre: torch.Tensor | None, k: int, compute_dtype=torch.float32
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Centre, encode and select: (vals [B, k] relu'd, idx [B, k]).  The
+    product takes its operands in ``compute_dtype`` and sums in f32 (TF32
+    off); the selection is in f32."""
+    from ..utils.device import mm_f32
+
+    xc = x - b_pre if b_pre is not None else x
+    pre = mm_f32(xc.to(compute_dtype), w_enc.to(compute_dtype)) + b_enc
+    return topk_select(pre, k)

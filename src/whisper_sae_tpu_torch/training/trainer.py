@@ -25,6 +25,8 @@ coder entries); otherwise each step hands ``_loss_fn`` a slice view of
 the buffer (whisper-tiny 128x, whisper-large: the composed loss around
 the top-k encode).  Metrics stay on the device and are
 fetched once per epoch; the remainder batch goes through ``train_step``.
+``train_epochs_fused`` chains several such epochs with one fetch for all
+of them, and ``train()`` chains its fused epochs up to each checkpoint.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..models.sae import (
     DeadFeatureState,
     ReLUSAE,
     dead_feature_mask,
+    init_dead_state,
     relu_sae_loss,
     topk_sae_loss,
     update_dead_state,
@@ -152,9 +155,8 @@ class SAETrainer:
         self.throughput = ThroughputMeter(num_chips=1)
         self.threshold = getattr(model, "dead_feature_threshold", 10_000)
         # dead-feature counters of a model that keeps none of its own
-        self._own_dead = None if hasattr(model, "state") else DeadFeatureState(
-            torch.zeros(model.hidden_dim, dtype=torch.int32, device=self.device),
-            torch.zeros((), dtype=torch.int32, device=self.device))
+        self._own_dead = None if hasattr(model, "state") else init_dead_state(
+            model.hidden_dim, self.device)
 
     # ------------------------------------------------------------------
     # schedule
@@ -333,9 +335,12 @@ class SAETrainer:
     # epochs
     # ------------------------------------------------------------------
 
-    def _epoch_permutation(self, n: int, seed: int | None) -> torch.Tensor:
+    def _epoch_permutation(self, n: int, seed: int | None, epoch: int | None = None
+                           ) -> torch.Tensor:
+        """The order of epoch ``epoch`` (``self.epoch`` by default)."""
         base = self.config.seed if seed is None else seed
-        mixed = int(np.random.SeedSequence([base, self.epoch]).generate_state(1)[0])
+        epoch = self.epoch if epoch is None else epoch
+        mixed = int(np.random.SeedSequence([base, epoch]).generate_state(1)[0])
         perm = torch.randperm(n, generator=torch.Generator().manual_seed(mixed))
         return perm.to(self.device)
 
@@ -349,6 +354,26 @@ class SAETrainer:
             )
             for i, row in enumerate(host)
         ]
+
+    def _fused_steps(self, data, perm, steps: int) -> torch.Tensor:
+        """The epoch's ``steps`` full batches of device-resident ``data`` in
+        the order ``perm`` (None: as stored), with no host synchronisation;
+        -> the steps' metric rows [steps, 5], on the device."""
+        b = self.config.batch_size
+        sel = _tree(lambda a: a[perm[:steps * b]] if perm is not None else a[:steps * b], data)
+        indexed = self._use_indexed_epoch()
+        if indexed:  # the windowed kernel's layout
+            sel = self._indexed_prepare(sel)
+        rows = torch.stack([self._step(self._window_loss(sel, s, indexed)) for s in range(steps)])
+        self.global_step += steps
+        return rows
+
+    def _log_epochs(self, metrics: list[TrainingMetrics]) -> None:
+        self.metrics_history.extend(metrics)
+        if self.wandb_run is not None:
+            for m in metrics:
+                if m.step % 100 == 0:
+                    self._log_wandb(m)
 
     def train_epoch_fused(self, data, shuffle: bool = True, seed: int | None = None,
                           perm=None) -> list[TrainingMetrics]:
@@ -371,14 +396,8 @@ class SAETrainer:
         epoch_metrics: list[TrainingMetrics] = []
 
         if steps > 0:
-            sel = _tree(lambda a: a[perm[:steps * b]] if perm is not None else a[:steps * b], data)
-            indexed = self._use_indexed_epoch()
-            if indexed:  # the windowed kernel's layout
-                sel = self._indexed_prepare(sel)
             start_step = self.global_step
-            rows = [self._step(self._window_loss(sel, s, indexed)) for s in range(steps)]
-            self.global_step += steps
-            host = torch.stack(rows).cpu().numpy()  # the epoch's one fetch
+            host = self._fused_steps(data, perm, steps).cpu().numpy()  # the epoch's one fetch
             epoch_metrics.extend(self._convert_metrics(start_step, host))
             if (
                 self._resample_dataset is not None
@@ -391,13 +410,41 @@ class SAETrainer:
             tail = _tree(lambda a: a[perm[steps * b:]] if perm is not None else a[steps * b:], data)
             epoch_metrics.append(self.train_step(tail))
 
-        self.metrics_history.extend(epoch_metrics)
-        if self.wandb_run is not None:
-            for m in epoch_metrics:
-                if m.step % 100 == 0:
-                    self._log_wandb(m)
+        self._log_epochs(epoch_metrics)
         self.epoch += 1
         return epoch_metrics
+
+    def train_epochs_fused(self, data, epochs: int, shuffle: bool = True,
+                           seed: int | None = None) -> list[TrainingMetrics]:
+        """``epochs`` fused epochs chained on the device (``trainer.py:942-1010``
+        of the JAX package): each epoch's steps are queued behind the last
+        one's with no host fetch between them, and the epochs' metric rows,
+        kept on the device, are fetched once at the end.  The epochs' orders
+        are uploaded before the first step; each is the one
+        :meth:`train_epoch_fused` draws at that epoch, so the parameters and
+        metrics are the sequential loop's bit for bit.  Falls back to that
+        loop where an epoch boundary needs the host: a remainder batch
+        (``n % b``, ``n < b``) or a resample dataset."""
+        b = self.config.batch_size
+        data = _tree(self._to_device, data)
+        n = (data[0] if isinstance(data, tuple) else data).shape[0]
+        if n % b or n < b or self._resample_dataset is not None:
+            out: list[TrainingMetrics] = []
+            for _ in range(epochs):
+                out.extend(self.train_epoch_fused(data, shuffle=shuffle, seed=seed))
+            return out
+        steps = n // b
+        perms = [self._epoch_permutation(n, seed, self.epoch + e) if shuffle else None
+                 for e in range(epochs)]
+        starts, rows = [], []
+        for perm in perms:
+            starts.append(self.global_step)
+            rows.append(self._fused_steps(data, perm, steps))
+            self.epoch += 1
+        host = torch.stack(rows).cpu().numpy()  # the one fetch
+        metrics = [m for start, h in zip(starts, host) for m in self._convert_metrics(start, h)]
+        self._log_epochs(metrics)
+        return metrics
 
     def train_epoch_out_of_core(self, reader, chunk_tokens: int = 1 << 22,
                                 seed: int | None = None) -> list[TrainingMetrics]:
@@ -474,32 +521,57 @@ class SAETrainer:
             if chunk_tokens is None:
                 chunk_tokens = max(self.config.batch_size,
                                    (3 << 30) // dataloader.reader.row_bytes)
-        data = _tree(self._to_device, dataloader.data) if fused and not streamed else None
+        if fused and not streamed:
+            self._train_fused_groups(_tree(self._to_device, dataloader.data), epochs,
+                                     checkpoint_every, getattr(dataloader, "shuffle", True))
+            self.save_checkpoint("final.npz")
+            return
         for ep in range(self.epoch, epochs):
             self.throughput.start()
             if streamed:
                 epoch_metrics = self.train_epoch_out_of_core(dataloader.reader,
                                                              chunk_tokens=chunk_tokens)
-            elif fused:
-                epoch_metrics = self.train_epoch_fused(data, shuffle=getattr(dataloader, "shuffle", True))
             else:
                 epoch_metrics = self.train_epoch(dataloader)
             self.throughput.add_tokens(
                 getattr(dataloader, "num_tokens", 0) or self.config.batch_size * len(epoch_metrics)
             )
-            rate = self.throughput.stop()
-            count = max(len(epoch_metrics), 1)
-            avg_loss = sum(m.loss for m in epoch_metrics) / count
-            avg_l0 = sum(m.l0 for m in epoch_metrics) / count
-            dead = epoch_metrics[-1].dead_feature_ratio if epoch_metrics else 0.0
-            print(
-                f"Epoch {ep + 1}: loss={avg_loss:.4f}, L0={avg_l0:.1f}, dead={dead:.1%}, "
-                f"{rate['activations_per_sec_per_chip']:,.0f} act/s/card",
-                flush=True,
-            )
+            self._print_epoch(ep, epoch_metrics, self.throughput.stop())
             if (ep + 1) % checkpoint_every == 0:
                 self.save_checkpoint(f"checkpoint_epoch{ep + 1}.npz")
         self.save_checkpoint("final.npz")
+
+    def _train_fused_groups(self, data, epochs: int, checkpoint_every: int, shuffle: bool) -> None:
+        """``train()``'s fused epochs, chained up to each checkpoint boundary
+        (``trainer.py:1147-1180`` of the JAX package): one
+        :meth:`train_epochs_fused` call and one throughput reading a group,
+        one printed line an epoch."""
+        n_rows = (data[0] if isinstance(data, tuple) else data).shape[0]
+        ep = self.epoch
+        while ep < epochs:
+            group = min(checkpoint_every - ep % checkpoint_every, epochs - ep)
+            self.throughput.start()
+            group_metrics = self.train_epochs_fused(data, epochs=group, shuffle=shuffle)
+            self.throughput.add_tokens(n_rows * group)
+            rate = self.throughput.stop()
+            per_epoch = max(len(group_metrics) // group, 1)
+            for g in range(group):
+                self._print_epoch(ep + g, group_metrics[g * per_epoch:(g + 1) * per_epoch], rate)
+            ep += group
+            if ep % checkpoint_every == 0:
+                self.save_checkpoint(f"checkpoint_epoch{ep}.npz")
+
+    @staticmethod
+    def _print_epoch(ep: int, epoch_metrics: list[TrainingMetrics], rate: dict) -> None:
+        count = max(len(epoch_metrics), 1)
+        avg_loss = sum(m.loss for m in epoch_metrics) / count
+        avg_l0 = sum(m.l0 for m in epoch_metrics) / count
+        dead = epoch_metrics[-1].dead_feature_ratio if epoch_metrics else 0.0
+        print(
+            f"Epoch {ep + 1}: loss={avg_loss:.4f}, L0={avg_l0:.1f}, dead={dead:.1%}, "
+            f"{rate['activations_per_sec_per_chip']:,.0f} act/s/card",
+            flush=True,
+        )
 
     # ------------------------------------------------------------------
     # checkpoints and metrics

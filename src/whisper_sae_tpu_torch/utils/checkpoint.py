@@ -122,3 +122,13 @@ def export_torch_state_dict(params: dict, state=None, path: str | Path | None = 
     if path is not None:
         torch.save(sd, str(path))
     return sd
+
+
+def import_torch_state_dict(sd) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`export_torch_state_dict`: a reference ``state_dict``
+    (tensors or numpy arrays) -> CPU parameter tensors in our layout."""
+    return {
+        our_key: torch.from_numpy(np.ascontiguousarray(fn(_to_numpy(sd[torch_key]))))
+        for torch_key, (our_key, fn) in _TORCH_EXPORT_TOPK.items()
+        if torch_key in sd
+    }
