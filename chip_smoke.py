@@ -404,6 +404,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
     1e-5 of the max; ``scatter_topk`` of it equal to ``topk_hidden_dense``
     on rows with no tie at the threshold; ``sparse_decode`` against the
     dense decode at rtol 1e-5.  Kernel A's entries carry ``at_api_slice``.
+25. ``parallel/``, the ``(data, model)`` mesh over ``torch.distributed``
+    (one card: it measures correctness and the collectives' cost, not
+    scaling).  (a) ``python -m torch.distributed.run --standalone
+    --nproc_per_node=1 chip_smoke.py --torchrun-cli ...``: the CLI's
+    ``main`` under torchrun (NCCL, a 1x1 mesh) on phase 24's whisper-tiny
+    8x config over a 2^16-row cache, one epoch; kernel A's launches above
+    0; ``metrics.json`` and ``sae_final.npz`` bit for bit those of the same
+    CLI run without torchrun (else the losses at AMP rtol 1e-3, logged).
+    (b) Two ranks sharing the card (``torch.multiprocessing`` spawn,
+    ``file://`` rendezvous, gloo on CUDA tensors: NCCL refuses two ranks on
+    one device; every child joined with a timeout), each run against one
+    process on the card with the same seed and batches: dp = 2 at
+    whisper-tiny 8x (global batch 4096, 8 steps, then a fused epoch of 2^16
+    rows; kernel A launched on each rank, losses at rtol 1e-3, parameters
+    bit for bit across ranks); tp = 2 at whisper-large 32x (D=1280,
+    H=40960, 20,480 a rank, batch 8192, 6 steps: each step's selection,
+    the distributed bisection over the model group, against the blocked
+    encode on the same step's gathered parameters on >= 99.9% of rows; the
+    losses at rtol 1e-3 against the one-process run, whose selection is
+    logged as it drifts; b_dec and b_pre bit for bit across ranks; the
+    gathered checkpoint loads into one ``TopKSAE``); dp = 2 extraction
+    (whisper-tiny bf16, 64 clips in batches of 32: the caches bit for bit
+    those of one process, else within the stack bars with the layers
+    logged; the encoder kernels launched on each rank).  (c) Each run's ms
+    a step and, from CUDA events around every ``all_reduce``, the
+    collectives' ms a step and share by caller (the tp run's 32 bisection
+    all-reduces ``topk_threshold_sharded``, the recon's ``forward``, the
+    gradient ``_flat_all_reduce``; the dp run's ``reduce_gradients``),
+    with the card's name and power limit.  Kernel A's and the encoder
+    kernels' entries carry ``at_parallel`` launch counts.
 
 Before them, one line lists the rows of phases 1, 8, 11, 20, 21, 22, 23 and 24 that select
 differently from the plain version, with their gaps, and one the
@@ -5107,6 +5137,538 @@ def api_slice_path(work: Path, dev, card: str, train_mod, cfg_mod, cache_mod, sa
             "chained": chain, "sparse": sparse, "phase_s": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: parallel/ -- the (data, model) mesh over torch.distributed
+# ---------------------------------------------------------------------------
+
+P25_ROWS = 1 << 16  # the CLI's cache and the dp run's fused epoch
+P25_DP_BATCH, P25_DP_STEPS = 4096, 8
+P25_TP_BATCH, P25_TP_STEPS = 8192, 6  # whisper-large 32x (bench.py:83-112)
+P25_LD, P25_LH = 1280, 40960
+P25_CLIPS, P25_CLIP_BATCH = 64, 32
+P25_JOIN_S = 420  # every child's join timeout: a hung collective fails the phase
+P25_GROUP_S = 300
+
+
+def p25_config(work: Path, out: str) -> Path:
+    """Phase 24's whisper-tiny 8x CLI config (tiny_default.yaml: D=384,
+    H=3072, k=32, batch 128, AMP), one epoch, on phase 25's cache."""
+    import yaml
+
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    cfg["training"].update(epochs=1, warmup_steps=50)
+    cfg["data"]["cache_dir"] = str(work / "cache")
+    cfg["output_dir"] = str(work / out)
+    path = work / f"{out}.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    return path
+
+
+def p25_torchrun_child(argv: list[str]) -> None:
+    """``chip_smoke.py --torchrun-cli OUT ARGS``, started by torchrun: the
+    CLI's ``main`` with the launch environment torchrun gives, then kernel
+    A's launch counts (and the mesh the CLI built) written to OUT."""
+    from whisper_sae_tpu_torch import train as train_mod
+    from whisper_sae_tpu_torch.ops import cuda_sae, topk
+    import torch.distributed as dist
+
+    out, args = Path(argv[0]), argv[1:]
+    zero_kernel_a(cuda_sae, topk)
+    train_mod.main(args)
+    counts = {**kernel_a_launches(cuda_sae), "plain_calls": sum(topk.plain_calls.values()),
+              "backend": dist.get_backend(), "world": dist.get_world_size(),
+              "device": str(torch.cuda.current_device())}
+    out.write_text(json.dumps(counts))
+    dist.destroy_process_group()
+
+
+def p25_cli(work: Path, dev, gen, mix, train_mod, cfg_mod, cache_mod, cuda_sae, topk, card) -> dict:
+    """Phase 25a: the CLI under ``torchrun`` (NCCL, one process: a 1x1
+    mesh) on a 2^16-row cache, against the same CLI run without torchrun."""
+    import os
+
+    write_rows(work / "cache", P25_ROWS, gen, mix, cfg_mod, cache_mod)
+    counts_path = work / "torchrun_counts.json"
+    cfg = p25_config(work, "torchrun")
+    args = ["--config", str(cfg), "--layer", "encoder:0", "--no-wandb"]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node=1", str(ROOT / "chip_smoke.py"), "--torchrun-cli",
+                           str(counts_path), *args], cwd=work, env=env, capture_output=True,
+                          text=True, timeout=P25_JOIN_S)
+    torchrun_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"phase 25a: torchrun CLI exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check("Mesh: data=1 model=1 (nccl)" in proc.stdout,
+          f"phase 25a: the CLI built no 1x1 NCCL mesh:\n{proc.stdout[-2000:]}")
+    counts = json.loads(counts_path.read_text())
+    log(f"  torchrun CLI: {torchrun_s:.1f} s (one process start, NCCL, 1x1 mesh), "
+        f"launches {counts}")
+    check(counts["fused_sae_loss_indexed"] > 0 and counts["plain_calls"] == 0,
+          f"phase 25a: kernel A not launched under torchrun: {counts}")
+    zero_kernel_a(cuda_sae, topk)
+    t0 = time.perf_counter()
+    train_mod.main(["--config", str(p25_config(work, "single")), "--layer", "encoder:0",
+                    "--no-wandb"])
+    single_s = time.perf_counter() - t0
+    single = kernel_a_launches(cuda_sae)
+    run = next((work / "single").glob("*_encoder_layer0")).name
+    a = json.loads((work / "torchrun" / run / "metrics.json").read_text())
+    b = json.loads((work / "single" / run / "metrics.json").read_text())
+    check(len(a) == len(b) == P25_ROWS // 128, f"phase 25a: {len(a)} / {len(b)} metric rows")
+    same = a == b
+    if not same:
+        la, lb = np.array([r["loss"] for r in a]), np.array([r["loss"] for r in b])
+        worst = float(np.max(np.abs(la - lb) / np.abs(lb)))
+        log(f"  torchrun CLI metrics.json differs from the single-process run's (max rel loss "
+            f"{worst:.3e}): the dp step sums its gradients through a flat buffer all-reduced "
+            "over a one-rank group; held at the AMP bar")
+        check(worst <= 1e-3, f"phase 25a: torchrun losses off by {worst:.3e}")
+    with np.load(work / "torchrun" / run / "sae_final.npz") as za, \
+            np.load(work / "single" / run / "sae_final.npz") as zb:
+        params_same = all(np.array_equal(za[k], zb[k]) for k in za.files)
+    log(f"  [{card}] torchrun CLI against the single-process CLI ({single_s:.1f} s in process, "
+        f"launches {single}): metrics.json bit for bit {same}, sae_final.npz bit for bit "
+        f"{params_same}")
+    shutil.rmtree(work / "cache", ignore_errors=True)
+    return {"torchrun_s": torchrun_s, "single_s": single_s, "launches": counts,
+            "metrics_bit_equal": same, "params_bit_equal": params_same}
+
+
+def p25_spawn(scenario: str, world: int, work: Path, **kwargs) -> list:
+    """``scenario`` in ``world`` processes sharing the card (gloo on CUDA
+    tensors, ``file://`` rendezvous); -> each rank's result.  A rank still
+    running after the join timeout, or any failing rank, fails the phase."""
+    import multiprocessing as mp
+    import pickle
+
+    init = work / f"rendezvous_{scenario}"
+    init.unlink(missing_ok=True)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=p25_rank, args=(r, world, str(init), scenario, kwargs, str(work)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        deadline = time.monotonic() + P25_JOIN_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        check(not hung, f"phase 25 {scenario}: ranks {hung} still running after {P25_JOIN_S} s")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    errs = [f.read_text() for f in sorted(work.glob(f"{scenario}_*.err"))]
+    check(not errs and all(p.exitcode == 0 for p in procs),
+          f"phase 25 {scenario}: exit codes {[p.exitcode for p in procs]}\n" + "\n".join(errs))
+    out = []
+    for r in range(world):
+        with open(work / f"{scenario}_{r}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def p25_rank(rank: int, world: int, init: str, scenario: str, kwargs: dict, work: str) -> None:
+    """A rank of ``p25_spawn``: a gloo group named by the caller (two ranks
+    on one card: NCCL refuses that), then the scenario."""
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    from whisper_sae_tpu_torch.parallel import initialize_if_needed
+
+    try:
+        initialize_if_needed(f"file://{init}", world, rank, backend="gloo",
+                             timeout_s=P25_GROUP_S)
+        result = globals()[scenario](rank, Path(work), **kwargs)
+        with open(Path(work) / f"{scenario}_{rank}.pkl", "wb") as f:
+            pickle.dump(result, f)
+    except BaseException:
+        (Path(work) / f"{scenario}_{rank}.err").write_text(f"rank {rank}:\n{traceback.format_exc()}")
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+class CollectiveTimer:
+    """CUDA events around every ``torch.distributed.all_reduce`` the port
+    makes while ``on``, summed by the calling function (the bisection's
+    ``topk_threshold_sharded``, the gradient ``_flat_all_reduce`` /
+    ``reduce_gradients``, the recon's ``forward``, ...)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.real = dist, dist.all_reduce
+        self.on, self.events = False, []
+        dist.all_reduce = self._all_reduce
+
+    def _all_reduce(self, tensor, *a, **kw):
+        if not self.on:
+            return self.real(tensor, *a, **kw)
+        caller = sys._getframe(1).f_code.co_name
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.real(tensor, *a, **kw)
+        end.record()
+        self.events.append((caller, start, end))
+        return out
+
+    def totals(self) -> dict:
+        torch.cuda.synchronize()
+        out: dict = {}
+        for caller, start, end in self.events:
+            ms, n = out.get(caller, (0.0, 0))
+            out[caller] = (ms + start.elapsed_time(end), n + 1)
+        self.events.clear()
+        return out
+
+
+def p25_params_bits(params: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def p25_tiny_rows(n: int) -> torch.Tensor:
+    """Whisper-tiny-width rows made on the card from a seed: the same on
+    every rank and in the parent."""
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    mix = torch.randn(RANK, D, generator=gen, device="cuda") / RANK ** 0.5
+    return gaussian_rows(n, gen, mix)
+
+
+def p25_trainer(mesh, d: int, h: int, batch: int, run_dir: Path):
+    from whisper_sae_tpu_torch.config import TrainingConfig
+    from whisper_sae_tpu_torch.models.sae import TopKSAE
+    from whisper_sae_tpu_torch.training.trainer import SAETrainer
+
+    sae = TopKSAE(d, h, K, seed=42, device="cuda")
+    return SAETrainer(sae, TrainingConfig(batch_size=batch, learning_rate=1e-3, warmup_steps=2,
+                                          use_amp=True, seed=42), run_dir=run_dir, mesh=mesh)
+
+
+def p25_timed(fn) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def p25_dp(rank: int, work: Path) -> dict:
+    """Phase 25b, a rank of dp = 2 at whisper-tiny 8x: 8 steps of the
+    global batch 4096 (2048 rows a rank, kernel A), then one fused epoch
+    over 2^16 rows (the windowed kernel A at the rank's offsets)."""
+    from whisper_sae_tpu_torch.ops import cuda_sae, topk
+    from whisper_sae_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(2, 1)
+    timer = CollectiveTimer()
+    rows = p25_tiny_rows(P25_ROWS)
+    trainer = p25_trainer(mesh, D, H, P25_DP_BATCH, work / f"dp{rank}")
+    zero_kernel_a(cuda_sae, topk)
+    trainer.train_step(rows[:P25_DP_BATCH])  # warm-up: not checked against the reference
+    timer.on = True
+    ms_steps, step_ms = p25_timed(lambda: [trainer.train_step(
+        rows[i * P25_DP_BATCH:(i + 1) * P25_DP_BATCH]) for i in range(P25_DP_STEPS)])
+    step_coll = timer.totals()
+    ms_epoch, epoch_ms = p25_timed(lambda: trainer.train_epoch_fused(rows))
+    epoch_coll = timer.totals()
+    timer.on = False
+    return {"losses": [m.loss for m in ms_steps + ms_epoch],
+            "launches": kernel_a_launches(cuda_sae), "plain_calls": sum(topk.plain_calls.values()),
+            "bits": p25_params_bits(trainer.model.params),
+            "step_ms": step_ms / P25_DP_STEPS, "epoch_step_ms": epoch_ms / len(ms_epoch),
+            "collectives": {"steps": step_coll, "epoch": epoch_coll},
+            "epoch_steps": len(ms_epoch)}
+
+
+def p25_dp_reference() -> list[float]:
+    """The dp run on one process: the same SAE, warm-up step and batches."""
+    rows = p25_tiny_rows(P25_ROWS)
+    trainer = p25_trainer(None, D, H, P25_DP_BATCH, ROOT / "build" / "chip_smoke" / "p25" / "dp_ref")
+    trainer.train_step(rows[:P25_DP_BATCH])
+    ms = [trainer.train_step(rows[i * P25_DP_BATCH:(i + 1) * P25_DP_BATCH])
+          for i in range(P25_DP_STEPS)]
+    ms += trainer.train_epoch_fused(rows)
+    return [m.loss for m in ms]
+
+
+def p25_selection_sig(mask: torch.Tensor, offset: int) -> torch.Tensor:
+    """Per row, two sums over the selected features' global indices (a
+    row's signature: equal signatures, same features, but for
+    collisions no test run has)."""
+    idx = torch.arange(mask.shape[1], device=mask.device, dtype=torch.int64) + offset + 1
+    m = mask.to(torch.int64)
+    return torch.stack([(m * idx).sum(1), (m * (idx * idx % 1000003)).sum(1)], dim=1)
+
+
+def p25_large_rows(step: int) -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(2500 + step)
+    mix = torch.randn(RANK, P25_LD, generator=gen, device="cuda") / RANK ** 0.5
+    return gaussian_rows(P25_TP_BATCH, gen, mix)
+
+
+def p25_tp(rank: int, work: Path) -> dict:
+    """Phase 25b, a rank of tp = 2 at whisper-large 32x (20,480 features a
+    rank): before each of 6 steps, the signature of the rows' selection
+    (the step's own product and the bisection over the model group) and,
+    on rank 0, that of the single-device top-k encode (the blocked encode)
+    on the same step's gathered parameters; then the step; then the
+    gathered checkpoint (rank 0 writes it)."""
+    import torch.distributed as dist
+
+    from whisper_sae_tpu_torch.models.sae import topk_hidden_dense
+    from whisper_sae_tpu_torch.parallel import make_mesh
+    from whisper_sae_tpu_torch.parallel.tp_topk import topk_threshold_sharded
+    from whisper_sae_tpu_torch.utils.device import mm_f32
+
+    mesh = make_mesh(1, 2)
+    timer = CollectiveTimer()
+    trainer = p25_trainer(mesh, P25_LD, P25_LH, P25_TP_BATCH, work / "tp")
+    trainer._place_on_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    losses, sigs, kernel_sigs, step_ms, colls = [], [], [], [], []
+    for s in range(P25_TP_STEPS):
+        x = p25_large_rows(s)
+        full = trainer.full_params()
+        if rank == 0:
+            with torch.no_grad():
+                hidden = topk_hidden_dense(full, x, K, torch.bfloat16)
+                kernel_sigs.append(p25_selection_sig(hidden > 0, 0).cpu())
+                del hidden
+        del full
+        p = trainer.model.params
+        with torch.no_grad():
+            pre = mm_f32((x - p["b_pre"]).bfloat16(), p["w_enc"].bfloat16()) + p["b_enc"]
+            xi, th = topk_threshold_sharded(pre, K, mesh.model_group)
+            sig = p25_selection_sig((xi >= th) & (pre > 0), mesh.feature_block(P25_LH).start)
+            del pre, xi
+            dist.all_reduce(sig, group=mesh.model_group)
+        sigs.append(sig.cpu())
+        timer.on = s > 0  # the first step also warms up
+        m, ms = p25_timed(lambda: trainer.train_step(x))
+        timer.on = False
+        if s > 0:
+            step_ms.append(ms)
+            colls.append(timer.totals())
+        losses.append(m.loss)
+    peak = torch.cuda.max_memory_allocated()
+    specs = trainer._tp_family().param_specs
+    repl = {k: v.detach().cpu().numpy().tobytes() for k, v in trainer.model.params.items()
+            if specs[k] is None}
+    local = {k: tuple(v.shape) for k, v in trainer.model.params.items()}
+    trainer.save_checkpoint("tp.npz")
+    full_bits = p25_params_bits(trainer.full_params())
+    return {"losses": losses, "sigs": sigs, "kernel_sigs": kernel_sigs, "step_ms": step_ms,
+            "collectives": colls,
+            "peak_bytes": peak, "replicated": repl, "local_shapes": local, "full_bits": full_bits,
+            "ckpt": str(trainer.run_dir / "tp.npz")}
+
+
+def p25_tp_reference() -> tuple[list, list]:
+    """The tp run on one process (the blocked encode route): losses and
+    the selection signature of each step's rows before the step."""
+    from whisper_sae_tpu_torch.models.sae import topk_hidden_dense
+
+    trainer = p25_trainer(None, P25_LD, P25_LH, P25_TP_BATCH,
+                          ROOT / "build" / "chip_smoke" / "p25" / "tp_ref")
+    losses, sigs = [], []
+    for s in range(P25_TP_STEPS):
+        x = p25_large_rows(s)
+        with torch.no_grad():
+            hidden = topk_hidden_dense(trainer.model.params, x, K, torch.bfloat16)
+            sigs.append(p25_selection_sig(hidden > 0, 0).cpu())
+            del hidden
+        losses.append(trainer.train_step(x).loss)
+    return losses, sigs
+
+
+def p25_extract_run(work: Path, out: str, mesh) -> dict:
+    from whisper_sae_tpu_torch.config import DataConfig, WhisperConfig
+    from whisper_sae_tpu_torch.data.feature_cache import FeatureCache, extract_and_cache_features
+    from whisper_sae_tpu_torch.data.librispeech import (
+        AudioBatchLoader, LibriSpeechFeaturesOnly, SyntheticSpeechDataset)
+    from whisper_sae_tpu_torch.models import whisper as W
+    from whisper_sae_tpu_torch.ops import cuda_encoder as CE, encoder as E
+
+    arch = W.arch_for("openai/whisper-tiny")
+    params = W.init_whisper(torch.Generator(device="cuda").manual_seed(0), arch)
+    ds = SyntheticSpeechDataset(num_samples=P25_CLIPS, seed=0, n_mels=arch.n_mels, device="cuda")
+    cache = FeatureCache(work / out / "features", WhisperConfig(),
+                         DataConfig(dataset_name="synthetic", max_samples=P25_CLIPS))
+    reset_enc_launches(CE)
+    E.plain_calls.clear()
+    _, ms = p25_timed(lambda: extract_and_cache_features(
+        params, arch, AudioBatchLoader(LibriSpeechFeaturesOnly(ds), batch_size=P25_CLIP_BATCH),
+        cache, encoder_layers=[0, 1, 2, 3], decoder_layers=[3], max_samples=P25_CLIPS,
+        progress=False, compute_dtype=torch.bfloat16, device="cuda", mesh=mesh))
+    return {"launches": enc_launches(CE), "plain_calls": sum(E.plain_calls.values()),
+            "ms": ms, "batches": P25_CLIPS // P25_CLIP_BATCH}
+
+
+def p25_extract(rank: int, work: Path) -> dict:
+    """Phase 25b, a rank of dp = 2 extraction (whisper-tiny, bf16, 64 clips
+    in batches of 32: 16 clips a rank a batch); rank 0 writes the cache."""
+    from whisper_sae_tpu_torch.parallel import make_mesh
+
+    return p25_extract_run(work, "dp_cache", make_mesh(2, 1))
+
+
+def parallel_path(work: Path, dev, card: str, gen, mix, train_mod, cfg_mod, cache_mod, sae_mod,
+                  cuda_sae, topk) -> dict:
+    """Phase 25: (a) the CLI under torchrun; (b) two ranks sharing the card
+    through the library: dp = 2 training, tp = 2 at whisper-large 32x,
+    dp = 2 extraction, each against one process on the card; (c) times."""
+    t_phase = time.perf_counter()
+    work = work / "p25"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    log("  (a) the CLI under torchrun --nproc_per_node=1 (NCCL) against the CLI alone")
+    cli = p25_cli(work, dev, gen, mix, train_mod, cfg_mod, cache_mod, cuda_sae, topk, card)
+
+    log("  (b) dp = 2 sharing the card (gloo on CUDA tensors): whisper-tiny 8x, global batch "
+        f"{P25_DP_BATCH}, {P25_DP_STEPS} steps and one fused epoch of {P25_ROWS} rows")
+    t0 = time.perf_counter()
+    dp = p25_spawn("p25_dp", 2, work)
+    dp_s = time.perf_counter() - t0
+    ref = p25_dp_reference()
+    for r, out in enumerate(dp):
+        check(out["launches"]["fused_sae_loss"] > 0 and out["launches"]["fused_sae_loss_indexed"] > 0
+              and out["plain_calls"] == 0, f"phase 25 dp: rank {r} launches {out['launches']}")
+        got, want = np.array(out["losses"]), np.array(ref)
+        check(got.shape == want.shape, f"phase 25 dp: {got.shape} losses, {want.shape} reference")
+        worst = float(np.max(np.abs(got - want) / np.abs(want)))
+        check(worst <= 1e-3, f"phase 25 dp: rank {r} losses off the reference by {worst:.3e}")
+    check(dp[0]["bits"] == dp[1]["bits"], "phase 25 dp: the ranks' parameters differ")
+    dp_worst = float(np.max(np.abs(np.array(dp[0]["losses"]) - ref) / np.abs(ref)))
+    log(f"  [{card}] dp = 2: {dp_s:.1f} s with the process starts; losses within {dp_worst:.3e} "
+        f"of one process; parameters bit for bit across ranks; kernel A launches by rank "
+        f"{[o['launches'] for o in dp]}; ms a step {[round(o['step_ms'], 4) for o in dp]} "
+        f"(fused epoch {[round(o['epoch_step_ms'], 4) for o in dp]}); collectives "
+        f"{json.dumps(p25_coll_summary(dp[0]['collectives']['steps'], dp[0]['step_ms'], P25_DP_STEPS))}")
+
+    log(f"  (b) tp = 2 sharing the card: whisper-large 32x (D={P25_LD}, H={P25_LH}, "
+        f"{P25_LH // 2} a rank), batch {P25_TP_BATCH}, {P25_TP_STEPS} steps")
+    t0 = time.perf_counter()
+    tp = p25_spawn("p25_tp", 2, work)
+    tp_s = time.perf_counter() - t0
+    ref_losses, ref_sigs = p25_tp_reference()
+    agree, drift = [], []
+    for s in range(P25_TP_STEPS):
+        check(torch.equal(tp[0]["sigs"][s], tp[1]["sigs"][s]),
+              f"phase 25 tp: step {s}: the ranks' signatures differ")
+        agree.append(float((tp[0]["sigs"][s] == tp[0]["kernel_sigs"][s]).all(dim=1).float().mean()))
+        drift.append(float((tp[0]["sigs"][s] == ref_sigs[s]).all(dim=1).float().mean()))
+    check(min(agree) >= 0.999, f"phase 25 tp: rows selecting as the blocked encode does on the "
+          f"same parameters, by step: {agree}")
+    got, want = np.array(tp[0]["losses"]), np.array(ref_losses)
+    tp_worst = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(tp_worst <= 1e-3, f"phase 25 tp: losses off the reference by {tp_worst:.3e}")
+    check(tp[0]["replicated"] == tp[1]["replicated"] and set(tp[0]["replicated"]) == {"b_dec", "b_pre"},
+          "phase 25 tp: replicated leaves differ across ranks")
+    check(tp[0]["local_shapes"]["w_enc"] == (P25_LD, P25_LH // 2),
+          f"phase 25 tp: local w_enc {tp[0]['local_shapes']['w_enc']}")
+    from whisper_sae_tpu_torch.utils.checkpoint import load_pytree
+
+    tree, meta = load_pytree(tp[0]["ckpt"])
+    single = sae_mod.TopKSAE(P25_LD, P25_LH, K, params=tree["params"], device="cuda")
+    check(p25_params_bits(single.params) == tp[0]["full_bits"] == tp[1]["full_bits"]
+          and meta["global_step"] == P25_TP_STEPS,
+          "phase 25 tp: the gathered checkpoint does not load as the trained SAE")
+    del single, tree
+    tp_ms = [float(np.mean(o["step_ms"])) for o in tp]
+    log(f"  [{card}] tp = 2: {tp_s:.1f} s with the process starts; rows selecting as the "
+        f"single-device blocked encode on the same parameters, by step {agree}; as the "
+        f"independent one-process run's (its parameters drifting apart by AdamW's ~lr steps "
+        f"where the two gradients' signs differ) {drift}; losses within {tp_worst:.3e}; b_dec, "
+        f"b_pre bit for bit across ranks; the "
+        f"gathered checkpoint loads into one TopKSAE; peak GB by rank "
+        f"{[round(o['peak_bytes'] / 1e9, 3) for o in tp]}; ms a step {[round(m, 3) for m in tp_ms]}; "
+        f"collectives {json.dumps(p25_coll_summary(p25_merge(tp[0]['collectives']), tp_ms[0], P25_TP_STEPS - 1))}")
+
+    log(f"  (b) dp = 2 extraction sharing the card: whisper-tiny bf16, {P25_CLIPS} clips in "
+        f"batches of {P25_CLIP_BATCH}")
+    t0 = time.perf_counter()
+    ex = p25_spawn("p25_extract", 2, work)
+    ex_s = time.perf_counter() - t0
+    one = p25_extract_run(work, "one_cache", None)
+    for r, out in enumerate(ex):
+        check(all(out["launches"][n] > 0 for n in ("conv_stem", "ln_qkv", "self_attention",
+                                                   "out_proj", "mlp_block"))
+              and out["plain_calls"] == 0, f"phase 25 extraction: rank {r} launches {out['launches']}")
+    same_layers, differing = p25_same_caches(work, cfg_mod, cache_mod)
+    log(f"  [{card}] dp = 2 extraction: {ex_s:.1f} s with the process starts, ms by rank "
+        f"{[round(o['ms'], 1) for o in ex]} (one process {one['ms']:.1f}); encoder launches by "
+        f"rank {[o['launches'] for o in ex]}; caches bit for bit: {same_layers}; within the "
+        f"stack bars only: {differing}")
+    return {"card": card, "cli": cli,
+            "dp": {"s": dp_s, "worst_rel": dp_worst, "step_ms": [o["step_ms"] for o in dp],
+                   "epoch_step_ms": [o["epoch_step_ms"] for o in dp],
+                   "launches": [o["launches"] for o in dp],
+                   "collectives": p25_coll_summary(dp[0]["collectives"]["steps"], dp[0]["step_ms"],
+                                                   P25_DP_STEPS)},
+            "tp": {"s": tp_s, "worst_rel": tp_worst, "agree": agree, "drift": drift,
+                   "step_ms": tp_ms,
+                   "peak_gb": [o["peak_bytes"] / 1e9 for o in tp],
+                   "collectives": p25_coll_summary(p25_merge(tp[0]["collectives"]), tp_ms[0],
+                                                   P25_TP_STEPS - 1)},
+            "extract": {"s": ex_s, "ms": [o["ms"] for o in ex], "one_ms": one["ms"],
+                        "launches": [o["launches"] for o in ex], "bit_equal": same_layers,
+                        "within_bars": differing},
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def p25_merge(steps: list) -> dict:
+    out: dict = {}
+    for d in steps:
+        for k, (ms, n) in d.items():
+            a, b = out.get(k, (0.0, 0))
+            out[k] = (a + ms, b + n)
+    return out
+
+
+def p25_coll_summary(totals: dict, step_ms: float, steps: int) -> dict:
+    """ms a step, calls a step and share of the step of each collective."""
+    return {k: {"ms": ms / steps, "calls": n / steps, "share": ms / steps / step_ms}
+            for k, (ms, n) in totals.items()}
+
+
+def p25_same_caches(work: Path, cfg_mod, cache_mod) -> tuple[list, list]:
+    """The dp cache against the one-process cache, layer by layer: bit for
+    bit, else within the stack bars (2^-4 max, 2^-7 mean, relative)."""
+    caches = [cache_mod.FeatureCache(work / d / "features", cfg_mod.WhisperConfig(),
+                                     cfg_mod.DataConfig(dataset_name="synthetic",
+                                                        max_samples=P25_CLIPS))
+              for d in ("dp_cache", "one_cache")]
+    same, differing = [], []
+    for comp, layer in [("encoder", l) for l in range(4)] + [("decoder", 3)]:
+        (a, ma), (b, mb) = (c.load(comp, layer) for c in caches)
+        check(ma.num_tokens == mb.num_tokens and ma.num_samples == mb.num_samples == P25_CLIPS,
+              f"phase 25 extraction: {comp}:{layer} metadata differs")
+        if torch.equal(a, b):
+            same.append(f"{comp}:{layer}")
+            continue
+        d = (a.float() - b.float()).abs()
+        ref = b.float().abs()
+        mx, mean = float(d.max() / ref.max()), float(d.mean() / ref.mean())
+        differing.append({"layer": f"{comp}:{layer}", "max_rel": mx, "mean_rel": mean})
+        check(mx <= 2 ** -4 and mean <= 2 ** -7,
+              f"phase 25 extraction: {comp}:{layer} off the one-process cache ({mx:.3e}, {mean:.3e})")
+    return same, differing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5461,6 +6023,21 @@ def main() -> int:
         if entry["name"] in a24["launches"]:
             entry["at_api_slice"] = {"launches": a24["launches"][entry["name"]]}
     log(f"  api slice [{card}]: {json.dumps({k_: v for k_, v in a24.items() if k_ != 'launches'})}")
+    log("phase 25: parallel/ -- the (data, model) mesh over torch.distributed: (a) the CLI under "
+        "torchrun, (b) two ranks sharing the card (dp, tp at whisper-large 32x, dp extraction), "
+        "each against one process; (c) times (two ranks on one card measure correctness and the "
+        "collectives' cost, not scaling)")
+    p25 = parallel_path(work, dev, card, torch.Generator(device=dev).manual_seed(2025), mix,
+                        train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae, topk)
+    for entry in kernels:
+        name = entry["name"]
+        if name in ("fused_sae_loss", "fused_sae_loss_indexed"):
+            entry["at_parallel"] = {"torchrun_cli": p25["cli"]["launches"][name],
+                                    "dp_by_rank": [l_[name] for l_ in p25["dp"]["launches"]]}
+        elif name in ENC_WRAPPERS:
+            entry["at_parallel"] = {"dp_extraction_by_rank": [l_[name] for l_ in
+                                                              p25["extract"]["launches"]]}
+    log(f"  parallel [{card}]: {json.dumps({k_: v for k_, v in p25.items() if k_ != 'card'})}")
     log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20, 21, 22, 23 and 24): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")
@@ -5474,6 +6051,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--torchrun-cli"]:  # phase 25a's child, started by torchrun
+        p25_torchrun_child(sys.argv[2:])
+        sys.exit(0)
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -3,9 +3,10 @@
 The port's own copy of ``whisper_sae_tpu/config.py:31-178``: the same
 sections, fields, defaults and validation ranges, so the same YAML files
 (e.g. ``configs/tiny_default.yaml``) load unchanged in either package.
-``MeshConfig`` and ``TrainingConfig.matmul_precision`` are parsed for
-schema compatibility; the port's trainer runs on one card and keeps its
-f32 products in true f32 whatever ``matmul_precision`` says.
+``MeshConfig`` is the ``(data, model)`` mesh the CLI builds over its
+ranks under torchrun (``parallel/mesh.py``).  ``TrainingConfig.matmul_precision``
+is parsed for schema compatibility; the port keeps its f32 products in
+true f32 whatever it says.
 """
 
 from __future__ import annotations
@@ -108,12 +109,13 @@ class WandbConfig(BaseModel):
 
 
 class MeshConfig(BaseModel):
-    """Device-mesh configuration of the JAX package (no reference analogue);
-    parsed for schema compatibility.
+    """Device-mesh configuration (no reference analogue): the CLI's mesh
+    over its ranks under torchrun (``parallel.mesh_from_config``).
 
     A 2-D logical mesh ``(data, model)``.  ``data`` shards the token batch
-    (gradient all-reduce over ICI); ``model`` shards the SAE feature dim for
-    tensor parallelism.  ``-1`` for ``data`` means "all remaining devices".
+    (one gradient all-reduce a step); ``model`` shards the SAE feature dim
+    for tensor parallelism.  ``-1`` for ``data`` means "all remaining
+    ranks".  ``dtype`` is parsed for schema compatibility.
     """
 
     data: int = Field(default=-1, description="Devices on the data axis (-1 = all remaining)")

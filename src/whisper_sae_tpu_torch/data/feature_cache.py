@@ -16,9 +16,9 @@ from its reader when the trainer is asked for them), and ``load_rows``
 gives row access over its shards without reading them whole (the
 launcher's coder jobs).
 
-``extract_and_cache_features`` runs Whisper over an audio loader on one
-device and streams the requested layers into such caches; the mesh
-(multi-device) form of the JAX package is not ported.
+``extract_and_cache_features`` runs Whisper over an audio loader and
+streams the requested layers into such caches, on one device or, with a
+``mesh``, with each data rank capturing its block of every batch.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import DataConfig, WhisperConfig
 from ..runtime.shard_reader import PrefetchLoader, ShardReader
@@ -347,13 +348,24 @@ def extract_and_cache_features(
       restores them and skips the samples already written, giving a
       cache identical to an uninterrupted run (same loader, same batch).
     - ``device``: where the forward runs (default: where the parameters
-      are).  ``mesh`` (multi-device extraction) is not ported and raises.
+      are).
+    - ``mesh`` (``parallel.make_mesh``, one process per GPU, every rank
+      with the same loader): each data rank captures its contiguous block
+      of each batch (a ragged batch padded with repeats of its last row,
+      as the JAX package pads it); rank 0 gathers the blocks over the
+      mesh's CPU group, drops the padding and writes the cache, the same
+      files and rows as one process would.
     """
     # imported here: ``models.whisper`` imports this package (``data.mel``)
     from ..models.whisper import cast_params, extract_activations, params_to
 
     if mesh is not None:
-        raise NotImplementedError("multi-GPU extraction is not ported yet")
+        from ..parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (make_mesh), not {type(mesh).__name__}")
+    primary = mesh is None or mesh.rank == 0
+    n_data = 1 if mesh is None else mesh.shape["data"]
     transfer_bf16 = compute_dtype == torch.bfloat16
     cache_dtype = cache_dtype or "float32"
     if cache_dtype not in ("float32", _BF16):
@@ -368,15 +380,23 @@ def extract_and_cache_features(
     params = params_to(whisper_params, device)
     if compute_dtype is not None:
         params = cast_params(params, compute_dtype)  # once, not per batch
+    if mesh is not None:
+        from ..parallel.extraction import gather_rows, place_mel, replicate_params
 
-    writers_e = {l: cache.writer("encoder", l, dtype=cache_dtype) for l in encoder_layers}
-    writers_d = {l: cache.writer("decoder", l, dtype=cache_dtype) for l in decoder_layers}
+        params = replicate_params(mesh, params)
+
+    # only rank 0 writes: the other ranks' writer tables stay empty
+    writers_e = {l: cache.writer("encoder", l, dtype=cache_dtype)
+                 for l in encoder_layers if primary}
+    writers_d = {l: cache.writer("decoder", l, dtype=cache_dtype)
+                 for l in decoder_layers if primary}
     writers_mlp: dict[str, dict[int, CacheWriter]] = {}
     if capture_mlp:
         for comp, layers in (("encoder", encoder_layers), ("decoder", decoder_layers)):
             for kind in ("mlp_in", "mlp_out"):
                 writers_mlp[f"{comp}_{kind}"] = {
-                    l: cache.writer(f"{comp}_{kind}", l, dtype=cache_dtype) for l in layers
+                    l: cache.writer(f"{comp}_{kind}", l, dtype=cache_dtype)
+                    for l in layers if primary
                 }
 
     def flat_writers() -> dict[str, CacheWriter]:
@@ -400,7 +420,7 @@ def extract_and_cache_features(
         tmp.rename(progress_path)
 
     skip_samples = 0
-    if resume and progress_path.exists():
+    if resume and primary and progress_path.exists():
         snap = json.loads(progress_path.read_text())
         flat = flat_writers()
         compatible = (
@@ -418,6 +438,11 @@ def extract_and_cache_features(
                 print(f"resuming extraction at sample {skip_samples}", flush=True)
         elif progress:
             print("extraction progress file incompatible; starting fresh", flush=True)
+    if mesh is not None:  # every rank skips what rank 0 restored
+        box = [skip_samples]
+        dist.broadcast_object_list(box, src=0, group=mesh.cpu_group)
+        skip_samples = box[0]
+        progress = progress and primary
 
     copy_stream = torch.cuda.Stream(device) if device.type == "cuda" else None
 
@@ -426,9 +451,14 @@ def extract_and_cache_features(
             stack = stack[torch.tensor(sorted(layers), device=stack.device)]
         return stack.to(torch.bfloat16) if transfer_bf16 else stack
 
-    def drain(pulled) -> None:
+    def drain(pulled, rows: int) -> None:
         for fetch, layers, writers in pulled:
             host = fetch()  # one device->host copy per component per batch
+            if mesh is not None:  # rank 0 takes every block; the padding goes
+                host = gather_rows(mesh, host)
+                if host is None:
+                    continue
+                host = host[:, :rows]
             if host.dtype != torch.float32 and not store_bf16:
                 host = host.float()
             for j, l in enumerate(sorted(layers)):
@@ -437,6 +467,7 @@ def extract_and_cache_features(
     num_samples = 0
     target = max_samples if max_samples is not None else float("inf")
     pending = None
+    pending_rows = 0
     pending_upto = 0  # samples covered once `pending` drains
     last_ckpt = skip_samples
     for batch in audio_dataloader:
@@ -455,6 +486,10 @@ def extract_and_cache_features(
             num_samples += rows
             continue
         mel = torch.from_numpy(np.ascontiguousarray(batch, np.float32))
+        if rows % n_data:  # repeat the last row until the batch splits over data
+            mel = torch.cat([mel, mel[-1:].expand(n_data - rows % n_data, *mel.shape[1:])])
+        if mesh is not None:
+            mel = place_mel(mesh, mel)
         if transfer_bf16:
             mel = mel.to(torch.bfloat16)  # the forward's first cast, done before the upload
         mel = mel.to(device)
@@ -477,18 +512,21 @@ def extract_and_cache_features(
                                layers, writers))
         del acts
         if pending is not None:
-            drain(pending)
-            if checkpoint_every and pending_upto - last_ckpt >= checkpoint_every:
+            drain(pending, pending_rows)
+            if checkpoint_every and pending_upto - last_ckpt >= checkpoint_every and primary:
                 write_progress(pending_upto)
                 last_ckpt = pending_upto
-        pending = pulled
+        pending, pending_rows = pulled, rows
         num_samples += rows
         pending_upto = num_samples
         if progress and num_samples % (rows * 8) == 0:
             print(f"extracted {num_samples} samples", flush=True)
     if pending is not None:
-        drain(pending)
+        drain(pending, pending_rows)
 
     for w in flat_writers().values():
         w.finalize(num_samples)
-    progress_path.unlink(missing_ok=True)
+    if primary:
+        progress_path.unlink(missing_ok=True)
+    if mesh is not None:  # the cache is whole before any rank reads it
+        dist.barrier(group=mesh.cpu_group)

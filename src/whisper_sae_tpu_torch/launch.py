@@ -23,6 +23,13 @@ their caches whole up to ``--max-resident-gb``; above it they stream from
 the shards, as the JAX launcher's do (``launcher/launch.py:420-485``,
 ``:572-627``): the transcoder as chunked epochs through a paired reader,
 the crosscoder batch by batch through a multi-layer loader.
+
+Under ``torchrun`` (one process per GPU) the extraction job shards each
+capture batch over a data mesh of every rank when there is more than
+one, and the training jobs take a data mesh of every rank; rank 0 alone
+writes the files::
+
+    torchrun --standalone --nproc_per_node=2 -m whisper_sae_tpu_torch.launch train-transcoder
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ from .data.mel import SAMPLE_RATE, log_mel_spectrogram
 from .models.whisper import (
     _hf_snapshot, arch_for, greedy_decode_cached, init_whisper, load_pretrained, params_to,
 )
+from .parallel.mesh import make_mesh
+from .parallel.multihost import initialize_if_needed, is_primary, launched
 from .training.coder_trainers import CrosscoderTrainer, TranscoderTrainer
 from .training.trainer import SAETrainer
 from .utils.checkpoint import save_pytree
@@ -66,6 +75,24 @@ from .utils.wavio import read_wav, resample
 
 CACHE_DIR = Path("cache")
 OUTPUT_DIR = Path("outputs")
+
+
+def _job_mesh(dev: torch.device, min_ranks: int = 1):
+    """Under torchrun: the process group (gloo for ``--device cpu``) and a
+    pure-data mesh of every rank, if there are at least ``min_ranks``;
+    else ``None`` (one process, the single-device path)."""
+    if not launched():
+        return None
+    initialize_if_needed(backend="gloo" if dev.type == "cpu" else None)
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    if n < min_ranks:
+        return None
+    mesh = make_mesh(data=n, model=1)
+    if is_primary():
+        print(f"mesh: data={mesh.shape['data']}", file=sys.stderr)
+    return mesh
 
 
 def _parse_layers(spec: str) -> list[int]:
@@ -196,12 +223,15 @@ def extract_features(
         SyntheticSpeechDataset(num_samples=max_samples, seed=seed, n_mels=arch.n_mels, device=dev),
         record_texts=True)
     cache = FeatureCache(Path(cache_dir) / "features", whisper_cfg, data_cfg)
+    # several ranks: each batch's capture sharded over a data mesh
+    # (launcher/launch.py:105-121 of the JAX package)
+    mesh = _job_mesh(dev, min_ranks=2)
     extract_and_cache_features(
         params, arch, AudioBatchLoader(features_only, batch_size=batch_size), cache,
         encoder_layers=enc_layers, decoder_layers=dec_layers, max_samples=max_samples,
         compute_dtype=torch.bfloat16, capture_mlp=capture_mlp,
         checkpoint_every=checkpoint_every, resume=auto_resume, cache_dtype=cache_dtype,
-        device=dev,
+        device=dev, mesh=mesh,
     )
     features = Path(cache_dir) / "features"
     tpath = features / "transcripts.json"
@@ -226,6 +256,8 @@ def extract_features(
         "finished_at": datetime.now().isoformat(),
         "backend": dev.type,
     }
+    if not is_primary():
+        return log
     (features / "extraction_log.json").write_text(json.dumps(log, indent=2))
     (features / "metadata.json").write_text(json.dumps({
         "model_name": model_name,
@@ -261,10 +293,18 @@ def _run(trainer, loader, epochs: int, checkpoint_every: int | None, run_dir: Pa
         if ckpt is not None:
             trainer.load_checkpoint(ckpt)
             resumed_from = ckpt.name
-            print(f"resuming from {ckpt} (epoch {trainer.epoch}, step {trainer.global_step})",
-                  file=sys.stderr)
+            if trainer.is_primary:
+                print(f"resuming from {ckpt} (epoch {trainer.epoch}, step {trainer.global_step})",
+                      file=sys.stderr)
     trainer.train(loader, epochs=epochs, checkpoint_every=checkpoint_every)
     return resumed_from
+
+
+def _save_params(trainer, path: Path) -> None:
+    """The trained parameters, whole, written by the primary rank."""
+    params = trainer.full_params()
+    if trainer.is_primary:
+        save_pytree(path, params)
 
 
 def train_sae(
@@ -307,7 +347,7 @@ def train_sae(
     sae = create_sae(sae_cfg, input_dim=meta.hidden_dim, seed=seed, device=dev)
     run_dir = Path(output_dir) / f"{experiment_name}_{component}_layer{layer_idx}"
     run_dir.mkdir(parents=True, exist_ok=True)
-    trainer = SAETrainer(sae, train_cfg, run_dir=run_dir)
+    trainer = SAETrainer(sae, train_cfg, run_dir=run_dir, mesh=_job_mesh(dev))
     loader = cache.get_dataloader(component, layer_idx, batch_size=batch_size, seed=seed)
     if hasattr(loader, "reader"):  # out of core: a bounded resample subsample
         idx = np.random.default_rng(seed).permutation(meta.num_tokens)[
@@ -327,6 +367,8 @@ def train_sae(
         "run_dir": str(run_dir),
         "resumed_from": resumed_from,
     }
+    if not trainer.is_primary:
+        return result
     (run_dir / "training_config.json").write_text(json.dumps({
         "sae": json.loads(sae_cfg.model_dump_json()),
         "training": json.loads(train_cfg.model_dump_json()),
@@ -344,7 +386,7 @@ def train_all_layers(
     layers_decoder: str = "0,1,2,3",
     **kwargs,
 ) -> list[dict]:
-    """Every listed layer in turn, encoder then decoder (one card)."""
+    """Every listed layer in turn, encoder then decoder."""
     results = []
     for layer in _parse_layers(layers_encoder):
         results.append(train_sae(component="encoder", layer_idx=layer, model_name=model_name,
@@ -404,7 +446,7 @@ def train_transcoder(
         model.set_output_bias(y.mean0() if hasattr(y, "mean0") else y.float().mean(dim=0))
     run_dir = Path(output_dir) / f"{experiment_name}_{component}_transcoder_layer{layer_idx}"
     run_dir.mkdir(parents=True, exist_ok=True)
-    trainer = TranscoderTrainer(model, train_cfg, run_dir=run_dir)
+    trainer = TranscoderTrainer(model, train_cfg, run_dir=run_dir, mesh=_job_mesh(dev))
     loader = PairedActivationLoader(x, y, batch_size=batch_size, seed=seed)
     if resident:
         trainer.set_resample_dataset(loader.data)
@@ -418,7 +460,7 @@ def train_transcoder(
             :8 * trainer.resample_batch_size])
         trainer.set_resample_dataset((x[idx], y[idx]))
     resumed_from = _run(trainer, loader, epochs, checkpoint_every, run_dir, auto_resume)
-    save_pytree(run_dir / "transcoder_final.npz", trainer.model.params)
+    _save_params(trainer, run_dir / "transcoder_final.npz")
     trainer.save_metrics()
     result = {
         "component": component,
@@ -429,6 +471,8 @@ def train_transcoder(
         "run_dir": str(run_dir),
         "resumed_from": resumed_from,
     }
+    if not trainer.is_primary:
+        return result
     (run_dir / "training_config.json").write_text(json.dumps({
         "transcoder": {"input_dim": meta.hidden_dim, "output_dim": meta.hidden_dim,
                        "hidden_dim": hidden_dim, "k": k, "use_skip": use_skip},
@@ -486,7 +530,7 @@ def train_crosscoder(
     run_dir = Path(output_dir) / (
         f"{experiment_name}_{component}_crosscoder_l{'-'.join(map(str, layer_list))}")
     run_dir.mkdir(parents=True, exist_ok=True)
-    trainer = CrosscoderTrainer(model, train_cfg, run_dir=run_dir)
+    trainer = CrosscoderTrainer(model, train_cfg, run_dir=run_dir, mesh=_job_mesh(dev))
     if sum(_stored_bytes(m) for m in metas) <= max_resident_bytes:
         stacked = torch.stack([cache.load(component, layer)[0] for layer in layer_list], dim=1)
         loader = ActivationLoader(stacked, batch_size=batch_size, seed=seed)
@@ -497,7 +541,7 @@ def train_crosscoder(
         feats = [cache.load_rows(component, layer)[0] for layer in layer_list]
         loader = MultiLayerLoader(feats, batch_size=batch_size, seed=seed)
     resumed_from = _run(trainer, loader, epochs, checkpoint_every, run_dir, auto_resume)
-    save_pytree(run_dir / "crosscoder_final.npz", trainer.model.params)
+    _save_params(trainer, run_dir / "crosscoder_final.npz")
     trainer.save_metrics()
     result = {
         "component": component,
@@ -508,6 +552,8 @@ def train_crosscoder(
         "run_dir": str(run_dir),
         "resumed_from": resumed_from,
     }
+    if not trainer.is_primary:
+        return result
     (run_dir / "training_config.json").write_text(json.dumps({
         "crosscoder": {"d_model": meta.hidden_dim, "n_layers": len(layer_list), "d_sae": d_sae,
                        "k": k, "use_topk": use_topk, "layer_indices": layer_list},
@@ -1092,9 +1138,14 @@ def main(argv=None) -> dict | list:
             out = train_transcoder(layer_idx=args.layer_idx, use_skip=not args.no_skip, **common)
         else:
             out = train_crosscoder(layers=args.layers, use_topk=not args.relu, **common)
-    print(json.dumps(out, indent=2))
+    if is_primary():
+        print(json.dumps(out, indent=2))
     return out
 
 
 if __name__ == "__main__":
     main()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -19,6 +19,14 @@ subsample, as the JAX CLI does::
 Without ``--random-whisper`` the pretrained weights are loaded from the
 local HF cache, with a fallback to random weights.  Only
 ``dataset_name: synthetic`` is ported (LibriSpeech streaming is not).
+
+Under ``torchrun`` (one process per GPU) the CLI builds the config's
+``(data, model)`` mesh (``mesh: {data: -1, model: 1}`` by default) and
+hands it to extraction and to the trainers; rank 0 alone writes the
+cache, checkpoints, ``metrics.json`` and the console::
+
+    torchrun --standalone --nproc_per_node=2 -m whisper_sae_tpu_torch.train \
+        --config configs/tiny_default.yaml --layer encoder:0 --no-wandb
 """
 
 from __future__ import annotations
@@ -31,17 +39,26 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import ExperimentConfig
 from .data.feature_cache import FeatureCache, extract_and_cache_features
 from .data.librispeech import AudioBatchLoader, LibriSpeechFeaturesOnly, SyntheticSpeechDataset
 from .models.sae import create_sae
 from .models.whisper import arch_for, init_whisper, load_pretrained
+from .parallel.mesh import mesh_from_config
+from .parallel.multihost import initialize_if_needed, is_primary, launched
 from .training.trainer import SAETrainer
 from .utils.device import resolve_device
 from .utils.profiling import trace
 
 EXTRACT_BATCH = 64
+
+
+def say(*args, **kw) -> None:
+    """``print`` on the primary process only."""
+    if is_primary():
+        print(*args, **kw)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -84,9 +101,11 @@ def main(argv=None) -> dict[str, SAETrainer]:
     """Run the CLI; returns the trainers by run name."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    if launched():
+        initialize_if_needed(backend="gloo" if device.type == "cpu" else None)
 
     config = ExperimentConfig.from_yaml(args.config) if args.config.exists() else ExperimentConfig()
-    print(f"Loaded config from {args.config}" if args.config.exists() else "Using default configuration")
+    say(f"Loaded config from {args.config}" if args.config.exists() else "Using default configuration")
     if args.seed is not None:
         config.training.seed = args.seed
     if args.no_wandb:
@@ -95,7 +114,12 @@ def main(argv=None) -> dict[str, SAETrainer]:
     np.random.seed(config.training.seed)
     torch.manual_seed(config.training.seed)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"Using device: {device} ({name})")
+    say(f"Using device: {device} ({name})")
+    mesh = None
+    if dist.is_initialized():  # torchrun: the config's mesh over its ranks
+        mesh = mesh_from_config(config.mesh)
+        say(f"Mesh: data={mesh.shape['data']} model={mesh.shape['model']} "
+            f"({dist.get_backend()})")
 
     feature_cache = FeatureCache(
         cache_dir=Path(config.data.cache_dir) / "features",
@@ -111,22 +135,24 @@ def main(argv=None) -> dict[str, SAETrainer]:
     layers = [("encoder", i) for i in encoder_layers] + [("decoder", i) for i in decoder_layers]
 
     if args.extract_only or any(not feature_cache.has_cache(c, i) for c, i in layers):
-        extract(config, feature_cache, encoder_layers, decoder_layers, device, args.random_whisper)
+        extract(config, feature_cache, encoder_layers, decoder_layers, device, args.random_whisper,
+                mesh)
     if args.extract_only:
-        print("Extract-only mode, skipping training")
+        say("Extract-only mode, skipping training")
         return {}
 
     trainers = {}
     for component, layer_idx in layers:
         run_name = f"{config.experiment_name}_{component}_layer{layer_idx}"
         trainers[run_name] = train_layer(config, feature_cache, component, layer_idx, run_name,
-                                         device, args.resume, args.profile)
-    print("Training complete!")
+                                         device, args.resume, args.profile, mesh)
+    say("Training complete!")
     return trainers
 
 
 def extract(config: ExperimentConfig, feature_cache: FeatureCache, encoder_layers: list[int],
-            decoder_layers: list[int], device: torch.device, random_whisper: bool) -> None:
+            decoder_layers: list[int], device: torch.device, random_whisper: bool,
+            mesh=None) -> None:
     """Write the caches of the given layers (``scripts/train.py:155-196``)."""
     if config.data.dataset_name != "synthetic":
         raise ValueError(
@@ -136,16 +162,16 @@ def extract(config: ExperimentConfig, feature_cache: FeatureCache, encoder_layer
     gen = torch.Generator(device=device).manual_seed(config.training.seed)  # made on the card
     if random_whisper:
         params = init_whisper(gen, arch)
-        print("Using RANDOM Whisper weights (--random-whisper)")
+        say("Using RANDOM Whisper weights (--random-whisper)")
     else:
         try:
             params, arch = load_pretrained(config.whisper.model_name)
-            print(f"Loaded {config.whisper.model_name}")
+            say(f"Loaded {config.whisper.model_name}")
         except Exception as e:  # offline without a local snapshot
-            print(f"Pretrained load failed ({type(e).__name__}); falling back to random "
+            say(f"Pretrained load failed ({type(e).__name__}); falling back to random "
                   "weights. Pass --random-whisper to silence this warning.")
             params = init_whisper(gen, arch)
-    print("Extracting features...")
+    say("Extracting features...")
     dataset = SyntheticSpeechDataset(num_samples=config.data.max_samples,
                                      seed=config.training.seed, n_mels=arch.n_mels, device=device)
     loader = AudioBatchLoader(LibriSpeechFeaturesOnly(dataset), batch_size=EXTRACT_BATCH)
@@ -153,26 +179,28 @@ def extract(config: ExperimentConfig, feature_cache: FeatureCache, encoder_layer
         params, arch, loader, feature_cache, encoder_layers=encoder_layers,
         decoder_layers=decoder_layers, max_samples=config.data.max_samples,
         compute_dtype=torch.bfloat16 if config.training.use_amp else None, device=device,
+        mesh=mesh,
     )
-    print("Feature extraction complete")
+    say("Feature extraction complete")
 
 
 def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component: str,
                 layer_idx: int, run_name: str, device: torch.device,
-                resume: Path | None = None, profile: Path | None = None) -> SAETrainer:
-    print(f"Training SAE for {component} layer {layer_idx}")
+                resume: Path | None = None, profile: Path | None = None,
+                mesh=None) -> SAETrainer:
+    say(f"Training SAE for {component} layer {layer_idx}")
     metadata = feature_cache.load_metadata(component, layer_idx)
-    print(f"Cached {metadata.num_tokens:,} tokens, dim={metadata.hidden_dim}, dtype={metadata.dtype}")
+    say(f"Cached {metadata.num_tokens:,} tokens, dim={metadata.hidden_dim}, dtype={metadata.dtype}")
     sae = create_sae(config.sae, input_dim=metadata.hidden_dim, seed=config.training.seed,
                      device=device)
-    print(f"Created SAE: {metadata.hidden_dim} -> {sae.hidden_dim} (k={config.sae.k})")
+    say(f"Created SAE: {metadata.hidden_dim} -> {sae.hidden_dim} (k={config.sae.k})")
     dataloader = feature_cache.get_dataloader(
         component=component, layer_idx=layer_idx, batch_size=config.training.batch_size,
         shuffle=True, seed=config.training.seed,
     )
     run_dir = Path(config.output_dir) / run_name
     run_dir.mkdir(parents=True, exist_ok=True)
-    trainer = SAETrainer(model=sae, config=config.training, run_dir=run_dir)
+    trainer = SAETrainer(model=sae, config=config.training, run_dir=run_dir, mesh=mesh)
     if config.sae.dead_feature_resample:
         if hasattr(dataloader, "reader"):
             # a multi-shard cache streams: resample from a bounded sorted
@@ -184,9 +212,9 @@ def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component
             trainer.set_resample_dataset(dataloader.data)
     if resume is not None:
         trainer.load_checkpoint(resume)
-        print(f"Resumed from {resume} (step {trainer.global_step})")
+        say(f"Resumed from {resume} (step {trainer.global_step})")
 
-    if config.wandb.enabled:
+    if config.wandb.enabled and is_primary():
         try:
             import wandb
 
@@ -204,13 +232,15 @@ def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component
                 },
             )
         except Exception as e:  # W&B is optional: train on without it
-            print(f"W&B initialization failed: {e}\nContinuing without W&B logging...")
+            say(f"W&B initialization failed: {e}\nContinuing without W&B logging...")
 
-    print(f"Training for {config.training.epochs} epochs...")
+    say(f"Training for {config.training.epochs} epochs...")
     with trace(profile):
         trainer.train(dataloader, epochs=config.training.epochs)
     trainer.save_final()
     trainer.save_metrics()
+    if not is_primary():
+        return trainer
     (run_dir / "training_config.json").write_text(json.dumps({
         "sae": json.loads(config.sae.model_dump_json()),
         "training": json.loads(config.training.model_dump_json()),
@@ -219,7 +249,7 @@ def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component
         "layer_idx": layer_idx,
         "finished_at": datetime.now().isoformat(),
     }, indent=2))
-    print(f"Saved model and metrics to {run_dir}")
+    say(f"Saved model and metrics to {run_dir}")
     if trainer.wandb_run is not None:
         trainer.wandb_run.finish()
     return trainer
@@ -227,3 +257,5 @@ def train_layer(config: ExperimentConfig, feature_cache: FeatureCache, component
 
 if __name__ == "__main__":
     main()
+    if dist.is_initialized():
+        dist.destroy_process_group()

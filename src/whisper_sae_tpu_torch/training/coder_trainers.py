@@ -8,7 +8,10 @@ the skip path counted), the fused epoch reads each batch at a row offset
 into the epoch buffers through the kernel's windowed entries; otherwise
 each step takes a slice view of the buffers (a transcoder past the 48 MiB
 budget: the top-k encode, then the composed decode;
-``coder_trainers.py:72-85`` of the JAX package).
+``coder_trainers.py:72-85`` of the JAX package).  On a mesh whose
+``model`` axis is above 1 both take their dp x tp family
+(``parallel/tp_step.py``); on a pure-data mesh each rank's dp step runs
+the coder kernel on its rows.
 """
 
 from __future__ import annotations
@@ -32,6 +35,16 @@ class TranscoderTrainer(SAETrainer):
     @property
     def _use_skip(self) -> bool:
         return "w_skip" in self.model.params
+
+    def _supports_tp(self) -> bool:
+        # the hidden dim splits over ``model`` with the distributed
+        # bisection top-k, the skip path replicated
+        return True
+
+    def _tp_family(self):
+        from ..parallel.tp_step import transcoder_family
+
+        return transcoder_family(self.model.k, use_skip=self._use_skip)
 
     def _prepare_batch(self, batch):
         if isinstance(batch, (tuple, list)) and len(batch) == 2:
@@ -57,7 +70,7 @@ class TranscoderTrainer(SAETrainer):
         p = params
         loss, l0, active = fused_transcoder_loss_indexed(
             x, y, step, p["w_enc"], p["b_enc"], p["w_dec"], p["b_dec"], p.get("w_skip"),
-            p.get("b_skip"), self.model.k, self.config.batch_size, self._use_skip)
+            p.get("b_skip"), self.model.k, self._local_batch, self._use_skip)
         return loss, _zero_aux(loss, {"l0": l0, "active": active})
 
     def set_resample_dataset(self, dataset) -> None:
@@ -77,6 +90,18 @@ class TranscoderTrainer(SAETrainer):
 
 class CrosscoderTrainer(SAETrainer):
     """Trains cross-layer crosscoders on token-major ``[N, L, D]`` data."""
+
+    def _supports_tp(self) -> bool:
+        # TopK crosscoders take the flattened-transcoder family (S split
+        # over ``model``); the ReLU variant has its own (no threshold)
+        return True
+
+    def _tp_family(self):
+        from ..parallel.tp_step import crosscoder_family, relu_crosscoder_family
+
+        if self.model._k is None:
+            return relu_crosscoder_family(self.model.sparsity_weight)
+        return crosscoder_family(self.model._k)
 
     def _prepare_batch(self, batch):
         if isinstance(batch, (tuple, list)):
@@ -102,7 +127,7 @@ class CrosscoderTrainer(SAETrainer):
 
     def _indexed_loss_fn(self, params, sel, step: int):
         k = self.model._k
-        n_layers, b = self.model.n_layers, self.config.batch_size
+        n_layers, b = self.model.n_layers, self._local_batch
         s = self.model.d_sae
         p = params
         w_enc, w_dec = p["w_enc"].reshape(-1, s), p["w_dec"].reshape(s, -1)

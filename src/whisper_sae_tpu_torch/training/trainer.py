@@ -27,6 +27,18 @@ the top-k encode).  Metrics stay on the device and are
 fetched once per epoch; the remainder batch goes through ``train_step``.
 ``train_epochs_fused`` chains several such epochs with one fetch for all
 of them, and ``train()`` chains its fused epochs up to each checkpoint.
+
+With a ``mesh`` (``parallel.make_mesh``: one process per GPU, every rank
+with the same config, seed and data), each data rank steps on its
+contiguous block of every batch.  A family with a dp x tp form
+(``_supports_tp``: the TopK SAE, the transcoders, the crosscoders) on a
+mesh whose ``model`` axis is above 1 holds its block of the features and
+runs ``parallel/tp_step.py``'s step; every other case is the dp step: the
+family's own loss (its kernel) on the rank's rows, then one all-reduce
+of the gradients over ``data``, parameters replicated.  Resampling
+gathers the full parameters on every rank and draws the same rows;
+checkpoints are the single-device file, written by rank 0, which alone
+writes ``metrics.json`` and the console.
 """
 
 from __future__ import annotations
@@ -39,11 +51,14 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
 from ..config import TrainingConfig
 from ..models.sae import (
     DeadFeatureState,
     ReLUSAE,
+    TopKSAE,
     dead_feature_mask,
     init_dead_state,
     relu_sae_loss,
@@ -133,8 +148,10 @@ class SAETrainer:
         run_dir: Path | None = None,
         resample_dead_every: int = 5000,
         resample_batch_size: int = 8192,
+        mesh=None,
     ):
         self.model = model
+        self.mesh = mesh
         self.config = config
         self.device = model.device
         self.run_dir = Path(run_dir) if run_dir is not None else Path("outputs")
@@ -152,11 +169,15 @@ class SAETrainer:
         self.wandb_run = None
         self._resample_dataset = None
         self._resample_rng = np.random.default_rng(config.seed)
-        self.throughput = ThroughputMeter(num_chips=1)
+        self.throughput = ThroughputMeter(num_chips=mesh.size if mesh is not None else 1)
         self.threshold = getattr(model, "dead_feature_threshold", 10_000)
         # dead-feature counters of a model that keeps none of its own
         self._own_dead = None if hasattr(model, "state") else init_dead_state(
             model.hidden_dim, self.device)
+        # the model holds this rank's feature blocks (dp x tp); resampling
+        # and checkpoint loads put full tensors back and clear the latch
+        self._mesh_placed = False
+        self._tp_steps: dict = {}
 
     # ------------------------------------------------------------------
     # schedule
@@ -223,8 +244,9 @@ class SAETrainer:
 
     def _indexed_loss_fn(self, params, sel, step: int):
         """``_loss_fn`` over rows ``[step*B, (step+1)*B)`` of the epoch
-        buffer, read by the family's kernel at a row offset."""
-        b = self.config.batch_size
+        buffer (B this rank's rows a step), read by the family's kernel at
+        a row offset."""
+        b = self._local_batch
         p = params
         if isinstance(self.model, ReLUSAE):
             loss, recon, sparsity, l0, active = fused_relu_sae_loss_indexed(
@@ -248,42 +270,185 @@ class SAETrainer:
             self._own_dead = value
 
     # ------------------------------------------------------------------
+    # the mesh (trainer.py:213-257 of the JAX package)
+    # ------------------------------------------------------------------
+
+    def _supports_tp(self) -> bool:
+        """Whether the family has a dp x tp form (``parallel/tp_step.py``);
+        the coder trainers override.  The ReLU SAE has none (no global
+        threshold to distribute): on a mesh it is data-parallel,
+        replicated over ``model``."""
+        return isinstance(self.model, TopKSAE)
+
+    def _tp_family(self):
+        from ..parallel.tp_step import sae_family
+
+        return sae_family(self.model.k)
+
+    def _is_tp(self) -> bool:
+        if self.mesh is None:
+            return False
+        from ..parallel.mesh import MODEL_AXIS
+
+        return self.mesh.shape[MODEL_AXIS] > 1 and self._supports_tp()
+
+    @property
+    def _n_data(self) -> int:
+        from ..parallel.mesh import DATA_AXIS
+
+        return 1 if self.mesh is None else self.mesh.shape[DATA_AXIS]
+
+    @property
+    def _local_batch(self) -> int:
+        """The rows of a batch each step of this rank takes."""
+        return self.config.batch_size // self._n_data
+
+    @property
+    def is_primary(self) -> bool:
+        """The rank that writes checkpoints, metrics and the console."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    @torch.no_grad()
+    def _assign(self, params: dict, dstate: DeadFeatureState) -> None:
+        """Give the model these tensors (of any shape) as its parameters
+        and dead-feature counters."""
+        for name, t in params.items():
+            setattr(self.model, name, nn.Parameter(t))
+        if self._own_dead is None:
+            self.model.feature_last_activated = dstate.feature_last_activated
+            self.model.step_count = dstate.step_count
+        else:
+            self._own_dead = dstate
+
+    def _place_on_mesh(self) -> None:
+        """Under dp x tp, the model's parameters, AdamW moments and
+        dead-feature counters become this rank's feature blocks.
+        Idempotent through ``_mesh_placed``; dp state stays replicated."""
+        if self.mesh is None or self._mesh_placed:
+            return
+        if self._is_tp():
+            from ..parallel.tp_step import place_for_tp
+
+            params, self.opt_state, dstate = place_for_tp(
+                self.mesh, self._tp_family(), self.model.params, self.opt_state, self._dead_state)
+            self._assign(params, dstate)
+        self._mesh_placed = True
+
+    def _gathered(self) -> tuple[dict, AdamWState, DeadFeatureState]:
+        """(parameters, AdamW state, dead-feature state), full, on every
+        rank (gathered over the mesh's CPU group when placed dp x tp)."""
+        params = {k: v.detach() for k, v in self.model.params.items()}
+        if not (self._mesh_placed and self._is_tp()):
+            return params, self.opt_state, self._dead_state
+        from ..parallel.sharding import gather_leaf, gather_tree
+
+        specs = self._tp_family().param_specs
+        ds = self._dead_state
+        return (gather_tree(self.mesh, params, specs),
+                AdamWState(gather_tree(self.mesh, self.opt_state.mu, specs),
+                           gather_tree(self.mesh, self.opt_state.nu, specs), self.opt_state.count),
+                DeadFeatureState(gather_leaf(self.mesh, ds.feature_last_activated, 0),
+                                 ds.step_count))
+
+    def _unplace(self) -> None:
+        """The full state back in the model on every rank; the next step
+        places it again."""
+        if self._mesh_placed and self._is_tp():
+            params, self.opt_state, dstate = self._gathered()
+            self._assign(params, dstate)
+        self._mesh_placed = False
+
+    def full_params(self) -> dict[str, torch.Tensor]:
+        """The model's parameters, whole, on every rank."""
+        return self._gathered()[0]
+
+    def _lr_at_count(self, count: int) -> float:
+        return float(np.asarray(self._schedule(count)))
+
+    def _tp_step(self, batch, reduce_data: bool = True) -> torch.Tensor:
+        """One dp x tp step (``parallel/tp_step.py``) on this rank's rows of
+        ``batch`` (with ``reduce_data=False``: on all of them, reducing
+        nothing over ``data``) -> the step's [5] metric row."""
+        if reduce_data not in self._tp_steps:
+            from ..parallel.tp_step import build_tp_train_step
+
+            self._tp_steps[reduce_data] = build_tp_train_step(
+                self._tp_family(), self.compute_dtype, self.mesh, self.threshold,
+                self._lr_at_count, self.config.weight_decay, renorm=self._should_renorm(),
+                gradient_clip=self.config.gradient_clip, reduce_data=reduce_data)
+        self.opt_state, dstate, row = self._tp_steps[reduce_data](
+            self.model.params, self.opt_state, self._dead_state, batch)
+        self._dead_state = dstate
+        return row
+
+    # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
 
-    def _step(self, loss_call) -> torch.Tensor:
+    def _step(self, loss_call, reduce: bool = False) -> torch.Tensor:
         """One optimizer step, all on the device.  Returns the step's
-        ``_METRIC_KEYS`` as one [5] tensor (no host synchronisation)."""
+        ``_METRIC_KEYS`` as one [5] tensor (no host synchronisation).
+        ``reduce``: the dp step -- the gradients, with the metrics and the
+        active vector in the same buffer, all-reduced over ``data``."""
         params = self.model.params
         with f32_matmuls():
             loss, aux = loss_call(params)
             grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
         with torch.no_grad():
+            loss, recon, sparsity = (loss.detach(), aux["reconstruction_loss"].detach(),
+                                     aux["sparsity_loss"].detach())
+            l0, active = aux["l0"].float(), aux["active"]
+            if reduce:
+                from ..parallel.sharding import reduce_gradients
+
+                sums = torch.cat([torch.stack([loss, recon, sparsity, l0]), active.float()])
+                grads, sums = reduce_gradients(self.mesh, grads, sums)
+                loss, recon, sparsity, l0 = sums[:4] / self._n_data
+                active = sums[4:] > 0
             grads = clip_by_global_norm(grads, self.config.gradient_clip)
-            lr = float(np.asarray(self._schedule(self.opt_state.count)))
+            lr = self._lr_at_count(self.opt_state.count)
             self.opt_state = adamw_update_(params, grads, self.opt_state, lr, self.config.weight_decay)
             if self._should_renorm():
                 self._renorm_params()
-            self._dead_state = update_dead_state(self._dead_state, aux["active"])
+            self._dead_state = update_dead_state(self._dead_state, active)
             dead = dead_feature_mask(self._dead_state, self.threshold).float().mean()
-            return torch.stack([loss.detach(), aux["reconstruction_loss"].detach(),
-                                aux["sparsity_loss"].detach(), aux["l0"].float(), dead])
+            return torch.stack([loss, recon, sparsity, l0, dead])
 
     def _window_loss(self, sel, step: int, indexed: bool):
-        """Loss over rows ``[step*B, (step+1)*B)`` of the epoch buffer: the
-        family's kernel at a row offset when ``indexed``, else ``_loss_fn``
-        on a slice view (no copy)."""
+        """Loss over rows ``[step*B, (step+1)*B)`` of the epoch buffer (B
+        this rank's rows a step): the family's kernel at a row offset when
+        ``indexed``, else ``_loss_fn`` on a slice view (no copy)."""
         if indexed:
             return lambda p: self._indexed_loss_fn(p, sel, step)
-        b = self.config.batch_size
+        b = self._local_batch
         rows = _tree(lambda a: a[step * b:(step + 1) * b], sel)
         return lambda p: self._loss_fn(p, rows)
+
+    def _mesh_step(self, x) -> torch.Tensor:
+        """``train_step``'s step under a mesh: this rank's block of the
+        batch, or, when the rows do not split over ``data``, the whole
+        batch on every rank at single-device semantics (no data
+        all-reduce; ``trainer.py:365-392`` of the JAX package)."""
+        self._place_on_mesh()
+        rows = (x[0] if isinstance(x, tuple) else x).shape[0]
+        if rows % self._n_data:
+            if self._is_tp():
+                return self._tp_step(x, reduce_data=False)
+            return self._step(lambda p: self._loss_fn(p, x))
+        block = self.mesh.row_block(rows)
+        local = _tree(lambda a: a[block], x)
+        if self._is_tp():
+            return self._tp_step(local)
+        return self._step(lambda p: self._loss_fn(p, local), reduce=True)
 
     def train_step(self, batch) -> TrainingMetrics:
         """One optimizer step on one batch."""
         x = self._prepare_batch(batch)
         lr = self.learning_rate_at(self.global_step)
-        row = self._step(lambda p: self._loss_fn(p, x))
+        if self.mesh is None:
+            row = self._step(lambda p: self._loss_fn(p, x))
+        else:
+            row = self._mesh_step(x)
         self.global_step += 1
         self._maybe_resample_dead_features()
         values = dict(zip(_METRIC_KEYS, row.tolist()))
@@ -310,7 +475,11 @@ class SAETrainer:
             return 0
         if self.global_step == 0 or self.global_step % self.resample_dead_every != 0:
             return 0
+        # under dp x tp every rank gathers the full state and draws the same
+        # rows from the same stream, then takes its blocks back
+        self._unplace()
         num = self._resample_from_dataset()
+        self._place_on_mesh()
         if num > 0:
             # resampling rewrites whole feature rows: restart all AdamW
             # moments, keeping the count (schedule position)
@@ -358,13 +527,39 @@ class SAETrainer:
     def _fused_steps(self, data, perm, steps: int) -> torch.Tensor:
         """The epoch's ``steps`` full batches of device-resident ``data`` in
         the order ``perm`` (None: as stored), with no host synchronisation;
-        -> the steps' metric rows [steps, 5], on the device."""
+        -> the steps' metric rows [steps, 5], on the device.  Under a mesh
+        this rank's buffer holds its block of each batch, in step order."""
         b = self.config.batch_size
-        sel = _tree(lambda a: a[perm[:steps * b]] if perm is not None else a[:steps * b], data)
-        indexed = self._use_indexed_epoch()
-        if indexed:  # the windowed kernel's layout
-            sel = self._indexed_prepare(sel)
-        rows = torch.stack([self._step(self._window_loss(sel, s, indexed)) for s in range(steps)])
+        if self.mesh is None:
+            sel = _tree(lambda a: a[perm[:steps * b]] if perm is not None else a[:steps * b], data)
+        else:
+            if b % self._n_data:
+                raise ValueError(f"fused mesh epochs need batch_size % data axis == 0 "
+                                 f"(got {b} % {self._n_data})")
+            self._place_on_mesh()
+            first = data[0] if isinstance(data, tuple) else data
+            order = perm[:steps * b] if perm is not None else torch.arange(
+                steps * b, device=first.device)
+            idx = order.view(steps, b)[:, self.mesh.row_block(b)].reshape(-1)
+            sel = _tree(lambda a: a[idx], data)
+        if self._is_tp():
+            from ..parallel.tp_step import build_tp_epoch_fn
+
+            bl = self._local_batch
+            epoch = build_tp_epoch_fn(
+                self._tp_family(), self.compute_dtype, self.mesh, self.threshold,
+                self._lr_at_count, self.config.weight_decay, _METRIC_KEYS,
+                renorm=self._should_renorm(), gradient_clip=self.config.gradient_clip)
+            batches = _tree(lambda a: a.view(steps, bl, *a.shape[1:]), sel)
+            self.opt_state, dstate, rows = epoch(self.model.params, self.opt_state,
+                                                 self._dead_state, batches)
+            self._dead_state = dstate
+        else:
+            indexed = self._use_indexed_epoch()
+            if indexed:  # the windowed kernel's layout
+                sel = self._indexed_prepare(sel)
+            rows = torch.stack([self._step(self._window_loss(sel, s, indexed),
+                                           reduce=self.mesh is not None) for s in range(steps)])
         self.global_step += steps
         return rows
 
@@ -424,11 +619,12 @@ class SAETrainer:
         :meth:`train_epoch_fused` draws at that epoch, so the parameters and
         metrics are the sequential loop's bit for bit.  Falls back to that
         loop where an epoch boundary needs the host: a remainder batch
-        (``n % b``, ``n < b``) or a resample dataset."""
+        (``n % b``, ``n < b``), a resample dataset, or a mesh, as the JAX
+        package does."""
         b = self.config.batch_size
         data = _tree(self._to_device, data)
         n = (data[0] if isinstance(data, tuple) else data).shape[0]
-        if n % b or n < b or self._resample_dataset is not None:
+        if n % b or n < b or self._resample_dataset is not None or self.mesh is not None:
             out: list[TrainingMetrics] = []
             for _ in range(epochs):
                 out.extend(self.train_epoch_fused(data, shuffle=shuffle, seed=seed))
@@ -561,8 +757,9 @@ class SAETrainer:
             if ep % checkpoint_every == 0:
                 self.save_checkpoint(f"checkpoint_epoch{ep}.npz")
 
-    @staticmethod
-    def _print_epoch(ep: int, epoch_metrics: list[TrainingMetrics], rate: dict) -> None:
+    def _print_epoch(self, ep: int, epoch_metrics: list[TrainingMetrics], rate: dict) -> None:
+        if not self.is_primary:
+            return
         count = max(len(epoch_metrics), 1)
         avg_loss = sum(m.loss for m in epoch_metrics) / count
         avg_l0 = sum(m.l0 for m in epoch_metrics) / count
@@ -578,15 +775,19 @@ class SAETrainer:
     # ------------------------------------------------------------------
 
     def _checkpoint_tree(self) -> dict:
+        """The single-device checkpoint's tree (gathered whole under a
+        mesh)."""
+        params, opt, dstate = self._gathered()
         return {
-            "params": self.model.params,
-            "opt_state": {
-                "mu": self.opt_state.mu,
-                "nu": self.opt_state.nu,
-                "count": np.int64(self.opt_state.count),
-            },
-            "dead_state": self._dead_state,
+            "params": params,
+            "opt_state": {"mu": opt.mu, "nu": opt.nu, "count": np.int64(opt.count)},
+            "dead_state": dstate,
         }
+
+    def _barrier(self) -> None:
+        """Under a mesh: every rank waits for rank 0's file writes."""
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.cpu_group)
 
     def _log_wandb(self, m: TrainingMetrics) -> None:
         self.wandb_run.log(
@@ -611,13 +812,18 @@ class SAETrainer:
             "resample_rng_state": self._resample_rng.bit_generator.state,
             "num_resampled_total": self.num_resampled_total,
         }
-        out = save_pytree(self.run_dir / filename, self._checkpoint_tree(), meta=meta)
+        tree = self._checkpoint_tree()
+        out = self.run_dir / filename
+        if self.is_primary:
+            save_pytree(out, tree, meta=meta)
         self.save_metrics()
         return out
 
     def load_checkpoint(self, path: str | Path) -> None:
+        """Restore a checkpoint (written on one card or by a mesh's rank 0;
+        under a mesh every rank reads it whole and takes its blocks at the
+        next step)."""
         tree, meta = load_pytree(path)
-        self.model.load_params(tree["params"])
         dev = self.device
         opt = tree["opt_state"]
         self.opt_state = AdamWState(
@@ -626,10 +832,17 @@ class SAETrainer:
             int(opt["count"]),
         )
         ds = tree["dead_state"]
-        self._dead_state = DeadFeatureState(
+        dstate = DeadFeatureState(
             torch.from_numpy(ds["feature_last_activated"]).to(dev),
             torch.from_numpy(np.asarray(ds["step_count"])).to(dev),
         )
+        if self._mesh_placed and self._is_tp():  # the model holds blocks: give it whole tensors
+            self._assign({k: torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+                          for k, v in tree["params"].items()}, dstate)
+        else:
+            self.model.load_params(tree["params"])
+            self._dead_state = dstate
+        self._mesh_placed = False
         if meta:
             self.global_step = int(meta["global_step"])
             self.epoch = int(meta["epoch"])
@@ -657,16 +870,22 @@ class SAETrainer:
 
     def save_final(self, filename_stem: str = "sae_final") -> None:
         """``sae_final.npz`` (the JAX package's keys) and ``sae_final.pt``
-        (the reference torch ``state_dict``)."""
-        save_pytree(self.run_dir / f"{filename_stem}.npz", self.model.params)
-        export_torch_state_dict(
-            self.model.params, state=getattr(self.model, "state", None),
-            path=self.run_dir / f"{filename_stem}.pt",
-        )
+        (the reference torch ``state_dict``); under a mesh the full model,
+        written by rank 0."""
+        params, _, dstate = self._gathered()
+        if self.is_primary:
+            save_pytree(self.run_dir / f"{filename_stem}.npz", params)
+            export_torch_state_dict(params, state=dstate if hasattr(self.model, "state") else None,
+                                    path=self.run_dir / f"{filename_stem}.pt")
+        self._barrier()
 
     def save_metrics(self, filename: str = "metrics.json") -> Path:
-        """``metrics.json``: one dict per step with the reference's keys."""
+        """``metrics.json``: one dict per step with the reference's keys
+        (under a mesh, written by rank 0; the others wait for it)."""
         path = self.run_dir / filename
+        if not self.is_primary:
+            self._barrier()
+            return path
         dicts = [
             {
                 "step": m.step,
@@ -682,4 +901,5 @@ class SAETrainer:
         tmp = path.with_name(path.name + ".tmp")
         tmp.write_text(json.dumps(dicts, indent=2))
         os.replace(tmp, path)
+        self._barrier()
         return path

@@ -9,14 +9,17 @@ decimal digits, the H100 form of the TPU's bf16-in-f32-dots trap.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """``None`` means the card; a CUDA request without a card raises."""
+    """``None`` means the card -- this process's own, ``cuda:LOCAL_RANK``,
+    under ``torchrun``; a CUDA request without a card raises."""
     if device is None:
-        device = "cuda"
+        local = os.environ.get("LOCAL_RANK")
+        device = "cuda" if local is None else f"cuda:{int(local)}"
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

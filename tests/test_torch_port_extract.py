@@ -161,7 +161,7 @@ def test_extraction_refuses_a_mesh_and_bf16_cache_without_bf16(tmp_path, setup):
     _, tparams = setup
     _, cache = _caches(tmp_path)
     arch = TW.WhisperArch(**ARCH)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         tfc.extract_and_cache_features(tparams, arch, [], cache, [0], [], mesh=object())
     with pytest.raises(ValueError, match="requires bf16"):
         tfc.extract_and_cache_features(tparams, arch, [], cache, [0], [], cache_dtype="bfloat16")

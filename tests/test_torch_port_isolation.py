@@ -29,7 +29,8 @@ need = {"launch", "models.transcoder", "models.crosscoder", "training.coder_trai
         "decoder_analysis.cross_attention", "utils.wavio", "utils.metrics",
         "utils.profiling", "analysis.feature_viz", "analysis.coactivation",
         "analysis.audio_extraction", "analysis.auto_label", "analysis.dashboard",
-        "causal.patching"}
+        "causal.patching", "parallel", "parallel.mesh", "parallel.multihost",
+        "parallel.sharding", "parallel.tp_topk", "parallel.tp_step", "parallel.extraction"}
 missing = sorted(n for n in need if pkg.__name__ + "." + n not in names)
 print(len(names), bad, missing)
 sys.exit(1 if bad or missing or len(names) < 50 else 0)
@@ -87,3 +88,26 @@ def test_kernel_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_sae.fused_topk_encode(meta, w, torch.empty(128, device="meta"),
                                    torch.empty(64, device="meta"), 2)
+
+
+def test_no_launch_environment_means_the_single_device_path(monkeypatch):
+    """Without torchrun's environment nothing initialises a process group
+    and this process is the primary one; under it each rank's card is
+    ``cuda:LOCAL_RANK``."""
+    from whisper_sae_tpu_torch.parallel import multihost
+    from whisper_sae_tpu_torch.utils.device import resolve_device
+
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    assert not multihost.launched()
+    assert multihost.initialize_if_needed() is False
+    assert multihost.is_primary()
+    with pytest.raises(ValueError, match="world size and this rank"):
+        multihost.initialize_if_needed(num_processes=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda")
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    assert multihost.launched()
+    assert resolve_device(None) == torch.device("cuda", 3)
+    assert resolve_device("cpu").type == "cpu"
