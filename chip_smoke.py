@@ -435,6 +435,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
     with the card's name and power limit.  Kernel A's and the encoder
     kernels' entries carry ``at_parallel`` launch counts.
 
+26. The real-audio route (``data/librispeech.py``'s ``LibriSpeechDataset``)
+    and the ReLU SAE's model-axis form.  (a) A LibriSpeech-shaped stream of
+    128 samples made from a seed (speech-like waveforms of
+    ``SyntheticSpeechDataset.waveform``, 2-30 s, as RIFF WAV bytes: most 16
+    kHz mono, every eighth 44.1 kHz stereo, every sixteenth a file by path,
+    one that does not decode) ingested by ``LibriSpeechDataset._ingest``
+    with the mels on the card into 256-mel shards, against the same stream
+    featurised on the CPU: the same files and meta json (the bad sample
+    skipped), the mels within 1e-4 (max abs).  (b) ``launch extract
+    --dataset librispeech_asr --random-whisper`` (whisper-tiny, bf16,
+    batch 64, encoder and decoder layers 0-3) from that cache, no stream
+    opened: the encoder kernels' launch counts, the transcripts and log,
+    the 8 caches' metadata, the first batch's first 8 clips held against
+    the plain route on the CPU at the stack bar; one 64-clip batch's wall
+    ms.  (c) One 16-clip whisper-large-v3 batch through the launcher from a
+    ``_mel128`` cache of the first 16 clips that decode (the stem, the
+    launch counts at large-v3 width, the first 2 clips against
+    ``extract_activations``).  (d) The CLI with ``dataset_name:
+    librispeech_asr`` on (a)'s mel cache: ``--extract-only`` of encoder:3,
+    then one epoch at whisper-tiny 8x (batch 128, AMP: every full batch a
+    windowed kernel-A launch, the remainder a sliced one), its act/s;
+    ``causal-validate`` on (b)'s extraction log, which reads the mel cache
+    under the working directory's ``cache/`` keyed by ``--num-samples``, as
+    the JAX job does.  (e) The ReLU SAE with tp = 2 (two gloo ranks sharing
+    the card, as phase 25b) at whisper-large 32x geometry (D=1280,
+    H=40960, batch 8192, 6 steps) against one process: losses within 1e-4
+    relative, each rank's w_enc [1280, 20480] with its moments, b_dec bit
+    for bit, the gathered checkpoint a single-device file; each rank's
+    memory held and peak against the replicated run's, ms a step and the
+    all-reduces' share.  Kernel A's and the encoder kernels' entries carry
+    ``at_real_audio`` launch counts.
+
 Before them, one line lists the rows of phases 1, 8, 11, 20, 21, 22, 23 and 24 that select
 differently from the plain version, with their gaps, and one the
 decoded tokens of phase 19 that differ from their reference.  The last two lines
@@ -5669,6 +5701,471 @@ def p25_same_caches(work: Path, cfg_mod, cache_mod) -> tuple[list, list]:
     return same, differing
 
 
+
+# ---------------------------------------------------------------------------
+# phase 26: the real-audio route -- LibriSpeech's mel cache (ingest, decode,
+# the launcher's and the CLI's non-synthetic datasets) -- and the ReLU SAE's
+# model-axis sharding
+# ---------------------------------------------------------------------------
+
+P26_CLIPS, P26_SEED, P26_BAD = 128, 26, 5  # sample 5 carries bytes no WAV reader decodes
+P26_STEREO = 3  # clips i % 8 == 3: 44.1 kHz stereo (resample and the channel mean run)
+P26_BY_PATH = 7  # clips i % 16 == 7: a WAV file by path, no bytes
+P26_LG_CLIPS = 16  # the large-v3 batch: the first 16 clips that decode
+P26_REF_CLIPS = 8  # clips of the first batch held against the CPU's plain route
+P26_CAUSAL = 8  # causal-validate's num_samples
+P26_WEIGHT_SEED = 42  # the launcher's default seed: its random Whisper weights
+MEL_BAR = 1e-4  # max abs, values of order 1 (tests/test_torch_port_mel.py)
+
+
+def p26_stream(work: Path, ds_mod, wavio) -> list[dict]:
+    """Phase 26a's LibriSpeech-shaped stream of 128 samples made from a
+    seed: speech-like waveforms (``SyntheticSpeechDataset.waveform``) of 2
+    to 30 s as RIFF WAV bytes, most 16 kHz mono, every eighth 44.1 kHz
+    stereo, every sixteenth a file by path; one sample does not decode."""
+    rng = np.random.default_rng(P26_SEED)
+    wav_dir = work / "wav"
+    wav_dir.mkdir(parents=True)
+    samples = []
+    for i in range(P26_CLIPS):
+        sid, cid = 1000 + i % 40, 100 + i // 40
+        s = {"id": f"{sid}-{cid}-{i:04d}", "text": f"CLIP {i} OF SPEAKER {sid} CHAPTER {cid}",
+             "speaker_id": sid, "chapter_id": cid}
+        seconds = float(rng.uniform(2.0, 30.0))
+        if i == P26_BAD:
+            s["audio"] = {"bytes": b"RIFF\x10\x00\x00\x00WAVEnot a wave", "path": f"{i}.flac"}
+            samples.append(s)
+            continue
+
+        def wave(seed):
+            return ds_mod.SyntheticSpeechDataset(1, duration_s=seconds, seed=seed).waveform(0)
+
+        path = wav_dir / f"{s['id']}.wav"
+        if i % 8 == P26_STEREO:
+            stereo = np.stack([wavio.resample(wave(P26_SEED * 1000 + i), 16_000, 44_100),
+                               0.8 * wavio.resample(wave(P26_SEED * 1000 + 500 + i), 16_000,
+                                                    44_100)], axis=1)
+            wavio.write_wav(path, stereo, 44_100)
+        else:
+            wavio.write_wav(path, wave(P26_SEED * 1000 + i), 16_000)
+        s["audio"] = ({"bytes": None, "path": str(path)} if i % 16 == P26_BY_PATH
+                      else {"bytes": path.read_bytes(), "path": f"{s['id']}.flac"})
+        samples.append(s)
+    return samples
+
+
+def p26_dataset(ds_mod, cfg_mod, cache_dir: Path, samples: list, device, n_mels: int = 80,
+                max_samples: int | None = None):
+    """``LibriSpeechDataset`` over ``cache_dir``; without a cache there it
+    ingests ``samples`` (``_ingest``, the log-mel on ``device``) in the
+    stream's place."""
+
+    class LocalStream(ds_mod.LibriSpeechDataset):
+        def _load_streaming(self):
+            self._ingest(iter(samples))
+
+    return LocalStream(cfg_mod.DataConfig(cache_dir=cache_dir, max_samples=max_samples or P26_CLIPS),
+                       n_mels=n_mels, device=device)
+
+
+def p26_ingest(work: Path, dev, ds_mod, cfg_mod, samples: list, card: str) -> dict:
+    """Phase 26a: the stream ingested with the mels on the card, against
+    the same stream featurised on the CPU."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds = p26_dataset(ds_mod, cfg_mod, work / "cache", samples, dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = p26_dataset(ds_mod, cfg_mod, work / "cpu_mels", samples, "cpu")
+    cpu_s = time.perf_counter() - t0
+    good = P26_CLIPS - 1
+    stem = f"librispeech_clean_train.100_{P26_CLIPS}"
+    names = [sorted(p.name for p in d.iterdir()) for d in (work / "cache", work / "cpu_mels")]
+    check(names[0] == names[1] == [f"{stem}_meta.json", f"{stem}_shard00000.npy"],
+          f"phase 26a: cache files {names}")
+    metas = [json.loads((d / f"{stem}_meta.json").read_text()) for d in (work / "cache",
+                                                                           work / "cpu_mels")]
+    check(metas[0] == metas[1] and len(metas[0]["items"]) == len(ds) == len(cpu) == good
+          and all(it["id"] != samples[P26_BAD]["id"] for it in metas[0]["items"]),
+          "phase 26a: meta json differs from the CPU's or kept the sample that does not decode")
+    got, want = (np.load(d / f"{stem}_shard00000.npy") for d in (work / "cache", work / "cpu_mels"))
+    check(got.shape == want.shape == (good, N_MELS, 3000) and got.dtype == np.float32,
+          f"phase 26a: shard {got.shape} {got.dtype}")
+    err = float(np.abs(got - want).max())
+    check(bool(np.isfinite(got).all()) and err <= MEL_BAR,
+          f"phase 26a: card mels off the CPU's by {err:.3g} (bar {MEL_BAR})")
+    shutil.rmtree(work / "cpu_mels")
+    stereo = sum(1 for i in range(P26_CLIPS) if i % 8 == P26_STEREO and i != P26_BAD)
+    log(f"  [{card}] ingest of {P26_CLIPS} samples (2-30 s, {stereo} at 44.1 kHz stereo, one "
+        f"that does not decode): {card_s:.2f} s with the mels on the card "
+        f"({good / card_s:,.1f} clips/s: decode, resample, log-mel, the shard write), "
+        f"{cpu_s:.2f} s on the CPU; {good} mels within {err:.3g} of the CPU's (bar {MEL_BAR})")
+    return {"ingest_s": card_s, "clips_per_s": good / card_s, "cpu_s": cpu_s,
+            "max_abs_err": err, "clips": good}
+
+
+def p26_extract_tiny(work: Path, dev, launch_mod, cfg_mod, cache_mod, ds_mod, W, E, CE,
+                     samples: list, card: str) -> dict:
+    """Phase 26b: ``launch extract --dataset librispeech_asr`` (whisper-tiny,
+    bf16, batch 64, every layer, random weights) from 26a's cache."""
+    reset_enc_launches(CE)
+    E.plain_calls.clear()
+    t0 = time.perf_counter()
+    out = launch_mod.main(["extract", "--dataset", "librispeech_asr", "--max-samples",
+                           str(P26_CLIPS), "--batch-size", "64", "--layers-encoder", "0,1,2,3",
+                           "--layers-decoder", "0,1,2,3", "--cache-dir", str(work / "cache"),
+                           "--random-whisper", "--device", str(dev)])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches = enc_launches(CE)
+    clips = P26_CLIPS - 1
+    batches = -(-clips // 64)
+    want = {"conv_stem": batches, **{n: 4 * batches for n in ("ln_qkv", "self_attention",
+                                                              "out_proj", "mlp_block")},
+            "flash_self_attention": 0}
+    check(launches == want, f"phase 26b: launches {launches} != {want}")
+    check(sum(E.plain_calls.values()) == 0, f"phase 26b: plain versions ran: {E.plain_calls}")
+    features = work / "cache" / "features"
+    elog = json.loads((features / "extraction_log.json").read_text())
+    texts = json.loads((features / "transcripts.json").read_text())
+    want_texts = [s["text"] for i, s in enumerate(samples) if i != P26_BAD]
+    check(out["dataset"] == elog["dataset"] == "librispeech_asr"
+          and [texts[str(i)] for i in range(clips)] == want_texts,
+          "phase 26b: extraction log or transcripts differ from the stream")
+
+    # the first batch's first clips against the plain route on the CPU
+    arch = W.arch_for("openai/whisper-tiny")
+    gen = torch.Generator(device=dev).manual_seed(P26_WEIGHT_SEED)  # as the job makes them
+    p_dev = W.init_whisper(gen, arch)
+    mels = ds_mod.LibriSpeechDataset(cfg_mod.DataConfig(cache_dir=work / "cache",
+                                                        max_samples=P26_CLIPS))
+    mel = torch.from_numpy(np.stack([mels[i]["input_features"] for i in range(min(64, clips))]))
+    t0 = time.perf_counter()
+    ref = W.extract_activations(W.params_to(p_dev, "cpu"), mel[:P26_REF_CLIPS], arch,
+                                compute_dtype=torch.bfloat16, capture_dtype=torch.bfloat16)
+    cpu_s = time.perf_counter() - t0
+    cache = cache_mod.FeatureCache(features, cfg_mod.WhisperConfig(),
+                                   cfg_mod.DataConfig(max_samples=P26_CLIPS))
+    worst = {}
+    for comp, tokens in (("encoder", ENC_T), ("decoder", 1)):
+        for layer in range(4):
+            meta = cache.load_metadata(comp, layer)
+            check((meta.num_tokens, meta.hidden_dim, meta.num_samples)
+                  == (clips * tokens, ENC_D, clips)
+                  and meta.data_config["dataset_name"] == "librispeech_asr",
+                  f"phase 26b: {comp}:{layer} metadata {meta}")
+            rows, _ = cache.load(comp, layer)
+            check(bool(torch.isfinite(rows).all()), f"phase 26b: {comp}:{layer} non-finite")
+            n = P26_REF_CLIPS * tokens
+            bar_check(rows[:n], ref[comp][layer].reshape(-1, ENC_D), STACK_BAR,
+                      f"phase 26b: {comp}:{layer} first {P26_REF_CLIPS} clips, card vs CPU")
+            worst[f"{comp}:{layer}"] = rel_err(rows[:n], ref[comp][layer].reshape(-1, ENC_D))[1]
+            del rows
+    # one batch of 64 clips on the card, as the job runs it
+    mel_dev = mel.to(dev)
+    batch_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        W.extract_activations(p_dev, mel_dev, arch, compute_dtype=torch.bfloat16,
+                              capture_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+    batch_ms = float(np.mean(batch_ms[1:]))
+    del p_dev, mel_dev
+    log(f"  [{card}] launch extract --dataset librispeech_asr: {clips} clips in {extract_s:.2f} s "
+        f"({clips / extract_s:,.1f} clips/s end to end: mel cache read, forward, transfer, "
+        f"disk); a {len(mel)}-clip batch {batch_ms:.2f} ms of wall ({len(mel) * 1e3 / batch_ms:,.1f} "
+        f"clips/s); "
+        f"launches {launches}; first {P26_REF_CLIPS} clips vs the CPU's plain route "
+        f"({cpu_s:.1f} s there), mean rel err by layer "
+        + ", ".join(f"{k} {v:.2g}" for k, v in worst.items()) + " (stack bar 2**-7)")
+    return {"launches": launches, "extract_s": extract_s, "clips_per_s": clips / extract_s,
+            "batch_ms": batch_ms, "mean_rel_err": worst}
+
+
+def p26_extract_large(work: Path, dev, launch_mod, cfg_mod, cache_mod, ds_mod, W, E, CE,
+                      samples: list, card: str) -> dict:
+    """Phase 26c: one 16-clip whisper-large-v3 batch from a ``_mel128``
+    cache of the first 16 clips that decode."""
+    good = [s for i, s in enumerate(samples) if i != P26_BAD][:P26_LG_CLIPS]
+    lg = work / "lcache"
+    t0 = time.perf_counter()
+    p26_dataset(ds_mod, cfg_mod, lg, good, dev, n_mels=128, max_samples=P26_LG_CLIPS)
+    ingest_s = time.perf_counter() - t0
+    stem = f"librispeech_clean_train.100_{P26_LG_CLIPS}_mel128"
+    check(sorted(p.name for p in lg.iterdir()) == [f"{stem}_meta.json", f"{stem}_shard00000.npy"],
+          f"phase 26c: mel128 cache {sorted(p.name for p in lg.iterdir())}")
+    reset_enc_launches(CE)
+    E.plain_calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    launch_mod.main(["extract", "--model-name", LV3, "--dataset", "librispeech_asr",
+                     "--max-samples", str(P26_LG_CLIPS), "--batch-size", str(P26_LG_CLIPS),
+                     "--layers-encoder", ",".join(map(str, LG_ENC_LAYERS)), "--layers-decoder",
+                     ",".join(map(str, LG_DEC_LAYERS)), "--cache-dir", str(lg),
+                     "--random-whisper", "--device", str(dev)])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    launches = enc_launches(CE)
+    arch = W.arch_for(LV3)
+    want = {"conv_stem": 1, **{n: arch.encoder_layers for n in ("ln_qkv", "self_attention",
+                                                               "out_proj", "mlp_block")},
+            "flash_self_attention": 0}
+    check(launches == want, f"phase 26c: launches {launches} != {want}")
+    check(sum(E.plain_calls.values()) == 0, f"phase 26c: plain versions ran: {E.plain_calls}")
+    cache = cache_mod.FeatureCache(lg / "features", cfg_mod.WhisperConfig(model_name=LV3),
+                                   cfg_mod.DataConfig(max_samples=P26_LG_CLIPS))
+    pb = W.cast_params(W.init_whisper(torch.Generator(device=dev).manual_seed(P26_WEIGHT_SEED),
+                                      arch), torch.bfloat16)
+    mels = ds_mod.LibriSpeechDataset(cfg_mod.DataConfig(cache_dir=lg, max_samples=P26_LG_CLIPS),
+                                     n_mels=128)
+    mel2 = torch.from_numpy(np.stack([mels[i]["input_features"] for i in range(2)])).to(dev)
+    check(mel2.shape == (2, 128, 3000), f"phase 26c: mel {tuple(mel2.shape)}")
+    ref = W.extract_activations(pb, mel2, arch, compute_dtype=torch.bfloat16,
+                                capture_dtype=torch.bfloat16)
+    d = arch.d_model
+    for comp, layers, tokens in (("encoder", LG_ENC_LAYERS, ENC_T), ("decoder", LG_DEC_LAYERS, 1)):
+        for layer in layers:
+            meta = cache.load_metadata(comp, layer)
+            check((meta.num_tokens, meta.hidden_dim, meta.num_samples)
+                  == (P26_LG_CLIPS * tokens, d, P26_LG_CLIPS), f"phase 26c: {comp}:{layer} {meta}")
+            rows, _ = cache.load(comp, layer)
+            bar_check(rows[:2 * tokens], ref[comp][layer].reshape(-1, d), STACK_BAR,
+                      f"phase 26c: {comp}:{layer} first 2 clips vs extract_activations")
+            del rows
+    del pb, ref
+    shutil.rmtree(lg, ignore_errors=True)
+    log(f"  [{card}] whisper-large-v3 from the mel128 cache ({P26_LG_CLIPS} clips ingested on the "
+        f"card in {ingest_s:.2f} s): launch extract {extract_s:.2f} s ({P26_LG_CLIPS / extract_s:.2f} "
+        f"clips/s end to end, weights made on the card); launches {launches}")
+    return {"launches": launches, "extract_s": extract_s, "ingest_s": ingest_s}
+
+
+def p26_cli(work: Path, dev, train_mod, launch_mod, cfg_mod, ds_mod, CE, cuda_sae, topk,
+            samples: list, card: str) -> dict:
+    """Phase 26d: the CLI with ``dataset_name: librispeech_asr`` on 26a's mel
+    cache (its own features beside it): extraction of encoder:3, one epoch
+    of windowed kernel-A steps at whisper-tiny 8x (batch 128, AMP), then
+    ``causal-validate`` on 26b's extraction log."""
+    import yaml
+
+    cli_dir = work / "cli_cache"
+    cli_dir.mkdir()
+    for f in (work / "cache").glob(f"librispeech_clean_train.100_{P26_CLIPS}*"):
+        (cli_dir / f.name).symlink_to(f)
+    cfg = yaml.safe_load((ROOT / "configs" / "tiny_default.yaml").read_text())
+    check(cfg["data"]["dataset_name"] == "librispeech_asr", "tiny_default.yaml's dataset changed")
+    cfg["data"].update(max_samples=P26_CLIPS, cache_dir=str(cli_dir))
+    cfg["training"].update(epochs=1, warmup_steps=100)
+    cfg["output_dir"] = str(work / "cli_out")
+    cfg["experiment_name"] = "real_audio"
+    path = work / "real_audio.yaml"
+    path.write_text(yaml.safe_dump(cfg))
+    args = ["--config", str(path), "--layer", "encoder:3", "--no-wandb", "--device", str(dev)]
+    reset_enc_launches(CE)
+    t0 = time.perf_counter()
+    train_mod.main(args + ["--extract-only", "--random-whisper"])
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    enc = enc_launches(CE)
+    clips = P26_CLIPS - 1
+    check(enc["conv_stem"] == 2 and enc["mlp_block"] == 8,
+          f"phase 26d: the CLI's extraction launches {enc}")
+    zero_kernel_a(cuda_sae, topk)
+    t0 = time.perf_counter()
+    (trainer,) = train_mod.main(args).values()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = kernel_a_launches(cuda_sae)
+    rows = clips * ENC_T
+    metrics = json.loads((trainer.run_dir / "metrics.json").read_text())
+    losses = np.array([m["loss"] for m in metrics])
+    check(launches["fused_sae_loss_indexed"] == rows // 128 and launches["fused_sae_loss"] >= 1
+          and len(metrics) == -(-rows // 128) and sum(topk.plain_calls.values()) == 0,
+          f"phase 26d: kernel A launches {launches}, {len(metrics)} steps, plain calls "
+          f"{dict(topk.plain_calls)}")
+    tenth = len(losses) // 10
+    check(bool(np.isfinite(losses).all()) and losses[-tenth:].mean() < losses[:tenth].mean(),
+          f"phase 26d: loss {losses[:tenth].mean():.5f} -> {losses[-tenth:].mean():.5f}")
+
+    # causal-validate: the JAX job reads the mel cache under the working
+    # directory's cache/, keyed by num_samples
+    good = [s for i, s in enumerate(samples) if i != P26_BAD][:P26_CAUSAL]
+    with contextlib.chdir(work):
+        p26_dataset(ds_mod, cfg_mod, Path("cache"), good, dev, max_samples=P26_CAUSAL)
+        t0 = time.perf_counter()
+        out = launch_mod.main(["causal-validate", "--component", "encoder", "--layer-idx", "3",
+                               "--num-samples", str(P26_CAUSAL), "--sweep-features", "2",
+                               "--random-whisper", "--cache-dir", str(work / "cache"),
+                               "--run-dir", str(trainer.run_dir), "--device", str(dev)])
+        causal_s = time.perf_counter() - t0
+    saved = json.loads((trainer.run_dir / "analysis" / "causal_validation.json").read_text())
+    check(saved["num_samples"] == P26_CAUSAL and np.isfinite(saved["logit_kl"])
+          and saved["logit_kl"] >= 0 and 0 <= saved["token_agreement"] <= 1
+          and len(saved["ablation_sweep"]) == 2, f"phase 26d: causal-validate {out}")
+    log(f"  [{card}] the CLI on the LibriSpeech cache: encoder:3 of {clips} clips extracted in "
+        f"{extract_s:.2f} s ({clips / extract_s:,.1f} clips/s), one epoch of {len(metrics)} steps "
+        f"in {train_s:.2f} s ({rows / train_s:,.0f} act/s end to end), kernel A launches "
+        f"{launches}, loss {losses[:tenth].mean():.5f} -> {losses[-tenth:].mean():.5f}; "
+        f"causal-validate {causal_s:.2f} s: logit_kl {saved['logit_kl']:.6g}, token agreement "
+        f"{saved['token_agreement']}")
+    return {"enc_launches": enc, "launches": launches, "extract_s": extract_s,
+            "train_s": train_s, "act_per_s": rows / train_s, "causal_s": causal_s,
+            "logit_kl": saved["logit_kl"]}
+
+
+def p26_relu_trainer(mesh, run_dir: Path):
+    """The ReLU SAE at whisper-large 32x (D=1280, H=40960), AMP, batch 8192."""
+    from whisper_sae_tpu_torch.config import TrainingConfig
+    from whisper_sae_tpu_torch.models.sae import ReLUSAE
+    from whisper_sae_tpu_torch.training.trainer import SAETrainer
+
+    sae = ReLUSAE(P25_LD, P25_LH, seed=42, device="cuda")
+    return SAETrainer(sae, TrainingConfig(batch_size=P25_TP_BATCH, learning_rate=1e-3,
+                                          warmup_steps=2, use_amp=True, seed=42),
+                      run_dir=run_dir, mesh=mesh)
+
+
+def p26_relu_tp(rank: int, work: Path) -> dict:
+    """Phase 26e, a rank of the ReLU SAE with tp = 2 (20,480 features a
+    rank): 6 steps on phase 25's whisper-large rows, each step's
+    all-reduces timed after the first, the peak memory, then the gathered
+    checkpoint (rank 0 writes it)."""
+    from whisper_sae_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 2)
+    timer = CollectiveTimer()
+    trainer = p26_relu_trainer(mesh, work / "relu_tp")
+    trainer._place_on_mesh()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, colls = [], [], []
+    for s in range(P25_TP_STEPS):
+        x = p25_large_rows(s)
+        timer.on = s > 0  # the first step also warms up
+        m, ms = p25_timed(lambda: trainer.train_step(x))
+        timer.on = False
+        if s > 0:
+            step_ms.append(ms)
+            colls.append(timer.totals())
+        losses.append(m.loss)
+    peak = torch.cuda.max_memory_allocated()
+    specs = trainer._tp_family().param_specs
+    out = {"losses": losses, "step_ms": step_ms, "collectives": colls, "peak_bytes": peak,
+           "resident_bytes": resident,
+           "replicated": {k: v.detach().cpu().numpy().tobytes()
+                          for k, v in trainer.model.params.items() if specs[k] is None},
+           "local_shapes": {k: tuple(v.shape) for k, v in trainer.model.params.items()},
+           "moment_shapes": {k: tuple(v.shape) for k, v in trainer.opt_state.mu.items()}}
+    trainer.save_checkpoint("relu_tp.npz")
+    out["full_bits"] = p25_params_bits(trainer.full_params())
+    out["ckpt"] = str(trainer.run_dir / "relu_tp.npz")
+    return out
+
+
+def p26_relu_reference(work: Path) -> dict:
+    """The same ReLU SAE run in this process, replicated: losses, ms a
+    step and the memory it holds and peaks at."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = p26_relu_trainer(None, work / "relu_ref")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    losses, step_ms = [], []
+    for s in range(P25_TP_STEPS):
+        x = p25_large_rows(s)
+        m, ms = p25_timed(lambda: trainer.train_step(x))
+        losses.append(m.loss)
+        step_ms.append(ms)
+    peak = torch.cuda.max_memory_allocated() - base
+    del trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": float(np.mean(step_ms[1:])), "peak_bytes": peak,
+            "resident_bytes": resident}
+
+
+def p26_relu(work: Path, sae_mod, card: str) -> dict:
+    """Phase 26e: the ReLU SAE's model-axis form over two ranks sharing the
+    card (gloo), against one process."""
+    from whisper_sae_tpu_torch.utils.checkpoint import load_pytree
+
+    t0 = time.perf_counter()
+    tp = p25_spawn("p26_relu_tp", 2, work)
+    tp_s = time.perf_counter() - t0
+    ref = p26_relu_reference(work)
+    got, want = np.array(tp[0]["losses"]), np.array(ref["losses"])
+    worst = float(np.max(np.abs(got - want) / np.abs(want)))
+    check(np.array_equal(got, np.array(tp[1]["losses"])) and worst <= 1e-4,
+          f"phase 26e: tp losses {got} against one process's {want} (max rel {worst:.3e})")
+    half = P25_LH // 2
+    for r, o in enumerate(tp):
+        check(o["local_shapes"] == {"w_enc": (P25_LD, half), "b_enc": (half,),
+                                    "w_dec": (half, P25_LD), "b_dec": (P25_LD,)}
+              and o["moment_shapes"] == o["local_shapes"],
+              f"phase 26e: rank {r} holds {o['local_shapes']}, moments {o['moment_shapes']}")
+    check(tp[0]["replicated"] == tp[1]["replicated"] and set(tp[0]["replicated"]) == {"b_dec"},
+          "phase 26e: b_dec differs across ranks")
+    tree, meta = load_pytree(tp[0]["ckpt"])
+    single = sae_mod.ReLUSAE(P25_LD, P25_LH, params=tree["params"], device="cuda")
+    check(p25_params_bits(single.params) == tp[0]["full_bits"] == tp[1]["full_bits"]
+          and meta["global_step"] == P25_TP_STEPS,
+          "phase 26e: the gathered checkpoint does not load as the trained ReLU SAE")
+    del single, tree
+    tp_ms = [float(np.mean(o["step_ms"])) for o in tp]
+    coll = p25_coll_summary(p25_merge(tp[0]["collectives"]), tp_ms[0], P25_TP_STEPS - 1)
+    share = sum(c["share"] for c in coll.values())
+    log(f"  [{card}] ReLU SAE tp = 2 at whisper-large 32x (D={P25_LD}, H={P25_LH}, {half} a "
+        f"rank), batch {P25_TP_BATCH}, {P25_TP_STEPS} steps: {tp_s:.1f} s with the process "
+        f"starts; losses within {worst:.3e} of one process (by step "
+        f"{[float(f'{v:.3g}') for v in np.abs(got - want) / np.abs(want)]}); w_enc by rank "
+        f"{[o['local_shapes']['w_enc'] for o in tp]}; b_dec bit for bit across ranks; the "
+        f"gathered checkpoint loads into one ReLUSAE; GB held / peak by rank "
+        f"{[(round(o['resident_bytes'] / 1e9, 3), round(o['peak_bytes'] / 1e9, 3)) for o in tp]}"
+        f" against the replicated one-process run's ({ref['resident_bytes'] / 1e9:.3f}, "
+        f"{ref['peak_bytes'] / 1e9:.3f}); ms a step {[round(m, 3) for m in tp_ms]} (one process "
+        f"{ref['step_ms']:.3f}); all-reduces {share:.1%} of a step: {json.dumps(coll)}")
+    return {"s": tp_s, "worst_rel": worst, "step_ms": tp_ms, "ref_step_ms": ref["step_ms"],
+            "peak_gb": [o["peak_bytes"] / 1e9 for o in tp],
+            "resident_gb": [o["resident_bytes"] / 1e9 for o in tp],
+            "ref_peak_gb": ref["peak_bytes"] / 1e9, "ref_resident_gb": ref["resident_bytes"] / 1e9,
+            "collectives": coll, "allreduce_share": share}
+
+
+def real_audio_path(work: Path, dev, card: str, train_mod, launch_mod, cfg_mod, cache_mod,
+                    ds_mod, sae_mod, W, E, CE, cuda_sae, topk, wavio) -> dict:
+    """Phase 26: (a) ingest, (b) whisper-tiny and (c) whisper-large-v3
+    extraction from the mel cache through the launcher, (d) the CLI and
+    causal-validate on it, (e) the ReLU SAE with tp = 2."""
+    t_phase = time.perf_counter()
+    work = work / "p26"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    samples = p26_stream(work, ds_mod, wavio)
+    log(f"  (a) a LibriSpeech-shaped stream of {P26_CLIPS} samples made in "
+        f"{time.perf_counter() - t0:.1f} s; LibriSpeechDataset._ingest, mels on the card, "
+        "against the same stream on the CPU")
+    a = p26_ingest(work, dev, ds_mod, cfg_mod, samples, card)
+    log("  (b) launch extract --dataset librispeech_asr: whisper-tiny, bf16, batch 64, every layer")
+    b = p26_extract_tiny(work, dev, launch_mod, cfg_mod, cache_mod, ds_mod, W, E, CE, samples,
+                         card)
+    log(f"  (c) launch extract: whisper-large-v3, one {P26_LG_CLIPS}-clip batch from a mel128 cache")
+    c = p26_extract_large(work, dev, launch_mod, cfg_mod, cache_mod, ds_mod, W, E, CE, samples,
+                          card)
+    log("  (d) the CLI with dataset_name: librispeech_asr, then causal-validate")
+    d = p26_cli(work, dev, train_mod, launch_mod, cfg_mod, ds_mod, CE, cuda_sae, topk, samples,
+                card)
+    log(f"  (e) the ReLU SAE with tp = 2 sharing the card (gloo): whisper-large 32x geometry")
+    e = p26_relu(work, sae_mod, card)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"card": card, "ingest": a, "tiny": b, "large_v3": c, "cli": d, "relu_tp": e,
+            "phase_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6038,6 +6535,21 @@ def main() -> int:
             entry["at_parallel"] = {"dp_extraction_by_rank": [l_[name] for l_ in
                                                               p25["extract"]["launches"]]}
     log(f"  parallel [{card}]: {json.dumps({k_: v for k_, v in p25.items() if k_ != 'card'})}")
+    log("phase 26: the real-audio route, LibriSpeech's mel cache: (a) a local WAV stream ingested "
+        "with the mels on the card, against the CPU; (b) whisper-tiny and (c) whisper-large-v3 "
+        "extraction from it through the launcher; (d) the CLI and causal-validate on it; (e) the "
+        "ReLU SAE's model-axis form over two ranks sharing the card")
+    p26 = real_audio_path(work, dev, card, train_mod, launch_mod, cfg_mod, cache_mod, ds_mod,
+                          sae_mod, W, E, CE, cuda_sae, topk, wavio)
+    for entry in kernels:
+        name = entry["name"]
+        if name in ("fused_sae_loss", "fused_sae_loss_indexed"):
+            entry["at_real_audio"] = {"cli_launches": p26["cli"]["launches"][name]}
+        elif name in ENC_WRAPPERS:
+            entry["at_real_audio"] = {"tiny_launches": p26["tiny"]["launches"][name],
+                                      "large_v3_launches": p26["large_v3"]["launches"][name],
+                                      "cli_launches": p26["cli"]["enc_launches"][name]}
+    log(f"  real audio [{card}]: {json.dumps({k_: v for k_, v in p26.items() if k_ != 'card'})}")
     log(f"  rows selecting differently from the plain version (phases 1, 8, 11, 20, 21, 22, 23 and 24): "
         f"{json.dumps({what: rows for what, rows in GAPS.items() if rows})}; "
         f"checked with none: {sorted(what for what, rows in GAPS.items() if not rows)}")

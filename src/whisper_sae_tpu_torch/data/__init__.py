@@ -1,10 +1,15 @@
-"""Data pipeline: mel frontend, synthetic speech and audio loaders,
-activation loaders and the sharded feature cache (counterpart of
-``whisper_sae_tpu/data``; LibriSpeech streaming needs the network and is
-not ported)."""
+"""Data pipeline: mel frontend, LibriSpeech's mel cache and synthetic
+speech, audio loaders, activation loaders and the sharded feature cache
+(counterpart of ``whisper_sae_tpu/data``)."""
 
 from .feature_cache import CacheMetadata, FeatureCache, extract_and_cache_features
-from .librispeech import AudioBatchLoader, LibriSpeechFeaturesOnly, SyntheticSpeechDataset
+from .librispeech import (
+    AudioBatchLoader,
+    LibriSpeechDataset,
+    LibriSpeechFeaturesOnly,
+    SyntheticSpeechDataset,
+    create_librispeech_dataloader,
+)
 from .loader import ActivationLoader, MultiLayerLoader, PairedActivationLoader
 from .mel import log_mel_spectrogram, mel_filter_bank
 
@@ -15,8 +20,10 @@ __all__ = [
     "PairedActivationLoader",
     "CacheMetadata",
     "FeatureCache",
+    "LibriSpeechDataset",
     "LibriSpeechFeaturesOnly",
     "SyntheticSpeechDataset",
+    "create_librispeech_dataloader",
     "extract_and_cache_features",
     "log_mel_spectrogram",
     "mel_filter_bank",

@@ -14,7 +14,9 @@ defaults, run directories and output files::
     python -m whisper_sae_tpu_torch.launch transcribe clips/ --random-whisper --output t.json
 
 Every job runs on the card unless ``--device cpu`` is given (then the
-kernels' plain versions run).  Only ``--dataset synthetic`` is ported.
+kernels' plain versions run).  ``--dataset synthetic`` draws seeded
+synthetic speech; any other dataset reads LibriSpeech's mel cache under
+``--cache-dir`` (ingesting the HF stream first when there is none).
 Training jobs resume from the newest ``checkpoint_epoch*.npz`` of their
 run directory unless ``--no-resume``; with ``--supervise`` a parent that
 never touches the card reruns the job in a child process after a crash,
@@ -56,7 +58,12 @@ from .analysis import (
 from .causal import feature_ablation_sweep, substitution_effect
 from .config import DataConfig, SAEConfig, TrainingConfig, WhisperConfig
 from .data.feature_cache import FeatureCache, extract_and_cache_features
-from .data.librispeech import AudioBatchLoader, LibriSpeechFeaturesOnly, SyntheticSpeechDataset
+from .data.librispeech import (
+    AudioBatchLoader,
+    LibriSpeechDataset,
+    LibriSpeechFeaturesOnly,
+    SyntheticSpeechDataset,
+)
 from .data.loader import ActivationLoader, MultiLayerLoader, PairedActivationLoader
 from .models.crosscoder import create_crosscoder, load_trained_crosscoder
 from .models.sae import create_sae, load_trained_sae
@@ -200,10 +207,6 @@ def extract_features(
     per-layer (mlp_in, mlp_out) pairs), ``extraction_log.json``,
     ``metadata.json`` and ``transcripts.json`` under ``cache_dir/features``."""
     dev = resolve_device(device)
-    if dataset != "synthetic":
-        raise ValueError(f"dataset {dataset!r} is not ported: the port extracts from "
-                         "--dataset synthetic only (LibriSpeech streaming needs data that is "
-                         "not here)")
     t0 = time.time()
     enc_layers = _parse_layers(layers_encoder)
     dec_layers = _parse_layers(layers_decoder)
@@ -219,9 +222,12 @@ def extract_features(
         except Exception:  # offline without a local snapshot
             print("pretrained load failed; using random weights", file=sys.stderr)
             params = init_whisper(gen, arch)
-    features_only = LibriSpeechFeaturesOnly(
-        SyntheticSpeechDataset(num_samples=max_samples, seed=seed, n_mels=arch.n_mels, device=dev),
-        record_texts=True)
+    if dataset == "synthetic":
+        ds = SyntheticSpeechDataset(num_samples=max_samples, seed=seed, n_mels=arch.n_mels,
+                                    device=dev)
+    else:
+        ds = LibriSpeechDataset(data_cfg, n_mels=arch.n_mels, device=dev)
+    features_only = LibriSpeechFeaturesOnly(ds, record_texts=True)
     cache = FeatureCache(Path(cache_dir) / "features", whisper_cfg, data_cfg)
     # several ranks: each batch's capture sharded over a data mesh
     # (launcher/launch.py:105-121 of the JAX package)
@@ -762,7 +768,8 @@ def causal_validate(
     sweep ranked by marginal logit KL (the report's top features when
     ``summary.json`` is there, else 0..N-1).  The audio replays the
     dataset recorded at extraction (``extraction_log.json``; synthetic
-    rebuilds from the logged seed).  The Whisper weights are made as the
+    rebuilds from the logged seed, any other dataset reads LibriSpeech's
+    mel cache of ``num_samples`` under the default ``cache/``).  The Whisper weights are made as the
     extraction job makes them.  Writes ``causal_validation.json`` into
     ``<run_dir>/analysis``."""
     if component not in ("encoder", "decoder"):
@@ -786,10 +793,13 @@ def causal_validate(
             params = init_whisper(torch.Generator(device=dev).manual_seed(seed), arch)
 
     elog = _read_json(Path(cache_dir) / "features" / "extraction_log.json")
-    if elog.get("dataset", "synthetic") != "synthetic":
-        raise ValueError(f"dataset {elog['dataset']!r} is not ported: the port replays "
-                         "synthetic extractions only")
-    ds = SyntheticSpeechDataset(num_samples=max(num_samples, 1), seed=elog.get("seed", seed),
+    if elog.get("dataset", "synthetic") == "synthetic":
+        ds = SyntheticSpeechDataset(num_samples=max(num_samples, 1), seed=elog.get("seed", seed),
+                                    n_mels=arch.n_mels, device=dev)
+    else:
+        # as the JAX job: the default cache_dir and a stem keyed by
+        # num_samples (launcher/launch.py:1122-1126)
+        ds = LibriSpeechDataset(DataConfig(dataset_name=elog["dataset"], max_samples=num_samples),
                                 n_mels=arch.n_mels, device=dev)
     mels = torch.from_numpy(np.stack([ds[i]["input_features"] for i in range(num_samples)]))
     mels = mels.to(dev)
@@ -953,7 +963,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     pe.add_argument("--max-samples", type=int, default=1000)
     pe.add_argument("--batch-size", type=int, default=64)
     pe.add_argument("--dataset", default="librispeech_asr",
-                    help="only 'synthetic' is ported")
+                    help="'synthetic', or a LibriSpeech name read from its mel cache")
     pe.add_argument("--cache-dir", default=str(CACHE_DIR))
     pe.add_argument("--random-whisper", action="store_true")
     pe.add_argument("--capture-mlp", action="store_true",

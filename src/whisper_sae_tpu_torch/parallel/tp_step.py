@@ -164,6 +164,32 @@ def sae_family(k: int) -> TPFamily:
                     forward, _renorm_rows)
 
 
+def relu_sae_family(sparsity_weight: float) -> TPFamily:
+    """ReLU SAE (``relu_sae_apply``): batch [B, D]; w_enc [D, H], b_enc
+    [H], w_dec [H, D], b_dec [D] replicated.  The activation is
+    elementwise, so there is no threshold collective; the L1 term
+    mean|hidden| splits per feature block (each rank sums its own block
+    over the GLOBAL rows times the GLOBAL H, and the data all-reduce of
+    the gradients completes the mean)."""
+
+    def forward(p, batch, compute_dtype, ax: TPAxes):
+        hidden = relu(_mm(batch, p["w_enc"], compute_dtype) + p["b_enc"])
+        recon_part = _mm(hidden, p["w_dec"], compute_dtype)
+        recon = psum_identity_vjp(recon_part + p["b_dec"] / ax.n_model, ax.model_group)
+        sq = torch.sum(torch.square(recon - batch))
+        rows = batch.shape[0] * ax.n_data
+        n_global = rows * batch.shape[1]
+        sp_local = torch.sum(torch.abs(hidden)) / (rows * hidden.shape[1] * ax.n_model)
+        loss = sq / n_global + sparsity_weight * sp_local
+        metrics = _metric_collectives(hidden, sq, n_global, batch.shape[0], ax, sp_local)
+        metrics["recon_metric"] = metrics["loss_metric"]
+        metrics["loss_metric"] = metrics["loss_metric"] + sparsity_weight * metrics["sparsity_loss"]
+        return loss, metrics
+
+    return TPFamily("relu_sae", {"w_enc": 1, "b_enc": 0, "w_dec": 0, "b_dec": None}, forward,
+                    _renorm_rows)
+
+
 def transcoder_family(k: int, use_skip: bool) -> TPFamily:
     """TopK / Skip transcoder: batch (x [B, Din], y [B, Dout]); the skip
     path replicates and its term rides inside the model all-reduce at

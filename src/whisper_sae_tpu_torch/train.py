@@ -17,8 +17,10 @@ subsample, as the JAX CLI does::
     python -m whisper_sae_tpu_torch.train ... --profile profiles/run1   # Chrome trace
 
 Without ``--random-whisper`` the pretrained weights are loaded from the
-local HF cache, with a fallback to random weights.  Only
-``dataset_name: synthetic`` is ported (LibriSpeech streaming is not).
+local HF cache, with a fallback to random weights.  ``dataset_name:
+synthetic`` draws seeded synthetic speech; any other name reads
+LibriSpeech's mel cache under ``data.cache_dir`` (ingesting the HF
+stream first when there is none, which needs the network).
 
 Under ``torchrun`` (one process per GPU) the CLI builds the config's
 ``(data, model)`` mesh (``mesh: {data: -1, model: 1}`` by default) and
@@ -43,7 +45,12 @@ import torch.distributed as dist
 
 from .config import ExperimentConfig
 from .data.feature_cache import FeatureCache, extract_and_cache_features
-from .data.librispeech import AudioBatchLoader, LibriSpeechFeaturesOnly, SyntheticSpeechDataset
+from .data.librispeech import (
+    AudioBatchLoader,
+    LibriSpeechDataset,
+    LibriSpeechFeaturesOnly,
+    SyntheticSpeechDataset,
+)
 from .models.sae import create_sae
 from .models.whisper import arch_for, init_whisper, load_pretrained
 from .parallel.mesh import mesh_from_config
@@ -154,10 +161,6 @@ def extract(config: ExperimentConfig, feature_cache: FeatureCache, encoder_layer
             decoder_layers: list[int], device: torch.device, random_whisper: bool,
             mesh=None) -> None:
     """Write the caches of the given layers (``scripts/train.py:155-196``)."""
-    if config.data.dataset_name != "synthetic":
-        raise ValueError(
-            f"dataset_name {config.data.dataset_name!r} is not ported: the port extracts from "
-            "dataset_name: synthetic only (LibriSpeech streaming needs data that is not here)")
     arch = arch_for(config.whisper.model_name)
     gen = torch.Generator(device=device).manual_seed(config.training.seed)  # made on the card
     if random_whisper:
@@ -172,8 +175,12 @@ def extract(config: ExperimentConfig, feature_cache: FeatureCache, encoder_layer
                   "weights. Pass --random-whisper to silence this warning.")
             params = init_whisper(gen, arch)
     say("Extracting features...")
-    dataset = SyntheticSpeechDataset(num_samples=config.data.max_samples,
-                                     seed=config.training.seed, n_mels=arch.n_mels, device=device)
+    if config.data.dataset_name == "synthetic":
+        dataset = SyntheticSpeechDataset(num_samples=config.data.max_samples,
+                                         seed=config.training.seed, n_mels=arch.n_mels,
+                                         device=device)
+    else:
+        dataset = LibriSpeechDataset(config.data, n_mels=arch.n_mels, device=device)
     loader = AudioBatchLoader(LibriSpeechFeaturesOnly(dataset), batch_size=EXTRACT_BATCH)
     extract_and_cache_features(
         params, arch, loader, feature_cache, encoder_layers=encoder_layers,

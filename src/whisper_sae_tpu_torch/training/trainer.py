@@ -31,8 +31,9 @@ of them, and ``train()`` chains its fused epochs up to each checkpoint.
 With a ``mesh`` (``parallel.make_mesh``: one process per GPU, every rank
 with the same config, seed and data), each data rank steps on its
 contiguous block of every batch.  A family with a dp x tp form
-(``_supports_tp``: the TopK SAE, the transcoders, the crosscoders) on a
-mesh whose ``model`` axis is above 1 holds its block of the features and
+(``_supports_tp``: the TopK and ReLU SAEs, the transcoders, the
+crosscoders) on a mesh whose ``model`` axis is above 1 holds its block
+of the features (parameters, AdamW moments, dead counters) and
 runs ``parallel/tp_step.py``'s step; every other case is the dp step: the
 family's own loss (its kernel) on the rank's rows, then one all-reduce
 of the gradients over ``data``, parameters replicated.  Resampling
@@ -275,14 +276,16 @@ class SAETrainer:
 
     def _supports_tp(self) -> bool:
         """Whether the family has a dp x tp form (``parallel/tp_step.py``);
-        the coder trainers override.  The ReLU SAE has none (no global
-        threshold to distribute): on a mesh it is data-parallel,
-        replicated over ``model``."""
-        return isinstance(self.model, TopKSAE)
+        the coder trainers override.  Both SAEs have one: the JAX package
+        places them by its shape rules under GSPMD, which the port writes
+        out as a family."""
+        return isinstance(self.model, (TopKSAE, ReLUSAE))
 
     def _tp_family(self):
-        from ..parallel.tp_step import sae_family
+        from ..parallel.tp_step import relu_sae_family, sae_family
 
+        if isinstance(self.model, ReLUSAE):
+            return relu_sae_family(self.model.sparsity_weight)
         return sae_family(self.model.k)
 
     def _is_tp(self) -> bool:

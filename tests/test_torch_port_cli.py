@@ -137,11 +137,49 @@ def test_cli_extraction_not_ported(tmp_path, monkeypatch, extra):
     assert np.isfinite([r["loss"] for r in rows]).all()
 
 
-def test_cli_extraction_takes_only_the_synthetic_dataset(tmp_path):
-    cfg = _config(tmp_path)  # dataset_name librispeech_asr
-    with pytest.raises(ValueError, match="synthetic"):
-        cli.main(["--config", str(cfg), "--device", "cpu", "--no-wandb", "--extract-only",
-                  "--random-whisper"])
+def test_cli_extracts_and_trains_from_the_librispeech_cache(tmp_path, monkeypatch):
+    """``dataset_name: librispeech_asr`` (tiny_default.yaml's) on a mel
+    cache ingested beforehand under ``data.cache_dir``: the CLI reads it
+    without opening the stream, captures the layer (a small Whisper's, on
+    the CPU) and trains on it; the rows are the capture of the cached mels."""
+    import librispeech_stream as stream
+    from whisper_sae_tpu_torch.config import DataConfig as TDataConfig
+    from whisper_sae_tpu_torch.data.librispeech import LibriSpeechDataset
+    from whisper_sae_tpu_torch.models import whisper as TW
+
+    arch = TW.WhisperArch(d_model=64, encoder_layers=2, decoder_layers=2, num_heads=1,
+                          ffn_dim=128, max_target_positions=8, vocab_size=64,
+                          decoder_start_token_id=1, eos_token_id=2)
+    params = TW.init_whisper(torch.Generator().manual_seed(0), arch)
+    monkeypatch.setattr(cli, "arch_for", lambda name: arch)
+    monkeypatch.setattr(cli, "init_whisper", lambda gen, a: params)
+    cfg_path = _config(tmp_path, epochs=1)
+    cfg = yaml.safe_load(cfg_path.read_text())
+    assert cfg["data"]["dataset_name"] == "librispeech_asr"
+    cfg["data"]["max_samples"] = 3
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    samples = stream.sample_stream(3, seed=6)
+    monkeypatch.setattr(LibriSpeechDataset, "_load_streaming",
+                        lambda self: self._ingest(iter(samples)))
+    mels = LibriSpeechDataset(TDataConfig(cache_dir=tmp_path / "cache", max_samples=3),
+                              device="cpu")
+    monkeypatch.setattr(LibriSpeechDataset, "_load_streaming",
+                        lambda self: pytest.fail("streamed although the cache is there"))
+    (trainer,) = cli.main(["--config", str(cfg_path), "--device", "cpu", "--no-wandb",
+                           "--layer", "encoder:1", "--random-whisper"]).values()
+    cache = FeatureCache(tmp_path / "cache" / "features", WhisperConfig(), DataConfig())
+    rows, meta = cache.load_rows("encoder", 1)
+    assert meta.num_samples == 3 and meta.num_tokens == 3 * 1500 and meta.hidden_dim == 64
+    assert meta.data_config["dataset_name"] == "librispeech_asr"
+    mel = torch.from_numpy(np.stack([mels[i]["input_features"] for i in range(3)]))
+    want = TW.extract_activations(params, mel, arch, compute_dtype=torch.bfloat16,
+                                  capture_dtype=torch.bfloat16)["encoder"][1]
+    want = want.float().reshape(-1, 64).numpy()
+    got = np.asarray(rows, np.float32)
+    d = np.abs(got - want)
+    assert d.max() <= 2.0**-4 * np.abs(want).max() and d.mean() <= 2.0**-7 * np.abs(want).mean()
+    metrics = json.loads((trainer.run_dir / "metrics.json").read_text())
+    assert len(metrics) == -(-3 * 1500 // 64) and np.isfinite([m["loss"] for m in metrics]).all()
 
 
 def test_parse_layer_arg():

@@ -23,7 +23,8 @@ for name in names:
 spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "whisper_sae_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "whisper_sae_tpu",
+                                    "datasets"))
 need = {"launch", "models.transcoder", "models.crosscoder", "training.coder_trainers",
         "ops.cuda_coder", "models.hooks", "decoder_analysis.logit_lens",
         "decoder_analysis.cross_attention", "utils.wavio", "utils.metrics",

@@ -377,9 +377,190 @@ def test_jobs_need_the_card_unless_asked(monkeypatch, tmp_path):
             build()
 
 
-def test_extract_takes_only_the_synthetic_dataset(tmp_path):
-    with pytest.raises(ValueError, match="synthetic"):
-        launch.main(["extract", "--cache-dir", str(tmp_path), "--device", "cpu"])
+# ---------------------------------------------------------------------------
+# the real-audio route: LibriSpeech's mel cache
+# ---------------------------------------------------------------------------
+
+SMALL = dict(d_model=64, encoder_layers=2, decoder_layers=2, num_heads=1, ffn_dim=128,
+             max_source_positions=1500, max_target_positions=448, vocab_size=64,
+             decoder_start_token_id=1, eos_token_id=2)
+LS_SAMPLES, LS_BAD = 4, (1,)  # 3 clips decode
+STACK_MAX, STACK_MEAN = 2.0**-4, 2.0**-7
+
+
+@pytest.fixture(scope="module")
+def jlaunch():
+    spec = importlib.util.spec_from_file_location("_jax_launcher", REPO / "launcher" / "launch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def small_params():
+    """A small Whisper's random weights (the JAX launcher's draw at seed
+    42) in both packages' layouts."""
+    import jax
+
+    from whisper_sae_tpu.models import whisper as JW
+    from whisper_sae_tpu_torch.models import whisper as TW
+
+    jparams = JW.init_whisper(jax.random.PRNGKey(42), JW.WhisperArch(**SMALL))
+    return jparams, TW.params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
+
+
+def _small_whisper(monkeypatch, tparams) -> None:
+    """Both launchers build the small arch; the port's gets the JAX draw."""
+    from whisper_sae_tpu.models import whisper as JW
+    from whisper_sae_tpu_torch.models import whisper as TW
+
+    monkeypatch.setattr(JW, "arch_for", lambda name: JW.WhisperArch(**SMALL))
+    monkeypatch.setattr(launch, "arch_for", lambda name: TW.WhisperArch(**SMALL))
+    monkeypatch.setattr(launch, "init_whisper", lambda gen, arch: tparams)
+
+
+def _ingest_stream(cache_dir: Path, n: int, bad=(), seed: int = 25) -> None:
+    """The JAX package ingests a local sample stream into ``cache_dir``
+    (the mel cache both launchers read)."""
+    import librispeech_stream as stream
+    from whisper_sae_tpu.data.librispeech import LibriSpeechDataset as JLibriSpeech
+
+    samples = stream.sample_stream(n, seed=seed, bad=bad)
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(JLibriSpeech, "_load_streaming", lambda self: self._ingest(iter(samples)))
+        JLibriSpeech(DataConfig(cache_dir=cache_dir, max_samples=n))
+    finally:
+        mp.undo()
+
+
+def _no_streaming(monkeypatch) -> None:
+    from whisper_sae_tpu.data.librispeech import LibriSpeechDataset as JLibriSpeech
+    from whisper_sae_tpu_torch.data.librispeech import LibriSpeechDataset
+
+    for cls in (JLibriSpeech, LibriSpeechDataset):
+        monkeypatch.setattr(cls, "_load_streaming",
+                            lambda self: pytest.fail("streamed although the cache is there"))
+
+
+def _stack_bar(got: np.ndarray, want: np.ndarray, what: str) -> None:
+    d = np.abs(got.astype(np.float32) - want.astype(np.float32))
+    ref = np.abs(want.astype(np.float32))
+    assert d.max() <= STACK_MAX * ref.max() and d.mean() <= STACK_MEAN * ref.mean(), what
+
+
+def test_extract_reads_the_librispeech_cache_as_jax_does(tmp_path, monkeypatch, jlaunch,
+                                                        small_params):
+    """``extract --dataset librispeech_asr`` on a mel cache the JAX package
+    ingested: the same feature caches (bf16 capture at the stack bar),
+    transcripts, extraction log and metadata as the JAX launcher's from
+    the same cache and weights; the stream is never opened."""
+    import shutil
+
+    jparams, tparams = small_params
+    _ingest_stream(tmp_path / "mels", LS_SAMPLES, LS_BAD)
+    for d in ("jax", "port"):
+        shutil.copytree(tmp_path / "mels", tmp_path / d)
+    _small_whisper(monkeypatch, tparams)
+    _no_streaming(monkeypatch)
+    kw = dict(layers_encoder="0,1", layers_decoder="1", max_samples=LS_SAMPLES, batch_size=2,
+              dataset="librispeech_asr", random_whisper=True)
+    want = jlaunch.extract_features(cache_dir=tmp_path / "jax", use_mesh=False, **kw)
+    got = launch.main(["extract", "--dataset", "librispeech_asr", "--max-samples",
+                       str(LS_SAMPLES), "--batch-size", "2", "--layers-encoder", "0,1",
+                       "--layers-decoder", "1", "--cache-dir", str(tmp_path / "port"),
+                       "--random-whisper", "--device", "cpu"])
+    volatile = ("elapsed_s", "finished_at", "backend")
+    assert {k: v for k, v in got.items() if k not in volatile} == \
+        {k: v for k, v in want.items() if k not in volatile}
+    assert got["dataset"] == "librispeech_asr"
+    jf, tf = tmp_path / "jax" / "features", tmp_path / "port" / "features"
+    assert sorted(p.name for p in tf.iterdir()) == sorted(p.name for p in jf.iterdir())
+    for name in ("extraction_log.json", "metadata.json"):
+        t, j = (json.loads((f / name).read_text()) for f in (tf, jf))
+        for key in ("elapsed_s", "finished_at", "backend", "created_at"):
+            t.pop(key, None), j.pop(key, None)
+        assert t == j, name
+    assert (tf / "transcripts.json").read_text() == (jf / "transcripts.json").read_text()
+    transcripts = json.loads((tf / "transcripts.json").read_text())
+    assert len(transcripts) == LS_SAMPLES - len(LS_BAD)
+    jcache = JFeatureCache(jf, WhisperConfig(), DataConfig())
+    tcache = JFeatureCache(tf, WhisperConfig(), DataConfig())
+    for comp, layer, tokens in (("encoder", 0, 1500), ("encoder", 1, 1500), ("decoder", 1, 1)):
+        (trows, tmeta), (jrows, jmeta) = tcache.load_rows(comp, layer), jcache.load_rows(comp, layer)
+        assert tmeta.num_samples == jmeta.num_samples == LS_SAMPLES - len(LS_BAD)
+        assert tmeta.num_tokens == jmeta.num_tokens == 3 * tokens
+        assert tmeta.data_config["dataset_name"] == "librispeech_asr"
+        trows, jrows = np.asarray(trows), np.asarray(jrows)
+        assert trows.shape == jrows.shape == (3 * tokens, SMALL["d_model"])
+        assert np.isfinite(trows).all()
+        _stack_bar(trows, jrows, f"{comp}:{layer}")
+
+
+def test_extract_without_a_cache_reaches_load_streaming(tmp_path, monkeypatch, small_params):
+    """No mel cache: the job calls ``_load_streaming`` (patched to ingest a
+    local stream), then extracts from what it wrote."""
+    import librispeech_stream as stream
+    from whisper_sae_tpu_torch.data.librispeech import LibriSpeechDataset
+
+    _small_whisper(monkeypatch, small_params[1])
+    samples = stream.sample_stream(2, seed=4)
+    calls = []
+
+    def ingest_local(self):
+        calls.append(self._stem)
+        self._ingest(iter(samples))
+
+    monkeypatch.setattr(LibriSpeechDataset, "_load_streaming", ingest_local)
+    out = launch.main(["extract", "--dataset", "librispeech_asr", "--max-samples", "2",
+                       "--layers-encoder", "1", "--layers-decoder", "", "--cache-dir",
+                       str(tmp_path), "--random-whisper", "--device", "cpu"])
+    assert calls == ["librispeech_clean_train.100_2"] and out["dataset"] == "librispeech_asr"
+    assert (tmp_path / "librispeech_clean_train.100_2_shard00000.npy").exists()
+    meta = JFeatureCache(tmp_path / "features", WhisperConfig(), DataConfig()).load_metadata(
+        "encoder", 1)
+    assert meta.num_samples == 2 and meta.num_tokens == 3000
+    assert json.loads((tmp_path / "features" / "transcripts.json").read_text()) == {
+        "0": samples[0]["text"], "1": samples[1]["text"]}
+
+
+def test_causal_validate_replays_a_librispeech_extraction_as_jax_does(tmp_path, monkeypatch,
+                                                                      jlaunch, small_params):
+    """An extraction log whose dataset is not synthetic: both jobs read the
+    mel cache under the default ``cache/`` (the working directory's) with
+    the stem of ``num_samples`` -- the JAX job's ``DataConfig`` -- and agree
+    at the causal bars (KL within 1e-4 relative, token agreement equal)."""
+    from whisper_sae_tpu.models import sae as jsae
+
+    jparams, tparams = small_params
+    monkeypatch.chdir(tmp_path)
+    _ingest_stream(Path("cache"), 2, seed=31)  # librispeech_clean_train.100_2
+    elog = tmp_path / "elog"
+    (elog / "features").mkdir(parents=True)
+    (elog / "features" / "extraction_log.json").write_text(json.dumps(
+        {"dataset": "librispeech_asr", "seed": 42, "max_samples": 4}))
+    runs = {}
+    for side in ("jax", "port"):
+        run = tmp_path / side / "launch_encoder_layer1"
+        run.mkdir(parents=True)
+        jsave_pytree(run / "sae_final.npz", {k: np.asarray(v) for k, v in jsae.TopKSAE(
+            SMALL["d_model"], 256, 8, seed=1).params.items()})
+        (run / "training_config.json").write_text(json.dumps(
+            {"sae": {"expansion_factor": 4, "k": 8}, "component": "encoder", "layer_idx": 1}))
+        runs[side] = tmp_path / side
+    _small_whisper(monkeypatch, tparams)
+    _no_streaming(monkeypatch)
+    kw = dict(component="encoder", layer_idx=1, num_samples=2, sweep_features=2, cache_dir=elog,
+              random_whisper=True)
+    want = jlaunch.causal_validate(output_dir=runs["jax"], **kw)
+    got = launch.causal_validate(output_dir=runs["port"], device="cpu", **kw)
+    for key in ("component", "layer_idx", "num_samples", "token_agreement"):
+        assert got[key] == want[key], key
+    assert abs(got["logit_kl"] - want["logit_kl"]) <= 1e-4 * abs(want["logit_kl"])
+    assert [r["feature_idx"] for r in got["ablation_sweep"]] == \
+        [r["feature_idx"] for r in want["ablation_sweep"]]
+    for g, w in zip(got["ablation_sweep"], want["ablation_sweep"]):
+        assert abs(g["logit_kl"] - w["logit_kl"]) <= 1e-4 * abs(w["logit_kl"]) + 1e-9
 
 
 def test_parse_layers_and_latest_checkpoint(tmp_path):

@@ -1,8 +1,7 @@
 """The coder families on the port's meshes against the JAX package's, on
 the CPU: the TopK and Skip transcoders, the TopK and ReLU crosscoders
-(each with its dp x tp family, ``parallel/tp_step.py``) and the ReLU SAE
-(no dp x tp form: data-parallel, replicated over ``model``), on meshes of
-4 gloo ranks -- ``(4, 1)``, ``(2, 2)``, ``(1, 4)`` -- each against the JAX
+and the ReLU SAE (each with its dp x tp family, ``parallel/tp_step.py``),
+on meshes of 4 gloo ranks -- ``(4, 1)``, ``(2, 2)``, ``(1, 4)`` -- each against the JAX
 trainer on a mesh of the same shape (``jax.devices()[:4]``) and on one
 device, from the same numpy-seeded parameters and batch orders.
 
@@ -143,17 +142,19 @@ def test_coder_mesh_run_matches_jax(port, run, shape, tmp_path):
         assert r["replicated"] == got["replicated"]
         for k, v in got["params"].items():
             np.testing.assert_array_equal(r["params"][k], v, err_msg=k)
-    tp = shape[1] > 1 and family != "relu_sae"
+    tp = shape[1] > 1
     assert got["tp"] == tp
     if tp:
         repl = {"b_dec"} | ({"w_skip", "b_skip"} if family == "skip_transcoder" else set())
         assert set(got["replicated"]) == repl
-        block = HT // shape[1] if "transcoder" in family else SX // shape[1]
+        block = SX // shape[1] if "crosscoder" in family else HT // shape[1]
         assert got["local_shapes"]["b_enc"] == (block,)
     rtol = 1e-3 if amp else 2e-4
     for mesh in (jmake_mesh(*shape, devices=jax.devices()[:4]), None):
         jt, jm = _jax_run(family, amp, mesh, tmp_path / str(mesh is None))
-        assert mesh is None or jt._is_tp() == tp
+        # the JAX package places the ReLU SAE by its shape rules under
+        # GSPMD, without a dp x tp step of its own
+        assert mesh is None or jt._is_tp() == (tp and family != "relu_sae")
         assert len(got["losses"]) == len(jm) == 5
         np.testing.assert_allclose(got["losses"], [m.loss for m in jm], rtol=rtol)
         np.testing.assert_allclose(got["sparsity"], [m.sparsity_loss for m in jm], rtol=rtol,

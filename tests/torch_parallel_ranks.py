@@ -92,6 +92,8 @@ def _rank_main(rank: int, world: int, init: str, scenario: str, kwargs: dict, wo
         result = globals()[scenario](rank, world, Path(workdir), **kwargs)
         with open(Path(workdir) / f"{scenario}_{rank}.pkl", "wb") as f:
             pickle.dump(result, f)
+        # no rank tears the group down while another still finishes a collective
+        dist.barrier()
     except BaseException:
         (Path(workdir) / f"{scenario}_{rank}.err").write_text(
             f"rank {rank}:\n{traceback.format_exc()}")
@@ -164,7 +166,8 @@ def _family_model(family: str, params: dict, dims: dict, dev="cpu"):
         return TopKSAE(dims["d"], dims["h"], dims["k"], dead_feature_threshold=thr, params=p,
                        device=dev), SAETrainer
     if family == "relu_sae":
-        return ReLUSAE(dims["d"], dims["h"], params=p, device=dev), SAETrainer
+        return ReLUSAE(dims["d"], dims["h"], sparsity_weight=dims.get("sparsity_weight", 0.01),
+                       params=p, device=dev), SAETrainer
     if family in ("transcoder", "skip_transcoder"):
         cls = SkipTranscoder if family == "skip_transcoder" else TopKTranscoder
         return cls(dims["d"], dims["dout"], dims["h"], k=dims["k"], dead_feature_threshold=thr,
@@ -240,6 +243,8 @@ def train(rank, world, workdir, shape, runs: list):
             "last_activated": _np(ds.feature_last_activated),
             "replicated": _replicated_bits(trainer), "tp": trainer._is_tp(),
             "local_shapes": {k: tuple(v.shape) for k, v in trainer.model.params.items()},
+            "moment_shapes": {k: (tuple(m.shape), tuple(v.shape)) for (k, m), v in
+                              zip(trainer.opt_state.mu.items(), trainer.opt_state.nu.values())},
             "global_step": trainer.global_step, "resampled": trainer.num_resampled_total,
             "notes": notes, "run_dir": str(trainer.run_dir),
         })
