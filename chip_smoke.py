@@ -1069,7 +1069,6 @@ def step_profile(trainer, rows, steps: int) -> dict:
     timed on the host clock without the profiler, then once under
     ``torch.profiler`` for the device's busy time per step and its
     heaviest operations."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     b = trainer.config.batch_size
@@ -1079,7 +1078,7 @@ def step_profile(trainer, rows, steps: int) -> dict:
     wall_ms = 1e3 * (time.perf_counter() - t0) / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         trainer.train_epoch_fused(rows, shuffle=False)
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_ops(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     log(f"  step at batch {b}: {wall_ms:.3f} ms wall ({b / wall_ms * 1e3:,.0f} act/s)")
     res = {"batch": b, "wall_ms": wall_ms, "busy_ms": busy_ms if busy_ms > 0 else None}
@@ -1569,56 +1568,33 @@ def extraction_path(work: Path, dev, train_mod, cfg_mod, cache_mod, ds_mod, W, E
     return {"launches": launches, "cli_clips_per_s": EXTRACT_CLIPS / extract_s}
 
 
-ENC_BLOCKS = ("attention_block", "mlp_block")
-
-
-@contextlib.contextmanager
-def annotated_blocks(W):
-    """Each call of the encoder's attention and MLP blocks inside a
-    ``torch.profiler.record_function`` range ``enc.<block>``, for a
-    profiled run only: the trace then gives each block's device time (the
-    kernels launched inside the range)."""
-    from torch.profiler import record_function
-
-    ops = W.encoder_ops
-    saved = {name: getattr(ops, name) for name in ENC_BLOCKS}
-
-    def wrap(name, fn):
-        def annotated(*args, **kwargs):
-            with record_function(f"enc.{name}"):
-                return fn(*args, **kwargs)
-        return annotated
-
-    for name, fn in saved.items():
-        setattr(ops, name, wrap(name, fn))
-    try:
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(ops, name, fn)
+# each encoder block's program span (``models/whisper.py``'s ``_fused_encoder_layers``)
+ENC_SPANS = {"attention_block": "encoder.attention", "mlp_block": "encoder.mlp"}
+# the device-side spans of profiler ranges: the program's spans and ``dec.<part>``
+RANGE_PREFIXES = ("train.", "extract.", "encoder.", "decoder.", "dec.")
 
 
 def device_ops(events) -> list:
     """The device's own activities (kernels, copies, memsets) among a
-    trace's events: the ``enc.<block>`` and ``dec.<part>`` ranges'
-    device-side spans are left out, so nothing is counted twice."""
+    trace's events: the device-side spans of the program's ranges and of
+    the ``dec.<part>`` ranges are left out, so nothing is counted twice."""
     from torch.autograd import DeviceType
 
     return [e for e in events
-            if e.device_type == DeviceType.CUDA and not e.key.startswith(("enc.", "dec."))]
+            if e.device_type == DeviceType.CUDA and not e.key.startswith(RANGE_PREFIXES)]
 
 
 def block_shares(prof, batches: int, busy: float) -> dict:
-    """ms a batch of each ``enc.<block>`` range on the device (from its
-    first kernel's start to its last kernel's end) and its share of the
-    busy time; None where the trace has no device span for the range (not
-    measured)."""
+    """ms a batch of each encoder block's program span (``ENC_SPANS``) on
+    the device (from its first kernel's start to its last kernel's end)
+    and its share of the busy time; None where the trace has no device
+    span for the range (not measured)."""
     from torch.autograd import DeviceType
 
     res = {}
-    for name in ENC_BLOCKS:
+    for name, key in ENC_SPANS.items():
         us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and e.key == f"enc.{name}")
+                 if e.device_type == DeviceType.CUDA and e.key == key)
         res[name] = {"ms": us / 1e3 / batches, "share": us / 1e3 / batches / busy} if us else None
     log("  the encoder's blocks on the device (each call's span, ms a batch, share of busy): "
         + ", ".join(f"{k} " + (f"{v['ms']:.3f} ({v['share']:.1%})" if v else "not measured")
@@ -1652,8 +1628,7 @@ def extraction_times(dev, W) -> dict:
     clips_s = 8 * ENC_B / dt
     res = {"clips_per_s": clips_s, "tokens_per_s_per_layer": clips_s * ENC_T,
            "batch_ms": 1e3 * dt / 8}
-    with annotated_blocks(W), profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(3)
         torch.cuda.synchronize()
     kernels = device_ops(prof.key_averages())
@@ -2620,8 +2595,7 @@ def large_batch_times(dev, W, pb: dict) -> dict:
                     + 2 * t * d * (6 * n_mels + 3 * d))
     res = {"batch_ms": 1e3 * dt / 3, "clips_per_s": 3 * LG_B / dt,
            "bound_ms": 1e3 * flops / PEAK_BF16, "gflop": flops / 1e9}
-    with annotated_blocks(W), profile(activities=[ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run(2)
         torch.cuda.synchronize()
     kernels = device_ops(prof.key_averages())

@@ -27,6 +27,11 @@ Decoding (``greedy_decode_cached``, ``greedy_decode``, ``transcribe``)
 follows the JAX package's loops step for step: the same static-shape
 caches, dtypes at each op, forcing and EOS freeze; the loop runs eagerly
 on the host, one cached step (``_decode_step``) a token.
+
+Spans (``utils/profiling.span``, profiler ranges only while a profiler
+runs): ``extract.call`` (``extract_activations``), ``encoder.forward``
+with ``encoder.attention`` and ``encoder.mlp`` around each fused layer's
+blocks, ``decoder.forward``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ import torch.nn.functional as F
 from ..data.mel import log_mel_spectrogram
 from ..ops import encoder as encoder_ops
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
+from ..utils.profiling import span
 
 LN_EPS = 1e-5
 
@@ -379,10 +385,13 @@ def _fused_encoder_layers(x, enc: dict, arch: WhisperArch, with_mlp: bool,
     caps, mins, mouts = [], [], []
     for i in range(_n_layers(enc["layers"])):
         lp = _layer(enc["layers"], i)
-        x = encoder_ops.attention_block(x, lp["ln1_g"], lp["ln1_b"], lp["attn"], arch.num_heads)
-        outs = encoder_ops.mlp_block(x.reshape(b * t, d), lp["ln2_g"], lp["ln2_b"], lp["mlp"],
-                                     capture=with_mlp, final_ln=final_ln,
-                                     capture_dtype=capture_dtype)
+        with span("encoder.attention"):
+            x = encoder_ops.attention_block(x, lp["ln1_g"], lp["ln1_b"], lp["attn"],
+                                            arch.num_heads)
+        with span("encoder.mlp"):
+            outs = encoder_ops.mlp_block(x.reshape(b * t, d), lp["ln2_g"], lp["ln2_b"],
+                                         lp["mlp"], capture=with_mlp, final_ln=final_ln,
+                                         capture_dtype=capture_dtype)
         if not isinstance(outs, tuple):
             outs = (outs,)
         x = outs[0].reshape(b, t, d)
@@ -405,6 +414,7 @@ def composed_stem(mel: torch.Tensor, enc: dict) -> torch.Tensor:
     return x + enc["pos"][: x.shape[1]]
 
 
+@span("encoder.forward")
 def encoder_forward(params: dict, mel: torch.Tensor, arch: WhisperArch, with_mlp: bool = False,
                     use_fused: bool = True, capture_final_ln: bool = False, capture_dtype=None):
     """Encoder forward on mel ``[B, n_mels, T_mel]``.
@@ -449,6 +459,7 @@ def encoder_forward(params: dict, mel: torch.Tensor, arch: WhisperArch, with_mlp
     return last, layer_outputs
 
 
+@span("decoder.forward")
 def decoder_forward(params: dict, token_ids: torch.Tensor, enc_hidden: torch.Tensor,
                     arch: WhisperArch, with_mlp: bool = False):
     """Decoder forward over ``token_ids`` ``[B, T_dec]`` (full sequence, no
@@ -472,6 +483,7 @@ def decoder_forward(params: dict, token_ids: torch.Tensor, enc_hidden: torch.Ten
 
 
 @torch.no_grad()
+@span("extract.call")
 def extract_activations(params: dict, mel: torch.Tensor, arch: WhisperArch,
                         apply_layer_norm: bool = True, with_decoder: bool = True,
                         compute_dtype: torch.dtype | None = None, with_mlp: bool = False,

@@ -46,6 +46,7 @@ from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import NamedTuple
@@ -70,7 +71,7 @@ from ..ops.cuda_coder import coder_supported, fused_relu_sae_loss_indexed
 from ..ops.cuda_sae import fused_loss_supported, fused_sae_loss_indexed
 from ..utils.checkpoint import export_torch_state_dict, load_pytree, save_pytree
 from ..utils.device import f32_matmuls
-from ..utils.profiling import ThroughputMeter
+from ..utils.profiling import span
 from .schedule import constant_schedule, warmup_cosine_schedule
 
 _METRIC_KEYS = ("loss", "reconstruction_loss", "sparsity_loss", "l0", "dead_feature_ratio")
@@ -170,7 +171,6 @@ class SAETrainer:
         self.wandb_run = None
         self._resample_dataset = None
         self._resample_rng = np.random.default_rng(config.seed)
-        self.throughput = ThroughputMeter(num_chips=mesh.size if mesh is not None else 1)
         self.threshold = getattr(model, "dead_feature_threshold", 10_000)
         # dead-feature counters of a model that keeps none of its own
         self._own_dead = None if hasattr(model, "state") else init_dead_state(
@@ -388,16 +388,20 @@ class SAETrainer:
     # the step
     # ------------------------------------------------------------------
 
+    @span("train.step")
     def _step(self, loss_call, reduce: bool = False) -> torch.Tensor:
         """One optimizer step, all on the device.  Returns the step's
         ``_METRIC_KEYS`` as one [5] tensor (no host synchronisation).
         ``reduce``: the dp step -- the gradients, with the metrics and the
-        active vector in the same buffer, all-reduced over ``data``."""
+        active vector in the same buffer, all-reduced over ``data``.
+        Spans: ``train.step``, and inside it ``train.backward`` and
+        ``train.update`` (everything after the backward)."""
         params = self.model.params
         with f32_matmuls():
             loss, aux = loss_call(params)
-            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-        with torch.no_grad():
+            with span("train.backward"):
+                grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        with torch.no_grad(), span("train.update"):
             loss, recon, sparsity = (loss.detach(), aux["reconstruction_loss"].detach(),
                                      aux["sparsity_loss"].detach())
             l0, active = aux["l0"].float(), aux["active"]
@@ -507,9 +511,11 @@ class SAETrainer:
     # epochs
     # ------------------------------------------------------------------
 
+    @span("train.order")
     def _epoch_permutation(self, n: int, seed: int | None, epoch: int | None = None
                            ) -> torch.Tensor:
-        """The order of epoch ``epoch`` (``self.epoch`` by default)."""
+        """The order of epoch ``epoch`` (``self.epoch`` by default), drawn
+        on the host and uploaded (span ``train.order``)."""
         base = self.config.seed if seed is None else seed
         epoch = self.epoch if epoch is None else epoch
         mixed = int(np.random.SeedSequence([base, epoch]).generate_state(1)[0])
@@ -726,16 +732,14 @@ class SAETrainer:
             self.save_checkpoint("final.npz")
             return
         for ep in range(self.epoch, epochs):
-            self.throughput.start()
+            t0 = time.perf_counter()
             if streamed:
                 epoch_metrics = self.train_epoch_out_of_core(dataloader.reader,
                                                              chunk_tokens=chunk_tokens)
             else:
                 epoch_metrics = self.train_epoch(dataloader)
-            self.throughput.add_tokens(
-                getattr(dataloader, "num_tokens", 0) or self.config.batch_size * len(epoch_metrics)
-            )
-            self._print_epoch(ep, epoch_metrics, self.throughput.stop())
+            rows = getattr(dataloader, "num_tokens", 0) or self.config.batch_size * len(epoch_metrics)
+            self._print_epoch(ep, epoch_metrics, rows / (time.perf_counter() - t0))
             if (ep + 1) % checkpoint_every == 0:
                 self.save_checkpoint(f"checkpoint_epoch{ep + 1}.npz")
         self.save_checkpoint("final.npz")
@@ -743,16 +747,16 @@ class SAETrainer:
     def _train_fused_groups(self, data, epochs: int, checkpoint_every: int, shuffle: bool) -> None:
         """``train()``'s fused epochs, chained up to each checkpoint boundary
         (``trainer.py:1147-1180`` of the JAX package): one
-        :meth:`train_epochs_fused` call and one throughput reading a group,
-        one printed line an epoch."""
+        :meth:`train_epochs_fused` call and one rate a group (the host
+        clock around the call, which ends in the metrics' fetch), one
+        printed line an epoch."""
         n_rows = (data[0] if isinstance(data, tuple) else data).shape[0]
         ep = self.epoch
         while ep < epochs:
             group = min(checkpoint_every - ep % checkpoint_every, epochs - ep)
-            self.throughput.start()
+            t0 = time.perf_counter()
             group_metrics = self.train_epochs_fused(data, epochs=group, shuffle=shuffle)
-            self.throughput.add_tokens(n_rows * group)
-            rate = self.throughput.stop()
+            rate = n_rows * group / (time.perf_counter() - t0)
             per_epoch = max(len(group_metrics) // group, 1)
             for g in range(group):
                 self._print_epoch(ep + g, group_metrics[g * per_epoch:(g + 1) * per_epoch], rate)
@@ -760,7 +764,8 @@ class SAETrainer:
             if ep % checkpoint_every == 0:
                 self.save_checkpoint(f"checkpoint_epoch{ep}.npz")
 
-    def _print_epoch(self, ep: int, epoch_metrics: list[TrainingMetrics], rate: dict) -> None:
+    def _print_epoch(self, ep: int, epoch_metrics: list[TrainingMetrics], rate: float) -> None:
+        """One line an epoch; ``rate``: rows a second over the whole mesh."""
         if not self.is_primary:
             return
         count = max(len(epoch_metrics), 1)
@@ -769,7 +774,7 @@ class SAETrainer:
         dead = epoch_metrics[-1].dead_feature_ratio if epoch_metrics else 0.0
         print(
             f"Epoch {ep + 1}: loss={avg_loss:.4f}, L0={avg_l0:.1f}, dead={dead:.1%}, "
-            f"{rate['activations_per_sec_per_chip']:,.0f} act/s/card",
+            f"{rate / (self.mesh.size if self.mesh is not None else 1):,.0f} act/s/card",
             flush=True,
         )
 

@@ -405,7 +405,8 @@ def test_causal_validate_matches_jax(cache_dir, tiny_runs, tmp_path, monkeypatch
 
 def test_cli_profile_writes_a_trace(cache_dir, tmp_path):
     """``train.py --profile DIR`` wraps training in ``utils.profiling.trace``:
-    a Chrome trace of the run lands in DIR."""
+    a Chrome trace of the run lands in DIR, the trainer's spans among its
+    ranges, one of each step range a step."""
     import yaml
 
     cfg = yaml.safe_load((REPO / "configs" / "tiny_default.yaml").read_text())
@@ -421,3 +422,6 @@ def test_cli_profile_writes_a_trace(cache_dir, tmp_path):
     (trace,) = (tmp_path / "prof").glob("trace_*.json")
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("ph") == "X" for e in events)
+    ranges = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert {n: ranges.count(n) for n in ("train.step", "train.backward", "train.update")} == \
+        dict.fromkeys(("train.step", "train.backward", "train.update"), trainer.global_step)
