@@ -28,6 +28,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    that differ, the card latent's non-finite and all-zero rows, whether
    the card's centred rows equal the plain ones, the max |pre_card -
    pre_plain| over all rows and whether a relaunch gives the same bits.
+1b. The training step's backward over the selected latents
+   (``sae_topk_backward``, ``ops/csrc/sae_backward.cu``) at the training
+   cells' shapes, each on its route: kernel A's at whisper-tiny 8x (32768
+   rows, D=384, H=3072), the composed route's at whisper-large 32x (8192,
+   1280, 40960), on the latent, residual and centred rows of the route's
+   own forward.  Against its plain version and the dense ``mm_f32``
+   products it replaced: bit for bit on inputs of the same selection whose
+   f32 sums are exact in any order; on the forward's own values within
+   one bf16 step where dpre or the sum is rounded to bf16 (max |gap| <=
+   2^-8 max |g|, mean <= 1e-5 max |g|; the composed dW_dec each element
+   within 2^-7 of itself), else max |gap| <= 1e-5 max |g|; two calls
+   bit-identical.  Then its time beside the plain version's, its bytes
+   bound and the dense products' (the yardstick), and each launch's
+   device ms (``torch.profiler``).
 2. Training through the CLI (``whisper_sae_tpu_torch.train.main``) on a
    synthetic gaussian cache (covariance mostly of rank 64) of 2^18 + 64
    rows x 384 f32 in the JAX
@@ -37,7 +51,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
 3. Eval of the trained SAE on held-out rows: bf16 ``topk_sae_apply``
    (kernel B) and the f32 ``TopKSAE`` forward (kernel C).
    Every kernel's launch count is zeroed before phase 2 and must be
-   above 0 after phase 3.  Then the trained SAE's forward on the card is
+   above 0 after phase 3; the sparse backward's must be one a training
+   step, none of them on the composed route.  Then the trained SAE's forward on the card is
    held against the same SAE on the CPU on 512 rows.
 4. Times: a training step's wall time and, under ``torch.profiler``, the
    device's busy time and heaviest operations; then with CUDA events each
@@ -156,8 +171,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     8192, AMP, 2 epochs and ``dead_feature_threshold`` 2, trained by
     ``whisper_sae_tpu_torch.train.main`` with the resample set to fire at
     the last epoch's end (the CLI fixes ``resample_dead_every`` at 5000).
-    Every counter is zeroed first; the blocked launches must equal the
-    12 steps, kernels A and B and the plain versions run no time, the
+    Every counter is zeroed first; the blocked launches and the sparse
+    backward's composed launches must equal the 12 steps, kernels A and B
+    and the plain versions run no time, the
     resample runs through kernel C's wide form; the loss falls, decoder
     rows are unit norm, parameters finite; the trained SAE's f32 forward
     on 64 rows on the card agrees with the CPU at phase 11's bars.
@@ -546,6 +562,13 @@ BLOCKED_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/blocked_encode.cu"
 # (at whisper-large 32x the product walks column tiles first)
 BLOCKED_PARTS = {"centre": "sae_centre_kernel", "encode": "gemm_cols_kernel<3>",
                  "select": "blocked_select_kernel"}
+# the step's backward over the selected latents (sae_backward.cu): kernel
+# A's route at the training cells' whisper-tiny 8x batch, the composed
+# route at whisper-large 32x's; its launches by the profiler's names
+BWD_SOURCE = "src/whisper_sae_tpu_torch/ops/csrc/sae_backward.cu"
+BWD_CELLS = {"tiny8x": (A_WIDE_BATCH, D, H, False), "large32x": (BL, DL, HL, True)}
+BWD_PARTS = {part: f"wst_bwd::{part}_kernel" for part in ("mask", "count", "plan", "seg", "tile")}
+BWD_LEAVES = ("dw_enc", "db_enc", "dw_dec")
 # the conv stem's three launches (the GEMM's conv row order, epilogues 2
 # and 6: kGelu, kGeluPos)
 STEM_PARTS = {"prep": "stem_prep_kernel", "conv1": "gemm_conv_kernel<2>",
@@ -1237,6 +1260,110 @@ def times(dev, cuda_sae, cuda_topk, topk) -> dict:
         c_plain = time_ms(lambda: topk.topk_mask_plain(pre, K), iters=5, warmup=1)
         c_lib = time_ms(lambda: torch.topk(pre, K))
         res[("topk_mask", b)] = (c_ms, c_plain, *c_bound, c_lib)
+    return res
+
+
+def backward_inputs(cuda_sae, rows: int, d: int, h: int, composed: bool, dev) -> tuple:
+    """(hid, d_recon, xc, bf16 W_dec) of the route's forward on gaussian
+    rows: kernel A's latent, residual and centred rows; or the top-k
+    encode's latent and the ``mm_f32`` decode's residual (the composed
+    loss's)."""
+    p = params(rows + 1, dev, d, h)
+    x = torch.randn(rows, d, generator=torch.Generator().manual_seed(rows + 2)).to(dev)
+    we_t, wd_bf = cuda_sae._bf16_t(p["w_enc"]), p["w_dec"].bfloat16()
+    if composed:
+        hid = cuda_sae._topk_encode_launch(x, we_t, p["b_enc"], p["b_pre"], K, torch.bfloat16)
+        resid = cuda_sae.mm_f32(hid, wd_bf) + p["b_dec"] + p["b_pre"] - x
+        return hid, resid * (2.0 / resid.numel()), (x - p["b_pre"]).bfloat16(), wd_bf
+    _, _, _, hid, resid, xc = cuda_sae._fused_loss_launch(
+        x, 0, rows, we_t, p["b_enc"], p["b_pre"], wd_bf, p["b_dec"] + p["b_pre"], K)
+    return hid, (resid * (2.0 / resid.numel())).bfloat16(), xc, wd_bf
+
+
+def exact_backward_inputs(hid, d_recon, xc, wd_bf, seed: int) -> tuple:
+    """The same selection with values on which every f32 sum of the
+    backward is exact in any order: the latent in {1/4, .., 1}, xc and
+    W_dec in {-1/4, .., 1/4} and d_recon on 8 columns a row, in steps of
+    1/8 (|dpre| <= 1/2 in steps of 2^-6, bf16-exact; every sum under 2^22
+    steps)."""
+    g = torch.Generator(device=hid.device).manual_seed(seed)
+
+    def eighths(*shape):
+        return torch.randint(-2, 3, shape, generator=g, device=hid.device).float() * 0.125
+
+    rows, d = xc.shape
+    vals = ((hid.float() * 64).floor() % 4 + 1) * 0.25
+    hid_e = torch.where(hid > 0, vals, 0.0).bfloat16()
+    cols = torch.rand(rows, d, generator=g, device=hid.device).topk(8, dim=1).indices
+    drec = torch.zeros(rows, d, device=hid.device).scatter_(1, cols, eighths(rows, 8))
+    return (hid_e, drec.to(d_recon.dtype), eighths(rows, d).bfloat16(),
+            eighths(*wd_bf.shape).bfloat16())
+
+
+def backward_phase(dev, cuda_sae) -> dict:
+    """Phase 1b: the step's backward over the selected latents
+    (``sae_topk_backward``) at the training cells' shapes, each on its
+    route, against its plain version and the dense ``mm_f32`` products it
+    replaced: bit for bit on exact inputs; on the route's own forward
+    within one bf16 step where dpre or the sum is rounded to bf16, else
+    at 1e-5 of the leaf's max; two calls bit-identical.  Then its time
+    beside the plain version's, the bytes bound and the dense products',
+    and each launch's device ms."""
+    res = {}
+    for cell, (rows, d, h, composed) in BWD_CELLS.items():
+        args = backward_inputs(cuda_sae, rows, d, h, composed, dev)
+        entry = lambda: cuda_sae.sae_topk_backward(*args, composed)  # noqa: E731
+        plain = lambda: cuda_sae.sae_topk_backward_plain(*args, composed)  # noqa: E731
+        dense = lambda: cuda_sae._dense_topk_backward(*args, composed)  # noqa: E731
+        route = "the composed route" if composed else "kernel A's route"
+        what = f"sae_topk_backward {cell} ({rows}, {d}, {h}), {route}"
+        exact = exact_backward_inputs(*args, seed=rows)
+        got = cuda_sae.sae_topk_backward(*exact, composed)
+        refs = {"plain": cuda_sae.sae_topk_backward_plain(*exact, composed),
+                "dense": cuda_sae._dense_topk_backward(*exact, composed)}
+        for ref, want in refs.items():
+            for name, g_, w_ in zip(BWD_LEAVES, got, want):
+                check(torch.equal(g_, w_), f"{what}: {name} on exact inputs differs from {ref}")
+        del exact, got, refs
+        got = entry()
+        check(all(torch.equal(u, v) for u, v in zip(got, entry())),
+              f"{what}: two calls differ")
+        gaps = {}
+        for ref, want in (("plain", plain()), ("dense", dense())):
+            for name, g_, w_ in zip(BWD_LEAVES, got, want):
+                top, gap = float(w_.abs().max()), (g_ - w_).abs()
+                if name == "dw_dec" and composed:  # the sum rounded to bf16
+                    ok = bool((gap <= 2.0 ** -7 * w_.abs() + 1e-5 * top).all())
+                elif name == "dw_enc" or composed:  # dpre rounded to bf16 before the sum
+                    ok = float(gap.max()) <= 2.0 ** -8 * top and float(gap.mean()) <= 1e-5 * top
+                else:
+                    ok = float(gap.max()) <= 1e-5 * top
+                gaps[f"{name}_{ref}"] = float(gap.max()) / top
+                check(ok, f"{what}: {name} against {ref}: max |gap| / max |g| "
+                          f"{gaps[f'{name}_{ref}']:.3g}")
+            del want
+        del got
+        nnz = int((args[0] > 0).sum())
+        # the latent once, d_recon, xc and W_dec once, dW_enc and dW_dec in f32 out
+        nbytes = (rows * h * 2 + rows * d * (4 if composed else 2) + rows * d * 2 + h * d * 2
+                  + 2 * h * d * 4 + h * 4)
+        r = {"ms": time_ms(entry, iters=10, warmup=2),
+             "plain_ms": time_ms(plain, iters=3, warmup=1),
+             **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 0, 6 * nnz * d))),
+             "library_ms": time_ms(dense, iters=10, warmup=2),
+             "split_ms": launch_split(entry, BWD_PARTS), "entries": nnz,
+             "max_rel_gap": gaps, "batch": rows, "geometry": {"d": d, "h": h, "k": K},
+             "composed": composed}
+        log(f"  {what}: equal to its plain version and the dense products on exact inputs, "
+            f"two calls equal; {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}), dense products {r['library_ms']:.4f}; "
+            f"device ms a call: " + ", ".join(
+                f"{k_} {v:.4f}" if v is not None else f"{k_} not measured"
+                for k_, v in r["split_ms"].items())
+            + f"; {nnz} entries; max |gap| / max |g| {json.dumps(gaps)}")
+        res[cell] = r
+        del args
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2339,10 +2466,11 @@ def large_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae
         def __init__(self, *a, **kw):
             super().__init__(*a, resample_dead_every=steps, **kw)
 
-    kernels = (cuda_sae.fused_sae_loss, cuda_sae.fused_sae_loss_indexed, cuda_sae.fused_topk_encode)
+    kernels = (cuda_sae.fused_sae_loss, cuda_sae.fused_sae_loss_indexed, cuda_sae.fused_topk_encode,
+               cuda_sae.sae_topk_backward)
     for w in kernels:
         w.launches = 0
-    cuda_sae.fused_topk_encode.blocked_launches = 0
+    cuda_sae.fused_topk_encode.blocked_launches = cuda_sae.sae_topk_backward.composed_launches = 0
     cuda_topk.topk_mask_fwd.launches = cuda_topk.topk_mask_fwd.wide_launches = 0
     topk.plain_calls.clear()
     cli_trainer, train_mod.SAETrainer = train_mod.SAETrainer, Trainer
@@ -2357,11 +2485,15 @@ def large_path(work: Path, dev, train_mod, cfg_mod, cache_mod, sae_mod, cuda_sae
     launches = {w.__name__: w.launches for w in kernels}
     launches.update(fused_topk_encode_blocked=cuda_sae.fused_topk_encode.blocked_launches,
                     topk_mask=cuda_topk.topk_mask_fwd.launches,
-                    topk_mask_wide=cuda_topk.topk_mask_fwd.wide_launches)
+                    topk_mask_wide=cuda_topk.topk_mask_fwd.wide_launches,
+                    sae_topk_backward_composed=cuda_sae.sae_topk_backward.composed_launches)
     log(f"  CLI trained {steps} steps at batch {BL} in {train_s:.1f} s (cache load and setup "
         f"included); launches {launches}, plain-version calls {dict(topk.plain_calls)}")
     check(launches["fused_topk_encode_blocked"] == steps,
           f"{launches['fused_topk_encode_blocked']} blocked launches != {steps} steps")
+    check(launches["sae_topk_backward"] == launches["sae_topk_backward_composed"] == steps,
+          f"sae_topk_backward: {launches['sae_topk_backward']} launches "
+          f"({launches['sae_topk_backward_composed']} composed) for {steps} composed steps")
     check(launches["fused_sae_loss"] == launches["fused_sae_loss_indexed"] == 0
           and launches["fused_topk_encode"] == 0, "kernels A or B launched at whisper-large width")
     check(sum(topk.plain_calls.values()) == 0, f"plain versions ran: {dict(topk.plain_calls)}")
@@ -6185,6 +6317,9 @@ def main() -> int:
 
     log("phase 1: kernels against their plain versions")
     errs = kernel_phase(dev, cuda_sae, cuda_topk, topk, _build.load_library())
+    log("phase 1b: the step's backward over the selected latents at the training cells' shapes, "
+        "each on its route, against its plain version and the dense products, then timed")
+    bwd = backward_phase(dev, cuda_sae)
 
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -6195,9 +6330,11 @@ def main() -> int:
         "fused_sae_loss_indexed": cuda_sae.fused_sae_loss_indexed,
         "fused_topk_encode": cuda_sae.fused_topk_encode,
         "topk_mask": cuda_topk.topk_mask_fwd,
+        "sae_topk_backward": cuda_sae.sae_topk_backward,
     }
     for w in wrappers.values():
         w.launches = 0
+    cuda_sae.sae_topk_backward.composed_launches = 0
     log("phases 2-3: train through the CLI, then eval")
     forms0 = cuda_sae.encode_select_launches()
     trainer, sae, held_out = main_path(work, dev, mix, train_mod, sae_mod)
@@ -6209,6 +6346,11 @@ def main() -> int:
         check(n > 0, f"{name}: no launch on the main path")
     check(launches["fused_sae_loss_indexed"] == EPOCHS * (N_ROWS // 128),
           "windowed kernel A launches != fused steps")
+    check(launches["sae_topk_backward"] == EPOCHS * (N_ROWS // 128 + 1)
+          and cuda_sae.sae_topk_backward.composed_launches == 0,
+          f"sae_topk_backward: {launches['sae_topk_backward']} launches ("
+          f"{cuda_sae.sae_topk_backward.composed_launches} composed) for "
+          f"{EPOCHS * (N_ROWS // 128 + 1)} kernel-A steps")
 
     log("phase 4: times (ms per call; library_ms is a yardstick: the bf16 encode product "
         "for A and B, torch.topk for C -- not equivalents)")
@@ -6228,7 +6370,7 @@ def main() -> int:
         "topk_mask": "src/whisper_sae_tpu/ops/pallas_topk.py:51",
     }
     kernels = []
-    for name in wrappers:
+    for name in replaces:
         wide = name != "topk_mask"  # kernels A and B: also at A_WIDE_BATCH, with split_ms
         for b in (*BATCHES, A_WIDE_BATCH) if wide else BATCHES:
             ms, plain, bound_ms, by, lib_ms = res[(name, b)]
@@ -6256,6 +6398,14 @@ def main() -> int:
             entry["route_launches"] = list(B_PARTS.values())
             entry["select_forms"] = b_forms
         kernels.append(entry)
+    r = bwd["tiny8x"]
+    kernels.append({
+        "name": "sae_topk_backward", "route": "cuda", "source": BWD_SOURCE, "replaces": None,
+        "launches": launches["sae_topk_backward"], "max_rel_gap": r["max_rel_gap"],
+        **{k_: r[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "batch",
+                                "split_ms", "entries", "geometry")},
+        "at_large32x": {k_: v for k_, v in bwd["large32x"].items() if k_ != "composed"},
+    })
     log("phase 7: times of the extraction slice (library_ms: torch.matmul for the "
         "projections, the conv1d pair for the stem, scaled_dot_product_attention for the core "
         "-- yardsticks, not equivalents)")
@@ -6345,6 +6495,9 @@ def main() -> int:
     kernels[-2].update({k_: ltimes["fused_topk_encode_blocked"][k_] for k_ in (
         "split_ms", "encode_tflops", "select_passes_mean",
         "select_passes_max")})
+    for entry in kernels:
+        if entry["name"] == "sae_topk_backward":
+            entry["at_large32x"]["launches"] = path12["launches"]["sae_topk_backward_composed"]
     log(f"  whisper-large slice: {json.dumps({'step': ltimes['step'], 'losses': path12['losses'], 'train_s': path12['train_s']})}")
 
     lg_cli_b = min(LG_CLIPS, train_mod.EXTRACT_BATCH)

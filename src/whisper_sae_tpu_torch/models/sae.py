@@ -14,13 +14,15 @@ Dispatch follows the geometry, as in the JAX package (``models/sae.py:
 ``fused_loss_supported`` holds (the JAX package's budget: bf16 W_enc +
 W_dec within 48 MiB, H <= 40960; kernel A's wide route above D = 384 or
 H = 3072), else (whisper-tiny 128x, whisper-large) the composed
-``topk_sae_apply``; a bf16 ``topk_hidden_dense`` is ``fused_topk_encode``
-(kernel B wherever bf16 W_enc fits the JAX package's 48 MiB, up to H =
-65536 at whisper-tiny's D = 384; else the blocked encode, as at
-whisper-large 16x and wider, up to H = 2^20); an f32 ``topk_hidden_dense``
-is an f32 product (TF32 off) followed by kernel C
-(``ops.topk.topk_mask_dense``, its CTA-per-row form above H = 3072, up
-to H = 262,144).  The f32 latent of ``TopKSAE.encode`` and of the
+``topk_sae_apply`` -- as ``ops.cuda_sae.composed_sae_loss``, its forward
+under one autograd function whose backward is, on the card, the sparse
+entry over the selected latents; a bf16 ``topk_hidden_dense`` is
+``fused_topk_encode`` (kernel B wherever bf16 W_enc fits the JAX
+package's 48 MiB, up to H = 65536 at whisper-tiny's D = 384; else the
+blocked encode, as at whisper-large 16x and wider, up to H = 2^20); an
+f32 ``topk_hidden_dense`` is an f32 product (TF32 off) followed by
+kernel C (``ops.topk.topk_mask_dense``, its CTA-per-row form above H =
+3072, up to H = 262,144).  The f32 latent of ``TopKSAE.encode`` and of the
 causal patches (``topk_hidden_f32``) takes the route JAX's
 ``topk_hidden_dense`` takes on each backend: on the card
 ``fused_topk_encode`` writing f32 where D and H are multiples of 128,
@@ -52,7 +54,8 @@ from torch import nn
 
 from ..config import SAEConfig
 from ..ops.cuda_coder import coder_supported, fused_relu_sae_loss
-from ..ops.cuda_sae import fused_loss_supported, fused_sae_loss, fused_topk_encode
+from ..ops.cuda_sae import (composed_sae_loss, fused_loss_supported, fused_sae_loss,
+                            fused_topk_encode)
 from ..ops.topk import relu, topk_encode, topk_mask_dense
 from ..utils.checkpoint import load_pytree
 from ..utils.device import f32_matmuls, mm_f32, resolve_device
@@ -201,9 +204,13 @@ def topk_sae_loss(params, x: torch.Tensor, k: int, compute_dtype=torch.float32
                   ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Training loss -> (loss, {l0, active}).  bf16 is kernel A, the whole
     forward in one launch, where it holds the geometry; otherwise (and in
-    f32) the composed path."""
-    if compute_dtype == torch.bfloat16 and fused_loss_supported(*params["w_enc"].shape):
-        loss, l0, active = fused_sae_loss(
+    f32) the composed path: in bf16 ``composed_sae_loss``, the forward of
+    :func:`topk_sae_apply` with the backward over the selected latents (the
+    dense products on the CPU), in f32 autograd through
+    :func:`topk_sae_apply`."""
+    if compute_dtype == torch.bfloat16:
+        fused = fused_loss_supported(*params["w_enc"].shape)
+        loss, l0, active = (fused_sae_loss if fused else composed_sae_loss)(
             x, params["w_enc"], params["b_enc"], params["b_pre"], params["w_dec"],
             params["b_dec"], k,
         )

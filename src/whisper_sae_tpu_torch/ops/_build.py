@@ -21,7 +21,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("sae_kernels.cu", "encoder_kernels.cu", "attention_kernel.cu", "encoder_gemm.cu",
-            "coder_kernels.cu", "blocked_encode.cu")
+            "coder_kernels.cu", "blocked_encode.cu", "sae_backward.cu")
 _HEADERS = ("topk_common.cuh", "hopper_common.cuh", "encoder_gemm.cuh", "select_decode.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 # The kernels' compile-time limits, kept here as Python constants because
@@ -177,6 +177,13 @@ _SIGNATURES = {
         _I,
     ),
     "wst_gemm_tile": ([], _I),
+    "wst_sae_topk_bwd_max_d": ([], _I),
+    "wst_sae_topk_bwd_workspace_bytes": ([_I, _I, _I], _L),  # rows, d, h
+    "wst_sae_topk_bwd": (
+        [_I, _P, _P, _P, _P, _I, _I, _I,            # composed, hid, d_recon, xc, w_dec, rows, d, h
+         _P, _P, _P, _P, _P],                       # dw_enc, db_enc, dw_dec, ws, stream
+        _I,
+    ),
 }
 
 _lock = threading.Lock()

@@ -74,8 +74,15 @@ Each wrapper launches its kernel for CUDA tensors (or raises) and runs
 the plain PyTorch version beside it only for CPU tensors, counted in
 ``ops.topk.plain_calls``.  Each backward transcribes the JAX custom VJP
 (``_fused_loss_vjp_bwd`` :321-353, ``_fused_loss_indexed_vjp_bwd``
-:490-517, ``_bwd`` :123-143) as f32 products of bf16 operands
-(``mm_f32``), the counterpart of ``preferred_element_type=f32``.
+:490-517, ``_bwd`` :123-143).  On the CPU its products are dense f32
+products of bf16 operands (``mm_f32``), the counterpart of
+``preferred_element_type=f32``.  On the card the TopK SAE losses --
+kernel A's (:class:`_FusedLoss`) and the composed one
+(:func:`composed_sae_loss`, where kernel A does not hold) -- take their
+dW_enc, db_enc and dW_dec from one C entry over the selected latents
+alone, ``sae_topk_bwd`` (``csrc/sae_backward.cu``, which replaces no
+Pallas kernel: XLA ran these products), with each route's bf16 rounding
+points; only the order of f32 sums differs from the dense products.
 """
 
 from __future__ import annotations
@@ -178,6 +185,122 @@ def _check_operands(device: torch.device, **operands) -> None:
 
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# the step's backward over the selected latents
+# ---------------------------------------------------------------------------
+
+
+def _dense_dpre(hid, d_recon, wd_bf, composed):
+    """The dense gradient of the pre-activation [B, H] in f32, zero off the
+    selection, as each route's backward has it: kernel A's the f32 product
+    of the bf16 d_recon with W_dec; the composed route's the f32 product of
+    the f32 d_recon with W_dec, rounded to bf16 (the latent's gradient)."""
+    dhidden = mm_f32(d_recon, wd_bf.t())
+    if composed:
+        dhidden = dhidden.bfloat16().float()
+    # bf16 rounding keeps the sign, so hid > 0 is the f32 selection
+    return torch.where(hid > 0, dhidden, torch.zeros((), device=dhidden.device))
+
+
+def _dense_topk_backward(hid, d_recon, xc, wd_bf, composed):
+    """(dw_enc [D, H], db_enc [H], dw_dec [H, D]) as dense f32 products of
+    bf16 operands, the JAX custom VJPs' products (``_bwd`` :123-143,
+    ``_fused_loss_vjp_bwd`` :321-353): each route's CPU backward, and the
+    yardstick of :func:`sae_topk_backward`."""
+    dpre = _dense_dpre(hid, d_recon, wd_bf, composed)
+    dw_enc = mm_f32(xc.t(), dpre.bfloat16())
+    db_enc = dpre.sum(dim=0)  # f32 sums: a bf16 reduction loses ~1e-3
+    dw_dec = mm_f32(hid.t(), d_recon)
+    if composed:  # W_dec enters the decode as bf16
+        dw_dec = dw_dec.bfloat16().float()
+    return dw_enc, db_enc, dw_dec
+
+
+def sae_topk_backward_plain(hid, d_recon, xc, wd_bf, composed):
+    """Plain PyTorch version of ``wst_sae_topk_bwd`` (``csrc/sae_backward.cu``):
+    the positive entries of the latent ``hid`` [B, H] compacted row by row,
+    each entry's dot of its row of ``d_recon`` [B, D] with its row of
+    ``wd_bf`` [H, D] (f32 sums of exactly widened operands), then the
+    entries in feature-major order, rows ascending within a feature, and
+    the per-feature sums in that order.  Rounding points by route, as the
+    kernel's template: dpre rounded to bf16 before the dW_enc product;
+    ``composed`` also sums the rounded dpre into db_enc and rounds dW_dec
+    to bf16 after its sum.  -> (dw_enc [D, H], db_enc [H], dw_dec [H, D])
+    in f32."""
+    h, d = wd_bf.shape
+    dev = hid.device
+    b, f = (hid > 0).nonzero(as_tuple=True)  # row-major: the rows' lists in turn
+    drec = d_recon.float()
+    dots = (drec[b] * wd_bf[f].float()).sum(dim=1)
+    p_enc = dots.bfloat16().float()
+    p_db = p_enc if composed else dots
+    order = torch.sort(f, stable=True).indices  # feature-major, rows ascending
+    b, f, p_enc, p_db = b[order], f[order], p_enc[order], p_db[order]
+    hv = hid[b, f].float()
+    dw_dec = torch.zeros(h, d, device=dev).index_add_(0, f, hv[:, None] * drec[b])
+    dw_enc_t = torch.zeros(h, d, device=dev).index_add_(0, f, xc[b].float() * p_enc[:, None])
+    db_enc = torch.zeros(h, device=dev).index_add_(0, f, p_db)
+    if composed:
+        dw_dec = dw_dec.bfloat16().float()
+    return dw_enc_t.t().contiguous(), db_enc, dw_dec
+
+
+def sae_topk_backward(hid, d_recon, xc, wd_bf, composed):
+    """The TopK SAE step's backward over the selected latents, in one C
+    entry (``wst_sae_topk_bwd``): from the bf16 latent ``hid`` [B, H],
+    ``d_recon`` [B, D] (f32 on the composed route, else bf16), the centred
+    bf16 rows ``xc`` [B, D] and bf16 ``wd_bf`` [H, D], the f32 (dw_enc [D,
+    H], db_enc [H], dw_dec [H, D]) with the rounding points of kernel A's
+    route or, with ``composed``, of the composed route.  Launches are
+    counted in ``sae_topk_backward.launches``, the composed route's also
+    in ``.composed_launches``; a CPU tensor takes
+    :func:`sae_topk_backward_plain`."""
+    if hid.device.type == "cpu":
+        plain_calls["sae_topk_backward"] += 1
+        return sae_topk_backward_plain(hid, d_recon, xc, wd_bf, composed)
+    if hid.device.type != "cuda":
+        raise ValueError(f"sae_topk_backward: unsupported device {hid.device}")
+    rows, h = hid.shape
+    d = wd_bf.shape[1]
+    lib = _build.load_library()
+    max_d = lib.wst_sae_topk_bwd_max_d()
+    if d % 32 or h % 32 or d > max_d:
+        raise ValueError(f"sae_topk_backward takes D and H multiples of 32 and D <= {max_d} "
+                         f"(got D={d}, H={h})")
+    dev = hid.device
+    bf, f32 = torch.bfloat16, torch.float32
+    operands = dict(hid=(hid, bf, (rows, h)), d_recon=(d_recon, f32 if composed else bf, (rows, d)),
+                    xc=(xc, bf, (rows, d)), w_dec=(wd_bf, bf, (h, d)))
+    _check_operands(dev, **operands)
+    for name, (t, _, _) in operands.items():
+        if t.data_ptr() % 16:  # read in 8- and 16-byte runs
+            raise ValueError(f"sae_topk_backward: {name} must be 16-byte aligned")
+    dw_enc = torch.empty((d, h), dtype=f32, device=dev)
+    db_enc = torch.empty((h,), dtype=f32, device=dev)
+    dw_dec = torch.empty((h, d), dtype=f32, device=dev)
+    ws = torch.empty((lib.wst_sae_topk_bwd_workspace_bytes(rows, d, h),), dtype=torch.uint8,
+                     device=dev)
+    err = lib.wst_sae_topk_bwd(
+        int(composed), hid.data_ptr(), d_recon.data_ptr(), xc.data_ptr(), wd_bf.data_ptr(),
+        rows, d, h, dw_enc.data_ptr(), db_enc.data_ptr(), dw_dec.data_ptr(), ws.data_ptr(),
+        _stream(dev))
+    _build.check(err, "sae_topk_bwd")
+    sae_topk_backward.launches += 1
+    sae_topk_backward.composed_launches += int(composed)
+    return dw_enc, db_enc, dw_dec
+
+
+sae_topk_backward.launches = sae_topk_backward.composed_launches = 0
+
+
+def _backward_products(hid, d_recon, xc, wd_bf, composed):
+    """A route's (dw_enc, db_enc, dw_dec): the sparse entry on the card,
+    the dense products (:func:`_dense_topk_backward`) on the CPU."""
+    if hid.device.type == "cuda":
+        return sae_topk_backward(hid, d_recon, xc, wd_bf, composed)
+    return _dense_topk_backward(hid, d_recon, xc, wd_bf, composed)
 
 
 # ---------------------------------------------------------------------------
@@ -371,19 +494,14 @@ class _FusedLoss(torch.autograd.Function):
         b, d = resid.shape
         d_recon = resid * (2.0 * g_loss / (b * d))
         drec_bf = d_recon.bfloat16()
-        dhidden = mm_f32(drec_bf, wd_bf.t())
-        # bf16 rounding keeps the sign, so hid > 0 is the f32 selection
-        dpre = torch.where(hid > 0, dhidden, torch.zeros((), device=dhidden.device))
-        dpre_bf = dpre.bfloat16()
-        dw_enc = mm_f32(xc.t(), dpre_bf)
-        db_enc = dpre.sum(dim=0)  # f32 sums: a bf16 reduction loses ~1e-3
-        dw_dec = mm_f32(hid.t(), drec_bf)
+        dw_enc, db_enc, dw_dec = _backward_products(hid, drec_bf, xc, wd_bf, composed=False)
         db_dec = d_recon.sum(dim=0)
         # b_pre enters twice: +recon and -encode input
         db_pre = db_dec - mm_f32(db_enc[None], we_t)[0]
         dx = None
-        if ctx.needs_input_grad[0]:
+        if ctx.needs_input_grad[0]:  # the rows' gradient keeps the dense product
             row_offset, rows, n, dtype = ctx.window
+            dpre_bf = _dense_dpre(hid, drec_bf, wd_bf, composed=False).bfloat16()
             d_rows = mm_f32(dpre_bf, we_t) - d_recon
             dx = torch.zeros((n, d), dtype=torch.float32, device=d_rows.device)
             dx[row_offset:row_offset + rows] = d_rows
@@ -485,22 +603,29 @@ def topk_encode_route_plain(x, we_t, b_enc, b_pre, k, out_dtype, chunk=None):
     return out
 
 
+def _topk_encode_counted(x, we_t, b_enc, b_pre, k, out_dtype):
+    """The top-k encode's latent in ``out_dtype``: the C entry on the card,
+    counted as kernel B or as the blocked encode (:func:`uses_blocked`),
+    else the plain version, counted in ``plain_calls``."""
+    blocked = uses_blocked(*we_t.shape[::-1])
+    if x.device.type == "cuda":
+        hidden = _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype)
+        if x.shape[0] and blocked:
+            fused_topk_encode.blocked_launches += 1
+        elif x.shape[0]:
+            fused_topk_encode.launches += 1
+        return hidden
+    if x.device.type == "cpu":
+        plain_calls["fused_topk_encode_blocked" if blocked else "fused_topk_encode"] += 1
+        return topk_encode_plain(x, we_t, b_enc, b_pre, k, out_dtype)
+    raise ValueError(f"fused top-k encode: unsupported device {x.device}")
+
+
 class _TopKEncode(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_enc, b_enc, b_pre, k, out_dtype):
         we_t = _bf16_t(w_enc)
-        blocked = uses_blocked(*w_enc.shape)
-        if x.device.type == "cuda":
-            hidden = _topk_encode_launch(x, we_t, b_enc, b_pre, k, out_dtype)
-            if x.shape[0] and blocked:
-                fused_topk_encode.blocked_launches += 1
-            elif x.shape[0]:
-                fused_topk_encode.launches += 1
-        elif x.device.type == "cpu":
-            plain_calls["fused_topk_encode_blocked" if blocked else "fused_topk_encode"] += 1
-            hidden = topk_encode_plain(x, we_t, b_enc, b_pre, k, out_dtype)
-        else:
-            raise ValueError(f"fused top-k encode: unsupported device {x.device}")
+        hidden = _topk_encode_counted(x, we_t, b_enc, b_pre, k, out_dtype)
         ctx.save_for_backward(x, we_t, b_pre, hidden)
         return hidden
 
@@ -531,3 +656,54 @@ def fused_topk_encode(x, w_enc, b_enc, b_pre, k, out_dtype=torch.bfloat16):
 
 fused_topk_encode.launches = 0
 fused_topk_encode.blocked_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the composed loss: the top-k encode, the dense decode, the sparse backward
+# ---------------------------------------------------------------------------
+
+
+class _ComposedLoss(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w_enc, b_enc, b_pre, w_dec, b_dec, k):
+        we_t = _bf16_t(w_enc)
+        hidden = _topk_encode_counted(x, we_t, b_enc, b_pre, k, torch.bfloat16)
+        wd_bf = w_dec.detach().to(torch.bfloat16)
+        recon = mm_f32(hidden, wd_bf) + b_dec + b_pre
+        resid = recon - x
+        loss = torch.mean(torch.square(resid))
+        pos = hidden > 0
+        l0 = pos.sum(dim=-1).float().mean()
+        active = pos.any(dim=0)
+        ctx.save_for_backward(x, b_pre, hidden, resid, we_t, wd_bf)
+        ctx.mark_non_differentiable(l0, active)
+        return loss, l0, active
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_l0, _g_active):
+        x, b_pre, hid, resid, we_t, wd_bf = ctx.saved_tensors
+        # the mean's and the square's gradients as autograd forms them
+        d_recon = (g_loss / resid.numel()) * (2.0 * resid)
+        xc = (x.float() - b_pre).bfloat16()
+        dw_enc, db_enc, dw_dec = _backward_products(hid, d_recon, xc, wd_bf, composed=True)
+        db_dec = d_recon.sum(dim=0)
+        # b_pre enters twice: +recon and -encode input
+        db_pre = db_dec - mm_f32(db_enc[None], we_t)[0]
+        dx = None
+        if ctx.needs_input_grad[0]:  # the rows' gradient keeps the dense product
+            dpre_bf = _dense_dpre(hid, d_recon, wd_bf, composed=True).bfloat16()
+            dx = mm_f32(dpre_bf, we_t).to(x.dtype) + (-d_recon).to(x.dtype)
+        return dx, dw_enc, db_enc, db_pre, dw_dec, db_dec, None
+
+
+def composed_sae_loss(x, w_enc, b_enc, b_pre, w_dec, b_dec, k):
+    """(loss, l0, active) of a TopK SAE under AMP where kernel A does not
+    hold (whisper-tiny 128x, whisper-large): the forward of
+    ``models/sae.py:topk_sae_apply`` in bf16 -- the top-k encode, the
+    decode as the f32 product of the bf16 latent with bf16 W_dec, the
+    residual and the mean -- under one autograd function, whose backward
+    replaces autograd's dense products: on the card the sparse entry
+    (:func:`sae_topk_backward`, the composed route's rounding points), on
+    the CPU the same dense products.  The encode counts as
+    :func:`fused_topk_encode` does."""
+    return _ComposedLoss.apply(x, w_enc, b_enc, b_pre, w_dec, b_dec, k)

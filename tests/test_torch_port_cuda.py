@@ -13,6 +13,10 @@ order than the plain f32 product, so a row whose k-th and (k+1)-th
 values lie within that noise may select differently: at least 99.9% of
 rows must agree, the loss at rtol 1e-4, the latent and the residual of
 agreeing rows within bf16 rounding (atol 1e-2), gradients at rtol 2e-2.
+The step's sparse backward (``csrc/sae_backward.cu``) takes its latent as
+given, so only f32 sum order parts it from its plain version and the
+dense products: bit for bit on inputs whose sums are exact, else as its
+tests say.
 """
 
 from __future__ import annotations
@@ -1995,24 +1999,30 @@ def test_group_form_deterministic(dev, mode):
 def test_wide_dispatch_names_the_form(dev, mode, d, h):
     """The wide routes launch the select-and-decode ``_build.wide_form``
     names at each width (the group form at whisper-small 8x, the CTA-per-
-    row form at whisper-tiny 64x), once a chunk, and no other."""
+    row form at whisper-tiny 64x), once a chunk, and no other: in the
+    library's own count of the profiled calls, and in the profiler's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     names = {"kernel_a": WIDE_SELECT,
              "skip_transcoder": {"group": "coder_select_decode_group_kernel",
                                  "cta": "coder_select_decode_wide_kernel"}}[mode]
+    lib = _build.load_library()
+    count = lib.wst_sae_select_launches if mode == "kernel_a" else lib.wst_coder_select_launches
     _group_call(mode, d, h, 0, 512, 512, 56)
     torch.cuda.synchronize()
+    before = [count(0), count(1)]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             _group_call(mode, d, h, 0, 512, 512, 56)
         torch.cuda.synchronize()
+    made = [count(0) - before[0], count(1) - before[1]]
     keys = [e.key for e in prof.key_averages() for _ in range(e.count)
             if e.device_type == DeviceType.CUDA]
     form = _build.wide_form(h)
     assert form == ("group" if h <= 8192 else "cta")
-    assert sum(names[form] in key for key in keys) == 3, keys
+    assert made == ([3, 0] if form == "group" else [0, 3]), made
+    assert sum(names[form] in key for key in keys) == 3, (made, keys)
     other = names["cta" if form == "group" else "group"]
     assert not any(other in key for key in keys), keys
 
@@ -2048,3 +2058,209 @@ def test_group_form_refuses_misaligned_w_dec(dev):
     odd.copy_(ops.wd)
     with pytest.raises(ValueError, match="w_dec must be 4-byte aligned"):
         CC._coder_launch(xs, ys, 0, 16, ops._replace(wd=odd), k, True)
+
+
+# ---------------------------------------------------------------------------
+# the training step's backward over the selected latents
+# (csrc/sae_backward.cu: wst_sae_topk_bwd)
+# ---------------------------------------------------------------------------
+
+# tiny8x.train's and large32x.train's (rows, D, H) at k = 32
+BWD_SHAPES = [(32768, 384, 3072), (8192, 1280, 40960)]
+BWD_IDS = ["tiny8x", "large32x"]
+
+
+def _bwd_latent(rows, h, k, seed):
+    """A bf16 latent of small multiples of 1/4 with k features a row, and an
+    all-zero row, a row with k/2 entries, one with k + 3 (as a tie at the
+    k-th value gives), a feature every other row selects and 32 no row
+    selects."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    keys = torch.rand(rows, h, generator=g, device="cuda")
+    keys[:, h - 32:] = -1.0
+    top = keys.topk(k + 3, dim=1).indices
+    sel = torch.zeros(rows, h, dtype=torch.bool, device="cuda")
+    sel.scatter_(1, top[:, :k], True)
+    sel[1, top[1, k // 2:k]] = False
+    sel[2, top[2]] = True
+    sel[:, 3] = True
+    sel[0] = False
+    vals = torch.randint(1, 5, (rows, h), generator=g, device="cuda").float() * 0.25
+    return torch.where(sel, vals, 0.0).bfloat16()
+
+
+def _bwd_exact_inputs(rows, d, h, seed, composed):
+    """Inputs on which every f32 sum of the backward is exact in any order:
+    small multiples of powers of two, d_recon eight columns a row, so that
+    the kernel, its plain version and the dense products agree bit for bit
+    (|dpre| <= 1/2 in steps of 2^-6, each sum under 2^22 steps)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+
+    def ints(*shape):
+        return torch.randint(-2, 3, shape, generator=g, device="cuda").float() * 0.125
+
+    hid = _bwd_latent(rows, h, K, seed)
+    cols = torch.rand(rows, d, generator=g, device="cuda").topk(8, dim=1).indices
+    d_recon = torch.zeros(rows, d, device="cuda").scatter_(1, cols, ints(rows, 8))
+    d_recon = d_recon if composed else d_recon.bfloat16()
+    return hid, d_recon, ints(rows, d).bfloat16(), ints(h, d).bfloat16()
+
+
+def _bwd_real_inputs(rows, d, h, seed, composed):
+    """The latent of the route's forward on gaussian rows (kernel A's at
+    whisper-tiny 8x, the top-k encode's where kernel A does not hold) and
+    its d_recon, xc and bf16 W_dec."""
+    p, x = _params(seed, d, h), _rows(seed + 1, rows, d)
+    we_t, wd_bf = cuda_sae._bf16_t(p["w_enc"]), p["w_dec"].bfloat16()
+    if composed:
+        hid = cuda_sae._topk_encode_launch(x, we_t, p["b_enc"], p["b_pre"], K, torch.bfloat16)
+        xc = (x - p["b_pre"]).bfloat16()
+        recon = hid.float() @ wd_bf.float() + p["b_dec"] + p["b_pre"]
+        return hid, (recon - x) * (2.0 / x.numel()), xc, wd_bf
+    b_out = p["b_dec"] + p["b_pre"]
+    wide = not cuda_sae.row_kernels_hold(d, h)
+    _, _, _, hid, resid, xc = cuda_sae._fused_loss_launch(
+        x, 0, rows, we_t, p["b_enc"], p["b_pre"], wd_bf, b_out, K, wide)
+    return hid, (resid * (2.0 / resid.numel())).bfloat16(), xc, wd_bf
+
+
+@pytest.mark.parametrize("composed", [False, True], ids=["kernel_a", "composed"])
+@pytest.mark.parametrize("rows,d,h", BWD_SHAPES, ids=BWD_IDS)
+def test_sparse_backward_exact_at_the_cells_shapes(dev, rows, d, h, composed):
+    """On inputs whose sums are exact, the entry equals its plain version
+    and the dense products bit for bit, at both training cells' shapes."""
+    args = _bwd_exact_inputs(rows, d, h, 70, composed)
+    got = cuda_sae.sae_topk_backward(*args, composed)
+    with torch.no_grad():
+        plain = cuda_sae.sae_topk_backward_plain(*args, composed)
+        dense = cuda_sae._dense_topk_backward(*args, composed)
+    for name, g_, p_, d_ in zip(("dw_enc", "db_enc", "dw_dec"), got, plain, dense):
+        assert torch.equal(g_, d_), name
+        assert torch.equal(g_, p_), name
+
+
+def _leaf_gap(got, want):
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("composed", [False, True], ids=["kernel_a", "composed"])
+@pytest.mark.parametrize("rows,d,h", BWD_SHAPES, ids=BWD_IDS)
+def test_sparse_backward_matches_plain_and_dense(dev, rows, d, h, composed):
+    """On the route's own latent and residual the entry agrees with its
+    plain version and the dense products in f32 sum order: max |gap| <=
+    1e-5 max |g| where no bf16 rounding follows the sums (kernel A's
+    dW_dec and db_enc).  Where dpre is rounded to bf16 before the sum
+    (dW_enc; the composed route's db_enc), a dot whose f32 sums land on the
+    other side of a bf16 rounding boundary moves its entries' terms by one
+    bf16 step (~1e-4 max |g| on a column): there max |gap| <= 2^-8 max
+    |g| and the mean |gap| <= 1e-5 max |g|; where the sum itself is
+    rounded (the composed route's dW_dec), each element within one bf16
+    step of its own value."""
+    args = _bwd_real_inputs(rows, d, h, 71, composed)
+    got = cuda_sae.sae_topk_backward(*args, composed)
+    with torch.no_grad():
+        refs = (cuda_sae.sae_topk_backward_plain(*args, composed),
+                cuda_sae._dense_topk_backward(*args, composed))
+    for ref in refs:
+        for name, g_, w_ in zip(("dw_enc", "db_enc", "dw_dec"), got, ref):
+            top = float(w_.abs().max())
+            gap = (g_ - w_).abs()
+            if name == "dw_dec" and composed:
+                assert bool((gap <= 2.0 ** -7 * w_.abs() + 1e-5 * top).all()), name
+            elif name == "dw_enc" or composed:
+                assert float(gap.max()) <= 2.0 ** -8 * top, name
+                assert float(gap.mean()) <= 1e-5 * top, name
+            else:
+                assert float(gap.max()) <= 1e-5 * top, name
+
+
+@pytest.mark.parametrize("composed", [False, True], ids=["kernel_a", "composed"])
+@pytest.mark.parametrize("rows,d,h", BWD_SHAPES, ids=BWD_IDS)
+def test_sparse_backward_deterministic(dev, rows, d, h, composed):
+    """No float atomics: two calls give the same bits."""
+    args = _bwd_real_inputs(rows, d, h, 72, composed)
+    a = cuda_sae.sae_topk_backward(*args, composed)
+    b = cuda_sae.sae_topk_backward(*args, composed)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.parametrize("composed", [False, True], ids=["kernel_a", "composed"])
+def test_sparse_backward_ragged_shapes(dev, composed):
+    """Rows, D and H that are not multiples of the kernel's tiles (a
+    32-row mask word, 128 columns a warp, two warps a feature past 640)."""
+    for rows, d, h in ((37, 96, 352), (1000, 160, 64), (300, 736, 96), (65, 1312, 128)):
+        args = _bwd_exact_inputs(rows, d, h, 74 + rows, composed)
+        got = cuda_sae.sae_topk_backward(*args, composed)
+        want = cuda_sae._dense_topk_backward(*args, composed)
+        assert all(torch.equal(u, v) for u, v in zip(got, want)), (rows, d, h)
+
+
+def test_sparse_backward_refuses(dev):
+    hid, d_recon, xc, wd = _bwd_exact_inputs(64, 96, 352, 75, False)
+    with pytest.raises(ValueError, match="d_recon must be a contiguous torch.float32"):
+        cuda_sae.sae_topk_backward(hid, d_recon, xc, wd, True)
+    with pytest.raises(ValueError, match="hid must be"):
+        cuda_sae.sae_topk_backward(hid.float(), d_recon, xc, wd, False)
+    odd = torch.empty(xc.numel() + 4, dtype=torch.bfloat16, device=dev)[4:].view_as(xc)
+    odd.copy_(xc)
+    with pytest.raises(ValueError, match="xc must be 16-byte aligned"):
+        cuda_sae.sae_topk_backward(hid, d_recon, odd, wd, False)
+    max_d = _build.load_library().wst_sae_topk_bwd_max_d()
+    big = max_d + 32
+    with pytest.raises(ValueError, match=f"D <= {max_d}"):
+        cuda_sae.sae_topk_backward(hid, torch.zeros(64, big, device=dev).bfloat16(),
+                                   torch.zeros(64, big, device=dev).bfloat16(),
+                                   torch.zeros(352, big, device=dev).bfloat16(), False)
+
+
+def _trainer_step(d, h, rows, seed, tmp_path):
+    from whisper_sae_tpu_torch.config import TrainingConfig
+    from whisper_sae_tpu_torch.models.sae import TopKSAE
+    from whisper_sae_tpu_torch.training.trainer import SAETrainer
+
+    model = TopKSAE(d, h, K, seed=seed, device="cuda")
+    cfg = TrainingConfig(batch_size=rows, learning_rate=1e-4, epochs=1, warmup_steps=1,
+                         use_amp=True, seed=seed)
+    trainer = SAETrainer(model, cfg, run_dir=tmp_path)
+    trainer.setup_scheduler(4)
+    return trainer, _rows(seed, rows, d)
+
+
+@pytest.mark.parametrize("d,h,composed", [(384, 3072, False), (768, 6144, False),
+                                          (1280, 40960, True), (384, 49152, True)],
+                         ids=["tiny8x", "small8x", "large32x", "tiny128x"])
+def test_trainer_step_takes_the_sparse_backward(dev, d, h, composed, tmp_path, monkeypatch):
+    """One AMP training step launches the entry once -- kernel A's route
+    through the indexed epoch's loss and through ``train_step``, the
+    composed route where kernel A does not hold -- and no ``mm_f32``
+    product in the backward has a [B, H] operand: the only one left is
+    db_pre's [1, H] GEMV."""
+    from whisper_sae_tpu_torch.training import trainer as trainer_mod
+
+    rows = 512
+    trainer, x = _trainer_step(d, h, rows, 76, tmp_path)
+    assert trainer_mod.fused_loss_supported(d, h) != composed
+    shapes = []
+    real = cuda_sae.mm_f32
+
+    def recording(a, b):
+        shapes.append((tuple(a.shape), tuple(b.shape)))
+        return real(a, b)
+
+    entry = cuda_sae.sae_topk_backward
+    before = (entry.launches, entry.composed_launches)
+    params = trainer.model.params
+    loss, _ = trainer._loss_fn(params, x)
+    monkeypatch.setattr(cuda_sae, "mm_f32", recording)
+    torch.autograd.grad(loss, list(params.values()))
+    monkeypatch.setattr(cuda_sae, "mm_f32", real)
+    torch.cuda.synchronize()
+    assert (entry.launches - before[0], entry.composed_launches - before[1]) == (1, int(composed))
+    assert shapes == [((1, h), (h, d))], shapes
+    before = entry.launches
+    trainer.train_step(x)
+    assert entry.launches == before + 1
+    if not composed:
+        before = entry.launches
+        trainer.train_epoch_fused(torch.cat([x, x]), shuffle=False)
+        assert entry.launches == before + 2
