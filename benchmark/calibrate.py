@@ -2,22 +2,26 @@
 
     python3 benchmark/calibrate.py --workload tiny8x.train --seeds 1,2,3 [--out FILE]
 
-On the GPU, at the cell's own sizes, for each seed:
+On the GPU, at the cell's own sizes, for each seed, the readings of the
+cell's driver (``drivers/<kind>.py``, named by the mix's ``kind``): its
+module-level ``readings(drv)``, given a fresh ``Driver`` of the cell.
+A driver without one stops the calibration with its kind named.  Every
+kind's readings hold:
 
 - ``program``: the program's numbers against the plain reference, as a
-  run's check reads them (the training cells' first three steps and the
-  window call's two late steps; an extraction batch through the timed
-  call);
-- ``control``: the reference computed with fp8 operands, put in the
-  program's place;
-- the faults the cell can have, planted in the reference put in the
-  program's place: ``half`` (training: half of each batch left out, the
-  mean over the rest), ``offset`` (training: each late step's loss on
-  the rows of the step before it, as a read at the wrong offset into
-  the epoch's buffer gives) and ``answer`` (extraction: one clip's
-  captures swapped with another's).  A training step that leaves its
-  state unchanged reads 1 on ``delta3`` by its definition and needs no
-  run.
+  run's check reads them;
+- ``control``: the reference computed in the nearest precision below
+  the one the configuration states, put in the program's place;
+- the faults the cell can have, each under a name of its own.
+
+The training driver's: the first three steps and the window call's two
+late steps; the control in fp8; ``half`` (half of each batch left out,
+the mean over the rest) and ``offset`` (each late step's loss on the
+rows of the step before it, as a read at the wrong offset into the
+epoch's buffer gives).  A training step that leaves its state unchanged
+reads 1 on ``delta3`` by its definition and needs no run.  The
+extraction driver's: a batch through the timed call; the control in
+fp8; ``answer`` (one clip's captures swapped with another's).
 
 Prints one JSON line a seed and reading, and writes them all to
 ``--out``.  ``PERF.md`` gives the readings each limit was set from.
@@ -36,42 +40,14 @@ from harness.runner import program_on_path
 from harness.spec import ROOT, Spec
 
 
-def train_readings(drv) -> dict:
-    from reference import sae_train as ref
-
-    drv.setup()
-    late = drv.late_steps()
-    # the rows of the step before each late one: what a read at the wrong offset takes
-    prev = drv.window_rows([s - 1 for s in late])
-    drv.release()
-    bf16, bf16_late = drv.reference(), drv.late_reference()
-
-    def numbers(steps, late_losses):
-        return {**ref.compare(steps, bf16, drv.params0),
-                "late_loss": ref.late_gap(late_losses, bf16_late)}
-
-    offset = {s: ref.loss_at(drv.late["params"][s], prev[s - 1], drv.k) for s in late}
-    return {"program": numbers(drv.program, drv.late["loss"]),
-            "control": numbers(drv.reference("fp8"), drv.late_reference("fp8")),
-            "half": numbers(drv.reference(half=True), drv.late_reference(half=True)),
-            "offset": {"late_loss": ref.late_gap(offset, bf16_late)}}
-
-
-def extract_readings(drv) -> dict:
-    from reference import whisper_extract as ref
-
-    drv.build()
-    drv.unit()
-    drv.sync()
-    (j, enc, dec), = drv.kept.values()
-    mel, block = drv.mels[j], drv.traffic["reference_block"]
-    out = {"program": drv.check()}
-    enc8, dec8 = ref.captures(drv.params, drv.cfg, mel, "fp8", block)
-    out["control"] = ref.compare(drv.params, drv.cfg, mel, enc8, dec8, block=block)
-    swapped = enc.clone()
-    swapped[:, [0, 1]] = enc[:, [1, 0]]
-    out["answer"] = ref.compare(drv.params, drv.cfg, mel, swapped, dec, block=block)
-    return out
+def readings_for(spec: Spec, kind: str):
+    """``readings(drv)`` of the driver of ``kind`` (``drivers/<kind>.py``):
+    each kind of work brings the readings of its own limits."""
+    readings = getattr(spec.driver(kind), "readings", None)
+    if readings is None:
+        raise SystemExit(f"calibrate: the driver of kind {kind!r} (drivers/{kind}.py) has no "
+                         "readings(drv), so no limit of its cells can be read")
+    return readings
 
 
 def main() -> int:
@@ -82,11 +58,11 @@ def main() -> int:
     args = ap.parse_args()
     spec = Spec(ROOT)
     cell = spec.cell(args.workload)
-    device = guard.require_cards(int(cell["chips"]))
     cfg, traffic = spec.config(cell), spec.traffic(cell)
     program_on_path()
+    readings = readings_for(spec, traffic["kind"])
     driver = spec.driver(traffic["kind"]).Driver
-    readings = train_readings if traffic["kind"] == "train" else extract_readings
+    device = guard.require_cards(int(cell["chips"]))
     lines = []
     for seed in (int(s) for s in args.seeds.split(",")):
         t0 = time.perf_counter()

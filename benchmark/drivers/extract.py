@@ -94,3 +94,23 @@ class Driver:
                                block=self.traffic["reference_block"])
             worst = {k: max(v, gaps[k]) for k, v in worst.items()}
         return worst
+
+
+def readings(drv: Driver) -> dict:
+    """The readings that set this kind's limits (``calibrate.py``), for one
+    seed at the cell's sizes: ``program``, an extraction batch through the
+    timed call against the reference; ``control``, the reference in fp8
+    in the program's place; ``answer``, one clip's captures swapped with
+    another's."""
+    drv.build()
+    drv.unit()
+    drv.sync()
+    (j, enc, dec), = drv.kept.values()
+    mel, block = drv.mels[j], drv.traffic["reference_block"]
+    out = {"program": drv.check()}
+    enc8, dec8 = ref.captures(drv.params, drv.cfg, mel, "fp8", block)
+    out["control"] = ref.compare(drv.params, drv.cfg, mel, enc8, dec8, block=block)
+    swapped = enc.clone()
+    swapped[:, [0, 1]] = enc[:, [1, 0]]
+    out["answer"] = ref.compare(drv.params, drv.cfg, mel, swapped, dec, block=block)
+    return out

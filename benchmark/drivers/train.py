@@ -192,3 +192,29 @@ class Driver:
         numbers = ref.compare(self.program, self.reference(), self.params0)
         numbers["late_loss"] = ref.late_gap(self.late["loss"], self.late_reference())
         return numbers
+
+
+def readings(drv: Driver) -> dict:
+    """The readings that set this kind's limits (``calibrate.py``), for one
+    seed at the cell's sizes: ``program``, the run's numbers; ``control``,
+    the reference in fp8 in the program's place; ``half`` (half of each
+    batch left out, the mean over the rest) and ``offset`` (each late
+    step's loss on the rows of the step before it), the faults planted in
+    the reference.  A step that leaves its state unchanged reads 1 on
+    ``delta3`` by its definition and needs no run."""
+    drv.setup()
+    late = drv.late_steps()
+    # the rows of the step before each late one: what a read at the wrong offset takes
+    prev = drv.window_rows([s - 1 for s in late])
+    drv.release()
+    bf16, bf16_late = drv.reference(), drv.late_reference()
+
+    def numbers(steps, late_losses):
+        return {**ref.compare(steps, bf16, drv.params0),
+                "late_loss": ref.late_gap(late_losses, bf16_late)}
+
+    offset = {s: ref.loss_at(drv.late["params"][s], prev[s - 1], drv.k) for s in late}
+    return {"program": numbers(drv.program, drv.late["loss"]),
+            "control": numbers(drv.reference("fp8"), drv.late_reference("fp8")),
+            "half": numbers(drv.reference(half=True), drv.late_reference(half=True)),
+            "offset": {"late_loss": ref.late_gap(offset, bf16_late)}}

@@ -18,6 +18,16 @@ holds what is particular to a kind of work.  It has:
 - ``release()``: drops the program's state once the window has closed;
 - ``check()``: -> ``{number: value}``, the program's outputs against the
   plain reference, each compared with its limit in ``limits/<cell>.json``.
+
+and, beside the class, ``readings(drv)``: -> ``{reading: {number:
+value}}`` for one seed, ``program`` (the run's numbers), ``control``
+and the faults the kind can have; ``calibrate.py`` prints them, and the
+limits are set from them.
+
+What ``unit()`` returns is the work that the end-to-end rates count
+(``metrics/train_act_per_s.py``, ``metrics/extract_clips_per_s.py``),
+in a cell that the rate's ``workloads`` list names: a new kind reports
+a rate by returning that rate's unit of work, and by being listed.
 """
 
 from __future__ import annotations
@@ -45,6 +55,9 @@ class Run:
     trace: trace.Trace | None = None  # traced runs: the profiled window (``window``)
     host: dict = field(default_factory=dict)  # traced runs: the unprofiled window before it
     host_spans: dict = field(default_factory=dict)  # its spans' host seconds, a list each
+    # on the card, the allocator's bytes: ``window_start`` (allocated as the window opens),
+    # ``window_peak`` (the most while it ran), ``peak`` (the most in the run, set-up included)
+    memory: dict = field(default_factory=dict)
 
 
 def program_on_path() -> None:
@@ -80,6 +93,10 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, traced: bool,
         torch.cuda.reset_peak_memory_stats(device)
     drv.setup()
     run = Run(cell, cfg, traffic)
+    if cuda:
+        setup_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)  # from here, the window's own peak
+        run.memory["window_start"] = torch.cuda.memory_allocated(device)
     if traced:
         # the host-clock readings first, with no profiler's cost in them
         with spans.installed(drv.spans(), spans.timed(run.host_spans)):
@@ -89,7 +106,10 @@ def run_cell(spec: Spec, name: str, seed: int, seconds: float, traced: bool,
     else:
         run.window = _loop(drv, seconds)
         run.setup_s = run.window["t0"] - started
-    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    peak = 0
+    if cuda:
+        run.memory["window_peak"] = torch.cuda.max_memory_allocated(device)
+        peak = run.memory["peak"] = max(setup_peak, run.memory["window_peak"])
     guard.refuse_forbidden_modules()
     drv.release()
     numbers = drv.check()

@@ -1,9 +1,15 @@
-"""Extraction throughput: the clips of all batches the window completed
+"""Extraction throughput: the work of every call the window completed
 over the window's wall time, which ends in a synchronisation (host
-clock)."""
+clock).
+
+The work counted is whatever the cell's driver's ``unit()`` returns, in
+clips/s: for the extraction driver, the items (clips) of each
+extraction call's batch.  The metric's ``workloads`` list in
+``BENCHMARK.json`` chooses the cells that report it; the reader reads
+any of them."""
 
 
 def read(run):
-    if run.traffic["kind"] != "extract" or run.trace is not None:
+    if run.trace is not None:
         return None
     return run.window["work"] / run.window["seconds"]

@@ -1,6 +1,12 @@
-"""A toy copy of the benchmark for CPU runs: the real files, plus a
-configuration, two mixes and two cells small enough for the CPU, held to
-the whisper-tiny cells' limits."""
+"""A toy copy of the benchmark for CPU runs: the real files, plus a cell
+``toy.<kind>`` for each toy definition ``toys/<kind>.json``, small enough
+for the CPU and held to a real cell's limits.
+
+A toy definition holds ``config`` (``name``, the ``base`` configuration
+file under ``configs/`` and the keys it ``set``s), ``traffic`` (the toy
+mix's parameters, with its ``kind``) and ``limits`` (the real cell whose
+limits the toy cell borrows).  A kind of work that a later change adds
+brings its own toy definition beside its driver; nothing here changes."""
 
 from __future__ import annotations
 
@@ -13,41 +19,54 @@ import pytest
 
 BENCH = Path(__file__).resolve().parents[1]
 REPO = BENCH.parent
+TOYS = Path(__file__).resolve().parent / "toys"
 for p in (str(BENCH), str(REPO / "src")):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-TOY_TRAIN = {"kind": "train", "batch": 256, "steps_per_epoch": 4,
-             "shuffle": True, "schedule_total_steps": 100000, "trace_seconds": 0.2}
-TOY_EXTRACT = {"kind": "extract", "batch": 4, "pool": 2, "mel_frames": 64, "mel_scale": 0.5,
-               "warm_batches": 1, "trace_seconds": 0.2, "reference_block": 2}
+TOY_TRAIN = json.loads((TOYS / "train.json").read_text())["traffic"]
 
 
-def make_toy(root: Path) -> Path:
-    """``root`` holding ``BENCHMARK.json`` and ``benchmark/`` with the toy
-    cells ``toy.train`` and ``toy.extract`` added as files and entries."""
-    bench = root / "benchmark"
-    shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    spec = json.loads((REPO / "BENCHMARK.json").read_text())
-    cfg = json.loads((bench / "configs/whisper-tiny.topk8x.json").read_text())
-    cfg.update(name="toy", d_model=128, encoder_layers=1, decoder_layers=1,
-               encoder_attention_heads=2, decoder_attention_heads=2, encoder_ffn_dim=256,
-               decoder_ffn_dim=256, num_mel_bins=16, max_source_positions=32,
-               max_target_positions=8)
-    (bench / "configs/toy.json").write_text(json.dumps(cfg))
-    (bench / "traffic/toy-train.json").write_text(json.dumps(TOY_TRAIN))
-    (bench / "traffic/toy-extract.json").write_text(json.dumps(TOY_EXTRACT))
-    for kind in ("train", "extract"):
-        shutil.copy(bench / f"limits/tiny8x.{kind}.json", bench / f"limits/toy.{kind}.json")
-    spec["configs"].append({"name": "toy", "source": "https://example.org/toy",
-                            "file": "benchmark/configs/toy.json", "reduced": [], "why": "toy"})
-    spec["workloads"] += [{"name": f"toy.{k}", "config": "toy", "traffic": f"toy-{k}",
-                           "chips": 1, "why": "toy"} for k in ("train", "extract")]
+def add_toy(root: Path, kind: str, toy: dict) -> None:
+    """The cell ``toy.<kind>`` in the toy tree at ``root``, as new files and
+    entries: its configuration (once for toys that share it), its mix
+    ``toy-<kind>``, its borrowed limits, and a place in each metric's
+    ``workloads`` that lists a cell of the same kind (read from the cells'
+    mixes, not their names)."""
+    bench, spec_path = root / "benchmark", root / "BENCHMARK.json"
+    spec = json.loads(spec_path.read_text())
+    c = toy["config"]
+    cfg = {**json.loads((bench / "configs" / c["base"]).read_text()), **c["set"],
+           "name": c["name"]}
+    cfg_path = bench / "configs" / f"{c['name']}.json"
+    if cfg_path.exists():  # another toy's: they have to agree
+        assert json.loads(cfg_path.read_text()) == cfg, f"toy {kind!r} redefines {c['name']!r}"
+    else:
+        cfg_path.write_text(json.dumps(cfg))
+        spec["configs"].append({"name": c["name"], "source": "https://example.org/toy",
+                                "file": f"benchmark/configs/{c['name']}.json", "reduced": [],
+                                "why": "toy"})
+    assert toy["traffic"]["kind"] == kind, f"toys/{kind}.json's mix is of another kind"
+    (bench / "traffic" / f"toy-{kind}.json").write_text(json.dumps(toy["traffic"]))
+    if "limits" in toy:
+        shutil.copy(bench / "limits" / f"{toy['limits']}.json", bench / "limits" / f"toy.{kind}.json")
+    kinds = {w["name"]: json.loads((bench / "traffic" / f"{w['traffic']}.json").read_text())["kind"]
+             for w in spec["workloads"]}
+    spec["workloads"].append({"name": f"toy.{kind}", "config": c["name"], "traffic": f"toy-{kind}",
+                              "chips": 1, "why": "toy"})
     for m in spec["end_to_end"] + spec["per_layer"]:
-        if "workloads" in m:
-            kind = "train" if any(w.endswith(".train") for w in m["workloads"]) else "extract"
+        if any(kinds.get(w) == kind for w in m.get("workloads", [])):
             m["workloads"].append(f"toy.{kind}")
-    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    spec_path.write_text(json.dumps(spec))
+
+
+def make_toy(root: Path, toys: Path = TOYS) -> Path:
+    """``root`` holding ``BENCHMARK.json`` and ``benchmark/`` copied from the
+    checkout, with a toy cell added for each definition in ``toys``."""
+    shutil.copytree(BENCH, root / "benchmark", ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(REPO / "BENCHMARK.json", root / "BENCHMARK.json")
+    for path in sorted(toys.glob("*.json")):
+        add_toy(root, path.stem, json.loads(path.read_text()))
     return root
 
 

@@ -258,3 +258,24 @@ def test_trace_attribution_busy_and_breakdown():
     assert b["device_ops"][0] == ["bwd_kernel", pytest.approx(100e-6)]
     assert b["idle_gaps"][0] == ["bench.window", pytest.approx(410e-6)]
     assert b["idle_gaps"][1] == ["aten::randperm", pytest.approx(340e-6)]
+
+
+def test_the_memory_readers_read_the_allocators_bytes(toy_root):
+    """``train_memory_peak_gb`` reads the run's peak in untraced runs and
+    ``memory.train.window_gb`` the window's own rise in traced ones; off
+    the card, where the runner records no bytes, both give None."""
+    from harness.runner import Run
+
+    spec = Spec(toy_root)
+    peak, window = spec.reader("train_memory_peak_gb"), spec.reader("memory.train.window_gb")
+    card = {"window_start": 3_000_000_000, "window_peak": 4_250_000_000, "peak": 5_500_000_000}
+    profiled = Trace([{"ph": "X", "cat": "user_annotation", "name": "bench.window",
+                       "ts": 0.0, "dur": 1e6}])
+    untraced = Run({}, {}, {}, memory=dict(card))
+    traced = Run({}, {}, {}, trace=profiled, memory=dict(card))
+    assert peak.read(untraced) == 5.5 and window.read(untraced) is None
+    assert window.read(traced) == 1.25 and peak.read(traced) is None
+    assert peak.read(Run({}, {}, {})) is None
+    assert window.read(Run({}, {}, {}, trace=profiled)) is None
+    cpu = _run(toy_root, "toy.train")
+    assert "train_memory_peak_gb" not in cpu["metrics"] and cpu["device"]["memory_peak_bytes"] == 0

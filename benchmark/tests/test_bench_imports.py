@@ -49,7 +49,11 @@ import run, calibrate
 
 
 def test_the_reference_loads_nothing_of_the_port():
-    loaded = _top_level_modules(
-        "import reference.sae_train, reference.whisper_extract, reference.lowp, counts.sae,"
-        " counts.whisper, inputs.sae, inputs.whisper")
+    """Every module under ``reference/``, ``counts/`` and ``inputs/``, found
+    by glob: a new kind's reference is held to this as it is added."""
+    modules = sorted(f"{d}.{p.stem}" for d in ("reference", "counts", "inputs")
+                     for p in (BENCH / d).glob("*.py") if p.stem != "__init__")
+    assert {"reference.sae_train", "reference.whisper_extract", "counts.sae",
+            "inputs.whisper"} <= set(modules)
+    loaded = _top_level_modules("import " + ", ".join(modules))
     assert not loaded & {"whisper_sae_tpu_torch", *FORBIDDEN}
